@@ -1,0 +1,34 @@
+"""recsys_tpu_torch — the PyTorch/CUDA port of recsys_tpu.
+
+A second package beside the JAX reference (``recsys_tpu``), written for
+one NVIDIA H100: plain PyTorch around hand-written CUDA kernels for
+Hopper (``csrc/``), each with a plain PyTorch version that the CPU runs.
+It imports neither ``jax`` nor anything of ``recsys_tpu``; it keeps its
+own copy of what it needs (``config``). Params use the JAX package's
+tree layout, so inference bundles load in either package.
+
+Ported so far: the serving path (bundle I/O, towers, DCN trunk and heads
+in inference mode, exact top-k retrieval, the device recommendation
+service and the threaded HTTP server).
+"""
+
+from recsys_tpu_torch.config import (
+    DataConfig,
+    EvalConfig,
+    MeshConfig,
+    ModelConfig,
+    RecsysConfig,
+    TrainConfig,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "RecsysConfig",
+    "ModelConfig",
+    "DataConfig",
+    "TrainConfig",
+    "MeshConfig",
+    "EvalConfig",
+    "__version__",
+]

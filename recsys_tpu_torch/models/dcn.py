@@ -1,0 +1,67 @@
+"""Deep & Cross Network (DCNv1, rank-1 cross vectors), inference mode
+(the counterpart of ``recsys_tpu/models/dcn.py``).
+
+* cross layers ``x_{l+1} = x0 * (x_l . w_l) + b_l + x_l``, all L of them
+  in one call of :func:`recsys_tpu_torch.ops.dcn_cross.dcn_cross` (the
+  CUDA kernel on the card, its plain version on the CPU);
+* a parallel deep MLP (relu on every layer) over ``dnn_dims``;
+* output ``concat(cross_out, deep_out)``.
+
+Numerics follow the JAX package's kernel branch (``use_pallas_dcn=True``)
+whatever ``use_pallas_dcn`` says: under ``mixed_precision`` the input is
+rounded to bf16, the cross stack runs in fp32 on it and its output is
+rounded to bf16 again; the deep branch takes bf16 operands with fp32
+accumulation. The JAX package's XLA branch instead runs the cross stack
+in bf16, so the two agree only to bf16 tolerance there.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from recsys_tpu_torch.config import ModelConfig
+from recsys_tpu_torch.models import layers as L
+from recsys_tpu_torch.ops.dcn_cross import dcn_cross
+from recsys_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+class DeepCrossNetwork:
+    @staticmethod
+    def init(generator: torch.Generator, cfg: ModelConfig, input_dim: int,
+             device: DeviceLike = "cuda") -> Dict:
+        device = resolve_device(device)
+        return {
+            "cross": {
+                f"layer_{i}": {
+                    "w": L.glorot(generator, (input_dim, 1), device)[:, 0].contiguous(),
+                    "b": torch.zeros((input_dim,), dtype=torch.float32, device=device),
+                }
+                for i in range(cfg.cross_layers)
+            },
+            "deep": L.init_mlp(generator, [input_dim, *cfg.dnn_dims], device),
+        }
+
+    @staticmethod
+    def output_dim(cfg: ModelConfig, input_dim: int) -> int:
+        return input_dim + (cfg.dnn_dims[-1] if cfg.dnn_dims else 0)
+
+    @staticmethod
+    def apply(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        bf16 = cfg.mixed_precision
+        x0 = L.round_bf16(x) if bf16 else x.float()
+        if cfg.cross_layers > 0:
+            layers = [params["cross"][f"layer_{i}"] for i in range(cfg.cross_layers)]
+            w = torch.stack([p["w"] for p in layers])
+            b = torch.stack([p["b"] for p in layers])
+            xl = dcn_cross(x0.contiguous(), w, b)
+            if bf16:
+                xl = L.round_bf16(xl)
+        else:
+            xl = x0
+        if not params["deep"]:
+            return xl
+        deep = L.mlp(params["deep"], x0, activation=torch.relu,
+                     final_activation=torch.relu, bf16=bf16)
+        return torch.cat([xl, deep], dim=-1)

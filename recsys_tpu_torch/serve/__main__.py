@@ -1,0 +1,50 @@
+"""Serving CLI of the port (the counterpart of ``scripts/serve.py``).
+
+Usage:
+  python -m recsys_tpu_torch.serve --model_dir outputs/models/experiment_001/serving \\
+      [--rerank_candidates 200] [--device cuda|cpu] [--host 0.0.0.0] [--port 8000]
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Serve recommendations over HTTP "
+                                             "(PyTorch/CUDA port)")
+    ap.add_argument("--model_dir", default="outputs/models/experiment_001/serving")
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the towers, top-k and rerank run (cuda "
+                         "raises at load if no card is present)")
+    ap.add_argument("--stub", action="store_true",
+                    help="serve the model-free stub service (degraded mode)")
+    ap.add_argument("--rerank_candidates", type=int, default=0,
+                    help="two-stage serving: retrieve this many candidates "
+                         "and rerank with the DCN heads (0 = retrieval "
+                         "only; needs model.npz)")
+    ap.add_argument("--rerank_ctr_weight", type=float, default=0.25,
+                    help="weight of the CTR logit in the rerank score")
+    ap.add_argument("--rerank_rating_weight", type=float, default=0.0,
+                    help="weight of the rating prediction in the rerank score")
+    args = ap.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s: %(message)s")
+
+    from recsys_tpu_torch.serve.app import serve_forever
+
+    serve_forever(args.model_dir, args.host, args.port, stub=args.stub,
+                  rerank_candidates=args.rerank_candidates,
+                  rerank_ctr_weight=args.rerank_ctr_weight,
+                  rerank_rating_weight=args.rerank_rating_weight,
+                  device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
