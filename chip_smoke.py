@@ -22,8 +22,24 @@
 7. times ``recommend`` and a 64-user ``recommend_batch`` through the
    service and traces them with ``torch.profiler``: device time per
    request, the device's busy share, and the kernels that take it;
-8. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+8. trains: a synthetic MovieLens-1M-sized bundle (6,040 users, 3,883
+   items with Zipf-skewed popularity, 200,000 train and 25,000 val rows,
+   from ``SEED``) through ``Trainer(..., device="cuda").train`` at the
+   full-width ``ModelConfig`` defaults, batch 8,192, 2 epochs (the
+   "auto" policy takes the flash CE kernels there), with the launch
+   counters set to 0 just before and read just after; checks the losses,
+   the artifacts and that every training kernel launched;
+9. serves the trained bundle through phase 4's requests;
+10. trains 3 steps of 8,192 rows from one full-width init (dropout 0) on
+    the card and, through the plain versions, on the CPU, and compares
+    the loss trajectories and the params;
+11. holds the training kernels (flash CE forward and fused backward,
+    DCN backward) against their plain versions at the training shapes
+    and times them as in phase 6, then profiles a full train step with
+    and without the flash kernels at batch 4,096 and 8,192 as phase 7
+    profiles a request;
+12. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line. Without a
 CUDA device it exits 2 before doing anything.
@@ -50,9 +66,34 @@ BATCH_USERS = 64
 # bandwidth and operations / rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12  # dense tensor-core rate
+SFU_EXP_PER_CLOCK_PER_SM = 16  # exponentials on the special-function units
 TOPK_TOL = 1e-5  # fp32 scores in [-1, 1]: summation order only
-DCN_TOL = 1e-5   # relative to max(1, max|ref|): summation order only
+DCN_TOL = 1e-5   # relative to max(1, max|ref|) (backward: own max|ref|): summation order
 SERVE_TOL = 2e-3  # GPU vs CPU rerank score: one bf16 ulp of the DCN output
+# flash CE kernels against their plain versions, each output relative to
+# its own max|ref|: fp32 sums in another order (bf16 products are exact
+# in fp32), so 1e-5 for lse, the positive logit, dcol (summed from the
+# fp32 p*g) and every output of fp32 operands
+FLASH_TOL = 1e-5
+# dU and dV of bf16 operands: both round p*g to bf16 before the products,
+# and where the two logits differ in their last fp32 bit a p*g can round
+# to the neighbouring bf16 value, moving one term of a sum by up to 2**-7
+# of itself; no single term comes near the largest output. A dropped or
+# wrong dU or dV is off by the order of the output itself.
+FLASH_BF16_GRAD_TOL = 2.0 ** -8
+N_TRAIN, N_VAL = 200_000, 25_000
+TRAIN_BATCH = 8192
+TRAIN_EPOCHS = 2
+ZIPF_EXPONENT = 1.0  # item popularity ~ rank**-1
+PARITY_STEPS = 3
+# card (kernels) against CPU (plain versions) after 3 adagrad steps from
+# one init: the loss to 1e-3 relative; each param to 2e-4 absolute, about
+# 2% of the largest possible move of 3 steps (3 * lr / sqrt(0.1) = 9.5e-3):
+# the sums run in other orders and single bf16 roundings of activations
+# and gradients can land one ulp apart (2**-8 relative)
+PARITY_LOSS_RTOL = 1e-3
+PARITY_PARAM_ATOL = 2e-4
 
 
 def log(msg: str) -> None:
@@ -140,8 +181,13 @@ def device_ms(fn, iters: int, kernel: str = "") -> tuple:
     return total / 1e3 / iters, named / 1e3 / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOPS
+def bound_ms(n_bytes: float, n_ops: float, flops: float = FP32_FLOPS,
+             n_exp: float = 0.0, exp_per_s: float = 1.0):
+    """The least time of a call: the larger of its bytes over the HBM rate
+    and its operations (products at ``flops``, exponentials at
+    ``exp_per_s``, whichever takes longer)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(n_ops / flops, n_exp / exp_per_s)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -342,47 +388,416 @@ def measure_dcn(x0, w, b, iters: int) -> dict:
     }
 
 
-def profile_requests(svc, batch) -> list:
-    """Phase 7: per-request latency through the service (no HTTP),
-    host clock with the profiler off (median and p90 of 50 calls), then a
-    traced window of 20 calls: device time per call, the device's busy
-    share of the traced wall time, and the kernels that take it."""
+# ---- training -----------------------------------------------------------
+
+def synthetic_bundle(seed: int) -> dict:
+    """A MovieLens-1M-sized bundle in the JAX package's keys: 6,040 users,
+    3,883 items with Zipf-skewed popularity, 200,000 train and 25,000 val
+    and test rows; ratings from 8-dim random user and item factors plus
+    noise, so the heads have something to learn."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pop = np.arange(1, N_ITEMS + 1, dtype=np.float64) ** -ZIPF_EXPONENT
+    pop = pop[rng.permutation(N_ITEMS)]
+    pop /= pop.sum()
+    n = N_TRAIN + 2 * N_VAL
+    users = rng.integers(0, N_USERS, n).astype(np.int32)
+    items = rng.choice(N_ITEMS, n, p=pop).astype(np.int32)
+    fu = rng.standard_normal((N_USERS, 8))
+    fi = rng.standard_normal((N_ITEMS, 8))
+    score = (fu[users] * fi[items]).sum(axis=1) / np.sqrt(8.0)
+    rating = np.clip(np.rint(3.5 + score + 0.5 * rng.standard_normal(n)), 1, 5)
+    rating = rating.astype(np.float32)
+    bundle = {"meta/n_users": np.int64(N_USERS), "meta/n_movies": np.int64(N_ITEMS),
+              "meta/user_raw_ids": np.arange(1, N_USERS + 1, dtype=np.int64),
+              "meta/movie_raw_ids": np.arange(1, N_ITEMS + 1, dtype=np.int64)}
+    bounds = {"train": (0, N_TRAIN), "val": (N_TRAIN, N_TRAIN + N_VAL),
+              "test": (N_TRAIN + N_VAL, n)}
+    for split, (lo, hi) in bounds.items():
+        bundle[f"{split}/user_id"] = users[lo:hi]
+        bundle[f"{split}/movie_id"] = items[lo:hi]
+        bundle[f"{split}/rating"] = rating[lo:hi]
+        bundle[f"{split}/y_implicit"] = (rating[lo:hi] >= 4.0).astype(np.float32)
+    return bundle
+
+
+def train_main_path(bundle: dict, counters, out_dir: str) -> dict:
+    """Phase 8: ``Trainer.train`` on the card at the full-width defaults,
+    every kernel counter set to 0 just before and read just after."""
+    import json as _json
+    import math
+
+    import torch
+    from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
+    from recsys_tpu_torch.train.trainer import Trainer
+
+    cfg = RecsysConfig(model=ModelConfig(),
+                       train=TrainConfig(batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS))
+    trainer = Trainer(cfg, out_dir, device="cuda")
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    report = trainer.train(bundle)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.name: c.read() for c in counters}
+    with open(os.path.join(out_dir, "detailed_metrics.json")) as f:
+        hist = _json.load(f)["epochs"]
+    check(len(hist) == TRAIN_EPOCHS, f"train: {len(hist)} epochs logged")
+    for e in hist:
+        for k in ("train_loss", "val_loss", "train_retrieval_loss"):
+            check(math.isfinite(e[k]), f"train: epoch {e['epoch']} {k} = {e[k]}")
+    check(hist[-1]["train_loss"] < hist[0]["train_loss"],
+          f"train: loss did not fall ({hist[0]['train_loss']} -> {hist[-1]['train_loss']})")
+    for rel in ("metrics.json", "training_log.csv", "config.json", "serving/model.npz",
+                "serving/encoder.npz", "serving/index.npz", "serving/vocabs.json",
+                "serving/config.json"):
+        check(os.path.exists(os.path.join(out_dir, rel)), f"train: {rel} missing")
+    ckpts = [n for n in os.listdir(os.path.join(out_dir, "checkpoints"))
+             if n.startswith("ckpt_")]
+    check(len(ckpts) == TRAIN_EPOCHS, f"train: checkpoints {ckpts}")
+    check(math.isfinite(report["recall@10"]) and 0.0 <= report["recall@10"] <= 1.0,
+          f"train: recall@10 {report['recall@10']}")
+    steps = N_TRAIN // TRAIN_BATCH
+    last = hist[-1]
+    return {"launches": launches, "wall_s": wall, "steps_per_epoch": steps,
+            "epoch_losses": [e["train_loss"] for e in hist],
+            "val_losses": [e["val_loss"] for e in hist],
+            # host clock around each epoch, ending in a device sync;
+            # epoch 0 carries the lazy CUDA / cuBLAS set-up
+            "steps_per_s": [steps / e["epoch_time_s"] for e in hist],
+            "examples_per_s": [e["examples_per_s"] for e in hist],
+            "last_epoch_time_s": last["epoch_time_s"],
+            "recall@10": report["recall@10"], "ctr_auc": report.get("ctr_auc"),
+            "rating_rmse": report["rating_rmse"]}
+
+
+def _batches(bundle: dict, n_steps: int, b: int, device: str, log_q) -> list:
+    import torch
+
+    out = []
+    for i in range(n_steps):
+        sl = slice(i * b, (i + 1) * b)
+        batch = {c: torch.as_tensor(bundle[f"train/{c}"][sl]).to(device)
+                 for c in ("user_id", "movie_id", "rating", "y_implicit")}
+        batch["log_q"] = torch.as_tensor(log_q[bundle["train/movie_id"][sl]]).to(device)
+        out.append(batch)
+    return out
+
+
+def _log_q(bundle: dict):
+    import numpy as np
+
+    pop = np.bincount(bundle["train/movie_id"], minlength=N_ITEMS).astype(np.float32)
+    return np.log(np.maximum(pop, 0.5) / len(bundle["train/movie_id"])).astype(np.float32)
+
+
+def train_parity(bundle: dict, tmp: str) -> dict:
+    """Phase 10: 3 steps from one full-width init on the card (kernels)
+    and on the CPU (plain versions), the same batches, dropout 0."""
+    import numpy as np
+    import torch
+    from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
+    from recsys_tpu_torch.models.losses import balanced_class_weights
+    from recsys_tpu_torch.models.multitask import MultiTaskModel
+    from recsys_tpu_torch.train.checkpoint import params_from_numpy, params_to_numpy
+    from recsys_tpu_torch.train.optimizer import leaves_with_paths
+    from recsys_tpu_torch.train.trainer import Trainer
+
+    cfg = RecsysConfig(model=ModelConfig(dropout_rate=0.0, use_flash_ce=True),
+                       train=TrainConfig(batch_size=TRAIN_BATCH))
+    init = params_to_numpy(MultiTaskModel.init(torch.Generator().manual_seed(SEED + 2),
+                                               cfg.model, N_USERS, N_ITEMS, "cpu"))
+    cw = balanced_class_weights(bundle["train/y_implicit"])
+    log_q = _log_q(bundle)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        tr = Trainer(cfg, os.path.join(tmp, f"parity_{device}"), device=device)
+        state = tr.state_from_params(params_from_numpy(init, device), SEED)
+        step = tr._step_core(cw)
+        t0 = time.perf_counter()
+        loss = []
+        for batch in _batches(bundle, PARITY_STEPS, TRAIN_BATCH, device, log_q):
+            state, m = step(state, batch)
+            loss.append(float(m["loss"]))
+        runs[device] = {"loss": loss, "s": time.perf_counter() - t0,
+                        "params": dict(leaves_with_paths(params_to_numpy(state.params)))}
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(gpu["loss"], cpu["loss"]))
+    check(loss_err <= PARITY_LOSS_RTOL,
+          f"parity: loss {gpu['loss']} vs CPU {cpu['loss']} ({loss_err} > {PARITY_LOSS_RTOL})")
+    param_err, worst = 0.0, ""
+    for path, want in cpu["params"].items():
+        err = float(np.abs(gpu["params"][path] - want).max())
+        if err > param_err:
+            param_err, worst = err, "/".join(path)
+    moved = max(float(np.abs(cpu["params"][p] - np.asarray(v)).max())
+                for p, v in leaves_with_paths(init))
+    check(param_err <= PARITY_PARAM_ATOL,
+          f"parity: params differ by {param_err} at {worst} > {PARITY_PARAM_ATOL}")
+    return {"loss_card": gpu["loss"], "loss_cpu": cpu["loss"], "loss_max_rel_err": loss_err,
+            "param_max_abs_err": param_err, "param_worst": worst,
+            "param_max_move": moved, "card_s": gpu["s"], "cpu_s": cpu["s"]}
+
+
+def _errs(got, want) -> tuple:
+    """-> (max |got - want|, the same over max |want|), over the pairs."""
+    abs_err = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    rel_err = [e / max(float(b.abs().max()), 1e-30) for e, b in zip(abs_err, want)]
+    return max(abs_err), rel_err
+
+
+def check_flash(u, v, c, ids_q, ids_k, pos, g) -> dict:
+    """Both flash CE kernels against their plain versions on the same
+    inputs, each output relative to its own max|ref|: lse, positive logit
+    and dcol within FLASH_TOL; dU and dV within FLASH_TOL for fp32
+    operands and FLASH_BF16_GRAD_TOL for bf16 ones. -> max absolute and
+    relative errors, and the reference lse."""
+    import torch
+    from recsys_tpu_torch.ops import flash_ce as F
+
+    lse, pl = F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos)
+    torch.cuda.synchronize()
+    rl, rp = F.flash_ce_fwd_reference(u, v, c, ids_q, ids_k, pos)
+    what = f"flash CE Bq={u.shape[0]} Bk={v.shape[0]} D={u.shape[1]} {u.dtype}"
+    fwd_abs, fwd_rel = _errs((lse, pl), (rl, rp))
+    check(bool(torch.isfinite(lse).all()), f"{what}: non-finite lse")
+    check(max(fwd_rel) <= FLASH_TOL, f"{what}: forward err {fwd_rel} > {FLASH_TOL}")
+    got = F.flash_ce_bwd(u, v, c, ids_q, ids_k, pos, rl, g)
+    torch.cuda.synchronize()
+    want = F.flash_ce_bwd_reference(u, v, c, ids_q, ids_k, pos, rl, g)
+    bwd_abs, bwd_rel = _errs(got, want)
+    grad_tol = FLASH_BF16_GRAD_TOL if u.dtype == torch.bfloat16 else FLASH_TOL
+    check(all(bool(torch.isfinite(t).all()) for t in got), f"{what}: non-finite grads")
+    for name, err, tol in zip(("dU", "dV", "dcol"), bwd_rel, (grad_tol, grad_tol, FLASH_TOL)):
+        check(err <= tol, f"{what}: {name} err {err} of max|ref| > {tol}")
+    return {"fwd_abs": fwd_abs, "fwd_rel": max(fwd_rel), "bwd_abs": bwd_abs,
+            "bwd_rel": dict(zip(("dU", "dV", "dcol"), bwd_rel)), "lse": rl}
+
+
+def check_dcn_bwd(x0, w, b, g) -> tuple:
+    """The DCN backward kernel against its plain version: dx0, dw and db
+    each within DCN_TOL of its own max|ref| -> (max absolute error, max
+    relative error)."""
+    import torch
+    from recsys_tpu_torch.ops import dcn_cross as D
+
+    out, resid = D._forward(x0, w, b, keep_resid=True)
+    got = D.dcn_cross_bwd(x0, w, resid, g)
+    torch.cuda.synchronize()
+    want = D.dcn_cross_bwd_reference(x0, w, resid, g)
+    abs_err, rel_err = _errs(got, want)
+    what = f"dcn bwd n={x0.shape[0]} F={x0.shape[1]} L={w.shape[0]}"
+    check(all(bool(torch.isfinite(t).all()) for t in got), f"{what}: non-finite")
+    check(max(rel_err) <= DCN_TOL, f"{what}: max err {rel_err} > {DCN_TOL}")
+    return abs_err, max(rel_err)
+
+
+def check_train_edges() -> None:
+    """Edge cases of the training kernels on the card, before any timing:
+    ragged Bq and Bk, Bk != Bq (rectangular, one candidate), every padded
+    width D, both operand types, many accidental hits, backward blocks
+    that sweep several candidate tiles (at small shapes and at 32,768
+    rows); ragged rows, one layer and F = 1024 in the DCN backward."""
+    import torch
+    from recsys_tpu_torch.ops import flash_ce as F
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    ints = lambda hi, n: torch.randint(0, hi, (n,), generator=g, device="cuda",
+                                       dtype=torch.int32)
+    cap = F._FUSED_BWD_PARTIALS_CAP
+    for bq, bk, d, dt in ((70, 70, 16, torch.float32), (100, 230, 128, torch.bfloat16),
+                          (300, 300, 200, torch.float32), (65, 1, 8, torch.float32),
+                          (129, 64, 64, torch.bfloat16), (33, 100, 256, torch.bfloat16)):
+        pos = (torch.arange(bq, device="cuda", dtype=torch.int32) % bk).contiguous()
+        args = ((rnd(bq, d) * d ** -0.5).to(dt), rnd(bk, d).to(dt), rnd(bk),
+                ints(max(2, bk // 3), bq), ints(max(2, bk // 3), bk), pos, rnd(bq))
+        check_flash(*args)
+        # caps of one and two partials: each backward block sweeps several
+        # candidate tiles (the last block fewer), as above ~24.5k rows at
+        # the real cap
+        for parts in (1, 2):
+            F._FUSED_BWD_PARTIALS_CAP = parts * bq * d * 4
+            try:
+                check_flash(*args)
+            finally:
+                F._FUSED_BWD_PARTIALS_CAP = cap
+    # the wide-span backward at the real cap: 32,768 rows, 2 tiles a block
+    b = 32768
+    check(F.bwd_tiles_per_block(b, b, 128) == 2, "B = 32,768: want 2 tiles a block")
+    args = ((rnd(b, 128) * 128 ** -0.5).to(torch.bfloat16),
+            (rnd(b, 128) * 128 ** -0.5).to(torch.bfloat16), rnd(b),
+            ints(N_ITEMS, b), ints(N_ITEMS, b),
+            torch.arange(b, device="cuda", dtype=torch.int32))
+    grad = rnd(b)
+    errs = check_flash(*args, grad)
+    bwd_ms = time_ms(lambda: F.flash_ce_bwd(*args, errs["lse"], grad), iters=3, warmup=1)
+    log(f"flash CE backward at B = {b}, 2 tiles a block: max rel err "
+        f"{errs['bwd_rel']}, {bwd_ms:.3f} ms")
+    del args, errs
+    torch.cuda.empty_cache()
+    for n, f, n_layers in ((37, 256, 3), (1, 24, 1), (1000, 100, 2), (5, 1024, 3)):
+        check_dcn_bwd(rnd(n, f), rnd(n_layers, f) * f ** -0.5, rnd(n_layers, f) * 0.1,
+                      rnd(n, f))
+    log("training-kernel edge cases agree with the plain versions")
+
+
+def measure_flash(bundle: dict, b: int, dtype, iters: int, sm_clock_mhz: float) -> tuple:
+    """The flash CE kernels at Bq = Bk = b, D = 128, with the ids of the
+    first b train rows (Zipf: many accidental hits): -> (forward row,
+    backward row)."""
+    import torch
+    from recsys_tpu_torch.ops import flash_ce as F
+
+    d = 128
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    u = (torch.randn((b, d), generator=g, device="cuda") * d ** -0.5).to(dtype)
+    v = (torch.randn((b, d), generator=g, device="cuda") * d ** -0.5).to(dtype)
+    c = torch.randn((b,), generator=g, device="cuda")
+    ids = torch.as_tensor(bundle["train/movie_id"][:b], device="cuda").int()
+    pos = torch.arange(b, device="cuda", dtype=torch.int32)
+    gr = torch.rand((b,), generator=g, device="cuda") / b
+    errs = check_flash(u, v, c, ids, ids, pos, gr)
+    lse = errs["lse"]
+    elt = u.element_size()
+    flops = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    exp_rate = SFU_EXP_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0) \
+        .multi_processor_count * sm_clock_mhz * 1e6
+    shape = {"Bq": b, "Bk": b, "D": d, "dtype": str(dtype).replace("torch.", "")}
+    rows = []
+    for kind in ("fwd", "bwd"):
+        if kind == "fwd":
+            kernel = lambda: F.flash_ce_fwd(u, v, c, ids, ids, pos)
+            plain = lambda: F.flash_ce_fwd_reference(u, v, c, ids, ids, pos)
+            library = lambda: torch.logsumexp(torch.matmul(u, v.T) + c, dim=1)
+            n_bytes = 2 * b * d * elt + 4 * b * 4 + 8 * b
+            n_ops, name = 2.0 * b * b * d, "flash_ce_fwd_kernel"
+            err, rel = errs["fwd_abs"], errs["fwd_rel"]
+        else:
+            kernel = lambda: F.flash_ce_bwd(u, v, c, ids, ids, pos, lse, gr)
+
+            def plain():
+                return F.flash_ce_bwd_reference(u, v, c, ids, ids, pos, lse, gr)
+
+            def library():
+                p = torch.softmax(torch.matmul(u, v.T) + c, dim=1) * gr[:, None]
+                pd = p.to(u.dtype)
+                return pd @ v, pd.T @ u, p.sum(dim=0)
+
+            n_bytes = 2 * b * d * elt + 6 * b * 4 + (2 * b * d + b) * 4
+            n_ops, name = 6.0 * b * b * d, "flash_ce_bwd_kernel"
+            err, rel = errs["bwd_abs"], errs["bwd_rel"]
+        b_ms, b_by = bound_ms(n_bytes, n_ops, flops, n_exp=float(b) * b, exp_per_s=exp_rate)
+        dev_ms, dev_kernel_ms = device_ms(kernel, iters, kernel=name)
+        rows.append({
+            "shape": shape, "max_abs_err": err, "max_rel_err": rel,
+            "ms": time_ms(kernel, iters),
+            "plain_ms": time_ms(plain, iters), "library_ms": time_ms(library, iters),
+            "bound_ms": b_ms, "bound_by": b_by, "device_ms": dev_ms,
+            "kernel_device_ms": dev_kernel_ms, "plain_device_ms": device_ms(plain, iters)[0],
+        })
+    return rows[0], rows[1]
+
+
+def measure_dcn_bwd(n: int, iters: int) -> dict:
+    import torch
+    from recsys_tpu_torch.ops import dcn_cross as D
+
+    f, n_layers = 256, 3
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    x0 = torch.randn((n, f), generator=g, device="cuda")
+    w = torch.randn((n_layers, f), generator=g, device="cuda") * f ** -0.5
+    b = torch.randn((n_layers, f), generator=g, device="cuda") * 0.1
+    gr = torch.randn((n, f), generator=g, device="cuda")
+    err, rel = check_dcn_bwd(x0, w, b, gr)
+    _, resid = D._forward(x0, w, b, keep_resid=True)
+    kernel = lambda: D.dcn_cross_bwd(x0, w, resid, gr)
+    plain = lambda: D.dcn_cross_bwd_reference(x0, w, resid, gr)
+    n_bytes = 4 * ((2 + n_layers) * n * f + n_layers * f) + 4 * (n * f + 2 * n_layers * f)
+    b_ms, b_by = bound_ms(n_bytes, 11.0 * n * n_layers * f)
+    return {
+        "shape": {"n": n, "F": f, "L": n_layers}, "max_abs_err": err, "max_rel_err": rel,
+        "ms": time_ms(kernel, iters), "plain_ms": time_ms(plain, iters),
+        "library_ms": None,  # no single PyTorch call computes this VJP
+        "bound_ms": b_ms, "bound_by": b_by, "device_ms": device_ms(kernel, iters)[0],
+        "plain_device_ms": device_ms(plain, iters)[0],
+    }
+
+
+def profile_call(name: str, fn, n_wall: int = 50, n_traced: int = 20,
+                 warmup: int = 5) -> dict:
+    """Host clock of ``n_wall`` calls of ``fn`` with the profiler off
+    (median and p90, each call ending in a device sync), then a traced
+    window of ``n_traced`` calls: device time per call, the device's busy
+    share of the traced wall time, launches per call and the kernels that
+    take the time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    calls = {"recommend_k10": lambda: svc.recommend(1, 10),
-             "recommend_batch64_k10": lambda: svc.recommend_batch(batch, 10)}
+    for _ in range(warmup):
+        fn()
+    walls = []
+    for _ in range(n_wall):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    walls.sort()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()  # after the profiler's own start-up
+        for _ in range(n_traced):
+            fn()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / n_traced
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in device) / 1e3 / n_traced
+    top = sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    return {
+        "profile": name, "n": len(walls),
+        "wall_ms_p50": walls[len(walls) // 2], "wall_ms_p90": walls[int(len(walls) * 0.9)],
+        "traced_wall_ms": traced_ms, "device_ms": dev_ms,
+        "device_busy_share": dev_ms / traced_ms,
+        "device_launches": sum(e.count for e in device) // n_traced,
+        "top_device_us": [[e.key[:60], e.self_device_time_total / n_traced] for e in top],
+    }
+
+
+def profile_requests(svc, batch) -> list:
+    """Phase 7: ``recommend`` and a 64-user ``recommend_batch`` through
+    the service (no HTTP), profiled by :func:`profile_call`."""
+    return [profile_call("recommend_k10", lambda: svc.recommend(1, 10)),
+            profile_call("recommend_batch64_k10", lambda: svc.recommend_batch(batch, 10))]
+
+
+def profile_train_steps(bundle: dict) -> list:
+    """One full train step (loss, autograd, adagrad) at batch 4,096 and
+    8,192 (the main path's), with the flash kernels and with the dense
+    path, profiled by :func:`profile_call`: the step's wall and device
+    times that later set ``_FLASH_MIN_CANDIDATES`` on the card."""
+    from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
+    from recsys_tpu_torch.models.losses import balanced_class_weights
+    from recsys_tpu_torch.train.trainer import Trainer
+
+    cw = balanced_class_weights(bundle["train/y_implicit"])
     rows = []
-    for name, fn in calls.items():
-        for _ in range(5):
-            fn()
-        walls = []
-        for _ in range(50):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        walls.sort()
-        n_traced = 20
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()  # after the profiler's own start-up
-            for _ in range(n_traced):
-                fn()
-            torch.cuda.synchronize()
-            traced_ms = (time.perf_counter() - t0) * 1e3 / n_traced
-        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        device_ms = sum(e.self_device_time_total for e in device) / 1e3 / n_traced
-        top = sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-        rows.append({
-            "profile": name, "n": len(walls),
-            "wall_ms_p50": walls[len(walls) // 2], "wall_ms_p90": walls[int(len(walls) * 0.9)],
-            "traced_wall_ms": traced_ms, "device_ms": device_ms,
-            "device_busy_share": device_ms / traced_ms,
-            "device_launches": sum(e.count for e in device) // n_traced,
-            "top_device_us": [[e.key[:60], e.self_device_time_total / n_traced]
-                              for e in top],
-        })
+    with tempfile.TemporaryDirectory() as tmp:
+        for b in (4096, TRAIN_BATCH):
+            batches = _batches(bundle, 2, b, "cuda", _log_q(bundle))
+            for flash in (True, False):
+                cfg = RecsysConfig(model=ModelConfig(use_flash_ce=flash),
+                                   train=TrainConfig(batch_size=b))
+                tr = Trainer(cfg, tmp, device="cuda")
+                step = tr.make_train_step(cw)
+                holder = [tr.init_state(N_USERS, N_ITEMS, SEED)]
+
+                def one():
+                    holder[0], _ = step(holder[0], batches[holder[0].step % 2])
+
+                rows.append(profile_call(f"train_step_B{b}_{'flash' if flash else 'dense'}",
+                                         one, n_wall=20, n_traced=5, warmup=2))
     return rows
 
 
@@ -401,6 +816,7 @@ def main() -> int:
     from recsys_tpu_torch.models.multitask import MultiTaskModel
     from recsys_tpu_torch.models.towers import TwoTower
     from recsys_tpu_torch.ops import _build, dcn_cross as dcn_mod, topk_flash as topk_mod
+    from recsys_tpu_torch.ops import flash_ce as flash_mod
     from recsys_tpu_torch.retrieval import scorer
     from recsys_tpu_torch.retrieval.scorer import RetrievalIndex, l2_normalize
     from recsys_tpu_torch.train.checkpoint import save_inference_bundle
@@ -473,21 +889,82 @@ def main() -> int:
     for row in profile_requests(svc, served["batch"]):
         log(f"profile {json.dumps(row)}")
 
+    # ---- training: the second main path -----------------------------
+    check_train_edges()
+    counters += [Counter("flash_ce_fwd", flash_mod.flash_ce_fwd),
+                 Counter("flash_ce_bwd", flash_mod.flash_ce_bwd),
+                 Counter("dcn_cross_bwd", dcn_mod.dcn_cross_bwd)]
+    bundle_np = synthetic_bundle(SEED)
+    with tempfile.TemporaryDirectory() as run_dir:
+        t0 = time.perf_counter()
+        trained = train_main_path(bundle_np, counters, run_dir)
+        log(f"trained the main path in {time.perf_counter() - t0:.1f} s: "
+            f"{json.dumps(trained)}")
+        train_launches = trained["launches"]
+        for name in ("flash_ce_fwd", "flash_ce_bwd", "dcn_cross_bwd", "dcn_cross",
+                     "topk_flash"):
+            check(train_launches[name] > 0, f"{name} never launched while training")
+        check(train_launches["topk_scores"] == 0, "the dense k > 256 path ran in training")
+        t0 = time.perf_counter()
+        served_trained = serve_main_path(os.path.join(run_dir, "serving"), counters)
+        log(f"served the trained bundle in {time.perf_counter() - t0:.1f} s: "
+            f"launches {served_trained['launches']}")
+        check(served_trained["launches"]["topk_flash"] > 0
+              and served_trained["launches"]["dcn_cross"] > 0,
+              "the trained bundle was not served through the kernels")
+        parity = train_parity(bundle_np, run_dir)
+        log(f"train parity, card kernels vs CPU plain versions: {json.dumps(parity)}")
+
+    sm_clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    flash_rows = {}
+    for b, dt in ((4096, torch.bfloat16), (TRAIN_BATCH, torch.bfloat16),
+                  (TRAIN_BATCH, torch.float32)):
+        flash_rows[(b, dt)] = measure_flash(bundle_np, b, dt, iters=10, sm_clock_mhz=sm_clock)
+    dcn_bwd_rows = [measure_dcn_bwd(n, iters=50) for n in (2048, TRAIN_BATCH)]
+    for fwd, bwd in flash_rows.values():
+        log(f"kernel flash_ce_fwd {json.dumps(fwd)}")
+        log(f"kernel flash_ce_bwd {json.dumps(bwd)}")
+    for row in dcn_bwd_rows:
+        log(f"kernel dcn_cross_bwd {json.dumps(row)}")
+    for row in profile_train_steps(bundle_np):
+        log(f"profile {json.dumps(row)}")
+
     main_topk = next(r for r in topk_rows
                      if r["shape"] == {"Q": BATCH_USERS, "N": N_ITEMS, "d": 128, "k": RERANK})
     main_dcn = dcn_rows[-1]
+    main_fwd, main_bwd = flash_rows[(TRAIN_BATCH, torch.bfloat16)]
+    main_dcn_bwd = dcn_bwd_rows[-1]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": "topk_flash", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/topk_flash.cu",
          "replaces": "recsys_tpu/ops/pallas/topk_flash.py:82",
          "launches": launches["topk_flash"], **{k: main_topk[k] for k in keys},
+         "launches_train": train_launches["topk_flash"],
          "shape": main_topk["shape"], "shapes": topk_rows},
         {"name": "dcn_cross", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/dcn_cross.cu",
          "replaces": "recsys_tpu/ops/pallas/dcn_cross.py:43",
          "launches": launches["dcn_cross"], **{k: main_dcn[k] for k in keys},
+         "launches_train": train_launches["dcn_cross"],
          "shape": main_dcn["shape"], "shapes": dcn_rows},
+        {"name": "dcn_cross_bwd", "route": "cuda",
+         "source": "recsys_tpu_torch/csrc/dcn_cross.cu",
+         "replaces": "recsys_tpu/ops/pallas/dcn_cross.py:57",
+         "launches": train_launches["dcn_cross_bwd"], **{k: main_dcn_bwd[k] for k in keys},
+         "shape": main_dcn_bwd["shape"], "shapes": dcn_bwd_rows},
+        {"name": "flash_ce_fwd", "route": "cuda",
+         "source": "recsys_tpu_torch/csrc/flash_ce.cu",
+         "replaces": "recsys_tpu/ops/pallas/flash_ce.py:114",
+         "launches": train_launches["flash_ce_fwd"], **{k: main_fwd[k] for k in keys},
+         "shape": main_fwd["shape"], "shapes": [r[0] for r in flash_rows.values()]},
+        {"name": "flash_ce_bwd", "route": "cuda",
+         "source": "recsys_tpu_torch/csrc/flash_ce.cu",
+         "replaces": "recsys_tpu/ops/pallas/flash_ce.py:250",
+         "launches": train_launches["flash_ce_bwd"], **{k: main_bwd[k] for k in keys},
+         "shape": main_bwd["shape"], "shapes": [r[1] for r in flash_rows.values()]},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -93,7 +93,8 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Training-loop knobs (used by the training slice of the port)."""
+    """Training-loop knobs. The port's trainer raises for the modes it does
+    not run yet (``recsys_tpu_torch/train/trainer.py``)."""
 
     batch_size: int = 2048
     learning_rate: float = 1e-3
@@ -202,6 +203,22 @@ class RecsysConfig:
             kwargs = {k: _freeze(v) for k, v in sub.items() if k in known}
             sections[name] = sub_cls(**kwargs)
         return cls(**sections)
+
+    def replace(self, **sections: Any) -> "RecsysConfig":
+        """A copy with whole sections (``model=...``) or dotted fields
+        (``**{"train.epochs": 5}``) replaced; an unknown field raises."""
+        plain = {k: v for k, v in sections.items() if "." not in k}
+        dotted = {k: v for k, v in sections.items() if "." in k}
+        out = dataclasses.replace(self, **plain) if plain else self
+        if dotted:
+            d = out.to_dict()
+            for key, value in dotted.items():
+                sec, name = key.split(".", 1)
+                if sec not in d or name not in d[sec]:
+                    raise KeyError(f"unknown config field {key!r}")
+                d[sec][name] = value
+            out = RecsysConfig.from_dict(d)
+        return out
 
     @classmethod
     def from_json(cls, s: str) -> "RecsysConfig":

@@ -1,10 +1,12 @@
-"""Deep & Cross Network (DCNv1, rank-1 cross vectors), inference mode
-(the counterpart of ``recsys_tpu/models/dcn.py``).
+"""Deep & Cross Network (DCNv1, rank-1 cross vectors), in inference and
+train mode (the counterpart of ``recsys_tpu/models/dcn.py``).
 
 * cross layers ``x_{l+1} = x0 * (x_l . w_l) + b_l + x_l``, all L of them
-  in one call of :func:`recsys_tpu_torch.ops.dcn_cross.dcn_cross` (the
-  CUDA kernel on the card, its plain version on the CPU);
-* a parallel deep MLP (relu on every layer) over ``dnn_dims``;
+  in one call of :func:`recsys_tpu_torch.ops.dcn_cross.cross_stack` (the
+  CUDA kernels on the card, forward and backward, their plain versions on
+  the CPU);
+* a parallel deep MLP (relu on every layer) over ``dnn_dims``, with
+  dropout between its layers in train mode;
 * output ``concat(cross_out, deep_out)``.
 
 Numerics follow the JAX package's kernel branch (``use_pallas_dcn=True``)
@@ -17,13 +19,13 @@ in bf16, so the two agree only to bf16 tolerance there.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from recsys_tpu_torch.config import ModelConfig
 from recsys_tpu_torch.models import layers as L
-from recsys_tpu_torch.ops.dcn_cross import dcn_cross
+from recsys_tpu_torch.ops.dcn_cross import cross_stack
 from recsys_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -48,14 +50,18 @@ class DeepCrossNetwork:
         return input_dim + (cfg.dnn_dims[-1] if cfg.dnn_dims else 0)
 
     @staticmethod
-    def apply(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    def apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, train: bool = False,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         bf16 = cfg.mixed_precision
         x0 = L.round_bf16(x) if bf16 else x.float()
         if cfg.cross_layers > 0:
             layers = [params["cross"][f"layer_{i}"] for i in range(cfg.cross_layers)]
             w = torch.stack([p["w"] for p in layers])
             b = torch.stack([p["b"] for p in layers])
-            xl = dcn_cross(x0.contiguous(), w, b)
+            # JAX keeps x0 in bf16, so each branch's gradient into it is
+            # rounded to bf16 before the two are added: round_bf16 on the
+            # cross input does that here (its value is already bf16)
+            xl = cross_stack((L.round_bf16(x0) if bf16 else x0).contiguous(), w, b)
             if bf16:
                 xl = L.round_bf16(xl)
         else:
@@ -63,5 +69,6 @@ class DeepCrossNetwork:
         if not params["deep"]:
             return xl
         deep = L.mlp(params["deep"], x0, activation=torch.relu,
-                     final_activation=torch.relu, bf16=bf16)
+                     final_activation=torch.relu, bf16=bf16,
+                     dropout_rate=cfg.dropout_rate, train=train, generator=generator)
         return torch.cat([xl, deep], dim=-1)

@@ -1,5 +1,5 @@
-"""Minimal functional NN core: dense / MLP over plain dicts of tensors
-(the counterpart of ``recsys_tpu/models/layers.py``).
+"""Minimal functional NN core: dense / MLP / dropout / L2 over plain dicts
+of tensors (the counterpart of ``recsys_tpu/models/layers.py``).
 
 Params are nested dicts of fp32 tensors with the JAX package's keys and
 layout (a dense ``w`` is ``[in, out]``), so bundles cross between the
@@ -75,12 +75,51 @@ def mlp(
     activation: Callable = torch.relu,
     final_activation: Optional[Callable] = None,
     bf16: bool = False,
+    dropout_rate: float = 0.0,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Inference-mode MLP (dropout arrives with the training slice)."""
+    """Dense layers with ``activation`` between them and
+    ``final_activation`` after the last; in train mode, dropout after
+    every layer but the last."""
     n = len(p)
     for i in range(n):
         x = dense(p[f"layer_{i}"], x, bf16)
-        act = final_activation if i == n - 1 else activation
+        last = i == n - 1
+        act = final_activation if last else activation
         if act is not None:
             x = act(x)
+        if dropout_rate > 0.0 and train and not last:
+            if generator is None:
+                raise ValueError("dropout in train mode needs a torch.Generator")
+            x = dropout(generator, x, dropout_rate)
     return x
+
+
+def dropout(generator: torch.Generator, x: torch.Tensor, rate: float) -> torch.Tensor:
+    """Keep each element with probability ``1 - rate`` and scale it by
+    ``1 / (1 - rate)``, as the JAX package does. The mask is drawn from
+    ``generator``, which must live on ``x``'s device (its stream is not
+    JAX's: parity tests run with dropout 0)."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def l2_penalty(params, scale: float) -> torch.Tensor:
+    """``scale`` times the sum of squared ``w`` leaves of a nested dict
+    (dense kernels only, biases excluded), leaves in sorted-key order."""
+    leaves = []
+
+    def walk(node):
+        for key in sorted(node):
+            value = node[key]
+            if isinstance(value, dict):
+                walk(value)
+            elif key == "w":
+                leaves.append(value)
+
+    walk(params)
+    if not leaves:
+        return torch.zeros(())
+    return scale * sum(torch.sum(torch.square(w)) for w in leaves)

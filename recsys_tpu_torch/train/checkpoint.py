@@ -1,4 +1,5 @@
-"""Inference-bundle I/O and the weight bridge between the two packages.
+"""Checkpoints, inference-bundle I/O and the weight bridge between the
+two packages.
 
 The bundle layout is the JAX package's (``recsys_tpu/train/checkpoint.py``):
 
@@ -14,6 +15,10 @@ and the port keeps it so in memory too: its params are nested dicts of
 tensors with exactly the JAX pytree's keys and shapes. So a bundle
 written by either package loads in the other, and the bridge below is a
 plain leaf-by-leaf conversion.
+
+Training checkpoints (:class:`CheckpointManager`) use the JAX package's
+npz layout (``<dir>/ckpt_<step>/state.npz`` of ``_flatten``ed keys, a
+``metrics.json`` sidecar and a ``best`` alias); the port has no orbax.
 """
 
 from __future__ import annotations
@@ -21,7 +26,10 @@ from __future__ import annotations
 import json
 import logging
 import os
-from typing import Any, Dict, Optional
+import re
+import shutil
+import threading
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +62,7 @@ def params_to_numpy(tree: Any) -> Any:
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
-    return np.asarray(tree)
+    return None if tree is None else np.asarray(tree)
 
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -62,7 +70,7 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     if isinstance(tree, dict):
         for k, v in tree.items():
             out.update(_flatten(v, f"{prefix}{k}/"))
-    else:
+    elif tree is not None:  # empty leaves are skipped, as in the JAX package
         out[prefix.rstrip("/")] = np.asarray(tree)
     return out
 
@@ -76,6 +84,127 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = v
     return tree
+
+
+class CheckpointManager:
+    """Step-indexed checkpoints under ``<dir>/ckpt_<step>`` with keep-N
+    rotation, a ``best`` alias and optional background saves.
+
+    ``save`` copies the state to the host before it returns (the trainer
+    updates its tensors in place right after); with ``async_save`` only
+    the disk write runs on a thread, into ``<path>.tmp`` and then an
+    atomic rename, so a crash never leaves a half checkpoint. ``wait``
+    finishes a pending write, its sidecars and the rotation."""
+
+    def __init__(self, directory: str, keep: int = 3, async_save: bool = False):
+        self.directory = os.path.abspath(directory)
+        self.keep = keep
+        self.async_save = async_save
+        self._pending: Optional[Tuple[int, Optional[Dict], bool, Callable[[], None]]] = None
+        self._error: List[BaseException] = []
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt_{step}")
+
+    def _write(self, path: str, flat: Dict[str, np.ndarray]) -> None:
+        tmp = path + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        np.savez(os.path.join(tmp, "state.npz"), **flat)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)  # atomic commit
+
+    def save(self, step: int, state: Dict[str, Any], metrics: Optional[Dict] = None,
+             is_best: bool = False) -> str:
+        """``state``: a nested dict of tensors, arrays and numbers."""
+        self.wait()  # at most one write in flight
+        path = self._path(step)
+        flat = _flatten(params_to_numpy(state))  # host copy now
+        if self.async_save:
+            def run():
+                try:
+                    self._write(path, flat)
+                except BaseException as e:  # re-raised by wait()
+                    self._error.append(e)
+
+            t = threading.Thread(target=run, daemon=True)
+            t.start()
+            self._pending = (step, metrics, is_best, t.join)
+            return path
+        self._write(path, flat)
+        self._finalize(step, metrics, is_best)
+        return path
+
+    def _finalize(self, step: int, metrics: Optional[Dict], is_best: bool) -> None:
+        path = self._path(step)
+        if metrics is not None:
+            with open(os.path.join(path, "metrics.json"), "w") as f:
+                json.dump({k: float(v) for k, v in metrics.items()}, f)
+        if is_best:
+            with open(os.path.join(self.directory, "best"), "w") as f:
+                f.write(str(step))
+        self._rotate()
+
+    def wait(self) -> None:
+        """Block until a pending background save has committed, then write
+        its sidecars and rotate; raise what the write raised."""
+        if self._pending is None:
+            return
+        step, metrics, is_best, join = self._pending
+        self._pending = None
+        join()
+        if self._error:
+            raise self._error.pop()
+        self._finalize(step, metrics, is_best)
+
+    def close(self) -> None:
+        self.wait()
+
+    def _rotate(self) -> None:
+        steps = self.all_steps()
+        best = self.best_step()
+        for s in steps[: max(0, len(steps) - self.keep)]:
+            if s != best:
+                shutil.rmtree(self._path(s), ignore_errors=True)
+
+    def all_steps(self) -> List[int]:
+        self.wait()
+        if not os.path.isdir(self.directory):
+            return []
+        return sorted(int(m.group(1)) for m in
+                      (re.fullmatch(r"ckpt_(\d+)", n) for n in os.listdir(self.directory))
+                      if m)
+
+    def best_step(self) -> Optional[int]:
+        self.wait()
+        p = os.path.join(self.directory, "best")
+        if os.path.exists(p):
+            with open(p) as f:
+                s = int(f.read().strip())
+            if os.path.isdir(self._path(s)):
+                return s
+        return None
+
+    def restore(self, step: int) -> Dict:
+        """The state saved at ``step`` as a nested dict of numpy arrays."""
+        self.wait()
+        with np.load(os.path.join(self._path(step), "state.npz")) as z:
+            return _unflatten({k: z[k] for k in z.files})
+
+    def restore_latest(self) -> Optional[Tuple[int, Dict]]:
+        steps = self.all_steps()
+        if not steps:
+            return None
+        return steps[-1], self.restore(steps[-1])
+
+    def restore_best(self) -> Optional[Tuple[int, Dict]]:
+        s = self.best_step()
+        if s is None:
+            return self.restore_latest()
+        return s, self.restore(s)
 
 
 def save_inference_bundle(

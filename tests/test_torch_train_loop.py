@@ -1,0 +1,260 @@
+"""The port's training loop against the JAX package's, on the CPU: the
+dense train step over 20 steps, the offline evaluator, ``Trainer.train``
+end to end (its serving bundle served by both packages), the CLI, the
+preemption checkpoint and resume, and the modes that are not ported.
+
+Tolerances:
+* 20-step trajectory, fp32: losses to rtol = 1e-5 and params to
+  atol = 1e-5 (sums in another order, compounded over the steps);
+* 20-step trajectory, mixed precision: losses to rtol = 1e-4 and params
+  to atol = 2 * 2**-8 * lr / sqrt(0.1) = 4.9e-4 at ``_LR``: a one-ulp
+  bf16 flip of a gradient element (see ``test_torch_train_model.py``)
+  moves that step's adagrad update, at most lr / sqrt(0.1) while the
+  accumulator is near its start, by 2**-8 of itself; two such flips of
+  one element are allowed over the 20 steps (the largest move of a param
+  is about 1.3, so this is still 4e-4 of it);
+* evaluation metrics: equal top-k ids, so equal ranking metrics (rtol
+  1e-6); RMSE and AUC to rtol 1e-5.
+"""
+
+import json
+import os
+import signal
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from recsys_tpu.config import EvalConfig as JaxEvalConfig
+from recsys_tpu.config import ModelConfig as JaxModelConfig
+from recsys_tpu.config import RecsysConfig as JaxRecsysConfig
+from recsys_tpu.config import TrainConfig as JaxTrainConfig
+from recsys_tpu.parallel.mesh import make_mesh
+from recsys_tpu.retrieval.evaluator import evaluate as jax_evaluate
+from recsys_tpu.serve.service import RecommendationService as JaxService
+from recsys_tpu.train.trainer import Trainer as JaxTrainer
+from recsys_tpu_torch.config import (DataConfig, EvalConfig, MeshConfig, ModelConfig,
+                                     RecsysConfig, TrainConfig)
+from recsys_tpu_torch.retrieval import evaluator
+from recsys_tpu_torch.serve.service import RecommendationService
+from recsys_tpu_torch.train import __main__ as cli
+from recsys_tpu_torch.train.checkpoint import params_from_numpy, params_to_numpy
+from recsys_tpu_torch.train.optimizer import leaves_with_paths
+from recsys_tpu_torch.train.trainer import Trainer
+
+N_USERS, N_ITEMS, B, N_STEPS = 30, 40, 64, 20
+_LR = 0.02
+MODEL_KW = dict(embedding_dim=16, user_tower_dims=(32, 16), item_tower_dims=(24, 16),
+                cross_layers=2, dnn_dims=(16, 8), dropout_rate=0.0)
+
+
+def _cfgs(mixed=True, **train_kw):
+    model_kw = dict(MODEL_KW, mixed_precision=mixed)
+    train_kw = dict(dict(batch_size=B, learning_rate=_LR), **train_kw)
+    return (JaxRecsysConfig(model=JaxModelConfig(use_pallas_dcn=True, **model_kw),
+                            train=JaxTrainConfig(**train_kw)),
+            RecsysConfig(model=ModelConfig(**model_kw), train=TrainConfig(**train_kw)))
+
+
+def _batches(seed=0):
+    rng = np.random.default_rng(seed)
+    pop = 1.0 / np.arange(1, N_ITEMS + 1)
+    out = []
+    for _ in range(N_STEPS):
+        movie = rng.choice(N_ITEMS, B, p=pop / pop.sum()).astype(np.int32)
+        rating = rng.integers(1, 6, B).astype(np.float32)
+        out.append({"user_id": rng.integers(0, N_USERS, B).astype(np.int32),
+                    "movie_id": movie, "rating": rating,
+                    "y_implicit": (rating >= 4).astype(np.float32),
+                    "log_q": np.log(pop[movie] / pop.sum()).astype(np.float32)})
+    return out
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_train_step_trajectory_matches_jax(mixed, tmp_path):
+    """20 dense steps (loss, gradients, adagrad with clipping) from the JAX
+    init, carried into the port by the weight bridge, on the same batches."""
+    jcfg, tcfg = _cfgs(mixed, clipnorm=1.0)
+    cw = (1.4, 0.8)
+    jtr = JaxTrainer(jcfg, str(tmp_path / "jax"), mesh_ctx=make_mesh(devices=jax.devices()[:1]))
+    jstate = jtr.init_state(N_USERS, N_ITEMS, 0)
+    tr = Trainer(tcfg, str(tmp_path / "port"), device="cpu")
+    state = tr.state_from_params(params_from_numpy(jax.device_get(jstate.params), "cpu"), 0)
+    jstep = jax.jit(jtr._step_core(cw, False))
+    step = tr.make_train_step(cw)
+    jloss, tloss = [], []
+    for batch in _batches():
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+        state, tm = step(state, {k: torch.as_tensor(v) for k, v in batch.items()})
+        jloss.append(float(jm["loss"]))
+        tloss.append(float(tm["loss"]))
+    np.testing.assert_allclose(tloss, jloss, rtol=1e-4 if mixed else 1e-5)
+    tol = 2 * 2.0 ** -8 * _LR / 0.1 ** 0.5 if mixed else 1e-5
+    assert state.step == int(jstate.step) == N_STEPS
+    want = dict(leaves_with_paths(jax.device_get(jstate.params)))
+    start = dict(leaves_with_paths(params_to_numpy(
+        tr.state_from_params(params_from_numpy(jax.device_get(
+            jtr.init_state(N_USERS, N_ITEMS, 0).params), "cpu"), 0).params)))
+    moved = 0.0
+    for path, got in leaves_with_paths(params_to_numpy(state.params)):
+        np.testing.assert_allclose(got, want[path], rtol=0, atol=tol, err_msg="/".join(path))
+        moved = max(moved, float(np.abs(want[path] - start[path]).max()))
+    assert moved > 50 * tol  # the params did move, well past the tolerance
+    for path, got in leaves_with_paths(params_to_numpy(state.opt_state)):
+        w = dict(leaves_with_paths(jax.device_get(jstate.opt_state)))[path]
+        np.testing.assert_allclose(got, w, rtol=tol, atol=tol, err_msg="/".join(path))
+
+
+@pytest.mark.parametrize("score_norm", ["cosine", "dot"])
+def test_evaluate_matches_jax(tiny_bundle, score_norm):
+    jcfg, tcfg = _cfgs()
+    n_users, n_items = int(tiny_bundle["meta/n_users"]), int(tiny_bundle["meta/n_movies"])
+    from recsys_tpu.models.multitask import MultiTaskModel as JaxMultiTask
+
+    jp = jax.device_get(JaxMultiTask.init(jax.random.PRNGKey(4), jcfg.model, n_users, n_items))
+    kw = dict(topk=(5, 10, 50), eval_batch_size=128, score_norm=score_norm, eval_sample=300)
+    want = jax_evaluate(jp, jcfg.model, tiny_bundle, "val", JaxEvalConfig(**kw), seed=3)
+    got = evaluator.evaluate(params_from_numpy(jp, "cpu"), tcfg.model, tiny_bundle, "val",
+                             EvalConfig(**kw), seed=3)
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        rtol = 1e-5 if k in ("rating_rmse", "ctr_auc") else 1e-6
+        assert got[k] == pytest.approx(float(v), rel=rtol), k
+    with pytest.raises(NotImplementedError, match="item 6"):
+        evaluator.evaluate(params_from_numpy(jp, "cpu"), tcfg.model, tiny_bundle, "val",
+                           EvalConfig(filter_seen=True))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        evaluator.two_stage_evaluate()
+
+
+def _small_run_cfg(**train_kw):
+    # use_pallas_dcn=True, saved in the bundle's config.json, sends the
+    # JAX service down the cross-stack branch whose numerics the port runs
+    return RecsysConfig(
+        model=ModelConfig(**dict(MODEL_KW, dropout_rate=0.2, use_pallas_dcn=True)),
+        train=TrainConfig(**dict(dict(batch_size=256, epochs=3, learning_rate=5e-3),
+                                 **train_kw)),
+        eval=EvalConfig(topk=(5, 10), eval_batch_size=256))
+
+
+def test_trainer_trains_end_to_end_and_both_packages_serve_it(tiny_bundle, tmp_path):
+    out = str(tmp_path / "run")
+    report = Trainer(_small_run_cfg(), out, device="cpu").train(tiny_bundle)
+    with open(os.path.join(out, "detailed_metrics.json")) as f:
+        hist = json.load(f)["epochs"]
+    assert [e["epoch"] for e in hist] == [0, 1, 2]
+    assert all(np.isfinite(e["train_loss"]) and np.isfinite(e["val_loss"]) for e in hist)
+    assert hist[-1]["train_loss"] < hist[0]["train_loss"]
+    with open(os.path.join(out, "metrics.json")) as f:
+        metrics = json.load(f)
+    assert metrics["recall@10"] == pytest.approx(report["recall@10"])
+    assert metrics["epochs_run"] == 3
+    steps = len(tiny_bundle["train/user_id"]) // 256
+    assert sorted(os.listdir(os.path.join(out, "checkpoints"))) == [
+        "best"] + sorted(f"ckpt_{steps * e}" for e in (1, 2, 3))
+    serving = os.path.join(out, "serving")
+    port = RecommendationService(serving, rerank_candidates=20, device="cpu").load()
+    ref = JaxService(serving, backend="device", rerank_candidates=20).load()
+    users = [int(u) for u in tiny_bundle["meta/user_raw_ids"][:6]]
+    for a, b in zip(port.recommend_batch(users, k=10), ref.recommend_batch(users, k=10)):
+        assert [r["item_id"] for r in a["recommendations"]] == \
+            [r["item_id"] for r in b["recommendations"]]
+        np.testing.assert_allclose([r["score"] for r in a["recommendations"]],
+                                   [r["score"] for r in b["recommendations"]],
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_trainer_item_bias_starts_at_log_frequency(tiny_bundle, tmp_path):
+    """With logQ on, item_bias starts at the log train frequency (the OOV
+    row at the smallest); training moves it from there."""
+    tr = Trainer(_small_run_cfg(epochs=0), str(tmp_path / "r"), device="cpu")
+    tr.train(tiny_bundle)
+    n_items = int(tiny_bundle["meta/n_movies"])
+    pop = np.bincount(tiny_bundle["train/movie_id"], minlength=n_items).astype(np.float32)
+    want = np.log(np.maximum(pop, 0.5) / len(tiny_bundle["train/movie_id"]))
+    bias = tr.final_state.params["towers"]["item_bias"].detach().numpy()
+    np.testing.assert_allclose(bias[:n_items], want, rtol=1e-6)
+    assert bias[n_items] == pytest.approx(want.min())
+
+
+def test_preemption_checkpoint_then_resume(tiny_bundle, tmp_path, monkeypatch):
+    """SIGUSR1 during an epoch: the trainer checkpoints at the epoch's end
+    and stops; a rerun with ``train.resume`` continues from that step."""
+    out = str(tmp_path / "run")
+    tr = Trainer(_small_run_cfg(), out, device="cpu")
+    end_epoch = tr.writer.end_epoch
+
+    def end_epoch_with_signal(epoch, logs):
+        if epoch == 0:
+            os.kill(os.getpid(), signal.SIGUSR1)
+        return end_epoch(epoch, logs)
+
+    monkeypatch.setattr(tr.writer, "end_epoch", end_epoch_with_signal)
+    report = tr.train(tiny_bundle)
+    assert report["preempted"] and report["epochs_run"] == 1
+    steps = len(tiny_bundle["train/user_id"]) // 256
+    assert report["resume_step"] == steps
+    assert signal.getsignal(signal.SIGUSR1) is not None  # handler restored
+    resumed = Trainer(_small_run_cfg(resume=True), out, device="cpu")
+    report = resumed.train(tiny_bundle)
+    assert resumed.final_state.step == 3 * steps
+    assert report["epochs_run"] == 3 and "recall@10" in report
+
+
+_UNPORTED = {
+    "explicit negatives": lambda: RecsysConfig(data=DataConfig(negative_sampling="hard")),
+    "dense features": lambda: RecsysConfig(model=ModelConfig(dense_features=4)),
+    "sparse updates": lambda: RecsysConfig(train=TrainConfig(sparse_table_updates=True)),
+    "CBNS cache": lambda: RecsysConfig(train=TrainConfig(negative_cache=128)),
+    "model-parallel mesh": lambda: RecsysConfig(mesh=MeshConfig(model_axis=2)),
+    "streaming input": lambda: RecsysConfig(train=TrainConfig(device_resident_data=False)),
+    "profile": lambda: RecsysConfig(train=TrainConfig(profile=True)),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(_UNPORTED))
+def test_unported_modes_raise(mode, tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(_UNPORTED[mode](), str(tmp_path), device="cpu")
+
+
+def test_unported_data_sizes_raise(tiny_bundle, tmp_path):
+    """A split above ``device_data_limit_mb`` (the streaming path) and
+    "auto" sparse updates above the table threshold raise."""
+    tr = Trainer(_small_run_cfg(device_data_limit_mb=0), str(tmp_path / "a"), device="cpu")
+    with pytest.raises(NotImplementedError, match="streaming"):
+        tr.train(tiny_bundle)
+    tr = Trainer(_small_run_cfg(), str(tmp_path / "b"), device="cpu")
+    tr.SPARSE_AUTO_THRESHOLD = 10
+    with pytest.raises(NotImplementedError, match="sparse"):
+        tr.train(tiny_bundle)
+
+
+def test_trainer_without_a_device_asks_for_the_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(RecsysConfig(), str(tmp_path))
+
+
+def test_cli_trains_on_the_cpu_and_rejects_other_flags(tiny_bundle, tmp_path, capsys):
+    data = str(tmp_path / "bundle.npz")
+    np.savez(data, **tiny_bundle)
+    out = str(tmp_path / "run")
+    assert cli.main(["--data", data, "--output_dir", out, "--embedding_dim", "16",
+                     "--cross_layers", "2", "--batch_size", "256", "--epochs", "1",
+                     "--retrieval_loss", "flash", "--device", "cpu",
+                     "--set", "model.user_tower_dims=[32, 16]",
+                     "--set", "model.item_tower_dims=[16]",
+                     "--set", "eval.topk=[5, 10]"]) == 0
+    with open(os.path.join(out, "config.json")) as f:
+        saved = json.load(f)
+    assert saved["model"]["use_flash_ce"] is True
+    assert saved["model"]["user_tower_dims"] == [32, 16]
+    assert os.path.exists(os.path.join(out, "serving", "index.npz"))
+    with pytest.raises(SystemExit):
+        cli.main(["--data", data, "--mesh_model", "2"])
+    with pytest.raises(SystemExit):
+        cli.main(["--data", data, "--set", "train.no_such_field=1"])
+    assert "no_such_field" in capsys.readouterr().err
