@@ -38,7 +38,25 @@
     and times them as in phase 6, then profiles a full train step with
     and without the flash kernels at batch 4,096 and 8,192 as phase 7
     profiles a request;
-12. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+12. evaluates the phase 8 bundle with ``python -m recsys_tpu_torch.evaluate
+    --filter_seen --rerank_candidates 200 --device cuda`` (the per-batch
+    seen mask and the two-stage rerank through the DCN kernel);
+13. large-catalog serving: a full-width bundle of 1,048,576 items (above
+    the service's 1M approximate-search threshold) and 6,040 users from
+    ``SEED``, served as in phase 4 through the group-max sieve (the
+    blockmax kernel; the launch counters set to 0 just before and read
+    just after) and then with ``int8_catalog=True``, each held against the
+    same bundle served on the CPU; the recall@10 of the sieve against the
+    exact fp32 top-k, and both routes' requests profiled as in phase 7;
+14. holds the blockmax kernel against its plain version at the served
+    shapes (Q in {1, 64}, N = 1,048,576, d = 128, groups of 512), at
+    Q = 4,096, N = 8,388,608, and at ragged edge cases, timed as in phase
+    6, with the whole ``blockmax_topk`` timed against ``flash_topk``;
+15. ``evaluate(filter_seen=True)`` of the 1M-item model on a seeded
+    synthetic log, where k + max_seen > 256 and the dense scores would pass
+    1 GiB, so the exact blockwise scan runs on the card, held against the
+    same evaluation through the dense per-batch mask;
+16. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line. Without a
@@ -94,6 +112,18 @@ PARITY_STEPS = 3
 # and gradients can land one ulp apart (2**-8 relative)
 PARITY_LOSS_RTOL = 1e-3
 PARITY_PARAM_ATOL = 2e-4
+LARGE_N_ITEMS = 1 << 20  # above the service's approx_search_threshold of 1M
+BIG_Q, BIG_N = 4096, 1 << 23
+# blockmax kernel against its plain version, relative to max|ref|: fp32
+# sums of exact bf16 (or fp32) products in another order
+BLOCKMAX_TOL = 1e-5
+# the seen-filtered evaluation of the 1M-item model: a log whose heaviest
+# users have HEAVY_SEEN items, so k + max_seen passes 256, and batches of
+# EVAL_BATCH users, so B * N passes the per-batch-mask limit (2**29) and
+# Q * N * 4 bytes the dense-scores cap (1 GiB)
+HEAVY_SEEN = 600
+EVAL_BATCH = 1024
+EVAL_ROWS = 2048
 
 
 def log(msg: str) -> None:
@@ -164,7 +194,9 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 def device_ms(fn, iters: int, kernel: str = "") -> tuple:
     """Device time per call of ``fn`` from a ``torch.profiler`` window of
     ``iters`` calls (after one warm-up call): (all device work, the
-    device work of kernels whose name holds ``kernel``)."""
+    device work of kernels whose name holds ``kernel``), both None when the
+    profiler recorded no device work (at Q = 4,096, N = 8,388,608 it has
+    recorded none for the blockmax kernel's 0.4 s launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -178,6 +210,8 @@ def device_ms(fn, iters: int, kernel: str = "") -> tuple:
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in events)
     named = sum(e.self_device_time_total for e in events if kernel and kernel in e.key)
+    if total == 0:  # the profiler recorded nothing: not measured, not zero
+        return None, None
     return total / 1e3 / iters, named / 1e3 / iters
 
 
@@ -191,14 +225,17 @@ def bound_ms(n_bytes: float, n_ops: float, flops: float = FP32_FLOPS,
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def serve_main_path(bundle: str, counters, device: str = "cuda") -> dict:
+def serve_main_path(bundle: str, counters, n_items: int = N_ITEMS, ref=None,
+                    **svc_kw) -> dict:
     """Phase 4: the served requests, with every kernel counter set to 0
-    just before and read just after."""
+    just before and read just after, held against the same bundle served
+    on the CPU (``ref``, loaded here with ``svc_kw`` when not given)."""
     import numpy as np
     from recsys_tpu_torch.serve.app import make_http_server
     from recsys_tpu_torch.serve.service import RecommendationService
 
-    svc = RecommendationService(bundle, rerank_candidates=RERANK, device=device).load()
+    svc = RecommendationService(bundle, rerank_candidates=RERANK, device="cuda",
+                                **svc_kw).load()
     server = make_http_server(svc, host="127.0.0.1", port=0)
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -212,7 +249,7 @@ def serve_main_path(bundle: str, counters, device: str = "cuda") -> dict:
         code, body, _ = http(port, "GET", "/health")
         check(code == 200 and body["model_loaded"], f"/health: {code} {body}")
         code, body, _ = http(port, "GET", "/model/info")
-        check(code == 200 and body["n_users"] == N_USERS and body["n_items"] == N_ITEMS,
+        check(code == 200 and body["n_users"] == N_USERS and body["n_items"] == n_items,
               f"/model/info: {code} {body}")
         code, body, latency["recommend_first_ms"] = http(
             port, "POST", "/recommend", {"user_id": known, "k": 10})
@@ -247,14 +284,17 @@ def serve_main_path(bundle: str, counters, device: str = "cuda") -> dict:
     check(not thread.is_alive(), "server thread did not stop")
 
     # the same bundle served on the CPU runs the plain versions
-    ref = RecommendationService(bundle, rerank_candidates=RERANK, device="cpu").load()
+    if ref is None:
+        ref = RecommendationService(bundle, rerank_candidates=RERANK, device="cpu",
+                                    **svc_kw).load()
     err = same_ranking(served_known, ref.recommend(known, 10), SERVE_TOL, "known user")
     for res, want in zip(served_batch, ref.recommend_batch(batch, 10)):
         err = max(err, same_ranking(res["recommendations"], want["recommendations"],
                                     SERVE_TOL, f"batch user {res['user_id']}"))
     log(f"served rankings match the CPU plain path: max score diff {err:.3g} "
         f"(tol {SERVE_TOL})")
-    return {"launches": launches, "latency": latency, "service": svc, "batch": batch}
+    return {"launches": launches, "latency": latency, "service": svc, "batch": batch,
+            "ref": ref, "max_score_diff": err}
 
 
 class Counter:
@@ -801,6 +841,326 @@ def profile_train_steps(bundle: dict) -> list:
     return rows
 
 
+# ---- large-catalog retrieval ----------------------------------------------
+
+def large_catalog_bundle(path: str) -> tuple:
+    """A full-width bundle of LARGE_N_ITEMS items and N_USERS users, random
+    weights from ``SEED + 6``, written to ``path`` -> (config, params on
+    the card)."""
+    import numpy as np
+    import torch
+    from recsys_tpu_torch.config import ModelConfig, RecsysConfig
+    from recsys_tpu_torch.models.multitask import MultiTaskModel
+    from recsys_tpu_torch.retrieval.scorer import RetrievalIndex
+    from recsys_tpu_torch.train.checkpoint import save_inference_bundle
+
+    cfg = RecsysConfig(model=ModelConfig(dropout_rate=0.0))
+    params = MultiTaskModel.init(torch.Generator().manual_seed(SEED + 6), cfg.model,
+                                 N_USERS, LARGE_N_ITEMS, "cuda")
+    item_raw = np.arange(1, LARGE_N_ITEMS + 1)
+    index = RetrievalIndex.build(params["towers"], cfg.model, LARGE_N_ITEMS, item_raw,
+                                 device="cuda")
+    save_inference_bundle(path, params["towers"], cfg, np.arange(1, N_USERS + 1),
+                          item_raw, index=index, full_params=params)
+    return cfg, params
+
+
+def _recall(got, want) -> float:
+    """Mean share of each ``want`` row's ids found in the ``got`` row."""
+    return float(sum(len(set(g) & set(w)) / len(w) for g, w in zip(got, want)) / len(want))
+
+
+def serve_large_catalog(bundle: str, counters) -> dict:
+    """Phase 13: the 1M-item bundle served as in phase 4 through the
+    group-max sieve (the service's route above 1M items), then through the
+    int8 catalog, each against one CPU service on the same bundle; the
+    sieve's recall against the exact fp32 top-k; both routes profiled."""
+    import numpy as np
+    import torch
+    from recsys_tpu_torch.models.towers import TwoTower
+    from recsys_tpu_torch.ops.topk_flash import flash_topk
+    from recsys_tpu_torch.serve.service import RecommendationService
+
+    t0 = time.perf_counter()
+    ref = RecommendationService(bundle, rerank_candidates=RERANK, device="cpu").load()
+    out = {"cpu_load_s": time.perf_counter() - t0}
+    for route, kw in (("approx", {}), ("int8", {"int8_catalog": True})):
+        ref.int8_catalog = route == "int8"
+        t0 = time.perf_counter()
+        served = serve_main_path(bundle, counters, n_items=LARGE_N_ITEMS, ref=ref, **kw)
+        svc = served["service"]
+        check(svc._search_route() == route and ref._search_route() == route,
+              f"1M items: route {svc._search_route()}, want {route}")
+        row = {"launches": served["launches"], "latency": served["latency"],
+               "max_score_diff": served["max_score_diff"],
+               "serve_and_compare_s": time.perf_counter() - t0,
+               "profile": profile_requests(svc, served["batch"])}
+        out[route] = row
+        log(f"1M items, {route} route: {json.dumps(row)}")
+        if route == "approx":
+            out["service"], out["batch"] = svc, served["batch"]
+            with torch.inference_mode():
+                ids = torch.as_tensor([svc.user_id_map[u] for u in served["batch"]],
+                                      device="cuda")
+                users = TwoTower.user_embed(svc.encoder_params, ids, svc.config.model)
+                recall = {}
+                for k in (10, RERANK):
+                    _, approx_i = svc.index.search(users, k, approx=True)
+                    _, exact_i = flash_topk(svc.index._query_ready(users),
+                                            svc.index._catalog_ready(), k, normalize=False)
+                    _, cpu_i = ref.index.search(users.cpu(), k, approx=True)
+                    recall[f"recall@{k}_vs_exact_fp32"] = _recall(approx_i, exact_i.cpu().numpy())
+                    recall[f"recall@{k}_vs_cpu"] = _recall(approx_i, cpu_i)
+            out["recall"] = recall
+            log(f"1M items, sieve recall over {len(served['batch'])} users: {json.dumps(recall)}")
+        else:
+            del svc, served
+    return out
+
+
+def check_blockmax(u, v, group: int) -> float:
+    """The blockmax kernel against its plain version on the same inputs:
+    shape, finite, every group max within BLOCKMAX_TOL of max|ref|. -> max
+    absolute error."""
+    import torch
+    from recsys_tpu_torch.ops.topk_flash import (
+        blockmax_group_max, blockmax_group_max_reference,
+    )
+
+    m = blockmax_group_max(u, v, group)
+    torch.cuda.synchronize()
+    r = blockmax_group_max_reference(u, v, group)
+    what = f"blockmax Q={u.shape[0]} N={v.shape[0]} d={u.shape[1]} g={group} {u.dtype}"
+    check(m.shape == r.shape == (u.shape[0], -(-v.shape[0] // group)), f"{what}: shape")
+    check(bool(torch.isfinite(m).all()), f"{what}: non-finite")
+    err = float((m - r).abs().max())
+    tol = BLOCKMAX_TOL * float(r.abs().max())
+    check(err <= tol, f"{what}: max err {err} > {tol}")
+    return err
+
+
+def check_blockmax_edges() -> None:
+    """Edge cases of the blockmax kernel, before any timing: N not a
+    multiple of g, N < g, Q not a multiple of the 64-row tile, fp32
+    operands (``bf16=False``) at a ragged width, groups smaller than a
+    64-item tile; then the whole ``blockmax_topk`` on the card against the
+    CPU plain path, k > N included."""
+    import torch
+    from recsys_tpu_torch.ops.topk_flash import NEG_INF, blockmax_group_size, blockmax_topk
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    bf = torch.bfloat16
+    check_blockmax(rnd(70, 128).to(bf), rnd(3001, 128).to(bf), blockmax_group_size(3001))
+    check_blockmax(rnd(5, 128).to(bf), rnd(100, 128).to(bf), blockmax_group_size(100))
+    check_blockmax(rnd(33, 129), rnd(5000, 129), 512)
+    check_blockmax(rnd(3, 24), rnd(1000, 24), 40)
+    for q_n, n, d, k, bf16 in ((70, 3001, 128, 10, True), (4, 50, 16, 80, True),
+                               (9, 5000, 64, 200, False)):
+        u, v = rnd(q_n, d), rnd(n, d)
+        s, i = blockmax_topk(u, v, k, bf16=bf16)
+        torch.cuda.synchronize()
+        rs, ri = blockmax_topk(u.cpu(), v.cpu(), k, bf16=bf16)
+        what = f"blockmax_topk Q={q_n} N={n} k={k} bf16={bf16}"
+        s, i = s.cpu(), i.cpu()
+        err = float((s - rs).abs().max())
+        check(err <= TOPK_TOL, f"{what}: score err {err}")
+        real = rs > NEG_INF / 2
+        check(bool((real == (s > NEG_INF / 2)).all()) and int(real.sum(1).min()) == min(k, n),
+              f"{what}: wrong fill")
+        check(bool((i[~real] == 0).all()), f"{what}: padding ids")
+        for row_s, row_i, want_i, row_real in zip(s, i, ri, real):
+            boundary = float(row_s[row_real][-1])
+            clear = row_real & (row_s > boundary + TOPK_TOL)
+            check(set(row_i[clear].tolist()) <= set(want_i.tolist()),
+                  f"{what}: ids differ beyond ties")
+    log("blockmax edge cases agree with the plain versions")
+
+
+def measure_blockmax(u, v, k: int, iters: int, library: bool) -> dict:
+    """Pass 1 at one shape: kernel against plain version, timed with CUDA
+    events and in device time, beside its bound and (``library``) one
+    ``torch.matmul`` of the upcast operands plus ``amax`` over groups; then
+    the whole ``blockmax_topk`` against ``flash_topk`` at k."""
+    import torch
+    from recsys_tpu_torch.ops.topk_flash import (
+        blockmax_group_max, blockmax_group_max_reference, blockmax_group_size,
+        blockmax_topk, flash_topk,
+    )
+
+    q_n, d = u.shape
+    n = v.shape[0]
+    grp = blockmax_group_size(n)
+    n_groups = -(-n // grp)
+    err = check_blockmax(u, v, grp)
+    flops = BF16_FLOPS if u.dtype == torch.bfloat16 else FP32_FLOPS
+    b_ms, b_by = bound_ms(u.element_size() * (q_n + n) * d + 4 * q_n * n_groups,
+                          2.0 * q_n * n * d, flops)
+    kernel = lambda: blockmax_group_max(u, v, grp)
+    plain = lambda: blockmax_group_max_reference(u, v, grp)
+    warm = 1 if iters < 5 else 2
+    dev_ms, dev_kernel_ms = device_ms(kernel, iters, kernel="blockmax")
+    row = {
+        "shape": {"Q": q_n, "N": n, "d": d, "g": grp, "dtype": str(u.dtype).replace("torch.", "")},
+        "max_abs_err": err,
+        "ms": time_ms(kernel, iters, warm),
+        "plain_ms": time_ms(plain, iters, warm),
+        "library_ms": None,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "device_ms": dev_ms, "kernel_device_ms": dev_kernel_ms,
+        "plain_device_ms": device_ms(plain, iters)[0],
+    }
+    if library:  # the served shapes only: at 8M items it is a 137 GB matrix
+        uf, vf = u.float(), v.float()
+        row["library_ms"] = time_ms(
+            lambda: torch.matmul(uf, vf.T).view(q_n, n_groups, grp).amax(dim=2), iters, warm)
+        del uf, vf
+    u32, v32 = u.float(), v.float()
+    row["topk_k"] = k
+    row["blockmax_topk_ms"] = time_ms(lambda: blockmax_topk(u, v, k, normalize=False),
+                                      iters, warm)
+    row["flash_topk_ms"] = time_ms(lambda: flash_topk(u32, v32, k, normalize=False),
+                                   iters, warm)
+    del u32, v32
+    torch.cuda.empty_cache()
+    return row
+
+
+def measure_blockmax_shapes(svc, batch) -> list:
+    """Phase 14: the kernel at the served shapes (the served bf16 catalog
+    and the users of the 64-user batch) and at Q = 4,096, N = 8,388,608."""
+    import torch
+    from recsys_tpu_torch.models.towers import TwoTower
+
+    with torch.inference_mode():
+        ids = torch.as_tensor([svc.user_id_map[u] for u in batch], device="cuda")
+        users = svc.index._query_ready(
+            TwoTower.user_embed(svc.encoder_params, ids, svc.config.model)).to(torch.bfloat16)
+        catalog = svc.index._catalog_bf16()
+        rows = [measure_blockmax(users[:q].contiguous(), catalog, RERANK, iters=20,
+                                 library=True) for q in (1, BATCH_USERS)]
+        g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+        big_u = torch.nn.functional.normalize(
+            torch.randn((BIG_Q, 128), generator=g, device="cuda"), dim=1).to(torch.bfloat16)
+        big_v = torch.nn.functional.normalize(
+            torch.randn((BIG_N, 128), generator=g, device="cuda"), dim=1).to(torch.bfloat16)
+        rows.append(measure_blockmax(big_u, big_v, 10, iters=2, library=False))
+        del big_u, big_v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def synthetic_seen_log(seed: int) -> dict:
+    """A seeded interaction log over the 1M-item catalog: each user has 1
+    to 39 train items, 8 users HEAVY_SEEN; EVAL_ROWS val rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, 40, N_USERS)
+    counts[rng.choice(N_USERS, 8, replace=False)] = HEAVY_SEEN
+    train_u = np.repeat(np.arange(N_USERS), counts).astype(np.int32)
+    rating = rng.integers(1, 6, EVAL_ROWS).astype(np.float32)
+    return {
+        "meta/n_users": np.int64(N_USERS), "meta/n_movies": np.int64(LARGE_N_ITEMS),
+        "train/user_id": train_u,
+        "train/movie_id": rng.integers(0, LARGE_N_ITEMS, len(train_u)).astype(np.int32),
+        "val/user_id": rng.integers(0, N_USERS, EVAL_ROWS).astype(np.int32),
+        "val/movie_id": rng.integers(0, LARGE_N_ITEMS, EVAL_ROWS).astype(np.int32),
+        "val/rating": rating, "val/y_implicit": (rating >= 4).astype(np.float32),
+    }
+
+
+def eval_large_catalog(cfg, params, counters) -> dict:
+    """Phase 15: ``evaluate(filter_seen=True)`` of the 1M-item model, whose
+    over-retrieval takes the exact blockwise scan on the card (counted),
+    and one batch's seen-filtered ids held against the dense per-batch
+    mask's."""
+    import math
+
+    import numpy as np
+    import torch
+    from recsys_tpu_torch.config import EvalConfig
+    from recsys_tpu_torch.models.towers import TwoTower
+    from recsys_tpu_torch.ops.topk_flash import KBUF_MAX
+    from recsys_tpu_torch.retrieval import evaluator, scorer
+
+    log_np = synthetic_seen_log(SEED + 8)
+    eval_cfg = EvalConfig(topk=(10,), eval_batch_size=EVAL_BATCH, filter_seen=True)
+    seen = evaluator.SeenIndex(log_np["train/user_id"], log_np["train/movie_id"],
+                               N_USERS, LARGE_N_ITEMS)
+    check(EVAL_BATCH * LARGE_N_ITEMS > evaluator._BATCH_MASK_LIMIT
+          and 10 + seen.max_seen > KBUF_MAX
+          and EVAL_BATCH * LARGE_N_ITEMS * 4 > scorer._DENSE_SCORES_CAP,
+          "eval: the shapes do not reach the blockwise branch")
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    report = evaluator.evaluate(params, cfg.model, log_np, "val", eval_cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.name: c.read() for c in counters}
+    check(launches["blockwise_topk"] == -(-EVAL_ROWS // EVAL_BATCH),
+          f"eval: blockwise scan ran {launches['blockwise_topk']} times")
+    check(launches["topk_scores"] == 0, "eval: the dense k > 256 path ran above the cap")
+    check(all(math.isfinite(v) for v in report.values()), f"eval: {report}")
+    check(0.0 < report["coverage"] <= 1.0, f"eval: coverage {report['coverage']}")
+    # one batch through both branches: equal ids beyond exact ties
+    with torch.inference_mode():
+        towers = params["towers"]
+        items = scorer.materialize_item_embeddings(towers, cfg.model, LARGE_N_ITEMS)
+        u_ids = log_np["val/user_id"][:EVAL_BATCH]
+        u_emb = TwoTower.user_embed(towers, torch.as_tensor(u_ids, device="cuda"), cfg.model)
+        args = (u_emb, items, u_ids, seen, 10, EVAL_BATCH, LARGE_N_ITEMS, True, None)
+        over = evaluator._filtered_topk(*args)
+        limit = evaluator._BATCH_MASK_LIMIT
+        evaluator._BATCH_MASK_LIMIT = EVAL_BATCH * LARGE_N_ITEMS
+        try:
+            masked = evaluator._filtered_topk(*args)
+        finally:
+            evaluator._BATCH_MASK_LIMIT = limit
+        check(not seen.contains(u_ids[:, None], over).any(), "eval: a seen item survived")
+        same = float((over == masked).mean())
+        s_over = torch.einsum("bd,bkd->bk", torch.nn.functional.normalize(u_emb, dim=1),
+                              torch.nn.functional.normalize(items, dim=1)[
+                                  torch.as_tensor(over, device="cuda").long()])
+        s_mask = torch.einsum("bd,bkd->bk", torch.nn.functional.normalize(u_emb, dim=1),
+                              torch.nn.functional.normalize(items, dim=1)[
+                                  torch.as_tensor(masked, device="cuda").long()])
+        score_err = float((s_over - s_mask).abs().max())
+    check(score_err <= TOPK_TOL, f"eval: the branches' top-10 differ ({score_err})")
+    return {"report": report, "wall_s": wall, "launches": launches, "max_seen": seen.max_seen,
+            "ids_equal_share": same, "branch_score_diff": score_err}
+
+
+def evaluate_cli(repo: str, run_dir: str, bundle_np: dict) -> dict:
+    """Phase 12: ``python -m recsys_tpu_torch.evaluate --filter_seen
+    --rerank_candidates 200 --device cuda`` on the phase 8 bundle."""
+    import math
+
+    import numpy as np
+
+    data = os.path.join(run_dir, "bundle.npz")
+    np.savez(data, **bundle_np)
+    out = os.path.join(run_dir, "eval_report.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "recsys_tpu_torch.evaluate", "--data", data,
+         "--model_dir", os.path.join(run_dir, "serving"), "--filter_seen",
+         "--rerank_candidates", str(RERANK), "--device", "cuda", "--output", out],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"evaluate CLI: rc {proc.returncode}\n{proc.stderr[-4000:]}")
+    with open(out) as f:
+        report = json.load(f)
+    for key in ("recall@10", "ndcg@10", "coverage", "two_stage_recall@10",
+                "two_stage_ndcg@10", "rating_rmse"):
+        check(isinstance(report.get(key), float) and math.isfinite(report[key]),
+              f"evaluate CLI: {key} = {report.get(key)}")
+    check(0.0 <= report["two_stage_recall@10"] <= 1.0, "evaluate CLI: two-stage recall")
+    return {"wall_s": wall, "report": report}
+
+
+
 def main() -> int:
     import torch
 
@@ -817,6 +1177,7 @@ def main() -> int:
     from recsys_tpu_torch.models.towers import TwoTower
     from recsys_tpu_torch.ops import _build, dcn_cross as dcn_mod, topk_flash as topk_mod
     from recsys_tpu_torch.ops import flash_ce as flash_mod
+    from recsys_tpu_torch.ops import topk as topk_ops
     from recsys_tpu_torch.retrieval import scorer
     from recsys_tpu_torch.retrieval.scorer import RetrievalIndex, l2_normalize
     from recsys_tpu_torch.train.checkpoint import save_inference_bundle
@@ -914,6 +1275,9 @@ def main() -> int:
               "the trained bundle was not served through the kernels")
         parity = train_parity(bundle_np, run_dir)
         log(f"train parity, card kernels vs CPU plain versions: {json.dumps(parity)}")
+        cli_eval = evaluate_cli(repo, run_dir, bundle_np)
+        log(f"evaluate CLI on the trained bundle in {cli_eval['wall_s']:.1f} s: "
+            f"{json.dumps(cli_eval['report'])}")
 
     sm_clock = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -930,6 +1294,34 @@ def main() -> int:
         log(f"kernel dcn_cross_bwd {json.dumps(row)}")
     for row in profile_train_steps(bundle_np):
         log(f"profile {json.dumps(row)}")
+
+    # ---- large-catalog retrieval: the third main path ---------------------
+    t_large = time.perf_counter()
+    counters += [Counter("blockmax", topk_mod.blockmax_group_max),
+                 Counter("blockwise_topk", topk_ops.blockwise_topk, "calls")]
+    with tempfile.TemporaryDirectory() as large_dir:
+        t0 = time.perf_counter()
+        large_cfg, large_params = large_catalog_bundle(large_dir)
+        log(f"wrote the {LARGE_N_ITEMS:,}-item bundle in {time.perf_counter() - t0:.1f} s")
+        large = serve_large_catalog(large_dir, counters)
+    approx_launches = large["approx"]["launches"]
+    check(approx_launches["blockmax"] > 0, "the blockmax kernel never launched on the 1M route")
+    check(approx_launches["topk_flash"] == 0, "the flash top-k ran on the 1M approx route")
+    check(approx_launches["dcn_cross"] > 0, "the DCN kernel never launched on the 1M route")
+    int8_launches = large["int8"]["launches"]
+    check(int8_launches["blockmax"] == 0 and int8_launches["topk_flash"] == 0,
+          f"the int8 route ran a top-k kernel: {int8_launches}")
+    check_blockmax_edges()
+    t0 = time.perf_counter()
+    blockmax_rows = measure_blockmax_shapes(large.pop("service"), large["batch"])
+    for row in blockmax_rows:
+        log(f"kernel blockmax {json.dumps(row)}")
+    log(f"blockmax measured in {time.perf_counter() - t0:.1f} s")
+    large_eval = eval_large_catalog(large_cfg, large_params, counters)
+    log(f"1M-item evaluate(filter_seen=True): {json.dumps(large_eval)}")
+    del large_params
+    torch.cuda.empty_cache()
+    log(f"large-catalog phases in {time.perf_counter() - t_large:.1f} s")
 
     main_topk = next(r for r in topk_rows
                      if r["shape"] == {"Q": BATCH_USERS, "N": N_ITEMS, "d": 128, "k": RERANK})
@@ -965,6 +1357,11 @@ def main() -> int:
          "replaces": "recsys_tpu/ops/pallas/flash_ce.py:250",
          "launches": train_launches["flash_ce_bwd"], **{k: main_bwd[k] for k in keys},
          "shape": main_bwd["shape"], "shapes": [r[1] for r in flash_rows.values()]},
+        {"name": "blockmax", "route": "cuda",
+         "source": "recsys_tpu_torch/csrc/blockmax.cu",
+         "replaces": "recsys_tpu/ops/pallas/topk_flash.py:274",
+         "launches": approx_launches["blockmax"], **{k: blockmax_rows[1][k] for k in keys},
+         "shape": blockmax_rows[1]["shape"], "shapes": blockmax_rows},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

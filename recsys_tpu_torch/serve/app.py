@@ -298,6 +298,7 @@ def serve_forever(model_dir: str, host: str = "0.0.0.0", port: int = 8000,
                   stub: bool = False, rerank_candidates: int = 0,
                   rerank_ctr_weight: float = 0.25,
                   rerank_rating_weight: float = 0.0,
+                  int8_catalog: bool = False,
                   device: DeviceLike = "cuda") -> None:
     """Load the inference bundle and serve. If the model fails to load,
     the server still starts and answers 503s (the startup-failure
@@ -310,7 +311,8 @@ def serve_forever(model_dir: str, host: str = "0.0.0.0", port: int = 8000,
             service = RecommendationService(
                 model_dir, rerank_candidates=rerank_candidates,
                 rerank_ctr_weight=rerank_ctr_weight,
-                rerank_rating_weight=rerank_rating_weight, device=device,
+                rerank_rating_weight=rerank_rating_weight,
+                int8_catalog=int8_catalog, device=device,
             ).load()
         except Exception:
             logger.exception("model load failed; serving in degraded mode (503s)")

@@ -4,9 +4,12 @@
 * :class:`RecommendationService` loads the inference bundle
   (``encoder.npz`` + ``vocabs.json`` + ``config.json`` + ``index.npz``,
   and ``model.npz`` for two-stage rerank) and serves top-k on one device:
-  the user tower, then exact top-k over the catalog (the flash top-k
-  kernel on the card), then optionally the DCN rerank of the candidates
-  (the fused cross-stack kernel on the card).
+  the user tower, then top-k over the catalog, then optionally the DCN
+  rerank of the candidates (the fused cross-stack kernel on the card).
+  The top-k route, as in the JAX package's device backend: the int8
+  catalog with an exact fp32 refine under ``int8_catalog``; else, above
+  ``approx_search_threshold`` items, the group-max sieve (the blockmax
+  kernel on the card); else exact top-k (the flash top-k kernel).
 * :class:`StubRecommendationService` is the model-free degraded-mode
   stand-in with seeded random embeddings.
 
@@ -48,6 +51,14 @@ _NOT_PORTED_BACKENDS = {
 }
 
 
+# what get_model_info reports for each top-k route
+_SEARCH_ROUTES = {
+    "int8": "int8 catalog, blockwise top-4k, exact fp32 refine",
+    "approx": "group-max sieve over the bf16 catalog (blockmax)",
+    "exact": "exact top-k (flash top-k for k <= 256)",
+}
+
+
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -57,9 +68,11 @@ class RecommendationService:
     ``device``: ``"cuda"`` (default; raises if absent) or ``"cpu"``."""
 
     def __init__(self, model_dir: str, backend: str = "auto",
+                 approx_search_threshold: int = 1_000_000,
                  rerank_candidates: int = 0,
                  rerank_ctr_weight: float = 0.25,
                  rerank_rating_weight: float = 0.0,
+                 int8_catalog: bool = False,
                  device: DeviceLike = "cuda"):
         if backend in _NOT_PORTED_BACKENDS:
             raise NotImplementedError(
@@ -69,6 +82,12 @@ class RecommendationService:
             raise ValueError(f"unknown backend {backend!r}")
         self.backend = backend
         self.device = resolve_device(device)
+        # int8-quantized catalog (4x less device memory), searched
+        # blockwise, its top 4k candidates rescored exactly in fp32
+        self.int8_catalog = int8_catalog
+        # catalogs larger than this take the group-max sieve over the bf16
+        # catalog (the JAX package's approx_max_k route); 0 = never
+        self.approx_search_threshold = approx_search_threshold
         # two-stage serving: retrieve this many candidates, rerank by
         # retrieval score + ctr weight * CTR logit (+ rating weight *
         # rating prediction); 0 = retrieval only. Needs model.npz.
@@ -123,9 +142,23 @@ class RecommendationService:
         ids = torch.as_tensor(np.atleast_1d(np.asarray(dense_uid)), device=self.device)
         return TwoTower.user_embed(self.encoder_params, ids, self.config.model)
 
+    def _search_route(self) -> str:
+        if self.int8_catalog:
+            return "int8"
+        n_index_rows = self.index.item_embeddings_np.shape[0]
+        if self.approx_search_threshold and n_index_rows > self.approx_search_threshold:
+            return "approx"
+        return "exact"
+
     def _retrieve(self, dense_ids, k: int):
         """dense user ids -> (cosine scores [Q, k], catalog rows [Q, k])."""
-        return self.index.search(self._user_embedding(dense_ids), k)
+        u = self._user_embedding(dense_ids)
+        route = self._search_route()
+        if route == "int8":
+            return self.index.search(u, k, int8=True, approx=True, refine_factor=4)
+        if route == "approx":
+            return self.index.search(u, k, approx=True)
+        return self.index.search(u, k)
 
     def _rerank_active(self) -> bool:
         return self.rerank_candidates > 0 and self.model_params is not None
@@ -237,6 +270,8 @@ class RecommendationService:
             "n_items": len(self.item_id_map),
             "embedding_dim": self.config.model.embedding_dim if self.config else None,
             "backend": f"recsys_tpu_torch device scorer ({self.device.type})",
+            "search": (_SEARCH_ROUTES[self._search_route()]
+                       if self.index is not None else None),
             "ready": self._ready,
         }
 

@@ -13,8 +13,8 @@ Tolerances:
   accumulator is near its start, by 2**-8 of itself; two such flips of
   one element are allowed over the 20 steps (the largest move of a param
   is about 1.3, so this is still 4e-4 of it);
-* evaluation metrics: equal top-k ids, so equal ranking metrics (rtol
-  1e-6); RMSE and AUC to rtol 1e-5.
+* evaluation metrics (plain, seen-filtered and two-stage): equal top-k
+  ids, so equal ranking metrics (rtol 1e-6); RMSE and AUC to rtol 1e-5.
 """
 
 import json
@@ -33,6 +33,7 @@ from recsys_tpu.config import RecsysConfig as JaxRecsysConfig
 from recsys_tpu.config import TrainConfig as JaxTrainConfig
 from recsys_tpu.parallel.mesh import make_mesh
 from recsys_tpu.retrieval.evaluator import evaluate as jax_evaluate
+from recsys_tpu.retrieval.evaluator import two_stage_evaluate as jax_two_stage_evaluate
 from recsys_tpu.serve.service import RecommendationService as JaxService
 from recsys_tpu.train.trainer import Trainer as JaxTrainer
 from recsys_tpu_torch.config import (DataConfig, EvalConfig, MeshConfig, ModelConfig,
@@ -122,11 +123,19 @@ def test_evaluate_matches_jax(tiny_bundle, score_norm):
     for k, v in want.items():
         rtol = 1e-5 if k in ("rating_rmse", "ctr_auc") else 1e-6
         assert got[k] == pytest.approx(float(v), rel=rtol), k
-    with pytest.raises(NotImplementedError, match="item 6"):
-        evaluator.evaluate(params_from_numpy(jp, "cpu"), tcfg.model, tiny_bundle, "val",
-                           EvalConfig(filter_seen=True))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        evaluator.two_stage_evaluate()
+    # seen-filtered evaluation and the two-stage evaluation agree as well
+    kw["filter_seen"] = True
+    want = jax_evaluate(jp, jcfg.model, tiny_bundle, "val", JaxEvalConfig(**kw), seed=3)
+    got = evaluator.evaluate(params_from_numpy(jp, "cpu"), tcfg.model, tiny_bundle, "val",
+                             EvalConfig(**kw), seed=3)
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        rtol = 1e-5 if k in ("rating_rmse", "ctr_auc") else 1e-6
+        assert got[k] == pytest.approx(float(v), rel=rtol), k
+    want = jax_two_stage_evaluate(jp, jcfg.model, tiny_bundle, "val", n_cand=20)
+    got = evaluator.two_stage_evaluate(params_from_numpy(jp, "cpu"), tcfg.model,
+                                       tiny_bundle, "val", n_cand=20)
+    assert got == pytest.approx(want, rel=1e-6)
 
 
 def _small_run_cfg(**train_kw):
