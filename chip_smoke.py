@@ -56,7 +56,35 @@
     synthetic log, where k + max_seen > 256 and the dense scores would pass
     1 GiB, so the exact blockwise scan runs on the card, held against the
     same evaluation through the dense per-batch mask;
-16. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+16. holds kernel rows 6 and 7 (the two-kernel flash backward, through
+    ``flash_ce_bwd_twokernel``) against their plain versions at Bq = Bk =
+    8,192, D = 128 in bf16 and fp32, at 4,096 x 20,480 bf16 and at a
+    ragged 1,000 x 3,001, D = 129, fp32, and times them at 8,192 bf16 as
+    in phase 6;
+17. above the partials cap (Bq = 131,072, Bk = 262,144, D = 128, bf16):
+    the route is the two-kernel one; the forward, rows 6 and 7 and the
+    fused kernel agree with their plain versions (chunked over query rows,
+    ~1 GiB of logits at a time) and the two routes with each other; both
+    routes are timed beside each kernel's device time and bound;
+18. trains the giant-table configuration through ``Trainer.train``: the
+    full-width ``ModelConfig``, 4,000,000 users x 2,000,000 items (the
+    tables of ``benchmarks/results/scale.json``'s ``"train"`` row),
+    batch 131,072, a CBNS cache of 131,072 rows, adagrad with "auto"
+    sparse table updates, one epoch of 8 steps on a seeded bundle (Zipf
+    items, uniform users, 65,536 val rows), with the launch counters set
+    to 0 just before and read just after: rows 6 and 7 once per step, the
+    fused backward never, the sparse step every time, and the cache's
+    FIFO holding the last batch's ids; the final evaluation and serving
+    bundle as ``train`` writes them;
+19. profiles whole steps of that configuration (device ms by kernel,
+    launches, busy share, the sparse update's span);
+20. runs 3 steps of a small-width model (embedding 32, tables of 5,000 x
+    3,000, B = 2,048, cache 6,144, sparse adagrad, the cap lowered so the
+    card takes rows 6 and 7) on the card and through the plain versions
+    on the CPU, and compares them as phase 10 does;
+21. times a step of the scale.json ``"train"`` row itself (dim 64, B =
+    4,096) with adagrad and adam, sparse (lazy Adam) and dense;
+22. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line. Without a
@@ -124,6 +152,18 @@ BLOCKMAX_TOL = 1e-5
 HEAVY_SEEN = 600
 EVAL_BATCH = 1024
 EVAL_ROWS = 2048
+# giant-table, large-batch training: the tables of the "train" row of
+# benchmarks/results/scale.json (4M users x 2M items) at the full-width
+# ModelConfig, B = 131,072 with one batch of CBNS cache (262,144
+# candidates: the TPU's dU partials come to 8 GiB, past the 4.5 GiB cap,
+# so the backward takes rows 6 and 7), sparse adagrad ("auto" picks it)
+GIANT_USERS, GIANT_ITEMS = 4_000_000, 2_000_000
+GIANT_BATCH = GIANT_CACHE = 131_072
+GIANT_STEPS = 8
+GIANT_VAL = 65_536
+ABOVE_CAP = (131_072, 262_144, 128)
+# the scale.json "train" row itself: dim 64, B = 4,096
+SCALE_ROW_DIM, SCALE_ROW_BATCH = 64, 4096
 
 
 def log(msg: str) -> None:
@@ -196,7 +236,9 @@ def device_ms(fn, iters: int, kernel: str = "") -> tuple:
     ``iters`` calls (after one warm-up call): (all device work, the
     device work of kernels whose name holds ``kernel``), both None when the
     profiler recorded no device work (at Q = 4,096, N = 8,388,608 it has
-    recorded none for the blockmax kernel's 0.4 s launches)."""
+    recorded none for the blockmax kernel's 0.4 s launches) or, with
+    ``kernel``, recorded its launches for only some of the calls (late in
+    a long run it has kept 3 of 10)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -209,10 +251,12 @@ def device_ms(fn, iters: int, kernel: str = "") -> tuple:
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in events)
-    named = sum(e.self_device_time_total for e in events if kernel and kernel in e.key)
-    if total == 0:  # the profiler recorded nothing: not measured, not zero
+    named = [e for e in events if kernel and kernel in e.key]
+    n_named = sum(e.count for e in named)
+    # the profiler recorded nothing, or dropped launches: not measured, not zero
+    if total == 0 or (kernel and (n_named == 0 or n_named % iters)):
         return None, None
-    return total / 1e3 / iters, named / 1e3 / iters
+    return total / 1e3 / iters, sum(e.self_device_time_total for e in named) / 1e3 / iters
 
 
 def bound_ms(n_bytes: float, n_ops: float, flops: float = FP32_FLOPS,
@@ -529,7 +573,8 @@ def _batches(bundle: dict, n_steps: int, b: int, device: str, log_q) -> list:
 def _log_q(bundle: dict):
     import numpy as np
 
-    pop = np.bincount(bundle["train/movie_id"], minlength=N_ITEMS).astype(np.float32)
+    pop = np.bincount(bundle["train/movie_id"],
+                      minlength=int(bundle["meta/n_movies"])).astype(np.float32)
     return np.log(np.maximum(pop, 0.5) / len(bundle["train/movie_id"])).astype(np.float32)
 
 
@@ -588,14 +633,17 @@ def _errs(got, want) -> tuple:
     return max(abs_err), rel_err
 
 
-def check_flash(u, v, c, ids_q, ids_k, pos, g) -> dict:
-    """Both flash CE kernels against their plain versions on the same
+def check_flash(u, v, c, ids_q, ids_k, pos, g, bwd=None) -> dict:
+    """The flash CE forward and a backward (``bwd``, default the fused
+    ``flash_ce_bwd_fused``) against their plain versions on the same
     inputs, each output relative to its own max|ref|: lse, positive logit
     and dcol within FLASH_TOL; dU and dV within FLASH_TOL for fp32
     operands and FLASH_BF16_GRAD_TOL for bf16 ones. -> max absolute and
     relative errors, and the reference lse."""
     import torch
     from recsys_tpu_torch.ops import flash_ce as F
+
+    bwd = bwd or F.flash_ce_bwd_fused
 
     lse, pl = F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos)
     torch.cuda.synchronize()
@@ -604,7 +652,7 @@ def check_flash(u, v, c, ids_q, ids_k, pos, g) -> dict:
     fwd_abs, fwd_rel = _errs((lse, pl), (rl, rp))
     check(bool(torch.isfinite(lse).all()), f"{what}: non-finite lse")
     check(max(fwd_rel) <= FLASH_TOL, f"{what}: forward err {fwd_rel} > {FLASH_TOL}")
-    got = F.flash_ce_bwd(u, v, c, ids_q, ids_k, pos, rl, g)
+    got = bwd(u, v, c, ids_q, ids_k, pos, rl, g)
     torch.cuda.synchronize()
     want = F.flash_ce_bwd_reference(u, v, c, ids_q, ids_k, pos, rl, g)
     bwd_abs, bwd_rel = _errs(got, want)
@@ -673,7 +721,7 @@ def check_train_edges() -> None:
             torch.arange(b, device="cuda", dtype=torch.int32))
     grad = rnd(b)
     errs = check_flash(*args, grad)
-    bwd_ms = time_ms(lambda: F.flash_ce_bwd(*args, errs["lse"], grad), iters=3, warmup=1)
+    bwd_ms = time_ms(lambda: F.flash_ce_bwd_fused(*args, errs["lse"], grad), iters=3, warmup=1)
     log(f"flash CE backward at B = {b}, 2 tiles a block: max rel err "
         f"{errs['bwd_rel']}, {bwd_ms:.3f} ms")
     del args, errs
@@ -716,7 +764,7 @@ def measure_flash(bundle: dict, b: int, dtype, iters: int, sm_clock_mhz: float) 
             n_ops, name = 2.0 * b * b * d, "flash_ce_fwd_kernel"
             err, rel = errs["fwd_abs"], errs["fwd_rel"]
         else:
-            kernel = lambda: F.flash_ce_bwd(u, v, c, ids, ids, pos, lse, gr)
+            kernel = lambda: F.flash_ce_bwd_fused(u, v, c, ids, ids, pos, lse, gr)
 
             def plain():
                 return F.flash_ce_bwd_reference(u, v, c, ids, ids, pos, lse, gr)
@@ -767,12 +815,13 @@ def measure_dcn_bwd(n: int, iters: int) -> dict:
 
 
 def profile_call(name: str, fn, n_wall: int = 50, n_traced: int = 20,
-                 warmup: int = 5) -> dict:
+                 warmup: int = 5, groups=None) -> dict:
     """Host clock of ``n_wall`` calls of ``fn`` with the profiler off
     (median and p90, each call ending in a device sync), then a traced
     window of ``n_traced`` calls: device time per call, the device's busy
     share of the traced wall time, launches per call and the kernels that
-    take the time."""
+    take the time; ``groups`` {label: kernel-name substring} adds the
+    device ms and launches per call of each group, and the rest's ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -795,7 +844,7 @@ def profile_call(name: str, fn, n_wall: int = 50, n_traced: int = 20,
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in device) / 1e3 / n_traced
     top = sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-    return {
+    out = {
         "profile": name, "n": len(walls),
         "wall_ms_p50": walls[len(walls) // 2], "wall_ms_p90": walls[int(len(walls) * 0.9)],
         "traced_wall_ms": traced_ms, "device_ms": dev_ms,
@@ -803,6 +852,14 @@ def profile_call(name: str, fn, n_wall: int = 50, n_traced: int = 20,
         "device_launches": sum(e.count for e in device) // n_traced,
         "top_device_us": [[e.key[:60], e.self_device_time_total / n_traced] for e in top],
     }
+    if groups:
+        by = {label: sum(e.self_device_time_total for e in device if sub in e.key)
+              / 1e3 / n_traced for label, sub in groups.items()}
+        by["rest"] = dev_ms - sum(by.values())
+        out["group_device_ms"] = by
+        out["group_launches"] = {label: sum(e.count for e in device if sub in e.key) / n_traced
+                                 for label, sub in groups.items()}
+    return out
 
 
 def profile_requests(svc, batch) -> list:
@@ -830,8 +887,8 @@ def profile_train_steps(bundle: dict) -> list:
                 cfg = RecsysConfig(model=ModelConfig(use_flash_ce=flash),
                                    train=TrainConfig(batch_size=b))
                 tr = Trainer(cfg, tmp, device="cuda")
-                step = tr.make_train_step(cw)
                 holder = [tr.init_state(N_USERS, N_ITEMS, SEED)]
+                step = tr.make_train_step(cw)
 
                 def one():
                     holder[0], _ = step(holder[0], batches[holder[0].step % 2])
@@ -1160,6 +1217,457 @@ def evaluate_cli(repo: str, run_dir: str, bundle_np: dict) -> dict:
     return {"wall_s": wall, "report": report}
 
 
+# ---- giant-table, large-batch training --------------------------------------
+
+def check_twokernel(u, v, c, ids_q, ids_k, pos, g) -> dict:
+    """Rows 6 and 7, through ``flash_ce_bwd_twokernel``, against their
+    plain versions on the same inputs (``lse`` from the plain forward),
+    each output relative to its own max|ref|: dcol within FLASH_TOL, dU
+    and dV within FLASH_TOL for fp32 operands and FLASH_BF16_GRAD_TOL for
+    bf16 ones. -> errors and the inputs of the backward."""
+    import torch
+    from recsys_tpu_torch.ops import flash_ce as F
+
+    lse, _ = F.flash_ce_fwd_reference(u, v, c, ids_q, ids_k, pos)
+    args = (u, v, c, ids_q, ids_k, pos, lse, g)
+    got = F.flash_ce_bwd_twokernel(*args)
+    torch.cuda.synchronize()
+    want = (F.flash_ce_bwd_du_reference(*args), *F.flash_ce_bwd_dv_reference(*args))
+    abs_err = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    rel_err = _errs(got, want)[1]
+    what = f"two-kernel backward Bq={u.shape[0]} Bk={v.shape[0]} D={u.shape[1]} {u.dtype}"
+    grad_tol = FLASH_BF16_GRAD_TOL if u.dtype == torch.bfloat16 else FLASH_TOL
+    check(all(bool(torch.isfinite(t).all()) for t in got), f"{what}: non-finite")
+    for name, err, tol in zip(("dU", "dV", "dcol"), rel_err, (grad_tol, grad_tol, FLASH_TOL)):
+        check(err <= tol, f"{what}: {name} err {err} of max|ref| > {tol}")
+    return {"abs": dict(zip(("dU", "dV", "dcol"), abs_err)),
+            "rel": dict(zip(("dU", "dV", "dcol"), rel_err)), "args": args}
+
+
+def _flash_args(bq: int, bk: int, d: int, dtype, seed: int, n_ids: int) -> tuple:
+    """Seeded backward inputs: rows scaled by D**-0.5, ids from ``n_ids``
+    (accidental hits), positives in the first Bq columns, ``g`` the
+    gradient of a mean over Bq rows."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    u = (torch.randn((bq, d), generator=g, device="cuda") * d ** -0.5).to(dtype)
+    v = (torch.randn((bk, d), generator=g, device="cuda") * d ** -0.5).to(dtype)
+    c = torch.randn((bk,), generator=g, device="cuda")
+    ids_k = torch.randint(0, n_ids, (bk,), generator=g, device="cuda", dtype=torch.int32)
+    ids_q = ids_k[:bq].contiguous()
+    pos = torch.arange(bq, device="cuda", dtype=torch.int32)
+    gr = torch.rand((bq,), generator=g, device="cuda") / bq
+    return u, v, c, ids_q, ids_k, pos, gr
+
+
+def twokernel_rows(args, iters: int, exp_rate: float, plain: bool) -> tuple:
+    """Rows 6 and 7 timed at one shape: CUDA events, device time (whole
+    call / kernel alone), the bound (bytes, or products at the operand
+    type's rate and one exp per logit, whichever takes longer) and, with
+    ``plain``, the plain version and the library yardstick (the dense
+    softmax backward's dU half, ``softmax @ v``, and its dV half,
+    ``softmax.T @ u`` with the column sums). -> (dU row, dV row)."""
+    import torch
+    from recsys_tpu_torch.ops import flash_ce as F
+
+    u, v, c, ids_q, ids_k, pos, lse, gr = args
+    bq, d = u.shape
+    bk = v.shape[0]
+    elt = u.element_size()
+    flops = BF16_FLOPS if u.dtype == torch.bfloat16 else FP32_FLOPS
+    in_bytes = (bq + bk) * d * elt + 4 * (bk * 2 + bq * 4)
+    shape = {"Bq": bq, "Bk": bk, "D": d, "dtype": str(u.dtype).replace("torch.", "")}
+
+    def probs():  # as row 5's yardstick
+        return torch.softmax(torch.matmul(u, v.T) + c, dim=1) * gr[:, None]
+
+    rows = []
+    for kind in ("du", "dv"):
+        if kind == "du":
+            kernel = lambda: F.flash_ce_bwd_du(*args)
+            plain_fn = lambda: F.flash_ce_bwd_du_reference(*args)
+            library = lambda: probs().to(u.dtype) @ v
+            n_bytes, name = in_bytes + 4 * bq * d, "flash_ce_bwd_du_kernel"
+        else:
+            kernel = lambda: F.flash_ce_bwd_dv(*args)
+            plain_fn = lambda: F.flash_ce_bwd_dv_reference(*args)
+
+            def library():
+                p = probs()
+                return p.to(u.dtype).T @ u, p.sum(dim=0)
+
+            n_bytes, name = in_bytes + 4 * (bk * d + bk), "flash_ce_bwd_dv_kernel"
+        b_ms, b_by = bound_ms(n_bytes, 4.0 * bq * bk * d, flops, n_exp=float(bq) * bk,
+                              exp_per_s=exp_rate)
+        warm = 2 if plain else 0
+        dev_ms, dev_kernel_ms = device_ms(kernel, iters, kernel=name)
+        row = {"shape": shape, "ms": time_ms(kernel, iters, warm), "bound_ms": b_ms,
+               "bound_by": b_by, "device_ms": dev_ms, "kernel_device_ms": dev_kernel_ms,
+               "plain_ms": None, "plain_device_ms": None, "library_ms": None}
+        if plain:
+            row.update(plain_ms=time_ms(plain_fn, iters), library_ms=time_ms(library, iters),
+                       plain_device_ms=device_ms(plain_fn, iters)[0])
+        rows.append(row)
+    return rows[0], rows[1]
+
+
+def twokernel_phases(sm_clock_mhz: float) -> dict:
+    """Phases 16 and 17: rows 6 and 7 against their plain versions at the
+    main path's shape and three more, timed at Bq = Bk = 8,192 bf16; then
+    above the partials cap (131,072 x 262,144, D = 128, bf16): the route
+    is the two-kernel one; the forward, rows 6 and 7 and the fused kernel
+    agree with their plain versions (which form ~1 GiB of logits at a
+    time) and the two routes with each other; each kernel timed, its
+    device time beside its bound."""
+    import torch
+    from recsys_tpu_torch.ops import flash_ce as F
+
+    exp_rate = (SFU_EXP_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0)
+                .multi_processor_count * sm_clock_mhz * 1e6)
+    out = {"checks": []}
+    for bq, bk, d, dt in ((8192, 8192, 128, torch.bfloat16), (8192, 8192, 128, torch.float32),
+                          (4096, 20480, 128, torch.bfloat16), (1000, 3001, 129, torch.float32)):
+        res = check_twokernel(*_flash_args(bq, bk, d, dt, SEED + 12, n_ids=max(2, bk // 3)))
+        out["checks"].append({"Bq": bq, "Bk": bk, "D": d, "dtype": str(dt), "abs": res["abs"],
+                              "rel": res["rel"]})
+        if (bq, bk, dt) == (8192, 8192, torch.bfloat16):
+            out["main"] = twokernel_rows(res["args"], 10, exp_rate, plain=True)
+            out["main"][0]["max_abs_err"] = res["abs"]["dU"]
+            out["main"][1]["max_abs_err"] = max(res["abs"]["dV"], res["abs"]["dcol"])
+        del res
+    log(f"rows 6 and 7 agree with their plain versions: {json.dumps(out['checks'])}")
+
+    bq, bk, d = ABOVE_CAP
+    route = F.bwd_route(bq, bk, d)
+    check(route == "twokernel", f"{bq} x {bk}: route {route}, want twokernel")
+    u, v, c, ids_q, ids_k, pos, gr = _flash_args(bq, bk, d, torch.bfloat16, SEED + 13,
+                                                 n_ids=GIANT_ITEMS)
+    what = f"above the cap, {bq} x {bk}"
+    lse, pos_logit = F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos)
+    torch.cuda.synchronize()
+    ref_lse, ref_pos = F.flash_ce_fwd_reference(u, v, c, ids_q, ids_k, pos)
+    fwd_abs, fwd_rel = _errs((lse, pos_logit), (ref_lse, ref_pos))
+    check(bool(torch.isfinite(lse).all()), f"{what}: non-finite lse")
+    check(max(fwd_rel) <= FLASH_TOL, f"{what}: forward err {fwd_rel} > {FLASH_TOL}")
+    del lse, pos_logit, ref_pos
+    args = (u, v, c, ids_q, ids_k, pos, ref_lse, gr)
+    two = F.flash_ce_bwd_twokernel(*args)
+    fused = F.flash_ce_bwd_fused(*args)
+    torch.cuda.synchronize()
+    want = []
+    plain_ms = {"du": time_ms(lambda: want.append(F.flash_ce_bwd_du_reference(*args)), 1, 0),
+                "dv": time_ms(lambda: want.extend(F.flash_ce_bwd_dv_reference(*args)), 1, 0)}
+    errs = {}
+    tols = (FLASH_BF16_GRAD_TOL, FLASH_BF16_GRAD_TOL, FLASH_TOL)
+    for label, got, ref in (("two-kernel vs plain", two, want),
+                            ("fused vs plain", fused, want),
+                            ("two-kernel vs fused", two, fused)):
+        check(all(bool(torch.isfinite(t).all()) for t in got), f"{what}: {label}: non-finite")
+        abs_err = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+        rel_err = _errs(got, ref)[1]
+        for name, err, tol in zip(("dU", "dV", "dcol"), rel_err, tols):
+            check(err <= tol, f"{what}: {label}: {name} err {err} of max|ref| > {tol}")
+        errs[label] = {"abs": dict(zip(("dU", "dV", "dcol"), abs_err)),
+                       "rel": dict(zip(("dU", "dV", "dcol"), rel_err))}
+    del two, fused, want
+    torch.cuda.empty_cache()
+    above = {"shape": {"Bq": bq, "Bk": bk, "D": d, "dtype": "bfloat16"}, "route": route,
+             "tiles_per_block_fused": F.bwd_tiles_per_block(bq, bk, d),
+             "fwd_vs_plain": {"abs": fwd_abs, "rel": dict(zip(("lse", "pos_logit"), fwd_rel))},
+             **errs,
+             "twokernel_ms": time_ms(lambda: F.flash_ce_bwd_twokernel(*args), 1, 0),
+             "fused_ms": time_ms(lambda: F.flash_ce_bwd_fused(*args), 1, 0),
+             "fused_device_ms": device_ms(lambda: F.flash_ce_bwd_fused(*args), 1,
+                                          kernel="flash_ce_bwd_kernel")}
+    torch.cuda.empty_cache()
+    out["above"] = twokernel_rows(args, 1, exp_rate, plain=False)
+    two_abs = errs["two-kernel vs plain"]["abs"]
+    for row, kind, err in zip(out["above"], ("du", "dv"),
+                              (two_abs["dU"], max(two_abs["dV"], two_abs["dcol"]))):
+        row.update(plain_ms=plain_ms[kind], max_abs_err=err)
+    out["above_cap"] = above
+    log(f"above the cap: {json.dumps(above)}")
+    del args, u, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def giant_bundle(seed: int) -> dict:
+    """The giant-table bundle: GIANT_USERS users uniform, GIANT_ITEMS items
+    with Zipf popularity, GIANT_STEPS batches of GIANT_BATCH train rows and
+    GIANT_VAL val and test rows; ratings as in :func:`synthetic_bundle`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pop = np.arange(1, GIANT_ITEMS + 1, dtype=np.float64) ** -ZIPF_EXPONENT
+    pop = pop[rng.permutation(GIANT_ITEMS)]
+    pop /= pop.sum()
+    n_train = GIANT_STEPS * GIANT_BATCH
+    n = n_train + 2 * GIANT_VAL
+    users = rng.integers(0, GIANT_USERS, n).astype(np.int32)
+    items = rng.choice(GIANT_ITEMS, n, p=pop).astype(np.int32)
+    fu = rng.standard_normal((GIANT_USERS, 8), dtype=np.float32)
+    fi = rng.standard_normal((GIANT_ITEMS, 8), dtype=np.float32)
+    score = (fu[users] * fi[items]).sum(axis=1) / np.sqrt(8.0)
+    rating = np.clip(np.rint(3.5 + score + 0.5 * rng.standard_normal(n)), 1, 5)
+    rating = rating.astype(np.float32)
+    bundle = {"meta/n_users": np.int64(GIANT_USERS), "meta/n_movies": np.int64(GIANT_ITEMS),
+              "meta/user_raw_ids": np.arange(1, GIANT_USERS + 1, dtype=np.int64),
+              "meta/movie_raw_ids": np.arange(1, GIANT_ITEMS + 1, dtype=np.int64)}
+    bounds = {"train": (0, n_train), "val": (n_train, n_train + GIANT_VAL),
+              "test": (n_train + GIANT_VAL, n)}
+    for split, (lo, hi) in bounds.items():
+        bundle[f"{split}/user_id"] = users[lo:hi]
+        bundle[f"{split}/movie_id"] = items[lo:hi]
+        bundle[f"{split}/rating"] = rating[lo:hi]
+        bundle[f"{split}/y_implicit"] = (rating[lo:hi] >= 4.0).astype(np.float32)
+    return bundle
+
+
+def giant_config():
+    from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
+
+    return RecsysConfig(model=ModelConfig(),
+                        train=TrainConfig(batch_size=GIANT_BATCH, epochs=1,
+                                          negative_cache=GIANT_CACHE, optimizer="adagrad",
+                                          sparse_table_updates="auto"))
+
+
+def train_giant(bundle: dict, counters, out_dir: str) -> dict:
+    """Phase 18: the giant-table configuration through ``Trainer.train``
+    on the card, every kernel counter set to 0 just before and read just
+    after: one epoch, the sparse step every time, rows 6 and 7 once per
+    step each and the fused backward never, and the cache's FIFO holding
+    the last batch's ids."""
+    import json as _json
+    import math
+
+    import torch
+    from recsys_tpu_torch.train import checkpoint as ckpt_lib
+    from recsys_tpu_torch.train import trainer as trainer_mod
+
+    cfg = giant_config()
+    trainer = trainer_mod.Trainer(cfg, out_dir, device="cuda")
+    last_ids = [None]
+    cache_update = trainer._cache_update
+
+    def spy(state, params, batch):  # the batch the FIFO advances by
+        last_ids[0] = batch["movie_id"]
+        return cache_update(state, params, batch)
+
+    trainer._cache_update = spy
+    walls = {"evaluate_s": 0.0, "inference_bundle_s": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                walls[key] += time.perf_counter() - t0
+        return run
+
+    evaluate, save_bundle = trainer_mod.evaluate, ckpt_lib.save_inference_bundle
+    trainer_mod.evaluate = timed("evaluate_s", evaluate)
+    ckpt_lib.save_inference_bundle = timed("inference_bundle_s", save_bundle)
+    try:
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        report = trainer.train(bundle)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.name: c.read() for c in counters}
+    finally:
+        trainer_mod.evaluate, ckpt_lib.save_inference_bundle = evaluate, save_bundle
+    with open(os.path.join(out_dir, "detailed_metrics.json")) as f:
+        hist = _json.load(f)["epochs"]
+    check(len(hist) == 1, f"giant: {len(hist)} epochs logged")
+    for k in ("train_loss", "val_loss", "train_retrieval_loss"):
+        check(math.isfinite(hist[0][k]), f"giant: {k} = {hist[0][k]}")
+    check(trainer.step_counts == {"dense": 0, "sparse": GIANT_STEPS},
+          f"giant: steps taken {trainer.step_counts}, want {GIANT_STEPS} sparse")
+    for name in ("flash_ce_bwd_du", "flash_ce_bwd_dv"):
+        check(launches[name] == GIANT_STEPS,
+              f"giant: {name} launched {launches[name]} times in {GIANT_STEPS} steps")
+    check(launches["flash_ce_bwd_fused"] == 0, "giant: the fused backward ran above the cap")
+    check(launches["flash_ce_fwd"] >= GIANT_STEPS, "giant: the flash forward did not run")
+    extras = trainer.final_state.extras
+    check(torch.equal(extras["ids"], last_ids[0].to(extras["ids"].dtype)),
+          "giant: the cache does not hold the last batch's ids")
+    check(bool((extras["corr"] > -1e8).all()), "giant: the cache kept an empty slot")
+    for rel in ("serving/model.npz", "serving/encoder.npz", "serving/index.npz"):
+        check(os.path.exists(os.path.join(out_dir, rel)), f"giant: {rel} missing")
+    check(math.isfinite(report["recall@10"]), f"giant: recall@10 {report['recall@10']}")
+    epoch_s = hist[0]["epoch_time_s"]
+    return {"trainer": trainer, "launches": launches, "wall_s": wall,
+            "epoch_time_s": epoch_s, "steps_per_s": GIANT_STEPS / epoch_s,
+            "examples_per_s": hist[0]["examples_per_s"], "train_loss": hist[0]["train_loss"],
+            "val_loss": hist[0]["val_loss"], "recall@10": report["recall@10"],
+            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, **walls}
+
+
+def profile_giant_step(trainer, bundle: dict) -> dict:
+    """Phase 19: whole steps of the giant-table configuration, continuing
+    from the trained state, profiled by :func:`profile_call`: device ms by
+    kernel (forward, row 6, row 7, the rest), launches and busy share; the
+    sparse update's span on the stream from CUDA events around
+    ``_sparse_apply`` (its kernels and the host gaps between them)."""
+    import numpy as np
+    import torch
+    from recsys_tpu_torch.models.losses import balanced_class_weights
+
+    cw = balanced_class_weights(bundle["train/y_implicit"])
+    batches = _batches(bundle, 2, GIANT_BATCH, "cuda", _log_q(bundle))
+    step = trainer.make_train_step(cw)
+    holder = [trainer.final_state]
+    spans = []
+    sparse_apply = trainer._sparse_apply
+
+    def timed_apply(*a):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        sparse_apply(*a)
+        end.record()
+        spans.append((start, end))
+
+    trainer._sparse_apply = timed_apply
+
+    def one():
+        holder[0], _ = step(holder[0], batches[holder[0].step % 2])
+
+    row = profile_call("train_step_giant", one, n_wall=3, n_traced=2, warmup=1,
+                       groups={"flash_fwd": "flash_ce_fwd_kernel",
+                               "row6_du": "flash_ce_bwd_du_kernel",
+                               "row7_dv": "flash_ce_bwd_dv_kernel"})
+    torch.cuda.synchronize()
+    row["sparse_update_span_ms"] = float(np.median([s.elapsed_time(e) for s, e in spans]))
+    launches = row["group_launches"]
+    check(launches["row6_du"] == launches["row7_dv"] == 1 and launches["flash_fwd"] == 1,
+          f"giant step profile: launches per step {launches}")
+    return row
+
+
+def card_vs_cpu_scale(tmp: str) -> dict:
+    """Phase 20: 3 steps of a small-width model (embedding 32, tables of
+    5,000 x 3,000) at B = 2,048 with a 6,144-row cache and sparse adagrad,
+    the partials cap lowered so the card takes rows 6 and 7 (restored
+    after), on the card through the kernels and on the CPU through the
+    plain versions, from one init, on the same batches."""
+    import numpy as np
+    import torch
+    from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
+    from recsys_tpu_torch.models.losses import balanced_class_weights
+    from recsys_tpu_torch.models.multitask import MultiTaskModel
+    from recsys_tpu_torch.ops import flash_ce as F
+    from recsys_tpu_torch.train.checkpoint import params_from_numpy, params_to_numpy
+    from recsys_tpu_torch.train.optimizer import leaves_with_paths
+    from recsys_tpu_torch.train.trainer import Trainer
+
+    n_users, n_items, b, cache = 5000, 3000, 2048, 6144
+    cfg = RecsysConfig(model=ModelConfig(embedding_dim=32, dropout_rate=0.0, use_flash_ce=True),
+                       train=TrainConfig(batch_size=b, negative_cache=cache,
+                                         sparse_table_updates=True))
+    init = params_to_numpy(MultiTaskModel.init(torch.Generator().manual_seed(SEED + 14),
+                                               cfg.model, n_users, n_items, "cpu"))
+    rng = np.random.default_rng(SEED + 15)
+    pop = np.arange(1, n_items + 1, dtype=np.float64) ** -ZIPF_EXPONENT
+    pop /= pop.sum()
+    rows = PARITY_STEPS * b
+    rating = rng.integers(1, 6, rows).astype(np.float32)
+    small = {"meta/n_movies": np.int64(n_items),
+             "train/user_id": rng.integers(0, n_users, rows).astype(np.int32),
+             "train/movie_id": rng.choice(n_items, rows, p=pop).astype(np.int32),
+             "train/rating": rating, "train/y_implicit": (rating >= 4).astype(np.float32)}
+    cw = balanced_class_weights(small["train/y_implicit"])
+    cap = F._FUSED_BWD_PARTIALS_CAP
+    F._FUSED_BWD_PARTIALS_CAP = F.fused_bwd_partials_bytes(b, b + cache, 32) - 1
+    runs = {}
+    try:
+        check(F.bwd_route(b, b + cache, 32) == "twokernel", "card vs CPU: not on rows 6 and 7")
+        for device in ("cuda", "cpu"):
+            F.flash_ce_bwd_du.launches = F.flash_ce_bwd_dv.launches = 0
+            tr = Trainer(cfg, os.path.join(tmp, f"scale_parity_{device}"), device=device)
+            state = tr.state_from_params(params_from_numpy(init, device), SEED)
+            step = tr.make_train_step(cw)
+            loss = []
+            for batch in _batches(small, PARITY_STEPS, b, device, _log_q(small)):
+                state, m = step(state, batch)
+                loss.append(float(m["loss"]))
+            runs[device] = {
+                "loss": loss, "steps": dict(tr.step_counts),
+                "launches": (F.flash_ce_bwd_du.launches, F.flash_ce_bwd_dv.launches),
+                "params": dict(leaves_with_paths(params_to_numpy(state.params))),
+                "cache_ids": state.extras["ids"].cpu().numpy()}
+    finally:
+        F._FUSED_BWD_PARTIALS_CAP = cap
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    check(gpu["launches"] == (PARITY_STEPS, PARITY_STEPS) and cpu["launches"] == (0, 0),
+          f"card vs CPU: rows 6/7 launches {gpu['launches']} (card), {cpu['launches']} (CPU)")
+    check(gpu["steps"]["sparse"] == cpu["steps"]["sparse"] == PARITY_STEPS,
+          "card vs CPU: not the sparse step")
+    check(np.array_equal(gpu["cache_ids"], cpu["cache_ids"]), "card vs CPU: cache ids differ")
+    loss_err = max(abs(a - c) / abs(c) for a, c in zip(gpu["loss"], cpu["loss"]))
+    check(loss_err <= PARITY_LOSS_RTOL,
+          f"card vs CPU: loss {gpu['loss']} vs {cpu['loss']} ({loss_err})")
+    param_err, worst = 0.0, ""
+    for path, want in cpu["params"].items():
+        err = float(np.abs(gpu["params"][path] - want).max())
+        if err > param_err:
+            param_err, worst = err, "/".join(path)
+    check(param_err <= PARITY_PARAM_ATOL,
+          f"card vs CPU: params differ by {param_err} at {worst} > {PARITY_PARAM_ATOL}")
+    return {"loss_card": gpu["loss"], "loss_cpu": cpu["loss"], "loss_max_rel_err": loss_err,
+            "param_max_abs_err": param_err, "param_worst": worst,
+            "launches_card": gpu["launches"]}
+
+
+def sparse_vs_dense_scale_row() -> list:
+    """Phase 21: a step of the ``"train"`` row of
+    ``benchmarks/results/scale.json`` (4,000,000 users x 2,000,000 items,
+    dim 64, B = 4,096, mixed precision, dropout 0.2, uniform ids) with
+    adagrad and adam (lazy on the sparse side), sparse and dense, profiled
+    by :func:`profile_call`: step wall p50 and device ms."""
+    import numpy as np
+    import torch
+    from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
+    from recsys_tpu_torch.models.multitask import MultiTaskModel
+    from recsys_tpu_torch.train.trainer import Trainer
+
+    model = ModelConfig(embedding_dim=SCALE_ROW_DIM, mixed_precision=True, dropout_rate=0.2)
+    init = MultiTaskModel.init(torch.Generator().manual_seed(SEED + 16), model, GIANT_USERS,
+                               GIANT_ITEMS, "cpu")
+    rng = np.random.default_rng(SEED + 17)
+    b = SCALE_ROW_BATCH
+    batch = {"user_id": rng.integers(0, GIANT_USERS, b).astype(np.int32),
+             "movie_id": rng.integers(0, GIANT_ITEMS, b).astype(np.int32),
+             "rating": rng.uniform(1, 5, b).astype(np.float32),
+             "y_implicit": (rng.random(b) > 0.4).astype(np.float32),
+             "log_q": np.full(b, -np.log(GIANT_ITEMS), np.float32)}
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for opt_name in ("adagrad", "adam"):
+            for sparse in (True, False):
+                cfg = RecsysConfig(model=model, train=TrainConfig(
+                    batch_size=b, optimizer=opt_name, sparse_table_updates=sparse))
+                tr = Trainer(cfg, tmp, device="cuda")
+                holder = [tr.state_from_params(init, SEED)]
+                step = tr.make_train_step((1.3, 0.8))
+
+                def one():
+                    holder[0], _ = step(holder[0], batch)
+
+                label = f"scale_train_{opt_name}_{'sparse' if sparse else 'dense'}"
+                rows.append(profile_call(label, one, n_wall=10, n_traced=3, warmup=2))
+                check(tr.step_counts["sparse" if sparse else "dense"] == 15,
+                      f"{label}: steps {tr.step_counts}")
+                del holder, step, tr
+                torch.cuda.empty_cache()
+    return rows
+
 
 def main() -> int:
     import torch
@@ -1253,7 +1761,9 @@ def main() -> int:
     # ---- training: the second main path -----------------------------
     check_train_edges()
     counters += [Counter("flash_ce_fwd", flash_mod.flash_ce_fwd),
-                 Counter("flash_ce_bwd", flash_mod.flash_ce_bwd),
+                 Counter("flash_ce_bwd_fused", flash_mod.flash_ce_bwd_fused),
+                 Counter("flash_ce_bwd_du", flash_mod.flash_ce_bwd_du),
+                 Counter("flash_ce_bwd_dv", flash_mod.flash_ce_bwd_dv),
                  Counter("dcn_cross_bwd", dcn_mod.dcn_cross_bwd)]
     bundle_np = synthetic_bundle(SEED)
     with tempfile.TemporaryDirectory() as run_dir:
@@ -1262,10 +1772,12 @@ def main() -> int:
         log(f"trained the main path in {time.perf_counter() - t0:.1f} s: "
             f"{json.dumps(trained)}")
         train_launches = trained["launches"]
-        for name in ("flash_ce_fwd", "flash_ce_bwd", "dcn_cross_bwd", "dcn_cross",
+        for name in ("flash_ce_fwd", "flash_ce_bwd_fused", "dcn_cross_bwd", "dcn_cross",
                      "topk_flash"):
             check(train_launches[name] > 0, f"{name} never launched while training")
         check(train_launches["topk_scores"] == 0, "the dense k > 256 path ran in training")
+        check(train_launches["flash_ce_bwd_du"] == train_launches["flash_ce_bwd_dv"] == 0,
+              "the two-kernel backward ran under the partials cap")
         t0 = time.perf_counter()
         served_trained = serve_main_path(os.path.join(run_dir, "serving"), counters)
         log(f"served the trained bundle in {time.perf_counter() - t0:.1f} s: "
@@ -1289,7 +1801,7 @@ def main() -> int:
     dcn_bwd_rows = [measure_dcn_bwd(n, iters=50) for n in (2048, TRAIN_BATCH)]
     for fwd, bwd in flash_rows.values():
         log(f"kernel flash_ce_fwd {json.dumps(fwd)}")
-        log(f"kernel flash_ce_bwd {json.dumps(bwd)}")
+        log(f"kernel flash_ce_bwd_fused {json.dumps(bwd)}")
     for row in dcn_bwd_rows:
         log(f"kernel dcn_cross_bwd {json.dumps(row)}")
     for row in profile_train_steps(bundle_np):
@@ -1323,6 +1835,34 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"large-catalog phases in {time.perf_counter() - t_large:.1f} s")
 
+    # ---- giant-table, large-batch training: the fourth main path ----------
+    t_giant = time.perf_counter()
+    twokernel = twokernel_phases(sm_clock)
+    for row in twokernel["main"] + twokernel["above"]:
+        log(f"kernel two-kernel backward {json.dumps(row)}")
+    t0 = time.perf_counter()
+    giant_np = giant_bundle(SEED + 11)
+    log(f"made the {GIANT_USERS:,} x {GIANT_ITEMS:,} bundle in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as giant_dir:
+        giant = train_giant(giant_np, counters, giant_dir)
+        giant_trainer = giant.pop("trainer")
+        log(f"trained the giant-table configuration: {json.dumps(giant)}")
+        giant_profile = profile_giant_step(giant_trainer, giant_np)
+        log(f"profile {json.dumps(giant_profile)}")
+    # the kernels run once per step at the above-cap shape: their device
+    # time in the step's trace (a lone 0.66 s launch may record none)
+    for row, label in zip(twokernel["above"], ("row6_du", "row7_dv")):
+        row["kernel_device_ms_in_step"] = giant_profile["group_device_ms"][label]
+    giant_launches = giant["launches"]
+    del giant_trainer, giant_np
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"card vs CPU, sparse step + cache on rows 6 and 7: "
+            f"{json.dumps(card_vs_cpu_scale(tmp))}")
+    for row in sparse_vs_dense_scale_row():
+        log(f"profile {json.dumps(row)}")
+    log(f"giant-table phases in {time.perf_counter() - t_giant:.1f} s")
+
     main_topk = next(r for r in topk_rows
                      if r["shape"] == {"Q": BATCH_USERS, "N": N_ITEMS, "d": 128, "k": RERANK})
     main_dcn = dcn_rows[-1]
@@ -1352,10 +1892,10 @@ def main() -> int:
          "replaces": "recsys_tpu/ops/pallas/flash_ce.py:114",
          "launches": train_launches["flash_ce_fwd"], **{k: main_fwd[k] for k in keys},
          "shape": main_fwd["shape"], "shapes": [r[0] for r in flash_rows.values()]},
-        {"name": "flash_ce_bwd", "route": "cuda",
+        {"name": "flash_ce_bwd_fused", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/flash_ce.cu",
          "replaces": "recsys_tpu/ops/pallas/flash_ce.py:250",
-         "launches": train_launches["flash_ce_bwd"], **{k: main_bwd[k] for k in keys},
+         "launches": train_launches["flash_ce_bwd_fused"], **{k: main_bwd[k] for k in keys},
          "shape": main_bwd["shape"], "shapes": [r[1] for r in flash_rows.values()]},
         {"name": "blockmax", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/blockmax.cu",
@@ -1363,6 +1903,13 @@ def main() -> int:
          "launches": approx_launches["blockmax"], **{k: blockmax_rows[1][k] for k in keys},
          "shape": blockmax_rows[1]["shape"], "shapes": blockmax_rows},
     ]
+    for i, (name, line) in enumerate((("flash_ce_bwd_du", 188), ("flash_ce_bwd_dv", 218))):
+        main_row = twokernel["main"][i]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "recsys_tpu_torch/csrc/flash_ce.cu",
+            "replaces": f"recsys_tpu/ops/pallas/flash_ce.py:{line}",
+            "launches": giant_launches[name], **{k: main_row[k] for k in keys},
+            "shape": main_row["shape"], "shapes": [main_row, twokernel["above"][i]]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

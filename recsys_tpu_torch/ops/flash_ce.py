@@ -1,6 +1,7 @@
 """Flash in-batch softmax cross-entropy: the CUDA kernels of
-``csrc/flash_ce.cu`` (forward and fused backward) and their plain PyTorch
-versions (the port of ``recsys_tpu/ops/pallas/flash_ce.py``).
+``csrc/flash_ce.cu`` (forward, fused backward and the two-kernel
+backward) and their plain PyTorch versions (the port of
+``recsys_tpu/ops/pallas/flash_ce.py``).
 
 Per query row ``i`` of ``u [Bq, D]`` against candidates ``v [Bk, D]``::
 
@@ -9,13 +10,15 @@ Per query row ``i`` of ``u [Bq, D]`` against candidates ``v [Bk, D]``::
 with accidental hits (``ids_q[i] == ids_k[j]`` and ``j != pos_i``) set to
 -1e9. ``colcorr = item_bias - log_q`` per candidate column. The kernels
 never write the [Bq, Bk] logits; the plain versions (``*_reference``)
-do, and run only for CPU tensors.
+form them ~1 GiB of query rows at a time, and the wrappers run them only
+for CPU tensors.
 
-What differs from the TPU kernels: the tiles need not divide the batch
-(ragged rows and candidates are masked), and the two-kernel backward
-(``_bwd_du_kernel`` / ``_bwd_dv_kernel``, which the TPU package takes
-when its dU partials exceed ``_FUSED_BWD_PARTIALS_CAP``) is not ported
-yet: past that point the backward raises.
+The backward takes the TPU package's route (:func:`bwd_route`): the
+fused kernel while the TPU's dU partials fit ``_FUSED_BWD_PARTIALS_CAP``,
+else the two-kernel backward (a query-major dU kernel and a
+candidate-major dV/dcol kernel, each recomputing the logits). What
+differs from the TPU kernels: the tiles need not divide the batch
+(ragged rows and candidates are masked).
 """
 
 from __future__ import annotations
@@ -33,20 +36,51 @@ NEG_BIG = -1e9
 TQ = 64
 TK = 64
 MAX_DIM = 256
-# The TPU package's fused backward keeps one dU partial per 2,048-wide
-# candidate tile; above this many bytes of them ([ceil(Bk / 2048), Bq, D]
-# fp32) it switches to its two-kernel backward, and the port raises there
-# instead (kernel rows 6 and 7, ROADMAP Queue 2): at D = 128 the square
-# batch reaches it above ~139k rows. The port's own partials never exceed
-# the cap either (bwd_tiles_per_block). The value is the JAX package's,
-# set from a TPU v5e measurement: unmeasured on H100.
+# The TPU package's fused backward keeps one dU partial per candidate
+# tile of its own tiling (_tiles); above this many bytes of them
+# ([Bk // tk, Bq, D] fp32) it switches to its two-kernel backward, and so
+# does the port (bwd_route): at D = 128 the square batch reaches it above
+# ~139k rows when 2,048 divides it, far earlier when only a small tile
+# does. The port's own fused partials never exceed the cap either
+# (bwd_tiles_per_block). The value is the JAX package's, set from a TPU
+# v5e measurement: unmeasured on H100.
 _FUSED_BWD_PARTIALS_CAP = int(4.5 * 1024**3)
-_TPU_TK = 2048
+# the TPU's preferred (query, candidate) tiles, copied to count its partials
+_TQ_PREF = 1024
+_TK_PREF = 2048
+
+
+def _tile(b: int, pref: int = 512) -> int:
+    """The TPU's tile of an axis of ``b``: the largest of ``pref``, 512,
+    256, ..., 8 (at most ``pref``) that divides ``b``, else ``b``."""
+    for t in (pref, 512, 256, 128, 64, 32, 16, 8):
+        if t <= pref and b % t == 0:
+            return t
+    return b
+
+
+def _tiles(bq: int, bk: int) -> Tuple[int, int]:
+    """The TPU's (tq, tk) for a [Bq, Bk] problem, as ``flash_ce._tiles``."""
+    tq, tk = _tile(bq, _TQ_PREF), _tile(bk, _TK_PREF)
+    while tq * tk * 4 > 8 * 1024 * 1024 and tq > 512 and bq % (tq // 2) == 0:
+        tq //= 2
+    return tq, tk
+
+
+# query rows of [rows, Bk] fp32 logits the plain versions form at a time
+# (~1 GiB), so they run at the main path's 131,072 x 262,144 as well
+_REF_CHUNK_BYTES = 1 << 30
+
+
+def _row_chunks(bq: int, bk: int):
+    step = max(1, _REF_CHUNK_BYTES // (4 * bk))
+    for lo in range(0, bq, step):
+        yield slice(lo, min(bq, lo + step))
 
 
 def _masked_logits(u, v, colcorr, ids_q, ids_k, pos):
-    """The full [Bq, Bk] fp32 logits of the kernels' contract: fp32
-    products of the (bf16 or fp32) operands, + colcorr, accidental -1e9."""
+    """The [Bq, Bk] fp32 logits of the kernels' contract: fp32 products of
+    the (bf16 or fp32) operands, + colcorr, accidental -1e9."""
     s = torch.matmul(u.float(), v.float().T) + colcorr[None, :]
     col = torch.arange(v.shape[0], device=v.device)
     accidental = (ids_q[:, None] == ids_k[None, :]) & (col[None, :] != pos[:, None])
@@ -56,10 +90,38 @@ def _masked_logits(u, v, colcorr, ids_q, ids_k, pos):
 def flash_ce_fwd_reference(u, v, colcorr, ids_q, ids_k, pos
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward kernel (``_dense_ref_fwd``):
-    -> (lse [Bq], positive logit [Bq]), fp32."""
-    s = _masked_logits(u, v, colcorr, ids_q, ids_k, pos)
-    lse = torch.logsumexp(s, dim=-1)
-    return lse, torch.gather(s, 1, pos.long()[:, None])[:, 0]
+    -> (lse [Bq], positive logit [Bq]), fp32, over chunks of query rows."""
+    lse, pos_logit = [], []
+    for r in _row_chunks(u.shape[0], v.shape[0]):
+        s = _masked_logits(u[r], v, colcorr, ids_q[r], ids_k, pos[r])
+        lse.append(torch.logsumexp(s, dim=-1))
+        pos_logit.append(torch.gather(s, 1, pos[r].long()[:, None])[:, 0])
+    return torch.cat(lse), torch.cat(pos_logit)
+
+
+def _bwd_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g, want_du: bool,
+                   want_dv: bool) -> Tuple[Optional[torch.Tensor], ...]:
+    """The softmax part of the backward over chunks of query rows: dU
+    chunk by chunk, dV and dcol summed over the chunks (one chunk, a
+    single sum, up to ~1 GiB of logits). Both products take ``p*g``
+    rounded to the operand type; dcol sums the fp32 ``p*g``.
+    -> (dU [Bq, D] or None, dV [Bk, D] or None, dcol [Bk] or None)."""
+    bk, d = v.shape
+    vf = v.float()
+    du = []
+    dv = torch.zeros((bk, d), dtype=torch.float32, device=v.device) if want_dv else None
+    dcol = torch.zeros((bk,), dtype=torch.float32, device=v.device) if want_dv else None
+    for r in _row_chunks(u.shape[0], bk):
+        s = _masked_logits(u[r], v, colcorr, ids_q[r], ids_k, pos[r])
+        pg32 = torch.exp(s - lse[r, None]) * g[r, None]
+        del s
+        pg = pg32.to(u.dtype).float()
+        if want_du:
+            du.append(pg @ vf)
+        if want_dv:
+            dv += pg.T @ u[r].float()
+            dcol += pg32.sum(dim=0)
+    return (torch.cat(du) if want_du else None), dv, dcol
 
 
 def flash_ce_bwd_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g
@@ -68,10 +130,20 @@ def flash_ce_bwd_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g
     the label terms): -> (dU [Bq, D], dV [Bk, D], dcol [Bk]), fp32. As in
     the kernel, dcol sums the fp32 ``p*g`` and both products take ``p*g``
     rounded to the operand type."""
-    s = _masked_logits(u, v, colcorr, ids_q, ids_k, pos)
-    pg32 = torch.exp(s - lse[:, None]) * g[:, None]
-    pg = pg32.to(u.dtype).float()
-    return pg @ v.float(), pg.T @ u.float(), pg32.sum(dim=0)
+    return _bwd_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g, True, True)
+
+
+def flash_ce_bwd_du_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g) -> torch.Tensor:
+    """Plain version of the dU kernel (row 6, ``_bwd_du_kernel``): -> dU
+    [Bq, D] fp32, the products of ``p*g`` rounded to the operand type."""
+    return _bwd_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g, True, False)[0]
+
+
+def flash_ce_bwd_dv_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the dV/dcol kernel (row 7, ``_bwd_dv_kernel``): ->
+    (dV [Bk, D], dcol [Bk]) fp32; dcol sums the fp32 ``p*g``."""
+    return _bwd_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g, False, True)[1:]
 
 
 def _check(u, v, colcorr, ids_q, ids_k, pos, what: str) -> None:
@@ -117,6 +189,24 @@ def _bwd_launcher():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_du_launcher():
+    fn = _build.load_library().flash_ce_bwd_du
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_dv_launcher():
+    fn = _build.load_library().flash_ce_bwd_dv
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _on_cuda(u, what: str) -> bool:
     if u.device.type == "cpu":
         return False
@@ -158,50 +248,63 @@ flash_ce_fwd.launches = 0
 
 
 def fused_bwd_partials_bytes(bq: int, bk: int, d: int) -> int:
-    """Bytes of dU partials the TPU's fused backward keeps: what
+    """Bytes of dU partials the TPU's fused backward keeps, ``[Bk // tk,
+    Bq, D]`` fp32 with its own ``tk`` (``_tiles``): what
     ``_FUSED_BWD_PARTIALS_CAP`` bounds."""
-    return bq * d * (-(-bk // _TPU_TK)) * 4
+    _, tk = _tiles(bq, bk)
+    return bq * d * (bk // tk) * 4
+
+
+def bwd_route(bq: int, bk: int, d: int) -> str:
+    """The backward the TPU package takes at this shape: ``"fused"`` while
+    its dU partials fit the cap, else ``"twokernel"`` (rows 6 and 7)."""
+    return ("fused" if fused_bwd_partials_bytes(bq, bk, d) <= _FUSED_BWD_PARTIALS_CAP
+            else "twokernel")
 
 
 def bwd_tiles_per_block(bq: int, bk: int, d: int) -> int:
-    """Candidate tiles (of ``TK``) that one backward block sweeps: 1 (a
-    block per tile, the most parallel) while the ``[ceil(Bk / TK), Bq, D]``
-    fp32 partials fit under ``_FUSED_BWD_PARTIALS_CAP``, else the fewest
-    that keep the kernel's ``[n_blocks, Bq, D]`` partials under it."""
+    """Candidate tiles (of ``TK``) that one fused backward block sweeps: 1
+    (a block per tile, the most parallel) while the ``[ceil(Bk / TK), Bq,
+    D]`` fp32 partials fit under ``_FUSED_BWD_PARTIALS_CAP``, else the
+    fewest that keep the kernel's ``[n_blocks, Bq, D]`` partials under it."""
     n_tiles = -(-bk // TK)
     max_parts = max(1, _FUSED_BWD_PARTIALS_CAP // (bq * d * 4))
     return -(-n_tiles // min(n_tiles, max_parts))
 
 
-def flash_ce_bwd(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
-                 ids_q: torch.Tensor, ids_k: torch.Tensor, pos: torch.Tensor,
-                 lse: torch.Tensor, g: torch.Tensor,
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Softmax part of the backward (before the label terms) -> (dU [Bq, D],
-    dV [Bk, D], dcol [Bk]) fp32; ``lse`` and ``g`` fp32 [Bq].
-
-    CPU tensors take :func:`flash_ce_bwd_reference`; CUDA tensors launch
-    the fused kernel (one sweep, dU partials summed here with
-    ``torch.sum``) or raise. Where the TPU package's partials pass the
-    cap, both raise."""
-    _check(u, v, colcorr, ids_q, ids_k, pos, "flash_ce_bwd")
-    bq, d = u.shape
-    bk = v.shape[0]
+def _bwd_args(u, v, colcorr, ids_q, ids_k, pos, lse, g, what: str) -> tuple:
+    """Checked backward inputs, contiguous when they will reach a kernel."""
+    _check(u, v, colcorr, ids_q, ids_k, pos, what)
+    bq = u.shape[0]
     for name, t in (("lse", lse), ("g", g)):
         if t.shape != (bq,) or t.dtype != torch.float32 or t.device != u.device:
-            raise ValueError(f"flash_ce_bwd: {name} must be fp32 [{bq}] on {u.device}")
-    # the same contract on both devices: past the cap, raise
-    part_bytes = fused_bwd_partials_bytes(bq, bk, d)
-    if part_bytes > _FUSED_BWD_PARTIALS_CAP:
-        raise NotImplementedError(
-            f"flash_ce_bwd: {part_bytes} bytes of dU partials exceed "
-            f"_FUSED_BWD_PARTIALS_CAP; the two-kernel backward (kernel table rows "
-            f"6 and 7, flash_ce.py:188 and :218) is not ported yet (ROADMAP Queue 2)")
-    if not _on_cuda(u, "flash_ce_bwd"):
-        return flash_ce_bwd_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g)
-    u, v = u.contiguous(), v.contiguous()
-    colcorr, ids_q, ids_k, pos, lse, g = (
-        t.contiguous() for t in (colcorr, ids_q, ids_k, pos, lse, g))
+            raise ValueError(f"{what}: {name} must be fp32 [{bq}] on {u.device}")
+    args = (u, v, colcorr, ids_q, ids_k, pos, lse, g)
+    if not _on_cuda(u, what):
+        return args
+    return tuple(t.contiguous() for t in args)
+
+
+def _ptrs(args) -> list:
+    return [t.data_ptr() for t in args]
+
+
+def flash_ce_bwd_fused(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
+                       ids_q: torch.Tensor, ids_k: torch.Tensor, pos: torch.Tensor,
+                       lse: torch.Tensor, g: torch.Tensor,
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused backward (row 5, ``_flash_bwd_fused_raw``) at any shape:
+    -> (dU [Bq, D], dV [Bk, D], dcol [Bk]) fp32, the softmax part before
+    the label terms; ``lse`` and ``g`` fp32 [Bq].
+
+    CPU tensors take :func:`flash_ce_bwd_reference`; CUDA tensors launch
+    the kernel (one sweep, its dU partials summed here with ``torch.sum``)
+    or raise."""
+    args = _bwd_args(u, v, colcorr, ids_q, ids_k, pos, lse, g, "flash_ce_bwd_fused")
+    if not _on_cuda(u, "flash_ce_bwd_fused"):
+        return flash_ce_bwd_reference(*args)
+    bq, d = u.shape
+    bk = v.shape[0]
     dv = torch.empty((bk, d), dtype=torch.float32, device=u.device)
     dcol = torch.empty((bk,), dtype=torch.float32, device=u.device)
     tiles_per_block = bwd_tiles_per_block(bq, bk, d)
@@ -210,18 +313,94 @@ def flash_ce_bwd(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
     du_part = torch.empty((n_blocks, bq, d), dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_launcher()(u.data_ptr(), v.data_ptr(), colcorr.data_ptr(),
-                              ids_q.data_ptr(), ids_k.data_ptr(), pos.data_ptr(),
-                              lse.data_ptr(), g.data_ptr(), bq, bk, d,
-                              int(u.dtype == torch.bfloat16), tiles_per_block,
-                              dv.data_ptr(), dcol.data_ptr(), du_part.data_ptr(), stream)
+        err = _bwd_launcher()(*_ptrs(args), bq, bk, d, int(u.dtype == torch.bfloat16),
+                              tiles_per_block, dv.data_ptr(), dcol.data_ptr(),
+                              du_part.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"flash_ce_bwd kernel launch failed: cudaError {err}")
-    flash_ce_bwd.launches += 1
+        raise RuntimeError(f"flash_ce_bwd_fused kernel launch failed: cudaError {err}")
+    flash_ce_bwd_fused.launches += 1
     return torch.sum(du_part, dim=0), dv, dcol
 
 
-flash_ce_bwd.launches = 0
+flash_ce_bwd_fused.launches = 0
+
+
+def flash_ce_bwd_du(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
+                    ids_q: torch.Tensor, ids_k: torch.Tensor, pos: torch.Tensor,
+                    lse: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Row 6 (``_bwd_du_kernel``): -> dU [Bq, D] fp32, query-major, every
+    candidate tile swept by the block that owns a query tile.
+
+    CPU tensors take :func:`flash_ce_bwd_du_reference`; CUDA tensors launch
+    the kernel or raise."""
+    args = _bwd_args(u, v, colcorr, ids_q, ids_k, pos, lse, g, "flash_ce_bwd_du")
+    if not _on_cuda(u, "flash_ce_bwd_du"):
+        return flash_ce_bwd_du_reference(*args)
+    bq, d = u.shape
+    du = torch.empty((bq, d), dtype=torch.float32, device=u.device)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_du_launcher()(*_ptrs(args), bq, v.shape[0], d,
+                                 int(u.dtype == torch.bfloat16), du.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_ce_bwd_du kernel launch failed: cudaError {err}")
+    flash_ce_bwd_du.launches += 1
+    return du
+
+
+flash_ce_bwd_du.launches = 0
+
+
+def flash_ce_bwd_dv(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
+                    ids_q: torch.Tensor, ids_k: torch.Tensor, pos: torch.Tensor,
+                    lse: torch.Tensor, g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row 7 (``_bwd_dv_kernel``): -> (dV [Bk, D], dcol [Bk]) fp32,
+    candidate-major, every query tile swept by the block that owns a
+    candidate tile.
+
+    CPU tensors take :func:`flash_ce_bwd_dv_reference`; CUDA tensors launch
+    the kernel or raise."""
+    args = _bwd_args(u, v, colcorr, ids_q, ids_k, pos, lse, g, "flash_ce_bwd_dv")
+    if not _on_cuda(u, "flash_ce_bwd_dv"):
+        return flash_ce_bwd_dv_reference(*args)
+    bq, d = u.shape
+    bk = v.shape[0]
+    dv = torch.empty((bk, d), dtype=torch.float32, device=u.device)
+    dcol = torch.empty((bk,), dtype=torch.float32, device=u.device)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_dv_launcher()(*_ptrs(args), bq, bk, d, int(u.dtype == torch.bfloat16),
+                                 dv.data_ptr(), dcol.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_ce_bwd_dv kernel launch failed: cudaError {err}")
+    flash_ce_bwd_dv.launches += 1
+    return dv, dcol
+
+
+flash_ce_bwd_dv.launches = 0
+
+
+def flash_ce_bwd_twokernel(u, v, colcorr, ids_q, ids_k, pos, lse, g
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The two-kernel backward (``_flash_bwd_twokernel_raw``) at any shape:
+    -> (dU, dV, dcol) from :func:`flash_ce_bwd_du` and
+    :func:`flash_ce_bwd_dv`. No partials: each output is written once."""
+    du = flash_ce_bwd_du(u, v, colcorr, ids_q, ids_k, pos, lse, g)
+    return (du, *flash_ce_bwd_dv(u, v, colcorr, ids_q, ids_k, pos, lse, g))
+
+
+def flash_ce_bwd(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
+                 ids_q: torch.Tensor, ids_k: torch.Tensor, pos: torch.Tensor,
+                 lse: torch.Tensor, g: torch.Tensor,
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Softmax part of the backward (before the label terms) -> (dU [Bq, D],
+    dV [Bk, D], dcol [Bk]) fp32, on the TPU package's route
+    (:func:`bwd_route`): :func:`flash_ce_bwd_fused` while its partials fit
+    the cap, else :func:`flash_ce_bwd_twokernel`."""
+    _check(u, v, colcorr, ids_q, ids_k, pos, "flash_ce_bwd")
+    if bwd_route(u.shape[0], v.shape[0], u.shape[1]) == "fused":
+        return flash_ce_bwd_fused(u, v, colcorr, ids_q, ids_k, pos, lse, g)
+    return flash_ce_bwd_twokernel(u, v, colcorr, ids_q, ids_k, pos, lse, g)
 
 
 class FlashSoftmaxCE(torch.autograd.Function):

@@ -19,6 +19,9 @@ plain leaf-by-leaf conversion.
 Training checkpoints (:class:`CheckpointManager`) use the JAX package's
 npz layout (``<dir>/ckpt_<step>/state.npz`` of ``_flatten``ed keys, a
 ``metrics.json`` sidecar and a ``best`` alias); the port has no orbax.
+The CBNS cache rides in it as ``extras/emb``, ``extras/ids`` and
+``extras/corr``; with the cache off the field is None and ``_flatten``
+leaves it out, as the JAX package's does.
 """
 
 from __future__ import annotations

@@ -14,8 +14,11 @@ JAX package (``torch.optim.Adagrad`` starts at 0 with eps 1e-10, and
 tables. The step count and the learning rate are host numbers; the
 schedule computes in fp32, as the JAX one does on the device.
 
-The sparse (touched-rows-only) updates are not ported yet (ROADMAP
-Queue 1 item 9).
+The sparse (touched-rows-only) table updates follow the JAX package's
+``combine_duplicate_rows`` / ``sparse_adagrad_combined`` /
+``sparse_lazy_adam_combined``: duplicate ids are summed first, then only
+the touched rows of the table and its slots change, in place, with no
+host sync and no [V, D] gradient.
 """
 
 from __future__ import annotations
@@ -142,6 +145,93 @@ def adam(schedule: Schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e
             p.sub_((lr * s) * (m * mhat_scale) / (torch.sqrt(v * vhat_scale) + eps))
 
     return Optimizer(init, update)
+
+
+def combine_duplicate_rows(ids: torch.Tensor, row_grads: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sum per-occurrence row gradients over duplicate ids (the dense
+    scatter-add semantics) with static shapes -> ``(slot_ids [B], combined
+    [B, ...], valid [B])``: slot ``s`` with ``valid[s]`` holds the summed
+    gradient of id ``slot_ids[s]``, in ascending id order. Invalid tail
+    slots carry zero gradients and id 0 (the JAX package gives them
+    out-of-range ids and drops them in its scatters; a CUDA scatter would
+    fault on those, so the updates below never scatter an invalid slot)."""
+    b = ids.shape[0]
+    order = torch.argsort(ids, stable=True)
+    sid = ids[order]
+    first = torch.ones(b, dtype=torch.bool, device=ids.device)
+    first[1:] = sid[1:] != sid[:-1]
+    seg = torch.cumsum(first, 0) - 1  # segment index per sorted row
+    combined = torch.zeros_like(row_grads).index_add_(0, seg, row_grads[order])
+    # every row of a segment carries the segment's id: the writes agree
+    slot_ids = torch.zeros_like(sid).scatter_(0, seg, sid)
+    valid = torch.arange(b, device=ids.device) < seg[-1] + 1
+    return slot_ids, combined, valid
+
+
+def _touched_rows(slot_ids: torch.Tensor, combined: torch.Tensor, valid: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (row ids, gradients) with every invalid slot replaced by a copy
+    of slot 0 (always valid). The updates then write each touched row's
+    new value once, or several times with the same bits, so a plain
+    ``index_put_`` stays deterministic, needs no host sync to count the
+    valid slots, and never sees an out-of-range id."""
+    src = torch.where(valid, torch.arange(valid.shape[0], device=valid.device), 0)
+    return slot_ids[src].long(), combined[src]
+
+
+@torch.no_grad()
+def sparse_adagrad_combined(table: torch.Tensor, accum: torch.Tensor,
+                            slot_ids: torch.Tensor, combined: torch.Tensor,
+                            valid: torch.Tensor, lr: float, eps: float = 1e-7,
+                            grad_scale: Optional[torch.Tensor] = None) -> None:
+    """Adagrad on the rows of pre-combined unique-row gradients (see
+    :func:`combine_duplicate_rows`), ``table`` and ``accum`` in place:
+    ``accum[id] += g**2; table[id] -= lr * g / (sqrt(accum[id]) + eps)``,
+    the dense update restricted to the touched rows (adagrad does nothing
+    to a row with a zero gradient). ``grad_scale`` folds in the caller's
+    global-norm clip factor."""
+    if grad_scale is not None:
+        combined = combined * grad_scale
+    rows, g = _touched_rows(slot_ids, combined, valid)
+    acc_rows = accum[rows] + torch.square(g)
+    accum[rows] = acc_rows
+    table[rows] = table[rows] - lr * g / (torch.sqrt(acc_rows) + eps)
+
+
+@torch.no_grad()
+def sparse_adagrad_rows(table: torch.Tensor, accum: torch.Tensor, ids: torch.Tensor,
+                        row_grads: torch.Tensor, lr: float, eps: float = 1e-7,
+                        grad_scale: Optional[torch.Tensor] = None) -> None:
+    """Adagrad on the rows of ``table`` named by per-occurrence ``ids``
+    [B] with ``row_grads`` [B, ...]: duplicates summed, then
+    :func:`sparse_adagrad_combined`. O(B * D) traffic instead of O(V * D)."""
+    slot_ids, combined, valid = combine_duplicate_rows(ids, row_grads)
+    sparse_adagrad_combined(table, accum, slot_ids, combined, valid, lr, eps, grad_scale)
+
+
+@torch.no_grad()
+def sparse_lazy_adam_combined(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                              slot_ids: torch.Tensor, combined: torch.Tensor,
+                              valid: torch.Tensor, lr: float, step: int,
+                              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                              grad_scale: Optional[torch.Tensor] = None) -> None:
+    """LAZY Adam on pre-combined unique-row gradients, in place: moments
+    and parameters change only on the touched rows; untouched rows keep
+    their moments un-decayed (TensorFlow's LazyAdam, a documented
+    departure from dense Adam). Bias correction uses the GLOBAL step, as
+    the JAX package's ``sparse_lazy_adam_combined`` does."""
+    if grad_scale is not None:
+        combined = combined * grad_scale
+    rows, g = _touched_rows(slot_ids, combined, valid)
+    mu_rows = b1 * mu[rows] + (1 - b1) * g
+    nu_rows = b2 * nu[rows] + (1 - b2) * g * g
+    t = np.float32(step) + np.float32(1.0)
+    mhat = mu_rows / float(np.float32(1.0) - np.float32(b1) ** t)
+    vhat = nu_rows / float(np.float32(1.0) - np.float32(b2) ** t)
+    mu[rows] = mu_rows
+    nu[rows] = nu_rows
+    table[rows] = table[rows] - lr * mhat / (torch.sqrt(vhat) + eps)
 
 
 def make_schedule(train_cfg) -> Schedule:

@@ -1,5 +1,5 @@
 """Single-GPU trainer (the counterpart of ``recsys_tpu/train/trainer.py``
-on its one-device, dense-update, device-resident path).
+on its one-device, device-resident path).
 
 * params, optimizer slots and the whole train split live on the device;
   an epoch is a loop of steps over an on-device permutation, each step
@@ -7,6 +7,16 @@ on its one-device, dense-update, device-resident path).
   and the optimizer's in-place update (the JAX package's
   ``make_train_epoch``: one compiled scan per epoch; here the Python loop
   dispatches and the metrics stay on the device until the epoch ends);
+* sparse table updates (``TrainConfig.sparse_table_updates``; "auto"
+  above ``SPARSE_AUTO_THRESHOLD`` table elements): the batch's table rows
+  become fresh [B, D] leaves, so autograd returns per-occurrence row
+  gradients, and only the touched rows of the tables and their slots
+  change (adagrad as the dense step up to summation order, adam as
+  LazyAdam);
+* the CBNS cross-batch negative cache (``TrainConfig.negative_cache``):
+  a FIFO of earlier batches' item embeddings in ``TrainState.extras``,
+  appended to the in-batch softmax's candidates, carried through both
+  steps, the epoch loop and the checkpoints;
 * balanced CTR class weights, the log-frequency logQ table and the
   ``item_bias`` init to it;
 * a padded, masked validation pass per epoch; early stopping on
@@ -29,7 +39,7 @@ import logging
 import signal
 import threading
 import time
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,9 +47,11 @@ import torch
 from recsys_tpu_torch.config import RecsysConfig
 from recsys_tpu_torch.models import losses
 from recsys_tpu_torch.models.multitask import MultiTaskModel
+from recsys_tpu_torch.models.towers import TwoTower
 from recsys_tpu_torch.retrieval.evaluator import evaluate
 from recsys_tpu_torch.retrieval.scorer import RetrievalIndex
 from recsys_tpu_torch.train import checkpoint as ckpt_lib
+from recsys_tpu_torch.train import optimizer as opt_lib
 from recsys_tpu_torch.train.optimizer import leaves_with_paths, make_optimizer
 from recsys_tpu_torch.utils.device import DeviceLike, resolve_device
 from recsys_tpu_torch.utils.metrics_io import MetricWriter
@@ -55,6 +67,9 @@ class TrainState(NamedTuple):
     opt_state: Any   # the optimizer's slots, same tree per slot name
     step: int        # a host count
     rng: int         # the dropout seed; masks of a step derive from (rng, step)
+    # the CBNS cache {"emb" [N, D], "ids" [N], "corr" [N]} (a FIFO, newest
+    # batch last) when TrainConfig.negative_cache > 0, else None
+    extras: Any = None
 
 
 def _not_ported(what: str, item: str):
@@ -62,20 +77,28 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported to recsys_tpu_torch yet (ROADMAP {item})")
 
 
-def _unflatten_like(tree, values: Dict[Tuple[str, ...], torch.Tensor]):
-    def walk(node, prefix):
-        if isinstance(node, dict):
-            return {k: walk(v, prefix + (k,)) for k, v in node.items()}
-        return values[prefix]
+def _tree_from_paths(values: Dict[Tuple[str, ...], torch.Tensor]) -> Dict:
+    tree: Dict = {}
+    for path, v in values.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
 
-    return walk(tree, ())
+
+def _grads(loss: torch.Tensor, leaves) -> list:
+    """d loss / d leaves; a leaf the loss does not reach (item_bias under
+    use_item_bias=False) gets a zero gradient, as in JAX."""
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(
+        leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
 
 
 class Trainer:
-    # Table elements above which the JAX package's "auto" switches to
-    # sparse table updates: a TPU v5e crossover, unmeasured on H100. The
-    # sparse path is not ported, so "auto" raises above it.
+    # Table elements above which "auto" takes the sparse table updates:
+    # the JAX package's TPU v5e crossover, unmeasured on H100.
     SPARSE_AUTO_THRESHOLD = 32_000_000
+    _TABLE_KEYS = ("user_table", "item_table", "item_bias")
 
     def __init__(self, config: RecsysConfig, output_dir: str = "outputs/run",
                  device: DeviceLike = "cuda"):
@@ -84,11 +107,17 @@ class Trainer:
         self.device = resolve_device(device)
         self._check_config()
         self.optimizer = make_optimizer(config.train)
+        self._schedule = opt_lib.make_schedule(config.train)
         self.writer = MetricWriter(output_dir)
         self.ckpt = ckpt_lib.CheckpointManager(
             f"{output_dir}/checkpoints", keep=config.train.keep_checkpoints,
             async_save=config.train.async_checkpoint)
         self._dropout_gen = torch.Generator(device=self.device)
+        # steps taken on each path, so a caller can see which one ran
+        self.step_counts = {"dense": 0, "sparse": 0}
+        # elements of the two embedding tables of the last state made
+        # (what "auto" sparse updates reads), None before any
+        self._table_elements: Optional[int] = None
 
     # ---- what this port runs ----------------------------------------
     def _check_config(self) -> None:
@@ -99,10 +128,6 @@ class Trainer:
                         "(explicit negatives)", "Queue 1 item 9")
         if cfg.model.dense_features > 0:
             _not_ported("dense_features > 0", "Queue 1 item 4")
-        if t.sparse_table_updates is True:
-            _not_ported("sparse_table_updates=True", "Queue 1 item 9")
-        if t.negative_cache > 0:
-            _not_ported("negative_cache > 0 (the CBNS cache)", "Queue 1 item 9")
         if (m.model_axis != 1 or m.data_axis not in (-1, 1)
                 or m.embedding_sharding != "replicated" or m.lookup_strategy != "xla"):
             _not_ported("a mesh of more than one device", "Queue 1 item 11")
@@ -113,34 +138,57 @@ class Trainer:
         if t.debug_nans:
             _not_ported("TrainConfig.debug_nans", "Queue 1 item 12")
 
-    def _check_sparse_auto(self, n_users: int, n_items: int) -> None:
-        if self.config.train.sparse_table_updates == "auto":
-            elems = (n_users + n_items + 2) * self.config.model.embedding_dim
-            if elems > self.SPARSE_AUTO_THRESHOLD:
-                _not_ported(f"sparse_table_updates='auto' above "
-                            f"{self.SPARSE_AUTO_THRESHOLD} table elements "
-                            "(sparse updates)", "Queue 1 item 9")
+    def _resolve_sparse_updates(self) -> bool:
+        """``sparse_table_updates`` as set, or for "auto" whether the two
+        embedding tables of the trainer's state hold more than
+        ``SPARSE_AUTO_THRESHOLD`` elements."""
+        stu = self.config.train.sparse_table_updates
+        if stu != "auto":
+            return bool(stu)
+        if self._table_elements is None:
+            raise ValueError('sparse_table_updates="auto" reads the table sizes: make '
+                             "the state (init_state / state_from_params) before the step")
+        return self._table_elements > self.SPARSE_AUTO_THRESHOLD
+
+    def _check_cache_config(self, batch_rows: int) -> None:
+        n = self.config.train.negative_cache
+        if n > 0 and n % batch_rows != 0:
+            raise ValueError(
+                f"negative_cache ({n}) must be a multiple of the batch size "
+                f"({batch_rows}): the FIFO advances one batch per step")
 
     # ---- state -------------------------------------------------------
     def init_state(self, n_users: int, n_items: int, seed: int) -> TrainState:
         """Params from ``MultiTaskModel.init`` (drawn from a CPU generator
         seeded with ``seed``), on the trainer's device, with gradients on;
-        fresh optimizer slots; step 0."""
-        self._check_sparse_auto(n_users, n_items)
+        fresh optimizer slots; an empty cache; step 0."""
         params = MultiTaskModel.init(torch.Generator().manual_seed(seed),
                                      self.config.model, n_users, n_items, self.device)
         return self.state_from_params(params, seed)
 
     def state_from_params(self, params, seed: int) -> TrainState:
         """A step-0 state around given params (moved to the trainer's
-        device, gradients on), e.g. those of ``params_from_numpy``."""
+        device, gradients on), e.g. those of ``params_from_numpy``, with
+        fresh slots and, under ``negative_cache``, an empty cache."""
         def own(node):
             if isinstance(node, dict):
                 return {k: own(v) for k, v in node.items()}
             return node.detach().to(self.device, torch.float32).clone().requires_grad_(True)
 
         params = own(params)
-        return TrainState(params, self.optimizer.init(params), 0, seed + 1)
+        tw = params["towers"]
+        self._table_elements = tw["user_table"].numel() + tw["item_table"].numel()
+        extras = None
+        n = self.config.train.negative_cache
+        if n > 0:
+            # empty slots: an id no item has (-1) and corr -1e9, so each
+            # adds exp(-1e9) = 0 to the softmax: an exact no-op
+            extras = {
+                "emb": torch.zeros((n, self.config.model.embedding_dim), device=self.device),
+                "ids": torch.full((n,), -1, dtype=torch.int32, device=self.device),
+                "corr": torch.full((n,), -1e9, device=self.device),
+            }
+        return TrainState(params, self.optimizer.init(params), 0, seed + 1, extras)
 
     def _generator(self, state: TrainState) -> torch.Generator:
         self._dropout_gen.manual_seed(state.rng * 1_000_003 + state.step)
@@ -148,9 +196,17 @@ class Trainer:
 
     # ---- the step ----------------------------------------------------
     def _step_core(self, class_weights) -> Callable:
-        """-> ``step_fn(state, batch) -> (state, metrics)``: the dense
-        train step (loss, autograd, in-place optimizer update). ``batch``
-        holds tensors on the device; metrics stay there."""
+        """-> ``step_fn(state, batch) -> (state, metrics)``: the train step
+        (loss, autograd, in-place optimizer update, the cache's FIFO),
+        sparse or dense as ``_resolve_sparse_updates`` says when it is
+        built. ``batch`` holds tensors on the device; metrics stay there."""
+        self._check_cache_config(self.config.train.batch_size)
+        if self._resolve_sparse_updates():
+            return self._step_core_sparse(class_weights)
+        return self._step_core_dense(class_weights)
+
+    def _step_core_dense(self, class_weights) -> Callable:
+        """The dense step: gradients of every leaf, the full-table update."""
         cfg = self.config
         opt = self.optimizer
 
@@ -158,17 +214,129 @@ class Trainer:
             paths, leaves = zip(*leaves_with_paths(state.params))
             _, metrics = MultiTaskModel.loss(
                 state.params, cfg.model, batch, generator=self._generator(state),
-                train=True, class_weights=class_weights)
-            # a leaf the loss does not reach (item_bias under
-            # use_item_bias=False) gets a zero gradient, as in JAX
-            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
-                leaves, torch.autograd.grad(metrics["loss"], leaves, allow_unused=True))]
-            opt.update(_unflatten_like(state.params, dict(zip(paths, grads))),
+                train=True, class_weights=class_weights,
+                extra_candidates=self._cache_tuple(state))
+            grads = _grads(metrics["loss"], leaves)
+            new_cache = self._cache_update(state, state.params, batch)  # pre-update params
+            opt.update(_tree_from_paths(dict(zip(paths, grads))),
                        state.opt_state, state.params, state.step)
-            return (state._replace(step=state.step + 1),
+            self.step_counts["dense"] += 1
+            return (state._replace(step=state.step + 1, extras=new_cache),
                     {k: v.detach() for k, v in metrics.items()})
 
         return step_fn
+
+    def _step_core_sparse(self, class_weights) -> Callable:
+        """The sparse step (``_step_core_sparse`` of the JAX package): the
+        batch's table rows are gathered up front into virtual tables of
+        exactly B rows, fresh leaves with gradients on, and the batch's ids
+        become ``arange(B)`` with the true ids in ``mask_ids`` (the
+        accidental-hit mask), so autograd returns per-occurrence [B, D] and
+        [B] row gradients; :meth:`_sparse_apply` updates the touched rows.
+        No [V, D] gradient is ever formed."""
+        cfg = self.config
+        if cfg.train.optimizer == "adam":
+            logger.info(
+                "sparse_table_updates with optimizer=adam uses LAZY-Adam "
+                "semantics (untouched rows keep un-decayed moments; "
+                "TF-LazyAdam parity), a deliberate divergence from dense "
+                "Adam; set sparse_table_updates=False for exact dense-Adam "
+                "math at full-table update cost.")
+        # the dense leaves' optimizer; _sparse_apply clips before it, over
+        # the dense gradients and the combined rows together
+        dense_opt = make_optimizer(dataclasses.replace(cfg.train, clipnorm=0.0))
+
+        def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
+            params = state.params
+            tw = params["towers"]
+            movie = batch["movie_id"].long()
+            ids = {"user_table": batch["user_id"].long(), "item_table": movie,
+                   "item_bias": movie}
+            ids = {k: v.clamp(0, tw[k].shape[0] - 1) for k, v in ids.items()}
+            virt = {k: tw[k].detach()[ids[k]].requires_grad_(True) for k in self._TABLE_KEYS}
+            vparams = {**params, "towers": {**tw, **virt}}
+            ar = torch.arange(movie.shape[0], dtype=torch.int32, device=movie.device)
+            vbatch = {**batch, "user_id": ar, "movie_id": ar, "mask_ids": batch["movie_id"]}
+            _, metrics = MultiTaskModel.loss(
+                vparams, cfg.model, vbatch, generator=self._generator(state), train=True,
+                class_weights=class_weights, extra_candidates=self._cache_tuple(state))
+            paths, leaves = zip(*leaves_with_paths(vparams))
+            grads = dict(zip(paths, _grads(metrics["loss"], leaves)))
+            new_cache = self._cache_update(state, params, batch)  # pre-update params
+            self._sparse_apply(state, grads, ids, dense_opt)
+            self.step_counts["sparse"] += 1
+            return (state._replace(step=state.step + 1, extras=new_cache),
+                    {k: v.detach() for k, v in metrics.items()})
+
+        return step_fn
+
+    @torch.no_grad()
+    def _sparse_apply(self, state: TrainState, grads: Dict[Tuple[str, ...], torch.Tensor],
+                      ids: Dict[str, torch.Tensor], dense_opt) -> None:
+        """The update of the sparse step, in place (``_sparse_apply`` of
+        the JAX package). ``grads`` maps each leaf's path to its gradient:
+        per-occurrence rows (aligned with ``ids``) for the three table
+        leaves, dense for the rest. Duplicates are combined; global-norm
+        clipping runs over the dense gradients plus the combined rows (the
+        dense step's norm: untouched rows add zero); ``dense_opt``, the
+        configured optimizer without its own clipping, updates the dense
+        leaves with the ranking LR scale; the tables take sparse adagrad or
+        lazy Adam on their touched rows at the base LR."""
+        t = self.config.train
+        table_paths = {("towers", k): k for k in self._TABLE_KEYS}
+        comb = {k: opt_lib.combine_duplicate_rows(ids[k], grads[p])
+                for p, k in table_paths.items()}
+        dense = {p: g for p, g in grads.items() if p not in table_paths}
+        scale = None
+        if t.clipnorm > 0:
+            sq = sum(torch.sum(torch.square(g)) for g in dense.values())
+            sq = sq + sum(torch.sum(torch.square(c[1])) for c in comb.values())
+            scale = torch.clamp(t.clipnorm / torch.clamp(torch.sqrt(sq), min=1e-12), max=1.0)
+            dense = {p: g * scale for p, g in dense.items()}
+        dense_opt.update(_tree_from_paths(dense), state.opt_state, state.params, state.step)
+        lr = self._schedule(state.step)
+        tw, slots = state.params["towers"], state.opt_state
+        for k, (slot_ids, combined, valid) in comb.items():
+            if t.optimizer == "adagrad":
+                opt_lib.sparse_adagrad_combined(tw[k], slots["accum"]["towers"][k], slot_ids,
+                                                combined, valid, lr, grad_scale=scale)
+            else:  # adam -> lazy Adam on the touched rows
+                opt_lib.sparse_lazy_adam_combined(
+                    tw[k], slots["mu"]["towers"][k], slots["nu"]["towers"][k], slot_ids,
+                    combined, valid, lr, state.step, grad_scale=scale)
+
+    # ---- CBNS cross-batch negative cache (TrainConfig.negative_cache) --
+    @staticmethod
+    def _cache_tuple(state: TrainState):
+        """extras -> the (emb, ids, corr) triple the loss takes."""
+        if state.extras is None:
+            return None
+        c = state.extras
+        return c["emb"], c["ids"], c["corr"]
+
+    @torch.no_grad()
+    def _cache_update(self, state: TrainState, params, batch):
+        """The FIFO advanced by one batch: this batch's item embeddings
+        (item tower in inference mode on the PRE-update params, the
+        encodings this step scored) with their ``item_bias - log_q``
+        correction appended, the oldest batch dropped. The ids are the true
+        item ids."""
+        if state.extras is None:
+            return None
+        cfg = self.config
+        tw = params["towers"]
+        ids = batch["movie_id"]
+        emb = TwoTower.item_embed(tw, ids, cfg.model, train=False)
+        corr = torch.zeros(ids.shape, dtype=torch.float32, device=emb.device)
+        if cfg.model.use_item_bias:
+            corr = corr + tw["item_bias"][ids.long().clamp(0, tw["item_bias"].shape[0] - 1)]
+        if "log_q" in batch:
+            corr = corr - batch["log_q"]
+        b = ids.shape[0]
+        c = state.extras
+        return {"emb": torch.cat([c["emb"][b:], emb.float()]),
+                "ids": torch.cat([c["ids"][b:], ids.to(c["ids"].dtype)]),
+                "corr": torch.cat([c["corr"][b:], corr])}
 
     def make_train_step(self, class_weights) -> Callable:
         return self._step_core(class_weights)
@@ -221,8 +389,11 @@ class Trainer:
     # ---- checkpoints -------------------------------------------------
     @staticmethod
     def _state_dict(state: TrainState) -> Dict[str, Any]:
+        """The checkpointed tree; ``extras`` (the cache) is None and left
+        out of the npz when the cache is off, as in the JAX package."""
         return {"params": state.params, "opt_state": state.opt_state,
-                "step": np.int64(state.step), "rng": np.int64(state.rng)}
+                "step": np.int64(state.step), "rng": np.int64(state.rng),
+                "extras": state.extras}
 
     @staticmethod
     def _copy_into(live, saved) -> None:
@@ -235,6 +406,8 @@ class Trainer:
     def _load_state(self, state: TrainState, tree: Dict) -> TrainState:
         self._copy_into(state.params, tree["params"])
         self._copy_into(state.opt_state, tree["opt_state"])
+        if state.extras is not None and "extras" in tree:
+            self._copy_into(state.extras, tree["extras"])  # a warm cache
         return state._replace(step=int(tree["step"]), rng=int(tree["rng"]))
 
     # ---- the training loop -------------------------------------------

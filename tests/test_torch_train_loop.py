@@ -215,8 +215,10 @@ def test_preemption_checkpoint_then_resume(tiny_bundle, tmp_path, monkeypatch):
 _UNPORTED = {
     "explicit negatives": lambda: RecsysConfig(data=DataConfig(negative_sampling="hard")),
     "dense features": lambda: RecsysConfig(model=ModelConfig(dense_features=4)),
-    "sparse updates": lambda: RecsysConfig(train=TrainConfig(sparse_table_updates=True)),
-    "CBNS cache": lambda: RecsysConfig(train=TrainConfig(negative_cache=128)),
+    "sparse updates": lambda: RecsysConfig(data=DataConfig(negative_sampling="mixed"),
+                                           train=TrainConfig(sparse_table_updates=True)),
+    "CBNS cache": lambda: RecsysConfig(data=DataConfig(negative_sampling="mined"),
+                                       train=TrainConfig(negative_cache=128)),
     "model-parallel mesh": lambda: RecsysConfig(mesh=MeshConfig(model_axis=2)),
     "streaming input": lambda: RecsysConfig(train=TrainConfig(device_resident_data=False)),
     "profile": lambda: RecsysConfig(train=TrainConfig(profile=True)),
@@ -230,15 +232,20 @@ def test_unported_modes_raise(mode, tmp_path):
 
 
 def test_unported_data_sizes_raise(tiny_bundle, tmp_path):
-    """A split above ``device_data_limit_mb`` (the streaming path) and
-    "auto" sparse updates above the table threshold raise."""
+    """A split above ``device_data_limit_mb`` (the streaming path) raises;
+    "auto" takes the sparse table updates above the table threshold, and
+    the dense step below it."""
     tr = Trainer(_small_run_cfg(device_data_limit_mb=0), str(tmp_path / "a"), device="cpu")
     with pytest.raises(NotImplementedError, match="streaming"):
         tr.train(tiny_bundle)
-    tr = Trainer(_small_run_cfg(), str(tmp_path / "b"), device="cpu")
+    tr = Trainer(_small_run_cfg(epochs=1), str(tmp_path / "b"), device="cpu")
     tr.SPARSE_AUTO_THRESHOLD = 10
-    with pytest.raises(NotImplementedError, match="sparse"):
-        tr.train(tiny_bundle)
+    tr.train(tiny_bundle)
+    steps = len(tiny_bundle["train/user_id"]) // 256
+    assert tr.step_counts == {"dense": 0, "sparse": steps}
+    tr = Trainer(_small_run_cfg(epochs=1), str(tmp_path / "c"), device="cpu")
+    tr.train(tiny_bundle)
+    assert tr.step_counts == {"dense": steps, "sparse": 0}
 
 
 def test_trainer_without_a_device_asks_for_the_card(monkeypatch, tmp_path):

@@ -68,7 +68,7 @@ def test_flash_softmax_ce_matches_jax_interpret(dtype, bq, bk):
         jnp.asarray(u), jnp.asarray(v), jnp.asarray(c))
     tu, tv, tc = (torch.tensor(x, requires_grad=True) for x in (u, v, c))
     tdt = getattr(torch, dtype)
-    before = (F.flash_ce_fwd.launches, F.flash_ce_bwd.launches)
+    before = (F.flash_ce_fwd.launches, F.flash_ce_bwd_fused.launches)
     ce = F.flash_softmax_ce(tu.to(tdt), tv.to(tdt), tc, torch.tensor(ids_q),
                             torch.tensor(ids_k), torch.tensor(pos))
     total = (ce * torch.tensor(g)).sum()
@@ -79,7 +79,7 @@ def test_flash_softmax_ce_matches_jax_interpret(dtype, bq, bk):
     _close(tv.grad, jgrads[1], rtol=1e-5 + ulp)
     _close(tc.grad, jgrads[2])
     # on CPU tensors the wrappers run the plain versions and count nothing
-    assert (F.flash_ce_fwd.launches, F.flash_ce_bwd.launches) == before
+    assert (F.flash_ce_fwd.launches, F.flash_ce_bwd_fused.launches) == before
 
 
 @pytest.mark.parametrize("case", ["mask_logq_bias", "extra_candidates", "no_masking"])
@@ -165,39 +165,46 @@ def test_flash_wrappers_check_inputs_and_the_partials_cap(monkeypatch):
     with pytest.raises(ValueError, match="D <= 256"):
         F.flash_ce_fwd(torch.zeros(8, 300), torch.zeros(8, 300), c, ids_q, ids_k, pos)
     lse, _ = F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos)
-    # the cap counts the TPU's [ceil(Bk / 2048), Bq, D] fp32 partials
+    with pytest.raises(ValueError, match="fp32"):
+        F.flash_ce_bwd(u, v, c, ids_q, ids_k, pos, lse.double(), torch.ones(8))
+    # the cap counts the TPU's [Bk // tk, Bq, D] fp32 partials (tk = 2,048 here)
     assert F.fused_bwd_partials_bytes(8192, 8192, 128) == 4 * 8192 * 128 * 4
+    fused = F.flash_ce_bwd(u, v, c, ids_q, ids_k, pos, lse, torch.ones(8))
+    assert F.bwd_route(8, 8, 4) == "fused"
+    # past the cap the backward takes the two-kernel route (rows 6 and 7)
     monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 8 * 4 * 4 - 1)
-    with pytest.raises(NotImplementedError, match="rows 6 and 7"):
-        F.flash_ce_bwd(u, v, c, ids_q, ids_k, pos, lse, torch.ones(8))
+    assert F.bwd_route(8, 8, 4) == "twokernel"
+    for got, want in zip(F.flash_ce_bwd(u, v, c, ids_q, ids_k, pos, lse, torch.ones(8)), fused):
+        _close(got, want)
 
 
-@pytest.mark.parametrize("b,tiles,raises", [
-    (8192, 1, False),       # the main path: a block per 64-candidate tile
-    (24576, 1, False),      # 384 partials of 12 MiB: exactly the cap
-    (32768, 2, False),      # beyond 24.5k the blocks sweep wider spans
-    (65536, 8, False),
-    (131072, 29, False),
-    (139264, 33, True),     # the TPU's partials pass the cap: rows 6 and 7
+@pytest.mark.parametrize("b,tiles,route", [
+    (8192, 1, "fused"),        # the main path: a block per 64-candidate tile
+    (20000, 1, "twokernel"),   # the TPU's tk is 32 here: 5.96 GiB of its partials
+    (24576, 1, "fused"),       # 384 partials of 12 MiB: exactly the cap
+    (32768, 2, "fused"),       # beyond 24.5k the blocks sweep wider spans
+    (65536, 8, "fused"),
+    (131072, 29, "fused"),
+    (139264, 33, "twokernel"),  # the TPU's 2,048-wide partials pass the cap
 ])
-def test_flash_bwd_covers_the_tpu_batch_range(b, tiles, raises):
-    """The fused backward runs wherever the TPU package's does: each
-    block sweeps as many candidate tiles as keep the kernel's own
-    [n_blocks, Bq, D] partials under the cap, and the backward raises
-    only where the TPU's 2,048-wide partials pass it. Meta tensors:
-    nothing is allocated."""
+def test_flash_bwd_covers_the_tpu_batch_range(b, tiles, route):
+    """The backward takes the TPU package's route at every batch: the
+    fused kernel where the TPU's partials fit the cap (each block sweeping
+    as many candidate tiles as keep the kernel's own [n_blocks, Bq, D]
+    partials under it), the two-kernel backward where they do not. Meta
+    tensors: nothing is allocated."""
     d = 128
     assert F.bwd_tiles_per_block(b, b, d) == tiles
     n_tiles = -(-b // F.TK)
     n_blocks = -(-n_tiles // tiles)
     assert n_blocks * b * d * 4 <= F._FUSED_BWD_PARTIALS_CAP
-    assert (F.fused_bwd_partials_bytes(b, b, d) > F._FUSED_BWD_PARTIALS_CAP) == raises
+    assert F.bwd_route(b, b, d) == route
     meta = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
     ids = meta(b, dtype=torch.int32)
     args = (meta(b, d), meta(b, d), meta(b), ids, ids, ids, meta(b), meta(b))
-    # past the cap check a meta tensor is refused as an unsupported device
-    with pytest.raises(NotImplementedError if raises else ValueError,
-                       match="rows 6 and 7" if raises else "unsupported device"):
+    # the route's first wrapper refuses a meta tensor as an unsupported device
+    first = "flash_ce_bwd_fused" if route == "fused" else "flash_ce_bwd_du"
+    with pytest.raises(ValueError, match=f"{first}: unsupported device"):
         F.flash_ce_bwd(*args)
 
 
