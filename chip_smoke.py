@@ -89,6 +89,14 @@
 
 Any failure raises and exits non-zero without the last line. Without a
 CUDA device it exits 2 before doing anything.
+
+    python3 chip_smoke.py --ab PARENT_DIR
+
+times kernel rows 1 and 5 of an unpacked checkout of another commit
+(``git archive <commit> | tar -x -C PARENT_DIR``) and of this tree in
+turns on one card (parent, this, this, parent; a process each, every
+tree built from its own sources) at the shapes of ``AB_TOPK_SHAPES``
+and ``AB_FLASH_SHAPES``, and prints one JSON line per run.
 """
 
 from __future__ import annotations
@@ -238,25 +246,26 @@ def device_ms(fn, iters: int, kernel: str = "") -> tuple:
     profiler recorded no device work (at Q = 4,096, N = 8,388,608 it has
     recorded none for the blockmax kernel's 0.4 s launches) or, with
     ``kernel``, recorded its launches for only some of the calls (late in
-    a long run it has kept 3 of 10)."""
+    a long run it has kept 3 of 10) in two windows running."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in events)
-    named = [e for e in events if kernel and kernel in e.key]
-    n_named = sum(e.count for e in named)
+    for _ in range(2):  # a window that dropped records is taken once more
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in events)
+        named = [e for e in events if kernel and kernel in e.key]
+        n_named = sum(e.count for e in named)
+        if total and not (kernel and (n_named == 0 or n_named % iters)):
+            return total / 1e3 / iters, sum(e.self_device_time_total for e in named) / 1e3 / iters
     # the profiler recorded nothing, or dropped launches: not measured, not zero
-    if total == 0 or (kernel and (n_named == 0 or n_named % iters)):
-        return None, None
-    return total / 1e3 / iters, sum(e.self_device_time_total for e in named) / 1e3 / iters
+    return None, None
 
 
 def bound_ms(n_bytes: float, n_ops: float, flops: float = FP32_FLOPS,
@@ -407,9 +416,11 @@ def check_dcn(x0, w, b) -> float:
 
 def check_edges() -> None:
     """Edge cases of both kernels on the card, before any timing: k > N,
-    several query tiles, the item-bias augmentation (d = 129), every
-    buffer size, a catalog ordered so that late items keep evicting,
-    and ragged row counts and widths of the cross stack."""
+    several query tiles and counts between them, the item-bias
+    augmentation (d = 129), every buffer size, a catalog ordered so that
+    late items keep evicting, catalogs of 1, 63 and 65 items, tied scores
+    at the served shape, and ragged row counts and widths of the cross
+    stack."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -421,32 +432,59 @@ def check_edges() -> None:
     v = rnd(4099, 128)
     v = v[v.norm(dim=1).argsort()].contiguous()  # ascending norms
     check_topk(rnd(5, 128).abs(), v.abs(), 256)
+    # query counts between the query tiles, catalogs around one 64-item
+    # tile, and tied scores at the served shape (duplicated catalog rows)
+    for q_n in (2, 9, 17):
+        check_topk(rnd(q_n, 128), rnd(N_ITEMS, 128), RERANK, normalize=True)
+    for n in (1, 63, 65):
+        check_topk(rnd(9, 128), rnd(n, 128), RERANK, normalize=True)
+        check_topk(rnd(1, 128), rnd(n, 128), 10)
+    v = rnd(N_ITEMS, 128)
+    v[1::2] = v[0::2][: N_ITEMS // 2]
+    for q_n in (1, BATCH_USERS):
+        check_topk(rnd(q_n, 128), v, RERANK, normalize=True)
     for n, f, n_layers in ((37, 256, 3), (1, 24, 1), (1000, 100, 2), (5, 1024, 3)):
         check_dcn(rnd(n, f), rnd(n_layers, f) * f ** -0.5, rnd(n_layers, f) * 0.1)
     log("kernel edge cases agree with the plain versions")
 
 
 def measure_topk(u, v, k: int, iters: int) -> dict:
+    """Row 1 at one shape: the whole ``flash_topk`` (stage 1 + the select
+    kernel) against its plain version and ``matmul`` + ``topk``, CUDA
+    events and device time; the select kernel alone on stage 1's
+    candidates; the bound (2*Q*N*d fp32 operations or the bytes)."""
     import torch
-    from recsys_tpu_torch.ops.topk_flash import flash_topk, flash_topk_reference
+    from recsys_tpu_torch.ops import topk_flash as T
 
     q_n, d = u.shape
     n = v.shape[0]
     err = check_topk(u, v, k)
-    b_ms, b_by = bound_ms(4 * (q_n * d + n * d) + 12 * q_n * k, 2 * q_n * n * d)
-    kernel = lambda: flash_topk(u, v, k, normalize=False)
-    plain = lambda: flash_topk_reference(u, v, k, normalize=False)
+    n_ops = 2.0 * q_n * n * d
+    b_ms, b_by = bound_ms(4 * (q_n * d + n * d) + 12 * q_n * k, n_ops)
+    kernel = lambda: T.flash_topk(u, v, k, normalize=False)
+    plain = lambda: T.flash_topk_reference(u, v, k, normalize=False)
     dev_ms, dev_kernel_ms = device_ms(kernel, iters, kernel="topk_flash")
+    p = T.plan(q_n, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
+    cand = T.flash_topk_candidates_reference(u, v, p)  # the layout stage 1 writes
+    library = lambda: torch.topk(torch.matmul(u, v.T), k, dim=1)
+    # host-bound at the served shapes: kernel and library in turns, twice,
+    # the faster of each pair kept
+    turns = [(time_ms(kernel, iters), time_ms(library, iters)) for _ in range(2)]
+    ms, library_ms = min(t[0] for t in turns), min(t[1] for t in turns)
     return {
         "shape": {"Q": q_n, "N": n, "d": d, "k": k},
+        "plan": p._asdict(),
         "max_abs_err": err,
-        "ms": time_ms(kernel, iters),
+        "ms": ms,
         "plain_ms": time_ms(plain, iters),
-        "library_ms": time_ms(lambda: torch.topk(torch.matmul(u, v.T), k, dim=1), iters),
+        "library_ms": library_ms,
         "bound_ms": b_ms, "bound_by": b_by,
-        # device time per call: the wrapper (kernel + final torch.topk),
-        # the kernel alone, and the plain version
+        "tflops": n_ops / ms / 1e9, "bound_share": b_ms / ms,
+        # device time per call: the whole call (both kernels), stage 1
+        # alone, the select kernel alone, and the plain version
         "device_ms": dev_ms, "kernel_device_ms": dev_kernel_ms,
+        "select_device_ms": device_ms(kernel, iters, kernel="topk_select")[1],
+        "select_ms": time_ms(lambda: T.topk_select(*cand, k), iters),
         "plain_device_ms": device_ms(plain, iters)[0],
     }
 
@@ -698,23 +736,29 @@ def check_train_edges() -> None:
     cap = F._FUSED_BWD_PARTIALS_CAP
     for bq, bk, d, dt in ((70, 70, 16, torch.float32), (100, 230, 128, torch.bfloat16),
                           (300, 300, 200, torch.float32), (65, 1, 8, torch.float32),
-                          (129, 64, 64, torch.bfloat16), (33, 100, 256, torch.bfloat16)):
+                          (129, 64, 64, torch.bfloat16), (33, 100, 256, torch.bfloat16),
+                          # bf16 widths off the tensor-core depth, one candidate
+                          (300, 300, 200, torch.bfloat16), (130, 260, 129, torch.bfloat16),
+                          (65, 1, 8, torch.bfloat16)):
         pos = (torch.arange(bq, device="cuda", dtype=torch.int32) % bk).contiguous()
         args = ((rnd(bq, d) * d ** -0.5).to(dt), rnd(bk, d).to(dt), rnd(bk),
                 ints(max(2, bk // 3), bq), ints(max(2, bk // 3), bk), pos, rnd(bq))
         check_flash(*args)
-        # caps of one and two partials: each backward block sweeps several
-        # candidate tiles (the last block fewer), as above ~24.5k rows at
-        # the real cap
+        # caps of one and two dU partials: each backward block sweeps
+        # several candidate tiles (the last block fewer), as above ~33k
+        # rows (bf16) at the real cap
         for parts in (1, 2):
             F._FUSED_BWD_PARTIALS_CAP = parts * bq * d * 4
             try:
                 check_flash(*args)
             finally:
                 F._FUSED_BWD_PARTIALS_CAP = cap
-    # the wide-span backward at the real cap: 32,768 rows, 2 tiles a block
+    # the backward at the real cap's edge: 32,768 rows, one 128-candidate
+    # tile a block, 256 dU partials of 16 MiB
     b = 32768
-    check(F.bwd_tiles_per_block(b, b, 128) == 2, "B = 32,768: want 2 tiles a block")
+    plan = F.bwd_plan(b, b, 128, True, torch.cuda.get_device_properties(0).multi_processor_count)
+    check((plan.tile, plan.tiles_per_block, plan.n_spans) == (128, 1, 256),
+          f"B = 32,768: plan {plan}")
     args = ((rnd(b, 128) * 128 ** -0.5).to(torch.bfloat16),
             (rnd(b, 128) * 128 ** -0.5).to(torch.bfloat16), rnd(b),
             ints(N_ITEMS, b), ints(N_ITEMS, b),
@@ -722,7 +766,7 @@ def check_train_edges() -> None:
     grad = rnd(b)
     errs = check_flash(*args, grad)
     bwd_ms = time_ms(lambda: F.flash_ce_bwd_fused(*args, errs["lse"], grad), iters=3, warmup=1)
-    log(f"flash CE backward at B = {b}, 2 tiles a block: max rel err "
+    log(f"flash CE backward at B = {b}, {plan}: max rel err "
         f"{errs['bwd_rel']}, {bwd_ms:.3f} ms")
     del args, errs
     torch.cuda.empty_cache()
@@ -775,13 +819,20 @@ def measure_flash(bundle: dict, b: int, dtype, iters: int, sm_clock_mhz: float) 
                 return pd @ v, pd.T @ u, p.sum(dim=0)
 
             n_bytes = 2 * b * d * elt + 6 * b * 4 + (2 * b * d + b) * 4
-            n_ops, name = 6.0 * b * b * d, "flash_ce_bwd_kernel"
+            n_ops = 6.0 * b * b * d
+            name = "flash_ce_bwd_tc_kernel" if dtype == torch.bfloat16 else "flash_ce_bwd_kernel"
             err, rel = errs["bwd_abs"], errs["bwd_rel"]
+            # deterministic: no atomics, partials summed in a fixed order
+            first, again = kernel(), kernel()
+            check(all(bool(torch.equal(a, b_)) for a, b_ in zip(first, again)),
+                  f"flash CE backward {shape}: two calls differ")
+            del first, again
         b_ms, b_by = bound_ms(n_bytes, n_ops, flops, n_exp=float(b) * b, exp_per_s=exp_rate)
         dev_ms, dev_kernel_ms = device_ms(kernel, iters, kernel=name)
+        ms = time_ms(kernel, iters)
         rows.append({
             "shape": shape, "max_abs_err": err, "max_rel_err": rel,
-            "ms": time_ms(kernel, iters),
+            "ms": ms, "tflops": n_ops / ms / 1e9, "bound_share": b_ms / ms,
             "plain_ms": time_ms(plain, iters), "library_ms": time_ms(library, iters),
             "bound_ms": b_ms, "bound_by": b_by, "device_ms": dev_ms,
             "kernel_device_ms": dev_kernel_ms, "plain_device_ms": device_ms(plain, iters)[0],
@@ -1373,13 +1424,14 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
     del two, fused, want
     torch.cuda.empty_cache()
     above = {"shape": {"Bq": bq, "Bk": bk, "D": d, "dtype": "bfloat16"}, "route": route,
-             "tiles_per_block_fused": F.bwd_tiles_per_block(bq, bk, d),
+             "fused_plan": F.bwd_plan(bq, bk, d, True, torch.cuda.get_device_properties(0)
+                                      .multi_processor_count)._asdict(),
              "fwd_vs_plain": {"abs": fwd_abs, "rel": dict(zip(("lse", "pos_logit"), fwd_rel))},
              **errs,
              "twokernel_ms": time_ms(lambda: F.flash_ce_bwd_twokernel(*args), 1, 0),
              "fused_ms": time_ms(lambda: F.flash_ce_bwd_fused(*args), 1, 0),
              "fused_device_ms": device_ms(lambda: F.flash_ce_bwd_fused(*args), 1,
-                                          kernel="flash_ce_bwd_kernel")}
+                                          kernel="flash_ce_bwd_tc_kernel")}
     torch.cuda.empty_cache()
     out["above"] = twokernel_rows(args, 1, exp_rate, plain=False)
     two_abs = errs["two-kernel vs plain"]["abs"]
@@ -1714,6 +1766,7 @@ def main() -> int:
     index = RetrievalIndex.build(params["towers"], cfg.model, N_ITEMS, item_raw,
                                  device="cuda")
     counters = [Counter("topk_flash", topk_mod.flash_topk),
+                Counter("topk_select", topk_mod.topk_select),
                 Counter("dcn_cross", dcn_mod.dcn_cross),
                 Counter("topk_scores", scorer.topk_scores, "calls")]
     with tempfile.TemporaryDirectory() as bundle:
@@ -1725,6 +1778,8 @@ def main() -> int:
             f"launches {served['launches']}, latency {served['latency']}")
     launches = served["launches"]
     check(launches["topk_flash"] > 0, "the top-k kernel never launched on the main path")
+    check(launches["topk_select"] == launches["topk_flash"],
+          "the select kernel did not follow every top-k launch on the main path")
     check(launches["dcn_cross"] > 0, "the DCN kernel never launched on the main path")
     check(launches["topk_scores"] == 0, "the dense k > 256 path ran on the main path")
 
@@ -1869,11 +1924,14 @@ def main() -> int:
     main_fwd, main_bwd = flash_rows[(TRAIN_BATCH, torch.bfloat16)]
     main_dcn_bwd = dcn_bwd_rows[-1]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    speed = ("tflops", "bound_share", "device_ms", "kernel_device_ms", "plain_device_ms")
     kernels = [
         {"name": "topk_flash", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/topk_flash.cu",
          "replaces": "recsys_tpu/ops/pallas/topk_flash.py:82",
-         "launches": launches["topk_flash"], **{k: main_topk[k] for k in keys},
+         "launches": launches["topk_flash"], **{k: main_topk[k] for k in keys + speed},
+         "select_launches": launches["topk_select"],
+         "select_ms": main_topk["select_ms"], "select_device_ms": main_topk["select_device_ms"],
          "launches_train": train_launches["topk_flash"],
          "shape": main_topk["shape"], "shapes": topk_rows},
         {"name": "dcn_cross", "route": "cuda",
@@ -1895,7 +1953,8 @@ def main() -> int:
         {"name": "flash_ce_bwd_fused", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/flash_ce.cu",
          "replaces": "recsys_tpu/ops/pallas/flash_ce.py:250",
-         "launches": train_launches["flash_ce_bwd_fused"], **{k: main_bwd[k] for k in keys},
+         "launches": train_launches["flash_ce_bwd_fused"],
+         **{k: main_bwd[k] for k in keys + speed},
          "shape": main_bwd["shape"], "shapes": [r[1] for r in flash_rows.values()]},
         {"name": "blockmax", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/blockmax.cu",
@@ -1919,5 +1978,78 @@ def main() -> int:
     return 0
 
 
+# ---- rows 1 and 5 against another tree's kernels, on one card -------------
+
+AB_TOPK_SHAPES = [(1, N_ITEMS, 10), (1, N_ITEMS, RERANK), (BATCH_USERS, N_ITEMS, 10),
+                  (BATCH_USERS, N_ITEMS, RERANK), (4096, 1 << 20, 10)]
+AB_FLASH_SHAPES = [(4096, "bfloat16"), (TRAIN_BATCH, "bfloat16"), (TRAIN_BATCH, "float32")]
+
+
+def time_kernels(tree: str) -> dict:
+    """Rows 1 and 5 of the port found under ``tree`` (its own
+    ``recsys_tpu_torch``, built into its own ``build/``) at the shapes of
+    ``AB_*_SHAPES`` on seeded inputs: CUDA-event ms and device ms per
+    call, through the same wrappers a caller uses."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(tree))
+    from recsys_tpu_torch.ops import _build, flash_ce as F, topk_flash as T
+
+    check(os.path.abspath(T.__file__).startswith(os.path.abspath(tree)), "wrong tree imported")
+    _build.load_library()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    unit = lambda *shape: torch.nn.functional.normalize(
+        torch.randn(shape, generator=g, device="cuda"), dim=1)
+    out = {"tree": tree, "topk": [], "flash_bwd": []}
+    for q_n, n, k in AB_TOPK_SHAPES:
+        u, v = unit(q_n, 128), unit(n, 128)
+        iters = 3 if q_n * n > 1 << 26 else 50
+        fn = lambda: T.flash_topk(u, v, k, normalize=False)
+        out["topk"].append({"Q": q_n, "N": n, "k": k, "ms": time_ms(fn, iters),
+                            "device_ms": device_ms(fn, iters)[0]})
+        del u, v
+    for b, dt in AB_FLASH_SHAPES:
+        d = 128
+        u = (torch.randn((b, d), generator=g, device="cuda") * d ** -0.5).to(getattr(torch, dt))
+        v = (torch.randn((b, d), generator=g, device="cuda") * d ** -0.5).to(getattr(torch, dt))
+        c = torch.randn((b,), generator=g, device="cuda")
+        ids = torch.randint(0, N_ITEMS, (b,), generator=g, device="cuda", dtype=torch.int32)
+        pos = torch.arange(b, device="cuda", dtype=torch.int32)
+        gr = torch.rand((b,), generator=g, device="cuda") / b
+        lse, _ = F.flash_ce_fwd(u, v, c, ids, ids, pos)
+        fn = lambda: F.flash_ce_bwd_fused(u, v, c, ids, ids, pos, lse, gr)
+        out["flash_bwd"].append({"B": b, "dtype": dt, "ms": time_ms(fn, 10),
+                                 "device_ms": device_ms(fn, 10)[0]})
+    return out
+
+
+def ab(parent: str) -> int:
+    """Rows 1 and 5 of ``parent`` (an unpacked checkout of another commit)
+    and of this tree, timed in turns on one card (parent, this, this,
+    parent), each in a process of its own: prints one JSON line per run
+    and the card's line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    for tree in (parent, here, here, parent):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-kernels", tree],
+                              cwd=tree, capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0, f"--time-kernels {tree}: rc {proc.returncode}\n"
+                                    f"{proc.stderr[-4000:]}")
+        print(proc.stdout.strip().splitlines()[-1], flush=True)
+    print(smi)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-kernels":
+        print(json.dumps(time_kernels(sys.argv[2])), flush=True)
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+        sys.exit(ab(os.path.abspath(sys.argv[2])))
     sys.exit(main())

@@ -26,15 +26,28 @@
 // the two-kernel backward, which recomputes the logits in each kernel)
 // plus one exp per logit and kernel. At Bq = Bk = 8192, D = 128 in bf16
 // the tensor-core bound is 0.017 ms forward and the Bq*Bk exps on the
-// special-function units take about as long. This first version does NOT
-// reach it: every product runs on the fp32 FMA units (bf16 operands are
-// widened to fp32 in shared memory; a product of two bf16 values is exact
-// in fp32, so the sums equal the TPU's fp32-accumulated bf16 products up
-// to summation order), with a 4 x 4 register tile per thread. It is
-// therefore bound by fp32 issue and shared-memory loads, far above the
-// tensor-core bound; wgmma tiles are the later speed work (ROADMAP Queue
-// 2). What the design does keep from the TPU kernels is the memory side:
-// the logits never leave the chip.
+// special-function units take about as long.
+//   The fused backward of bf16 operands (flash_ce_bwd_tc_kernel) runs its
+// three products on the tensor cores: warp-level mma.sync.m16n8k16 bf16
+// with fp32 sums, operands fed by ldmatrix (.trans where the product
+// needs the transposed tile) from bf16 tiles in shared memory, the next
+// query tile loaded by cp.async while the current one computes. mma.sync
+// rather than wgmma: a first tensor-core design that a warp owns from
+// fragment to result, so that P^T, computed in a warp's accumulators,
+// feeds the dV product from registers without a round trip (the
+// FlashAttention-2 layout identity between an m16n8 accumulator pair and
+// an m16k16 A fragment); wgmma's warpgroup-wide accumulators and
+// shared-memory descriptors are the next step. Its other limit is bytes:
+// the dU partials (see below).
+//   Everything else (the forward, the fp32 fused backward, rows 6 and 7)
+// still runs every product on the fp32 FMA units: bf16 operands widened
+// to fp32 in shared memory (a product of two bf16 values is exact in
+// fp32, so the sums equal the TPU's fp32-accumulated bf16 products up to
+// summation order), a 4 x 4 register tile per thread; bound by fp32 issue
+// and shared-memory loads, far above the tensor-core bound (ROADMAP Queue
+// 2). fp32 operands must meet a 1e-5 contract, which TF32 tensor cores
+// cannot. What every kernel keeps from the TPU kernels is the memory
+// side: the logits never leave the chip.
 //
 // Design, and how it departs from the TPU kernels:
 // * Forward: one block owns 64 query rows (held in shared memory for the
@@ -43,16 +56,24 @@
 //   tile is spread over 256 threads (4 x 4 each); a row's 64 scores live
 //   on 16 lanes of one half-warp, so the running max and sum-exp reduce
 //   with four shuffles and no shared memory.
-// * Fused backward: one block owns tiles_per_block consecutive 64-row
-//   candidate tiles. For each tile j (held in shared memory) it loops over
-//   64-row query tiles i, accumulating dV_j in registers and dcol_j per
-//   thread, and adds the dU product of (i, j) into its own partial
-//   du_part[block] ([n_blocks, Bq, D]; the first tile writes, later ones
-//   add, each element by the thread that wrote it). The wrapper sums the
-//   partials with torch.sum, as the TPU wrapper sums them outside with
-//   jnp.sum. No atomics, so the result is deterministic. One tile per
-//   block (the most blocks) while the partials fit under the wrapper's
-//   cap; wider spans above it, so the partials never exceed the cap.
+// * Fused backward, bf16 (the training path from 8,192 candidates): grid
+//   (n_spans, parts, DP / DN). A block owns tiles_per_block consecutive
+//   128-candidate tiles (one while the partials fit the wrapper's cap)
+//   and sweeps the 64-row query tiles of its part of the query axis; the
+//   parts (blockIdx.y) fill the card where the candidate spans alone
+//   would not (8,192^2: 64 spans x 4 parts). Each block writes the dU of
+//   its own query rows into its span's partial du_part[x] ([n_spans, Bq,
+//   D]: 268 MB at 8,192^2, half of the 64-wide design's 537 MB) and its
+//   dV and dcol into [parts, Bk, D] / [parts, Bk]; the wrapper sums each
+//   over its first axis with torch.sum, as the TPU wrapper sums its dU
+//   partials with jnp.sum. No atomics: two calls give the same bits.
+// * Fused backward, fp32: one block owns tiles_per_block consecutive
+//   64-row candidate tiles; for each tile j (held in shared memory) it
+//   loops over every 64-row query tile i, accumulating dV_j in registers
+//   and dcol_j per thread, and adds the dU product of (i, j) into its own
+//   partial du_part[block] (the first tile writes, later ones add, each
+//   element by the thread that wrote it). One part: dV and dcol are
+//   written whole.
 // * Two-kernel backward, where the TPU takes it (Bq * D * (Bk / tk) * 4
 //   bytes of TPU partials above the cap, e.g. 131,072 queries against a
 //   262,144-column candidate axis with the CBNS cache): the dU kernel's
@@ -61,11 +82,12 @@
 //   kernel's block owns a 64-row candidate tile and sweeps every query
 //   tile, keeping dV_j in registers and dcol_j per thread. Nothing crosses
 //   blocks, so neither needs partials, atomics or a second pass; the TPU's
-//   sequential grid axis becomes each block's loop. The dV kernel adds in
-//   the same order as the fused kernel, so dV and dcol agree across the
-//   cap. The grids are ceil(Bq / 64) and ceil(Bk / 64) blocks (2,048 and
+//   sequential grid axis becomes each block's loop. The two routes sum in
+//   other orders (the fused bf16 kernel on the tensor cores, in parts), so
+//   across the cap they agree within the stated tolerances, not bit for
+//   bit. The grids are ceil(Bq / 64) and ceil(Bk / 64) blocks (2,048 and
 //   4,096 at that shape), where the fused kernel, whose partials must stay
-//   under the cap, gets 72.
+//   under the cap, gets 64 spans x 4 parts.
 // * The TPU wrapper asserts that its tiles divide the batch; here rows
 //   past Bq and candidates past Bk are masked, so any Bq, Bk work.
 // * D is padded to DP in {32, 64, 128, 256} with zeros in shared memory.
@@ -75,6 +97,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
@@ -396,6 +419,310 @@ __global__ void __launch_bounds__(THREADS) flash_ce_bwd_kernel(
   }
 }
 
+// ---- row 5 in bf16: the fused backward on the tensor cores -----------------
+
+constexpr int TKC = 128;  // candidates per tile of the tensor-core backward
+
+// bf16 rows past the padded width DP: 8 more elements per row keep the
+// 16-byte rows of ldmatrix on distinct banks
+template <int DP>
+__host__ __device__ constexpr int tc_ld() { return DP + 8; }
+constexpr int TC_LDP = TQ + 8;  // P^T rows [TKC][TQ + 8]
+
+template <int DP>
+constexpr size_t bwd_tc_smem() {
+  return sizeof(__nv_bfloat16) * (TKC * tc_ld<DP>() + 2 * TQ * tc_ld<DP>() + TKC * TC_LDP) +
+         2 * TQ * (2 * sizeof(float) + 2 * sizeof(int));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled past src_bytes
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory, lane l giving the address
+// of row l % 8 of matrix l / 8; .trans hands each lane the transpose
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 operands, fp32 sums
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// rows [row0, row0 + rows) of src [n_rows, d] bf16 -> dst [rows][ld],
+// columns [0, DP), zero past n_rows and past d: cp.async 16 bytes at a
+// time when rows start on 16 bytes (vec), element by element otherwise
+template <int DP>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld,
+                                           const __nv_bfloat16* __restrict__ src, int row0,
+                                           int n_rows, int rows, int d, bool vec) {
+  constexpr int CPR = DP / 8;  // 16-byte chunks per row
+  for (int e = threadIdx.x; e < rows * CPR; e += THREADS) {
+    const int r = e / CPR, c8 = (e % CPR) * 8;
+    const int gr = row0 + r;
+    __nv_bfloat16* out = dst + r * ld + c8;
+    if (vec) {
+      const bool ok = gr < n_rows && c8 < d;
+      cp_async16(out, ok ? src + static_cast<long long>(gr) * d + c8 : src, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        out[j] = (gr < n_rows && c8 + j < d) ? src[static_cast<long long>(gr) * d + c8 + j]
+                                             : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// The fused backward of bf16 operands on the tensor cores (mma.sync).
+// Grid (n_spans, parts, DP / DN): block (x, y, z) owns tiles_per_block
+// consecutive 128-candidate tiles, sweeps the query tiles of part y, and
+// computes output columns [z * DN, (z + 1) * DN) of dU and dV (DP = 256
+// takes two z slices, each recomputing the full-width logits). Per
+// (query tile i, candidate tile j), 8 warps:
+//   S^T = V_j U_i^T [128 x 64]: warp w owns candidates 16w..16w+15;
+//   P^T = bf16(exp(S - lse) g) in registers (fp32 p*g into dcol);
+//   dV_j += P^T U_i: warp w's A fragments are its own P^T registers;
+//   P^T to shared memory, then dU_ij = P V_j [64 x DN]: warp w owns query
+//   rows 16(w % 4).. and half the columns, written to du_part[x] (the
+//   first tile writes, later ones add: same thread, fixed order).
+// dV and dcol go to [parts, Bk, D] / [parts, Bk] after the sweep.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1) flash_ce_bwd_tc_kernel(
+    const __nv_bfloat16* __restrict__ u, const __nv_bfloat16* __restrict__ v,
+    const float* __restrict__ colcorr, const int* __restrict__ ids_q,
+    const int* __restrict__ ids_k, const int* __restrict__ pos, const float* __restrict__ lse,
+    const float* __restrict__ g, int bq, int bk, int d, int vec, int tiles_per_block,
+    int q_tiles_per_part, float* __restrict__ dv_part, float* __restrict__ dcol_part,
+    float* __restrict__ du_part) {
+  constexpr int LD = tc_ld<DP>();
+  constexpr int DN = DP < 128 ? DP : 128;  // output columns per block
+  constexpr int NT_V = DN / 8;             // dV n-tiles per warp (all DN columns)
+  constexpr int NT_U = DN / 16;            // dU n-tiles per warp (half of them)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [TKC][LD]
+  __nv_bfloat16* Us = Vs + TKC * LD;                                // [2][TQ][LD]
+  __nv_bfloat16* PT = Us + 2 * TQ * LD;                             // [TKC][TC_LDP]
+  float* lse_s = reinterpret_cast<float*>(PT + TKC * TC_LDP);       // [2][TQ]
+  float* g_s = lse_s + 2 * TQ;                                      // [2][TQ]
+  int* idq_s = reinterpret_cast<int*>(g_s + 2 * TQ);                // [2][TQ]
+  int* pos_s = idq_s + 2 * TQ;                                      // [2][TQ]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;  // mma fragment row group and column pair
+  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix matrix and row of this lane
+  const int cw = warp * 16;                 // the warp's candidates of S^T, P and dV
+  const int rw = (warp & 3) * 16;           // the warp's query rows of dU
+  const int dn0 = blockIdx.z * DN;
+  const int dw0 = dn0 + (warp >> 2) * (DN / 2);  // the warp's dU columns
+  const int n_qt = (bq + TQ - 1) / TQ;
+  const int qt_begin = blockIdx.y * q_tiles_per_part;
+  const int qt_end = min(n_qt, qt_begin + q_tiles_per_part);
+  const int tile0 = blockIdx.x * tiles_per_block;
+  const int tile_end = min(tile0 + tiles_per_block, (bk + TKC - 1) / TKC);
+  float* du_out = du_part + static_cast<long long>(blockIdx.x) * bq * d;
+
+  auto stage_query_tile = [&](int buf, int qt) {
+    stage_rows<DP>(Us + buf * TQ * LD, LD, u, qt * TQ, bq, TQ, d, vec != 0);
+    if (tid < TQ) {
+      const int r = qt * TQ + tid;
+      const bool ok = r < bq;
+      lse_s[buf * TQ + tid] = ok ? lse[r] : 0.f;
+      g_s[buf * TQ + tid] = ok ? g[r] : 0.f;
+      idq_s[buf * TQ + tid] = ok ? ids_q[r] : 0;
+      pos_s[buf * TQ + tid] = ok ? pos[r] : -1;
+    }
+  };
+
+  for (int tile = tile0; tile < tile_end; ++tile) {
+    const int k0 = tile * TKC;
+    const bool first = tile == tile0;
+    __syncthreads();  // the previous tile's readers of Vs, Us, PT and the rows are done
+    stage_rows<DP>(Vs, LD, v, k0, bk, TKC, d, vec != 0);
+    if (qt_begin < qt_end) stage_query_tile(0, qt_begin);
+    cp_async_commit();
+    float corr[2], dcol_acc[2] = {0.f, 0.f};
+    int kid[2];
+    bool cok[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = k0 + cw + gq + 8 * h;
+      cok[h] = c < bk;
+      corr[h] = cok[h] ? colcorr[c] : 0.f;
+      kid[h] = cok[h] ? ids_k[c] : 0;
+    }
+    float dv_acc[NT_V][4];
+#pragma unroll
+    for (int nt = 0; nt < NT_V; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv_acc[nt][e] = 0.f;
+
+    for (int qt = qt_begin, it = 0; qt < qt_end; ++qt, ++it) {
+      const int buf = it & 1, q0 = qt * TQ;
+      cp_async_wait_all();
+      __syncthreads();  // this tile has landed; everyone is done with the other buffer
+      if (qt + 1 < qt_end) stage_query_tile(buf ^ 1, qt + 1);
+      cp_async_commit();
+      const __nv_bfloat16* Ub = Us + buf * TQ * LD;
+
+      // S^T[c][r]: s[nt][2h + e] is candidate cw + gq + 8h, query row nt*8 + 2*t4 + e
+      float s[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(a, Vs + (cw + (lm & 1) * 8 + lr) * LD + ks * 16 + (lm >> 1) * 8);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t b[4];
+          ldsm_x4(b, Ub + (np * 16 + (lm >> 1) * 8 + lr) * LD + ks * 16 + (lm & 1) * 8);
+          mma_bf16(s[2 * np], a, b[0], b[1]);
+          mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+
+      // P^T = bf16(exp(S - lse) g): the A fragments of dV, and P^T in
+      // shared memory for dU
+      const float* lse_b = lse_s + buf * TQ;
+      const float* g_b = g_s + buf * TQ;
+      const int* idq_b = idq_s + buf * TQ;
+      const int* pos_b = pos_s + buf * TQ;
+      uint32_t pa[TQ / 16][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        float pf[2][2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int rl = nt * 8 + 2 * t4 + e;
+          const bool rok = q0 + rl < bq;
+          const float lse_r = lse_b[rl], g_r = g_b[rl];
+          const int idq_r = idq_b[rl], pos_r = pos_b[rl];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float pg = 0.f;
+            if (rok && cok[h]) {
+              const float x = masked_logit(s[nt][2 * h + e], corr[h], idq_r, kid[h],
+                                           k0 + cw + gq + 8 * h, pos_r);
+              pg = expf(x - lse_r) * g_r;
+            }
+            dcol_acc[h] += pg;
+            pf[h][e] = pg;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t w = pack_bf16(pf[h][0], pf[h][1]);
+          *reinterpret_cast<uint32_t*>(PT + (cw + gq + 8 * h) * TC_LDP + nt * 8 + 2 * t4) = w;
+          pa[nt >> 1][(nt & 1) * 2 + h] = w;
+        }
+      }
+
+      // dV_j[c][k] += sum_r P^T[c][r] U[r][k]
+#pragma unroll
+      for (int kk = 0; kk < TQ / 16; ++kk) {
+#pragma unroll
+        for (int np = 0; np < NT_V / 2; ++np) {
+          uint32_t b[4];
+          ldsm_x4_t(b, Ub + (kk * 16 + (lm & 1) * 8 + lr) * LD + dn0 + np * 16 + (lm >> 1) * 8);
+          mma_bf16(dv_acc[2 * np], pa[kk], b[0], b[1]);
+          mma_bf16(dv_acc[2 * np + 1], pa[kk], b[2], b[3]);
+        }
+      }
+      __syncthreads();  // P^T is whole
+
+      // dU_ij[r][k] = sum_c P[r][c] V[c][k]
+      float du[NT_U][4];
+#pragma unroll
+      for (int nt = 0; nt < NT_U; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) du[nt][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < TKC / 16; ++kc) {
+        uint32_t a[4];
+        ldsm_x4_t(a, PT + (kc * 16 + (lm >> 1) * 8 + lr) * TC_LDP + rw + (lm & 1) * 8);
+#pragma unroll
+        for (int np = 0; np < NT_U / 2; ++np) {
+          uint32_t b[4];
+          ldsm_x4_t(b, Vs + (kc * 16 + (lm & 1) * 8 + lr) * LD + dw0 + np * 16 + (lm >> 1) * 8);
+          mma_bf16(du[2 * np], a, b[0], b[1]);
+          mma_bf16(du[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = q0 + rw + gq + 8 * h;
+        if (r >= bq) continue;
+#pragma unroll
+        for (int nt = 0; nt < NT_U; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = dw0 + nt * 8 + 2 * t4 + e;
+            if (k < d) {
+              float* out = du_out + static_cast<long long>(r) * d + k;
+              *out = first ? du[nt][2 * h + e] : *out + du[nt][2 * h + e];
+            }
+          }
+      }
+    }
+
+    // dcol: the four lanes of a quad hold the same two candidates
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x = dcol_acc[h];
+      x += __shfl_xor_sync(FULL, x, 1);
+      x += __shfl_xor_sync(FULL, x, 2);
+      const int c = k0 + cw + gq + 8 * h;
+      if (blockIdx.z == 0 && t4 == 0 && c < bk)
+        dcol_part[static_cast<long long>(blockIdx.y) * bk + c] = x;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = k0 + cw + gq + 8 * h;
+      if (c >= bk) continue;
+      float* out = dv_part + (static_cast<long long>(blockIdx.y) * bk + c) * d;
+#pragma unroll
+      for (int nt = 0; nt < NT_V; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = dn0 + nt * 8 + 2 * t4 + e;
+          if (k < d) out[k] = dv_acc[nt][2 * h + e];
+        }
+    }
+  }
+}
+
 template <int DP>
 constexpr size_t bwd_du_smem() {
   return sizeof(float) * ((TQ + TK) * (DP + 1) + TQ * (TK + 1)) +
@@ -496,8 +823,8 @@ constexpr size_t bwd_dv_smem() {
 }
 
 // Row 7: dV = sum_i round(pg)^T U_i and dcol = sum_i pg (fp32),
-// candidate-major (_bwd_dv_kernel). The sums run in the fused kernel's
-// order.
+// candidate-major (_bwd_dv_kernel). The sums run in the fp32 fused
+// kernel's order.
 template <typename T, int DP>
 __global__ void __launch_bounds__(THREADS) flash_ce_bwd_dv_kernel(
     const T* __restrict__ u, const T* __restrict__ v, const float* __restrict__ colcorr,
@@ -678,15 +1005,44 @@ int dispatch_fwd(const void* u, const void* v, const float* colcorr, const int* 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
-int dispatch_bwd(const void* u, const void* v, const float* colcorr, const int* ids_q,
-                 const int* ids_k, const int* pos, const float* lse, const float* g,
-                 int bq, int bk, int d, int tpb, float* dv, float* dcol, float* du_part,
-                 cudaStream_t s) {
-  if (d <= 32) return launch_bwd<T, 32>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, tpb, dv, dcol, du_part, s);
-  if (d <= 64) return launch_bwd<T, 64>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, tpb, dv, dcol, du_part, s);
-  if (d <= 128) return launch_bwd<T, 128>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, tpb, dv, dcol, du_part, s);
-  if (d <= 256) return launch_bwd<T, 256>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, tpb, dv, dcol, du_part, s);
+int dispatch_bwd_fma(const void* u, const void* v, const float* colcorr, const int* ids_q,
+                     const int* ids_k, const int* pos, const float* lse, const float* g,
+                     int bq, int bk, int d, int tpb, float* dv, float* dcol, float* du_part,
+                     cudaStream_t s) {
+  if (d <= 32) return launch_bwd<float, 32>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, tpb, dv, dcol, du_part, s);
+  if (d <= 64) return launch_bwd<float, 64>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, tpb, dv, dcol, du_part, s);
+  if (d <= 128) return launch_bwd<float, 128>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, tpb, dv, dcol, du_part, s);
+  if (d <= 256) return launch_bwd<float, 256>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, tpb, dv, dcol, du_part, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int DP>
+int launch_bwd_tc(const void* u, const void* v, const float* colcorr, const int* ids_q,
+                  const int* ids_k, const int* pos, const float* lse, const float* g, int bq,
+                  int bk, int d, int vec, int tpb, int parts, int qpp, float* dv_part,
+                  float* dcol_part, float* du_part, cudaStream_t stream) {
+  constexpr size_t bytes = bwd_tc_smem<DP>();
+  constexpr int DN = DP < 128 ? DP : 128;
+  cudaError_t e = cudaFuncSetAttribute(flash_ce_bwd_tc_kernel<DP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_tiles = (bk + TKC - 1) / TKC;
+  const dim3 grid((n_tiles + tpb - 1) / tpb, parts, DP / DN);
+  flash_ce_bwd_tc_kernel<DP><<<grid, THREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(v), colcorr,
+      ids_q, ids_k, pos, lse, g, bq, bk, d, vec, tpb, qpp, dv_part, dcol_part, du_part);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_bwd_tc(const void* u, const void* v, const float* colcorr, const int* ids_q,
+                    const int* ids_k, const int* pos, const float* lse, const float* g,
+                    int bq, int bk, int d, int vec, int tpb, int parts, int qpp,
+                    float* dv_part, float* dcol_part, float* du_part, cudaStream_t s) {
+  if (d <= 32) return launch_bwd_tc<32>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, tpb, parts, qpp, dv_part, dcol_part, du_part, s);
+  if (d <= 64) return launch_bwd_tc<64>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, tpb, parts, qpp, dv_part, dcol_part, du_part, s);
+  if (d <= 128) return launch_bwd_tc<128>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, tpb, parts, qpp, dv_part, dcol_part, du_part, s);
+  if (d <= 256) return launch_bwd_tc<256>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, tpb, parts, qpp, dv_part, dcol_part, du_part, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -729,22 +1085,29 @@ extern "C" int flash_ce_fwd(const void* u, const void* v, const float* colcorr,
               : dispatch_fwd<float>(u, v, colcorr, ids_q, ids_k, pos, bq, bk, d, lse, pos_out, s);
 }
 
-// As flash_ce_fwd, plus lse, g [bq] fp32 and tiles_per_block >= 1; out
-// dv [bk, d], dcol [bk] and the dU partials du_part [n_blocks, bq, d],
-// n_blocks = ceil(ceil(bk / 64) / tiles_per_block), all fp32 (the wrapper
-// sums du_part over its first axis). Returns the cudaError_t of the launch.
+// As flash_ce_fwd, plus lse, g [bq] fp32 and the wrapper's plan: the
+// fused backward (row 5). Out, all fp32: the dU partials du_part
+// [n_spans, bq, d], n_spans = ceil(ceil(bk / tile) / tiles_per_block),
+// dv_part [parts, bk, d] and dcol_part [parts, bk]; the wrapper sums each
+// over its first axis. bf16 operands take the tensor-core kernel (tile
+// 128; parts >= 1 query parts of q_tiles_per_part 64-row tiles; vec != 0
+// when d % 8 == 0 and u, v start on 16 bytes); fp32 operands the FMA
+// kernel (tile 64, parts == 1). Returns the cudaError_t of the launch.
 extern "C" int flash_ce_bwd(const void* u, const void* v, const float* colcorr,
                             const int* ids_q, const int* ids_k, const int* pos,
                             const float* lse, const float* g, int bq, int bk, int d,
-                            int bf16, int tiles_per_block, float* dv, float* dcol,
-                            float* du_part, void* stream) {
+                            int bf16, int tiles_per_block, int parts, int q_tiles_per_part,
+                            int vec, float* dv_part, float* dcol_part, float* du_part,
+                            void* stream) {
   if (bk <= 0) return 0;
-  if (bq <= 0 || d <= 0 || tiles_per_block <= 0)
+  if (bq <= 0 || d <= 0 || tiles_per_block <= 0 || parts <= 0 || q_tiles_per_part <= 0 ||
+      (!bf16 && parts != 1) ||
+      static_cast<long long>(parts) * q_tiles_per_part * TQ < bq)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tpb = tiles_per_block;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_bwd<__nv_bfloat16>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, tpb, dv, dcol, du_part, s)
-              : dispatch_bwd<float>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, tpb, dv, dcol, du_part, s);
+  return bf16 ? dispatch_bwd_tc(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, tpb, parts, q_tiles_per_part, dv_part, dcol_part, du_part, s)
+              : dispatch_bwd_fma(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, tpb, dv_part, dcol_part, du_part, s);
 }
 
 // As flash_ce_bwd, without tiles_per_block; out du [bq, d] fp32 (row 6).

@@ -25,16 +25,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from recsys_tpu_torch.ops import _build
 
 NEG_BIG = -1e9
-# tile sizes of csrc/flash_ce.cu (query rows, candidate rows per tile)
+# tile sizes of csrc/flash_ce.cu (query rows, candidate rows per tile;
+# the fused backward of bf16 operands takes candidate tiles of TKC)
 TQ = 64
 TK = 64
+TKC = 128
 MAX_DIM = 256
 # The TPU package's fused backward keeps one dU partial per candidate
 # tile of its own tiling (_tiles); above this many bytes of them
@@ -42,7 +44,7 @@ MAX_DIM = 256
 # does the port (bwd_route): at D = 128 the square batch reaches it above
 # ~139k rows when 2,048 divides it, far earlier when only a small tile
 # does. The port's own fused partials never exceed the cap either
-# (bwd_tiles_per_block). The value is the JAX package's, set from a TPU
+# (bwd_plan). The value is the JAX package's, set from a TPU
 # v5e measurement: unmeasured on H100.
 _FUSED_BWD_PARTIALS_CAP = int(4.5 * 1024**3)
 # the TPU's preferred (query, candidate) tiles, copied to count its partials
@@ -183,7 +185,7 @@ def _fwd_launcher():
 @functools.lru_cache(maxsize=None)
 def _bwd_launcher():
     fn = _build.load_library().flash_ce_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
     return fn
@@ -263,13 +265,92 @@ def bwd_route(bq: int, bk: int, d: int) -> str:
 
 
 def bwd_tiles_per_block(bq: int, bk: int, d: int) -> int:
-    """Candidate tiles (of ``TK``) that one fused backward block sweeps: 1
-    (a block per tile, the most parallel) while the ``[ceil(Bk / TK), Bq,
-    D]`` fp32 partials fit under ``_FUSED_BWD_PARTIALS_CAP``, else the
-    fewest that keep the kernel's ``[n_blocks, Bq, D]`` partials under it."""
+    """Candidate tiles (of ``TK``) that one block of the fp32 fused
+    backward sweeps: 1 (a block per tile, the most parallel) while the
+    ``[ceil(Bk / TK), Bq, D]`` fp32 partials fit under
+    ``_FUSED_BWD_PARTIALS_CAP``, else the fewest that keep the kernel's
+    ``[n_blocks, Bq, D]`` partials under it."""
     n_tiles = -(-bk // TK)
     max_parts = max(1, _FUSED_BWD_PARTIALS_CAP // (bq * d * 4))
     return -(-n_tiles // min(n_tiles, max_parts))
+
+
+class BwdPlan(NamedTuple):
+    """How the fused backward cuts [Bq, Bk]: each of ``n_spans`` blocks
+    along the candidates owns ``tiles_per_block`` candidate tiles of
+    ``tile``, and the query sweep is split into ``parts`` of
+    ``q_tiles_per_part`` 64-row tiles. Partials: dU ``[n_spans, Bq, D]``,
+    dV ``[parts, Bk, D]``, dcol ``[parts, Bk]``, all fp32."""
+    tile: int
+    tiles_per_block: int
+    parts: int
+    q_tiles_per_part: int
+    n_spans: int
+
+    def partials_bytes(self, bq: int, bk: int, d: int) -> int:
+        """Bytes of the partials (one part of dV and dcol is the output)."""
+        dv = self.parts * bk * (d + 1) if self.parts > 1 else 0
+        return 4 * (self.n_spans * bq * d + dv)
+
+
+def bwd_plan(bq: int, bk: int, d: int, bf16: bool, n_sm: int) -> BwdPlan:
+    """The fused backward's tiling on a card of ``n_sm`` SMs. bf16 operands
+    (the tensor-core kernel): 128-candidate tiles, one a block while the
+    partials fit ``_FUSED_BWD_PARTIALS_CAP``, else the fewest that keep them
+    under it; the query sweep split into enough parts that the grid holds
+    about two blocks per SM. fp32 operands (the FMA kernel): 64-candidate
+    tiles, :func:`bwd_tiles_per_block`, one part."""
+    n_qt = -(-bq // TQ)
+    if not bf16:
+        tpb = bwd_tiles_per_block(bq, bk, d)
+        return BwdPlan(TK, tpb, 1, n_qt, -(-(-(-bk // TK)) // tpb))
+    n_tiles = -(-bk // TKC)
+    tpb = -(-n_tiles // min(n_tiles, max(1, _FUSED_BWD_PARTIALS_CAP // (bq * d * 4))))
+    def with_parts(n_spans: int, parts: int) -> BwdPlan:
+        qpp = -(-n_qt // max(1, min(n_qt, parts)))
+        return BwdPlan(TKC, tpb, -(-n_qt // qpp), qpp, n_spans)
+
+    while True:
+        n_spans = -(-n_tiles // tpb)
+        p = with_parts(n_spans, (2 * n_sm) // n_spans)
+        if p.partials_bytes(bq, bk, d) <= _FUSED_BWD_PARTIALS_CAP:
+            return p
+        if tpb >= n_tiles:  # one span: as many query parts as still fit
+            while p.parts > 1 and p.partials_bytes(bq, bk, d) > _FUSED_BWD_PARTIALS_CAP:
+                p = with_parts(n_spans, p.parts - 1)
+            return p
+        tpb += 1
+
+
+def sum_partials(du_part: torch.Tensor, dv_part: torch.Tensor, dcol_part: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused backward's partials summed over their first axis, in a
+    fixed order (``torch.sum``; no atomics) -> (dU, dV, dcol)."""
+    return tuple(t[0] if t.shape[0] == 1 else torch.sum(t, dim=0)
+                 for t in (du_part, dv_part, dcol_part))
+
+
+def flash_ce_bwd_partials_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g, p: BwdPlan
+                                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of what the fused kernel writes under plan ``p``,
+    over the whole [Bq, Bk] logits at once (small shapes): -> (dU
+    partials [n_spans, Bq, D], dV partials [parts, Bk, D], dcol partials
+    [parts, Bk]), fp32; :func:`sum_partials` of them is the backward."""
+    pg32 = torch.exp(_masked_logits(u, v, colcorr, ids_q, ids_k, pos) - lse[:, None]) * g[:, None]
+    pg = pg32.to(u.dtype).float()
+    uf, vf = u.float(), v.float()
+    span, rows = p.tile * p.tiles_per_block, p.q_tiles_per_part * TQ
+    du = torch.stack([pg[:, lo:lo + span] @ vf[lo:lo + span]
+                      for lo in range(0, p.n_spans * span, span)])
+    q_parts = range(0, p.parts * rows, rows)
+    dv = torch.stack([pg[lo:lo + rows].T @ uf[lo:lo + rows] for lo in q_parts])
+    dcol = torch.stack([pg32[lo:lo + rows].sum(dim=0) for lo in q_parts])
+    return du, dv, dcol
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _bwd_args(u, v, colcorr, ids_q, ids_k, pos, lse, g, what: str) -> tuple:
@@ -298,28 +379,31 @@ def flash_ce_bwd_fused(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
     the label terms; ``lse`` and ``g`` fp32 [Bq].
 
     CPU tensors take :func:`flash_ce_bwd_reference`; CUDA tensors launch
-    the kernel (one sweep, its dU partials summed here with ``torch.sum``)
-    or raise."""
+    the kernel (one sweep on :func:`bwd_plan`: bf16 operands on the tensor
+    cores, fp32 on the FMA units), its partials summed here by
+    :func:`sum_partials`, or raise."""
     args = _bwd_args(u, v, colcorr, ids_q, ids_k, pos, lse, g, "flash_ce_bwd_fused")
     if not _on_cuda(u, "flash_ce_bwd_fused"):
         return flash_ce_bwd_reference(*args)
+    u, v = args[:2]
     bq, d = u.shape
     bk = v.shape[0]
-    dv = torch.empty((bk, d), dtype=torch.float32, device=u.device)
-    dcol = torch.empty((bk,), dtype=torch.float32, device=u.device)
-    tiles_per_block = bwd_tiles_per_block(bq, bk, d)
-    n_tiles = -(-bk // TK)
-    n_blocks = -(-n_tiles // tiles_per_block)
-    du_part = torch.empty((n_blocks, bq, d), dtype=torch.float32, device=u.device)
+    bf16 = u.dtype == torch.bfloat16
+    p = bwd_plan(bq, bk, d, bf16, _sm_count(u.device.index))
+    f32 = dict(dtype=torch.float32, device=u.device)
+    du_part = torch.empty((p.n_spans, bq, d), **f32)
+    dv_part = torch.empty((p.parts, bk, d), **f32)
+    dcol_part = torch.empty((p.parts, bk), **f32)
+    vec = int(bf16 and d % 8 == 0 and u.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_launcher()(*_ptrs(args), bq, bk, d, int(u.dtype == torch.bfloat16),
-                              tiles_per_block, dv.data_ptr(), dcol.data_ptr(),
-                              du_part.data_ptr(), stream)
+        err = _bwd_launcher()(*_ptrs(args), bq, bk, d, int(bf16), p.tiles_per_block,
+                              p.parts, p.q_tiles_per_part, vec, dv_part.data_ptr(),
+                              dcol_part.data_ptr(), du_part.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_ce_bwd_fused kernel launch failed: cudaError {err}")
     flash_ce_bwd_fused.launches += 1
-    return torch.sum(du_part, dim=0), dv, dcol
+    return sum_partials(du_part, dv_part, dcol_part)
 
 
 flash_ce_bwd_fused.launches = 0

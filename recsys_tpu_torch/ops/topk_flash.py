@@ -2,8 +2,9 @@
 ``recsys_tpu/ops/pallas/topk_flash.py``), two CUDA kernels each beside
 its plain PyTorch version:
 
-* :func:`flash_topk` — exact running top-k, ``csrc/topk_flash.cu``.
-  Contract, kept from the TPU kernel: fp32 scoring, slots past N score
+* :func:`flash_topk` — exact top-k, ``csrc/topk_flash.cu``: stage 1
+  scores catalog chunks and keeps each chunk's candidates, stage 2
+  (:func:`topk_select`) selects the top k of them. Contract, kept from the TPU kernel: fp32 scoring, slots past N score
   ``NEG_INF`` (so ``k > N`` is allowed), and ``item_bias`` (raw-dot
   scoring only) folds into the dot as ``[u|1] . [v|b]``. Ties at the k
   boundary may resolve to other, equal-scoring, ids than the plain
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,8 +32,10 @@ from recsys_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 KBUF_MAX = 256
-# tile sizes of csrc/topk_flash.cu (queries per block, items per tile)
+# tile sizes of csrc/topk_flash.cu: queries per block (the wide tile,
+# and the small one for small Q), items per scoring tile
 TQ = 64
+TQ_SMALL = 16
 TB = 64
 # the plain version scores at most this many fp32 [q, N] bytes at once
 _REFERENCE_CHUNK_BYTES = 1 << 28
@@ -89,18 +92,71 @@ def kbuf_for(k: int) -> int:
     return max(32, 1 << (k - 1).bit_length())
 
 
-def plan(q_n: int, n: int, k: int, n_sm: int) -> Tuple[int, int, int]:
-    """-> (kbuf, chunk, n_chunks): how the catalog is cut across blocks.
+class TopkPlan(NamedTuple):
+    """How ``csrc/topk_flash.cu`` cuts a call across blocks: query tile
+    ``tq``, buffer ``kbuf``, ``n_chunks`` catalog chunks of ``chunk``
+    items, and the ``slots`` each chunk keeps per query row (``chunk``
+    when it fits the buffer: no selection in the block)."""
+    tq: int
+    kbuf: int
+    chunk: int
+    n_chunks: int
+    slots: int
 
-    Enough chunks that the grid holds about two blocks per SM (a served
-    Q = 1 must not leave the card idle), but each chunk at least one
-    buffer's worth of items, so the final selection stays small."""
+
+@functools.lru_cache(maxsize=4096)
+def plan(q_n: int, n: int, k: int, n_sm: int) -> TopkPlan:
+    """Enough blocks for about two per SM where the catalog's 64-item
+    tiles allow (a served Q = 1 must not leave the card idle): the
+    16-row query tile for small Q, or where 64-row tiles would give a
+    thinner grid, and the catalog cut into as many chunks as fill the
+    rest. At Q = 4,096 this is PR 1's plan: 64-row tiles, a few
+    buffer-sized chunks."""
     kbuf = kbuf_for(k)
-    n_q_tiles = _cdiv(q_n, TQ)
-    max_chunks = max(1, _cdiv(n, max(TB, kbuf)))
-    n_chunks = min(max_chunks, max(1, _cdiv(2 * n_sm, n_q_tiles)))
+    n_tiles = _cdiv(n, TB)
+    wide = q_n > TQ_SMALL and _cdiv(q_n, TQ) * n_tiles >= 2 * n_sm
+    tq = TQ if wide else TQ_SMALL
+    n_chunks = min(n_tiles, max(1, _cdiv(2 * n_sm, _cdiv(q_n, tq))))
     chunk = _cdiv(_cdiv(n, n_chunks), TB) * TB
-    return kbuf, chunk, _cdiv(n, chunk)
+    return TopkPlan(tq, kbuf, chunk, _cdiv(n, chunk), min(kbuf, chunk))
+
+
+def flash_topk_candidates_reference(user_emb: torch.Tensor, item_emb: torch.Tensor,
+                                    p: TopkPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of stage 1 on prepared fp32 operands: -> (scores
+    [Q, n_chunks * slots] fp32, ids int32), each chunk's top ``slots``
+    items (all of them, in order, when the chunk fits its slots), slots
+    left over holding ``NEG_INF`` and id 0. The kernel's slot order within
+    a chunk may differ; stage 2 does not depend on it."""
+    q_n, n = user_emb.shape[0], item_emb.shape[0]
+    cand_s = user_emb.new_full((q_n, p.n_chunks, p.slots), NEG_INF)
+    cand_i = torch.zeros((q_n, p.n_chunks, p.slots), dtype=torch.int32,
+                         device=user_emb.device)
+    for c in range(p.n_chunks):
+        lo, hi = c * p.chunk, min(n, (c + 1) * p.chunk)
+        s = torch.matmul(user_emb, item_emb[lo:hi].T)
+        ids = torch.arange(lo, hi, dtype=torch.int32, device=s.device).expand_as(s)
+        if p.chunk > p.kbuf:
+            s, pos = torch.topk(s, min(p.slots, hi - lo), dim=1)
+            ids = torch.gather(ids, 1, pos)
+        cand_s[:, c, :s.shape[1]] = s
+        cand_i[:, c, :s.shape[1]] = ids
+    return cand_s.view(q_n, -1), cand_i.view(q_n, -1)
+
+
+def topk_select_reference(cand_s: torch.Tensor, cand_i: torch.Tensor, k: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of stage 2: the top k of each row's candidates ->
+    (scores [Q, k] fp32 descending, ids [Q, k] int64), ``NEG_INF`` and id
+    0 past the row's candidates."""
+    q_n, m = cand_s.shape
+    kk = min(k, m)
+    top_s, pos = torch.topk(cand_s, kk, dim=1)
+    top_i = torch.gather(cand_i, 1, pos).long()
+    if kk < k:
+        top_s = torch.cat([top_s, top_s.new_full((q_n, k - kk), NEG_INF)], dim=1)
+        top_i = torch.cat([top_i, top_i.new_zeros((q_n, k - kk))], dim=1)
+    return top_s, top_i
 
 
 @functools.lru_cache(maxsize=None)
@@ -111,10 +167,75 @@ def _sm_count(device_index: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.load_library().topk_flash
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p] * 3)
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _select_launcher():
+    fn = _build.load_library().topk_select
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _stream(dev: torch.device) -> int:
+    """The raw current stream of ``dev``, without building a Stream object
+    (at served shapes the host's time per call is the call's time)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+# stage 1's candidates, per (device, stream): scratch that the next call
+# on the same stream may reuse, as the caching allocator would reuse it
+_scratch = {}
+
+
+def _candidates_scratch(dev: torch.device, stream: int, n_bytes: int) -> torch.Tensor:
+    buf = _scratch.get((dev.index, stream))
+    if buf is None or buf.numel() < n_bytes:
+        buf = torch.empty((n_bytes,), dtype=torch.uint8, device=dev)
+        _scratch[(dev.index, stream)] = buf
+    return buf
+
+
+def topk_select(cand_s: torch.Tensor, cand_i: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stage 2 of :func:`flash_topk`: [Q, M] fp32 scores and int32 ids ->
+    the top k of each row (scores [Q, k] fp32 descending, ids [Q, k]
+    int64), 1 <= k <= 256; ties at the k boundary may resolve to other
+    equal-scoring ids than the plain version's.
+
+    CPU tensors take :func:`topk_select_reference`; CUDA tensors launch
+    ``topk_select_kernel`` (one block per row) or raise."""
+    kbuf_for(k)
+    if cand_s.device.type == "cpu" and cand_i.device.type == "cpu":
+        return topk_select_reference(cand_s, cand_i, k)
+    dev = cand_s.device
+    if dev.type != "cuda" or cand_i.device != dev:
+        raise ValueError(f"topk_select: inputs must share one CUDA device, got {dev} "
+                         f"and {cand_i.device}")
+    if (cand_s.dim() != 2 or cand_s.shape != cand_i.shape or cand_s.dtype != torch.float32
+            or cand_i.dtype != torch.int32 or cand_s.shape[1] == 0):
+        raise ValueError(f"topk_select: want [Q, M] fp32 scores and int32 ids, M >= 1; got "
+                         f"{cand_s.dtype} {tuple(cand_s.shape)}, {cand_i.dtype} "
+                         f"{tuple(cand_i.shape)}")
+    cand_s, cand_i = cand_s.contiguous(), cand_i.contiguous()
+    q_n, m = cand_s.shape
+    top_s = torch.empty((q_n, k), dtype=torch.float32, device=dev)
+    top_i = torch.empty((q_n, k), dtype=torch.int64, device=dev)
+    if q_n:
+        with torch.cuda.device(dev):
+            err = _select_launcher()(cand_s.data_ptr(), cand_i.data_ptr(), q_n, m, k,
+                                     top_s.data_ptr(), top_i.data_ptr(), _stream(dev))
+        if err != 0:
+            raise RuntimeError(f"topk_select kernel launch failed: cudaError {err}")
+        topk_select.launches += 1
+    return top_s, top_i
+
+
+topk_select.launches = 0
 
 
 def flash_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
@@ -124,8 +245,10 @@ def flash_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
     """Exact top-k of ``user_emb @ item_emb.T``: [Q, d] x [N, d] ->
     (scores [Q, k] fp32, ids [Q, k] int64), k <= 256.
 
-    CPU tensors take :func:`flash_topk_reference`; CUDA tensors launch the
-    kernel (one launch per call) or raise."""
+    CPU tensors take :func:`flash_topk_reference`; CUDA tensors launch
+    stage 1 (counted here, one launch per call) and the select kernel of
+    :func:`topk_select` (counted there) over its [Q, n_chunks * slots]
+    candidates, both from one host call, or raise."""
     kbuf_for(k)  # validates k on every device
     if user_emb.device.type == "cpu" and item_emb.device.type == "cpu":
         return flash_topk_reference(user_emb, item_emb, k, normalize, item_bias)
@@ -142,27 +265,33 @@ def flash_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
     if user_emb.dtype != torch.float32 or item_emb.dtype != torch.float32:
         raise ValueError("flash_topk: embeddings must be fp32")
     u, v = _prepare(user_emb, item_emb, normalize, item_bias)
-    u, v = u.contiguous(), v.contiguous()
+    u = u if u.is_contiguous() else u.contiguous()
+    v = v if v.is_contiguous() else v.contiguous()
     q_n, d = u.shape
     n = v.shape[0]
     if n == 0 or d == 0:
         raise ValueError("flash_topk: empty catalog or zero width")
-    kbuf, chunk, n_chunks = plan(q_n, n, k, _sm_count(dev.index))
-    cand_s = torch.empty((q_n, n_chunks * kbuf), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((q_n, n_chunks * kbuf), dtype=torch.int32, device=dev)
-    if q_n:
+    top_s = u.new_empty((q_n, k))
+    top_i = u.new_empty((q_n, k), dtype=torch.int64)
+    if not q_n:
+        return top_s, top_i
+    p = plan(q_n, n, k, _sm_count(dev.index))
+    m = q_n * p.n_chunks * p.slots
+    stream = _stream(dev)
+    cand = _candidates_scratch(dev, stream, 8 * m).data_ptr()
+    args = (u.data_ptr(), v.data_ptr(), q_n, n, d, p.tq, p.kbuf, p.chunk, p.n_chunks, k,
+            cand, cand + 4 * m, top_s.data_ptr(), top_i.data_ptr(), stream)
+    if dev.index == torch.cuda.current_device():
+        err = _launcher()(*args)
+    else:
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = _launcher()(u.data_ptr(), v.data_ptr(), q_n, n, d, kbuf, chunk,
-                              n_chunks, cand_s.data_ptr(), cand_i.data_ptr(),
-                              stream)
-        if err != 0:
-            raise RuntimeError(f"flash_topk kernel launch failed: cudaError {err}")
-        flash_topk.launches += 1
-    # final selection over the per-chunk buffers (a small [Q, n_chunks*kbuf]
-    # top-k, as the TPU wrapper leaves its final sort to XLA)
-    top_s, pos = torch.topk(cand_s, k, dim=1)
-    return top_s, torch.gather(cand_i, 1, pos).long()
+            err = _launcher()(*args)
+    if err != 0:
+        raise RuntimeError(f"flash_topk kernel launch failed: cudaError {err}")
+    # one host call launched both kernels
+    flash_topk.launches += 1
+    topk_select.launches += 1
+    return top_s, top_i
 
 
 flash_topk.launches = 0

@@ -27,6 +27,7 @@ from recsys_tpu.models.losses import in_batch_softmax as jax_in_batch_softmax
 from recsys_tpu.ops.pallas.dcn_cross import dcn_cross_fused
 from recsys_tpu.ops.pallas.flash_ce import flash_softmax_ce as jax_flash_ce
 from recsys_tpu.ops.pallas.flash_ce import in_batch_softmax_flash as jax_ibs_flash
+from recsys_tpu.ops.pallas import flash_ce as JF
 from recsys_tpu_torch.ops import dcn_cross as D
 from recsys_tpu_torch.ops import flash_ce as F
 
@@ -178,26 +179,30 @@ def test_flash_wrappers_check_inputs_and_the_partials_cap(monkeypatch):
         _close(got, want)
 
 
-@pytest.mark.parametrize("b,tiles,route", [
-    (8192, 1, "fused"),        # the main path: a block per 64-candidate tile
-    (20000, 1, "twokernel"),   # the TPU's tk is 32 here: 5.96 GiB of its partials
-    (24576, 1, "fused"),       # 384 partials of 12 MiB: exactly the cap
-    (32768, 2, "fused"),       # beyond 24.5k the blocks sweep wider spans
-    (65536, 8, "fused"),
-    (131072, 29, "fused"),
-    (139264, 33, "twokernel"),  # the TPU's 2,048-wide partials pass the cap
+@pytest.mark.parametrize("b,tiles,parts,route", [
+    (8192, 1, 4, "fused"),       # the main path: a block per 128-candidate tile, 4 query parts
+    (20000, 1, 1, "twokernel"),  # the TPU's tk is 32 here: 5.96 GiB of its partials
+    (24576, 1, 1, "fused"),      # 192 partials of 12 MiB
+    (32768, 1, 1, "fused"),      # 256 partials of 16 MiB: still under the cap
+    (65536, 4, 2, "fused"),      # beyond, the blocks sweep wider spans
+    (131072, 16, 4, "fused"),
+    (139264, 18, 4, "twokernel"),  # the TPU's 2,048-wide partials pass the cap
 ])
-def test_flash_bwd_covers_the_tpu_batch_range(b, tiles, route):
+def test_flash_bwd_covers_the_tpu_batch_range(b, tiles, parts, route):
     """The backward takes the TPU package's route at every batch: the
-    fused kernel where the TPU's partials fit the cap (each block sweeping
-    as many candidate tiles as keep the kernel's own [n_blocks, Bq, D]
-    partials under it), the two-kernel backward where they do not. Meta
-    tensors: nothing is allocated."""
+    fused kernel where the TPU's partials fit the cap (each bf16 block
+    sweeping as many 128-candidate tiles, and the query sweep split into
+    as many parts, as keep the kernel's own dU, dV and dcol partials under
+    it; the fp32 kernel's 64-candidate tiles likewise), the two-kernel
+    backward where they do not. Meta tensors: nothing is allocated."""
     d = 128
-    assert F.bwd_tiles_per_block(b, b, d) == tiles
-    n_tiles = -(-b // F.TK)
-    n_blocks = -(-n_tiles // tiles)
-    assert n_blocks * b * d * 4 <= F._FUSED_BWD_PARTIALS_CAP
+    p = F.bwd_plan(b, b, d, True, 132)
+    assert (p.tile, p.tiles_per_block, p.parts) == (F.TKC, tiles, parts)
+    n_tiles, n_qt = -(-b // F.TKC), -(-b // F.TQ)
+    assert p.n_spans == -(-n_tiles // tiles) and p.n_spans * p.parts >= min(132, n_tiles)
+    assert p.parts * p.q_tiles_per_part >= n_qt > (p.parts - 1) * p.q_tiles_per_part
+    for plan in (p, F.bwd_plan(b, b, d, False, 132)):
+        assert plan.partials_bytes(b, b, d) <= F._FUSED_BWD_PARTIALS_CAP
     assert F.bwd_route(b, b, d) == route
     meta = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
     ids = meta(b, dtype=torch.int32)
@@ -206,6 +211,58 @@ def test_flash_bwd_covers_the_tpu_batch_range(b, tiles, route):
     first = "flash_ce_bwd_fused" if route == "fused" else "flash_ce_bwd_du"
     with pytest.raises(ValueError, match=f"{first}: unsupported device"):
         F.flash_ce_bwd(*args)
+
+
+@pytest.mark.parametrize("bq,bk,d,dtype,n_sm,cap_parts", [
+    (200, 300, 16, "bfloat16", 4, None),    # 3 candidate tiles, query parts
+    (130, 260, 24, "bfloat16", 132, None),  # more SMs than blocks: a part per query tile
+    (70, 1, 8, "bfloat16", 8, None),        # one candidate
+    (200, 300, 16, "bfloat16", 4, 2),       # a cap of two dU partials: wide spans
+    (130, 260, 24, "float32", 4, None),     # the FMA kernel's 64-wide tiles, one part
+    (130, 260, 24, "float32", 4, 3),
+])
+def test_plain_backward_over_the_partial_layout_matches_reference(
+        monkeypatch, bq, bk, d, dtype, n_sm, cap_parts):
+    """The plain version of what the fused kernel writes under its plan
+    ([n_spans, Bq, D] dU, [parts, Bk, D] dV and [parts, Bk] dcol
+    partials), summed in the wrapper's fixed order, equals
+    ``flash_ce_bwd_reference``: fp32 sums in another order only."""
+    if cap_parts:  # room for cap_parts dU partials of [Bq, D]
+        monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 4 * cap_parts * bq * d)
+    u, v, c, ids_q, ids_k, g = (torch.tensor(x) for x in _inputs(bq, bk, d, seed=bq + d))
+    tdt = getattr(torch, dtype)
+    u, v = u.to(tdt), v.to(tdt)
+    pos = torch.arange(bq, dtype=torch.int32) % bk
+    lse, _ = F.flash_ce_fwd_reference(u, v, c, ids_q, ids_k, pos)
+    args = (u, v, c, ids_q, ids_k, pos, lse, g)
+    p = F.bwd_plan(bq, bk, d, dtype == "bfloat16", n_sm)
+    if cap_parts:
+        assert p.n_spans <= cap_parts and p.tiles_per_block > 1
+    assert p.partials_bytes(bq, bk, d) <= F._FUSED_BWD_PARTIALS_CAP
+    du_part, dv_part, dcol_part = F.flash_ce_bwd_partials_reference(*args, p)
+    assert du_part.shape == (p.n_spans, bq, d)
+    assert dv_part.shape == (p.parts, bk, d) and dcol_part.shape == (p.parts, bk)
+    for got, want in zip(F.sum_partials(du_part, dv_part, dcol_part),
+                         F.flash_ce_bwd_reference(*args)):
+        scale = float(want.abs().max())
+        _close(got, want, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("bq,bk", [(8192, 8192), (20000, 20000), (24000, 24000),
+                                   (139264, 139264), (131072, 147456), (131072, 262144),
+                                   (65536, 327680)])
+def test_bwd_plan_keeps_the_tpu_route(bq, bk):
+    """The new tiling leaves the route the TPU's (its own partials against
+    the cap), and wherever the route is fused the port's partials, bf16
+    and fp32, fit under the cap too."""
+    d = 128
+    _, tk = JF._tiles(bq, bk)
+    want = "fused" if bq * d * (bk // tk) * 4 <= JF._FUSED_BWD_PARTIALS_CAP else "twokernel"
+    assert F.bwd_route(bq, bk, d) == want
+    if want == "fused":
+        for bf16 in (True, False):
+            plan = F.bwd_plan(bq, bk, d, bf16, 132)
+            assert plan.partials_bytes(bq, bk, d) <= F._FUSED_BWD_PARTIALS_CAP
 
 
 @pytest.mark.parametrize("n,f,n_layers", [(37, 24, 3), (64, 256, 3), (5, 40, 1)])
