@@ -50,17 +50,22 @@
     exact fp32 top-k, and both routes' requests profiled as in phase 7;
 14. holds the blockmax kernel against its plain version at the served
     shapes (Q in {1, 64}, N = 1,048,576, d = 128, groups of 512), at
-    Q = 4,096, N = 8,388,608, and at ragged edge cases, timed as in phase
-    6, with the whole ``blockmax_topk`` timed against ``flash_topk``;
+    Q = 4,096, N = 8,388,608, and at edge cases of the tensor-core path
+    (bf16 at d in {64, 128, 129}, N not a multiple of g, Q in {1, 15, 17,
+    65}) and of the fp32 one, checks that two calls give the same bits,
+    times it as in phase 6, and the whole ``blockmax_topk`` against
+    ``flash_topk``;
 15. ``evaluate(filter_seen=True)`` of the 1M-item model on a seeded
     synthetic log, where k + max_seen > 256 and the dense scores would pass
     1 GiB, so the exact blockwise scan runs on the card, held against the
     same evaluation through the dense per-batch mask;
 16. holds kernel rows 6 and 7 (the two-kernel flash backward, through
     ``flash_ce_bwd_twokernel``) against their plain versions at Bq = Bk =
-    8,192, D = 128 in bf16 and fp32, at 4,096 x 20,480 bf16 and at a
-    ragged 1,000 x 3,001, D = 129, fp32, and times them at 8,192 bf16 as
-    in phase 6;
+    8,192, D = 128 in bf16 and fp32, at 4,096 x 20,480 bf16, at a ragged
+    1,000 x 3,001, D = 129, fp32, and at the edges of row 6's tensor-core
+    path (bf16 at D in {32, 64, 128, 129, 256}, ragged Bq and Bk), checks
+    that two calls of row 6 give the same bits, and times them at 8,192
+    bf16 as in phase 6;
 17. above the partials cap (Bq = 131,072, Bk = 262,144, D = 128, bf16):
     the route is the two-kernel one; the forward, rows 6 and 7 and the
     fused kernel agree with their plain versions (chunked over query rows,
@@ -92,11 +97,12 @@ CUDA device it exits 2 before doing anything.
 
     python3 chip_smoke.py --ab PARENT_DIR
 
-times kernel rows 1 and 5 of an unpacked checkout of another commit
-(``git archive <commit> | tar -x -C PARENT_DIR``) and of this tree in
-turns on one card (parent, this, this, parent; a process each, every
-tree built from its own sources) at the shapes of ``AB_TOPK_SHAPES``
-and ``AB_FLASH_SHAPES``, and prints one JSON line per run.
+times kernel rows 1, 4, 5, 6, 7 and 8 of an unpacked checkout of
+another commit (``git archive <commit> | tar -x -C PARENT_DIR``) and of
+this tree in turns on one card (parent, this, this, parent; a process
+each, every tree built from its own sources) at the shapes of the
+``AB_*_SHAPES`` lists, beside the library yardsticks of rows 6 and 8, and
+prints one JSON line per run.
 """
 
 from __future__ import annotations
@@ -1049,10 +1055,13 @@ def check_blockmax(u, v, group: int) -> float:
 
 def check_blockmax_edges() -> None:
     """Edge cases of the blockmax kernel, before any timing: N not a
-    multiple of g, N < g, Q not a multiple of the 64-row tile, fp32
+    multiple of g, N < g, Q not a multiple of the query tile, fp32
     operands (``bf16=False``) at a ragged width, groups smaller than a
-    64-item tile; then the whole ``blockmax_topk`` on the card against the
-    CPU plain path, k > N included."""
+    64-item tile; on the tensor-core path (bf16) both query tiles (16 rows
+    at Q in {1, 15}, 64 at Q in {17, 65}) and d in {24, 64, 128, 129, 256}
+    (padded to 32 .. 256, element-wise loads at 129); then the whole
+    ``blockmax_topk`` on the card against the CPU plain path, k > N
+    included."""
     import torch
     from recsys_tpu_torch.ops.topk_flash import NEG_INF, blockmax_group_size, blockmax_topk
 
@@ -1063,6 +1072,10 @@ def check_blockmax_edges() -> None:
     check_blockmax(rnd(5, 128).to(bf), rnd(100, 128).to(bf), blockmax_group_size(100))
     check_blockmax(rnd(33, 129), rnd(5000, 129), 512)
     check_blockmax(rnd(3, 24), rnd(1000, 24), 40)
+    for q_n, n, d, grp in ((1, 3001, 64, 384), (15, 5000, 129, 512), (17, 100_007, 128, 512),
+                           (65, 2049, 64, 128), (16, 1000, 128, 40), (64, 777, 256, 128),
+                           (3, 1000, 24, 40), (1, 1_000_003, 128, 512)):
+        check_blockmax(rnd(q_n, d).to(bf), rnd(n, d).to(bf), grp)
     for q_n, n, d, k, bf16 in ((70, 3001, 128, 10, True), (4, 50, 16, 80, True),
                                (9, 5000, 64, 200, False)):
         u, v = rnd(q_n, d), rnd(n, d)
@@ -1101,17 +1114,20 @@ def measure_blockmax(u, v, k: int, iters: int, library: bool) -> dict:
     grp = blockmax_group_size(n)
     n_groups = -(-n // grp)
     err = check_blockmax(u, v, grp)
+    check(bool(torch.equal(blockmax_group_max(u, v, grp), blockmax_group_max(u, v, grp))),
+          f"blockmax Q={q_n} N={n}: two calls differ")
     flops = BF16_FLOPS if u.dtype == torch.bfloat16 else FP32_FLOPS
-    b_ms, b_by = bound_ms(u.element_size() * (q_n + n) * d + 4 * q_n * n_groups,
-                          2.0 * q_n * n * d, flops)
+    n_ops = 2.0 * q_n * n * d
+    b_ms, b_by = bound_ms(u.element_size() * (q_n + n) * d + 4 * q_n * n_groups, n_ops, flops)
     kernel = lambda: blockmax_group_max(u, v, grp)
     plain = lambda: blockmax_group_max_reference(u, v, grp)
     warm = 1 if iters < 5 else 2
     dev_ms, dev_kernel_ms = device_ms(kernel, iters, kernel="blockmax")
+    ms = time_ms(kernel, iters, warm)
     row = {
         "shape": {"Q": q_n, "N": n, "d": d, "g": grp, "dtype": str(u.dtype).replace("torch.", "")},
         "max_abs_err": err,
-        "ms": time_ms(kernel, iters, warm),
+        "ms": ms, "tflops": n_ops / ms / 1e9, "bound_share": b_ms / ms,
         "plain_ms": time_ms(plain, iters, warm),
         "library_ms": None,
         "bound_ms": b_ms, "bound_by": b_by,
@@ -1339,7 +1355,8 @@ def twokernel_rows(args, iters: int, exp_rate: float, plain: bool) -> tuple:
             kernel = lambda: F.flash_ce_bwd_du(*args)
             plain_fn = lambda: F.flash_ce_bwd_du_reference(*args)
             library = lambda: probs().to(u.dtype) @ v
-            n_bytes, name = in_bytes + 4 * bq * d, "flash_ce_bwd_du_kernel"
+            # both row 6 kernels: flash_ce_bwd_du_kernel (fp32) and _tc_kernel
+            n_bytes, name = in_bytes + 4 * bq * d, "flash_ce_bwd_du_"
         else:
             kernel = lambda: F.flash_ce_bwd_dv(*args)
             plain_fn = lambda: F.flash_ce_bwd_dv_reference(*args)
@@ -1349,13 +1366,15 @@ def twokernel_rows(args, iters: int, exp_rate: float, plain: bool) -> tuple:
                 return p.to(u.dtype).T @ u, p.sum(dim=0)
 
             n_bytes, name = in_bytes + 4 * (bk * d + bk), "flash_ce_bwd_dv_kernel"
-        b_ms, b_by = bound_ms(n_bytes, 4.0 * bq * bk * d, flops, n_exp=float(bq) * bk,
-                              exp_per_s=exp_rate)
+        n_ops = 4.0 * bq * bk * d
+        b_ms, b_by = bound_ms(n_bytes, n_ops, flops, n_exp=float(bq) * bk, exp_per_s=exp_rate)
         warm = 2 if plain else 0
         dev_ms, dev_kernel_ms = device_ms(kernel, iters, kernel=name)
-        row = {"shape": shape, "ms": time_ms(kernel, iters, warm), "bound_ms": b_ms,
-               "bound_by": b_by, "device_ms": dev_ms, "kernel_device_ms": dev_kernel_ms,
-               "plain_ms": None, "plain_device_ms": None, "library_ms": None}
+        ms = time_ms(kernel, iters, warm)
+        row = {"shape": shape, "ms": ms, "tflops": n_ops / ms / 1e9, "bound_share": b_ms / ms,
+               "bound_ms": b_ms, "bound_by": b_by, "device_ms": dev_ms,
+               "kernel_device_ms": dev_kernel_ms, "plain_ms": None, "plain_device_ms": None,
+               "library_ms": None}
         if plain:
             row.update(plain_ms=time_ms(plain_fn, iters), library_ms=time_ms(library, iters),
                        plain_device_ms=device_ms(plain_fn, iters)[0])
@@ -1377,12 +1396,23 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
     exp_rate = (SFU_EXP_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0)
                 .multi_processor_count * sm_clock_mhz * 1e6)
     out = {"checks": []}
-    for bq, bk, d, dt in ((8192, 8192, 128, torch.bfloat16), (8192, 8192, 128, torch.float32),
-                          (4096, 20480, 128, torch.bfloat16), (1000, 3001, 129, torch.float32)):
+    bf, f32 = torch.bfloat16, torch.float32
+    # the main path's shape, then edges: row 6 of bf16 operands runs on the
+    # tensor cores (D padded to 32, 64, 128 or 256; two column slices past
+    # 128; element-wise loads where D % 8 != 0; ragged query and candidate
+    # tiles), fp32 on the FMA units
+    for bq, bk, d, dt in ((8192, 8192, 128, bf), (8192, 8192, 128, f32),
+                          (4096, 20480, 128, bf), (1000, 3001, 129, f32),
+                          (1000, 3001, 64, bf), (777, 2050, 128, bf), (1000, 3001, 129, bf),
+                          (300, 1100, 256, bf), (50, 70, 32, bf), (130, 4097, 24, bf)):
         res = check_twokernel(*_flash_args(bq, bk, d, dt, SEED + 12, n_ids=max(2, bk // 3)))
         out["checks"].append({"Bq": bq, "Bk": bk, "D": d, "dtype": str(dt), "abs": res["abs"],
                               "rel": res["rel"]})
         if (bq, bk, dt) == (8192, 8192, torch.bfloat16):
+            # deterministic: no atomics, the parts summed in a fixed order
+            first, again = F.flash_ce_bwd_du(*res["args"]), F.flash_ce_bwd_du(*res["args"])
+            check(bool(torch.equal(first, again)), "row 6 at 8,192^2 bf16: two calls differ")
+            del first, again
             out["main"] = twokernel_rows(res["args"], 10, exp_rate, plain=True)
             out["main"][0]["max_abs_err"] = res["abs"]["dU"]
             out["main"][1]["max_abs_err"] = max(res["abs"]["dV"], res["abs"]["dcol"])
@@ -1592,7 +1622,7 @@ def profile_giant_step(trainer, bundle: dict) -> dict:
 
     row = profile_call("train_step_giant", one, n_wall=3, n_traced=2, warmup=1,
                        groups={"flash_fwd": "flash_ce_fwd_kernel",
-                               "row6_du": "flash_ce_bwd_du_kernel",
+                               "row6_du": "flash_ce_bwd_du_",
                                "row7_dv": "flash_ce_bwd_dv_kernel"})
     torch.cuda.synchronize()
     row["sparse_update_span_ms"] = float(np.median([s.elapsed_time(e) for s, e in spans]))
@@ -1959,7 +1989,10 @@ def main() -> int:
         {"name": "blockmax", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/blockmax.cu",
          "replaces": "recsys_tpu/ops/pallas/topk_flash.py:274",
-         "launches": approx_launches["blockmax"], **{k: blockmax_rows[1][k] for k in keys},
+         "launches": approx_launches["blockmax"],
+         **{k: blockmax_rows[1][k] for k in keys + speed},
+         "kernel": "blockmax_tc_kernel (bf16, mma.sync); blockmax_kernel serves fp32",
+         "new_kernel": True,
          "shape": blockmax_rows[1]["shape"], "shapes": blockmax_rows},
     ]
     for i, (name, line) in enumerate((("flash_ce_bwd_du", 188), ("flash_ce_bwd_dv", 218))):
@@ -1967,8 +2000,10 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": "recsys_tpu_torch/csrc/flash_ce.cu",
             "replaces": f"recsys_tpu/ops/pallas/flash_ce.py:{line}",
-            "launches": giant_launches[name], **{k: main_row[k] for k in keys},
+            "launches": giant_launches[name], **{k: main_row[k] for k in keys + speed},
             "shape": main_row["shape"], "shapes": [main_row, twokernel["above"][i]]})
+    kernels[-2].update(kernel="flash_ce_bwd_du_tc_kernel (bf16, mma.sync); "
+                              "flash_ce_bwd_du_kernel serves fp32", new_kernel=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -1978,18 +2013,31 @@ def main() -> int:
     return 0
 
 
-# ---- rows 1 and 5 against another tree's kernels, on one card -------------
+# ---- kernel rows against another tree's kernels, on one card ---------------
 
 AB_TOPK_SHAPES = [(1, N_ITEMS, 10), (1, N_ITEMS, RERANK), (BATCH_USERS, N_ITEMS, 10),
                   (BATCH_USERS, N_ITEMS, RERANK), (4096, 1 << 20, 10)]
 AB_FLASH_SHAPES = [(4096, "bfloat16"), (TRAIN_BATCH, "bfloat16"), (TRAIN_BATCH, "float32")]
+# rows 6 (dU) and 7 (dV, dcol) and the forward (row 4): (Bq, Bk), bf16, D = 128
+AB_TWOKERNEL_SHAPES = [(TRAIN_BATCH, TRAIN_BATCH), (32_768, 65_536)]
+# row 8: (Q, N), bf16, d = 128, groups of 512
+AB_BLOCKMAX_SHAPES = [(1, LARGE_N_ITEMS), (BATCH_USERS, LARGE_N_ITEMS), (BIG_Q, BIG_N)]
+
+
+def _timed(fn, iters: int, kernel: str, warmup: int = 2) -> dict:
+    """CUDA-event ms, and device ms per call (whole call / the kernels
+    whose name holds ``kernel``) in a fresh profiler window."""
+    dev, dev_kernel = device_ms(fn, iters, kernel=kernel)
+    return {"ms": time_ms(fn, iters, warmup), "device_ms": dev, "kernel_device_ms": dev_kernel}
 
 
 def time_kernels(tree: str) -> dict:
-    """Rows 1 and 5 of the port found under ``tree`` (its own
+    """Rows 1, 4, 5, 6, 7 and 8 of the port found under ``tree`` (its own
     ``recsys_tpu_torch``, built into its own ``build/``) at the shapes of
     ``AB_*_SHAPES`` on seeded inputs: CUDA-event ms and device ms per
-    call, through the same wrappers a caller uses."""
+    call, through the same wrappers a caller uses; beside rows 6 and 8
+    their library yardsticks (``softmax @ v``; ``matmul`` + ``amax`` where
+    the [Q, N] scores fit), which do not depend on the tree."""
     import torch
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -2000,7 +2048,8 @@ def time_kernels(tree: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED + 20)
     unit = lambda *shape: torch.nn.functional.normalize(
         torch.randn(shape, generator=g, device="cuda"), dim=1)
-    out = {"tree": tree, "topk": [], "flash_bwd": []}
+    out = {"tree": tree, "topk": [], "flash_bwd": [], "flash_fwd_row4": [], "row6_du": [],
+           "row7_dv": [], "row8_blockmax": []}
     for q_n, n, k in AB_TOPK_SHAPES:
         u, v = unit(q_n, 128), unit(n, 128)
         iters = 3 if q_n * n > 1 << 26 else 50
@@ -2020,14 +2069,48 @@ def time_kernels(tree: str) -> dict:
         fn = lambda: F.flash_ce_bwd_fused(u, v, c, ids, ids, pos, lse, gr)
         out["flash_bwd"].append({"B": b, "dtype": dt, "ms": time_ms(fn, 10),
                                  "device_ms": device_ms(fn, 10)[0]})
+    for bq, bk in AB_TWOKERNEL_SHAPES:
+        u, v, c, ids_q, ids_k, pos, gr = _flash_args(bq, bk, 128, torch.bfloat16, SEED + 21,
+                                                     n_ids=max(2, bk // 3))
+        lse, _ = F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos)
+        args = (u, v, c, ids_q, ids_k, pos, lse, gr)
+        iters = 10 if bq * bk <= TRAIN_BATCH ** 2 else 3
+        shape = {"Bq": bq, "Bk": bk, "D": 128, "dtype": "bfloat16"}
+        out["flash_fwd_row4"].append({**shape, **_timed(
+            lambda: F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos), iters, "flash_ce_fwd_kernel")})
+        row6 = {**shape, **_timed(lambda: F.flash_ce_bwd_du(*args), iters, "flash_ce_bwd_du_")}
+        if bq * bk <= TRAIN_BATCH ** 2:
+            row6["library_ms"] = time_ms(lambda: (torch.softmax(torch.matmul(u, v.T) + c, dim=1)
+                                                  * gr[:, None]).to(u.dtype) @ v, iters)
+        out["row6_du"].append(row6)
+        out["row7_dv"].append({**shape, **_timed(lambda: F.flash_ce_bwd_dv(*args), iters,
+                                                 "flash_ce_bwd_dv_kernel")})
+        del u, v, args
+        torch.cuda.empty_cache()
+    for q_n, n in AB_BLOCKMAX_SHAPES:
+        u, v = unit(q_n, 128).to(torch.bfloat16), unit(n, 128).to(torch.bfloat16)
+        grp = T.blockmax_group_size(n)
+        big = q_n * n > 1 << 28
+        iters = 2 if big else 20
+        row = {"Q": q_n, "N": n, "d": 128, "g": grp,
+               **_timed(lambda: T.blockmax_group_max(u, v, grp), iters, "blockmax",
+                        warmup=1 if big else 2)}
+        if not big:  # at 4,096 x 8M the scores would be a 137 GB matrix
+            uf, vf = u.float(), v.float()
+            row["library_ms"] = time_ms(
+                lambda: torch.matmul(uf, vf.T).view(q_n, -1, grp).amax(dim=2), iters)
+            del uf, vf
+        out["row8_blockmax"].append(row)
+        del u, v
+        torch.cuda.empty_cache()
     return out
 
 
 def ab(parent: str) -> int:
-    """Rows 1 and 5 of ``parent`` (an unpacked checkout of another commit)
-    and of this tree, timed in turns on one card (parent, this, this,
-    parent), each in a process of its own: prints one JSON line per run
-    and the card's line."""
+    """Rows 1, 4, 5, 6, 7 and 8 of ``parent`` (an unpacked checkout of
+    another commit) and of this tree, timed in turns on one card (parent,
+    this, this, parent), each in a process of its own: prints one JSON line
+    per run and the card's line."""
     import torch
 
     if not torch.cuda.is_available():

@@ -17,49 +17,57 @@
 // Q = 4,096, N = 8,388,608 it is operations: 8.8 TFLOP, 8.9 ms at the bf16
 // tensor-core rate (131 ms at the 67 TFLOP/s fp32 rate).
 //
-// This first version does NOT reach either bound: the products run on the
-// fp32 FMA units (bf16 widened to fp32 in shared memory; a product of two
-// bf16 values is exact in fp32, so each dot equals the TPU's
-// fp32-accumulated bf16 dot up to summation order), with a 4 x 4 register
-// tile per thread, as csrc/flash_ce.cu. It is bound by the fp32
-// instruction rate and shared-memory loads; mma.sync / wgmma tiles are
-// later speed work, and at Q <= 64 a 64-row query tile also multiplies
-// padding (63 of 64 rows at Q = 1).
+// bf16 operands (blockmax_tc_kernel) run on the tensor cores: warp-level
+// mma.sync.m16n8k16 with fp32 sums (a product of two bf16 values is exact
+// in fp32, so each dot equals the TPU's fp32-accumulated bf16 dot up to
+// summation order). The block's queries live in registers as A fragments
+// for the whole sweep, and the catalog streams through shared memory in
+// 64-item tiles, cp.async 16-byte copies three stages deep, so that at
+// Q <= 64 the copies, not the products, set the pace. The query tile is
+// sized to Q by the wrapper's plan (16 rows where Q <= 16, else 64): at
+// Q = 1 a 64-row tile would multiply 63 rows of padding.
+//   fp32 operands (blockmax_kernel, the first design) run on the fp32 FMA
+// units with a 4 x 4 register tile per thread, as csrc/flash_ce.cu: a
+// 1e-5 contract that TF32 tensor cores cannot meet.
 //
 // Design, and how it departs from the TPU kernel:
-// * Blocks run in no order, so a block owns one 64-row query tile and
+// * Blocks run in no order, so a block owns one query tile and
 //   groups_per_block whole groups: no sum and no max crosses blocks, and
 //   each output element is written once. A group's items are swept in
 //   64-item tiles starting at the group's first item, so a tile never
-//   straddles two groups; each thread keeps the running max of its 4 rows
-//   in registers over the group's tiles, and a half-warp (which holds the
-//   row's 64 scores of a tile, 4 per lane) reduces it with four shuffles.
+//   straddles two groups; the running max of each row is kept in
+//   registers over the group's tiles and reduced across the four lanes of
+//   an accumulator's row (and, on the tensor cores with a 16-row tile,
+//   across the warps that split the tile's items) when the group ends.
 // * The output is [Q, n_groups] directly: the TPU's transposed
 //   [n_groups, Q] layout only served Mosaic's reshape rules. Ragged Q and N
 //   are masked here, so no padding to the TPU's tile multiples (tb a
 //   multiple of 8*g, tq of 128) and any N and g work.
 // * Re-streaming the catalog once per query tile would read it
-//   ceil(Q / 64) times (64 x 2.1 GB at Q = 4,096, N = 8M). The grid is one
-//   dimension with the query tile varying fastest, so the ceil(Q / 64)
+//   ceil(Q / tile) times (64 x 2.1 GB at Q = 4,096, N = 8M). The grid is one
+//   dimension with the query tile varying fastest, so the ceil(Q / tile)
 //   blocks of one group chunk are dispatched together: the first reads the
 //   chunk from device memory and the others find it in the 50 MB L2. The
 //   queries (1 MB at Q = 4,096 in bf16) stay in L2 throughout.
-// * The depth is staged 32 columns at a time, so any d works.
+// * Any d: the FMA kernel stages the depth 32 columns at a time; the
+//   tensor-core kernel pads d to DP in {32, 64, 128, 256} with zeros in
+//   shared memory (16-byte copies where d % 8 == 0, element by element
+//   otherwise).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
-constexpr int TQ = 64;        // queries per block
+constexpr int TQ = 64;        // queries per block of the FMA kernel
 constexpr int TB = 64;        // items per scoring tile
 constexpr int BK = 32;        // depth slice staged in shared memory
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 scores each
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // max over the 16 lanes of a half-warp (all of them get the result)
 __device__ __forceinline__ float half_max(float x) {
@@ -68,9 +76,9 @@ __device__ __forceinline__ float half_max(float x) {
   return x;
 }
 
-template <typename T>
+// fp32 operands on the FMA units
 __global__ void __launch_bounds__(THREADS) blockmax_kernel(
-    const T* __restrict__ u, const T* __restrict__ v, int q_n, int n, int d, int g,
+    const float* __restrict__ u, const float* __restrict__ v, int q_n, int n, int d, int g,
     int n_groups, int groups_per_block, int n_qtiles, float* __restrict__ out) {
   __shared__ float As[BK][TQ + 1];  // query slice, transposed
   __shared__ float Bs[BK][TB + 1];  // item slice, transposed
@@ -100,13 +108,13 @@ __global__ void __launch_bounds__(THREADS) blockmax_kernel(
         for (int e = tid; e < TQ * BK; e += THREADS) {
           const int r = e / BK, k = e % BK;
           const int q = q0 + r, dd = d0 + k;
-          As[k][r] = (q < q_n && dd < d) ? widen(u[static_cast<long long>(q) * d + dd]) : 0.f;
+          As[k][r] = (q < q_n && dd < d) ? u[static_cast<long long>(q) * d + dd] : 0.f;
         }
         for (int e = tid; e < TB * BK; e += THREADS) {
           const int r = e / BK, k = e % BK;
           const long long it = t0 + r;
           const int dd = d0 + k;
-          Bs[k][r] = (it < item_end && dd < d) ? widen(v[it * d + dd]) : 0.f;
+          Bs[k][r] = (it < item_end && dd < d) ? v[it * d + dd] : 0.f;
         }
         __syncthreads();
 #pragma unroll 8
@@ -139,33 +147,209 @@ __global__ void __launch_bounds__(THREADS) blockmax_kernel(
   }
 }
 
-template <typename T>
-int launch(const T* u, const T* v, int q_n, int n, int d, int g, int groups_per_block,
+int launch(const float* u, const float* v, int q_n, int n, int d, int g, int groups_per_block,
            float* out, cudaStream_t stream) {
   const int n_groups = static_cast<int>((static_cast<long long>(n) + g - 1) / g);
   const int n_qtiles = (q_n + TQ - 1) / TQ;
   const long long n_chunks = (n_groups + groups_per_block - 1) / groups_per_block;
   const long long n_blocks = n_chunks * n_qtiles;
   if (n_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  blockmax_kernel<T><<<static_cast<unsigned>(n_blocks), THREADS, 0, stream>>>(
+  blockmax_kernel<<<static_cast<unsigned>(n_blocks), THREADS, 0, stream>>>(
       u, v, q_n, n, d, g, n_groups, groups_per_block, n_qtiles, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- bf16 operands on the tensor cores -------------------------------------
+
+constexpr int TC_WARPS = 4;
+constexpr int TC_THREADS = 32 * TC_WARPS;
+constexpr int TC_STAGES = 3;  // catalog tiles in flight
+
+template <int TQB, int DP>
+constexpr size_t tc_smem() {
+  return sizeof(__nv_bfloat16) * (TQB + TC_STAGES * TB) * (DP + 8) +
+         sizeof(float) * TC_WARPS * 16;
+}
+
+// Block b owns query tile b % n_qtiles (TQB rows) and groups_per_block
+// whole groups of chunk b / n_qtiles, swept as one sequence of 64-item
+// tiles (each group's tiles start at its first item). The warps form a
+// (TQB / 16) x WN grid: warp (wm, wn) holds the A fragments of query rows
+// 16wm.. and scores items wn * IW.. of every tile, so with TQB = 16 the
+// four warps split the tile's items and with TQB = 64 each warp scores
+// the whole tile for its own rows.
+template <int TQB, int DP>
+__global__ void __launch_bounds__(TC_THREADS) blockmax_tc_kernel(
+    const __nv_bfloat16* __restrict__ u, const __nv_bfloat16* __restrict__ v, int q_n,
+    int n, int d, int g, int n_groups, int groups_per_block, int n_qtiles, int vec,
+    float* __restrict__ out) {
+  constexpr int LD = DP + 8;  // 16-byte rows on distinct banks for ldmatrix
+  constexpr int WM = TQB / 16, WN = TC_WARPS / WM, IW = TB / WN, NTI = IW / 8, KS = DP / 16;
+  static_assert(WM * WN == TC_WARPS && NTI % 2 == 0, "warp grid");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [TQB][LD]
+  __nv_bfloat16* Vs = Us + TQB * LD;                                // [TC_STAGES][TB][LD]
+  float* red = reinterpret_cast<float*>(Vs + TC_STAGES * TB * LD);  // [WN][16]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;  // mma fragment row group and column pair
+  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix matrix and row of this lane
+  const int wm = warp / WN, wn = warp % WN;
+  const int q0 = (blockIdx.x % n_qtiles) * TQB;
+  const int grp_begin = (blockIdx.x / n_qtiles) * groups_per_block;
+  const int grp_end = min(n_groups, grp_begin + groups_per_block);
+  const int tpg = (g + TB - 1) / TB;  // tiles per group
+  const int n_t = (grp_end - grp_begin) * tpg;
+
+  // tile i of the block's sequence: its group, first item and end of group
+  auto tile_of = [&](int i, int& grp, int& t0, int& item_end) {
+    grp = grp_begin + i / tpg;
+    t0 = grp * g + (i % tpg) * TB;
+    item_end = min(n, (grp + 1) * g);
+  };
+  auto stage = [&](int i) {
+    if (i < n_t) {
+      int grp, t0, item_end;
+      tile_of(i, grp, t0, item_end);
+      if (t0 < item_end)
+        stage_rows<DP, TC_THREADS>(Vs + (i % TC_STAGES) * TB * LD, LD, v, t0, item_end, TB,
+                                   d, vec != 0);
+    }
+    cp_async_commit();  // one group per tile, empty or not
+  };
+
+  stage_rows<DP, TC_THREADS>(Us, LD, u, q0, q_n, TQB, d, vec != 0);
+  for (int i = 0; i < TC_STAGES - 1; ++i) stage(i);  // the queries ride with tile 0
+
+  uint32_t qa[KS][4];  // the warp's A fragments of its 16 query rows
+  float rmax[2] = {NEG_INF, NEG_INF};  // rows 16wm + gq and 16wm + gq + 8
+
+  for (int i = 0; i < n_t; ++i) {
+    cp_async_wait_one();  // tile i has landed (tile i + 1 may be in flight)
+    __syncthreads();      // for every thread; tile i - 1's readers are done
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(qa[kk], Us + (16 * wm + (lm & 1) * 8 + lr) * LD + kk * 16 + (lm >> 1) * 8);
+    }
+    stage(i + TC_STAGES - 1);  // into the stage that tile i - 1 used
+
+    int grp, t0, item_end;
+    tile_of(i, grp, t0, item_end);
+    if (t0 < item_end) {  // block-uniform: the last group may end early
+      const __nv_bfloat16* Vb = Vs + (i % TC_STAGES) * TB * LD + wn * IW * LD;
+      // s[nt][2h + e]: row 16wm + gq + 8h, item t0 + wn*IW + nt*8 + 2*t4 + e
+      float s[NTI][4];
+#pragma unroll
+      for (int nt = 0; nt < NTI; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+        for (int np = 0; np < NTI / 2; ++np) {
+          uint32_t b[4];
+          ldsm_x4(b, Vb + (np * 16 + (lm >> 1) * 8 + lr) * LD + kk * 16 + (lm & 1) * 8);
+          mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
+          mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
+        }
+      }
+      const int lim = item_end - t0 - wn * IW;  // items of this warp that are real
+#pragma unroll
+      for (int nt = 0; nt < NTI; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (nt * 8 + 2 * t4 + e < lim) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) rmax[h] = fmaxf(rmax[h], s[nt][2 * h + e]);
+          }
+    }
+
+    if (i % tpg == tpg - 1) {  // the group's last tile: reduce and write
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float m = rmax[h];
+        m = fmaxf(m, __shfl_xor_sync(FULL, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(FULL, m, 2));
+        rmax[h] = m;
+      }
+      if (WN == 1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q = q0 + 16 * wm + gq + 8 * h;
+          if (t4 == 0 && q < q_n) out[static_cast<long long>(q) * n_groups + grp] = rmax[h];
+        }
+      } else {
+        if (t4 == 0) {
+          red[wn * 16 + gq] = rmax[0];
+          red[wn * 16 + gq + 8] = rmax[1];
+        }
+        __syncthreads();  // block-uniform: every warp ends the group together
+        if (tid < 16) {
+          float m = red[tid];
+#pragma unroll
+          for (int w = 1; w < WN; ++w) m = fmaxf(m, red[w * 16 + tid]);
+          const int q = q0 + tid;
+          if (q < q_n) out[static_cast<long long>(q) * n_groups + grp] = m;
+        }
+      }
+      rmax[0] = rmax[1] = NEG_INF;
+    }
+  }
+  cp_async_wait_all();  // no copy may outlive the block
+}
+
+template <int TQB, int DP>
+int launch_tc(const __nv_bfloat16* u, const __nv_bfloat16* v, int q_n, int n, int d, int g,
+              int groups_per_block, int vec, float* out, cudaStream_t stream) {
+  constexpr size_t bytes = tc_smem<TQB, DP>();
+  // the attribute belongs to the current device: set it on every launch
+  cudaError_t e = cudaFuncSetAttribute(blockmax_tc_kernel<TQB, DP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_groups = static_cast<int>((static_cast<long long>(n) + g - 1) / g);
+  const int n_qtiles = (q_n + TQB - 1) / TQB;
+  const long long n_chunks = (n_groups + groups_per_block - 1) / groups_per_block;
+  const long long n_blocks = n_chunks * n_qtiles;
+  if (n_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  blockmax_tc_kernel<TQB, DP><<<static_cast<unsigned>(n_blocks), TC_THREADS, bytes, stream>>>(
+      u, v, q_n, n, d, g, n_groups, groups_per_block, n_qtiles, vec, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TQB>
+int dispatch_tc(const __nv_bfloat16* u, const __nv_bfloat16* v, int q_n, int n, int d,
+                int g, int groups_per_block, int vec, float* out, cudaStream_t s) {
+  if (d <= 32) return launch_tc<TQB, 32>(u, v, q_n, n, d, g, groups_per_block, vec, out, s);
+  if (d <= 64) return launch_tc<TQB, 64>(u, v, q_n, n, d, g, groups_per_block, vec, out, s);
+  if (d <= 128) return launch_tc<TQB, 128>(u, v, q_n, n, d, g, groups_per_block, vec, out, s);
+  if (d <= 256) return launch_tc<TQB, 256>(u, v, q_n, n, d, g, groups_per_block, vec, out, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // u [q_n, d], v [n, d] contiguous, both bf16 (is_bf16 = 1) or both fp32;
-// out [q_n, ceil(n / g)] fp32. Returns the cudaError_t of the launch.
+// out [q_n, ceil(n / g)] fp32. bf16 operands take the tensor-core kernel
+// with a query tile of tq in {16, 64} and 1 <= d <= 256 (vec != 0 when
+// d % 8 == 0 and u, v start on 16 bytes); fp32 operands the FMA kernel
+// (64-row tiles, any d, tq and vec unused). Returns the cudaError_t of the
+// launch.
 extern "C" int blockmax_group_max(const void* u, const void* v, int q_n, int n, int d,
-                                  int g, int groups_per_block, int is_bf16, float* out,
-                                  void* stream) {
+                                  int g, int groups_per_block, int is_bf16, int tq, int vec,
+                                  float* out, void* stream) {
   if (q_n <= 0 || n <= 0) return 0;
-  if (d <= 0 || g <= 0 || groups_per_block <= 0)
+  if (d <= 0 || g <= 0 || groups_per_block <= 0 ||
+      (is_bf16 && (d > 256 || (tq != 16 && tq != 64))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch(static_cast<const __nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(v),
-                  q_n, n, d, g, groups_per_block, out, s);
+  if (is_bf16) {
+    const auto* ub = static_cast<const __nv_bfloat16*>(u);
+    const auto* vb = static_cast<const __nv_bfloat16*>(v);
+    return tq == 16 ? dispatch_tc<16>(ub, vb, q_n, n, d, g, groups_per_block, vec, out, s)
+                    : dispatch_tc<64>(ub, vb, q_n, n, d, g, groups_per_block, vec, out, s);
+  }
   return launch(static_cast<const float*>(u), static_cast<const float*>(v), q_n, n, d, g,
                 groups_per_block, out, s);
 }

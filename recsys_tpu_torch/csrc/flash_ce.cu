@@ -27,20 +27,21 @@
 // plus one exp per logit and kernel. At Bq = Bk = 8192, D = 128 in bf16
 // the tensor-core bound is 0.017 ms forward and the Bq*Bk exps on the
 // special-function units take about as long.
-//   The fused backward of bf16 operands (flash_ce_bwd_tc_kernel) runs its
-// three products on the tensor cores: warp-level mma.sync.m16n8k16 bf16
-// with fp32 sums, operands fed by ldmatrix (.trans where the product
-// needs the transposed tile) from bf16 tiles in shared memory, the next
-// query tile loaded by cp.async while the current one computes. mma.sync
-// rather than wgmma: a first tensor-core design that a warp owns from
-// fragment to result, so that P^T, computed in a warp's accumulators,
-// feeds the dV product from registers without a round trip (the
-// FlashAttention-2 layout identity between an m16n8 accumulator pair and
-// an m16k16 A fragment); wgmma's warpgroup-wide accumulators and
-// shared-memory descriptors are the next step. Its other limit is bytes:
-// the dU partials (see below).
-//   Everything else (the forward, the fp32 fused backward, rows 6 and 7)
-// still runs every product on the fp32 FMA units: bf16 operands widened
+//   The fused backward of bf16 operands (flash_ce_bwd_tc_kernel) and the
+// dU kernel of bf16 operands (flash_ce_bwd_du_tc_kernel, row 6) run their
+// products on the tensor cores: warp-level mma.sync.m16n8k16 bf16 with
+// fp32 sums (mma_bf16.cuh), operands fed by ldmatrix (.trans where the
+// product needs the transposed tile) from bf16 tiles in shared memory,
+// the next tile loaded by cp.async while the current one computes.
+// mma.sync rather than wgmma: a first tensor-core design that a warp owns
+// from fragment to result, so that P (row 6) or P^T (row 5), computed in
+// a warp's accumulators, feeds the next product from registers without a
+// round trip (the FlashAttention-2 layout identity between an m16n8
+// accumulator pair and an m16k16 A fragment); wgmma's warpgroup-wide
+// accumulators and shared-memory descriptors are the next step. The fused
+// kernel's other limit is bytes: the dU partials (see below).
+//   Everything else (the forward, the fp32 backward kernels, row 7) still
+// runs every product on the fp32 FMA units: bf16 operands widened
 // to fp32 in shared memory (a product of two bf16 values is exact in
 // fp32, so the sums equal the TPU's fp32-accumulated bf16 products up to
 // summation order), a 4 x 4 register tile per thread; bound by fp32 issue
@@ -77,12 +78,16 @@
 // * Two-kernel backward, where the TPU takes it (Bq * D * (Bk / tk) * 4
 //   bytes of TPU partials above the cap, e.g. 131,072 queries against a
 //   262,144-column candidate axis with the CBNS cache): the dU kernel's
-//   block owns a 64-row query tile and sweeps every candidate tile,
+//   block owns a 64-row query tile and sweeps the candidate tiles,
 //   keeping its [64, D] fp32 dU in registers and writing it once; the dV
 //   kernel's block owns a 64-row candidate tile and sweeps every query
 //   tile, keeping dV_j in registers and dcol_j per thread. Nothing crosses
-//   blocks, so neither needs partials, atomics or a second pass; the TPU's
-//   sequential grid axis becomes each block's loop. The two routes sum in
+//   blocks, so neither needs atomics; the TPU's sequential grid axis
+//   becomes each block's loop. Where the query tiles alone would leave the
+//   card thin (8,192 rows: 128 tiles), the bf16 dU kernel splits the
+//   candidate sweep into parts (the wrapper's du_plan: 9 at 8,192^2, one
+//   at 131,072 rows) whose [parts, Bq, D] partials the wrapper sums in a
+//   fixed order; the fp32 one sweeps every tile. The two routes sum in
 //   other orders (the fused bf16 kernel on the tensor cores, in parts), so
 //   across the cap they agree within the stated tolerances, not bit for
 //   bit. The grids are ceil(Bq / 64) and ceil(Bk / 64) blocks (2,048 and
@@ -98,6 +103,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -435,74 +442,6 @@ constexpr size_t bwd_tc_smem() {
          2 * TQ * (2 * sizeof(float) + 2 * sizeof(int));
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled past src_bytes
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// four 8 x 8 bf16 matrices from shared memory, lane l giving the address
-// of row l % 8 of matrix l / 8; .trans hands each lane the transpose
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 operands, fp32 sums
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// rows [row0, row0 + rows) of src [n_rows, d] bf16 -> dst [rows][ld],
-// columns [0, DP), zero past n_rows and past d: cp.async 16 bytes at a
-// time when rows start on 16 bytes (vec), element by element otherwise
-template <int DP>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld,
-                                           const __nv_bfloat16* __restrict__ src, int row0,
-                                           int n_rows, int rows, int d, bool vec) {
-  constexpr int CPR = DP / 8;  // 16-byte chunks per row
-  for (int e = threadIdx.x; e < rows * CPR; e += THREADS) {
-    const int r = e / CPR, c8 = (e % CPR) * 8;
-    const int gr = row0 + r;
-    __nv_bfloat16* out = dst + r * ld + c8;
-    if (vec) {
-      const bool ok = gr < n_rows && c8 < d;
-      cp_async16(out, ok ? src + static_cast<long long>(gr) * d + c8 : src, ok ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        out[j] = (gr < n_rows && c8 + j < d) ? src[static_cast<long long>(gr) * d + c8 + j]
-                                             : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
 // The fused backward of bf16 operands on the tensor cores (mma.sync).
 // Grid (n_spans, parts, DP / DN): block (x, y, z) owns tiles_per_block
 // consecutive 128-candidate tiles, sweeps the query tiles of part y, and
@@ -552,7 +491,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_ce_bwd_tc_kernel(
   float* du_out = du_part + static_cast<long long>(blockIdx.x) * bq * d;
 
   auto stage_query_tile = [&](int buf, int qt) {
-    stage_rows<DP>(Us + buf * TQ * LD, LD, u, qt * TQ, bq, TQ, d, vec != 0);
+    stage_rows<DP, THREADS>(Us + buf * TQ * LD, LD, u, qt * TQ, bq, TQ, d, vec != 0);
     if (tid < TQ) {
       const int r = qt * TQ + tid;
       const bool ok = r < bq;
@@ -567,7 +506,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_ce_bwd_tc_kernel(
     const int k0 = tile * TKC;
     const bool first = tile == tile0;
     __syncthreads();  // the previous tile's readers of Vs, Us, PT and the rows are done
-    stage_rows<DP>(Vs, LD, v, k0, bk, TKC, d, vec != 0);
+    stage_rows<DP, THREADS>(Vs, LD, v, k0, bk, TKC, d, vec != 0);
     if (qt_begin < qt_end) stage_query_tile(0, qt_begin);
     cp_async_commit();
     float corr[2], dcol_acc[2] = {0.f, 0.f};
@@ -720,6 +659,179 @@ __global__ void __launch_bounds__(THREADS, 1) flash_ce_bwd_tc_kernel(
           if (k < d) out[k] = dv_acc[nt][2 * h + e];
         }
     }
+  }
+}
+
+// ---- row 6 in bf16: the dU kernel on the tensor cores ----------------------
+
+constexpr int DU_WARPS = 4;                 // 16 query rows each
+constexpr int DU_THREADS = 32 * DU_WARPS;
+constexpr int DU_TQ = 16 * DU_WARPS;        // query rows per block
+constexpr int DU_TK = 64;                   // candidates per tile of the sweep
+
+template <int DP>
+constexpr size_t bwd_du_tc_smem() {
+  return sizeof(__nv_bfloat16) * (DU_TQ + 2 * DU_TK) * tc_ld<DP>() +
+         2 * DU_TK * (sizeof(float) + sizeof(int));
+}
+
+// Row 6 of bf16 operands on the tensor cores (mma.sync). Grid (query
+// tiles, parts, DP / DN): block (x, y, z) owns the DU_TQ query rows of
+// tile x, sweeps candidate tiles [y * tiles_per_part, (y + 1) *
+// tiles_per_part) and writes output columns [z * DN, (z + 1) * DN) of
+// its rows into du_part[y] ([parts, Bq, D]; the wrapper sums the parts in
+// a fixed order, or passes dU itself when there is one part). Warp w owns
+// query rows 16w..16w+15: their A fragments of U are loaded once and kept
+// in registers; per 64-candidate tile (cp.async, double-buffered):
+//   S = U_w V_j^T [16 x 64] with fp32 sums;
+//   P = bf16(exp(S - lse) g) as tile_pg makes it, packed straight into
+//   the A fragments of the next product (an m16n8 accumulator pair is an
+//   m16k16 A fragment: FlashAttention-2's register identity);
+//   dU_w += P V_j [16 x DN], V_j read with ldmatrix.trans.
+// dU stays in fp32 registers over the sweep and is written once. Nothing
+// crosses blocks: no atomics, and two calls give the same bits.
+template <int DP>
+__global__ void __launch_bounds__(DU_THREADS) flash_ce_bwd_du_tc_kernel(
+    const __nv_bfloat16* __restrict__ u, const __nv_bfloat16* __restrict__ v,
+    const float* __restrict__ colcorr, const int* __restrict__ ids_q,
+    const int* __restrict__ ids_k, const int* __restrict__ pos, const float* __restrict__ lse,
+    const float* __restrict__ g, int bq, int bk, int d, int vec, int tiles_per_part,
+    float* __restrict__ du_part) {
+  constexpr int LD = tc_ld<DP>();
+  constexpr int DN = DP < 128 ? DP : 128;  // output columns per block
+  constexpr int NT = DN / 8;               // dU n-tiles per warp
+  constexpr int KS = DP / 16;              // k-steps of S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [DU_TQ][LD]
+  __nv_bfloat16* Vs = Us + DU_TQ * LD;                              // [2][DU_TK][LD]
+  float* cs = reinterpret_cast<float*>(Vs + 2 * DU_TK * LD);        // [2][DU_TK]
+  int* ks = reinterpret_cast<int*>(cs + 2 * DU_TK);                 // [2][DU_TK]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;  // mma fragment row group and column pair
+  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix matrix and row of this lane
+  const int q0 = blockIdx.x * DU_TQ, rw = warp * 16;
+  const int dn0 = blockIdx.z * DN;
+  const int n_kt = (bk + DU_TK - 1) / DU_TK;
+  const int kt_begin = blockIdx.y * tiles_per_part;
+  const int kt_end = min(n_kt, kt_begin + tiles_per_part);
+  float* du_out = du_part + static_cast<long long>(blockIdx.y) * bq * d;
+
+  auto stage_tile = [&](int buf, int kt) {
+    const int k0 = kt * DU_TK;
+    stage_rows<DP, DU_THREADS>(Vs + buf * DU_TK * LD, LD, v, k0, bk, DU_TK, d, vec != 0);
+    if (tid < DU_TK) {
+      const int c = k0 + tid;
+      cs[buf * DU_TK + tid] = c < bk ? colcorr[c] : 0.f;
+      ks[buf * DU_TK + tid] = c < bk ? ids_k[c] : 0;
+    }
+  };
+
+  stage_rows<DP, DU_THREADS>(Us, LD, u, q0, bq, DU_TQ, d, vec != 0);
+  if (kt_begin < kt_end) stage_tile(0, kt_begin);
+  cp_async_commit();
+
+  bool rok[2];
+  float lse_r[2], g_r[2];
+  int idq_r[2], pos_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + rw + gq + 8 * h;
+    rok[h] = r < bq;
+    lse_r[h] = rok[h] ? lse[r] : 0.f;
+    g_r[h] = rok[h] ? g[r] : 0.f;
+    idq_r[h] = rok[h] ? ids_q[r] : 0;
+    pos_r[h] = rok[h] ? pos[r] : -1;
+  }
+  float du[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) du[nt][e] = 0.f;
+  uint32_t ua[KS][4];  // the warp's A fragments of U, for the whole sweep
+
+  for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
+    const int buf = it & 1, k0 = kt * DU_TK;
+    cp_async_wait_all();
+    __syncthreads();  // this tile has landed; everyone is done with the other buffer
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(ua[kk], Us + (rw + (lm & 1) * 8 + lr) * LD + kk * 16 + (lm >> 1) * 8);
+    }
+    if (kt + 1 < kt_end) stage_tile(buf ^ 1, kt + 1);
+    cp_async_commit();
+    const __nv_bfloat16* Vb = Vs + buf * DU_TK * LD;
+    const float* cb = cs + buf * DU_TK;
+    const int* kb = ks + buf * DU_TK;
+
+    // S[r][c]: s[nt][2h + e] is query row rw + gq + 8h, candidate nt*8 + 2*t4 + e
+    float s[DU_TK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < DU_TK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int np = 0; np < DU_TK / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, Vb + (np * 16 + (lm >> 1) * 8 + lr) * LD + kk * 16 + (lm & 1) * 8);
+        mma_bf16(s[2 * np], ua[kk], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], ua[kk], b[2], b[3]);
+      }
+    }
+
+    // P = bf16(exp(S - lse) g), straight into the A fragments of P V
+    uint32_t pa[DU_TK / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < DU_TK / 8; ++nt) {
+      float pf[2][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cl = nt * 8 + 2 * t4 + e, c = k0 + cl;
+        const float corr = cb[cl];
+        const int kid = kb[cl];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float pg = 0.f;
+          if (rok[h] && c < bk) {
+            const float x = masked_logit(s[nt][2 * h + e], corr, idq_r[h], kid, c, pos_r[h]);
+            pg = expf(x - lse_r[h]) * g_r[h];
+          }
+          pf[h][e] = pg;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) pa[nt >> 1][(nt & 1) * 2 + h] = pack_bf16(pf[h][0], pf[h][1]);
+    }
+
+    // dU[r][k] += sum_c P[r][c] V[c][k]
+#pragma unroll
+    for (int kc = 0; kc < DU_TK / 16; ++kc) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, Vb + (kc * 16 + (lm & 1) * 8 + lr) * LD + dn0 + np * 16 + (lm >> 1) * 8);
+        mma_bf16(du[2 * np], pa[kc], b[0], b[1]);
+        mma_bf16(du[2 * np + 1], pa[kc], b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait_all();  // no copy may outlive the block
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + rw + gq + 8 * h;
+    if (r >= bq) continue;
+    float* out = du_out + static_cast<long long>(r) * d;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = dn0 + nt * 8 + 2 * t4 + e;
+        if (k < d) out[k] = du[nt][2 * h + e];
+      }
   }
 }
 
@@ -1057,6 +1169,35 @@ int dispatch_bwd_du(const void* u, const void* v, const float* colcorr, const in
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <int DP>
+int launch_bwd_du_tc(const void* u, const void* v, const float* colcorr, const int* ids_q,
+                     const int* ids_k, const int* pos, const float* lse, const float* g,
+                     int bq, int bk, int d, int vec, int parts, int tpp, float* du_part,
+                     cudaStream_t stream) {
+  constexpr size_t bytes = bwd_du_tc_smem<DP>();
+  constexpr int DN = DP < 128 ? DP : 128;
+  cudaError_t e = cudaFuncSetAttribute(flash_ce_bwd_du_tc_kernel<DP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((bq + DU_TQ - 1) / DU_TQ, parts, DP / DN);
+  flash_ce_bwd_du_tc_kernel<DP><<<grid, DU_THREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(v), colcorr,
+      ids_q, ids_k, pos, lse, g, bq, bk, d, vec, tpp, du_part);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_bwd_du_tc(const void* u, const void* v, const float* colcorr, const int* ids_q,
+                       const int* ids_k, const int* pos, const float* lse, const float* g,
+                       int bq, int bk, int d, int vec, int parts, int tpp, float* du_part,
+                       cudaStream_t s) {
+  if (d <= 32) return launch_bwd_du_tc<32>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, parts, tpp, du_part, s);
+  if (d <= 64) return launch_bwd_du_tc<64>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, parts, tpp, du_part, s);
+  if (d <= 128) return launch_bwd_du_tc<128>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, parts, tpp, du_part, s);
+  if (d <= 256) return launch_bwd_du_tc<256>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, parts, tpp, du_part, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T>
 int dispatch_bwd_dv(const void* u, const void* v, const float* colcorr, const int* ids_q,
                     const int* ids_k, const int* pos, const float* lse, const float* g,
@@ -1110,17 +1251,24 @@ extern "C" int flash_ce_bwd(const void* u, const void* v, const float* colcorr,
               : dispatch_bwd_fma(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, tpb, dv_part, dcol_part, du_part, s);
 }
 
-// As flash_ce_bwd, without tiles_per_block; out du [bq, d] fp32 (row 6).
+// As flash_ce_bwd, with row 6's plan; out du_part [parts, bq, d] fp32, the
+// wrapper summing it over its first axis (dU itself when parts == 1).
+// bf16 operands take the tensor-core kernel: the candidate tiles of 64
+// split into parts of tiles_per_part (vec != 0 when d % 8 == 0 and u, v
+// start on 16 bytes); fp32 operands the FMA kernel (parts == 1).
 // Returns the cudaError_t of the launch.
 extern "C" int flash_ce_bwd_du(const void* u, const void* v, const float* colcorr,
                                const int* ids_q, const int* ids_k, const int* pos,
                                const float* lse, const float* g, int bq, int bk, int d,
-                               int bf16, float* du, void* stream) {
+                               int bf16, int parts, int tiles_per_part, int vec,
+                               float* du_part, void* stream) {
   if (bq <= 0) return 0;
-  if (bk <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (bk <= 0 || d <= 0 || parts <= 0 || tiles_per_part <= 0 || (!bf16 && parts != 1) ||
+      static_cast<long long>(parts) * tiles_per_part * DU_TK < bk)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_bwd_du<__nv_bfloat16>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, du, s)
-              : dispatch_bwd_du<float>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, du, s);
+  return bf16 ? dispatch_bwd_du_tc(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, parts, tiles_per_part, du_part, s)
+              : dispatch_bwd_du<float>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, du_part, s);
 }
 
 // As flash_ce_bwd, without tiles_per_block; out dv [bk, d] and dcol [bk]

@@ -3,8 +3,9 @@ load the result with ctypes.
 
 Each source compiles to an object file in its own ``nvcc`` process, all
 started together, and the objects link into one shared library with a
-plain C interface. The library's name carries a hash of the sources and
-flags, so an edited source builds anew and an unchanged one is loaded
+plain C interface. The library's name carries a hash of the sources, the
+headers they share (``csrc/*.cuh``) and the flags, so an edited source or
+header builds anew and an unchanged one is loaded
 from ``build/torch_kernels/`` at the root of the checkout. Nothing is
 downloaded; only the repository's own sources are compiled.
 """
@@ -47,9 +48,13 @@ def _nvcc() -> str:
     )
 
 
+def headers() -> List[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def _digest(srcs: List[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in srcs + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -33,11 +33,18 @@ from recsys_tpu_torch.ops import _build
 
 NEG_BIG = -1e9
 # tile sizes of csrc/flash_ce.cu (query rows, candidate rows per tile;
-# the fused backward of bf16 operands takes candidate tiles of TKC)
+# the fused backward of bf16 operands takes candidate tiles of TKC, row 6
+# of bf16 operands query tiles of DU_TQ and candidate tiles of DU_TK)
 TQ = 64
 TK = 64
 TKC = 128
+DU_TQ = 64
+DU_TK = 64
 MAX_DIM = 256
+# row 6 of bf16 operands splits the candidate sweep into parts until the
+# grid holds about this many blocks per SM (a few resident at a time, and
+# enough waves that the last is not mostly idle)
+_DU_BLOCKS_PER_SM = 8
 # The TPU package's fused backward keeps one dU partial per candidate
 # tile of its own tiling (_tiles); above this many bytes of them
 # ([Bk // tk, Bq, D] fp32) it switches to its two-kernel backward, and so
@@ -194,7 +201,7 @@ def _bwd_launcher():
 @functools.lru_cache(maxsize=None)
 def _bwd_du_launcher():
     fn = _build.load_library().flash_ce_bwd_du
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
@@ -409,11 +416,45 @@ def flash_ce_bwd_fused(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
 flash_ce_bwd_fused.launches = 0
 
 
+class DuPlan(NamedTuple):
+    """How row 6 cuts [Bq, Bk]: blocks of ``tile`` query rows, each sweeping
+    ``tiles_per_part`` candidate tiles of ``ktile`` in one of ``parts``
+    parts of the candidate axis. Partials: dU ``[parts, Bq, D]`` fp32,
+    summed in a fixed order (none with one part: the kernel writes dU)."""
+    tile: int
+    ktile: int
+    parts: int
+    tiles_per_part: int
+
+    def partials_bytes(self, bq: int, d: int) -> int:
+        return 4 * self.parts * bq * d if self.parts > 1 else 0
+
+
+def du_plan(bq: int, bk: int, d: int, bf16: bool, n_sm: int) -> DuPlan:
+    """Row 6's tiling on a card of ``n_sm`` SMs. bf16 operands (the
+    tensor-core kernel): 64-row query tiles, 64-candidate tiles, and the
+    candidate sweep split into as many parts as bring the grid to about
+    ``_DU_BLOCKS_PER_SM`` blocks per SM (8,192 rows give only 128 query
+    tiles), no more than the candidate tiles and no more than keep the dU
+    partials under ``_FUSED_BWD_PARTIALS_CAP``; no part is empty. fp32
+    operands (the FMA kernel): one part, 64-row tiles."""
+    if not bf16:
+        return DuPlan(TQ, TK, 1, -(-bk // TK))
+    n_kt = -(-bk // DU_TK)
+    blocks = -(-bq // DU_TQ) * (2 if d > 128 else 1)
+    parts = min(n_kt, -(-_DU_BLOCKS_PER_SM * n_sm // blocks),
+                _FUSED_BWD_PARTIALS_CAP // (4 * bq * d))
+    tpp = -(-n_kt // max(1, parts))
+    return DuPlan(DU_TQ, DU_TK, -(-n_kt // tpp), tpp)
+
+
 def flash_ce_bwd_du(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
                     ids_q: torch.Tensor, ids_k: torch.Tensor, pos: torch.Tensor,
                     lse: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Row 6 (``_bwd_du_kernel``): -> dU [Bq, D] fp32, query-major, every
-    candidate tile swept by the block that owns a query tile.
+    """Row 6 (``_bwd_du_kernel``): -> dU [Bq, D] fp32, query-major: the
+    block that owns a query tile sweeps the candidate tiles of its part
+    (:func:`du_plan`; bf16 operands on the tensor cores, fp32 on the FMA
+    units), the parts summed here in a fixed order.
 
     CPU tensors take :func:`flash_ce_bwd_du_reference`; CUDA tensors launch
     the kernel or raise."""
@@ -421,15 +462,18 @@ def flash_ce_bwd_du(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
     if not _on_cuda(u, "flash_ce_bwd_du"):
         return flash_ce_bwd_du_reference(*args)
     bq, d = u.shape
-    du = torch.empty((bq, d), dtype=torch.float32, device=u.device)
+    bf16 = u.dtype == torch.bfloat16
+    p = du_plan(bq, v.shape[0], d, bf16, _sm_count(u.device.index))
+    du_part = torch.empty((p.parts, bq, d), dtype=torch.float32, device=u.device)
+    vec = int(bf16 and d % 8 == 0 and u.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_du_launcher()(*_ptrs(args), bq, v.shape[0], d,
-                                 int(u.dtype == torch.bfloat16), du.data_ptr(), stream)
+        err = _bwd_du_launcher()(*_ptrs(args), bq, v.shape[0], d, int(bf16), p.parts,
+                                 p.tiles_per_part, vec, du_part.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_ce_bwd_du kernel launch failed: cudaError {err}")
     flash_ce_bwd_du.launches += 1
-    return du
+    return du_part[0] if p.parts == 1 else torch.sum(du_part, dim=0)
 
 
 flash_ce_bwd_du.launches = 0

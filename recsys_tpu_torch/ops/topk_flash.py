@@ -299,8 +299,10 @@ flash_topk.launches = 0
 
 # ---- the group-max sieve ---------------------------------------------------
 
-# query rows per block of csrc/blockmax.cu
+# query rows per block of csrc/blockmax.cu: the wide tile (every fp32
+# call, bf16 above BLOCKMAX_TQ_SMALL queries) and the small one
 BLOCKMAX_TQ = 64
+BLOCKMAX_TQ_SMALL = 16
 # pass 2 gathers [rows, kg * g, d] fp32 candidates; at most this many
 # bytes of them exist at once
 _GATHER_CHUNK_BYTES = 1 << 30
@@ -339,15 +341,43 @@ def blockmax_group_max_reference(user_emb: torch.Tensor, item_emb: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _blockmax_launcher():
     fn = _build.load_library().blockmax_group_max
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
 
 def blockmax_groups_per_block(group: int) -> int:
-    """Whole groups per block of the kernel: at least 512 items of work."""
+    """The most whole groups a block of the kernel takes: at least 512
+    items of work."""
     return max(1, 512 // group)
+
+
+class BlockmaxPlan(NamedTuple):
+    """How ``csrc/blockmax.cu`` cuts a call: query tiles of ``tq`` rows
+    (``n_qtiles``), the groups in ``n_chunks`` chunks of
+    ``groups_per_block`` whole groups; block ``b`` takes query tile ``b %
+    n_qtiles`` and chunk ``b // n_qtiles``."""
+    tq: int
+    groups_per_block: int
+    n_qtiles: int
+    n_chunks: int
+
+
+@functools.lru_cache(maxsize=4096)
+def blockmax_plan(q_n: int, n: int, group: int, bf16: bool, n_sm: int) -> BlockmaxPlan:
+    """The kernel's grid on a card of ``n_sm`` SMs. The query tile comes
+    from Q: 16 rows for bf16 operands at Q <= 16 (a 64-row tile would be
+    mostly padding at a served Q = 1), else 64 (the FMA kernel's only
+    tile). Each block takes up to :func:`blockmax_groups_per_block` whole
+    groups, fewer where that would leave fewer than about two blocks per
+    SM."""
+    tq = BLOCKMAX_TQ_SMALL if bf16 and q_n <= BLOCKMAX_TQ_SMALL else BLOCKMAX_TQ
+    n_qt, n_groups = _cdiv(q_n, tq), _cdiv(n, group)
+    gpb = blockmax_groups_per_block(group)
+    while gpb > 1 and n_qt * _cdiv(n_groups, gpb) < 2 * n_sm:
+        gpb -= 1
+    return BlockmaxPlan(tq, gpb, n_qt, _cdiv(n_groups, gpb))
 
 
 def blockmax_group_max(user_emb: torch.Tensor, item_emb: torch.Tensor,
@@ -357,7 +387,9 @@ def blockmax_group_max(user_emb: torch.Tensor, item_emb: torch.Tensor,
     fp32-accumulated dots.
 
     CPU tensors take :func:`blockmax_group_max_reference`; CUDA tensors
-    launch the kernel (one launch per call) or raise."""
+    launch the kernel on :func:`blockmax_plan` (bf16 operands on the
+    tensor cores, d <= 256; fp32 on the FMA units; one launch per call) or
+    raise."""
     if group < 1:
         raise ValueError(f"blockmax_group_max: group must be >= 1, got {group}")
     if user_emb.device.type == "cpu" and item_emb.device.type == "cpu":
@@ -378,15 +410,19 @@ def blockmax_group_max(user_emb: torch.Tensor, item_emb: torch.Tensor,
     n = v.shape[0]
     if n == 0 or d == 0:
         raise ValueError("blockmax_group_max: empty catalog or zero width")
+    bf16 = u.dtype == torch.bfloat16
+    if bf16 and d > 256:
+        raise ValueError(f"blockmax_group_max: bf16 operands need d <= 256, got {d}")
     n_groups = _cdiv(n, group)
     out = torch.empty((q_n, n_groups), dtype=torch.float32, device=dev)
     if q_n:
+        p = blockmax_plan(q_n, n, group, bf16, _sm_count(dev.index))
+        vec = int(bf16 and d % 8 == 0 and u.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             err = _blockmax_launcher()(
-                u.data_ptr(), v.data_ptr(), q_n, n, d, group,
-                blockmax_groups_per_block(group), int(u.dtype == torch.bfloat16),
-                out.data_ptr(), stream)
+                u.data_ptr(), v.data_ptr(), q_n, n, d, group, p.groups_per_block,
+                int(bf16), p.tq, vec, out.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"blockmax_group_max kernel launch failed: cudaError {err}")
         blockmax_group_max.launches += 1

@@ -4,7 +4,13 @@
         [--device cuda|cpu] [--set train.epochs=3 ...]
 
 The flags are those of the JAX package's ``scripts/train.py`` that this
-port honours, with the same defaults; any other flag is an error.
+port honours, with the same names, defaults and mappings, so that one
+argv gives one ``config.json`` in both packages. ``--distributed_strategy``
+is accepted for compat and sets nothing, and ``--global_negatives`` /
+``--per_replica_negatives`` set ``train.global_negatives``, which changes
+nothing on one device. Flags whose modes are not ported yet
+(``--use_dense_features``, ``--negative_sampling``, the mesh flags, ...)
+are errors, as is any other flag.
 ``--set KEY=VALUE`` overrides a dotted config field (the value is parsed
 as JSON, ``true``/``false``/``none`` included, else kept as a string).
 The run writes what the JAX trainer writes: ``config.json``,
@@ -22,9 +28,15 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from recsys_tpu_torch.config import DataConfig, ModelConfig, RecsysConfig, TrainConfig
+from recsys_tpu_torch.config import (DataConfig, EvalConfig, ModelConfig, RecsysConfig,
+                                     TrainConfig)
 
 _RETRIEVAL_LOSS = {"auto": "auto", "xla": False, "flash": True, "chunked": "chunked"}
+# the JAX CLI's defaults for the explicit-negative counts (its dataclass
+# defaults differ); they act only with explicit negatives, not ported yet,
+# and are set so that both CLIs write the same config.json
+_CLI_NUM_HARD_NEGATIVES = 20
+_CLI_NUM_RANDOM_NEGATIVES = 30
 
 
 def parse_overrides(pairs: Sequence[str]) -> dict:
@@ -50,15 +62,21 @@ def build_config(args) -> RecsysConfig:
     cfg = RecsysConfig(
         model=ModelConfig(embedding_dim=args.embedding_dim, cross_layers=args.cross_layers,
                           ctr_weight=args.ctr_weight, rating_weight=args.rating_weight,
+                          mixed_precision=args.bf16,
+                          softmax_temperature=args.softmax_temperature,
                           use_flash_ce=_RETRIEVAL_LOSS[args.retrieval_loss]),
-        data=DataConfig(processed_path=args.data),
+        data=DataConfig(processed_path=args.data,
+                        num_hard_negatives=_CLI_NUM_HARD_NEGATIVES,
+                        num_random_negatives=_CLI_NUM_RANDOM_NEGATIVES),
         train=TrainConfig(batch_size=args.batch_size, learning_rate=args.learning_rate,
-                          epochs=args.epochs, seed=args.seed),
+                          epochs=args.epochs, resume=args.resume, seed=args.seed,
+                          global_negatives=args.global_negatives),
+        eval=EvalConfig(eval_sample=args.eval_sample),
     )
     return cfg.replace(**parse_overrides(args.overrides)) if args.overrides else cfg
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="Train with recsys_tpu_torch")
     ap.add_argument("--data", default=DataConfig().processed_path,
                     help="preprocessed bundle (.npz)")
@@ -70,12 +88,33 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--learning_rate", type=float, default=1e-3)
     ap.add_argument("--ctr_weight", type=float, default=0.2)
     ap.add_argument("--rating_weight", type=float, default=0.2)
+    ap.add_argument("--distributed_strategy", default="mesh",
+                    choices=["none", "mirrored", "multi_worker", "mesh"],
+                    help="accepted for compat; sets nothing")
+    ap.add_argument("--global_negatives", action="store_true", default=True,
+                    help="in-batch candidates span the global batch (default; one "
+                         "device holds the whole batch)")
+    ap.add_argument("--per_replica_negatives", dest="global_negatives",
+                    action="store_false")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the newest checkpoint in --output_dir")
+    ap.add_argument("--bf16", action="store_true", default=True)
+    ap.add_argument("--no-bf16", dest="bf16", action="store_false")
+    ap.add_argument("--eval_sample", type=int, default=0,
+                    help="0 = full-split eval; N = reference-style sampled eval")
+    ap.add_argument("--softmax_temperature", type=float, default=1.0,
+                    help="retrieval in-batch softmax temperature")
     ap.add_argument("--retrieval_loss", default="auto", choices=sorted(_RETRIEVAL_LOSS))
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     dest="overrides", help="dotted config override, e.g. "
                     "--set model.dropout_rate=0.3")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = build_parser()
     args = ap.parse_args(argv)
 
     from recsys_tpu_torch.train.trainer import Trainer

@@ -31,7 +31,7 @@ from recsys_tpu_torch.ops import topk_flash
 from recsys_tpu_torch.ops.topk import blockwise_topk, blockwise_topk_int8, quantize_rows
 from recsys_tpu_torch.ops.topk_flash import (
     NEG_INF, blockmax_group_max, blockmax_group_max_reference, blockmax_group_size,
-    blockmax_groups_per_block, blockmax_topk,
+    blockmax_groups_per_block, blockmax_plan, blockmax_topk,
 )
 from recsys_tpu_torch.retrieval import scorer
 from recsys_tpu_torch.retrieval.scorer import RetrievalIndex, exact_topk
@@ -139,6 +139,34 @@ def test_blockmax_kernel_plan():
         assert gpb >= 1 and (gpb * g >= 512 or gpb == 1)
     with pytest.raises(ValueError):
         blockmax_group_max(torch.zeros(2, 4), torch.zeros(3, 4), 0)
+
+
+@pytest.mark.parametrize("q_n", [1, 17, 64, 4096])
+@pytest.mark.parametrize("group", [128, 384, 512])
+@pytest.mark.parametrize("n", [300, 1000, 1 << 20])
+def test_blockmax_plan_covers_every_query_tile_and_group_once(n, group, q_n):
+    """The tensor-core kernel's grid, checked on the CPU: a 16-row query
+    tile at Q <= 16 and 64 above (fp32 always 64), whole groups per block,
+    and blocks that cover every (query tile, group) exactly once, as the
+    kernel maps block b to query tile b % n_qtiles and chunk b //
+    n_qtiles."""
+    n_sm = 132
+    p = blockmax_plan(q_n, n, group, True, n_sm)
+    assert p.tq == (16 if q_n <= 16 else 64)
+    assert blockmax_plan(q_n, n, group, False, n_sm).tq == 64
+    n_groups = -(-n // group)
+    assert p.n_qtiles * p.tq >= q_n > (p.n_qtiles - 1) * p.tq
+    assert 1 <= p.groups_per_block <= blockmax_groups_per_block(group)
+    blocks = np.arange(p.n_qtiles * p.n_chunks)
+    qt, first = blocks % p.n_qtiles, (blocks // p.n_qtiles) * p.groups_per_block
+    hits = np.zeros((p.n_qtiles, n_groups), np.int64)
+    for j in range(p.groups_per_block):
+        real = first + j < n_groups
+        np.add.at(hits, (qt[real], (first + j)[real]), 1)
+    assert (hits == 1).all()
+    # fewer groups a block only where whole ones would leave the card thin
+    if p.groups_per_block < blockmax_groups_per_block(group):
+        assert p.n_qtiles * -(-n_groups // (p.groups_per_block + 1)) < 2 * n_sm
 
 
 @pytest.mark.parametrize("approx", [False, True])

@@ -191,6 +191,44 @@ def test_bwd_route_counts_the_partials_as_the_tpu_does(bq, bk):
     assert F.bwd_route(bq, bk, d) == route
 
 
+@pytest.mark.parametrize("bq,bk,d,parts", [
+    (8192, 8192, 128, 9),          # 128 query tiles: the candidate sweep in 9 parts
+    (131072, 262144, 128, 1),      # the giant step: 2,048 query tiles, no partials
+    (1000, 3001, 129, 24),         # ragged, two column slices: a part per 2 tiles
+    (1000, 3001, 64, 47),          # a part per candidate tile
+    (64, 10, 32, 1),               # one candidate tile
+])
+def test_du_plan_fills_the_card_under_the_cap(bq, bk, d, parts):
+    """Row 6's tiling for bf16 operands, checked on the CPU: 64-row query
+    tiles and 64-candidate tiles, the candidate sweep split into parts
+    until the grid holds about 8 blocks per SM, every candidate tile in
+    exactly one part, and the dU partials under the cap; fp32 operands keep
+    one part (the FMA kernel)."""
+    n_sm = 132
+    p = F.du_plan(bq, bk, d, True, n_sm)
+    assert (p.tile, p.ktile, p.parts) == (F.DU_TQ, F.DU_TK, parts)
+    n_kt = -(-bk // p.ktile)
+    assert p.parts * p.tiles_per_part >= n_kt > (p.parts - 1) * p.tiles_per_part
+    assert p.partials_bytes(bq, d) <= F._FUSED_BWD_PARTIALS_CAP
+    # at least 4 blocks per SM wherever the tiles allow (whole tiles per
+    # part round the 8 down)
+    q_blocks = -(-bq // p.tile) * (2 if d > 128 else 1)
+    assert q_blocks * p.parts >= min(4 * n_sm, q_blocks * n_kt)
+    fp32 = F.du_plan(bq, bk, d, False, n_sm)
+    assert fp32.parts == 1 and fp32.partials_bytes(bq, d) == 0
+    assert fp32.tiles_per_part * fp32.ktile >= bk
+
+
+def test_du_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
+    """With room for only two dU partials the plan takes two parts, each
+    sweeping half the candidate tiles."""
+    bq, bk, d = 8192, 8192, 128
+    monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 2 * 4 * bq * d)
+    p = F.du_plan(bq, bk, d, True, 132)
+    assert (p.parts, p.tiles_per_part) == (2, 64)
+    assert p.partials_bytes(bq, d) <= F._FUSED_BWD_PARTIALS_CAP
+
+
 # ---- sparse optimizer functions ------------------------------------------
 
 def _dup_ids(rng, b, n):

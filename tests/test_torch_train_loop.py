@@ -1,6 +1,7 @@
 """The port's training loop against the JAX package's, on the CPU: the
 dense train step over 20 steps, the offline evaluator, ``Trainer.train``
-end to end (its serving bundle served by both packages), the CLI, the
+end to end (its serving bundle served by both packages), the CLI (its
+config against the JAX CLI's for one argv, ``--resume``), the
 preemption checkpoint and resume, and the modes that are not ported.
 
 Tolerances:
@@ -17,6 +18,8 @@ Tolerances:
   ids, so equal ranking metrics (rtol 1e-6); RMSE and AUC to rtol 1e-5.
 """
 
+import argparse
+import csv
 import json
 import os
 import signal
@@ -36,6 +39,7 @@ from recsys_tpu.retrieval.evaluator import evaluate as jax_evaluate
 from recsys_tpu.retrieval.evaluator import two_stage_evaluate as jax_two_stage_evaluate
 from recsys_tpu.serve.service import RecommendationService as JaxService
 from recsys_tpu.train.trainer import Trainer as JaxTrainer
+from scripts import train as jax_cli
 from recsys_tpu_torch.config import (DataConfig, EvalConfig, MeshConfig, ModelConfig,
                                      RecsysConfig, TrainConfig)
 from recsys_tpu_torch.retrieval import evaluator
@@ -274,3 +278,80 @@ def test_cli_trains_on_the_cpu_and_rejects_other_flags(tiny_bundle, tmp_path, ca
     with pytest.raises(SystemExit):
         cli.main(["--data", data, "--set", "train.no_such_field=1"])
     assert "no_such_field" in capsys.readouterr().err
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _jax_cli_args(argv, monkeypatch) -> argparse.Namespace:
+    """The namespace that ``scripts/train.py``'s parser makes of ``argv``
+    (its ``main`` stops right after parsing)."""
+    parse = argparse.ArgumentParser.parse_args
+    got = {}
+
+    def parse_and_stop(self, args=None, namespace=None):
+        got["ns"] = parse(self, args, namespace)
+        raise _Parsed
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", parse_and_stop)
+        with pytest.raises(_Parsed):
+            jax_cli.main(argv)
+    return got["ns"]
+
+
+_SHARED_ARGVS = {
+    "defaults": ["--data", "x.npz"],
+    "every new flag": ["--data", "x.npz", "--resume", "--no-bf16", "--eval_sample", "100",
+                       "--softmax_temperature", "0.5", "--distributed_strategy", "mesh",
+                       "--per_replica_negatives"],
+    "bf16, global negatives": ["--bf16", "--global_negatives", "--distributed_strategy",
+                               "mirrored", "--eval_sample", "0", "--softmax_temperature",
+                               "0.07", "--embedding_dim", "32", "--retrieval_loss", "flash",
+                               "--batch_size", "512"],
+    "last flag wins": ["--no-bf16", "--bf16", "--per_replica_negatives", "--global_negatives",
+                       "--per_replica_negatives", "--distributed_strategy", "none",
+                       "--eval_sample", "5000", "--resume", "--seed", "7"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SHARED_ARGVS))
+def test_cli_config_matches_the_jax_cli(name, monkeypatch):
+    """One argv that both CLIs accept gives one config.json: the flags'
+    names, defaults and mappings are the JAX CLI's."""
+    argv = _SHARED_ARGVS[name]
+    want = jax_cli.build_config(_jax_cli_args(argv, monkeypatch)).to_json()
+    assert cli.build_config(cli.build_parser().parse_args(argv)).to_json() == want
+
+
+def test_cli_resume_reaches_the_trainer_and_unported_flags_stay_errors(tiny_bundle, tmp_path):
+    """``--resume`` continues the run in ``--output_dir`` from its newest
+    checkpoint (the second run trains only the epoch the first left), and
+    a flag whose mode is not ported is still refused."""
+    data = str(tmp_path / "bundle.npz")
+    np.savez(data, **tiny_bundle)
+    out = str(tmp_path / "run")
+    argv = ["--data", data, "--output_dir", out, "--embedding_dim", "16", "--cross_layers",
+            "1", "--batch_size", "256", "--no-bf16", "--eval_sample", "100",
+            "--softmax_temperature", "0.5", "--per_replica_negatives", "--device", "cpu",
+            "--set", "model.user_tower_dims=[16]", "--set", "model.item_tower_dims=[16]"]
+
+    def epochs_logged():
+        with open(os.path.join(out, "training_log.csv")) as f:
+            return [int(float(row["epoch"])) for row in csv.DictReader(f)]
+
+    assert cli.main(argv + ["--epochs", "1"]) == 0
+    assert epochs_logged() == [0]
+    assert cli.main(argv + ["--epochs", "2", "--resume"]) == 0
+    assert epochs_logged() == [1]
+    with open(os.path.join(out, "config.json")) as f:
+        saved = json.load(f)
+    assert saved["train"]["resume"] is True and saved["train"]["global_negatives"] is False
+    assert saved["model"]["mixed_precision"] is False
+    assert saved["model"]["softmax_temperature"] == 0.5
+    assert saved["eval"]["eval_sample"] == 100
+    with open(os.path.join(out, "metrics.json")) as f:
+        assert json.load(f)["epochs_run"] == 2
+    with pytest.raises(SystemExit):
+        cli.main(["--data", data, "--use_dense_features"])
