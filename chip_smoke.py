@@ -26,9 +26,12 @@
    items with Zipf-skewed popularity, 200,000 train and 25,000 val rows,
    from ``SEED``) through ``Trainer(..., device="cuda").train`` at the
    full-width ``ModelConfig`` defaults, batch 8,192, 2 epochs (the
-   "auto" policy takes the flash CE kernels there), with the launch
-   counters set to 0 just before and read just after; checks the losses,
-   the artifacts and that every training kernel launched;
+   "auto" policy takes the flash CE kernels there, on bf16 operands: the
+   forward and rows 6 and 7), with the launch counters set to 0 just
+   before and read just after; checks the losses, the artifacts and that
+   every training kernel launched; then one epoch with fp32 retrieval
+   operands (``mixed_precision=False, bf16_retrieval_logits=False``),
+   whose backward is the fused kernel;
 9. serves the trained bundle through phase 4's requests;
 10. trains 3 steps of 8,192 rows from one full-width init (dropout 0) on
     the card and, through the plain versions, on the CPU, and compares
@@ -65,12 +68,20 @@
     1,000 x 3,001, D = 129, fp32, and at the edges of row 6's tensor-core
     path (bf16 at D in {32, 64, 128, 129, 256}, ragged Bq and Bk), checks
     that two calls of row 6 give the same bits, and times them at 8,192
-    bf16 as in phase 6;
+    bf16 as in phase 6; holds the tensor-core kernels of rows 4 and 7
+    against their plain versions at their edges (D in {24, 32, 64, 128,
+    129, 256}, Bq and Bk not multiples of 16 or 64, one candidate, a
+    positive column in the forward's last part, rows whose every other
+    candidate is an accidental hit) and checks that two calls of each give
+    the same bits;
 17. above the partials cap (Bq = 131,072, Bk = 262,144, D = 128, bf16):
     the route is the two-kernel one; the forward, rows 6 and 7 and the
     fused kernel agree with their plain versions (chunked over query rows,
-    ~1 GiB of logits at a time) and the two routes with each other; both
-    routes are timed beside each kernel's device time and bound;
+    ~1 GiB of logits at a time) and the two routes with each other; the
+    forward and rows 6 and 7 are timed beside their device time and bound;
+    then both routes are timed in turns, with their peak memory, at the
+    ``ROUTE_SHAPES`` under and above the cap (the table behind
+    ``flash_ce.bwd_route``);
 18. trains the giant-table configuration through ``Trainer.train``: the
     full-width ``ModelConfig``, 4,000,000 users x 2,000,000 items (the
     tables of ``benchmarks/results/scale.json``'s ``"train"`` row),
@@ -84,9 +95,9 @@
 19. profiles whole steps of that configuration (device ms by kernel,
     launches, busy share, the sparse update's span);
 20. runs 3 steps of a small-width model (embedding 32, tables of 5,000 x
-    3,000, B = 2,048, cache 6,144, sparse adagrad, the cap lowered so the
-    card takes rows 6 and 7) on the card and through the plain versions
-    on the CPU, and compares them as phase 10 does;
+    3,000, B = 2,048, cache 6,144, sparse adagrad; bf16 operands, so rows
+    6 and 7) on the card and through the plain versions on the CPU, and
+    compares them as phase 10 does;
 21. times a step of the scale.json ``"train"`` row itself (dim 64, B =
     4,096) with adagrad and adam, sparse (lazy Adam) and dense;
 22. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
@@ -101,8 +112,8 @@ times kernel rows 1, 4, 5, 6, 7 and 8 of an unpacked checkout of
 another commit (``git archive <commit> | tar -x -C PARENT_DIR``) and of
 this tree in turns on one card (parent, this, this, parent; a process
 each, every tree built from its own sources) at the shapes of the
-``AB_*_SHAPES`` lists, beside the library yardsticks of rows 6 and 8, and
-prints one JSON line per run.
+``AB_*_SHAPES`` lists, beside the library yardsticks of rows 4, 6, 7 and
+8, and prints one JSON line per run.
 """
 
 from __future__ import annotations
@@ -176,6 +187,12 @@ GIANT_BATCH = GIANT_CACHE = 131_072
 GIANT_STEPS = 8
 GIANT_VAL = 65_536
 ABOVE_CAP = (131_072, 262_144, 128)
+# the backward's two routes, bf16, D = 128: (Bq, Bk) under the TPU's
+# partials cap (4,096 x 20,480: a batch with a 4-batch CBNS cache;
+# 131,072 x 147,456: exactly at it), then above it (20,000^2 passes it
+# through the TPU's 32-wide tile, the others through their width)
+ROUTE_SHAPES = [(4096, 20_480), (8192, 8192), (16_384, 16_384), (32_768, 32_768),
+                (131_072, 147_456), (20_000, 20_000), (65_536, 327_680), ABOVE_CAP[:2]]
 # the scale.json "train" row itself: dim 64, B = 4,096
 SCALE_ROW_DIM, SCALE_ROW_BATCH = 64, 4096
 
@@ -550,9 +567,11 @@ def synthetic_bundle(seed: int) -> dict:
     return bundle
 
 
-def train_main_path(bundle: dict, counters, out_dir: str) -> dict:
-    """Phase 8: ``Trainer.train`` on the card at the full-width defaults,
-    every kernel counter set to 0 just before and read just after."""
+def train_main_path(bundle: dict, counters, out_dir: str, epochs: int = TRAIN_EPOCHS,
+                    **model_kw) -> dict:
+    """Phase 8: ``Trainer.train`` on the card at the full-width defaults
+    (``model_kw`` overrides ``ModelConfig`` fields), every kernel counter
+    set to 0 just before and read just after."""
     import json as _json
     import math
 
@@ -560,8 +579,8 @@ def train_main_path(bundle: dict, counters, out_dir: str) -> dict:
     from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
     from recsys_tpu_torch.train.trainer import Trainer
 
-    cfg = RecsysConfig(model=ModelConfig(),
-                       train=TrainConfig(batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS))
+    cfg = RecsysConfig(model=ModelConfig(**model_kw),
+                       train=TrainConfig(batch_size=TRAIN_BATCH, epochs=epochs))
     trainer = Trainer(cfg, out_dir, device="cuda")
     for c in counters:
         c.reset()
@@ -572,11 +591,11 @@ def train_main_path(bundle: dict, counters, out_dir: str) -> dict:
     launches = {c.name: c.read() for c in counters}
     with open(os.path.join(out_dir, "detailed_metrics.json")) as f:
         hist = _json.load(f)["epochs"]
-    check(len(hist) == TRAIN_EPOCHS, f"train: {len(hist)} epochs logged")
+    check(len(hist) == epochs, f"train: {len(hist)} epochs logged")
     for e in hist:
         for k in ("train_loss", "val_loss", "train_retrieval_loss"):
             check(math.isfinite(e[k]), f"train: epoch {e['epoch']} {k} = {e[k]}")
-    check(hist[-1]["train_loss"] < hist[0]["train_loss"],
+    check(epochs == 1 or hist[-1]["train_loss"] < hist[0]["train_loss"],
           f"train: loss did not fall ({hist[0]['train_loss']} -> {hist[-1]['train_loss']})")
     for rel in ("metrics.json", "training_log.csv", "config.json", "serving/model.npz",
                 "serving/encoder.npz", "serving/index.npz", "serving/vocabs.json",
@@ -584,7 +603,7 @@ def train_main_path(bundle: dict, counters, out_dir: str) -> dict:
         check(os.path.exists(os.path.join(out_dir, rel)), f"train: {rel} missing")
     ckpts = [n for n in os.listdir(os.path.join(out_dir, "checkpoints"))
              if n.startswith("ckpt_")]
-    check(len(ckpts) == TRAIN_EPOCHS, f"train: checkpoints {ckpts}")
+    check(len(ckpts) == epochs, f"train: checkpoints {ckpts}")
     check(math.isfinite(report["recall@10"]) and 0.0 <= report["recall@10"] <= 1.0,
           f"train: recall@10 {report['recall@10']}")
     steps = N_TRAIN // TRAIN_BATCH
@@ -811,7 +830,8 @@ def measure_flash(bundle: dict, b: int, dtype, iters: int, sm_clock_mhz: float) 
             plain = lambda: F.flash_ce_fwd_reference(u, v, c, ids, ids, pos)
             library = lambda: torch.logsumexp(torch.matmul(u, v.T) + c, dim=1)
             n_bytes = 2 * b * d * elt + 4 * b * 4 + 8 * b
-            n_ops, name = 2.0 * b * b * d, "flash_ce_fwd_kernel"
+            # the FMA kernel (fp32) or the tensor-core kernel and its combine
+            n_ops, name = 2.0 * b * b * d, "flash_ce_fwd_"
             err, rel = errs["fwd_abs"], errs["fwd_rel"]
         else:
             kernel = lambda: F.flash_ce_bwd_fused(u, v, c, ids, ids, pos, lse, gr)
@@ -1311,6 +1331,61 @@ def check_twokernel(u, v, c, ids_q, ids_k, pos, g) -> dict:
             "rel": dict(zip(("dU", "dV", "dcol"), rel_err)), "args": args}
 
 
+def check_fwd_dv_edges() -> list:
+    """Rows 4 and 7 of bf16 operands (the tensor-core kernels) against
+    their plain versions at their edges: D in {24, 32, 64, 128, 129, 256}
+    (padded widths, two column slices of dV past 128, element-wise loads
+    where D % 8 != 0), Bq and Bk not multiples of 16 or 64, one candidate,
+    row 0's positive column in the forward's last candidate part, and
+    (every other shape) a third of the rows whose every candidate but the
+    positive is an accidental hit: lse, the positive logit and dcol within
+    FLASH_TOL of max|ref|, dV within FLASH_BF16_GRAD_TOL; two calls of each
+    give the same bits. -> errors and plans per shape."""
+    import torch
+    from recsys_tpu_torch.ops import flash_ce as F
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for i, (bq, bk, d) in enumerate(((50, 70, 32), (130, 4097, 24), (1000, 3001, 64),
+                                     (777, 2050, 128), (1000, 3001, 129), (300, 1100, 256),
+                                     (65, 1, 64), (8192, 8192, 128))):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 30 + i)
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+        n_ids = max(2, bk // 3)
+        ints = lambda n: torch.randint(0, n_ids, (n,), generator=gen, device="cuda",
+                                       dtype=torch.int32)
+        u, v = (rnd(bq, d) * d ** -0.5).bfloat16(), (rnd(bk, d) * d ** -0.5).bfloat16()
+        c, ids_q, ids_k, gr = rnd(bk), ints(bq), ints(bk), rnd(bq) / bq
+        pos = torch.arange(bq, device="cuda", dtype=torch.int32) % bk
+        pos[0] = bk - 1
+        if i % 2:
+            ids_k.fill_(n_ids)
+            ids_q[::3] = n_ids
+        what = f"rows 4/7 edge Bq={bq} Bk={bk} D={d} bf16"
+        fwd = [F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos) for _ in range(2)]
+        torch.cuda.synchronize()
+        ref_lse, ref_pos = F.flash_ce_fwd_reference(u, v, c, ids_q, ids_k, pos)
+        fwd_abs, fwd_rel = _errs(fwd[0], (ref_lse, ref_pos))
+        check(all(bool(torch.isfinite(t).all()) for t in fwd[0]), f"{what}: non-finite forward")
+        check(max(fwd_rel) <= FLASH_TOL, f"{what}: forward err {fwd_rel} > {FLASH_TOL}")
+        check(all(bool(torch.equal(a, b)) for a, b in zip(*fwd)), f"{what}: two forwards differ")
+        args = (u, v, c, ids_q, ids_k, pos, ref_lse, gr)
+        dv = [F.flash_ce_bwd_dv(*args) for _ in range(2)]
+        torch.cuda.synchronize()
+        dv_abs, dv_rel = _errs(dv[0], F.flash_ce_bwd_dv_reference(*args))
+        check(all(bool(torch.isfinite(t).all()) for t in dv[0]), f"{what}: non-finite dV")
+        check(dv_rel[0] <= FLASH_BF16_GRAD_TOL and dv_rel[1] <= FLASH_TOL,
+              f"{what}: dV, dcol err {dv_rel}")
+        check(all(bool(torch.equal(a, b)) for a, b in zip(*dv)), f"{what}: two row 7 calls differ")
+        out.append({"Bq": bq, "Bk": bk, "D": d, "all_accidental_rows": bool(i % 2),
+                    "fwd_parts": F.fwd_plan(bq, bk, True, n_sm).parts,
+                    "dv_parts": F.dv_plan(bq, bk, d, True, n_sm).parts,
+                    "fwd_rel": dict(zip(("lse", "pos_logit"), fwd_rel)),
+                    "dv_rel": dict(zip(("dV", "dcol"), dv_rel))})
+        del fwd, dv, args, u, v
+    return out
+
+
 def _flash_args(bq: int, bk: int, d: int, dtype, seed: int, n_ids: int) -> tuple:
     """Seeded backward inputs: rows scaled by D**-0.5, ids from ``n_ids``
     (accidental hits), positives in the first Bq columns, ``g`` the
@@ -1365,7 +1440,8 @@ def twokernel_rows(args, iters: int, exp_rate: float, plain: bool) -> tuple:
                 p = probs()
                 return p.to(u.dtype).T @ u, p.sum(dim=0)
 
-            n_bytes, name = in_bytes + 4 * (bk * d + bk), "flash_ce_bwd_dv_kernel"
+            # both row 7 kernels: flash_ce_bwd_dv_kernel (fp32) and _tc_kernel
+            n_bytes, name = in_bytes + 4 * (bk * d + bk), "flash_ce_bwd_dv_"
         n_ops = 4.0 * bq * bk * d
         b_ms, b_by = bound_ms(n_bytes, n_ops, flops, n_exp=float(bq) * bk, exp_per_s=exp_rate)
         warm = 2 if plain else 0
@@ -1382,14 +1458,48 @@ def twokernel_rows(args, iters: int, exp_rate: float, plain: bool) -> tuple:
     return rows[0], rows[1]
 
 
+def time_routes() -> list:
+    """Phase 17's route table: the fused backward and the two-kernel one
+    (rows 6 + 7 with their parts' sums), bf16, D = 128, at ROUTE_SHAPES,
+    timed in turns (fused, two-kernel, two-kernel, fused: CUDA events), each
+    with the device memory it allocates beyond its inputs (peak)."""
+    import torch
+    from recsys_tpu_torch.ops import flash_ce as F
+
+    rows = []
+    for bq, bk in ROUTE_SHAPES:
+        u, v, c, ids_q, ids_k, pos, gr = _flash_args(bq, bk, 128, torch.bfloat16, SEED + 22,
+                                                     n_ids=max(2, bk // 3))
+        lse, _ = F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos)
+        args = (u, v, c, ids_q, ids_k, pos, lse, gr)
+        iters = 10 if bq * bk <= 1 << 30 else 2
+        row = {"Bq": bq, "Bk": bk, "D": 128, "tpu_route": F.bwd_route(bq, bk, 128),
+               "tpu_partials_gb": F.fused_bwd_partials_bytes(bq, bk, 128) / 1e9,
+               "fused_ms": [], "twokernel_ms": []}
+        for name in ("fused", "twokernel", "twokernel", "fused"):
+            fn = getattr(F, f"flash_ce_bwd_{name}")
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            row[f"{name}_ms"].append(time_ms(lambda: fn(*args), iters, warmup=1))
+            row[f"{name}_peak_extra_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        rows.append(row)
+        log(f"route {json.dumps(row)}")
+        del u, v, args, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
 def twokernel_phases(sm_clock_mhz: float) -> dict:
     """Phases 16 and 17: rows 6 and 7 against their plain versions at the
-    main path's shape and three more, timed at Bq = Bk = 8,192 bf16; then
-    above the partials cap (131,072 x 262,144, D = 128, bf16): the route
-    is the two-kernel one; the forward, rows 6 and 7 and the fused kernel
-    agree with their plain versions (which form ~1 GiB of logits at a
-    time) and the two routes with each other; each kernel timed, its
-    device time beside its bound."""
+    main path's shape and more, timed at Bq = Bk = 8,192 bf16, and rows 4
+    and 7 at the edges of their tensor-core kernels
+    (:func:`check_fwd_dv_edges`); then above the partials cap (131,072 x
+    262,144, D = 128, bf16): the route is the two-kernel one; the forward,
+    rows 6 and 7 and the fused kernel agree with their plain versions
+    (which form ~1 GiB of logits at a time) and the two routes with each
+    other; each kernel timed, its device time beside its bound; last the
+    route table (:func:`time_routes`)."""
     import torch
     from recsys_tpu_torch.ops import flash_ce as F
 
@@ -1418,9 +1528,11 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
             out["main"][1]["max_abs_err"] = max(res["abs"]["dV"], res["abs"]["dcol"])
         del res
     log(f"rows 6 and 7 agree with their plain versions: {json.dumps(out['checks'])}")
+    out["fwd_dv_edges"] = check_fwd_dv_edges()
+    log(f"rows 4 and 7 (tensor cores) agree at their edges: {json.dumps(out['fwd_dv_edges'])}")
 
     bq, bk, d = ABOVE_CAP
-    route = F.bwd_route(bq, bk, d)
+    route = F.bwd_route(bq, bk, d, True)
     check(route == "twokernel", f"{bq} x {bk}: route {route}, want twokernel")
     u, v, c, ids_q, ids_k, pos, gr = _flash_args(bq, bk, d, torch.bfloat16, SEED + 13,
                                                  n_ids=GIANT_ITEMS)
@@ -1432,6 +1544,16 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
     check(bool(torch.isfinite(lse).all()), f"{what}: non-finite lse")
     check(max(fwd_rel) <= FLASH_TOL, f"{what}: forward err {fwd_rel} > {FLASH_TOL}")
     del lse, pos_logit, ref_pos
+    fwd = lambda: F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos)
+    n_ops = 2.0 * bq * bk * d
+    b_ms, b_by = bound_ms((bq + bk) * d * 2 + 4 * (2 * bk + 4 * bq), n_ops, BF16_FLOPS,
+                          n_exp=float(bq) * bk, exp_per_s=exp_rate)
+    ms = time_ms(fwd, 2, 1)
+    dev_ms, dev_kernel_ms = device_ms(fwd, 1, kernel="flash_ce_fwd_")
+    out["above_fwd"] = {"shape": {"Bq": bq, "Bk": bk, "D": d, "dtype": "bfloat16"},
+                        "max_abs_err": fwd_abs, "ms": ms, "tflops": n_ops / ms / 1e9,
+                        "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+                        "device_ms": dev_ms, "kernel_device_ms": dev_kernel_ms}
     args = (u, v, c, ids_q, ids_k, pos, ref_lse, gr)
     two = F.flash_ce_bwd_twokernel(*args)
     fused = F.flash_ce_bwd_fused(*args)
@@ -1457,11 +1579,7 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
              "fused_plan": F.bwd_plan(bq, bk, d, True, torch.cuda.get_device_properties(0)
                                       .multi_processor_count)._asdict(),
              "fwd_vs_plain": {"abs": fwd_abs, "rel": dict(zip(("lse", "pos_logit"), fwd_rel))},
-             **errs,
-             "twokernel_ms": time_ms(lambda: F.flash_ce_bwd_twokernel(*args), 1, 0),
-             "fused_ms": time_ms(lambda: F.flash_ce_bwd_fused(*args), 1, 0),
-             "fused_device_ms": device_ms(lambda: F.flash_ce_bwd_fused(*args), 1,
-                                          kernel="flash_ce_bwd_tc_kernel")}
+             **errs}
     torch.cuda.empty_cache()
     out["above"] = twokernel_rows(args, 1, exp_rate, plain=False)
     two_abs = errs["two-kernel vs plain"]["abs"]
@@ -1472,6 +1590,7 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
     log(f"above the cap: {json.dumps(above)}")
     del args, u, v
     torch.cuda.empty_cache()
+    out["routes"] = time_routes()
     return out
 
 
@@ -1574,7 +1693,7 @@ def train_giant(bundle: dict, counters, out_dir: str) -> dict:
     for name in ("flash_ce_bwd_du", "flash_ce_bwd_dv"):
         check(launches[name] == GIANT_STEPS,
               f"giant: {name} launched {launches[name]} times in {GIANT_STEPS} steps")
-    check(launches["flash_ce_bwd_fused"] == 0, "giant: the fused backward ran above the cap")
+    check(launches["flash_ce_bwd_fused"] == 0, "giant: the fused backward ran on bf16 operands")
     check(launches["flash_ce_fwd"] >= GIANT_STEPS, "giant: the flash forward did not run")
     extras = trainer.final_state.extras
     check(torch.equal(extras["ids"], last_ids[0].to(extras["ids"].dtype)),
@@ -1621,9 +1740,9 @@ def profile_giant_step(trainer, bundle: dict) -> dict:
         holder[0], _ = step(holder[0], batches[holder[0].step % 2])
 
     row = profile_call("train_step_giant", one, n_wall=3, n_traced=2, warmup=1,
-                       groups={"flash_fwd": "flash_ce_fwd_kernel",
+                       groups={"flash_fwd": "flash_ce_fwd_",
                                "row6_du": "flash_ce_bwd_du_",
-                               "row7_dv": "flash_ce_bwd_dv_kernel"})
+                               "row7_dv": "flash_ce_bwd_dv_"})
     torch.cuda.synchronize()
     row["sparse_update_span_ms"] = float(np.median([s.elapsed_time(e) for s, e in spans]))
     launches = row["group_launches"]
@@ -1634,10 +1753,10 @@ def profile_giant_step(trainer, bundle: dict) -> dict:
 
 def card_vs_cpu_scale(tmp: str) -> dict:
     """Phase 20: 3 steps of a small-width model (embedding 32, tables of
-    5,000 x 3,000) at B = 2,048 with a 6,144-row cache and sparse adagrad,
-    the partials cap lowered so the card takes rows 6 and 7 (restored
-    after), on the card through the kernels and on the CPU through the
-    plain versions, from one init, on the same batches."""
+    5,000 x 3,000) at B = 2,048 with a 6,144-row cache and sparse adagrad
+    (8,192 candidates: bf16 operands, so rows 6 and 7), on the card through
+    the kernels and on the CPU through the plain versions, from one init,
+    on the same batches."""
     import numpy as np
     import torch
     from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
@@ -1664,27 +1783,22 @@ def card_vs_cpu_scale(tmp: str) -> dict:
              "train/movie_id": rng.choice(n_items, rows, p=pop).astype(np.int32),
              "train/rating": rating, "train/y_implicit": (rating >= 4).astype(np.float32)}
     cw = balanced_class_weights(small["train/y_implicit"])
-    cap = F._FUSED_BWD_PARTIALS_CAP
-    F._FUSED_BWD_PARTIALS_CAP = F.fused_bwd_partials_bytes(b, b + cache, 32) - 1
+    check(F.bwd_route(b, b + cache, 32, True) == "twokernel", "card vs CPU: not on rows 6 and 7")
     runs = {}
-    try:
-        check(F.bwd_route(b, b + cache, 32) == "twokernel", "card vs CPU: not on rows 6 and 7")
-        for device in ("cuda", "cpu"):
-            F.flash_ce_bwd_du.launches = F.flash_ce_bwd_dv.launches = 0
-            tr = Trainer(cfg, os.path.join(tmp, f"scale_parity_{device}"), device=device)
-            state = tr.state_from_params(params_from_numpy(init, device), SEED)
-            step = tr.make_train_step(cw)
-            loss = []
-            for batch in _batches(small, PARITY_STEPS, b, device, _log_q(small)):
-                state, m = step(state, batch)
-                loss.append(float(m["loss"]))
-            runs[device] = {
-                "loss": loss, "steps": dict(tr.step_counts),
-                "launches": (F.flash_ce_bwd_du.launches, F.flash_ce_bwd_dv.launches),
-                "params": dict(leaves_with_paths(params_to_numpy(state.params))),
-                "cache_ids": state.extras["ids"].cpu().numpy()}
-    finally:
-        F._FUSED_BWD_PARTIALS_CAP = cap
+    for device in ("cuda", "cpu"):
+        F.flash_ce_bwd_du.launches = F.flash_ce_bwd_dv.launches = 0
+        tr = Trainer(cfg, os.path.join(tmp, f"scale_parity_{device}"), device=device)
+        state = tr.state_from_params(params_from_numpy(init, device), SEED)
+        step = tr.make_train_step(cw)
+        loss = []
+        for batch in _batches(small, PARITY_STEPS, b, device, _log_q(small)):
+            state, m = step(state, batch)
+            loss.append(float(m["loss"]))
+        runs[device] = {
+            "loss": loss, "steps": dict(tr.step_counts),
+            "launches": (F.flash_ce_bwd_du.launches, F.flash_ce_bwd_dv.launches),
+            "params": dict(leaves_with_paths(params_to_numpy(state.params))),
+            "cache_ids": state.extras["ids"].cpu().numpy()}
     gpu, cpu = runs["cuda"], runs["cpu"]
     check(gpu["launches"] == (PARITY_STEPS, PARITY_STEPS) and cpu["launches"] == (0, 0),
           f"card vs CPU: rows 6/7 launches {gpu['launches']} (card), {cpu['launches']} (CPU)")
@@ -1857,12 +1971,13 @@ def main() -> int:
         log(f"trained the main path in {time.perf_counter() - t0:.1f} s: "
             f"{json.dumps(trained)}")
         train_launches = trained["launches"]
-        for name in ("flash_ce_fwd", "flash_ce_bwd_fused", "dcn_cross_bwd", "dcn_cross",
-                     "topk_flash"):
+        # bf16 operands ("auto" from 8,192 candidates): rows 4, 6 and 7
+        for name in ("flash_ce_fwd", "flash_ce_bwd_du", "flash_ce_bwd_dv", "dcn_cross_bwd",
+                     "dcn_cross", "topk_flash"):
             check(train_launches[name] > 0, f"{name} never launched while training")
         check(train_launches["topk_scores"] == 0, "the dense k > 256 path ran in training")
-        check(train_launches["flash_ce_bwd_du"] == train_launches["flash_ce_bwd_dv"] == 0,
-              "the two-kernel backward ran under the partials cap")
+        check(train_launches["flash_ce_bwd_fused"] == 0,
+              "the fused backward ran on bf16 operands")
         t0 = time.perf_counter()
         served_trained = serve_main_path(os.path.join(run_dir, "serving"), counters)
         log(f"served the trained bundle in {time.perf_counter() - t0:.1f} s: "
@@ -1870,6 +1985,17 @@ def main() -> int:
         check(served_trained["launches"]["topk_flash"] > 0
               and served_trained["launches"]["dcn_cross"] > 0,
               "the trained bundle was not served through the kernels")
+        with tempfile.TemporaryDirectory() as fp32_dir:
+            # fp32 retrieval operands (the train CLI's --no-bf16 with
+            # bf16_retrieval_logits=false): the fused backward, under the cap
+            fp32_trained = train_main_path(bundle_np, counters, fp32_dir, epochs=1,
+                                           mixed_precision=False, bf16_retrieval_logits=False)
+        log(f"trained one epoch with fp32 retrieval operands: {json.dumps(fp32_trained)}")
+        fp32_launches = fp32_trained["launches"]
+        check(fp32_launches["flash_ce_bwd_fused"] > 0 and fp32_launches["flash_ce_fwd"] > 0,
+              f"fp32 retrieval operands: flash launches {fp32_launches}")
+        check(fp32_launches["flash_ce_bwd_du"] == fp32_launches["flash_ce_bwd_dv"] == 0,
+              "fp32 retrieval operands took the two-kernel backward under the cap")
         parity = train_parity(bundle_np, run_dir)
         log(f"train parity, card kernels vs CPU plain versions: {json.dumps(parity)}")
         cli_eval = evaluate_cli(repo, run_dir, bundle_np)
@@ -1951,7 +2077,8 @@ def main() -> int:
     main_topk = next(r for r in topk_rows
                      if r["shape"] == {"Q": BATCH_USERS, "N": N_ITEMS, "d": 128, "k": RERANK})
     main_dcn = dcn_rows[-1]
-    main_fwd, main_bwd = flash_rows[(TRAIN_BATCH, torch.bfloat16)]
+    main_fwd = flash_rows[(TRAIN_BATCH, torch.bfloat16)][0]
+    main_bwd = flash_rows[(TRAIN_BATCH, torch.float32)][1]  # the fused kernel's path: fp32
     main_dcn_bwd = dcn_bwd_rows[-1]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     speed = ("tflops", "bound_share", "device_ms", "kernel_device_ms", "plain_device_ms")
@@ -1978,13 +2105,19 @@ def main() -> int:
         {"name": "flash_ce_fwd", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/flash_ce.cu",
          "replaces": "recsys_tpu/ops/pallas/flash_ce.py:114",
-         "launches": train_launches["flash_ce_fwd"], **{k: main_fwd[k] for k in keys},
-         "shape": main_fwd["shape"], "shapes": [r[0] for r in flash_rows.values()]},
+         "launches": train_launches["flash_ce_fwd"], **{k: main_fwd[k] for k in keys + speed},
+         "kernel": "flash_ce_fwd_tc_kernel + flash_ce_fwd_combine_kernel (bf16, mma.sync); "
+                   "flash_ce_fwd_kernel serves fp32",
+         "new_kernel": True, "launches_giant": giant_launches["flash_ce_fwd"],
+         "shape": main_fwd["shape"],
+         "shapes": [r[0] for r in flash_rows.values()] + [twokernel["above_fwd"]]},
         {"name": "flash_ce_bwd_fused", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/flash_ce.cu",
          "replaces": "recsys_tpu/ops/pallas/flash_ce.py:250",
-         "launches": train_launches["flash_ce_bwd_fused"],
+         "launches": fp32_launches["flash_ce_bwd_fused"],
          **{k: main_bwd[k] for k in keys + speed},
+         "kernel": "flash_ce_bwd_kernel (fp32; the bf16 route takes rows 6 + 7); "
+                   "flash_ce_bwd_tc_kernel (bf16, mma.sync) is timed beside it",
          "shape": main_bwd["shape"], "shapes": [r[1] for r in flash_rows.values()]},
         {"name": "blockmax", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/blockmax.cu",
@@ -1992,7 +2125,6 @@ def main() -> int:
          "launches": approx_launches["blockmax"],
          **{k: blockmax_rows[1][k] for k in keys + speed},
          "kernel": "blockmax_tc_kernel (bf16, mma.sync); blockmax_kernel serves fp32",
-         "new_kernel": True,
          "shape": blockmax_rows[1]["shape"], "shapes": blockmax_rows},
     ]
     for i, (name, line) in enumerate((("flash_ce_bwd_du", 188), ("flash_ce_bwd_dv", 218))):
@@ -2001,9 +2133,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "recsys_tpu_torch/csrc/flash_ce.cu",
             "replaces": f"recsys_tpu/ops/pallas/flash_ce.py:{line}",
             "launches": giant_launches[name], **{k: main_row[k] for k in keys + speed},
+            "launches_train": train_launches[name],
             "shape": main_row["shape"], "shapes": [main_row, twokernel["above"][i]]})
     kernels[-2].update(kernel="flash_ce_bwd_du_tc_kernel (bf16, mma.sync); "
-                              "flash_ce_bwd_du_kernel serves fp32", new_kernel=True)
+                              "flash_ce_bwd_du_kernel serves fp32")
+    kernels[-1].update(kernel="flash_ce_bwd_dv_tc_kernel (bf16, mma.sync); "
+                              "flash_ce_bwd_dv_kernel serves fp32", new_kernel=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -2035,9 +2170,10 @@ def time_kernels(tree: str) -> dict:
     """Rows 1, 4, 5, 6, 7 and 8 of the port found under ``tree`` (its own
     ``recsys_tpu_torch``, built into its own ``build/``) at the shapes of
     ``AB_*_SHAPES`` on seeded inputs: CUDA-event ms and device ms per
-    call, through the same wrappers a caller uses; beside rows 6 and 8
-    their library yardsticks (``softmax @ v``; ``matmul`` + ``amax`` where
-    the [Q, N] scores fit), which do not depend on the tree."""
+    call, through the same wrappers a caller uses; beside rows 4, 6, 7 and
+    8 their library yardsticks where the dense scores fit (``matmul`` +
+    ``logsumexp``, ``softmax @ v``, ``softmax.T @ u`` with the column
+    sums, ``matmul`` + ``amax``), which do not depend on the tree."""
     import torch
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -2077,14 +2213,23 @@ def time_kernels(tree: str) -> dict:
         iters = 10 if bq * bk <= TRAIN_BATCH ** 2 else 3
         shape = {"Bq": bq, "Bk": bk, "D": 128, "dtype": "bfloat16"}
         out["flash_fwd_row4"].append({**shape, **_timed(
-            lambda: F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos), iters, "flash_ce_fwd_kernel")})
+            lambda: F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos), iters, "flash_ce_fwd_")})
         row6 = {**shape, **_timed(lambda: F.flash_ce_bwd_du(*args), iters, "flash_ce_bwd_du_")}
         if bq * bk <= TRAIN_BATCH ** 2:
             row6["library_ms"] = time_ms(lambda: (torch.softmax(torch.matmul(u, v.T) + c, dim=1)
                                                   * gr[:, None]).to(u.dtype) @ v, iters)
         out["row6_du"].append(row6)
-        out["row7_dv"].append({**shape, **_timed(lambda: F.flash_ce_bwd_dv(*args), iters,
-                                                 "flash_ce_bwd_dv_kernel")})
+        row7 = {**shape, **_timed(lambda: F.flash_ce_bwd_dv(*args), iters, "flash_ce_bwd_dv_")}
+        if bq * bk <= TRAIN_BATCH ** 2:
+            out["flash_fwd_row4"][-1]["library_ms"] = time_ms(
+                lambda: torch.logsumexp(torch.matmul(u, v.T) + c, dim=1), iters)
+
+            def row7_library():
+                p = torch.softmax(torch.matmul(u, v.T) + c, dim=1) * gr[:, None]
+                return p.to(u.dtype).T @ u, p.sum(dim=0)
+
+            row7["library_ms"] = time_ms(row7_library, iters)
+        out["row7_dv"].append(row7)
         del u, v, args
         torch.cuda.empty_cache()
     for q_n, n in AB_BLOCKMAX_SHAPES:

@@ -7,7 +7,7 @@
 // reached through _flash_bwd_twokernel_raw, the TPU's backward when the
 // fused kernel's dU partials would pass _FUSED_BWD_PARTIALS_CAP).
 //
-// All four kernels work on the corrected, accidental-masked logits
+// All four work on the corrected, accidental-masked logits
 //     s_ij = u_i . v_j + colcorr_j,   s_ij = -1e9 where ids_q[i] == ids_k[j]
 //                                      and j != pos[i]
 // of Bq query rows u [Bq, D] against Bk candidate rows v [Bk, D] (bf16 or
@@ -27,75 +27,79 @@
 // plus one exp per logit and kernel. At Bq = Bk = 8192, D = 128 in bf16
 // the tensor-core bound is 0.017 ms forward and the Bq*Bk exps on the
 // special-function units take about as long.
-//   The fused backward of bf16 operands (flash_ce_bwd_tc_kernel) and the
-// dU kernel of bf16 operands (flash_ce_bwd_du_tc_kernel, row 6) run their
-// products on the tensor cores: warp-level mma.sync.m16n8k16 bf16 with
-// fp32 sums (mma_bf16.cuh), operands fed by ldmatrix (.trans where the
-// product needs the transposed tile) from bf16 tiles in shared memory,
-// the next tile loaded by cp.async while the current one computes.
-// mma.sync rather than wgmma: a first tensor-core design that a warp owns
-// from fragment to result, so that P (row 6) or P^T (row 5), computed in
-// a warp's accumulators, feeds the next product from registers without a
-// round trip (the FlashAttention-2 layout identity between an m16n8
-// accumulator pair and an m16k16 A fragment); wgmma's warpgroup-wide
-// accumulators and shared-memory descriptors are the next step. The fused
-// kernel's other limit is bytes: the dU partials (see below).
-//   Everything else (the forward, the fp32 backward kernels, row 7) still
-// runs every product on the fp32 FMA units: bf16 operands widened
-// to fp32 in shared memory (a product of two bf16 values is exact in
-// fp32, so the sums equal the TPU's fp32-accumulated bf16 products up to
-// summation order), a 4 x 4 register tile per thread; bound by fp32 issue
-// and shared-memory loads, far above the tensor-core bound (ROADMAP Queue
-// 2). fp32 operands must meet a 1e-5 contract, which TF32 tensor cores
-// cannot. What every kernel keeps from the TPU kernels is the memory
-// side: the logits never leave the chip.
+//   Every kernel of bf16 operands runs its products on the tensor cores:
+// the forward (flash_ce_fwd_tc_kernel, row 4), the fused backward
+// (flash_ce_bwd_tc_kernel, row 5), the dU kernel (flash_ce_bwd_du_tc_kernel,
+// row 6) and the dV/dcol kernel (flash_ce_bwd_dv_tc_kernel, row 7):
+// warp-level mma.sync.m16n8k16 bf16 with fp32 sums (mma_bf16.cuh), operands
+// fed by ldmatrix (.trans where the product needs the transposed tile)
+// from bf16 tiles in shared memory, the next tile loaded by cp.async while
+// the current one computes. mma.sync rather than wgmma: a first
+// tensor-core design that a warp owns from fragment to result, so that P
+// (row 6) or P^T (rows 5 and 7), computed in a warp's accumulators, feeds
+// the next product from registers without a round trip (the
+// FlashAttention-2 layout identity between an m16n8 accumulator pair and
+// an m16k16 A fragment); wgmma's warpgroup-wide accumulators and
+// shared-memory descriptors are the next step. The fused kernel's other
+// limit is bytes: the dU partials (see below); bf16 operands no longer
+// take it (ops/flash_ce.py::bwd_route).
+//   The kernels of fp32 operands run every product on the fp32 FMA units,
+// a 4 x 4 register tile per thread over fp32 tiles in shared memory; bound
+// by the fp32 instruction rate and shared-memory loads. fp32 operands
+// must meet a 1e-5 contract, which TF32 tensor cores cannot. What every
+// kernel keeps from the TPU kernels is the memory side: the logits never
+// leave the chip.
 //
 // Design, and how it departs from the TPU kernels:
-// * Forward: one block owns 64 query rows (held in shared memory for the
-//   whole sweep) and loops over 64-row candidate tiles; the TPU's grid
+// * Forward, bf16: row 6's tiling (64 query rows a block, 16 a warp, U's A
+//   fragments in registers, 64-candidate tiles by cp.async); the masked
+//   logits, the positive logit and each lane's running max and sum-exp stay
+//   in registers, the quad's four lanes combined once at the end. Where the
+//   query tiles alone would leave the card thin (8,192 rows: 128 tiles) the
+//   candidate sweep splits into parts (the wrapper's fwd_plan: 9 at
+//   8,192^2, one at 131,072 rows) whose (m, l, positive logit) a second
+//   small kernel, launched by the same host call, folds in part order.
+// * Forward, fp32: one block owns 64 query rows (held in shared memory for
+//   the whole sweep) and loops over 64-row candidate tiles; the TPU's grid
 //   dimension over candidate tiles becomes that loop. Each 64 x 64 score
 //   tile is spread over 256 threads (4 x 4 each); a row's 64 scores live
 //   on 16 lanes of one half-warp, so the running max and sum-exp reduce
 //   with four shuffles and no shared memory.
-// * Fused backward, bf16 (the training path from 8,192 candidates): grid
-//   (n_spans, parts, DP / DN). A block owns tiles_per_block consecutive
-//   128-candidate tiles (one while the partials fit the wrapper's cap)
-//   and sweeps the 64-row query tiles of its part of the query axis; the
-//   parts (blockIdx.y) fill the card where the candidate spans alone
-//   would not (8,192^2: 64 spans x 4 parts). Each block writes the dU of
-//   its own query rows into its span's partial du_part[x] ([n_spans, Bq,
-//   D]: 268 MB at 8,192^2, half of the 64-wide design's 537 MB) and its
-//   dV and dcol into [parts, Bk, D] / [parts, Bk]; the wrapper sums each
-//   over its first axis with torch.sum, as the TPU wrapper sums its dU
-//   partials with jnp.sum. No atomics: two calls give the same bits.
-// * Fused backward, fp32: one block owns tiles_per_block consecutive
-//   64-row candidate tiles; for each tile j (held in shared memory) it
-//   loops over every 64-row query tile i, accumulating dV_j in registers
-//   and dcol_j per thread, and adds the dU product of (i, j) into its own
-//   partial du_part[block] (the first tile writes, later ones add, each
-//   element by the thread that wrote it). One part: dV and dcol are
-//   written whole.
-// * Two-kernel backward, where the TPU takes it (Bq * D * (Bk / tk) * 4
-//   bytes of TPU partials above the cap, e.g. 131,072 queries against a
-//   262,144-column candidate axis with the CBNS cache): the dU kernel's
-//   block owns a 64-row query tile and sweeps the candidate tiles,
-//   keeping its [64, D] fp32 dU in registers and writing it once; the dV
-//   kernel's block owns a 64-row candidate tile and sweeps every query
-//   tile, keeping dV_j in registers and dcol_j per thread. Nothing crosses
-//   blocks, so neither needs atomics; the TPU's sequential grid axis
-//   becomes each block's loop. Where the query tiles alone would leave the
-//   card thin (8,192 rows: 128 tiles), the bf16 dU kernel splits the
-//   candidate sweep into parts (the wrapper's du_plan: 9 at 8,192^2, one
-//   at 131,072 rows) whose [parts, Bq, D] partials the wrapper sums in a
-//   fixed order; the fp32 one sweeps every tile. The two routes sum in
-//   other orders (the fused bf16 kernel on the tensor cores, in parts), so
-//   across the cap they agree within the stated tolerances, not bit for
-//   bit. The grids are ceil(Bq / 64) and ceil(Bk / 64) blocks (2,048 and
-//   4,096 at that shape), where the fused kernel, whose partials must stay
-//   under the cap, gets 64 spans x 4 parts.
+// * Fused backward, bf16: grid (n_spans, parts, DP / DN). A block owns
+//   tiles_per_block consecutive 128-candidate tiles (one while the
+//   partials fit the wrapper's cap) and sweeps the 64-row query tiles of
+//   its part of the query axis; the parts (blockIdx.y) fill the card where
+//   the candidate spans alone would not (8,192^2: 64 spans x 4 parts). Each
+//   block writes the dU of its own query rows into its span's partial
+//   du_part[x] ([n_spans, Bq, D]: 268 MB at 8,192^2) and its dV and dcol
+//   into [parts, Bk, D] / [parts, Bk]; the wrapper sums each over its first
+//   axis with torch.sum, as the TPU wrapper sums its dU partials with
+//   jnp.sum. No atomics: two calls give the same bits.
+// * Fused backward, fp32 (the route of fp32 operands under the cap): one
+//   block owns tiles_per_block consecutive 64-row candidate tiles; for each
+//   tile j (held in shared memory) it loops over every 64-row query tile
+//   i, accumulating dV_j in registers and dcol_j per thread, and adds the
+//   dU product of (i, j) into its own partial du_part[block] (the first
+//   tile writes, later ones add, each element by the thread that wrote
+//   it). One part: dV and dcol are written whole.
+// * Two-kernel backward (every bf16 backward; fp32 where the TPU takes it,
+//   above the cap): the dU kernel's block owns a 64-row query tile and
+//   sweeps the candidate tiles, keeping its [64, D] fp32 dU in registers
+//   and writing it once; the dV kernel's block owns a 64-row candidate tile
+//   and sweeps the query tiles, keeping dV_j and dcol_j in registers.
+//   Nothing crosses blocks, so neither needs atomics; the TPU's sequential
+//   grid axis becomes each block's loop. Where the tiles of the block's
+//   own axis alone would leave the card thin (8,192 rows: 128 tiles), the
+//   bf16 kernels split the swept axis into parts (the wrapper's du_plan
+//   and dv_plan: 9 at 8,192^2, one at 131,072 x 262,144) whose partials
+//   the wrapper sums in a fixed order; the fp32 ones sweep every tile. The
+//   two routes sum in other orders, so they agree within the stated
+//   tolerances, not bit for bit.
 // * The TPU wrapper asserts that its tiles divide the batch; here rows
 //   past Bq and candidates past Bk are masked, so any Bq, Bk work.
-// * D is padded to DP in {32, 64, 128, 256} with zeros in shared memory.
+// * D is padded to DP in {32, 64, 128, 256} with zeros in shared memory;
+//   the backward kernels of bf16 operands split DP = 256 into two column
+//   slices of 128 (blockIdx.z), each recomputing the full-width logits.
 // * Offsets into u, v and the outputs are 64-bit (rows * d passes 2^31 at
 //   these shapes); no [Bq, Bk] offset is ever formed.
 
@@ -103,6 +107,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -113,15 +119,6 @@ constexpr int TK = 64;        // candidate rows per tile
 constexpr int THREADS = 256;  // 16 x 16 threads, a 4 x 4 block of the tile each
 constexpr float NEG_BIG = -1e9f;
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// pg rounded to the operand type (a no-op for fp32 operands)
-__device__ __forceinline__ float narrow(float x, const float*) { return x; }
-__device__ __forceinline__ float narrow(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // sum / max over the 16 lanes of a half-warp (all of them get the result)
 __device__ __forceinline__ float half_sum(float x) {
@@ -135,16 +132,16 @@ __device__ __forceinline__ float half_max(float x) {
   return x;
 }
 
-// rows [row0, row0 + 64) of src [n_rows, d] -> dst [64][DP + 1] fp32,
+// rows [row0, row0 + 64) of src [n_rows, d] fp32 -> dst [64][DP + 1],
 // zero past n_rows and past d
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+template <int DP>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
                                           int row0, int n_rows, int d) {
   for (int e = threadIdx.x; e < 64 * DP; e += THREADS) {
     const int r = e / DP, k = e % DP;
     const int gr = row0 + r;
     dst[r * (DP + 1) + k] =
-        (gr < n_rows && k < d) ? widen(src[static_cast<long long>(gr) * d + k]) : 0.f;
+        (gr < n_rows && k < d) ? src[static_cast<long long>(gr) * d + k] : 0.f;
   }
 }
 
@@ -205,9 +202,10 @@ constexpr size_t fwd_smem() {
   return sizeof(float) * (TQ + TK) * (DP + 1) + (sizeof(float) + sizeof(int)) * TK;
 }
 
-template <typename T, int DP>
+// Row 4 of fp32 operands on the FMA units (_fwd_kernel).
+template <int DP>
 __global__ void __launch_bounds__(THREADS) flash_ce_fwd_kernel(
-    const T* __restrict__ u, const T* __restrict__ v, const float* __restrict__ colcorr,
+    const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ colcorr,
     const int* __restrict__ ids_q, const int* __restrict__ ids_k,
     const int* __restrict__ pos, int bq, int bk, int d, float* __restrict__ lse_out,
     float* __restrict__ pos_out) {
@@ -219,7 +217,7 @@ __global__ void __launch_bounds__(THREADS) flash_ce_fwd_kernel(
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * TQ;
-  load_tile<T, DP>(Us, u, q0, bq, d);
+  load_tile<DP>(Us, u, q0, bq, d);
 
   int qid[4], qpos[4];
   float m[4], l[4], ps[4];
@@ -235,7 +233,7 @@ __global__ void __launch_bounds__(THREADS) flash_ce_fwd_kernel(
 
   for (int k0 = 0; k0 < bk; k0 += TK) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, DP>(Vs, v, k0, bk, d);
+    load_tile<DP>(Vs, v, k0, bk, d);
     if (tid < TK) {
       const int c = k0 + tid;
       cs[tid] = c < bk ? colcorr[c] : 0.f;
@@ -282,9 +280,9 @@ constexpr size_t bwd_smem() {
          (2 * sizeof(float) + 2 * sizeof(int)) * TQ;
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(THREADS) flash_ce_bwd_kernel(
-    const T* __restrict__ u, const T* __restrict__ v, const float* __restrict__ colcorr,
+    const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ colcorr,
     const int* __restrict__ ids_q, const int* __restrict__ ids_k,
     const int* __restrict__ pos, const float* __restrict__ lse,
     const float* __restrict__ g, int bq, int bk, int d, int tiles_per_block,
@@ -309,7 +307,7 @@ __global__ void __launch_bounds__(THREADS) flash_ce_bwd_kernel(
     const int k0 = tile * TK;
     const bool first = tile == tile0;
     __syncthreads();  // the previous tile's readers of Vs and red are done
-    load_tile<T, DP>(Vs, v, k0, bk, d);
+    load_tile<DP>(Vs, v, k0, bk, d);
 
     float corr[4], dcol_acc[4];
     int kid[4];
@@ -328,7 +326,7 @@ __global__ void __launch_bounds__(THREADS) flash_ce_bwd_kernel(
 
     for (int q0 = 0; q0 < bq; q0 += TQ) {
       __syncthreads();  // the previous query tile's readers are done
-      load_tile<T, DP>(Us, u, q0, bq, d);
+      load_tile<DP>(Us, u, q0, bq, d);
       if (tid < TQ) {
         const int r = q0 + tid;
         const bool ok = r < bq;
@@ -356,7 +354,7 @@ __global__ void __launch_bounds__(THREADS) flash_ce_bwd_kernel(
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
           dcol_acc[b] += pg32[a][b];
-          Ps[(ty + 16 * a) * (TK + 1) + tx + 16 * b] = narrow(pg32[a][b], u);
+          Ps[(ty + 16 * a) * (TK + 1) + tx + 16 * b] = pg32[a][b];
         }
       __syncthreads();
       // dV_j[c][k] += sum_r P[r][c] U[r][k]  (c = ty + 16a, k = tx + 16b)
@@ -835,16 +833,396 @@ __global__ void __launch_bounds__(DU_THREADS) flash_ce_bwd_du_tc_kernel(
   }
 }
 
+// ---- row 7 in bf16: the dV/dcol kernel on the tensor cores -----------------
+
+constexpr int DV_WARPS = 4;                 // 16 candidates each
+constexpr int DV_THREADS = 32 * DV_WARPS;
+constexpr int DV_TK = 16 * DV_WARPS;        // candidates per block
+constexpr int DV_TQ = 64;                   // query rows per tile of the sweep
+
+template <int DP>
+constexpr size_t bwd_dv_tc_smem() {
+  return sizeof(__nv_bfloat16) * (DV_TK + 2 * DV_TQ) * tc_ld<DP>() +
+         2 * DV_TQ * (2 * sizeof(float) + 2 * sizeof(int));
+}
+
+// Row 7 of bf16 operands on the tensor cores (mma.sync): row 5's
+// transposed layout without its dU half, with row 6's registers. Grid
+// (candidate tiles, parts, DP / DN): block (x, y, z) owns the DV_TK
+// candidates of tile x, sweeps query tiles [y * q_tiles_per_part, (y + 1) *
+// q_tiles_per_part) and writes output columns [z * DN, (z + 1) * DN) of
+// their dV into dv_part[y] ([parts, Bk, D]) and (z == 0) their dcol into
+// dcol_part[y] ([parts, Bk]); the wrapper sums the parts in a fixed order,
+// or passes dV and dcol themselves when there is one part. Warp w owns
+// candidates 16w..16w+15: their A fragments of V are loaded once and kept
+// in registers; per 64-row query tile (cp.async, double-buffered, with its
+// lse, g, ids and positives):
+//   S^T = V_w U_i^T [16 x 64] with fp32 sums;
+//   P^T = bf16(exp(S - lse) g) as tile_pg makes it, packed straight into
+//   the A fragments of the next product; the fp32 p*g into dcol;
+//   dV_w += P^T U_i [16 x DN], U_i read with ldmatrix.trans.
+// dV and dcol stay in fp32 registers over the sweep and are written once,
+// dcol summed over the quad's lanes in a fixed order. No atomics: two
+// calls give the same bits.
+template <int DP>
+__global__ void __launch_bounds__(DV_THREADS) flash_ce_bwd_dv_tc_kernel(
+    const __nv_bfloat16* __restrict__ u, const __nv_bfloat16* __restrict__ v,
+    const float* __restrict__ colcorr, const int* __restrict__ ids_q,
+    const int* __restrict__ ids_k, const int* __restrict__ pos, const float* __restrict__ lse,
+    const float* __restrict__ g, int bq, int bk, int d, int vec, int q_tiles_per_part,
+    float* __restrict__ dv_part, float* __restrict__ dcol_part) {
+  constexpr int LD = tc_ld<DP>();
+  constexpr int DN = DP < 128 ? DP : 128;  // output columns per block
+  constexpr int NT = DN / 8;               // dV n-tiles per warp
+  constexpr int KS = DP / 16;              // k-steps of S^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [DV_TK][LD]
+  __nv_bfloat16* Us = Vs + DV_TK * LD;                              // [2][DV_TQ][LD]
+  float* lse_s = reinterpret_cast<float*>(Us + 2 * DV_TQ * LD);     // [2][DV_TQ]
+  float* g_s = lse_s + 2 * DV_TQ;                                   // [2][DV_TQ]
+  int* idq_s = reinterpret_cast<int*>(g_s + 2 * DV_TQ);             // [2][DV_TQ]
+  int* pos_s = idq_s + 2 * DV_TQ;                                   // [2][DV_TQ]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;  // mma fragment row group and column pair
+  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix matrix and row of this lane
+  const int k0 = blockIdx.x * DV_TK, cw = warp * 16;
+  const int dn0 = blockIdx.z * DN;
+  const int n_qt = (bq + DV_TQ - 1) / DV_TQ;
+  const int qt_begin = blockIdx.y * q_tiles_per_part;
+  const int qt_end = min(n_qt, qt_begin + q_tiles_per_part);
+
+  auto stage_query_tile = [&](int buf, int qt) {
+    stage_rows<DP, DV_THREADS>(Us + buf * DV_TQ * LD, LD, u, qt * DV_TQ, bq, DV_TQ, d,
+                               vec != 0);
+    if (tid < DV_TQ) {
+      const int r = qt * DV_TQ + tid;
+      const bool ok = r < bq;
+      lse_s[buf * DV_TQ + tid] = ok ? lse[r] : 0.f;
+      g_s[buf * DV_TQ + tid] = ok ? g[r] : 0.f;
+      idq_s[buf * DV_TQ + tid] = ok ? ids_q[r] : 0;
+      pos_s[buf * DV_TQ + tid] = ok ? pos[r] : -1;
+    }
+  };
+
+  stage_rows<DP, DV_THREADS>(Vs, LD, v, k0, bk, DV_TK, d, vec != 0);
+  if (qt_begin < qt_end) stage_query_tile(0, qt_begin);
+  cp_async_commit();
+
+  float corr[2], dcol_acc[2] = {0.f, 0.f};
+  int kid[2];
+  bool cok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = k0 + cw + gq + 8 * h;
+    cok[h] = c < bk;
+    corr[h] = cok[h] ? colcorr[c] : 0.f;
+    kid[h] = cok[h] ? ids_k[c] : 0;
+  }
+  float dv[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[nt][e] = 0.f;
+  uint32_t va[KS][4];  // the warp's A fragments of V, for the whole sweep
+
+  for (int qt = qt_begin, it = 0; qt < qt_end; ++qt, ++it) {
+    const int buf = it & 1, q0 = qt * DV_TQ;
+    cp_async_wait_all();
+    __syncthreads();  // this tile has landed; everyone is done with the other buffer
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(va[kk], Vs + (cw + (lm & 1) * 8 + lr) * LD + kk * 16 + (lm >> 1) * 8);
+    }
+    if (qt + 1 < qt_end) stage_query_tile(buf ^ 1, qt + 1);
+    cp_async_commit();
+    const __nv_bfloat16* Ub = Us + buf * DV_TQ * LD;
+
+    // S^T[c][r]: s[nt][2h + e] is candidate cw + gq + 8h, query row nt*8 + 2*t4 + e
+    float s[DV_TQ / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < DV_TQ / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int np = 0; np < DV_TQ / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, Ub + (np * 16 + (lm >> 1) * 8 + lr) * LD + kk * 16 + (lm & 1) * 8);
+        mma_bf16(s[2 * np], va[kk], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], va[kk], b[2], b[3]);
+      }
+    }
+
+    // P^T = bf16(exp(S - lse) g), straight into the A fragments of P^T U
+    const float* lse_b = lse_s + buf * DV_TQ;
+    const float* g_b = g_s + buf * DV_TQ;
+    const int* idq_b = idq_s + buf * DV_TQ;
+    const int* pos_b = pos_s + buf * DV_TQ;
+    uint32_t pa[DV_TQ / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < DV_TQ / 8; ++nt) {
+      float pf[2][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int rl = nt * 8 + 2 * t4 + e;
+        const bool rok = q0 + rl < bq;
+        const float lse_r = lse_b[rl], g_r = g_b[rl];
+        const int idq_r = idq_b[rl], pos_r = pos_b[rl];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float pg = 0.f;
+          if (rok && cok[h]) {
+            const float x = masked_logit(s[nt][2 * h + e], corr[h], idq_r, kid[h],
+                                         k0 + cw + gq + 8 * h, pos_r);
+            pg = expf(x - lse_r) * g_r;
+          }
+          dcol_acc[h] += pg;
+          pf[h][e] = pg;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) pa[nt >> 1][(nt & 1) * 2 + h] = pack_bf16(pf[h][0], pf[h][1]);
+    }
+
+    // dV[c][k] += sum_r P^T[c][r] U[r][k]
+#pragma unroll
+    for (int kk = 0; kk < DV_TQ / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, Ub + (kk * 16 + (lm & 1) * 8 + lr) * LD + dn0 + np * 16 + (lm >> 1) * 8);
+        mma_bf16(dv[2 * np], pa[kk], b[0], b[1]);
+        mma_bf16(dv[2 * np + 1], pa[kk], b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait_all();  // no copy may outlive the block
+
+  // dcol: the four lanes of a quad hold the same two candidates
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float x = dcol_acc[h];
+    x += __shfl_xor_sync(FULL, x, 1);
+    x += __shfl_xor_sync(FULL, x, 2);
+    const int c = k0 + cw + gq + 8 * h;
+    if (blockIdx.z == 0 && t4 == 0 && c < bk)
+      dcol_part[static_cast<long long>(blockIdx.y) * bk + c] = x;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = k0 + cw + gq + 8 * h;
+    if (c >= bk) continue;
+    float* out = dv_part + (static_cast<long long>(blockIdx.y) * bk + c) * d;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = dn0 + nt * 8 + 2 * t4 + e;
+        if (k < d) out[k] = dv[nt][2 * h + e];
+      }
+  }
+}
+
+// ---- row 4 in bf16: the forward on the tensor cores -------------------------
+
+// Row 4 of bf16 operands on the tensor cores (mma.sync), on row 6's tiling
+// and shared-memory layout (bwd_du_tc_smem). Grid (query tiles, parts):
+// block (x, y) owns the DU_TQ query rows of tile x and sweeps candidate
+// tiles [y * tiles_per_part, (y + 1) * tiles_per_part). Warp w owns query
+// rows 16w..16w+15: their A fragments of U are loaded once and kept in
+// registers; per 64-candidate tile (cp.async, double-buffered, with its
+// colcorr and ids):
+//   S = U_w V_j^T [16 x 64] with fp32 sums;
+//   the masked, corrected logits in registers, the positive logit taken
+//   where the row's positive column lands;
+//   each lane's running max and sum-exp over its own columns (m from -1e9).
+// At the end the four lanes of a quad (one row) combine theirs, two
+// shuffles each. One part writes lse = m + log(max(l, 1e-30)) and the
+// positive logit; more parts write (m, l, positive logit) into part
+// [3][parts][Bq], which flash_ce_fwd_combine_kernel folds in part order.
+// No atomics: two calls give the same bits.
+template <int DP>
+__global__ void __launch_bounds__(DU_THREADS) flash_ce_fwd_tc_kernel(
+    const __nv_bfloat16* __restrict__ u, const __nv_bfloat16* __restrict__ v,
+    const float* __restrict__ colcorr, const int* __restrict__ ids_q,
+    const int* __restrict__ ids_k, const int* __restrict__ pos, int bq, int bk, int d,
+    int vec, int tiles_per_part, float* __restrict__ lse_out, float* __restrict__ pos_out,
+    float* __restrict__ part) {
+  constexpr int LD = tc_ld<DP>();
+  constexpr int KS = DP / 16;  // k-steps of S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [DU_TQ][LD]
+  __nv_bfloat16* Vs = Us + DU_TQ * LD;                              // [2][DU_TK][LD]
+  float* cs = reinterpret_cast<float*>(Vs + 2 * DU_TK * LD);        // [2][DU_TK]
+  int* ks = reinterpret_cast<int*>(cs + 2 * DU_TK);                 // [2][DU_TK]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;  // mma fragment row group and column pair
+  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix matrix and row of this lane
+  const int q0 = blockIdx.x * DU_TQ, rw = warp * 16;
+  const int n_kt = (bk + DU_TK - 1) / DU_TK;
+  const int kt_begin = blockIdx.y * tiles_per_part;
+  const int kt_end = min(n_kt, kt_begin + tiles_per_part);
+
+  auto stage_tile = [&](int buf, int kt) {
+    const int k0 = kt * DU_TK;
+    stage_rows<DP, DU_THREADS>(Vs + buf * DU_TK * LD, LD, v, k0, bk, DU_TK, d, vec != 0);
+    if (tid < DU_TK) {
+      const int c = k0 + tid;
+      cs[buf * DU_TK + tid] = c < bk ? colcorr[c] : 0.f;
+      ks[buf * DU_TK + tid] = c < bk ? ids_k[c] : 0;
+    }
+  };
+
+  stage_rows<DP, DU_THREADS>(Us, LD, u, q0, bq, DU_TQ, d, vec != 0);
+  if (kt_begin < kt_end) stage_tile(0, kt_begin);
+  cp_async_commit();
+
+  int idq_r[2], pos_r[2];
+  float m[2], l[2], ps[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + rw + gq + 8 * h;
+    const bool ok = r < bq;
+    idq_r[h] = ok ? ids_q[r] : 0;
+    pos_r[h] = ok ? pos[r] : -1;
+    m[h] = NEG_BIG;
+    l[h] = 0.f;
+    ps[h] = 0.f;
+  }
+  uint32_t ua[KS][4];  // the warp's A fragments of U, for the whole sweep
+
+  for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
+    const int buf = it & 1, k0 = kt * DU_TK;
+    cp_async_wait_all();
+    __syncthreads();  // this tile has landed; everyone is done with the other buffer
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(ua[kk], Us + (rw + (lm & 1) * 8 + lr) * LD + kk * 16 + (lm >> 1) * 8);
+    }
+    if (kt + 1 < kt_end) stage_tile(buf ^ 1, kt + 1);
+    cp_async_commit();
+    const __nv_bfloat16* Vb = Vs + buf * DU_TK * LD;
+    const float* cb = cs + buf * DU_TK;
+    const int* kb = ks + buf * DU_TK;
+
+    // S[r][c]: s[nt][2h + e] is query row rw + gq + 8h, candidate nt*8 + 2*t4 + e
+    float s[DU_TK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < DU_TK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int np = 0; np < DU_TK / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, Vb + (np * 16 + (lm >> 1) * 8 + lr) * LD + kk * 16 + (lm & 1) * 8);
+        mma_bf16(s[2 * np], ua[kk], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], ua[kk], b[2], b[3]);
+      }
+    }
+
+    // the logits (-inf past bk: they count for nothing), the positive
+    // logit, and this lane's max over its columns of the tile
+    float tmax[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int nt = 0; nt < DU_TK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cl = nt * 8 + 2 * t4 + e, c = k0 + cl;
+        const float corr = cb[cl];
+        const int kid = kb[cl];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float x = -CUDART_INF_F;
+          if (c < bk) {
+            x = masked_logit(s[nt][2 * h + e], corr, idq_r[h], kid, c, pos_r[h]);
+            if (c == pos_r[h]) ps[h] += x;
+            tmax[h] = fmaxf(tmax[h], x);
+          }
+          s[nt][2 * h + e] = x;
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], tmax[h]);
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < DU_TK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) sum += expf(s[nt][2 * h + e] - m_new);
+      l[h] = l[h] * expf(m[h] - m_new) + sum;
+      m[h] = m_new;
+    }
+  }
+  cp_async_wait_all();  // no copy may outlive the block
+
+  // the quad's four lanes (one row): max, rescaled sum-exp, positive logit
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = m[h];
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+    float sum = l[h] * expf(m[h] - mx);
+    sum += __shfl_xor_sync(FULL, sum, 1);
+    sum += __shfl_xor_sync(FULL, sum, 2);
+    float p = ps[h];
+    p += __shfl_xor_sync(FULL, p, 1);
+    p += __shfl_xor_sync(FULL, p, 2);
+    const int r = q0 + rw + gq + 8 * h;
+    if (t4 != 0 || r >= bq) continue;
+    if (gridDim.y == 1) {
+      lse_out[r] = mx + logf(fmaxf(sum, 1e-30f));
+      pos_out[r] = p;
+    } else {
+      const long long n = static_cast<long long>(gridDim.y) * bq;
+      const long long at = static_cast<long long>(blockIdx.y) * bq + r;
+      part[at] = mx;
+      part[n + at] = sum;
+      part[2 * n + at] = p;
+    }
+  }
+}
+
+// lse and the positive logit of each query row from the forward's per-part
+// (m, l, positive logit) in part [3][parts][Bq], the parts taken in order:
+// M = max m_p, L = sum l_p exp(m_p - M), lse = M + log(max(L, 1e-30)); the
+// positive logit is the sum (one part holds the positive column)
+__global__ void flash_ce_fwd_combine_kernel(const float* __restrict__ part, int parts, int bq,
+                                            float* __restrict__ lse_out,
+                                            float* __restrict__ pos_out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= bq) return;
+  const long long n = static_cast<long long>(parts) * bq;
+  float mx = NEG_BIG;
+  for (int p = 0; p < parts; ++p) mx = fmaxf(mx, part[static_cast<long long>(p) * bq + r]);
+  float sum = 0.f, pl = 0.f;
+  for (int p = 0; p < parts; ++p) {
+    const long long at = static_cast<long long>(p) * bq + r;
+    sum += part[n + at] * expf(part[at] - mx);
+    pl += part[2 * n + at];
+  }
+  lse_out[r] = mx + logf(fmaxf(sum, 1e-30f));
+  pos_out[r] = pl;
+}
+
 template <int DP>
 constexpr size_t bwd_du_smem() {
   return sizeof(float) * ((TQ + TK) * (DP + 1) + TQ * (TK + 1)) +
          (sizeof(float) + sizeof(int)) * TK;
 }
 
-// Row 6: dU = sum_j round(pg) V_j, query-major (_bwd_du_kernel).
-template <typename T, int DP>
+// Row 6 of fp32 operands on the FMA units: dU = sum_j pg V_j, query-major
+// (_bwd_du_kernel).
+template <int DP>
 __global__ void __launch_bounds__(THREADS) flash_ce_bwd_du_kernel(
-    const T* __restrict__ u, const T* __restrict__ v, const float* __restrict__ colcorr,
+    const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ colcorr,
     const int* __restrict__ ids_q, const int* __restrict__ ids_k,
     const int* __restrict__ pos, const float* __restrict__ lse,
     const float* __restrict__ g, int bq, int bk, int d, float* __restrict__ du) {
@@ -858,7 +1236,7 @@ __global__ void __launch_bounds__(THREADS) flash_ce_bwd_du_kernel(
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * TQ;
-  load_tile<T, DP>(Us, u, q0, bq, d);
+  load_tile<DP>(Us, u, q0, bq, d);
   float lse_r[4], g_r[4];
   int idq_r[4], pos_r[4];
 #pragma unroll
@@ -879,7 +1257,7 @@ __global__ void __launch_bounds__(THREADS) flash_ce_bwd_du_kernel(
 
   for (int k0 = 0; k0 < bk; k0 += TK) {
     __syncthreads();  // the previous tile's readers of Vs, Ps, cs and ks are done
-    load_tile<T, DP>(Vs, v, k0, bk, d);
+    load_tile<DP>(Vs, v, k0, bk, d);
     if (tid < TK) {
       const int c = k0 + tid;
       cs[tid] = c < bk ? colcorr[c] : 0.f;
@@ -899,7 +1277,7 @@ __global__ void __launch_bounds__(THREADS) flash_ce_bwd_du_kernel(
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int b = 0; b < 4; ++b)
-        Ps[(ty + 16 * a) * (TK + 1) + tx + 16 * b] = narrow(pg32[a][b], u);
+        Ps[(ty + 16 * a) * (TK + 1) + tx + 16 * b] = pg32[a][b];
     __syncthreads();
     // dU[r][k] += sum_c P[r][c] V[c][k]  (r = ty + 16a, k = tx + 16b)
 #pragma unroll 4
@@ -934,12 +1312,12 @@ constexpr size_t bwd_dv_smem() {
          (2 * sizeof(float) + 2 * sizeof(int)) * TQ;
 }
 
-// Row 7: dV = sum_i round(pg)^T U_i and dcol = sum_i pg (fp32),
-// candidate-major (_bwd_dv_kernel). The sums run in the fp32 fused
-// kernel's order.
-template <typename T, int DP>
+// Row 7 of fp32 operands on the FMA units: dV = sum_i pg^T U_i and dcol =
+// sum_i pg, candidate-major (_bwd_dv_kernel). The sums run in the fp32
+// fused kernel's order.
+template <int DP>
 __global__ void __launch_bounds__(THREADS) flash_ce_bwd_dv_kernel(
-    const T* __restrict__ u, const T* __restrict__ v, const float* __restrict__ colcorr,
+    const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ colcorr,
     const int* __restrict__ ids_q, const int* __restrict__ ids_k,
     const int* __restrict__ pos, const float* __restrict__ lse,
     const float* __restrict__ g, int bq, int bk, int d, float* __restrict__ dv,
@@ -957,7 +1335,7 @@ __global__ void __launch_bounds__(THREADS) flash_ce_bwd_dv_kernel(
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int k0 = blockIdx.x * TK;
-  load_tile<T, DP>(Vs, v, k0, bk, d);
+  load_tile<DP>(Vs, v, k0, bk, d);
   float corr_c[4], dcol_acc[4];
   int kid_c[4];
 #pragma unroll
@@ -976,7 +1354,7 @@ __global__ void __launch_bounds__(THREADS) flash_ce_bwd_dv_kernel(
 
   for (int q0 = 0; q0 < bq; q0 += TQ) {
     __syncthreads();  // the previous query tile's readers are done
-    load_tile<T, DP>(Us, u, q0, bq, d);
+    load_tile<DP>(Us, u, q0, bq, d);
     if (tid < TQ) {
       const int r = q0 + tid;
       const bool ok = r < bq;
@@ -1003,7 +1381,7 @@ __global__ void __launch_bounds__(THREADS) flash_ce_bwd_dv_kernel(
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
         dcol_acc[b] += pg32[a][b];
-        Ps[(ty + 16 * a) * (TK + 1) + tx + 16 * b] = narrow(pg32[a][b], u);
+        Ps[(ty + 16 * a) * (TK + 1) + tx + 16 * b] = pg32[a][b];
       }
     __syncthreads();
     // dV[c][k] += sum_r P[r][c] U[r][k]  (c = ty + 16a, k = tx + 16b)
@@ -1043,187 +1421,67 @@ __global__ void __launch_bounds__(THREADS) flash_ce_bwd_dv_kernel(
   }
 }
 
-template <typename T, int DP>
-int launch_fwd(const void* u, const void* v, const float* colcorr, const int* ids_q,
-               const int* ids_k, const int* pos, int bq, int bk, int d, float* lse,
-               float* pos_out, cudaStream_t stream) {
-  constexpr size_t bytes = fwd_smem<DP>();
-  // the attribute belongs to the current device: set it on every launch
-  cudaError_t e = cudaFuncSetAttribute(flash_ce_fwd_kernel<T, DP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_ce_fwd_kernel<T, DP><<<(bq + TQ - 1) / TQ, THREADS, bytes, stream>>>(
-      static_cast<const T*>(u), static_cast<const T*>(v), colcorr, ids_q, ids_k, pos, bq,
-      bk, d, lse, pos_out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int DP>
-int launch_bwd(const void* u, const void* v, const float* colcorr, const int* ids_q,
-               const int* ids_k, const int* pos, const float* lse, const float* g, int bq,
-               int bk, int d, int tpb, float* dv, float* dcol, float* du_part,
-               cudaStream_t stream) {
-  constexpr size_t bytes = bwd_smem<DP>();
-  cudaError_t e = cudaFuncSetAttribute(flash_ce_bwd_kernel<T, DP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_tiles = (bk + TK - 1) / TK;
-  flash_ce_bwd_kernel<T, DP><<<(n_tiles + tpb - 1) / tpb, THREADS, bytes, stream>>>(
-      static_cast<const T*>(u), static_cast<const T*>(v), colcorr, ids_q, ids_k, pos, lse,
-      g, bq, bk, d, tpb, dv, dcol, du_part);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int DP>
-int launch_bwd_du(const void* u, const void* v, const float* colcorr, const int* ids_q,
-                  const int* ids_k, const int* pos, const float* lse, const float* g,
-                  int bq, int bk, int d, float* du, cudaStream_t stream) {
-  constexpr size_t bytes = bwd_du_smem<DP>();
-  cudaError_t e = cudaFuncSetAttribute(flash_ce_bwd_du_kernel<T, DP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_ce_bwd_du_kernel<T, DP><<<(bq + TQ - 1) / TQ, THREADS, bytes, stream>>>(
-      static_cast<const T*>(u), static_cast<const T*>(v), colcorr, ids_q, ids_k, pos, lse,
-      g, bq, bk, d, du);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int DP>
-int launch_bwd_dv(const void* u, const void* v, const float* colcorr, const int* ids_q,
-                  const int* ids_k, const int* pos, const float* lse, const float* g,
-                  int bq, int bk, int d, float* dv, float* dcol, cudaStream_t stream) {
-  constexpr size_t bytes = bwd_dv_smem<DP>();
-  cudaError_t e = cudaFuncSetAttribute(flash_ce_bwd_dv_kernel<T, DP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_ce_bwd_dv_kernel<T, DP><<<(bk + TK - 1) / TK, THREADS, bytes, stream>>>(
-      static_cast<const T*>(u), static_cast<const T*>(v), colcorr, ids_q, ids_k, pos, lse,
-      g, bq, bk, d, dv, dcol);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_fwd(const void* u, const void* v, const float* colcorr, const int* ids_q,
-                 const int* ids_k, const int* pos, int bq, int bk, int d, float* lse,
-                 float* pos_out, cudaStream_t s) {
-  if (d <= 32) return launch_fwd<T, 32>(u, v, colcorr, ids_q, ids_k, pos, bq, bk, d, lse, pos_out, s);
-  if (d <= 64) return launch_fwd<T, 64>(u, v, colcorr, ids_q, ids_k, pos, bq, bk, d, lse, pos_out, s);
-  if (d <= 128) return launch_fwd<T, 128>(u, v, colcorr, ids_q, ids_k, pos, bq, bk, d, lse, pos_out, s);
-  if (d <= 256) return launch_fwd<T, 256>(u, v, colcorr, ids_q, ids_k, pos, bq, bk, d, lse, pos_out, s);
+// f(std::integral_constant<int, DP>{}) at the padded width DP of d
+template <typename F>
+int by_width(int d, F&& f) {
+  if (d <= 32) return f(std::integral_constant<int, 32>{});
+  if (d <= 64) return f(std::integral_constant<int, 64>{});
+  if (d <= 128) return f(std::integral_constant<int, 128>{});
+  if (d <= 256) return f(std::integral_constant<int, 256>{});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int dispatch_bwd_fma(const void* u, const void* v, const float* colcorr, const int* ids_q,
-                     const int* ids_k, const int* pos, const float* lse, const float* g,
-                     int bq, int bk, int d, int tpb, float* dv, float* dcol, float* du_part,
-                     cudaStream_t s) {
-  if (d <= 32) return launch_bwd<float, 32>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, tpb, dv, dcol, du_part, s);
-  if (d <= 64) return launch_bwd<float, 64>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, tpb, dv, dcol, du_part, s);
-  if (d <= 128) return launch_bwd<float, 128>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, tpb, dv, dcol, du_part, s);
-  if (d <= 256) return launch_bwd<float, 256>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, tpb, dv, dcol, du_part, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <int DP>
-int launch_bwd_tc(const void* u, const void* v, const float* colcorr, const int* ids_q,
-                  const int* ids_k, const int* pos, const float* lse, const float* g, int bq,
-                  int bk, int d, int vec, int tpb, int parts, int qpp, float* dv_part,
-                  float* dcol_part, float* du_part, cudaStream_t stream) {
-  constexpr size_t bytes = bwd_tc_smem<DP>();
-  constexpr int DN = DP < 128 ? DP : 128;
-  cudaError_t e = cudaFuncSetAttribute(flash_ce_bwd_tc_kernel<DP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(bytes));
+// kernel<<<grid, threads, bytes, s>>>(args...), after allowing it `bytes`
+// of dynamic shared memory (the attribute belongs to the current device:
+// it is set on every launch) -> the cudaError_t of the launch
+template <typename K, typename... A>
+int launch(K kernel, dim3 grid, int threads, size_t bytes, cudaStream_t s, A... args) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_tiles = (bk + TKC - 1) / TKC;
-  const dim3 grid((n_tiles + tpb - 1) / tpb, parts, DP / DN);
-  flash_ce_bwd_tc_kernel<DP><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(v), colcorr,
-      ids_q, ids_k, pos, lse, g, bq, bk, d, vec, tpb, qpp, dv_part, dcol_part, du_part);
+  kernel<<<grid, threads, bytes, s>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_bwd_tc(const void* u, const void* v, const float* colcorr, const int* ids_q,
-                    const int* ids_k, const int* pos, const float* lse, const float* g,
-                    int bq, int bk, int d, int vec, int tpb, int parts, int qpp,
-                    float* dv_part, float* dcol_part, float* du_part, cudaStream_t s) {
-  if (d <= 32) return launch_bwd_tc<32>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, tpb, parts, qpp, dv_part, dcol_part, du_part, s);
-  if (d <= 64) return launch_bwd_tc<64>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, tpb, parts, qpp, dv_part, dcol_part, du_part, s);
-  if (d <= 128) return launch_bwd_tc<128>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, tpb, parts, qpp, dv_part, dcol_part, du_part, s);
-  if (d <= 256) return launch_bwd_tc<256>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, tpb, parts, qpp, dv_part, dcol_part, du_part, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename T>
-int dispatch_bwd_du(const void* u, const void* v, const float* colcorr, const int* ids_q,
-                    const int* ids_k, const int* pos, const float* lse, const float* g,
-                    int bq, int bk, int d, float* du, cudaStream_t s) {
-  if (d <= 32) return launch_bwd_du<T, 32>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, du, s);
-  if (d <= 64) return launch_bwd_du<T, 64>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, du, s);
-  if (d <= 128) return launch_bwd_du<T, 128>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, du, s);
-  if (d <= 256) return launch_bwd_du<T, 256>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, du, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <int DP>
-int launch_bwd_du_tc(const void* u, const void* v, const float* colcorr, const int* ids_q,
-                     const int* ids_k, const int* pos, const float* lse, const float* g,
-                     int bq, int bk, int d, int vec, int parts, int tpp, float* du_part,
-                     cudaStream_t stream) {
-  constexpr size_t bytes = bwd_du_tc_smem<DP>();
-  constexpr int DN = DP < 128 ? DP : 128;
-  cudaError_t e = cudaFuncSetAttribute(flash_ce_bwd_du_tc_kernel<DP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((bq + DU_TQ - 1) / DU_TQ, parts, DP / DN);
-  flash_ce_bwd_du_tc_kernel<DP><<<grid, DU_THREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(v), colcorr,
-      ids_q, ids_k, pos, lse, g, bq, bk, d, vec, tpp, du_part);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int dispatch_bwd_du_tc(const void* u, const void* v, const float* colcorr, const int* ids_q,
-                       const int* ids_k, const int* pos, const float* lse, const float* g,
-                       int bq, int bk, int d, int vec, int parts, int tpp, float* du_part,
-                       cudaStream_t s) {
-  if (d <= 32) return launch_bwd_du_tc<32>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, parts, tpp, du_part, s);
-  if (d <= 64) return launch_bwd_du_tc<64>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, parts, tpp, du_part, s);
-  if (d <= 128) return launch_bwd_du_tc<128>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, parts, tpp, du_part, s);
-  if (d <= 256) return launch_bwd_du_tc<256>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, parts, tpp, du_part, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename T>
-int dispatch_bwd_dv(const void* u, const void* v, const float* colcorr, const int* ids_q,
-                    const int* ids_k, const int* pos, const float* lse, const float* g,
-                    int bq, int bk, int d, float* dv, float* dcol, cudaStream_t s) {
-  if (d <= 32) return launch_bwd_dv<T, 32>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, dv, dcol, s);
-  if (d <= 64) return launch_bwd_dv<T, 64>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, dv, dcol, s);
-  if (d <= 128) return launch_bwd_dv<T, 128>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, dv, dcol, s);
-  if (d <= 256) return launch_bwd_dv<T, 256>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, dv, dcol, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+const float* f32(const void* p) { return static_cast<const float*>(p); }
+const __nv_bfloat16* bf(const void* p) { return static_cast<const __nv_bfloat16*>(p); }
 
 }  // namespace
 
 // u [bq, d], v [bk, d] (bf16 if bf16 != 0, else fp32); colcorr [bk] fp32;
 // ids_q [bq], ids_k [bk], pos [bq] int32 (0 <= pos < bk); out lse, pos_out
-// [bq] fp32. All contiguous, on the stream's device; 1 <= d <= 256.
-// Returns the cudaError_t of the launch (0 on success).
+// [bq] fp32. All contiguous, on the stream's device; 1 <= d <= 256. bf16
+// operands take the tensor-core kernel: the candidate tiles of 64 split
+// into parts of tiles_per_part (vec != 0 when d % 8 == 0 and u, v start on
+// 16 bytes); more than one part writes its (m, l, positive logit) into
+// part [3, parts, bq] fp32, which the combine kernel, launched here too,
+// folds into lse and pos_out. fp32 operands take the FMA kernel (parts ==
+// 1; part unused). Returns the cudaError_t of the launches (0 on success).
 extern "C" int flash_ce_fwd(const void* u, const void* v, const float* colcorr,
                             const int* ids_q, const int* ids_k, const int* pos, int bq,
-                            int bk, int d, int bf16, float* lse, float* pos_out,
-                            void* stream) {
+                            int bk, int d, int bf16, int parts, int tiles_per_part, int vec,
+                            float* lse, float* pos_out, float* part, void* stream) {
   if (bq <= 0) return 0;
-  if (bk <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (bk <= 0 || d <= 0 || parts <= 0 || tiles_per_part <= 0 || (!bf16 && parts != 1) ||
+      (parts > 1 && part == nullptr) ||
+      static_cast<long long>(parts) * tiles_per_part * DU_TK < bk)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_fwd<__nv_bfloat16>(u, v, colcorr, ids_q, ids_k, pos, bq, bk, d, lse, pos_out, s)
-              : dispatch_fwd<float>(u, v, colcorr, ids_q, ids_k, pos, bq, bk, d, lse, pos_out, s);
+  if (!bf16)
+    return by_width(d, [&](auto w) {
+      constexpr int DP = decltype(w)::value;
+      return launch(flash_ce_fwd_kernel<DP>, dim3((bq + TQ - 1) / TQ), THREADS, fwd_smem<DP>(),
+                    s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, bq, bk, d, lse, pos_out);
+    });
+  const int err = by_width(d, [&](auto w) {
+    constexpr int DP = decltype(w)::value;
+    return launch(flash_ce_fwd_tc_kernel<DP>, dim3((bq + DU_TQ - 1) / DU_TQ, parts),
+                  DU_THREADS, bwd_du_tc_smem<DP>(), s, bf(u), bf(v), colcorr, ids_q, ids_k,
+                  pos, bq, bk, d, vec, tiles_per_part, lse, pos_out, part);
+  });
+  if (err != 0 || parts == 1) return err;
+  flash_ce_fwd_combine_kernel<<<(bq + 255) / 256, 256, 0, s>>>(part, parts, bq, lse, pos_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // As flash_ce_fwd, plus lse, g [bq] fp32 and the wrapper's plan: the
@@ -1247,16 +1505,29 @@ extern "C" int flash_ce_bwd(const void* u, const void* v, const float* colcorr,
     return static_cast<int>(cudaErrorInvalidValue);
   const int tpb = tiles_per_block;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_bwd_tc(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, tpb, parts, q_tiles_per_part, dv_part, dcol_part, du_part, s)
-              : dispatch_bwd_fma(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, tpb, dv_part, dcol_part, du_part, s);
+  if (!bf16)
+    return by_width(d, [&](auto w) {
+      constexpr int DP = decltype(w)::value;
+      const int n_tiles = (bk + TK - 1) / TK;
+      return launch(flash_ce_bwd_kernel<DP>, dim3((n_tiles + tpb - 1) / tpb), THREADS,
+                    bwd_smem<DP>(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, lse, g,
+                    bq, bk, d, tpb, dv_part, dcol_part, du_part);
+    });
+  return by_width(d, [&](auto w) {
+    constexpr int DP = decltype(w)::value;
+    constexpr int DN = DP < 128 ? DP : 128;
+    const int n_tiles = (bk + TKC - 1) / TKC;
+    return launch(flash_ce_bwd_tc_kernel<DP>, dim3((n_tiles + tpb - 1) / tpb, parts, DP / DN),
+                  THREADS, bwd_tc_smem<DP>(), s, bf(u), bf(v), colcorr, ids_q, ids_k, pos, lse,
+                  g, bq, bk, d, vec, tpb, q_tiles_per_part, dv_part, dcol_part, du_part);
+  });
 }
 
 // As flash_ce_bwd, with row 6's plan; out du_part [parts, bq, d] fp32, the
 // wrapper summing it over its first axis (dU itself when parts == 1).
 // bf16 operands take the tensor-core kernel: the candidate tiles of 64
-// split into parts of tiles_per_part (vec != 0 when d % 8 == 0 and u, v
-// start on 16 bytes); fp32 operands the FMA kernel (parts == 1).
-// Returns the cudaError_t of the launch.
+// split into parts of tiles_per_part (vec as above); fp32 operands the FMA
+// kernel (parts == 1). Returns the cudaError_t of the launch.
 extern "C" int flash_ce_bwd_du(const void* u, const void* v, const float* colcorr,
                                const int* ids_q, const int* ids_k, const int* pos,
                                const float* lse, const float* g, int bq, int bk, int d,
@@ -1267,19 +1538,50 @@ extern "C" int flash_ce_bwd_du(const void* u, const void* v, const float* colcor
       static_cast<long long>(parts) * tiles_per_part * DU_TK < bk)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_bwd_du_tc(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, vec, parts, tiles_per_part, du_part, s)
-              : dispatch_bwd_du<float>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, du_part, s);
+  if (!bf16)
+    return by_width(d, [&](auto w) {
+      constexpr int DP = decltype(w)::value;
+      return launch(flash_ce_bwd_du_kernel<DP>, dim3((bq + TQ - 1) / TQ), THREADS,
+                    bwd_du_smem<DP>(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, lse, g,
+                    bq, bk, d, du_part);
+    });
+  return by_width(d, [&](auto w) {
+    constexpr int DP = decltype(w)::value;
+    constexpr int DN = DP < 128 ? DP : 128;
+    return launch(flash_ce_bwd_du_tc_kernel<DP>, dim3((bq + DU_TQ - 1) / DU_TQ, parts, DP / DN),
+                  DU_THREADS, bwd_du_tc_smem<DP>(), s, bf(u), bf(v), colcorr, ids_q, ids_k,
+                  pos, lse, g, bq, bk, d, vec, tiles_per_part, du_part);
+  });
 }
 
-// As flash_ce_bwd, without tiles_per_block; out dv [bk, d] and dcol [bk]
-// fp32 (row 7). Returns the cudaError_t of the launch.
+// As flash_ce_bwd, with row 7's plan; out dv_part [parts, bk, d] and
+// dcol_part [parts, bk] fp32, the wrapper summing each over its first axis
+// (dV and dcol themselves when parts == 1). bf16 operands take the
+// tensor-core kernel: the query tiles of 64 split into parts of
+// q_tiles_per_part (vec as above); fp32 operands the FMA kernel (parts ==
+// 1). Returns the cudaError_t of the launch.
 extern "C" int flash_ce_bwd_dv(const void* u, const void* v, const float* colcorr,
                                const int* ids_q, const int* ids_k, const int* pos,
                                const float* lse, const float* g, int bq, int bk, int d,
-                               int bf16, float* dv, float* dcol, void* stream) {
+                               int bf16, int parts, int q_tiles_per_part, int vec,
+                               float* dv_part, float* dcol_part, void* stream) {
   if (bk <= 0) return 0;
-  if (bq <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (bq <= 0 || d <= 0 || parts <= 0 || q_tiles_per_part <= 0 || (!bf16 && parts != 1) ||
+      static_cast<long long>(parts) * q_tiles_per_part * DV_TQ < bq)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_bwd_dv<__nv_bfloat16>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, dv, dcol, s)
-              : dispatch_bwd_dv<float>(u, v, colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d, dv, dcol, s);
+  if (!bf16)
+    return by_width(d, [&](auto w) {
+      constexpr int DP = decltype(w)::value;
+      return launch(flash_ce_bwd_dv_kernel<DP>, dim3((bk + TK - 1) / TK), THREADS,
+                    bwd_dv_smem<DP>(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, lse, g,
+                    bq, bk, d, dv_part, dcol_part);
+    });
+  return by_width(d, [&](auto w) {
+    constexpr int DP = decltype(w)::value;
+    constexpr int DN = DP < 128 ? DP : 128;
+    return launch(flash_ce_bwd_dv_tc_kernel<DP>, dim3((bk + DV_TK - 1) / DV_TK, parts, DP / DN),
+                  DV_THREADS, bwd_dv_tc_smem<DP>(), s, bf(u), bf(v), colcorr, ids_q, ids_k,
+                  pos, lse, g, bq, bk, d, vec, q_tiles_per_part, dv_part, dcol_part);
+  });
 }

@@ -13,11 +13,13 @@ never write the [Bq, Bk] logits; the plain versions (``*_reference``)
 form them ~1 GiB of query rows at a time, and the wrappers run them only
 for CPU tensors.
 
-The backward takes the TPU package's route (:func:`bwd_route`): the
-fused kernel while the TPU's dU partials fit ``_FUSED_BWD_PARTIALS_CAP``,
-else the two-kernel backward (a query-major dU kernel and a
-candidate-major dV/dcol kernel, each recomputing the logits). What
-differs from the TPU kernels: the tiles need not divide the batch
+The backward (:func:`bwd_route`) of fp32 operands takes the TPU
+package's route: the fused kernel while the TPU's dU partials fit
+``_FUSED_BWD_PARTIALS_CAP``, else the two-kernel backward (a query-major
+dU kernel and a candidate-major dV/dcol kernel, each recomputing the
+logits). bf16 operands take the two-kernel backward at every shape, which
+on the H100's tensor cores beat the fused kernel on both sides of the cap.
+What differs from the TPU kernels: the tiles need not divide the batch
 (ragged rows and candidates are masked).
 """
 
@@ -34,25 +36,29 @@ from recsys_tpu_torch.ops import _build
 NEG_BIG = -1e9
 # tile sizes of csrc/flash_ce.cu (query rows, candidate rows per tile;
 # the fused backward of bf16 operands takes candidate tiles of TKC, row 6
-# of bf16 operands query tiles of DU_TQ and candidate tiles of DU_TK)
+# and the forward of bf16 operands query tiles of DU_TQ and candidate
+# tiles of DU_TK, row 7 of bf16 operands candidate tiles of DV_TK and
+# query tiles of DV_TQ)
 TQ = 64
 TK = 64
 TKC = 128
 DU_TQ = 64
 DU_TK = 64
+DV_TK = 64
+DV_TQ = 64
 MAX_DIM = 256
-# row 6 of bf16 operands splits the candidate sweep into parts until the
+# the bf16 forward and rows 6 and 7 split their sweep into parts until the
 # grid holds about this many blocks per SM (a few resident at a time, and
 # enough waves that the last is not mostly idle)
-_DU_BLOCKS_PER_SM = 8
+_SWEEP_BLOCKS_PER_SM = 8
 # The TPU package's fused backward keeps one dU partial per candidate
 # tile of its own tiling (_tiles); above this many bytes of them
 # ([Bk // tk, Bq, D] fp32) it switches to its two-kernel backward, and so
-# does the port (bwd_route): at D = 128 the square batch reaches it above
-# ~139k rows when 2,048 divides it, far earlier when only a small tile
-# does. The port's own fused partials never exceed the cap either
-# (bwd_plan). The value is the JAX package's, set from a TPU
-# v5e measurement: unmeasured on H100.
+# does the port for fp32 operands (bwd_route): at D = 128 the square batch
+# reaches it above ~139k rows when 2,048 divides it, far earlier when only
+# a small tile does. The port's own partials (bwd_plan, du_plan, dv_plan,
+# fwd_plan) never exceed the cap either. The value is the JAX package's,
+# set from a TPU v5e measurement; bf16 operands no longer route by it.
 _FUSED_BWD_PARTIALS_CAP = int(4.5 * 1024**3)
 # the TPU's preferred (query, candidate) tiles, copied to count its partials
 _TQ_PREF = 1024
@@ -106,6 +112,76 @@ def flash_ce_fwd_reference(u, v, colcorr, ids_q, ids_k, pos
         lse.append(torch.logsumexp(s, dim=-1))
         pos_logit.append(torch.gather(s, 1, pos[r].long()[:, None])[:, 0])
     return torch.cat(lse), torch.cat(pos_logit)
+
+
+def _split_sweep(n_tiles: int, blocks: int, max_parts: int, n_sm: int) -> Tuple[int, int]:
+    """The swept axis's ``n_tiles`` tiles split into parts until a grid of
+    ``blocks`` blocks per part holds about ``_SWEEP_BLOCKS_PER_SM`` blocks per
+    SM, no more parts than tiles or than ``max_parts``; no part is empty.
+    -> (parts, tiles per part)."""
+    parts = min(n_tiles, -(-_SWEEP_BLOCKS_PER_SM * n_sm // blocks), max_parts)
+    per_part = -(-n_tiles // max(1, parts))
+    return -(-n_tiles // per_part), per_part
+
+
+class FwdPlan(NamedTuple):
+    """How the forward cuts [Bq, Bk]: blocks of ``tile`` query rows, each
+    sweeping ``tiles_per_part`` candidate tiles of ``ktile`` in one of
+    ``parts`` parts of the candidate axis. Partials: (m, l, positive
+    logit) ``[3, parts, Bq]`` fp32, combined in part order (none with one
+    part: the kernel writes lse and the positive logit)."""
+    tile: int
+    ktile: int
+    parts: int
+    tiles_per_part: int
+
+    def partials_bytes(self, bq: int) -> int:
+        return 12 * self.parts * bq if self.parts > 1 else 0
+
+
+def fwd_plan(bq: int, bk: int, bf16: bool, n_sm: int) -> FwdPlan:
+    """The forward's tiling on a card of ``n_sm`` SMs. bf16 operands (the
+    tensor-core kernel): 64-row query tiles, 64-candidate tiles, and the
+    candidate sweep split into as many parts as bring the grid to about
+    ``_SWEEP_BLOCKS_PER_SM`` blocks per SM (8,192 rows give only 128 query
+    tiles), no more than the candidate tiles and no more than keep the
+    partials under ``_FUSED_BWD_PARTIALS_CAP``; no part is empty. fp32
+    operands (the FMA kernel): one part, 64-row tiles."""
+    if not bf16:
+        return FwdPlan(TQ, TK, 1, -(-bk // TK))
+    return FwdPlan(DU_TQ, DU_TK, *_split_sweep(-(-bk // DU_TK), -(-bq // DU_TQ),
+                                               _FUSED_BWD_PARTIALS_CAP // (12 * bq), n_sm))
+
+
+def flash_ce_fwd_partials_reference(u, v, colcorr, ids_q, ids_k, pos, p: FwdPlan
+                                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of what the forward kernel writes under plan ``p``,
+    over the whole [Bq, Bk] logits at once (small shapes): per part of the
+    candidate axis the running max ``m`` (from -1e9, as the kernel starts
+    it), the sum-exp ``l`` under it and the positive logit (0 where the
+    positive column lies in another part) -> (m, l, positive logit), each
+    [parts, Bq] fp32; :func:`combine_fwd_partials` of them is the forward."""
+    s = _masked_logits(u, v, colcorr, ids_q, ids_k, pos)
+    is_pos = torch.arange(v.shape[0], device=v.device)[None, :] == pos[:, None].long()
+    span = p.ktile * p.tiles_per_part
+    m, l, pos_logit = [], [], []
+    for lo in range(0, p.parts * span, span):
+        part = s[:, lo:lo + span]
+        mp = torch.clamp(part.max(dim=1).values, min=NEG_BIG)
+        m.append(mp)
+        l.append(torch.exp(part - mp[:, None]).sum(dim=1))
+        pos_logit.append(torch.where(is_pos[:, lo:lo + span], part, 0.0).sum(dim=1))
+    return torch.stack(m), torch.stack(l), torch.stack(pos_logit)
+
+
+def combine_fwd_partials(m, l, pos_logit) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward's combine kernel, over [parts, Bq]
+    partials: lse = M + log(max(L, 1e-30)) with M = max_p m_p and L = sum_p
+    l_p exp(m_p - M); the positive logit is the sum over the parts (one
+    holds the positive column) -> (lse [Bq], positive logit [Bq])."""
+    mx = m.max(dim=0).values
+    total = (l * torch.exp(m - mx[None, :])).sum(dim=0)
+    return mx + torch.log(torch.clamp(total, min=1e-30)), pos_logit.sum(dim=0)
 
 
 def _bwd_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g, want_du: bool,
@@ -183,8 +259,8 @@ def _check(u, v, colcorr, ids_q, ids_k, pos, what: str) -> None:
 @functools.lru_cache(maxsize=None)
 def _fwd_launcher():
     fn = _build.load_library().flash_ce_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 3)
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
     return fn
 
@@ -210,7 +286,7 @@ def _bwd_du_launcher():
 @functools.lru_cache(maxsize=None)
 def _bwd_dv_launcher():
     fn = _build.load_library().flash_ce_bwd_dv
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return fn
@@ -227,8 +303,12 @@ def _on_cuda(u, what: str) -> bool:
 def flash_ce_fwd(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
                  ids_q: torch.Tensor, ids_k: torch.Tensor, pos: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (lse [Bq], positive logit [Bq]) fp32. ``u``, ``v`` fp32 or bf16,
-    ``colcorr`` fp32 [Bk], ids and ``pos`` int32.
+    """Row 4 (``_fwd_kernel``): -> (lse [Bq], positive logit [Bq]) fp32.
+    ``u``, ``v`` fp32 or bf16, ``colcorr`` fp32 [Bk], ids and ``pos``
+    int32. The block that owns a query tile sweeps the candidate tiles of
+    its part (:func:`fwd_plan`; bf16 operands on the tensor cores, fp32 on
+    the FMA units); with more than one part a combine kernel, launched by
+    the same host call, folds the parts' partials in part order.
 
     CPU tensors take :func:`flash_ce_fwd_reference`; CUDA tensors launch
     the kernel or raise."""
@@ -239,14 +319,19 @@ def flash_ce_fwd(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
     bk = v.shape[0]
     u, v = u.contiguous(), v.contiguous()
     colcorr, ids_q, ids_k, pos = (t.contiguous() for t in (colcorr, ids_q, ids_k, pos))
+    bf16 = u.dtype == torch.bfloat16
+    p = fwd_plan(bq, bk, bf16, _sm_count(u.device.index))
     lse = torch.empty((bq,), dtype=torch.float32, device=u.device)
     pos_logit = torch.empty_like(lse)
+    part = (torch.empty((3, p.parts, bq), dtype=torch.float32, device=u.device)
+            if p.parts > 1 else None)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fwd_launcher()(u.data_ptr(), v.data_ptr(), colcorr.data_ptr(),
                               ids_q.data_ptr(), ids_k.data_ptr(), pos.data_ptr(),
-                              bq, bk, d, int(u.dtype == torch.bfloat16),
-                              lse.data_ptr(), pos_logit.data_ptr(), stream)
+                              bq, bk, d, int(bf16), p.parts, p.tiles_per_part, _vec(u, v),
+                              lse.data_ptr(), pos_logit.data_ptr(),
+                              None if part is None else part.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_ce_fwd kernel launch failed: cudaError {err}")
     flash_ce_fwd.launches += 1
@@ -264,9 +349,23 @@ def fused_bwd_partials_bytes(bq: int, bk: int, d: int) -> int:
     return bq * d * (bk // tk) * 4
 
 
-def bwd_route(bq: int, bk: int, d: int) -> str:
-    """The backward the TPU package takes at this shape: ``"fused"`` while
-    its dU partials fit the cap, else ``"twokernel"`` (rows 6 and 7)."""
+def bwd_route(bq: int, bk: int, d: int, bf16: bool = False) -> str:
+    """The backward taken at this shape: ``"fused"`` (row 5) or
+    ``"twokernel"`` (rows 6 and 7).
+
+    fp32 operands take the TPU package's route: the fused kernel while its
+    dU partials fit ``_FUSED_BWD_PARTIALS_CAP``, else the two-kernel one.
+    bf16 operands take the two-kernel route at every shape: on the tensor
+    cores it won at every shape timed, under the TPU's cap and above it, by
+    far more than the run-to-run spread, with a fraction of the fused
+    kernel's memory (``chip_smoke.py``'s route table, D = 128, NVIDIA H100
+    80GB HBM3 at 700 W; ms two-kernel / fused, each the slower of two runs).
+    Under the cap: 4,096 x 20,480 0.608 / 1.016, 8,192^2 0.473 / 0.591,
+    16,384^2 1.846 / 2.261, 32,768^2 6.130 / 8.680, 131,072 x 147,456
+    (at the cap) 111.7 / 264.1; above it: 20,000^2 2.734 / 4.847, 65,536 x
+    327,680 123.0 / 409.6, 131,072 x 262,144 201.0 / 401.2."""
+    if bf16:
+        return "twokernel"
     return ("fused" if fused_bwd_partials_bytes(bq, bk, d) <= _FUSED_BWD_PARTIALS_CAP
             else "twokernel")
 
@@ -349,10 +448,15 @@ def flash_ce_bwd_partials_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g, p:
     span, rows = p.tile * p.tiles_per_block, p.q_tiles_per_part * TQ
     du = torch.stack([pg[:, lo:lo + span] @ vf[lo:lo + span]
                       for lo in range(0, p.n_spans * span, span)])
-    q_parts = range(0, p.parts * rows, rows)
-    dv = torch.stack([pg[lo:lo + rows].T @ uf[lo:lo + rows] for lo in q_parts])
-    dcol = torch.stack([pg32[lo:lo + rows].sum(dim=0) for lo in q_parts])
-    return du, dv, dcol
+    return (du, *_dv_parts(pg32, pg, uf, rows, p.parts))
+
+
+def _dv_parts(pg32, pg, uf, rows: int, parts: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dV and dcol of each of ``parts`` consecutive parts of ``rows`` query
+    rows -> ([parts, Bk, D], [parts, Bk]) fp32."""
+    q_parts = range(0, parts * rows, rows)
+    return (torch.stack([pg[lo:lo + rows].T @ uf[lo:lo + rows] for lo in q_parts]),
+            torch.stack([pg32[lo:lo + rows].sum(dim=0) for lo in q_parts]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -375,6 +479,13 @@ def _bwd_args(u, v, colcorr, ids_q, ids_k, pos, lse, g, what: str) -> tuple:
 
 def _ptrs(args) -> list:
     return [t.data_ptr() for t in args]
+
+
+def _vec(u, v) -> int:
+    """1 where the tensor-core kernels may stage u and v rows 16 bytes at a
+    time (bf16, D a multiple of 8, both starting on 16 bytes), else 0."""
+    return int(u.dtype == torch.bfloat16 and u.shape[1] % 8 == 0
+               and u.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
 
 
 def flash_ce_bwd_fused(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
@@ -401,11 +512,10 @@ def flash_ce_bwd_fused(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
     du_part = torch.empty((p.n_spans, bq, d), **f32)
     dv_part = torch.empty((p.parts, bk, d), **f32)
     dcol_part = torch.empty((p.parts, bk), **f32)
-    vec = int(bf16 and d % 8 == 0 and u.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_launcher()(*_ptrs(args), bq, bk, d, int(bf16), p.tiles_per_block,
-                              p.parts, p.q_tiles_per_part, vec, dv_part.data_ptr(),
+                              p.parts, p.q_tiles_per_part, _vec(u, v), dv_part.data_ptr(),
                               dcol_part.data_ptr(), du_part.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_ce_bwd_fused kernel launch failed: cudaError {err}")
@@ -434,18 +544,15 @@ def du_plan(bq: int, bk: int, d: int, bf16: bool, n_sm: int) -> DuPlan:
     """Row 6's tiling on a card of ``n_sm`` SMs. bf16 operands (the
     tensor-core kernel): 64-row query tiles, 64-candidate tiles, and the
     candidate sweep split into as many parts as bring the grid to about
-    ``_DU_BLOCKS_PER_SM`` blocks per SM (8,192 rows give only 128 query
+    ``_SWEEP_BLOCKS_PER_SM`` blocks per SM (8,192 rows give only 128 query
     tiles), no more than the candidate tiles and no more than keep the dU
     partials under ``_FUSED_BWD_PARTIALS_CAP``; no part is empty. fp32
     operands (the FMA kernel): one part, 64-row tiles."""
     if not bf16:
         return DuPlan(TQ, TK, 1, -(-bk // TK))
-    n_kt = -(-bk // DU_TK)
     blocks = -(-bq // DU_TQ) * (2 if d > 128 else 1)
-    parts = min(n_kt, -(-_DU_BLOCKS_PER_SM * n_sm // blocks),
-                _FUSED_BWD_PARTIALS_CAP // (4 * bq * d))
-    tpp = -(-n_kt // max(1, parts))
-    return DuPlan(DU_TQ, DU_TK, -(-n_kt // tpp), tpp)
+    return DuPlan(DU_TQ, DU_TK, *_split_sweep(-(-bk // DU_TK), blocks,
+                                              _FUSED_BWD_PARTIALS_CAP // (4 * bq * d), n_sm))
 
 
 def flash_ce_bwd_du(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
@@ -465,11 +572,10 @@ def flash_ce_bwd_du(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
     bf16 = u.dtype == torch.bfloat16
     p = du_plan(bq, v.shape[0], d, bf16, _sm_count(u.device.index))
     du_part = torch.empty((p.parts, bq, d), dtype=torch.float32, device=u.device)
-    vec = int(bf16 and d % 8 == 0 and u.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_du_launcher()(*_ptrs(args), bq, v.shape[0], d, int(bf16), p.parts,
-                                 p.tiles_per_part, vec, du_part.data_ptr(), stream)
+                                 p.tiles_per_part, _vec(u, v), du_part.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_ce_bwd_du kernel launch failed: cudaError {err}")
     flash_ce_bwd_du.launches += 1
@@ -479,12 +585,55 @@ def flash_ce_bwd_du(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
 flash_ce_bwd_du.launches = 0
 
 
+class DvPlan(NamedTuple):
+    """How row 7 cuts [Bq, Bk]: blocks of ``tile`` candidates, each sweeping
+    ``q_tiles_per_part`` query tiles of ``qtile`` in one of ``parts`` parts
+    of the query axis. Partials: dV ``[parts, Bk, D]`` and dcol ``[parts,
+    Bk]`` fp32, summed in a fixed order (none with one part: the kernel
+    writes dV and dcol)."""
+    tile: int
+    qtile: int
+    parts: int
+    q_tiles_per_part: int
+
+    def partials_bytes(self, bk: int, d: int) -> int:
+        return 4 * self.parts * bk * (d + 1) if self.parts > 1 else 0
+
+
+def dv_plan(bq: int, bk: int, d: int, bf16: bool, n_sm: int) -> DvPlan:
+    """Row 7's tiling on a card of ``n_sm`` SMs. bf16 operands (the
+    tensor-core kernel): 64-candidate tiles, 64-row query tiles, and the
+    query sweep split into as many parts as bring the grid to about
+    ``_SWEEP_BLOCKS_PER_SM`` blocks per SM (8,192 candidates give only 128
+    tiles), no more than the query tiles and no more than keep the dV and
+    dcol partials under ``_FUSED_BWD_PARTIALS_CAP``; no part is empty. fp32
+    operands (the FMA kernel): one part, 64-row tiles."""
+    if not bf16:
+        return DvPlan(TK, TQ, 1, -(-bq // TQ))
+    blocks = -(-bk // DV_TK) * (2 if d > 128 else 1)
+    return DvPlan(DV_TK, DV_TQ, *_split_sweep(-(-bq // DV_TQ), blocks,
+                                              _FUSED_BWD_PARTIALS_CAP // (4 * bk * (d + 1)),
+                                              n_sm))
+
+
+def flash_ce_bwd_dv_partials_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g, p: DvPlan
+                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of what row 7's kernel writes under plan ``p``, over
+    the whole [Bq, Bk] logits at once (small shapes): -> (dV partials
+    [parts, Bk, D], dcol partials [parts, Bk]) fp32, one per part of the
+    query axis; their sums over the first axis are dV and dcol."""
+    pg32 = torch.exp(_masked_logits(u, v, colcorr, ids_q, ids_k, pos) - lse[:, None]) * g[:, None]
+    return _dv_parts(pg32, pg32.to(u.dtype).float(), u.float(), p.qtile * p.q_tiles_per_part,
+                     p.parts)
+
+
 def flash_ce_bwd_dv(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
                     ids_q: torch.Tensor, ids_k: torch.Tensor, pos: torch.Tensor,
                     lse: torch.Tensor, g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row 7 (``_bwd_dv_kernel``): -> (dV [Bk, D], dcol [Bk]) fp32,
-    candidate-major, every query tile swept by the block that owns a
-    candidate tile.
+    candidate-major: the block that owns a candidate tile sweeps the query
+    tiles of its part (:func:`dv_plan`; bf16 operands on the tensor cores,
+    fp32 on the FMA units), the parts summed here in a fixed order.
 
     CPU tensors take :func:`flash_ce_bwd_dv_reference`; CUDA tensors launch
     the kernel or raise."""
@@ -493,16 +642,21 @@ def flash_ce_bwd_dv(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
         return flash_ce_bwd_dv_reference(*args)
     bq, d = u.shape
     bk = v.shape[0]
-    dv = torch.empty((bk, d), dtype=torch.float32, device=u.device)
-    dcol = torch.empty((bk,), dtype=torch.float32, device=u.device)
+    bf16 = u.dtype == torch.bfloat16
+    p = dv_plan(bq, bk, d, bf16, _sm_count(u.device.index))
+    dv_part = torch.empty((p.parts, bk, d), dtype=torch.float32, device=u.device)
+    dcol_part = torch.empty((p.parts, bk), dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_dv_launcher()(*_ptrs(args), bq, bk, d, int(u.dtype == torch.bfloat16),
-                                 dv.data_ptr(), dcol.data_ptr(), stream)
+        err = _bwd_dv_launcher()(*_ptrs(args), bq, bk, d, int(bf16), p.parts,
+                                 p.q_tiles_per_part, _vec(u, v), dv_part.data_ptr(),
+                                 dcol_part.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_ce_bwd_dv kernel launch failed: cudaError {err}")
     flash_ce_bwd_dv.launches += 1
-    return dv, dcol
+    if p.parts == 1:
+        return dv_part[0], dcol_part[0]
+    return torch.sum(dv_part, dim=0), torch.sum(dcol_part, dim=0)
 
 
 flash_ce_bwd_dv.launches = 0
@@ -512,7 +666,9 @@ def flash_ce_bwd_twokernel(u, v, colcorr, ids_q, ids_k, pos, lse, g
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The two-kernel backward (``_flash_bwd_twokernel_raw``) at any shape:
     -> (dU, dV, dcol) from :func:`flash_ce_bwd_du` and
-    :func:`flash_ce_bwd_dv`. No partials: each output is written once."""
+    :func:`flash_ce_bwd_dv`, whose bf16 kernels split their swept axis
+    into parts only where their own tiles leave the card thin
+    (:func:`du_plan`, :func:`dv_plan`; none at 131,072 x 262,144)."""
     du = flash_ce_bwd_du(u, v, colcorr, ids_q, ids_k, pos, lse, g)
     return (du, *flash_ce_bwd_dv(u, v, colcorr, ids_q, ids_k, pos, lse, g))
 
@@ -522,11 +678,12 @@ def flash_ce_bwd(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
                  lse: torch.Tensor, g: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Softmax part of the backward (before the label terms) -> (dU [Bq, D],
-    dV [Bk, D], dcol [Bk]) fp32, on the TPU package's route
-    (:func:`bwd_route`): :func:`flash_ce_bwd_fused` while its partials fit
-    the cap, else :func:`flash_ce_bwd_twokernel`."""
+    dV [Bk, D], dcol [Bk]) fp32, on :func:`bwd_route`:
+    :func:`flash_ce_bwd_twokernel` for bf16 operands; for fp32 operands
+    :func:`flash_ce_bwd_fused` while the TPU's partials fit the cap, else
+    the two-kernel backward."""
     _check(u, v, colcorr, ids_q, ids_k, pos, "flash_ce_bwd")
-    if bwd_route(u.shape[0], v.shape[0], u.shape[1]) == "fused":
+    if bwd_route(u.shape[0], v.shape[0], u.shape[1], u.dtype == torch.bfloat16) == "fused":
         return flash_ce_bwd_fused(u, v, colcorr, ids_q, ids_k, pos, lse, g)
     return flash_ce_bwd_twokernel(u, v, colcorr, ids_q, ids_k, pos, lse, g)
 

@@ -11,6 +11,9 @@ Tolerances:
   the same point), plus one bf16 ulp (2**-8) on dU and dV of bf16
   operands, where a ``p*g`` one fp32 bit apart may round to the other
   bf16 neighbour;
+* row 7's partial layout (parts of the query axis) summed: 1e-6 of
+  max|ref| against the one-pass plain dV and dcol (the same sums, split at
+  part boundaries), and the tolerance above against JAX;
 * the plain versions chunked over query rows against one chunk: 1e-6 of
   max on the forward (the same sums per row), 1e-5 on dU, dV and dcol
   (dV and dcol summed over the chunks in another order);
@@ -227,6 +230,87 @@ def test_du_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
     p = F.du_plan(bq, bk, d, True, 132)
     assert (p.parts, p.tiles_per_part) == (2, 64)
     assert p.partials_bytes(bq, d) <= F._FUSED_BWD_PARTIALS_CAP
+
+
+@pytest.mark.parametrize("bq,bk,d,parts", [
+    (8192, 8192, 128, 9),          # 128 candidate tiles: the query sweep in 9 parts
+    (131072, 262144, 128, 1),      # the giant step: 4,096 candidate tiles, no partials
+    (1000, 3001, 129, 8),          # ragged, two column slices: a part per 2 query tiles
+    (1000, 3001, 64, 16),          # a part per query tile
+    (64, 10, 32, 1),               # one query tile
+])
+def test_dv_plan_fills_the_card_under_the_cap(bq, bk, d, parts):
+    """Row 7's tiling for bf16 operands, checked on the CPU: 64-candidate
+    tiles and 64-row query tiles, the query sweep split into parts until
+    the grid holds about 8 blocks per SM, every query tile in exactly one
+    part, and the dV and dcol partials under the cap; fp32 operands keep
+    one part (the FMA kernel)."""
+    n_sm = 132
+    p = F.dv_plan(bq, bk, d, True, n_sm)
+    assert (p.tile, p.qtile, p.parts) == (F.DV_TK, F.DV_TQ, parts)
+    n_qt = -(-bq // p.qtile)
+    assert p.parts * p.q_tiles_per_part >= n_qt > (p.parts - 1) * p.q_tiles_per_part
+    assert p.partials_bytes(bk, d) <= F._FUSED_BWD_PARTIALS_CAP
+    k_blocks = -(-bk // p.tile) * (2 if d > 128 else 1)
+    assert k_blocks * p.parts >= min(4 * n_sm, k_blocks * n_qt)
+    fp32 = F.dv_plan(bq, bk, d, False, n_sm)
+    assert fp32.parts == 1 and fp32.partials_bytes(bk, d) == 0
+    assert fp32.q_tiles_per_part * fp32.qtile >= bq
+
+
+def test_dv_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
+    """With room for only two parts of dV and dcol the plan takes two
+    parts, each sweeping half the query tiles."""
+    bq, bk, d = 8192, 8192, 128
+    monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 2 * 4 * bk * (d + 1))
+    p = F.dv_plan(bq, bk, d, True, 132)
+    assert (p.parts, p.q_tiles_per_part) == (2, 64)
+    assert p.partials_bytes(bk, d) <= F._FUSED_BWD_PARTIALS_CAP
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bq,bk,d,n_sm,all_accidental", [
+    (192, 64, 32, 132, False),    # three parts of one query tile
+    (320, 1024, 32, 4, True),     # two parts of 3 and 2 query tiles
+    (65, 1, 16, 132, False),      # one candidate, two parts
+    (130, 300, 129, 132, True),   # three parts, the last of 2 rows; D past 128
+])
+def test_dv_partials_sum_to_the_reference_and_jax(dtype, bq, bk, d, n_sm, all_accidental):
+    """The plain version of row 7's partials under ``dv_plan`` ([parts, Bk,
+    D] dV, [parts, Bk] dcol), summed over the parts, equals the one-pass
+    plain dV and dcol and JAX ``_flash_bwd_twokernel_raw`` in interpret
+    mode; the cases hold rows whose every candidate but the positive is an
+    accidental hit and a positive in the last column."""
+    rng = np.random.default_rng(bq + bk + d)
+    u = (rng.standard_normal((bq, d)) * d ** -0.5).astype(np.float32)
+    v = rng.standard_normal((bk, d)).astype(np.float32)
+    c = rng.standard_normal(bk).astype(np.float32)
+    ids_k = rng.integers(0, max(2, bk // 3), bk).astype(np.int32)
+    ids_q = rng.integers(0, max(2, bk // 3), bq).astype(np.int32)
+    pos = np.arange(bq, dtype=np.int32) % bk
+    pos[0] = bk - 1
+    if all_accidental:
+        ids_k[:] = bk
+        ids_q[::3] = bk
+    g = rng.standard_normal(bq).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    tu, tv = torch.tensor(u).to(tdt), torch.tensor(v).to(tdt)
+    small = (torch.tensor(c), torch.tensor(ids_q), torch.tensor(ids_k), torch.tensor(pos))
+    lse, _ = F.flash_ce_fwd_reference(tu, tv, *small)
+    args = (tu, tv, *small, lse, torch.tensor(g))
+    p = F.dv_plan(bq, bk, d, True, n_sm)
+    assert p.parts > 1
+    dv_part, dcol_part = F.flash_ce_bwd_dv_partials_reference(*args, p)
+    assert dv_part.shape == (p.parts, bk, d) and dcol_part.shape == (p.parts, bk)
+    got = (dv_part.sum(dim=0), dcol_part.sum(dim=0))
+    for a, b in zip(got, F.flash_ce_bwd_dv_reference(*args)):
+        _rel_close(a, b, 1e-6)
+    want = JF._flash_bwd_twokernel_raw(
+        jnp.asarray(u).astype(jdt), jnp.asarray(v).astype(jdt), jnp.asarray(c),
+        jnp.asarray(ids_q), jnp.asarray(ids_k), jnp.asarray(pos), jnp.asarray(lse.numpy()),
+        jnp.asarray(g), True)
+    _rel_close(got[0], want[1], 1e-5 + (BF16_ULP if dtype == "bfloat16" else 0.0))
+    _rel_close(got[1], want[2], 1e-5)
 
 
 # ---- sparse optimizer functions ------------------------------------------

@@ -14,7 +14,11 @@ Tolerances:
   1e-5 holds, plus one bf16 ulp (2**-8 relative) on the u and v
   gradients, which both packages round to bf16;
 * DCN VJP: rtol = 1e-5 and atol = 1e-5 of the largest magnitude (dw sums
-  ``t * x_l`` over rows in another order).
+  ``t * x_l`` over rows in another order);
+* the forward's partial layout (kernel row 4 on the tensor cores, in
+  parts of the candidate axis), combined: 1e-6 of max|ref| against the
+  one-pass plain forward (the same sums, split at part boundaries), and
+  rtol = atol = 1e-5 against JAX ``_flash_fwd_raw`` in interpret mode.
 """
 
 import jax
@@ -263,6 +267,124 @@ def test_bwd_plan_keeps_the_tpu_route(bq, bk):
         for bf16 in (True, False):
             plan = F.bwd_plan(bq, bk, d, bf16, 132)
             assert plan.partials_bytes(bq, bk, d) <= F._FUSED_BWD_PARTIALS_CAP
+
+
+@pytest.mark.parametrize("bq,bk", [(4096, 20480), (8192, 8192), (16384, 16384),
+                                   (32768, 32768), (20000, 20000), (65536, 327680),
+                                   (131072, 147456), (131072, 262144)])
+def test_bwd_route_takes_rows_6_and_7_for_bf16_operands(bq, bk):
+    """The route measured on the H100 (``chip_smoke.py``'s route table,
+    these shapes): bf16 operands take the two-kernel backward on both
+    sides of the cap; fp32 operands keep the TPU package's route."""
+    d = 128
+    assert F.bwd_route(bq, bk, d, True) == "twokernel"
+    _, tk = JF._tiles(bq, bk)
+    tpu = "fused" if bq * d * (bk // tk) * 4 <= JF._FUSED_BWD_PARTIALS_CAP else "twokernel"
+    assert F.bwd_route(bq, bk, d, False) == F.bwd_route(bq, bk, d) == tpu
+
+
+@pytest.mark.parametrize("dtype,route", [("bfloat16", "twokernel"), ("float32", "fused")])
+def test_flash_ce_bwd_routes_by_operand_type(dtype, route, monkeypatch):
+    """Under the cap ``flash_ce_bwd`` sends bf16 operands to rows 6 and 7
+    and fp32 operands to the fused kernel; both routes give the plain
+    backward."""
+    calls = []
+    for name in ("fused", "twokernel"):
+        monkeypatch.setattr(F, f"flash_ce_bwd_{name}", lambda *a, name=name: (
+            calls.append(name) or F.flash_ce_bwd_reference(*a)))
+    u, v, c, ids_q, ids_k, g = (torch.tensor(x) for x in _inputs(64, 96, 16, seed=4))
+    u, v = u.to(getattr(torch, dtype)), v.to(getattr(torch, dtype))
+    pos = torch.arange(64, dtype=torch.int32)
+    lse, _ = F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos)
+    got = F.flash_ce_bwd(u, v, c, ids_q, ids_k, pos, lse, g)
+    assert calls == [route]
+    for a, b in zip(got, F.flash_ce_bwd_reference(u, v, c, ids_q, ids_k, pos, lse, g)):
+        assert torch.equal(a, b)
+
+
+# ---- kernel row 4: the forward's plan and partial layout -----------------
+
+@pytest.mark.parametrize("bq,bk,parts", [
+    (8192, 8192, 9),         # 128 query tiles: the candidate sweep in 9 parts
+    (131072, 262144, 1),     # the giant step: 2,048 query tiles, no partials
+    (1000, 3001, 47),        # ragged: a part per candidate tile
+    (64, 10, 1),             # one candidate tile
+])
+def test_fwd_plan_fills_the_card_under_the_cap(bq, bk, parts):
+    """The forward's tiling for bf16 operands, checked on the CPU: 64-row
+    query tiles and 64-candidate tiles, the candidate sweep split into
+    parts until the grid holds about 8 blocks per SM, every candidate tile
+    in exactly one part, and the partials under the cap; fp32 operands keep
+    one part (the FMA kernel). The plan does not depend on D: the logits
+    need all of it, so the forward has no column slices."""
+    n_sm = 132
+    p = F.fwd_plan(bq, bk, True, n_sm)
+    assert (p.tile, p.ktile, p.parts) == (F.DU_TQ, F.DU_TK, parts)
+    n_kt = -(-bk // p.ktile)
+    assert p.parts * p.tiles_per_part >= n_kt > (p.parts - 1) * p.tiles_per_part
+    assert p.partials_bytes(bq) <= F._FUSED_BWD_PARTIALS_CAP
+    q_blocks = -(-bq // p.tile)
+    assert q_blocks * p.parts >= min(4 * n_sm, q_blocks * n_kt)
+    fp32 = F.fwd_plan(bq, bk, False, n_sm)
+    assert fp32.parts == 1 and fp32.partials_bytes(bq) == 0
+    assert fp32.tiles_per_part * fp32.ktile >= bk
+
+
+def test_fwd_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
+    """With room for only two parts' (m, l, positive logit) the plan takes
+    two parts, each sweeping half the candidate tiles."""
+    bq, bk = 8192, 8192
+    monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 2 * 12 * bq)
+    p = F.fwd_plan(bq, bk, True, 132)
+    assert (p.parts, p.tiles_per_part) == (2, 64)
+    assert p.partials_bytes(bq) <= F._FUSED_BWD_PARTIALS_CAP
+
+
+def _edges(ids_q, ids_k, pos, all_accidental: bool) -> tuple:
+    """Row 0's positive in the last column (the last part of the
+    candidate axis); with ``all_accidental`` every third row's every
+    candidate but its positive is an accidental hit."""
+    ids_q, ids_k, pos = ids_q.copy(), ids_k.copy(), pos.copy()
+    pos[0] = len(ids_k) - 1
+    if all_accidental:
+        hit = int(max(ids_q.max(), ids_k.max())) + 1
+        ids_k[:] = hit
+        ids_q[::3] = hit
+    return ids_q, ids_k, pos
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bq,bk,n_sm,all_accidental", [
+    (64, 192, 132, False),    # three parts of one tile
+    (1024, 320, 4, True),     # two parts of 3 and 2 tiles
+    (70, 1, 132, False),      # one candidate: one part
+    (130, 4097, 132, True),   # 65 parts, the last of one candidate
+])
+def test_fwd_partials_combine_to_the_reference_and_jax(dtype, bq, bk, n_sm, all_accidental):
+    """The plain version of the forward kernel's partials under
+    ``fwd_plan`` (m, l and the positive logit per part), folded by the
+    plain combine, equals the one-pass plain forward and JAX
+    ``_flash_fwd_raw`` in interpret mode; row 0's positive logit lies in
+    the last part and nowhere else."""
+    u, v, c, ids_q, ids_k, _ = _inputs(bq, bk, 16, seed=bq + bk)
+    ids_q, ids_k, pos = _edges(ids_q, ids_k, np.arange(bq, dtype=np.int32) % bk,
+                               all_accidental)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    tu, tv = torch.tensor(u).to(tdt), torch.tensor(v).to(tdt)
+    small = (torch.tensor(c), torch.tensor(ids_q), torch.tensor(ids_k), torch.tensor(pos))
+    p = F.fwd_plan(bq, bk, True, n_sm)
+    m, l, pos_part = F.flash_ce_fwd_partials_reference(tu, tv, *small, p)
+    assert m.shape == l.shape == pos_part.shape == (p.parts, bq)
+    got = F.combine_fwd_partials(m, l, pos_part)
+    want = F.flash_ce_fwd_reference(tu, tv, *small)
+    assert pos_part[-1, 0] == want[1][0] and not pos_part[:-1, 0].any()
+    for a, b in zip(got, want):
+        _close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
+    jax_lse, jax_pos = JF._flash_fwd_raw(
+        jnp.asarray(u).astype(jdt), jnp.asarray(v).astype(jdt), jnp.asarray(c),
+        jnp.asarray(ids_q), jnp.asarray(ids_k), jnp.asarray(pos), True)
+    _close(got[0], jax_lse)
+    _close(got[1], jax_pos)
 
 
 @pytest.mark.parametrize("n,f,n_layers", [(37, 24, 3), (64, 256, 3), (5, 40, 1)])
