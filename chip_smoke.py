@@ -31,16 +31,19 @@
    before and read just after; checks the losses, the artifacts and that
    every training kernel launched; then one epoch with fp32 retrieval
    operands (``mixed_precision=False, bf16_retrieval_logits=False``),
-   whose backward is the fused kernel;
+   whose backward is the fused kernel (row 5's FMA kernel), with its
+   steps/s;
 9. serves the trained bundle through phase 4's requests;
 10. trains 3 steps of 8,192 rows from one full-width init (dropout 0) on
     the card and, through the plain versions, on the CPU, and compares
     the loss trajectories and the params;
 11. holds the training kernels (flash CE forward and fused backward,
     DCN backward) against their plain versions at the training shapes
-    and times them as in phase 6, then profiles a full train step with
-    and without the flash kernels at batch 4,096 and 8,192 as phase 7
-    profiles a request;
+    (before phase 8: row 5 of fp32 operands at its edges, D of 24 to 256,
+    ragged Bq and Bk, one candidate, all-accidental rows, and 65,536^2,
+    two calls bit-equal) and times them as in phase 6, then profiles a
+    full train step with and without the flash kernels at batch 4,096 and
+    8,192, and the fp32 epoch's step, as phase 7 profiles a request;
 12. evaluates the phase 8 bundle with ``python -m recsys_tpu_torch.evaluate
     --filter_seen --rerank_candidates 200 --device cuda`` (the per-batch
     seen mask and the two-stage rerank through the DCN kernel);
@@ -68,7 +71,7 @@
     1,000 x 3,001, D = 129, fp32, and at the edges of row 6's tensor-core
     path (bf16 at D in {32, 64, 128, 129, 256}, ragged Bq and Bk), checks
     that two calls of row 6 give the same bits, and times them at 8,192
-    bf16 as in phase 6; holds the tensor-core kernels of rows 4 and 7
+    bf16 and fp32 as in phase 6; holds the tensor-core kernels of rows 4 and 7
     against their plain versions at their edges (D in {24, 32, 64, 128,
     129, 256}, Bq and Bk not multiples of 16 or 64, one candidate, a
     positive column in the forward's last part, rows whose every other
@@ -112,8 +115,8 @@ times kernel rows 1, 4, 5, 6, 7 and 8 of an unpacked checkout of
 another commit (``git archive <commit> | tar -x -C PARENT_DIR``) and of
 this tree in turns on one card (parent, this, this, parent; a process
 each, every tree built from its own sources) at the shapes of the
-``AB_*_SHAPES`` lists, beside the library yardsticks of rows 4, 6, 7 and
-8, and prints one JSON line per run.
+``AB_*_SHAPES`` lists, beside the library yardsticks of rows 4 to 8, and
+prints one JSON line per run.
 """
 
 from __future__ import annotations
@@ -801,6 +804,72 @@ def check_train_edges() -> None:
     log("training-kernel edge cases agree with the plain versions")
 
 
+def check_fp32_bwd_edges() -> list:
+    """Row 5 of fp32 operands (``flash_ce_bwd_fused``: the FMA kernel on
+    the shared ``bwd_plan``) against its plain version at its edges, before
+    any timing: every padded width (D in {24, 32, 64, 128, 129, 256}:
+    element-wise loads where D % 4 != 0, 64-candidate tiles past 128), Bq
+    and Bk off the 64-row query and 128-candidate tiles, one candidate, row
+    0's positive column in the last candidate tile, a third of the rows
+    whose every candidate but the positive is an accidental hit (every
+    other shape), and 65,536^2 at D = 128, where the plan's blocks sweep 4
+    candidate tiles in 2 query parts: dU, dV and dcol each within FLASH_TOL
+    of its own max|ref|, two calls bit-equal. -> errors and plans per
+    shape."""
+    import torch
+    from recsys_tpu_torch.ops import flash_ce as F
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for i, (bq, bk, d) in enumerate(((50, 70, 32), (130, 4097, 24), (1000, 3001, 64),
+                                     (777, 2050, 128), (1000, 3001, 129), (300, 1100, 256),
+                                     (65, 1, 128), (65_536, 65_536, 128))):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 40 + i)
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+        n_ids = max(2, bk // 3)
+        ints = lambda n: torch.randint(0, n_ids, (n,), generator=gen, device="cuda",
+                                       dtype=torch.int32)
+        u, v = rnd(bq, d) * d ** -0.5, rnd(bk, d) * d ** -0.5
+        c, ids_q, ids_k, gr = rnd(bk), ints(bq), ints(bk), torch.rand((bq,), generator=gen,
+                                                                      device="cuda") / bq
+        pos = torch.arange(bq, device="cuda", dtype=torch.int32) % bk
+        pos[0] = bk - 1
+        if i % 2:
+            ids_k.fill_(n_ids)
+            ids_q[::3] = n_ids
+        what = f"row 5 fp32 edge Bq={bq} Bk={bk} D={d}"
+        plan = F.bwd_plan(bq, bk, d, False, n_sm)
+        if bq == 65_536:
+            check((plan.tile, plan.tiles_per_block, plan.n_spans, plan.parts) == (128, 4, 128, 2),
+                  f"{what}: plan {plan}")
+        lse, _ = F.flash_ce_fwd_reference(u, v, c, ids_q, ids_k, pos)
+        args = (u, v, c, ids_q, ids_k, pos, lse, gr)
+        got = [F.flash_ce_bwd_fused(*args) for _ in range(2)]
+        torch.cuda.synchronize()
+        abs_err, rel_err = _errs(got[0], F.flash_ce_bwd_reference(*args))
+        check(all(bool(torch.isfinite(t).all()) for t in got[0]), f"{what}: non-finite")
+        for name, err in zip(("dU", "dV", "dcol"), rel_err):
+            check(err <= FLASH_TOL, f"{what}: {name} err {err} of max|ref| > {FLASH_TOL}")
+        check(all(bool(torch.equal(a, b)) for a, b in zip(*got)), f"{what}: two calls differ")
+        out.append({"Bq": bq, "Bk": bk, "D": d, "all_accidental_rows": bool(i % 2),
+                    "plan": plan._asdict(), "max_abs_err": abs_err,
+                    "rel": dict(zip(("dU", "dV", "dcol"), rel_err))})
+        del got, args, u, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dense_softmax_bwd(u, v, c, gr) -> tuple:
+    """Row 5's one-call yardstick: the dense softmax backward over the
+    whole [Bq, Bk] scores (dU, dV with p*g rounded to the operand type,
+    dcol)."""
+    import torch
+
+    p = torch.softmax(torch.matmul(u, v.T) + c, dim=1) * gr[:, None]
+    pd = p.to(u.dtype)
+    return pd @ v, pd.T @ u, p.sum(dim=0)
+
+
 def measure_flash(bundle: dict, b: int, dtype, iters: int, sm_clock_mhz: float) -> tuple:
     """The flash CE kernels at Bq = Bk = b, D = 128, with the ids of the
     first b train rows (Zipf: many accidental hits): -> (forward row,
@@ -839,11 +908,7 @@ def measure_flash(bundle: dict, b: int, dtype, iters: int, sm_clock_mhz: float) 
             def plain():
                 return F.flash_ce_bwd_reference(u, v, c, ids, ids, pos, lse, gr)
 
-            def library():
-                p = torch.softmax(torch.matmul(u, v.T) + c, dim=1) * gr[:, None]
-                pd = p.to(u.dtype)
-                return pd @ v, pd.T @ u, p.sum(dim=0)
-
+            library = lambda: _dense_softmax_bwd(u, v, c, gr)
             n_bytes = 2 * b * d * elt + 6 * b * 4 + (2 * b * d + b) * 4
             n_ops = 6.0 * b * b * d
             name = "flash_ce_bwd_tc_kernel" if dtype == torch.bfloat16 else "flash_ce_bwd_kernel"
@@ -950,28 +1015,34 @@ def profile_train_steps(bundle: dict) -> list:
     """One full train step (loss, autograd, adagrad) at batch 4,096 and
     8,192 (the main path's), with the flash kernels and with the dense
     path, profiled by :func:`profile_call`: the step's wall and device
-    times that later set ``_FLASH_MIN_CANDIDATES`` on the card."""
+    times that later set ``_FLASH_MIN_CANDIDATES`` on the card; then the
+    fp32 epoch's step (B = 8,192, ``mixed_precision=False``,
+    ``bf16_retrieval_logits=False``: row 4's and row 5's FMA kernels), with
+    the device ms and launches of the flash kernels."""
     from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
     from recsys_tpu_torch.models.losses import balanced_class_weights
     from recsys_tpu_torch.train.trainer import Trainer
 
     cw = balanced_class_weights(bundle["train/y_implicit"])
+    fp32 = dict(mixed_precision=False, bf16_retrieval_logits=False)
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
-        for b in (4096, TRAIN_BATCH):
+        for b, flash, model_kw in ((4096, True, {}), (4096, False, {}), (TRAIN_BATCH, True, {}),
+                                   (TRAIN_BATCH, False, {}), (TRAIN_BATCH, True, fp32)):
             batches = _batches(bundle, 2, b, "cuda", _log_q(bundle))
-            for flash in (True, False):
-                cfg = RecsysConfig(model=ModelConfig(use_flash_ce=flash),
-                                   train=TrainConfig(batch_size=b))
-                tr = Trainer(cfg, tmp, device="cuda")
-                holder = [tr.init_state(N_USERS, N_ITEMS, SEED)]
-                step = tr.make_train_step(cw)
+            cfg = RecsysConfig(model=ModelConfig(use_flash_ce=flash, **model_kw),
+                               train=TrainConfig(batch_size=b))
+            tr = Trainer(cfg, tmp, device="cuda")
+            holder = [tr.init_state(N_USERS, N_ITEMS, SEED)]
+            step = tr.make_train_step(cw)
 
-                def one():
-                    holder[0], _ = step(holder[0], batches[holder[0].step % 2])
+            def one():
+                holder[0], _ = step(holder[0], batches[holder[0].step % 2])
 
-                rows.append(profile_call(f"train_step_B{b}_{'flash' if flash else 'dense'}",
-                                         one, n_wall=20, n_traced=5, warmup=2))
+            name = f"train_step_B{b}_{'flash' if flash else 'dense'}{'_fp32' if model_kw else ''}"
+            groups = ({"row4_fwd": "flash_ce_fwd_kernel", "row5_fused": "flash_ce_bwd_kernel"}
+                      if model_kw else None)
+            rows.append(profile_call(name, one, n_wall=20, n_traced=5, warmup=2, groups=groups))
     return rows
 
 
@@ -1526,6 +1597,11 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
             out["main"] = twokernel_rows(res["args"], 10, exp_rate, plain=True)
             out["main"][0]["max_abs_err"] = res["abs"]["dU"]
             out["main"][1]["max_abs_err"] = max(res["abs"]["dV"], res["abs"]["dcol"])
+        if (bq, bk, dt) == (8192, 8192, torch.float32):
+            # the FMA kernels of rows 6 and 7 beside their fp32 yardsticks
+            out["main_fp32"] = twokernel_rows(res["args"], 10, exp_rate, plain=True)
+            out["main_fp32"][0]["max_abs_err"] = res["abs"]["dU"]
+            out["main_fp32"][1]["max_abs_err"] = max(res["abs"]["dV"], res["abs"]["dcol"])
         del res
     log(f"rows 6 and 7 agree with their plain versions: {json.dumps(out['checks'])}")
     out["fwd_dv_edges"] = check_fwd_dv_edges()
@@ -1959,6 +2035,8 @@ def main() -> int:
 
     # ---- training: the second main path -----------------------------
     check_train_edges()
+    fp32_edges = check_fp32_bwd_edges()
+    log(f"row 5 fp32 agrees with its plain version at its edges: {json.dumps(fp32_edges)}")
     counters += [Counter("flash_ce_fwd", flash_mod.flash_ce_fwd),
                  Counter("flash_ce_bwd_fused", flash_mod.flash_ce_bwd_fused),
                  Counter("flash_ce_bwd_du", flash_mod.flash_ce_bwd_du),
@@ -2049,7 +2127,7 @@ def main() -> int:
     # ---- giant-table, large-batch training: the fourth main path ----------
     t_giant = time.perf_counter()
     twokernel = twokernel_phases(sm_clock)
-    for row in twokernel["main"] + twokernel["above"]:
+    for row in twokernel["main"] + twokernel["main_fp32"] + twokernel["above"]:
         log(f"kernel two-kernel backward {json.dumps(row)}")
     t0 = time.perf_counter()
     giant_np = giant_bundle(SEED + 11)
@@ -2078,7 +2156,10 @@ def main() -> int:
                      if r["shape"] == {"Q": BATCH_USERS, "N": N_ITEMS, "d": 128, "k": RERANK})
     main_dcn = dcn_rows[-1]
     main_fwd = flash_rows[(TRAIN_BATCH, torch.bfloat16)][0]
-    main_bwd = flash_rows[(TRAIN_BATCH, torch.float32)][1]  # the fused kernel's path: fp32
+    fp32_fwd, main_bwd = flash_rows[(TRAIN_BATCH, torch.float32)]  # the fused kernel's path
+    main_bwd_plan = flash_mod.bwd_plan(TRAIN_BATCH, TRAIN_BATCH, 128, False,
+                                       torch.cuda.get_device_properties(0)
+                                       .multi_processor_count)._asdict()
     main_dcn_bwd = dcn_bwd_rows[-1]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     speed = ("tflops", "bound_share", "device_ms", "kernel_device_ms", "plain_device_ms")
@@ -2108,7 +2189,9 @@ def main() -> int:
          "launches": train_launches["flash_ce_fwd"], **{k: main_fwd[k] for k in keys + speed},
          "kernel": "flash_ce_fwd_tc_kernel + flash_ce_fwd_combine_kernel (bf16, mma.sync); "
                    "flash_ce_fwd_kernel serves fp32",
-         "new_kernel": True, "launches_giant": giant_launches["flash_ce_fwd"],
+         "fp32": {k: fp32_fwd[k] for k in keys + speed},
+         "launches_fp32_epoch": fp32_launches["flash_ce_fwd"],
+         "launches_giant": giant_launches["flash_ce_fwd"],
          "shape": main_fwd["shape"],
          "shapes": [r[0] for r in flash_rows.values()] + [twokernel["above_fwd"]]},
         {"name": "flash_ce_bwd_fused", "route": "cuda",
@@ -2116,8 +2199,12 @@ def main() -> int:
          "replaces": "recsys_tpu/ops/pallas/flash_ce.py:250",
          "launches": fp32_launches["flash_ce_bwd_fused"],
          **{k: main_bwd[k] for k in keys + speed},
-         "kernel": "flash_ce_bwd_kernel (fp32; the bf16 route takes rows 6 + 7); "
-                   "flash_ce_bwd_tc_kernel (bf16, mma.sync) is timed beside it",
+         "kernel": "flash_ce_bwd_kernel (fp32, FMA units, 128-bit register-tiled products "
+                   "on bwd_plan; the bf16 route takes rows 6 + 7); flash_ce_bwd_tc_kernel "
+                   "(bf16, mma.sync) is timed beside it",
+         "new_kernel": True, "plan": main_bwd_plan,
+         "fp32_epoch_steps_per_s": fp32_trained["steps_per_s"][-1],
+         "fp32_edges": fp32_edges,
          "shape": main_bwd["shape"], "shapes": [r[1] for r in flash_rows.values()]},
         {"name": "blockmax", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/blockmax.cu",
@@ -2134,11 +2221,12 @@ def main() -> int:
             "replaces": f"recsys_tpu/ops/pallas/flash_ce.py:{line}",
             "launches": giant_launches[name], **{k: main_row[k] for k in keys + speed},
             "launches_train": train_launches[name],
+            "fp32": {k: twokernel["main_fp32"][i][k] for k in keys + speed},
             "shape": main_row["shape"], "shapes": [main_row, twokernel["above"][i]]})
     kernels[-2].update(kernel="flash_ce_bwd_du_tc_kernel (bf16, mma.sync); "
                               "flash_ce_bwd_du_kernel serves fp32")
     kernels[-1].update(kernel="flash_ce_bwd_dv_tc_kernel (bf16, mma.sync); "
-                              "flash_ce_bwd_dv_kernel serves fp32", new_kernel=True)
+                              "flash_ce_bwd_dv_kernel serves fp32")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -2170,10 +2258,11 @@ def time_kernels(tree: str) -> dict:
     """Rows 1, 4, 5, 6, 7 and 8 of the port found under ``tree`` (its own
     ``recsys_tpu_torch``, built into its own ``build/``) at the shapes of
     ``AB_*_SHAPES`` on seeded inputs: CUDA-event ms and device ms per
-    call, through the same wrappers a caller uses; beside rows 4, 6, 7 and
-    8 their library yardsticks where the dense scores fit (``matmul`` +
-    ``logsumexp``, ``softmax @ v``, ``softmax.T @ u`` with the column
-    sums, ``matmul`` + ``amax``), which do not depend on the tree."""
+    call, through the same wrappers a caller uses; beside rows 4 to 8
+    their library yardsticks where the dense scores fit (``matmul`` +
+    ``logsumexp``, the dense softmax backward, ``softmax @ v``,
+    ``softmax.T @ u`` with the column sums, ``matmul`` + ``amax``), which
+    do not depend on the tree."""
     import torch
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -2184,8 +2273,8 @@ def time_kernels(tree: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED + 20)
     unit = lambda *shape: torch.nn.functional.normalize(
         torch.randn(shape, generator=g, device="cuda"), dim=1)
-    out = {"tree": tree, "topk": [], "flash_bwd": [], "flash_fwd_row4": [], "row6_du": [],
-           "row7_dv": [], "row8_blockmax": []}
+    out = {"tree": tree, "topk": [], "flash_bwd": [], "flash_fwd": [], "flash_fwd_row4": [],
+           "row6_du": [], "row7_dv": [], "row8_blockmax": []}
     for q_n, n, k in AB_TOPK_SHAPES:
         u, v = unit(q_n, 128), unit(n, 128)
         iters = 3 if q_n * n > 1 << 26 else 50
@@ -2203,8 +2292,14 @@ def time_kernels(tree: str) -> dict:
         gr = torch.rand((b,), generator=g, device="cuda") / b
         lse, _ = F.flash_ce_fwd(u, v, c, ids, ids, pos)
         fn = lambda: F.flash_ce_bwd_fused(u, v, c, ids, ids, pos, lse, gr)
-        out["flash_bwd"].append({"B": b, "dtype": dt, "ms": time_ms(fn, 10),
-                                 "device_ms": device_ms(fn, 10)[0]})
+        out["flash_bwd"].append({"B": b, "dtype": dt, **_timed(fn, 10, "flash_ce_bwd_"),
+                                 "library_ms": time_ms(
+                                     lambda: _dense_softmax_bwd(u, v, c, gr), 10)})
+        fwd = lambda: F.flash_ce_fwd(u, v, c, ids, ids, pos)
+        out["flash_fwd"].append({"B": b, "dtype": dt, **_timed(fwd, 10, "flash_ce_fwd_"),
+                                 "library_ms": time_ms(
+                                     lambda: torch.logsumexp(torch.matmul(u, v.T) + c, dim=1),
+                                     10)})
     for bq, bk in AB_TWOKERNEL_SHAPES:
         u, v, c, ids_q, ids_k, pos, gr = _flash_args(bq, bk, 128, torch.bfloat16, SEED + 21,
                                                      n_ids=max(2, bk // 3))

@@ -43,12 +43,16 @@
 // shared-memory descriptors are the next step. The fused kernel's other
 // limit is bytes: the dU partials (see below); bf16 operands no longer
 // take it (ops/flash_ce.py::bwd_route).
-//   The kernels of fp32 operands run every product on the fp32 FMA units,
-// a 4 x 4 register tile per thread over fp32 tiles in shared memory; bound
-// by the fp32 instruction rate and shared-memory loads. fp32 operands
-// must meet a 1e-5 contract, which TF32 tensor cores cannot. What every
-// kernel keeps from the TPU kernels is the memory side: the logits never
-// leave the chip.
+//   The kernels of fp32 operands run every product on the fp32 FMA units
+// (fp32 operands must meet a 1e-5 contract, which TF32 tensor cores
+// cannot); bound by the fp32 instruction rate and, where a thread's
+// register tile is small, by shared-memory loads (an SM reads 32 floats
+// of shared memory a clock and retires 128 FMAs). The forward and rows 6
+// and 7 take a 4 x 4 register tile per thread over scalar loads; the
+// fused backward (row 5) 8 x 8 register tiles over 128-bit loads: four
+// FMAs per float loaded, the rate at which shared memory keeps the FMA
+// units fed. What every kernel keeps from the TPU kernels is the memory
+// side: the logits never leave the chip.
 //
 // Design, and how it departs from the TPU kernels:
 // * Forward, bf16: row 6's tiling (64 query rows a block, 16 a warp, U's A
@@ -75,13 +79,20 @@
 //   into [parts, Bk, D] / [parts, Bk]; the wrapper sums each over its first
 //   axis with torch.sum, as the TPU wrapper sums its dU partials with
 //   jnp.sum. No atomics: two calls give the same bits.
-// * Fused backward, fp32 (the route of fp32 operands under the cap): one
-//   block owns tiles_per_block consecutive 64-row candidate tiles; for each
-//   tile j (held in shared memory) it loops over every 64-row query tile
-//   i, accumulating dV_j in registers and dcol_j per thread, and adds the
-//   dU product of (i, j) into its own partial du_part[block] (the first
-//   tile writes, later ones add, each element by the thread that wrote
-//   it). One part: dV and dcol are written whole.
+// * Fused backward, fp32 (the route of fp32 operands under the cap): the
+//   bf16 kernel's plan and partials (grid (n_spans, parts); 64 spans x 4
+//   parts at 8,192^2), over tiles of 128 candidates x 128 query rows (64 x
+//   64 at DP = 256, where 128 would not fit 227 KB of shared memory; the
+//   plan's 64-row query tiles are taken two at a time). The block stages
+//   its candidate tile once; each query tile is copied by cp.async into one
+//   buffer, the next tile's copy running under the dU product. The three
+//   products (S = U V^T, dV += P^T U, dU = P V) read 128-bit rows from
+//   shared memory into register tiles of 8 x 8 outputs per thread (8 x 4
+//   or 4 x 4 at the narrow widths and at DP = 256, whose 64 x 64 logits
+//   give a thread 16), laid out so that no load meets a bank conflict
+//   (grid_col / grid_row): 16 loads of 4 floats per 256 FMAs. P goes
+//   through shared memory once per (i, j), between the S product and the
+//   other two.
 // * Two-kernel backward (every bf16 backward; fp32 where the TPU takes it,
 //   above the cap): the dU kernel's block owns a 64-row query tile and
 //   sweeps the candidate tiles, keeping its [64, D] fp32 dU in registers
@@ -274,151 +285,304 @@ __global__ void __launch_bounds__(THREADS) flash_ce_fwd_kernel(
   }
 }
 
-template <int DP>
-constexpr size_t bwd_smem() {
-  return sizeof(float) * ((TQ + TK) * (DP + 1) + TQ * (TK + 1) + 16 * TK) +
-         (2 * sizeof(float) + 2 * sizeof(int)) * TQ;
+// ---- row 5 in fp32: the fused backward on the FMA units --------------------
+
+// fp32 rows [row0, row0 + rows) of src [n_rows, d] -> dst [rows][ld],
+// columns [0, DP), zero past n_rows and past d, by the NTHREADS threads of
+// the block: cp.async 16 bytes at a time when rows start on 16 bytes (vec:
+// d % 4 == 0 and src on 16 bytes), element by element otherwise
+template <int DP, int NTHREADS>
+__device__ __forceinline__ void stage_rows_f32(float* dst, int ld, const float* __restrict__ src,
+                                               int row0, int n_rows, int rows, int d, bool vec) {
+  constexpr int CPR = DP / 4;  // 16-byte chunks per row
+  for (int e = threadIdx.x; e < rows * CPR; e += NTHREADS) {
+    const int r = e / CPR, c4 = (e % CPR) * 4;
+    const int gr = row0 + r;
+    float* out = dst + r * ld + c4;
+    if (vec) {
+      const bool ok = gr < n_rows && c4 < d;
+      cp_async16(out, ok ? src + static_cast<long long>(gr) * d + c4 : src, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        out[j] = (gr < n_rows && c4 + j < d) ? src[static_cast<long long>(gr) * d + c4 + j] : 0.f;
+    }
+  }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(THREADS) flash_ce_bwd_kernel(
-    const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ colcorr,
-    const int* __restrict__ ids_q, const int* __restrict__ ids_k,
-    const int* __restrict__ pos, const float* __restrict__ lse,
-    const float* __restrict__ g, int bq, int bk, int d, int tiles_per_block,
-    float* __restrict__ dv, float* __restrict__ dcol, float* __restrict__ du_part) {
-  constexpr int NB = DP / 16;  // output columns per thread in the products
-  extern __shared__ float smem[];
-  float* Vs = smem;                       // [TK][DP + 1] this block's candidates
-  float* Us = Vs + TK * (DP + 1);         // [TQ][DP + 1] current query tile
-  float* Ps = Us + TQ * (DP + 1);         // [TQ][TK + 1] pg of the tile
-  float* red = Ps + TQ * (TK + 1);        // [16][TK] dcol reduction
-  float* lse_s = red + 16 * TK;           // [TQ]
-  float* g_s = lse_s + TQ;                // [TQ]
-  int* idq_s = reinterpret_cast<int*>(g_s + TQ);  // [TQ]
-  int* pos_s = idq_s + TQ;                // [TQ]
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+// component e of x (e is a constant once the loops are unrolled)
+__device__ __forceinline__ float comp(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float* part = du_part + static_cast<long long>(blockIdx.x) * bq * d;
+// Column and row of thread tid in a THREADS-thread grid of COLS columns:
+// the 8 lanes of a quarter-warp on 8 consecutive columns of one row, the
+// warp's four quarters on consecutive rows. With rows of shared memory 4
+// or 8 floats past a multiple of 32 banks, every 128-bit load of the
+// products below is one broadcast row segment or 4 or 8 distinct rows on
+// disjoint banks: no bank conflicts.
+template <int COLS>
+__device__ __forceinline__ int grid_col(int tid) {
+  return ((tid >> 5) % (COLS / 8)) * 8 + (tid & 7);
+}
+template <int COLS>
+__device__ __forceinline__ int grid_row(int tid) {
+  return ((tid >> 5) / (COLS / 8)) * 4 + ((tid >> 3) & 3);
+}
+
+// The tiling of the fp32 fused backward at padded width DP: candidate
+// tiles of KC and query tiles of TQF rows (128 and 128; 64 and 64 at DP =
+// 256, where 128 would not fit 227 KB of shared memory), and each
+// product's register tile per thread.
+template <int DP>
+struct Fp32Bwd {
+  static constexpr int KC = DP < 256 ? 128 : 64;
+  static constexpr int TQF = DP < 256 ? 128 : 64;
+  static constexpr int LD = DP + 4;   // floats per U and V row in shared memory
+  static constexpr int LDP = KC + 8;  // floats per P row
+  // S = U V^T [TQF x KC]: rows sr + 16i, candidates sc + 16j (8 x 8; 4 x 4 at DP = 256)
+  static constexpr int S_RM = TQF / 16, S_RN = KC / 16;
+  // dV [KC x DP]: candidates 4 (vc + V_CG a) + e, columns 4 (vf + V_FG t) + e
+  static constexpr int V_FG = DP / 4 < 16 ? DP / 4 : 16, V_CG = THREADS / V_FG;
+  static constexpr int V_CN = KC / 4 / V_CG, V_FN = DP / 4 / V_FG;
+  // dU [TQF x DP]: rows ur + U_RG i, columns 4 (uf + U_FG t) + e
+  static constexpr int U_FG = DP / 4 < 16 ? DP / 4 : 16, U_RG = THREADS / U_FG;
+  static constexpr int U_RM = TQF / U_RG, U_FN = DP / 4 / U_FG;
+  static_assert(V_CN * V_CG * 4 == KC && V_FN * V_FG * 4 == DP, "dV tiling");
+  static_assert(U_RM * U_RG == TQF && U_FN * U_FG * 4 == DP, "dU tiling");
+  static_assert(16 * KC <= TQF * LDP && TQF <= THREADS, "dcol reduction, row staging");
+  static constexpr size_t smem() {
+    return sizeof(float) * ((KC + TQF) * LD + TQF * LDP) +
+           TQF * (2 * sizeof(float) + 2 * sizeof(int));
+  }
+};
+
+// The fused backward of fp32 operands on the FMA units, on the bf16
+// kernel's plan. Grid (n_spans, parts): block (x, y) owns tiles_per_block
+// consecutive KC-candidate tiles and sweeps the query rows of part y
+// (q_tiles_per_part of the plan's 64-row tiles) TQF rows at a time, each
+// staged by cp.async with its lse, g, ids and positives. Per (query tile
+// i, candidate tile j), 256 threads:
+//   S = U_i V_j^T from 128-bit loads of rows along the feature axis;
+//   P = exp(S - lse) g (masked_logit, 0 past the part and past Bk) into
+//   shared memory, its fp32 column sums into dcol;
+//   dV_j += P^T U_i, held in registers over the sweep;
+//   the next query tile's copy starts, over U_i's buffer;
+//   dU_ij = P V_j, written to du_part[x] (the first tile writes, later
+//   ones add: same thread, fixed order).
+// dV and dcol go to [parts, Bk, D] / [parts, Bk] after the sweep. No
+// atomics: two calls give the same bits.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1) flash_ce_bwd_kernel(
+    const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ colcorr,
+    const int* __restrict__ ids_q, const int* __restrict__ ids_k, const int* __restrict__ pos,
+    const float* __restrict__ lse, const float* __restrict__ g, int bq, int bk, int d, int vec,
+    int tiles_per_block, int q_tiles_per_part, float* __restrict__ dv_part,
+    float* __restrict__ dcol_part, float* __restrict__ du_part) {
+  using T = Fp32Bwd<DP>;
+  constexpr int KC = T::KC, TQF = T::TQF, LD = T::LD, LDP = T::LDP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Vs = reinterpret_cast<float*>(smem_raw);     // [KC][LD] this tile's candidates
+  float* Us = Vs + KC * LD;                            // [TQF][LD] the query tile
+  float* Ps = Us + TQF * LD;                           // [TQF][LDP] p*g of (i, j)
+  float* lse_s = Ps + TQF * LDP;                       // [TQF]
+  float* g_s = lse_s + TQF;                            // [TQF]
+  int* idq_s = reinterpret_cast<int*>(g_s + TQF);     // [TQF]
+  int* pos_s = idq_s + TQF;                            // [TQF]
+
+  const int tid = threadIdx.x;
+  const int sc = grid_col<16>(tid), sr = grid_row<16>(tid);
+  const int vf = grid_col<T::V_FG>(tid), vc = grid_row<T::V_FG>(tid);
+  const int uf = grid_col<T::U_FG>(tid), ur = grid_row<T::U_FG>(tid);
+  const int row_begin = blockIdx.y * q_tiles_per_part * TQ;  // the part's query rows
+  const int row_end = min(bq, row_begin + q_tiles_per_part * TQ);
   const int tile0 = blockIdx.x * tiles_per_block;
-  const int tile_end = min(tile0 + tiles_per_block, (bk + TK - 1) / TK);
+  const int tile_end = min(tile0 + tiles_per_block, (bk + KC - 1) / KC);
+  float* du_out = du_part + static_cast<long long>(blockIdx.x) * bq * d;
+
+  auto stage_query_tile = [&](int q0) {
+    stage_rows_f32<DP, THREADS>(Us, LD, u, q0, row_end, TQF, d, vec != 0);
+    if (tid < TQF) {
+      const int r = q0 + tid;
+      const bool ok = r < row_end;
+      lse_s[tid] = ok ? lse[r] : 0.f;
+      g_s[tid] = ok ? g[r] : 0.f;
+      idq_s[tid] = ok ? ids_q[r] : 0;
+      pos_s[tid] = ok ? pos[r] : -1;
+    }
+  };
 
   for (int tile = tile0; tile < tile_end; ++tile) {
-    const int k0 = tile * TK;
+    const int k0 = tile * KC;
     const bool first = tile == tile0;
-    __syncthreads();  // the previous tile's readers of Vs and red are done
-    load_tile<DP>(Vs, v, k0, bk, d);
-
-    float corr[4], dcol_acc[4];
-    int kid[4];
+    __syncthreads();  // the previous tile's readers of Vs, Us, Ps and the rows are done
+    stage_rows_f32<DP, THREADS>(Vs, LD, v, k0, bk, KC, d, vec != 0);
+    if (row_begin < row_end) stage_query_tile(row_begin);
+    cp_async_commit();
+    float corr[T::S_RN], dcol_acc[T::S_RN];
+    int kid[T::S_RN];
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int gc = k0 + tx + 16 * b;
-      corr[b] = gc < bk ? colcorr[gc] : 0.f;
-      kid[b] = gc < bk ? ids_k[gc] : 0;
-      dcol_acc[b] = 0.f;
+    for (int j = 0; j < T::S_RN; ++j) {
+      const int c = k0 + sc + 16 * j;
+      corr[j] = c < bk ? colcorr[c] : 0.f;
+      kid[j] = c < bk ? ids_k[c] : 0;
+      dcol_acc[j] = 0.f;
     }
-    float dv_acc[4][NB];
+    float dv[4 * T::V_CN][4 * T::V_FN];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < 4 * T::V_CN; ++a)
 #pragma unroll
-      for (int b = 0; b < NB; ++b) dv_acc[a][b] = 0.f;
+      for (int b = 0; b < 4 * T::V_FN; ++b) dv[a][b] = 0.f;
 
-    for (int q0 = 0; q0 < bq; q0 += TQ) {
-      __syncthreads();  // the previous query tile's readers are done
-      load_tile<DP>(Us, u, q0, bq, d);
-      if (tid < TQ) {
-        const int r = q0 + tid;
-        const bool ok = r < bq;
-        lse_s[tid] = ok ? lse[r] : 0.f;
-        g_s[tid] = ok ? g[r] : 0.f;
-        idq_s[tid] = ok ? ids_q[r] : 0;
-        pos_s[tid] = ok ? pos[r] : -1;
-      }
-      __syncthreads();
-      float acc[4][4];
-      tile_dot<DP>(Us, Vs, ty, tx, acc);  // acc[a][b]: query ty+16a, candidate tx+16b
-      float lse_r[4], g_r[4], pg32[4][4];
-      int idq_r[4], pos_r[4];
+    for (int q0 = row_begin; q0 < row_end; q0 += TQF) {
+      cp_async_wait_all();
+      __syncthreads();  // the tile and its rows have landed; Ps's readers are done
+
+      // S[r][c] = U_i[r] . V_j[c]: rows sr + 16i, candidates sc + 16j
+      float s[T::S_RM][T::S_RN];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int r = ty + 16 * a;
-        lse_r[a] = lse_s[r];
-        g_r[a] = g_s[r];
-        idq_r[a] = idq_s[r];
-        pos_r[a] = pos_s[r];
-      }
-      tile_pg(acc, lse_r, g_r, idq_r, pos_r, corr, kid, q0, k0, bq, bk, ty, tx, pg32);
+      for (int i = 0; i < T::S_RM; ++i)
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+        for (int j = 0; j < T::S_RN; ++j) s[i][j] = 0.f;
+#pragma unroll 1
+      for (int k = 0; k < DP; k += 4) {
+        float4 b[T::S_RN];
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          dcol_acc[b] += pg32[a][b];
-          Ps[(ty + 16 * a) * (TK + 1) + tx + 16 * b] = pg32[a][b];
-        }
-      __syncthreads();
-      // dV_j[c][k] += sum_r P[r][c] U[r][k]  (c = ty + 16a, k = tx + 16b)
-      // dU_ij[r][k] = sum_c P[r][c] V[c][k]  (r = ty + 16a)
-      float du_acc[4][NB];
+        for (int j = 0; j < T::S_RN; ++j) b[j] = ld4(Vs + (sc + 16 * j) * LD + k);
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+        for (int i = 0; i < T::S_RM; ++i) {
+          const float4 a = ld4(Us + (sr + 16 * i) * LD + k);
 #pragma unroll
-        for (int b = 0; b < NB; ++b) du_acc[a][b] = 0.f;
-#pragma unroll 4
-      for (int k = 0; k < 64; ++k) {
-        float pt[4], pr[4], uu[NB], vv[NB];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          pt[a] = Ps[k * (TK + 1) + ty + 16 * a];    // P[r = k][c = ty + 16a]
-          pr[a] = Ps[(ty + 16 * a) * (TK + 1) + k];  // P[r = ty + 16a][c = k]
-        }
-#pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          uu[b] = Us[k * (DP + 1) + tx + 16 * b];
-          vv[b] = Vs[k * (DP + 1) + tx + 16 * b];
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < NB; ++b) {
-            dv_acc[a][b] = fmaf(pt[a], uu[b], dv_acc[a][b]);
-            du_acc[a][b] = fmaf(pr[a], vv[b], du_acc[a][b]);
+          for (int j = 0; j < T::S_RN; ++j) {
+            s[i][j] = fmaf(a.x, b[j].x, s[i][j]);
+            s[i][j] = fmaf(a.y, b[j].y, s[i][j]);
+            s[i][j] = fmaf(a.z, b[j].z, s[i][j]);
+            s[i][j] = fmaf(a.w, b[j].w, s[i][j]);
           }
+        }
+      }
+
+      // P = exp(S - lse) g into shared memory (fp32: no rounding); dcol
+#pragma unroll
+      for (int i = 0; i < T::S_RM; ++i) {
+        const int rl = sr + 16 * i;
+        const bool rok = q0 + rl < row_end;
+        const float lse_r = lse_s[rl], g_r = g_s[rl];
+        const int idq_r = idq_s[rl], pos_r = pos_s[rl];
+#pragma unroll
+        for (int j = 0; j < T::S_RN; ++j) {
+          const int cl = sc + 16 * j;
+          float pg = 0.f;
+          if (rok && k0 + cl < bk) {
+            const float x = masked_logit(s[i][j], corr[j], idq_r, kid[j], k0 + cl, pos_r);
+            pg = expf(x - lse_r) * g_r;
+          }
+          dcol_acc[j] += pg;
+          Ps[rl * LDP + cl] = pg;
+        }
+      }
+      __syncthreads();  // P is whole
+
+      // dV_j[c][k] += sum_r P[r][c] U_i[r][k]
+#pragma unroll 2
+      for (int r = 0; r < TQF; ++r) {
+        float4 p[T::V_CN], x[T::V_FN];
+#pragma unroll
+        for (int a = 0; a < T::V_CN; ++a) p[a] = ld4(Ps + r * LDP + 4 * (vc + T::V_CG * a));
+#pragma unroll
+        for (int t = 0; t < T::V_FN; ++t) x[t] = ld4(Us + r * LD + 4 * (vf + T::V_FG * t));
+#pragma unroll
+        for (int a = 0; a < 4 * T::V_CN; ++a)
+#pragma unroll
+          for (int b = 0; b < 4 * T::V_FN; ++b)
+            dv[a][b] = fmaf(comp(p[a / 4], a % 4), comp(x[b / 4], b % 4), dv[a][b]);
+      }
+      __syncthreads();  // everyone is done with Us and the rows: the next tile's copy
+      if (q0 + TQF < row_end) stage_query_tile(q0 + TQF);
+      cp_async_commit();
+
+      // dU_ij[r][k] = sum_c P[r][c] V_j[c][k]
+      float du[T::U_RM][4 * T::U_FN];
+#pragma unroll
+      for (int i = 0; i < T::U_RM; ++i)
+#pragma unroll
+        for (int b = 0; b < 4 * T::U_FN; ++b) du[i][b] = 0.f;
+#pragma unroll 1
+      for (int c = 0; c < KC; c += 4) {
+        float4 p[T::U_RM];
+#pragma unroll
+        for (int i = 0; i < T::U_RM; ++i) p[i] = ld4(Ps + (ur + T::U_RG * i) * LDP + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float4 x[T::U_FN];
+#pragma unroll
+          for (int t = 0; t < T::U_FN; ++t)
+            x[t] = ld4(Vs + (c + e) * LD + 4 * (uf + T::U_FG * t));
+#pragma unroll
+          for (int i = 0; i < T::U_RM; ++i)
+#pragma unroll
+            for (int b = 0; b < 4 * T::U_FN; ++b)
+              du[i][b] = fmaf(comp(p[i], e), comp(x[b / 4], b % 4), du[i][b]);
+        }
       }
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int gr = q0 + ty + 16 * a;
-        if (gr < bq) {
+      for (int i = 0; i < T::U_RM; ++i) {
+        const int r = q0 + ur + T::U_RG * i;
+        if (r >= row_end) continue;
+        float* row = du_out + static_cast<long long>(r) * d;
 #pragma unroll
-          for (int b = 0; b < NB; ++b) {
-            const int k = tx + 16 * b;
-            if (k < d) {
-              float* out = part + static_cast<long long>(gr) * d + k;
-              *out = first ? du_acc[a][b] : *out + du_acc[a][b];
+        for (int t = 0; t < T::U_FN; ++t) {
+          const int k = 4 * (uf + T::U_FG * t);
+          if (k >= d) continue;
+          if (vec) {  // d % 4 == 0: the row's 16-byte chunk
+            float4* out = reinterpret_cast<float4*>(row + k);
+            float4 x = make_float4(du[i][4 * t], du[i][4 * t + 1], du[i][4 * t + 2],
+                                   du[i][4 * t + 3]);
+            if (!first) {
+              const float4 o = *out;
+              x = make_float4(o.x + x.x, o.y + x.y, o.z + x.z, o.w + x.w);
             }
+            *out = x;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (k + e < d) row[k + e] = first ? du[i][4 * t + e] : row[k + e] + du[i][4 * t + e];
           }
         }
       }
     }
+    cp_async_wait_all();  // no copy may outlive the tile
 
-    // dcol_j: each column's 16 per-thread sums (one per ty), added in order
+    // dcol: each candidate's sums over the 16 row groups, added in order
+    __syncthreads();  // every reader of Ps is done
 #pragma unroll
-    for (int b = 0; b < 4; ++b) red[ty * TK + tx + 16 * b] = dcol_acc[b];
+    for (int j = 0; j < T::S_RN; ++j) Ps[sr * KC + sc + 16 * j] = dcol_acc[j];
     __syncthreads();
-    if (tid < TK && k0 + tid < bk) {
-      float s = 0.f;
-      for (int t = 0; t < 16; ++t) s += red[t * TK + tid];
-      dcol[k0 + tid] = s;
+    if (tid < KC && k0 + tid < bk) {
+      float x = 0.f;
+#pragma unroll
+      for (int t = 0; t < 16; ++t) x += Ps[t * KC + tid];
+      dcol_part[static_cast<long long>(blockIdx.y) * bk + k0 + tid] = x;
     }
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int gc = k0 + ty + 16 * a;
-      if (gc < bk) {
+    for (int a = 0; a < 4 * T::V_CN; ++a) {
+      const int c = k0 + 4 * (vc + T::V_CG * (a / 4)) + a % 4;
+      if (c >= bk) continue;
+      float* out = dv_part + (static_cast<long long>(blockIdx.y) * bk + c) * d;
 #pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          const int k = tx + 16 * b;
-          if (k < d) dv[static_cast<long long>(gc) * d + k] = dv_acc[a][b];
-        }
+      for (int t = 0; t < T::V_FN; ++t) {
+        const int k = 4 * (vf + T::V_FG * t);
+        if (k >= d) continue;
+        if (vec)
+          *reinterpret_cast<float4*>(out + k) =
+              make_float4(dv[a][4 * t], dv[a][4 * t + 1], dv[a][4 * t + 2], dv[a][4 * t + 3]);
+        else
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k + e < d) out[k + e] = dv[a][4 * t + e];
       }
     }
   }
@@ -1313,8 +1477,7 @@ constexpr size_t bwd_dv_smem() {
 }
 
 // Row 7 of fp32 operands on the FMA units: dV = sum_i pg^T U_i and dcol =
-// sum_i pg, candidate-major (_bwd_dv_kernel). The sums run in the fp32
-// fused kernel's order.
+// sum_i pg, candidate-major (_bwd_dv_kernel).
 template <int DP>
 __global__ void __launch_bounds__(THREADS) flash_ce_bwd_dv_kernel(
     const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ colcorr,
@@ -1488,10 +1651,12 @@ extern "C" int flash_ce_fwd(const void* u, const void* v, const float* colcorr,
 // fused backward (row 5). Out, all fp32: the dU partials du_part
 // [n_spans, bq, d], n_spans = ceil(ceil(bk / tile) / tiles_per_block),
 // dv_part [parts, bk, d] and dcol_part [parts, bk]; the wrapper sums each
-// over its first axis. bf16 operands take the tensor-core kernel (tile
-// 128; parts >= 1 query parts of q_tiles_per_part 64-row tiles; vec != 0
-// when d % 8 == 0 and u, v start on 16 bytes); fp32 operands the FMA
-// kernel (tile 64, parts == 1). Returns the cudaError_t of the launch.
+// over its first axis. Both kernels sweep parts >= 1 query parts of
+// q_tiles_per_part 64-row tiles. bf16 operands take the tensor-core kernel
+// (tile 128; vec != 0 when d % 8 == 0 and u, v start on 16 bytes), fp32
+// operands the FMA kernel (tile 128, 64 where d > 128; vec != 0 when
+// d % 4 == 0 and u, v start on 16 bytes). Returns the cudaError_t of the
+// launch.
 extern "C" int flash_ce_bwd(const void* u, const void* v, const float* colcorr,
                             const int* ids_q, const int* ids_k, const int* pos,
                             const float* lse, const float* g, int bq, int bk, int d,
@@ -1500,7 +1665,6 @@ extern "C" int flash_ce_bwd(const void* u, const void* v, const float* colcorr,
                             void* stream) {
   if (bk <= 0) return 0;
   if (bq <= 0 || d <= 0 || tiles_per_block <= 0 || parts <= 0 || q_tiles_per_part <= 0 ||
-      (!bf16 && parts != 1) ||
       static_cast<long long>(parts) * q_tiles_per_part * TQ < bq)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tpb = tiles_per_block;
@@ -1508,10 +1672,11 @@ extern "C" int flash_ce_bwd(const void* u, const void* v, const float* colcorr,
   if (!bf16)
     return by_width(d, [&](auto w) {
       constexpr int DP = decltype(w)::value;
-      const int n_tiles = (bk + TK - 1) / TK;
-      return launch(flash_ce_bwd_kernel<DP>, dim3((n_tiles + tpb - 1) / tpb), THREADS,
-                    bwd_smem<DP>(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, lse, g,
-                    bq, bk, d, tpb, dv_part, dcol_part, du_part);
+      constexpr int KC = Fp32Bwd<DP>::KC;
+      const int n_tiles = (bk + KC - 1) / KC;
+      return launch(flash_ce_bwd_kernel<DP>, dim3((n_tiles + tpb - 1) / tpb, parts), THREADS,
+                    Fp32Bwd<DP>::smem(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, lse, g,
+                    bq, bk, d, vec, tpb, q_tiles_per_part, dv_part, dcol_part, du_part);
     });
   return by_width(d, [&](auto w) {
     constexpr int DP = decltype(w)::value;

@@ -34,11 +34,13 @@ import torch
 from recsys_tpu_torch.ops import _build
 
 NEG_BIG = -1e9
-# tile sizes of csrc/flash_ce.cu (query rows, candidate rows per tile;
-# the fused backward of bf16 operands takes candidate tiles of TKC, row 6
-# and the forward of bf16 operands query tiles of DU_TQ and candidate
-# tiles of DU_TK, row 7 of bf16 operands candidate tiles of DV_TK and
-# query tiles of DV_TQ)
+# tile sizes of csrc/flash_ce.cu (TQ, TK: query and candidate rows per
+# tile of the forward and rows 6 and 7 of fp32 operands, TQ also the
+# query tile that the fused backward's plan counts; the fused backward
+# takes candidate tiles of TKC, or of TK for fp32 operands at D > 128,
+# row 6 and the forward of bf16 operands query tiles of DU_TQ and
+# candidate tiles of DU_TK, row 7 of bf16 operands candidate tiles of
+# DV_TK and query tiles of DV_TQ)
 TQ = 64
 TK = 64
 TKC = 128
@@ -370,17 +372,6 @@ def bwd_route(bq: int, bk: int, d: int, bf16: bool = False) -> str:
             else "twokernel")
 
 
-def bwd_tiles_per_block(bq: int, bk: int, d: int) -> int:
-    """Candidate tiles (of ``TK``) that one block of the fp32 fused
-    backward sweeps: 1 (a block per tile, the most parallel) while the
-    ``[ceil(Bk / TK), Bq, D]`` fp32 partials fit under
-    ``_FUSED_BWD_PARTIALS_CAP``, else the fewest that keep the kernel's
-    ``[n_blocks, Bq, D]`` partials under it."""
-    n_tiles = -(-bk // TK)
-    max_parts = max(1, _FUSED_BWD_PARTIALS_CAP // (bq * d * 4))
-    return -(-n_tiles // min(n_tiles, max_parts))
-
-
 class BwdPlan(NamedTuple):
     """How the fused backward cuts [Bq, Bk]: each of ``n_spans`` blocks
     along the candidates owns ``tiles_per_block`` candidate tiles of
@@ -400,21 +391,22 @@ class BwdPlan(NamedTuple):
 
 
 def bwd_plan(bq: int, bk: int, d: int, bf16: bool, n_sm: int) -> BwdPlan:
-    """The fused backward's tiling on a card of ``n_sm`` SMs. bf16 operands
-    (the tensor-core kernel): 128-candidate tiles, one a block while the
-    partials fit ``_FUSED_BWD_PARTIALS_CAP``, else the fewest that keep them
-    under it; the query sweep split into enough parts that the grid holds
-    about two blocks per SM. fp32 operands (the FMA kernel): 64-candidate
-    tiles, :func:`bwd_tiles_per_block`, one part."""
+    """The fused backward's tiling on a card of ``n_sm`` SMs, one plan for
+    both kernels (bf16 operands on the tensor cores, fp32 on the FMA
+    units): candidate tiles of ``TKC`` (``TK`` for fp32 operands at D >
+    128, where the FMA kernel's 128 candidate rows would not fit its shared
+    memory beside its query tile), one a block while the partials fit
+    ``_FUSED_BWD_PARTIALS_CAP``, else the fewest that keep them under it;
+    the query sweep split into enough parts that the grid holds about two
+    blocks per SM (8,192^2 at D = 128: 64 spans x 4 parts); no part is
+    empty."""
+    tile = TK if not bf16 and d > 128 else TKC
     n_qt = -(-bq // TQ)
-    if not bf16:
-        tpb = bwd_tiles_per_block(bq, bk, d)
-        return BwdPlan(TK, tpb, 1, n_qt, -(-(-(-bk // TK)) // tpb))
-    n_tiles = -(-bk // TKC)
+    n_tiles = -(-bk // tile)
     tpb = -(-n_tiles // min(n_tiles, max(1, _FUSED_BWD_PARTIALS_CAP // (bq * d * 4))))
     def with_parts(n_spans: int, parts: int) -> BwdPlan:
         qpp = -(-n_qt // max(1, min(n_qt, parts)))
-        return BwdPlan(TKC, tpb, -(-n_qt // qpp), qpp, n_spans)
+        return BwdPlan(tile, tpb, -(-n_qt // qpp), qpp, n_spans)
 
     while True:
         n_spans = -(-n_tiles // tpb)
@@ -482,9 +474,11 @@ def _ptrs(args) -> list:
 
 
 def _vec(u, v) -> int:
-    """1 where the tensor-core kernels may stage u and v rows 16 bytes at a
-    time (bf16, D a multiple of 8, both starting on 16 bytes), else 0."""
-    return int(u.dtype == torch.bfloat16 and u.shape[1] % 8 == 0
+    """1 where the kernels that stage by ``cp.async`` (every bf16 kernel and
+    the fp32 fused backward) may copy u and v rows 16 bytes at a time (D a
+    multiple of 8 bf16 or 4 fp32 values, both starting on 16 bytes), else
+    0: they then copy element by element."""
+    return int(u.shape[1] % (16 // u.element_size()) == 0
                and u.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
 
 
@@ -497,9 +491,9 @@ def flash_ce_bwd_fused(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
     the label terms; ``lse`` and ``g`` fp32 [Bq].
 
     CPU tensors take :func:`flash_ce_bwd_reference`; CUDA tensors launch
-    the kernel (one sweep on :func:`bwd_plan`: bf16 operands on the tensor
-    cores, fp32 on the FMA units), its partials summed here by
-    :func:`sum_partials`, or raise."""
+    the kernel (one sweep on :func:`bwd_plan`, the same plan for bf16
+    operands on the tensor cores and fp32 on the FMA units), its partials
+    summed here by :func:`sum_partials`, or raise."""
     args = _bwd_args(u, v, colcorr, ids_q, ids_k, pos, lse, g, "flash_ce_bwd_fused")
     if not _on_cuda(u, "flash_ce_bwd_fused"):
         return flash_ce_bwd_reference(*args)

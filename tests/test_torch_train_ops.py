@@ -194,19 +194,22 @@ def test_flash_wrappers_check_inputs_and_the_partials_cap(monkeypatch):
 ])
 def test_flash_bwd_covers_the_tpu_batch_range(b, tiles, parts, route):
     """The backward takes the TPU package's route at every batch: the
-    fused kernel where the TPU's partials fit the cap (each bf16 block
-    sweeping as many 128-candidate tiles, and the query sweep split into
-    as many parts, as keep the kernel's own dU, dV and dcol partials under
-    it; the fp32 kernel's 64-candidate tiles likewise), the two-kernel
-    backward where they do not. Meta tensors: nothing is allocated."""
+    fused kernel where the TPU's partials fit the cap (each block sweeping
+    as many 128-candidate tiles, and the query sweep split into as many
+    parts, as keep the kernel's own dU, dV and dcol partials under it; the
+    same plan for bf16 operands on the tensor cores and fp32 ones on the
+    FMA units), the two-kernel backward where they do not. Every candidate
+    tile lies in exactly one span, every part has query tiles. Meta
+    tensors: nothing is allocated."""
     d = 128
-    p = F.bwd_plan(b, b, d, True, 132)
-    assert (p.tile, p.tiles_per_block, p.parts) == (F.TKC, tiles, parts)
     n_tiles, n_qt = -(-b // F.TKC), -(-b // F.TQ)
-    assert p.n_spans == -(-n_tiles // tiles) and p.n_spans * p.parts >= min(132, n_tiles)
-    assert p.parts * p.q_tiles_per_part >= n_qt > (p.parts - 1) * p.q_tiles_per_part
-    for plan in (p, F.bwd_plan(b, b, d, False, 132)):
-        assert plan.partials_bytes(b, b, d) <= F._FUSED_BWD_PARTIALS_CAP
+    for bf16 in (True, False):
+        p = F.bwd_plan(b, b, d, bf16, 132)
+        assert (p.tile, p.tiles_per_block, p.parts) == (F.TKC, tiles, parts)
+        assert p.n_spans == -(-n_tiles // tiles) and p.n_spans * p.parts >= min(132, n_tiles)
+        assert p.n_spans * tiles >= n_tiles > (p.n_spans - 1) * tiles
+        assert p.parts * p.q_tiles_per_part >= n_qt > (p.parts - 1) * p.q_tiles_per_part
+        assert p.partials_bytes(b, b, d) <= F._FUSED_BWD_PARTIALS_CAP
     assert F.bwd_route(b, b, d) == route
     meta = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
     ids = meta(b, dtype=torch.int32)
@@ -222,8 +225,12 @@ def test_flash_bwd_covers_the_tpu_batch_range(b, tiles, parts, route):
     (130, 260, 24, "bfloat16", 132, None),  # more SMs than blocks: a part per query tile
     (70, 1, 8, "bfloat16", 8, None),        # one candidate
     (200, 300, 16, "bfloat16", 4, 2),       # a cap of two dU partials: wide spans
-    (130, 260, 24, "float32", 4, None),     # the FMA kernel's 64-wide tiles, one part
-    (130, 260, 24, "float32", 4, 3),
+    (130, 260, 24, "float32", 4, None),     # the FMA kernel on the same plan: 3 spans x 2 parts
+    (130, 260, 24, "float32", 4, 3),        # a cap of three dU partials: one span of 3 tiles
+    (300, 700, 64, "float32", 8, None),     # 6 spans x 2 parts, ragged last tiles
+    (200, 300, 16, "float32", 4, 2),        # a cap of two dU partials: wide spans
+    (150, 333, 129, "float32", 8, None),    # D > 128: 64-candidate tiles, 6 spans x 2 parts
+    (100, 200, 256, "float32", 4, None),    # DP = 256: 4 spans x 2 parts
 ])
 def test_plain_backward_over_the_partial_layout_matches_reference(
         monkeypatch, bq, bk, d, dtype, n_sm, cap_parts):
@@ -250,6 +257,49 @@ def test_plain_backward_over_the_partial_layout_matches_reference(
                          F.flash_ce_bwd_reference(*args)):
         scale = float(want.abs().max())
         _close(got, want, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("bq,bk,d,n_sm,all_accidental", [
+    (64, 192, 16, 4, False),   # 2 spans x 1 part
+    (37, 100, 24, 132, True),  # ragged: one tile each way (the TPU's tiles are the batch)
+    (130, 260, 129, 8, True),  # D > 128: 64-candidate tiles, 5 spans x 3 parts
+    (256, 520, 32, 8, False),  # 5 spans x 2 parts
+])
+def test_fp32_bwd_partials_match_jax_fused_interpret(bq, bk, d, n_sm, all_accidental):
+    """The plain version of what the fp32 fused kernel writes under
+    ``bwd_plan`` (spans of 128 or 64 candidates, parts of the query
+    sweep), summed by ``sum_partials``, equals JAX ``_flash_bwd_fused_raw``
+    in interpret mode to 1e-5 of each output's max|ref|; row 0's positive
+    lies in the last candidate tile, and with ``all_accidental`` every
+    third row's every other candidate is an accidental hit."""
+    u, v, c, ids_q, ids_k, g = _inputs(bq, bk, d, seed=bq + d)
+    ids_q, ids_k, pos = _edges(ids_q, ids_k, np.arange(bq, dtype=np.int32) % bk,
+                               all_accidental)
+    small = (torch.tensor(c), torch.tensor(ids_q), torch.tensor(ids_k), torch.tensor(pos))
+    tu, tv = torch.tensor(u), torch.tensor(v)
+    lse, _ = F.flash_ce_fwd_reference(tu, tv, *small)
+    p = F.bwd_plan(bq, bk, d, False, n_sm)
+    assert p.tile == (F.TK if d > 128 else F.TKC)
+    got = F.sum_partials(*F.flash_ce_bwd_partials_reference(tu, tv, *small, lse,
+                                                            torch.tensor(g), p))
+    want = JF._flash_bwd_fused_raw(jnp.asarray(u), jnp.asarray(v), jnp.asarray(c),
+                                   jnp.asarray(ids_q), jnp.asarray(ids_k), jnp.asarray(pos),
+                                   jnp.asarray(lse.numpy()), jnp.asarray(g), True)
+    for a, b in zip(got, want):
+        _close(a, b, rtol=0, atol=1e-5 * float(np.abs(np.asarray(b)).max()))
+
+
+@pytest.mark.parametrize("d,dtype,want", [
+    (128, torch.float32, 1), (24, torch.float32, 1), (129, torch.float32, 0),
+    (30, torch.float32, 0), (24, torch.bfloat16, 1), (20, torch.bfloat16, 0),
+])
+def test_vec_copies_16_bytes_where_rows_allow(d, dtype, want):
+    """``_vec``: rows of 16-byte multiples (4 fp32 or 8 bf16 values)
+    starting on 16 bytes are staged by ``cp.async`` 16 bytes at a time;
+    any other width, or an operand off 16 bytes, element by element."""
+    u, v = torch.zeros(8, d, dtype=dtype), torch.zeros(8, d, dtype=dtype)
+    assert F._vec(u, v) == want
+    assert F._vec(torch.zeros(8 * d + 1, dtype=dtype)[1:].view(8, d), v) == 0
 
 
 @pytest.mark.parametrize("bq,bk", [(8192, 8192), (20000, 20000), (24000, 24000),
