@@ -31,8 +31,8 @@
    before and read just after; checks the losses, the artifacts and that
    every training kernel launched; then one epoch with fp32 retrieval
    operands (``mixed_precision=False, bf16_retrieval_logits=False``),
-   whose backward is the fused kernel (row 5's FMA kernel), with its
-   steps/s;
+   whose forward is row 4's FMA kernel and whose backward the fused
+   kernel (row 5's FMA kernel), with its steps/s;
 9. serves the trained bundle through phase 4's requests;
 10. trains 3 steps of 8,192 rows from one full-width init (dropout 0) on
     the card and, through the plain versions, on the CPU, and compares
@@ -41,9 +41,17 @@
     DCN backward) against their plain versions at the training shapes
     (before phase 8: row 5 of fp32 operands at its edges, D of 24 to 256,
     ragged Bq and Bk, one candidate, all-accidental rows, and 65,536^2,
-    two calls bit-equal) and times them as in phase 6, then profiles a
-    full train step with and without the flash kernels at batch 4,096 and
-    8,192, and the fp32 epoch's step, as phase 7 profiles a request;
+    two calls bit-equal; rows 4 and 6 of fp32 operands at theirs, the
+    same widths, ragged shapes off their 128-row blocks and 64- and
+    128-candidate tiles, one candidate, row 0's positive in the last part,
+    all-accidental rows, 8,192^2 in 8 parts and 65,536 x 4,096 in one,
+    two calls bit-equal, the positive logit of 8 parts bit-equal to that
+    of one) and times them as in phase 6, then profiles a full train step
+    with and without the flash kernels at batch 4,096 and 8,192, and the
+    fp32 steps at 8,192 (the fp32 epoch's: rows 4 and 5) and 20,000 (rows
+    4, 6 and 7: the TPU's partials pass the cap there), each with the
+    device ms and launches of every flash kernel and the backward its
+    wrappers took, as phase 7 profiles a request;
 12. evaluates the phase 8 bundle with ``python -m recsys_tpu_torch.evaluate
     --filter_seen --rerank_candidates 200 --device cuda`` (the per-batch
     seen mask and the two-stage rerank through the DCN kernel);
@@ -76,7 +84,10 @@
     129, 256}, Bq and Bk not multiples of 16 or 64, one candidate, a
     positive column in the forward's last part, rows whose every other
     candidate is an accidental hit) and checks that two calls of each give
-    the same bits;
+    the same bits; at 20,000^2 in fp32 checks that ``flash_ce_bwd`` takes
+    rows 6 + 7 (their wrappers launch, the fused one does not), holds the
+    result against the plain backward and times rows 6 and 7 beside their
+    yardsticks;
 17. above the partials cap (Bq = 131,072, Bk = 262,144, D = 128, bf16):
     the route is the two-kernel one; the forward, rows 6 and 7 and the
     fused kernel agree with their plain versions (chunked over query rows,
@@ -115,8 +126,8 @@ times kernel rows 1, 4, 5, 6, 7 and 8 of an unpacked checkout of
 another commit (``git archive <commit> | tar -x -C PARENT_DIR``) and of
 this tree in turns on one card (parent, this, this, parent; a process
 each, every tree built from its own sources) at the shapes of the
-``AB_*_SHAPES`` lists, beside the library yardsticks of rows 4 to 8, and
-prints one JSON line per run.
+``AB_*_SHAPES`` lists (rows 4 to 7 also in fp32 at 8,192^2), beside the
+library yardsticks of rows 4 to 8, and prints one JSON line per run.
 """
 
 from __future__ import annotations
@@ -158,6 +169,9 @@ FLASH_TOL = 1e-5
 FLASH_BF16_GRAD_TOL = 2.0 ** -8
 N_TRAIN, N_VAL = 200_000, 25_000
 TRAIN_BATCH = 8192
+# the fp32 step whose backward takes rows 6 + 7: at 20,000 rows the TPU's
+# candidate tile is 32 and its fused partials (5.96 GiB) pass the cap
+FP32_TWOKERNEL_BATCH = 20_000
 TRAIN_EPOCHS = 2
 ZIPF_EXPONENT = 1.0  # item popularity ~ rank**-1
 PARITY_STEPS = 3
@@ -859,6 +873,81 @@ def check_fp32_bwd_edges() -> list:
     return out
 
 
+def check_fp32_du_fwd_edges() -> list:
+    """Rows 6 and 4 of fp32 operands (``flash_ce_bwd_du`` and
+    ``flash_ce_fwd``: the FMA kernels on the fp32 branches of ``du_plan``
+    and ``fwd_plan``) against their plain versions at their edges, before
+    any timing: every padded width (D in {24, 32, 64, 128, 129, 256}:
+    element-wise loads where D % 4 != 0, 64-row blocks past 128), Bq and Bk
+    off the 128-row blocks and the 64- and 128-candidate tiles, one
+    candidate (one part), row 0's positive column in the last part, a third
+    of the rows whose every candidate but the positive is an accidental hit
+    (every other shape), 8,192^2 (8 parts) and 65,536 x 4,096 (one part of
+    64 and 32 tiles): dU, lse and the positive logit within FLASH_TOL of
+    their own max|ref|, two calls bit-equal, and the positive logit of a
+    many-part forward bit-equal to that of the same forward in one part
+    (one part holds it; the others add 0). -> errors and plans per shape."""
+    import torch
+    from recsys_tpu_torch.ops import flash_ce as F
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for i, (bq, bk, d) in enumerate(((50, 70, 32), (130, 4097, 24), (1000, 3001, 64),
+                                     (777, 2050, 128), (1000, 3001, 129), (300, 1100, 256),
+                                     (65, 1, 128), (8192, 8192, 128), (65_536, 4096, 128))):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 50 + i)
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+        n_ids = max(2, bk // 3)
+        ints = lambda n: torch.randint(0, n_ids, (n,), generator=gen, device="cuda",
+                                       dtype=torch.int32)
+        u, v = rnd(bq, d) * d ** -0.5, rnd(bk, d) * d ** -0.5
+        c, ids_q, ids_k, gr = rnd(bk), ints(bq), ints(bk), torch.rand((bq,), generator=gen,
+                                                                      device="cuda") / bq
+        pos = torch.arange(bq, device="cuda", dtype=torch.int32) % bk
+        pos[0] = bk - 1
+        if i % 2:
+            ids_k.fill_(n_ids)
+            ids_q[::3] = n_ids
+        what = f"rows 4/6 fp32 edge Bq={bq} Bk={bk} D={d}"
+        du_p, fwd_p = F.du_plan(bq, bk, d, False, n_sm), F.fwd_plan(bq, bk, False, n_sm, d)
+        if (bq, bk) == (8192, 8192):
+            check(du_p.parts == fwd_p.parts == 8, f"{what}: plans {du_p}, {fwd_p}")
+        if bk == 1 or bq == 65_536:
+            check(du_p.parts == fwd_p.parts == 1, f"{what}: plans {du_p}, {fwd_p}")
+        fwd = [F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos) for _ in range(2)]
+        torch.cuda.synchronize()
+        ref_lse, ref_pos = F.flash_ce_fwd_reference(u, v, c, ids_q, ids_k, pos)
+        fwd_abs, fwd_rel = _errs(fwd[0], (ref_lse, ref_pos))
+        check(all(bool(torch.isfinite(t).all()) for t in fwd[0]), f"{what}: non-finite forward")
+        check(max(fwd_rel) <= FLASH_TOL, f"{what}: forward err {fwd_rel} > {FLASH_TOL}")
+        check(all(bool(torch.equal(a, b)) for a, b in zip(*fwd)), f"{what}: two forwards differ")
+        if fwd_p.parts > 1:  # the same forward in one part
+            cap = F._FUSED_BWD_PARTIALS_CAP
+            F._FUSED_BWD_PARTIALS_CAP = 12 * bq
+            try:
+                check(F.fwd_plan(bq, bk, False, n_sm, d).parts == 1, f"{what}: one-part plan")
+                one_lse, one_pos = F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos)
+            finally:
+                F._FUSED_BWD_PARTIALS_CAP = cap
+            check(bool(torch.equal(one_pos, fwd[0][1])),
+                  f"{what}: the positive logit moved between {fwd_p.parts} parts and one")
+            check(_errs([one_lse], [ref_lse])[1][0] <= FLASH_TOL, f"{what}: one-part lse")
+        args = (u, v, c, ids_q, ids_k, pos, ref_lse, gr)
+        du = [F.flash_ce_bwd_du(*args) for _ in range(2)]
+        torch.cuda.synchronize()
+        du_abs, du_rel = _errs([du[0]], [F.flash_ce_bwd_du_reference(*args)])
+        check(bool(torch.isfinite(du[0]).all()), f"{what}: non-finite dU")
+        check(du_rel[0] <= FLASH_TOL, f"{what}: dU err {du_rel[0]} of max|ref| > {FLASH_TOL}")
+        check(bool(torch.equal(du[0], du[1])), f"{what}: two row 6 calls differ")
+        out.append({"Bq": bq, "Bk": bk, "D": d, "all_accidental_rows": bool(i % 2),
+                    "du_plan": du_p._asdict(), "fwd_plan": fwd_p._asdict(),
+                    "max_abs_err": max(fwd_abs, du_abs),
+                    "rel": {"lse": fwd_rel[0], "pos_logit": fwd_rel[1], "dU": du_rel[0]}})
+        del fwd, du, args, u, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def _dense_softmax_bwd(u, v, c, gr) -> tuple:
     """Row 5's one-call yardstick: the dense softmax backward over the
     whole [Bq, Bk] scores (dU, dV with p*g rounded to the operand type,
@@ -1016,19 +1105,28 @@ def profile_train_steps(bundle: dict) -> list:
     8,192 (the main path's), with the flash kernels and with the dense
     path, profiled by :func:`profile_call`: the step's wall and device
     times that later set ``_FLASH_MIN_CANDIDATES`` on the card; then the
-    fp32 epoch's step (B = 8,192, ``mixed_precision=False``,
-    ``bf16_retrieval_logits=False``: row 4's and row 5's FMA kernels), with
-    the device ms and launches of the flash kernels."""
+    fp32 steps (``mixed_precision=False``, ``bf16_retrieval_logits=False``)
+    at B = 8,192 (the fp32 epoch's: rows 4 and 5 in fp32, the fused
+    backward under the cap) and B = 20,000 (rows 4, 6 and 7 in fp32: the
+    TPU's 32-wide tile puts its partials past the cap), with the device ms
+    and launches of each flash kernel; the wrappers' counters show which
+    backward each fp32 step took."""
     from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
     from recsys_tpu_torch.models.losses import balanced_class_weights
+    from recsys_tpu_torch.ops import flash_ce as F
     from recsys_tpu_torch.train.trainer import Trainer
 
     cw = balanced_class_weights(bundle["train/y_implicit"])
     fp32 = dict(mixed_precision=False, bf16_retrieval_logits=False)
+    groups = {"row4_fwd": "flash_ce_fwd_kernel", "row4_combine": "flash_ce_fwd_combine_kernel",
+              "row5_fused": "flash_ce_bwd_kernel", "row6_du": "flash_ce_bwd_du_kernel",
+              "row7_dv": "flash_ce_bwd_dv_kernel"}
+    wrappers = ("flash_ce_bwd_fused", "flash_ce_bwd_du", "flash_ce_bwd_dv")
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
         for b, flash, model_kw in ((4096, True, {}), (4096, False, {}), (TRAIN_BATCH, True, {}),
-                                   (TRAIN_BATCH, False, {}), (TRAIN_BATCH, True, fp32)):
+                                   (TRAIN_BATCH, False, {}), (TRAIN_BATCH, True, fp32),
+                                   (FP32_TWOKERNEL_BATCH, True, fp32)):
             batches = _batches(bundle, 2, b, "cuda", _log_q(bundle))
             cfg = RecsysConfig(model=ModelConfig(use_flash_ce=flash, **model_kw),
                                train=TrainConfig(batch_size=b))
@@ -1040,9 +1138,18 @@ def profile_train_steps(bundle: dict) -> list:
                 holder[0], _ = step(holder[0], batches[holder[0].step % 2])
 
             name = f"train_step_B{b}_{'flash' if flash else 'dense'}{'_fp32' if model_kw else ''}"
-            groups = ({"row4_fwd": "flash_ce_fwd_kernel", "row5_fused": "flash_ce_bwd_kernel"}
-                      if model_kw else None)
-            rows.append(profile_call(name, one, n_wall=20, n_traced=5, warmup=2, groups=groups))
+            before = {w: getattr(F, w).launches for w in wrappers}
+            row = profile_call(name, one, n_wall=20, n_traced=5, warmup=2,
+                               groups=groups if model_kw else None)
+            if model_kw:
+                moved = {w: getattr(F, w).launches - before[w] for w in wrappers}
+                row["wrapper_launches"] = moved
+                fused = F.bwd_route(b, b, 128) == "fused"
+                check((moved["flash_ce_bwd_fused"] > 0) == fused
+                      and (moved["flash_ce_bwd_du"] == moved["flash_ce_bwd_dv"] > 0) != fused,
+                      f"{name}: backward launches {moved}")
+                check(row["group_launches"]["row4_fwd"] > 0, f"{name}: row 4 never launched")
+            rows.append(row)
     return rows
 
 
@@ -1377,18 +1484,19 @@ def evaluate_cli(repo: str, run_dir: str, bundle_np: dict) -> dict:
 
 # ---- giant-table, large-batch training --------------------------------------
 
-def check_twokernel(u, v, c, ids_q, ids_k, pos, g) -> dict:
-    """Rows 6 and 7, through ``flash_ce_bwd_twokernel``, against their
-    plain versions on the same inputs (``lse`` from the plain forward),
-    each output relative to its own max|ref|: dcol within FLASH_TOL, dU
-    and dV within FLASH_TOL for fp32 operands and FLASH_BF16_GRAD_TOL for
-    bf16 ones. -> errors and the inputs of the backward."""
+def check_twokernel(u, v, c, ids_q, ids_k, pos, g, bwd=None) -> dict:
+    """Rows 6 and 7, through ``bwd`` (default ``flash_ce_bwd_twokernel``),
+    against their plain versions on the same inputs (``lse`` from the
+    plain forward), each output relative to its own max|ref|: dcol within
+    FLASH_TOL, dU and dV within FLASH_TOL for fp32 operands and
+    FLASH_BF16_GRAD_TOL for bf16 ones. -> errors and the inputs of the
+    backward."""
     import torch
     from recsys_tpu_torch.ops import flash_ce as F
 
     lse, _ = F.flash_ce_fwd_reference(u, v, c, ids_q, ids_k, pos)
     args = (u, v, c, ids_q, ids_k, pos, lse, g)
-    got = F.flash_ce_bwd_twokernel(*args)
+    got = (bwd or F.flash_ce_bwd_twokernel)(*args)
     torch.cuda.synchronize()
     want = (F.flash_ce_bwd_du_reference(*args), *F.flash_ce_bwd_dv_reference(*args))
     abs_err = [float((a - b).abs().max()) for a, b in zip(got, want)]
@@ -1529,6 +1637,33 @@ def twokernel_rows(args, iters: int, exp_rate: float, plain: bool) -> tuple:
     return rows[0], rows[1]
 
 
+def check_fp32_route(exp_rate: float) -> dict:
+    """fp32 operands at FP32_TWOKERNEL_BATCH^2, D = 128: ``flash_ce_bwd``
+    takes rows 6 + 7 (their wrappers launch once each, the fused kernel's
+    never) and agrees with the plain backward (:func:`check_twokernel`);
+    rows 6 and 7 timed beside their yardsticks and bounds
+    (:func:`twokernel_rows`)."""
+    import torch
+    from recsys_tpu_torch.ops import flash_ce as F
+
+    b, d = FP32_TWOKERNEL_BATCH, 128
+    route = F.bwd_route(b, b, d, False)
+    check(route == "twokernel", f"fp32 {b}^2: route {route}, want twokernel")
+    wrappers = ("flash_ce_bwd_fused", "flash_ce_bwd_du", "flash_ce_bwd_dv")
+    before = {w: getattr(F, w).launches for w in wrappers}
+    res = check_twokernel(*_flash_args(b, b, d, torch.float32, SEED + 14, n_ids=max(2, b // 3)),
+                          bwd=F.flash_ce_bwd)
+    moved = {w: getattr(F, w).launches - before[w] for w in wrappers}
+    check(moved == {"flash_ce_bwd_fused": 0, "flash_ce_bwd_du": 1, "flash_ce_bwd_dv": 1},
+          f"fp32 {b}^2: launches {moved}")
+    du_row, dv_row = twokernel_rows(res["args"], 10, exp_rate, plain=True)
+    du_row["max_abs_err"] = res["abs"]["dU"]
+    dv_row["max_abs_err"] = max(res["abs"]["dV"], res["abs"]["dcol"])
+    return {"route": route, "launches": moved, "plan": F.du_plan(
+        b, b, d, False, torch.cuda.get_device_properties(0).multi_processor_count)._asdict(),
+            "rel": res["rel"], "du": du_row, "dv": dv_row}
+
+
 def time_routes() -> list:
     """Phase 17's route table: the fused backward and the two-kernel one
     (rows 6 + 7 with their parts' sums), bf16, D = 128, at ROUTE_SHAPES,
@@ -1606,6 +1741,8 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
     log(f"rows 6 and 7 agree with their plain versions: {json.dumps(out['checks'])}")
     out["fwd_dv_edges"] = check_fwd_dv_edges()
     log(f"rows 4 and 7 (tensor cores) agree at their edges: {json.dumps(out['fwd_dv_edges'])}")
+    out["fp32_route"] = check_fp32_route(exp_rate)
+    log(f"fp32 {FP32_TWOKERNEL_BATCH}^2 takes rows 6 + 7: {json.dumps(out['fp32_route'])}")
 
     bq, bk, d = ABOVE_CAP
     route = F.bwd_route(bq, bk, d, True)
@@ -2037,6 +2174,9 @@ def main() -> int:
     check_train_edges()
     fp32_edges = check_fp32_bwd_edges()
     log(f"row 5 fp32 agrees with its plain version at its edges: {json.dumps(fp32_edges)}")
+    fp32_du_fwd_edges = check_fp32_du_fwd_edges()
+    log(f"rows 4 and 6 fp32 agree with their plain versions at their edges: "
+        f"{json.dumps(fp32_du_fwd_edges)}")
     counters += [Counter("flash_ce_fwd", flash_mod.flash_ce_fwd),
                  Counter("flash_ce_bwd_fused", flash_mod.flash_ce_bwd_fused),
                  Counter("flash_ce_bwd_du", flash_mod.flash_ce_bwd_du),
@@ -2093,8 +2233,10 @@ def main() -> int:
         log(f"kernel flash_ce_bwd_fused {json.dumps(bwd)}")
     for row in dcn_bwd_rows:
         log(f"kernel dcn_cross_bwd {json.dumps(row)}")
-    for row in profile_train_steps(bundle_np):
+    train_profiles = profile_train_steps(bundle_np)
+    for row in train_profiles:
         log(f"profile {json.dumps(row)}")
+    fp32_steps = {r["profile"]: r for r in train_profiles if "group_launches" in r}
 
     # ---- large-catalog retrieval: the third main path ---------------------
     t_large = time.perf_counter()
@@ -2161,6 +2303,7 @@ def main() -> int:
                                        torch.cuda.get_device_properties(0)
                                        .multi_processor_count)._asdict()
     main_dcn_bwd = dcn_bwd_rows[-1]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     speed = ("tflops", "bound_share", "device_ms", "kernel_device_ms", "plain_device_ms")
     kernels = [
@@ -2188,8 +2331,11 @@ def main() -> int:
          "replaces": "recsys_tpu/ops/pallas/flash_ce.py:114",
          "launches": train_launches["flash_ce_fwd"], **{k: main_fwd[k] for k in keys + speed},
          "kernel": "flash_ce_fwd_tc_kernel + flash_ce_fwd_combine_kernel (bf16, mma.sync); "
-                   "flash_ce_fwd_kernel serves fp32",
-         "fp32": {k: fp32_fwd[k] for k in keys + speed},
+                   "flash_ce_fwd_kernel + the same combine kernel serve fp32 (FMA units, "
+                   "128-bit register-tiled S, thread-private running (m, l), fwd_plan parts)",
+         "fp32": {k: fp32_fwd[k] for k in keys + speed}, "fp32_new_kernel": True,
+         "fp32_plan": flash_mod.fwd_plan(TRAIN_BATCH, TRAIN_BATCH, False, n_sm, 128)._asdict(),
+         "fp32_edges": fp32_du_fwd_edges,
          "launches_fp32_epoch": fp32_launches["flash_ce_fwd"],
          "launches_giant": giant_launches["flash_ce_fwd"],
          "shape": main_fwd["shape"],
@@ -2223,8 +2369,20 @@ def main() -> int:
             "launches_train": train_launches[name],
             "fp32": {k: twokernel["main_fp32"][i][k] for k in keys + speed},
             "shape": main_row["shape"], "shapes": [main_row, twokernel["above"][i]]})
+    fp32_route = twokernel["fp32_route"]
     kernels[-2].update(kernel="flash_ce_bwd_du_tc_kernel (bf16, mma.sync); "
-                              "flash_ce_bwd_du_kernel serves fp32")
+                              "flash_ce_bwd_du_kernel serves fp32 (FMA units, 128-bit "
+                              "register-tiled S and dU, du_plan parts)",
+                       fp32_new_kernel=True, fp32_edges=fp32_du_fwd_edges,
+                       fp32_plan=flash_mod.du_plan(TRAIN_BATCH, TRAIN_BATCH, 128, False,
+                                                   n_sm)._asdict(),
+                       fp32_route_shape=fp32_route["du"])
+    kernels[-1].update(fp32_route_shape=fp32_route["dv"])
+    # launches per step of each fp32 kernel on the two timed fp32 steps
+    for entry, label in ((kernels[3], "row4_fwd"), (kernels[4], "row5_fused"),
+                         (kernels[-2], "row6_du"), (kernels[-1], "row7_dv")):
+        entry["fp32_launches_per_step"] = {name: r["group_launches"][label]
+                                           for name, r in fp32_steps.items()}
     kernels[-1].update(kernel="flash_ce_bwd_dv_tc_kernel (bf16, mma.sync); "
                               "flash_ce_bwd_dv_kernel serves fp32")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2241,8 +2399,9 @@ def main() -> int:
 AB_TOPK_SHAPES = [(1, N_ITEMS, 10), (1, N_ITEMS, RERANK), (BATCH_USERS, N_ITEMS, 10),
                   (BATCH_USERS, N_ITEMS, RERANK), (4096, 1 << 20, 10)]
 AB_FLASH_SHAPES = [(4096, "bfloat16"), (TRAIN_BATCH, "bfloat16"), (TRAIN_BATCH, "float32")]
-# rows 6 (dU) and 7 (dV, dcol) and the forward (row 4): (Bq, Bk), bf16, D = 128
-AB_TWOKERNEL_SHAPES = [(TRAIN_BATCH, TRAIN_BATCH), (32_768, 65_536)]
+# rows 6 (dU) and 7 (dV, dcol) and the forward (row 4): (Bq, Bk, dtype), D = 128
+AB_TWOKERNEL_SHAPES = [(TRAIN_BATCH, TRAIN_BATCH, "bfloat16"), (32_768, 65_536, "bfloat16"),
+                       (TRAIN_BATCH, TRAIN_BATCH, "float32")]
 # row 8: (Q, N), bf16, d = 128, groups of 512
 AB_BLOCKMAX_SHAPES = [(1, LARGE_N_ITEMS), (BATCH_USERS, LARGE_N_ITEMS), (BIG_Q, BIG_N)]
 
@@ -2300,13 +2459,13 @@ def time_kernels(tree: str) -> dict:
                                  "library_ms": time_ms(
                                      lambda: torch.logsumexp(torch.matmul(u, v.T) + c, dim=1),
                                      10)})
-    for bq, bk in AB_TWOKERNEL_SHAPES:
-        u, v, c, ids_q, ids_k, pos, gr = _flash_args(bq, bk, 128, torch.bfloat16, SEED + 21,
+    for bq, bk, dt in AB_TWOKERNEL_SHAPES:
+        u, v, c, ids_q, ids_k, pos, gr = _flash_args(bq, bk, 128, getattr(torch, dt), SEED + 21,
                                                      n_ids=max(2, bk // 3))
         lse, _ = F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos)
         args = (u, v, c, ids_q, ids_k, pos, lse, gr)
         iters = 10 if bq * bk <= TRAIN_BATCH ** 2 else 3
-        shape = {"Bq": bq, "Bk": bk, "D": 128, "dtype": "bfloat16"}
+        shape = {"Bq": bq, "Bk": bk, "D": 128, "dtype": dt}
         out["flash_fwd_row4"].append({**shape, **_timed(
             lambda: F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos), iters, "flash_ce_fwd_")})
         row6 = {**shape, **_timed(lambda: F.flash_ce_bwd_du(*args), iters, "flash_ce_bwd_du_")}

@@ -12,7 +12,7 @@
 //                                      and j != pos[i]
 // of Bq query rows u [Bq, D] against Bk candidate rows v [Bk, D] (bf16 or
 // fp32), without ever writing the [Bq, Bk] matrix to device memory
-// (masked_logit and tile_pg below are their one shared logits-tile code):
+// (masked_logit below is their one shared logit code):
 //   * forward: lse_i = log sum_j exp(s_ij) (online max / sum-exp over
 //     candidate tiles, m starting at -1e9 and the sum floored at 1e-30
 //     before the log, as on the TPU) and the positive logit s_{i,pos_i};
@@ -45,14 +45,20 @@
 // take it (ops/flash_ce.py::bwd_route).
 //   The kernels of fp32 operands run every product on the fp32 FMA units
 // (fp32 operands must meet a 1e-5 contract, which TF32 tensor cores
-// cannot); bound by the fp32 instruction rate and, where a thread's
+// cannot), bound by the fp32 instruction rate and, where a thread's
 // register tile is small, by shared-memory loads (an SM reads 32 floats
-// of shared memory a clock and retires 128 FMAs). The forward and rows 6
-// and 7 take a 4 x 4 register tile per thread over scalar loads; the
-// fused backward (row 5) 8 x 8 register tiles over 128-bit loads: four
-// FMAs per float loaded, the rate at which shared memory keeps the FMA
-// units fed. What every kernel keeps from the TPU kernels is the memory
-// side: the logits never leave the chip.
+// of shared memory a clock and retires 128 FMAs). The forward (row 4), the
+// fused backward (row 5) and the dU kernel (row 6) read 128-bit rows of
+// one row-major layout in shared memory into register tiles of 8 x 8 (or
+// 8 x 4) outputs per thread, laid out so that no load meets a bank
+// conflict (grid_col / grid_row, rows padded by 4 or 8 floats): four FMAs
+// per float loaded, the rate at which shared memory keeps the FMA units
+// fed; s_product is their shared logits product. Each holds one 8-warp
+// block of ~170-250 registers a thread per SM. Row 7 (dV, dcol) still
+// takes the first design: 4 x 4 register tiles over scalar loads of a
+// [64][DP + 1] layout (load_tile, tile_dot, tile_pg). What every kernel
+// keeps from the TPU kernels is the memory side: the logits never leave
+// the chip.
 //
 // Design, and how it departs from the TPU kernels:
 // * Forward, bf16: row 6's tiling (64 query rows a block, 16 a warp, U's A
@@ -63,12 +69,16 @@
 //   candidate sweep splits into parts (the wrapper's fwd_plan: 9 at
 //   8,192^2, one at 131,072 rows) whose (m, l, positive logit) a second
 //   small kernel, launched by the same host call, folds in part order.
-// * Forward, fp32: one block owns 64 query rows (held in shared memory for
-//   the whole sweep) and loops over 64-row candidate tiles; the TPU's grid
-//   dimension over candidate tiles becomes that loop. Each 64 x 64 score
-//   tile is spread over 256 threads (4 x 4 each); a row's 64 scores live
-//   on 16 lanes of one half-warp, so the running max and sum-exp reduce
-//   with four shuffles and no shared memory.
+// * Forward, fp32: a block holds 128 query rows in shared memory and sweeps
+//   the 128-candidate tiles of its part (64 and 64 at DP = 256), each staged
+//   by cp.async into one of two buffers while the other computes; S on 8 x
+//   8 register tiles. A row's 16 columns of threads lie on two warps, so
+//   no shuffle reduces a tile: each thread keeps a running (m, l, positive
+//   logit) per row over its own columns of the whole sweep (one rescale
+//   per tile, one exp per logit), and the 16 fold once, after the sweep,
+//   through shared memory in a fixed order by the combine kernel's formula.
+//   Parts as for bf16 (fwd_plan: 8 at 8,192^2, one block per SM), folded
+//   by the same combine kernel.
 // * Fused backward, bf16: grid (n_spans, parts, DP / DN). A block owns
 //   tiles_per_block consecutive 128-candidate tiles (one while the
 //   partials fit the wrapper's cap) and sweeps the 64-row query tiles of
@@ -85,27 +95,26 @@
 //   64 at DP = 256, where 128 would not fit 227 KB of shared memory; the
 //   plan's 64-row query tiles are taken two at a time). The block stages
 //   its candidate tile once; each query tile is copied by cp.async into one
-//   buffer, the next tile's copy running under the dU product. The three
-//   products (S = U V^T, dV += P^T U, dU = P V) read 128-bit rows from
-//   shared memory into register tiles of 8 x 8 outputs per thread (8 x 4
-//   or 4 x 4 at the narrow widths and at DP = 256, whose 64 x 64 logits
-//   give a thread 16), laid out so that no load meets a bank conflict
-//   (grid_col / grid_row): 16 loads of 4 floats per 256 FMAs. P goes
-//   through shared memory once per (i, j), between the S product and the
-//   other two.
+//   buffer, the next tile's copy running under the dU product. Three
+//   products (S = U V^T, dV += P^T U, dU = P V), P through shared memory
+//   once per (i, j), between the S product and the other two.
 // * Two-kernel backward (every bf16 backward; fp32 where the TPU takes it,
-//   above the cap): the dU kernel's block owns a 64-row query tile and
-//   sweeps the candidate tiles, keeping its [64, D] fp32 dU in registers
-//   and writing it once; the dV kernel's block owns a 64-row candidate tile
-//   and sweeps the query tiles, keeping dV_j and dcol_j in registers.
-//   Nothing crosses blocks, so neither needs atomics; the TPU's sequential
-//   grid axis becomes each block's loop. Where the tiles of the block's
-//   own axis alone would leave the card thin (8,192 rows: 128 tiles), the
-//   bf16 kernels split the swept axis into parts (the wrapper's du_plan
-//   and dv_plan: 9 at 8,192^2, one at 131,072 x 262,144) whose partials
-//   the wrapper sums in a fixed order; the fp32 ones sweep every tile. The
-//   two routes sum in other orders, so they agree within the stated
-//   tolerances, not bit for bit.
+//   above the cap): the dU kernel's block owns a query tile and sweeps the
+//   candidate tiles of its part, keeping its fp32 dU in registers and
+//   writing it once; the dV kernel's block owns a candidate tile and sweeps
+//   the query tiles, keeping dV_j and dcol_j in registers. Nothing crosses
+//   blocks, so neither needs atomics; the TPU's sequential grid axis
+//   becomes each block's loop. Where the tiles of the block's own axis
+//   alone would leave the card thin (8,192 rows), the swept axis splits
+//   into parts (the wrapper's du_plan and dv_plan) whose partials the
+//   wrapper sums in a fixed order. The fp32 dU kernel: 128 query rows a
+//   block (64 at DP = 256) with their lse, g, ids and positives, 64-
+//   candidate tiles double-buffered by cp.async, S on 8 x 4 register tiles,
+//   P = exp(S - lse) g (fp32) through shared memory, dU += P V on an 8 x 8
+//   register tile that lives across the sweep (du_plan: 8 parts at
+//   8,192^2, one block per SM); the fp32 dV kernel sweeps every query tile
+//   in one part. The two routes sum in other orders, so they agree within
+//   the stated tolerances, not bit for bit.
 // * The TPU wrapper asserts that its tiles divide the batch; here rows
 //   past Bq and candidates past Bk are masked, so any Bq, Bk work.
 // * D is padded to DP in {32, 64, 128, 256} with zeros in shared memory;
@@ -125,23 +134,11 @@
 
 namespace {
 
-constexpr int TQ = 64;        // query rows per tile
-constexpr int TK = 64;        // candidate rows per tile
-constexpr int THREADS = 256;  // 16 x 16 threads, a 4 x 4 block of the tile each
+constexpr int TQ = 64;        // query rows per tile of row 7 (fp32) and of bwd_plan
+constexpr int TK = 64;        // candidate rows per tile of row 7 (fp32)
+constexpr int THREADS = 256;  // threads of every fp32 kernel
 constexpr float NEG_BIG = -1e9f;
 constexpr unsigned FULL = 0xffffffffu;
-
-// sum / max over the 16 lanes of a half-warp (all of them get the result)
-__device__ __forceinline__ float half_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
-  return x;
-}
-__device__ __forceinline__ float half_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, off));
-  return x;
-}
 
 // rows [row0, row0 + 64) of src [n_rows, d] fp32 -> dst [64][DP + 1],
 // zero past n_rows and past d
@@ -184,10 +181,10 @@ __device__ __forceinline__ float masked_logit(float dot, float corr, int id_q, i
   return (id_q == id_k && col != pos) ? NEG_BIG : dot + corr;
 }
 
-// pg32[a][b] = exp(s - lse) * g for the thread's query rows ty + 16a and
-// candidates tx + 16b of the tile at (q0, k0), 0 past bq or bk; the
-// per-row (lse_r, g_r, idq_r, pos_r) and per-column (corr_c, kid_c)
-// values come from the caller
+// Row 7 of fp32 operands: pg32[a][b] = exp(s - lse) * g for the thread's
+// query rows ty + 16a and candidates tx + 16b of the tile at (q0, k0), 0
+// past bq or bk; the per-row (lse_r, g_r, idq_r, pos_r) and per-column
+// (corr_c, kid_c) values come from the caller
 __device__ __forceinline__ void tile_pg(const float acc[4][4], const float lse_r[4],
                                         const float g_r[4], const int idq_r[4],
                                         const int pos_r[4], const float corr_c[4],
@@ -208,84 +205,7 @@ __device__ __forceinline__ void tile_pg(const float acc[4][4], const float lse_r
   }
 }
 
-template <int DP>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * (TQ + TK) * (DP + 1) + (sizeof(float) + sizeof(int)) * TK;
-}
-
-// Row 4 of fp32 operands on the FMA units (_fwd_kernel).
-template <int DP>
-__global__ void __launch_bounds__(THREADS) flash_ce_fwd_kernel(
-    const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ colcorr,
-    const int* __restrict__ ids_q, const int* __restrict__ ids_k,
-    const int* __restrict__ pos, int bq, int bk, int d, float* __restrict__ lse_out,
-    float* __restrict__ pos_out) {
-  extern __shared__ float smem[];
-  float* Us = smem;                          // [TQ][DP + 1] this block's queries
-  float* Vs = Us + TQ * (DP + 1);            // [TK][DP + 1] current candidate tile
-  float* cs = Vs + TK * (DP + 1);            // [TK] colcorr of the tile
-  int* ks = reinterpret_cast<int*>(cs + TK);  // [TK] ids_k of the tile
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * TQ;
-  load_tile<DP>(Us, u, q0, bq, d);
-
-  int qid[4], qpos[4];
-  float m[4], l[4], ps[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = q0 + ty + 16 * a;
-    qid[a] = row < bq ? ids_q[row] : 0;
-    qpos[a] = row < bq ? pos[row] : -1;
-    m[a] = NEG_BIG;
-    l[a] = 0.f;
-    ps[a] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < bk; k0 += TK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<DP>(Vs, v, k0, bk, d);
-    if (tid < TK) {
-      const int c = k0 + tid;
-      cs[tid] = c < bk ? colcorr[c] : 0.f;
-      ks[tid] = c < bk ? ids_k[c] : 0;
-    }
-    __syncthreads();
-    float acc[4][4];
-    tile_dot<DP>(Us, Vs, ty, tx, acc);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float s[4];
-      float tmax = -CUDART_INF_F;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int c = tx + 16 * b, gc = k0 + c;
-        const float x = masked_logit(acc[a][b], cs[c], qid[a], ks[c], gc, qpos[a]);
-        if (gc == qpos[a]) ps[a] += x;
-        s[b] = x;
-        if (gc < bk) tmax = fmaxf(tmax, x);
-      }
-      const float m_new = fmaxf(m[a], half_max(tmax));
-      float sum = 0.f;
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        if (k0 + tx + 16 * b < bk) sum += expf(s[b] - m_new);
-      l[a] = l[a] * expf(m[a] - m_new) + half_sum(sum);
-      m[a] = m_new;
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const float p = half_sum(ps[a]);  // one lane of the row holds it
-    const int row = q0 + ty + 16 * a;
-    if (tx == 0 && row < bq) {
-      lse_out[row] = m[a] + logf(fmaxf(l[a], 1e-30f));
-      pos_out[row] = p;
-    }
-  }
-}
-
-// ---- row 5 in fp32: the fused backward on the FMA units --------------------
+// ---- the FMA kernels of fp32 operands: their shared pieces -----------------
 
 // fp32 rows [row0, row0 + rows) of src [n_rows, d] -> dst [rows][ld],
 // columns [0, DP), zero past n_rows and past d, by the NTHREADS threads of
@@ -332,6 +252,54 @@ template <int COLS>
 __device__ __forceinline__ int grid_row(int tid) {
   return ((tid >> 5) / (COLS / 8)) * 4 + ((tid >> 3) & 3);
 }
+
+// s[i][j] = A[sr + 16i] . B[sc + 16j] over DP columns, A and B rows of LD
+// floats in shared memory read 128 bits at a time (sr, sc: grid_row<16>,
+// grid_col<16>): RM + RN loads of 4 floats per 4 RM RN FMAs
+template <int DP, int LD, int RM, int RN>
+__device__ __forceinline__ void s_product(const float* A, const float* B, int sr, int sc,
+                                          float s[RM][RN]) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) s[i][j] = 0.f;
+#pragma unroll 1
+  for (int k = 0; k < DP; k += 4) {
+    float4 b[RN];
+#pragma unroll
+    for (int j = 0; j < RN; ++j) b[j] = ld4(B + (sc + 16 * j) * LD + k);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const float4 a = ld4(A + (sr + 16 * i) * LD + k);
+#pragma unroll
+      for (int j = 0; j < RN; ++j) {
+        s[i][j] = fmaf(a.x, b[j].x, s[i][j]);
+        s[i][j] = fmaf(a.y, b[j].y, s[i][j]);
+        s[i][j] = fmaf(a.z, b[j].z, s[i][j]);
+        s[i][j] = fmaf(a.w, b[j].w, s[i][j]);
+      }
+    }
+  }
+}
+
+// candidate tile kt (KT rows of v) into buffer buf of Vs [2][KT][LD], and
+// its colcorr and ids_k into cs, ks [2][KT], 0 past bk: rows 4 and 6
+template <int DP, int KT, int LD>
+__device__ __forceinline__ void stage_candidates(float* Vs, float* cs, int* ks, int buf, int kt,
+                                                 const float* __restrict__ v,
+                                                 const float* __restrict__ colcorr,
+                                                 const int* __restrict__ ids_k, int bk, int d,
+                                                 bool vec) {
+  const int k0 = kt * KT, tid = threadIdx.x;
+  stage_rows_f32<DP, THREADS>(Vs + buf * KT * LD, LD, v, k0, bk, KT, d, vec);
+  if (tid < KT) {
+    const int c = k0 + tid;
+    cs[buf * KT + tid] = c < bk ? colcorr[c] : 0.f;
+    ks[buf * KT + tid] = c < bk ? ids_k[c] : 0;
+  }
+}
+
+// ---- row 5 in fp32: the fused backward on the FMA units --------------------
 
 // The tiling of the fp32 fused backward at padded width DP: candidate
 // tiles of KC and query tiles of TQF rows (128 and 128; 64 and 64 at DP =
@@ -443,27 +411,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_ce_bwd_kernel(
 
       // S[r][c] = U_i[r] . V_j[c]: rows sr + 16i, candidates sc + 16j
       float s[T::S_RM][T::S_RN];
-#pragma unroll
-      for (int i = 0; i < T::S_RM; ++i)
-#pragma unroll
-        for (int j = 0; j < T::S_RN; ++j) s[i][j] = 0.f;
-#pragma unroll 1
-      for (int k = 0; k < DP; k += 4) {
-        float4 b[T::S_RN];
-#pragma unroll
-        for (int j = 0; j < T::S_RN; ++j) b[j] = ld4(Vs + (sc + 16 * j) * LD + k);
-#pragma unroll
-        for (int i = 0; i < T::S_RM; ++i) {
-          const float4 a = ld4(Us + (sr + 16 * i) * LD + k);
-#pragma unroll
-          for (int j = 0; j < T::S_RN; ++j) {
-            s[i][j] = fmaf(a.x, b[j].x, s[i][j]);
-            s[i][j] = fmaf(a.y, b[j].y, s[i][j]);
-            s[i][j] = fmaf(a.z, b[j].z, s[i][j]);
-            s[i][j] = fmaf(a.w, b[j].w, s[i][j]);
-          }
-        }
-      }
+      s_product<DP, LD, T::S_RM, T::S_RN>(Us, Vs, sr, sc, s);
 
       // P = exp(S - lse) g into shared memory (fp32: no rounding); dcol
 #pragma unroll
@@ -585,6 +533,324 @@ __global__ void __launch_bounds__(THREADS, 1) flash_ce_bwd_kernel(
             if (k + e < d) out[k + e] = dv[a][4 * t + e];
       }
     }
+  }
+}
+
+// ---- row 6 in fp32: the dU kernel on the FMA units -------------------------
+
+// The tiling of row 6 of fp32 operands at padded width DP: blocks of TQF
+// query rows (128; 64 at DP = 256, where 128 would not fit 227 KB of shared
+// memory beside two candidate tiles) sweeping candidate tiles of KT; S on
+// 8 x 4 register tiles (4 x 4 at DP = 256), dU on row 5's layout (8 x 8).
+template <int DP>
+struct Fp32Du {
+  static constexpr int TQF = DP < 256 ? 128 : 64;
+  static constexpr int KT = 64;
+  static constexpr int LD = DP + 4;   // floats per U and V row in shared memory
+  static constexpr int LDP = KT + 8;  // floats per P row
+  static constexpr int S_RM = TQF / 16, S_RN = KT / 16;
+  // dU [TQF x DP]: rows ur + U_RG i, columns 4 (uf + U_FG t) + e
+  static constexpr int U_FG = DP / 4 < 16 ? DP / 4 : 16, U_RG = THREADS / U_FG;
+  static constexpr int U_RM = TQF / U_RG, U_FN = DP / 4 / U_FG;
+  static_assert(U_RM * U_RG == TQF && U_FN * U_FG * 4 == DP, "dU tiling");
+  static_assert(TQF <= THREADS && KT <= THREADS, "row staging");
+  static constexpr size_t smem() {
+    return sizeof(float) * ((TQF + 2 * KT) * LD + TQF * LDP) +
+           (TQF + KT) * 2 * (sizeof(float) + sizeof(int));
+  }
+};
+
+// Row 6 of fp32 operands on the FMA units (_bwd_du_kernel). Grid (query
+// blocks, parts): block (x, y) holds its TQF query rows in shared memory
+// with their lse, g, ids and positives, and sweeps candidate tiles [y *
+// tiles_per_part, (y + 1) * tiles_per_part), each staged with its colcorr
+// and ids by cp.async into one of two buffers while the other computes.
+// Per tile, 256 threads:
+//   S = U V_j^T from 128-bit loads of rows along the feature axis;
+//   P = exp(S - lse) g (masked_logit, 0 past Bq and past Bk) into shared
+//   memory, fp32 (no rounding, as the plain version of fp32 operands);
+//   dU += P V_j, held in registers over the sweep.
+// dU goes to du_part[y] ([parts, Bq, D]) once; the wrapper sums the parts
+// in a fixed order, or takes dU itself with one part. No atomics: two
+// calls give the same bits.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1) flash_ce_bwd_du_kernel(
+    const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ colcorr,
+    const int* __restrict__ ids_q, const int* __restrict__ ids_k, const int* __restrict__ pos,
+    const float* __restrict__ lse, const float* __restrict__ g, int bq, int bk, int d, int vec,
+    int tiles_per_part, float* __restrict__ du_part) {
+  using T = Fp32Du<DP>;
+  constexpr int TQF = T::TQF, KT = T::KT, LD = T::LD, LDP = T::LDP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Us = reinterpret_cast<float*>(smem_raw);    // [TQF][LD] the block's queries
+  float* Vs = Us + TQF * LD;                          // [2][KT][LD] candidate tiles
+  float* Ps = Vs + 2 * KT * LD;                       // [TQF][LDP] p*g of the tile
+  float* lse_s = Ps + TQF * LDP;                      // [TQF]
+  float* g_s = lse_s + TQF;                           // [TQF]
+  float* cs = g_s + TQF;                              // [2][KT] colcorr of the tiles
+  int* idq_s = reinterpret_cast<int*>(cs + 2 * KT);  // [TQF]
+  int* pos_s = idq_s + TQF;                           // [TQF]
+  int* ks = pos_s + TQF;                              // [2][KT] ids_k of the tiles
+
+  const int tid = threadIdx.x;
+  const int sc = grid_col<16>(tid), sr = grid_row<16>(tid);
+  const int uf = grid_col<T::U_FG>(tid), ur = grid_row<T::U_FG>(tid);
+  const int q0 = blockIdx.x * TQF;
+  const int n_kt = (bk + KT - 1) / KT;
+  const int kt_begin = blockIdx.y * tiles_per_part;
+  const int kt_end = min(n_kt, kt_begin + tiles_per_part);
+
+  auto stage_tile = [&](int buf, int kt) {
+    stage_candidates<DP, KT, LD>(Vs, cs, ks, buf, kt, v, colcorr, ids_k, bk, d, vec != 0);
+  };
+
+  stage_rows_f32<DP, THREADS>(Us, LD, u, q0, bq, TQF, d, vec != 0);
+  if (tid < TQF) {
+    const int r = q0 + tid;
+    const bool ok = r < bq;
+    lse_s[tid] = ok ? lse[r] : 0.f;
+    g_s[tid] = ok ? g[r] : 0.f;
+    idq_s[tid] = ok ? ids_q[r] : 0;
+    pos_s[tid] = ok ? pos[r] : -1;
+  }
+  if (kt_begin < kt_end) stage_tile(0, kt_begin);
+  cp_async_commit();
+
+  float du[T::U_RM][4 * T::U_FN];
+#pragma unroll
+  for (int i = 0; i < T::U_RM; ++i)
+#pragma unroll
+    for (int b = 0; b < 4 * T::U_FN; ++b) du[i][b] = 0.f;
+
+  for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
+    const int buf = it & 1, k0 = kt * KT;
+    cp_async_wait_all();
+    __syncthreads();  // this tile has landed; everyone is done with the other buffer and Ps
+    if (kt + 1 < kt_end) stage_tile(buf ^ 1, kt + 1);
+    cp_async_commit();
+    const float* Vb = Vs + buf * KT * LD;
+    const float* cb = cs + buf * KT;
+    const int* kb = ks + buf * KT;
+
+    // S[r][c] = U[r] . V_j[c]: rows sr + 16i, candidates sc + 16j
+    float s[T::S_RM][T::S_RN];
+    s_product<DP, LD, T::S_RM, T::S_RN>(Us, Vb, sr, sc, s);
+
+    // P = exp(S - lse) g into shared memory (fp32: no rounding)
+#pragma unroll
+    for (int i = 0; i < T::S_RM; ++i) {
+      const int rl = sr + 16 * i;
+      const bool rok = q0 + rl < bq;
+      const float lse_r = lse_s[rl], g_r = g_s[rl];
+      const int idq_r = idq_s[rl], pos_r = pos_s[rl];
+#pragma unroll
+      for (int j = 0; j < T::S_RN; ++j) {
+        const int cl = sc + 16 * j;
+        float pg = 0.f;
+        if (rok && k0 + cl < bk) {
+          const float x = masked_logit(s[i][j], cb[cl], idq_r, kb[cl], k0 + cl, pos_r);
+          pg = expf(x - lse_r) * g_r;
+        }
+        Ps[rl * LDP + cl] = pg;
+      }
+    }
+    __syncthreads();  // P is whole
+
+    // dU[r][k] += sum_c P[r][c] V_j[c][k]
+#pragma unroll 1
+    for (int c = 0; c < KT; c += 4) {
+      float4 p[T::U_RM];
+#pragma unroll
+      for (int i = 0; i < T::U_RM; ++i) p[i] = ld4(Ps + (ur + T::U_RG * i) * LDP + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float4 x[T::U_FN];
+#pragma unroll
+        for (int t = 0; t < T::U_FN; ++t) x[t] = ld4(Vb + (c + e) * LD + 4 * (uf + T::U_FG * t));
+#pragma unroll
+        for (int i = 0; i < T::U_RM; ++i)
+#pragma unroll
+          for (int b = 0; b < 4 * T::U_FN; ++b)
+            du[i][b] = fmaf(comp(p[i], e), comp(x[b / 4], b % 4), du[i][b]);
+      }
+    }
+  }
+  cp_async_wait_all();  // no copy may outlive the block
+
+  float* du_out = du_part + static_cast<long long>(blockIdx.y) * bq * d;
+#pragma unroll
+  for (int i = 0; i < T::U_RM; ++i) {
+    const int r = q0 + ur + T::U_RG * i;
+    if (r >= bq) continue;
+    float* row = du_out + static_cast<long long>(r) * d;
+#pragma unroll
+    for (int t = 0; t < T::U_FN; ++t) {
+      const int k = 4 * (uf + T::U_FG * t);
+      if (k >= d) continue;
+      if (vec)  // d % 4 == 0: the row's 16-byte chunk
+        *reinterpret_cast<float4*>(row + k) =
+            make_float4(du[i][4 * t], du[i][4 * t + 1], du[i][4 * t + 2], du[i][4 * t + 3]);
+      else
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k + e < d) row[k + e] = du[i][4 * t + e];
+    }
+  }
+}
+
+// ---- row 4 in fp32: the forward on the FMA units ---------------------------
+
+// The tiling of row 4 of fp32 operands at padded width DP: blocks of TQF
+// query rows sweeping candidate tiles of KT (128 and 128; 64 and 64 at DP =
+// 256, as row 5), S on 8 x 8 register tiles (4 x 4 at DP = 256).
+template <int DP>
+struct Fp32Fwd {
+  static constexpr int TQF = DP < 256 ? 128 : 64;
+  static constexpr int KT = TQF;
+  static constexpr int LD = DP + 4;
+  static constexpr int S_RM = TQF / 16, S_RN = KT / 16;
+  static_assert(TQF <= THREADS && KT <= THREADS, "row staging");
+  static_assert(3 * 16 * TQF <= 2 * KT * LD, "the final fold reuses the candidate tiles");
+  static constexpr size_t smem() {
+    return sizeof(float) * (TQF + 2 * KT) * LD + (TQF + 2 * KT) * 2 * sizeof(int);
+  }
+};
+
+// Row 4 of fp32 operands on the FMA units (_fwd_kernel). Grid (query
+// blocks, parts): block (x, y) holds its TQF query rows in shared memory
+// and sweeps candidate tiles [y * tiles_per_part, (y + 1) *
+// tiles_per_part), each staged with its colcorr and ids by cp.async into
+// one of two buffers while the other computes. Per tile, 256 threads:
+//   S = U V_j^T from 128-bit loads, as row 6;
+//   the masked, corrected logits in registers (-inf past Bk: they count
+//   for nothing), the positive logit taken where the row's positive column
+//   lands;
+//   each thread's running max and sum-exp over its own columns of each of
+//   its rows (m from -1e9): one rescale per row and tile by the thread's
+//   tile max, one exp per logit.
+// A row's 16 columns of threads lie on two warps, so after the sweep they
+// fold through shared memory, in a fixed order, as the combine kernel
+// folds parts: M = max m, L = sum l exp(m - M) (a thread that saw no valid
+// column holds m = -1e9, l = 0 and adds 0), the positive logit summed.
+// One part writes lse = M + log(max(L, 1e-30)) and the positive logit;
+// more parts write (M, L, positive logit) into part [3][parts][Bq], which
+// flash_ce_fwd_combine_kernel folds in part order. No atomics: two calls
+// give the same bits.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1) flash_ce_fwd_kernel(
+    const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ colcorr,
+    const int* __restrict__ ids_q, const int* __restrict__ ids_k, const int* __restrict__ pos,
+    int bq, int bk, int d, int vec, int tiles_per_part, float* __restrict__ lse_out,
+    float* __restrict__ pos_out, float* __restrict__ part) {
+  using T = Fp32Fwd<DP>;
+  constexpr int TQF = T::TQF, KT = T::KT, LD = T::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Us = reinterpret_cast<float*>(smem_raw);    // [TQF][LD] the block's queries
+  float* Vs = Us + TQF * LD;                          // [2][KT][LD] candidate tiles
+  float* cs = Vs + 2 * KT * LD;                       // [2][KT] colcorr of the tiles
+  int* ks = reinterpret_cast<int*>(cs + 2 * KT);     // [2][KT] ids_k of the tiles
+  int* idq_s = ks + 2 * KT;                           // [TQF]
+  int* pos_s = idq_s + TQF;                           // [TQF]
+
+  const int tid = threadIdx.x;
+  const int sc = grid_col<16>(tid), sr = grid_row<16>(tid);
+  const int q0 = blockIdx.x * TQF;
+  const int n_kt = (bk + KT - 1) / KT;
+  const int kt_begin = blockIdx.y * tiles_per_part;
+  const int kt_end = min(n_kt, kt_begin + tiles_per_part);
+
+  auto stage_tile = [&](int buf, int kt) {
+    stage_candidates<DP, KT, LD>(Vs, cs, ks, buf, kt, v, colcorr, ids_k, bk, d, vec != 0);
+  };
+
+  stage_rows_f32<DP, THREADS>(Us, LD, u, q0, bq, TQF, d, vec != 0);
+  if (tid < TQF) {
+    const int r = q0 + tid;
+    idq_s[tid] = r < bq ? ids_q[r] : 0;
+    pos_s[tid] = r < bq ? pos[r] : -1;
+  }
+  if (kt_begin < kt_end) stage_tile(0, kt_begin);
+  cp_async_commit();
+
+  float m[T::S_RM], l[T::S_RM], ps[T::S_RM];
+#pragma unroll
+  for (int i = 0; i < T::S_RM; ++i) {
+    m[i] = NEG_BIG;
+    l[i] = 0.f;
+    ps[i] = 0.f;
+  }
+
+  for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
+    const int buf = it & 1, k0 = kt * KT;
+    cp_async_wait_all();
+    __syncthreads();  // this tile has landed; everyone is done with the other buffer
+    if (kt + 1 < kt_end) stage_tile(buf ^ 1, kt + 1);
+    cp_async_commit();
+    const float* Vb = Vs + buf * KT * LD;
+    const float* cb = cs + buf * KT;
+    const int* kb = ks + buf * KT;
+
+    float s[T::S_RM][T::S_RN];
+    s_product<DP, LD, T::S_RM, T::S_RN>(Us, Vb, sr, sc, s);
+
+#pragma unroll
+    for (int i = 0; i < T::S_RM; ++i) {
+      const int rl = sr + 16 * i;
+      const int idq_r = idq_s[rl], pos_r = pos_s[rl];
+      float tmax = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < T::S_RN; ++j) {
+        const int cl = sc + 16 * j, c = k0 + cl;
+        float x = -CUDART_INF_F;
+        if (c < bk) {
+          x = masked_logit(s[i][j], cb[cl], idq_r, kb[cl], c, pos_r);
+          if (c == pos_r) ps[i] += x;
+          tmax = fmaxf(tmax, x);
+        }
+        s[i][j] = x;
+      }
+      const float m_new = fmaxf(m[i], tmax);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < T::S_RN; ++j) sum += expf(s[i][j] - m_new);
+      l[i] = l[i] * expf(m[i] - m_new) + sum;
+      m[i] = m_new;
+    }
+  }
+  cp_async_wait_all();  // no copy may outlive the block
+  __syncthreads();      // everyone is done with the candidate tiles
+
+  // the 16 threads of each row, folded in column order
+  float* red = Vs;  // [3][TQF][16]: m, l, positive logit
+#pragma unroll
+  for (int i = 0; i < T::S_RM; ++i) {
+    const int at = (sr + 16 * i) * 16 + sc;
+    red[at] = m[i];
+    red[TQF * 16 + at] = l[i];
+    red[2 * TQF * 16 + at] = ps[i];
+  }
+  __syncthreads();
+  const int r = q0 + tid;
+  if (tid >= TQF || r >= bq) return;
+  const float* rm = red + tid * 16;
+  const float* rl = rm + TQF * 16;
+  const float* rp = rl + TQF * 16;
+  float mx = rm[0];
+  for (int t = 1; t < 16; ++t) mx = fmaxf(mx, rm[t]);
+  float sum = 0.f, pl = 0.f;
+  for (int t = 0; t < 16; ++t) {
+    sum += rl[t] * expf(rm[t] - mx);
+    pl += rp[t];
+  }
+  if (gridDim.y == 1) {
+    lse_out[r] = mx + logf(fmaxf(sum, 1e-30f));
+    pos_out[r] = pl;
+  } else {
+    const long long n = static_cast<long long>(gridDim.y) * bq;
+    const long long at = static_cast<long long>(blockIdx.y) * bq + r;
+    part[at] = mx;
+    part[n + at] = sum;
+    part[2 * n + at] = pl;
   }
 }
 
@@ -1377,100 +1643,6 @@ __global__ void flash_ce_fwd_combine_kernel(const float* __restrict__ part, int 
 }
 
 template <int DP>
-constexpr size_t bwd_du_smem() {
-  return sizeof(float) * ((TQ + TK) * (DP + 1) + TQ * (TK + 1)) +
-         (sizeof(float) + sizeof(int)) * TK;
-}
-
-// Row 6 of fp32 operands on the FMA units: dU = sum_j pg V_j, query-major
-// (_bwd_du_kernel).
-template <int DP>
-__global__ void __launch_bounds__(THREADS) flash_ce_bwd_du_kernel(
-    const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ colcorr,
-    const int* __restrict__ ids_q, const int* __restrict__ ids_k,
-    const int* __restrict__ pos, const float* __restrict__ lse,
-    const float* __restrict__ g, int bq, int bk, int d, float* __restrict__ du) {
-  constexpr int NB = DP / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Us = smem;                           // [TQ][DP + 1] this block's queries
-  float* Vs = Us + TQ * (DP + 1);             // [TK][DP + 1] current candidate tile
-  float* Ps = Vs + TK * (DP + 1);             // [TQ][TK + 1] round(pg) of the tile
-  float* cs = Ps + TQ * (TK + 1);             // [TK] colcorr of the tile
-  int* ks = reinterpret_cast<int*>(cs + TK);  // [TK] ids_k of the tile
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * TQ;
-  load_tile<DP>(Us, u, q0, bq, d);
-  float lse_r[4], g_r[4];
-  int idq_r[4], pos_r[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = q0 + ty + 16 * a;
-    const bool ok = row < bq;
-    lse_r[a] = ok ? lse[row] : 0.f;
-    g_r[a] = ok ? g[row] : 0.f;
-    idq_r[a] = ok ? ids_q[row] : 0;
-    pos_r[a] = ok ? pos[row] : -1;
-  }
-  // du_acc[a][b]: dU of query ty + 16a, column tx + 16b
-  float du_acc[4][NB];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < NB; ++b) du_acc[a][b] = 0.f;
-
-  for (int k0 = 0; k0 < bk; k0 += TK) {
-    __syncthreads();  // the previous tile's readers of Vs, Ps, cs and ks are done
-    load_tile<DP>(Vs, v, k0, bk, d);
-    if (tid < TK) {
-      const int c = k0 + tid;
-      cs[tid] = c < bk ? colcorr[c] : 0.f;
-      ks[tid] = c < bk ? ids_k[c] : 0;
-    }
-    __syncthreads();
-    float acc[4][4], pg32[4][4], corr_c[4];
-    int kid_c[4];
-    tile_dot<DP>(Us, Vs, ty, tx, acc);
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      corr_c[b] = cs[tx + 16 * b];
-      kid_c[b] = ks[tx + 16 * b];
-    }
-    tile_pg(acc, lse_r, g_r, idq_r, pos_r, corr_c, kid_c, q0, k0, bq, bk, ty, tx, pg32);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        Ps[(ty + 16 * a) * (TK + 1) + tx + 16 * b] = pg32[a][b];
-    __syncthreads();
-    // dU[r][k] += sum_c P[r][c] V[c][k]  (r = ty + 16a, k = tx + 16b)
-#pragma unroll 4
-    for (int c = 0; c < TK; ++c) {
-      float pr[4], vv[NB];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pr[a] = Ps[(ty + 16 * a) * (TK + 1) + c];
-#pragma unroll
-      for (int b = 0; b < NB; ++b) vv[b] = Vs[c * (DP + 1) + tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < NB; ++b) du_acc[a][b] = fmaf(pr[a], vv[b], du_acc[a][b]);
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int gr = q0 + ty + 16 * a;
-    if (gr < bq) {
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const int k = tx + 16 * b;
-        if (k < d) du[static_cast<long long>(gr) * d + k] = du_acc[a][b];
-      }
-    }
-  }
-}
-
-template <int DP>
 constexpr size_t bwd_dv_smem() {
   return sizeof(float) * ((TQ + TK) * (DP + 1) + TQ * (TK + 1) + 16 * TK) +
          (2 * sizeof(float) + 2 * sizeof(int)) * TQ;
@@ -1613,31 +1785,32 @@ const __nv_bfloat16* bf(const void* p) { return static_cast<const __nv_bfloat16*
 
 // u [bq, d], v [bk, d] (bf16 if bf16 != 0, else fp32); colcorr [bk] fp32;
 // ids_q [bq], ids_k [bk], pos [bq] int32 (0 <= pos < bk); out lse, pos_out
-// [bq] fp32. All contiguous, on the stream's device; 1 <= d <= 256. bf16
-// operands take the tensor-core kernel: the candidate tiles of 64 split
-// into parts of tiles_per_part (vec != 0 when d % 8 == 0 and u, v start on
-// 16 bytes); more than one part writes its (m, l, positive logit) into
-// part [3, parts, bq] fp32, which the combine kernel, launched here too,
-// folds into lse and pos_out. fp32 operands take the FMA kernel (parts ==
-// 1; part unused). Returns the cudaError_t of the launches (0 on success).
+// [bq] fp32. All contiguous, on the stream's device; 1 <= d <= 256. The
+// candidate tiles (64 for bf16 operands, on the tensor cores; for fp32
+// operands, on the FMA units, 128, or 64 where d > 128) split into parts
+// of tiles_per_part (vec != 0 when rows are 16-byte multiples, d % 8 == 0
+// for bf16 and d % 4 == 0 for fp32, and u, v start on 16 bytes); more than
+// one part writes its (m, l, positive logit) into part [3, parts, bq]
+// fp32, which the combine kernel, launched here too, folds into lse and
+// pos_out. Returns the cudaError_t of the launches (0 on success).
 extern "C" int flash_ce_fwd(const void* u, const void* v, const float* colcorr,
                             const int* ids_q, const int* ids_k, const int* pos, int bq,
                             int bk, int d, int bf16, int parts, int tiles_per_part, int vec,
                             float* lse, float* pos_out, float* part, void* stream) {
   if (bq <= 0) return 0;
-  if (bk <= 0 || d <= 0 || parts <= 0 || tiles_per_part <= 0 || (!bf16 && parts != 1) ||
-      (parts > 1 && part == nullptr) ||
-      static_cast<long long>(parts) * tiles_per_part * DU_TK < bk)
+  if (bk <= 0 || d <= 0 || parts <= 0 || tiles_per_part <= 0 ||
+      (parts > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!bf16)
-    return by_width(d, [&](auto w) {
-      constexpr int DP = decltype(w)::value;
-      return launch(flash_ce_fwd_kernel<DP>, dim3((bq + TQ - 1) / TQ), THREADS, fwd_smem<DP>(),
-                    s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, bq, bk, d, lse, pos_out);
-    });
   const int err = by_width(d, [&](auto w) {
     constexpr int DP = decltype(w)::value;
+    using T = Fp32Fwd<DP>;
+    if (static_cast<long long>(parts) * tiles_per_part * (bf16 ? DU_TK : T::KT) < bk)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (!bf16)
+      return launch(flash_ce_fwd_kernel<DP>, dim3((bq + T::TQF - 1) / T::TQF, parts), THREADS,
+                    T::smem(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, bq, bk, d, vec,
+                    tiles_per_part, lse, pos_out, part);
     return launch(flash_ce_fwd_tc_kernel<DP>, dim3((bq + DU_TQ - 1) / DU_TQ, parts),
                   DU_THREADS, bwd_du_tc_smem<DP>(), s, bf(u), bf(v), colcorr, ids_q, ids_k,
                   pos, bq, bk, d, vec, tiles_per_part, lse, pos_out, part);
@@ -1689,26 +1862,28 @@ extern "C" int flash_ce_bwd(const void* u, const void* v, const float* colcorr,
 }
 
 // As flash_ce_bwd, with row 6's plan; out du_part [parts, bq, d] fp32, the
-// wrapper summing it over its first axis (dU itself when parts == 1).
-// bf16 operands take the tensor-core kernel: the candidate tiles of 64
-// split into parts of tiles_per_part (vec as above); fp32 operands the FMA
-// kernel (parts == 1). Returns the cudaError_t of the launch.
+// wrapper summing it over its first axis (dU itself when parts == 1). The
+// candidate tiles of 64 split into parts of tiles_per_part; bf16 operands
+// take the tensor-core kernel, fp32 operands the FMA kernel (vec as in
+// flash_ce_fwd). Returns the cudaError_t of the launch.
 extern "C" int flash_ce_bwd_du(const void* u, const void* v, const float* colcorr,
                                const int* ids_q, const int* ids_k, const int* pos,
                                const float* lse, const float* g, int bq, int bk, int d,
                                int bf16, int parts, int tiles_per_part, int vec,
                                float* du_part, void* stream) {
   if (bq <= 0) return 0;
-  if (bk <= 0 || d <= 0 || parts <= 0 || tiles_per_part <= 0 || (!bf16 && parts != 1) ||
+  if (bk <= 0 || d <= 0 || parts <= 0 || tiles_per_part <= 0 ||
       static_cast<long long>(parts) * tiles_per_part * DU_TK < bk)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!bf16)
     return by_width(d, [&](auto w) {
       constexpr int DP = decltype(w)::value;
-      return launch(flash_ce_bwd_du_kernel<DP>, dim3((bq + TQ - 1) / TQ), THREADS,
-                    bwd_du_smem<DP>(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, lse, g,
-                    bq, bk, d, du_part);
+      using T = Fp32Du<DP>;
+      static_assert(T::KT == DU_TK, "row 6's candidate tiles");
+      return launch(flash_ce_bwd_du_kernel<DP>, dim3((bq + T::TQF - 1) / T::TQF, parts), THREADS,
+                    T::smem(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d,
+                    vec, tiles_per_part, du_part);
     });
   return by_width(d, [&](auto w) {
     constexpr int DP = decltype(w)::value;

@@ -35,12 +35,13 @@ from recsys_tpu_torch.ops import _build
 
 NEG_BIG = -1e9
 # tile sizes of csrc/flash_ce.cu (TQ, TK: query and candidate rows per
-# tile of the forward and rows 6 and 7 of fp32 operands, TQ also the
-# query tile that the fused backward's plan counts; the fused backward
-# takes candidate tiles of TKC, or of TK for fp32 operands at D > 128,
-# row 6 and the forward of bf16 operands query tiles of DU_TQ and
-# candidate tiles of DU_TK, row 7 of bf16 operands candidate tiles of
-# DV_TK and query tiles of DV_TQ)
+# tile of row 7 of fp32 operands, TQ also the query tile that the fused
+# backward's plan counts; the fused backward takes candidate tiles of TKC,
+# or of TK for fp32 operands at D > 128; rows 4 and 6 of bf16 operands
+# query tiles of DU_TQ and candidate tiles of DU_TK, row 7 of bf16
+# operands candidate tiles of DV_TK and query tiles of DV_TQ; rows 4 and 6
+# of fp32 operands query blocks of F32_TQ rows (64 at D > 128) and
+# candidate tiles of F32_FWD_TK (row 4; 64 at D > 128) and DU_TK (row 6))
 TQ = 64
 TK = 64
 TKC = 128
@@ -48,6 +49,8 @@ DU_TQ = 64
 DU_TK = 64
 DV_TK = 64
 DV_TQ = 64
+F32_TQ = 128
+F32_FWD_TK = 128
 MAX_DIM = 256
 # the bf16 forward and rows 6 and 7 split their sweep into parts until the
 # grid holds about this many blocks per SM (a few resident at a time, and
@@ -126,6 +129,22 @@ def _split_sweep(n_tiles: int, blocks: int, max_parts: int, n_sm: int) -> Tuple[
     return -(-n_tiles // per_part), per_part
 
 
+def _split_waves(n_tiles: int, blocks: int, max_parts: int, n_sm: int) -> Tuple[int, int]:
+    """The swept axis's ``n_tiles`` tiles split into parts for the FMA
+    kernels of fp32 operands, which hold one block per SM: of the splits
+    that give a grid of ``blocks`` blocks per part 2 to 8 blocks per SM (as
+    many as the tiles and ``max_parts`` allow), the one whose last wave ends
+    first (waves of ``n_sm`` blocks times tiles per part), and of those the
+    fewest parts; no part is empty. -> (parts, tiles per part)."""
+    top = max(1, min(n_tiles, max_parts))
+    lo = min(top, -(-2 * n_sm // blocks))
+    hi = min(top, max(lo, -(-8 * n_sm // blocks)))
+    # for each p, the fewest parts of ceil(n_tiles / p) tiles: none empty
+    splits = {-(-n_tiles // -(-n_tiles // p)) for p in range(lo, hi + 1)}
+    parts = min(splits, key=lambda q: (-(-blocks * q // n_sm) * -(-n_tiles // q), q))
+    return parts, -(-n_tiles // parts)
+
+
 class FwdPlan(NamedTuple):
     """How the forward cuts [Bq, Bk]: blocks of ``tile`` query rows, each
     sweeping ``tiles_per_part`` candidate tiles of ``ktile`` in one of
@@ -141,18 +160,26 @@ class FwdPlan(NamedTuple):
         return 12 * self.parts * bq if self.parts > 1 else 0
 
 
-def fwd_plan(bq: int, bk: int, bf16: bool, n_sm: int) -> FwdPlan:
+def fwd_plan(bq: int, bk: int, bf16: bool, n_sm: int, d: Optional[int] = None) -> FwdPlan:
     """The forward's tiling on a card of ``n_sm`` SMs. bf16 operands (the
-    tensor-core kernel): 64-row query tiles, 64-candidate tiles, and the
-    candidate sweep split into as many parts as bring the grid to about
-    ``_SWEEP_BLOCKS_PER_SM`` blocks per SM (8,192 rows give only 128 query
-    tiles), no more than the candidate tiles and no more than keep the
-    partials under ``_FUSED_BWD_PARTIALS_CAP``; no part is empty. fp32
-    operands (the FMA kernel): one part, 64-row tiles."""
+    tensor-core kernel, whose tiles do not depend on ``d``): 64-row query
+    tiles, 64-candidate tiles, and the candidate sweep split into as many
+    parts as bring the grid to about ``_SWEEP_BLOCKS_PER_SM`` blocks per SM
+    (8,192 rows give only 128 query tiles). fp32 operands (the FMA kernel,
+    one block per SM; ``d`` required): 128-row blocks and 128-candidate
+    tiles (64 and 64 at D > 128), the sweep split by :func:`_split_waves`
+    (8 parts at 8,192^2). Either way no more parts than keep the partials
+    under ``_FUSED_BWD_PARTIALS_CAP``, and no part is empty."""
+    max_parts = _FUSED_BWD_PARTIALS_CAP // (12 * bq)
     if not bf16:
-        return FwdPlan(TQ, TK, 1, -(-bk // TK))
-    return FwdPlan(DU_TQ, DU_TK, *_split_sweep(-(-bk // DU_TK), -(-bq // DU_TQ),
-                                               _FUSED_BWD_PARTIALS_CAP // (12 * bq), n_sm))
+        if d is None:
+            raise ValueError("fwd_plan: fp32 operands' tiles depend on d")
+        tile = F32_TQ if d <= 128 else 64
+        ktile = F32_FWD_TK if d <= 128 else 64
+        return FwdPlan(tile, ktile, *_split_waves(-(-bk // ktile), -(-bq // tile), max_parts,
+                                                  n_sm))
+    return FwdPlan(DU_TQ, DU_TK, *_split_sweep(-(-bk // DU_TK), -(-bq // DU_TQ), max_parts,
+                                               n_sm))
 
 
 def flash_ce_fwd_partials_reference(u, v, colcorr, ids_q, ids_k, pos, p: FwdPlan
@@ -322,7 +349,7 @@ def flash_ce_fwd(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
     u, v = u.contiguous(), v.contiguous()
     colcorr, ids_q, ids_k, pos = (t.contiguous() for t in (colcorr, ids_q, ids_k, pos))
     bf16 = u.dtype == torch.bfloat16
-    p = fwd_plan(bq, bk, bf16, _sm_count(u.device.index))
+    p = fwd_plan(bq, bk, bf16, _sm_count(u.device.index), d)
     lse = torch.empty((bq,), dtype=torch.float32, device=u.device)
     pos_logit = torch.empty_like(lse)
     part = (torch.empty((3, p.parts, bq), dtype=torch.float32, device=u.device)
@@ -436,11 +463,15 @@ def flash_ce_bwd_partials_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g, p:
     [parts, Bk]), fp32; :func:`sum_partials` of them is the backward."""
     pg32 = torch.exp(_masked_logits(u, v, colcorr, ids_q, ids_k, pos) - lse[:, None]) * g[:, None]
     pg = pg32.to(u.dtype).float()
-    uf, vf = u.float(), v.float()
-    span, rows = p.tile * p.tiles_per_block, p.q_tiles_per_part * TQ
-    du = torch.stack([pg[:, lo:lo + span] @ vf[lo:lo + span]
-                      for lo in range(0, p.n_spans * span, span)])
-    return (du, *_dv_parts(pg32, pg, uf, rows, p.parts))
+    return (_du_parts(pg, v.float(), p.tile * p.tiles_per_block, p.n_spans),
+            *_dv_parts(pg32, pg, u.float(), p.q_tiles_per_part * TQ, p.parts))
+
+
+def _du_parts(pg, vf, cols: int, parts: int) -> torch.Tensor:
+    """dU of each of ``parts`` consecutive parts of ``cols`` candidates ->
+    [parts, Bq, D] fp32."""
+    return torch.stack([pg[:, lo:lo + cols] @ vf[lo:lo + cols]
+                        for lo in range(0, parts * cols, cols)])
 
 
 def _dv_parts(pg32, pg, uf, rows: int, parts: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -474,10 +505,10 @@ def _ptrs(args) -> list:
 
 
 def _vec(u, v) -> int:
-    """1 where the kernels that stage by ``cp.async`` (every bf16 kernel and
-    the fp32 fused backward) may copy u and v rows 16 bytes at a time (D a
-    multiple of 8 bf16 or 4 fp32 values, both starting on 16 bytes), else
-    0: they then copy element by element."""
+    """1 where the kernels that stage by ``cp.async`` (all but row 7 of
+    fp32 operands) may copy u and v rows 16 bytes at a time (D a multiple
+    of 8 bf16 or 4 fp32 values, both starting on 16 bytes), else 0: they
+    then copy element by element."""
     return int(u.shape[1] % (16 // u.element_size()) == 0
                and u.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
 
@@ -535,18 +566,33 @@ class DuPlan(NamedTuple):
 
 
 def du_plan(bq: int, bk: int, d: int, bf16: bool, n_sm: int) -> DuPlan:
-    """Row 6's tiling on a card of ``n_sm`` SMs. bf16 operands (the
-    tensor-core kernel): 64-row query tiles, 64-candidate tiles, and the
-    candidate sweep split into as many parts as bring the grid to about
-    ``_SWEEP_BLOCKS_PER_SM`` blocks per SM (8,192 rows give only 128 query
-    tiles), no more than the candidate tiles and no more than keep the dU
-    partials under ``_FUSED_BWD_PARTIALS_CAP``; no part is empty. fp32
-    operands (the FMA kernel): one part, 64-row tiles."""
+    """Row 6's tiling on a card of ``n_sm`` SMs: 64-candidate tiles, the
+    candidate sweep split into parts, no more than keep the dU partials
+    under ``_FUSED_BWD_PARTIALS_CAP``; no part is empty. bf16 operands (the
+    tensor-core kernel): 64-row query tiles (two column slices past D =
+    128), as many parts as bring the grid to about ``_SWEEP_BLOCKS_PER_SM``
+    blocks per SM (8,192 rows give only 128 query tiles). fp32 operands
+    (the FMA kernel, one block per SM): 128-row blocks (64 at D > 128), the
+    sweep split by :func:`_split_waves` (8 parts at 8,192^2, 5 at
+    20,000^2, one at 131,072 x 262,144)."""
+    max_parts = _FUSED_BWD_PARTIALS_CAP // (4 * bq * d)
+    n_kt = -(-bk // DU_TK)
     if not bf16:
-        return DuPlan(TQ, TK, 1, -(-bk // TK))
+        tile = F32_TQ if d <= 128 else 64
+        return DuPlan(tile, DU_TK, *_split_waves(n_kt, -(-bq // tile), max_parts, n_sm))
     blocks = -(-bq // DU_TQ) * (2 if d > 128 else 1)
-    return DuPlan(DU_TQ, DU_TK, *_split_sweep(-(-bk // DU_TK), blocks,
-                                              _FUSED_BWD_PARTIALS_CAP // (4 * bq * d), n_sm))
+    return DuPlan(DU_TQ, DU_TK, *_split_sweep(n_kt, blocks, max_parts, n_sm))
+
+
+def flash_ce_bwd_du_partials_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g, p: DuPlan
+                                       ) -> torch.Tensor:
+    """Plain version of what row 6's kernel writes under plan ``p``, over
+    the whole [Bq, Bk] logits at once (small shapes): -> dU partials
+    [parts, Bq, D] fp32, one per part of the candidate axis (``p*g``
+    rounded to the operand type, as the kernel); their sum over the first
+    axis is dU."""
+    pg32 = torch.exp(_masked_logits(u, v, colcorr, ids_q, ids_k, pos) - lse[:, None]) * g[:, None]
+    return _du_parts(pg32.to(u.dtype).float(), v.float(), p.ktile * p.tiles_per_part, p.parts)
 
 
 def flash_ce_bwd_du(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
@@ -660,9 +706,10 @@ def flash_ce_bwd_twokernel(u, v, colcorr, ids_q, ids_k, pos, lse, g
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The two-kernel backward (``_flash_bwd_twokernel_raw``) at any shape:
     -> (dU, dV, dcol) from :func:`flash_ce_bwd_du` and
-    :func:`flash_ce_bwd_dv`, whose bf16 kernels split their swept axis
-    into parts only where their own tiles leave the card thin
-    (:func:`du_plan`, :func:`dv_plan`; none at 131,072 x 262,144)."""
+    :func:`flash_ce_bwd_dv`, whose kernels split their swept axis into
+    parts only where their own tiles leave the card thin (:func:`du_plan`,
+    :func:`dv_plan`; none at 131,072 x 262,144, and none in row 7's fp32
+    kernel)."""
     du = flash_ce_bwd_du(u, v, colcorr, ids_q, ids_k, pos, lse, g)
     return (du, *flash_ce_bwd_dv(u, v, colcorr, ids_q, ids_k, pos, lse, g))
 

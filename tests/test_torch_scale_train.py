@@ -194,32 +194,45 @@ def test_bwd_route_counts_the_partials_as_the_tpu_does(bq, bk):
     assert F.bwd_route(bq, bk, d) == route
 
 
-@pytest.mark.parametrize("bq,bk,d,parts", [
-    (8192, 8192, 128, 9),          # 128 query tiles: the candidate sweep in 9 parts
-    (131072, 262144, 128, 1),      # the giant step: 2,048 query tiles, no partials
-    (1000, 3001, 129, 24),         # ragged, two column slices: a part per 2 tiles
-    (1000, 3001, 64, 47),          # a part per candidate tile
-    (64, 10, 32, 1),               # one candidate tile
-])
-def test_du_plan_fills_the_card_under_the_cap(bq, bk, d, parts):
-    """Row 6's tiling for bf16 operands, checked on the CPU: 64-row query
-    tiles and 64-candidate tiles, the candidate sweep split into parts
-    until the grid holds about 8 blocks per SM, every candidate tile in
-    exactly one part, and the dU partials under the cap; fp32 operands keep
-    one part (the FMA kernel)."""
+_DU_PLAN_CASES = [
+    # bf16 operands (the tensor-core kernel): 64-row query tiles
+    (8192, 8192, 128, True, 9),          # 128 query tiles: the candidate sweep in 9 parts
+    (131072, 262144, 128, True, 1),      # the giant step: 2,048 query tiles, no partials
+    (1000, 3001, 129, True, 24),         # ragged, two column slices: a part per 2 tiles
+    (1000, 3001, 64, True, 47),          # a part per candidate tile
+    (64, 10, 32, True, 1),               # one candidate tile
+    # fp32 operands (the FMA kernel, one block per SM): 128-row blocks
+    (8192, 8192, 128, False, 8),         # 64 blocks: 4 waves of 16 tiles
+    (20000, 20000, 128, False, 5),       # 157 blocks: 6 waves of 63 tiles
+    (131072, 262144, 128, False, 1),     # 1,024 blocks: 8 waves, no partials
+    (1000, 3001, 129, False, 16),        # ragged, D past 128: 64-row blocks
+    (300, 1100, 256, False, 18),         # DP = 256: a part per candidate tile
+    (65, 1, 128, False, 1),              # a single candidate
+]
+
+
+@pytest.mark.parametrize("bq,bk,d,bf16,parts", _DU_PLAN_CASES, ids=[
+    f"{bq}-{bk}-{d}-{parts}" if bf16 else f"fp32-{bq}-{bk}-{d}-{parts}"
+    for bq, bk, d, bf16, parts in _DU_PLAN_CASES])
+def test_du_plan_fills_the_card_under_the_cap(bq, bk, d, bf16, parts):
+    """Row 6's tiling, checked on the CPU: 64-candidate tiles, every
+    candidate tile in exactly one part, and the dU partials under the cap.
+    bf16 operands: 64-row query tiles, the sweep split until the grid holds
+    about 8 blocks per SM. fp32 operands: 128-row blocks (64 past D =
+    128), the sweep split for the fewest waves of one block per SM from 2
+    to 8 blocks per SM, which leaves at least one block per SM wherever the
+    tiles allow."""
     n_sm = 132
-    p = F.du_plan(bq, bk, d, True, n_sm)
-    assert (p.tile, p.ktile, p.parts) == (F.DU_TQ, F.DU_TK, parts)
+    p = F.du_plan(bq, bk, d, bf16, n_sm)
+    tile = F.DU_TQ if bf16 else (F.F32_TQ if d <= 128 else 64)
+    assert (p.tile, p.ktile, p.parts) == (tile, F.DU_TK, parts)
     n_kt = -(-bk // p.ktile)
     assert p.parts * p.tiles_per_part >= n_kt > (p.parts - 1) * p.tiles_per_part
     assert p.partials_bytes(bq, d) <= F._FUSED_BWD_PARTIALS_CAP
-    # at least 4 blocks per SM wherever the tiles allow (whole tiles per
-    # part round the 8 down)
-    q_blocks = -(-bq // p.tile) * (2 if d > 128 else 1)
-    assert q_blocks * p.parts >= min(4 * n_sm, q_blocks * n_kt)
-    fp32 = F.du_plan(bq, bk, d, False, n_sm)
-    assert fp32.parts == 1 and fp32.partials_bytes(bq, d) == 0
-    assert fp32.tiles_per_part * fp32.ktile >= bk
+    # bf16: at least 4 blocks per SM wherever the tiles allow (whole tiles
+    # per part round the 8 down); fp32: at least one
+    q_blocks = -(-bq // p.tile) * (2 if bf16 and d > 128 else 1)
+    assert q_blocks * p.parts >= min((4 if bf16 else 1) * n_sm, q_blocks * n_kt)
 
 
 def test_du_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
@@ -229,6 +242,17 @@ def test_du_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
     monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 2 * 4 * bq * d)
     p = F.du_plan(bq, bk, d, True, 132)
     assert (p.parts, p.tiles_per_part) == (2, 64)
+    assert p.partials_bytes(bq, d) <= F._FUSED_BWD_PARTIALS_CAP
+
+
+def test_fp32_du_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
+    """fp32 operands: with room for only two dU partials the plan takes two
+    parts, each sweeping half the candidate tiles, where the card alone
+    would take 8."""
+    bq, bk, d = 8192, 8192, 128
+    monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 2 * 4 * bq * d)
+    p = F.du_plan(bq, bk, d, False, 132)
+    assert (p.tile, p.parts, p.tiles_per_part) == (F.F32_TQ, 2, 64)
     assert p.partials_bytes(bq, d) <= F._FUSED_BWD_PARTIALS_CAP
 
 
@@ -311,6 +335,48 @@ def test_dv_partials_sum_to_the_reference_and_jax(dtype, bq, bk, d, n_sm, all_ac
         jnp.asarray(g), True)
     _rel_close(got[0], want[1], 1e-5 + (BF16_ULP if dtype == "bfloat16" else 0.0))
     _rel_close(got[1], want[2], 1e-5)
+
+
+@pytest.mark.parametrize("bq,bk,d,n_sm,all_accidental", [
+    (192, 300, 32, 132, False),   # 2 blocks: 5 parts of one tile
+    (320, 1024, 32, 4, True),     # 3 blocks, 16 tiles: parts of several tiles
+    (130, 300, 129, 132, True),   # D past 128: 64-row blocks, 5 parts
+    (200, 190, 24, 132, False),   # ragged: 3 parts, the last of 62 candidates
+])
+def test_fp32_du_partials_sum_to_the_reference_and_jax(bq, bk, d, n_sm, all_accidental):
+    """The plain version of what row 6's fp32 kernel writes under
+    ``du_plan`` ([parts, Bq, D], at least 3 parts here), summed over the
+    parts in part order as the wrapper sums them, equals the one-pass plain
+    dU (1e-6 of max|ref|) and JAX ``_flash_bwd_twokernel_raw``'s dU in
+    interpret mode (1e-5 of max|ref|); row 0's positive lies in the last
+    part, and with ``all_accidental`` every third row's every other
+    candidate is an accidental hit."""
+    rng = np.random.default_rng(bq + bk + d)
+    u = (rng.standard_normal((bq, d)) * d ** -0.5).astype(np.float32)
+    v = rng.standard_normal((bk, d)).astype(np.float32)
+    c = rng.standard_normal(bk).astype(np.float32)
+    ids_k = rng.integers(0, max(2, bk // 3), bk).astype(np.int32)
+    ids_q = rng.integers(0, max(2, bk // 3), bq).astype(np.int32)
+    pos = np.arange(bq, dtype=np.int32) % bk
+    pos[0] = bk - 1
+    if all_accidental:
+        ids_k[:] = bk
+        ids_q[::3] = bk
+    g = rng.standard_normal(bq).astype(np.float32)
+    small = (torch.tensor(c), torch.tensor(ids_q), torch.tensor(ids_k), torch.tensor(pos))
+    tu, tv = torch.tensor(u), torch.tensor(v)
+    lse, _ = F.flash_ce_fwd_reference(tu, tv, *small)
+    args = (tu, tv, *small, lse, torch.tensor(g))
+    p = F.du_plan(bq, bk, d, False, n_sm)
+    assert p.parts >= 3 and p.tile == (F.F32_TQ if d <= 128 else 64)
+    du_part = F.flash_ce_bwd_du_partials_reference(*args, p)
+    assert du_part.shape == (p.parts, bq, d)
+    got = torch.sum(du_part, dim=0)
+    _rel_close(got, F.flash_ce_bwd_du_reference(*args), 1e-6)
+    want = JF._flash_bwd_twokernel_raw(
+        jnp.asarray(u), jnp.asarray(v), jnp.asarray(c), jnp.asarray(ids_q), jnp.asarray(ids_k),
+        jnp.asarray(pos), jnp.asarray(lse.numpy()), jnp.asarray(g), True)
+    _rel_close(got, want[0], 1e-5)
 
 
 # ---- sparse optimizer functions ------------------------------------------

@@ -354,30 +354,45 @@ def test_flash_ce_bwd_routes_by_operand_type(dtype, route, monkeypatch):
 
 # ---- kernel row 4: the forward's plan and partial layout -----------------
 
-@pytest.mark.parametrize("bq,bk,parts", [
-    (8192, 8192, 9),         # 128 query tiles: the candidate sweep in 9 parts
-    (131072, 262144, 1),     # the giant step: 2,048 query tiles, no partials
-    (1000, 3001, 47),        # ragged: a part per candidate tile
-    (64, 10, 1),             # one candidate tile
-])
-def test_fwd_plan_fills_the_card_under_the_cap(bq, bk, parts):
-    """The forward's tiling for bf16 operands, checked on the CPU: 64-row
-    query tiles and 64-candidate tiles, the candidate sweep split into
-    parts until the grid holds about 8 blocks per SM, every candidate tile
-    in exactly one part, and the partials under the cap; fp32 operands keep
-    one part (the FMA kernel). The plan does not depend on D: the logits
-    need all of it, so the forward has no column slices."""
+_FWD_PLAN_CASES = [
+    # bf16 operands (the tensor-core kernel, tiles independent of D)
+    (8192, 8192, None, 9),         # 128 query tiles: the candidate sweep in 9 parts
+    (131072, 262144, None, 1),     # the giant step: 2,048 query tiles, no partials
+    (1000, 3001, None, 47),        # ragged: a part per candidate tile
+    (64, 10, None, 1),             # one candidate tile
+    # fp32 operands (the FMA kernel, one block per SM): 128 x 128 tiles
+    (8192, 8192, 128, 8),          # 64 blocks: 4 waves of 8 tiles
+    (20000, 20000, 128, 5),        # 157 blocks: 6 waves of 32 tiles
+    (131072, 262144, 128, 1),      # 1,024 blocks: 8 waves, no partials
+    (1000, 3001, 129, 16),         # ragged, D past 128: 64 x 64 tiles
+    (300, 1100, 256, 18),          # DP = 256: a part per candidate tile
+    (65, 1, 128, 1),               # a single candidate
+]
+
+
+@pytest.mark.parametrize("bq,bk,d,parts", _FWD_PLAN_CASES, ids=[
+    f"{bq}-{bk}-{parts}" if d is None else f"fp32-{bq}-{bk}-{d}-{parts}"
+    for bq, bk, d, parts in _FWD_PLAN_CASES])
+def test_fwd_plan_fills_the_card_under_the_cap(bq, bk, d, parts):
+    """The forward's tiling, checked on the CPU: every candidate tile in
+    exactly one part and the partials under the cap. bf16 operands (``d``
+    None: the logits need all of D, so the tensor-core forward has no
+    column slices and its plan no width): 64-row query tiles and
+    64-candidate tiles, the sweep split until the grid holds about 8 blocks
+    per SM. fp32 operands: 128-row blocks and 128-candidate tiles (64 and 64
+    past D = 128), the sweep split for the fewest waves of one block per SM
+    from 2 to 8 blocks per SM, which leaves at least one block per SM
+    wherever the tiles allow."""
     n_sm = 132
-    p = F.fwd_plan(bq, bk, True, n_sm)
-    assert (p.tile, p.ktile, p.parts) == (F.DU_TQ, F.DU_TK, parts)
+    bf16 = d is None
+    p = F.fwd_plan(bq, bk, bf16, n_sm, d)
+    want = (F.DU_TQ, F.DU_TK) if bf16 else (F.F32_TQ, F.F32_FWD_TK) if d <= 128 else (64, 64)
+    assert (p.tile, p.ktile, p.parts) == (*want, parts)
     n_kt = -(-bk // p.ktile)
     assert p.parts * p.tiles_per_part >= n_kt > (p.parts - 1) * p.tiles_per_part
     assert p.partials_bytes(bq) <= F._FUSED_BWD_PARTIALS_CAP
     q_blocks = -(-bq // p.tile)
-    assert q_blocks * p.parts >= min(4 * n_sm, q_blocks * n_kt)
-    fp32 = F.fwd_plan(bq, bk, False, n_sm)
-    assert fp32.parts == 1 and fp32.partials_bytes(bq) == 0
-    assert fp32.tiles_per_part * fp32.ktile >= bk
+    assert q_blocks * p.parts >= min((4 if bf16 else 1) * n_sm, q_blocks * n_kt)
 
 
 def test_fwd_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
@@ -388,6 +403,19 @@ def test_fwd_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
     p = F.fwd_plan(bq, bk, True, 132)
     assert (p.parts, p.tiles_per_part) == (2, 64)
     assert p.partials_bytes(bq) <= F._FUSED_BWD_PARTIALS_CAP
+
+
+def test_fp32_fwd_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
+    """fp32 operands: with room for only two parts' (m, l, positive logit)
+    the plan takes two parts, each sweeping half the candidate tiles, where
+    the card alone would take 8; a plan of fp32 operands needs D."""
+    bq, bk = 8192, 8192
+    monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 2 * 12 * bq)
+    p = F.fwd_plan(bq, bk, False, 132, 128)
+    assert (p.tile, p.parts, p.tiles_per_part) == (F.F32_TQ, 2, 32)
+    assert p.partials_bytes(bq) <= F._FUSED_BWD_PARTIALS_CAP
+    with pytest.raises(ValueError, match="depend on d"):
+        F.fwd_plan(bq, bk, False, 132)
 
 
 def _edges(ids_q, ids_k, pos, all_accidental: bool) -> tuple:
@@ -433,6 +461,40 @@ def test_fwd_partials_combine_to_the_reference_and_jax(dtype, bq, bk, n_sm, all_
     jax_lse, jax_pos = JF._flash_fwd_raw(
         jnp.asarray(u).astype(jdt), jnp.asarray(v).astype(jdt), jnp.asarray(c),
         jnp.asarray(ids_q), jnp.asarray(ids_k), jnp.asarray(pos), True)
+    _close(got[0], jax_lse)
+    _close(got[1], jax_pos)
+
+
+@pytest.mark.parametrize("bq,bk,d,n_sm,all_accidental", [
+    (192, 600, 16, 132, False),   # 2 blocks: 5 parts of one 128-candidate tile
+    (300, 2000, 32, 8, True),     # 3 blocks, 16 tiles: parts of several tiles
+    (130, 300, 129, 132, True),   # D past 128: 64 x 64 tiles, 5 parts
+    (200, 290, 24, 132, False),   # ragged: 3 parts, the last of 34 candidates
+])
+def test_fp32_fwd_partials_combine_to_the_reference_and_jax(bq, bk, d, n_sm, all_accidental):
+    """The plain version of what row 4's fp32 kernel writes under
+    ``fwd_plan`` (at least 3 parts here), folded by the plain combine,
+    equals the one-pass plain forward (1e-6 of max|ref|) and JAX
+    ``_flash_fwd_raw``'s lse and positive logit in interpret mode (rtol =
+    atol = 1e-5); row 0's positive logit lies in the last part and nowhere
+    else."""
+    u, v, c, ids_q, ids_k, _ = _inputs(bq, bk, d, seed=bq + bk + d)
+    ids_q, ids_k, pos = _edges(ids_q, ids_k, np.arange(bq, dtype=np.int32) % bk,
+                               all_accidental)
+    tu, tv = torch.tensor(u), torch.tensor(v)
+    small = (torch.tensor(c), torch.tensor(ids_q), torch.tensor(ids_k), torch.tensor(pos))
+    p = F.fwd_plan(bq, bk, False, n_sm, d)
+    assert p.parts >= 3 and p.ktile == (F.F32_FWD_TK if d <= 128 else 64)
+    m, l, pos_part = F.flash_ce_fwd_partials_reference(tu, tv, *small, p)
+    assert m.shape == l.shape == pos_part.shape == (p.parts, bq)
+    got = F.combine_fwd_partials(m, l, pos_part)
+    want = F.flash_ce_fwd_reference(tu, tv, *small)
+    assert pos_part[-1, 0] == want[1][0] and not pos_part[:-1, 0].any()
+    for a, b in zip(got, want):
+        _close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
+    jax_lse, jax_pos = JF._flash_fwd_raw(
+        jnp.asarray(u), jnp.asarray(v), jnp.asarray(c), jnp.asarray(ids_q), jnp.asarray(ids_k),
+        jnp.asarray(pos), True)
     _close(got[0], jax_lse)
     _close(got[1], jax_pos)
 
