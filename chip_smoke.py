@@ -48,10 +48,10 @@
     two calls bit-equal, the positive logit of 8 parts bit-equal to that
     of one) and times them as in phase 6, then profiles a full train step
     with and without the flash kernels at batch 4,096 and 8,192, and the
-    fp32 steps at 8,192 (the fp32 epoch's: rows 4 and 5) and 20,000 (rows
-    4, 6 and 7: the TPU's partials pass the cap there), each with the
-    device ms and launches of every flash kernel and the backward its
-    wrappers took, as phase 7 profiles a request;
+    fp32 steps at 8,192 (the fp32 epoch's) and 20,000 (where the TPU's
+    partials pass its cap), both on rows 4 and 5, each with the device ms
+    and launches of every flash kernel and the backward its wrappers took,
+    as phase 7 profiles a request;
 12. evaluates the phase 8 bundle with ``python -m recsys_tpu_torch.evaluate
     --filter_seen --rerank_candidates 200 --device cuda`` (the per-batch
     seen mask and the two-stage rerank through the DCN kernel);
@@ -84,16 +84,21 @@
     129, 256}, Bq and Bk not multiples of 16 or 64, one candidate, a
     positive column in the forward's last part, rows whose every other
     candidate is an accidental hit) and checks that two calls of each give
-    the same bits; at 20,000^2 in fp32 checks that ``flash_ce_bwd`` takes
-    rows 6 + 7 (their wrappers launch, the fused one does not), holds the
-    result against the plain backward and times rows 6 and 7 beside their
-    yardsticks;
+    the same bits; holds row 7 of fp32 operands against its plain version
+    at its edges (before phase 8: D of 24 to 256, ragged, one candidate,
+    all-accidental rows, 8,192^2 in 8 parts, the same call in 2 parts
+    bit-equal to the sum of its parts' rows in one); at 20,000^2 in fp32
+    checks that ``flash_ce_bwd`` takes the fused kernel (its wrapper
+    launches, rows 6 and 7 do not), holds it and rows 6 + 7 (called
+    directly) against the plain backward and times rows 6 and 7 beside
+    their yardsticks;
 17. above the partials cap (Bq = 131,072, Bk = 262,144, D = 128, bf16):
     the route is the two-kernel one; the forward, rows 6 and 7 and the
     fused kernel agree with their plain versions (chunked over query rows,
     ~1 GiB of logits at a time) and the two routes with each other; the
     forward and rows 6 and 7 are timed beside their device time and bound;
-    then both routes are timed in turns, with their peak memory, at the
+    then both routes are timed in turns, with their peak memory, in bf16
+    and in fp32, at the
     ``ROUTE_SHAPES`` under and above the cap (the table behind
     ``flash_ce.bwd_route``);
 18. trains the giant-table configuration through ``Trainer.train``: the
@@ -122,12 +127,13 @@ CUDA device it exits 2 before doing anything.
 
     python3 chip_smoke.py --ab PARENT_DIR
 
-times kernel rows 1, 4, 5, 6, 7 and 8 of an unpacked checkout of
+times kernel rows 1, 3, 4, 5, 6, 7 and 8 of an unpacked checkout of
 another commit (``git archive <commit> | tar -x -C PARENT_DIR``) and of
 this tree in turns on one card (parent, this, this, parent; a process
 each, every tree built from its own sources) at the shapes of the
-``AB_*_SHAPES`` lists (rows 4 to 7 also in fp32 at 8,192^2), beside the
-library yardsticks of rows 4 to 8, and prints one JSON line per run.
+``AB_*`` lists (rows 4 to 7 also in fp32 at 8,192^2, rows 4, 6 and 7 at
+20,000^2; row 3 with its reduction's device ms apart), beside the library
+yardsticks of rows 4 to 8, and prints one JSON line per run.
 """
 
 from __future__ import annotations
@@ -169,9 +175,10 @@ FLASH_TOL = 1e-5
 FLASH_BF16_GRAD_TOL = 2.0 ** -8
 N_TRAIN, N_VAL = 200_000, 25_000
 TRAIN_BATCH = 8192
-# the fp32 step whose backward takes rows 6 + 7: at 20,000 rows the TPU's
-# candidate tile is 32 and its fused partials (5.96 GiB) pass the cap
-FP32_TWOKERNEL_BATCH = 20_000
+# the fp32 step past the TPU's partials cap: at 20,000 rows its candidate
+# tile is 32 and its fused partials (5.96 GiB) pass the cap, so the TPU
+# takes its two kernels there; the port takes the fused kernel (bwd_route)
+FP32_PAST_CAP_BATCH = 20_000
 TRAIN_EPOCHS = 2
 ZIPF_EXPONENT = 1.0  # item popularity ~ rank**-1
 PARITY_STEPS = 3
@@ -204,7 +211,7 @@ GIANT_BATCH = GIANT_CACHE = 131_072
 GIANT_STEPS = 8
 GIANT_VAL = 65_536
 ABOVE_CAP = (131_072, 262_144, 128)
-# the backward's two routes, bf16, D = 128: (Bq, Bk) under the TPU's
+# the backward's two routes, bf16 and fp32, D = 128: (Bq, Bk) under the TPU's
 # partials cap (4,096 x 20,480: a batch with a 4-batch CBNS cache;
 # 131,072 x 147,456: exactly at it), then above it (20,000^2 passes it
 # through the TPU's 32-wide tile, the others through their width)
@@ -762,12 +769,15 @@ def check_dcn_bwd(x0, w, b, g) -> tuple:
     return abs_err, max(rel_err)
 
 
-def check_train_edges() -> None:
+def check_train_edges() -> list:
     """Edge cases of the training kernels on the card, before any timing:
     ragged Bq and Bk, Bk != Bq (rectangular, one candidate), every padded
     width D, both operand types, many accidental hits, backward blocks
     that sweep several candidate tiles (at small shapes and at 32,768
-    rows); ragged rows, one layer and F = 1024 in the DCN backward."""
+    rows); in the DCN backward both kernels (dw and db in registers, and in
+    shared memory past 4 layers or 256 features), ragged rows, F from 1 to
+    1,024, one to eight layers, two calls bit-equal. -> the DCN backward's
+    edges."""
     import torch
     from recsys_tpu_torch.ops import flash_ce as F
 
@@ -812,10 +822,30 @@ def check_train_edges() -> None:
         f"{errs['bwd_rel']}, {bwd_ms:.3f} ms")
     del args, errs
     torch.cuda.empty_cache()
-    for n, f, n_layers in ((37, 256, 3), (1, 24, 1), (1000, 100, 2), (5, 1024, 3)):
-        check_dcn_bwd(rnd(n, f), rnd(n_layers, f) * f ** -0.5, rnd(n_layers, f) * 0.1,
-                      rnd(n, f))
+    from recsys_tpu_torch.ops import dcn_cross as D
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    dcn_edges = []
+    # the register kernel (L <= 4, F <= 256; 16-byte rows where F % 4 ==
+    # 0, a lane per column otherwise) and the shared-memory one (past
+    # either), ragged n, F from 1 to 1,024, one to eight layers
+    for n, f, n_layers in ((37, 256, 3), (1, 24, 1), (1000, 100, 2), (5, 1024, 3),
+                           (8193, 256, 3), (300, 1, 1), (777, 130, 4), (2049, 64, 3),
+                           (100_000, 256, 3), (500, 256, 5), (1000, 512, 2), (64, 200, 8),
+                           (33, 1024, 3)):
+        args = (rnd(n, f), rnd(n_layers, f) * f ** -0.5, rnd(n_layers, f) * 0.1, rnd(n, f))
+        plan = D.bwd_plan(n, f, n_layers, n_sm)
+        check(plan.registers == (n_layers <= 4 and f <= 256), f"dcn bwd plan {plan}")
+        err, rel = check_dcn_bwd(*args)
+        _, resid = D._forward(*args[:3], keep_resid=True)
+        first, again = (D.dcn_cross_bwd(args[0], args[1], resid, args[3]) for _ in range(2))
+        check(all(bool(torch.equal(a, b)) for a, b in zip(first, again)),
+              f"dcn bwd n={n} F={f} L={n_layers}: two calls differ")
+        dcn_edges.append({"n": n, "F": f, "L": n_layers, "plan": plan._asdict(),
+                          "max_abs_err": err, "max_rel_err": rel})
+    log(f"dcn backward edges: {json.dumps(dcn_edges)}")
     log("training-kernel edge cases agree with the plain versions")
+    return dcn_edges
 
 
 def check_fp32_bwd_edges() -> list:
@@ -948,6 +978,84 @@ def check_fp32_du_fwd_edges() -> list:
     return out
 
 
+def check_fp32_dv_edges() -> list:
+    """Row 7 of fp32 operands (``flash_ce_bwd_dv``: the FMA kernel on the
+    fp32 branch of ``dv_plan``) against its plain version at its edges,
+    before any timing: every padded width (D in {24, 32, 64, 128, 129,
+    256}: element-wise loads where D % 4 != 0, 64-candidate blocks past
+    128), Bq and Bk off the 64-row query tiles and the 128-candidate
+    blocks, one candidate, row 0's positive column in the last candidate
+    block, a third of the rows whose every candidate but the positive is an
+    accidental hit (every other shape), and 8,192^2 (8 parts): dV and dcol
+    within FLASH_TOL of their own max|ref|, two calls bit-equal. At 8,192^2
+    also the order of the parts: the same call in 2 parts (a lowered cap)
+    is bit-equal to the sum of two one-part calls over the parts' query
+    rows, since a part sweeps its tiles in the same order alone. -> errors
+    and plans per shape."""
+    import torch
+    from recsys_tpu_torch.ops import flash_ce as F
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for i, (bq, bk, d) in enumerate(((50, 70, 32), (130, 4097, 24), (1000, 3001, 64),
+                                     (777, 2050, 128), (1000, 3001, 129), (300, 1100, 256),
+                                     (65, 1, 128), (8192, 8192, 128))):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 60 + i)
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+        n_ids = max(2, bk // 3)
+        ints = lambda n: torch.randint(0, n_ids, (n,), generator=gen, device="cuda",
+                                       dtype=torch.int32)
+        u, v = rnd(bq, d) * d ** -0.5, rnd(bk, d) * d ** -0.5
+        c, ids_q, ids_k, gr = rnd(bk), ints(bq), ints(bk), torch.rand((bq,), generator=gen,
+                                                                      device="cuda") / bq
+        pos = torch.arange(bq, device="cuda", dtype=torch.int32) % bk
+        pos[0] = bk - 1
+        if i % 2:
+            ids_k.fill_(n_ids)
+            ids_q[::3] = n_ids
+        what = f"row 7 fp32 edge Bq={bq} Bk={bk} D={d}"
+        plan = F.dv_plan(bq, bk, d, False, n_sm)
+        if bq == 8192:
+            check(plan.parts == 8, f"{what}: plan {plan}")
+        lse, _ = F.flash_ce_fwd_reference(u, v, c, ids_q, ids_k, pos)
+        args = (u, v, c, ids_q, ids_k, pos, lse, gr)
+        got = [F.flash_ce_bwd_dv(*args) for _ in range(2)]
+        torch.cuda.synchronize()
+        abs_err, rel_err = _errs(got[0], F.flash_ce_bwd_dv_reference(*args))
+        check(all(bool(torch.isfinite(t).all()) for t in got[0]), f"{what}: non-finite")
+        for name, err in zip(("dV", "dcol"), rel_err):
+            check(err <= FLASH_TOL, f"{what}: {name} err {err} of max|ref| > {FLASH_TOL}")
+        check(all(bool(torch.equal(a, b)) for a, b in zip(*got)), f"{what}: two calls differ")
+        row = {"Bq": bq, "Bk": bk, "D": d, "all_accidental_rows": bool(i % 2),
+               "plan": plan._asdict(), "max_abs_err": abs_err,
+               "rel": dict(zip(("dV", "dcol"), rel_err))}
+        if bq == 8192:  # 2 parts against the two parts' rows, each in one part
+            cap = F._FUSED_BWD_PARTIALS_CAP
+            try:
+                F._FUSED_BWD_PARTIALS_CAP = 2 * 4 * bk * (d + 1)
+                two = F.dv_plan(bq, bk, d, False, n_sm)
+                check(two.parts == 2, f"{what}: two-part plan {two}")
+                whole = F.flash_ce_bwd_dv(*args)
+                F._FUSED_BWD_PARTIALS_CAP = 4 * bk * (d + 1)
+                cut = two.q_tiles_per_part * two.qtile
+                halves = []
+                for rows in (slice(0, cut), slice(cut, bq)):
+                    sub = (u[rows], v, c, ids_q[rows], ids_k, pos[rows], lse[rows], gr[rows])
+                    check(F.dv_plan(sub[0].shape[0], bk, d, False, n_sm).parts == 1,
+                          f"{what}: one-part plan of {rows}")
+                    halves.append(F.flash_ce_bwd_dv(*(t.contiguous() for t in sub)))
+            finally:
+                F._FUSED_BWD_PARTIALS_CAP = cap
+            torch.cuda.synchronize()
+            check(all(bool(torch.equal(w, a + b)) for w, a, b in zip(whole, *halves)),
+                  f"{what}: 2 parts differ from the sum of their rows' one-part calls")
+            row["parts_bit_equal"] = {"parts": two.parts, "rows_per_part": cut}
+        out.append(row)
+        del got, args, u, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def _dense_softmax_bwd(u, v, c, gr) -> tuple:
     """Row 5's one-call yardstick: the dense softmax backward over the
     whole [Bq, Bk] scores (dU, dV with p*g rounded to the operand type,
@@ -1036,11 +1144,16 @@ def measure_dcn_bwd(n: int, iters: int) -> dict:
     plain = lambda: D.dcn_cross_bwd_reference(x0, w, resid, gr)
     n_bytes = 4 * ((2 + n_layers) * n * f + n_layers * f) + 4 * (n * f + 2 * n_layers * f)
     b_ms, b_by = bound_ms(n_bytes, 11.0 * n * n_layers * f)
+    ms = time_ms(kernel, iters)
+    dev_ms, reduce_ms = device_ms(kernel, iters, kernel="dcn_cross_bwd_reduce")
     return {
         "shape": {"n": n, "F": f, "L": n_layers}, "max_abs_err": err, "max_rel_err": rel,
-        "ms": time_ms(kernel, iters), "plain_ms": time_ms(plain, iters),
+        "plan": D.bwd_plan(n, f, n_layers, torch.cuda.get_device_properties(0)
+                           .multi_processor_count)._asdict(),
+        "ms": ms, "plain_ms": time_ms(plain, iters),
         "library_ms": None,  # no single PyTorch call computes this VJP
-        "bound_ms": b_ms, "bound_by": b_by, "device_ms": device_ms(kernel, iters)[0],
+        "bound_ms": b_ms, "bound_by": b_by, "device_ms": dev_ms,
+        "reduce_device_ms": reduce_ms, "device_bound_share": b_ms / dev_ms if dev_ms else None,
         "plain_device_ms": device_ms(plain, iters)[0],
     }
 
@@ -1107,10 +1220,10 @@ def profile_train_steps(bundle: dict) -> list:
     times that later set ``_FLASH_MIN_CANDIDATES`` on the card; then the
     fp32 steps (``mixed_precision=False``, ``bf16_retrieval_logits=False``)
     at B = 8,192 (the fp32 epoch's: rows 4 and 5 in fp32, the fused
-    backward under the cap) and B = 20,000 (rows 4, 6 and 7 in fp32: the
-    TPU's 32-wide tile puts its partials past the cap), with the device ms
-    and launches of each flash kernel; the wrappers' counters show which
-    backward each fp32 step took."""
+    backward) and B = 20,000 (the TPU's 32-wide tile puts its partials past
+    its cap, where it takes its two kernels; the port keeps the fused
+    kernel), with the device ms and launches of each flash kernel; the
+    wrappers' counters show which backward each fp32 step took."""
     from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
     from recsys_tpu_torch.models.losses import balanced_class_weights
     from recsys_tpu_torch.ops import flash_ce as F
@@ -1126,7 +1239,7 @@ def profile_train_steps(bundle: dict) -> list:
     with tempfile.TemporaryDirectory() as tmp:
         for b, flash, model_kw in ((4096, True, {}), (4096, False, {}), (TRAIN_BATCH, True, {}),
                                    (TRAIN_BATCH, False, {}), (TRAIN_BATCH, True, fp32),
-                                   (FP32_TWOKERNEL_BATCH, True, fp32)):
+                                   (FP32_PAST_CAP_BATCH, True, fp32)):
             batches = _batches(bundle, 2, b, "cuda", _log_q(bundle))
             cfg = RecsysConfig(model=ModelConfig(use_flash_ce=flash, **model_kw),
                                train=TrainConfig(batch_size=b))
@@ -1638,49 +1751,66 @@ def twokernel_rows(args, iters: int, exp_rate: float, plain: bool) -> tuple:
 
 
 def check_fp32_route(exp_rate: float) -> dict:
-    """fp32 operands at FP32_TWOKERNEL_BATCH^2, D = 128: ``flash_ce_bwd``
-    takes rows 6 + 7 (their wrappers launch once each, the fused kernel's
-    never) and agrees with the plain backward (:func:`check_twokernel`);
-    rows 6 and 7 timed beside their yardsticks and bounds
+    """fp32 operands at FP32_PAST_CAP_BATCH^2, D = 128, where the TPU's
+    partials pass its cap and it takes its two kernels: ``flash_ce_bwd``
+    takes the fused kernel (its wrapper launches once, rows 6 and 7 never)
+    and agrees with the plain backward; rows 6 + 7, called directly
+    (``flash_ce_bwd_twokernel``), agree with it too (:func:`check_twokernel`)
+    and are timed beside their yardsticks and bounds
     (:func:`twokernel_rows`)."""
     import torch
     from recsys_tpu_torch.ops import flash_ce as F
 
-    b, d = FP32_TWOKERNEL_BATCH, 128
+    b, d = FP32_PAST_CAP_BATCH, 128
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     route = F.bwd_route(b, b, d, False)
-    check(route == "twokernel", f"fp32 {b}^2: route {route}, want twokernel")
+    check(route == "fused" and F.fused_bwd_partials_bytes(b, b, d) > F._FUSED_BWD_PARTIALS_CAP,
+          f"fp32 {b}^2: route {route}, want fused past the TPU's cap")
+    args = _flash_args(b, b, d, torch.float32, SEED + 14, n_ids=max(2, b // 3))
     wrappers = ("flash_ce_bwd_fused", "flash_ce_bwd_du", "flash_ce_bwd_dv")
     before = {w: getattr(F, w).launches for w in wrappers}
-    res = check_twokernel(*_flash_args(b, b, d, torch.float32, SEED + 14, n_ids=max(2, b // 3)),
-                          bwd=F.flash_ce_bwd)
+    fused = check_twokernel(*args, bwd=F.flash_ce_bwd)
     moved = {w: getattr(F, w).launches - before[w] for w in wrappers}
-    check(moved == {"flash_ce_bwd_fused": 0, "flash_ce_bwd_du": 1, "flash_ce_bwd_dv": 1},
+    check(moved == {"flash_ce_bwd_fused": 1, "flash_ce_bwd_du": 0, "flash_ce_bwd_dv": 0},
           f"fp32 {b}^2: launches {moved}")
+    res = check_twokernel(*args)
     du_row, dv_row = twokernel_rows(res["args"], 10, exp_rate, plain=True)
     du_row["max_abs_err"] = res["abs"]["dU"]
     dv_row["max_abs_err"] = max(res["abs"]["dV"], res["abs"]["dcol"])
-    return {"route": route, "launches": moved, "plan": F.du_plan(
-        b, b, d, False, torch.cuda.get_device_properties(0).multi_processor_count)._asdict(),
+    return {"route": route, "launches": moved, "fused_rel": fused["rel"],
+            "fused_plan": F.bwd_plan(b, b, d, False, n_sm)._asdict(),
+            "plan": F.du_plan(b, b, d, False, n_sm)._asdict(),
+            "dv_plan": F.dv_plan(b, b, d, False, n_sm)._asdict(),
             "rel": res["rel"], "du": du_row, "dv": dv_row}
 
 
-def time_routes() -> list:
+def time_routes(dtype) -> list:
     """Phase 17's route table: the fused backward and the two-kernel one
-    (rows 6 + 7 with their parts' sums), bf16, D = 128, at ROUTE_SHAPES,
-    timed in turns (fused, two-kernel, two-kernel, fused: CUDA events), each
-    with the device memory it allocates beyond its inputs (peak)."""
+    (rows 6 + 7 with their parts' sums) of ``dtype`` operands, D = 128, at
+    ROUTE_SHAPES, timed in turns (fused, two-kernel, two-kernel, fused: CUDA
+    events), each with the device memory it allocates beyond its inputs
+    (peak), beside the TPU's partials count and route and the route
+    ``bwd_route`` takes."""
     import torch
     from recsys_tpu_torch.ops import flash_ce as F
 
     rows = []
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    bf16 = dtype == torch.bfloat16
     for bq, bk in ROUTE_SHAPES:
-        u, v, c, ids_q, ids_k, pos, gr = _flash_args(bq, bk, 128, torch.bfloat16, SEED + 22,
+        t0 = time.perf_counter()
+        u, v, c, ids_q, ids_k, pos, gr = _flash_args(bq, bk, 128, dtype, SEED + 22,
                                                      n_ids=max(2, bk // 3))
         lse, _ = F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos)
         args = (u, v, c, ids_q, ids_k, pos, lse, gr)
         iters = 10 if bq * bk <= 1 << 30 else 2
-        row = {"Bq": bq, "Bk": bk, "D": 128, "tpu_route": F.bwd_route(bq, bk, 128),
+        plan = F.bwd_plan(bq, bk, 128, bf16, n_sm)
+        row = {"Bq": bq, "Bk": bk, "D": 128, "dtype": str(dtype).replace("torch.", ""),
+               "tpu_route": ("fused" if F.fused_bwd_partials_bytes(bq, bk, 128)
+                             <= F._FUSED_BWD_PARTIALS_CAP else "twokernel"),
+               "route": F.bwd_route(bq, bk, 128, bf16),
                "tpu_partials_gb": F.fused_bwd_partials_bytes(bq, bk, 128) / 1e9,
+               "fused_plan_partials_gb": plan.partials_bytes(bq, bk, 128) / 1e9,
                "fused_ms": [], "twokernel_ms": []}
         for name in ("fused", "twokernel", "twokernel", "fused"):
             fn = getattr(F, f"flash_ce_bwd_{name}")
@@ -1689,6 +1819,7 @@ def time_routes() -> list:
             torch.cuda.reset_peak_memory_stats()
             row[f"{name}_ms"].append(time_ms(lambda: fn(*args), iters, warmup=1))
             row[f"{name}_peak_extra_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        row["s"] = time.perf_counter() - t0
         rows.append(row)
         log(f"route {json.dumps(row)}")
         del u, v, args, lse
@@ -1742,7 +1873,8 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
     out["fwd_dv_edges"] = check_fwd_dv_edges()
     log(f"rows 4 and 7 (tensor cores) agree at their edges: {json.dumps(out['fwd_dv_edges'])}")
     out["fp32_route"] = check_fp32_route(exp_rate)
-    log(f"fp32 {FP32_TWOKERNEL_BATCH}^2 takes rows 6 + 7: {json.dumps(out['fp32_route'])}")
+    log(f"fp32 {FP32_PAST_CAP_BATCH}^2 takes the fused kernel; rows 6 + 7 agree: "
+        f"{json.dumps(out['fp32_route'])}")
 
     bq, bk, d = ABOVE_CAP
     route = F.bwd_route(bq, bk, d, True)
@@ -1803,7 +1935,8 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
     log(f"above the cap: {json.dumps(above)}")
     del args, u, v
     torch.cuda.empty_cache()
-    out["routes"] = time_routes()
+    out["routes"] = time_routes(torch.bfloat16)
+    out["routes_fp32"] = time_routes(torch.float32)
     return out
 
 
@@ -2171,12 +2304,14 @@ def main() -> int:
         log(f"profile {json.dumps(row)}")
 
     # ---- training: the second main path -----------------------------
-    check_train_edges()
+    dcn_bwd_edges = check_train_edges()
     fp32_edges = check_fp32_bwd_edges()
     log(f"row 5 fp32 agrees with its plain version at its edges: {json.dumps(fp32_edges)}")
     fp32_du_fwd_edges = check_fp32_du_fwd_edges()
     log(f"rows 4 and 6 fp32 agree with their plain versions at their edges: "
         f"{json.dumps(fp32_du_fwd_edges)}")
+    fp32_dv_edges = check_fp32_dv_edges()
+    log(f"row 7 fp32 agrees with its plain version at its edges: {json.dumps(fp32_dv_edges)}")
     counters += [Counter("flash_ce_fwd", flash_mod.flash_ce_fwd),
                  Counter("flash_ce_bwd_fused", flash_mod.flash_ce_bwd_fused),
                  Counter("flash_ce_bwd_du", flash_mod.flash_ce_bwd_du),
@@ -2205,7 +2340,7 @@ def main() -> int:
               "the trained bundle was not served through the kernels")
         with tempfile.TemporaryDirectory() as fp32_dir:
             # fp32 retrieval operands (the train CLI's --no-bf16 with
-            # bf16_retrieval_logits=false): the fused backward, under the cap
+            # bf16_retrieval_logits=false): the fused backward
             fp32_trained = train_main_path(bundle_np, counters, fp32_dir, epochs=1,
                                            mixed_precision=False, bf16_retrieval_logits=False)
         log(f"trained one epoch with fp32 retrieval operands: {json.dumps(fp32_trained)}")
@@ -2213,7 +2348,7 @@ def main() -> int:
         check(fp32_launches["flash_ce_bwd_fused"] > 0 and fp32_launches["flash_ce_fwd"] > 0,
               f"fp32 retrieval operands: flash launches {fp32_launches}")
         check(fp32_launches["flash_ce_bwd_du"] == fp32_launches["flash_ce_bwd_dv"] == 0,
-              "fp32 retrieval operands took the two-kernel backward under the cap")
+              "fp32 retrieval operands took the two-kernel backward")
         parity = train_parity(bundle_np, run_dir)
         log(f"train parity, card kernels vs CPU plain versions: {json.dumps(parity)}")
         cli_eval = evaluate_cli(repo, run_dir, bundle_np)
@@ -2325,6 +2460,14 @@ def main() -> int:
          "source": "recsys_tpu_torch/csrc/dcn_cross.cu",
          "replaces": "recsys_tpu/ops/pallas/dcn_cross.py:57",
          "launches": train_launches["dcn_cross_bwd"], **{k: main_dcn_bwd[k] for k in keys},
+         "kernel": "dcn_cross_bwd_kernel (dw and db in registers, all L + 2 row loads issued "
+                   "together, 16-byte rows) + dcn_cross_bwd_reduce_kernel (the partials in "
+                   "32 slices); dcn_cross_bwd_smem_kernel past 4 layers or 256 features",
+         "new_kernel": True, "plan": main_dcn_bwd["plan"],
+         **{k: main_dcn_bwd[k] for k in ("device_ms", "reduce_device_ms",
+                                         "device_bound_share", "plain_device_ms")},
+         "launches_fp32_epoch": fp32_launches["dcn_cross_bwd"],
+         "launches_giant": giant_launches["dcn_cross_bwd"], "edges": dcn_bwd_edges,
          "shape": main_dcn_bwd["shape"], "shapes": dcn_bwd_rows},
         {"name": "flash_ce_fwd", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/flash_ce.cu",
@@ -2333,7 +2476,7 @@ def main() -> int:
          "kernel": "flash_ce_fwd_tc_kernel + flash_ce_fwd_combine_kernel (bf16, mma.sync); "
                    "flash_ce_fwd_kernel + the same combine kernel serve fp32 (FMA units, "
                    "128-bit register-tiled S, thread-private running (m, l), fwd_plan parts)",
-         "fp32": {k: fp32_fwd[k] for k in keys + speed}, "fp32_new_kernel": True,
+         "fp32": {k: fp32_fwd[k] for k in keys + speed},
          "fp32_plan": flash_mod.fwd_plan(TRAIN_BATCH, TRAIN_BATCH, False, n_sm, 128)._asdict(),
          "fp32_edges": fp32_du_fwd_edges,
          "launches_fp32_epoch": fp32_launches["flash_ce_fwd"],
@@ -2348,7 +2491,7 @@ def main() -> int:
          "kernel": "flash_ce_bwd_kernel (fp32, FMA units, 128-bit register-tiled products "
                    "on bwd_plan; the bf16 route takes rows 6 + 7); flash_ce_bwd_tc_kernel "
                    "(bf16, mma.sync) is timed beside it",
-         "new_kernel": True, "plan": main_bwd_plan,
+         "plan": main_bwd_plan,
          "fp32_epoch_steps_per_s": fp32_trained["steps_per_s"][-1],
          "fp32_edges": fp32_edges,
          "shape": main_bwd["shape"], "shapes": [r[1] for r in flash_rows.values()]},
@@ -2373,18 +2516,23 @@ def main() -> int:
     kernels[-2].update(kernel="flash_ce_bwd_du_tc_kernel (bf16, mma.sync); "
                               "flash_ce_bwd_du_kernel serves fp32 (FMA units, 128-bit "
                               "register-tiled S and dU, du_plan parts)",
-                       fp32_new_kernel=True, fp32_edges=fp32_du_fwd_edges,
+                       fp32_edges=fp32_du_fwd_edges,
                        fp32_plan=flash_mod.du_plan(TRAIN_BATCH, TRAIN_BATCH, 128, False,
                                                    n_sm)._asdict(),
                        fp32_route_shape=fp32_route["du"])
-    kernels[-1].update(fp32_route_shape=fp32_route["dv"])
+    kernels[-1].update(fp32_route_shape=fp32_route["dv"], fp32_new_kernel=True,
+                       fp32_edges=fp32_dv_edges,
+                       fp32_plan=flash_mod.dv_plan(TRAIN_BATCH, TRAIN_BATCH, 128, False,
+                                                   n_sm)._asdict())
     # launches per step of each fp32 kernel on the two timed fp32 steps
     for entry, label in ((kernels[3], "row4_fwd"), (kernels[4], "row5_fused"),
                          (kernels[-2], "row6_du"), (kernels[-1], "row7_dv")):
         entry["fp32_launches_per_step"] = {name: r["group_launches"][label]
                                            for name, r in fp32_steps.items()}
     kernels[-1].update(kernel="flash_ce_bwd_dv_tc_kernel (bf16, mma.sync); "
-                              "flash_ce_bwd_dv_kernel serves fp32")
+                              "flash_ce_bwd_dv_kernel serves fp32 (FMA units, the fused "
+                              "kernel's S/P/dV body, double-buffered query tiles, dv_plan "
+                              "parts)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -2401,7 +2549,10 @@ AB_TOPK_SHAPES = [(1, N_ITEMS, 10), (1, N_ITEMS, RERANK), (BATCH_USERS, N_ITEMS,
 AB_FLASH_SHAPES = [(4096, "bfloat16"), (TRAIN_BATCH, "bfloat16"), (TRAIN_BATCH, "float32")]
 # rows 6 (dU) and 7 (dV, dcol) and the forward (row 4): (Bq, Bk, dtype), D = 128
 AB_TWOKERNEL_SHAPES = [(TRAIN_BATCH, TRAIN_BATCH, "bfloat16"), (32_768, 65_536, "bfloat16"),
-                       (TRAIN_BATCH, TRAIN_BATCH, "float32")]
+                       (TRAIN_BATCH, TRAIN_BATCH, "float32"),
+                       (FP32_PAST_CAP_BATCH, FP32_PAST_CAP_BATCH, "float32")]
+# row 3 (the DCN backward): n rows at the flagship's F = 256, L = 3
+AB_DCN_ROWS = [2048, TRAIN_BATCH]
 # row 8: (Q, N), bf16, d = 128, groups of 512
 AB_BLOCKMAX_SHAPES = [(1, LARGE_N_ITEMS), (BATCH_USERS, LARGE_N_ITEMS), (BIG_Q, BIG_N)]
 
@@ -2414,18 +2565,19 @@ def _timed(fn, iters: int, kernel: str, warmup: int = 2) -> dict:
 
 
 def time_kernels(tree: str) -> dict:
-    """Rows 1, 4, 5, 6, 7 and 8 of the port found under ``tree`` (its own
+    """Rows 1, 3, 4, 5, 6, 7 and 8 of the port found under ``tree`` (its own
     ``recsys_tpu_torch``, built into its own ``build/``) at the shapes of
     ``AB_*_SHAPES`` on seeded inputs: CUDA-event ms and device ms per
     call, through the same wrappers a caller uses; beside rows 4 to 8
     their library yardsticks where the dense scores fit (``matmul`` +
     ``logsumexp``, the dense softmax backward, ``softmax @ v``,
     ``softmax.T @ u`` with the column sums, ``matmul`` + ``amax``), which
-    do not depend on the tree."""
+    do not depend on the tree; row 3 with the device ms of its partials'
+    reduction apart."""
     import torch
 
     sys.path.insert(0, os.path.abspath(tree))
-    from recsys_tpu_torch.ops import _build, flash_ce as F, topk_flash as T
+    from recsys_tpu_torch.ops import _build, dcn_cross as D, flash_ce as F, topk_flash as T
 
     check(os.path.abspath(T.__file__).startswith(os.path.abspath(tree)), "wrong tree imported")
     _build.load_library()
@@ -2433,7 +2585,7 @@ def time_kernels(tree: str) -> dict:
     unit = lambda *shape: torch.nn.functional.normalize(
         torch.randn(shape, generator=g, device="cuda"), dim=1)
     out = {"tree": tree, "topk": [], "flash_bwd": [], "flash_fwd": [], "flash_fwd_row4": [],
-           "row6_du": [], "row7_dv": [], "row8_blockmax": []}
+           "row6_du": [], "row7_dv": [], "row8_blockmax": [], "row3_dcn_bwd": []}
     for q_n, n, k in AB_TOPK_SHAPES:
         u, v = unit(q_n, 128), unit(n, 128)
         iters = 3 if q_n * n > 1 << 26 else 50
@@ -2486,6 +2638,16 @@ def time_kernels(tree: str) -> dict:
         out["row7_dv"].append(row7)
         del u, v, args
         torch.cuda.empty_cache()
+    for n in AB_DCN_ROWS:
+        f, n_layers = 256, 3
+        x0 = torch.randn((n, f), generator=g, device="cuda")
+        w = torch.randn((n_layers, f), generator=g, device="cuda") * f ** -0.5
+        b = torch.randn((n_layers, f), generator=g, device="cuda") * 0.1
+        gr = torch.randn((n, f), generator=g, device="cuda")
+        _, resid = D._forward(x0, w, b, keep_resid=True)
+        timed = _timed(lambda: D.dcn_cross_bwd(x0, w, resid, gr), 50, "dcn_cross_bwd_reduce")
+        timed["reduce_device_ms"] = timed.pop("kernel_device_ms")
+        out["row3_dcn_bwd"].append({"n": n, "F": f, "L": n_layers, **timed})
     for q_n, n in AB_BLOCKMAX_SHAPES:
         u, v = unit(q_n, 128).to(torch.bfloat16), unit(n, 128).to(torch.bfloat16)
         grp = T.blockmax_group_size(n)
@@ -2506,7 +2668,7 @@ def time_kernels(tree: str) -> dict:
 
 
 def ab(parent: str) -> int:
-    """Rows 1, 4, 5, 6, 7 and 8 of ``parent`` (an unpacked checkout of
+    """Rows 1, 3, 4, 5, 6, 7 and 8 of ``parent`` (an unpacked checkout of
     another commit) and of this tree, timed in turns on one card (parent,
     this, this, parent), each in a process of its own: prints one JSON line
     per run and the card's line."""

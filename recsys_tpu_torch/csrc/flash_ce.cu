@@ -47,18 +47,18 @@
 // (fp32 operands must meet a 1e-5 contract, which TF32 tensor cores
 // cannot), bound by the fp32 instruction rate and, where a thread's
 // register tile is small, by shared-memory loads (an SM reads 32 floats
-// of shared memory a clock and retires 128 FMAs). The forward (row 4), the
-// fused backward (row 5) and the dU kernel (row 6) read 128-bit rows of
-// one row-major layout in shared memory into register tiles of 8 x 8 (or
-// 8 x 4) outputs per thread, laid out so that no load meets a bank
-// conflict (grid_col / grid_row, rows padded by 4 or 8 floats): four FMAs
-// per float loaded, the rate at which shared memory keeps the FMA units
-// fed; s_product is their shared logits product. Each holds one 8-warp
-// block of ~170-250 registers a thread per SM. Row 7 (dV, dcol) still
-// takes the first design: 4 x 4 register tiles over scalar loads of a
-// [64][DP + 1] layout (load_tile, tile_dot, tile_pg). What every kernel
-// keeps from the TPU kernels is the memory side: the logits never leave
-// the chip.
+// of shared memory a clock and retires 128 FMAs). Every one of them (the
+// forward, row 4; the fused backward, row 5; the dU kernel, row 6; the dV
+// kernel, row 7) reads 128-bit rows of one row-major layout in shared
+// memory into register tiles of 8 x 8 (or 8 x 4) outputs per thread, laid
+// out so that no load meets a bank conflict (grid_col / grid_row, rows
+// padded by 4 or 8 floats): four FMAs per float loaded, the rate at which
+// shared memory keeps the FMA units fed; s_product is their shared logits
+// product. Each holds one 8-warp block of ~170-250 registers a thread per
+// SM. The dV kernel is the fused kernel without its dU product: both run
+// one candidate-major body (Fp32Cand, bwd_tile_dv, store_dv_dcol). What
+// every kernel keeps from the TPU kernels is the memory side: the logits
+// never leave the chip.
 //
 // Design, and how it departs from the TPU kernels:
 // * Forward, bf16: row 6's tiling (64 query rows a block, 16 a warp, U's A
@@ -89,17 +89,19 @@
 //   into [parts, Bk, D] / [parts, Bk]; the wrapper sums each over its first
 //   axis with torch.sum, as the TPU wrapper sums its dU partials with
 //   jnp.sum. No atomics: two calls give the same bits.
-// * Fused backward, fp32 (the route of fp32 operands under the cap): the
+// * Fused backward, fp32 (the route of fp32 operands at every shape): the
 //   bf16 kernel's plan and partials (grid (n_spans, parts); 64 spans x 4
-//   parts at 8,192^2), over tiles of 128 candidates x 128 query rows (64 x
-//   64 at DP = 256, where 128 would not fit 227 KB of shared memory; the
-//   plan's 64-row query tiles are taken two at a time). The block stages
-//   its candidate tile once; each query tile is copied by cp.async into one
-//   buffer, the next tile's copy running under the dU product. Three
-//   products (S = U V^T, dV += P^T U, dU = P V), P through shared memory
-//   once per (i, j), between the S product and the other two.
-// * Two-kernel backward (every bf16 backward; fp32 where the TPU takes it,
-//   above the cap): the dU kernel's block owns a query tile and sweeps the
+//   parts at 8,192^2), re-split where the FMA kernel's one block per SM
+//   would leave the last wave thin (ops/flash_ce.py::_fp32_waves: 20,000^2
+//   runs 157 spans x 5 parts, not x 1), over tiles of 128 candidates x 128
+//   query rows (64 x 64 at DP = 256, where 128 would not fit 227 KB of
+//   shared memory; the plan's 64-row query tiles are taken two at a time).
+//   The block stages its candidate tile once; each query tile is copied by
+//   cp.async into one buffer, the next tile's copy running under the dU
+//   product. Three products (S = U V^T, dV += P^T U, dU = P V), P through
+//   shared memory once per (i, j), between the S product and the other two.
+// * Two-kernel backward (every bf16 backward; fp32 operands only when
+//   called directly): the dU kernel's block owns a query tile and sweeps the
 //   candidate tiles of its part, keeping its fp32 dU in registers and
 //   writing it once; the dV kernel's block owns a candidate tile and sweeps
 //   the query tiles, keeping dV_j and dcol_j in registers. Nothing crosses
@@ -112,9 +114,14 @@
 //   candidate tiles double-buffered by cp.async, S on 8 x 4 register tiles,
 //   P = exp(S - lse) g (fp32) through shared memory, dU += P V on an 8 x 8
 //   register tile that lives across the sweep (du_plan: 8 parts at
-//   8,192^2, one block per SM); the fp32 dV kernel sweeps every query tile
-//   in one part. The two routes sum in other orders, so they agree within
-//   the stated tolerances, not bit for bit.
+//   8,192^2, one block per SM). The fp32 dV kernel: the fused kernel's
+//   candidate tiles (128, 64 at DP = 256) resident, 64-row query tiles
+//   with their lse, g, ids and positives double-buffered by cp.async, S on
+//   4 x 8 register tiles, P through shared memory, dV on the fused
+//   kernel's 8 x 8 tile across the sweep, dcol in registers (dv_plan: the
+//   query sweep split into parts by waves of one block per SM). The two
+//   routes sum in other orders, so they agree within the stated
+//   tolerances, not bit for bit.
 // * The TPU wrapper asserts that its tiles divide the batch; here rows
 //   past Bq and candidates past Bk are masked, so any Bq, Bk work.
 // * D is padded to DP in {32, 64, 128, 256} with zeros in shared memory;
@@ -134,75 +141,15 @@
 
 namespace {
 
-constexpr int TQ = 64;        // query rows per tile of row 7 (fp32) and of bwd_plan
-constexpr int TK = 64;        // candidate rows per tile of row 7 (fp32)
+constexpr int TQ = 64;        // query rows per tile of bwd_plan's parts
 constexpr int THREADS = 256;  // threads of every fp32 kernel
 constexpr float NEG_BIG = -1e9f;
 constexpr unsigned FULL = 0xffffffffu;
-
-// rows [row0, row0 + 64) of src [n_rows, d] fp32 -> dst [64][DP + 1],
-// zero past n_rows and past d
-template <int DP>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
-                                          int row0, int n_rows, int d) {
-  for (int e = threadIdx.x; e < 64 * DP; e += THREADS) {
-    const int r = e / DP, k = e % DP;
-    const int gr = row0 + r;
-    dst[r * (DP + 1) + k] =
-        (gr < n_rows && k < d) ? src[static_cast<long long>(gr) * d + k] : 0.f;
-  }
-}
-
-// acc[a][b] = A[ty + 16a] . B[tx + 16b] over DP columns (A, B [64][DP + 1])
-template <int DP>
-__device__ __forceinline__ void tile_dot(const float* A, const float* B, int ty, int tx,
-                                         float acc[4][4]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-#pragma unroll 8
-  for (int k = 0; k < DP; ++k) {
-    float x[4], y[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) x[a] = A[(ty + 16 * a) * (DP + 1) + k];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) y[b] = B[(tx + 16 * b) * (DP + 1) + k];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(x[a], y[b], acc[a][b]);
-  }
-}
 
 // the corrected, accidental-masked logit of one (query, candidate) pair
 __device__ __forceinline__ float masked_logit(float dot, float corr, int id_q, int id_k,
                                               int col, int pos) {
   return (id_q == id_k && col != pos) ? NEG_BIG : dot + corr;
-}
-
-// Row 7 of fp32 operands: pg32[a][b] = exp(s - lse) * g for the thread's
-// query rows ty + 16a and candidates tx + 16b of the tile at (q0, k0), 0
-// past bq or bk; the per-row (lse_r, g_r, idq_r, pos_r) and per-column
-// (corr_c, kid_c) values come from the caller
-__device__ __forceinline__ void tile_pg(const float acc[4][4], const float lse_r[4],
-                                        const float g_r[4], const int idq_r[4],
-                                        const int pos_r[4], const float corr_c[4],
-                                        const int kid_c[4], int q0, int k0, int bq,
-                                        int bk, int ty, int tx, float pg32[4][4]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int gc = k0 + tx + 16 * b;
-      float pg = 0.f;
-      if (q0 + ty + 16 * a < bq && gc < bk) {
-        const float x = masked_logit(acc[a][b], corr_c[b], idq_r[a], kid_c[b], gc, pos_r[a]);
-        pg = expf(x - lse_r[a]) * g_r[a];
-      }
-      pg32[a][b] = pg;
-    }
-  }
 }
 
 // ---- the FMA kernels of fp32 operands: their shared pieces -----------------
@@ -299,34 +246,181 @@ __device__ __forceinline__ void stage_candidates(float* Vs, float* cs, int* ks, 
   }
 }
 
-// ---- row 5 in fp32: the fused backward on the FMA units --------------------
+// ---- rows 5 and 7 in fp32: the candidate-major body on the FMA units -------
 
-// The tiling of the fp32 fused backward at padded width DP: candidate
-// tiles of KC and query tiles of TQF rows (128 and 128; 64 and 64 at DP =
-// 256, where 128 would not fit 227 KB of shared memory), and each
-// product's register tile per thread.
-template <int DP>
-struct Fp32Bwd {
+// The tiling of a block that owns KC candidates and sweeps query tiles of
+// TQF rows, at padded width DP (the fp32 fused backward and the fp32 dV
+// kernel): candidate tiles of 128 (64 at DP = 256, where 128 would not fit
+// 227 KB of shared memory beside the query tiles), and the register tile
+// per thread of the S and dV products.
+template <int DP, int TQF_>
+struct Fp32Cand {
+  static constexpr int W = DP;
   static constexpr int KC = DP < 256 ? 128 : 64;
-  static constexpr int TQF = DP < 256 ? 128 : 64;
+  static constexpr int TQF = TQF_;
   static constexpr int LD = DP + 4;   // floats per U and V row in shared memory
   static constexpr int LDP = KC + 8;  // floats per P row
-  // S = U V^T [TQF x KC]: rows sr + 16i, candidates sc + 16j (8 x 8; 4 x 4 at DP = 256)
+  // S = U V^T [TQF x KC]: rows sr + 16i, candidates sc + 16j
   static constexpr int S_RM = TQF / 16, S_RN = KC / 16;
   // dV [KC x DP]: candidates 4 (vc + V_CG a) + e, columns 4 (vf + V_FG t) + e
   static constexpr int V_FG = DP / 4 < 16 ? DP / 4 : 16, V_CG = THREADS / V_FG;
   static constexpr int V_CN = KC / 4 / V_CG, V_FN = DP / 4 / V_FG;
+  static_assert(V_CN * V_CG * 4 == KC && V_FN * V_FG * 4 == DP, "dV tiling");
+  static_assert(16 * KC <= TQF * LDP && TQF <= THREADS, "dcol reduction, row staging");
+};
+
+// Row 5's tiles: query tiles of 128 rows (64 at DP = 256: S 8 x 8, or 4 x
+// 4), one buffer, and the dU product's register tile.
+template <int DP>
+struct Fp32Bwd : Fp32Cand<DP, (DP < 256 ? 128 : 64)> {
+  using C = Fp32Cand<DP, (DP < 256 ? 128 : 64)>;
   // dU [TQF x DP]: rows ur + U_RG i, columns 4 (uf + U_FG t) + e
   static constexpr int U_FG = DP / 4 < 16 ? DP / 4 : 16, U_RG = THREADS / U_FG;
-  static constexpr int U_RM = TQF / U_RG, U_FN = DP / 4 / U_FG;
-  static_assert(V_CN * V_CG * 4 == KC && V_FN * V_FG * 4 == DP, "dV tiling");
-  static_assert(U_RM * U_RG == TQF && U_FN * U_FG * 4 == DP, "dU tiling");
-  static_assert(16 * KC <= TQF * LDP && TQF <= THREADS, "dcol reduction, row staging");
+  static constexpr int U_RM = C::TQF / U_RG, U_FN = DP / 4 / U_FG;
+  static_assert(U_RM * U_RG == C::TQF && U_FN * U_FG * 4 == DP, "dU tiling");
   static constexpr size_t smem() {
-    return sizeof(float) * ((KC + TQF) * LD + TQF * LDP) +
-           TQF * (2 * sizeof(float) + 2 * sizeof(int));
+    return sizeof(float) * ((C::KC + C::TQF) * C::LD + C::TQF * C::LDP) +
+           C::TQF * (2 * sizeof(float) + 2 * sizeof(int));
   }
 };
+
+// Row 7's tiles: query tiles of 64 rows (S 4 x 8, or 4 x 4 at DP = 256),
+// two buffers, so the next tile's copy runs under this tile's products.
+template <int DP>
+struct Fp32Dv : Fp32Cand<DP, 64> {
+  using C = Fp32Cand<DP, 64>;
+  static constexpr size_t smem() {
+    return sizeof(float) * ((C::KC + 2 * C::TQF) * C::LD + C::TQF * C::LDP) +
+           2 * C::TQF * (2 * sizeof(float) + 2 * sizeof(int));
+  }
+};
+
+// The colcorr and ids_k of the thread's candidates sc + 16j of the tile at
+// k0 (0 past bk), and its dcol and dV sums set to 0.
+template <class T>
+__device__ __forceinline__ void begin_candidates(const float* __restrict__ colcorr,
+                                                 const int* __restrict__ ids_k, int k0, int bk,
+                                                 float (&corr)[T::S_RN], int (&kid)[T::S_RN],
+                                                 float (&dcol)[T::S_RN],
+                                                 float (&dv)[4 * T::V_CN][4 * T::V_FN]) {
+  const int sc = grid_col<16>(threadIdx.x);
+#pragma unroll
+  for (int j = 0; j < T::S_RN; ++j) {
+    const int c = k0 + sc + 16 * j;
+    corr[j] = c < bk ? colcorr[c] : 0.f;
+    kid[j] = c < bk ? ids_k[c] : 0;
+    dcol[j] = 0.f;
+  }
+#pragma unroll
+  for (int a = 0; a < 4 * T::V_CN; ++a)
+#pragma unroll
+    for (int b = 0; b < 4 * T::V_FN; ++b) dv[a][b] = 0.f;
+}
+
+// One query tile of rows 5 and 7, the tile's rows Us [TQF][LD] from q0
+// and their lse, g, ids and positives in shared memory, the candidates Vs
+// [KC][LD] from k0:
+//   S = U_i V^T from 128-bit loads of rows along the feature axis (rows sr
+//   + 16i, candidates sc + 16j);
+//   P = exp(S - lse) g (masked_logit, 0 past row_end and past bk) into Ps
+//   [TQF][LDP], fp32 (no rounding, as the plain version of fp32 operands),
+//   its column sums into dcol;
+//   once P is whole, dV += P^T U_i (dV as Fp32Cand lays it out).
+// The caller has made the tile and its rows visible, and every reader of
+// Ps from the tile before done (one __syncthreads covers both).
+template <class T>
+__device__ __forceinline__ void bwd_tile_dv(const float* Us, const float* Vs, float* Ps,
+                                            const float* lse_s, const float* g_s,
+                                            const int* idq_s, const int* pos_s, int q0,
+                                            int row_end, int k0, int bk,
+                                            const float (&corr)[T::S_RN],
+                                            const int (&kid)[T::S_RN], float (&dcol)[T::S_RN],
+                                            float (&dv)[4 * T::V_CN][4 * T::V_FN]) {
+  constexpr int LD = T::LD, LDP = T::LDP;
+  const int tid = threadIdx.x;
+  const int sc = grid_col<16>(tid), sr = grid_row<16>(tid);
+  const int vf = grid_col<T::V_FG>(tid), vc = grid_row<T::V_FG>(tid);
+  float s[T::S_RM][T::S_RN];
+  s_product<T::W, LD, T::S_RM, T::S_RN>(Us, Vs, sr, sc, s);
+#pragma unroll
+  for (int i = 0; i < T::S_RM; ++i) {
+    const int rl = sr + 16 * i;
+    const bool rok = q0 + rl < row_end;
+    const float lse_r = lse_s[rl], g_r = g_s[rl];
+    const int idq_r = idq_s[rl], pos_r = pos_s[rl];
+#pragma unroll
+    for (int j = 0; j < T::S_RN; ++j) {
+      const int cl = sc + 16 * j;
+      float pg = 0.f;
+      if (rok && k0 + cl < bk) {
+        const float x = masked_logit(s[i][j], corr[j], idq_r, kid[j], k0 + cl, pos_r);
+        pg = expf(x - lse_r) * g_r;
+      }
+      dcol[j] += pg;
+      Ps[rl * LDP + cl] = pg;
+    }
+  }
+  __syncthreads();  // P is whole
+
+  // dV[c][k] += sum_r P[r][c] U_i[r][k]
+#pragma unroll 2
+  for (int r = 0; r < T::TQF; ++r) {
+    float4 p[T::V_CN], x[T::V_FN];
+#pragma unroll
+    for (int a = 0; a < T::V_CN; ++a) p[a] = ld4(Ps + r * LDP + 4 * (vc + T::V_CG * a));
+#pragma unroll
+    for (int t = 0; t < T::V_FN; ++t) x[t] = ld4(Us + r * LD + 4 * (vf + T::V_FG * t));
+#pragma unroll
+    for (int a = 0; a < 4 * T::V_CN; ++a)
+#pragma unroll
+      for (int b = 0; b < 4 * T::V_FN; ++b)
+        dv[a][b] = fmaf(comp(p[a / 4], a % 4), comp(x[b / 4], b % 4), dv[a][b]);
+  }
+}
+
+// The candidate tile's dcol (each candidate's sums over the 16 row groups
+// of threads, added in order through Ps) and dV into part `part` of
+// dcol_part [parts, Bk] and dv_part [parts, Bk, D] (16-byte stores where
+// vec). Waits for every reader of Ps first.
+template <class T>
+__device__ __forceinline__ void store_dv_dcol(float* Ps, const float (&dcol)[T::S_RN],
+                                              const float (&dv)[4 * T::V_CN][4 * T::V_FN],
+                                              int k0, int bk, int d, int vec, int part,
+                                              float* __restrict__ dv_part,
+                                              float* __restrict__ dcol_part) {
+  constexpr int KC = T::KC;
+  const int tid = threadIdx.x;
+  const int sc = grid_col<16>(tid), sr = grid_row<16>(tid);
+  const int vf = grid_col<T::V_FG>(tid), vc = grid_row<T::V_FG>(tid);
+  __syncthreads();  // every reader of Ps is done
+#pragma unroll
+  for (int j = 0; j < T::S_RN; ++j) Ps[sr * KC + sc + 16 * j] = dcol[j];
+  __syncthreads();
+  if (tid < KC && k0 + tid < bk) {
+    float x = 0.f;
+#pragma unroll
+    for (int t = 0; t < 16; ++t) x += Ps[t * KC + tid];
+    dcol_part[static_cast<long long>(part) * bk + k0 + tid] = x;
+  }
+#pragma unroll
+  for (int a = 0; a < 4 * T::V_CN; ++a) {
+    const int c = k0 + 4 * (vc + T::V_CG * (a / 4)) + a % 4;
+    if (c >= bk) continue;
+    float* out = dv_part + (static_cast<long long>(part) * bk + c) * d;
+#pragma unroll
+    for (int t = 0; t < T::V_FN; ++t) {
+      const int k = 4 * (vf + T::V_FG * t);
+      if (k >= d) continue;
+      if (vec)
+        *reinterpret_cast<float4*>(out + k) =
+            make_float4(dv[a][4 * t], dv[a][4 * t + 1], dv[a][4 * t + 2], dv[a][4 * t + 3]);
+      else
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k + e < d) out[k + e] = dv[a][4 * t + e];
+    }
+  }
+}
 
 // The fused backward of fp32 operands on the FMA units, on the bf16
 // kernel's plan. Grid (n_spans, parts): block (x, y) owns tiles_per_block
@@ -334,10 +428,8 @@ struct Fp32Bwd {
 // (q_tiles_per_part of the plan's 64-row tiles) TQF rows at a time, each
 // staged by cp.async with its lse, g, ids and positives. Per (query tile
 // i, candidate tile j), 256 threads:
-//   S = U_i V_j^T from 128-bit loads of rows along the feature axis;
-//   P = exp(S - lse) g (masked_logit, 0 past the part and past Bk) into
-//   shared memory, its fp32 column sums into dcol;
-//   dV_j += P^T U_i, held in registers over the sweep;
+//   S, P (its column sums into dcol) and dV_j += P^T U_i, held in
+//   registers over the sweep (bwd_tile_dv);
 //   the next query tile's copy starts, over U_i's buffer;
 //   dU_ij = P V_j, written to du_part[x] (the first tile writes, later
 //   ones add: same thread, fixed order).
@@ -362,8 +454,6 @@ __global__ void __launch_bounds__(THREADS, 1) flash_ce_bwd_kernel(
   int* pos_s = idq_s + TQF;                            // [TQF]
 
   const int tid = threadIdx.x;
-  const int sc = grid_col<16>(tid), sr = grid_row<16>(tid);
-  const int vf = grid_col<T::V_FG>(tid), vc = grid_row<T::V_FG>(tid);
   const int uf = grid_col<T::U_FG>(tid), ur = grid_row<T::U_FG>(tid);
   const int row_begin = blockIdx.y * q_tiles_per_part * TQ;  // the part's query rows
   const int row_end = min(bq, row_begin + q_tiles_per_part * TQ);
@@ -392,62 +482,14 @@ __global__ void __launch_bounds__(THREADS, 1) flash_ce_bwd_kernel(
     cp_async_commit();
     float corr[T::S_RN], dcol_acc[T::S_RN];
     int kid[T::S_RN];
-#pragma unroll
-    for (int j = 0; j < T::S_RN; ++j) {
-      const int c = k0 + sc + 16 * j;
-      corr[j] = c < bk ? colcorr[c] : 0.f;
-      kid[j] = c < bk ? ids_k[c] : 0;
-      dcol_acc[j] = 0.f;
-    }
     float dv[4 * T::V_CN][4 * T::V_FN];
-#pragma unroll
-    for (int a = 0; a < 4 * T::V_CN; ++a)
-#pragma unroll
-      for (int b = 0; b < 4 * T::V_FN; ++b) dv[a][b] = 0.f;
+    begin_candidates<T>(colcorr, ids_k, k0, bk, corr, kid, dcol_acc, dv);
 
     for (int q0 = row_begin; q0 < row_end; q0 += TQF) {
       cp_async_wait_all();
       __syncthreads();  // the tile and its rows have landed; Ps's readers are done
-
-      // S[r][c] = U_i[r] . V_j[c]: rows sr + 16i, candidates sc + 16j
-      float s[T::S_RM][T::S_RN];
-      s_product<DP, LD, T::S_RM, T::S_RN>(Us, Vs, sr, sc, s);
-
-      // P = exp(S - lse) g into shared memory (fp32: no rounding); dcol
-#pragma unroll
-      for (int i = 0; i < T::S_RM; ++i) {
-        const int rl = sr + 16 * i;
-        const bool rok = q0 + rl < row_end;
-        const float lse_r = lse_s[rl], g_r = g_s[rl];
-        const int idq_r = idq_s[rl], pos_r = pos_s[rl];
-#pragma unroll
-        for (int j = 0; j < T::S_RN; ++j) {
-          const int cl = sc + 16 * j;
-          float pg = 0.f;
-          if (rok && k0 + cl < bk) {
-            const float x = masked_logit(s[i][j], corr[j], idq_r, kid[j], k0 + cl, pos_r);
-            pg = expf(x - lse_r) * g_r;
-          }
-          dcol_acc[j] += pg;
-          Ps[rl * LDP + cl] = pg;
-        }
-      }
-      __syncthreads();  // P is whole
-
-      // dV_j[c][k] += sum_r P[r][c] U_i[r][k]
-#pragma unroll 2
-      for (int r = 0; r < TQF; ++r) {
-        float4 p[T::V_CN], x[T::V_FN];
-#pragma unroll
-        for (int a = 0; a < T::V_CN; ++a) p[a] = ld4(Ps + r * LDP + 4 * (vc + T::V_CG * a));
-#pragma unroll
-        for (int t = 0; t < T::V_FN; ++t) x[t] = ld4(Us + r * LD + 4 * (vf + T::V_FG * t));
-#pragma unroll
-        for (int a = 0; a < 4 * T::V_CN; ++a)
-#pragma unroll
-          for (int b = 0; b < 4 * T::V_FN; ++b)
-            dv[a][b] = fmaf(comp(p[a / 4], a % 4), comp(x[b / 4], b % 4), dv[a][b]);
-      }
+      bwd_tile_dv<T>(Us, Vs, Ps, lse_s, g_s, idq_s, pos_s, q0, row_end, k0, bk, corr, kid,
+                     dcol_acc, dv);
       __syncthreads();  // everyone is done with Us and the rows: the next tile's copy
       if (q0 + TQF < row_end) stage_query_tile(q0 + TQF);
       cp_async_commit();
@@ -503,37 +545,75 @@ __global__ void __launch_bounds__(THREADS, 1) flash_ce_bwd_kernel(
       }
     }
     cp_async_wait_all();  // no copy may outlive the tile
-
-    // dcol: each candidate's sums over the 16 row groups, added in order
-    __syncthreads();  // every reader of Ps is done
-#pragma unroll
-    for (int j = 0; j < T::S_RN; ++j) Ps[sr * KC + sc + 16 * j] = dcol_acc[j];
-    __syncthreads();
-    if (tid < KC && k0 + tid < bk) {
-      float x = 0.f;
-#pragma unroll
-      for (int t = 0; t < 16; ++t) x += Ps[t * KC + tid];
-      dcol_part[static_cast<long long>(blockIdx.y) * bk + k0 + tid] = x;
-    }
-#pragma unroll
-    for (int a = 0; a < 4 * T::V_CN; ++a) {
-      const int c = k0 + 4 * (vc + T::V_CG * (a / 4)) + a % 4;
-      if (c >= bk) continue;
-      float* out = dv_part + (static_cast<long long>(blockIdx.y) * bk + c) * d;
-#pragma unroll
-      for (int t = 0; t < T::V_FN; ++t) {
-        const int k = 4 * (vf + T::V_FG * t);
-        if (k >= d) continue;
-        if (vec)
-          *reinterpret_cast<float4*>(out + k) =
-              make_float4(dv[a][4 * t], dv[a][4 * t + 1], dv[a][4 * t + 2], dv[a][4 * t + 3]);
-        else
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (k + e < d) out[k + e] = dv[a][4 * t + e];
-      }
-    }
+    store_dv_dcol<T>(Ps, dcol_acc, dv, k0, bk, d, vec, blockIdx.y, dv_part, dcol_part);
   }
+}
+
+// Row 7 of fp32 operands on the FMA units (_bwd_dv_kernel): the fused
+// kernel without its dU product. Grid (candidate tiles, parts): block (x,
+// y) holds candidate tile x (KC rows) in shared memory and sweeps the query
+// rows of part y (q_tiles_per_part tiles of TQF = 64 rows), each tile
+// staged with its lse, g, ids and positives by cp.async into one of two
+// buffers while the other computes. Per query tile, 256 threads run
+// bwd_tile_dv: S, P (its column sums into dcol) and dV += P^T U_i, dV and
+// dcol held in registers over the sweep and written once into dv_part[y]
+// ([parts, Bk, D]) and dcol_part[y] ([parts, Bk]); the wrapper sums the
+// parts in a fixed order, or takes dV and dcol themselves with one part.
+// No atomics: two calls give the same bits.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1) flash_ce_bwd_dv_kernel(
+    const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ colcorr,
+    const int* __restrict__ ids_q, const int* __restrict__ ids_k, const int* __restrict__ pos,
+    const float* __restrict__ lse, const float* __restrict__ g, int bq, int bk, int d, int vec,
+    int q_tiles_per_part, float* __restrict__ dv_part, float* __restrict__ dcol_part) {
+  using T = Fp32Dv<DP>;
+  constexpr int KC = T::KC, TQF = T::TQF, LD = T::LD, LDP = T::LDP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Vs = reinterpret_cast<float*>(smem_raw);     // [KC][LD] the block's candidates
+  float* Us = Vs + KC * LD;                            // [2][TQF][LD] query tiles
+  float* Ps = Us + 2 * TQF * LD;                       // [TQF][LDP] p*g of the tile
+  float* lse_s = Ps + TQF * LDP;                       // [2][TQF]
+  float* g_s = lse_s + 2 * TQF;                        // [2][TQF]
+  int* idq_s = reinterpret_cast<int*>(g_s + 2 * TQF); // [2][TQF]
+  int* pos_s = idq_s + 2 * TQF;                        // [2][TQF]
+
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * KC;
+  const int row_begin = blockIdx.y * q_tiles_per_part * TQF;  // the part's query rows
+  const int row_end = min(bq, row_begin + q_tiles_per_part * TQF);
+
+  auto stage_query_tile = [&](int buf, int q0) {
+    stage_rows_f32<DP, THREADS>(Us + buf * TQF * LD, LD, u, q0, row_end, TQF, d, vec != 0);
+    if (tid < TQF) {
+      const int r = q0 + tid, at = buf * TQF + tid;
+      const bool ok = r < row_end;
+      lse_s[at] = ok ? lse[r] : 0.f;
+      g_s[at] = ok ? g[r] : 0.f;
+      idq_s[at] = ok ? ids_q[r] : 0;
+      pos_s[at] = ok ? pos[r] : -1;
+    }
+  };
+
+  stage_rows_f32<DP, THREADS>(Vs, LD, v, k0, bk, KC, d, vec != 0);
+  if (row_begin < row_end) stage_query_tile(0, row_begin);
+  cp_async_commit();
+  float corr[T::S_RN], dcol_acc[T::S_RN];
+  int kid[T::S_RN];
+  float dv[4 * T::V_CN][4 * T::V_FN];
+  begin_candidates<T>(colcorr, ids_k, k0, bk, corr, kid, dcol_acc, dv);
+
+  for (int q0 = row_begin, it = 0; q0 < row_end; q0 += TQF, ++it) {
+    const int buf = it & 1;
+    cp_async_wait_all();
+    __syncthreads();  // this tile has landed; everyone is done with the other buffer and Ps
+    if (q0 + TQF < row_end) stage_query_tile(buf ^ 1, q0 + TQF);
+    cp_async_commit();
+    bwd_tile_dv<T>(Us + buf * TQF * LD, Vs, Ps, lse_s + buf * TQF, g_s + buf * TQF,
+                   idq_s + buf * TQF, pos_s + buf * TQF, q0, row_end, k0, bk, corr, kid,
+                   dcol_acc, dv);
+  }
+  cp_async_wait_all();  // no copy may outlive the block
+  store_dv_dcol<T>(Ps, dcol_acc, dv, k0, bk, d, vec, blockIdx.y, dv_part, dcol_part);
 }
 
 // ---- row 6 in fp32: the dU kernel on the FMA units -------------------------
@@ -1112,7 +1192,7 @@ constexpr size_t bwd_du_tc_smem() {
 // query rows 16w..16w+15: their A fragments of U are loaded once and kept
 // in registers; per 64-candidate tile (cp.async, double-buffered):
 //   S = U_w V_j^T [16 x 64] with fp32 sums;
-//   P = bf16(exp(S - lse) g) as tile_pg makes it, packed straight into
+//   P = bf16(exp(S - lse) g) from masked_logit, packed straight into
 //   the A fragments of the next product (an m16n8 accumulator pair is an
 //   m16k16 A fragment: FlashAttention-2's register identity);
 //   dU_w += P V_j [16 x DN], V_j read with ldmatrix.trans.
@@ -1288,7 +1368,7 @@ constexpr size_t bwd_dv_tc_smem() {
 // in registers; per 64-row query tile (cp.async, double-buffered, with its
 // lse, g, ids and positives):
 //   S^T = V_w U_i^T [16 x 64] with fp32 sums;
-//   P^T = bf16(exp(S - lse) g) as tile_pg makes it, packed straight into
+//   P^T = bf16(exp(S - lse) g) from masked_logit, packed straight into
 //   the A fragments of the next product; the fp32 p*g into dcol;
 //   dV_w += P^T U_i [16 x DN], U_i read with ldmatrix.trans.
 // dV and dcol stay in fp32 registers over the sweep and are written once,
@@ -1642,120 +1722,6 @@ __global__ void flash_ce_fwd_combine_kernel(const float* __restrict__ part, int 
   pos_out[r] = pl;
 }
 
-template <int DP>
-constexpr size_t bwd_dv_smem() {
-  return sizeof(float) * ((TQ + TK) * (DP + 1) + TQ * (TK + 1) + 16 * TK) +
-         (2 * sizeof(float) + 2 * sizeof(int)) * TQ;
-}
-
-// Row 7 of fp32 operands on the FMA units: dV = sum_i pg^T U_i and dcol =
-// sum_i pg, candidate-major (_bwd_dv_kernel).
-template <int DP>
-__global__ void __launch_bounds__(THREADS) flash_ce_bwd_dv_kernel(
-    const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ colcorr,
-    const int* __restrict__ ids_q, const int* __restrict__ ids_k,
-    const int* __restrict__ pos, const float* __restrict__ lse,
-    const float* __restrict__ g, int bq, int bk, int d, float* __restrict__ dv,
-    float* __restrict__ dcol) {
-  constexpr int NB = DP / 16;
-  extern __shared__ float smem[];
-  float* Vs = smem;                       // [TK][DP + 1] this block's candidates
-  float* Us = Vs + TK * (DP + 1);         // [TQ][DP + 1] current query tile
-  float* Ps = Us + TQ * (DP + 1);         // [TQ][TK + 1] round(pg) of the tile
-  float* red = Ps + TQ * (TK + 1);        // [16][TK] dcol reduction
-  float* lse_s = red + 16 * TK;           // [TQ]
-  float* g_s = lse_s + TQ;                // [TQ]
-  int* idq_s = reinterpret_cast<int*>(g_s + TQ);  // [TQ]
-  int* pos_s = idq_s + TQ;                // [TQ]
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * TK;
-  load_tile<DP>(Vs, v, k0, bk, d);
-  float corr_c[4], dcol_acc[4];
-  int kid_c[4];
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int gc = k0 + tx + 16 * b;
-    corr_c[b] = gc < bk ? colcorr[gc] : 0.f;
-    kid_c[b] = gc < bk ? ids_k[gc] : 0;
-    dcol_acc[b] = 0.f;
-  }
-  // dv_acc[a][b]: dV of candidate ty + 16a, column tx + 16b
-  float dv_acc[4][NB];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < NB; ++b) dv_acc[a][b] = 0.f;
-
-  for (int q0 = 0; q0 < bq; q0 += TQ) {
-    __syncthreads();  // the previous query tile's readers are done
-    load_tile<DP>(Us, u, q0, bq, d);
-    if (tid < TQ) {
-      const int r = q0 + tid;
-      const bool ok = r < bq;
-      lse_s[tid] = ok ? lse[r] : 0.f;
-      g_s[tid] = ok ? g[r] : 0.f;
-      idq_s[tid] = ok ? ids_q[r] : 0;
-      pos_s[tid] = ok ? pos[r] : -1;
-    }
-    __syncthreads();
-    float acc[4][4], lse_r[4], g_r[4], pg32[4][4];
-    int idq_r[4], pos_r[4];
-    tile_dot<DP>(Us, Vs, ty, tx, acc);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty + 16 * a;
-      lse_r[a] = lse_s[r];
-      g_r[a] = g_s[r];
-      idq_r[a] = idq_s[r];
-      pos_r[a] = pos_s[r];
-    }
-    tile_pg(acc, lse_r, g_r, idq_r, pos_r, corr_c, kid_c, q0, k0, bq, bk, ty, tx, pg32);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        dcol_acc[b] += pg32[a][b];
-        Ps[(ty + 16 * a) * (TK + 1) + tx + 16 * b] = pg32[a][b];
-      }
-    __syncthreads();
-    // dV[c][k] += sum_r P[r][c] U[r][k]  (c = ty + 16a, k = tx + 16b)
-#pragma unroll 4
-    for (int r = 0; r < TQ; ++r) {
-      float pt[4], uu[NB];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pt[a] = Ps[r * (TK + 1) + ty + 16 * a];
-#pragma unroll
-      for (int b = 0; b < NB; ++b) uu[b] = Us[r * (DP + 1) + tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < NB; ++b) dv_acc[a][b] = fmaf(pt[a], uu[b], dv_acc[a][b]);
-    }
-  }
-
-  // dcol: each column's 16 per-thread sums (one per ty), added in order
-#pragma unroll
-  for (int b = 0; b < 4; ++b) red[ty * TK + tx + 16 * b] = dcol_acc[b];
-  __syncthreads();
-  if (tid < TK && k0 + tid < bk) {
-    float s = 0.f;
-    for (int t = 0; t < 16; ++t) s += red[t * TK + tid];
-    dcol[k0 + tid] = s;
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int gc = k0 + ty + 16 * a;
-    if (gc < bk) {
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const int k = tx + 16 * b;
-        if (k < d) dv[static_cast<long long>(gc) * d + k] = dv_acc[a][b];
-      }
-    }
-  }
-}
-
 // f(std::integral_constant<int, DP>{}) at the padded width DP of d
 template <typename F>
 int by_width(int d, F&& f) {
@@ -1896,26 +1862,29 @@ extern "C" int flash_ce_bwd_du(const void* u, const void* v, const float* colcor
 
 // As flash_ce_bwd, with row 7's plan; out dv_part [parts, bk, d] and
 // dcol_part [parts, bk] fp32, the wrapper summing each over its first axis
-// (dV and dcol themselves when parts == 1). bf16 operands take the
-// tensor-core kernel: the query tiles of 64 split into parts of
-// q_tiles_per_part (vec as above); fp32 operands the FMA kernel (parts ==
-// 1). Returns the cudaError_t of the launch.
+// (dV and dcol themselves when parts == 1). The query tiles of 64 split
+// into parts of q_tiles_per_part (vec as in flash_ce_fwd); bf16 operands
+// take the tensor-core kernel (64-candidate blocks), fp32 operands the FMA
+// kernel (128-candidate blocks, 64 where d > 128). Returns the cudaError_t
+// of the launch.
 extern "C" int flash_ce_bwd_dv(const void* u, const void* v, const float* colcorr,
                                const int* ids_q, const int* ids_k, const int* pos,
                                const float* lse, const float* g, int bq, int bk, int d,
                                int bf16, int parts, int q_tiles_per_part, int vec,
                                float* dv_part, float* dcol_part, void* stream) {
   if (bk <= 0) return 0;
-  if (bq <= 0 || d <= 0 || parts <= 0 || q_tiles_per_part <= 0 || (!bf16 && parts != 1) ||
+  if (bq <= 0 || d <= 0 || parts <= 0 || q_tiles_per_part <= 0 ||
       static_cast<long long>(parts) * q_tiles_per_part * DV_TQ < bq)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!bf16)
     return by_width(d, [&](auto w) {
       constexpr int DP = decltype(w)::value;
-      return launch(flash_ce_bwd_dv_kernel<DP>, dim3((bk + TK - 1) / TK), THREADS,
-                    bwd_dv_smem<DP>(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, lse, g,
-                    bq, bk, d, dv_part, dcol_part);
+      using T = Fp32Dv<DP>;
+      static_assert(T::TQF == DV_TQ, "row 7's query tiles, of both kernels");
+      return launch(flash_ce_bwd_dv_kernel<DP>, dim3((bk + T::KC - 1) / T::KC, parts), THREADS,
+                    T::smem(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, lse, g, bq, bk,
+                    d, vec, q_tiles_per_part, dv_part, dcol_part);
     });
   return by_width(d, [&](auto w) {
     constexpr int DP = decltype(w)::value;

@@ -13,18 +13,43 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from recsys_tpu_torch.ops import _build
 
 MAX_FEATURES = 1024  # the kernels keep F/32 <= 32 values per lane in registers
-# the backward kernel's 8 warps each keep dw and db ([L, F] fp32) in
-# shared memory: 64 * L * F bytes, at most what one block may have
+# the backward kernels' 8 warps each hand dw and db ([L, F] fp32) to the
+# block's sum through shared memory: 64 * L * F bytes, at most what one
+# block may have
 _BWD_WARPS = 8
 MAX_BWD_SHARED_BYTES = 232_448
-_BWD_BLOCKS_PER_SM = 2
+_BWD_BLOCKS_PER_SM = 2  # the shared-memory kernel's blocks per SM
+# the backward keeps each lane's columns of dw and db in registers up to
+# this many layers and features (2 L F / 32 floats a lane), else in shared
+# memory
+MAX_REG_LAYERS = 4
+MAX_REG_FEATURES = 256
+
+
+class DcnBwdPlan(NamedTuple):
+    """How the backward runs: dw and db in registers (``registers``) or in
+    shared memory, over ``n_blocks`` blocks of 8 warps (one row a warp at a
+    time), whose partials a second kernel adds."""
+    registers: bool
+    n_blocks: int
+
+
+def bwd_plan(n: int, f: int, n_layers: int, n_sm: int) -> DcnBwdPlan:
+    """The backward's plan on a card of ``n_sm`` SMs: the register kernel
+    (one block per SM: two rows of registers a warp) where L <=
+    ``MAX_REG_LAYERS`` and F <= ``MAX_REG_FEATURES`` (the flagship's 3 x
+    256), else the shared-memory one (``_BWD_BLOCKS_PER_SM`` per SM); as
+    many blocks as the rows need, at most those."""
+    registers = n_layers <= MAX_REG_LAYERS and f <= MAX_REG_FEATURES
+    per_sm = 1 if registers else _BWD_BLOCKS_PER_SM
+    return DcnBwdPlan(registers, max(1, min(-(-n // _BWD_WARPS), per_sm * n_sm)))
 
 
 def dcn_cross_reference(x0: torch.Tensor, w: torch.Tensor,
@@ -86,7 +111,7 @@ def _fwd_launcher():
 @functools.lru_cache(maxsize=None)
 def _bwd_launcher():
     fn = _build.load_library().dcn_cross_bwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -138,7 +163,8 @@ def dcn_cross_bwd(x0: torch.Tensor, w: torch.Tensor, resid: torch.Tensor,
     forward's saved layer inputs), g [n, F] -> (dx0, dw, db), all fp32.
 
     CPU tensors take :func:`dcn_cross_bwd_reference`; CUDA tensors launch
-    the backward kernel and its partial-sum reduction or raise."""
+    the backward kernel of :func:`bwd_plan` and its partial-sum reduction
+    or raise."""
     if x0.device.type == "cpu":
         return dcn_cross_bwd_reference(x0, w, resid, g)
     if x0.device.type != "cuda":
@@ -160,16 +186,17 @@ def dcn_cross_bwd(x0: torch.Tensor, w: torch.Tensor, resid: torch.Tensor,
     if n == 0 or n_layers == 0:
         return torch.zeros_like(x0) + g, torch.zeros_like(w), torch.zeros_like(w)
     x0, w, resid, g = x0.contiguous(), w.contiguous(), resid.contiguous(), g.contiguous()
-    n_blocks = min(-(-n // _BWD_WARPS), _BWD_BLOCKS_PER_SM * _sm_count(x0.device.index))
+    plan = bwd_plan(n, f, n_layers, _sm_count(x0.device.index))
     dx0 = torch.empty_like(x0)
-    part = torch.empty((n_blocks, 2, n_layers, f), dtype=torch.float32, device=x0.device)
+    part = torch.empty((plan.n_blocks, 2, n_layers, f), dtype=torch.float32, device=x0.device)
     dw = torch.empty_like(w)
     db = torch.empty_like(w)
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_launcher()(x0.data_ptr(), w.data_ptr(), resid.data_ptr(), g.data_ptr(),
                               dx0.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                              db.data_ptr(), n, f, n_layers, n_blocks, stream)
+                              db.data_ptr(), n, f, n_layers, plan.n_blocks,
+                              int(plan.registers), stream)
     if err != 0:
         raise RuntimeError(f"dcn_cross_bwd kernel launch failed: cudaError {err}")
     dcn_cross_bwd.launches += 1

@@ -13,12 +13,13 @@ never write the [Bq, Bk] logits; the plain versions (``*_reference``)
 form them ~1 GiB of query rows at a time, and the wrappers run them only
 for CPU tensors.
 
-The backward (:func:`bwd_route`) of fp32 operands takes the TPU
-package's route: the fused kernel while the TPU's dU partials fit
-``_FUSED_BWD_PARTIALS_CAP``, else the two-kernel backward (a query-major
-dU kernel and a candidate-major dV/dcol kernel, each recomputing the
-logits). bf16 operands take the two-kernel backward at every shape, which
-on the H100's tensor cores beat the fused kernel on both sides of the cap.
+The backward (:func:`bwd_route`) is set on H100 measurements, not by the
+TPU package's partials cap: bf16 operands take the two-kernel backward (a
+query-major dU kernel and a candidate-major dV/dcol kernel, each
+recomputing the logits), which on the tensor cores beat the fused kernel
+at every shape timed; fp32 operands take the fused kernel, which on the
+FMA units beat the two kernels at every shape timed (it does 6 Bq Bk D
+products against their 8).
 What differs from the TPU kernels: the tiles need not divide the batch
 (ragged rows and candidates are masked).
 """
@@ -34,14 +35,14 @@ import torch
 from recsys_tpu_torch.ops import _build
 
 NEG_BIG = -1e9
-# tile sizes of csrc/flash_ce.cu (TQ, TK: query and candidate rows per
-# tile of row 7 of fp32 operands, TQ also the query tile that the fused
+# tile sizes of csrc/flash_ce.cu (TQ: the query tile that the fused
 # backward's plan counts; the fused backward takes candidate tiles of TKC,
-# or of TK for fp32 operands at D > 128; rows 4 and 6 of bf16 operands
-# query tiles of DU_TQ and candidate tiles of DU_TK, row 7 of bf16
-# operands candidate tiles of DV_TK and query tiles of DV_TQ; rows 4 and 6
-# of fp32 operands query blocks of F32_TQ rows (64 at D > 128) and
-# candidate tiles of F32_FWD_TK (row 4; 64 at D > 128) and DU_TK (row 6))
+# or of TK for fp32 operands at D > 128, and so does row 7 of fp32
+# operands, with query tiles of DV_TQ; rows 4 and 6 of bf16 operands query
+# tiles of DU_TQ and candidate tiles of DU_TK, row 7 of bf16 operands
+# candidate tiles of DV_TK and query tiles of DV_TQ; rows 4 and 6 of fp32
+# operands query blocks of F32_TQ rows (64 at D > 128) and candidate tiles
+# of F32_FWD_TK (row 4; 64 at D > 128) and DU_TK (row 6))
 TQ = 64
 TK = 64
 TKC = 128
@@ -58,12 +59,13 @@ MAX_DIM = 256
 _SWEEP_BLOCKS_PER_SM = 8
 # The TPU package's fused backward keeps one dU partial per candidate
 # tile of its own tiling (_tiles); above this many bytes of them
-# ([Bk // tk, Bq, D] fp32) it switches to its two-kernel backward, and so
-# does the port for fp32 operands (bwd_route): at D = 128 the square batch
-# reaches it above ~139k rows when 2,048 divides it, far earlier when only
-# a small tile does. The port's own partials (bwd_plan, du_plan, dv_plan,
-# fwd_plan) never exceed the cap either. The value is the JAX package's,
-# set from a TPU v5e measurement; bf16 operands no longer route by it.
+# ([Bk // tk, Bq, D] fp32) it switches to its two-kernel backward: at D =
+# 128 the square batch reaches it above ~139k rows when 2,048 divides it,
+# far earlier when only a small tile does (fused_bwd_partials_bytes counts
+# them, for parity). The port's backward routes by H100 measurements
+# instead (bwd_route), and the port's own partials (bwd_plan, du_plan,
+# dv_plan, fwd_plan) never exceed the cap. The value is the JAX package's,
+# set from a TPU v5e measurement.
 _FUSED_BWD_PARTIALS_CAP = int(4.5 * 1024**3)
 # the TPU's preferred (query, candidate) tiles, copied to count its partials
 _TQ_PREF = 1024
@@ -379,24 +381,27 @@ def fused_bwd_partials_bytes(bq: int, bk: int, d: int) -> int:
 
 
 def bwd_route(bq: int, bk: int, d: int, bf16: bool = False) -> str:
-    """The backward taken at this shape: ``"fused"`` (row 5) or
-    ``"twokernel"`` (rows 6 and 7).
+    """The backward taken at this shape on the H100: ``"fused"`` (row 5)
+    or ``"twokernel"`` (rows 6 and 7), whatever the TPU package takes
+    (:func:`fused_bwd_partials_bytes` against the cap); the port's own
+    partials stay under the cap on either route.
 
-    fp32 operands take the TPU package's route: the fused kernel while its
-    dU partials fit ``_FUSED_BWD_PARTIALS_CAP``, else the two-kernel one.
+    Both from ``chip_smoke.py``'s route tables (bf16 and fp32 measured in
+    separate runs), D = 128, NVIDIA H100 80GB HBM3 at 700 W, ms two-kernel
+    / fused, each the slower of two runs in turns (the spread below 3%).
     bf16 operands take the two-kernel route at every shape: on the tensor
-    cores it won at every shape timed, under the TPU's cap and above it, by
-    far more than the run-to-run spread, with a fraction of the fused
-    kernel's memory (``chip_smoke.py``'s route table, D = 128, NVIDIA H100
-    80GB HBM3 at 700 W; ms two-kernel / fused, each the slower of two runs).
-    Under the cap: 4,096 x 20,480 0.608 / 1.016, 8,192^2 0.473 / 0.591,
-    16,384^2 1.846 / 2.261, 32,768^2 6.130 / 8.680, 131,072 x 147,456
-    (at the cap) 111.7 / 264.1; above it: 20,000^2 2.734 / 4.847, 65,536 x
-    327,680 123.0 / 409.6, 131,072 x 262,144 201.0 / 401.2."""
-    if bf16:
-        return "twokernel"
-    return ("fused" if fused_bwd_partials_bytes(bq, bk, d) <= _FUSED_BWD_PARTIALS_CAP
-            else "twokernel")
+    cores it won everywhere, with a fraction of the fused kernel's memory. Under the TPU's cap: 4,096 x 20,480
+    0.608 / 1.016, 8,192^2 0.473 / 0.591, 16,384^2 1.846 / 2.261,
+    32,768^2 6.130 / 8.680, 131,072 x 147,456 (at the cap) 111.7 / 264.1;
+    above it: 20,000^2 2.734 / 4.847, 65,536 x 327,680 123.0 / 409.6,
+    131,072 x 262,144 201.0 / 401.2. fp32 operands take the fused route at
+    every shape: on the FMA units it won everywhere by 23-38%, also where
+    the TPU takes its two kernels (its peak memory 0.3-5.0 GB against
+    0.04-0.2). Under the TPU's cap: 4,096 x 20,480 2.509 / 1.902, 8,192^2
+    2.126 / 1.550, 16,384^2 8.256 / 5.991, 32,768^2 32.86 / 23.77,
+    131,072 x 147,456 591.5 / 455.4; above it: 20,000^2 12.16 / 8.855,
+    65,536 x 327,680 657.7 / 505.1, 131,072 x 262,144 1,052.3 / 853.8."""
+    return "twokernel" if bf16 else "fused"
 
 
 class BwdPlan(NamedTuple):
@@ -426,7 +431,8 @@ def bwd_plan(bq: int, bk: int, d: int, bf16: bool, n_sm: int) -> BwdPlan:
     ``_FUSED_BWD_PARTIALS_CAP``, else the fewest that keep them under it;
     the query sweep split into enough parts that the grid holds about two
     blocks per SM (8,192^2 at D = 128: 64 spans x 4 parts); no part is
-    empty."""
+    empty. The FMA kernel holds one block per SM, so for fp32 operands
+    :func:`_fp32_waves` then looks for a split that ends sooner."""
     tile = TK if not bf16 and d > 128 else TKC
     n_qt = -(-bq // TQ)
     n_tiles = -(-bk // tile)
@@ -439,12 +445,46 @@ def bwd_plan(bq: int, bk: int, d: int, bf16: bool, n_sm: int) -> BwdPlan:
         n_spans = -(-n_tiles // tpb)
         p = with_parts(n_spans, (2 * n_sm) // n_spans)
         if p.partials_bytes(bq, bk, d) <= _FUSED_BWD_PARTIALS_CAP:
-            return p
+            break
         if tpb >= n_tiles:  # one span: as many query parts as still fit
             while p.parts > 1 and p.partials_bytes(bq, bk, d) > _FUSED_BWD_PARTIALS_CAP:
                 p = with_parts(n_spans, p.parts - 1)
-            return p
+            break
         tpb += 1
+    return p if bf16 else _fp32_waves(p, bq, bk, d, n_sm)
+
+
+def _fp32_waves(p: BwdPlan, bq: int, bk: int, d: int, n_sm: int) -> BwdPlan:
+    """The fp32 fused kernel's plan: ``p``, unless another split of the
+    candidate tiles into spans (up to 4 times as many tiles a block) and of
+    the query sweep into parts ends its last wave at least 10% sooner,
+    counted as waves of one block per SM x candidate tiles a block x the
+    kernel's query tiles (128 rows, 64 at D > 128) a part, with at most 8
+    blocks per SM and the partials under ``_FUSED_BWD_PARTIALS_CAP``; the
+    count leaves out the partials' sums and each block's staging, so a
+    smaller gain keeps ``p``. Of the splits that qualify, the soonest, then
+    the fewest parts and tiles a block. At D = 128: 20,000^2 goes from 157
+    spans in 1 part (2 waves of 157 query tiles) to 5 parts (6 waves of
+    32); 8,192^2 keeps 64 spans x 4 parts."""
+    step = 2 if d <= 128 else 1  # the kernel's query tile in the plan's 64-row tiles
+    n_qt = -(-bq // TQ)
+    n_tiles = -(-bk // p.tile)
+
+    def cost(q: BwdPlan) -> int:
+        return -(-q.n_spans * q.parts // n_sm) * q.tiles_per_block * -(-q.q_tiles_per_part // step)
+
+    best, best_cost = p, cost(p)
+    for tpb in range(p.tiles_per_block, min(n_tiles, 4 * p.tiles_per_block) + 1):
+        n_spans = -(-n_tiles // tpb)
+        for parts in range(1, min(-(-n_qt // step), 8 * n_sm // n_spans) + 1):
+            qpp = step * -(-n_qt // (step * parts))
+            q = BwdPlan(p.tile, tpb, -(-n_qt // qpp), qpp, n_spans)
+            if (10 * cost(q) <= 9 * cost(p)
+                    and q.partials_bytes(bq, bk, d) <= _FUSED_BWD_PARTIALS_CAP
+                    and (best is p or (cost(q), q.parts, tpb)
+                         < (best_cost, best.parts, best.tiles_per_block))):
+                best, best_cost = q, cost(q)
+    return best
 
 
 def sum_partials(du_part: torch.Tensor, dv_part: torch.Tensor, dcol_part: torch.Tensor
@@ -505,10 +545,9 @@ def _ptrs(args) -> list:
 
 
 def _vec(u, v) -> int:
-    """1 where the kernels that stage by ``cp.async`` (all but row 7 of
-    fp32 operands) may copy u and v rows 16 bytes at a time (D a multiple
-    of 8 bf16 or 4 fp32 values, both starting on 16 bytes), else 0: they
-    then copy element by element."""
+    """1 where the kernels, which stage by ``cp.async``, may copy u and v
+    rows 16 bytes at a time (D a multiple of 8 bf16 or 4 fp32 values, both
+    starting on 16 bytes), else 0: they then copy element by element."""
     return int(u.shape[1] % (16 // u.element_size()) == 0
                and u.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
 
@@ -641,19 +680,23 @@ class DvPlan(NamedTuple):
 
 
 def dv_plan(bq: int, bk: int, d: int, bf16: bool, n_sm: int) -> DvPlan:
-    """Row 7's tiling on a card of ``n_sm`` SMs. bf16 operands (the
-    tensor-core kernel): 64-candidate tiles, 64-row query tiles, and the
-    query sweep split into as many parts as bring the grid to about
-    ``_SWEEP_BLOCKS_PER_SM`` blocks per SM (8,192 candidates give only 128
-    tiles), no more than the query tiles and no more than keep the dV and
-    dcol partials under ``_FUSED_BWD_PARTIALS_CAP``; no part is empty. fp32
-    operands (the FMA kernel): one part, 64-row tiles."""
+    """Row 7's tiling on a card of ``n_sm`` SMs: 64-row query tiles, the
+    query sweep split into parts, no more than the query tiles and no more
+    than keep the dV and dcol partials under ``_FUSED_BWD_PARTIALS_CAP``; no
+    part is empty. bf16 operands (the tensor-core kernel): 64-candidate
+    blocks (two column slices past D = 128), as many parts as bring the grid
+    to about ``_SWEEP_BLOCKS_PER_SM`` blocks per SM (8,192 candidates give
+    only 128 blocks). fp32 operands (the FMA kernel, one block per SM): the
+    fused kernel's 128-candidate blocks (64 at D > 128), the sweep split by
+    :func:`_split_waves` (8 parts at 8,192^2, 5 at 20,000^2, one at
+    131,072 x 262,144)."""
+    max_parts = _FUSED_BWD_PARTIALS_CAP // (4 * bk * (d + 1))
+    n_qt = -(-bq // DV_TQ)
     if not bf16:
-        return DvPlan(TK, TQ, 1, -(-bq // TQ))
+        tile = TK if d > 128 else TKC
+        return DvPlan(tile, DV_TQ, *_split_waves(n_qt, -(-bk // tile), max_parts, n_sm))
     blocks = -(-bk // DV_TK) * (2 if d > 128 else 1)
-    return DvPlan(DV_TK, DV_TQ, *_split_sweep(-(-bq // DV_TQ), blocks,
-                                              _FUSED_BWD_PARTIALS_CAP // (4 * bk * (d + 1)),
-                                              n_sm))
+    return DvPlan(DV_TK, DV_TQ, *_split_sweep(n_qt, blocks, max_parts, n_sm))
 
 
 def flash_ce_bwd_dv_partials_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g, p: DvPlan
@@ -708,8 +751,7 @@ def flash_ce_bwd_twokernel(u, v, colcorr, ids_q, ids_k, pos, lse, g
     -> (dU, dV, dcol) from :func:`flash_ce_bwd_du` and
     :func:`flash_ce_bwd_dv`, whose kernels split their swept axis into
     parts only where their own tiles leave the card thin (:func:`du_plan`,
-    :func:`dv_plan`; none at 131,072 x 262,144, and none in row 7's fp32
-    kernel)."""
+    :func:`dv_plan`; none at 131,072 x 262,144)."""
     du = flash_ce_bwd_du(u, v, colcorr, ids_q, ids_k, pos, lse, g)
     return (du, *flash_ce_bwd_dv(u, v, colcorr, ids_q, ids_k, pos, lse, g))
 
@@ -720,9 +762,8 @@ def flash_ce_bwd(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Softmax part of the backward (before the label terms) -> (dU [Bq, D],
     dV [Bk, D], dcol [Bk]) fp32, on :func:`bwd_route`:
-    :func:`flash_ce_bwd_twokernel` for bf16 operands; for fp32 operands
-    :func:`flash_ce_bwd_fused` while the TPU's partials fit the cap, else
-    the two-kernel backward."""
+    :func:`flash_ce_bwd_twokernel` for bf16 operands,
+    :func:`flash_ce_bwd_fused` for fp32 operands."""
     _check(u, v, colcorr, ids_q, ids_k, pos, "flash_ce_bwd")
     if bwd_route(u.shape[0], v.shape[0], u.shape[1], u.dtype == torch.bfloat16) == "fused":
         return flash_ce_bwd_fused(u, v, colcorr, ids_q, ids_k, pos, lse, g)

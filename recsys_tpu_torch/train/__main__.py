@@ -8,9 +8,13 @@ port honours, with the same names, defaults and mappings, so that one
 argv gives one ``config.json`` in both packages. ``--distributed_strategy``
 is accepted for compat and sets nothing, and ``--global_negatives`` /
 ``--per_replica_negatives`` set ``train.global_negatives``, which changes
-nothing on one device. Flags whose modes are not ported yet
-(``--use_dense_features``, ``--negative_sampling``, the mesh flags, ...)
-are errors, as is any other flag.
+nothing on one device. ``--negative_sampling``, ``--model_parallel``,
+``--embedding_sharding`` and ``--lookup_strategy`` take the JAX CLI's
+choices, but only the values the port runs (``random``, 1,
+``replicated``, ``xla``: their defaults); any other value exits with an
+error that names its ROADMAP Queue 1 item. Flags whose modes are not
+ported yet (``--use_dense_features``, ``--mined_from``, ...) are errors,
+as is any other flag.
 ``--set KEY=VALUE`` overrides a dotted config field (the value is parsed
 as JSON, ``true``/``false``/``none`` included, else kept as a string).
 The run writes what the JAX trainer writes: ``config.json``,
@@ -28,15 +32,24 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from recsys_tpu_torch.config import (DataConfig, EvalConfig, ModelConfig, RecsysConfig,
-                                     TrainConfig)
+from recsys_tpu_torch.config import (DataConfig, EvalConfig, MeshConfig, ModelConfig,
+                                     RecsysConfig, TrainConfig)
 
 _RETRIEVAL_LOSS = {"auto": "auto", "xla": False, "flash": True, "chunked": "chunked"}
-# the JAX CLI's defaults for the explicit-negative counts (its dataclass
-# defaults differ); they act only with explicit negatives, not ported yet,
-# and are set so that both CLIs write the same config.json
-_CLI_NUM_HARD_NEGATIVES = 20
-_CLI_NUM_RANDOM_NEGATIVES = 30
+_EXPLICIT_NEGATIVES = "ROADMAP Queue 1 item 3, explicit negatives"
+_MULTI_GPU = "ROADMAP Queue 1 item 8, multi-GPU"
+
+
+def _check_ported(args) -> None:
+    """Raise ValueError, naming the ROADMAP Queue 1 item, for a mode flag
+    whose value the port does not run yet."""
+    for flag, value, ported, item in (
+            ("--negative_sampling", args.negative_sampling, "random", _EXPLICIT_NEGATIVES),
+            ("--model_parallel", args.model_parallel, 1, _MULTI_GPU),
+            ("--embedding_sharding", args.embedding_sharding, "replicated", _MULTI_GPU),
+            ("--lookup_strategy", args.lookup_strategy, "xla", _MULTI_GPU)):
+        if value != ported:
+            raise ValueError(f"{flag} {value} is not ported to recsys_tpu_torch yet ({item})")
 
 
 def parse_overrides(pairs: Sequence[str]) -> dict:
@@ -59,18 +72,22 @@ def parse_overrides(pairs: Sequence[str]) -> dict:
 
 
 def build_config(args) -> RecsysConfig:
+    _check_ported(args)
     cfg = RecsysConfig(
         model=ModelConfig(embedding_dim=args.embedding_dim, cross_layers=args.cross_layers,
                           ctr_weight=args.ctr_weight, rating_weight=args.rating_weight,
                           mixed_precision=args.bf16,
                           softmax_temperature=args.softmax_temperature,
                           use_flash_ce=_RETRIEVAL_LOSS[args.retrieval_loss]),
-        data=DataConfig(processed_path=args.data,
-                        num_hard_negatives=_CLI_NUM_HARD_NEGATIVES,
-                        num_random_negatives=_CLI_NUM_RANDOM_NEGATIVES),
+        data=DataConfig(processed_path=args.data, negative_sampling=args.negative_sampling,
+                        num_hard_negatives=args.num_hard_negatives,
+                        num_random_negatives=args.num_random_negatives),
         train=TrainConfig(batch_size=args.batch_size, learning_rate=args.learning_rate,
                           epochs=args.epochs, resume=args.resume, seed=args.seed,
                           global_negatives=args.global_negatives),
+        mesh=MeshConfig(model_axis=args.model_parallel,
+                        embedding_sharding=args.embedding_sharding,
+                        lookup_strategy=args.lookup_strategy),
         eval=EvalConfig(eval_sample=args.eval_sample),
     )
     return cfg.replace(**parse_overrides(args.overrides)) if args.overrides else cfg
@@ -86,11 +103,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch_size", type=int, default=2048)
     ap.add_argument("--epochs", type=int, default=5)
     ap.add_argument("--learning_rate", type=float, default=1e-3)
+    ap.add_argument("--negative_sampling", default="random",
+                    choices=["random", "hard", "mixed", "mined"],
+                    help="random (the port runs only this one yet)")
+    ap.add_argument("--num_hard_negatives", type=int, default=20)
+    ap.add_argument("--num_random_negatives", type=int, default=30)
     ap.add_argument("--ctr_weight", type=float, default=0.2)
     ap.add_argument("--rating_weight", type=float, default=0.2)
     ap.add_argument("--distributed_strategy", default="mesh",
                     choices=["none", "mirrored", "multi_worker", "mesh"],
                     help="accepted for compat; sets nothing")
+    ap.add_argument("--model_parallel", type=int, default=1,
+                    help="size of the model mesh axis (the port runs only 1 yet)")
+    ap.add_argument("--embedding_sharding", default="replicated",
+                    choices=["replicated", "rows"])
+    ap.add_argument("--lookup_strategy", default="xla", choices=["xla", "psum", "a2a"])
     ap.add_argument("--global_negatives", action="store_true", default=True,
                     help="in-batch candidates span the global batch (default; one "
                          "device holds the whole batch)")

@@ -146,11 +146,14 @@ def test_plain_versions_chunked_over_query_rows(chunk_rows, monkeypatch):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bq,bk", [(64, 64), (64, 192)])
 def test_flash_softmax_ce_on_the_twokernel_route_matches_jax(dtype, bq, bk, monkeypatch):
-    """Both caps lowered below these shapes' partials: each package takes
-    its two-kernel backward; value and gradients w.r.t. u, v, colcorr."""
+    """Both caps lowered below these shapes' partials: JAX takes its
+    two-kernel backward, the port its H100 route (``bwd_route``, which the
+    cap does not move: rows 6 and 7 for bf16 operands, the fused kernel for
+    fp32 ones); value and gradients w.r.t. u, v, colcorr agree."""
     monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 1024)
     monkeypatch.setattr(JF, "_FUSED_BWD_PARTIALS_CAP", 1024)
-    assert F.bwd_route(bq, bk, 16) == "twokernel"
+    route = "twokernel" if dtype == "bfloat16" else "fused"
+    assert F.bwd_route(bq, bk, 16, dtype == "bfloat16") == route
     u, v, c, ids_q, ids_k, pos, g = _flash_inputs(bq, bk, 16, seed=3 * bq + bk)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
 
@@ -163,13 +166,15 @@ def test_flash_softmax_ce_on_the_twokernel_route_matches_jax(dtype, bq, bk, monk
         jnp.asarray(u), jnp.asarray(v), jnp.asarray(c))
     tu, tv, tc = (torch.tensor(x, requires_grad=True) for x in (u, v, c))
     calls = []
-    monkeypatch.setattr(F, "flash_ce_bwd_du", lambda *a: calls.append("du") or
+    monkeypatch.setattr(F, "flash_ce_bwd_du", lambda *a: calls.append("twokernel") or
                         F.flash_ce_bwd_du_reference(*a))
+    monkeypatch.setattr(F, "flash_ce_bwd_fused", lambda *a: calls.append("fused") or
+                        F.flash_ce_bwd_reference(*a))
     ce = F.flash_softmax_ce(tu.to(tdt), tv.to(tdt), tc, torch.tensor(ids_q),
                             torch.tensor(ids_k), torch.tensor(pos))
     total = (ce * torch.tensor(g)).sum()
     total.backward()
-    assert calls == ["du"]  # the backward went through the two-kernel route
+    assert calls == [route]  # the backward went through the port's route
     np.testing.assert_allclose(total.item(), float(jval), rtol=1e-5, atol=1e-5)
     ulp = BF16_ULP if dtype == "bfloat16" else 0.0
     for got, want, extra in ((tu.grad, jgrads[0], ulp), (tv.grad, jgrads[1], ulp),
@@ -190,8 +195,10 @@ def test_bwd_route_counts_the_partials_as_the_tpu_does(bq, bk):
     assert F._tiles(bq, bk) == (tq, tk)
     want = bq * d * (bk // tk) * 4
     assert F.fused_bwd_partials_bytes(bq, bk, d) == want
-    route = "fused" if want <= JF._FUSED_BWD_PARTIALS_CAP else "twokernel"
-    assert F.bwd_route(bq, bk, d) == route
+    # the TPU switches routes at the cap; on the H100 fp32 operands keep the
+    # fused kernel on both sides of it (23-38% faster than rows 6 + 7 at
+    # chip_smoke.py's eight route-table shapes, 20,000^2 8.855 against 12.16 ms)
+    assert F.bwd_route(bq, bk, d) == "fused"
 
 
 _DU_PLAN_CASES = [
@@ -256,30 +263,46 @@ def test_fp32_du_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
     assert p.partials_bytes(bq, d) <= F._FUSED_BWD_PARTIALS_CAP
 
 
-@pytest.mark.parametrize("bq,bk,d,parts", [
-    (8192, 8192, 128, 9),          # 128 candidate tiles: the query sweep in 9 parts
-    (131072, 262144, 128, 1),      # the giant step: 4,096 candidate tiles, no partials
-    (1000, 3001, 129, 8),          # ragged, two column slices: a part per 2 query tiles
-    (1000, 3001, 64, 16),          # a part per query tile
-    (64, 10, 32, 1),               # one query tile
-])
-def test_dv_plan_fills_the_card_under_the_cap(bq, bk, d, parts):
-    """Row 7's tiling for bf16 operands, checked on the CPU: 64-candidate
-    tiles and 64-row query tiles, the query sweep split into parts until
-    the grid holds about 8 blocks per SM, every query tile in exactly one
-    part, and the dV and dcol partials under the cap; fp32 operands keep
-    one part (the FMA kernel)."""
+_DV_PLAN_CASES = [
+    # bf16 operands (the tensor-core kernel): 64-candidate blocks
+    (8192, 8192, 128, True, 9),          # 128 candidate tiles: the query sweep in 9 parts
+    (131072, 262144, 128, True, 1),      # the giant step: 4,096 candidate tiles, no partials
+    (1000, 3001, 129, True, 8),          # ragged, two column slices: a part per 2 query tiles
+    (1000, 3001, 64, True, 16),          # a part per query tile
+    (64, 10, 32, True, 1),               # one query tile
+    # fp32 operands (the FMA kernel, one block per SM): 128-candidate blocks
+    (8192, 8192, 128, False, 8),         # 64 blocks: 4 waves of 16 tiles
+    (20000, 20000, 128, False, 5),       # 157 blocks: 6 waves of 63 tiles
+    (131072, 262144, 128, False, 1),     # 2,048 blocks: 16 waves, no partials
+    (1000, 3001, 129, False, 8),         # ragged, D past 128: 64-candidate blocks
+    (300, 1100, 256, False, 5),          # DP = 256: a part per query tile
+    (65, 1, 128, False, 2),              # a single candidate: one block, two parts
+    (64, 10, 32, False, 1),              # one query tile
+]
+
+
+@pytest.mark.parametrize("bq,bk,d,bf16,parts", _DV_PLAN_CASES, ids=[
+    f"{bq}-{bk}-{d}-{parts}" if bf16 else f"fp32-{bq}-{bk}-{d}-{parts}"
+    for bq, bk, d, bf16, parts in _DV_PLAN_CASES])
+def test_dv_plan_fills_the_card_under_the_cap(bq, bk, d, bf16, parts):
+    """Row 7's tiling, checked on the CPU: 64-row query tiles, every query
+    tile in exactly one part, and the dV and dcol partials under the cap.
+    bf16 operands: 64-candidate blocks, the query sweep split into parts
+    until the grid holds about 8 blocks per SM. fp32 operands: the fused
+    kernel's 128-candidate blocks (64 past D = 128), the sweep split for
+    the fewest waves of one block per SM from 2 to 8 blocks per SM, which
+    leaves at least one block per SM wherever the tiles allow."""
     n_sm = 132
-    p = F.dv_plan(bq, bk, d, True, n_sm)
-    assert (p.tile, p.qtile, p.parts) == (F.DV_TK, F.DV_TQ, parts)
+    p = F.dv_plan(bq, bk, d, bf16, n_sm)
+    tile = F.DV_TK if bf16 else (F.TKC if d <= 128 else F.TK)
+    assert (p.tile, p.qtile, p.parts) == (tile, F.DV_TQ, parts)
     n_qt = -(-bq // p.qtile)
     assert p.parts * p.q_tiles_per_part >= n_qt > (p.parts - 1) * p.q_tiles_per_part
     assert p.partials_bytes(bk, d) <= F._FUSED_BWD_PARTIALS_CAP
-    k_blocks = -(-bk // p.tile) * (2 if d > 128 else 1)
-    assert k_blocks * p.parts >= min(4 * n_sm, k_blocks * n_qt)
-    fp32 = F.dv_plan(bq, bk, d, False, n_sm)
-    assert fp32.parts == 1 and fp32.partials_bytes(bk, d) == 0
-    assert fp32.q_tiles_per_part * fp32.qtile >= bq
+    # bf16: at least 4 blocks per SM wherever the tiles allow (whole tiles
+    # per part round the 8 down); fp32: at least one
+    k_blocks = -(-bk // p.tile) * (2 if bf16 and d > 128 else 1)
+    assert k_blocks * p.parts >= min((4 if bf16 else 1) * n_sm, k_blocks * n_qt)
 
 
 def test_dv_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
@@ -290,6 +313,20 @@ def test_dv_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
     p = F.dv_plan(bq, bk, d, True, 132)
     assert (p.parts, p.q_tiles_per_part) == (2, 64)
     assert p.partials_bytes(bk, d) <= F._FUSED_BWD_PARTIALS_CAP
+
+
+def test_fp32_dv_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
+    """fp32 operands: with room for only two parts of dV and dcol the plan
+    takes two parts, each sweeping half the query tiles, where the card
+    alone would take 8; with room for none it takes one part."""
+    bq, bk, d = 8192, 8192, 128
+    monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 2 * 4 * bk * (d + 1))
+    p = F.dv_plan(bq, bk, d, False, 132)
+    assert (p.tile, p.parts, p.q_tiles_per_part) == (F.TKC, 2, 64)
+    assert p.partials_bytes(bk, d) <= F._FUSED_BWD_PARTIALS_CAP
+    monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 4 * bk * (d + 1))
+    p = F.dv_plan(bq, bk, d, False, 132)
+    assert (p.parts, p.q_tiles_per_part) == (1, 128) and p.partials_bytes(bk, d) == 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -334,6 +371,51 @@ def test_dv_partials_sum_to_the_reference_and_jax(dtype, bq, bk, d, n_sm, all_ac
         jnp.asarray(ids_q), jnp.asarray(ids_k), jnp.asarray(pos), jnp.asarray(lse.numpy()),
         jnp.asarray(g), True)
     _rel_close(got[0], want[1], 1e-5 + (BF16_ULP if dtype == "bfloat16" else 0.0))
+    _rel_close(got[1], want[2], 1e-5)
+
+
+@pytest.mark.parametrize("bq,bk,d,n_sm,all_accidental", [
+    (192, 300, 32, 132, False),   # 3 blocks: 3 parts of one query tile
+    (320, 1024, 32, 132, True),   # 8 blocks: 5 parts
+    (130, 300, 129, 132, True),   # D past 128: 64-candidate blocks, 3 parts, the last of 2 rows
+    (200, 190, 24, 132, False),   # ragged: 4 parts, the last of 8 rows
+    (1000, 700, 48, 4, True),     # 2 parts of 8 query tiles, the last tile of 40 rows
+])
+def test_fp32_dv_partials_sum_to_the_reference_and_jax(bq, bk, d, n_sm, all_accidental):
+    """The plain version of what row 7's fp32 kernel writes under
+    ``dv_plan`` ([parts, Bk, D] dV, [parts, Bk] dcol, at least 2 parts
+    here), summed over the parts in part order as the wrapper sums them,
+    equals the one-pass plain dV and dcol (1e-6 of max|ref|) and JAX
+    ``_flash_bwd_twokernel_raw``'s in interpret mode (1e-5 of max|ref|);
+    row 0's positive lies in the last column, and with ``all_accidental``
+    every third row's every other candidate is an accidental hit."""
+    rng = np.random.default_rng(bq + bk + d)
+    u = (rng.standard_normal((bq, d)) * d ** -0.5).astype(np.float32)
+    v = rng.standard_normal((bk, d)).astype(np.float32)
+    c = rng.standard_normal(bk).astype(np.float32)
+    ids_k = rng.integers(0, max(2, bk // 3), bk).astype(np.int32)
+    ids_q = rng.integers(0, max(2, bk // 3), bq).astype(np.int32)
+    pos = np.arange(bq, dtype=np.int32) % bk
+    pos[0] = bk - 1
+    if all_accidental:
+        ids_k[:] = bk
+        ids_q[::3] = bk
+    g = rng.standard_normal(bq).astype(np.float32)
+    small = (torch.tensor(c), torch.tensor(ids_q), torch.tensor(ids_k), torch.tensor(pos))
+    tu, tv = torch.tensor(u), torch.tensor(v)
+    lse, _ = F.flash_ce_fwd_reference(tu, tv, *small)
+    args = (tu, tv, *small, lse, torch.tensor(g))
+    p = F.dv_plan(bq, bk, d, False, n_sm)
+    assert p.parts >= 2 and p.tile == (F.TKC if d <= 128 else F.TK)
+    dv_part, dcol_part = F.flash_ce_bwd_dv_partials_reference(*args, p)
+    assert dv_part.shape == (p.parts, bk, d) and dcol_part.shape == (p.parts, bk)
+    got = (torch.sum(dv_part, dim=0), torch.sum(dcol_part, dim=0))
+    for a, b in zip(got, F.flash_ce_bwd_dv_reference(*args)):
+        _rel_close(a, b, 1e-6)
+    want = JF._flash_bwd_twokernel_raw(
+        jnp.asarray(u), jnp.asarray(v), jnp.asarray(c), jnp.asarray(ids_q), jnp.asarray(ids_k),
+        jnp.asarray(pos), jnp.asarray(lse.numpy()), jnp.asarray(g), True)
+    _rel_close(got[0], want[1], 1e-5)
     _rel_close(got[1], want[2], 1e-5)
 
 

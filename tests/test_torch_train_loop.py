@@ -313,6 +313,13 @@ _SHARED_ARGVS = {
     "last flag wins": ["--no-bf16", "--bf16", "--per_replica_negatives", "--global_negatives",
                        "--per_replica_negatives", "--distributed_strategy", "none",
                        "--eval_sample", "5000", "--resume", "--seed", "7"],
+    "mode flags at their defaults": ["--data", "x.npz", "--negative_sampling", "random",
+                                     "--num_hard_negatives", "20", "--num_random_negatives",
+                                     "30", "--model_parallel", "1", "--embedding_sharding",
+                                     "replicated", "--lookup_strategy", "xla"],
+    "negative counts": ["--negative_sampling", "random", "--num_hard_negatives", "7",
+                        "--num_random_negatives", "9", "--model_parallel", "1",
+                        "--embedding_sharding", "replicated", "--lookup_strategy", "xla"],
 }
 
 
@@ -323,6 +330,24 @@ def test_cli_config_matches_the_jax_cli(name, monkeypatch):
     argv = _SHARED_ARGVS[name]
     want = jax_cli.build_config(_jax_cli_args(argv, monkeypatch)).to_json()
     assert cli.build_config(cli.build_parser().parse_args(argv)).to_json() == want
+
+
+@pytest.mark.parametrize("flag, value, item", [
+    ("--negative_sampling", "hard", "item 3"), ("--negative_sampling", "mixed", "item 3"),
+    ("--negative_sampling", "mined", "item 3"), ("--model_parallel", "2", "item 8"),
+    ("--embedding_sharding", "rows", "item 8"), ("--lookup_strategy", "psum", "item 8"),
+    ("--lookup_strategy", "a2a", "item 8")])
+def test_cli_unported_mode_values_name_their_roadmap_item(flag, value, item, monkeypatch,
+                                                          capsys):
+    """A value the JAX CLI takes and the port does not run yet exits with
+    an error that names its ROADMAP Queue 1 item, before any data is read."""
+    argv = ["--data", "missing.npz", flag, value]
+    jax_cli.build_config(_jax_cli_args(argv, monkeypatch))  # the JAX CLI takes it
+    with pytest.raises(SystemExit) as exc:
+        cli.main(argv)
+    assert exc.value.code != 0
+    err = capsys.readouterr().err
+    assert f"{flag} {value}" in err and f"ROADMAP Queue 1 {item}" in err
 
 
 def test_cli_resume_reaches_the_trainer_and_unported_flags_stay_errors(tiny_bundle, tmp_path):

@@ -176,47 +176,57 @@ def test_flash_wrappers_check_inputs_and_the_partials_cap(monkeypatch):
     assert F.fused_bwd_partials_bytes(8192, 8192, 128) == 4 * 8192 * 128 * 4
     fused = F.flash_ce_bwd(u, v, c, ids_q, ids_k, pos, lse, torch.ones(8))
     assert F.bwd_route(8, 8, 4) == "fused"
-    # past the cap the backward takes the two-kernel route (rows 6 and 7)
+    # past the TPU's cap fp32 operands keep the fused kernel (the H100
+    # route, chip_smoke.py's route table) and bf16 ones take rows 6 and 7;
+    # the two-kernel route gives the same backward
     monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 8 * 4 * 4 - 1)
-    assert F.bwd_route(8, 8, 4) == "twokernel"
-    for got, want in zip(F.flash_ce_bwd(u, v, c, ids_q, ids_k, pos, lse, torch.ones(8)), fused):
+    assert F.bwd_route(8, 8, 4) == "fused" and F.bwd_route(8, 8, 4, True) == "twokernel"
+    for got, want in zip(F.flash_ce_bwd_twokernel(u, v, c, ids_q, ids_k, pos, lse,
+                                                  torch.ones(8)), fused):
         _close(got, want)
 
 
-@pytest.mark.parametrize("b,tiles,parts,route", [
-    (8192, 1, 4, "fused"),       # the main path: a block per 128-candidate tile, 4 query parts
-    (20000, 1, 1, "twokernel"),  # the TPU's tk is 32 here: 5.96 GiB of its partials
-    (24576, 1, 1, "fused"),      # 192 partials of 12 MiB
-    (32768, 1, 1, "fused"),      # 256 partials of 16 MiB: still under the cap
-    (65536, 4, 2, "fused"),      # beyond, the blocks sweep wider spans
-    (131072, 16, 4, "fused"),
-    (139264, 18, 4, "twokernel"),  # the TPU's 2,048-wide partials pass the cap
+@pytest.mark.parametrize("b,tiles,parts,fp32_parts,tpu_route", [
+    (8192, 1, 4, 4, "fused"),     # the main path: a block per 128-candidate tile, 4 query parts
+    (20000, 1, 1, 5, "twokernel"),  # the TPU's tk is 32 here: 5.96 GiB of its partials
+    (24576, 1, 1, 2, "fused"),    # 192 partials of 12 MiB
+    (32768, 1, 1, 1, "fused"),    # 256 partials of 16 MiB: still under the cap
+    (65536, 4, 2, 2, "fused"),    # beyond, the blocks sweep wider spans
+    (131072, 16, 4, 4, "fused"),
+    (139264, 18, 4, 4, "twokernel"),  # the TPU's 2,048-wide partials pass the cap
 ])
-def test_flash_bwd_covers_the_tpu_batch_range(b, tiles, parts, route):
-    """The backward takes the TPU package's route at every batch: the
-    fused kernel where the TPU's partials fit the cap (each block sweeping
-    as many 128-candidate tiles, and the query sweep split into as many
-    parts, as keep the kernel's own dU, dV and dcol partials under it; the
-    same plan for bf16 operands on the tensor cores and fp32 ones on the
-    FMA units), the two-kernel backward where they do not. Every candidate
-    tile lies in exactly one span, every part has query tiles. Meta
-    tensors: nothing is allocated."""
+def test_flash_bwd_covers_the_tpu_batch_range(b, tiles, parts, fp32_parts, tpu_route):
+    """The fused backward's plan covers the TPU package's batch range,
+    through its switch to the two-kernel backward, under the cap: each
+    block sweeps as many 128-candidate tiles, and the query sweep is split
+    into as many parts, as keep the kernel's own dU, dV and dcol partials
+    under it; the fp32 plan splits the query sweep further where the FMA
+    kernel's one block per SM would leave its last wave thin (20,000 and
+    24,576). Every candidate tile lies in exactly one span, every part has
+    query tiles. fp32 operands take the fused kernel at every batch, past
+    the TPU's switch too (the H100 route, ``bwd_route``: on the FMA units
+    it beat rows 6 + 7 by 23-38% at ``chip_smoke.py``'s eight route-table
+    shapes, 20,000^2 8.855 against 12.16 ms). Meta tensors: nothing is
+    allocated."""
     d = 128
     n_tiles, n_qt = -(-b // F.TKC), -(-b // F.TQ)
-    for bf16 in (True, False):
+    for bf16, n_parts in ((True, parts), (False, fp32_parts)):
         p = F.bwd_plan(b, b, d, bf16, 132)
-        assert (p.tile, p.tiles_per_block, p.parts) == (F.TKC, tiles, parts)
+        assert (p.tile, p.tiles_per_block, p.parts) == (F.TKC, tiles, n_parts)
         assert p.n_spans == -(-n_tiles // tiles) and p.n_spans * p.parts >= min(132, n_tiles)
         assert p.n_spans * tiles >= n_tiles > (p.n_spans - 1) * tiles
         assert p.parts * p.q_tiles_per_part >= n_qt > (p.parts - 1) * p.q_tiles_per_part
         assert p.partials_bytes(b, b, d) <= F._FUSED_BWD_PARTIALS_CAP
-    assert F.bwd_route(b, b, d) == route
+    _, tk = JF._tiles(b, b)
+    assert ("fused" if F.fused_bwd_partials_bytes(b, b, d) <= F._FUSED_BWD_PARTIALS_CAP
+            else "twokernel") == tpu_route == ("fused" if b * d * (b // tk) * 4
+                                               <= JF._FUSED_BWD_PARTIALS_CAP else "twokernel")
+    assert F.bwd_route(b, b, d) == "fused" and F.bwd_route(b, b, d, True) == "twokernel"
     meta = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
     ids = meta(b, dtype=torch.int32)
     args = (meta(b, d), meta(b, d), meta(b), ids, ids, ids, meta(b), meta(b))
-    # the route's first wrapper refuses a meta tensor as an unsupported device
-    first = "flash_ce_bwd_fused" if route == "fused" else "flash_ce_bwd_du"
-    with pytest.raises(ValueError, match=f"{first}: unsupported device"):
+    # the route's wrapper refuses a meta tensor as an unsupported device
+    with pytest.raises(ValueError, match="flash_ce_bwd_fused: unsupported device"):
         F.flash_ce_bwd(*args)
 
 
@@ -306,17 +316,20 @@ def test_vec_copies_16_bytes_where_rows_allow(d, dtype, want):
                                    (139264, 139264), (131072, 147456), (131072, 262144),
                                    (65536, 327680)])
 def test_bwd_plan_keeps_the_tpu_route(bq, bk):
-    """The new tiling leaves the route the TPU's (its own partials against
-    the cap), and wherever the route is fused the port's partials, bf16
-    and fp32, fit under the cap too."""
+    """The tiling does not route: the TPU's route is its own partials
+    against the cap, counted as it counts them; the port routes fp32
+    operands to the fused kernel on both sides of that switch (H100
+    numbers, ``bwd_route``), and the port's fused partials, bf16 and fp32,
+    fit under the cap at every shape, past the TPU's switch too."""
     d = 128
     _, tk = JF._tiles(bq, bk)
-    want = "fused" if bq * d * (bk // tk) * 4 <= JF._FUSED_BWD_PARTIALS_CAP else "twokernel"
-    assert F.bwd_route(bq, bk, d) == want
-    if want == "fused":
-        for bf16 in (True, False):
-            plan = F.bwd_plan(bq, bk, d, bf16, 132)
-            assert plan.partials_bytes(bq, bk, d) <= F._FUSED_BWD_PARTIALS_CAP
+    tpu = "fused" if bq * d * (bk // tk) * 4 <= JF._FUSED_BWD_PARTIALS_CAP else "twokernel"
+    assert ("fused" if F.fused_bwd_partials_bytes(bq, bk, d) <= F._FUSED_BWD_PARTIALS_CAP
+            else "twokernel") == tpu
+    assert F.bwd_route(bq, bk, d) == "fused"
+    for bf16 in (True, False):
+        plan = F.bwd_plan(bq, bk, d, bf16, 132)
+        assert plan.partials_bytes(bq, bk, d) <= F._FUSED_BWD_PARTIALS_CAP
 
 
 @pytest.mark.parametrize("bq,bk", [(4096, 20480), (8192, 8192), (16384, 16384),
@@ -324,13 +337,15 @@ def test_bwd_plan_keeps_the_tpu_route(bq, bk):
                                    (131072, 147456), (131072, 262144)])
 def test_bwd_route_takes_rows_6_and_7_for_bf16_operands(bq, bk):
     """The route measured on the H100 (``chip_smoke.py``'s route table,
-    these shapes): bf16 operands take the two-kernel backward on both
-    sides of the cap; fp32 operands keep the TPU package's route."""
+    these shapes, in turns, NVIDIA H100 80GB HBM3 at 700 W): bf16 operands
+    take the two-kernel backward on both sides of the TPU's cap (it won by
+    20-235%); fp32 operands take the fused kernel on both sides of it (it
+    won by 23-38%: 8,192^2 1.550 against 2.126 ms, 20,000^2 8.855 against
+    12.16, 131,072 x 262,144 853.8 against 1,052.3), where the TPU takes
+    its two kernels above the cap."""
     d = 128
     assert F.bwd_route(bq, bk, d, True) == "twokernel"
-    _, tk = JF._tiles(bq, bk)
-    tpu = "fused" if bq * d * (bk // tk) * 4 <= JF._FUSED_BWD_PARTIALS_CAP else "twokernel"
-    assert F.bwd_route(bq, bk, d, False) == F.bwd_route(bq, bk, d) == tpu
+    assert F.bwd_route(bq, bk, d, False) == F.bwd_route(bq, bk, d) == "fused"
 
 
 @pytest.mark.parametrize("dtype,route", [("bfloat16", "twokernel"), ("float32", "fused")])
@@ -522,6 +537,29 @@ def test_dcn_cross_vjp_matches_jax_grad(n, f, n_layers):
         _close(t.grad, jw, atol=1e-5 * max(1.0, scale))
         _close(t.grad, r.grad, atol=1e-5 * max(1.0, scale))
     assert (D.dcn_cross.launches, D.dcn_cross_bwd.launches) == before
+
+
+@pytest.mark.parametrize("n,f,n_layers,registers,n_blocks", [
+    (8192, 256, 3, True, 132),      # the flagship: dw and db in registers, a block an SM
+    (12_800, 256, 4, True, 132),    # the register kernel's deepest stack
+    (1, 24, 1, True, 1),            # one row: one block
+    (2048, 256, 5, False, 256),     # past 4 layers: shared memory, a block per 8 rows
+    (1000, 512, 2, False, 125),     # past 256 features: shared memory
+    (50_000, 512, 2, False, 264),   # shared memory: 2 blocks an SM
+    (5, 1024, 3, False, 1),         # L x F = 3,072 at the widest F
+])
+def test_dcn_bwd_plan_picks_the_kernel_and_sizes_the_grid(n, f, n_layers, registers,
+                                                          n_blocks):
+    """The DCN backward's plan on a 132-SM card: the register kernel (one
+    block per SM) up to 4 layers of 256 features, the shared-memory kernel
+    (two per SM) past either; as many blocks of 8 warps as the rows need, at
+    most those; the block's fold of its warps' dw and db fits its shared
+    memory."""
+    p = D.bwd_plan(n, f, n_layers, 132)
+    assert (p.registers, p.n_blocks) == (registers, n_blocks)
+    per_sm = 1 if registers else 2
+    assert p.n_blocks * D._BWD_WARPS >= min(n, per_sm * 132 * D._BWD_WARPS)
+    assert D._BWD_WARPS * 2 * n_layers * f * 4 <= D.MAX_BWD_SHARED_BYTES
 
 
 def test_cross_stack_without_grad_keeps_no_layer_inputs():
