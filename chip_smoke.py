@@ -119,7 +119,26 @@
     compares them as phase 10 does;
 21. times a step of the scale.json ``"train"`` row itself (dim 64, B =
     4,096) with adagrad and adam, sparse (lazy Adam) and dense;
-22. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+22. the data-and-features path and export: writes ML-1M-shaped
+    ``movies.dat`` and ``users.dat`` from ``SEED`` (3,883 movies, one
+    latin-1 title, some titles without a year; 6,040 users), runs
+    ``python -m recsys_tpu_torch.preprocess`` (1,000,209 synthesized
+    ratings; its QA report checked), then the train CLI's ``main`` with
+    ``--use_dense_features --use_side_features`` at the flagship widths
+    (the DCN input F = 289, so the cross stack's backward runs its
+    shared-memory kernel at F % 4 = 1), B = 8,192, 2 epochs, with the
+    launch counters set to 0 just before and read just after; serves the
+    bundle as in phase 4 (rerank 200 with the host-side features, held
+    against the CPU), profiles those requests and times the host's
+    ``transform_scaled``; runs the evaluate CLI's ``main`` (rerank 200,
+    seen-filtered); exports top-200 through the export CLI's ``main`` and
+    holds the artifact on the card and on the CPU against the service's
+    exact route, serves ``backend="exported"`` with rerank against the
+    device backend, checks that a rebuilt ``index.npz`` is refused, and
+    profiles the exported retrieve against the exact route at 1 and 64
+    users; times rows 2 and 3 at F = 289 as in phase 6 and profiles the
+    dense-feature train step;
+23. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line. Without a
@@ -127,13 +146,15 @@ CUDA device it exits 2 before doing anything.
 
     python3 chip_smoke.py --ab PARENT_DIR
 
-times kernel rows 1, 3, 4, 5, 6, 7 and 8 of an unpacked checkout of
-another commit (``git archive <commit> | tar -x -C PARENT_DIR``) and of
-this tree in turns on one card (parent, this, this, parent; a process
-each, every tree built from its own sources) at the shapes of the
-``AB_*`` lists (rows 4 to 7 also in fp32 at 8,192^2, rows 4, 6 and 7 at
-20,000^2; row 3 with its reduction's device ms apart), beside the library
-yardsticks of rows 4 to 8, and prints one JSON line per run.
+times kernel rows 1 to 8 of an unpacked checkout of another commit
+(``git archive <commit> | tar -x -C PARENT_DIR``) and of this tree in
+turns on one card (parent, this, this, parent; a process each, every tree
+built from its own sources) at the shapes of the ``AB_*`` lists (rows 4
+to 7 also in fp32 at 8,192^2, rows 4, 6 and 7 at 20,000^2; rows 2 and 3 at
+F = 256 and 289, row 3 with its reduction's device ms apart), beside the
+library yardsticks of rows 4 to 8, then each tree's served requests and
+B = 8,192 train step as phases 7 and 11 profile them, and prints one
+JSON line per run.
 """
 
 from __future__ import annotations
@@ -219,6 +240,17 @@ ROUTE_SHAPES = [(4096, 20_480), (8192, 8192), (16_384, 16_384), (32_768, 32_768)
                 (131_072, 147_456), (20_000, 20_000), (65_536, 327_680), ABOVE_CAP[:2]]
 # the scale.json "train" row itself: dim 64, B = 4,096
 SCALE_ROW_DIM, SCALE_ROW_BATCH = 64, 4096
+# the data-and-features path: ML-1M-shaped raw files from SEED, preprocessed
+# (1,000,209 synthesized ratings), trained with the engineered dense
+# features and the side tables: the DCN input is 2 * 128 + 33 = 289
+# features (285 without the side tables), so the cross stack's backward
+# takes its shared-memory kernel (F > 256) at F % 4 = 1
+DENSE_F = 2 * 128 + 33
+DENSE_DCN_EDGES = [(TRAIN_BATCH, DENSE_F, 3), (TRAIN_BATCH + 1, DENSE_F - 4, 3),
+                   (BATCH_USERS * RERANK, DENSE_F, 3)]
+# the exported artifact against the exact route: fp32 products in
+# another order (torch.matmul against the flash top-k kernel)
+EXPORT_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -371,8 +403,8 @@ def serve_main_path(bundle: str, counters, n_items: int = N_ITEMS, ref=None,
             check(res["status"] == "ok", "/recommend/batch: cold status for a known user")
             check_recs(res["recommendations"], 10, "/recommend/batch")
         served_batch = body["results"]
-        code, body, _ = http(port, "POST", "/score",
-                             {"user_id": known, "item_ids": [1, 2, 3]})
+        code, body, _ = http(port, "POST", "/score", {
+            "user_id": known, "item_ids": [int(i) for i in svc.index.item_raw_ids[:3]]})
         check(code == 200 and len(body["scores"]) == 3, f"/score: {code}")
         code, body, _ = http(port, "POST", "/recommend", {"user_id": known, "k": 101})
         check(code == 422, f"/recommend k=101: {code}, want 422")
@@ -467,8 +499,10 @@ def check_edges() -> None:
     augmentation (d = 129), every buffer size, a catalog ordered so that
     late items keep evicting, catalogs of 1, 63 and 65 items, tied scores
     at the served shape, and ragged row counts and widths of the cross
-    stack."""
+    stack, the dense-feature widths (F = 285 and 289) with two calls
+    bit-equal."""
     import torch
+    from recsys_tpu_torch.ops.dcn_cross import dcn_cross
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda")
@@ -492,6 +526,13 @@ def check_edges() -> None:
         check_topk(rnd(q_n, 128), v, RERANK, normalize=True)
     for n, f, n_layers in ((37, 256, 3), (1, 24, 1), (1000, 100, 2), (5, 1024, 3)):
         check_dcn(rnd(n, f), rnd(n_layers, f) * f ** -0.5, rnd(n_layers, f) * 0.1)
+    # the engineered dense features' widths (F % 4 = 1): a train batch, a
+    # ragged one without side features, the rerank of 64 users x 200
+    for n, f, n_layers in DENSE_DCN_EDGES:
+        args = (rnd(n, f), rnd(n_layers, f) * f ** -0.5, rnd(n_layers, f) * 0.1)
+        check_dcn(*args)
+        check(bool(torch.equal(dcn_cross(*args), dcn_cross(*args))),
+              f"dcn n={n} F={f} L={n_layers}: two calls differ")
     log("kernel edge cases agree with the plain versions")
 
 
@@ -832,7 +873,7 @@ def check_train_edges() -> list:
     for n, f, n_layers in ((37, 256, 3), (1, 24, 1), (1000, 100, 2), (5, 1024, 3),
                            (8193, 256, 3), (300, 1, 1), (777, 130, 4), (2049, 64, 3),
                            (100_000, 256, 3), (500, 256, 5), (1000, 512, 2), (64, 200, 8),
-                           (33, 1024, 3)):
+                           (33, 1024, 3), *DENSE_DCN_EDGES[:2]):
         args = (rnd(n, f), rnd(n_layers, f) * f ** -0.5, rnd(n_layers, f) * 0.1, rnd(n, f))
         plan = D.bwd_plan(n, f, n_layers, n_sm)
         check(plan.registers == (n_layers <= 4 and f <= 256), f"dcn bwd plan {plan}")
@@ -1128,11 +1169,11 @@ def measure_flash(bundle: dict, b: int, dtype, iters: int, sm_clock_mhz: float) 
     return rows[0], rows[1]
 
 
-def measure_dcn_bwd(n: int, iters: int) -> dict:
+def measure_dcn_bwd(n: int, iters: int, f: int = 256) -> dict:
     import torch
     from recsys_tpu_torch.ops import dcn_cross as D
 
-    f, n_layers = 256, 3
+    n_layers = 3
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     x0 = torch.randn((n, f), generator=g, device="cuda")
     w = torch.randn((n_layers, f), generator=g, device="cuda") * f ** -0.5
@@ -2211,6 +2252,309 @@ def sparse_vs_dense_scale_row() -> list:
     return rows
 
 
+# ---- data and features: the fifth main path --------------------------------
+
+def write_raw_movielens(d: str, seed: int) -> None:
+    """ML-1M-shaped raw files from ``seed``: movies.dat (3,883 movies, ids 1
+    to 3,883, one to three genres from ``GENRES``, a year in each title but
+    every 61st, one latin-1 title) and users.dat (6,040 users: gender, age
+    code, occupation, zip); ``::``-separated, latin-1."""
+    import numpy as np
+    from recsys_tpu_torch.data.movielens import GENRES
+
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(d, "movies.dat"), "w", encoding="latin-1") as f:
+        for m in range(1, N_ITEMS + 1):
+            genres = "|".join(sorted(set(rng.choice(GENRES, rng.integers(1, 4)).tolist())))
+            title = f"Movie {m} ({1919 + m % 82})" if m % 61 else f"Movie {m}"
+            if m == 5:
+                title = "Amélie (Le Fabuleux destin d'Amélie Poulain) (2001)"
+            f.write(f"{m}::{title}::{genres}\n")
+    ages = (1, 18, 25, 35, 45, 50, 56)
+    with open(os.path.join(d, "users.dat"), "w", encoding="latin-1") as f:
+        for u in range(1, N_USERS + 1):
+            f.write(f"{u}::{'MF'[rng.integers(2)]}::{ages[rng.integers(7)]}::"
+                    f"{rng.integers(21)}::{rng.integers(10_000, 100_000)}\n")
+
+
+def _call_cli(main_fn, argv) -> tuple:
+    """An entry point's ``main(argv)`` in this process, so the launch
+    counters see its kernels, its standard output captured -> (rc, stdout)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    return rc, buf.getvalue()
+
+
+def same_topk(got, want, tol: float, what: str) -> float:
+    """Two (scores [Q, k], ids [Q, k]) results: scores within ``tol``, ids
+    equal except among scores within ``tol`` of a row's k-th. -> max score
+    difference."""
+    import numpy as np
+
+    (gs, gi), (ws, wi) = got, want
+    check(gs.shape == ws.shape and gi.shape == wi.shape, f"{what}: shapes")
+    err = float(np.abs(gs - ws).max())
+    check(err <= tol, f"{what}: score differs by {err} > {tol}")
+    for q in range(gs.shape[0]):
+        edge = ws[q, -1] + tol
+        check(set(gi[q][gs[q] > edge].tolist()) <= set(wi[q].tolist())
+              and set(wi[q][ws[q] > edge].tolist()) <= set(gi[q].tolist()),
+              f"{what}: row {q} differs beyond ties")
+    return err
+
+
+def profile_dense_train_step(bundle: dict, model_cfg, tmp: str) -> dict:
+    """The trained configuration's train step at B = 8,192 with the dense
+    column (the engineer fitted on the host, its fit and transform timed),
+    profiled by :func:`profile_call`, the cross stack's kernels (rows 2 and
+    3) and the flash kernels apart."""
+    import torch
+    from recsys_tpu_torch.config import RecsysConfig, TrainConfig
+    from recsys_tpu_torch.data.features import make_engineer
+    from recsys_tpu_torch.models.losses import balanced_class_weights
+    from recsys_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    feats = make_engineer(bundle, model_cfg.dense_features).fit_transform_splits(bundle)
+    fit_s = time.perf_counter() - t0
+    batches = _batches(bundle, 2, TRAIN_BATCH, "cuda", _log_q(bundle))
+    for i, batch in enumerate(batches):
+        batch["dense"] = torch.as_tensor(
+            feats["train"][i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]).to("cuda")
+    tr = Trainer(RecsysConfig(model=model_cfg, train=TrainConfig(batch_size=TRAIN_BATCH)),
+                 tmp, device="cuda")
+    holder = [tr.init_state(int(bundle["meta/n_users"]), int(bundle["meta/n_movies"]), SEED)]
+    step = tr.make_train_step(balanced_class_weights(bundle["train/y_implicit"]))
+
+    def one():
+        holder[0], _ = step(holder[0], batches[holder[0].step % 2])
+
+    row = profile_call("train_step_B8192_dense_features_F289", one, n_wall=20, n_traced=5,
+                       warmup=2, groups={"row2_dcn_fwd": "dcn_cross_fwd",
+                                         "row3_dcn_bwd": "dcn_cross_bwd_smem",
+                                         "row3_reduce": "dcn_cross_bwd_reduce",
+                                         "row4_fwd": "flash_ce_fwd",
+                                         "row6_du": "flash_ce_bwd_du",
+                                         "row7_dv": "flash_ce_bwd_dv"})
+    row["host_feature_fit_transform_s"] = fit_s
+    return row
+
+
+def dense_feature_path(repo: str, counters, tmp: str) -> dict:
+    """Phase 22: raw files -> ``python -m recsys_tpu_torch.preprocess`` ->
+    the train, evaluate and export entry points with the engineered dense
+    features and the side tables at the flagship widths (F = 289 into the
+    cross stack) -> the service's rerank with features and its exported
+    backend, held against the CPU and the exact route; every kernel counter
+    set to 0 just before training and serving and read just after."""
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+    from recsys_tpu_torch import evaluate as eval_cli
+    from recsys_tpu_torch import export as export_cli
+    from recsys_tpu_torch.config import RecsysConfig
+    from recsys_tpu_torch.data.preprocessing import load_bundle
+    from recsys_tpu_torch.models import layers as L
+    from recsys_tpu_torch.models.towers import TwoTower
+    from recsys_tpu_torch.ops import dcn_cross as D
+    from recsys_tpu_torch.retrieval.scorer import RetrievalIndex
+    from recsys_tpu_torch.serve.export import (
+        DEFAULT_ARTIFACT, bundle_fingerprint, load_exported,
+    )
+    from recsys_tpu_torch.serve.service import RecommendationService
+    from recsys_tpu_torch.train import __main__ as train_cli
+
+    out = {}
+    raw, data = os.path.join(tmp, "raw"), os.path.join(tmp, "bundle.npz")
+    os.makedirs(raw)
+    write_raw_movielens(raw, SEED)
+    # preprocess: a process of its own, as a user runs it (numpy only)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "recsys_tpu_torch.preprocess",
+                           "--data_dir", raw, "--output", data],
+                          cwd=repo, capture_output=True, text=True, timeout=600)
+    out["preprocess_s"] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"preprocess CLI: rc {proc.returncode}\n{proc.stderr[-4000:]}")
+    qa = json.loads(proc.stdout.strip().splitlines()[-1])
+    bundle = load_bundle(data)
+    rows = {s: len(bundle[f"{s}/user_id"]) for s in ("train", "val", "test")}
+    check(all(qa[f"{s}_rows"] == n > 0 for s, n in rows.items()), f"preprocess QA {qa}")
+    check(int(bundle["meta/n_users"]) == N_USERS, "preprocess: users")
+    n_items = int(bundle["meta/n_movies"])
+    out.update(qa=qa, n_ratings=sum(rows.values()), n_items=n_items)
+
+    # train through the CLI's main, in this process so the counters see it
+    run = os.path.join(tmp, "run")
+    argv = ["--data", data, "--output_dir", run, "--use_dense_features",
+            "--use_side_features", "--embedding_dim", "128", "--cross_layers", "3",
+            "--batch_size", str(TRAIN_BATCH), "--epochs", str(TRAIN_EPOCHS),
+            "--device", "cuda"]
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    rc, _ = _call_cli(train_cli.main, argv)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    train_launches = {c.name: c.read() for c in counters}
+    check(rc == 0, f"train CLI: rc {rc}")
+    serving = os.path.join(run, "serving")
+    cfg = RecsysConfig.load(os.path.join(serving, "config.json"))
+    m = cfg.model
+    check(2 * m.embedding_dim + m.dense_features == DENSE_F and m.cross_layers == 3
+          and m.mixed_precision, f"train CLI config: {m}")
+    steps = rows["train"] // TRAIN_BATCH
+    for name in ("dcn_cross", "flash_ce_fwd", "flash_ce_bwd_du", "flash_ce_bwd_dv",
+                 "topk_flash"):
+        check(train_launches[name] > 0, f"{name} never launched on the dense-feature path")
+    check(train_launches["dcn_cross_bwd"] == TRAIN_EPOCHS * steps,
+          f"the DCN backward launched {train_launches['dcn_cross_bwd']} times in "
+          f"{TRAIN_EPOCHS * steps} steps")
+    check(train_launches["flash_ce_bwd_fused"] == 0, "the fused backward ran on bf16 operands")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = D.bwd_plan(TRAIN_BATCH, DENSE_F, 3, n_sm)
+    check(not plan.registers, f"F = {DENSE_F}: the backward's plan {plan}")
+    with open(os.path.join(run, "detailed_metrics.json")) as f:
+        hist = json.load(f)["epochs"]
+    for e in hist:
+        for k in ("train_loss", "val_loss", "train_rating_mse"):
+            check(math.isfinite(e[k]), f"dense train: epoch {e['epoch']} {k} = {e[k]}")
+    with open(os.path.join(run, "metrics.json")) as f:
+        final = json.load(f)
+    check(math.isfinite(final["rating_rmse"]) and 0 <= final["recall@10"] <= 1,
+          f"dense train: final metrics {final}")
+    check(os.path.exists(os.path.join(serving, "features.npz")), "no features.npz")
+    out.update(train_launches=train_launches, steps_per_epoch=steps, bwd_plan=plan._asdict(),
+               epoch_losses=[e["train_loss"] for e in hist],
+               examples_per_s=[e["examples_per_s"] for e in hist],
+               recall_at_10=final["recall@10"], rating_rmse=final["rating_rmse"],
+               ctr_auc=final.get("ctr_auc"))
+
+    # serve with rerank and features, held against the CPU plain path
+    served = serve_main_path(serving, counters, n_items=n_items)
+    svc, batch = served["service"], served["batch"]
+    check(svc.feature_engineer is not None and svc._rerank_active(),
+          "the dense-feature bundle did not rerank with its features")
+    check(served["launches"]["topk_flash"] > 0 and served["launches"]["dcn_cross"] > 0,
+          f"dense-feature serving: launches {served['launches']}")
+    out["serve"] = {"launches": served["launches"], "latency": served["latency"],
+                    "max_score_diff": served["max_score_diff"]}
+    eng = svc.feature_engineer
+    transform_ms = {}
+    for q in (1, BATCH_USERS):
+        ids = np.array([svc.user_id_map[u] for u in batch[:q]])
+        _, cand = svc._retrieve(ids, RERANK)
+        users, items = np.repeat(ids, RERANK), np.asarray(cand).reshape(-1)
+        now = np.full(len(users), eng.t_ref)
+        times = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            eng.transform_scaled(users, items, now)
+            times.append((time.perf_counter() - t0) * 1e3)
+        transform_ms[f"q{q}"] = sorted(times)[len(times) // 2]
+    out["host_transform_scaled_ms_p50"] = transform_ms
+    out["profiles"] = [dict(r, profile=r["profile"] + "_dense_features")
+                       for r in profile_requests(svc, batch)]
+
+    # evaluate: rerank 200, seen-filtered, through the CLI's main
+    report_path = os.path.join(tmp, "eval.json")
+    t0 = time.perf_counter()
+    rc, _ = _call_cli(eval_cli.main, ["--data", data, "--model_dir", serving,
+                                      "--rerank_candidates", str(RERANK), "--filter_seen",
+                                      "--device", "cuda", "--output", report_path])
+    out["evaluate_s"] = time.perf_counter() - t0
+    check(rc == 0, f"evaluate CLI: rc {rc}")
+    with open(report_path) as f:
+        report = json.load(f)
+    for key in ("recall@10", "ndcg@10", "two_stage_recall@10", "rating_rmse", "ctr_auc"):
+        check(isinstance(report.get(key), float) and math.isfinite(report[key]),
+              f"dense evaluate CLI: {key} = {report.get(key)}")
+    out["evaluate"] = {k: report[k] for k in ("recall@10", "ndcg@10", "two_stage_recall@10",
+                                              "two_stage_ndcg@10", "rating_rmse", "ctr_auc")}
+
+    # export top-200 on the card; the artifact on the card and on the CPU
+    # against the service's exact route
+    t0 = time.perf_counter()
+    rc, text = _call_cli(export_cli.main, ["--model_dir", serving, "--k", str(RERANK),
+                                           "--device", "cuda"])
+    out["export_s"] = time.perf_counter() - t0
+    check(rc == 0, f"export CLI: rc {rc}")
+    meta = json.loads(text[text.index("{"):])
+    check(meta["k"] == RERANK and meta["platforms"] == ["cpu", "cuda"]
+          and meta["source_fingerprint"] == bundle_fingerprint(serving),
+          f"export metadata {meta}")
+    artifact = os.path.join(serving, DEFAULT_ARTIFACT)
+    on_card, on_cpu = load_exported(artifact, "cuda"), load_exported(artifact, "cpu")
+    exact = RecommendationService(serving, device="cuda").load()
+    errs = {}
+    for q in (1, BATCH_USERS):
+        ids = np.array([exact.user_id_map[u] for u in batch[:q]])
+        got = on_card(ids)
+        check(got[0].shape == (q, RERANK) and np.isfinite(got[0]).all(), "artifact output")
+        errs[f"q{q}_vs_exact"] = same_topk(got, exact._retrieve(ids, RERANK), EXPORT_TOL,
+                                           f"artifact vs exact route, {q} users")
+        errs[f"q{q}_cpu_vs_card"] = same_topk(on_cpu(ids), got, EXPORT_TOL,
+                                              f"artifact on the CPU vs the card, {q} users")
+    exported = RecommendationService(serving, backend="exported", rerank_candidates=RERANK,
+                                     device="cuda").load()
+    for c in counters:
+        c.reset()
+    got_one, got_batch = exported.recommend(1, 10), exported.recommend_batch(batch, 10)
+    exported_launches = {c.name: c.read() for c in counters}
+    diff = same_ranking(got_one, svc.recommend(1, 10), SERVE_TOL,
+                        "exported backend, known user")
+    for a, b in zip(got_batch, svc.recommend_batch(batch, 10)):
+        diff = max(diff, same_ranking(a["recommendations"], b["recommendations"], SERVE_TOL,
+                                      f"exported backend, user {a['user_id']}"))
+    check(exported_launches["dcn_cross"] > 0 and exported_launches["topk_flash"] == 0,
+          f"exported backend launches {exported_launches}")
+    check("exported" in exported.get_model_info()["backend"], "exported backend info")
+    stale = os.path.join(tmp, "stale")
+    shutil.copytree(serving, stale)
+    idx = RetrievalIndex.load(os.path.join(stale, "index.npz"), "cpu")
+    RetrievalIndex(idx.item_embeddings_np[::-1].copy(), idx.item_raw_ids[::-1].copy(),
+                   device="cpu").save(os.path.join(stale, "index.npz"))
+    try:
+        RecommendationService(stale, backend="exported", device="cuda").load()
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check("different bundle" in refused, "a rebuilt index.npz was served by a stale artifact")
+    out["export"] = {"meta": meta, "max_score_diff": errs, "exported_rerank_diff": diff,
+                     "launches": exported_launches}
+    for q in (1, BATCH_USERS):
+        ids = np.array([exact.user_id_map[u] for u in batch[:q]])
+        out["profiles"].append(profile_call(f"exported_retrieve_q{q}_k{RERANK}",
+                                            lambda: on_card(ids)))
+        out["profiles"].append(profile_call(f"exact_route_retrieve_q{q}_k{RERANK}",
+                                            lambda: exact._retrieve(ids, RERANK)))
+
+    # rows 2 and 3 at F = 289: the rerank's x0 (64 users x 200 candidates)
+    # and a train batch
+    with torch.inference_mode():
+        ids = torch.as_tensor([svc.user_id_map[u] for u in batch], device="cuda")
+        _, cand = svc.index.search(svc._user_embedding(ids.cpu().numpy()), RERANK)
+        flat_u = ids.repeat_interleave(RERANK)
+        flat_i = torch.as_tensor(cand.reshape(-1), device="cuda")
+        u_emb, v_emb = TwoTower.apply(svc.model_params["towers"], m, flat_u, flat_i)
+        dense = torch.as_tensor(eng.transform_scaled(
+            flat_u.cpu().numpy(), cand.reshape(-1),
+            np.full(flat_u.shape[0], eng.t_ref)), device="cuda")
+        x0 = L.round_bf16(torch.cat([u_emb, v_emb, dense], dim=-1)).contiguous()
+        cross = svc.model_params["dcn"]["cross"]
+        w = torch.stack([cross[f"layer_{i}"]["w"] for i in range(m.cross_layers)])
+        b = torch.stack([cross[f"layer_{i}"]["b"] for i in range(m.cross_layers)])
+        out["dcn_fwd"] = measure_dcn(x0, w, b, iters=50)
+    out["dcn_bwd"] = measure_dcn_bwd(TRAIN_BATCH, iters=50, f=DENSE_F)
+    out["profiles"].append(profile_dense_train_step(bundle, m, os.path.join(tmp, "step")))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2429,6 +2773,18 @@ def main() -> int:
         log(f"profile {json.dumps(row)}")
     log(f"giant-table phases in {time.perf_counter() - t_giant:.1f} s")
 
+    # ---- data and features, export: the fifth main path -------------------
+    t_dense = time.perf_counter()
+    with tempfile.TemporaryDirectory() as dense_dir:
+        dense = dense_feature_path(repo, counters, dense_dir)
+    for row in dense.pop("profiles"):
+        log(f"profile {json.dumps(row)}")
+    log(f"kernel dcn_cross {json.dumps(dense['dcn_fwd'])}")
+    log(f"kernel dcn_cross_bwd {json.dumps(dense['dcn_bwd'])}")
+    log(f"data and features, export: {json.dumps(dense)}")
+    log(f"data-and-features phase in {time.perf_counter() - t_dense:.1f} s")
+    dense_launches = dense["train_launches"]
+
     main_topk = next(r for r in topk_rows
                      if r["shape"] == {"Q": BATCH_USERS, "N": N_ITEMS, "d": 128, "k": RERANK})
     main_dcn = dcn_rows[-1]
@@ -2449,12 +2805,17 @@ def main() -> int:
          "select_launches": launches["topk_select"],
          "select_ms": main_topk["select_ms"], "select_device_ms": main_topk["select_device_ms"],
          "launches_train": train_launches["topk_flash"],
+         "launches_dense_path": {"train": dense_launches["topk_flash"],
+                                 "serve": dense["serve"]["launches"]["topk_flash"]},
          "shape": main_topk["shape"], "shapes": topk_rows},
         {"name": "dcn_cross", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/dcn_cross.cu",
          "replaces": "recsys_tpu/ops/pallas/dcn_cross.py:43",
          "launches": launches["dcn_cross"], **{k: main_dcn[k] for k in keys},
          "launches_train": train_launches["dcn_cross"],
+         "launches_dense_path": {"train": dense_launches["dcn_cross"],
+                                 "serve": dense["serve"]["launches"]["dcn_cross"]},
+         "dense_features": dense["dcn_fwd"],
          "shape": main_dcn["shape"], "shapes": dcn_rows},
         {"name": "dcn_cross_bwd", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/dcn_cross.cu",
@@ -2468,6 +2829,8 @@ def main() -> int:
                                          "device_bound_share", "plain_device_ms")},
          "launches_fp32_epoch": fp32_launches["dcn_cross_bwd"],
          "launches_giant": giant_launches["dcn_cross_bwd"], "edges": dcn_bwd_edges,
+         "launches_dense_path": dense_launches["dcn_cross_bwd"],
+         "dense_features": dense["dcn_bwd"],
          "shape": main_dcn_bwd["shape"], "shapes": dcn_bwd_rows},
         {"name": "flash_ce_fwd", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/flash_ce.cu",
@@ -2481,6 +2844,7 @@ def main() -> int:
          "fp32_edges": fp32_du_fwd_edges,
          "launches_fp32_epoch": fp32_launches["flash_ce_fwd"],
          "launches_giant": giant_launches["flash_ce_fwd"],
+         "launches_dense_path": dense_launches["flash_ce_fwd"],
          "shape": main_fwd["shape"],
          "shapes": [r[0] for r in flash_rows.values()] + [twokernel["above_fwd"]]},
         {"name": "flash_ce_bwd_fused", "route": "cuda",
@@ -2510,6 +2874,7 @@ def main() -> int:
             "replaces": f"recsys_tpu/ops/pallas/flash_ce.py:{line}",
             "launches": giant_launches[name], **{k: main_row[k] for k in keys + speed},
             "launches_train": train_launches[name],
+            "launches_dense_path": dense_launches[name],
             "fp32": {k: twokernel["main_fp32"][i][k] for k in keys + speed},
             "shape": main_row["shape"], "shapes": [main_row, twokernel["above"][i]]})
     fp32_route = twokernel["fp32_route"]
@@ -2551,8 +2916,10 @@ AB_FLASH_SHAPES = [(4096, "bfloat16"), (TRAIN_BATCH, "bfloat16"), (TRAIN_BATCH, 
 AB_TWOKERNEL_SHAPES = [(TRAIN_BATCH, TRAIN_BATCH, "bfloat16"), (32_768, 65_536, "bfloat16"),
                        (TRAIN_BATCH, TRAIN_BATCH, "float32"),
                        (FP32_PAST_CAP_BATCH, FP32_PAST_CAP_BATCH, "float32")]
-# row 3 (the DCN backward): n rows at the flagship's F = 256, L = 3
-AB_DCN_ROWS = [2048, TRAIN_BATCH]
+# rows 2 (the DCN forward) and 3 (its backward): (n, F), L = 3, at the
+# flagship's F = 256 and at the dense-feature width
+AB_DCN_FWD_ROWS = [(BATCH_USERS * RERANK, 256), (BATCH_USERS * RERANK, DENSE_F)]
+AB_DCN_ROWS = [(2048, 256), (TRAIN_BATCH, 256), (TRAIN_BATCH, DENSE_F)]
 # row 8: (Q, N), bf16, d = 128, groups of 512
 AB_BLOCKMAX_SHAPES = [(1, LARGE_N_ITEMS), (BATCH_USERS, LARGE_N_ITEMS), (BIG_Q, BIG_N)]
 
@@ -2565,15 +2932,16 @@ def _timed(fn, iters: int, kernel: str, warmup: int = 2) -> dict:
 
 
 def time_kernels(tree: str) -> dict:
-    """Rows 1, 3, 4, 5, 6, 7 and 8 of the port found under ``tree`` (its own
+    """Rows 1 to 8 of the port found under ``tree`` (its own
     ``recsys_tpu_torch``, built into its own ``build/``) at the shapes of
-    ``AB_*_SHAPES`` on seeded inputs: CUDA-event ms and device ms per
+    the ``AB_*`` lists on seeded inputs: CUDA-event ms and device ms per
     call, through the same wrappers a caller uses; beside rows 4 to 8
     their library yardsticks where the dense scores fit (``matmul`` +
     ``logsumexp``, the dense softmax backward, ``softmax @ v``,
     ``softmax.T @ u`` with the column sums, ``matmul`` + ``amax``), which
     do not depend on the tree; row 3 with the device ms of its partials'
-    reduction apart."""
+    reduction apart; then :func:`time_main_path` through the tree's
+    service and trainer."""
     import torch
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -2585,7 +2953,8 @@ def time_kernels(tree: str) -> dict:
     unit = lambda *shape: torch.nn.functional.normalize(
         torch.randn(shape, generator=g, device="cuda"), dim=1)
     out = {"tree": tree, "topk": [], "flash_bwd": [], "flash_fwd": [], "flash_fwd_row4": [],
-           "row6_du": [], "row7_dv": [], "row8_blockmax": [], "row3_dcn_bwd": []}
+           "row6_du": [], "row7_dv": [], "row8_blockmax": [], "row2_dcn_fwd": [],
+           "row3_dcn_bwd": []}
     for q_n, n, k in AB_TOPK_SHAPES:
         u, v = unit(q_n, 128), unit(n, 128)
         iters = 3 if q_n * n > 1 << 26 else 50
@@ -2638,8 +3007,14 @@ def time_kernels(tree: str) -> dict:
         out["row7_dv"].append(row7)
         del u, v, args
         torch.cuda.empty_cache()
-    for n in AB_DCN_ROWS:
-        f, n_layers = 256, 3
+    n_layers = 3
+    for n, f in AB_DCN_FWD_ROWS:
+        x0 = torch.randn((n, f), generator=g, device="cuda")
+        w = torch.randn((n_layers, f), generator=g, device="cuda") * f ** -0.5
+        b = torch.randn((n_layers, f), generator=g, device="cuda") * 0.1
+        timed = _timed(lambda: D.dcn_cross(x0, w, b), 50, "dcn_cross_fwd")
+        out["row2_dcn_fwd"].append({"n": n, "F": f, "L": n_layers, **timed})
+    for n, f in AB_DCN_ROWS:
         x0 = torch.randn((n, f), generator=g, device="cuda")
         w = torch.randn((n_layers, f), generator=g, device="cuda") * f ** -0.5
         b = torch.randn((n_layers, f), generator=g, device="cuda") * 0.1
@@ -2664,14 +3039,62 @@ def time_kernels(tree: str) -> dict:
         out["row8_blockmax"].append(row)
         del u, v
         torch.cuda.empty_cache()
+    out["e2e"] = time_main_path()
     return out
 
 
+def time_main_path() -> list:
+    """The served requests of phase 7 (a full-width random bundle from
+    ``SEED``, rerank 200) and the B = 8,192 flash train step of phase 11,
+    through the service and trainer of the package on ``sys.path``,
+    profiled by :func:`profile_call`: wall p50 / p90, device ms, launches
+    and busy share."""
+    import numpy as np
+    import torch
+    from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
+    from recsys_tpu_torch.models.losses import balanced_class_weights
+    from recsys_tpu_torch.models.multitask import MultiTaskModel
+    from recsys_tpu_torch.retrieval.scorer import RetrievalIndex
+    from recsys_tpu_torch.serve.service import RecommendationService
+    from recsys_tpu_torch.train.checkpoint import save_inference_bundle
+    from recsys_tpu_torch.train.trainer import Trainer
+
+    cfg = RecsysConfig(model=ModelConfig(dropout_rate=0.0))
+    params = MultiTaskModel.init(torch.Generator().manual_seed(SEED), cfg.model, N_USERS,
+                                 N_ITEMS, "cuda")
+    raw_items = np.arange(1, N_ITEMS + 1)
+    index = RetrievalIndex.build(params["towers"], cfg.model, N_ITEMS, raw_items,
+                                 device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        save_inference_bundle(d, params["towers"], cfg, np.arange(1, N_USERS + 1), raw_items,
+                              index=index, full_params=params)
+        svc = RecommendationService(d, rerank_candidates=RERANK, device="cuda").load()
+        batch = [int(u) for u in np.arange(1, N_USERS + 1, N_USERS // BATCH_USERS)]
+        rows = profile_requests(svc, batch[:BATCH_USERS])
+    bundle = synthetic_bundle(SEED)
+    batches = _batches(bundle, 2, TRAIN_BATCH, "cuda", _log_q(bundle))
+    with tempfile.TemporaryDirectory() as d:
+        tr = Trainer(RecsysConfig(model=ModelConfig(use_flash_ce=True),
+                                  train=TrainConfig(batch_size=TRAIN_BATCH)), d, device="cuda")
+        holder = [tr.init_state(N_USERS, N_ITEMS, SEED)]
+        step = tr.make_train_step(balanced_class_weights(bundle["train/y_implicit"]))
+
+        def one():
+            holder[0], _ = step(holder[0], batches[holder[0].step % 2])
+
+        rows.append(profile_call(f"train_step_B{TRAIN_BATCH}_flash", one, n_wall=20,
+                                 n_traced=5, warmup=2))
+    keys = ("profile", "wall_ms_p50", "wall_ms_p90", "device_ms", "device_launches",
+            "device_busy_share")
+    return [{k: r[k] for k in keys} for r in rows]
+
+
 def ab(parent: str) -> int:
-    """Rows 1, 3, 4, 5, 6, 7 and 8 of ``parent`` (an unpacked checkout of
-    another commit) and of this tree, timed in turns on one card (parent,
-    this, this, parent), each in a process of its own: prints one JSON line
-    per run and the card's line."""
+    """Rows 1 to 8 of ``parent`` (an unpacked checkout of another commit)
+    and of this tree, and their served requests and train step
+    (:func:`time_main_path`), timed in turns on one card (parent, this,
+    this, parent), each in a process of its own: prints one JSON line per
+    run and the card's line."""
     import torch
 
     if not torch.cuda.is_available():

@@ -4,12 +4,16 @@ A second package beside the JAX reference (``recsys_tpu``), written for
 one NVIDIA H100: plain PyTorch around hand-written CUDA kernels for
 Hopper (``csrc/``), each with a plain PyTorch version that the CPU runs.
 It imports neither ``jax`` nor anything of ``recsys_tpu``; it keeps its
-own copy of what it needs (``config``). Params use the JAX package's
-tree layout, so inference bundles load in either package.
+own copy of what it needs (``config``, the numpy data layer). Params use
+the JAX package's tree layout, so inference bundles load in either
+package.
 
-Ported so far: the serving path (bundle I/O, towers, DCN trunk and heads
-in inference mode, exact top-k retrieval, the device recommendation
-service and the threaded HTTP server).
+Ported so far: preprocessing and the engineered features (``data``,
+``python -m recsys_tpu_torch.preprocess``), single-GPU training
+(``train``), evaluation (``retrieval``, ``evaluate``), serving with the
+device and exported backends (``serve``) and the export of the retrieve
+path (``python -m recsys_tpu_torch.export``). ``ROADMAP.md`` lists the
+rest.
 """
 
 from recsys_tpu_torch.config import (

@@ -52,8 +52,8 @@ class ModelConfig:
     use_pallas_dcn: bool = False
     use_flash_ce: Any = "auto"
     retrieval_logits_cap_gb: float = 8.0
-    # width of the engineered dense-feature vector in the DCN input;
-    # the port serves only dense_features=0 so far
+    # width of the engineered dense-feature vector in the DCN input
+    # (data/features.py: FeatureEngineer.n_features); 0 = none
     dense_features: int = 0
     softmax_temperature: float = 1.0
     use_item_bias: bool = True

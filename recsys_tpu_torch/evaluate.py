@@ -9,8 +9,10 @@ Usage:
       [--score_norm dot] [--eval_sample 0] [--rerank_candidates 200] \\
       [--output metrics_test.json] [--device cuda|cpu]
 
-The flags are those of ``scripts/evaluate.py`` plus ``--device``; a
-model with dense features raises (not ported yet).
+The flags are those of ``scripts/evaluate.py`` plus ``--device``. A
+model with engineered dense features takes them from the bundle's
+``features.npz`` (its absence is an error), as ``scripts/evaluate.py``
+does.
 """
 
 from __future__ import annotations
@@ -61,21 +63,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     from recsys_tpu_torch.config import RecsysConfig
     from recsys_tpu_torch.retrieval.evaluator import evaluate, two_stage_evaluate
-    from recsys_tpu_torch.train.checkpoint import load_model_params, params_from_numpy
+    from recsys_tpu_torch.data.preprocessing import load_bundle
+    from recsys_tpu_torch.train.checkpoint import (
+        load_feature_engineer, load_model_params, params_from_numpy,
+    )
 
     cfg = RecsysConfig.load(os.path.join(args.model_dir, "config.json"))
-    if cfg.model.dense_features > 0:
-        raise NotImplementedError(
-            "evaluating a model with dense features needs the feature engineer, "
-            "which is not ported to recsys_tpu_torch yet (ROADMAP Queue 1: item 4, "
-            "data and features)")
     params = load_model_params(args.model_dir)
     if params is None:
         ap.error(f"{args.model_dir}/model.npz not found: retrain to produce a "
                  "full-params bundle")
     params = params_from_numpy(params, args.device)
-    with np.load(args.data, allow_pickle=False) as z:
-        bundle = {k: z[k] for k in z.files}
+    bundle = load_bundle(args.data)
 
     eval_cfg = dataclasses.replace(
         cfg.eval,
@@ -85,11 +84,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         filter_seen=args.filter_seen or cfg.eval.filter_seen,
         score_norm=args.score_norm or cfg.eval.score_norm,
     )
-    report = evaluate(params, cfg.model, bundle, args.split, eval_cfg, seed=args.seed)
+    engineer = load_feature_engineer(args.model_dir)
+    dense = None
+    if cfg.model.dense_features > 0:
+        if engineer is None:
+            ap.error("model consumes dense features but the bundle has no features.npz")
+        dense = engineer.transform_scaled(
+            bundle[f"{args.split}/user_id"], bundle[f"{args.split}/movie_id"],
+            bundle[f"{args.split}/timestamp"].astype(np.float64))
+    report = evaluate(params, cfg.model, bundle, args.split, eval_cfg, seed=args.seed,
+                      dense=dense)
     if args.rerank_candidates > 0:
         report.update(two_stage_evaluate(
             params, cfg.model, bundle, args.split, n_cand=args.rerank_candidates,
-            ctr_weight=args.rerank_ctr_weight, seed=args.seed))
+            ctr_weight=args.rerank_ctr_weight, engineer=engineer, seed=args.seed))
     report["split"] = args.split
     report["model_dir"] = args.model_dir
 

@@ -89,18 +89,18 @@ class MultiTaskModel:
 
         ``batch`` holds tensors on the params' device: ``user_id``,
         ``movie_id``, ``rating``, ``y_implicit`` and optionally ``mask``,
-        ``log_q``, ``mask_ids``. ``extra_candidates`` ``(emb, ids, corr)``
+        ``log_q``, ``mask_ids`` and ``dense`` (the engineered features). ``extra_candidates`` ``(emb, ids, corr)``
         appends negative columns to the retrieval softmax. The
         data-parallel arguments, explicit negatives and a custom
         ``lookup`` are not ported yet and raise."""
         if data_axis is not None or lookup is not None:
             raise NotImplementedError(
                 "data_axis / lookup (the SPMD step) are not ported to "
-                "recsys_tpu_torch yet (ROADMAP Queue 1: item 11, multi-GPU)")
+                "recsys_tpu_torch yet (ROADMAP Queue 1: item 8, multi-GPU)")
         if neg_item_ids is not None:
             raise NotImplementedError(
                 "explicit negatives are not ported to recsys_tpu_torch yet "
-                "(ROADMAP Queue 1: item 9, single-GPU scale paths)")
+                "(ROADMAP Queue 1: item 3, explicit negatives and streaming)")
         out = MultiTaskModel.apply(params, cfg, batch["user_id"], batch["movie_id"],
                                    dense=batch.get("dense"), train=train,
                                    generator=generator)

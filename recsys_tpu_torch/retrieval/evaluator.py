@@ -10,6 +10,11 @@ package's two branches: a per-batch [B, N] seen mask while B * N stays
 under ``_BATCH_MASK_LIMIT``, else retrieve k + max_seen candidates with
 the exact top-k (the blockwise scan once the dense scores would pass
 ``scorer._DENSE_SCORES_CAP``) and drop the seen ones on the host.
+
+A model with engineered dense features (``ModelConfig.dense_features >
+0``) takes the split's feature matrix (``evaluate(dense=...)``) or a
+fitted engineer (``two_stage_evaluate(engineer=...)``); without them both
+fit the engineer from the bundle, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -20,18 +25,12 @@ import numpy as np
 import torch
 
 from recsys_tpu_torch.config import EvalConfig, ModelConfig
+from recsys_tpu_torch.data.features import make_engineer
 from recsys_tpu_torch.models.multitask import MultiTaskModel
 from recsys_tpu_torch.models.towers import TwoTower
 from recsys_tpu_torch.ops.topk_flash import NEG_INF, l2_normalize
 from recsys_tpu_torch.retrieval.metrics import RankingMetrics
 from recsys_tpu_torch.retrieval.scorer import exact_topk, materialize_item_embeddings
-
-
-def _no_dense_features(cfg: ModelConfig, dense=None) -> None:
-    if cfg.dense_features > 0 or dense is not None:
-        raise NotImplementedError(
-            "dense features are not ported to recsys_tpu_torch yet "
-            "(ROADMAP Queue 1: item 4, data and features)")
 
 
 class SeenIndex:
@@ -132,17 +131,22 @@ def evaluate(params: Dict, cfg: ModelConfig, bundle: Dict[str, np.ndarray],
              dense: Optional[np.ndarray] = None) -> Dict[str, float]:
     """Full metric report for one split, computed on the device the
     params lie on. ``eval_sample`` draws that many rows with numpy's
-    ``default_rng(seed)``, as the JAX package does."""
-    _no_dense_features(cfg, dense)
+    ``default_rng(seed)``, as the JAX package does. ``dense``: the split's
+    engineered feature matrix [N, F] for a model with
+    ``cfg.dense_features > 0`` (fitted here from the bundle when None)."""
     uid = bundle[f"{split}/user_id"]
     mid = bundle[f"{split}/movie_id"]
     rating = bundle[f"{split}/rating"]
     y = bundle[f"{split}/y_implicit"]
     n_items = int(bundle["meta/n_movies"])
+    if cfg.dense_features > 0 and dense is None:
+        dense = make_engineer(bundle, cfg.dense_features).fit_transform_splits(bundle)[split]
     if eval_cfg.eval_sample and len(uid) > eval_cfg.eval_sample:
         idx = np.random.default_rng(seed).choice(len(uid), eval_cfg.eval_sample,
                                                  replace=False)
         uid, mid, rating, y = uid[idx], mid[idx], rating[idx], y[idx]
+        if dense is not None:
+            dense = dense[idx]
 
     # seen-item filtering: with a temporal holdout the user's next item
     # is not among their train items, so scoring seen items only measures
@@ -172,7 +176,10 @@ def evaluate(params: Dict, cfg: ModelConfig, bundle: Dict[str, np.ndarray],
         else:
             top_ids = _filtered_topk(u_emb, item_embs, uid[lo:lo + bs], seen_index,
                                      max_k, bs, n_items, use_cosine, item_bias)
-        out = MultiTaskModel.apply(params, cfg, u_ids, m_ids)
+        d_rows = None
+        if dense is not None:
+            d_rows = torch.as_tensor(dense[lo:lo + bs], device=device)
+        out = MultiTaskModel.apply(params, cfg, u_ids, m_ids, dense=d_rows)
         preds_list.append(top_ids[:, :max_k])
         rat_list.append(out.rating_pred.cpu().numpy())
         ctr_list.append(torch.sigmoid(out.ctr_logit).cpu().numpy())
@@ -198,13 +205,19 @@ def two_stage_evaluate(params: Dict, cfg: ModelConfig, bundle: Dict[str, np.ndar
     rerank by ``retrieval score + ctr_weight * CTR logit (+ rating_weight
     * rating)`` through the full model (the DCN cross-stack kernel on the
     card), then recall and ndcg at ``topk`` of the reranked list, over the
-    split's first ``max_rows`` rows. ``engineer`` and ``seed`` are the
-    JAX signature's; dense features are not ported and raise."""
+    split's first ``max_rows`` rows. ``engineer``: the fitted
+    ``FeatureEngineer`` of a model with ``cfg.dense_features > 0`` (fitted
+    here from the bundle when None); each candidate's features are taken
+    at its row's timestamp. ``seed`` is the JAX signature's."""
     del seed
-    _no_dense_features(cfg, engineer)
     n_items = int(bundle["meta/n_movies"])
     uid = bundle[f"{split}/user_id"][:max_rows]
     mid = bundle[f"{split}/movie_id"][:max_rows]
+    if cfg.dense_features > 0:
+        ts = bundle[f"{split}/timestamp"][:max_rows].astype(np.float64)
+        if engineer is None:
+            engineer = make_engineer(bundle, cfg.dense_features)
+            engineer.fit_transform_splits(bundle)  # fits the stats and the train scaler
     towers = params["towers"]
     device = towers["item_table"].device
     item_embs = materialize_item_embeddings(towers, cfg, n_items)
@@ -230,8 +243,13 @@ def two_stage_evaluate(params: Dict, cfg: ModelConfig, bundle: Dict[str, np.ndar
                                              scores.cpu().numpy())
             cand_scores = torch.as_tensor(sc, device=device)
             cand = torch.as_tensor(ids, device=device)
+        d_rows = None
+        if cfg.dense_features > 0:
+            d_rows = torch.as_tensor(engineer.transform_scaled(
+                np.repeat(chunk, n_cand), cand.reshape(-1).cpu().numpy(),
+                np.repeat(ts[lo:lo + bs], n_cand)), device=device)
         out = MultiTaskModel.apply(params, cfg, u_ids.repeat_interleave(n_cand),
-                                   cand.reshape(-1))
+                                   cand.reshape(-1), dense=d_rows)
         combined = cand_scores + ctr_weight * out.ctr_logit.reshape(-1, n_cand)
         if rating_weight:
             combined = combined + rating_weight * out.rating_pred.reshape(-1, n_cand)

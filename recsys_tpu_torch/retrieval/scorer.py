@@ -216,7 +216,7 @@ class RetrievalIndex:
         return torch.matmul(u, sel.T).cpu().numpy()
 
     def shard(self, *args, **kwargs):
-        _not_ported("ShardedIndex", "multi-GPU")
+        _not_ported("ShardedIndex", "item 8, multi-GPU")
 
     def save(self, path: str) -> None:
         """The JAX package's npz keys, uncompressed: fp32 embeddings shrink

@@ -3,7 +3,11 @@
 Usage:
   python -m recsys_tpu_torch.serve --model_dir outputs/models/experiment_001/serving \\
       [--rerank_candidates 200] [--int8_catalog] [--device cuda|cpu] \\
+      [--backend auto|device|exported] [--exported_path <model_dir>/retrieve.pt2] \\
       [--host 0.0.0.0] [--port 8000]
+
+``--backend`` takes the JAX CLI's choices; ``native`` and ``sharded`` are
+not ported yet and exit naming their ROADMAP Queue 1 item.
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
+
+from recsys_tpu_torch.serve.service import NOT_PORTED_BACKENDS, BACKENDS
 
 
 def main(argv=None) -> int:
@@ -36,7 +42,17 @@ def main(argv=None) -> int:
                     help="serve from an int8-quantized catalog (4x less "
                          "device memory) with an exact fp32 refine of the "
                          "top 4k candidates")
+    ap.add_argument("--backend", default="auto", choices=list(BACKENDS),
+                    help="scoring backend: the device scorer (auto, device) or the "
+                         "torch.export artifact (exported); native and sharded are "
+                         "not ported yet")
+    ap.add_argument("--exported_path", default=None,
+                    help="artifact of the exported backend (default: "
+                         "<model_dir>/retrieve.pt2)")
     args = ap.parse_args(argv)
+    if args.backend in NOT_PORTED_BACKENDS:
+        ap.error(f"--backend {args.backend} is not ported to recsys_tpu_torch yet "
+                 f"(ROADMAP Queue 1: {NOT_PORTED_BACKENDS[args.backend]})")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
@@ -47,7 +63,8 @@ def main(argv=None) -> int:
                   rerank_candidates=args.rerank_candidates,
                   rerank_ctr_weight=args.rerank_ctr_weight,
                   rerank_rating_weight=args.rerank_rating_weight,
-                  int8_catalog=args.int8_catalog, device=args.device)
+                  int8_catalog=args.int8_catalog, device=args.device,
+                  backend=args.backend, exported_path=args.exported_path)
     return 0
 
 

@@ -299,7 +299,8 @@ def serve_forever(model_dir: str, host: str = "0.0.0.0", port: int = 8000,
                   rerank_ctr_weight: float = 0.25,
                   rerank_rating_weight: float = 0.0,
                   int8_catalog: bool = False,
-                  device: DeviceLike = "cuda") -> None:
+                  device: DeviceLike = "cuda", backend: str = "auto",
+                  exported_path: Optional[str] = None) -> None:
     """Load the inference bundle and serve. If the model fails to load,
     the server still starts and answers 503s (the startup-failure
     contract)."""
@@ -309,10 +310,10 @@ def serve_forever(model_dir: str, host: str = "0.0.0.0", port: int = 8000,
     else:
         try:
             service = RecommendationService(
-                model_dir, rerank_candidates=rerank_candidates,
+                model_dir, backend=backend, rerank_candidates=rerank_candidates,
                 rerank_ctr_weight=rerank_ctr_weight,
                 rerank_rating_weight=rerank_rating_weight,
-                int8_catalog=int8_catalog, device=device,
+                int8_catalog=int8_catalog, device=device, exported_path=exported_path,
             ).load()
         except Exception:
             logger.exception("model load failed; serving in degraded mode (503s)")

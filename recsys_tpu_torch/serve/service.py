@@ -10,6 +10,13 @@
   catalog with an exact fp32 refine under ``int8_catalog``; else, above
   ``approx_search_threshold`` items, the group-max sieve (the blockmax
   kernel on the card); else exact top-k (the flash top-k kernel).
+  ``backend="exported"`` retrieves through the ``torch.export`` artifact
+  of ``serve/export.py`` instead (user tower, normalize, matmul,
+  ``torch.topk`` in one program), refused when the bundle changed since
+  the export. A model with engineered dense features reranks with the
+  bundle's fitted ``FeatureEngineer`` (``features.npz``), its features
+  computed on the host at the end-of-train timestamp and sent to the
+  device.
 * :class:`StubRecommendationService` is the model-free degraded-mode
   stand-in with seeded random embeddings.
 
@@ -17,8 +24,8 @@ Contract notes, as in the JAX package: ``recommend`` scores are cosine,
 ``score`` is the raw dot product, and an unknown user gets the
 popularity fallback (first-k catalog order, scores ``1 - 0.05*i``).
 
-Only the device backend is ported. ``"auto"`` means that backend on the
-card (the JAX package's "auto" picks its host backend).
+The device and exported backends are ported. ``"auto"`` means the device
+backend (the JAX package's "auto" picks its host backend).
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from __future__ import annotations
 import json
 import logging
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -35,20 +42,21 @@ from recsys_tpu_torch.config import ModelConfig, RecsysConfig
 from recsys_tpu_torch.models.multitask import MultiTaskModel
 from recsys_tpu_torch.models.towers import TwoTower
 from recsys_tpu_torch.retrieval.scorer import RetrievalIndex
+from recsys_tpu_torch.serve.export import DEFAULT_ARTIFACT, bundle_fingerprint, load_exported
 from recsys_tpu_torch.train.checkpoint import (
-    load_encoder_params, load_model_params, params_from_numpy,
+    load_encoder_params, load_feature_engineer, load_model_params, params_from_numpy,
 )
 from recsys_tpu_torch.utils.device import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
 
 # backends of the JAX package that the port does not have yet, and the
-# ROADMAP item that will bring each
-_NOT_PORTED_BACKENDS = {
-    "native": "host serving backends",
-    "sharded": "multi-GPU",
-    "exported": "export",
+# ROADMAP Queue 1 item that will bring each
+NOT_PORTED_BACKENDS = {
+    "native": "item 4, the rest of serving",
+    "sharded": "item 8, multi-GPU",
 }
+BACKENDS = ("auto", "device", "native", "sharded", "exported")
 
 
 # what get_model_info reports for each top-k route
@@ -56,6 +64,7 @@ _SEARCH_ROUTES = {
     "int8": "int8 catalog, blockwise top-4k, exact fp32 refine",
     "approx": "group-max sieve over the bf16 catalog (blockmax)",
     "exact": "exact top-k (flash top-k for k <= 256)",
+    "exported": "exported artifact (torch.export: tower, matmul, torch.topk)",
 }
 
 
@@ -64,7 +73,9 @@ def _host(x) -> np.ndarray:
 
 
 class RecommendationService:
-    """``backend``: ``"device"`` or ``"auto"`` (the same thing here).
+    """``backend``: ``"device"`` or ``"auto"`` (the same thing here), or
+    ``"exported"``: retrieval through the artifact at ``exported_path``
+    (default ``<model_dir>/retrieve.pt2``), loaded onto ``device``.
     ``device``: ``"cuda"`` (default; raises if absent) or ``"cpu"``."""
 
     def __init__(self, model_dir: str, backend: str = "auto",
@@ -73,14 +84,18 @@ class RecommendationService:
                  rerank_ctr_weight: float = 0.25,
                  rerank_rating_weight: float = 0.0,
                  int8_catalog: bool = False,
-                 device: DeviceLike = "cuda"):
-        if backend in _NOT_PORTED_BACKENDS:
+                 device: DeviceLike = "cuda",
+                 exported_path: Optional[str] = None):
+        if backend in NOT_PORTED_BACKENDS:
             raise NotImplementedError(
                 f"backend {backend!r} is not ported to recsys_tpu_torch yet "
-                f"(ROADMAP Queue 1: {_NOT_PORTED_BACKENDS[backend]})")
-        if backend not in ("auto", "device"):
+                f"(ROADMAP Queue 1: {NOT_PORTED_BACKENDS[backend]})")
+        if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
         self.backend = backend
+        self.exported_path = exported_path
+        self._exported_fn = None
+        self._exported_k = 0
         self.device = resolve_device(device)
         # int8-quantized catalog (4x less device memory), searched
         # blockwise, its top 4k candidates rescored exactly in fp32
@@ -98,6 +113,7 @@ class RecommendationService:
         self.config: RecsysConfig = None
         self.encoder_params = None
         self.model_params = None
+        self.feature_engineer = None
         self.index: RetrievalIndex = None
         self.user_id_map: Dict[int, int] = {}
         self.item_id_map: Dict[int, int] = {}
@@ -115,23 +131,51 @@ class RecommendationService:
         self.item_id_map = {int(m): i for i, m in enumerate(vocabs["items"])}
         self.encoder_params = params_from_numpy(load_encoder_params(d), self.device)
         if self.rerank_candidates > 0:
-            if self.config.model.dense_features > 0:
-                raise NotImplementedError(
-                    "rerank of a model with dense_features > 0 needs the "
-                    "feature engineer, which is not ported to "
-                    "recsys_tpu_torch yet (ROADMAP Queue 1: data and features)")
             params = load_model_params(d)
+            # the fitted FeatureEngineer (present when the model takes
+            # engineered dense features): rerank computes the training-time
+            # features, with "now" the end of train
+            self.feature_engineer = load_feature_engineer(d)
             if params is None:
                 logger.warning("rerank requested but %s has no model.npz; "
                                "serving retrieval-only", d)
+            elif self.config.model.dense_features > 0 and self.feature_engineer is None:
+                logger.warning("model consumes dense features but %s has no "
+                               "features.npz; serving retrieval-only", d)
             else:
                 self.model_params = params_from_numpy(params, self.device)
         self.index = RetrievalIndex.load(os.path.join(d, "index.npz"), self.device)
+        if self.backend == "exported":
+            self._load_exported()
         self._popular = [int(r) for r in self.index.item_raw_ids[:200]]
         self._ready = True
         logger.info("loaded model from %s (%d users, %d items) on %s",
                     d, len(self.user_id_map), len(self.item_id_map), self.device)
         return self
+
+    def _load_exported(self) -> None:
+        """The artifact and its metadata; refuses an artifact built from
+        another bundle (its weights and catalog order would not be this
+        bundle's, while ids map through this bundle's index) and a rerank
+        deeper than the exported k."""
+        d = self.model_dir
+        path = self.exported_path or os.path.join(d, DEFAULT_ARTIFACT)
+        with open(path + ".json") as f:
+            meta = json.load(f)
+        current = bundle_fingerprint(d)
+        stamped = meta.get("source_fingerprint")
+        if stamped != current:
+            raise ValueError(
+                f"exported artifact {path} was built from a different bundle than "
+                f"{d} (stamped fingerprint {stamped!r}, current {current[:16]}...): "
+                "the bundle was retrained or rebuilt after export; re-run "
+                "python -m recsys_tpu_torch.export")
+        self._exported_k = int(meta["k"])
+        if self.rerank_candidates > self._exported_k:
+            raise ValueError(
+                f"rerank_candidates={self.rerank_candidates} exceeds the artifact's "
+                f"exported top-k ({self._exported_k}); re-export with a larger --k")
+        self._exported_fn = load_exported(path, self.device)
 
     def is_ready(self) -> bool:
         return self._ready
@@ -143,6 +187,8 @@ class RecommendationService:
         return TwoTower.user_embed(self.encoder_params, ids, self.config.model)
 
     def _search_route(self) -> str:
+        if self.backend == "exported":
+            return "exported"
         if self.int8_catalog:
             return "int8"
         n_index_rows = self.index.item_embeddings_np.shape[0]
@@ -152,8 +198,14 @@ class RecommendationService:
 
     def _retrieve(self, dense_ids, k: int):
         """dense user ids -> (cosine scores [Q, k], catalog rows [Q, k])."""
-        u = self._user_embedding(dense_ids)
         route = self._search_route()
+        if route == "exported":
+            if k > self._exported_k:
+                raise ValueError(f"k={k} exceeds the artifact's exported top-k "
+                                 f"({self._exported_k}); re-export with a larger --k")
+            scores, idx = self._exported_fn(np.atleast_1d(np.asarray(dense_ids)))
+            return scores[:, :k], idx[:, :k]
+        u = self._user_embedding(dense_ids)
         if route == "int8":
             return self.index.search(u, k, int8=True, approx=True, refine_factor=4)
         if route == "approx":
@@ -167,12 +219,22 @@ class RecommendationService:
     def _rerank(self, dense_uids, scores, idx, k: int):
         """Two-stage rerank: [Q, C] candidates -> top-[Q, k] by retrieval
         score + ctr weight * CTR logit [+ rating weight * rating], from a
-        full per-pair ``MultiTaskModel.apply`` on the device."""
+        full per-pair ``MultiTaskModel.apply`` on the device; with dense
+        features, each pair's engineered features at the end-of-train
+        timestamp, computed on the host."""
         idx = np.asarray(idx)
         q, c = idx.shape
-        flat_u = torch.as_tensor(np.repeat(np.asarray(dense_uids), c), device=self.device)
+        users = np.repeat(np.asarray(dense_uids), c)
+        flat_u = torch.as_tensor(users, device=self.device)
         flat_i = torch.as_tensor(idx.reshape(-1), device=self.device)
-        out = MultiTaskModel.apply(self.model_params, self.config.model, flat_u, flat_i)
+        dense = None
+        if self.config.model.dense_features > 0:
+            eng = self.feature_engineer
+            feats = eng.transform_scaled(users, idx.reshape(-1),
+                                         np.full(len(users), eng.t_ref))
+            dense = torch.as_tensor(feats, device=self.device)
+        out = MultiTaskModel.apply(self.model_params, self.config.model, flat_u, flat_i,
+                                   dense=dense)
         ctr = out.ctr_logit.cpu().numpy().reshape(q, c)
         combined = np.asarray(scores) + self.rerank_ctr_weight * ctr
         if self.rerank_rating_weight:
@@ -269,7 +331,9 @@ class RecommendationService:
             "n_users": len(self.user_id_map),
             "n_items": len(self.item_id_map),
             "embedding_dim": self.config.model.embedding_dim if self.config else None,
-            "backend": f"recsys_tpu_torch device scorer ({self.device.type})",
+            "backend": (f"recsys_tpu_torch "
+                        f"{'exported' if self.backend == 'exported' else 'device'} "
+                        f"scorer ({self.device.type})"),
             "search": (_SEARCH_ROUTES[self._search_route()]
                        if self.index is not None else None),
             "ready": self._ready,

@@ -1,2 +1,2 @@
-"""Training layer. So far only the inference-bundle I/O and the weight
-bridge (``checkpoint``); the trainer is the next slice of the port."""
+"""Training layer: the single-GPU trainer, the optimizers, checkpoints,
+the inference-bundle I/O and the weight bridge between the packages."""

@@ -12,9 +12,11 @@ nothing on one device. ``--negative_sampling``, ``--model_parallel``,
 ``--embedding_sharding`` and ``--lookup_strategy`` take the JAX CLI's
 choices, but only the values the port runs (``random``, 1,
 ``replicated``, ``xla``: their defaults); any other value exits with an
-error that names its ROADMAP Queue 1 item. Flags whose modes are not
-ported yet (``--use_dense_features``, ``--mined_from``, ...) are errors,
-as is any other flag.
+error that names its ROADMAP Queue 1 item. ``--use_dense_features``
+sets ``model.dense_features`` to the engineered feature width (29, or 33
+with ``--use_side_features``, which alone exits as in the JAX CLI). Flags
+whose modes are not ported yet (``--mined_from``, ...) are errors, as is
+any other flag.
 ``--set KEY=VALUE`` overrides a dotted config field (the value is parsed
 as JSON, ``true``/``false``/``none`` included, else kept as a string).
 The run writes what the JAX trainer writes: ``config.json``,
@@ -73,10 +75,19 @@ def parse_overrides(pairs: Sequence[str]) -> dict:
 
 def build_config(args) -> RecsysConfig:
     _check_ported(args)
+    dense = 0
+    if args.use_dense_features:
+        from recsys_tpu_torch.data.features import FeatureEngineer
+
+        side = args.use_side_features
+        dense = FeatureEngineer.n_features(n_user_side=3 if side else 0,
+                                           n_item_side=1 if side else 0)
+    elif args.use_side_features:
+        raise SystemExit("--use_side_features requires --use_dense_features")
     cfg = RecsysConfig(
         model=ModelConfig(embedding_dim=args.embedding_dim, cross_layers=args.cross_layers,
                           ctr_weight=args.ctr_weight, rating_weight=args.rating_weight,
-                          mixed_precision=args.bf16,
+                          mixed_precision=args.bf16, dense_features=dense,
                           softmax_temperature=args.softmax_temperature,
                           use_flash_ce=_RETRIEVAL_LOSS[args.retrieval_loss]),
         data=DataConfig(processed_path=args.data, negative_sampling=args.negative_sampling,
@@ -129,6 +140,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-bf16", dest="bf16", action="store_false")
     ap.add_argument("--eval_sample", type=int, default=0,
                     help="0 = full-split eval; N = reference-style sampled eval")
+    ap.add_argument("--use_dense_features", action="store_true",
+                    help="feed the engineered feature set into the DCN ranking input")
+    ap.add_argument("--use_side_features", action="store_true",
+                    help="add the MovieLens demographic side tables (gender, age, "
+                         "occupation, movie year) to the engineered features; "
+                         "requires --use_dense_features")
     ap.add_argument("--softmax_temperature", type=float, default=1.0,
                     help="retrieval in-batch softmax temperature")
     ap.add_argument("--retrieval_loss", default="auto", choices=sorted(_RETRIEVAL_LOSS))

@@ -8,7 +8,9 @@ The bundle layout is the JAX package's (``recsys_tpu/train/checkpoint.py``):
   ``towers/user_tower/layer_0/w``, enabling two-stage rerank;
 * ``vocabs.json`` — raw user / item id lists;
 * ``config.json`` — :class:`~recsys_tpu_torch.config.RecsysConfig`;
-* ``index.npz``   — :class:`~recsys_tpu_torch.retrieval.scorer.RetrievalIndex`.
+* ``index.npz``   — :class:`~recsys_tpu_torch.retrieval.scorer.RetrievalIndex`;
+* ``features.npz`` — the fitted ``FeatureEngineer`` state, when the model
+  takes engineered dense features (``ModelConfig.dense_features``).
 
 A dense ``w`` is stored ``[in, out]`` (not ``nn.Linear``'s ``[out, in]``),
 and the port keeps it so in memory too: its params are nested dicts of
@@ -218,15 +220,19 @@ def save_inference_bundle(
     item_raw_ids: np.ndarray,
     index=None,
     full_params: Optional[Dict] = None,
+    feature_state: Optional[Dict[str, np.ndarray]] = None,
 ) -> None:
     """Write the serving artifact set (see the module docstring).
-    ``tower_params`` / ``full_params`` may hold tensors on any device."""
+    ``tower_params`` / ``full_params`` may hold tensors on any device;
+    ``feature_state`` is ``FeatureEngineer.state_dict()``."""
     os.makedirs(output_dir, exist_ok=True)
     np.savez(os.path.join(output_dir, "encoder.npz"),
              **_flatten(params_to_numpy(tower_params)))
     if full_params is not None:
         np.savez(os.path.join(output_dir, "model.npz"),
                  **_flatten(params_to_numpy(full_params)))
+    if feature_state is not None:
+        np.savez(os.path.join(output_dir, "features.npz"), **feature_state)
     with open(os.path.join(output_dir, "vocabs.json"), "w") as f:
         json.dump(
             {
@@ -255,3 +261,15 @@ def load_model_params(output_dir: str) -> Optional[Dict]:
         return None
     with np.load(path) as z:
         return _unflatten({k: z[k] for k in z.files})
+
+
+def load_feature_engineer(output_dir: str):
+    """The fitted ``FeatureEngineer`` of the bundle; None when the bundle
+    has no ``features.npz`` (a model without dense features)."""
+    path = os.path.join(output_dir, "features.npz")
+    if not os.path.exists(path):
+        return None
+    from recsys_tpu_torch.data.features import FeatureEngineer
+
+    with np.load(path) as z:
+        return FeatureEngineer.from_state({k: z[k] for k in z.files})

@@ -19,6 +19,11 @@ on its one-device, device-resident path).
   steps, the epoch loop and the checkpoints;
 * balanced CTR class weights, the log-frequency logQ table and the
   ``item_bias`` init to it;
+* engineered dense features (``ModelConfig.dense_features > 0``): the
+  ``FeatureEngineer`` is fitted on the train split on the host, and each
+  split's standardized [N, F] fp32 matrix is a ``dense`` column on the
+  device, gathered per step like the others and fed to the DCN input; the
+  fitted state ships in the inference bundle (``features.npz``);
 * a padded, masked validation pass per epoch; early stopping on
   ``val_loss`` (or a periodic sampled ``val_recall@10``) with the best
   weights restored; a checkpoint every epoch and one on SIGTERM/SIGUSR1;
@@ -26,7 +31,7 @@ on its one-device, device-resident path).
   inference bundle in ``<output_dir>/serving``.
 
 Every mode of the JAX trainer that is not ported raises
-``NotImplementedError`` naming its ROADMAP item; none silently runs
+``NotImplementedError`` naming its ROADMAP Queue 1 item; none silently runs
 something else. Dropout masks come from a ``torch.Generator`` on the
 device, reseeded from (seed + 1, step) every step, so a run and its
 resume draw the same masks; they are not JAX's masks.
@@ -45,6 +50,7 @@ import numpy as np
 import torch
 
 from recsys_tpu_torch.config import RecsysConfig
+from recsys_tpu_torch.data.features import make_engineer
 from recsys_tpu_torch.models import losses
 from recsys_tpu_torch.models.multitask import MultiTaskModel
 from recsys_tpu_torch.models.towers import TwoTower
@@ -72,9 +78,13 @@ class TrainState(NamedTuple):
     extras: Any = None
 
 
+_NEGATIVES_AND_STREAMING = "item 3, explicit negatives and streaming"
+_DEBUG_PROFILE = "item 7, debug and profile"
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
-        f"{what} is not ported to recsys_tpu_torch yet (ROADMAP {item})")
+        f"{what} is not ported to recsys_tpu_torch yet (ROADMAP Queue 1: {item})")
 
 
 def _tree_from_paths(values: Dict[Tuple[str, ...], torch.Tensor]) -> Dict:
@@ -125,18 +135,16 @@ class Trainer:
         t, m = cfg.train, cfg.mesh
         if cfg.data.negative_sampling != "random":
             _not_ported(f"negative_sampling={cfg.data.negative_sampling!r} "
-                        "(explicit negatives)", "Queue 1 item 9")
-        if cfg.model.dense_features > 0:
-            _not_ported("dense_features > 0", "Queue 1 item 4")
+                        "(explicit negatives)", _NEGATIVES_AND_STREAMING)
         if (m.model_axis != 1 or m.data_axis not in (-1, 1)
                 or m.embedding_sharding != "replicated" or m.lookup_strategy != "xla"):
-            _not_ported("a mesh of more than one device", "Queue 1 item 11")
+            _not_ported("a mesh of more than one device", "item 8, multi-GPU")
         if not t.device_resident_data:
-            _not_ported("the streaming input path", "Queue 1 item 9")
+            _not_ported("the streaming input path", _NEGATIVES_AND_STREAMING)
         if t.profile:
-            _not_ported("TrainConfig.profile", "Queue 1 item 12")
+            _not_ported("TrainConfig.profile", _DEBUG_PROFILE)
         if t.debug_nans:
-            _not_ported("TrainConfig.debug_nans", "Queue 1 item 12")
+            _not_ported("TrainConfig.debug_nans", _DEBUG_PROFILE)
 
     def _resolve_sparse_updates(self) -> bool:
         """``sparse_table_updates`` as set, or for "auto" whether the two
@@ -428,14 +436,25 @@ class Trainer:
             log_q_table = np.log(np.maximum(pop, 0.5)
                                  / max(len(bundle["train/movie_id"]), 1)).astype(np.float32)
 
+        # engineered dense features: fitted on train on the host, one
+        # standardized [N, F] matrix per split, a batch column like the
+        # others; the fitted engineer ships in the inference bundle
+        dense_feats = None
+        engineer = None
+        if cfg.model.dense_features > 0:
+            engineer = make_engineer(bundle, cfg.model.dense_features)
+            dense_feats = engineer.fit_transform_splits(bundle)
+
         train_cols = {c: bundle[f"train/{c}"] for c in BATCH_COLUMNS}
         if log_q_table is not None:
             train_cols["log_q"] = log_q_table[train_cols["movie_id"]]
+        if dense_feats is not None:
+            train_cols["dense"] = dense_feats["train"]
         data_bytes = sum(v.nbytes for v in train_cols.values())
         if data_bytes > t_cfg.device_data_limit_mb * 1024 * 1024:
             _not_ported(f"a train split of {data_bytes} bytes, above "
                         "device_data_limit_mb (the streaming input path)",
-                        "Queue 1 item 9")
+                        _NEGATIVES_AND_STREAMING)
 
         state = self.init_state(n_users, n_items, t_cfg.seed)
         if log_q_table is not None:
@@ -470,6 +489,9 @@ class Trainer:
             val_data["log_q"] = on_device(
                 log_q_table[np.pad(bundle["val/movie_id"], (0, pad))])
         val_data["mask"] = on_device(np.pad(np.ones(n_val, np.float32), (0, pad)))
+        if dense_feats is not None:
+            val_data["dense"] = on_device(np.pad(dense_feats["val"], ((0, pad), (0, 0))))
+        val_dense = None if dense_feats is None else dense_feats["val"]
         train_epoch = self.make_train_epoch(class_weights, n_rows, steps_per_epoch)
         val_epoch = self.make_val_epoch(class_weights, val_steps)
         logger.info("device-resident data: %d train rows (%.1f MB), %d steps/epoch",
@@ -510,8 +532,9 @@ class Trainer:
                 if t_cfg.eval_every_epochs and (epoch + 1) % t_cfg.eval_every_epochs == 0:
                     sample_cfg = dataclasses.replace(
                         cfg.eval, eval_sample=cfg.eval.eval_sample or 20_000, topk=(10,))
-                    logs["val_recall@10"] = evaluate(state.params, cfg.model, bundle, "val",
-                                                     sample_cfg, seed=t_cfg.seed)["recall@10"]
+                    logs["val_recall@10"] = evaluate(
+                        state.params, cfg.model, bundle, "val", sample_cfg, seed=t_cfg.seed,
+                        dense=val_dense)["recall@10"]
                 self.writer.end_epoch(epoch, logs)
                 if self._preempt_requested:
                     self.ckpt.save(state.step, self._state_dict(state),
@@ -560,7 +583,7 @@ class Trainer:
             self.writer.close()
             return report
         report = evaluate(state.params, cfg.model, bundle, "val", cfg.eval,
-                          seed=t_cfg.seed)
+                          seed=t_cfg.seed, dense=val_dense)
         report["train_wall_time_s"] = wall
         report["examples_per_s"] = examples_total / max(wall, 1e-9)
         report["epochs_run"] = final_epoch + 1
@@ -572,5 +595,6 @@ class Trainer:
         ckpt_lib.save_inference_bundle(
             f"{self.output_dir}/serving", state.params["towers"], cfg,
             bundle["meta/user_raw_ids"], bundle["meta/movie_raw_ids"],
-            index=index, full_params=state.params)
+            index=index, full_params=state.params,
+            feature_state=None if engineer is None else engineer.state_dict())
         return report

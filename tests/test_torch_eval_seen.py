@@ -173,8 +173,36 @@ def test_evaluate_cli_matches_jax_script(tiny_bundle, jax_params, tmp_path, caps
         eval_cli.main(args + ["--device", "cpu"])
 
 
-def test_evaluate_cli_refuses_dense_features(tmp_path):
-    RecsysConfig(model=ModelConfig(dense_features=4)).save(str(tmp_path / "config.json"))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        eval_cli.main(["--data", "unused.npz", "--model_dir", str(tmp_path),
-                       "--device", "cpu"])
+def test_evaluate_cli_refuses_dense_features(tiny_bundle, tmp_path, capsys):
+    """A model with dense features evaluates only with the engineer it was
+    trained with: a bundle without features.npz is refused, as by
+    ``scripts/evaluate.py``, and with it the CLI runs
+    (``test_torch_dense_features.py`` holds its report against JAX's)."""
+    from recsys_tpu_torch.data.features import make_engineer
+    from recsys_tpu_torch.models.multitask import MultiTaskModel
+    from recsys_tpu_torch.retrieval.scorer import RetrievalIndex
+    from recsys_tpu_torch.train.checkpoint import save_inference_bundle
+
+    import torch
+
+    cfg = RecsysConfig(model=ModelConfig(**dict(MODEL_KW, dense_features=29)))
+    n_users, n_items = int(tiny_bundle["meta/n_users"]), int(tiny_bundle["meta/n_movies"])
+    params = MultiTaskModel.init(torch.Generator().manual_seed(0), cfg.model, n_users,
+                                 n_items, "cpu")
+    index = RetrievalIndex.build(params["towers"], cfg.model, n_items,
+                                 tiny_bundle["meta/movie_raw_ids"], device="cpu")
+    model_dir, data = str(tmp_path / "serving"), str(tmp_path / "bundle.npz")
+    save_inference_bundle(model_dir, params["towers"], cfg, tiny_bundle["meta/user_raw_ids"],
+                          tiny_bundle["meta/movie_raw_ids"], index=index, full_params=params)
+    np.savez(data, **tiny_bundle)
+    argv = ["--data", data, "--model_dir", model_dir, "--device", "cpu",
+            "--eval_sample", "100", "--topk", "5"]
+    with pytest.raises(SystemExit):
+        eval_cli.main(argv)
+    assert "no features.npz" in capsys.readouterr().err
+    eng = make_engineer(tiny_bundle, 29)
+    eng.fit_transform_splits(tiny_bundle)
+    np.savez(os.path.join(model_dir, "features.npz"), **eng.state_dict())
+    assert eval_cli.main(argv + ["--output", str(tmp_path / "r.json")]) == 0
+    with open(tmp_path / "r.json") as f:
+        assert np.isfinite(json.load(f)["rating_rmse"])

@@ -108,8 +108,8 @@ def test_config_json_loads_in_both_packages(bundles):
 
 
 def test_unported_options_raise(bundles):
-    for backend in ("native", "sharded", "exported"):
-        with pytest.raises(NotImplementedError):
+    for backend in ("native", "sharded"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: item"):
             RecommendationService(bundles["jax"], backend=backend, device="cpu")
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError):

@@ -218,7 +218,6 @@ def test_preemption_checkpoint_then_resume(tiny_bundle, tmp_path, monkeypatch):
 
 _UNPORTED = {
     "explicit negatives": lambda: RecsysConfig(data=DataConfig(negative_sampling="hard")),
-    "dense features": lambda: RecsysConfig(model=ModelConfig(dense_features=4)),
     "sparse updates": lambda: RecsysConfig(data=DataConfig(negative_sampling="mixed"),
                                            train=TrainConfig(sparse_table_updates=True)),
     "CBNS cache": lambda: RecsysConfig(data=DataConfig(negative_sampling="mined"),
@@ -317,6 +316,9 @@ _SHARED_ARGVS = {
                                      "--num_hard_negatives", "20", "--num_random_negatives",
                                      "30", "--model_parallel", "1", "--embedding_sharding",
                                      "replicated", "--lookup_strategy", "xla"],
+    "dense features": ["--data", "x.npz", "--use_dense_features"],
+    "dense and side features": ["--use_side_features", "--use_dense_features",
+                                "--embedding_dim", "128", "--cross_layers", "3"],
     "negative counts": ["--negative_sampling", "random", "--num_hard_negatives", "7",
                         "--num_random_negatives", "9", "--model_parallel", "1",
                         "--embedding_sharding", "replicated", "--lookup_strategy", "xla"],
@@ -379,4 +381,6 @@ def test_cli_resume_reaches_the_trainer_and_unported_flags_stay_errors(tiny_bund
     with open(os.path.join(out, "metrics.json")) as f:
         assert json.load(f)["epochs_run"] == 2
     with pytest.raises(SystemExit):
-        cli.main(["--data", data, "--use_dense_features"])
+        cli.main(["--data", data, "--mined_from", out])
+    with pytest.raises(SystemExit, match="requires --use_dense_features"):
+        cli.main(["--data", data, "--use_side_features"])
