@@ -138,7 +138,22 @@
     profiles the exported retrieve against the exact route at 1 and 64
     users; times rows 2 and 3 at F = 289 as in phase 6 and profiles the
     dense-feature train step;
-23. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+23. explicit negatives and the streaming input path on phase 22's
+    bundle at the flagship widths (``ModelConfig`` defaults, mixed
+    precision), B = 8,192, one epoch each through the train CLI's
+    ``main``: (a) ``--negative_sampling mixed`` (20 + 30 negatives a row),
+    resident; (b) ``--negative_sampling mined --mined_from`` phase 22's
+    serving bundle at ``explicit_negatives_weight`` 0.1, the mining timed
+    apart; (c) mixed negatives streamed (``device_resident_data=false``)
+    at 32 steps a transfer with a checkpoint every 16 steps, and at one
+    step a transfer; each with the launch counters set to 0 just before
+    and read just after (rows 2, 3, 4, 6 and 7 launch, row 3 once a step),
+    finite losses, the serving bundle and the mid-epoch checkpoints
+    checked; (d) 3 streaming steps with fed negatives on the card against
+    the CPU, held as in phase 10; then profiles the explicit-negatives
+    step, the same step without negatives and the streaming step (the
+    host's Batcher gather and ``sample_batch`` timed apart);
+24. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line. Without a
@@ -251,6 +266,14 @@ DENSE_DCN_EDGES = [(TRAIN_BATCH, DENSE_F, 3), (TRAIN_BATCH + 1, DENSE_F - 4, 3),
 # the exported artifact against the exact route: fp32 products in
 # another order (torch.matmul against the flash top-k kernel)
 EXPORT_TOL = 1e-5
+# explicit negatives and the streaming path: the train CLI's default 20 hard
+# + 30 random negatives a row; streamed in 32-step chunks with a checkpoint
+# every 16 steps (so chunks of 16), then one step a transfer with one every
+# 40; the kernels every step of the path launches
+NEG_HARD, NEG_RANDOM = 20, 30
+STREAM_CHUNK, STREAM_CKPT_EVERY, STREAM_K1_CKPT_EVERY = 32, 16, 40
+NEG_PATH_KERNELS = ("dcn_cross", "dcn_cross_bwd", "flash_ce_fwd", "flash_ce_bwd_du",
+                    "flash_ce_bwd_dv")
 
 
 def log(msg: str) -> None:
@@ -2555,6 +2578,297 @@ def dense_feature_path(repo: str, counters, tmp: str) -> dict:
     return out
 
 
+# ---- explicit negatives and the streaming input path: the sixth main path ----
+
+def _mid_epoch_ckpts(run: str) -> list:
+    """The steps of ``run``'s checkpoints that a streaming epoch saved
+    mid-epoch (their metrics.json says ``mid_epoch``)."""
+    ckpt_dir = os.path.join(run, "checkpoints")
+    steps = []
+    for name in os.listdir(ckpt_dir):
+        if name.startswith("ckpt_"):
+            with open(os.path.join(ckpt_dir, name, "metrics.json")) as f:
+                if "mid_epoch" in json.load(f):
+                    steps.append(int(name[5:]))
+    return sorted(steps)
+
+
+def negatives_cli_run(name: str, argv: list, counters, run: str, steps: int) -> dict:
+    """One phase 23 training run through the train CLI's ``main`` (in this
+    process, so the counters see it), every counter set to 0 just before
+    and read just after: rows 2, 3, 4, 6 and 7 launched (row 3 once a
+    step, the fused backward never), finite losses, the serving bundle."""
+    import math
+
+    import torch
+    from recsys_tpu_torch.train import __main__ as train_cli
+
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    rc, _ = _call_cli(train_cli.main, argv + ["--output_dir", run])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {c.name: c.read() for c in counters}
+    check(rc == 0, f"{name}: train CLI rc {rc}")
+    for kernel in NEG_PATH_KERNELS:
+        check(launches[kernel] > 0, f"{name}: {kernel} never launched")
+    check(launches["dcn_cross_bwd"] == steps,
+          f"{name}: the DCN backward launched {launches['dcn_cross_bwd']} times in {steps} steps")
+    check(launches["flash_ce_bwd_fused"] == 0, f"{name}: the fused backward ran on bf16")
+    with open(os.path.join(run, "detailed_metrics.json")) as f:
+        hist = json.load(f)["epochs"]
+    check(len(hist) == 1, f"{name}: {len(hist)} epochs logged")
+    for k in ("train_loss", "train_retrieval_loss", "val_loss", "val_retrieval_loss"):
+        check(math.isfinite(hist[0][k]), f"{name}: {k} = {hist[0][k]}")
+    for rel in ("metrics.json", "serving/model.npz", "serving/encoder.npz",
+                "serving/index.npz", "serving/vocabs.json", "serving/config.json"):
+        check(os.path.exists(os.path.join(run, rel)), f"{name}: {rel} missing")
+    with open(os.path.join(run, "metrics.json")) as f:
+        final = json.load(f)
+    check(math.isfinite(final["recall@10"]) and 0 <= final["recall@10"] <= 1,
+          f"{name}: recall@10 {final['recall@10']}")
+    e = hist[0]
+    return {"launches": launches, "train_s": train_s, "steps": steps,
+            "train_loss": e["train_loss"], "train_retrieval_loss": e["train_retrieval_loss"],
+            "val_loss": e["val_loss"], "epoch_time_s": e["epoch_time_s"],
+            "steps_per_s": steps / e["epoch_time_s"], "examples_per_s": e["examples_per_s"],
+            "recall@10": final["recall@10"]}
+
+
+def stream_card_vs_cpu(bundle: dict, counters, tmp: str) -> dict:
+    """3 streaming steps with fed mixed negatives (20 + 30 a row) from one
+    full-width init, dropout 0, B = 8,192, through ``_stream_epoch`` (a
+    2-step chunk, then a single step; ``_prefetch`` and the side-stream
+    placer on the card, ``torch.as_tensor`` on the CPU), on the card
+    (kernels) and on the CPU (plain versions), held to phase 10's
+    tolerances: the copies never race the step."""
+    import itertools
+
+    import numpy as np
+    import torch
+    from recsys_tpu_torch.config import DataConfig, ModelConfig, RecsysConfig, TrainConfig
+    from recsys_tpu_torch.data.negative_sampling import NegativeSampler
+    from recsys_tpu_torch.data.pipeline import Batcher
+    from recsys_tpu_torch.models.losses import balanced_class_weights
+    from recsys_tpu_torch.models.multitask import MultiTaskModel
+    from recsys_tpu_torch.train.checkpoint import params_from_numpy, params_to_numpy
+    from recsys_tpu_torch.train.optimizer import leaves_with_paths
+    from recsys_tpu_torch.train.trainer import Trainer, _Placer
+
+    cfg = RecsysConfig(model=ModelConfig(dropout_rate=0.0, use_flash_ce=True),
+                       data=DataConfig(negative_sampling="mixed", num_hard_negatives=NEG_HARD,
+                                       num_random_negatives=NEG_RANDOM),
+                       train=TrainConfig(batch_size=TRAIN_BATCH, log_every_steps=1))
+    init = params_to_numpy(MultiTaskModel.init(torch.Generator().manual_seed(SEED + 3),
+                                               cfg.model, N_USERS, N_ITEMS, "cpu"))
+    cw = balanced_class_weights(bundle["train/y_implicit"])
+    log_q = _log_q(bundle)
+    sampler = NegativeSampler("mixed", NEG_HARD, NEG_RANDOM, seed=SEED).fit(
+        bundle["train/user_id"], bundle["train/movie_id"], N_ITEMS)
+    host = [{**b, "log_q": log_q[b["movie_id"]], "neg_ids": sampler.sample_batch(b["user_id"])}
+            for b in itertools.islice(Batcher(bundle, "train", TRAIN_BATCH, seed=SEED).epoch(0),
+                                      PARITY_STEPS)]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        tr = Trainer(cfg, os.path.join(tmp, f"stream_parity_{device}"), device=device)
+        state = tr.state_from_params(params_from_numpy(init, device), SEED)
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        state, n_steps, logs = tr._stream_epoch(
+            state, 0, iter(host), lambda b: b, _Placer(tr.device),
+            tr.make_train_step(cw, True), tr.make_train_chunk(cw, True, 2), 2)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = {c.name: c.read() for c in counters}
+            check(all(launches[k] > 0 for k in NEG_PATH_KERNELS)
+                  and launches["dcn_cross_bwd"] == PARITY_STEPS,
+                  f"stream parity: card launches {launches}")
+        check(n_steps == PARITY_STEPS and state.step == PARITY_STEPS,
+              f"stream parity: {n_steps} steps on {device}")
+        runs[device] = {"loss": logs["train_loss"], "s": time.perf_counter() - t0,
+                        "params": dict(leaves_with_paths(params_to_numpy(state.params)))}
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    loss_err = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    check(loss_err <= PARITY_LOSS_RTOL,
+          f"stream parity: loss {gpu['loss']} vs CPU {cpu['loss']} ({loss_err})")
+    param_err, worst = 0.0, ""
+    for path, want in cpu["params"].items():
+        err = float(np.abs(gpu["params"][path] - want).max())
+        if err > param_err:
+            param_err, worst = err, "/".join(path)
+    check(param_err <= PARITY_PARAM_ATOL,
+          f"stream parity: params differ by {param_err} at {worst} > {PARITY_PARAM_ATOL}")
+    moved = max(float(np.abs(cpu["params"][p] - np.asarray(v)).max())
+                for p, v in leaves_with_paths(init))
+    return {"loss_card": gpu["loss"], "loss_cpu": cpu["loss"], "loss_rel_err": loss_err,
+            "param_max_abs_err": param_err, "param_worst": worst, "param_max_move": moved,
+            "card_s": gpu["s"], "cpu_s": cpu["s"], "card_launches": launches}
+
+
+def profile_negatives_steps(bundle: dict, model_cfg, table) -> dict:
+    """Phase 23's steps at B = 8,192 on the preprocessed bundle, profiled
+    by :func:`profile_call`: the explicit-negatives step (mixed, 20 + 30 a
+    row, the batch on the card as the resident path gathers it), the same
+    step on the same batches without negatives, and the streaming step
+    (the Batcher's gather, ``sample_batch``, the side-stream placer,
+    ``_prefetch``, then the step); the device ms of rows 2, 3, 4, 6, 7 and
+    of the table gather's backward (its sort apart) in each; and the
+    host's gather and ``sample_batch`` ms per step (mixed and mined)."""
+    import itertools
+
+    import torch
+    from recsys_tpu_torch.config import RecsysConfig, TrainConfig
+    from recsys_tpu_torch.data.negative_sampling import NegativeSampler
+    from recsys_tpu_torch.data.pipeline import Batcher
+    from recsys_tpu_torch.models.losses import balanced_class_weights
+    from recsys_tpu_torch.train.trainer import Trainer, _Placer, _prefetch
+
+    n_users, n_items = int(bundle["meta/n_users"]), int(bundle["meta/n_movies"])
+    cw = balanced_class_weights(bundle["train/y_implicit"])
+    log_q = _log_q(bundle)
+    samplers = {s: NegativeSampler(s, NEG_HARD, NEG_RANDOM, seed=SEED).fit(
+        bundle["train/user_id"], bundle["train/movie_id"], n_items) for s in ("mixed", "mined")}
+    samplers["mined"].set_mined(table)
+    batcher = Batcher(bundle, "train", TRAIN_BATCH, seed=SEED)
+
+    def augment(b):
+        return {**b, "log_q": log_q[b["movie_id"]],
+                "neg_ids": samplers["mixed"].sample_batch(b["user_id"])}
+
+    gather, sample = [], {"mixed": [], "mined": []}
+    it = (b for e in itertools.count() for b in batcher.epoch(e))
+    for _ in range(21):
+        t0 = time.perf_counter()
+        b = next(it)
+        gather.append((time.perf_counter() - t0) * 1e3)
+        for s, sampler in samplers.items():
+            t0 = time.perf_counter()
+            sampler.sample_batch(b["user_id"])
+            sample[s].append((time.perf_counter() - t0) * 1e3)
+    out = {"host_ms_p50": {"batcher_gather": sorted(gather)[10],
+                           **{f"sample_batch_{s}": sorted(v)[10] for s, v in sample.items()}}}
+    groups = {"row2_dcn_fwd": "dcn_cross_fwd", "row3_dcn_bwd": "dcn_cross_bwd",
+              "row4_fwd": "flash_ce_fwd", "row6_du": "flash_ce_bwd_du",
+              "row7_dv": "flash_ce_bwd_dv", "gather_bwd": "indexing_backward",
+              "gather_bwd_sort": "RadixSort"}
+    host = [augment(b) for b in itertools.islice(batcher.epoch(1), 2)]
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, negs in (("train_step_B8192_explicit_negatives_mixed50", True),
+                           ("train_step_B8192_same_batches_no_negatives", False)):
+            cfg = RecsysConfig(model=model_cfg, train=TrainConfig(batch_size=TRAIN_BATCH))
+            tr = Trainer(cfg, tmp, device="cuda")
+            holder = [tr.init_state(n_users, n_items, SEED)]
+            step = tr.make_train_step(cw, negs)
+            batches = [{k: torch.as_tensor(v).to("cuda") for k, v in b.items()
+                        if negs or k != "neg_ids"} for b in host]
+
+            def one():
+                holder[0], _ = step(holder[0], batches[holder[0].step % 2])
+
+            rows[name] = profile_call(name, one, n_wall=20, n_traced=5, warmup=2, groups=groups)
+            check(tr.step_counts["sparse"] == 0, f"{name}: took the sparse step")
+        # the streaming step: host batch, negatives, placement two ahead, step
+        tr = Trainer(cfg, tmp, device="cuda")
+        holder = [tr.init_state(n_users, n_items, SEED)]
+        step = tr.make_train_step(cw, True)
+        placer = _Placer(tr.device)
+        stream = _prefetch((augment(b) for e in itertools.count(2) for b in batcher.epoch(e)),
+                           placer)
+
+        def one_streamed():
+            holder[0], _ = step(holder[0], placer.ready(next(stream)))
+
+        name = "train_step_B8192_streaming_k1_mixed50"
+        rows[name] = profile_call(name, one_streamed, n_wall=20, n_traced=5, warmup=2,
+                                  groups=groups)
+    neg = rows["train_step_B8192_explicit_negatives_mixed50"]["group_device_ms"]
+    plain = rows["train_step_B8192_same_batches_no_negatives"]["group_device_ms"]
+    gather_added = sum(neg[g] - plain[g] for g in ("gather_bwd", "gather_bwd_sort"))
+    out["explicit_negatives_added_device_ms"] = {
+        "total": (rows["train_step_B8192_explicit_negatives_mixed50"]["device_ms"]
+                  - rows["train_step_B8192_same_batches_no_negatives"]["device_ms"]),
+        "gather_bwd_and_sort": gather_added}
+    out["explicit_negatives_added_device_ms"]["negatives_tower_and_softmax"] = (
+        out["explicit_negatives_added_device_ms"]["total"] - gather_added)
+    out["profiles"] = list(rows.values())
+    return out
+
+
+def negatives_streaming_path(counters, tmp: str, bundle_np: dict) -> dict:
+    """Phase 23: explicit negatives and the streaming input path on phase
+    22's preprocessed bundle (``tmp``) at the flagship widths, B = 8,192,
+    through the train CLI's ``main``: (a) mixed negatives (20 + 30 a
+    row), resident; (b) mined negatives from phase 22's serving bundle at
+    weight 0.1 (the mining timed apart); (c) mixed negatives streamed,
+    32-step chunks with a checkpoint every 16 steps, then one step a
+    transfer; each checked by :func:`negatives_cli_run`. Then (d) the
+    streaming steps on the card against the CPU and the steps' profiles."""
+    import torch
+    from recsys_tpu_torch.config import DataConfig, RecsysConfig
+    from recsys_tpu_torch.data.negative_sampling import mine_hard_negatives
+    from recsys_tpu_torch.data.preprocessing import load_bundle
+    from recsys_tpu_torch.train.checkpoint import load_encoder_params
+
+    data = os.path.join(tmp, "bundle.npz")
+    mined_from = os.path.join(tmp, "run", "serving")
+    bundle = load_bundle(data)
+    steps = len(bundle["train/user_id"]) // TRAIN_BATCH
+    common = ["--data", data, "--embedding_dim", "128", "--cross_layers", "3",
+              "--batch_size", str(TRAIN_BATCH), "--epochs", "1", "--device", "cuda",
+              "--num_hard_negatives", str(NEG_HARD), "--num_random_negatives", str(NEG_RANDOM)]
+    out = {"steps_per_epoch": steps, "n_train_rows": len(bundle["train/user_id"])}
+    run_a = os.path.join(tmp, "neg_mixed")
+    out["mixed_resident"] = negatives_cli_run(
+        "mixed, resident", common + ["--negative_sampling", "mixed"], counters, run_a, steps)
+    model_cfg = RecsysConfig.load(os.path.join(run_a, "config.json")).model
+    check(model_cfg.mixed_precision and model_cfg.embedding_dim == 128
+          and 2 * model_cfg.embedding_dim + model_cfg.dense_features == 256,
+          f"phase 23 model config {model_cfg}")
+
+    d = DataConfig()
+    encoder = load_encoder_params(mined_from)
+    mine_s = []
+    for _ in range(2):  # the first call carries the lazy set-up
+        t0 = time.perf_counter()
+        table = mine_hard_negatives(encoder, model_cfg, bundle, m=d.mined_pool_size,
+                                    skip_top=d.mined_skip_top, device="cuda")
+        torch.cuda.synchronize()
+        mine_s.append(time.perf_counter() - t0)
+    n_users, n_items = int(bundle["meta/n_users"]), int(bundle["meta/n_movies"])
+    check(table.shape == (n_users, d.mined_pool_size) and table.min() >= 0
+          and table.max() < n_items, f"mined table {table.shape}")
+    tu, ti = bundle["train/user_id"], bundle["train/movie_id"]
+    for u in range(0, n_users, 601):
+        check(not set(table[u].tolist()) & set(ti[tu == u].tolist()), f"mined: user {u} seen")
+    out["mining_s"] = mine_s
+    out["mined"] = negatives_cli_run(
+        "mined", common + ["--negative_sampling", "mined", "--mined_from", mined_from,
+                           "--set", "model.explicit_negatives_weight=0.1"],
+        counters, os.path.join(tmp, "neg_mined"), steps)
+
+    stream = common + ["--negative_sampling", "mixed", "--set",
+                       "train.device_resident_data=false", "--set", "train.keep_checkpoints=10"]
+    for k, every in ((STREAM_CHUNK, STREAM_CKPT_EVERY), (1, STREAM_K1_CKPT_EVERY)):
+        run = os.path.join(tmp, f"neg_stream_k{k}")
+        row = negatives_cli_run(
+            f"mixed, streamed, {k} steps a transfer",
+            stream + ["--set", f"train.stream_chunk_steps={k}",
+                      "--set", f"train.checkpoint_every_steps={every}"],
+            counters, run, steps)
+        row["mid_epoch_ckpts"] = _mid_epoch_ckpts(run)
+        # the epoch's last save at step `steps` overwrites a mid-epoch one there
+        want = [s for s in range(every, steps + 1, every) if s != steps]
+        check(row["mid_epoch_ckpts"] == want,
+              f"streamed k={k}: mid-epoch checkpoints {row['mid_epoch_ckpts']}, want {want}")
+        out[f"streamed_k{k}"] = row
+    out["stream_card_vs_cpu"] = stream_card_vs_cpu(bundle_np, counters, tmp)
+    out.update(profile_negatives_steps(bundle, model_cfg, table))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2777,12 +3091,20 @@ def main() -> int:
     t_dense = time.perf_counter()
     with tempfile.TemporaryDirectory() as dense_dir:
         dense = dense_feature_path(repo, counters, dense_dir)
+        log(f"data-and-features phase in {time.perf_counter() - t_dense:.1f} s")
+        # ---- explicit negatives and streaming: the sixth main path ---------
+        t_neg = time.perf_counter()
+        negs = negatives_streaming_path(counters, dense_dir, bundle_np)
+    for row in negs.pop("profiles"):
+        log(f"profile {json.dumps(row)}")
+    log(f"explicit negatives and streaming: {json.dumps(negs)}")
+    log(f"negatives-and-streaming phase in {time.perf_counter() - t_neg:.1f} s")
+    neg_runs = ("mixed_resident", "mined", f"streamed_k{STREAM_CHUNK}", "streamed_k1")
     for row in dense.pop("profiles"):
         log(f"profile {json.dumps(row)}")
     log(f"kernel dcn_cross {json.dumps(dense['dcn_fwd'])}")
     log(f"kernel dcn_cross_bwd {json.dumps(dense['dcn_bwd'])}")
     log(f"data and features, export: {json.dumps(dense)}")
-    log(f"data-and-features phase in {time.perf_counter() - t_dense:.1f} s")
     dense_launches = dense["train_launches"]
 
     main_topk = next(r for r in topk_rows
@@ -2807,6 +3129,8 @@ def main() -> int:
          "launches_train": train_launches["topk_flash"],
          "launches_dense_path": {"train": dense_launches["topk_flash"],
                                  "serve": dense["serve"]["launches"]["topk_flash"]},
+         "launches_negatives_streaming": {r: negs[r]["launches"]["topk_flash"]
+                                          for r in neg_runs},
          "shape": main_topk["shape"], "shapes": topk_rows},
         {"name": "dcn_cross", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/dcn_cross.cu",
@@ -2815,6 +3139,8 @@ def main() -> int:
          "launches_train": train_launches["dcn_cross"],
          "launches_dense_path": {"train": dense_launches["dcn_cross"],
                                  "serve": dense["serve"]["launches"]["dcn_cross"]},
+         "launches_negatives_streaming": {r: negs[r]["launches"]["dcn_cross"]
+                                          for r in neg_runs},
          "dense_features": dense["dcn_fwd"],
          "shape": main_dcn["shape"], "shapes": dcn_rows},
         {"name": "dcn_cross_bwd", "route": "cuda",
@@ -2830,6 +3156,8 @@ def main() -> int:
          "launches_fp32_epoch": fp32_launches["dcn_cross_bwd"],
          "launches_giant": giant_launches["dcn_cross_bwd"], "edges": dcn_bwd_edges,
          "launches_dense_path": dense_launches["dcn_cross_bwd"],
+         "launches_negatives_streaming": {r: negs[r]["launches"]["dcn_cross_bwd"]
+                                          for r in neg_runs},
          "dense_features": dense["dcn_bwd"],
          "shape": main_dcn_bwd["shape"], "shapes": dcn_bwd_rows},
         {"name": "flash_ce_fwd", "route": "cuda",
@@ -2845,6 +3173,8 @@ def main() -> int:
          "launches_fp32_epoch": fp32_launches["flash_ce_fwd"],
          "launches_giant": giant_launches["flash_ce_fwd"],
          "launches_dense_path": dense_launches["flash_ce_fwd"],
+         "launches_negatives_streaming": {r: negs[r]["launches"]["flash_ce_fwd"]
+                                          for r in neg_runs},
          "shape": main_fwd["shape"],
          "shapes": [r[0] for r in flash_rows.values()] + [twokernel["above_fwd"]]},
         {"name": "flash_ce_bwd_fused", "route": "cuda",
@@ -2875,6 +3205,7 @@ def main() -> int:
             "launches": giant_launches[name], **{k: main_row[k] for k in keys + speed},
             "launches_train": train_launches[name],
             "launches_dense_path": dense_launches[name],
+            "launches_negatives_streaming": {r: negs[r]["launches"][name] for r in neg_runs},
             "fp32": {k: twokernel["main_fp32"][i][k] for k in keys + speed},
             "shape": main_row["shape"], "shapes": [main_row, twokernel["above"][i]]})
     fp32_route = twokernel["fp32_route"]

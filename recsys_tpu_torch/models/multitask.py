@@ -90,17 +90,16 @@ class MultiTaskModel:
         ``batch`` holds tensors on the params' device: ``user_id``,
         ``movie_id``, ``rating``, ``y_implicit`` and optionally ``mask``,
         ``log_q``, ``mask_ids`` and ``dense`` (the engineered features). ``extra_candidates`` ``(emb, ids, corr)``
-        appends negative columns to the retrieval softmax. The
-        data-parallel arguments, explicit negatives and a custom
-        ``lookup`` are not ported yet and raise."""
+        appends negative columns to the retrieval softmax. ``neg_item_ids``
+        [B, K] adds ``explicit_negatives_weight`` times the explicit
+        softmax over [positive | K negatives] (the negatives through the
+        item tower, their dropout drawn after the forward's). The
+        data-parallel arguments and a custom ``lookup`` are not ported yet
+        and raise."""
         if data_axis is not None or lookup is not None:
             raise NotImplementedError(
                 "data_axis / lookup (the SPMD step) are not ported to "
                 "recsys_tpu_torch yet (ROADMAP Queue 1: item 8, multi-GPU)")
-        if neg_item_ids is not None:
-            raise NotImplementedError(
-                "explicit negatives are not ported to recsys_tpu_torch yet "
-                "(ROADMAP Queue 1: item 3, explicit negatives and streaming)")
         out = MultiTaskModel.apply(params, cfg, batch["user_id"], batch["movie_id"],
                                    dense=batch.get("dense"), train=train,
                                    generator=generator)
@@ -151,6 +150,12 @@ class MultiTaskModel:
                 u_retr.to(emb_dtype), out.item_embedding.to(emb_dtype),
                 item_ids=mask_ids,
                 logits_dtype=torch.bfloat16 if bf16_logits else None, **common)
+        if neg_item_ids is not None:
+            # the model's own embeddings, without the in-batch term's cast
+            neg_emb = TwoTower.item_embed(params["towers"], neg_item_ids, cfg, train=train,
+                                          generator=generator)
+            retr = retr + cfg.explicit_negatives_weight * losses.sampled_softmax_explicit(
+                u_retr, out.item_embedding, neg_emb)
         m = losses.mse(out.rating_pred, batch["rating"], mask=mask)
         w_pos, w_neg = class_weights
         bce = losses.weighted_bce_logits(out.ctr_logit, batch["y_implicit"], w_pos,

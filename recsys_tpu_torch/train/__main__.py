@@ -8,17 +8,22 @@ port honours, with the same names, defaults and mappings, so that one
 argv gives one ``config.json`` in both packages. ``--distributed_strategy``
 is accepted for compat and sets nothing, and ``--global_negatives`` /
 ``--per_replica_negatives`` set ``train.global_negatives``, which changes
-nothing on one device. ``--negative_sampling``, ``--model_parallel``,
+nothing on one device. ``--negative_sampling hard|mixed|mined`` trains
+with explicit negatives (``--num_hard_negatives`` +
+``--num_random_negatives`` a row); ``mined`` mines them from the trained
+serving bundle of ``--mined_from DIR``. ``--model_parallel``,
 ``--embedding_sharding`` and ``--lookup_strategy`` take the JAX CLI's
-choices, but only the values the port runs (``random``, 1,
-``replicated``, ``xla``: their defaults); any other value exits with an
-error that names its ROADMAP Queue 1 item. ``--use_dense_features``
-sets ``model.dense_features`` to the engineered feature width (29, or 33
-with ``--use_side_features``, which alone exits as in the JAX CLI). Flags
-whose modes are not ported yet (``--mined_from``, ...) are errors, as is
+choices, but only the values the port runs (1, ``replicated``, ``xla``:
+their defaults); any other value exits with an error that names its
+ROADMAP Queue 1 item. ``--use_dense_features`` sets
+``model.dense_features`` to the engineered feature width (29, or 33 with
+``--use_side_features``, which alone exits as in the JAX CLI). Flags
+whose modes are not ported yet (``--use_wandb``, ...) are errors, as is
 any other flag.
 ``--set KEY=VALUE`` overrides a dotted config field (the value is parsed
-as JSON, ``true``/``false``/``none`` included, else kept as a string).
+as JSON, ``true``/``false``/``none`` included, else kept as a string):
+``--set train.device_resident_data=false`` takes the streaming input
+path.
 The run writes what the JAX trainer writes: ``config.json``,
 ``training_log.csv``, ``detailed_metrics.json``, ``metrics.json``,
 ``checkpoints/`` and the inference bundle in ``serving/``.
@@ -38,7 +43,6 @@ from recsys_tpu_torch.config import (DataConfig, EvalConfig, MeshConfig, ModelCo
                                      RecsysConfig, TrainConfig)
 
 _RETRIEVAL_LOSS = {"auto": "auto", "xla": False, "flash": True, "chunked": "chunked"}
-_EXPLICIT_NEGATIVES = "ROADMAP Queue 1 item 3, explicit negatives"
 _MULTI_GPU = "ROADMAP Queue 1 item 8, multi-GPU"
 
 
@@ -46,7 +50,6 @@ def _check_ported(args) -> None:
     """Raise ValueError, naming the ROADMAP Queue 1 item, for a mode flag
     whose value the port does not run yet."""
     for flag, value, ported, item in (
-            ("--negative_sampling", args.negative_sampling, "random", _EXPLICIT_NEGATIVES),
             ("--model_parallel", args.model_parallel, 1, _MULTI_GPU),
             ("--embedding_sharding", args.embedding_sharding, "replicated", _MULTI_GPU),
             ("--lookup_strategy", args.lookup_strategy, "xla", _MULTI_GPU)):
@@ -92,7 +95,8 @@ def build_config(args) -> RecsysConfig:
                           use_flash_ce=_RETRIEVAL_LOSS[args.retrieval_loss]),
         data=DataConfig(processed_path=args.data, negative_sampling=args.negative_sampling,
                         num_hard_negatives=args.num_hard_negatives,
-                        num_random_negatives=args.num_random_negatives),
+                        num_random_negatives=args.num_random_negatives,
+                        mined_from=args.mined_from),
         train=TrainConfig(batch_size=args.batch_size, learning_rate=args.learning_rate,
                           epochs=args.epochs, resume=args.resume, seed=args.seed,
                           global_negatives=args.global_negatives),
@@ -116,7 +120,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--learning_rate", type=float, default=1e-3)
     ap.add_argument("--negative_sampling", default="random",
                     choices=["random", "hard", "mixed", "mined"],
-                    help="random (the port runs only this one yet)")
+                    help="random: in-batch negatives only; hard, mixed, mined: "
+                         "explicit negatives as well")
+    ap.add_argument("--mined_from", default="",
+                    help="trained serving-bundle dir to mine hard negatives from "
+                         "(negative_sampling=mined)")
     ap.add_argument("--num_hard_negatives", type=int, default=20)
     ap.add_argument("--num_random_negatives", type=int, default=30)
     ap.add_argument("--ctr_weight", type=float, default=0.2)

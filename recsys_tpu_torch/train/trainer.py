@@ -1,12 +1,25 @@
 """Single-GPU trainer (the counterpart of ``recsys_tpu/train/trainer.py``
-on its one-device, device-resident path).
+on one device).
 
-* params, optimizer slots and the whole train split live on the device;
-  an epoch is a loop of steps over an on-device permutation, each step
-  a gather of the batch, ``MultiTaskModel.loss``, ``torch.autograd.grad``
-  and the optimizer's in-place update (the JAX package's
-  ``make_train_epoch``: one compiled scan per epoch; here the Python loop
-  dispatches and the metrics stay on the device until the epoch ends);
+* params and optimizer slots live on the device. On the device-resident
+  path (the default) so does the whole train split: an epoch is a loop
+  of steps over an on-device permutation, each step a gather of the
+  batch, ``MultiTaskModel.loss``, ``torch.autograd.grad`` and the
+  optimizer's in-place update (the JAX package's ``make_train_epoch``:
+  one compiled scan per epoch; here the Python loop dispatches and the
+  metrics stay on the device until the epoch ends);
+* the streaming path (``device_resident_data=False``, or a split above
+  ``device_data_limit_mb``): the ``Batcher``'s numpy batches, placed by
+  ``_prefetch`` two ahead (pinned staging, copies on a side stream),
+  ``stream_chunk_steps`` batches per transfer, mid-epoch checkpoints
+  every ``checkpoint_every_steps``, an unweighted mean of the val
+  batches' metrics;
+* explicit negatives (``negative_sampling`` hard, mixed or mined): the
+  ``NegativeSampler`` fitted on the train split gives each row K negative
+  ids (a fresh ``neg_ids`` column each epoch on the resident path, per
+  batch on the streaming path), scored by the loss's explicit softmax;
+  they take the dense step, as in the JAX package; "mined" reads
+  ``Trainer.mined_table`` or mines ``data.mined_from``;
 * sparse table updates (``TrainConfig.sparse_table_updates``; "auto"
   above ``SPARSE_AUTO_THRESHOLD`` table elements): the batch's table rows
   become fresh [B, D] leaves, so autograd returns per-occurrence row
@@ -39,6 +52,7 @@ resume draw the same masks; they are not JAX's masks.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import signal
@@ -51,6 +65,8 @@ import torch
 
 from recsys_tpu_torch.config import RecsysConfig
 from recsys_tpu_torch.data.features import make_engineer
+from recsys_tpu_torch.data.negative_sampling import NegativeSampler, mine_hard_negatives
+from recsys_tpu_torch.data.pipeline import Batcher
 from recsys_tpu_torch.models import losses
 from recsys_tpu_torch.models.multitask import MultiTaskModel
 from recsys_tpu_torch.models.towers import TwoTower
@@ -78,7 +94,6 @@ class TrainState(NamedTuple):
     extras: Any = None
 
 
-_NEGATIVES_AND_STREAMING = "item 3, explicit negatives and streaming"
 _DEBUG_PROFILE = "item 7, debug and profile"
 
 
@@ -104,6 +119,58 @@ def _grads(loss: torch.Tensor, leaves) -> list:
         leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
 
 
+def _prefetch(iterator, place, depth: int = 2):
+    """``place`` each item of ``iterator`` ``depth`` items ahead of the one
+    yielded, so a batch's host work and copy overlap the step before it."""
+    buf = collections.deque()
+    for item in iterator:
+        buf.append(place(item))
+        if len(buf) >= depth:
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()
+
+
+class _Staged(NamedTuple):
+    tensors: Dict[str, torch.Tensor]  # on the card, written by the side stream
+    copied: torch.cuda.Event          # recorded on the side stream after the copies
+
+
+class _Placer:
+    """Host batches (dicts of numpy arrays) onto the trainer's device for
+    the streaming path. On the card each array is staged in pinned host
+    memory and copied without blocking on a side stream, which records an
+    event after the copies; :meth:`ready` makes the compute stream wait on
+    that event and records the tensors' use on it, so the caching
+    allocator gives their memory to no later copy before the step has
+    read them (the pinned staging is the host allocator's, which holds it
+    until its copy has run). On the CPU ``place`` is ``torch.as_tensor``."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def __call__(self, arrays: Dict[str, np.ndarray]):
+        if self.stream is None:
+            return {k: torch.as_tensor(v) for k, v in arrays.items()}
+        with torch.cuda.stream(self.stream):
+            tensors = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                       .to(self.device, non_blocking=True) for k, v in arrays.items()}
+            copied = torch.cuda.Event()
+            copied.record(self.stream)
+        return _Staged(tensors, copied)
+
+    def ready(self, placed) -> Dict[str, torch.Tensor]:
+        """The placed batch, safe to use on the current (compute) stream."""
+        if self.stream is None:
+            return placed
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(placed.copied)
+        for t in placed.tensors.values():
+            t.record_stream(compute)
+        return placed.tensors
+
+
 class Trainer:
     # Table elements above which "auto" takes the sparse table updates:
     # the JAX package's TPU v5e crossover, unmeasured on H100.
@@ -125,6 +192,11 @@ class Trainer:
         self._dropout_gen = torch.Generator(device=self.device)
         # steps taken on each path, so a caller can see which one ran
         self.step_counts = {"dense": 0, "sparse": 0}
+        # the data path of the last train(): "resident" or "streaming"
+        self.data_path: Optional[str] = None
+        # negative_sampling="mined": a caller's [n_users, M] table (else
+        # train() mines data.mined_from)
+        self.mined_table: Optional[np.ndarray] = None
         # elements of the two embedding tables of the last state made
         # (what "auto" sparse updates reads), None before any
         self._table_elements: Optional[int] = None
@@ -133,14 +205,9 @@ class Trainer:
     def _check_config(self) -> None:
         cfg = self.config
         t, m = cfg.train, cfg.mesh
-        if cfg.data.negative_sampling != "random":
-            _not_ported(f"negative_sampling={cfg.data.negative_sampling!r} "
-                        "(explicit negatives)", _NEGATIVES_AND_STREAMING)
         if (m.model_axis != 1 or m.data_axis not in (-1, 1)
                 or m.embedding_sharding != "replicated" or m.lookup_strategy != "xla"):
             _not_ported("a mesh of more than one device", "item 8, multi-GPU")
-        if not t.device_resident_data:
-            _not_ported("the streaming input path", _NEGATIVES_AND_STREAMING)
         if t.profile:
             _not_ported("TrainConfig.profile", _DEBUG_PROFILE)
         if t.debug_nans:
@@ -203,26 +270,30 @@ class Trainer:
         return self._dropout_gen
 
     # ---- the step ----------------------------------------------------
-    def _step_core(self, class_weights) -> Callable:
+    def _step_core(self, class_weights, use_explicit_negs: bool = False) -> Callable:
         """-> ``step_fn(state, batch) -> (state, metrics)``: the train step
         (loss, autograd, in-place optimizer update, the cache's FIFO),
         sparse or dense as ``_resolve_sparse_updates`` says when it is
-        built. ``batch`` holds tensors on the device; metrics stay there."""
+        built; with ``use_explicit_negs`` the batch's ``neg_ids`` [B, K]
+        feed the explicit softmax and the step is dense, as in the JAX
+        package. ``batch`` holds tensors on the device; metrics stay there."""
         self._check_cache_config(self.config.train.batch_size)
-        if self._resolve_sparse_updates():
+        if not use_explicit_negs and self._resolve_sparse_updates():
             return self._step_core_sparse(class_weights)
-        return self._step_core_dense(class_weights)
+        return self._step_core_dense(class_weights, use_explicit_negs)
 
-    def _step_core_dense(self, class_weights) -> Callable:
+    def _step_core_dense(self, class_weights, use_explicit_negs: bool = False) -> Callable:
         """The dense step: gradients of every leaf, the full-table update."""
         cfg = self.config
         opt = self.optimizer
 
         def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
+            batch = dict(batch)
+            neg_ids = batch.pop("neg_ids") if use_explicit_negs else None
             paths, leaves = zip(*leaves_with_paths(state.params))
             _, metrics = MultiTaskModel.loss(
                 state.params, cfg.model, batch, generator=self._generator(state),
-                train=True, class_weights=class_weights,
+                train=True, class_weights=class_weights, neg_item_ids=neg_ids,
                 extra_candidates=self._cache_tuple(state))
             grads = _grads(metrics["loss"], leaves)
             new_cache = self._cache_update(state, state.params, batch)  # pre-update params
@@ -346,16 +417,48 @@ class Trainer:
                 "ids": torch.cat([c["ids"][b:], ids.to(c["ids"].dtype)]),
                 "corr": torch.cat([c["corr"][b:], corr])}
 
-    def make_train_step(self, class_weights) -> Callable:
-        return self._step_core(class_weights)
+    def make_train_step(self, class_weights, use_explicit_negs: bool = False) -> Callable:
+        return self._step_core(class_weights, use_explicit_negs)
 
-    def make_train_epoch(self, class_weights, n_rows: int, n_steps: int) -> Callable:
+    def make_train_chunk(self, class_weights, use_explicit_negs: bool,
+                         n_steps: int) -> Callable:
+        """-> ``chunk_fn(state, chunk) -> (state, mean metrics)``: the train
+        step over the ``n_steps`` slices of a ``[n_steps, B, ...]`` stack
+        (one transfer for the chunk; ``stream_chunk_steps``), in order, the
+        same math as ``n_steps`` single steps."""
+        step_fn = self._step_core(class_weights, use_explicit_negs)
+
+        def chunk_fn(state: TrainState, chunk: Dict[str, torch.Tensor]):
+            sums = {}
+            for i in range(n_steps):
+                state, metrics = step_fn(state, {k: v[i] for k, v in chunk.items()})
+                sums = {k: sums.get(k, 0.0) + v for k, v in metrics.items()}
+            return state, {k: v / n_steps for k, v in sums.items()}
+
+        return chunk_fn
+
+    def make_eval_step(self, class_weights) -> Callable:
+        """-> ``eval_fn(params, batch) -> metrics``: the loss metrics of one
+        (masked) batch in inference mode."""
+        cfg = self.config
+
+        @torch.no_grad()
+        def eval_fn(params, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+            _, metrics = MultiTaskModel.loss(params, cfg.model, batch, train=False,
+                                             class_weights=class_weights)
+            return metrics
+
+        return eval_fn
+
+    def make_train_epoch(self, class_weights, n_rows: int, n_steps: int,
+                         use_explicit_negs: bool = False) -> Callable:
         """-> ``epoch_fn(state, data, epoch) -> (state, mean metrics)`` over
         device-resident ``data``: a permutation of the rows on the device
         from a generator seeded by (seed ^ 0x5EED, epoch), then ``n_steps``
-        steps of ``batch_size`` rows (the remainder is dropped)."""
+        steps of ``batch_size`` rows (the remainder is dropped); every
+        column is gathered, ``neg_ids`` [N, K] too."""
         b = self.config.train.batch_size
-        step_fn = self._step_core(class_weights)
+        step_fn = self._step_core(class_weights, use_explicit_negs)
         perm_gen = torch.Generator(device=self.device)
         base = self.config.train.seed ^ 0x5EED
 
@@ -418,6 +521,102 @@ class Trainer:
             self._copy_into(state.extras, tree["extras"])  # a warm cache
         return state._replace(step=int(tree["step"]), rng=int(tree["rng"]))
 
+    def _make_sampler(self, bundle: Dict[str, np.ndarray],
+                      n_items: int) -> Optional[NegativeSampler]:
+        """The explicit-negatives sampler of ``data.negative_sampling``
+        (None for "random": in-batch negatives only), fitted on the train
+        split with ``train.seed``; "mined" installs ``self.mined_table`` or
+        mines ``data.mined_from`` on the trainer's device."""
+        cfg = self.config
+        d = cfg.data
+        if d.negative_sampling not in ("hard", "mixed", "mined"):
+            return None
+        sampler = NegativeSampler(d.negative_sampling, d.num_hard_negatives,
+                                  d.num_random_negatives, seed=cfg.train.seed).fit(
+            bundle["train/user_id"], bundle["train/movie_id"], n_items)
+        if d.negative_sampling != "mined":
+            return sampler
+        if cfg.model.explicit_negatives_weight > 0.25:
+            logger.warning(
+                "negative_sampling='mined' with explicit_negatives_weight=%.2f: the "
+                "weight scales the explicit softmax that pushes each user's mined items "
+                "down, and mined items include the user's future positives (ranks past "
+                "mined_skip_top=%d too); a weight near 1 can cost recall, 0.1 keeps the "
+                "in-batch loss in charge", cfg.model.explicit_negatives_weight,
+                d.mined_skip_top)
+        table = self.mined_table
+        if table is None and d.mined_from:
+            from recsys_tpu_torch.train.checkpoint import load_encoder_params
+
+            logger.info("mining hard negatives from %s", d.mined_from)
+            table = mine_hard_negatives(load_encoder_params(d.mined_from), cfg.model, bundle,
+                                        m=d.mined_pool_size, skip_top=d.mined_skip_top,
+                                        device=self.device)
+        if table is None:
+            raise ValueError("negative_sampling='mined' needs a mined table: set "
+                             "trainer.mined_table or data.mined_from (a trained serving "
+                             "bundle dir)")
+        return sampler.set_mined(table)
+
+    def _stream_epoch(self, state: TrainState, epoch: int, batches, augment, placer: _Placer,
+                      train_step: Callable, train_chunk: Optional[Callable],
+                      chunk_k: int) -> Tuple[TrainState, int, Dict[str, float]]:
+        """One streaming epoch: ``batches`` (the Batcher's) in groups of
+        ``chunk_k``, each ``augment``-ed on the host and placed two groups
+        ahead; a full group through ``train_chunk`` in one transfer, the
+        tail step by step. Train metrics are read where ``log_every_steps``
+        is crossed and at the first step; a checkpoint is saved where
+        ``checkpoint_every_steps`` is crossed. -> (state, steps, the mean of
+        the metrics read)."""
+        t_cfg = self.config.train
+        agg: Dict[str, float] = {}
+        n_read = n_steps = 0
+
+        def grouped(it):
+            buf = []
+            for b in it:
+                buf.append(b)
+                if len(buf) == chunk_k:
+                    yield buf
+                    buf = []
+            if buf:
+                yield buf
+
+        def prepare(group):
+            group = [augment(b) for b in group]
+            if len(group) == chunk_k and train_chunk is not None:
+                return len(group), placer({k: np.stack([b[k] for b in group])
+                                           for k in group[0]})
+            return 0, [placer(b) for b in group]
+
+        def log_or_ckpt(state, metrics, prev):
+            nonlocal n_read
+
+            def crossed(every):
+                return every and n_steps // every > prev // every
+
+            if crossed(t_cfg.log_every_steps) or prev == 0:
+                for k, v in metrics.items():
+                    agg[k] = agg.get(k, 0.0) + float(v)
+                n_read += 1
+            if crossed(t_cfg.checkpoint_every_steps):
+                self.ckpt.save(state.step, self._state_dict(state),
+                               metrics={"mid_epoch": float(epoch)})
+
+        for csize, placed in _prefetch(grouped(batches), prepare):
+            if csize:
+                prev = n_steps
+                state, metrics = train_chunk(state, placer.ready(placed))
+                n_steps += csize
+                log_or_ckpt(state, metrics, prev)
+            else:
+                for b in placed:
+                    prev = n_steps
+                    state, metrics = train_step(state, placer.ready(b))
+                    n_steps += 1
+                    log_or_ckpt(state, metrics, prev)
+        return state, n_steps, {f"train_{k}": v / max(n_read, 1) for k, v in agg.items()}
+
     # ---- the training loop -------------------------------------------
     def train(self, bundle: Dict[str, np.ndarray]) -> Dict[str, float]:
         cfg = self.config
@@ -444,17 +643,23 @@ class Trainer:
         if cfg.model.dense_features > 0:
             engineer = make_engineer(bundle, cfg.model.dense_features)
             dense_feats = engineer.fit_transform_splits(bundle)
+        sampler = self._make_sampler(bundle, n_items)
+        use_negs = sampler is not None
 
-        train_cols = {c: bundle[f"train/{c}"] for c in BATCH_COLUMNS}
+        batch_cols = BATCH_COLUMNS
+        data = bundle
+        if dense_feats is not None:
+            data = {**bundle, **{f"{s}/dense": v for s, v in dense_feats.items()}}
+            batch_cols = batch_cols + ("dense",)
+        train_batcher = Batcher(data, "train", t_cfg.batch_size, seed=t_cfg.seed,
+                                columns=batch_cols)
+        val_batcher = Batcher(data, "val", t_cfg.batch_size, seed=t_cfg.seed, shuffle=False,
+                              drop_remainder=False, columns=batch_cols)
+        train_cols = {c: data[f"train/{c}"] for c in batch_cols}
         if log_q_table is not None:
             train_cols["log_q"] = log_q_table[train_cols["movie_id"]]
-        if dense_feats is not None:
-            train_cols["dense"] = dense_feats["train"]
-        data_bytes = sum(v.nbytes for v in train_cols.values())
-        if data_bytes > t_cfg.device_data_limit_mb * 1024 * 1024:
-            _not_ported(f"a train split of {data_bytes} bytes, above "
-                        "device_data_limit_mb (the streaming input path)",
-                        _NEGATIVES_AND_STREAMING)
+        n_rows = len(train_cols["user_id"])
+        steps_per_epoch = train_batcher.steps_per_epoch
 
         state = self.init_state(n_users, n_items, t_cfg.seed)
         if log_q_table is not None:
@@ -465,8 +670,6 @@ class Trainer:
             bias0[:n_items] = log_q_table
             with torch.no_grad():
                 bias.copy_(torch.from_numpy(bias0))
-        n_rows = len(train_cols["user_id"])
-        steps_per_epoch = n_rows // t_cfg.batch_size
         start_epoch = 0
         if t_cfg.resume:
             restored = self.ckpt.restore_latest()
@@ -476,26 +679,67 @@ class Trainer:
                 logger.info("resumed from checkpoint step %d (epoch %d)",
                             restored[0], start_epoch)
 
+        # the data path: the split (and its [N, K] negatives) on the device
+        # within device_data_limit_mb, else streamed from the host
+        data_bytes = sum(v.nbytes for v in train_cols.values())
+        neg_bytes = 4 * sampler.n_negatives() * n_rows if use_negs else 0
+        resident = (t_cfg.device_resident_data
+                    and data_bytes + neg_bytes <= t_cfg.device_data_limit_mb * 1024 * 1024)
+        self.data_path = "resident" if resident else "streaming"
+
         def on_device(arr):
             return torch.as_tensor(np.ascontiguousarray(arr)).to(dev)
 
-        train_data = {k: on_device(v) for k, v in train_cols.items()}
-        n_val = len(bundle["val/user_id"])
-        val_steps = max(-(-n_val // t_cfg.batch_size), 1)
-        pad = val_steps * t_cfg.batch_size - n_val
-        val_data = {c: on_device(np.pad(bundle[f"val/{c}"], (0, pad)))
-                    for c in BATCH_COLUMNS}
-        if log_q_table is not None:
-            val_data["log_q"] = on_device(
-                log_q_table[np.pad(bundle["val/movie_id"], (0, pad))])
-        val_data["mask"] = on_device(np.pad(np.ones(n_val, np.float32), (0, pad)))
-        if dense_feats is not None:
-            val_data["dense"] = on_device(np.pad(dense_feats["val"], ((0, pad), (0, 0))))
+        def augment(batch):
+            if log_q_table is not None:
+                batch = {**batch, "log_q": log_q_table[batch["movie_id"]]}
+            return batch
+
+        def augment_negs(batch):
+            batch = augment(batch)
+            if use_negs:
+                batch = {**batch, "neg_ids": sampler.sample_batch(batch["user_id"])}
+            return batch
+
         val_dense = None if dense_feats is None else dense_feats["val"]
-        train_epoch = self.make_train_epoch(class_weights, n_rows, steps_per_epoch)
-        val_epoch = self.make_val_epoch(class_weights, val_steps)
-        logger.info("device-resident data: %d train rows (%.1f MB), %d steps/epoch",
-                    n_rows, data_bytes / 1e6, steps_per_epoch)
+        if resident:
+            train_data = {k: on_device(v) for k, v in train_cols.items()}
+            n_val = len(bundle["val/user_id"])
+            val_steps = max(-(-n_val // t_cfg.batch_size), 1)
+            pad = val_steps * t_cfg.batch_size - n_val
+            val_data = {c: on_device(np.pad(bundle[f"val/{c}"], (0, pad)))
+                        for c in BATCH_COLUMNS}
+            if log_q_table is not None:
+                val_data["log_q"] = on_device(
+                    log_q_table[np.pad(bundle["val/movie_id"], (0, pad))])
+            val_data["mask"] = on_device(np.pad(np.ones(n_val, np.float32), (0, pad)))
+            if val_dense is not None:
+                val_data["dense"] = on_device(np.pad(val_dense, ((0, pad), (0, 0))))
+            train_epoch = self.make_train_epoch(class_weights, n_rows, steps_per_epoch,
+                                                use_explicit_negs=use_negs)
+            val_epoch = self.make_val_epoch(class_weights, val_steps)
+            logger.info("device-resident data: %d train rows (%.1f MB), %d steps/epoch",
+                        n_rows, (data_bytes + neg_bytes) / 1e6, steps_per_epoch)
+        else:
+            placer = _Placer(dev)
+            if use_negs:
+                # the JAX trainer draws one example batch's negatives here
+                # (the batch it compiles against): the same draw keeps the
+                # sampler's stream, and so every negative, equal to the JAX
+                # package's
+                train_example = next(iter(train_batcher.epoch(0)))
+                sampler.sample_batch(train_example["user_id"])
+            train_step = self.make_train_step(class_weights, use_negs)
+            eval_step = self.make_eval_step(class_weights)
+            chunk_k = min(max(int(t_cfg.stream_chunk_steps), 1), max(steps_per_epoch, 1))
+            if t_cfg.checkpoint_every_steps:
+                # a chunk never steps over a mid-epoch checkpoint
+                chunk_k = min(chunk_k, int(t_cfg.checkpoint_every_steps))
+            train_chunk = (self.make_train_chunk(class_weights, use_negs, chunk_k)
+                           if chunk_k > 1 else None)
+            logger.info("streaming data: %d train rows (%.1f MB with negatives), %d "
+                        "steps/epoch, %d steps a transfer", n_rows,
+                        (data_bytes + neg_bytes) / 1e6, steps_per_epoch, chunk_k)
 
         best_val = float("inf")
         best_params_host = None
@@ -521,14 +765,36 @@ class Trainer:
                 final_epoch = epoch
                 self.writer.start_epoch()
                 t0 = time.time()
-                state, tmetrics = train_epoch(state, train_data, epoch)
-                logs = {f"train_{k}": float(v) for k, v in tmetrics.items()}  # syncs
+                if resident:
+                    if use_negs:
+                        # fresh explicit negatives each epoch, one [N, K] column
+                        train_data["neg_ids"] = on_device(
+                            sampler.sample_batch(train_cols["user_id"]))
+                    state, tmetrics = train_epoch(state, train_data, epoch)
+                    n_steps = steps_per_epoch
+                    logs = {f"train_{k}": float(v) for k, v in tmetrics.items()}  # syncs
+                else:
+                    state, n_steps, logs = self._stream_epoch(
+                        state, epoch, train_batcher.epoch(epoch), augment_negs, placer,
+                        train_step, train_chunk, chunk_k)
+                    if dev.type == "cuda":  # the epoch's time ends with its last step
+                        torch.cuda.synchronize(dev)
                 epoch_time = time.time() - t0
-                examples_total += steps_per_epoch * t_cfg.batch_size
-                logs["examples_per_s"] = (steps_per_epoch * t_cfg.batch_size
-                                          / max(epoch_time, 1e-9))
-                logs.update({f"val_{k}": float(v)
-                             for k, v in val_epoch(state.params, val_data).items()})
+                examples_total += n_steps * t_cfg.batch_size
+                logs["examples_per_s"] = n_steps * t_cfg.batch_size / max(epoch_time, 1e-9)
+                if resident:
+                    logs.update({f"val_{k}": float(v)
+                                 for k, v in val_epoch(state.params, val_data).items()})
+                else:
+                    # the unweighted mean of the val batches' masked means
+                    v_agg: Dict[str, float] = {}
+                    v_steps = 0
+                    for batch in val_batcher.epoch(0):
+                        metrics = eval_step(state.params, placer.ready(placer(augment(batch))))
+                        for k, v in metrics.items():
+                            v_agg[k] = v_agg.get(k, 0.0) + float(v)
+                        v_steps += 1
+                    logs.update({f"val_{k}": v / max(v_steps, 1) for k, v in v_agg.items()})
                 if t_cfg.eval_every_epochs and (epoch + 1) % t_cfg.eval_every_epochs == 0:
                     sample_cfg = dataclasses.replace(
                         cfg.eval, eval_sample=cfg.eval.eval_sample or 20_000, topk=(10,))
@@ -538,7 +804,7 @@ class Trainer:
                 self.writer.end_epoch(epoch, logs)
                 if self._preempt_requested:
                     self.ckpt.save(state.step, self._state_dict(state),
-                                   metrics={"val_loss": logs["val_loss"]})
+                                   metrics={"val_loss": logs.get("val_loss", float("nan"))})
                     preempted = True
                     logger.info("preemption checkpoint saved (epoch %d, step %d)",
                                 epoch, state.step)
@@ -549,10 +815,10 @@ class Trainer:
                 if value is None and monitor != "val_loss":
                     # not computed this epoch (eval_every_epochs cadence)
                     self.ckpt.save(state.step, self._state_dict(state),
-                                   metrics={"val_loss": logs["val_loss"]})
+                                   metrics={"val_loss": logs.get("val_loss", float("nan"))})
                     continue
                 if value is None:
-                    value = logs["val_loss"]
+                    value = logs.get("val_loss", float("inf"))
                 score = sign * value  # lower is better
                 is_best = score < best_val
                 if is_best:

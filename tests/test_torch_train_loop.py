@@ -2,7 +2,8 @@
 dense train step over 20 steps, the offline evaluator, ``Trainer.train``
 end to end (its serving bundle served by both packages), the CLI (its
 config against the JAX CLI's for one argv, ``--resume``), the
-preemption checkpoint and resume, and the modes that are not ported.
+preemption checkpoint and resume, the explicit-negatives and streaming
+modes through ``Trainer.train``, and the modes that are not ported.
 
 Tolerances:
 * 20-step trajectory, fp32: losses to rtol = 1e-5 and params to
@@ -217,13 +218,7 @@ def test_preemption_checkpoint_then_resume(tiny_bundle, tmp_path, monkeypatch):
 
 
 _UNPORTED = {
-    "explicit negatives": lambda: RecsysConfig(data=DataConfig(negative_sampling="hard")),
-    "sparse updates": lambda: RecsysConfig(data=DataConfig(negative_sampling="mixed"),
-                                           train=TrainConfig(sparse_table_updates=True)),
-    "CBNS cache": lambda: RecsysConfig(data=DataConfig(negative_sampling="mined"),
-                                       train=TrainConfig(negative_cache=128)),
     "model-parallel mesh": lambda: RecsysConfig(mesh=MeshConfig(model_axis=2)),
-    "streaming input": lambda: RecsysConfig(train=TrainConfig(device_resident_data=False)),
     "profile": lambda: RecsysConfig(train=TrainConfig(profile=True)),
 }
 
@@ -234,17 +229,58 @@ def test_unported_modes_raise(mode, tmp_path):
         Trainer(_UNPORTED[mode](), str(tmp_path), device="cpu")
 
 
+# the modes that raised before explicit negatives and the streaming path
+# were ported: each trains, on the path and step the JAX trainer takes
+_NEGATIVE_AND_STREAMING_MODES = {
+    "explicit negatives": (dict(negative_sampling="hard"), {}, "resident"),
+    "sparse updates": (dict(negative_sampling="mixed"), dict(sparse_table_updates=True),
+                       "resident"),
+    "CBNS cache": (dict(negative_sampling="mined"), dict(negative_cache=512), "resident"),
+    "streaming input": ({}, dict(device_resident_data=False, stream_chunk_steps=4),
+                        "streaming"),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(_NEGATIVE_AND_STREAMING_MODES))
+def test_negative_and_streaming_modes_train(mode, tiny_bundle, tmp_path):
+    """Explicit negatives take the dense step, even with sparse updates
+    asked for; the cache composes with them; "mined" trains on a caller's
+    table; the streaming path trains step for step like the resident one
+    (only the batch order differs)."""
+    data_kw, train_kw, path = _NEGATIVE_AND_STREAMING_MODES[mode]
+    cfg = _small_run_cfg(epochs=1, **train_kw).replace(
+        data=DataConfig(num_hard_negatives=2, num_random_negatives=3, **data_kw))
+    tr = Trainer(cfg, str(tmp_path / "run"), device="cpu")
+    if cfg.data.negative_sampling == "mined":
+        n_items = int(tiny_bundle["meta/n_movies"])
+        tr.mined_table = np.random.default_rng(0).integers(
+            0, n_items, (int(tiny_bundle["meta/n_users"]), 6))
+    report = tr.train(tiny_bundle)
+    steps = len(tiny_bundle["train/user_id"]) // 256
+    assert tr.data_path == path
+    assert tr.step_counts == {"dense": steps, "sparse": 0}
+    assert np.isfinite(report["recall@10"])
+    if train_kw.get("negative_cache"):
+        assert (tr.final_state.extras["ids"] >= 0).all()  # the FIFO filled up
+    if cfg.data.negative_sampling == "mined":
+        tr2 = Trainer(cfg, str(tmp_path / "no_table"), device="cpu")
+        with pytest.raises(ValueError, match="mined table"):
+            tr2.train(tiny_bundle)
+
+
 def test_unported_data_sizes_raise(tiny_bundle, tmp_path):
-    """A split above ``device_data_limit_mb`` (the streaming path) raises;
-    "auto" takes the sparse table updates above the table threshold, and
-    the dense step below it."""
-    tr = Trainer(_small_run_cfg(device_data_limit_mb=0), str(tmp_path / "a"), device="cpu")
-    with pytest.raises(NotImplementedError, match="streaming"):
-        tr.train(tiny_bundle)
+    """A split above ``device_data_limit_mb`` trains on the streaming
+    path, as in the JAX trainer; "auto" takes the sparse table updates
+    above the table threshold, and the dense step below it."""
+    tr = Trainer(_small_run_cfg(device_data_limit_mb=0, epochs=1), str(tmp_path / "a"),
+                 device="cpu")
+    report = tr.train(tiny_bundle)
+    assert tr.data_path == "streaming" and np.isfinite(report["recall@10"])
+    steps = len(tiny_bundle["train/user_id"]) // 256
+    assert tr.final_state.step == steps
     tr = Trainer(_small_run_cfg(epochs=1), str(tmp_path / "b"), device="cpu")
     tr.SPARSE_AUTO_THRESHOLD = 10
     tr.train(tiny_bundle)
-    steps = len(tiny_bundle["train/user_id"]) // 256
     assert tr.step_counts == {"dense": 0, "sparse": steps}
     tr = Trainer(_small_run_cfg(epochs=1), str(tmp_path / "c"), device="cpu")
     tr.train(tiny_bundle)
@@ -322,6 +358,13 @@ _SHARED_ARGVS = {
     "negative counts": ["--negative_sampling", "random", "--num_hard_negatives", "7",
                         "--num_random_negatives", "9", "--model_parallel", "1",
                         "--embedding_sharding", "replicated", "--lookup_strategy", "xla"],
+    "hard negatives": ["--data", "x.npz", "--negative_sampling", "hard",
+                       "--num_hard_negatives", "4"],
+    "mixed negatives": ["--negative_sampling", "mixed", "--num_hard_negatives", "3",
+                        "--num_random_negatives", "11", "--batch_size", "512"],
+    "mined negatives": ["--negative_sampling", "mined", "--mined_from", "runs/phase1/serving",
+                        "--num_hard_negatives", "10", "--num_random_negatives", "5"],
+    "mined_from alone": ["--mined_from", "some/dir"],
 }
 
 
@@ -335,8 +378,7 @@ def test_cli_config_matches_the_jax_cli(name, monkeypatch):
 
 
 @pytest.mark.parametrize("flag, value, item", [
-    ("--negative_sampling", "hard", "item 3"), ("--negative_sampling", "mixed", "item 3"),
-    ("--negative_sampling", "mined", "item 3"), ("--model_parallel", "2", "item 8"),
+    ("--model_parallel", "2", "item 8"),
     ("--embedding_sharding", "rows", "item 8"), ("--lookup_strategy", "psum", "item 8"),
     ("--lookup_strategy", "a2a", "item 8")])
 def test_cli_unported_mode_values_name_their_roadmap_item(flag, value, item, monkeypatch,
@@ -381,6 +423,6 @@ def test_cli_resume_reaches_the_trainer_and_unported_flags_stay_errors(tiny_bund
     with open(os.path.join(out, "metrics.json")) as f:
         assert json.load(f)["epochs_run"] == 2
     with pytest.raises(SystemExit):
-        cli.main(["--data", data, "--mined_from", out])
+        cli.main(["--data", data, "--use_wandb"])
     with pytest.raises(SystemExit, match="requires --use_dense_features"):
         cli.main(["--data", data, "--use_side_features"])

@@ -165,8 +165,6 @@ def test_loss_raises_for_unported_arguments():
     _, tcfg = _configs()
     tp = MultiTaskModel.init(torch.Generator().manual_seed(0), tcfg, N_USERS, N_ITEMS, "cpu")
     batch = {k: torch.as_tensor(v) for k, v in _batch().items()}
-    with pytest.raises(NotImplementedError, match="item 3"):
-        MultiTaskModel.loss(tp, tcfg, batch, neg_item_ids=torch.zeros((B, 2), dtype=torch.long))
     with pytest.raises(NotImplementedError, match="item 8"):
         MultiTaskModel.loss(tp, tcfg, batch, data_axis="data")
     for fn in (losses.in_batch_softmax, losses.in_batch_softmax_chunked):
