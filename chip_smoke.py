@@ -133,8 +133,10 @@
     ``transform_scaled``; runs the evaluate CLI's ``main`` (rerank 200,
     seen-filtered); exports top-200 through the export CLI's ``main`` and
     holds the artifact on the card and on the CPU against the service's
-    exact route, serves ``backend="exported"`` with rerank against the
-    device backend, checks that a rebuilt ``index.npz`` is refused, and
+    exact route, serves ``backend="exported"`` with rerank (on the host,
+    through ``_FastRerank``) against itself served on the CPU, its
+    distance to the device rerank recorded, checks that a rebuilt
+    ``index.npz`` is refused, and
     profiles the exported retrieve against the exact route at 1 and 64
     users; times rows 2 and 3 at F = 289 as in phase 6 and profiles the
     dense-feature train step;
@@ -153,7 +155,30 @@
     the CPU, held as in phase 10; then profiles the explicit-negatives
     step, the same step without negatives and the streaming step (the
     host's Batcher gather and ``sample_batch`` timed apart);
-24. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+24. the rest of serving on phase 22's trained bundle (F = 289, rerank
+    200): (a) 16 client threads each send 20 single-user ``/recommend``
+    requests (k of 5 and 10) to the threaded server with no batcher and
+    then with ``microbatch`` 64, (b) and to the asyncio server, every
+    answer held against the service's direct ``recommend`` (ids beyond
+    ties, scores within ``SERVE_TOL``), the batchers' largest batch above
+    1, the counters set to 0 just before each batched load and read just
+    after (rows 1 and 2 launch), QPS, p50 and p90 recorded; (c)
+    ``/admin/reload`` under the micro-batcher on a copy of the bundle (a
+    negated catalog changes the answer, the restored one brings it back,
+    the old batcher stops, ``torch.cuda.memory_allocated`` within 10%
+    over the two reloads) and a degraded start that gains its service on
+    reload; (d) ``backend="native"`` with and without features
+    (``_FastRerank`` active, equal to its own exact host path to 1e-4 /
+    1e-5; its top-10 overlap and score distance to the device backend
+    recorded; the native library built into ``build/``; ``recommend``
+    and the 64-user batch timed beside the device backend's, the batch's
+    retrieval and rerank apart); (e)
+    ``python -m recsys_tpu_torch.serve --workers 2 --microbatch 64
+    --rerank_candidates 200 --device cuda``: healthy, 40 answers as
+    in (a), the whole tree reaped on SIGTERM within 30 s; (f) the
+    Batcher's native gather bit-equal to numpy at phase 23's shapes, both
+    timed;
+25. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line. Without a
@@ -274,6 +299,9 @@ NEG_HARD, NEG_RANDOM = 20, 30
 STREAM_CHUNK, STREAM_CKPT_EVERY, STREAM_K1_CKPT_EVERY = 32, 16, 40
 NEG_PATH_KERNELS = ("dcn_cross", "dcn_cross_bwd", "flash_ce_fwd", "flash_ce_bwd_du",
                     "flash_ce_bwd_dv")
+# the rest of serving: 16 clients, each sending 20 single-user /recommend
+# requests (k of 5 and 10) one after another
+LOAD_CLIENTS, LOAD_REQUESTS = 16, 20
 
 
 def log(msg: str) -> None:
@@ -2529,12 +2557,22 @@ def dense_feature_path(repo: str, counters, tmp: str) -> dict:
         c.reset()
     got_one, got_batch = exported.recommend(1, 10), exported.recommend_batch(batch, 10)
     exported_launches = {c.name: c.read() for c in counters}
-    diff = same_ranking(got_one, svc.recommend(1, 10), SERVE_TOL,
-                        "exported backend, known user")
-    for a, b in zip(got_batch, svc.recommend_batch(batch, 10)):
+    # the exported backend reranks on the host (_FastRerank, fp32), as the
+    # JAX package's does: held against itself served on the CPU, and its
+    # distance to the device rerank (bf16 operands) recorded
+    exported_cpu = RecommendationService(serving, backend="exported",
+                                         rerank_candidates=RERANK, device="cpu").load()
+    diff = same_ranking(got_one, exported_cpu.recommend(1, 10), SERVE_TOL,
+                        "exported backend, known user, card vs CPU")
+    vs_device = 0.0
+    for a, b, c in zip(got_batch, exported_cpu.recommend_batch(batch, 10),
+                       svc.recommend_batch(batch, 10)):
         diff = max(diff, same_ranking(a["recommendations"], b["recommendations"], SERVE_TOL,
-                                      f"exported backend, user {a['user_id']}"))
-    check(exported_launches["dcn_cross"] > 0 and exported_launches["topk_flash"] == 0,
+                                      f"exported backend, user {a['user_id']}, card vs CPU"))
+        vs_device = max(vs_device, max(abs(x["score"] - y["score"]) for x, y in zip(
+            a["recommendations"], c["recommendations"])))
+    check(exported._fast_rerank is not None, "the exported backend's _FastRerank failed")
+    check(exported_launches["dcn_cross"] == 0 and exported_launches["topk_flash"] == 0,
           f"exported backend launches {exported_launches}")
     check("exported" in exported.get_model_info()["backend"], "exported backend info")
     stale = os.path.join(tmp, "stale")
@@ -2549,6 +2587,7 @@ def dense_feature_path(repo: str, counters, tmp: str) -> dict:
         refused = str(e)
     check("different bundle" in refused, "a rebuilt index.npz was served by a stale artifact")
     out["export"] = {"meta": meta, "max_score_diff": errs, "exported_rerank_diff": diff,
+                     "exported_rerank_max_score_diff_vs_device": vs_device,
                      "launches": exported_launches}
     for q in (1, BATCH_USERS):
         ids = np.array([exact.user_id_map[u] for u in batch[:q]])
@@ -2869,6 +2908,434 @@ def negatives_streaming_path(counters, tmp: str, bundle_np: dict) -> dict:
     return out
 
 
+# ---- the rest of serving: the seventh main path ----------------------------
+
+def client_load(port: int, jobs: list) -> dict:
+    """``len(jobs)`` client threads, each on its own keep-alive connection,
+    send their ``(user_id, k)`` jobs to ``/recommend`` one after another,
+    all starting together -> the answers {(thread, job): (status, body)},
+    QPS over the whole load's wall time, and the latency p50 and p90."""
+    import http.client
+
+    answers, latency, errors = {}, [], []
+    barrier = threading.Barrier(len(jobs))
+
+    def client(t: int) -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            barrier.wait(timeout=60)
+            for j, (uid, k) in enumerate(jobs[t]):
+                t0 = time.perf_counter()
+                conn.request("POST", "/recommend", body=json.dumps({"user_id": uid, "k": k}),
+                             headers={"Content-Type": "application/json"})
+                r = conn.getresponse()
+                data = r.read()
+                latency.append((time.perf_counter() - t0) * 1e3)
+                answers[(t, j)] = (r.status, json.loads(data))
+        except Exception as e:  # reported below: the phase fails
+            errors.append(repr(e))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(len(jobs))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(th.is_alive() for th in threads), f"client load: {errors}")
+    latency.sort()
+    n = len(latency)
+    return {"answers": answers, "n": n, "wall_s": wall, "qps": n / wall,
+            "p50_ms": latency[n // 2], "p90_ms": latency[int(n * 0.9)]}
+
+
+def check_load(load: dict, jobs: list, refs: dict, what: str) -> float:
+    """Every answer of ``load`` 200 and equal to the service's direct
+    recommend (ids beyond ties, scores within SERVE_TOL) -> max score diff."""
+    err = 0.0
+    for (t, j), (status, body) in load["answers"].items():
+        uid, k = jobs[t][j]
+        check(status == 200 and body["count"] == k, f"{what}: {status} {body}")
+        err = max(err, same_ranking(body["recommendations"], refs[(uid, k)], SERVE_TOL,
+                                    f"{what}: user {uid}, k {k}"))
+    check(len(load["answers"]) == sum(map(len, jobs)), f"{what}: answers missing")
+    return err
+
+
+def same_ranking_rel(got, want, rtol: float, atol: float, what: str) -> float:
+    """:func:`same_ranking` with the tolerance ``atol + rtol * max|score|``."""
+    scale = max(abs(r["score"]) for r in want)
+    return same_ranking(got, want, atol + rtol * scale, what)
+
+
+def _negate_index(d: str) -> bytes:
+    """A retrain stand-in: the catalog's embeddings negated, the artifact's
+    schema kept -> the original bytes of index.npz."""
+    import numpy as np
+
+    path = os.path.join(d, "index.npz")
+    with open(path, "rb") as f:
+        original = f.read()
+    with np.load(path) as z:
+        idx = {k: z[k] for k in z.files}
+    idx["item_embeddings"] = -idx["item_embeddings"]
+    np.savez(path, **idx)
+    return original
+
+
+def _threaded(service, **kw):
+    from recsys_tpu_torch.serve.app import make_http_server
+
+    server = make_http_server(service, host="127.0.0.1", port=0, **kw)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread
+
+
+def _stop_threaded(server, thread) -> None:
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=30)
+    check(not thread.is_alive(), "server thread did not stop")
+
+
+def reload_with_batcher(serving: str, tmp: str, uid: int) -> dict:
+    """Phase 24 (c): /admin/reload under the micro-batcher on a copy of
+    the bundle: the negated catalog changes the answer, the restored one
+    brings it back, the old batcher stops, the old service's tensors are
+    freed; a degraded start gains its service on reload."""
+    import gc
+    import shutil
+
+    import torch
+    from recsys_tpu_torch.serve.batcher import MicroBatcher
+    from recsys_tpu_torch.serve.service import RecommendationService
+
+    copy = os.path.join(tmp, "reload_bundle")
+    shutil.copytree(serving, copy)
+
+    def factory():
+        return RecommendationService(copy, rerank_candidates=RERANK, device="cuda").load()
+
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    first = factory()
+    batcher = MicroBatcher(first, max_batch=BATCH_USERS).start()
+    server, thread = _threaded(first, batcher=batcher, service_factory=factory)
+    port = server.server_address[1]
+    out = {}
+    try:
+        code, before, _ = http(port, "POST", "/recommend", {"user_id": uid, "k": 10})
+        check(code == 200, f"reload: /recommend {code}")
+        gc.collect()
+        mem_before = torch.cuda.memory_allocated()
+        original = _negate_index(copy)
+        code, rep, out["reload_ms"] = http(port, "POST", "/admin/reload", {})
+        check(code == 200 and rep["reload_count"] == 1, f"reload: {code} {rep}")
+        check(not batcher._running and batcher._thread is None, "the old batcher still runs")
+        code, negated, _ = http(port, "POST", "/recommend", {"user_id": uid, "k": 10})
+        ids = lambda body: [r["item_id"] for r in body["recommendations"]]  # noqa: E731
+        check(code == 200 and ids(negated) != ids(before), "reload did not change the answer")
+        with open(os.path.join(copy, "index.npz"), "wb") as f:
+            f.write(original)
+        second = server.api.batcher
+        code, rep, _ = http(port, "POST", "/admin/reload", {})
+        check(code == 200 and rep["reload_count"] == 2, f"second reload: {code} {rep}")
+        check(not second._running, "the second batcher still runs")
+        code, again, _ = http(port, "POST", "/recommend", {"user_id": uid, "k": 10})
+        out["restored_max_score_diff"] = same_ranking(
+            again["recommendations"], before["recommendations"], SERVE_TOL, "restored bundle")
+        del first, second, batcher, rep
+        gc.collect()
+        mem_after = torch.cuda.memory_allocated()
+        out.update(memory_allocated_before=mem_before, memory_allocated_after=mem_after,
+                   service_bytes=mem_before - base)
+        check(abs(mem_after - mem_before) <= 0.1 * mem_before,
+              f"memory_allocated {mem_before} -> {mem_after} over two reloads")
+        check(abs(mem_after - mem_before) < 0.5 * (mem_before - base),
+              f"the old services' tensors were not freed: {mem_before} -> {mem_after}, "
+              f"a service holds {mem_before - base}")
+    finally:
+        _stop_threaded(server, thread)
+        server.api.batcher.stop()
+
+    # a degraded start (no bundle at start-up) gains its service on reload
+    late = os.path.join(tmp, "late_bundle")
+    server, thread = _threaded(None, service_factory=lambda: RecommendationService(
+        late, rerank_candidates=RERANK, device="cuda").load())
+    port = server.server_address[1]
+    try:
+        code, _, _ = http(port, "POST", "/recommend", {"user_id": uid, "k": 10})
+        check(code == 503, f"degraded start: /recommend {code}")
+        code, _, _ = http(port, "POST", "/admin/reload", {})
+        check(code == 500, f"degraded start, bundle still missing: reload {code}")
+        shutil.copytree(serving, late)
+        code, rep, _ = http(port, "POST", "/admin/reload", {})
+        check(code == 200 and rep["model_info"]["ready"], f"degraded start: reload {code}")
+        code, body, _ = http(port, "POST", "/recommend", {"user_id": uid, "k": 10})
+        check(code == 200 and body["count"] == 10, f"degraded start after reload: {code}")
+    finally:
+        _stop_threaded(server, thread)
+    return out
+
+
+def serve_cli_workers(repo: str, serving: str, tmp: str, jobs: list, refs: dict) -> dict:
+    """Phase 24 (e): ``python -m recsys_tpu_torch.serve --workers 2
+    --microbatch 64`` on the card: both workers load after the fork (the
+    parent touches no CUDA state), answer 40 requests from 8 clients as
+    the service does, and SIGTERM to the parent reaps the whole tree."""
+    import signal
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    err_path = os.path.join(tmp, "serve_cli.log")
+    with open(err_path, "w") as err_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "recsys_tpu_torch.serve", "--model_dir", serving,
+             "--workers", "2", "--microbatch", str(BATCH_USERS), "--rerank_candidates",
+             str(RERANK), "--device", "cuda", "--host", "127.0.0.1", "--port", str(port)],
+            cwd=repo, stdout=subprocess.DEVNULL, stderr=err_file, start_new_session=True)
+    out = {}
+    try:
+        healthy = False
+        while time.perf_counter() - t0 < 300 and proc.poll() is None and not healthy:
+            try:
+                code, body, _ = http(port, "GET", "/health")
+                healthy = code == 200 and body["model_loaded"]
+            except OSError:
+                time.sleep(0.5)
+        if not healthy:
+            with open(err_path) as f:
+                raise AssertionError(f"the two-worker CLI never became healthy "
+                                     f"(rc {proc.poll()}): {f.read()[-3000:]}")
+        out["healthy_after_s"] = time.perf_counter() - t0
+        # each worker's first batch loads the kernels' library and warms the
+        # card: 16 unchecked requests first, then 40 checked, from 8 clients
+        client_load(port, [jobs[t][5:7] for t in range(8)])
+        sub = [jobs[t][:5] for t in range(8)]
+        load = client_load(port, sub)
+        out["max_score_diff"] = check_load(load, sub, refs, "two-worker CLI")
+        out.update(n=load["n"], qps=load["qps"], p50_ms=load["p50_ms"], p90_ms=load["p90_ms"])
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=30)
+        out["reaped_s"] = time.perf_counter() - t1
+        check(rc == 0, f"the two-worker CLI exited {rc} on SIGTERM")
+        try:
+            os.killpg(proc.pid, 0)
+            alive = True
+        except ProcessLookupError:
+            alive = False
+        check(not alive, "a serving worker outlived its parent")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+    return out
+
+
+def native_gather_check(tmp: str) -> dict:
+    """Phase 24 (f): the Batcher's native gather at phase 23's shapes
+    (B = 8,192 rows of the train columns) bit-equal to numpy over an
+    epoch; one gather timed on 1 to 8 threads, on the Batcher's choice
+    (one a MiB) and through numpy, at B = 8,192 and 131,072."""
+    import numpy as np
+    from recsys_tpu_torch.data import pipeline
+    from recsys_tpu_torch.data.preprocessing import load_bundle
+    from recsys_tpu_torch.utils.native import gather_batch
+
+    bundle = load_bundle(os.path.join(tmp, "bundle.npz"))
+    b = pipeline.Batcher(bundle, "train", TRAIN_BATCH, seed=SEED)
+    order = np.random.default_rng((b.seed, 0)).permutation(b.n)
+    steps = 0
+    for step, batch in enumerate(b.epoch(0)):
+        idx = order[step * TRAIN_BATCH:(step + 1) * TRAIN_BATCH]
+        for c in b.columns:
+            check(batch[c].dtype == b.data[c].dtype
+                  and np.array_equal(batch[c], b.data[c][idx]),
+                  f"native gather: step {step}, column {c} differs from numpy")
+        steps += 1
+    out = {"steps_checked": steps, "columns": list(b.columns), "row_bytes": b.row_bytes,
+           "cpu_count": os.cpu_count()}
+    for rows in (TRAIN_BATCH, 16 * TRAIN_BATCH):
+        idx = np.random.default_rng(rows).integers(0, b.n, rows)
+        choice = max(1, min(os.cpu_count() or 1,
+                            rows * b.row_bytes // pipeline.GATHER_BYTES_PER_THREAD))
+        fns = {f"threads_{n}": (lambda n=n: gather_batch(b.data, idx, n_threads=n))
+               for n in (1, 2, 4, 8)}
+        fns["numpy"] = lambda: {c: b.data[c][idx] for c in b.columns}
+        times = {"batcher_threads": choice}
+        for name, fn in fns.items():
+            ts = []
+            for _ in range(21):
+                t0 = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            times[f"{name}_ms_p50"] = sorted(ts)[10]
+        out[f"rows_{rows}"] = times
+    return out
+
+
+def serving_rest_path(repo: str, counters, tmp: str) -> dict:
+    """Phase 24: the rest of serving on phase 22's trained bundle (F = 289,
+    rerank 200): (a) 16 clients x 20 ``/recommend`` through the threaded
+    server with no batcher and with ``microbatch`` 64, (b) through the
+    asyncio server, every answer held against the service's direct
+    recommend and the kernel counters set to 0 just before each batched
+    load and read just after; (c) reload under the micro-batcher; (d) the
+    native backend; (e) the serve CLI with two workers; (f) the Batcher's
+    native gather."""
+    import numpy as np
+    import torch
+    from recsys_tpu_torch.serve.aio import AioHttpServer
+    from recsys_tpu_torch.serve.batcher import MicroBatcher
+    from recsys_tpu_torch.serve.service import RecommendationService
+    from recsys_tpu_torch.utils import native
+
+    serving = os.path.join(tmp, "run", "serving")
+    svc = RecommendationService(serving, rerank_candidates=RERANK, device="cuda").load()
+    users = sorted(svc.user_id_map)
+    jobs = [[(users[(t * LOAD_REQUESTS + j) * 37 % len(users)], 10 if j % 2 else 5)
+             for j in range(LOAD_REQUESTS)] for t in range(LOAD_CLIENTS)]
+    refs = {job: svc.recommend(*job) for row in jobs for job in row}
+    warm = [row[:2] for row in jobs]
+    out = {"n_clients": LOAD_CLIENTS, "requests_per_client": LOAD_REQUESTS}
+
+    # (a) the threaded server, with no batcher, then with microbatch 64
+    server, thread = _threaded(svc)
+    try:
+        client_load(server.server_address[1], warm)
+        load = client_load(server.server_address[1], jobs)
+    finally:
+        _stop_threaded(server, thread)
+    out["threaded"] = {k: load[k] for k in ("n", "qps", "p50_ms", "p90_ms", "wall_s")}
+    out["threaded"]["max_score_diff"] = check_load(load, jobs, refs, "threaded, no batcher")
+    with MicroBatcher(svc, max_batch=BATCH_USERS) as mb:
+        server, thread = _threaded(svc, batcher=mb)
+        try:
+            client_load(server.server_address[1], warm)
+            for c in counters:
+                c.reset()
+            before = mb.stats()
+            load = client_load(server.server_address[1], jobs)
+            torch.cuda.synchronize()
+            launches = {c.name: c.read() for c in counters}
+        finally:
+            _stop_threaded(server, thread)
+        st = mb.stats()
+    out["threaded_microbatch"] = {k: load[k] for k in ("n", "qps", "p50_ms", "p90_ms", "wall_s")}
+    out["threaded_microbatch"].update(
+        max_score_diff=check_load(load, jobs, refs, "threaded, microbatch 64"),
+        launches=launches, max_batch_seen=st["max_batch_seen"],
+        batches=st["n_batches"] - before["n_batches"],
+        mean_batch=(st["n_requests"] - before["n_requests"])
+        / max(st["n_batches"] - before["n_batches"], 1))
+    check(st["max_batch_seen"] > 1, f"the micro-batcher never batched: {st}")
+    check(launches["topk_flash"] > 0 and launches["dcn_cross"] > 0,
+          f"microbatched /recommend did not run rows 1 and 2: {launches}")
+
+    # (b) the asyncio server: the loop coalescer
+    aio = AioHttpServer(svc, "127.0.0.1", 0, max_batch=BATCH_USERS)
+    aio_thread = threading.Thread(target=aio.serve_forever, daemon=True)
+    aio_thread.start()
+    for _ in range(400):
+        if aio.bound_port:
+            break
+        time.sleep(0.025)
+    check(aio.bound_port is not None, "the asyncio server did not bind")
+    try:
+        client_load(aio.bound_port, warm)
+        for c in counters:
+            c.reset()
+        before = aio.coalescer.stats()
+        load = client_load(aio.bound_port, jobs)
+        torch.cuda.synchronize()
+        launches = {c.name: c.read() for c in counters}
+        st = aio.coalescer.stats()
+    finally:
+        aio.shutdown()
+        aio_thread.join(timeout=30)
+    check(not aio_thread.is_alive(), "the asyncio server did not stop")
+    out["asyncio"] = {k: load[k] for k in ("n", "qps", "p50_ms", "p90_ms", "wall_s")}
+    out["asyncio"].update(
+        max_score_diff=check_load(load, jobs, refs, "asyncio"), launches=launches,
+        max_batch_seen=st["max_batch_seen"], batches=st["n_batches"] - before["n_batches"],
+        mean_batch=(st["n_requests"] - before["n_requests"])
+        / max(st["n_batches"] - before["n_batches"], 1))
+    check(st["max_batch_seen"] > 1, f"the asyncio coalescer never batched: {st}")
+    check(launches["topk_flash"] > 0 and launches["dcn_cross"] > 0,
+          f"coalesced /recommend did not run rows 1 and 2: {launches}")
+    log(f"phase 24 (a, b) loads: {json.dumps({k: out[k] for k in ('threaded', 'threaded_microbatch', 'asyncio')})}")
+
+    # (c) hot reload under the micro-batcher
+    out["reload"] = reload_with_batcher(serving, tmp, users[0])
+
+    # (d) the native backend, with features (phase 22's bundle) and without
+    # (phase 23's mixed-negatives bundle, F = 256)
+    check(native.native_available() and native.library_path().exists()
+          and native.library_path().parent == native.BUILD_DIR,
+          "the native library did not build from native/native.cpp into build/")
+    batch = [int(u) for u in users[::len(users) // BATCH_USERS][:BATCH_USERS]]
+    out["native"] = {"library": os.path.relpath(native.library_path(), repo)}
+    for label, bundle in (("dense_features", serving),
+                          ("no_features", os.path.join(tmp, "neg_mixed", "serving"))):
+        nat = RecommendationService(bundle, backend="native", rerank_candidates=RERANK).load()
+        check(nat._fast_rerank is not None, f"native {label}: _FastRerank failed its self-check")
+        exact = RecommendationService(bundle, backend="native", rerank_candidates=RERANK).load()
+        exact._fast_rerank = None  # its own exact per-pair host path
+        dev = (svc if bundle == serving else
+               RecommendationService(bundle, rerank_candidates=RERANK, device="cuda").load())
+        got = nat.recommend_batch(batch, 10)
+        err, overlap, dev_diff = 0.0, [], 0.0
+        for a, b, c in zip(got, exact.recommend_batch(batch, 10), dev.recommend_batch(batch, 10)):
+            err = max(err, same_ranking_rel(a["recommendations"], b["recommendations"], 1e-4,
+                                            1e-5, f"native {label}: fast vs exact"))
+            ids_a = [r["item_id"] for r in a["recommendations"]]
+            overlap.append(len(set(ids_a) & {r["item_id"] for r in c["recommendations"]}) / 10)
+            dev_diff = max(dev_diff, float(np.abs(
+                np.array([r["score"] for r in a["recommendations"]])
+                - np.array([r["score"] for r in c["recommendations"]])).max()))
+        entry = {"fast_vs_exact_max_score_diff": err,
+                 "top10_overlap_vs_device": float(np.mean(overlap)),
+                 "max_score_diff_vs_device": dev_diff,
+                 "features": nat.config.model.dense_features}
+        t0 = time.perf_counter()
+        RecommendationService(bundle, backend="native", rerank_candidates=RERANK).load()
+        entry["load_s"] = time.perf_counter() - t0
+        # the 64-user host call's parts: retrieval (tower, BLAS product,
+        # argpartition) and the rerank (_FastRerank, the combined sort)
+        ids = np.array([nat.user_id_map[u] for u in batch])
+        scores, cand = nat._retrieve(ids, RERANK)
+        for part, fn in (("retrieve", lambda: nat._retrieve(ids, RERANK)),
+                         ("fast_rerank_logits", lambda: nat._fast_rerank.logits(
+                             ids, cand, need_rating=bool(nat.rerank_rating_weight))),
+                         ("rerank", lambda: nat._rerank(ids, scores, cand, 10))):
+            ts = []
+            for _ in range(21):
+                t0 = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            entry[f"batch64_{part}_ms_p50"] = sorted(ts)[10]
+        entry["profiles"] = [dict(r, profile=f"native_{r['profile']}_{label}")
+                             for r in profile_requests(nat, batch)]
+        entry["profiles"] += [dict(r, profile=f"device_{r['profile']}_{label}")
+                              for r in profile_requests(dev, batch)]
+        out["native"][label] = entry
+        del nat, exact, dev
+    log(f"phase 24 (d) native: {json.dumps(out['native'])}")
+
+    # (e) the serve CLI, two workers on the card
+    out["cli_workers"] = serve_cli_workers(repo, serving, tmp, jobs, refs)
+    # (f) the Batcher's native gather
+    out["batcher_gather"] = native_gather_check(tmp)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3095,10 +3562,21 @@ def main() -> int:
         # ---- explicit negatives and streaming: the sixth main path ---------
         t_neg = time.perf_counter()
         negs = negatives_streaming_path(counters, dense_dir, bundle_np)
+        log(f"negatives-and-streaming phase in {time.perf_counter() - t_neg:.1f} s")
+        # ---- the rest of serving: the seventh main path -------------------
+        t_rest = time.perf_counter()
+        rest = serving_rest_path(repo, counters, dense_dir)
     for row in negs.pop("profiles"):
         log(f"profile {json.dumps(row)}")
     log(f"explicit negatives and streaming: {json.dumps(negs)}")
-    log(f"negatives-and-streaming phase in {time.perf_counter() - t_neg:.1f} s")
+    for label in ("dense_features", "no_features"):
+        for row in rest["native"][label].pop("profiles"):
+            log(f"profile {json.dumps(row)}")
+    log(f"the rest of serving: {json.dumps(rest)}")
+    log(f"rest-of-serving phase in {time.perf_counter() - t_rest:.1f} s")
+    rest_launches = {name: {load: rest[load]["launches"][name]
+                            for load in ("threaded_microbatch", "asyncio")}
+                     for name in ("topk_flash", "dcn_cross")}
     neg_runs = ("mixed_resident", "mined", f"streamed_k{STREAM_CHUNK}", "streamed_k1")
     for row in dense.pop("profiles"):
         log(f"profile {json.dumps(row)}")
@@ -3131,6 +3609,7 @@ def main() -> int:
                                  "serve": dense["serve"]["launches"]["topk_flash"]},
          "launches_negatives_streaming": {r: negs[r]["launches"]["topk_flash"]
                                           for r in neg_runs},
+         "launches_serving_rest": rest_launches["topk_flash"],
          "shape": main_topk["shape"], "shapes": topk_rows},
         {"name": "dcn_cross", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/dcn_cross.cu",
@@ -3141,6 +3620,7 @@ def main() -> int:
                                  "serve": dense["serve"]["launches"]["dcn_cross"]},
          "launches_negatives_streaming": {r: negs[r]["launches"]["dcn_cross"]
                                           for r in neg_runs},
+         "launches_serving_rest": rest_launches["dcn_cross"],
          "dense_features": dense["dcn_fwd"],
          "shape": main_dcn["shape"], "shapes": dcn_rows},
         {"name": "dcn_cross_bwd", "route": "cuda",

@@ -8,8 +8,11 @@ A table is a dict of column arrays in place of a DataFrame:
 occupation, zip]``, read from ``::``-separated latin-1 files. Integer
 columns are int64; text columns are numpy unicode arrays.
 
-Without a real ``ratings.dat`` (absent, or the stripped stub of under
-1 MB), :func:`synthesize_ratings` generates one from a seed: the same
+A real ``ratings.dat`` (over 1 MB) is parsed by the native C++ parser
+(``utils/native.py``; malformed lines are skipped, ratings come back
+float64, as in the JAX package), or by :func:`read_ratings_dat` when the
+library cannot be built. Without one (absent, or the stripped stub of
+under 1 MB), :func:`synthesize_ratings` generates it from a seed: the same
 draws from ``numpy.random.default_rng`` in the same order as the JAX
 package, so one seed gives the same ratings in both packages.
 """
@@ -84,7 +87,13 @@ def load_movielens_data(
     real = (os.path.exists(ratings_path)
             and os.path.getsize(ratings_path) > _REAL_RATINGS_BYTES)
     if real:
-        ratings = read_ratings_dat(ratings_path)
+        from recsys_tpu_torch.utils.native import native_available, parse_ratings_dat
+
+        if native_available():
+            cols = parse_ratings_dat(ratings_path)
+            ratings = dict(zip(("user_id", "movie_id", "rating", "timestamp"), cols))
+        else:
+            ratings = read_ratings_dat(ratings_path)
         logger.info("loaded real ratings.dat: %d rows", len(ratings["user_id"]))
     else:
         if synthetic_ratings is None:

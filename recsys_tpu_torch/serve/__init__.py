@@ -1,6 +1,25 @@
-"""Serving layer: recommendation service + threaded HTTP API, with the
-JAX package's endpoint and status-code contract."""
+"""Serving layer: recommendation service, micro-batcher, threaded and
+asyncio HTTP API, with the JAX package's endpoint and status-code
+contract.
 
-from recsys_tpu_torch.serve.service import RecommendationService, StubRecommendationService
+Importing the package loads neither torch nor numpy (the serve CLI sets
+the BLAS thread counts of forked workers before they load);
+``RecommendationService`` and ``StubRecommendationService`` import
+``serve.service`` on first access.
+"""
 
-__all__ = ["RecommendationService", "StubRecommendationService"]
+# the JAX package's backends; those not ported yet, each with the ROADMAP
+# Queue 1 item that will bring it
+BACKENDS = ("auto", "device", "native", "sharded", "exported")
+NOT_PORTED_BACKENDS = {"sharded": "item 8, multi-GPU"}
+
+__all__ = ["BACKENDS", "NOT_PORTED_BACKENDS", "RecommendationService",
+           "StubRecommendationService"]
+
+
+def __getattr__(name):
+    if name in ("RecommendationService", "StubRecommendationService"):
+        from recsys_tpu_torch.serve import service
+
+        return getattr(service, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

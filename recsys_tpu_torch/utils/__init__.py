@@ -1,1 +1,2 @@
-"""Utilities: device resolution."""
+"""Utilities: device resolution, the metric sinks, the ctypes binding to
+the native C++ runtime."""

@@ -32,6 +32,7 @@ from recsys_tpu.config import TrainConfig as JaxTrainConfig
 from recsys_tpu.data import features as jax_features
 from recsys_tpu.models.multitask import MultiTaskModel as JaxMultiTask
 from recsys_tpu.retrieval import evaluator as jax_ev
+from recsys_tpu.serve import export as jax_export
 from recsys_tpu.serve.service import RecommendationService as JaxService
 from recsys_tpu.train.checkpoint import load_feature_engineer as jax_load_engineer
 from recsys_tpu.train.trainer import Trainer as JaxTrainer
@@ -252,7 +253,9 @@ def test_the_cli_path_runs_on_the_cpu(tmp_path, capsys):
     """preprocess -> train with dense and side features -> evaluate
     (rerank, seen-filtered) -> export -> the exported backend reranking
     with features, each through its ``python -m recsys_tpu_torch.*``
-    entry point with ``--device cpu``."""
+    entry point with ``--device cpu``. The exported backend reranks on the
+    host (``_FastRerank``, fp32), as the JAX package's exported backend
+    does: held against it, ids equal and scores to 1e-5."""
     from recsys_tpu_torch import export as export_cli
     from recsys_tpu_torch import preprocess as prep_cli
     from recsys_tpu_torch.train import __main__ as train_cli
@@ -282,7 +285,9 @@ def test_the_cli_path_runs_on_the_cpu(tmp_path, capsys):
     assert json.loads(out[out.index("{"):])["k"] == 20
     svc = RecommendationService(serving, backend="exported", rerank_candidates=20,
                                 device="cpu").load()
-    ref = RecommendationService(serving, rerank_candidates=20, device="cpu").load()
+    jax_export.export_retrieve(serving, os.path.join(serving, "retrieve.hlo"), k=20)
+    ref = JaxService(serving, backend="exported", rerank_candidates=20).load()
+    assert svc._fast_rerank is not None and ref._fast_rerank is not None
     user = int(np.load(data)["meta/user_raw_ids"][3])
     _recs_equal(svc.recommend(user, k=10), ref.recommend(user, k=10))
 

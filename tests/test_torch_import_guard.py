@@ -19,7 +19,8 @@ names = ["recsys_tpu_torch"] + [
 assert {"recsys_tpu_torch.evaluate", "recsys_tpu_torch.ops.topk",
         "recsys_tpu_torch.data.preprocessing", "recsys_tpu_torch.serve.export",
         "recsys_tpu_torch.preprocess", "recsys_tpu_torch.data.pipeline",
-        "recsys_tpu_torch.data.negative_sampling"} <= set(names)
+        "recsys_tpu_torch.data.negative_sampling", "recsys_tpu_torch.serve.batcher",
+        "recsys_tpu_torch.serve.aio", "recsys_tpu_torch.utils.native"} <= set(names)
 for name in names:
     importlib.import_module(name)
 runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_only")

@@ -353,7 +353,7 @@ def test_serve_cli_passes_int8_catalog(monkeypatch, bundle):
         def server_close(self):
             pass
 
-    def fake_make_http_server(service, host, port):
+    def fake_make_http_server(service, host, port, **kw):
         seen["service"] = service
         return FakeServer()
 

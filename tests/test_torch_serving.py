@@ -108,12 +108,15 @@ def test_config_json_loads_in_both_packages(bundles):
 
 
 def test_unported_options_raise(bundles):
-    for backend in ("native", "sharded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: item"):
-            RecommendationService(bundles["jax"], backend=backend, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: item 8"):
+        RecommendationService(bundles["jax"], backend="sharded", device="cpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        RecommendationService(bundles["jax"], backend="tpu", device="cpu")
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError):
             RecommendationService(bundles["jax"])
+    # the host backend asks for no device
+    assert RecommendationService(bundles["jax"], backend="native").device.type == "cpu"
 
 
 def test_stub_service_deterministic():
