@@ -178,7 +178,25 @@
     in (a), the whole tree reaped on SIGTERM within 30 s; (f) the
     Batcher's native gather bit-equal to numpy at phase 23's shapes, both
     timed;
-25. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+25. the mesh and the sharded catalog on a one-rank NCCL group that
+    ``make_mesh`` starts (each collective checked there once): (a) phase
+    13's 1,048,576-item bundle, made again from its seed, through
+    ``RetrievalIndex.shard``, fp32 and int8, 1 and 64 users at k = 10 and
+    200, fp32 against ``flash_topk`` over the whole catalog and the CPU's
+    plain version (scores within ``TOPK_TOL``, ids beyond ties), int8
+    against ``blockwise_topk_int8`` over the same int8 rows with no refine,
+    and int8's recall@10 against fp32 recorded; (b) ``make_ring_topk`` at 64
+    users, k = 200, against (a); (c) phase 22's trained bundle through
+    ``RecommendationService(backend="sharded")`` (rerank 200, F = 289):
+    ``recommend`` and a 64-user ``recommend_batch`` with an unknown user
+    against ``backend="device"``, the counters set to 0 just before and
+    read just after (rows 1 and 2 launch), then ``python -m
+    recsys_tpu_torch.serve --backend sharded`` (``/health``, ``/model/info``
+    and one ``/recommend``); (d) the sharded ``recommend`` and 64-user call
+    at 1M items profiled as in phase 7, beside the exact flash route on
+    the same catalog, and the fp32 and int8 shards' searches alone at 64
+    users, k = 200; the group is destroyed before the phase ends;
+26. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line. Without a
@@ -3336,6 +3354,236 @@ def serving_rest_path(repo: str, counters, tmp: str) -> dict:
     return out
 
 
+# ---- the mesh and the sharded catalog: the eighth main path ----------------
+
+def collectives_at_world_one(ctx) -> dict:
+    """Phase 25: each collective of the port once on the one-rank NCCL
+    group, against what it must give there (its input, or the top k of
+    its candidates). -> the largest difference, 0 expected."""
+    import torch
+    from recsys_tpu_torch.parallel import collectives as coll
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((8, 16), generator=g, device="cuda")
+    got = {"allreduce_mean": coll.allreduce_mean(ctx, {"g": x})["g"],
+           "allreduce_sum": coll.allreduce_sum(ctx, [x], axis=ctx.model_axis)[0],
+           "gather_rows": coll.gather_rows(ctx, x),
+           "exchange": coll.exchange(ctx, x),
+           "ring_shift": coll.ring_shift(ctx, x)}
+    s, i = coll.merge_topk(ctx, x, torch.arange(16, device="cuda").expand(8, 16), 5)
+    ws, wi = torch.topk(x, 5)
+    torch.cuda.synchronize()
+    err = {name: float((v - x).abs().max()) for name, v in got.items()}
+    err["merge_topk"] = float((s - ws).abs().max())
+    check(all(e == 0.0 for e in err.values()) and torch.equal(i, wi),
+          f"collectives at world size 1: {err}")
+    return err
+
+
+def serve_cli_sharded(repo: str, serving: str, tmp: str, uid: int, want) -> dict:
+    """Phase 25 (c): ``python -m recsys_tpu_torch.serve --backend sharded
+    --rerank_candidates 200`` on the card (its own one-rank NCCL group):
+    healthy, ``/model/info`` names the sharded scorer, one ``/recommend``
+    equal to the device backend's answer; SIGTERM ends it."""
+    import signal
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    err_path = os.path.join(tmp, "serve_sharded.log")
+    with open(err_path, "w") as err_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "recsys_tpu_torch.serve", "--model_dir", serving,
+             "--backend", "sharded", "--rerank_candidates", str(RERANK), "--host",
+             "127.0.0.1", "--port", str(port)],
+            cwd=repo, stdout=subprocess.DEVNULL, stderr=err_file, start_new_session=True)
+    out = {}
+    try:
+        healthy = False
+        while time.perf_counter() - t0 < 300 and proc.poll() is None and not healthy:
+            try:
+                code, body, _ = http(port, "GET", "/health")
+                healthy = code == 200 and body["model_loaded"]
+            except OSError:
+                time.sleep(0.5)
+        if not healthy:
+            with open(err_path) as f:
+                raise AssertionError(f"the sharded CLI never became healthy "
+                                     f"(rc {proc.poll()}): {f.read()[-3000:]}")
+        out["healthy_after_s"] = time.perf_counter() - t0
+        code, info, _ = http(port, "GET", "/model/info")
+        check(code == 200 and "sharded" in info["backend"], f"sharded CLI /model/info: {info}")
+        code, body, out["recommend_ms"] = http(port, "POST", "/recommend",
+                                               {"user_id": uid, "k": 10})
+        check(code == 200, f"sharded CLI /recommend: {code}")
+        check_recs(body["recommendations"], 10, "sharded CLI /recommend")
+        out["max_score_diff"] = same_ranking(body["recommendations"], want, TOPK_TOL,
+                                             "sharded CLI against the device backend")
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+    return out
+
+
+def sharded_path(repo: str, counters, tmp: str) -> dict:
+    """Phase 25: the mesh and the sharded catalog on a one-rank NCCL group
+    from ``make_mesh``: (a) phase 13's 1,048,576-item bundle (made again
+    from its seed) through ``RetrievalIndex.shard``, fp32 and int8, 1 and
+    64 users at k = 10 and 200, fp32 against ``flash_topk`` over the whole
+    catalog and the CPU's plain version, int8 against ``blockwise_topk_int8``
+    over the same int8 rows (no refine), and int8's recall@10 against fp32;
+    (b) ``make_ring_topk`` at 64 users, k = 200, against (a); (c) phase 22's
+    trained bundle through ``backend="sharded"`` (rerank 200, F = 289):
+    ``recommend`` and a 64-user ``recommend_batch`` against
+    ``backend="device"``, the counters set to 0 just before and read just
+    after (rows 1 and 2 launch, the sieve never), then the serve CLI's
+    ``--backend sharded``; (d) the sharded ``recommend`` and 64-user call at
+    1M items profiled beside the exact flash route on the same catalog,
+    and the fp32 and int8 shards' searches alone (64 users, k = 200).
+    The group is destroyed before the phase returns, whatever happened."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from recsys_tpu_torch.models.towers import TwoTower
+    from recsys_tpu_torch.ops.topk import blockwise_topk_int8, make_ring_topk
+    from recsys_tpu_torch.ops.topk_flash import flash_topk, flash_topk_reference, l2_normalize
+    from recsys_tpu_torch.parallel import mesh as mesh_mod
+    from recsys_tpu_torch.serve.service import RecommendationService
+
+    def host(pair):
+        return pair[0].cpu().numpy(), pair[1].cpu().numpy()
+
+    out = {}
+    t0 = time.perf_counter()
+    ctx = mesh_mod.make_mesh(model_parallel=1, data_parallel=1, device="cuda")
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+              and ctx.device == torch.device("cuda", 0), f"mesh: {dist.get_backend()}")
+        out["mesh"] = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+                       "shape": [ctx.n_data, ctx.n_model], "device": str(ctx.device),
+                       "made_s": time.perf_counter() - t0}
+        out["collectives_err"] = collectives_at_world_one(ctx)
+
+        # (a) search, fp32 and int8 shards
+        large = os.path.join(tmp, "large")
+        t0 = time.perf_counter()
+        _, params = large_catalog_bundle(large)
+        del params
+        torch.cuda.empty_cache()
+        out["bundle_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        big = RecommendationService(large, backend="sharded", rerank_candidates=RERANK,
+                                    device="cuda", mesh_ctx=ctx).load()
+        out["sharded_load_s"] = time.perf_counter() - t0
+        check(big._search_route() == "sharded" and big.mesh_ctx is ctx, "1M: not sharded")
+        sh = big._sharded
+        check(sh.n_items == LARGE_N_ITEMS and sh.rows == sh.n_valid == LARGE_N_ITEMS,
+              f"one shard of {sh.rows} rows, {sh.n_valid} real")
+        sh8 = big.index.shard(ctx, int8=True)
+        batch = [int(u) for u in
+                 np.arange(1, N_USERS + 1, N_USERS // BATCH_USERS)[:BATCH_USERS]]
+        with torch.inference_mode():
+            ids = torch.as_tensor([big.user_id_map[u] for u in batch], device="cuda")
+            users = TwoTower.user_embed(big.encoder_params, ids, big.config.model)
+            qn = l2_normalize(users)
+            catalog = big.index._catalog_ready()
+            cpu = host(flash_topk_reference(qn.cpu(), catalog.cpu(), RERANK, normalize=False))
+            search = {}
+            for q in (1, BATCH_USERS):
+                for k in (10, RERANK):
+                    what = f"sharded Q={q} k={k}"
+                    got = sh.search(users[:q], k)
+                    row = {"vs_flash": same_topk(got, host(flash_topk(qn[:q], catalog, k,
+                                                                      normalize=False)),
+                                                 TOPK_TOL, f"{what} against flash_topk"),
+                           "vs_cpu": same_topk(got, (cpu[0][:q, :k], cpu[1][:q, :k]),
+                                               TOPK_TOL, f"{what} against the CPU")}
+                    got8 = sh8.search(users[:q], k)
+                    row["int8_vs_blockwise"] = same_topk(
+                        got8, host(blockwise_topk_int8(qn[:q], sh8.item_q, sh8.item_scale, k)),
+                        TOPK_TOL, f"{what} int8 against blockwise_topk_int8")
+                    row["int8_recall_vs_fp32"] = _recall(got8[1], got[1])
+                    search[f"Q{q}_k{k}"] = row
+            out["search"] = search
+            out["int8_recall@10_vs_fp32"] = search[f"Q{BATCH_USERS}_k10"]["int8_recall_vs_fp32"]
+            del catalog
+            # the two shards' searches alone at the rerank's depth, 64 users
+            search_profiles = [
+                profile_call(f"sharded_{name}_search64_k{RERANK}_1M",
+                             lambda index=index: index.search(users, RERANK), n_wall=20,
+                             n_traced=5, warmup=2)
+                for name, index in (("fp32", sh), ("int8", sh8))]
+            # (b) the ring, at world size 1 one step
+            ring = make_ring_topk(ctx, RERANK, normalize=False)(qn, sh.item_embeddings)
+            out["ring_vs_sharded"] = same_topk(host(ring), sh.search(users, RERANK), TOPK_TOL,
+                                               "ring against the sharded search")
+        del sh8, cpu, ring
+        torch.cuda.empty_cache()
+        log(f"phase 25 (a, b): {json.dumps(out)}")
+
+        # (c) the trained bundle through backend="sharded", then the CLI
+        serving = os.path.join(tmp, "run", "serving")
+        svc = RecommendationService(serving, backend="sharded", rerank_candidates=RERANK,
+                                    device="cuda", mesh_ctx=ctx).load()
+        dev = RecommendationService(serving, rerank_candidates=RERANK, device="cuda").load()
+        known = sorted(svc.user_id_map)
+        users22 = known[::len(known) // BATCH_USERS][:BATCH_USERS] + [999_999]
+        for c in counters:
+            c.reset()
+        one = svc.recommend(known[0], 10)
+        many = svc.recommend_batch(users22, 10)
+        torch.cuda.synchronize()
+        launches = {c.name: c.read() for c in counters}
+        check(launches["topk_flash"] > 0 and launches["dcn_cross"] > 0,
+              f"backend=sharded did not run rows 1 and 2: {launches}")
+        check(launches["blockmax"] == launches["blockwise_topk"] == 0,
+              f"backend=sharded took another top-k route: {launches}")
+        err = same_ranking(one, dev.recommend(known[0], 10), TOPK_TOL, "sharded recommend")
+        for got, want in zip(many, dev.recommend_batch(users22, 10)):
+            check(got["status"] == want["status"], f"sharded batch status {got['status']}")
+            err = max(err, same_ranking(got["recommendations"], want["recommendations"],
+                                        TOPK_TOL, f"sharded batch user {got['user_id']}"))
+        check(many[-1]["status"] == "cold_start", "sharded batch: the unknown user")
+        out["service"] = {"launches": launches, "max_score_diff": err,
+                          "search": svc.get_model_info()["search"]}
+        out["cli"] = serve_cli_sharded(repo, serving, tmp, known[0],
+                                       dev.recommend(known[0], 10))
+        del svc, dev
+        log(f"phase 25 (c): {json.dumps({k: out[k] for k in ('service', 'cli')})}")
+
+        # (d) the sharded requests at 1M items beside the exact flash route
+        exact = RecommendationService(large, rerank_candidates=RERANK, device="cuda",
+                                      approx_search_threshold=0).load()
+        check(exact._search_route() == "exact", "1M: the exact route was not taken")
+        err = same_ranking(big.recommend(1, 10), exact.recommend(1, 10), TOPK_TOL,
+                           "sharded against exact, 1M items")
+        for got, want in zip(big.recommend_batch(batch, 10), exact.recommend_batch(batch, 10)):
+            err = max(err, same_ranking(got["recommendations"], want["recommendations"],
+                                        TOPK_TOL, f"1M batch user {got['user_id']}"))
+        out["vs_exact_max_score_diff"] = err
+        groups = {"row1_topk": "topk_flash_kernel", "row1_select": "topk_select_kernel",
+                  "row2_dcn": "dcn_cross_fwd_kernel", "nccl": "nccl"}
+        profiles = search_profiles
+        for name, svc in (("sharded", big), ("exact_flash", exact)):
+            profiles.append(profile_call(f"{name}_recommend_1M_k10",
+                                         lambda svc=svc: svc.recommend(1, 10), groups=groups))
+            profiles.append(profile_call(f"{name}_recommend_batch64_1M_k10",
+                                         lambda svc=svc: svc.recommend_batch(batch, 10),
+                                         groups=groups))
+        out["profiles"] = profiles
+        del big, exact
+    finally:
+        mesh_mod.shutdown()
+    check(not dist.is_initialized(), "the process group outlived phase 25")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3566,6 +3814,10 @@ def main() -> int:
         # ---- the rest of serving: the seventh main path -------------------
         t_rest = time.perf_counter()
         rest = serving_rest_path(repo, counters, dense_dir)
+        log(f"rest-of-serving phase in {time.perf_counter() - t_rest:.1f} s")
+        # ---- the mesh and the sharded catalog: the eighth main path -------
+        t_sharded = time.perf_counter()
+        sharded = sharded_path(repo, counters, dense_dir)
     for row in negs.pop("profiles"):
         log(f"profile {json.dumps(row)}")
     log(f"explicit negatives and streaming: {json.dumps(negs)}")
@@ -3573,7 +3825,10 @@ def main() -> int:
         for row in rest["native"][label].pop("profiles"):
             log(f"profile {json.dumps(row)}")
     log(f"the rest of serving: {json.dumps(rest)}")
-    log(f"rest-of-serving phase in {time.perf_counter() - t_rest:.1f} s")
+    for row in sharded.pop("profiles"):
+        log(f"profile {json.dumps(row)}")
+    log(f"the mesh and the sharded catalog: {json.dumps(sharded)}")
+    log(f"sharded phase in {time.perf_counter() - t_sharded:.1f} s")
     rest_launches = {name: {load: rest[load]["launches"][name]
                             for load in ("threaded_microbatch", "asyncio")}
                      for name in ("topk_flash", "dcn_cross")}
@@ -3610,6 +3865,7 @@ def main() -> int:
          "launches_negatives_streaming": {r: negs[r]["launches"]["topk_flash"]
                                           for r in neg_runs},
          "launches_serving_rest": rest_launches["topk_flash"],
+         "launches_sharded": sharded["service"]["launches"]["topk_flash"],
          "shape": main_topk["shape"], "shapes": topk_rows},
         {"name": "dcn_cross", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/dcn_cross.cu",
@@ -3621,6 +3877,7 @@ def main() -> int:
          "launches_negatives_streaming": {r: negs[r]["launches"]["dcn_cross"]
                                           for r in neg_runs},
          "launches_serving_rest": rest_launches["dcn_cross"],
+         "launches_sharded": sharded["service"]["launches"]["dcn_cross"],
          "dense_features": dense["dcn_fwd"],
          "shape": main_dcn["shape"], "shapes": dcn_rows},
         {"name": "dcn_cross_bwd", "route": "cuda",

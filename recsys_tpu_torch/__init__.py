@@ -11,8 +11,9 @@ package.
 Ported so far: preprocessing and the engineered features (``data``,
 ``python -m recsys_tpu_torch.preprocess``), single-GPU training
 (``train``), evaluation (``retrieval``, ``evaluate``), serving with the
-device, host and exported backends, the micro-batcher, the asyncio
-server, hot reload and forked workers (``serve``) and the export of the
+device, host, exported and sharded backends, the micro-batcher, the
+asyncio server, hot reload and forked workers (``serve``), the mesh on
+``torch.distributed`` with its collectives (``parallel``) and the export of the
 retrieve path (``python -m recsys_tpu_torch.export``). ``ROADMAP.md`` lists the
 rest.
 """

@@ -11,7 +11,8 @@ taken in fp32 on the bf16 values (``preferred_element_type=f32``), so
 their gradients round to bf16 at the same points as in JAX.
 
 Data-parallel scopes (``axis_name``: global negatives, the global BCE
-denominator) are not ported yet and raise (ROADMAP Queue 1 item 8).
+denominator) are not ported yet and raise (ROADMAP Queue 1 item 8b,
+multi-GPU training).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def _no_axis(axis_name, what: str) -> None:
     if axis_name is not None:
         raise NotImplementedError(
             f"{what} over a data axis is not ported to recsys_tpu_torch yet "
-            "(ROADMAP Queue 1: item 8, multi-GPU)")
+            "(ROADMAP Queue 1: item 8b, multi-GPU training)")
 
 
 def resolve_retrieval_loss(setting, b_local: int, n_candidates: int, platform: str,

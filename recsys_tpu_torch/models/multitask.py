@@ -99,7 +99,7 @@ class MultiTaskModel:
         if data_axis is not None or lookup is not None:
             raise NotImplementedError(
                 "data_axis / lookup (the SPMD step) are not ported to "
-                "recsys_tpu_torch yet (ROADMAP Queue 1: item 8, multi-GPU)")
+                "recsys_tpu_torch yet (ROADMAP Queue 1: item 8b, multi-GPU training)")
         out = MultiTaskModel.apply(params, cfg, batch["user_id"], batch["movie_id"],
                                    dense=batch.get("dense"), train=train,
                                    generator=generator)

@@ -819,7 +819,7 @@ def in_batch_softmax_flash(
     if axis_name is not None:
         raise NotImplementedError(
             "global negatives over a data axis are not ported to "
-            "recsys_tpu_torch yet (ROADMAP Queue 1: item 8, multi-GPU)")
+            "recsys_tpu_torch yet (ROADMAP Queue 1: item 8b, multi-GPU training)")
     b = user_emb.shape[0]
     n_cand = b + (extra_candidates[0].shape[0] if extra_candidates is not None else 0)
     if bf16 is True or (bf16 == "auto" and n_cand >= 8192):

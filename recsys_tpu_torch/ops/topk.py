@@ -15,13 +15,15 @@ What differs from the JAX package: ``approx=True`` there selects with the
 TPU's ``lax.approx_max_k``, which Hopper does not have. Off the TPU that
 op selects exactly, and so does this port: ``approx`` only rounds the
 operands of :func:`blockwise_topk` to bf16 (products summed in fp32), and
-changes nothing in :func:`blockwise_topk_int8`. The ring top-k over
-sharded catalogs (``make_ring_topk``) comes with multi-GPU support.
+changes nothing in :func:`blockwise_topk_int8`.
+
+* :func:`make_ring_topk` passes item shards around the ``model`` axis of
+  a mesh, each rank scoring every shard in turn with the exact top-k.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -116,3 +118,43 @@ def blockwise_topk_int8(user_emb: torch.Tensor, item_q: torch.Tensor,
 
     return _blockwise_scan(score, item_q.shape[0], uq.shape[0], k, block_size,
                            uq.device)
+
+
+def make_ring_topk(ctx, k: int, normalize: bool = True) -> Callable:
+    """Ring scorer over item shards on the ``model`` axis of ``ctx`` (a
+    :class:`~recsys_tpu_torch.parallel.mesh.MeshContext`).
+
+    Returns ``f(user_local [Q / n_data, d], item_shard [rows, d]) ->
+    (scores [Q / n_data, k], global ids [Q / n_data, k])`` for this rank's
+    ``data`` slice of the queries and its shard of the catalog. Each of
+    the ``n_model`` steps scores the shard this rank holds with
+    ``scorer.exact_topk`` (the flash top-k kernel on the card for k <=
+    256), offsets its ids by the shard's origin, merges the result into
+    the running top-k and passes the shard on to the next rank of the
+    ring. Shards must be equal in size (pad the catalog to a multiple of
+    ``n_model``)."""
+    from recsys_tpu_torch.parallel.collectives import ring_shift
+    from recsys_tpu_torch.retrieval.scorer import exact_topk
+
+    n_shards = ctx.n_model
+
+    def ring(user_local: torch.Tensor, item_shard: torch.Tensor):
+        u = user_local.float()
+        if normalize:
+            u = l2_normalize(u)
+        rows = item_shard.shape[0]
+        kk = min(k, rows)
+        run_s = torch.full((u.shape[0], k), NEG_INF, dtype=torch.float32, device=u.device)
+        run_i = torch.zeros((u.shape[0], k), dtype=torch.long, device=u.device)
+        shard = item_shard
+        for s in range(n_shards):
+            # the shard held now started at (my - s) mod n_shards
+            origin = (ctx.model_index - s) % n_shards
+            v = l2_normalize(shard.float()) if normalize else shard.float()
+            b_s, b_i = exact_topk(u, v, kk, normalize=False)
+            run_s, run_i = _merge(run_s, run_i, b_s, b_i + origin * rows, k)
+            if s + 1 < n_shards:
+                shard = ring_shift(ctx, shard, ctx.model_axis)
+        return run_s, run_i
+
+    return ring

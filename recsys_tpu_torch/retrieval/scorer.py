@@ -16,12 +16,18 @@ the H100.
 ``RetrievalIndex.search(approx=True)`` runs the group-max sieve
 (:func:`recsys_tpu_torch.ops.topk_flash.blockmax_topk`, bf16 operands,
 fp32 sums): the TPU's ``lax.approx_max_k`` has no Hopper counterpart.
+
+:class:`ShardedIndex` (``RetrievalIndex.shard``) row-shards the catalog
+over the ``model`` axis of a mesh, one rank a shard; its search
+(:func:`make_sharded_topk`) scores each shard with :func:`exact_topk`
+where the JAX package forms the dense [Q, rows] scores: the same answer
+without the score matrix.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +42,7 @@ from recsys_tpu_torch.utils.device import DeviceLike, resolve_device
 
 __all__ = [
     "l2_normalize", "materialize_item_embeddings", "topk_scores",
-    "exact_topk", "RetrievalIndex",
+    "exact_topk", "make_sharded_topk", "RetrievalIndex", "ShardedIndex",
 ]
 
 
@@ -95,9 +101,83 @@ def exact_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
     return blockwise_topk(u, v, k, block_size=_EXACT_BLOCK, normalize=False)
 
 
-def _not_ported(option: str, item: str):
-    raise NotImplementedError(
-        f"{option} is not ported to recsys_tpu_torch yet (ROADMAP Queue 1: {item})")
+def make_sharded_topk(ctx, k: int, normalize: bool = True, masked: bool = False,
+                      int8: bool = False) -> Callable:
+    """Sharded scorer over ``ctx`` (a
+    :class:`~recsys_tpu_torch.parallel.mesh.MeshContext`): items
+    row-sharded over ``model``, queries split over ``data``; the top-k of
+    each shard, then the merge across shards
+    (``collectives.merge_topk``), then the ``data`` slices gathered.
+
+    Returns ``f(user_emb [Q, d], item_shard [rows, d]) -> (scores [Q, k],
+    global ids [Q, k])`` on every rank: ``user_emb`` is the same on every
+    rank (Q a multiple of ``n_data``), ``item_shard`` this rank's rows.
+    The scores are :func:`exact_topk`'s (the flash top-k kernel on the
+    card for k <= 256), so no [Q, rows] score matrix is formed.
+
+    ``masked=True`` takes an extra ``n_valid``: this rank's real rows, at
+    the head of its shard, before the pad rows that make the catalog a
+    multiple of ``n_model``. Pad rows are never scored; where a shard has
+    fewer real rows than its candidates, the rest score ``-inf`` with the
+    pad rows' ids, as the JAX package's mask gives them.
+
+    ``int8=True`` (requires ``masked``) scores int8 shards: the arguments
+    become ``(user_emb, q_shard int8 [rows, d], scale_shard [rows],
+    n_valid)``. Quantize the normalized rows when cosine is wanted; the
+    queries are quantized per call (:func:`blockwise_topk_int8`: exact
+    products of the int8 values and the two scales, no fp32 refine)."""
+    from recsys_tpu_torch.parallel.collectives import gather_rows, merge_topk
+
+    if int8 and not masked:
+        raise ValueError("int8 sharded top-k requires masked=True")
+
+    def local_merge(u, topk_rows, rows: int, n_valid: int):
+        """This rank's data slice of ``u`` -> its merged top k."""
+        kk, real = min(k, rows), min(k, rows, n_valid)
+        if real:
+            s, i = topk_rows(u, real)
+        else:
+            s = u.new_empty((u.shape[0], 0))
+            i = torch.empty((u.shape[0], 0), dtype=torch.long, device=u.device)
+        if real < kk:  # pad rows: -inf with their own ids, as under the mask
+            pad = kk - real
+            s = torch.cat([s, s.new_full((u.shape[0], pad), float("-inf"))], dim=1)
+            ids = torch.arange(n_valid, n_valid + pad, device=u.device)
+            i = torch.cat([i, ids.expand(u.shape[0], pad)], dim=1)
+        return merge_topk(ctx, s, i + ctx.model_index * rows, k, axis=ctx.model_axis)
+
+    def data_slice(user_emb):
+        local = ctx.local_batch(user_emb.shape[0])
+        return user_emb[ctx.data_index * local:(ctx.data_index + 1) * local].float()
+
+    def gather(s, i):
+        return (gather_rows(ctx, s, ctx.data_axis), gather_rows(ctx, i, ctx.data_axis))
+
+    if int8:
+        def sharded(user_emb, q_shard, scale_shard, n_valid: int):
+            u = data_slice(user_emb)
+            if normalize:
+                u = l2_normalize(u)
+            return gather(*local_merge(
+                u, lambda u, kk: blockwise_topk_int8(u, q_shard[:n_valid],
+                                                     scale_shard[:n_valid], kk),
+                q_shard.shape[0], n_valid))
+        return sharded
+
+    def sharded(user_emb, item_shard, n_valid=None):
+        u = data_slice(user_emb)
+        v = item_shard.float()
+        if normalize:
+            u, v = l2_normalize(u), l2_normalize(v)
+        rows = v.shape[0]
+        n_valid = rows if n_valid is None else n_valid
+        return gather(*local_merge(
+            u, lambda u, kk: exact_topk(u, v[:n_valid], kk, normalize=False),
+            rows, n_valid))
+
+    if masked:
+        return sharded
+    return lambda user_emb, item_shard: sharded(user_emb, item_shard)
 
 
 class RetrievalIndex:
@@ -215,8 +295,10 @@ class RetrievalIndex:
         sel = self.item_embeddings[torch.as_tensor(item_ids, device=self.device).long()]
         return torch.matmul(u, sel.T).cpu().numpy()
 
-    def shard(self, *args, **kwargs):
-        _not_ported("ShardedIndex", "item 8, multi-GPU")
+    def shard(self, ctx, int8: bool = False) -> "ShardedIndex":
+        """This catalog row-sharded over ``ctx``'s ``model`` axis (int8
+        quantized: 4x the rows a card)."""
+        return ShardedIndex(self, ctx, int8=int8)
 
     def save(self, path: str) -> None:
         """The JAX package's npz keys, uncompressed: fp32 embeddings shrink
@@ -234,3 +316,71 @@ class RetrievalIndex:
         with np.load(path) as z:
             return cls(z["item_embeddings"], z["item_raw_ids"],
                        bool(z["normalize"]), device)
+
+
+class ShardedIndex:
+    """A :class:`RetrievalIndex` row-sharded over the ``model`` axis of a
+    mesh: each rank holds ``ceil(n_items / n_model)`` rows on its device
+    and nothing else of the catalog; a search is each shard's exact top-k
+    and a merge across ranks (k * n_model values a query). A catalog
+    larger than one card's memory serves from as many cards as it takes.
+
+    Rows are zero-padded to a shard multiple at the end of the catalog,
+    and pad rows never surface. Queries are padded to a ``data``-axis
+    multiple and trimmed on return. Under cosine the shard is normalized
+    once, here, and each query per call.
+
+    ``int8=True`` stores the shard int8-quantized (per row, symmetric,
+    after the normalization when cosine) with its fp32 scales: both
+    catalog-scaling axes compose, ``n_model`` shards x 4x rows a card.
+    """
+
+    def __init__(self, index: RetrievalIndex, ctx, int8: bool = False):
+        self.ctx = ctx
+        self.item_raw_ids = index.item_raw_ids
+        self.normalize = index.normalize
+        self.int8 = int8
+        embs = index.item_embeddings_np
+        n, d = embs.shape
+        self.n_items = n
+        self.rows = -(-n // ctx.n_model)
+        lo = min(n, ctx.model_index * self.rows)
+        hi = min(n, lo + self.rows)
+        self.n_valid = hi - lo
+        host = np.zeros((self.rows, d), np.float32)
+        host[:self.n_valid] = embs[lo:hi]
+        self.item_q = self.item_scale = self.item_embeddings = None
+        if int8:
+            # on the host, as the JAX package quantizes its padded catalog
+            if self.normalize:
+                host = host / np.maximum(np.linalg.norm(host, axis=-1, keepdims=True), 1e-12)
+            absmax = np.maximum(np.max(np.abs(host), axis=-1), 1e-12)
+            scale = (absmax / 127.0).astype(np.float32)
+            q = np.clip(np.round(host / scale[:, None]), -127, 127).astype(np.int8)
+            self.item_q = torch.from_numpy(q).to(ctx.device)
+            self.item_scale = torch.from_numpy(scale).to(ctx.device)
+        else:
+            shard = torch.from_numpy(host).to(ctx.device)
+            self.item_embeddings = l2_normalize(shard) if self.normalize else shard
+        self._fns: Dict[int, Callable] = {}
+
+    @torch.inference_mode()
+    def search(self, user_emb, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``user_emb`` [Q, d], the same on every rank -> (scores [Q, k],
+        dense item ids [Q, k]) on every rank, ids < ``n_items``."""
+        u = torch.as_tensor(user_emb, dtype=torch.float32, device=self.ctx.device)
+        q = u.shape[0]
+        q_pad = -(-q // self.ctx.n_data) * self.ctx.n_data
+        if q_pad != q:
+            u = torch.cat([u, u.new_zeros((q_pad - q, u.shape[1]))])
+        if self.normalize:
+            u = l2_normalize(u)
+        fn = self._fns.get(k)
+        if fn is None:  # the shard is normalized already
+            fn = self._fns[k] = make_sharded_topk(self.ctx, k, normalize=False,
+                                                  masked=True, int8=self.int8)
+        if self.int8:
+            s, i = fn(u, self.item_q, self.item_scale, self.n_valid)
+        else:
+            s, i = fn(u, self.item_embeddings, self.n_valid)
+        return s[:q].cpu().numpy(), i[:q].cpu().numpy()

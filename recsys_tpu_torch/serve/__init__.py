@@ -8,13 +8,10 @@ the BLAS thread counts of forked workers before they load);
 ``serve.service`` on first access.
 """
 
-# the JAX package's backends; those not ported yet, each with the ROADMAP
-# Queue 1 item that will bring it
+# the JAX package's backends
 BACKENDS = ("auto", "device", "native", "sharded", "exported")
-NOT_PORTED_BACKENDS = {"sharded": "item 8, multi-GPU"}
 
-__all__ = ["BACKENDS", "NOT_PORTED_BACKENDS", "RecommendationService",
-           "StubRecommendationService"]
+__all__ = ["BACKENDS", "RecommendationService", "StubRecommendationService"]
 
 
 def __getattr__(name):

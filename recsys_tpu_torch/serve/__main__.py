@@ -3,14 +3,21 @@
 Usage:
   python -m recsys_tpu_torch.serve --model_dir outputs/models/experiment_001/serving \\
       [--rerank_candidates 200] [--int8_catalog] [--device cuda|cpu] \\
-      [--backend auto|device|native|exported] [--exported_path <model_dir>/retrieve.pt2] \\
+      [--backend auto|device|native|sharded|exported] [--exported_path <model_dir>/retrieve.pt2] \\
       [--workers N] [--microbatch N] [--microbatch_wait_ms MS] \\
       [--server threaded|asyncio] [--allow_reload] [--host 0.0.0.0] [--port 8000]
 
-It takes every flag of the JAX CLI with its choices and defaults;
-``--backend sharded`` exits naming its ROADMAP Queue 1 item. Nothing
-that loads numpy or torch is imported before the arguments are parsed:
-with ``--workers`` above 1 the BLAS thread counts must be set first.
+It takes every flag of the JAX CLI with its choices and defaults.
+``--backend sharded`` serves the catalog row-sharded over a mesh of every
+rank: in one process a one-rank mesh (one card); under ``torchrun
+--nproc_per_node N`` every rank joins the launcher's group, loads the
+service with its own rows of the catalog and serves. Each search is a
+collective over the ranks, so every request must reach every rank in the
+same order; the CLI does not relay requests between ranks (the tests'
+``tests/torch_sharded_serve_worker.py`` does: rank 0 serves HTTP and
+broadcasts each user id). Nothing that loads numpy or torch is imported
+before the arguments are parsed: with ``--workers`` above 1 the BLAS
+thread counts must be set first.
 Exits non-zero when the card is asked for (``--device cuda``, the
 default, with any backend but ``native``) and absent.
 """
@@ -22,7 +29,7 @@ import logging
 import os
 import sys
 
-from recsys_tpu_torch.serve import BACKENDS, NOT_PORTED_BACKENDS
+from recsys_tpu_torch.serve import BACKENDS
 
 
 def main(argv=None) -> int:
@@ -58,8 +65,8 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default="auto", choices=list(BACKENDS),
                     help="scoring backend: the device scorer (auto, device), the "
                          "host (native: numpy towers, BLAS top-k, precomputed "
-                         "rerank) or the torch.export artifact (exported); sharded "
-                         "is not ported yet")
+                         "rerank), the catalog row-sharded over every rank "
+                         "(sharded) or the torch.export artifact (exported)")
     ap.add_argument("--exported_path", default=None,
                     help="artifact of the exported backend (default: "
                          "<model_dir>/retrieve.pt2)")
@@ -78,9 +85,6 @@ def main(argv=None) -> int:
                          "/recommend coalescing, always on; --microbatch and "
                          "--microbatch_wait_ms set its batch bound and linger)")
     args = ap.parse_args(argv)
-    if args.backend in NOT_PORTED_BACKENDS:
-        ap.error(f"--backend {args.backend} is not ported to recsys_tpu_torch yet "
-                 f"(ROADMAP Queue 1: {NOT_PORTED_BACKENDS[args.backend]})")
 
     if args.workers > 1:
         # one BLAS thread per worker, set before numpy loads: pool threads

@@ -24,6 +24,17 @@
   - ``"exported"`` retrieves through the ``torch.export`` artifact of
     ``serve/export.py`` (user tower, normalize, matmul, ``torch.topk`` in
     one program), refused when the bundle changed since the export.
+  - ``"sharded"`` searches the catalog row-sharded over the ``model``
+    axis of a mesh (:class:`~recsys_tpu_torch.retrieval.scorer.ShardedIndex`,
+    int8 shards under ``int8_catalog``): each rank's exact top-k of its
+    shard, merged across ranks, at every catalog size (never the sieve).
+    The mesh defaults to every rank of the process group on the ``model``
+    axis: one rank, one card without a launcher. Every rank loads the
+    service and takes part in each search, in the same order. The rerank
+    runs as on the device backend (the fused cross-stack kernel on the
+    card), where the JAX package's sharded backend reranks on the host
+    through its ``_FastRerank``: under mixed precision the two reranks
+    agree to the bf16 rounding of the device's operands.
 
   ``"native"`` and ``"exported"`` rerank on the host through
   :class:`_FastRerank`, built at load and self-checked against the exact
@@ -53,8 +64,9 @@ import torch
 from recsys_tpu_torch.config import ModelConfig, RecsysConfig
 from recsys_tpu_torch.models.multitask import MultiTaskModel
 from recsys_tpu_torch.models.towers import TwoTower
-from recsys_tpu_torch.retrieval.scorer import RetrievalIndex
-from recsys_tpu_torch.serve import BACKENDS, NOT_PORTED_BACKENDS
+from recsys_tpu_torch.parallel.mesh import make_mesh, rank_device, world_size
+from recsys_tpu_torch.retrieval.scorer import RetrievalIndex, ShardedIndex
+from recsys_tpu_torch.serve import BACKENDS
 from recsys_tpu_torch.serve.export import DEFAULT_ARTIFACT, bundle_fingerprint, load_exported
 from recsys_tpu_torch.train.checkpoint import (
     load_encoder_params, load_feature_engineer, load_model_params, params_from_numpy,
@@ -74,6 +86,8 @@ _SEARCH_ROUTES = {
     "exact": "exact top-k (flash top-k for k <= 256)",
     "exported": "exported artifact (torch.export: tower, matmul, torch.topk)",
     "native": "host: BLAS product over the normalised catalog, argpartition",
+    "sharded": "catalog row-sharded over the mesh's model axis: each shard's exact "
+               "top-k (int8 shards under int8_catalog), merged across ranks",
 }
 
 
@@ -315,10 +329,13 @@ class _FastRerank:
 
 class RecommendationService:
     """``backend``: ``"device"`` or ``"auto"`` (the same thing here),
-    ``"native"`` (the host; ``device`` is not used) or ``"exported"``
+    ``"native"`` (the host; ``device`` is not used), ``"exported"``
     (retrieval through the artifact at ``exported_path``, default
-    ``<model_dir>/retrieve.pt2``, loaded onto ``device``). ``device``:
-    ``"cuda"`` (default; raises if absent) or ``"cpu"``."""
+    ``<model_dir>/retrieve.pt2``, loaded onto ``device``) or
+    ``"sharded"`` (the catalog row-sharded over ``mesh_ctx``, by default
+    ``make_mesh(model_parallel=<ranks>, data_parallel=1)``, made at load;
+    ``device`` is the rank's: ``"cuda"`` is card ``LOCAL_RANK``).
+    ``device``: ``"cuda"`` (default; raises if absent) or ``"cpu"``."""
 
     def __init__(self, model_dir: str, backend: str = "auto",
                  approx_search_threshold: int = 1_000_000,
@@ -327,19 +344,23 @@ class RecommendationService:
                  rerank_rating_weight: float = 0.0,
                  int8_catalog: bool = False,
                  device: DeviceLike = "cuda",
-                 exported_path: Optional[str] = None):
-        if backend in NOT_PORTED_BACKENDS:
-            raise NotImplementedError(
-                f"backend {backend!r} is not ported to recsys_tpu_torch yet "
-                f"(ROADMAP Queue 1: {NOT_PORTED_BACKENDS[backend]})")
+                 exported_path: Optional[str] = None,
+                 mesh_ctx=None):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
         self.backend = backend
         self.exported_path = exported_path
         self._exported_fn = None
         self._exported_k = 0
+        self.mesh_ctx = mesh_ctx
+        self._sharded: Optional[ShardedIndex] = None
         # the host backend asks for no device (and so touches no CUDA state)
-        self.device = torch.device("cpu") if backend == "native" else resolve_device(device)
+        if backend == "native":
+            self.device = torch.device("cpu")
+        elif backend == "sharded":
+            self.device = mesh_ctx.device if mesh_ctx is not None else rank_device(device)
+        else:
+            self.device = resolve_device(device)
         # int8-quantized catalog (4x less device memory), searched
         # blockwise, its top 4k candidates rescored exactly in fp32
         self.int8_catalog = int8_catalog
@@ -408,6 +429,11 @@ class RecommendationService:
             self._items_norm = _l2_normalize_np(self.index.item_embeddings_np)
         if self.backend == "exported":
             self._load_exported()
+        if self.backend == "sharded":
+            if self.mesh_ctx is None:
+                self.mesh_ctx = make_mesh(model_parallel=world_size(self.device),
+                                          data_parallel=1, device=self.device)
+            self._sharded = self.index.shard(self.mesh_ctx, int8=self.int8_catalog)
         self._popular = [int(r) for r in self.index.item_raw_ids[:200]]
         self._ready = True
         logger.info("loaded model from %s (%d users, %d items), backend %s on %s",
@@ -525,7 +551,7 @@ class RecommendationService:
                                    self.config.model)
 
     def _search_route(self) -> str:
-        if self.backend in ("exported", "native"):
+        if self.backend in ("exported", "native", "sharded"):
             return self.backend
         if self.int8_catalog:
             return "int8"
@@ -555,6 +581,8 @@ class RecommendationService:
         u = self._user_embedding(dense_ids)
         if route == "native":
             return self._search_native(u, k)
+        if route == "sharded":
+            return self._sharded.search(u, k)
         if route == "int8":
             return self.index.search(u, k, int8=True, approx=True, refine_factor=4)
         if route == "approx":
@@ -679,7 +707,7 @@ class RecommendationService:
     def get_model_info(self) -> Dict:
         enc = os.path.join(self.model_dir, "encoder.npz")
         mtime = os.path.getmtime(enc) if os.path.exists(enc) else None
-        scorer = self.backend if self.backend in HOST_RERANK_BACKENDS else "device"
+        scorer = "device" if self.backend == "auto" else self.backend
         return {
             "model_version": self.model_version,
             "model_dir": self.model_dir,

@@ -43,7 +43,7 @@ from recsys_tpu_torch.config import (DataConfig, EvalConfig, MeshConfig, ModelCo
                                      RecsysConfig, TrainConfig)
 
 _RETRIEVAL_LOSS = {"auto": "auto", "xla": False, "flash": True, "chunked": "chunked"}
-_MULTI_GPU = "ROADMAP Queue 1 item 8, multi-GPU"
+_MULTI_GPU = "ROADMAP Queue 1 item 8b, multi-GPU training"
 
 
 def _check_ported(args) -> None:

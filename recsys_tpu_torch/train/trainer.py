@@ -207,7 +207,7 @@ class Trainer:
         t, m = cfg.train, cfg.mesh
         if (m.model_axis != 1 or m.data_axis not in (-1, 1)
                 or m.embedding_sharding != "replicated" or m.lookup_strategy != "xla"):
-            _not_ported("a mesh of more than one device", "item 8, multi-GPU")
+            _not_ported("a mesh of more than one device", "item 8b, multi-GPU training")
         if t.profile:
             _not_ported("TrainConfig.profile", _DEBUG_PROFILE)
         if t.debug_nans:

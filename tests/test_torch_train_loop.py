@@ -378,9 +378,9 @@ def test_cli_config_matches_the_jax_cli(name, monkeypatch):
 
 
 @pytest.mark.parametrize("flag, value, item", [
-    ("--model_parallel", "2", "item 8"),
-    ("--embedding_sharding", "rows", "item 8"), ("--lookup_strategy", "psum", "item 8"),
-    ("--lookup_strategy", "a2a", "item 8")])
+    ("--model_parallel", "2", "item 8b"),
+    ("--embedding_sharding", "rows", "item 8b"), ("--lookup_strategy", "psum", "item 8b"),
+    ("--lookup_strategy", "a2a", "item 8b")])
 def test_cli_unported_mode_values_name_their_roadmap_item(flag, value, item, monkeypatch,
                                                           capsys):
     """A value the JAX CLI takes and the port does not run yet exits with

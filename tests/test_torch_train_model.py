@@ -165,12 +165,12 @@ def test_loss_raises_for_unported_arguments():
     _, tcfg = _configs()
     tp = MultiTaskModel.init(torch.Generator().manual_seed(0), tcfg, N_USERS, N_ITEMS, "cpu")
     batch = {k: torch.as_tensor(v) for k, v in _batch().items()}
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8b, multi-GPU training"):
         MultiTaskModel.loss(tp, tcfg, batch, data_axis="data")
     for fn in (losses.in_batch_softmax, losses.in_batch_softmax_chunked):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match="item 8b, multi-GPU training"):
             fn(torch.zeros(4, 2), torch.zeros(4, 2), axis_name="data")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8b, multi-GPU training"):
         losses.weighted_bce_logits(torch.zeros(4), torch.zeros(4), axis_name="data")
 
 
