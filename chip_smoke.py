@@ -187,16 +187,37 @@
     against ``blockwise_topk_int8`` over the same int8 rows with no refine,
     and int8's recall@10 against fp32 recorded; (b) ``make_ring_topk`` at 64
     users, k = 200, against (a); (c) phase 22's trained bundle through
-    ``RecommendationService(backend="sharded")`` (rerank 200, F = 289):
-    ``recommend`` and a 64-user ``recommend_batch`` with an unknown user
-    against ``backend="device"``, the counters set to 0 just before and
-    read just after (rows 1 and 2 launch), then ``python -m
+    ``RecommendationService(backend="sharded")`` (rerank 200, F = 289, on
+    the host through ``_FastRerank``): ``recommend`` and a 64-user
+    ``recommend_batch`` with an unknown user against the same backend
+    served on the CPU (``SERVE_TOL``; the distance to ``backend="device"``
+    recorded), the counters set to 0 just before and read just after (row 1
+    launches, row 2 never), then ``python -m
     recsys_tpu_torch.serve --backend sharded`` (``/health``, ``/model/info``
-    and one ``/recommend``); (d) the sharded ``recommend`` and 64-user call
-    at 1M items profiled as in phase 7, beside the exact flash route on
-    the same catalog, and the fp32 and int8 shards' searches alone at 64
-    users, k = 200; the group is destroyed before the phase ends;
-26. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+    and one ``/recommend``), and after the NCCL group is gone, the same
+    answers against the sharded backend on a one-rank gloo group on the CPU;
+    (d) the sharded route's rerank candidates at 1M items against the exact
+    flash route's (1 and 64 users, k = 200; the reranks, host fp32 against
+    device bf16, recorded apart), the sharded ``recommend`` and 64-user call
+    profiled as in phase 7, beside the exact flash route on the same
+    catalog, and the fp32 and int8 shards' searches alone at 64 users,
+    k = 200; the group is destroyed before the phase ends;
+26. data-parallel training on a one-rank NCCL mesh that ``make_mesh``
+    starts: ``Trainer(mesh_ctx=...).train`` one epoch on phase 8's bundle
+    at the full-width defaults (B = 8,192, global negatives, the flash
+    route), the counters set to 0 just before and read just after; (a) 3
+    mesh steps against 3 one-card steps from one init (dropout on) held to
+    phase 10's bounds, bit-equality recorded, then the same at phase 21's
+    scale row (the sparse step), each step profiled (device ms, the NCCL
+    kernels' device ms, launches added); (b) rows 4 to 7 with the
+    positives at an offset (b = 2,048 rows against 8,192 gathered
+    candidates, rank 3 of 4's positives, accidental hits in every segment)
+    against their plain versions, bf16 (rows 4, 6, 7) and fp32 (rows 4, 5);
+    the group is destroyed; (c) the train CLI under ``python -m
+    torch.distributed.run --standalone --nproc_per_node 1`` on NCCL, one
+    epoch, against the same CLI without the launcher (losses and the
+    bundle's params at phase 10's bounds);
+27. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line. Without a
@@ -406,7 +427,8 @@ def device_ms(fn, iters: int, kernel: str = "") -> tuple:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
         total = sum(e.self_device_time_total for e in events)
         named = [e for e in events if kernel and kernel in e.key]
         n_named = sum(e.count for e in named)
@@ -1275,7 +1297,11 @@ def profile_call(name: str, fn, n_wall: int = 50, n_traced: int = 20,
     window of ``n_traced`` calls: device time per call, the device's busy
     share of the traced wall time, launches per call and the kernels that
     take the time; ``groups`` {label: kernel-name substring} adds the
-    device ms and launches per call of each group, and the rest's ms."""
+    device ms and launches per call of each group, and the rest's ms.
+    The GPU-side ranges the profiler records around each collective
+    (``nccl:all_gather`` and the like: user annotations, spans that contain
+    the collective's copies and its waits, not device work of their own)
+    are left out of every sum and reported apart per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1295,7 +1321,9 @@ def profile_call(name: str, fn, n_wall: int = 50, n_traced: int = 20,
             fn()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / n_traced
-    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    spans = [e for e in events if getattr(e, "is_user_annotation", False)]
+    device = [e for e in events if not getattr(e, "is_user_annotation", False)]
     dev_ms = sum(e.self_device_time_total for e in device) / 1e3 / n_traced
     top = sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     out = {
@@ -1306,6 +1334,10 @@ def profile_call(name: str, fn, n_wall: int = 50, n_traced: int = 20,
         "device_launches": sum(e.count for e in device) // n_traced,
         "top_device_us": [[e.key[:60], e.self_device_time_total / n_traced] for e in top],
     }
+    if spans:
+        out["collective_spans"] = {e.key: [e.count / n_traced,
+                                           e.self_device_time_total / 1e3 / n_traced]
+                                   for e in spans}
     if groups:
         by = {label: sum(e.self_device_time_total for e in device if sub in e.key)
               / 1e3 / n_traced for label, sub in groups.items()}
@@ -3384,7 +3416,7 @@ def serve_cli_sharded(repo: str, serving: str, tmp: str, uid: int, want) -> dict
     """Phase 25 (c): ``python -m recsys_tpu_torch.serve --backend sharded
     --rerank_candidates 200`` on the card (its own one-rank NCCL group):
     healthy, ``/model/info`` names the sharded scorer, one ``/recommend``
-    equal to the device backend's answer; SIGTERM ends it."""
+    equal to the in-process sharded backend's answer; SIGTERM ends it."""
     import signal
     import socket
 
@@ -3420,7 +3452,7 @@ def serve_cli_sharded(repo: str, serving: str, tmp: str, uid: int, want) -> dict
         check(code == 200, f"sharded CLI /recommend: {code}")
         check_recs(body["recommendations"], 10, "sharded CLI /recommend")
         out["max_score_diff"] = same_ranking(body["recommendations"], want, TOPK_TOL,
-                                             "sharded CLI against the device backend")
+                                             "sharded CLI against the sharded backend")
         proc.send_signal(signal.SIGTERM)
         proc.wait(timeout=30)
     finally:
@@ -3438,13 +3470,19 @@ def sharded_path(repo: str, counters, tmp: str) -> dict:
     catalog and the CPU's plain version, int8 against ``blockwise_topk_int8``
     over the same int8 rows (no refine), and int8's recall@10 against fp32;
     (b) ``make_ring_topk`` at 64 users, k = 200, against (a); (c) phase 22's
-    trained bundle through ``backend="sharded"`` (rerank 200, F = 289):
-    ``recommend`` and a 64-user ``recommend_batch`` against
-    ``backend="device"``, the counters set to 0 just before and read just
-    after (rows 1 and 2 launch, the sieve never), then the serve CLI's
-    ``--backend sharded``; (d) the sharded ``recommend`` and 64-user call at
-    1M items profiled beside the exact flash route on the same catalog,
-    and the fp32 and int8 shards' searches alone (64 users, k = 200).
+    trained bundle through ``backend="sharded"`` (rerank 200, F = 289, on
+    the host through ``_FastRerank``, as the JAX package's sharded backend):
+    ``recommend`` and a 64-user ``recommend_batch``, the counters set to 0
+    just before and read just after (row 1 launches; row 2, the sieve and
+    the blockwise scan never), held against the same backend served on the
+    CPU (a one-rank gloo group made after the NCCL one is gone) within
+    ``SERVE_TOL``, with their distance to ``backend="device"`` (bf16
+    operands) recorded, then the serve CLI's ``--backend sharded``; (d) the
+    sharded route's rerank candidates at 1M items against the exact flash
+    route's (1 and 64 users, k = 200), the reranked answers' distance
+    recorded, then the sharded ``recommend`` and 64-user call profiled
+    beside the exact flash route on the same catalog, and the fp32 and
+    int8 shards' searches alone (64 users, k = 200).
     The group is destroyed before the phase returns, whatever happened."""
     import numpy as np
     import torch
@@ -3539,20 +3577,22 @@ def sharded_path(repo: str, counters, tmp: str) -> dict:
         many = svc.recommend_batch(users22, 10)
         torch.cuda.synchronize()
         launches = {c.name: c.read() for c in counters}
-        check(launches["topk_flash"] > 0 and launches["dcn_cross"] > 0,
-              f"backend=sharded did not run rows 1 and 2: {launches}")
+        check(launches["topk_flash"] > 0, f"backend=sharded did not run row 1: {launches}")
+        check(launches["dcn_cross"] == 0, f"backend=sharded reranked on the card: {launches}")
         check(launches["blockmax"] == launches["blockwise_topk"] == 0,
               f"backend=sharded took another top-k route: {launches}")
-        err = same_ranking(one, dev.recommend(known[0], 10), TOPK_TOL, "sharded recommend")
-        for got, want in zip(many, dev.recommend_batch(users22, 10)):
-            check(got["status"] == want["status"], f"sharded batch status {got['status']}")
-            err = max(err, same_ranking(got["recommendations"], want["recommendations"],
-                                        TOPK_TOL, f"sharded batch user {got['user_id']}"))
+        check(svc._fast_rerank is not None, "the sharded backend's _FastRerank failed")
         check(many[-1]["status"] == "cold_start", "sharded batch: the unknown user")
-        out["service"] = {"launches": launches, "max_score_diff": err,
-                          "search": svc.get_model_info()["search"]}
-        out["cli"] = serve_cli_sharded(repo, serving, tmp, known[0],
-                                       dev.recommend(known[0], 10))
+        # its distance to the device rerank (bf16 operands): recorded, not limited
+        vs_device = max(abs(x["score"] - y["score"]) for x, y in
+                        zip(one, dev.recommend(known[0], 10)))
+        for got, want in zip(many, dev.recommend_batch(users22, 10)):
+            vs_device = max([vs_device] + [abs(x["score"] - y["score"]) for x, y in zip(
+                got["recommendations"], want["recommendations"])])
+        out["service"] = {"launches": launches, "max_score_diff_vs_device": vs_device,
+                          "search": svc.get_model_info()["search"],
+                          "fast_rerank": svc.get_model_info()["fast_rerank"]}
+        out["cli"] = serve_cli_sharded(repo, serving, tmp, known[0], one)
         del svc, dev
         log(f"phase 25 (c): {json.dumps({k: out[k] for k in ('service', 'cli')})}")
 
@@ -3560,12 +3600,23 @@ def sharded_path(repo: str, counters, tmp: str) -> dict:
         exact = RecommendationService(large, rerank_candidates=RERANK, device="cuda",
                                       approx_search_threshold=0).load()
         check(exact._search_route() == "exact", "1M: the exact route was not taken")
-        err = same_ranking(big.recommend(1, 10), exact.recommend(1, 10), TOPK_TOL,
-                           "sharded against exact, 1M items")
-        for got, want in zip(big.recommend_batch(batch, 10), exact.recommend_batch(batch, 10)):
-            err = max(err, same_ranking(got["recommendations"], want["recommendations"],
-                                        TOPK_TOL, f"1M batch user {got['user_id']}"))
+        # the rerank's candidates are the same (exact search on both routes);
+        # the reranks differ on purpose (the sharded one on the host in fp32,
+        # the exact route's on the card on bf16 operands): their distance
+        # is recorded, not limited
+        dense_ids = np.asarray([big.user_id_map[u] for u in batch])
+        err = 0.0
+        for q in (1, BATCH_USERS):
+            err = max(err, same_topk(
+                big._retrieve(dense_ids[:q], RERANK), exact._retrieve(dense_ids[:q], RERANK),
+                TOPK_TOL, f"sharded against exact candidates, 1M items, {q} users"))
         out["vs_exact_max_score_diff"] = err
+        rerank_diff = max(abs(x["score"] - y["score"]) for x, y in
+                          zip(big.recommend(1, 10), exact.recommend(1, 10)))
+        for got, want in zip(big.recommend_batch(batch, 10), exact.recommend_batch(batch, 10)):
+            rerank_diff = max([rerank_diff] + [abs(x["score"] - y["score"]) for x, y in zip(
+                got["recommendations"], want["recommendations"])])
+        out["vs_exact_rerank_max_score_diff"] = rerank_diff
         groups = {"row1_topk": "topk_flash_kernel", "row1_select": "topk_select_kernel",
                   "row2_dcn": "dcn_cross_fwd_kernel", "nccl": "nccl"}
         profiles = search_profiles
@@ -3581,6 +3632,314 @@ def sharded_path(repo: str, counters, tmp: str) -> dict:
         mesh_mod.shutdown()
     check(not dist.is_initialized(), "the process group outlived phase 25")
     torch.cuda.empty_cache()
+    # (c) held against the sharded backend served on the CPU (plain versions)
+    cpu_ctx = mesh_mod.make_mesh(device="cpu")
+    try:
+        cpu_svc = RecommendationService(serving, backend="sharded", rerank_candidates=RERANK,
+                                        device="cpu", mesh_ctx=cpu_ctx).load()
+        err = same_ranking(one, cpu_svc.recommend(known[0], 10), SERVE_TOL,
+                           "sharded recommend, card vs CPU")
+        for got, want in zip(many, cpu_svc.recommend_batch(users22, 10)):
+            check(got["status"] == want["status"], f"sharded batch status {got['status']}")
+            err = max(err, same_ranking(got["recommendations"], want["recommendations"],
+                                        SERVE_TOL, f"sharded batch user {got['user_id']}, "
+                                        "card vs CPU"))
+        out["service"]["max_score_diff_vs_cpu"] = err
+    finally:
+        mesh_mod.shutdown()
+    check(not dist.is_initialized(), "the CPU process group outlived phase 25")
+    return out
+
+
+# ---- data-parallel training: the ninth main path ---------------------------
+
+def _tree_diff(a, b) -> tuple:
+    """-> (max |a - b| over every leaf of two param trees on the card, its
+    leaf, whether every leaf is bit-equal)."""
+    import torch
+    from recsys_tpu_torch.train.optimizer import leaves_with_paths
+
+    worst, where, equal = 0.0, "", True
+    b_leaves = dict(leaves_with_paths(b))
+    for path, x in leaves_with_paths(a):
+        y = b_leaves[path]
+        equal = equal and bool(torch.equal(x, y))
+        err = float((x.detach() - y.detach()).abs().max())
+        if err > worst:
+            worst, where = err, "/".join(path)
+    return worst, where, equal
+
+
+def mesh_vs_one_card(ctx, cfg, init, batches, cw, counters, tmp: str, label: str) -> dict:
+    """Phase 26 (a): ``PARITY_STEPS`` steps of the one-card trainer and of the
+    mesh trainer from one init (dropout on: data index 0 draws the one-card
+    stream) on the same batches, held to phase 10's bounds (the loss 1e-3
+    relative, every param 2e-4 absolute), bit-equality recorded; the
+    counters set to 0 before each run and read after; then one step of each
+    profiled (device ms; the NCCL kernels' device ms, none at world 1, where
+    the collectives are device-to-device copies; the collectives' spans;
+    launches)."""
+    import torch
+    from recsys_tpu_torch.train.checkpoint import params_from_numpy
+    from recsys_tpu_torch.train.trainer import Trainer
+
+    groups = {"nccl": "nccl", "memcpy_dtod": "Memcpy DtoD",
+              "row2_dcn": "dcn_cross_fwd", "row3_dcn_bwd": "dcn_cross_bwd",
+              "row4_fwd": "flash_ce_fwd", "row6_du": "flash_ce_bwd_du",
+              "row7_dv": "flash_ce_bwd_dv"}
+    runs = {}
+    for name, mesh in (("one_card", None), ("mesh", ctx)):
+        tr = Trainer(cfg, os.path.join(tmp, f"{label}_{name}"), device="cuda", mesh_ctx=mesh)
+        state = tr.state_from_params(params_from_numpy(init, "cuda"), SEED)
+        step = tr.make_train_step(cw)
+        for c in counters:
+            c.reset()
+        loss = []
+        for batch in batches:
+            state, m = step(state, batch)
+            loss.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        launches = {c.name: c.read() for c in counters}
+        holder = [state]
+
+        def one(step=step, holder=holder):
+            holder[0], _ = step(holder[0], batches[holder[0].step % len(batches)])
+
+        runs[name] = {"loss": loss, "launches": launches, "state": state,
+                      "step_counts": dict(tr.step_counts), "trainer": tr, "one": one}
+    card, mesh_run = runs["one_card"], runs["mesh"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(mesh_run["loss"], card["loss"]))
+    check(loss_err <= PARITY_LOSS_RTOL,
+          f"{label}: mesh loss {mesh_run['loss']} vs one card {card['loss']}")
+    param_err, worst, bit_equal = _tree_diff(mesh_run["state"].params, card["state"].params)
+    check(param_err <= PARITY_PARAM_ATOL,
+          f"{label}: mesh params differ by {param_err} at {worst} > {PARITY_PARAM_ATOL}")
+    check(mesh_run["launches"] == card["launches"],
+          f"{label}: kernel launches {mesh_run['launches']} vs one card {card['launches']}")
+    check(mesh_run["step_counts"] == card["step_counts"],
+          f"{label}: steps {mesh_run['step_counts']} vs {card['step_counts']}")
+    out = {"loss_mesh": mesh_run["loss"], "loss_one_card": card["loss"],
+           "loss_max_rel_err": loss_err, "param_max_abs_err": param_err,
+           "param_worst": worst, "bit_equal": bit_equal,
+           "launches": mesh_run["launches"], "step_counts": mesh_run["step_counts"]}
+    for name in ("one_card", "mesh"):
+        del runs[name]["state"]
+    profiles = {name: profile_call(f"dp_{label}_{name}", runs[name]["one"], n_wall=10,
+                                   n_traced=5, warmup=2, groups=groups)
+                for name in ("one_card", "mesh")}
+    p_card, p_mesh = profiles["one_card"], profiles["mesh"]
+    out["step"] = {
+        "device_ms_one_card": p_card["device_ms"], "device_ms_mesh": p_mesh["device_ms"],
+        "device_ms_added": p_mesh["device_ms"] - p_card["device_ms"],
+        "nccl_kernel_device_ms": p_mesh["group_device_ms"]["nccl"],
+        "nccl_kernel_launches": p_mesh["group_launches"]["nccl"],
+        "collective_spans": p_mesh.get("collective_spans", {}),
+        "memcpy_dtod_device_ms_added": (p_mesh["group_device_ms"]["memcpy_dtod"]
+                                        - p_card["group_device_ms"]["memcpy_dtod"]),
+        "launches_one_card": p_card["device_launches"], "launches_mesh": p_mesh["device_launches"],
+        "launches_added": p_mesh["device_launches"] - p_card["device_launches"],
+        "wall_ms_p50_one_card": p_card["wall_ms_p50"], "wall_ms_p50_mesh": p_mesh["wall_ms_p50"]}
+    out["profiles"] = [p_card, p_mesh]
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _offset_flash_args(dtype, seed: int) -> tuple:
+    """Rank 3 of 4's backward inputs: b = 2,048 local rows against the
+    gathered n * b = 8,192 candidates, the positives at ``3 * b + i``; ids
+    from 512 values, so accidental hits fall in every segment, the local
+    rows' own segment included."""
+    import torch
+
+    b, n, d = 2048, 4, 128
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    u = (torch.randn((b, d), generator=g, device="cuda") * d ** -0.5).to(dtype)
+    v = (torch.randn((n * b, d), generator=g, device="cuda") * d ** -0.5).to(dtype)
+    c = torch.randn((n * b,), generator=g, device="cuda")
+    ids_k = torch.randint(0, 512, (n * b,), generator=g, device="cuda", dtype=torch.int32)
+    ids_q = ids_k[3 * b:4 * b].contiguous()
+    pos = (3 * b + torch.arange(b, device="cuda")).to(torch.int32)
+    gr = torch.rand((b,), generator=g, device="cuda") / b
+    return u, v, c, ids_q, ids_k, pos, gr
+
+
+def offset_positive_rows() -> dict:
+    """Phase 26 (b): rows 4 to 7 with the positives at an offset, as under
+    global negatives on rank 3 of 4: bf16 operands through the forward and
+    rows 6 + 7, fp32 operands through the forward and the fused backward,
+    each against its plain version at phases 10's and 11's tolerances."""
+    import torch
+    from recsys_tpu_torch.ops import flash_ce as F
+
+    out = {}
+    for dtype, bwd, label in ((torch.bfloat16, F.flash_ce_bwd_twokernel, "bf16_rows_4_6_7"),
+                              (torch.float32, F.flash_ce_bwd_fused, "fp32_rows_4_5")):
+        args = _offset_flash_args(dtype, SEED + 26)
+        hits = int((args[3][:, None] == args[4][None, :]).sum()) - args[3].shape[0]
+        res = check_flash(*args, bwd=bwd)
+        res.pop("lse")
+        out[label] = {**res, "accidental_hits": hits, "shape": {
+            "Bq": args[0].shape[0], "Bk": args[1].shape[0], "pos0": int(args[5][0])}}
+    return out
+
+
+def dp_train_cli(repo: str, bundle_np: dict, tmp: str) -> dict:
+    """Phase 26 (c): ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1 -m recsys_tpu_torch.train`` on NCCL, on phase 8's
+    bundle, one epoch at B = 8,192: exits 0, rank 0 writes the run's files
+    and the bundle, and its losses and params equal the same CLI's without
+    the launcher (in this process: one card, no group) within phase 10's
+    bounds."""
+    import numpy as np
+    from recsys_tpu_torch.train import __main__ as train_cli
+
+    data = os.path.join(tmp, "dp_bundle.npz")
+    np.savez(data, **bundle_np)
+    argv = ["--data", data, "--epochs", "1", "--batch_size", str(TRAIN_BATCH),
+            "--embedding_dim", "128", "--device", "cuda"]
+    runs = {"launcher": os.path.join(tmp, "dp_cli_torchrun"),
+            "plain": os.path.join(tmp, "dp_cli_plain")}
+    log_path = os.path.join(tmp, "dp_cli.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "recsys_tpu_torch.train", *argv,
+             "--output_dir", runs["launcher"]],
+            cwd=repo, stdout=log_file, stderr=subprocess.STDOUT, timeout=600)
+    launcher_s = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    check(proc.returncode == 0, f"train CLI under torchrun: rc {proc.returncode}: {text[-3000:]}")
+    check("data-parallel over 1 ranks" in text, "the CLI under torchrun did not train on a mesh")
+    t0 = time.perf_counter()
+    rc, _ = _call_cli(train_cli.main, argv + ["--output_dir", runs["plain"]])
+    plain_s = time.perf_counter() - t0
+    check(rc == 0, f"train CLI without a launcher: rc {rc}")
+    hist, final, params = {}, {}, {}
+    for name, run in runs.items():
+        for rel in ("metrics.json", "detailed_metrics.json", "config.json",
+                    "serving/model.npz", "serving/index.npz", "serving/vocabs.json"):
+            check(os.path.exists(os.path.join(run, rel)), f"{name} CLI: {rel} missing")
+        with open(os.path.join(run, "detailed_metrics.json")) as f:
+            hist[name] = json.load(f)["epochs"][0]
+        with open(os.path.join(run, "metrics.json")) as f:
+            final[name] = json.load(f)
+        with np.load(os.path.join(run, "serving", "model.npz")) as z:
+            params[name] = {k: z[k] for k in z.files}
+    loss_err = max(abs(hist["launcher"][k] - hist["plain"][k]) / abs(hist["plain"][k])
+                   for k in ("train_loss", "val_loss"))
+    check(loss_err <= PARITY_LOSS_RTOL, f"torchrun CLI losses {hist['launcher']} vs "
+                                        f"{hist['plain']}")
+    param_err = max(float(np.abs(params["launcher"][k] - v).max())
+                    for k, v in params["plain"].items())
+    check(param_err <= PARITY_PARAM_ATOL, f"torchrun CLI params differ by {param_err}")
+    return {"launcher_s": launcher_s, "plain_s": plain_s, "loss_max_rel_err": loss_err,
+            "param_max_abs_err": param_err,
+            "train_loss": [hist["launcher"]["train_loss"], hist["plain"]["train_loss"]],
+            "val_loss": [hist["launcher"]["val_loss"], hist["plain"]["val_loss"]],
+            "recall@10": [final["launcher"]["recall@10"], final["plain"]["recall@10"]]}
+
+
+def data_parallel_path(repo: str, counters, tmp: str, bundle_np: dict) -> dict:
+    """Phase 26: data-parallel training on a one-rank NCCL mesh from
+    ``make_mesh``: ``Trainer(mesh_ctx=...).train`` one epoch on phase 8's
+    bundle at the full-width defaults (B = 8,192, global negatives, the
+    flash route), the counters set to 0 just before and read just after
+    (rows 2, 3, 4, 6, 7 and, in rank 0's final evaluate, 1); (a) 3 mesh
+    steps against 3 one-card steps from one init, then the same at phase
+    21's scale row (4M x 2M tables, dim 64, B = 4,096, the sparse step),
+    each step profiled; (b) rows 4 to 7 with the positives at an offset;
+    the group is destroyed; (c) the train CLI under ``torchrun``."""
+    import math
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
+    from recsys_tpu_torch.models.losses import balanced_class_weights
+    from recsys_tpu_torch.models.multitask import MultiTaskModel
+    from recsys_tpu_torch.parallel import mesh as mesh_mod
+    from recsys_tpu_torch.train.checkpoint import params_to_numpy
+    from recsys_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    ctx = mesh_mod.make_mesh(model_parallel=1, data_parallel=1, device="cuda")
+    try:
+        check(dist.get_backend() == "nccl" and ctx.n_data == 1, "phase 26: not an NCCL mesh")
+        cfg = RecsysConfig(model=ModelConfig(), train=TrainConfig(batch_size=TRAIN_BATCH,
+                                                                  epochs=1))
+        run = os.path.join(tmp, "dp_train")
+        trainer = Trainer(cfg, run, device="cuda", mesh_ctx=ctx)
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        report = trainer.train(bundle_np)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.name: c.read() for c in counters}
+        steps = N_TRAIN // TRAIN_BATCH
+        for name in NEG_PATH_KERNELS + ("topk_flash",):
+            check(launches[name] > 0, f"phase 26: {name} never launched on the mesh")
+        check(launches["dcn_cross_bwd"] == steps,
+              f"phase 26: the DCN backward launched {launches['dcn_cross_bwd']} times")
+        check(launches["flash_ce_bwd_fused"] == 0, "phase 26: the fused backward ran on bf16")
+        check(trainer.step_counts == {"dense": steps, "sparse": 0},
+              f"phase 26: steps {trainer.step_counts}")
+        with open(os.path.join(run, "detailed_metrics.json")) as f:
+            epoch = json.load(f)["epochs"][0]
+        for k in ("train_loss", "val_loss"):
+            check(math.isfinite(epoch[k]), f"phase 26: {k} = {epoch[k]}")
+        check(os.path.exists(os.path.join(run, "serving", "index.npz")),
+              "phase 26: rank 0 wrote no bundle")
+        out["train"] = {"launches": launches, "wall_s": wall, "steps": steps,
+                        "epoch_time_s": epoch["epoch_time_s"],
+                        "examples_per_s": epoch["examples_per_s"],
+                        "train_loss": epoch["train_loss"], "val_loss": epoch["val_loss"],
+                        "recall@10": report["recall@10"]}
+        del trainer
+        torch.cuda.empty_cache()
+        log(f"phase 26 train: {json.dumps(out['train'])}")
+
+        # (a) the dense step at full width, then the sparse step at the scale row
+        cw = balanced_class_weights(bundle_np["train/y_implicit"])
+        init = params_to_numpy(MultiTaskModel.init(torch.Generator().manual_seed(SEED + 26),
+                                                   cfg.model, N_USERS, N_ITEMS, "cpu"))
+        batches = _batches(bundle_np, PARITY_STEPS, TRAIN_BATCH, "cuda", _log_q(bundle_np))
+        out["dense"] = mesh_vs_one_card(ctx, cfg, init, batches, cw, counters, tmp, "dense")
+        log(f"phase 26 (a) dense: {json.dumps({k: v for k, v in out['dense'].items() if k != 'profiles'})}")
+        model = ModelConfig(embedding_dim=SCALE_ROW_DIM, mixed_precision=True, dropout_rate=0.2)
+        sparse_cfg = RecsysConfig(model=model, train=TrainConfig(
+            batch_size=SCALE_ROW_BATCH, sparse_table_updates=True))
+        init = params_to_numpy(MultiTaskModel.init(torch.Generator().manual_seed(SEED + 16),
+                                                   model, GIANT_USERS, GIANT_ITEMS, "cpu"))
+        rng = np.random.default_rng(SEED + 17)
+        b = SCALE_ROW_BATCH
+        batches = [{k: torch.as_tensor(v, device="cuda") for k, v in {
+            "user_id": rng.integers(0, GIANT_USERS, b).astype(np.int32),
+            "movie_id": rng.integers(0, GIANT_ITEMS, b).astype(np.int32),
+            "rating": rng.uniform(1, 5, b).astype(np.float32),
+            "y_implicit": (rng.random(b) > 0.4).astype(np.float32),
+            "log_q": np.full(b, -np.log(GIANT_ITEMS), np.float32)}.items()}
+            for _ in range(PARITY_STEPS)]
+        out["sparse"] = mesh_vs_one_card(ctx, sparse_cfg, init, batches, (1.3, 0.8), counters,
+                                         tmp, "sparse")
+        check(out["sparse"]["step_counts"]["sparse"] == PARITY_STEPS,
+              f"phase 26: the scale row took {out['sparse']['step_counts']}")
+        del init, batches
+        torch.cuda.empty_cache()
+        log(f"phase 26 (a) sparse: {json.dumps({k: v for k, v in out['sparse'].items() if k != 'profiles'})}")
+
+        # (b) rows 4 to 7 with the positives at an offset
+        out["offset_rows"] = offset_positive_rows()
+        log(f"phase 26 (b): {json.dumps(out['offset_rows'])}")
+    finally:
+        mesh_mod.shutdown()
+    check(not dist.is_initialized(), "the process group outlived phase 26")
+    out["profiles"] = out["dense"].pop("profiles") + out["sparse"].pop("profiles")
+    # (c) the train CLI under the launcher
+    out["cli"] = dp_train_cli(repo, bundle_np, tmp)
     return out
 
 
@@ -3818,6 +4177,11 @@ def main() -> int:
         # ---- the mesh and the sharded catalog: the eighth main path -------
         t_sharded = time.perf_counter()
         sharded = sharded_path(repo, counters, dense_dir)
+        log(f"sharded phase in {time.perf_counter() - t_sharded:.1f} s")
+        # ---- data-parallel training: the ninth main path ------------------
+        t_dp = time.perf_counter()
+        dp = data_parallel_path(repo, counters, dense_dir, bundle_np)
+        log(f"data-parallel phase in {time.perf_counter() - t_dp:.1f} s")
     for row in negs.pop("profiles"):
         log(f"profile {json.dumps(row)}")
     log(f"explicit negatives and streaming: {json.dumps(negs)}")
@@ -3828,7 +4192,10 @@ def main() -> int:
     for row in sharded.pop("profiles"):
         log(f"profile {json.dumps(row)}")
     log(f"the mesh and the sharded catalog: {json.dumps(sharded)}")
-    log(f"sharded phase in {time.perf_counter() - t_sharded:.1f} s")
+    for row in dp.pop("profiles"):
+        log(f"profile {json.dumps(row)}")
+    log(f"data-parallel training: {json.dumps(dp)}")
+    dp_launches = dp["train"]["launches"]
     rest_launches = {name: {load: rest[load]["launches"][name]
                             for load in ("threaded_microbatch", "asyncio")}
                      for name in ("topk_flash", "dcn_cross")}
@@ -3866,6 +4233,7 @@ def main() -> int:
                                           for r in neg_runs},
          "launches_serving_rest": rest_launches["topk_flash"],
          "launches_sharded": sharded["service"]["launches"]["topk_flash"],
+         "launches_data_parallel": dp_launches["topk_flash"],
          "shape": main_topk["shape"], "shapes": topk_rows},
         {"name": "dcn_cross", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/dcn_cross.cu",
@@ -3878,6 +4246,7 @@ def main() -> int:
                                           for r in neg_runs},
          "launches_serving_rest": rest_launches["dcn_cross"],
          "launches_sharded": sharded["service"]["launches"]["dcn_cross"],
+         "launches_data_parallel": dp_launches["dcn_cross"],
          "dense_features": dense["dcn_fwd"],
          "shape": main_dcn["shape"], "shapes": dcn_rows},
         {"name": "dcn_cross_bwd", "route": "cuda",
@@ -3896,6 +4265,7 @@ def main() -> int:
          "launches_negatives_streaming": {r: negs[r]["launches"]["dcn_cross_bwd"]
                                           for r in neg_runs},
          "dense_features": dense["dcn_bwd"],
+         "launches_data_parallel": dp_launches["dcn_cross_bwd"],
          "shape": main_dcn_bwd["shape"], "shapes": dcn_bwd_rows},
         {"name": "flash_ce_fwd", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/flash_ce.cu",
@@ -3912,6 +4282,8 @@ def main() -> int:
          "launches_dense_path": dense_launches["flash_ce_fwd"],
          "launches_negatives_streaming": {r: negs[r]["launches"]["flash_ce_fwd"]
                                           for r in neg_runs},
+         "launches_data_parallel": dp_launches["flash_ce_fwd"],
+         "offset_positives": dp["offset_rows"],
          "shape": main_fwd["shape"],
          "shapes": [r[0] for r in flash_rows.values()] + [twokernel["above_fwd"]]},
         {"name": "flash_ce_bwd_fused", "route": "cuda",
@@ -3925,6 +4297,8 @@ def main() -> int:
          "plan": main_bwd_plan,
          "fp32_epoch_steps_per_s": fp32_trained["steps_per_s"][-1],
          "fp32_edges": fp32_edges,
+         "launches_data_parallel": dp_launches["flash_ce_bwd_fused"],
+         "offset_positives": dp["offset_rows"]["fp32_rows_4_5"],
          "shape": main_bwd["shape"], "shapes": [r[1] for r in flash_rows.values()]},
         {"name": "blockmax", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/blockmax.cu",
@@ -3943,6 +4317,8 @@ def main() -> int:
             "launches_train": train_launches[name],
             "launches_dense_path": dense_launches[name],
             "launches_negatives_streaming": {r: negs[r]["launches"][name] for r in neg_runs},
+            "launches_data_parallel": dp_launches[name],
+            "offset_positives": dp["offset_rows"]["bf16_rows_4_6_7"],
             "fp32": {k: twokernel["main_fp32"][i][k] for k in keys + speed},
             "shape": main_row["shape"], "shapes": [main_row, twokernel["above"][i]]})
     fp32_route = twokernel["fp32_route"]

@@ -133,7 +133,9 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh topology (multi-device layouts are a later slice)."""
+    """Device-mesh topology. The port trains on a ``(data, 1)`` mesh
+    (``data_axis`` -1: every rank); ``model_axis > 1``, row-sharded tables
+    and the psum/a2a lookups are ROADMAP Queue 1 item 8c."""
 
     data_axis: int = -1
     model_axis: int = 1

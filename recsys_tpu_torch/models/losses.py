@@ -10,9 +10,14 @@ retrieval embeddings arrive as bf16 tensors, and every product of them is
 taken in fp32 on the bf16 values (``preferred_element_type=f32``), so
 their gradients round to bf16 at the same points as in JAX.
 
-Data-parallel scopes (``axis_name``: global negatives, the global BCE
-denominator) are not ported yet and raise (ROADMAP Queue 1 item 8b,
-multi-GPU training).
+Data-parallel scopes (``axis_name`` with the :class:`MeshContext`
+``mesh_ctx`` that resolves it, inside the trainer's data-parallel step):
+the in-batch softmax takes its candidates from the global batch (the
+item rows, ids, logQ and bias of every rank, all-gathered in rank order,
+the rows differentiably), with local row i's positive in column
+``axis_index * B_local + i``; the weighted BCE divides by the mean over
+ranks of the weight sum, so the mean over ranks of the loss is the
+global weighted mean.
 """
 
 from __future__ import annotations
@@ -39,11 +44,24 @@ _FLASH_MIN_CANDIDATES = 8192
 BF16_LOGITS_MIN_CANDIDATES = 8192
 
 
-def _no_axis(axis_name, what: str) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"{what} over a data axis is not ported to recsys_tpu_torch yet "
-            "(ROADMAP Queue 1: item 8b, multi-GPU training)")
+def _axis(mesh_ctx, axis_name, what: str):
+    """The mesh context that resolves ``axis_name`` (None without one)."""
+    if axis_name is not None and mesh_ctx is None:
+        raise ValueError(f"{what} over axis {axis_name!r} needs the mesh_ctx that "
+                         "resolves it")
+    return mesh_ctx if axis_name is not None else None
+
+
+def _gather(ctx, axis_name, x, grad: bool = False):
+    """``x`` of every rank on ``axis_name``, concatenated on dim 0 in rank
+    order; ``grad=True`` takes the differentiable gather."""
+    from recsys_tpu_torch.parallel import collectives
+
+    if x is None:
+        return None
+    if grad:
+        return collectives.all_gather_rows(ctx, x, axis_name)
+    return collectives.gather_rows(ctx, x, axis_name)
 
 
 def resolve_retrieval_loss(setting, b_local: int, n_candidates: int, platform: str,
@@ -117,6 +135,7 @@ def in_batch_softmax(
     item_bias: Optional[torch.Tensor] = None,
     logits_dtype=None,
     extra_candidates=None,
+    mesh_ctx=None,
 ) -> torch.Tensor:
     """In-batch sampled-softmax retrieval loss over the dense [B, n_cand]
     logits: label = the diagonal, logQ correction ``- log_q``, ``+ item_bias``
@@ -124,14 +143,23 @@ def in_batch_softmax(
     diagonal) set to -1e9. ``extra_candidates`` ``(emb [N, D], ids [N],
     corr [N])`` appends negative columns (no gradient into them).
     ``logits_dtype=torch.bfloat16`` rounds the logits to bf16 and takes a
-    hand-rolled logsumexp with fp32 accumulation, as the JAX bf16 branch."""
-    _no_axis(axis_name, "in_batch_softmax")
+    hand-rolled logsumexp with fp32 accumulation, as the JAX bf16 branch.
+    With ``axis_name`` (and ``mesh_ctx``) the candidates are the global
+    batch's (see the module docstring)."""
+    ctx = _axis(mesh_ctx, axis_name, "in_batch_softmax")
     b = user_emb.shape[0]
     candidates, cand_ids, cand_logq, cand_bias = item_emb, item_ids, log_q, item_bias
+    first = 0  # the column of row 0's positive
+    if ctx is not None:
+        candidates = _gather(ctx, axis_name, item_emb, grad=True)
+        cand_ids = _gather(ctx, axis_name, item_ids)
+        cand_logq = _gather(ctx, axis_name, log_q)
+        cand_bias = _gather(ctx, axis_name, item_bias, grad=True)
+        first = ctx.axis_index(axis_name) * b
     if extra_candidates is not None:
         x_emb, x_ids, x_corr = extra_candidates
-        corr_full = torch.cat([_column_corr(b, cand_bias, cand_logq, user_emb.device),
-                               x_corr.float()])
+        corr_full = torch.cat([_column_corr(candidates.shape[0], cand_bias, cand_logq,
+                                            user_emb.device), x_corr.float()])
         candidates = torch.cat([candidates, x_emb.detach().to(candidates.dtype)])
         if cand_ids is not None:
             cand_ids = torch.cat([cand_ids, x_ids.to(cand_ids.dtype)])
@@ -146,7 +174,7 @@ def in_batch_softmax(
         logits = logits - cand_logq.to(logits.dtype)[None, :]
     if cand_ids is not None and item_ids is not None:
         col = torch.arange(logits.shape[1], device=logits.device)
-        diag = torch.arange(b, device=logits.device)
+        diag = torch.arange(first, first + b, device=logits.device)
         accidental = (item_ids[:, None] == cand_ids[None, :]) & (col[None, :] != diag[:, None])
         logits = torch.where(accidental, torch.full_like(logits, NEG_BIG), logits)
     # the positive logit as a row-wise dot (the same value as the diagonal)
@@ -174,16 +202,25 @@ def in_batch_softmax_chunked(
     item_bias: Optional[torch.Tensor] = None,
     chunk_size: int = 4096,
     extra_candidates=None,
+    mesh_ctx=None,
 ) -> torch.Tensor:
     """The same loss with candidates swept in chunks of ``chunk_size`` and
     an online logsumexp; each chunk is checkpointed, so the backward
     recomputes its logits and the [B, n_cand] matrix never exists whole.
-    ``extra_candidates`` are padded to a chunk multiple with -1e9 columns."""
-    _no_axis(axis_name, "in_batch_softmax_chunked")
+    ``extra_candidates`` are padded to a chunk multiple with -1e9 columns.
+    With ``axis_name`` (and ``mesh_ctx``) the candidates and their folded
+    column corrections are the global batch's."""
+    ctx = _axis(mesh_ctx, axis_name, "in_batch_softmax_chunked")
     b, d = user_emb.shape
     dev = user_emb.device
     col_corr = _column_corr(b, item_bias, log_q, dev)
     candidates, cand_ids, cand_corr = item_emb, item_ids, col_corr
+    first = 0  # the column of row 0's positive
+    if ctx is not None:
+        candidates = _gather(ctx, axis_name, item_emb, grad=True)
+        cand_ids = _gather(ctx, axis_name, item_ids)
+        cand_corr = _gather(ctx, axis_name, col_corr, grad=True)
+        first = ctx.axis_index(axis_name) * b
     if extra_candidates is not None:
         x_emb, x_ids, x_corr = extra_candidates
         total = candidates.shape[0] + x_emb.shape[0]
@@ -200,7 +237,7 @@ def in_batch_softmax_chunked(
     if n_cand % chunk_size:
         raise ValueError(f"in_batch_softmax_chunked: {n_cand} candidates are not a "
                          f"multiple of chunk_size {chunk_size}")
-    diag = torch.arange(b, device=dev)
+    diag = torch.arange(first, first + b, device=dev)
 
     def chunk_lse(u, v_c, corr_c, ids_c, c0):
         s = torch.matmul(u.float(), v_c.float().T) + corr_c[None, :]
@@ -240,17 +277,26 @@ def mse(pred: torch.Tensor, target: torch.Tensor,
 def weighted_bce_logits(logits: torch.Tensor, labels: torch.Tensor,
                         pos_weight: float = 1.0, neg_weight: float = 1.0,
                         mask: Optional[torch.Tensor] = None,
-                        axis_name: Optional[str] = None) -> torch.Tensor:
+                        axis_name: Optional[str] = None,
+                        mesh_ctx=None) -> torch.Tensor:
     """Per-sample class-weighted sigmoid cross-entropy on logits,
-    normalized by the weight sum (a weighted mean)."""
-    _no_axis(axis_name, "the global BCE denominator")
+    normalized by the weight sum (a weighted mean). With ``axis_name`` the
+    denominator is the mean over ranks of the weight sum (detached: the
+    weights depend on the labels only), so the mean over ranks of this
+    value is the global batch's weighted mean."""
+    ctx = _axis(mesh_ctx, axis_name, "the global BCE denominator")
     per = (torch.clamp(logits, min=0) - logits * labels
            + torch.log1p(torch.exp(-torch.abs(logits))))
     w = torch.where(labels >= 0.5, torch.full_like(per, pos_weight),
                     torch.full_like(per, neg_weight))
     if mask is not None:
         w = w * mask
-    return torch.sum(per * w) / torch.clamp(torch.sum(w), min=1e-6)
+    w_sum = torch.sum(w)
+    if ctx is not None:
+        from recsys_tpu_torch.parallel import collectives
+
+        w_sum = collectives.allreduce_mean(ctx, w_sum.detach(), axis_name)
+    return torch.sum(per * w) / torch.clamp(w_sum, min=1e-6)
 
 
 def balanced_class_weights(y) -> Tuple[float, float]:

@@ -79,6 +79,7 @@ class MultiTaskModel:
         lookup=None,
         data_axis_size: int = 1,
         extra_candidates=None,
+        mesh_ctx=None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Weighted multi-task loss + metric dict, line by line as the JAX
         package's ``MultiTaskModel.loss``: in-batch softmax (logQ, item
@@ -93,13 +94,25 @@ class MultiTaskModel:
         appends negative columns to the retrieval softmax. ``neg_item_ids``
         [B, K] adds ``explicit_negatives_weight`` times the explicit
         softmax over [positive | K negatives] (the negatives through the
-        item tower, their dropout drawn after the forward's). The
-        data-parallel arguments and a custom ``lookup`` are not ported yet
-        and raise."""
-        if data_axis is not None or lookup is not None:
+        item tower, their dropout drawn after the forward's).
+
+        Inside the trainer's data-parallel step ``data_axis`` names the
+        batch axis of ``mesh_ctx`` (the :class:`MeshContext`, whose
+        ``data_axis_size`` ranks each hold a slice of the global batch):
+        the BCE always divides by the global weight sum, and with
+        ``global_negatives`` the in-batch softmax's candidates are the
+        global batch (``data_axis_size * B_local`` of them, which the path
+        policy and the bf16 threshold count). Explicit negatives stay
+        local. A custom ``lookup`` (the row-sharded tables' collective
+        lookups) is not ported yet and raises."""
+        if lookup is not None:
             raise NotImplementedError(
-                "data_axis / lookup (the SPMD step) are not ported to "
-                "recsys_tpu_torch yet (ROADMAP Queue 1: item 8b, multi-GPU training)")
+                "lookup (the row-sharded tables' collective lookups) is not ported to "
+                "recsys_tpu_torch yet (ROADMAP Queue 1: item 8c, row-sharded tables)")
+        if data_axis is not None and mesh_ctx is None:
+            raise ValueError(f"data_axis {data_axis!r} needs the mesh_ctx that resolves it")
+        glob = data_axis is not None and global_negatives
+        retr_axis = data_axis if glob else None
         out = MultiTaskModel.apply(params, cfg, batch["user_id"], batch["movie_id"],
                                    dense=batch.get("dense"), train=train,
                                    generator=generator)
@@ -115,23 +128,28 @@ class MultiTaskModel:
         # other row ids through "movie_id")
         mask_ids = batch.get("mask_ids", batch["movie_id"])
         if not cfg.accidental_hit_mask:
-            # ablation: per-row ids that never collide = no masking
-            mask_ids = torch.arange(movie_id.shape[0], dtype=torch.int32,
-                                    device=movie_id.device)
+            # ablation: per-row ids that never collide = no masking (unique
+            # over the global batch under global negatives too)
+            b_rows = movie_id.shape[0]
+            mask_ids = torch.arange(b_rows, dtype=torch.int32, device=movie_id.device)
+            if glob:
+                mask_ids = mask_ids + mesh_ctx.axis_index(data_axis) * b_rows
         emb_dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
         # temperature scales the user side only: every logit and the
         # positive scale together, so serving rankings do not change
         u_retr = out.user_embedding
         if cfg.softmax_temperature != 1.0:
             u_retr = u_retr / cfg.softmax_temperature
-        n_candidates = u_retr.shape[0]
+        # under global negatives the candidate axis spans the global batch
+        n_candidates = u_retr.shape[0] * (data_axis_size if glob else 1)
         if extra_candidates is not None:
             n_candidates += extra_candidates[0].shape[0]
         loss_path = losses.resolve_retrieval_loss(
             cfg.use_flash_ce, u_retr.shape[0], n_candidates, u_retr.device.type,
             cfg.retrieval_logits_cap_gb)
         common = dict(mask=mask, log_q=batch.get("log_q"), item_bias=bias,
-                      extra_candidates=extra_candidates)
+                      extra_candidates=extra_candidates, axis_name=retr_axis,
+                      mesh_ctx=mesh_ctx)
         if loss_path == "flash":
             from recsys_tpu_torch.ops.flash_ce import in_batch_softmax_flash
 
@@ -158,8 +176,11 @@ class MultiTaskModel:
                 u_retr, out.item_embedding, neg_emb)
         m = losses.mse(out.rating_pred, batch["rating"], mask=mask)
         w_pos, w_neg = class_weights
+        # the BCE's denominator is global whatever the negatives' scope:
+        # the objective must not change with the data-parallel layout
         bce = losses.weighted_bce_logits(out.ctr_logit, batch["y_implicit"], w_pos,
-                                         w_neg, mask=mask)
+                                         w_neg, mask=mask, axis_name=data_axis,
+                                         mesh_ctx=mesh_ctx)
         reg = L.l2_penalty(
             {"dcn_deep": params["dcn"]["deep"],
              "towers": {k: params["towers"][k] for k in ("user_tower", "item_tower")}},

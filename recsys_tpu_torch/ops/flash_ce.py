@@ -808,20 +808,26 @@ def in_batch_softmax_flash(
     axis_name: Optional[str] = None,
     bf16="auto",
     extra_candidates=None,
+    mesh_ctx=None,
 ) -> torch.Tensor:
     """Drop-in equivalent of ``losses.in_batch_softmax`` backed by the
     flash kernels. ``bf16="auto"`` casts u and v to bfloat16 from 8,192
     candidates (the JAX package's threshold, kept for parity: it changes
     the numerics); every reduction stays fp32 inside the kernels.
     ``extra_candidates`` ``(emb [N, D], ids [N], corr [N])`` appends
-    negative columns after the in-batch block (the rectangular case);
-    positives stay in the first segment."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "global negatives over a data axis are not ported to "
-            "recsys_tpu_torch yet (ROADMAP Queue 1: item 8b, multi-GPU training)")
+    negative columns after the in-batch block (the rectangular case).
+    With ``axis_name`` (and the ``mesh_ctx`` that resolves it) the in-batch
+    block is the global batch: the candidate rows and their column
+    corrections of every rank are all-gathered (differentiably, so each
+    rank's rows get the sum of every rank's cotangent), and local row i's
+    positive is column ``axis_index * B_local + i``; the kernels read a
+    per-row ``pos`` and are the same."""
     b = user_emb.shape[0]
-    n_cand = b + (extra_candidates[0].shape[0] if extra_candidates is not None else 0)
+    if axis_name is not None and mesh_ctx is None:
+        raise ValueError(f"in_batch_softmax_flash over axis {axis_name!r} needs the "
+                         "mesh_ctx that resolves it")
+    n_data = 1 if axis_name is None else mesh_ctx.axis_size(axis_name)
+    n_cand = b * n_data + (extra_candidates[0].shape[0] if extra_candidates is not None else 0)
     if bf16 is True or (bf16 == "auto" and n_cand >= 8192):
         user_emb = user_emb.to(torch.bfloat16)
         item_emb = item_emb.to(torch.bfloat16)
@@ -832,13 +838,22 @@ def in_batch_softmax_flash(
     if log_q is not None:
         colcorr = colcorr - log_q
     ids = item_ids.to(device=dev, dtype=torch.int32)
-    cand, cand_ids, cand_corr = item_emb, ids, colcorr
+    if axis_name is None:
+        cand, cand_ids, cand_corr = item_emb, ids, colcorr
+        first = 0
+    else:
+        from recsys_tpu_torch.parallel import collectives
+
+        cand = collectives.all_gather_rows(mesh_ctx, item_emb, axis_name)
+        cand_ids = collectives.gather_rows(mesh_ctx, ids, axis_name)
+        cand_corr = collectives.all_gather_rows(mesh_ctx, colcorr, axis_name)
+        first = mesh_ctx.axis_index(axis_name) * b
+    pos = torch.arange(first, first + b, dtype=torch.int32, device=dev)
     if extra_candidates is not None:
         x_emb, x_ids, x_corr = extra_candidates
         cand = torch.cat([cand, x_emb.detach().to(cand.dtype)])
         cand_ids = torch.cat([cand_ids, x_ids.to(dtype=torch.int32)])
         cand_corr = torch.cat([cand_corr, x_corr.float()])
-    pos = torch.arange(b, dtype=torch.int32, device=dev)
     ce = flash_softmax_ce(user_emb, cand, cand_corr, ids, cand_ids, pos)
     if mask is not None:
         return torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1.0)

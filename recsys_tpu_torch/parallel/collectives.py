@@ -8,11 +8,16 @@ and returns this rank's result. Every rank of that group must make the
 same call in the same order. Higher layers (the sharded top-k, the
 training step's gradient sync and lookups) reach ``torch.distributed``
 only through these.
+
+:func:`all_gather_rows` is the one differentiable collective: the
+data-parallel step gathers the item embeddings (and their column
+corrections) of every rank through it, and its backward hands each rank
+the sum over ranks of the cotangent of its own rows.
 """
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -40,6 +45,51 @@ def allreduce_mean(ctx: MeshContext, tree: Any, axis: str = DATA_AXIS) -> Any:
     """Mean of every tensor of ``tree`` over ``axis`` (``lax.pmean``)."""
     n = ctx.axis_size(axis)
     return tree_map(lambda x: x / n, allreduce_sum(ctx, tree, axis))
+
+
+def allreduce_mean_flat(ctx: MeshContext, tensors: Sequence[torch.Tensor],
+                        axis: str = DATA_AXIS) -> List[torch.Tensor]:
+    """Mean over ``axis`` of each tensor of a list of fp32 tensors (the
+    step's gradients) in ONE collective: flattened into one buffer, summed,
+    divided by the axis size and split back into the tensors' shapes. Every
+    rank gets the same bits. The inputs are left as they are."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=ctx.group(axis))
+    flat /= ctx.axis_size(axis)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].view(t.shape))
+        at += t.numel()
+    return out
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """Tiled all-gather on dim 0 whose backward is the sum reduce-scatter
+    of the cotangent (the transpose of ``lax.all_gather(tiled=True)``)."""
+
+    @staticmethod
+    def forward(fctx, x, mesh_ctx, axis):
+        fctx.mesh_ctx, fctx.axis = mesh_ctx, axis
+        return _all_gather(mesh_ctx, x, axis, dim=0)
+
+    @staticmethod
+    def backward(fctx, g):
+        ctx, axis = fctx.mesh_ctx, fctx.axis
+        n = ctx.axis_size(axis)
+        parts = list(g.contiguous().chunk(n))
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=ctx.group(axis))
+        return out, None, None
+
+
+def all_gather_rows(ctx: MeshContext, x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
+    """Every rank's ``x`` concatenated on dim 0 in axis order, differentiable:
+    rank r's loss L_r reads every rank's rows, and the gradient of the
+    global objective with respect to this rank's rows needs the sum over r
+    of dL_r/d(rows), which the backward's reduce-scatter sums. (Keeping
+    only this rank's slice of the cotangent, or averaging it, differentiates
+    another objective.)"""
+    return _AllGatherRows.apply(x, ctx, axis)
 
 
 # ---- model-axis exchange ------------------------------------------------
@@ -107,6 +157,7 @@ def axis_size(ctx: MeshContext, axis: str) -> int:
 
 
 def _all_gather(ctx: MeshContext, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    x = x.detach()
     parts = [torch.empty_like(x) for _ in range(ctx.axis_size(axis))]
     dist.all_gather(parts, x.contiguous(), group=ctx.group(axis))
     return torch.cat(parts, dim=dim)

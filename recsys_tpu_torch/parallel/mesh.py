@@ -86,6 +86,17 @@ def world_size(device: DeviceLike = "cuda") -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def process_index() -> int:
+    """This process's rank in the process group (0 without one): the
+    JAX package's ``jax.process_index()``; rank 0 writes the artifacts."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The ranks of the process group (1 without one)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshContext:
     """A ``DeviceMesh`` seen from one rank: its device, its coordinates

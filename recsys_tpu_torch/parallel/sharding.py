@@ -19,12 +19,23 @@ from torch.utils._pytree import tree_map
 from recsys_tpu_torch.parallel.mesh import MeshContext
 
 
-def _data_slice(ctx: MeshContext, x, axis: int) -> torch.Tensor:
+def _local(ctx: MeshContext, x, axis: int) -> np.ndarray:
     x = np.asarray(x)
     local = ctx.local_batch(x.shape[axis])
     rows = [slice(None)] * x.ndim
     rows[axis] = slice(ctx.data_index * local, (ctx.data_index + 1) * local)
-    return torch.from_numpy(np.ascontiguousarray(x[tuple(rows)])).to(ctx.device)
+    return np.ascontiguousarray(x[tuple(rows)])
+
+
+def _data_slice(ctx: MeshContext, x, axis: int) -> torch.Tensor:
+    return torch.from_numpy(_local(ctx, x, axis)).to(ctx.device)
+
+
+def local_slice(ctx: MeshContext, batch: Any, axis: int = 0) -> Any:
+    """This rank's ``data`` slice of each array of a host batch (split on
+    ``axis``), still on the host: for a caller that places it itself (the
+    trainer's pinned, side-stream copies)."""
+    return tree_map(lambda x: _local(ctx, x, axis), batch)
 
 
 def shard_batch(ctx: MeshContext, batch: Any) -> Any:

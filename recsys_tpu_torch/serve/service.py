@@ -30,17 +30,15 @@
     shard, merged across ranks, at every catalog size (never the sieve).
     The mesh defaults to every rank of the process group on the ``model``
     axis: one rank, one card without a launcher. Every rank loads the
-    service and takes part in each search, in the same order. The rerank
-    runs as on the device backend (the fused cross-stack kernel on the
-    card), where the JAX package's sharded backend reranks on the host
-    through its ``_FastRerank``: under mixed precision the two reranks
-    agree to the bf16 rounding of the device's operands.
+    service and takes part in each search, in the same order; each rank
+    reranks the merged candidates on its host, as the JAX package's
+    sharded backend does.
 
-  ``"native"`` and ``"exported"`` rerank on the host through
-  :class:`_FastRerank`, built at load and self-checked against the exact
-  per-pair host path; where the check fails the exact host path serves
-  under ``"native"`` and the device rerank under ``"exported"``, as in
-  the JAX package. A model with engineered dense features reranks with
+  ``"native"``, ``"exported"`` and ``"sharded"`` rerank on the host
+  through :class:`_FastRerank`, built at load and self-checked against the
+  exact per-pair host path; where the check fails the exact host path
+  serves under ``"native"`` and the device rerank under the other two, as
+  in the JAX package. A model with engineered dense features reranks with
   the bundle's fitted ``FeatureEngineer`` (``features.npz``) at the
   end-of-train timestamp; ``_FastRerank`` needs it only at build.
 * :class:`StubRecommendationService` is the model-free degraded-mode
@@ -77,7 +75,7 @@ from recsys_tpu_torch.utils.device import DeviceLike, resolve_device
 logger = logging.getLogger(__name__)
 
 # backends whose rerank runs on the host through _FastRerank
-HOST_RERANK_BACKENDS = ("native", "exported")
+HOST_RERANK_BACKENDS = ("native", "exported", "sharded")
 
 # what get_model_info reports for each top-k route
 _SEARCH_ROUTES = {

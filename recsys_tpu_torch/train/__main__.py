@@ -3,19 +3,29 @@
     python -m recsys_tpu_torch.train --data <bundle.npz> --output_dir <dir> \
         [--device cuda|cpu] [--set train.epochs=3 ...]
 
-The flags are those of the JAX package's ``scripts/train.py`` that this
+and data-parallel over N cards (one rank a card, NCCL; gloo with
+``--device cpu``), every rank holding the whole tables:
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m recsys_tpu_torch.train --data <bundle.npz> --output_dir <dir>
+
+Under a launcher (or in a process whose caller already started a process
+group) the CLI makes the ``(data, 1)`` mesh over every rank and trains on
+it; rank 0 writes the run's files. The flags are those of the JAX
+package's ``scripts/train.py`` that this
 port honours, with the same names, defaults and mappings, so that one
 argv gives one ``config.json`` in both packages. ``--distributed_strategy``
-is accepted for compat and sets nothing, and ``--global_negatives`` /
-``--per_replica_negatives`` set ``train.global_negatives``, which changes
-nothing on one device. ``--negative_sampling hard|mixed|mined`` trains
+is accepted for compat and sets nothing. ``--global_negatives`` (the
+default) / ``--per_replica_negatives`` set ``train.global_negatives``: on
+a mesh of several data ranks the in-batch candidates are the global
+batch or each rank's own. ``--negative_sampling hard|mixed|mined`` trains
 with explicit negatives (``--num_hard_negatives`` +
 ``--num_random_negatives`` a row); ``mined`` mines them from the trained
 serving bundle of ``--mined_from DIR``. ``--model_parallel``,
 ``--embedding_sharding`` and ``--lookup_strategy`` take the JAX CLI's
 choices, but only the values the port runs (1, ``replicated``, ``xla``:
-their defaults); any other value exits with an error that names its
-ROADMAP Queue 1 item. ``--use_dense_features`` sets
+their defaults); any other value exits with an error that names ROADMAP
+Queue 1 item 8c (row-sharded tables). ``--use_dense_features`` sets
 ``model.dense_features`` to the engineered feature width (29, or 33 with
 ``--use_side_features``, which alone exits as in the JAX CLI). Flags
 whose modes are not ported yet (``--use_wandb``, ...) are errors, as is
@@ -43,16 +53,16 @@ from recsys_tpu_torch.config import (DataConfig, EvalConfig, MeshConfig, ModelCo
                                      RecsysConfig, TrainConfig)
 
 _RETRIEVAL_LOSS = {"auto": "auto", "xla": False, "flash": True, "chunked": "chunked"}
-_MULTI_GPU = "ROADMAP Queue 1 item 8b, multi-GPU training"
+_ROW_SHARDED = "ROADMAP Queue 1 item 8c, row-sharded tables"
 
 
 def _check_ported(args) -> None:
     """Raise ValueError, naming the ROADMAP Queue 1 item, for a mode flag
     whose value the port does not run yet."""
     for flag, value, ported, item in (
-            ("--model_parallel", args.model_parallel, 1, _MULTI_GPU),
-            ("--embedding_sharding", args.embedding_sharding, "replicated", _MULTI_GPU),
-            ("--lookup_strategy", args.lookup_strategy, "xla", _MULTI_GPU)):
+            ("--model_parallel", args.model_parallel, 1, _ROW_SHARDED),
+            ("--embedding_sharding", args.embedding_sharding, "replicated", _ROW_SHARDED),
+            ("--lookup_strategy", args.lookup_strategy, "xla", _ROW_SHARDED)):
         if value != ported:
             raise ValueError(f"{flag} {value} is not ported to recsys_tpu_torch yet ({item})")
 
@@ -138,8 +148,7 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["replicated", "rows"])
     ap.add_argument("--lookup_strategy", default="xla", choices=["xla", "psum", "a2a"])
     ap.add_argument("--global_negatives", action="store_true", default=True,
-                    help="in-batch candidates span the global batch (default; one "
-                         "device holds the whole batch)")
+                    help="in-batch candidates span the global batch (default)")
     ap.add_argument("--per_replica_negatives", dest="global_negatives",
                     action="store_false")
     ap.add_argument("--resume", action="store_true",
@@ -169,20 +178,36 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
 
+    import torch.distributed as dist
+
+    from recsys_tpu_torch.parallel import mesh
     from recsys_tpu_torch.train.trainer import Trainer
     from recsys_tpu_torch.utils.metrics_io import setup_logging
 
-    setup_logging()
-    logger = logging.getLogger("train")
     try:
         cfg = build_config(args)
     except (ValueError, KeyError) as e:
         ap.error(str(e))
-    logger.info("config:\n%s", cfg.to_json())
-    with np.load(args.data, allow_pickle=False) as z:
-        bundle = {k: z[k] for k in z.files}
-    report = Trainer(cfg, output_dir=args.output_dir, device=args.device).train(bundle)
-    logger.info("final metrics: %s", report)
+    # under a launcher, or in a caller's process group: the data-parallel
+    # mesh over every rank (a group this call joins, it also leaves)
+    had_group = dist.is_initialized()
+    mesh.maybe_initialize_distributed(args.device)
+    mesh_ctx = None
+    if dist.is_initialized():
+        mesh_ctx = mesh.make_mesh(model_parallel=1, data_parallel=cfg.mesh.data_axis,
+                                  device=args.device)
+    setup_logging()
+    logger = logging.getLogger("train")
+    try:
+        logger.info("config:\n%s", cfg.to_json())
+        with np.load(args.data, allow_pickle=False) as z:
+            bundle = {k: z[k] for k in z.files}
+        report = Trainer(cfg, output_dir=args.output_dir, device=args.device,
+                         mesh_ctx=mesh_ctx).train(bundle)
+        logger.info("final metrics: %s", report)
+    finally:
+        if mesh_ctx is not None and not had_group:
+            mesh.shutdown()  # a communicator left behind can hang the exit
     return 0
 
 

@@ -23,7 +23,9 @@ npz layout (``<dir>/ckpt_<step>/state.npz`` of ``_flatten``ed keys, a
 ``metrics.json`` sidecar and a ``best`` alias); the port has no orbax.
 The CBNS cache rides in it as ``extras/emb``, ``extras/ids`` and
 ``extras/corr``; with the cache off the field is None and ``_flatten``
-leaves it out, as the JAX package's does.
+leaves it out, as the JAX package's does. Under a process group of
+several ranks (the data-parallel trainer: every rank holds the same
+state) rank 0 alone writes, synchronously, and every rank restores.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from recsys_tpu_torch.parallel.mesh import process_count, process_index
 from recsys_tpu_torch.utils.device import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -104,10 +107,14 @@ class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3, async_save: bool = False):
         self.directory = os.path.abspath(directory)
         self.keep = keep
-        self.async_save = async_save
+        # one rank writes; async is single-process only, as in the JAX
+        # package (the other ranks do not wait on a background write)
+        self._is_writer = process_index() == 0
+        self.async_save = async_save and process_count() == 1
         self._pending: Optional[Tuple[int, Optional[Dict], bool, Callable[[], None]]] = None
         self._error: List[BaseException] = []
-        os.makedirs(self.directory, exist_ok=True)
+        if self._is_writer:
+            os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step}")
@@ -124,9 +131,12 @@ class CheckpointManager:
 
     def save(self, step: int, state: Dict[str, Any], metrics: Optional[Dict] = None,
              is_best: bool = False) -> str:
-        """``state``: a nested dict of tensors, arrays and numbers."""
+        """``state``: a nested dict of tensors, arrays and numbers. A no-op
+        on a rank other than 0."""
         self.wait()  # at most one write in flight
         path = self._path(step)
+        if not self._is_writer:
+            return path
         flat = _flatten(params_to_numpy(state))  # host copy now
         if self.async_save:
             def run():

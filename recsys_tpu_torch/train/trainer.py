@@ -1,5 +1,5 @@
-"""Single-GPU trainer (the counterpart of ``recsys_tpu/train/trainer.py``
-on one device).
+"""The trainer (the counterpart of ``recsys_tpu/train/trainer.py``): on
+one card, or data-parallel over the ``data`` axis of a mesh.
 
 * params and optimizer slots live on the device. On the device-resident
   path (the default) so does the whole train split: an epoch is a loop
@@ -43,11 +43,35 @@ on one device).
 * the final ``evaluate``, then ``RetrievalIndex.build`` and the
   inference bundle in ``<output_dir>/serving``.
 
+**Data-parallel training** (a :class:`MeshContext` of ``(data, 1)``:
+given, or made when a launcher's process group has more than one rank):
+every rank holds the whole tables and params, takes its ``data`` slice of
+each global batch (the one-card run's batches) and ends every step with
+the same bits. The step is the explicit form of the JAX package's
+``_step_core_spmd`` without the row-sharded lookups: the loss of the
+rank's slice, with global negatives (the candidates all-gathered,
+differentiably, from every rank) or per-replica ones, and the BCE over
+the global weight sum; backward; ONE all-reduce (mean) of every gradient,
+in a flat buffer; then the global-norm clip and the optimizer on the
+averaged gradients on every rank; the metrics mean-reduced in one call.
+The sparse step divides its virtual rows' gradients by the ranks (each
+rank's item rows already hold the sum of every rank's cotangent), gathers
+them and their ids over ``data`` into the global batch's rows, and every
+rank applies the same touched-rows update. The CBNS cache gains the
+global batch each step. Validation scores the whole split on every rank
+(the one-card values, so early stopping decides alike everywhere); rank 0
+writes the logs, checkpoints, final report and bundle while the others
+wait at a barrier; a preemption signal is max-reduced over the ranks;
+``replication_check_every_epochs`` asserts bitwise-equal params
+(``utils/debug.py``). Without a mesh nothing of this runs: no process
+group, no collective.
+
 Every mode of the JAX trainer that is not ported raises
 ``NotImplementedError`` naming its ROADMAP Queue 1 item; none silently runs
 something else. Dropout masks come from a ``torch.Generator`` on the
-device, reseeded from (seed + 1, step) every step, so a run and its
-resume draw the same masks; they are not JAX's masks.
+device, reseeded from (seed + 1, step) every step, and from the rank's
+data index under a mesh (index 0 draws the one-card stream), so a run and
+its resume draw the same masks; they are not JAX's masks.
 """
 
 from __future__ import annotations
@@ -62,6 +86,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from recsys_tpu_torch.config import RecsysConfig
 from recsys_tpu_torch.data.features import make_engineer
@@ -70,11 +95,15 @@ from recsys_tpu_torch.data.pipeline import Batcher
 from recsys_tpu_torch.models import losses
 from recsys_tpu_torch.models.multitask import MultiTaskModel
 from recsys_tpu_torch.models.towers import TwoTower
+from recsys_tpu_torch.parallel import collectives
+from recsys_tpu_torch.parallel.mesh import MeshContext, make_mesh, world_size
+from recsys_tpu_torch.parallel.sharding import local_slice
 from recsys_tpu_torch.retrieval.evaluator import evaluate
 from recsys_tpu_torch.retrieval.scorer import RetrievalIndex
 from recsys_tpu_torch.train import checkpoint as ckpt_lib
 from recsys_tpu_torch.train import optimizer as opt_lib
 from recsys_tpu_torch.train.optimizer import leaves_with_paths, make_optimizer
+from recsys_tpu_torch.utils.debug import assert_replicated
 from recsys_tpu_torch.utils.device import DeviceLike, resolve_device
 from recsys_tpu_torch.utils.metrics_io import MetricWriter
 
@@ -95,6 +124,9 @@ class TrainState(NamedTuple):
 
 
 _DEBUG_PROFILE = "item 7, debug and profile"
+_ROW_SHARDED = "item 8c, row-sharded tables"
+# a large odd constant: data index r adds r times it to the dropout seed
+_RANK_SEED_STRIDE = 0x9E3779B97F4A7C15
 
 
 def _not_ported(what: str, item: str):
@@ -178,11 +210,26 @@ class Trainer:
     _TABLE_KEYS = ("user_table", "item_table", "item_bias")
 
     def __init__(self, config: RecsysConfig, output_dir: str = "outputs/run",
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", mesh_ctx: Optional[MeshContext] = None):
+        """``mesh_ctx`` trains data-parallel over its ``data`` axis. Without
+        one, a process whose launcher (``torchrun``) or caller started a
+        process group of more than one rank makes the ``(data, 1)`` mesh
+        over it; any other process trains on one device, with no group."""
         self.config = config
         self.output_dir = output_dir
-        self.device = resolve_device(device)
         self._check_config()
+        if mesh_ctx is None and world_size(device) > 1:
+            mesh_ctx = make_mesh(model_parallel=1, data_parallel=config.mesh.data_axis,
+                                 device=device)
+        self.ctx = mesh_ctx
+        if mesh_ctx is None:
+            if config.mesh.data_axis not in (-1, 1):
+                raise ValueError(f"mesh.data_axis={config.mesh.data_axis} needs a mesh of "
+                                 "that many data ranks: start the ranks under torchrun")
+            self.device = resolve_device(device)
+        else:
+            self._check_mesh(mesh_ctx)
+            self.device = mesh_ctx.device
         self.optimizer = make_optimizer(config.train)
         self._schedule = opt_lib.make_schedule(config.train)
         self.writer = MetricWriter(output_dir)
@@ -205,13 +252,23 @@ class Trainer:
     def _check_config(self) -> None:
         cfg = self.config
         t, m = cfg.train, cfg.mesh
-        if (m.model_axis != 1 or m.data_axis not in (-1, 1)
-                or m.embedding_sharding != "replicated" or m.lookup_strategy != "xla"):
-            _not_ported("a mesh of more than one device", "item 8b, multi-GPU training")
+        if (m.model_axis != 1 or m.embedding_sharding != "replicated"
+                or m.lookup_strategy != "xla"):
+            _not_ported("a model-parallel mesh (model_axis > 1, embedding_sharding='rows', "
+                        "lookup_strategy psum or a2a)", _ROW_SHARDED)
         if t.profile:
             _not_ported("TrainConfig.profile", _DEBUG_PROFILE)
         if t.debug_nans:
             _not_ported("TrainConfig.debug_nans", _DEBUG_PROFILE)
+
+    def _check_mesh(self, ctx: MeshContext) -> None:
+        """The port trains on a ``(data, 1)`` mesh, whose data axis
+        ``mesh.data_axis`` matches (-1: any)."""
+        if ctx.n_model != 1:
+            _not_ported(f"a mesh with a model axis of {ctx.n_model}", _ROW_SHARDED)
+        d = self.config.mesh.data_axis
+        if d not in (-1, ctx.n_data):
+            raise ValueError(f"mesh.data_axis={d} but the mesh has {ctx.n_data} data ranks")
 
     def _resolve_sparse_updates(self) -> bool:
         """``sparse_table_updates`` as set, or for "auto" whether the two
@@ -227,10 +284,19 @@ class Trainer:
 
     def _check_cache_config(self, batch_rows: int) -> None:
         n = self.config.train.negative_cache
-        if n > 0 and n % batch_rows != 0:
+        if n <= 0:
+            return
+        if (self.ctx is not None and not self.config.train.global_negatives
+                and self.ctx.n_data > 1):
+            # per-replica negatives restrict each row's candidates to its
+            # rank's batch; a replicated global cache would widen them back
             raise ValueError(
-                f"negative_cache ({n}) must be a multiple of the batch size "
-                f"({batch_rows}): the FIFO advances one batch per step")
+                "negative_cache composes with global_negatives only — per-replica "
+                "negative scope contradicts a shared cross-batch cache")
+        if n % batch_rows != 0:
+            raise ValueError(
+                f"negative_cache ({n}) must be a multiple of the global batch size "
+                f"({batch_rows}) — the FIFO advances one batch per step")
 
     # ---- state -------------------------------------------------------
     def init_state(self, n_users: int, n_items: int, seed: int) -> TrainState:
@@ -266,8 +332,42 @@ class Trainer:
         return TrainState(params, self.optimizer.init(params), 0, seed + 1, extras)
 
     def _generator(self, state: TrainState) -> torch.Generator:
-        self._dropout_gen.manual_seed(state.rng * 1_000_003 + state.step)
+        """The step's dropout stream; under a mesh the data index is folded
+        in (index 0 draws the one-card stream), so ranks draw independent
+        masks."""
+        seed = state.rng * 1_000_003 + state.step
+        if self.ctx is not None:
+            seed = (seed + self.ctx.data_index * _RANK_SEED_STRIDE) % (1 << 63)
+        self._dropout_gen.manual_seed(seed)
         return self._dropout_gen
+
+    # ---- data parallelism --------------------------------------------
+    def _loss_axis(self) -> Dict[str, Any]:
+        """``MultiTaskModel.loss``'s data-parallel arguments ({} on one card)."""
+        ctx = self.ctx
+        if ctx is None:
+            return {}
+        return dict(data_axis=ctx.data_axis, global_negatives=self.config.train.global_negatives,
+                    data_axis_size=ctx.n_data, mesh_ctx=ctx)
+
+    def _reduce_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Detached metrics, mean-reduced over ``data`` in one call under a mesh."""
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.ctx is None:
+            return metrics
+        keys = sorted(metrics)
+        mean = collectives.allreduce_mean(self.ctx, torch.stack([metrics[k] for k in keys]))
+        return dict(zip(keys, mean.unbind()))
+
+    def _local_rows(self, tree, axis: int = 0):
+        """This rank's slice of the global batch (numpy, axis ``axis``); the
+        batch itself on one card."""
+        return tree if self.ctx is None else local_slice(self.ctx, tree, axis)
+
+    def _gather_data(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` in rank order (the global batch's rows)."""
+        return x if self.ctx is None else collectives.gather_rows(self.ctx, x,
+                                                                  self.ctx.data_axis)
 
     # ---- the step ----------------------------------------------------
     def _step_core(self, class_weights, use_explicit_negs: bool = False) -> Callable:
@@ -294,14 +394,19 @@ class Trainer:
             _, metrics = MultiTaskModel.loss(
                 state.params, cfg.model, batch, generator=self._generator(state),
                 train=True, class_weights=class_weights, neg_item_ids=neg_ids,
-                extra_candidates=self._cache_tuple(state))
+                extra_candidates=self._cache_tuple(state), **self._loss_axis())
             grads = _grads(metrics["loss"], leaves)
+            if self.ctx is not None:
+                # the gradient of the global mean: the mean of the ranks'
+                # (the gathered candidates' backward already summed the
+                # other ranks' cotangents into this rank's item rows)
+                grads = collectives.allreduce_mean_flat(self.ctx, grads)
             new_cache = self._cache_update(state, state.params, batch)  # pre-update params
             opt.update(_tree_from_paths(dict(zip(paths, grads))),
                        state.opt_state, state.params, state.step)
             self.step_counts["dense"] += 1
             return (state._replace(step=state.step + 1, extras=new_cache),
-                    {k: v.detach() for k, v in metrics.items()})
+                    self._reduce_metrics(metrics))
 
         return step_fn
 
@@ -338,16 +443,43 @@ class Trainer:
             vbatch = {**batch, "user_id": ar, "movie_id": ar, "mask_ids": batch["movie_id"]}
             _, metrics = MultiTaskModel.loss(
                 vparams, cfg.model, vbatch, generator=self._generator(state), train=True,
-                class_weights=class_weights, extra_candidates=self._cache_tuple(state))
+                class_weights=class_weights, extra_candidates=self._cache_tuple(state),
+                **self._loss_axis())
             paths, leaves = zip(*leaves_with_paths(vparams))
             grads = dict(zip(paths, _grads(metrics["loss"], leaves)))
+            if self.ctx is not None:
+                grads, ids = self._global_sparse_grads(grads, ids)
             new_cache = self._cache_update(state, params, batch)  # pre-update params
             self._sparse_apply(state, grads, ids, dense_opt)
             self.step_counts["sparse"] += 1
             return (state._replace(step=state.step + 1, extras=new_cache),
-                    {k: v.detach() for k, v in metrics.items()})
+                    self._reduce_metrics(metrics))
 
         return step_fn
+
+    @torch.no_grad()
+    def _global_sparse_grads(self, grads: Dict[Tuple[str, ...], torch.Tensor],
+                             ids: Dict[str, torch.Tensor]):
+        """The sparse step's gradients under a mesh -> (grads, ids) of the
+        global batch, the same on every rank: the dense leaves averaged in
+        one all-reduce; the virtual rows' per-occurrence gradients divided
+        by the ranks (their item rows already hold the sum of every rank's
+        cotangent, so this is the gradient of the global mean, the dense
+        step's scale) and, with their true ids, all-gathered over ``data``
+        in rank order (one gather for the rows, one for the ids)."""
+        ctx = self.ctx
+        table_paths = [("towers", k) for k in self._TABLE_KEYS]
+        dense_paths = [p for p in grads if p not in table_paths]
+        out = dict(zip(dense_paths, collectives.allreduce_mean_flat(
+            ctx, [grads[p] for p in dense_paths])))
+        gu, gi, gb = (grads[p] for p in table_paths)
+        d_u = gu.shape[1]
+        rows = self._gather_data(torch.cat([gu, gi, gb[:, None]], dim=1) / ctx.n_data)
+        out[table_paths[0]] = rows[:, :d_u]
+        out[table_paths[1]] = rows[:, d_u:-1]
+        out[table_paths[2]] = rows[:, -1]
+        all_ids = self._gather_data(torch.stack([ids[k] for k in self._TABLE_KEYS], dim=1))
+        return out, dict(zip(self._TABLE_KEYS, all_ids.unbind(1)))
 
     @torch.no_grad()
     def _sparse_apply(self, state: TrainState, grads: Dict[Tuple[str, ...], torch.Tensor],
@@ -399,7 +531,7 @@ class Trainer:
         (item tower in inference mode on the PRE-update params, the
         encodings this step scored) with their ``item_bias - log_q``
         correction appended, the oldest batch dropped. The ids are the true
-        item ids."""
+        item ids. Under a mesh every rank appends the global batch."""
         if state.extras is None:
             return None
         cfg = self.config
@@ -411,6 +543,9 @@ class Trainer:
             corr = corr + tw["item_bias"][ids.long().clamp(0, tw["item_bias"].shape[0] - 1)]
         if "log_q" in batch:
             corr = corr - batch["log_q"]
+        if self.ctx is not None:  # the FIFO gains the global batch, in rank order
+            rows = self._gather_data(torch.cat([emb.float(), corr[:, None]], dim=1))
+            emb, corr, ids = rows[:, :-1], rows[:, -1], self._gather_data(ids)
         b = ids.shape[0]
         c = state.extras
         return {"emb": torch.cat([c["emb"][b:], emb.float()]),
@@ -456,18 +591,24 @@ class Trainer:
         device-resident ``data``: a permutation of the rows on the device
         from a generator seeded by (seed ^ 0x5EED, epoch), then ``n_steps``
         steps of ``batch_size`` rows (the remainder is dropped); every
-        column is gathered, ``neg_ids`` [N, K] too."""
+        column is gathered, ``neg_ids`` [N, K] too. Under a mesh every rank
+        holds the whole split and draws the same permutation, and takes its
+        slice of each global batch."""
         b = self.config.train.batch_size
         step_fn = self._step_core(class_weights, use_explicit_negs)
         perm_gen = torch.Generator(device=self.device)
         base = self.config.train.seed ^ 0x5EED
+        lo, bl = 0, b
+        if self.ctx is not None:
+            bl = self.ctx.local_batch(b)
+            lo = self.ctx.data_index * bl
 
         def epoch_fn(state: TrainState, data: Dict[str, torch.Tensor], epoch: int):
             perm_gen.manual_seed(base * 1_000_003 + epoch)
             perm = torch.randperm(n_rows, generator=perm_gen, device=self.device)
             sums = {k: torch.zeros((), device=self.device) for k in METRIC_KEYS}
             for i in range(n_steps):
-                idx = perm[i * b:(i + 1) * b]
+                idx = perm[i * b + lo:i * b + lo + bl]
                 state, metrics = step_fn(state, {k: v[idx] for k, v in data.items()})
                 for k in METRIC_KEYS:
                     sums[k] += metrics[k]
@@ -561,9 +702,10 @@ class Trainer:
     def _stream_epoch(self, state: TrainState, epoch: int, batches, augment, placer: _Placer,
                       train_step: Callable, train_chunk: Optional[Callable],
                       chunk_k: int) -> Tuple[TrainState, int, Dict[str, float]]:
-        """One streaming epoch: ``batches`` (the Batcher's) in groups of
-        ``chunk_k``, each ``augment``-ed on the host and placed two groups
-        ahead; a full group through ``train_chunk`` in one transfer, the
+        """One streaming epoch: ``batches`` (the Batcher's global batches) in
+        groups of ``chunk_k``, each ``augment``-ed on the host, cut to this
+        rank's slice under a mesh, and placed two groups ahead; a full
+        group through ``train_chunk`` in one transfer, the
         tail step by step. Train metrics are read where ``log_every_steps``
         is crossed and at the first step; a checkpoint is saved where
         ``checkpoint_every_steps`` is crossed. -> (state, steps, the mean of
@@ -583,11 +725,12 @@ class Trainer:
                 yield buf
 
         def prepare(group):
+            # the global batches (their negatives too), then this rank's slice
             group = [augment(b) for b in group]
             if len(group) == chunk_k and train_chunk is not None:
-                return len(group), placer({k: np.stack([b[k] for b in group])
-                                           for k in group[0]})
-            return 0, [placer(b) for b in group]
+                return len(group), placer(self._local_rows(
+                    {k: np.stack([b[k] for b in group]) for k in group[0]}, axis=1))
+            return 0, [placer(self._local_rows(b)) for b in group]
 
         def log_or_ckpt(state, metrics, prev):
             nonlocal n_read
@@ -624,7 +767,8 @@ class Trainer:
         dev = self.device
         n_users = int(bundle["meta/n_users"])
         n_items = int(bundle["meta/n_movies"])
-        logger.info("training: %d users, %d items on %s", n_users, n_items, dev)
+        logger.info("training: %d users, %d items on %s%s", n_users, n_items, dev,
+                    "" if self.ctx is None else f", data-parallel over {self.ctx.n_data} ranks")
         self.writer.write_config(cfg)
 
         class_weights = (losses.balanced_class_weights(bundle["train/y_implicit"])
@@ -651,6 +795,10 @@ class Trainer:
         if dense_feats is not None:
             data = {**bundle, **{f"{s}/dense": v for s, v in dense_feats.items()}}
             batch_cols = batch_cols + ("dense",)
+        # every rank reads the global batches (the one-card run's) and the
+        # negatives drawn for them, then cuts its slice: the sampler's stream
+        # stays the one-card stream, which per-process Batcher slices would
+        # not give (each process would draw for its slice only)
         train_batcher = Batcher(data, "train", t_cfg.batch_size, seed=t_cfg.seed,
                                 columns=batch_cols)
         val_batcher = Batcher(data, "val", t_cfg.batch_size, seed=t_cfg.seed, shuffle=False,
@@ -801,8 +949,13 @@ class Trainer:
                     logs["val_recall@10"] = evaluate(
                         state.params, cfg.model, bundle, "val", sample_cfg, seed=t_cfg.seed,
                         dense=val_dense)["recall@10"]
+                if (self.ctx is not None and t_cfg.replication_check_every_epochs
+                        and (epoch + 1) % t_cfg.replication_check_every_epochs == 0
+                        and self.ctx.n_data > 1):
+                    logs["replica_checksum"] = float(assert_replicated(state.params,
+                                                                       self.ctx)[0])
                 self.writer.end_epoch(epoch, logs)
-                if self._preempt_requested:
+                if self._preempted_anywhere():
                     self.ckpt.save(state.step, self._state_dict(state),
                                    metrics={"val_loss": logs.get("val_loss", float("nan"))})
                     preempted = True
@@ -842,25 +995,43 @@ class Trainer:
             self._copy_into(state.params, best_params_host)
         wall = time.time() - t_train0
         self.final_state = state
-        if preempted:
+        # rank 0 (the only rank without a mesh) evaluates and writes; the
+        # others take its report and wait for its files at the barrier
+        writer = self.ctx is None or dist.get_rank() == 0
+        report = None
+        if writer and preempted:
             report = {"preempted": True, "train_wall_time_s": wall,
                       "epochs_run": final_epoch + 1, "resume_step": state.step}
+        elif writer:
+            report = evaluate(state.params, cfg.model, bundle, "val", cfg.eval,
+                              seed=t_cfg.seed, dense=val_dense)
+            report["train_wall_time_s"] = wall
+            report["examples_per_s"] = examples_total / max(wall, 1e-9)
+            report["epochs_run"] = final_epoch + 1
+        if writer:
             self.writer.write_final_metrics(report)
             self.writer.close()
-            return report
-        report = evaluate(state.params, cfg.model, bundle, "val", cfg.eval,
-                          seed=t_cfg.seed, dense=val_dense)
-        report["train_wall_time_s"] = wall
-        report["examples_per_s"] = examples_total / max(wall, 1e-9)
-        report["epochs_run"] = final_epoch + 1
-        self.writer.write_final_metrics(report)
-        self.writer.close()
-
-        index = RetrievalIndex.build(state.params["towers"], cfg.model, n_items,
-                                     bundle["meta/movie_raw_ids"], device=dev)
-        ckpt_lib.save_inference_bundle(
-            f"{self.output_dir}/serving", state.params["towers"], cfg,
-            bundle["meta/user_raw_ids"], bundle["meta/movie_raw_ids"],
-            index=index, full_params=state.params,
-            feature_state=None if engineer is None else engineer.state_dict())
+        if writer and not preempted:
+            index = RetrievalIndex.build(state.params["towers"], cfg.model, n_items,
+                                         bundle["meta/movie_raw_ids"], device=dev)
+            ckpt_lib.save_inference_bundle(
+                f"{self.output_dir}/serving", state.params["towers"], cfg,
+                bundle["meta/user_raw_ids"], bundle["meta/movie_raw_ids"],
+                index=index, full_params=state.params,
+                feature_state=None if engineer is None else engineer.state_dict())
+        if self.ctx is not None:
+            shared = [report]
+            dist.broadcast_object_list(shared, src=0)
+            dist.barrier()
+            report = shared[0]
         return report
+
+    def _preempted_anywhere(self) -> bool:
+        """Whether SIGTERM or SIGUSR1 reached this process, or under a mesh
+        any rank (max-reduced, so every rank saves and stops at one step)."""
+        flag = self._preempt_requested
+        if self.ctx is None:
+            return flag
+        t = torch.tensor([float(flag)], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item() > 0)

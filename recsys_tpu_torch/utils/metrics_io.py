@@ -8,6 +8,8 @@ counterpart of ``recsys_tpu/utils/metrics_io.py``, which imports jax):
 * ``config.json``           — the run config.
 
 Console + CSV + JSON only: the TensorBoard and W&B sinks are not ported.
+Under a process group of several ranks only rank 0 writes (every rank
+keeps the history), and log lines carry ``[host r] ``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import logging
 import os
 import time
 from typing import Any, Dict, List, Optional
+
+from recsys_tpu_torch.parallel.mesh import process_count, process_index
 
 logger = logging.getLogger(__name__)
 
@@ -38,7 +42,9 @@ class MetricWriter:
         self.history: List[Dict[str, Any]] = []
         self._csv_fields: Optional[List[str]] = None
         self._epoch_start = 0.0
-        os.makedirs(output_dir, exist_ok=True)
+        self._is_writer = process_index() == 0
+        if self._is_writer:
+            os.makedirs(output_dir, exist_ok=True)
 
     def start_epoch(self) -> None:
         self._epoch_start = time.time()
@@ -51,11 +57,12 @@ class MetricWriter:
             entry["memory_mb"] = p.memory_info().rss / 1e6
             entry["cpu_percent"] = p.cpu_percent()
         self.history.append(entry)
-        self._write_csv_row(entry)
-        if (epoch + 1) % self.flush_every == 0:
-            self._flush_detailed()
-        logger.info("epoch %d: %s", epoch,
-                    " ".join(f"{k}={v:.4f}" for k, v in entry.items() if k != "epoch"))
+        if self._is_writer:
+            self._write_csv_row(entry)
+            if (epoch + 1) % self.flush_every == 0:
+                self._flush_detailed()
+            logger.info("epoch %d: %s", epoch,
+                        " ".join(f"{k}={v:.4f}" for k, v in entry.items() if k != "epoch"))
         return entry
 
     def _write_csv_row(self, entry: Dict[str, Any]) -> None:
@@ -73,17 +80,23 @@ class MetricWriter:
             json.dump({"epochs": self.history}, f, indent=2)
 
     def write_final_metrics(self, metrics: Dict[str, float]) -> None:
-        with open(os.path.join(self.output_dir, "metrics.json"), "w") as f:
-            json.dump({k: float(v) for k, v in metrics.items()}, f, indent=2)
+        if self._is_writer:
+            with open(os.path.join(self.output_dir, "metrics.json"), "w") as f:
+                json.dump({k: float(v) for k, v in metrics.items()}, f, indent=2)
 
     def write_config(self, config) -> None:
-        config.save(os.path.join(self.output_dir, "config.json"))
+        if self._is_writer:
+            config.save(os.path.join(self.output_dir, "config.json"))
 
     def close(self) -> None:
-        self._flush_detailed()
+        if self._is_writer:
+            self._flush_detailed()
 
 
 def setup_logging(level: int = logging.INFO) -> None:
+    """The log format, with ``[host r] `` under a group of several ranks
+    (call it after the process joined its group)."""
+    prefix = f"[host {process_index()}] " if process_count() > 1 else ""
     logging.basicConfig(level=level,
-                        format="%(asctime)s %(name)s %(levelname)s: %(message)s",
+                        format=f"%(asctime)s {prefix}%(name)s %(levelname)s: %(message)s",
                         force=True)

@@ -10,7 +10,9 @@ on the same seeded numpy inputs and a mesh with the same ``model`` axis
 port's are each rank's). Tolerances: the collectives equal or within
 1e-6; the ring and sharded top-k rtol 1e-5, ids equal; ``ShardedIndex``
 (fp32 over 77 rows, padded, with k beyond one shard's rows; int8) and
-the sharded service atol 1e-5, ids equal.
+the sharded service atol 1e-5, ids equal; its host rerank (with and
+without engineered dense features) against JAX's ``backend="sharded"``
+atol 1e-5, ids equal.
 
 ``test_two_rank_http_serving`` serves ``/recommend`` over HTTP from two
 gloo ranks (``tests/torch_sharded_serve_worker.py``) and holds the
@@ -33,6 +35,7 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 from recsys_tpu.config import ModelConfig as JaxModelConfig
+from recsys_tpu.data import features as jax_features
 from recsys_tpu.config import RecsysConfig as JaxRecsysConfig
 from recsys_tpu.models.multitask import MultiTaskModel as JaxMultiTask
 from recsys_tpu.ops.topk import blockwise_topk_int8 as jax_blockwise_int8
@@ -63,6 +66,7 @@ MODEL_KW = dict(embedding_dim=16, user_tower_dims=(32, 16), item_tower_dims=(32,
 USER_RAW = np.arange(1, N_USERS + 1) * 7
 ITEM_RAW = np.arange(1, N_ITEMS + 1) * 3
 SERVICE_UIDS = [int(u) for u in USER_RAW[[0, 5, 17, 33, 2]]] + [99999]
+N_FEATURES = 33  # the engineered features with the MovieLens side tables
 JOIN_TIMEOUT_S = 120
 
 
@@ -103,13 +107,30 @@ def _inputs() -> dict:
     }
 
 
-def _jax_bundle(path) -> str:
-    cfg = JaxRecsysConfig(model=JaxModelConfig(**MODEL_KW))
+def _dense_uids(tiny_bundle) -> list:
+    """Users of the bundle with features (raw ids of ``tiny_bundle``), the
+    last unknown."""
+    return [int(u) for u in tiny_bundle["meta/user_raw_ids"][[0, 5, 17, 33, 2]]] + [99999]
+
+
+def _jax_bundle(path, tiny_bundle=None) -> str:
+    """A JAX-written bundle; with ``tiny_bundle``, a model over its users
+    and items that takes the 33 engineered features fitted on it."""
+    kw, n_users, n_items, user_raw, item_raw = MODEL_KW, N_USERS, N_ITEMS, USER_RAW, ITEM_RAW
+    feature_state = None
+    if tiny_bundle is not None:
+        eng = jax_features.make_engineer(tiny_bundle, N_FEATURES)
+        eng.fit_transform_splits(tiny_bundle)
+        feature_state = eng.state_dict()
+        kw = dict(MODEL_KW, dense_features=N_FEATURES)
+        n_users, n_items = int(tiny_bundle["meta/n_users"]), int(tiny_bundle["meta/n_movies"])
+        user_raw, item_raw = tiny_bundle["meta/user_raw_ids"], tiny_bundle["meta/movie_raw_ids"]
+    cfg = JaxRecsysConfig(model=JaxModelConfig(**kw))
     params = jax.device_get(JaxMultiTask.init(jax.random.PRNGKey(3), cfg.model,
-                                              N_USERS, N_ITEMS))
-    index = JaxRetrievalIndex.build(params["towers"], cfg.model, N_ITEMS, ITEM_RAW)
-    jax_save_bundle(str(path), params["towers"], cfg, USER_RAW, ITEM_RAW,
-                    index=index, full_params=params)
+                                              n_users, n_items))
+    index = JaxRetrievalIndex.build(params["towers"], cfg.model, n_items, item_raw)
+    jax_save_bundle(str(path), params["towers"], cfg, user_raw, item_raw,
+                    index=index, full_params=params, feature_state=feature_state)
     return str(path)
 
 
@@ -144,24 +165,27 @@ def _run_ranks(script: str, world: int, args_of) -> None:
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    """Every case of the 4-rank world -> {"inputs", "bundle", "ranks":
-    [(arrays, records)] by rank}."""
+def world(tmp_path_factory, tiny_bundle):
+    """Every case of the 4-rank world -> {"inputs", "bundle", "dense_bundle",
+    "ranks": [(arrays, records)] by rank}."""
     root = tmp_path_factory.mktemp("torch_parallel")
     inputs = _inputs()
+    inputs["service_uids_dense"] = np.asarray(_dense_uids(tiny_bundle))
     np.savez(root / "inputs.npz", **inputs)
     bundle = _jax_bundle(root / "bundle")
+    dense_bundle = _jax_bundle(root / "dense", tiny_bundle)
     out = root / "out"
     out.mkdir()
     _run_ranks("torch_parallel_worker.py", WORLD,
-               lambda r: (r, WORLD, root / "store", root / "inputs.npz", bundle, out))
+               lambda r: (r, WORLD, root / "store", root / "inputs.npz", bundle, out,
+                          dense_bundle))
     ranks = []
     for r in range(WORLD):
         with np.load(out / f"rank{r}.npz") as z:
             arrays = {k: z[k] for k in z.files}
         with open(out / f"rank{r}.json") as f:
             ranks.append((arrays, json.load(f)))
-    return {"inputs": inputs, "bundle": bundle, "ranks": ranks}
+    return {"inputs": inputs, "bundle": bundle, "dense_bundle": dense_bundle, "ranks": ranks}
 
 
 def _coords(rank: int, name: str):
@@ -458,10 +482,10 @@ def _same_recs(got, want):
                                rtol=0, atol=1e-5)
 
 
-def _same_service(rec, want_one, want_batch):
+def _same_service(rec, want_one, want_batch, uids=SERVICE_UIDS):
     for uid, recs in rec["one"].items():
         _same_recs(recs, want_one(int(uid)))
-    want = want_batch(SERVICE_UIDS)
+    want = want_batch(uids)
     assert [r["status"] for r in rec["batch"]] == [r["status"] for r in want]
     assert rec["batch"][-1]["status"] == "cold_start"  # the unknown user
     for got, w in zip(rec["batch"], want):
@@ -485,18 +509,30 @@ def test_sharded_service_matches_jax_sharded(world, label):
         _same_service(got, lambda u: ref.recommend(u, 7), lambda us: ref.recommend_batch(us, 5))
 
 
-@pytest.mark.parametrize("label, rerank", [("default", 0), ("m2", 0), ("m2_rerank", 20)])
+@pytest.mark.parametrize("label, rerank", [("default", 0), ("m2", 0), ("m2_rerank", 20),
+                                           ("m2_rerank_dense", 20)])
 def test_sharded_service_matches_the_device_backend(world, label, rerank):
-    """The sharded backend answers as the port's ``backend="device"``
-    (exact top-k at every catalog size), also with the rerank, which runs
-    as on the device backend; JAX's ``backend="device"`` gives the same."""
-    port = RecommendationService(world["bundle"], backend="device", device="cpu",
-                                 rerank_candidates=rerank).load()
-    ref = JaxService(world["bundle"], backend="device", rerank_candidates=rerank).load()
+    """Retrieval only, the sharded backend answers as the port's
+    ``backend="device"`` (exact top-k at every catalog size) and JAX's. With
+    the rerank (and with engineered dense features) each rank reranks the
+    merged candidates on its host through ``_FastRerank``, as JAX's sharded
+    backend does: held against JAX's ``backend="sharded"`` on a mesh with
+    the same ``model`` axis, ids equal, scores within 1e-5."""
+    dense = label.endswith("_dense")
+    bundle = world["dense_bundle"] if dense else world["bundle"]
+    uids = [int(u) for u in world["inputs"]["service_uids_dense"]] if dense else SERVICE_UIDS
+    if rerank:
+        refs = [JaxService(bundle, backend="sharded", rerank_candidates=rerank,
+                           mesh_ctx=jax_make_mesh(model_parallel=MODEL["m2"])).load()]
+    else:
+        refs = [RecommendationService(bundle, backend="device", device="cpu").load(),
+                JaxService(bundle, backend="device").load()]
     for _, rec in world["ranks"]:
         got = rec[f"service_{label}"]
-        _same_service(got, lambda u: port.recommend(u, 7), lambda us: port.recommend_batch(us, 5))
-        _same_service(got, lambda u: ref.recommend(u, 7), lambda us: ref.recommend_batch(us, 5))
+        assert got["fast_rerank"] is bool(rerank)
+        for ref in refs:
+            _same_service(got, lambda u: ref.recommend(u, 7),
+                          lambda us: ref.recommend_batch(us, 5), uids)
 
 
 # ---- HTTP across two ranks -----------------------------------------------------------

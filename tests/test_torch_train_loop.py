@@ -218,15 +218,18 @@ def test_preemption_checkpoint_then_resume(tiny_bundle, tmp_path, monkeypatch):
 
 
 _UNPORTED = {
-    "model-parallel mesh": lambda: RecsysConfig(mesh=MeshConfig(model_axis=2)),
-    "profile": lambda: RecsysConfig(train=TrainConfig(profile=True)),
+    "model-parallel mesh": (lambda: RecsysConfig(mesh=MeshConfig(model_axis=2)),
+                            "item 8c, row-sharded tables"),
+    "profile": (lambda: RecsysConfig(train=TrainConfig(profile=True)),
+                "item 7, debug and profile"),
 }
 
 
 @pytest.mark.parametrize("mode", sorted(_UNPORTED))
 def test_unported_modes_raise(mode, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(_UNPORTED[mode](), str(tmp_path), device="cpu")
+    make_cfg, item = _UNPORTED[mode]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1: {item}"):
+        Trainer(make_cfg(), str(tmp_path), device="cpu")
 
 
 # the modes that raised before explicit negatives and the streaming path
@@ -378,9 +381,9 @@ def test_cli_config_matches_the_jax_cli(name, monkeypatch):
 
 
 @pytest.mark.parametrize("flag, value, item", [
-    ("--model_parallel", "2", "item 8b"),
-    ("--embedding_sharding", "rows", "item 8b"), ("--lookup_strategy", "psum", "item 8b"),
-    ("--lookup_strategy", "a2a", "item 8b")])
+    ("--model_parallel", "2", "item 8c"),
+    ("--embedding_sharding", "rows", "item 8c"), ("--lookup_strategy", "psum", "item 8c"),
+    ("--lookup_strategy", "a2a", "item 8c")])
 def test_cli_unported_mode_values_name_their_roadmap_item(flag, value, item, monkeypatch,
                                                           capsys):
     """A value the JAX CLI takes and the port does not run yet exits with

@@ -162,15 +162,21 @@ def test_multitask_loss_mask_ids_and_oov_bias_clip():
 
 
 def test_loss_raises_for_unported_arguments():
+    """A custom ``lookup`` (the row-sharded tables' collective lookups) is
+    not ported and names its ROADMAP item; a data axis runs (the data-
+    parallel step, ``tests/test_torch_dp_train.py``) but needs the mesh
+    context that resolves it."""
     _, tcfg = _configs()
     tp = MultiTaskModel.init(torch.Generator().manual_seed(0), tcfg, N_USERS, N_ITEMS, "cpu")
     batch = {k: torch.as_tensor(v) for k, v in _batch().items()}
-    with pytest.raises(NotImplementedError, match="item 8b, multi-GPU training"):
+    with pytest.raises(NotImplementedError, match="item 8c, row-sharded tables"):
+        MultiTaskModel.loss(tp, tcfg, batch, lookup=lambda table, ids: table[ids])
+    with pytest.raises(ValueError, match="needs the mesh_ctx"):
         MultiTaskModel.loss(tp, tcfg, batch, data_axis="data")
     for fn in (losses.in_batch_softmax, losses.in_batch_softmax_chunked):
-        with pytest.raises(NotImplementedError, match="item 8b, multi-GPU training"):
+        with pytest.raises(ValueError, match="needs the mesh_ctx"):
             fn(torch.zeros(4, 2), torch.zeros(4, 2), axis_name="data")
-    with pytest.raises(NotImplementedError, match="item 8b, multi-GPU training"):
+    with pytest.raises(ValueError, match="needs the mesh_ctx"):
         losses.weighted_bce_logits(torch.zeros(4), torch.zeros(4), axis_name="data")
 
 

@@ -1,15 +1,17 @@
 """One gloo rank of the port's parallel tests (``test_torch_parallel.py``).
 
 The test starts ``WORLD`` of these, each with its rank, a ``FileStore``
-path, the inputs (an npz of seeded numpy arrays), the bundle directory of
-the sharded service and an output directory. Every rank joins the group,
+path, the inputs (an npz of seeded numpy arrays), the bundle directories
+of the sharded service (one without and one with engineered dense
+features) and an output directory. Every rank joins the group,
 makes the two meshes of the tests (``model_parallel=4``: 1 x 4, and
 ``model_parallel=2``: 2 x 2) and runs every case, in the same order on
 every rank (each case is a collective), then writes what it computed to
 ``<out>/rank<r>.npz`` (arrays) and ``<out>/rank<r>.json`` (the rest).
 
 Usage:
-  python tests/torch_parallel_worker.py <rank> <world> <store> <inputs.npz> <bundle> <out>
+  python tests/torch_parallel_worker.py <rank> <world> <store> <inputs.npz> <bundle> <out> \
+      <bundle with features>
 """
 
 import json
@@ -23,7 +25,7 @@ WORLD = 4
 MESHES = {"m4": 4, "m2": 2}  # name -> model_parallel over the WORLD ranks
 
 
-def run_cases(inputs, bundle: str) -> tuple:
+def run_cases(inputs, bundle: str, dense_bundle: str) -> tuple:
     """-> (arrays {name: ndarray}, records {name: json value}) of this rank."""
     import numpy as np
     import torch
@@ -127,22 +129,28 @@ def run_cases(inputs, bundle: str) -> tuple:
     # ---- the service, backend="sharded": the default mesh (every rank on
     # "model") and the 2 x 2 mesh, with and without the rerank
     uids = [int(x) for x in inputs["service_uids"]]
+    dense_uids = [int(x) for x in inputs["service_uids_dense"]]
     for label, kw in (("default", {}), ("m2", {"mesh_ctx": m2}),
                       ("m2_rerank", {"mesh_ctx": m2, "rerank_candidates": 20}),
+                      ("m2_rerank_dense", {"mesh_ctx": m2, "rerank_candidates": 20}),
                       ("int8", {"int8_catalog": True})):
-        svc = RecommendationService(bundle, backend="sharded", device="cpu", **kw).load()
+        dense = label.endswith("_dense")
+        users = dense_uids if dense else uids
+        svc = RecommendationService(dense_bundle if dense else bundle, backend="sharded",
+                                    device="cpu", **kw).load()
         records[f"service_{label}"] = {
             "mesh": [svc.mesh_ctx.n_data, svc.mesh_ctx.n_model],
-            "one": {str(u): svc.recommend(u, 7) for u in uids[:4]},
-            "batch": svc.recommend_batch(uids, 5),
+            "one": {str(u): svc.recommend(u, 7) for u in users[:4]},
+            "batch": svc.recommend_batch(users, 5),
             "info": svc.get_model_info()["backend"],
+            "fast_rerank": svc.get_model_info()["fast_rerank"],
         }
     return arrays, records
 
 
 def main() -> int:
     rank, world = int(sys.argv[1]), int(sys.argv[2])
-    store, inputs_path, bundle, out = sys.argv[3:7]
+    store, inputs_path, bundle, out, dense_bundle = sys.argv[3:8]
     import numpy as np
     import torch.distributed as dist
 
@@ -151,7 +159,7 @@ def main() -> int:
     try:
         with np.load(inputs_path) as z:
             inputs = {k: z[k] for k in z.files}
-        arrays, records = run_cases(inputs, bundle)
+        arrays, records = run_cases(inputs, bundle, dense_bundle)
         dist.barrier()
     finally:
         from recsys_tpu_torch.parallel.mesh import shutdown
