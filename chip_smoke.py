@@ -217,7 +217,29 @@
     torch.distributed.run --standalone --nproc_per_node 1`` on NCCL, one
     epoch, against the same CLI without the launcher (losses and the
     bundle's params at phase 10's bounds);
-27. prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+27. the row-sharded tables' lookups on a one-rank NCCL mesh that
+    ``make_mesh`` starts (at one model rank the trainer keeps its tables
+    whole, by the JAX package's rule, so the lookups are driven directly):
+    (a) ``make_sharded_lookup_psum`` and ``make_sharded_lookup_a2a``
+    (capacity factor 2) over phase 18's 4,000,001 x 128 fp32 user table at
+    B = 131,072 Zipf ids, forward bit-equal to ``table[ids]``, the gradient
+    of ``sum(rows**2)`` against the plain gather's, the a2a overflow 0 at
+    factor 2 and ``B - a2a_capacity(B, 1, 0.5)`` at 0.5 (the fitting ids
+    exact, the rest zero rows), each lookup's forward and forward +
+    backward profiled beside the plain gather's (a profile that recorded
+    no device work fails the run), ``gather_table`` of the table onto the
+    host in chunks equal to it; (b)
+    ``MultiTaskModel.loss(..., lookup=...)`` with each lookup at the main
+    path's full width (B = 8,192, the defaults, bf16, the flash route)
+    against the same loss without one: the loss and every gradient held to
+    phase 10's loss bound, bit-equality recorded, the counters set to 0 just
+    before and read just after (rows 2, 3, 4, 6 and 7 launch); the group is
+    destroyed; (c) the train CLI under ``python -m torch.distributed.run
+    --standalone --nproc_per_node 1`` with ``--model_parallel 1
+    --embedding_sharding rows --lookup_strategy a2a``, one epoch, against
+    the plain CLI (losses and params at phase 10's bounds);
+28. prints a ``{"kernels": [...]}`` line (each kernel's launches in phase
+    27 (b) as ``launches_rows_lookup``), the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line. Without a
@@ -338,6 +360,10 @@ NEG_HARD, NEG_RANDOM = 20, 30
 STREAM_CHUNK, STREAM_CKPT_EVERY, STREAM_K1_CKPT_EVERY = 32, 16, 40
 NEG_PATH_KERNELS = ("dcn_cross", "dcn_cross_bwd", "flash_ce_fwd", "flash_ce_bwd_du",
                     "flash_ce_bwd_dv")
+# the row-sharded lookups' backward against the plain gather's, relative to
+# max|ref|: both scatter-add the same per-occurrence rows with atomics, so
+# only the order of the adds differs
+LOOKUP_GRAD_TOL = 1e-6
 # the rest of serving: 16 clients, each sending 20 single-user /recommend
 # requests (k of 5 and 10) one after another
 LOAD_CLIENTS, LOAD_REQUESTS = 16, 20
@@ -1290,8 +1316,49 @@ def measure_dcn_bwd(n: int, iters: int, f: int = 256) -> dict:
     }
 
 
+_PROFILE_WINDOW = "profile_call.window"
+
+
+class _DeviceKey:
+    """The device events of one name inside a window, summed (the fields
+    of ``key_averages()``'s entries that :func:`profile_call` reads)."""
+
+    def __init__(self, key: str, is_user_annotation: bool):
+        self.key, self.is_user_annotation = key, is_user_annotation
+        self.count, self.self_device_time_total = 0, 0.0
+
+
+def _window_device_events(prof) -> list:
+    """The device events (kernels, copies, collective spans) of ``prof``
+    launched inside its ``_PROFILE_WINDOW`` range, by name: a kernel or copy
+    counts when the host op it is linked to by correlation id started inside
+    the range, so the skew between the host's and the device's clocks keeps
+    or drops no record at the range's ends (on the card it dropped one or two
+    of 900); a collective span, which has no such link, counts when it starts
+    inside the range."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    win = next(e for e in events if e.name() == _PROFILE_WINDOW
+               and e.device_type() == DeviceType.CPU)
+    lo, hi = win.start_ns(), win.start_ns() + win.duration_ns()
+    inside = {e.correlation_id() for e in events
+              if e.device_type() == DeviceType.CPU and lo <= e.start_ns() <= hi}
+    keys = {}
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or e.name() == _PROFILE_WINDOW:
+            continue
+        span = e.is_user_annotation()
+        if not (lo <= e.start_ns() <= hi if span else e.linked_correlation_id() in inside):
+            continue
+        k = keys.setdefault(e.name(), _DeviceKey(e.name(), span))
+        k.count += 1
+        k.self_device_time_total += e.duration_ns() / 1e3
+    return list(keys.values())
+
+
 def profile_call(name: str, fn, n_wall: int = 50, n_traced: int = 20,
-                 warmup: int = 5, groups=None) -> dict:
+                 warmup: int = 5, groups=None, lead_in_ms: float = 0.0) -> dict:
     """Host clock of ``n_wall`` calls of ``fn`` with the profiler off
     (median and p90, each call ending in a device sync), then a traced
     window of ``n_traced`` calls: device time per call, the device's busy
@@ -1301,10 +1368,15 @@ def profile_call(name: str, fn, n_wall: int = 50, n_traced: int = 20,
     The GPU-side ranges the profiler records around each collective
     (``nccl:all_gather`` and the like: user annotations, spans that contain
     the collective's copies and its waits, not device work of their own)
-    are left out of every sum and reported apart per call."""
+    are left out of every sum and reported apart per call. ``lead_in_ms``
+    > 0 runs calls in the traced session first, each waited for, until that
+    many ms have passed, and counts only the device work that starts inside
+    a ``record_function`` range around the ``n_traced`` calls: the profiler
+    has lost the records of the first milliseconds of a session (phase 27's
+    forwards, 0.1 ms a call, lost half or all of 20 calls)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     for _ in range(warmup):
         fn()
@@ -1316,12 +1388,22 @@ def profile_call(name: str, fn, n_wall: int = 50, n_traced: int = 20,
         walls.append((time.perf_counter() - t0) * 1e3)
     walls.sort()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()  # after the profiler's own start-up
-        for _ in range(n_traced):
+        end = time.perf_counter() + lead_in_ms / 1e3
+        while time.perf_counter() < end:
             fn()
+            torch.cuda.synchronize()
         torch.cuda.synchronize()
+        t0 = time.perf_counter()  # after the profiler's own start-up
+        with record_function(_PROFILE_WINDOW):
+            for _ in range(n_traced):
+                fn()
+            torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / n_traced
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if lead_in_ms:
+        events = _window_device_events(prof)
+    else:
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and e.key != _PROFILE_WINDOW]
     spans = [e for e in events if getattr(e, "is_user_annotation", False)]
     device = [e for e in events if not getattr(e, "is_user_annotation", False)]
     dev_ms = sum(e.self_device_time_total for e in device) / 1e3 / n_traced
@@ -1332,6 +1414,8 @@ def profile_call(name: str, fn, n_wall: int = 50, n_traced: int = 20,
         "traced_wall_ms": traced_ms, "device_ms": dev_ms,
         "device_busy_share": dev_ms / traced_ms,
         "device_launches": sum(e.count for e in device) // n_traced,
+        # every kernel recorded a whole number of times a call (none dropped)
+        "device_records_whole": all(e.count % n_traced == 0 for e in device),
         "top_device_us": [[e.key[:60], e.self_device_time_total / n_traced] for e in top],
     }
     if spans:
@@ -3784,28 +3868,29 @@ def offset_positive_rows() -> dict:
     return out
 
 
-def dp_train_cli(repo: str, bundle_np: dict, tmp: str) -> dict:
-    """Phase 26 (c): ``python -m torch.distributed.run --standalone
-    --nproc_per_node 1 -m recsys_tpu_torch.train`` on NCCL, on phase 8's
-    bundle, one epoch at B = 8,192: exits 0, rank 0 writes the run's files
-    and the bundle, and its losses and params equal the same CLI's without
-    the launcher (in this process: one card, no group) within phase 10's
-    bounds."""
+def dp_train_cli(repo: str, bundle_np: dict, tmp: str, extra=(), label: str = "dp") -> dict:
+    """Phase 26 (c) (and 27 (c), ``extra`` the row flags): ``python -m
+    torch.distributed.run --standalone --nproc_per_node 1 -m
+    recsys_tpu_torch.train [extra]`` on NCCL, on phase 8's bundle, one epoch
+    at B = 8,192: exits 0, rank 0 writes the run's files and the bundle, and
+    its losses and params equal the same CLI's without the launcher and
+    without ``extra`` (in this process: one card, no group) within phase
+    10's bounds; bit-equality of the losses recorded."""
     import numpy as np
     from recsys_tpu_torch.train import __main__ as train_cli
 
-    data = os.path.join(tmp, "dp_bundle.npz")
+    data = os.path.join(tmp, f"{label}_bundle.npz")
     np.savez(data, **bundle_np)
     argv = ["--data", data, "--epochs", "1", "--batch_size", str(TRAIN_BATCH),
             "--embedding_dim", "128", "--device", "cuda"]
-    runs = {"launcher": os.path.join(tmp, "dp_cli_torchrun"),
-            "plain": os.path.join(tmp, "dp_cli_plain")}
-    log_path = os.path.join(tmp, "dp_cli.log")
+    runs = {"launcher": os.path.join(tmp, f"{label}_cli_torchrun"),
+            "plain": os.path.join(tmp, f"{label}_cli_plain")}
+    log_path = os.path.join(tmp, f"{label}_cli.log")
     t0 = time.perf_counter()
     with open(log_path, "w") as log_file:
         proc = subprocess.run(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             "--nproc_per_node", "1", "-m", "recsys_tpu_torch.train", *argv,
+             "--nproc_per_node", "1", "-m", "recsys_tpu_torch.train", *argv, *extra,
              "--output_dir", runs["launcher"]],
             cwd=repo, stdout=log_file, stderr=subprocess.STDOUT, timeout=600)
     launcher_s = time.perf_counter() - t0
@@ -3832,14 +3917,227 @@ def dp_train_cli(repo: str, bundle_np: dict, tmp: str) -> dict:
                    for k in ("train_loss", "val_loss"))
     check(loss_err <= PARITY_LOSS_RTOL, f"torchrun CLI losses {hist['launcher']} vs "
                                         f"{hist['plain']}")
+    if extra:
+        with open(os.path.join(runs["launcher"], "config.json")) as f:
+            mesh = json.load(f)["mesh"]
+        check(mesh["embedding_sharding"] == "rows" and mesh["lookup_strategy"] == "a2a",
+              f"{label} CLI: the row flags did not reach the config: {mesh}")
     param_err = max(float(np.abs(params["launcher"][k] - v).max())
                     for k, v in params["plain"].items())
     check(param_err <= PARITY_PARAM_ATOL, f"torchrun CLI params differ by {param_err}")
     return {"launcher_s": launcher_s, "plain_s": plain_s, "loss_max_rel_err": loss_err,
-            "param_max_abs_err": param_err,
+            "param_max_abs_err": param_err, "extra": list(extra),
+            "losses_bit_equal": all(hist["launcher"][k] == hist["plain"][k]
+                                    for k in ("train_loss", "val_loss")),
             "train_loss": [hist["launcher"]["train_loss"], hist["plain"]["train_loss"]],
             "val_loss": [hist["launcher"]["val_loss"], hist["plain"]["val_loss"]],
             "recall@10": [final["launcher"]["recall@10"], final["plain"]["recall@10"]]}
+
+
+def _zipf_ids(n_rows: int, b: int, seed: int):
+    """``b`` ids of ``n_rows`` with Zipf popularity (rank**-1, ranks
+    shuffled), as phase 18 draws its items."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pop = np.arange(1, n_rows + 1, dtype=np.float64) ** -ZIPF_EXPONENT
+    pop = pop[rng.permutation(n_rows)]
+    return rng.choice(n_rows, b, p=pop / pop.sum()).astype(np.int32)
+
+
+def lookups_at_giant_shape(ctx) -> dict:
+    """Phase 27 (a): the psum and a2a (factor 2) lookups of a one-rank
+    ``model`` axis over phase 18's user table (4,000,001 x 128 fp32) at
+    B = 131,072 Zipf ids: forward bit-equal to ``table[ids]``; the gradient
+    of ``sum(rows**2)`` against the plain gather's, within ``LOOKUP_GRAD_TOL``
+    of max|ref| (both scatter-add with atomics; bit-equality recorded); the
+    a2a overflow 0 at factor 2 and ``B - a2a_capacity(B, 1, 0.5)`` at 0.5;
+    forward and forward + backward profiled beside the plain gather's
+    (device ms and launches: the bucketing's cost on the card; a profile
+    that lost device records is taken up to twice more, then fails the run);
+    ``gather_table`` of the table onto the host, equal to it."""
+    import torch
+    import numpy as np
+
+    from recsys_tpu_torch.embed.table import (a2a_capacity, make_sharded_lookup_a2a,
+                                              make_sharded_lookup_psum)
+    from recsys_tpu_torch.parallel.sharding import gather_table
+
+    b = GIANT_BATCH
+    g = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    table = torch.randn((GIANT_USERS + 1, 128), generator=g, device="cuda") * 128 ** -0.5
+    ids = torch.as_tensor(_zipf_ids(GIANT_USERS + 1, b, SEED + 27), device="cuda")
+    a2a = make_sharded_lookup_a2a(ctx, a2a_capacity(b, ctx.n_model, 2.0))
+    lookups = {"plain": lambda t, i: t[i.long()], "psum": make_sharded_lookup_psum(ctx),
+               "a2a": lambda t, i: a2a(t, i)[0]}
+    leaf = table.clone().requires_grad_(True)
+
+    def grad_of(name):
+        (grad,) = torch.autograd.grad(torch.sum(lookups[name](leaf, ids) ** 2), leaf)
+        return grad
+
+    ref_rows = table[ids.long()]
+    ref_grad = grad_of("plain")
+    scale = float(ref_grad.abs().max())
+    out = {"shape": {"V": GIANT_USERS + 1, "D": 128, "B": b},
+           "distinct_ids": int(torch.unique(ids).numel())}
+    for name in ("psum", "a2a"):
+        with torch.no_grad():
+            rows = lookups[name](table, ids)
+        check(torch.equal(rows, ref_rows), f"phase 27: the {name} lookup is not table[ids]")
+        grad = grad_of(name)
+        err = float((grad - ref_grad).abs().max())
+        check(err <= LOOKUP_GRAD_TOL * scale,
+              f"phase 27: the {name} lookup's gradient is off by {err} (max|ref| {scale})")
+        out[name] = {"forward_bit_equal": True, "grad_max_abs_err": err,
+                     "grad_bit_equal": bool(torch.equal(grad, ref_grad))}
+        del grad
+    _, overflow = a2a(table, ids)
+    check(int(overflow) == 0, f"phase 27: a2a overflow {int(overflow)} at factor 2")
+    half = a2a_capacity(b, ctx.n_model, 0.5)
+    rows, overflow = make_sharded_lookup_a2a(ctx, half)(table, ids)
+    check(int(overflow) == b - half, f"phase 27: a2a overflow {int(overflow)} at factor 0.5, "
+                                     f"not {b - half}")
+    fits = torch.arange(b, device="cuda") < half
+    check(torch.equal(rows[fits], ref_rows[fits]) and not bool(rows[~fits].any()),
+          "phase 27: at factor 0.5 the fitting ids are not exact or the rest not zero")
+    out["a2a"]["overflow_factor_2"] = 0
+    out["a2a"]["overflow_factor_0.5"] = int(overflow)
+    del rows, ref_rows, ref_grad
+
+    def traced(label, fn, n_traced):
+        # 200 ms of calls lead each traced window in; a window in which the
+        # profiler recorded no device work, or some kernel fewer times than
+        # the calls, is taken again (logged) up to twice, then must be whole:
+        # a lost trace fails the run
+        def whole(p):
+            return p["device_launches"] > 0 and p["device_ms"] > 0 and p["device_records_whole"]
+
+        for _ in range(2):
+            p = profile_call(label, fn, n_wall=10, n_traced=n_traced, warmup=2, lead_in_ms=200)
+            if whole(p):
+                return p
+            log(f"phase 27: {label} lost device records; traced again: {p}")
+        p = profile_call(label, fn, n_wall=10, n_traced=n_traced, warmup=2, lead_in_ms=200)
+        check(whole(p), f"phase 27: the profile of {label} lost device records: {p}")
+        return p
+
+    profiles = []
+    for name in ("plain", "psum", "a2a"):
+        def fwd(name=name):
+            with torch.no_grad():
+                lookups[name](table, ids)
+
+        profiles.append(traced(f"rows_lookup_{name}_fwd", fwd, 20))
+        profiles.append(traced(f"rows_lookup_{name}_fwd_bwd", lambda name=name: grad_of(name),
+                               5))
+    for p in profiles:
+        out[p["profile"]] = {k: p[k] for k in ("wall_ms_p50", "device_ms", "device_launches")}
+    # the whole table onto the host in chunks over ``model`` (NCCL's gather),
+    # as the trainer's checkpoints and bundle take it under row sharding
+    t0 = time.perf_counter()
+    whole = gather_table(ctx, table)
+    out["gather_table_s"] = time.perf_counter() - t0
+    check(whole is not None and np.array_equal(whole, table.cpu().numpy()),
+          "phase 27: gather_table is not the table")
+    del table, leaf, whole
+    torch.cuda.empty_cache()
+    return out, profiles
+
+
+def loss_with_lookup(ctx, bundle_np: dict, counters) -> dict:
+    """Phase 27 (b): ``MultiTaskModel.loss`` at the main path's full width
+    (B = 8,192, the ``ModelConfig`` defaults, bf16, the flash route) with
+    the psum and the a2a lookup against the same loss without one (the same
+    dropout draws): the loss to ``PARITY_LOSS_RTOL`` relative, every
+    gradient within ``PARITY_LOSS_RTOL`` of its leaf's max|ref|,
+    bit-equality recorded; the counters set to 0 just before the lookup
+    runs and read just after (rows 2, 3, 4, 6 and 7)."""
+    import torch
+    from recsys_tpu_torch.config import ModelConfig
+    from recsys_tpu_torch.embed.table import (a2a_capacity, make_sharded_lookup_a2a,
+                                              make_sharded_lookup_psum)
+    from recsys_tpu_torch.models.losses import balanced_class_weights
+    from recsys_tpu_torch.models.multitask import MultiTaskModel
+    from recsys_tpu_torch.train.optimizer import leaves_with_paths
+
+    model = ModelConfig()
+    params = MultiTaskModel.init(torch.Generator().manual_seed(SEED + 27), model, N_USERS,
+                                 N_ITEMS, "cuda")
+    paths, leaves = zip(*leaves_with_paths(params))
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    batch = _batches(bundle_np, 1, TRAIN_BATCH, "cuda", _log_q(bundle_np))[0]
+    cw = balanced_class_weights(bundle_np["train/y_implicit"])
+    psum = make_sharded_lookup_psum(ctx)
+    lookups = {"psum": psum, "a2a": lambda t, i: make_sharded_lookup_a2a(
+        ctx, a2a_capacity(i.shape[0], ctx.n_model, 2.0))(t, i)[0]}
+
+    def run(lookup):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+        _, m = MultiTaskModel.loss(params, model, batch, generator=gen, train=True,
+                                   class_weights=cw, lookup=lookup)
+        grads = torch.autograd.grad(m["loss"], leaves, allow_unused=True)
+        return float(m["loss"].detach()), [torch.zeros_like(p) if gr is None else gr
+                                  for p, gr in zip(leaves, grads)]
+
+    ref_loss, ref_grads = run(None)
+    for c in counters:
+        c.reset()
+    got = {name: run(lookup) for name, lookup in lookups.items()}
+    torch.cuda.synchronize()
+    launches = {c.name: c.read() for c in counters}
+    for name in ("dcn_cross", "dcn_cross_bwd", "flash_ce_fwd", "flash_ce_bwd_du",
+                 "flash_ce_bwd_dv"):
+        check(launches[name] > 0, f"phase 27: {name} never launched in the loss with a lookup")
+    check(launches["flash_ce_bwd_fused"] == 0, "phase 27: the fused backward ran on bf16")
+    out = {"launches": launches, "loss_no_lookup": ref_loss}
+    for name, (loss, grads) in got.items():
+        loss_err = abs(loss - ref_loss) / abs(ref_loss)
+        check(loss_err <= PARITY_LOSS_RTOL, f"phase 27: loss with {name} {loss} vs {ref_loss}")
+        worst, where, equal = 0.0, "", loss == ref_loss
+        for path, gr, ref in zip(paths, grads, ref_grads):
+            err = float((gr - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+            equal = equal and bool(torch.equal(gr, ref))
+            if err > worst:
+                worst, where = err, "/".join(path)
+        check(worst <= PARITY_LOSS_RTOL,
+              f"phase 27: the gradient with {name} is off by {worst} of max|ref| at {where}")
+        out[name] = {"loss": loss, "loss_rel_err": loss_err, "grad_max_rel_err": worst,
+                     "grad_worst_leaf": where, "bit_equal": equal}
+    del params, leaves, ref_grads, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def rows_lookup_path(repo: str, counters, tmp: str, bundle_np: dict) -> dict:
+    """Phase 27: the row-sharded tables' lookups on a one-rank NCCL mesh
+    from ``make_mesh`` (at ``n_model == 1`` the trainer keeps its tables
+    whole, by the JAX package's own rule, so the lookups are driven
+    directly): (a) at the giant row's shape, (b) inside the full-width loss,
+    the counters set to 0 just before and read just after; the group is
+    destroyed; (c) the train CLI under ``torchrun`` with ``--model_parallel
+    1 --embedding_sharding rows --lookup_strategy a2a`` against the plain
+    CLI."""
+    import torch.distributed as dist
+    from recsys_tpu_torch.parallel import mesh as mesh_mod
+
+    out = {}
+    ctx = mesh_mod.make_mesh(model_parallel=1, data_parallel=1, device="cuda")
+    try:
+        check(dist.get_backend() == "nccl" and ctx.n_model == 1, "phase 27: not an NCCL mesh")
+        out["giant"], profiles = lookups_at_giant_shape(ctx)
+        log(f"phase 27 (a): {json.dumps(out['giant'])}")
+        out["loss"] = loss_with_lookup(ctx, bundle_np, counters)
+        log(f"phase 27 (b): {json.dumps(out['loss'])}")
+    finally:
+        mesh_mod.shutdown()
+    check(not dist.is_initialized(), "the process group outlived phase 27")
+    out["cli"] = dp_train_cli(repo, bundle_np, tmp, extra=(
+        "--model_parallel", "1", "--embedding_sharding", "rows", "--lookup_strategy", "a2a"),
+        label="rows")
+    out["profiles"] = profiles
+    return out
 
 
 def data_parallel_path(repo: str, counters, tmp: str, bundle_np: dict) -> dict:
@@ -4182,6 +4480,10 @@ def main() -> int:
         t_dp = time.perf_counter()
         dp = data_parallel_path(repo, counters, dense_dir, bundle_np)
         log(f"data-parallel phase in {time.perf_counter() - t_dp:.1f} s")
+        # ---- row-sharded tables' lookups: the tenth main path -------------
+        t_rows = time.perf_counter()
+        rows_lookup = rows_lookup_path(repo, counters, dense_dir, bundle_np)
+        log(f"row-sharded lookup phase in {time.perf_counter() - t_rows:.1f} s")
     for row in negs.pop("profiles"):
         log(f"profile {json.dumps(row)}")
     log(f"explicit negatives and streaming: {json.dumps(negs)}")
@@ -4195,6 +4497,9 @@ def main() -> int:
     for row in dp.pop("profiles"):
         log(f"profile {json.dumps(row)}")
     log(f"data-parallel training: {json.dumps(dp)}")
+    for row in rows_lookup.pop("profiles"):
+        log(f"profile {json.dumps(row)}")
+    log(f"row-sharded lookups: {json.dumps(rows_lookup)}")
     dp_launches = dp["train"]["launches"]
     rest_launches = {name: {load: rest[load]["launches"][name]
                             for load in ("threaded_microbatch", "asyncio")}
@@ -4342,6 +4647,8 @@ def main() -> int:
                               "flash_ce_bwd_dv_kernel serves fp32 (FMA units, the fused "
                               "kernel's S/P/dV body, double-buffered query tiles, dv_plan "
                               "parts)")
+    for entry in kernels:  # phase 27's loss with the lookups
+        entry["launches_rows_lookup"] = rows_lookup["loss"]["launches"][entry["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

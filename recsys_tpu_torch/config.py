@@ -133,9 +133,11 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh topology. The port trains on a ``(data, 1)`` mesh
-    (``data_axis`` -1: every rank); ``model_axis > 1``, row-sharded tables
-    and the psum/a2a lookups are ROADMAP Queue 1 item 8c."""
+    """Device-mesh topology: a ``(data, model)`` mesh (``data_axis`` -1:
+    every rank not on the model axis). With ``embedding_sharding="rows"``
+    and ``model_axis > 1`` the tables are row-sharded over ``model`` and
+    read through the ``lookup_strategy`` (psum or a2a; "xla" takes the psum
+    body in the port), the a2a buckets sized by ``lookup_capacity_factor``."""
 
     data_axis: int = -1
     model_axis: int = 1

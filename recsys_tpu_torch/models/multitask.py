@@ -30,15 +30,16 @@ class ForwardOut(NamedTuple):
 class MultiTaskModel:
     @staticmethod
     def init(generator: torch.Generator, cfg: ModelConfig, n_users: int,
-             n_items: int, device: DeviceLike = "cuda") -> Dict:
+             n_items: int, device: DeviceLike = "cuda", rows_multiple: int = 1) -> Dict:
         """Random params from ``generator`` (drawn on the CPU, then moved
-        to ``device``), with the JAX package's tree layout. Raises if
-        ``device`` is the card and there is none."""
+        to ``device``), with the JAX package's tree layout; the tables padded
+        to ``rows_multiple`` rows (``TwoTower.init``). Raises if ``device``
+        is the card and there is none."""
         device = resolve_device(device)
         dcn_in = 2 * cfg.embedding_dim + cfg.dense_features
         dcn_out = DeepCrossNetwork.output_dim(cfg, dcn_in)
         return {
-            "towers": TwoTower.init(generator, cfg, n_users, n_items, device),
+            "towers": TwoTower.init(generator, cfg, n_users, n_items, device, rows_multiple),
             "dcn": DeepCrossNetwork.init(generator, cfg, dcn_in, device),
             "rating_head": L.init_dense(generator, dcn_out, 1, device),
             "ctr_head": L.init_dense(generator, dcn_out, 1, device),
@@ -47,11 +48,12 @@ class MultiTaskModel:
     @staticmethod
     def apply(params: Dict, cfg: ModelConfig, user_ids, item_ids,
               dense: Optional[torch.Tensor] = None, train: bool = False,
-              generator: Optional[torch.Generator] = None) -> ForwardOut:
+              generator: Optional[torch.Generator] = None, lookup=None) -> ForwardOut:
         """In train mode the towers and the deep branch apply dropout,
-        drawn from ``generator`` (a generator on the params' device)."""
+        drawn from ``generator`` (a generator on the params' device);
+        ``lookup`` replaces the towers' table gather."""
         u, v = TwoTower.apply(params["towers"], cfg, user_ids, item_ids, train=train,
-                              generator=generator)
+                              generator=generator, lookup=lookup)
         if cfg.dense_features:
             if dense is None:
                 raise ValueError(
@@ -103,19 +105,17 @@ class MultiTaskModel:
         ``global_negatives`` the in-batch softmax's candidates are the
         global batch (``data_axis_size * B_local`` of them, which the path
         policy and the bf16 threshold count). Explicit negatives stay
-        local. A custom ``lookup`` (the row-sharded tables' collective
-        lookups) is not ported yet and raises."""
-        if lookup is not None:
-            raise NotImplementedError(
-                "lookup (the row-sharded tables' collective lookups) is not ported to "
-                "recsys_tpu_torch yet (ROADMAP Queue 1: item 8c, row-sharded tables)")
+        local. ``lookup(table, ids) -> rows`` replaces the towers' table
+        gather, the explicit negatives' too (the trainer passes the
+        row-sharded tables' psum or a2a lookup, ``embed/table.py``);
+        ``item_bias`` is read by a plain gather."""
         if data_axis is not None and mesh_ctx is None:
             raise ValueError(f"data_axis {data_axis!r} needs the mesh_ctx that resolves it")
         glob = data_axis is not None and global_negatives
         retr_axis = data_axis if glob else None
         out = MultiTaskModel.apply(params, cfg, batch["user_id"], batch["movie_id"],
                                    dense=batch.get("dense"), train=train,
-                                   generator=generator)
+                                   generator=generator, lookup=lookup)
         mask = batch.get("mask")
         movie_id = batch["movie_id"].long()
         if cfg.use_item_bias:
@@ -171,7 +171,7 @@ class MultiTaskModel:
         if neg_item_ids is not None:
             # the model's own embeddings, without the in-batch term's cast
             neg_emb = TwoTower.item_embed(params["towers"], neg_item_ids, cfg, train=train,
-                                          generator=generator)
+                                          generator=generator, lookup=lookup)
             retr = retr + cfg.explicit_negatives_weight * losses.sampled_softmax_explicit(
                 u_retr, out.item_embedding, neg_emb)
         m = losses.mse(out.rating_pred, batch["rating"], mask=mask)

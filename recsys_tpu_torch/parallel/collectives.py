@@ -9,10 +9,27 @@ same call in the same order. Higher layers (the sharded top-k, the
 training step's gradient sync and lookups) reach ``torch.distributed``
 only through these.
 
-:func:`all_gather_rows` is the one differentiable collective: the
-data-parallel step gathers the item embeddings (and their column
-corrections) of every rank through it, and its backward hands each rank
-the sum over ranks of the cotangent of its own rows.
+Four are differentiable (``torch.autograd.Function``s):
+
+* :func:`all_gather_rows`: the data-parallel step gathers the item
+  embeddings (and their column corrections) of every rank through it,
+  and its backward hands each rank the sum over ranks of the cotangent of
+  its own rows;
+* :func:`psum`: the psum lookup's sum over ``model``; its backward is the
+  identity (every rank of the axis consumes the same sum, so each
+  addend's cotangent is the sum's), which is ``lax.psum``'s transpose
+  under ``check_vma=True``;
+* :func:`exchange`: the all-to-all of the a2a lookup; its backward is the
+  same exchange of the cotangent (an all-to-all of equal chunks is its
+  own transpose);
+* :func:`pmean_invariant`: the identity whose backward divides the
+  cotangent by the axis size, the transpose of ``lax.pmean`` of a value
+  already equal over the axis (the a2a lookup's rows: each model replica
+  hands its request's cotangent back through the exchange, so the table
+  would otherwise receive it ``n`` times).
+
+:func:`allreduce_sum` and the gathers that the sharded catalog uses stay
+outside autograd.
 """
 
 from __future__ import annotations
@@ -94,22 +111,89 @@ def all_gather_rows(ctx: MeshContext, x: torch.Tensor, axis: str = DATA_AXIS) ->
 
 # ---- model-axis exchange ------------------------------------------------
 
+class _Psum(torch.autograd.Function):
+    """All-reduce sum over an axis; the backward passes the cotangent
+    through (``lax.psum``'s transpose under ``check_vma=True``)."""
+
+    @staticmethod
+    def forward(fctx, x, mesh_ctx, axis):
+        out = x.detach().clone()
+        dist.all_reduce(out, group=mesh_ctx.group(axis))
+        return out
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None, None
+
+
+def psum(ctx: MeshContext, x: torch.Tensor, axis: str = MODEL_AXIS) -> torch.Tensor:
+    """The sum over ``axis`` of every rank's ``x``, differentiable. Every
+    rank of the axis must consume the sum the same way (the row-sharded
+    lookup: the same ids, the same loss), so the cotangent of each addend
+    is the sum's own: an all-reduce in the backward would multiply it by
+    the axis size."""
+    return _Psum.apply(x, ctx, axis)
+
+
+class _PmeanInvariant(torch.autograd.Function):
+    """The identity forward; the backward divides by the axis size."""
+
+    @staticmethod
+    def forward(fctx, x, n):
+        fctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g / fctx.n, None
+
+
+def pmean_invariant(ctx: MeshContext, x: torch.Tensor, axis: str = MODEL_AXIS) -> torch.Tensor:
+    """``x``, which is already equal on every rank of ``axis``, as
+    ``lax.pmean`` of it: the forward returns it as it is, the backward
+    divides its cotangent by the axis size. The a2a lookup's rows pass
+    through it: each of the ``n`` model replicas sends its cotangent back
+    through the exchange to the rows' owner, which sums them."""
+    return _PmeanInvariant.apply(x, ctx.axis_size(axis))
+
+
 def gather_rows(ctx: MeshContext, x: torch.Tensor, axis: str = MODEL_AXIS) -> torch.Tensor:
     """All-gather along dim 0 in axis order (a tiled ``lax.all_gather``)."""
     return _all_gather(ctx, x, axis, dim=0)
 
 
-def exchange(ctx: MeshContext, x: torch.Tensor, axis: str = MODEL_AXIS) -> torch.Tensor:
-    """All-to-all on dim 0: ``x`` is ``n`` equal chunks, chunk j goes to
-    the rank at index j of ``axis``, and chunk j of the result is the one
-    that rank sent here (the id and row exchange of the sharded lookup)."""
+def _exchange(ctx: MeshContext, x: torch.Tensor, axis: str) -> torch.Tensor:
     n = ctx.axis_size(axis)
     if x.shape[0] % n:
         raise ValueError(f"exchange: {x.shape[0]} rows do not split into {n} chunks")
-    x = x.contiguous()
+    x = x.detach().contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=ctx.group(axis))
     return out
+
+
+class _Exchange(torch.autograd.Function):
+    """All-to-all of equal chunks; the backward exchanges the cotangent
+    the same way (the transpose of ``lax.all_to_all`` with
+    ``split_axis == concat_axis``)."""
+
+    @staticmethod
+    def forward(fctx, x, mesh_ctx, axis):
+        fctx.mesh_ctx, fctx.axis = mesh_ctx, axis
+        return _exchange(mesh_ctx, x, axis)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _exchange(fctx.mesh_ctx, g, fctx.axis), None, None
+
+
+def exchange(ctx: MeshContext, x: torch.Tensor, axis: str = MODEL_AXIS) -> torch.Tensor:
+    """All-to-all on dim 0: ``x`` is ``n`` equal chunks, chunk j goes to
+    the rank at index j of ``axis``, and chunk j of the result is the one
+    that rank sent here (the id and row exchange of the sharded lookup).
+    Differentiable: the cotangent of chunk j of the result goes back to
+    the rank that sent it."""
+    return _Exchange.apply(x, ctx, axis)
 
 
 def ring_shift(ctx: MeshContext, x: torch.Tensor, axis: str = MODEL_AXIS,

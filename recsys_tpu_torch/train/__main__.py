@@ -3,18 +3,20 @@
     python -m recsys_tpu_torch.train --data <bundle.npz> --output_dir <dir> \
         [--device cuda|cpu] [--set train.epochs=3 ...]
 
-and data-parallel over N cards (one rank a card, NCCL; gloo with
-``--device cpu``), every rank holding the whole tables:
+and over N cards (one rank a card, NCCL; gloo with ``--device cpu``),
+data-parallel with every rank holding the whole tables, or on a ``(N / M,
+M)`` mesh with the tables row-sharded over its M model ranks:
 
     python -m torch.distributed.run --standalone --nproc_per_node N \
-        -m recsys_tpu_torch.train --data <bundle.npz> --output_dir <dir>
+        -m recsys_tpu_torch.train --data <bundle.npz> --output_dir <dir> \
+        [--model_parallel M --embedding_sharding rows --lookup_strategy a2a]
 
 Under a launcher (or in a process whose caller already started a process
-group) the CLI makes the ``(data, 1)`` mesh over every rank and trains on
-it; rank 0 writes the run's files. The flags are those of the JAX
-package's ``scripts/train.py`` that this
-port honours, with the same names, defaults and mappings, so that one
-argv gives one ``config.json`` in both packages. ``--distributed_strategy``
+group) the CLI makes the ``(data, model)`` mesh of ``--model_parallel``
+over every rank and trains on it; rank 0 writes the run's files. The flags
+are those of the JAX package's ``scripts/train.py`` that this port
+honours, with the same names, defaults and mappings, so that one argv
+gives one ``config.json`` in both packages. ``--distributed_strategy``
 is accepted for compat and sets nothing. ``--global_negatives`` (the
 default) / ``--per_replica_negatives`` set ``train.global_negatives``: on
 a mesh of several data ranks the in-batch candidates are the global
@@ -22,10 +24,11 @@ batch or each rank's own. ``--negative_sampling hard|mixed|mined`` trains
 with explicit negatives (``--num_hard_negatives`` +
 ``--num_random_negatives`` a row); ``mined`` mines them from the trained
 serving bundle of ``--mined_from DIR``. ``--model_parallel``,
-``--embedding_sharding`` and ``--lookup_strategy`` take the JAX CLI's
-choices, but only the values the port runs (1, ``replicated``, ``xla``:
-their defaults); any other value exits with an error that names ROADMAP
-Queue 1 item 8c (row-sharded tables). ``--use_dense_features`` sets
+``--embedding_sharding`` and ``--lookup_strategy`` (xla, psum, a2a; "xla"
+reads the row-sharded tables through the psum lookup) set ``config.mesh``,
+and ``--set mesh.lookup_capacity_factor=F`` the a2a buckets' headroom.
+Without a process group ``--model_parallel`` above 1 is an error: start
+the ranks under the launcher. ``--use_dense_features`` sets
 ``model.dense_features`` to the engineered feature width (29, or 33 with
 ``--use_side_features``, which alone exits as in the JAX CLI). Flags
 whose modes are not ported yet (``--use_wandb``, ...) are errors, as is
@@ -53,18 +56,6 @@ from recsys_tpu_torch.config import (DataConfig, EvalConfig, MeshConfig, ModelCo
                                      RecsysConfig, TrainConfig)
 
 _RETRIEVAL_LOSS = {"auto": "auto", "xla": False, "flash": True, "chunked": "chunked"}
-_ROW_SHARDED = "ROADMAP Queue 1 item 8c, row-sharded tables"
-
-
-def _check_ported(args) -> None:
-    """Raise ValueError, naming the ROADMAP Queue 1 item, for a mode flag
-    whose value the port does not run yet."""
-    for flag, value, ported, item in (
-            ("--model_parallel", args.model_parallel, 1, _ROW_SHARDED),
-            ("--embedding_sharding", args.embedding_sharding, "replicated", _ROW_SHARDED),
-            ("--lookup_strategy", args.lookup_strategy, "xla", _ROW_SHARDED)):
-        if value != ported:
-            raise ValueError(f"{flag} {value} is not ported to recsys_tpu_torch yet ({item})")
 
 
 def parse_overrides(pairs: Sequence[str]) -> dict:
@@ -87,7 +78,6 @@ def parse_overrides(pairs: Sequence[str]) -> dict:
 
 
 def build_config(args) -> RecsysConfig:
-    _check_ported(args)
     dense = 0
     if args.use_dense_features:
         from recsys_tpu_torch.data.features import FeatureEngineer
@@ -143,7 +133,7 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["none", "mirrored", "multi_worker", "mesh"],
                     help="accepted for compat; sets nothing")
     ap.add_argument("--model_parallel", type=int, default=1,
-                    help="size of the model mesh axis (the port runs only 1 yet)")
+                    help="size of the model mesh axis (row-sharded tables over it)")
     ap.add_argument("--embedding_sharding", default="replicated",
                     choices=["replicated", "rows"])
     ap.add_argument("--lookup_strategy", default="xla", choices=["xla", "psum", "a2a"])
@@ -188,14 +178,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         cfg = build_config(args)
     except (ValueError, KeyError) as e:
         ap.error(str(e))
-    # under a launcher, or in a caller's process group: the data-parallel
+    # under a launcher, or in a caller's process group: the (data, model)
     # mesh over every rank (a group this call joins, it also leaves)
     had_group = dist.is_initialized()
     mesh.maybe_initialize_distributed(args.device)
     mesh_ctx = None
     if dist.is_initialized():
-        mesh_ctx = mesh.make_mesh(model_parallel=1, data_parallel=cfg.mesh.data_axis,
-                                  device=args.device)
+        mesh_ctx = mesh.make_mesh(model_parallel=cfg.mesh.model_axis,
+                                  data_parallel=cfg.mesh.data_axis, device=args.device)
     setup_logging()
     logger = logging.getLogger("train")
     try:

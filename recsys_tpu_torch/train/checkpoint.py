@@ -25,7 +25,13 @@ The CBNS cache rides in it as ``extras/emb``, ``extras/ids`` and
 ``extras/corr``; with the cache off the field is None and ``_flatten``
 leaves it out, as the JAX package's does. Under a process group of
 several ranks (the data-parallel trainer: every rank holds the same
-state) rank 0 alone writes, synchronously, and every rank restores.
+state) rank 0 alone writes, synchronously, and every rank restores. With
+row-sharded tables the ranks of one ``model`` group first gather the
+whole tables and their slots onto rank 0's host (:func:`gather_row_shards`),
+so a checkpoint and a bundle have the one-card layout (the bundle keeps
+the padded rows, as the JAX package's ``device_get`` does) and
+``params_from_numpy`` reads them; on restore each rank keeps its rows
+(:func:`keep_row_shards`).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import numpy as np
 import torch
 
 from recsys_tpu_torch.parallel.mesh import process_count, process_index
+from recsys_tpu_torch.parallel.sharding import gather_table, shard_rows
 from recsys_tpu_torch.utils.device import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -71,6 +78,33 @@ def params_to_numpy(tree: Any) -> Any:
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return None if tree is None else np.asarray(tree)
+
+
+# the leaves that the trainer splits by rows over ``model``
+ROW_SHARDED_KEYS = ("user_table", "item_table")
+
+
+def gather_row_shards(ctx, tree: Any) -> Any:
+    """``tree`` (nested dicts: params, or optimizer slots) with every
+    leaf named in ``ROW_SHARDED_KEYS`` gathered whole over ``model``
+    (``parallel.sharding.gather_table``): a numpy array on the host of the
+    group's first rank, None on the others; the other leaves as they are.
+    A collective, which every rank of this rank's ``model`` group calls in
+    the same order."""
+    if isinstance(tree, dict):
+        return {k: (gather_table(ctx, v.detach()) if k in ROW_SHARDED_KEYS
+                    and isinstance(v, torch.Tensor) else gather_row_shards(ctx, v))
+                for k, v in tree.items()}
+    return tree
+
+
+def keep_row_shards(ctx, tree: Any) -> Any:
+    """A whole (restored) tree with every leaf named in
+    ``ROW_SHARDED_KEYS`` cut to this rank's rows (``shard_rows``)."""
+    if isinstance(tree, dict):
+        return {k: (shard_rows(ctx, v) if k in ROW_SHARDED_KEYS and not isinstance(v, dict)
+                    else keep_row_shards(ctx, v)) for k, v in tree.items()}
+    return tree
 
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:

@@ -59,16 +59,37 @@ def exponential_decay(lr: float, decay_steps: int = 1000, decay_rate: float = 0.
     return schedule
 
 
-@torch.no_grad()
-def global_norm(grads: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g)) for _, g in leaves_with_paths(grads)))
+# (keys, reduce): the leaves whose last key is in ``keys`` are this rank's
+# shards of larger arrays (the row-sharded tables), and ``reduce`` sums a
+# squared norm over the ranks that hold the other shards
+ShardReduce = Tuple[Tuple[str, ...], Callable[[torch.Tensor], torch.Tensor]]
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Any, max_norm: float) -> Any:
-    """-> the same tree scaled by ``min(1, max_norm / max(norm, 1e-12))``."""
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+def global_norm(grads: Any, shard_reduce: Optional[ShardReduce] = None) -> torch.Tensor:
+    """The norm of every leaf together; with ``shard_reduce`` the sharded
+    leaves' squared sum is reduced over their ranks before it joins the
+    rest's, so every rank takes the norm of the whole arrays."""
+    leaves = leaves_with_paths(grads)
+    if shard_reduce is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g)) for _, g in leaves))
+    keys, reduce = shard_reduce
+    zero = torch.zeros((), device=leaves[0][1].device)
+    sq = [(p[-1] in keys, torch.sum(torch.square(g))) for p, g in leaves]
+    return torch.sqrt(sum((q for s, q in sq if not s), zero)
+                      + reduce(sum((q for s, q in sq if s), zero)))
+
+
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The global-norm clip's factor, ``min(1, max_norm / max(norm, 1e-12))``."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Any, max_norm: float,
+                        shard_reduce: Optional[ShardReduce] = None) -> Any:
+    """-> the same tree scaled by :func:`clip_scale` of its global norm."""
+    scale = clip_scale(global_norm(grads, shard_reduce), max_norm)
 
     def walk(node):
         if isinstance(node, dict):
@@ -81,8 +102,9 @@ def clip_by_global_norm(grads: Any, max_norm: float) -> Any:
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Dict[str, Any]]
-    # update(grads, state, params, step): params and state change in place
-    update: Callable[[Any, Dict[str, Any], Any, int], None]
+    # update(grads, state, params, step, shard_reduce=None): params and
+    # state change in place; ``shard_reduce`` reaches the clip's norm
+    update: Callable[..., None]
 
 
 def _zeros_like_tree(params, fill: float = 0.0):
@@ -107,9 +129,10 @@ def adagrad(schedule: Schedule, initial_accumulator: float = 0.1, eps: float = 1
         return {"accum": _zeros_like_tree(params, initial_accumulator)}
 
     @torch.no_grad()
-    def update(grads, state, params, step: int) -> None:
+    def update(grads, state, params, step: int,
+               shard_reduce: Optional[ShardReduce] = None) -> None:
         if clipnorm > 0:
-            grads = clip_by_global_norm(grads, clipnorm)
+            grads = clip_by_global_norm(grads, clipnorm, shard_reduce)
         lr = schedule(step)
         for path, g in leaves_with_paths(grads):
             a = _get(state["accum"], path)
@@ -128,9 +151,10 @@ def adam(schedule: Schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e
         return {"mu": _zeros_like_tree(params), "nu": _zeros_like_tree(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step: int) -> None:
+    def update(grads, state, params, step: int,
+               shard_reduce: Optional[ShardReduce] = None) -> None:
         if clipnorm > 0:
-            grads = clip_by_global_norm(grads, clipnorm)
+            grads = clip_by_global_norm(grads, clipnorm, shard_reduce)
         lr = schedule(step)
         t = np.float32(step) + np.float32(1.0)
         mhat_scale = float(np.float32(1.0) / (np.float32(1.0) - np.float32(b1) ** t))

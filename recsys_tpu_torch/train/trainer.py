@@ -66,6 +66,40 @@ wait at a barrier; a preemption signal is max-reduced over the ranks;
 (``utils/debug.py``). Without a mesh nothing of this runs: no process
 group, no collective.
 
+**Row-sharded tables** (``MeshConfig.embedding_sharding="rows"`` on a
+``(data, model)`` mesh with ``model`` above 1; the JAX package's
+``_step_core_spmd`` with its psum and a2a lookups): ``user_table`` and
+``item_table`` (padded to ``rows_multiple = n_model``) and their
+optimizer slots are split by rows over ``model``; ``item_bias`` and every
+other leaf stay whole on every rank. The batch is split over ``data``
+only, so the ranks that share a data index run the same loss on the same
+slice, reading the tables through ``embed/table.py``'s lookup of
+``lookup_strategy``: psum (its backward the identity), or a2a, whose
+capacity is sized from each call's id count (the explicit negatives'
+``[B_local * K]`` too) and whose rows' cotangent is divided by
+``n_model`` on the way back (the transpose of JAX's ``pmean``), with
+``lookup_overflow`` among the metrics and a warning naming
+``lookup_capacity_factor`` when an epoch's mean is above 0. "xla" reads
+the tables through the psum body: the JAX package runs a GSPMD gather
+there, which the port has not, and its own explicit step does the same
+when another reason forces it; all three give one result. Every gradient,
+the shards' too, is averaged over ``data`` in the one flat all-reduce;
+the optimizer's global-norm clip adds the shards' squared sums over
+``model``. The sparse step gathers its virtual rows through the lookup;
+every rank combines the global batch's rows and each writes only the ids
+it owns, at their local rows. Validation and the loss metrics read the
+tables through the psum lookup on every rank (exact, as JAX's GSPMD
+gather). The checkpoints (the one-card npz layout; each rank restores
+its rows), the periodic and the final ``evaluate``,
+``RetrievalIndex.build`` and the inference bundle (the padded tables, as
+the JAX package writes them) take the whole tables on rank 0's host,
+where the ranks of data index 0 send their shards in chunks
+(``parallel.sharding.gather_table``, the JAX package's ``device_get``);
+no other rank holds a whole table, and rank 0 broadcasts what it
+evaluated. ``replication_check_every_epochs`` checks the whole leaves
+over every rank and skips the shards. At ``n_model == 1`` the tables
+stay whole, as in the JAX package.
+
 Every mode of the JAX trainer that is not ported raises
 ``NotImplementedError`` naming its ROADMAP Queue 1 item; none silently runs
 something else. Dropout masks come from a ``torch.Generator`` on the
@@ -92,12 +126,14 @@ from recsys_tpu_torch.config import RecsysConfig
 from recsys_tpu_torch.data.features import make_engineer
 from recsys_tpu_torch.data.negative_sampling import NegativeSampler, mine_hard_negatives
 from recsys_tpu_torch.data.pipeline import Batcher
+from recsys_tpu_torch.embed.table import (a2a_capacity, a2a_overflow, lookup_a2a,
+                                          make_sharded_lookup_psum)
 from recsys_tpu_torch.models import losses
 from recsys_tpu_torch.models.multitask import MultiTaskModel
 from recsys_tpu_torch.models.towers import TwoTower
 from recsys_tpu_torch.parallel import collectives
 from recsys_tpu_torch.parallel.mesh import MeshContext, make_mesh, world_size
-from recsys_tpu_torch.parallel.sharding import local_slice
+from recsys_tpu_torch.parallel.sharding import local_slice, shard_rows
 from recsys_tpu_torch.retrieval.evaluator import evaluate
 from recsys_tpu_torch.retrieval.scorer import RetrievalIndex
 from recsys_tpu_torch.train import checkpoint as ckpt_lib
@@ -124,7 +160,8 @@ class TrainState(NamedTuple):
 
 
 _DEBUG_PROFILE = "item 7, debug and profile"
-_ROW_SHARDED = "item 8c, row-sharded tables"
+# the leaves split by rows over ``model`` under row-sharded tables
+_SHARDED_KEYS = ckpt_lib.ROW_SHARDED_KEYS
 # a large odd constant: data index r adds r times it to the dropout seed
 _RANK_SEED_STRIDE = 0x9E3779B97F4A7C15
 
@@ -211,21 +248,22 @@ class Trainer:
 
     def __init__(self, config: RecsysConfig, output_dir: str = "outputs/run",
                  device: DeviceLike = "cuda", mesh_ctx: Optional[MeshContext] = None):
-        """``mesh_ctx`` trains data-parallel over its ``data`` axis. Without
-        one, a process whose launcher (``torchrun``) or caller started a
-        process group of more than one rank makes the ``(data, 1)`` mesh
-        over it; any other process trains on one device, with no group."""
+        """``mesh_ctx`` trains over its ``(data, model)`` axes. Without one,
+        a process whose launcher (``torchrun``) or caller started a process
+        group of more than one rank makes the mesh of ``config.mesh`` over
+        it; any other process trains on one device, with no group."""
         self.config = config
         self.output_dir = output_dir
         self._check_config()
         if mesh_ctx is None and world_size(device) > 1:
-            mesh_ctx = make_mesh(model_parallel=1, data_parallel=config.mesh.data_axis,
-                                 device=device)
+            mesh_ctx = make_mesh(model_parallel=config.mesh.model_axis,
+                                 data_parallel=config.mesh.data_axis, device=device)
         self.ctx = mesh_ctx
         if mesh_ctx is None:
-            if config.mesh.data_axis not in (-1, 1):
-                raise ValueError(f"mesh.data_axis={config.mesh.data_axis} needs a mesh of "
-                                 "that many data ranks: start the ranks under torchrun")
+            for axis in ("data_axis", "model_axis"):
+                if getattr(config.mesh, axis) not in (-1, 1):
+                    raise ValueError(f"mesh.{axis}={getattr(config.mesh, axis)} needs a mesh "
+                                     "of that many ranks: start the ranks under torchrun")
             self.device = resolve_device(device)
         else:
             self._check_mesh(mesh_ctx)
@@ -245,27 +283,27 @@ class Trainer:
         # train() mines data.mined_from)
         self.mined_table: Optional[np.ndarray] = None
         # elements of the two embedding tables of the last state made
-        # (what "auto" sparse updates reads), None before any
+        # (what "auto" sparse updates reads; the whole tables' under
+        # row sharding), None before any
         self._table_elements: Optional[int] = None
+        # row-sharded tables: the JAX package's rule (rows and model > 1)
+        self.rows = (mesh_ctx is not None and config.mesh.embedding_sharding == "rows"
+                     and mesh_ctx.n_model > 1)
 
     # ---- what this port runs ----------------------------------------
     def _check_config(self) -> None:
-        cfg = self.config
-        t, m = cfg.train, cfg.mesh
-        if (m.model_axis != 1 or m.embedding_sharding != "replicated"
-                or m.lookup_strategy != "xla"):
-            _not_ported("a model-parallel mesh (model_axis > 1, embedding_sharding='rows', "
-                        "lookup_strategy psum or a2a)", _ROW_SHARDED)
+        t = self.config.train
         if t.profile:
             _not_ported("TrainConfig.profile", _DEBUG_PROFILE)
         if t.debug_nans:
             _not_ported("TrainConfig.debug_nans", _DEBUG_PROFILE)
 
     def _check_mesh(self, ctx: MeshContext) -> None:
-        """The port trains on a ``(data, 1)`` mesh, whose data axis
-        ``mesh.data_axis`` matches (-1: any)."""
-        if ctx.n_model != 1:
-            _not_ported(f"a mesh with a model axis of {ctx.n_model}", _ROW_SHARDED)
+        """The mesh's model axis is ``mesh.model_axis`` and its data axis
+        ``mesh.data_axis`` (-1: any)."""
+        m = self.config.mesh.model_axis
+        if m != ctx.n_model:
+            raise ValueError(f"mesh.model_axis={m} but the mesh has {ctx.n_model} model ranks")
         d = self.config.mesh.data_axis
         if d not in (-1, ctx.n_data):
             raise ValueError(f"mesh.data_axis={d} but the mesh has {ctx.n_data} data ranks")
@@ -301,24 +339,31 @@ class Trainer:
     # ---- state -------------------------------------------------------
     def init_state(self, n_users: int, n_items: int, seed: int) -> TrainState:
         """Params from ``MultiTaskModel.init`` (drawn from a CPU generator
-        seeded with ``seed``), on the trainer's device, with gradients on;
-        fresh optimizer slots; an empty cache; step 0."""
-        params = MultiTaskModel.init(torch.Generator().manual_seed(seed),
-                                     self.config.model, n_users, n_items, self.device)
+        seeded with ``seed``; the tables padded to ``n_model`` rows under
+        row sharding), on the trainer's device, with gradients on; fresh
+        optimizer slots; an empty cache; step 0."""
+        params = MultiTaskModel.init(torch.Generator().manual_seed(seed), self.config.model,
+                                     n_users, n_items, "cpu",
+                                     rows_multiple=self.ctx.n_model if self.rows else 1)
         return self.state_from_params(params, seed)
 
     def state_from_params(self, params, seed: int) -> TrainState:
-        """A step-0 state around given params (moved to the trainer's
+        """A step-0 state around given whole params (moved to the trainer's
         device, gradients on), e.g. those of ``params_from_numpy``, with
-        fresh slots and, under ``negative_cache``, an empty cache."""
-        def own(node):
+        fresh slots and, under ``negative_cache``, an empty cache. Under
+        row sharding the rank keeps its rows of the two tables (and its
+        slots are made from them)."""
+        tw = params["towers"]
+        self._table_elements = tw["user_table"].numel() + tw["item_table"].numel()
+
+        def own(node, key=""):
             if isinstance(node, dict):
-                return {k: own(v) for k, v in node.items()}
+                return {k: own(v, k) for k, v in node.items()}
+            if self.rows and key in _SHARDED_KEYS:
+                node = shard_rows(self.ctx, node)
             return node.detach().to(self.device, torch.float32).clone().requires_grad_(True)
 
         params = own(params)
-        tw = params["towers"]
-        self._table_elements = tw["user_table"].numel() + tw["item_table"].numel()
         extras = None
         n = self.config.train.negative_cache
         if n > 0:
@@ -341,14 +386,85 @@ class Trainer:
         self._dropout_gen.manual_seed(seed)
         return self._dropout_gen
 
-    # ---- data parallelism --------------------------------------------
+    # ---- data parallelism and row-sharded tables ----------------------
     def _loss_axis(self) -> Dict[str, Any]:
-        """``MultiTaskModel.loss``'s data-parallel arguments ({} on one card)."""
+        """``MultiTaskModel.loss``'s mesh arguments ({} on one card): the data
+        axis, and the tables' lookup under row sharding."""
         ctx = self.ctx
         if ctx is None:
             return {}
         return dict(data_axis=ctx.data_axis, global_negatives=self.config.train.global_negatives,
-                    data_axis_size=ctx.n_data, mesh_ctx=ctx)
+                    data_axis_size=ctx.n_data, mesh_ctx=ctx, lookup=self._lookup())
+
+    def _a2a(self) -> bool:
+        return self.rows and self.config.mesh.lookup_strategy == "a2a"
+
+    def _lookup(self, strategy: Optional[str] = None) -> Optional[Callable]:
+        """``lookup(table_shard, ids) -> rows`` of ``strategy`` (the
+        configured one by default) under row sharding, else None. a2a sizes
+        its capacity from each call's id count and divides the rows'
+        cotangent by ``n_model`` (each model replica sends its request's
+        cotangent back to the owner); psum, and "xla", take the psum body."""
+        if not self.rows:
+            return None
+        ctx = self.ctx
+        if (strategy or self.config.mesh.lookup_strategy) == "a2a":
+            factor = self.config.mesh.lookup_capacity_factor
+            return lambda table_shard, ids: lookup_a2a(
+                ctx, table_shard, ids, a2a_capacity(ids.shape[0], ctx.n_model, factor))[0]
+        return make_sharded_lookup_psum(ctx)
+
+    def _overflow(self, tw, batch, neg_ids=None) -> torch.Tensor:
+        """The step's ``lookup_overflow`` under a2a: the user and item ids
+        (and the explicit negatives, at their own capacity) past their
+        buckets, as the JAX step counts them."""
+        n, factor = self.ctx.n_model, self.config.mesh.lookup_capacity_factor
+        cap = a2a_capacity(batch["user_id"].shape[0], n, factor)
+        total = (a2a_overflow(batch["user_id"], tw["user_table"].shape[0], n, cap)
+                 + a2a_overflow(batch["movie_id"], tw["item_table"].shape[0], n, cap))
+        if neg_ids is not None:
+            total = total + a2a_overflow(neg_ids, tw["item_table"].shape[0], n,
+                                         a2a_capacity(neg_ids.numel(), n, factor))
+        return total.to(torch.float32)
+
+    def _metric_keys(self) -> Tuple[str, ...]:
+        return METRIC_KEYS + (("lookup_overflow",) if self._a2a() else ())
+
+    def _is_writer(self) -> bool:
+        """Rank 0 (the only rank without a mesh): it writes the run's files
+        and evaluates."""
+        return self.ctx is None or dist.get_rank() == 0
+
+    def _host_whole(self, tree):
+        """``tree`` (params, or optimizer slots) for rank 0's files and
+        evaluation. Under row sharding: on rank 0, the tree with the sharded
+        tables whole on its host (numpy, gathered in chunks over ``model``
+        from the ranks of data index 0, the only ranks that take part; the
+        others return at once), and None on every other rank, so no card
+        ever holds a whole table. ``tree`` itself otherwise."""
+        if not self.rows:
+            return tree
+        if self.ctx.data_index != 0:
+            return None
+        whole = ckpt_lib.gather_row_shards(self.ctx, tree)
+        return whole if self.ctx.model_index == 0 else None
+
+    def _placed(self, tree):
+        """A tree of :meth:`_host_whole` on the trainer's device (rank 0's
+        evaluation and ``RetrievalIndex.build``)."""
+        if not self.rows:
+            return tree
+        return ckpt_lib.params_from_numpy(ckpt_lib.params_to_numpy(tree), self.device)
+
+    def _shard_reduce(self) -> Optional[opt_lib.ShardReduce]:
+        """The clip's reduction under row sharding: the table shards'
+        squared sums are summed over ``model`` (one scalar all-reduce), so
+        every rank takes the norm of the whole tables, as the JAX package's
+        clip does on the sharded arrays."""
+        if not self.rows:
+            return None
+        ctx = self.ctx
+        return _SHARDED_KEYS, lambda sq: collectives.allreduce_sum(ctx, sq, ctx.model_axis)
 
     def _reduce_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Detached metrics, mean-reduced over ``data`` in one call under a mesh."""
@@ -383,9 +499,10 @@ class Trainer:
         return self._step_core_dense(class_weights, use_explicit_negs)
 
     def _step_core_dense(self, class_weights, use_explicit_negs: bool = False) -> Callable:
-        """The dense step: gradients of every leaf, the full-table update."""
+        """The dense step: gradients of every leaf, the full-table update
+        (of this rank's shards under row sharding)."""
         cfg = self.config
-        opt = self.optimizer
+        shard_reduce = self._shard_reduce()
 
         def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
             batch = dict(batch)
@@ -395,15 +512,19 @@ class Trainer:
                 state.params, cfg.model, batch, generator=self._generator(state),
                 train=True, class_weights=class_weights, neg_item_ids=neg_ids,
                 extra_candidates=self._cache_tuple(state), **self._loss_axis())
+            if self._a2a():
+                metrics["lookup_overflow"] = self._overflow(state.params["towers"], batch,
+                                                            neg_ids)
             grads = _grads(metrics["loss"], leaves)
             if self.ctx is not None:
-                # the gradient of the global mean: the mean of the ranks'
-                # (the gathered candidates' backward already summed the
-                # other ranks' cotangents into this rank's item rows)
+                # the gradient of the global mean: the mean over ``data`` of
+                # the ranks' (the gathered candidates' backward already
+                # summed the other ranks' cotangents into this rank's item
+                # rows; the model replicas of a slice hold the same values)
                 grads = collectives.allreduce_mean_flat(self.ctx, grads)
             new_cache = self._cache_update(state, state.params, batch)  # pre-update params
-            opt.update(_tree_from_paths(dict(zip(paths, grads))),
-                       state.opt_state, state.params, state.step)
+            self.optimizer.update(_tree_from_paths(dict(zip(paths, grads))),
+                                  state.opt_state, state.params, state.step, shard_reduce)
             self.step_counts["dense"] += 1
             return (state._replace(step=state.step + 1, extras=new_cache),
                     self._reduce_metrics(metrics))
@@ -417,7 +538,9 @@ class Trainer:
         become ``arange(B)`` with the true ids in ``mask_ids`` (the
         accidental-hit mask), so autograd returns per-occurrence [B, D] and
         [B] row gradients; :meth:`_sparse_apply` updates the touched rows.
-        No [V, D] gradient is ever formed."""
+        No [V, D] gradient is ever formed. Under row sharding the virtual
+        rows are read through the lookup (values only) and the ids are
+        clipped to the whole tables' rows."""
         cfg = self.config
         if cfg.train.optimizer == "adam":
             logger.info(
@@ -436,15 +559,26 @@ class Trainer:
             movie = batch["movie_id"].long()
             ids = {"user_table": batch["user_id"].long(), "item_table": movie,
                    "item_bias": movie}
-            ids = {k: v.clamp(0, tw[k].shape[0] - 1) for k, v in ids.items()}
-            virt = {k: tw[k].detach()[ids[k]].requires_grad_(True) for k in self._TABLE_KEYS}
+            ids = {k: v.clamp(0, self._global_rows(tw, k) - 1) for k, v in ids.items()}
+            lookup = self._lookup()
+            with torch.no_grad():
+                if lookup is None:
+                    virt = {k: tw[k][ids[k]] for k in self._TABLE_KEYS}
+                else:  # the rows of the unclipped ids, as JAX reads them
+                    virt = {"user_table": lookup(tw["user_table"], batch["user_id"]),
+                            "item_table": lookup(tw["item_table"], batch["movie_id"]),
+                            "item_bias": tw["item_bias"][ids["item_bias"]]}
+            virt = {k: v.detach().requires_grad_(True) for k, v in virt.items()}
             vparams = {**params, "towers": {**tw, **virt}}
             ar = torch.arange(movie.shape[0], dtype=torch.int32, device=movie.device)
             vbatch = {**batch, "user_id": ar, "movie_id": ar, "mask_ids": batch["movie_id"]}
+            # the virtual tables are local [B, D] rows: no lookup in the loss
             _, metrics = MultiTaskModel.loss(
                 vparams, cfg.model, vbatch, generator=self._generator(state), train=True,
                 class_weights=class_weights, extra_candidates=self._cache_tuple(state),
-                **self._loss_axis())
+                **{**self._loss_axis(), "lookup": None})
+            if self._a2a():
+                metrics["lookup_overflow"] = self._overflow(tw, batch)
             paths, leaves = zip(*leaves_with_paths(vparams))
             grads = dict(zip(paths, _grads(metrics["loss"], leaves)))
             if self.ctx is not None:
@@ -456,6 +590,12 @@ class Trainer:
                     self._reduce_metrics(metrics))
 
         return step_fn
+
+    def _global_rows(self, tw, key: str) -> int:
+        """The rows of table leaf ``key`` as a whole (its shard's times
+        ``n_model`` under row sharding)."""
+        n = tw[key].shape[0]
+        return n * self.ctx.n_model if self.rows and key in _SHARDED_KEYS else n
 
     @torch.no_grad()
     def _global_sparse_grads(self, grads: Dict[Tuple[str, ...], torch.Tensor],
@@ -492,7 +632,10 @@ class Trainer:
         dense step's norm: untouched rows add zero); ``dense_opt``, the
         configured optimizer without its own clipping, updates the dense
         leaves with the ranking LR scale; the tables take sparse adagrad or
-        lazy Adam on their touched rows at the base LR."""
+        lazy Adam on their touched rows at the base LR. Under row sharding
+        the combined rows (and so the norm) are the global batch's on every
+        rank, and each rank writes only the ids its shards own, at ``id - m *
+        V / n``; ``item_bias`` is updated whole."""
         t = self.config.train
         table_paths = {("towers", k): k for k in self._TABLE_KEYS}
         comb = {k: opt_lib.combine_duplicate_rows(ids[k], grads[p])
@@ -502,19 +645,47 @@ class Trainer:
         if t.clipnorm > 0:
             sq = sum(torch.sum(torch.square(g)) for g in dense.values())
             sq = sq + sum(torch.sum(torch.square(c[1])) for c in comb.values())
-            scale = torch.clamp(t.clipnorm / torch.clamp(torch.sqrt(sq), min=1e-12), max=1.0)
+            scale = opt_lib.clip_scale(torch.sqrt(sq), t.clipnorm)
             dense = {p: g * scale for p, g in dense.items()}
         dense_opt.update(_tree_from_paths(dense), state.opt_state, state.params, state.step)
         lr = self._schedule(state.step)
         tw, slots = state.params["towers"], state.opt_state
+        slot_names = ("accum",) if t.optimizer == "adagrad" else ("mu", "nu")
         for k, (slot_ids, combined, valid) in comb.items():
+            held = [tw[k]] + [slots[n]["towers"][k] for n in slot_names]
+            kept = None
+            if self.rows and k in _SHARDED_KEYS:
+                slot_ids, combined, valid, kept = self._owned_slots(slot_ids, combined, valid,
+                                                                    held)
             if t.optimizer == "adagrad":
-                opt_lib.sparse_adagrad_combined(tw[k], slots["accum"]["towers"][k], slot_ids,
-                                                combined, valid, lr, grad_scale=scale)
+                opt_lib.sparse_adagrad_combined(tw[k], held[1], slot_ids, combined, valid, lr,
+                                                grad_scale=scale)
             else:  # adam -> lazy Adam on the touched rows
-                opt_lib.sparse_lazy_adam_combined(
-                    tw[k], slots["mu"]["towers"][k], slots["nu"]["towers"][k], slot_ids,
-                    combined, valid, lr, state.step, grad_scale=scale)
+                opt_lib.sparse_lazy_adam_combined(tw[k], held[1], held[2], slot_ids, combined,
+                                                  valid, lr, state.step, grad_scale=scale)
+            if kept is not None:
+                row, saved, any_owned = kept
+                for h, old in zip(held, saved):
+                    h[row] = torch.where(any_owned, h[row], old)
+
+    def _owned_slots(self, slot_ids, combined, valid, held):
+        """The global batch's combined rows for this rank's table shard
+        (``held``: the shard and its slots): the ids it owns at their local
+        rows ``id - m * V / n``, the rest invalid. The touched-rows update
+        writes slot 0's row in place of every invalid slot, so the first
+        owned slot is swapped into slot 0; a shard that owns none would see
+        slot 0's row written, so that row of every held tensor is saved.
+        -> (slot ids, combined, valid, (row, saved rows, any owned)): the
+        caller writes the saved rows back unless a slot was owned."""
+        rows = held[0].shape[0]
+        local = slot_ids - self.ctx.model_index * rows
+        owned = valid & (local >= 0) & (local < rows)
+        ar = torch.arange(owned.shape[0], device=owned.device)
+        first = torch.argmax(owned.to(torch.int32))  # 0 when none is owned
+        swap = torch.where(ar == 0, first, torch.where(ar == first, 0, ar))
+        local, combined, owned = local.clamp(0, rows - 1)[swap], combined[swap], owned[swap]
+        row = local[:1]
+        return local, combined, owned, (row, [h[row] for h in held], owned[0])
 
     # ---- CBNS cross-batch negative cache (TrainConfig.negative_cache) --
     @staticmethod
@@ -531,13 +702,14 @@ class Trainer:
         (item tower in inference mode on the PRE-update params, the
         encodings this step scored) with their ``item_bias - log_q``
         correction appended, the oldest batch dropped. The ids are the true
-        item ids. Under a mesh every rank appends the global batch."""
+        item ids. Under a mesh every rank appends the global batch; under
+        row sharding the embeddings are read through the step's lookup."""
         if state.extras is None:
             return None
         cfg = self.config
         tw = params["towers"]
         ids = batch["movie_id"]
-        emb = TwoTower.item_embed(tw, ids, cfg.model, train=False)
+        emb = TwoTower.item_embed(tw, ids, cfg.model, train=False, lookup=self._lookup())
         corr = torch.zeros(ids.shape, dtype=torch.float32, device=emb.device)
         if cfg.model.use_item_bias:
             corr = corr + tw["item_bias"][ids.long().clamp(0, tw["item_bias"].shape[0] - 1)]
@@ -574,13 +746,16 @@ class Trainer:
 
     def make_eval_step(self, class_weights) -> Callable:
         """-> ``eval_fn(params, batch) -> metrics``: the loss metrics of one
-        (masked) batch in inference mode."""
+        (masked) batch in inference mode. Under row sharding every rank
+        scores the batch through the psum lookup, exact as the JAX
+        package's GSPMD gather (an a2a bucket could drop rows)."""
         cfg = self.config
+        lookup = self._lookup("psum")
 
         @torch.no_grad()
         def eval_fn(params, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             _, metrics = MultiTaskModel.loss(params, cfg.model, batch, train=False,
-                                             class_weights=class_weights)
+                                             class_weights=class_weights, lookup=lookup)
             return metrics
 
         return eval_fn
@@ -603,14 +778,16 @@ class Trainer:
             bl = self.ctx.local_batch(b)
             lo = self.ctx.data_index * bl
 
+        keys = self._metric_keys()
+
         def epoch_fn(state: TrainState, data: Dict[str, torch.Tensor], epoch: int):
             perm_gen.manual_seed(base * 1_000_003 + epoch)
             perm = torch.randperm(n_rows, generator=perm_gen, device=self.device)
-            sums = {k: torch.zeros((), device=self.device) for k in METRIC_KEYS}
+            sums = {k: torch.zeros((), device=self.device) for k in keys}
             for i in range(n_steps):
                 idx = perm[i * b + lo:i * b + lo + bl]
                 state, metrics = step_fn(state, {k: v[idx] for k, v in data.items()})
-                for k in METRIC_KEYS:
+                for k in keys:
                     sums[k] += metrics[k]
             return state, {k: v / max(n_steps, 1) for k, v in sums.items()}
 
@@ -618,9 +795,11 @@ class Trainer:
 
     def make_val_epoch(self, class_weights, n_steps: int) -> Callable:
         """-> ``val_fn(params, data) -> metrics``: the mask-weighted mean of
-        the loss metrics over ``n_steps`` padded batches."""
+        the loss metrics over ``n_steps`` padded batches (through the psum
+        lookup under row sharding, as ``make_eval_step``)."""
         cfg = self.config
         b = cfg.train.batch_size
+        lookup = self._lookup("psum")
 
         @torch.no_grad()
         def val_fn(params, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -629,7 +808,7 @@ class Trainer:
             for i in range(n_steps):
                 batch = {k: v[i * b:(i + 1) * b] for k, v in data.items()}
                 _, metrics = MultiTaskModel.loss(params, cfg.model, batch, train=False,
-                                                 class_weights=class_weights)
+                                                 class_weights=class_weights, lookup=lookup)
                 w = torch.sum(batch["mask"])
                 for k in METRIC_KEYS:
                     sums[k] += metrics[k] * w
@@ -639,11 +818,14 @@ class Trainer:
         return val_fn
 
     # ---- checkpoints -------------------------------------------------
-    @staticmethod
-    def _state_dict(state: TrainState) -> Dict[str, Any]:
+    def _state_dict(self, state: TrainState) -> Dict[str, Any]:
         """The checkpointed tree; ``extras`` (the cache) is None and left
-        out of the npz when the cache is off, as in the JAX package."""
-        return {"params": state.params, "opt_state": state.opt_state,
+        out of the npz when the cache is off, as in the JAX package. Under
+        row sharding the tables and their slots are gathered whole onto rank
+        0's host (:meth:`_host_whole`: every rank calls this, rank 0 writes),
+        so the npz has the one-card layout."""
+        return {"params": self._host_whole(state.params),
+                "opt_state": self._host_whole(state.opt_state),
                 "step": np.int64(state.step), "rng": np.int64(state.rng),
                 "extras": state.extras}
 
@@ -656,6 +838,11 @@ class Trainer:
                 t.copy_(torch.from_numpy(np.asarray(saved[path])))
 
     def _load_state(self, state: TrainState, tree: Dict) -> TrainState:
+        """A restored (whole) checkpoint into ``state``; under row sharding
+        each rank keeps its rows of the tables and their slots."""
+        if self.rows:
+            tree = {**tree, "params": ckpt_lib.keep_row_shards(self.ctx, tree["params"]),
+                    "opt_state": ckpt_lib.keep_row_shards(self.ctx, tree["opt_state"])}
         self._copy_into(state.params, tree["params"])
         self._copy_into(state.opt_state, tree["opt_state"])
         if state.extras is not None and "extras" in tree:
@@ -767,8 +954,10 @@ class Trainer:
         dev = self.device
         n_users = int(bundle["meta/n_users"])
         n_items = int(bundle["meta/n_movies"])
-        logger.info("training: %d users, %d items on %s%s", n_users, n_items, dev,
-                    "" if self.ctx is None else f", data-parallel over {self.ctx.n_data} ranks")
+        logger.info("training: %d users, %d items on %s%s%s", n_users, n_items, dev,
+                    "" if self.ctx is None else f", data-parallel over {self.ctx.n_data} ranks",
+                    f", tables row-sharded over {self.ctx.n_model} ranks "
+                    f"({cfg.mesh.lookup_strategy} lookup)" if self.rows else "")
         self.writer.write_config(cfg)
 
         class_weights = (losses.balanced_class_weights(bundle["train/y_implicit"])
@@ -930,6 +1119,15 @@ class Trainer:
                 epoch_time = time.time() - t0
                 examples_total += n_steps * t_cfg.batch_size
                 logs["examples_per_s"] = n_steps * t_cfg.batch_size / max(epoch_time, 1e-9)
+                if logs.get("train_lookup_overflow", 0.0) > 0:
+                    # overflowing ids train against zero rows: say so, with the knob
+                    logger.warning(
+                        "a2a lookup overflow: %.1f ids/step (mean) exceeded the per-shard "
+                        "exchange capacity and were served zero rows. Raise "
+                        "mesh.lookup_capacity_factor (currently %.2f; capacity = ceil(factor "
+                        "* B_local / n_shards) per (src, dst) shard pair) until "
+                        "lookup_overflow reports 0.", logs["train_lookup_overflow"],
+                        cfg.mesh.lookup_capacity_factor)
                 if resident:
                     logs.update({f"val_{k}": float(v)
                                  for k, v in val_epoch(state.params, val_data).items()})
@@ -946,14 +1144,19 @@ class Trainer:
                 if t_cfg.eval_every_epochs and (epoch + 1) % t_cfg.eval_every_epochs == 0:
                     sample_cfg = dataclasses.replace(
                         cfg.eval, eval_sample=cfg.eval.eval_sample or 20_000, topk=(10,))
-                    logs["val_recall@10"] = evaluate(
-                        state.params, cfg.model, bundle, "val", sample_cfg, seed=t_cfg.seed,
-                        dense=val_dense)["recall@10"]
+                    whole = self._host_whole(state.params)
+                    recall = None
+                    if self._is_writer():
+                        recall = evaluate(self._placed(whole), cfg.model, bundle, "val",
+                                          sample_cfg, seed=t_cfg.seed,
+                                          dense=val_dense)["recall@10"]
+                    del whole
+                    logs["val_recall@10"] = self._from_writer(recall)
                 if (self.ctx is not None and t_cfg.replication_check_every_epochs
                         and (epoch + 1) % t_cfg.replication_check_every_epochs == 0
-                        and self.ctx.n_data > 1):
-                    logs["replica_checksum"] = float(assert_replicated(state.params,
-                                                                       self.ctx)[0])
+                        and self.ctx.n_devices > 1):
+                    logs["replica_checksum"] = float(assert_replicated(
+                        state.params, self.ctx, skip=_SHARDED_KEYS if self.rows else ())[0])
                 self.writer.end_epoch(epoch, logs)
                 if self._preempted_anywhere():
                     self.ckpt.save(state.step, self._state_dict(state),
@@ -996,14 +1199,17 @@ class Trainer:
         wall = time.time() - t_train0
         self.final_state = state
         # rank 0 (the only rank without a mesh) evaluates and writes; the
-        # others take its report and wait for its files at the barrier
-        writer = self.ctx is None or dist.get_rank() == 0
+        # others take its report and wait for its files at the barrier.
+        # Under row sharding the tables are gathered onto its host first.
+        writer = self._is_writer()
+        whole = None if preempted else self._host_whole(state.params)
+        params = self._placed(whole) if writer and not preempted else None
         report = None
         if writer and preempted:
             report = {"preempted": True, "train_wall_time_s": wall,
                       "epochs_run": final_epoch + 1, "resume_step": state.step}
         elif writer:
-            report = evaluate(state.params, cfg.model, bundle, "val", cfg.eval,
+            report = evaluate(params, cfg.model, bundle, "val", cfg.eval,
                               seed=t_cfg.seed, dense=val_dense)
             report["train_wall_time_s"] = wall
             report["examples_per_s"] = examples_total / max(wall, 1e-9)
@@ -1012,19 +1218,26 @@ class Trainer:
             self.writer.write_final_metrics(report)
             self.writer.close()
         if writer and not preempted:
-            index = RetrievalIndex.build(state.params["towers"], cfg.model, n_items,
+            index = RetrievalIndex.build(params["towers"], cfg.model, n_items,
                                          bundle["meta/movie_raw_ids"], device=dev)
             ckpt_lib.save_inference_bundle(
-                f"{self.output_dir}/serving", state.params["towers"], cfg,
+                f"{self.output_dir}/serving", whole["towers"], cfg,
                 bundle["meta/user_raw_ids"], bundle["meta/movie_raw_ids"],
-                index=index, full_params=state.params,
+                index=index, full_params=whole,
                 feature_state=None if engineer is None else engineer.state_dict())
+        report = self._from_writer(report)
         if self.ctx is not None:
-            shared = [report]
-            dist.broadcast_object_list(shared, src=0)
             dist.barrier()
-            report = shared[0]
         return report
+
+    def _from_writer(self, value):
+        """``value`` as rank 0 computed it, on every rank (a broadcast under
+        a mesh)."""
+        if self.ctx is None:
+            return value
+        shared = [value]
+        dist.broadcast_object_list(shared, src=0)
+        return shared[0]
 
     def _preempted_anywhere(self) -> bool:
         """Whether SIGTERM or SIGUSR1 reached this process, or under a mesh

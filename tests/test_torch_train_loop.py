@@ -218,8 +218,8 @@ def test_preemption_checkpoint_then_resume(tiny_bundle, tmp_path, monkeypatch):
 
 
 _UNPORTED = {
-    "model-parallel mesh": (lambda: RecsysConfig(mesh=MeshConfig(model_axis=2)),
-                            "item 8c, row-sharded tables"),
+    "debug_nans": (lambda: RecsysConfig(train=TrainConfig(debug_nans=True)),
+                   "item 7, debug and profile"),
     "profile": (lambda: RecsysConfig(train=TrainConfig(profile=True)),
                 "item 7, debug and profile"),
 }
@@ -230,6 +230,16 @@ def test_unported_modes_raise(mode, tmp_path):
     make_cfg, item = _UNPORTED[mode]
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1: {item}"):
         Trainer(make_cfg(), str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("axis", ["model_axis", "data_axis"])
+def test_a_mesh_axis_without_a_mesh_raises(axis, tmp_path):
+    """A model (or data) axis of 2 asks for a mesh: without one (no process
+    group, no ``mesh_ctx``) the trainer refuses, and never trains
+    replicated on one device instead."""
+    cfg = RecsysConfig(mesh=MeshConfig(**{axis: 2, "embedding_sharding": "rows"}))
+    with pytest.raises(ValueError, match=f"mesh.{axis}=2 needs a mesh"):
+        Trainer(cfg, str(tmp_path), device="cpu")
 
 
 # the modes that raised before explicit negatives and the streaming path
@@ -380,21 +390,22 @@ def test_cli_config_matches_the_jax_cli(name, monkeypatch):
     assert cli.build_config(cli.build_parser().parse_args(argv)).to_json() == want
 
 
-@pytest.mark.parametrize("flag, value, item", [
-    ("--model_parallel", "2", "item 8c"),
-    ("--embedding_sharding", "rows", "item 8c"), ("--lookup_strategy", "psum", "item 8c"),
-    ("--lookup_strategy", "a2a", "item 8c")])
-def test_cli_unported_mode_values_name_their_roadmap_item(flag, value, item, monkeypatch,
-                                                          capsys):
-    """A value the JAX CLI takes and the port does not run yet exits with
-    an error that names its ROADMAP Queue 1 item, before any data is read."""
-    argv = ["--data", "missing.npz", flag, value]
-    jax_cli.build_config(_jax_cli_args(argv, monkeypatch))  # the JAX CLI takes it
-    with pytest.raises(SystemExit) as exc:
-        cli.main(argv)
-    assert exc.value.code != 0
-    err = capsys.readouterr().err
-    assert f"{flag} {value}" in err and f"ROADMAP Queue 1 {item}" in err
+@pytest.mark.parametrize("argv", [
+    ["--model_parallel", "2"],
+    ["--model_parallel", "2", "--embedding_sharding", "rows", "--lookup_strategy", "psum"],
+    ["--model_parallel", "4", "--embedding_sharding", "rows", "--lookup_strategy", "a2a",
+     "--set", "mesh.lookup_capacity_factor=1.5"],
+    ["--embedding_sharding", "rows", "--lookup_strategy", "a2a"]])
+def test_cli_row_flags_reach_the_config_of_the_jax_cli(argv, monkeypatch):
+    """The row-sharding flags (and ``--set mesh.lookup_capacity_factor``,
+    which ``scripts/train.py``'s ``main`` applies after ``build_config``)
+    give the ``config.json`` of ``scripts/train.py`` for the same argv."""
+    argv = ["--data", "missing.npz"] + argv
+    args = _jax_cli_args(argv, monkeypatch)
+    want = jax_cli.build_config(args)
+    if args.overrides:
+        want = want.replace(**cli.parse_overrides(args.overrides))
+    assert cli.build_config(cli.build_parser().parse_args(argv)).to_json() == want.to_json()
 
 
 def test_cli_resume_reaches_the_trainer_and_unported_flags_stay_errors(tiny_bundle, tmp_path):

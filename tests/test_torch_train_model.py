@@ -83,26 +83,26 @@ def assert_grads_close(got, want, mixed: bool, what: str = ""):
     assert (err <= bound + BF16_ULP * scale).all(), f"{what}: beyond one bf16 ulp"
 
 
-def _loss_both(jcfg, tcfg, batch, seed=0):
+def _loss_both(jcfg, tcfg, batch, seed=0, lookups=(None, None)):
     jp = jax.device_get(JaxMultiTask.init(jax.random.PRNGKey(seed), jcfg, N_USERS, N_ITEMS))
     (jloss, jmetrics), jgrads = jax.value_and_grad(JaxMultiTask.loss, has_aux=True)(
         jp, jcfg, {k: jnp.asarray(v) for k, v in batch.items()}, train=True,
-        class_weights=CLASS_WEIGHTS)
+        class_weights=CLASS_WEIGHTS, lookup=lookups[0])
     tp = params_from_numpy(jp, "cpu")
     paths, leaves = zip(*leaves_with_paths(tp))
     for leaf in leaves:
         leaf.requires_grad_(True)
     tloss, tmetrics = MultiTaskModel.loss(
         tp, tcfg, {k: torch.as_tensor(v) for k, v in batch.items()}, train=True,
-        class_weights=CLASS_WEIGHTS)
+        class_weights=CLASS_WEIGHTS, lookup=lookups[1])
     tgrads = torch.autograd.grad(tloss, leaves, allow_unused=True)
     tgrads = {p: (torch.zeros_like(leaf) if g is None else g)
               for p, leaf, g in zip(paths, leaves, tgrads)}
     return (jmetrics, dict(leaves_with_paths(jax.device_get(jgrads)))), (tmetrics, tgrads)
 
 
-def _check_loss_both(jcfg, tcfg, batch, grad_scale_tol=None):
-    (jm, jg), (tm, tg) = _loss_both(jcfg, tcfg, batch)
+def _check_loss_both(jcfg, tcfg, batch, grad_scale_tol=None, lookups=(None, None)):
+    (jm, jg), (tm, tg) = _loss_both(jcfg, tcfg, batch, lookups=lookups)
     for k in ("loss", "retrieval_loss", "rating_mse", "ctr_bce", "l2"):
         np.testing.assert_allclose(float(tm[k].detach()), float(jm[k]), rtol=1e-5,
                                    atol=1e-7, err_msg=k)
@@ -162,15 +162,21 @@ def test_multitask_loss_mask_ids_and_oov_bias_clip():
 
 
 def test_loss_raises_for_unported_arguments():
-    """A custom ``lookup`` (the row-sharded tables' collective lookups) is
-    not ported and names its ROADMAP item; a data axis runs (the data-
-    parallel step, ``tests/test_torch_dp_train.py``) but needs the mesh
-    context that resolves it."""
-    _, tcfg = _configs()
+    """A custom ``lookup`` (the seam of the row-sharded tables' collective
+    lookups) replaces the towers' gather: ``lookup_replicated`` in both
+    packages gives the JAX loss and every gradient to 1e-5, the batch's
+    ids past the catalog clipped by the lookup. A data axis runs (the
+    data-parallel step, ``tests/test_torch_dp_train.py``) but needs the
+    mesh context that resolves it."""
+    from recsys_tpu.embed.table import lookup_replicated as jax_lookup_replicated
+    from recsys_tpu_torch.embed.table import lookup_replicated
+
+    jcfg, tcfg = _configs()
+    batch = _batch()
+    batch["movie_id"][:4] = N_ITEMS + 5  # past the OOV row: the lookup clips them
+    _check_loss_both(jcfg, tcfg, batch, lookups=(jax_lookup_replicated, lookup_replicated))
     tp = MultiTaskModel.init(torch.Generator().manual_seed(0), tcfg, N_USERS, N_ITEMS, "cpu")
     batch = {k: torch.as_tensor(v) for k, v in _batch().items()}
-    with pytest.raises(NotImplementedError, match="item 8c, row-sharded tables"):
-        MultiTaskModel.loss(tp, tcfg, batch, lookup=lambda table, ids: table[ids])
     with pytest.raises(ValueError, match="needs the mesh_ctx"):
         MultiTaskModel.loss(tp, tcfg, batch, data_axis="data")
     for fn in (losses.in_batch_softmax, losses.in_batch_softmax_chunked):
