@@ -238,8 +238,25 @@
     --standalone --nproc_per_node 1`` with ``--model_parallel 1
     --embedding_sharding rows --lookup_strategy a2a``, one epoch, against
     the plain CLI (losses and params at phase 10's bounds);
-28. prints a ``{"kernels": [...]}`` line (each kernel's launches in phase
-    27 (b) as ``launches_rows_lookup``), the nvidia-smi line, and last
+28. the trainer's debugging modes and the row-sharded checkpoint: (a)
+    ``Trainer.train`` one epoch of phase 8's bundle at the full-width
+    defaults with ``train.profile`` and ``train.debug_nans`` on, the
+    counters set to 0 just before and read just after (rows 2, 3, 4, 6 and
+    7 launch, row 5 never), the trace under ``<out>/profile`` parsed, each
+    of those rows' kernels in it (its events beside its launches), whether
+    the TensorBoard sink was on; (b) 3 full-width steps (dropout on) with
+    the NaN checks against 3 without, bit-equal, the step profiled with
+    the checks off and on in turns; (c) a NaN in the first cross layer's ``w`` raises
+    ``FloatingPointError`` naming row 2 with the state untouched, and
+    ``Trainer.train`` with it planted writes no checkpoint; a NaN in one
+    rating names an aten op; (d) phase 18's 4,000,001 x 128 fp32 user
+    table (padded to 4,000,004 rows) and an adagrad slot written by the
+    streaming checkpoint writer on a one-rank NCCL mesh, read back as 4 row
+    ranges, each bit-equal, and ``np.load`` of the member equal to the
+    table, with the seconds and peak RSS growth of each;
+29. prints a ``{"kernels": [...]}`` line (each kernel's launches in phase
+    27 (b) as ``launches_rows_lookup`` and in phase 28 (a) as
+    ``launches_debug``), the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line. Without a
@@ -262,6 +279,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4241,6 +4259,314 @@ def data_parallel_path(repo: str, counters, tmp: str, bundle_np: dict) -> dict:
     return out
 
 
+# ---- phase 28: the debugging modes and the row-sharded checkpoint -----------
+
+# kernel row -> the wrapper's counter and the names of its main CUDA kernel
+# (a row 3 launch also runs its reduction, a row 4 launch at times its
+# combine kernel: neither is counted here)
+DEBUG_ROWS = {2: ("dcn_cross", ("dcn_cross_fwd_kernel",)),
+              3: ("dcn_cross_bwd", ("dcn_cross_bwd_kernel", "dcn_cross_bwd_smem_kernel")),
+              4: ("flash_ce_fwd", ("flash_ce_fwd_kernel", "flash_ce_fwd_tc_kernel")),
+              5: ("flash_ce_bwd_fused", ("flash_ce_bwd_kernel", "flash_ce_bwd_tc_kernel")),
+              6: ("flash_ce_bwd_du", ("flash_ce_bwd_du_kernel", "flash_ce_bwd_du_tc_kernel")),
+              7: ("flash_ce_bwd_dv", ("flash_ce_bwd_dv_kernel", "flash_ce_bwd_dv_tc_kernel"))}
+# phase 18's user table, padded to 4 row ranges
+CKPT_TABLE_ROWS, CKPT_RANGES = GIANT_USERS + 4, 4
+
+
+def _trace_kernel_counts(trace_path: str) -> dict:
+    """Kernel events of a ``torch.profiler`` trace by kernel row (the
+    ``DEBUG_ROWS`` names, as whole words of the event's name)."""
+    import re
+
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    out = {}
+    for row, (_, kernels) in DEBUG_ROWS.items():
+        pat = re.compile(r"(?<![A-Za-z0-9_])(" + "|".join(kernels) + r")(?![A-Za-z0-9_])")
+        out[row] = sum(1 for n in names if pat.search(n))
+    out["all_kernels"] = len(names)
+    return out
+
+
+class _RssPeak:
+    """The process's resident set sampled every 5 ms on a thread: ``growth``
+    is the peak over the ``with`` block less the size at its start."""
+
+    @staticmethod
+    def rss() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        raise RuntimeError("no VmRSS in /proc/self/status")
+
+    def __enter__(self):
+        self.start = self.peak = self.rss()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.is_set():
+                self.peak = max(self.peak, self.rss())
+                time.sleep(0.005)
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self.t0
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.rss())
+        self.growth = self.peak - self.start
+        return False
+
+
+def debug_epoch(bundle_np: dict, counters, tmp: str) -> dict:
+    """Phase 28 (a): ``Trainer.train`` one epoch of phase 8's bundle at the
+    full-width defaults with ``profile`` and ``debug_nans`` on, the
+    counters set to 0 just before and read just after: rows 2, 3, 4, 6 and
+    7 launch and row 5 does not; the trace under ``<out>/profile`` parses
+    and names each of those rows' kernels; each row's trace events beside
+    its launches (a shortfall is recorded, not hidden)."""
+    import glob
+    import math
+
+    import torch
+    from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
+    from recsys_tpu_torch.train.trainer import Trainer
+    from recsys_tpu_torch.utils.debug import disable_nan_checks
+
+    out_dir = os.path.join(tmp, "debug_epoch")
+    cfg = RecsysConfig(model=ModelConfig(), train=TrainConfig(
+        batch_size=TRAIN_BATCH, epochs=1, profile=True, debug_nans=True))
+    trainer = Trainer(cfg, out_dir, device="cuda")
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    try:
+        report = trainer.train(bundle_np)
+        torch.cuda.synchronize()
+    finally:
+        disable_nan_checks()
+    wall = time.perf_counter() - t0
+    launches = {c.name: c.read() for c in counters}
+    for row in (2, 3, 4, 6, 7):
+        check(launches[DEBUG_ROWS[row][0]] > 0, f"phase 28: row {row} never launched")
+    check(launches["flash_ce_bwd_fused"] == 0, "phase 28: row 5 ran on bf16 operands")
+    check(math.isfinite(report["recall@10"]), f"phase 28: recall@10 {report['recall@10']}")
+    traces = glob.glob(os.path.join(out_dir, "profile", "*.pt.trace.json"))
+    check(len(traces) == 1, f"phase 28: traces {traces}")
+    events = _trace_kernel_counts(traces[0])
+    for row in (2, 3, 4, 6, 7):
+        check(events[row] > 0, f"phase 28: the trace holds no kernel of row {row}")
+    steps = N_TRAIN // TRAIN_BATCH
+    return {"launches": launches, "wall_s": wall, "steps": steps,
+            "trace_events": {DEBUG_ROWS[r][0]: events[r] for r in DEBUG_ROWS},
+            "trace_kernel_events": events["all_kernels"],
+            "trace_mb": os.path.getsize(traces[0]) / 1e6,
+            "tensorboard_sink": os.path.isdir(os.path.join(out_dir, "tensorboard")),
+            "recall@10": report["recall@10"]}
+
+
+def debug_steps(bundle_np: dict, tmp: str) -> dict:
+    """Phase 28 (b) and (c). (b): 3 full-width steps (dropout on) with the
+    NaN checks on against 3 without from one init: params, slots and
+    losses bit-equal; the step profiled with the checks off and on in
+    turns (off, on, on, off: wall p50, device ms, launches). (c): a NaN in the first cross layer's ``w`` raises
+    ``FloatingPointError`` naming row 2, the params and slots untouched,
+    and ``Trainer.train`` with it planted writes no checkpoint; a NaN in
+    one rating of the first batch raises naming an aten op."""
+    import torch
+    from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
+    from recsys_tpu_torch.models.losses import balanced_class_weights
+    from recsys_tpu_torch.train.optimizer import leaves_with_paths
+    from recsys_tpu_torch.train.trainer import Trainer
+    from recsys_tpu_torch.utils.debug import disable_nan_checks, enable_nan_checks
+
+    cw = balanced_class_weights(bundle_np["train/y_implicit"])
+    batches = _batches(bundle_np, PARITY_STEPS, TRAIN_BATCH, "cuda", _log_q(bundle_np))
+    cfg = RecsysConfig(model=ModelConfig(), train=TrainConfig(batch_size=TRAIN_BATCH))
+    out = {}
+
+    def bits(tree):
+        return {p: t.detach().clone() for p, t in leaves_with_paths(tree)}
+
+    def same(a, b):
+        return all(torch.equal(a[p].view(torch.int32), b[p].view(torch.int32)) for p in a)
+
+    runs = []
+    for on in (False, True):
+        (enable_nan_checks if on else disable_nan_checks)()
+        try:
+            tr = Trainer(cfg, os.path.join(tmp, f"debug_steps_{on}"), device="cuda")
+            state = tr.init_state(N_USERS, N_ITEMS, SEED)
+            step = tr.make_train_step(cw)
+            losses = []
+            for b in batches:
+                state, m = step(state, b)
+                losses.append(m["loss"])
+            runs.append((bits(state.params), bits(state.opt_state), torch.stack(losses)))
+        finally:
+            disable_nan_checks()
+    (p0, s0, l0), (p1, s1, l1) = runs
+    equal = same(p0, p1) and same(s0, s1) and torch.equal(l0, l1)
+    check(equal, "phase 28: debug_nans changed the steps' result")
+    out["bit_equal"] = equal
+    out["losses"] = [float(x) for x in l0]
+    # the same step with the switch off and on, in turns (off, on, on, off)
+    holder = [state]
+
+    def one():
+        holder[0], _ = step(holder[0], batches[holder[0].step % PARITY_STEPS])
+
+    out["step_profiles"] = []
+    for on in (False, True, True, False):
+        (enable_nan_checks if on else disable_nan_checks)()
+        try:
+            out["step_profiles"].append(profile_call(
+                f"train_step_B{TRAIN_BATCH}_debug_nans_{'on' if on else 'off'}", one,
+                n_wall=20, n_traced=5, warmup=2, lead_in_ms=200.0))
+        finally:
+            disable_nan_checks()
+
+    # (c) the planted NaNs
+    enable_nan_checks()
+    msgs = {}
+    try:
+        tr = Trainer(cfg, os.path.join(tmp, "debug_nan"), device="cuda")
+        state = tr.init_state(N_USERS, N_ITEMS, SEED)
+        step = tr.make_train_step(cw)
+        with torch.no_grad():
+            state.params["dcn"]["cross"]["layer_0"]["w"][3] = float("nan")
+        before, slots = bits(state.params), bits(state.opt_state)
+        try:
+            step(state, batches[0])
+        except FloatingPointError as e:
+            msgs["cross_w"] = str(e)
+        check("kernel row 2 dcn_cross" in msgs.get("cross_w", ""),
+              f"phase 28: the planted w gave {msgs.get('cross_w')!r}")
+        check(same(before, bits(state.params)) and same(slots, bits(state.opt_state)),
+              "phase 28: the failed step changed the state")
+        state = tr.init_state(N_USERS, N_ITEMS, SEED)
+        batch = dict(batches[0])
+        batch["rating"] = batch["rating"].clone()
+        batch["rating"][5] = float("nan")
+        try:
+            step(state, batch)
+        except FloatingPointError as e:
+            msgs["rating"] = str(e)
+        check(msgs.get("rating", "").startswith("invalid value (nan) encountered in aten."),
+              f"phase 28: the planted rating gave {msgs.get('rating')!r}")
+        # through Trainer.train: it raises at step 0 and saves nothing
+        init_state = Trainer.init_state
+
+        def planted(self, *args, **kwargs):
+            st = init_state(self, *args, **kwargs)
+            with torch.no_grad():
+                st.params["dcn"]["cross"]["layer_0"]["w"][3] = float("nan")
+            return st
+
+        run = os.path.join(tmp, "debug_nan_train")
+        Trainer.init_state = planted
+        try:
+            Trainer(RecsysConfig(model=ModelConfig(), train=TrainConfig(
+                batch_size=TRAIN_BATCH, epochs=1, debug_nans=True)), run,
+                device="cuda").train(bundle_np)
+        except FloatingPointError as e:
+            msgs["train"] = str(e)
+        finally:
+            Trainer.init_state = init_state
+        check("kernel row 2 dcn_cross" in msgs.get("train", "")
+              and msgs["train"].endswith("at step 0"),
+              f"phase 28: Trainer.train with the planted w gave {msgs.get('train')!r}")
+        check(os.listdir(os.path.join(run, "checkpoints")) == [],
+              "phase 28: a checkpoint was written after the NaN")
+    finally:
+        disable_nan_checks()
+    out["messages"] = msgs
+    return out
+
+
+def ckpt_at_giant_shape(tmp: str) -> dict:
+    """Phase 28 (d): phase 18's user table (4,000,001 x 128 fp32, padded to
+    ``CKPT_TABLE_ROWS``) and one adagrad slot of it, on the card, written
+    through the streaming checkpoint writer (``RowShards`` on a one-rank
+    NCCL mesh: the rows come to the host in ``GATHER_CHUNK_BYTES`` chunks),
+    then read back as ``CKPT_RANGES`` row ranges, each bit-equal to its
+    rows, and ``np.load`` of the whole member equal to the table; the
+    seconds and the peak RSS growth of the write and of each read."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from recsys_tpu_torch.parallel import mesh as mesh_mod
+    from recsys_tpu_torch.parallel.sharding import GATHER_CHUNK_BYTES
+    from recsys_tpu_torch.train.checkpoint import CheckpointManager, RowShards
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    table = torch.randn((CKPT_TABLE_ROWS, 128), generator=g, device="cuda")
+    slot = torch.rand((CKPT_TABLE_ROWS, 128), generator=g, device="cuda")
+    keys = ("params/towers/user_table", "opt_state/accum/towers/user_table")
+    manager = CheckpointManager(os.path.join(tmp, "ckpt_giant"))
+    ctx = mesh_mod.make_mesh(model_parallel=1, data_parallel=1, device="cuda")
+    try:
+        check(dist.get_backend() == "nccl", "phase 28: not an NCCL mesh")
+        state = {"params": {"towers": {"user_table": RowShards(ctx, table)}},
+                 "opt_state": {"accum": {"towers": {"user_table": RowShards(ctx, slot)}}},
+                 "step": np.int64(1)}
+        with _RssPeak() as w:
+            manager.save(1, state)
+    finally:
+        mesh_mod.shutdown()
+    check(not dist.is_initialized(), "the process group outlived phase 28")
+    path = os.path.join(tmp, "ckpt_giant", "ckpt_1", "state.npz")
+    want = {k: t.cpu().numpy().view(np.uint32) for k, t in zip(keys, (table, slot))}
+    table_bytes = table.numel() * 4
+    del table, slot
+    torch.cuda.empty_cache()
+    n = CKPT_TABLE_ROWS // CKPT_RANGES
+    reads = []
+    for i in range(CKPT_RANGES):
+        lo, hi = i * n, (i + 1) * n
+        with _RssPeak() as r:
+            got = manager.restore(1, rows={k: (lo, hi) for k in keys})
+        flat = {keys[0]: got["params"]["towers"]["user_table"],
+                keys[1]: got["opt_state"]["accum"]["towers"]["user_table"]}
+        for k in keys:
+            check(np.array_equal(flat[k].view(np.uint32), want[k][lo:hi]),
+                  f"phase 28: rows [{lo}, {hi}) of {k} are not the table's")
+        del got, flat
+        reads.append({"rows": [lo, hi], "s": r.seconds, "rss_growth_gb": r.growth / 1e9})
+    with _RssPeak() as whole_read:
+        with np.load(path) as z:
+            whole = z[keys[0]]
+    check(np.array_equal(whole.view(np.uint32), want[keys[0]]),
+          "phase 28: np.load of the streamed member is not the table")
+    del whole, want
+    out = {"table": [CKPT_TABLE_ROWS, 128], "table_gb": table_bytes / 1e9,
+           "chunk_mb": GATHER_CHUNK_BYTES / 1e6, "file_gb": os.path.getsize(path) / 1e9,
+           "write_s": w.seconds, "write_rss_growth_gb": w.growth / 1e9, "reads": reads,
+           "np_load_member_s": whole_read.seconds,
+           "np_load_rss_growth_gb": whole_read.growth / 1e9}
+    shutil.rmtree(os.path.join(tmp, "ckpt_giant"))
+    return out
+
+
+def debug_modes_path(counters, tmp: str, bundle_np: dict) -> dict:
+    """Phase 28: (a) :func:`debug_epoch`, (b) and (c) :func:`debug_steps`,
+    (d) :func:`ckpt_at_giant_shape`."""
+    out = {"epoch": debug_epoch(bundle_np, counters, tmp)}
+    log(f"phase 28 (a): {json.dumps(out['epoch'])}")
+    out["steps"] = debug_steps(bundle_np, tmp)
+    log(f"phase 28 (b, c): {json.dumps(out['steps'])}")
+    out["ckpt"] = ckpt_at_giant_shape(tmp)
+    log(f"phase 28 (d): {json.dumps(out['ckpt'])}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4484,6 +4810,10 @@ def main() -> int:
         t_rows = time.perf_counter()
         rows_lookup = rows_lookup_path(repo, counters, dense_dir, bundle_np)
         log(f"row-sharded lookup phase in {time.perf_counter() - t_rows:.1f} s")
+        # ---- the debugging modes and the checkpoint I/O: the eleventh -----
+        t_debug = time.perf_counter()
+        debug_modes = debug_modes_path(counters, dense_dir, bundle_np)
+        log(f"debug-modes phase in {time.perf_counter() - t_debug:.1f} s")
     for row in negs.pop("profiles"):
         log(f"profile {json.dumps(row)}")
     log(f"explicit negatives and streaming: {json.dumps(negs)}")
@@ -4647,8 +4977,9 @@ def main() -> int:
                               "flash_ce_bwd_dv_kernel serves fp32 (FMA units, the fused "
                               "kernel's S/P/dV body, double-buffered query tiles, dv_plan "
                               "parts)")
-    for entry in kernels:  # phase 27's loss with the lookups
+    for entry in kernels:  # phase 27's loss with the lookups, phase 28's epoch
         entry["launches_rows_lookup"] = rows_lookup["loss"]["launches"][entry["name"]]
+        entry["launches_debug"] = debug_modes["epoch"]["launches"][entry["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

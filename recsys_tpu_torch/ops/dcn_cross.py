@@ -18,6 +18,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from recsys_tpu_torch.ops import _build
+from recsys_tpu_torch.utils.debug import kernel_nan_check
 
 MAX_FEATURES = 1024  # the kernels keep F/32 <= 32 values per lane in registers
 # the backward kernels' 8 warps each hand dw and db ([L, F] fp32) to the
@@ -121,6 +122,7 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+@kernel_nan_check("kernel row 2 dcn_cross (the cross stack's forward)")
 def _forward(x0, w, b, keep_resid: bool):
     """The forward wrapper: -> (out, resid or None)."""
     if x0.device.type == "cpu":
@@ -157,6 +159,7 @@ def dcn_cross(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tenso
 dcn_cross.launches = 0
 
 
+@kernel_nan_check("kernel row 3 dcn_cross_bwd (the cross stack's backward)")
 def dcn_cross_bwd(x0: torch.Tensor, w: torch.Tensor, resid: torch.Tensor,
                   g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """VJP of the cross stack: x0 [n, F], w [L, F], resid [L, n, F] (the

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from recsys_tpu_torch.ops import _build
+from recsys_tpu_torch.utils.debug import kernel_nan_check
 
 NEG_BIG = -1e9
 # tile sizes of csrc/flash_ce.cu (TQ: the query tile that the fused
@@ -331,6 +332,7 @@ def _on_cuda(u, what: str) -> bool:
     return True
 
 
+@kernel_nan_check("kernel row 4 flash_ce_fwd (the in-batch softmax CE forward)")
 def flash_ce_fwd(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
                  ids_q: torch.Tensor, ids_k: torch.Tensor, pos: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -552,6 +554,7 @@ def _vec(u, v) -> int:
                and u.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
 
 
+@kernel_nan_check("kernel row 5 flash_ce_bwd_fused (its fused backward)")
 def flash_ce_bwd_fused(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
                        ids_q: torch.Tensor, ids_k: torch.Tensor, pos: torch.Tensor,
                        lse: torch.Tensor, g: torch.Tensor,
@@ -634,6 +637,7 @@ def flash_ce_bwd_du_partials_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g,
     return _du_parts(pg32.to(u.dtype).float(), v.float(), p.ktile * p.tiles_per_part, p.parts)
 
 
+@kernel_nan_check("kernel row 6 flash_ce_bwd_du (its backward's dU)")
 def flash_ce_bwd_du(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
                     ids_q: torch.Tensor, ids_k: torch.Tensor, pos: torch.Tensor,
                     lse: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -710,6 +714,7 @@ def flash_ce_bwd_dv_partials_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g,
                      p.parts)
 
 
+@kernel_nan_check("kernel row 7 flash_ce_bwd_dv (its backward's dV and dcol)")
 def flash_ce_bwd_dv(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
                     ids_q: torch.Tensor, ids_k: torch.Tensor, pos: torch.Tensor,
                     lse: torch.Tensor, g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

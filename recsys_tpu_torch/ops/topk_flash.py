@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from recsys_tpu_torch.ops import _build
+from recsys_tpu_torch.utils.debug import kernel_nan_check
 
 NEG_INF = -1e30
 KBUF_MAX = 256
@@ -238,6 +239,7 @@ def topk_select(cand_s: torch.Tensor, cand_i: torch.Tensor, k: int
 topk_select.launches = 0
 
 
+@kernel_nan_check("kernel row 1 flash_topk (the exact top-k)")
 def flash_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
                normalize: bool = True,
                item_bias: Optional[torch.Tensor] = None,
@@ -380,6 +382,7 @@ def blockmax_plan(q_n: int, n: int, group: int, bf16: bool, n_sm: int) -> Blockm
     return BlockmaxPlan(tq, gpb, n_qt, _cdiv(n_groups, gpb))
 
 
+@kernel_nan_check("kernel row 8 blockmax_group_max (the sieve's per-group max)")
 def blockmax_group_max(user_emb: torch.Tensor, item_emb: torch.Tensor,
                        group: int) -> torch.Tensor:
     """Pass 1 of :func:`blockmax_topk`: [Q, d] x [N, d] (both bf16 or

@@ -4,9 +4,11 @@
 Each rank holds only its own ``data`` slice of a batch, on its device.
 A row-sharded table (``rows_sharding``: ``P("model", None)``) is held as
 this rank's ``model`` slice of its rows (:func:`shard_rows`), and
-:func:`gather_table` puts the whole table back together on the host of
-the axis's first rank (the JAX package's ``device_get``), a chunk at a
-time, so no card ever holds a whole table.
+:func:`table_chunks` brings the whole table's rows, in order, a chunk at a
+time, to the host of the axis's first rank: :func:`gather_table` puts them
+together there (the JAX package's ``device_get``), and the checkpoint
+writer streams them to disk, so no card, and no host of a checkpoint,
+holds a whole table.
 The JAX package's other ``NamedSharding`` helpers (``replicated``,
 ``batch_sharding``) have no counterpart: a rank's tensors are its shard,
 and what is replicated is what every rank holds whole.
@@ -14,7 +16,7 @@ and what is replicated is what every rank holds whole.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,9 +25,8 @@ from torch.utils._pytree import tree_map
 
 from recsys_tpu_torch.parallel.mesh import MeshContext
 
-# the rows each model rank sends to the first one per step of
-# ``gather_table``, in bytes: that rank's card holds ``n_model`` such
-# chunks at once
+# the rows a model rank sends to the first one at a time in
+# ``table_chunks``, in bytes: the first rank holds one such chunk at once
 GATHER_CHUNK_BYTES = 256 << 20
 
 
@@ -74,32 +75,54 @@ def shard_rows(ctx: MeshContext, table: torch.Tensor) -> torch.Tensor:
     return table[m * rows:(m + 1) * rows]
 
 
-def gather_table(ctx: MeshContext, shard: torch.Tensor,
-                 chunk_bytes: int = GATHER_CHUNK_BYTES) -> Optional[np.ndarray]:
-    """The whole table, every model rank's shard in axis order, as a numpy
-    array on the host of this rank's ``model`` group's first rank; None on
-    the group's other ranks. A collective over ``model`` (every rank of the
-    group calls it; outside autograd): the shards go to the first rank in
-    row chunks of about ``chunk_bytes``, each copied to the host before the
-    next, so no card holds more than its shard and ``n_model`` chunks."""
-    n, first = ctx.n_model, ctx.model_index == 0
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def table_chunks(ctx: MeshContext, shard: torch.Tensor, chunk_bytes: Optional[int] = None
+                 ) -> Iterator[Tuple[int, np.ndarray]]:
+    """The whole table's rows in order, every model rank's shard in axis
+    order, as (first row, rows) numpy chunks of about ``chunk_bytes``
+    (``GATHER_CHUNK_BYTES``) on the host of this rank's ``model`` group's
+    first rank; the group's other ranks send theirs and yield nothing. A
+    collective over ``model`` (every rank of the group runs it to its end;
+    outside autograd): the first rank receives one chunk at a time, each
+    on the host before the next is asked for, so it holds one chunk
+    besides its shard."""
+    n, me = ctx.n_model, ctx.model_index
     group = ctx.group(ctx.model_axis)
-    dst = dist.get_global_rank(group, 0)
     shard = shard.detach()
     rows = shard.shape[0]
-    out = None
-    if first:
-        out = np.empty((n * rows,) + tuple(shard.shape[1:]),
-                       dtype=torch.empty((), dtype=shard.dtype).numpy().dtype)
     row_bytes = max(shard[:1].numel() * shard.element_size(), 1)
-    step = max(1, chunk_bytes // row_bytes)
-    for lo in range(0, rows, step):
-        part = shard[lo:lo + step].contiguous()
-        parts = [torch.empty_like(part) for _ in range(n)] if first else None
-        dist.gather(part, parts, dst=dst, group=group)
-        if first:
-            for m, p in enumerate(parts):
-                out[m * rows + lo:m * rows + lo + p.shape[0]] = p.cpu().numpy()
+    step = max(1, (GATHER_CHUNK_BYTES if chunk_bytes is None else chunk_bytes) // row_bytes)
+    for m in range(n):
+        if me not in (0, m):
+            continue
+        for lo in range(0, rows, step):
+            part = shard[lo:lo + step].contiguous()
+            if me == m and m > 0:
+                dist.send(part, dst=dist.get_global_rank(group, 0), group=group)
+                continue
+            if m > 0:
+                host = np.empty(tuple(part.shape), numpy_dtype(part.dtype))
+                buf = torch.from_numpy(host) if part.device.type == "cpu" \
+                    else torch.empty_like(part)
+                dist.recv(buf, src=dist.get_global_rank(group, m), group=group)
+                part = buf
+            yield m * rows + lo, part.cpu().numpy()
+
+
+def gather_table(ctx: MeshContext, shard: torch.Tensor,
+                 chunk_bytes: Optional[int] = None) -> Optional[np.ndarray]:
+    """The whole table as a numpy array on the host of this rank's
+    ``model`` group's first rank, put together from :func:`table_chunks`;
+    None on the group's other ranks. A collective over ``model``."""
+    out = None
+    if ctx.model_index == 0:
+        out = np.empty((ctx.n_model * shard.shape[0],) + tuple(shard.shape[1:]),
+                       numpy_dtype(shard.dtype))
+    for lo, rows in table_chunks(ctx, shard, chunk_bytes):
+        out[lo:lo + rows.shape[0]] = rows
     return out
 
 

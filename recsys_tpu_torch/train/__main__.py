@@ -30,16 +30,20 @@ and ``--set mesh.lookup_capacity_factor=F`` the a2a buckets' headroom.
 Without a process group ``--model_parallel`` above 1 is an error: start
 the ranks under the launcher. ``--use_dense_features`` sets
 ``model.dense_features`` to the engineered feature width (29, or 33 with
-``--use_side_features``, which alone exits as in the JAX CLI). Flags
-whose modes are not ported yet (``--use_wandb``, ...) are errors, as is
-any other flag.
+``--use_side_features``, which alone exits as in the JAX CLI).
+``--use_wandb`` logs each epoch and the final metrics to a W&B run
+(project ``recsys-tpu``, the config as its config); without ``wandb`` it
+warns and trains. Any other flag is an error.
 ``--set KEY=VALUE`` overrides a dotted config field (the value is parsed
 as JSON, ``true``/``false``/``none`` included, else kept as a string):
 ``--set train.device_resident_data=false`` takes the streaming input
 path.
 The run writes what the JAX trainer writes: ``config.json``,
 ``training_log.csv``, ``detailed_metrics.json``, ``metrics.json``,
-``checkpoints/`` and the inference bundle in ``serving/``.
+``checkpoints/``, ``tensorboard/`` (with tensorboardX) and the inference
+bundle in ``serving/``; ``--set train.debug_nans=true`` raises at the first
+NaN naming the op that made it, ``--set train.profile=true`` traces the
+first epoch into ``profile/``.
 """
 
 from __future__ import annotations
@@ -132,6 +136,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--distributed_strategy", default="mesh",
                     choices=["none", "mirrored", "multi_worker", "mesh"],
                     help="accepted for compat; sets nothing")
+    ap.add_argument("--use_wandb", action="store_true",
+                    help="log to a W&B run (project recsys-tpu), if wandb is installed")
     ap.add_argument("--model_parallel", type=int, default=1,
                     help="size of the model mesh axis (row-sharded tables over it)")
     ap.add_argument("--embedding_sharding", default="replicated",
@@ -188,14 +194,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                   data_parallel=cfg.mesh.data_axis, device=args.device)
     setup_logging()
     logger = logging.getLogger("train")
+    wandb_run = None
     try:
         logger.info("config:\n%s", cfg.to_json())
         with np.load(args.data, allow_pickle=False) as z:
             bundle = {k: z[k] for k in z.files}
+        if args.use_wandb:
+            try:
+                import wandb
+
+                wandb_run = wandb.init(project="recsys-tpu", config=cfg.to_dict())
+            except ImportError:
+                logger.warning("wandb not installed; continuing without it")
         report = Trainer(cfg, output_dir=args.output_dir, device=args.device,
                          mesh_ctx=mesh_ctx).train(bundle)
         logger.info("final metrics: %s", report)
     finally:
+        if wandb_run is not None:
+            wandb_run.finish()
         if mesh_ctx is not None and not had_group:
             mesh.shutdown()  # a communicator left behind can hang the exit
     return 0

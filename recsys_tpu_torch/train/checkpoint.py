@@ -20,18 +20,23 @@ plain leaf-by-leaf conversion.
 
 Training checkpoints (:class:`CheckpointManager`) use the JAX package's
 npz layout (``<dir>/ckpt_<step>/state.npz`` of ``_flatten``ed keys, a
-``metrics.json`` sidecar and a ``best`` alias); the port has no orbax.
-The CBNS cache rides in it as ``extras/emb``, ``extras/ids`` and
-``extras/corr``; with the cache off the field is None and ``_flatten``
-leaves it out, as the JAX package's does. Under a process group of
-several ranks (the data-parallel trainer: every rank holds the same
-state) rank 0 alone writes, synchronously, and every rank restores. With
-row-sharded tables the ranks of one ``model`` group first gather the
-whole tables and their slots onto rank 0's host (:func:`gather_row_shards`),
-so a checkpoint and a bundle have the one-card layout (the bundle keeps
-the padded rows, as the JAX package's ``device_get`` does) and
-``params_from_numpy`` reads them; on restore each rank keeps its rows
-(:func:`keep_row_shards`).
+``metrics.json`` sidecar and a ``best`` alias): one uncompressed zip of
+``.npy`` members, which ``np.load`` and both packages' npz restore read;
+the port has no orbax. The CBNS cache rides in it as ``extras/emb``,
+``extras/ids`` and ``extras/corr``; with the cache off the field is None
+and ``_flatten`` leaves it out, as the JAX package's does. Under a process
+group of several ranks (the data-parallel trainer: every rank holds the
+same state) rank 0 alone writes, synchronously, and every rank restores.
+
+With row-sharded tables no host holds a whole table for a checkpoint (the
+JAX package's orbax path, where each process writes and reads its own
+shards): the trainer marks each table shard and its slots'
+:class:`RowShards`, and ``save`` streams their rows, rank by rank in
+chunks (``parallel.sharding.table_chunks``), into their ``.npy`` members
+on rank 0's host, which holds one chunk at a time; ``restore(rows=...)``
+reads each rank's own rows of those members straight from the file. The inference bundle and the final evaluation take
+the whole tables on rank 0's host (:func:`gather_row_shards`), as the JAX
+package's ``device_get`` does; the bundle keeps the padded rows.
 """
 
 from __future__ import annotations
@@ -41,14 +46,16 @@ import logging
 import os
 import re
 import shutil
+import struct
 import threading
-from typing import Any, Callable, Dict, List, Optional, Tuple
+import zipfile
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from recsys_tpu_torch.parallel.mesh import process_count, process_index
-from recsys_tpu_torch.parallel.sharding import gather_table, shard_rows
+from recsys_tpu_torch.parallel.sharding import gather_table, numpy_dtype, table_chunks
 from recsys_tpu_torch.utils.device import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -98,22 +105,89 @@ def gather_row_shards(ctx, tree: Any) -> Any:
     return tree
 
 
-def keep_row_shards(ctx, tree: Any) -> Any:
-    """A whole (restored) tree with every leaf named in
-    ``ROW_SHARDED_KEYS`` cut to this rank's rows (``shard_rows``)."""
-    if isinstance(tree, dict):
-        return {k: (shard_rows(ctx, v) if k in ROW_SHARDED_KEYS and not isinstance(v, dict)
-                    else keep_row_shards(ctx, v)) for k, v in tree.items()}
-    return tree
+class RowShards(NamedTuple):
+    """A checkpoint leaf split by rows over ``model``: this rank's shard
+    (rows ``[m * V / n, (m + 1) * V / n)`` of the whole ``[V, ...]``)."""
+    ctx: Any
+    shard: torch.Tensor
 
 
-def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
     out = {}
     if isinstance(tree, dict):
         for k, v in tree.items():
             out.update(_flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, RowShards):
+        out[prefix.rstrip("/")] = tree
     elif tree is not None:  # empty leaves are skipped, as in the JAX package
         out[prefix.rstrip("/")] = np.asarray(tree)
+    return out
+
+
+def _host_leaves(tree: Any) -> Any:
+    """``tree`` with its tensors copied to the host (``RowShards`` kept)."""
+    if isinstance(tree, dict):
+        return {k: _host_leaves(v) for k, v in tree.items()}
+    return tree if isinstance(tree, RowShards) else params_to_numpy(tree)
+
+
+def _write_npz(path: str, flat: Dict[str, Any]) -> None:
+    """``np.savez``'s file (uncompressed zip64 ``.npy`` members, in
+    ``flat``'s order), with each :class:`RowShards` leaf's member streamed:
+    the ``.npy`` header of the whole table, then its rows chunk by chunk
+    as ``table_chunks`` brings them to this (the first model) rank."""
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED, allowZip64=True) as zf:
+        for key, v in flat.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                if not isinstance(v, RowShards):
+                    np.lib.format.write_array(f, v, allow_pickle=False)
+                    continue
+                shard = v.shard
+                shape = (v.ctx.n_model * shard.shape[0],) + tuple(shard.shape[1:])
+                np.lib.format.write_array_header_1_0(f, {
+                    "descr": np.lib.format.dtype_to_descr(numpy_dtype(shard.dtype)),
+                    "fortran_order": False, "shape": shape})
+                for _, rows in table_chunks(v.ctx, shard):
+                    f.write(np.ascontiguousarray(rows).reshape(-1).view(np.uint8))
+
+
+def _send_row_shards(flat: Dict[str, Any]) -> None:
+    """A rank other than 0's part of a save: the ranks of data index 0
+    (rank 0's ``model`` group) send their ``RowShards`` rows, in the
+    writer's order."""
+    for v in flat.values():
+        if isinstance(v, RowShards) and v.ctx.data_index == 0:
+            for _ in table_chunks(v.ctx, v.shard):
+                pass
+
+
+def _read_rows(f, info: zipfile.ZipInfo, lo: int, hi: int) -> np.ndarray:
+    """Rows ``[lo, hi)`` of the ``[V, ...]`` ``.npy`` member ``info`` of the
+    open zip ``f``, read in place: its local header and ``.npy`` header,
+    then ``(hi - lo)`` rows. Raises ``ValueError`` for a compressed member
+    or a range outside the array."""
+    if info.compress_type != zipfile.ZIP_STORED:
+        raise ValueError(f"{info.filename} is compressed: its rows cannot be read in place")
+    f.seek(info.header_offset)
+    local = f.read(30)
+    if local[:4] != b"PK\x03\x04":
+        raise ValueError(f"{info.filename}: no local file header at {info.header_offset}")
+    name_len, extra_len = struct.unpack("<HH", local[26:30])
+    f.seek(info.header_offset + 30 + name_len + extra_len)
+    version = np.lib.format.read_magic(f)
+    read_header = {(1, 0): np.lib.format.read_array_header_1_0,
+                   (2, 0): np.lib.format.read_array_header_2_0}.get(version)
+    if read_header is None:
+        raise ValueError(f"{info.filename}: .npy version {version} is not read in place")
+    shape, fortran, dtype = read_header(f)
+    if fortran or not shape or dtype.hasobject:
+        raise ValueError(f"{info.filename}: not a C-ordered array of rows")
+    if not 0 <= lo <= hi <= shape[0]:
+        raise ValueError(f"{info.filename}: rows [{lo}, {hi}) outside its {shape[0]} rows")
+    out = np.empty((hi - lo,) + tuple(shape[1:]), dtype)
+    f.seek(lo * dtype.itemsize * int(np.prod(shape[1:], dtype=np.int64)), 1)
+    if f.readinto(out.reshape(-1).view(np.uint8)) != out.nbytes:
+        raise ValueError(f"{info.filename}: the file ends inside rows [{lo}, {hi})")
     return out
 
 
@@ -153,26 +227,28 @@ class CheckpointManager:
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step}")
 
-    def _write(self, path: str, flat: Dict[str, np.ndarray]) -> None:
+    def _write(self, path: str, flat: Dict[str, Any]) -> None:
         tmp = path + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        np.savez(os.path.join(tmp, "state.npz"), **flat)
+        _write_npz(os.path.join(tmp, "state.npz"), flat)
         if os.path.exists(path):
             shutil.rmtree(path)
         os.replace(tmp, path)  # atomic commit
 
     def save(self, step: int, state: Dict[str, Any], metrics: Optional[Dict] = None,
              is_best: bool = False) -> str:
-        """``state``: a nested dict of tensors, arrays and numbers. A no-op
-        on a rank other than 0."""
+        """``state``: a nested dict of tensors, arrays, numbers and
+        :class:`RowShards`. On a rank other than 0 only its ``RowShards``
+        rows are sent (every rank calls ``save`` when there are some)."""
         self.wait()  # at most one write in flight
         path = self._path(step)
+        flat = _flatten(_host_leaves(state))  # host copy now (RowShards stream later)
         if not self._is_writer:
+            _send_row_shards(flat)
             return path
-        flat = _flatten(params_to_numpy(state))  # host copy now
-        if self.async_save:
+        if self.async_save and not any(isinstance(v, RowShards) for v in flat.values()):
             def run():
                 try:
                     self._write(path, flat)
@@ -237,23 +313,41 @@ class CheckpointManager:
                 return s
         return None
 
-    def restore(self, step: int) -> Dict:
-        """The state saved at ``step`` as a nested dict of numpy arrays."""
+    def restore(self, step: int, rows: Optional[Dict[str, Tuple[int, int]]] = None) -> Dict:
+        """The state saved at ``step`` as a nested dict of numpy arrays.
+        ``rows`` maps a flattened key (``params/towers/user_table``) to the
+        row range ``(lo, hi)`` to read of it (a row-sharded rank's own); the
+        other leaves are read whole."""
         self.wait()
-        with np.load(os.path.join(self._path(step), "state.npz")) as z:
-            return _unflatten({k: z[k] for k in z.files})
+        path = os.path.join(self._path(step), "state.npz")
+        rows = rows or {}
+        flat = {}
+        with open(path, "rb") as f, zipfile.ZipFile(f) as zf:
+            for info in zf.infolist():
+                key = info.filename[:-len(".npy")]
+                if key in rows:
+                    flat[key] = _read_rows(f, info, *rows[key])
+                else:
+                    with zf.open(info) as member:
+                        flat[key] = np.lib.format.read_array(member, allow_pickle=False)
+        missing = set(rows) - set(flat)
+        if missing:
+            raise KeyError(f"{path} holds no {sorted(missing)}")
+        return _unflatten(flat)
 
-    def restore_latest(self) -> Optional[Tuple[int, Dict]]:
+    def restore_latest(self, rows: Optional[Dict[str, Tuple[int, int]]] = None
+                       ) -> Optional[Tuple[int, Dict]]:
         steps = self.all_steps()
         if not steps:
             return None
-        return steps[-1], self.restore(steps[-1])
+        return steps[-1], self.restore(steps[-1], rows)
 
-    def restore_best(self) -> Optional[Tuple[int, Dict]]:
+    def restore_best(self, rows: Optional[Dict[str, Tuple[int, int]]] = None
+                     ) -> Optional[Tuple[int, Dict]]:
         s = self.best_step()
         if s is None:
-            return self.restore_latest()
-        return s, self.restore(s)
+            return self.restore_latest(rows)
+        return s, self.restore(s, rows)
 
 
 def save_inference_bundle(

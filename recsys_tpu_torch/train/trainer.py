@@ -89,23 +89,34 @@ the optimizer's global-norm clip adds the shards' squared sums over
 every rank combines the global batch's rows and each writes only the ids
 it owns, at their local rows. Validation and the loss metrics read the
 tables through the psum lookup on every rank (exact, as JAX's GSPMD
-gather). The checkpoints (the one-card npz layout; each rank restores
-its rows), the periodic and the final ``evaluate``,
-``RetrievalIndex.build`` and the inference bundle (the padded tables, as
-the JAX package writes them) take the whole tables on rank 0's host,
-where the ranks of data index 0 send their shards in chunks
-(``parallel.sharding.gather_table``, the JAX package's ``device_get``);
-no other rank holds a whole table, and rank 0 broadcasts what it
-evaluated. ``replication_check_every_epochs`` checks the whole leaves
+gather). A checkpoint keeps the one-card npz layout, but no host holds a
+whole table for it (the JAX package's orbax path): the ranks of data index
+0 send their shards and slots in chunks to rank 0, which streams them into
+the file, and on restore each rank reads only its own rows of them. The
+periodic and the final ``evaluate``, ``RetrievalIndex.build`` and the
+inference bundle (the padded tables, as the JAX package writes them) take
+the whole tables on rank 0's host, where those ranks send their shards in
+chunks (``parallel.sharding.gather_table``, the JAX package's
+``device_get``); no other rank holds a whole table, and rank 0 broadcasts
+what it evaluated. ``replication_check_every_epochs`` checks the whole leaves
 over every rank and skips the shards. At ``n_model == 1`` the tables
 stay whole, as in the JAX package.
 
-Every mode of the JAX trainer that is not ported raises
-``NotImplementedError`` naming its ROADMAP Queue 1 item; none silently runs
-something else. Dropout masks come from a ``torch.Generator`` on the
-device, reseeded from (seed + 1, step) every step, and from the rank's
-data index under a mesh (index 0 draws the one-card stream), so a run and
-its resume draw the same masks; they are not JAX's masks.
+**Debugging** (``TrainConfig.debug_nans``, ``TrainConfig.profile``):
+``debug_nans`` turns on the process-wide NaN checks of ``utils/debug.py``
+(the port's ``jax_debug_nans``): every step checks its loss and gradients
+before the update and its params after it (:class:`_NanGuard`: one
+reduction, one host sync a step; no result changes), and on a NaN re-runs
+its forward and backward to name the op or kernel that made it, raising
+``FloatingPointError``; the validation metrics are checked alike.
+``profile`` traces the first epoch's train steps on rank 0 with
+``torch.profiler`` into ``<output_dir>/profile`` (a TensorBoard trace
+directory), where the JAX package starts and stops its trace.
+
+Dropout masks come from a ``torch.Generator`` on the device, reseeded from
+(seed + 1, step) every step, and from the rank's data index under a mesh
+(index 0 draws the one-card stream), so a run and its resume, and a step's
+re-run under ``debug_nans``, draw the same masks; they are not JAX's masks.
 """
 
 from __future__ import annotations
@@ -139,7 +150,9 @@ from recsys_tpu_torch.retrieval.scorer import RetrievalIndex
 from recsys_tpu_torch.train import checkpoint as ckpt_lib
 from recsys_tpu_torch.train import optimizer as opt_lib
 from recsys_tpu_torch.train.optimizer import leaves_with_paths, make_optimizer
-from recsys_tpu_torch.utils.debug import assert_replicated
+from recsys_tpu_torch.utils.debug import (assert_replicated, deferred_nan_checks,
+                                          enable_nan_checks, locate_nan, nan_checks_enabled,
+                                          nan_message)
 from recsys_tpu_torch.utils.device import DeviceLike, resolve_device
 from recsys_tpu_torch.utils.metrics_io import MetricWriter
 
@@ -159,16 +172,10 @@ class TrainState(NamedTuple):
     extras: Any = None
 
 
-_DEBUG_PROFILE = "item 7, debug and profile"
 # the leaves split by rows over ``model`` under row-sharded tables
 _SHARDED_KEYS = ckpt_lib.ROW_SHARDED_KEYS
 # a large odd constant: data index r adds r times it to the dropout seed
 _RANK_SEED_STRIDE = 0x9E3779B97F4A7C15
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to recsys_tpu_torch yet (ROADMAP Queue 1: {item})")
 
 
 def _tree_from_paths(values: Dict[Tuple[str, ...], torch.Tensor]) -> Dict:
@@ -186,6 +193,100 @@ def _grads(loss: torch.Tensor, leaves) -> list:
     use_item_bias=False) gets a zero gradient, as in JAX."""
     return [torch.zeros_like(p) if g is None else g for p, g in zip(
         leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+
+
+def _nan_flags(tensors) -> torch.Tensor:
+    """[len(tensors)] bool on their device: which of them hold a NaN, in
+    one fused reduction (a NaN, and nothing else, makes an L2 norm NaN)."""
+    return torch.isnan(torch.stack(torch._foreach_norm([t.detach() for t in tensors])))
+
+
+class _NanGuard:
+    """``debug_nans`` over the train loop. :meth:`check` takes a step's
+    loss and gradients (after the data all-reduce) before the update, and
+    the params flags of the update before it (:meth:`updated`, read here
+    or by :meth:`flush` before a checkpoint and at an epoch's end): one
+    reduction and one host sync a step, so a NaN from the forward or
+    backward leaves the state untouched, as JAX's failed jitted step does.
+    Under a mesh one scalar all-reduce (max of ``kind * world + rank``)
+    tells every rank the worst kind any rank saw (2: params after an
+    update, 1: the loss or a gradient) and where, so every rank raises at
+    the same step and none waits in a collective. On a kind 1 the step's
+    forward and backward re-run under ``locate_nan`` on every rank,
+    collectives and all, to name the op; if it meets none, the leaf is
+    named."""
+
+    UPDATE, STEP = 2, 1
+
+    def __init__(self, ctx: Optional[MeshContext], optimizer: str):
+        self.ctx = ctx
+        self.optimizer = optimizer
+        self._pending = None  # (step, paths, flags) of the last update's params
+
+    def _worst(self, kind: torch.Tensor) -> Tuple[int, int]:
+        """(kind, rank) of the worst NaN over every rank, kind 0 for none."""
+        if self.ctx is None:
+            return int(kind), 0
+        world = dist.get_world_size()
+        kind = kind.to(self.ctx.device)
+        code = torch.where(kind > 0, kind * world + dist.get_rank(), -1).to(torch.float32)
+        dist.all_reduce(code.reshape(1), op=dist.ReduceOp.MAX)
+        code = int(code)
+        return (0, 0) if code < 0 else divmod(code, world)
+
+    def _raise(self, what: Optional[str], rank: int, step: int):
+        if what is None:  # the NaN is on another rank
+            what = f"rank {rank}'s step"
+        raise FloatingPointError(f"{nan_message(what)} at step {step}")
+
+    def _update_name(self) -> Optional[str]:
+        step, paths, flags = self._pending
+        hit = [p for p, f in zip(paths, flags.tolist()) if f]
+        return (f"params {'/'.join(hit[0])} after the {self.optimizer} update of step {step}"
+                if hit else None)
+
+    def updated(self, step: int, params) -> None:
+        paths, leaves = zip(*leaves_with_paths(params))
+        self._pending = (step, paths, _nan_flags(leaves))
+
+    def flush(self) -> None:
+        if self._pending is None:
+            return
+        kind, rank = self._worst(self.UPDATE * self._pending[2].any().to(torch.int64))
+        if kind:
+            self._raise(self._update_name(), rank, self._pending[0])
+        self._pending = None
+
+    def check(self, step: int, loss: torch.Tensor, grads: Dict[Tuple[str, ...], torch.Tensor],
+              rerun: Callable[[], Any]) -> None:
+        flags = _nan_flags([loss, *grads.values()])
+        kind = self.STEP * flags.any().to(torch.int64)
+        if self._pending is not None:
+            kind = torch.maximum(kind, self.UPDATE * self._pending[2].any().to(torch.int64))
+        kind, rank = self._worst(kind)
+        if kind == self.UPDATE:
+            self._raise(self._update_name(), rank, self._pending[0])
+        self._pending = None
+        if kind == self.STEP:
+            names = ["the loss"] + [f"the gradient of {'/'.join(p)}" for p in grads]
+            hit = [n for n, f in zip(names, flags.tolist()) if f]
+            self._locate(rerun, hit[0] if hit else None, rank, step)
+
+    def check_values(self, what: str, values: Dict[str, float], rerun: Callable[[], Any],
+                     step: int) -> None:
+        """Host metrics (the validation pass's): a NaN among them is
+        located by re-running ``rerun``."""
+        hit = [k for k, v in values.items() if v != v]
+        kind, rank = self._worst(torch.tensor(self.STEP * bool(hit)))
+        if kind:
+            self._locate(rerun, f"{what} ({hit[0]})" if hit else None, rank, step)
+
+    def _locate(self, rerun, leaf: Optional[str], rank: int, step: int):
+        try:
+            named = locate_nan(rerun, collective=self.ctx is not None)
+        except FloatingPointError as e:
+            raise FloatingPointError(f"{e} at step {step}") from e
+        self._raise(named or leaf, rank, step)
 
 
 def _prefetch(iterator, place, depth: int = 2):
@@ -254,7 +355,6 @@ class Trainer:
         it; any other process trains on one device, with no group."""
         self.config = config
         self.output_dir = output_dir
-        self._check_config()
         if mesh_ctx is None and world_size(device) > 1:
             mesh_ctx = make_mesh(model_parallel=config.mesh.model_axis,
                                  data_parallel=config.mesh.data_axis, device=device)
@@ -289,14 +389,7 @@ class Trainer:
         # row-sharded tables: the JAX package's rule (rows and model > 1)
         self.rows = (mesh_ctx is not None and config.mesh.embedding_sharding == "rows"
                      and mesh_ctx.n_model > 1)
-
-    # ---- what this port runs ----------------------------------------
-    def _check_config(self) -> None:
-        t = self.config.train
-        if t.profile:
-            _not_ported("TrainConfig.profile", _DEBUG_PROFILE)
-        if t.debug_nans:
-            _not_ported("TrainConfig.debug_nans", _DEBUG_PROFILE)
+        self._nan_guard = _NanGuard(mesh_ctx, config.train.optimizer)
 
     def _check_mesh(self, ctx: MeshContext) -> None:
         """The mesh's model axis is ``mesh.model_axis`` and its data axis
@@ -436,12 +529,12 @@ class Trainer:
         return self.ctx is None or dist.get_rank() == 0
 
     def _host_whole(self, tree):
-        """``tree`` (params, or optimizer slots) for rank 0's files and
-        evaluation. Under row sharding: on rank 0, the tree with the sharded
-        tables whole on its host (numpy, gathered in chunks over ``model``
-        from the ranks of data index 0, the only ranks that take part; the
-        others return at once), and None on every other rank, so no card
-        ever holds a whole table. ``tree`` itself otherwise."""
+        """The params for rank 0's evaluation and inference bundle. Under
+        row sharding: on rank 0, the tree with the sharded tables whole on
+        its host (numpy, gathered in chunks over ``model`` from the ranks of
+        data index 0, the only ranks that take part; the others return at
+        once), and None on every other rank, so no card ever holds a whole
+        table. ``tree`` itself otherwise."""
         if not self.rows:
             return tree
         if self.ctx.data_index != 0:
@@ -508,23 +601,30 @@ class Trainer:
             batch = dict(batch)
             neg_ids = batch.pop("neg_ids") if use_explicit_negs else None
             paths, leaves = zip(*leaves_with_paths(state.params))
-            _, metrics = MultiTaskModel.loss(
-                state.params, cfg.model, batch, generator=self._generator(state),
-                train=True, class_weights=class_weights, neg_item_ids=neg_ids,
-                extra_candidates=self._cache_tuple(state), **self._loss_axis())
-            if self._a2a():
-                metrics["lookup_overflow"] = self._overflow(state.params["towers"], batch,
-                                                            neg_ids)
-            grads = _grads(metrics["loss"], leaves)
-            if self.ctx is not None:
-                # the gradient of the global mean: the mean over ``data`` of
-                # the ranks' (the gathered candidates' backward already
-                # summed the other ranks' cotangents into this rank's item
-                # rows; the model replicas of a slice hold the same values)
-                grads = collectives.allreduce_mean_flat(self.ctx, grads)
+
+            def forward_backward():
+                _, metrics = MultiTaskModel.loss(
+                    state.params, cfg.model, batch, generator=self._generator(state),
+                    train=True, class_weights=class_weights, neg_item_ids=neg_ids,
+                    extra_candidates=self._cache_tuple(state), **self._loss_axis())
+                if self._a2a():
+                    metrics["lookup_overflow"] = self._overflow(state.params["towers"], batch,
+                                                                neg_ids)
+                grads = _grads(metrics["loss"], leaves)
+                if self.ctx is not None:
+                    # the gradient of the global mean: the mean over ``data``
+                    # of the ranks' (the gathered candidates' backward
+                    # already summed the other ranks' cotangents into this
+                    # rank's item rows; the model replicas of a slice hold
+                    # the same values)
+                    grads = collectives.allreduce_mean_flat(self.ctx, grads)
+                return metrics, dict(zip(paths, grads))
+
+            metrics, grads = self._checked(state, forward_backward)
             new_cache = self._cache_update(state, state.params, batch)  # pre-update params
-            self.optimizer.update(_tree_from_paths(dict(zip(paths, grads))),
-                                  state.opt_state, state.params, state.step, shard_reduce)
+            self.optimizer.update(_tree_from_paths(grads), state.opt_state, state.params,
+                                  state.step, shard_reduce)
+            self._updated(state)
             self.step_counts["dense"] += 1
             return (state._replace(step=state.step + 1, extras=new_cache),
                     self._reduce_metrics(metrics))
@@ -556,40 +656,64 @@ class Trainer:
         def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
             params = state.params
             tw = params["towers"]
-            movie = batch["movie_id"].long()
-            ids = {"user_table": batch["user_id"].long(), "item_table": movie,
-                   "item_bias": movie}
-            ids = {k: v.clamp(0, self._global_rows(tw, k) - 1) for k, v in ids.items()}
-            lookup = self._lookup()
-            with torch.no_grad():
-                if lookup is None:
-                    virt = {k: tw[k][ids[k]] for k in self._TABLE_KEYS}
-                else:  # the rows of the unclipped ids, as JAX reads them
-                    virt = {"user_table": lookup(tw["user_table"], batch["user_id"]),
-                            "item_table": lookup(tw["item_table"], batch["movie_id"]),
-                            "item_bias": tw["item_bias"][ids["item_bias"]]}
-            virt = {k: v.detach().requires_grad_(True) for k, v in virt.items()}
-            vparams = {**params, "towers": {**tw, **virt}}
-            ar = torch.arange(movie.shape[0], dtype=torch.int32, device=movie.device)
-            vbatch = {**batch, "user_id": ar, "movie_id": ar, "mask_ids": batch["movie_id"]}
-            # the virtual tables are local [B, D] rows: no lookup in the loss
-            _, metrics = MultiTaskModel.loss(
-                vparams, cfg.model, vbatch, generator=self._generator(state), train=True,
-                class_weights=class_weights, extra_candidates=self._cache_tuple(state),
-                **{**self._loss_axis(), "lookup": None})
-            if self._a2a():
-                metrics["lookup_overflow"] = self._overflow(tw, batch)
-            paths, leaves = zip(*leaves_with_paths(vparams))
-            grads = dict(zip(paths, _grads(metrics["loss"], leaves)))
-            if self.ctx is not None:
-                grads, ids = self._global_sparse_grads(grads, ids)
+
+            def forward_backward():
+                movie = batch["movie_id"].long()
+                ids = {"user_table": batch["user_id"].long(), "item_table": movie,
+                       "item_bias": movie}
+                ids = {k: v.clamp(0, self._global_rows(tw, k) - 1) for k, v in ids.items()}
+                lookup = self._lookup()
+                with torch.no_grad():
+                    if lookup is None:
+                        virt = {k: tw[k][ids[k]] for k in self._TABLE_KEYS}
+                    else:  # the rows of the unclipped ids, as JAX reads them
+                        virt = {"user_table": lookup(tw["user_table"], batch["user_id"]),
+                                "item_table": lookup(tw["item_table"], batch["movie_id"]),
+                                "item_bias": tw["item_bias"][ids["item_bias"]]}
+                virt = {k: v.detach().requires_grad_(True) for k, v in virt.items()}
+                vparams = {**params, "towers": {**tw, **virt}}
+                ar = torch.arange(movie.shape[0], dtype=torch.int32, device=movie.device)
+                vbatch = {**batch, "user_id": ar, "movie_id": ar, "mask_ids": batch["movie_id"]}
+                # the virtual tables are local [B, D] rows: no lookup in the loss
+                _, metrics = MultiTaskModel.loss(
+                    vparams, cfg.model, vbatch, generator=self._generator(state), train=True,
+                    class_weights=class_weights, extra_candidates=self._cache_tuple(state),
+                    **{**self._loss_axis(), "lookup": None})
+                if self._a2a():
+                    metrics["lookup_overflow"] = self._overflow(tw, batch)
+                paths, leaves = zip(*leaves_with_paths(vparams))
+                grads = dict(zip(paths, _grads(metrics["loss"], leaves)))
+                if self.ctx is not None:
+                    grads, ids = self._global_sparse_grads(grads, ids)
+                return metrics, grads, ids
+
+            metrics, grads, ids = self._checked(state, forward_backward)
             new_cache = self._cache_update(state, params, batch)  # pre-update params
             self._sparse_apply(state, grads, ids, dense_opt)
+            self._updated(state)
             self.step_counts["sparse"] += 1
             return (state._replace(step=state.step + 1, extras=new_cache),
                     self._reduce_metrics(metrics))
 
         return step_fn
+
+    def _checked(self, state: TrainState, forward_backward: Callable) -> tuple:
+        """``forward_backward()`` -> (metrics, grads, ...); under the NaN
+        checks the loss and gradients are checked once, before the caller
+        updates anything (a NaN re-runs ``forward_backward`` to name the op
+        and raises)."""
+        if not nan_checks_enabled():
+            return forward_backward()
+        with deferred_nan_checks():
+            out = forward_backward()
+        self._nan_guard.check(state.step, out[0]["loss"], out[1], forward_backward)
+        return out
+
+    def _updated(self, state: TrainState) -> None:
+        """Under the NaN checks, the params after the step's update, read
+        at the next check (or flush)."""
+        if nan_checks_enabled():
+            self._nan_guard.updated(state.step, state.params)
 
     def _global_rows(self, tw, key: str) -> int:
         """The rows of table leaf ``key`` as a whole (its shard's times
@@ -821,13 +945,41 @@ class Trainer:
     def _state_dict(self, state: TrainState) -> Dict[str, Any]:
         """The checkpointed tree; ``extras`` (the cache) is None and left
         out of the npz when the cache is off, as in the JAX package. Under
-        row sharding the tables and their slots are gathered whole onto rank
-        0's host (:meth:`_host_whole`: every rank calls this, rank 0 writes),
-        so the npz has the one-card layout."""
-        return {"params": self._host_whole(state.params),
-                "opt_state": self._host_whole(state.opt_state),
+        row sharding the tables and their slots stay this rank's shards,
+        marked ``RowShards``: ``CheckpointManager.save`` (which every rank
+        calls) streams them to rank 0, which writes the one-card npz layout
+        without holding a whole table. Under the NaN checks the last
+        update's params are checked first, so no NaN state is saved."""
+        if nan_checks_enabled():
+            self._nan_guard.flush()
+        return {"params": self._row_shards(state.params),
+                "opt_state": self._row_shards(state.opt_state),
                 "step": np.int64(state.step), "rng": np.int64(state.rng),
                 "extras": state.extras}
+
+    def _row_shards(self, tree):
+        """``tree`` with each row-sharded table leaf marked ``RowShards``
+        (under row sharding; ``tree`` itself otherwise)."""
+        if not self.rows or not isinstance(tree, dict):
+            return tree
+        return {k: (ckpt_lib.RowShards(self.ctx, v) if k in _SHARDED_KEYS
+                    and isinstance(v, torch.Tensor) else self._row_shards(v))
+                for k, v in tree.items()}
+
+    def _row_ranges(self, state: TrainState) -> Optional[Dict[str, Tuple[int, int]]]:
+        """The whole-table rows this rank holds, by the checkpoint's key of
+        each row-sharded leaf (params and slots), for a restore that reads
+        only them; None without row sharding."""
+        if not self.rows:
+            return None
+        ranges = {}
+        for name, tree in (("params", state.params), ("opt_state", state.opt_state)):
+            for path, leaf in leaves_with_paths(tree):
+                if path[-1] in _SHARDED_KEYS:
+                    n = leaf.shape[0]
+                    m = self.ctx.model_index
+                    ranges["/".join((name,) + path)] = (m * n, (m + 1) * n)
+        return ranges
 
     @staticmethod
     def _copy_into(live, saved) -> None:
@@ -838,11 +990,9 @@ class Trainer:
                 t.copy_(torch.from_numpy(np.asarray(saved[path])))
 
     def _load_state(self, state: TrainState, tree: Dict) -> TrainState:
-        """A restored (whole) checkpoint into ``state``; under row sharding
-        each rank keeps its rows of the tables and their slots."""
-        if self.rows:
-            tree = {**tree, "params": ckpt_lib.keep_row_shards(self.ctx, tree["params"]),
-                    "opt_state": ckpt_lib.keep_row_shards(self.ctx, tree["opt_state"])}
+        """A restored checkpoint into ``state`` (under row sharding restored
+        with :meth:`_row_ranges`: the rank's rows of the tables and their
+        slots)."""
         self._copy_into(state.params, tree["params"])
         self._copy_into(state.opt_state, tree["opt_state"])
         if state.extras is not None and "extras" in tree:
@@ -958,6 +1108,8 @@ class Trainer:
                     "" if self.ctx is None else f", data-parallel over {self.ctx.n_data} ranks",
                     f", tables row-sharded over {self.ctx.n_model} ranks "
                     f"({cfg.mesh.lookup_strategy} lookup)" if self.rows else "")
+        if t_cfg.debug_nans:
+            enable_nan_checks()
         self.writer.write_config(cfg)
 
         class_weights = (losses.balanced_class_weights(bundle["train/y_implicit"])
@@ -1009,7 +1161,7 @@ class Trainer:
                 bias.copy_(torch.from_numpy(bias0))
         start_epoch = 0
         if t_cfg.resume:
-            restored = self.ckpt.restore_latest()
+            restored = self.ckpt.restore_latest(rows=self._row_ranges(state))
             if restored is not None:
                 state = self._load_state(state, restored[1])
                 start_epoch = state.step // max(steps_per_epoch, 1)
@@ -1097,6 +1249,21 @@ class Trainer:
             for sig in (signal.SIGTERM, signal.SIGUSR1):
                 prev_handlers[sig] = signal.signal(sig, on_signal)
 
+        def validate(params) -> Dict[str, float]:
+            if resident:
+                return {f"val_{k}": float(v) for k, v in val_epoch(params, val_data).items()}
+            # the unweighted mean of the val batches' masked means
+            v_agg: Dict[str, float] = {}
+            v_steps = 0
+            for batch in val_batcher.epoch(0):
+                metrics = eval_step(params, placer.ready(placer(augment(batch))))
+                for k, v in metrics.items():
+                    v_agg[k] = v_agg.get(k, 0.0) + float(v)
+                v_steps += 1
+            return {f"val_{k}": v / max(v_steps, 1) for k, v in v_agg.items()}
+
+        # the first epoch's train steps traced on rank 0, as the JAX package does
+        profiler = self._start_profile() if t_cfg.profile and self._is_writer() else None
         try:
             for epoch in range(start_epoch, t_cfg.epochs):
                 final_epoch = epoch
@@ -1116,6 +1283,10 @@ class Trainer:
                         train_step, train_chunk, chunk_k)
                     if dev.type == "cuda":  # the epoch's time ends with its last step
                         torch.cuda.synchronize(dev)
+                if nan_checks_enabled():
+                    self._nan_guard.flush()
+                if profiler is not None:
+                    profiler = self._stop_profile(profiler)
                 epoch_time = time.time() - t0
                 examples_total += n_steps * t_cfg.batch_size
                 logs["examples_per_s"] = n_steps * t_cfg.batch_size / max(epoch_time, 1e-9)
@@ -1128,19 +1299,11 @@ class Trainer:
                         "* B_local / n_shards) per (src, dst) shard pair) until "
                         "lookup_overflow reports 0.", logs["train_lookup_overflow"],
                         cfg.mesh.lookup_capacity_factor)
-                if resident:
-                    logs.update({f"val_{k}": float(v)
-                                 for k, v in val_epoch(state.params, val_data).items()})
-                else:
-                    # the unweighted mean of the val batches' masked means
-                    v_agg: Dict[str, float] = {}
-                    v_steps = 0
-                    for batch in val_batcher.epoch(0):
-                        metrics = eval_step(state.params, placer.ready(placer(augment(batch))))
-                        for k, v in metrics.items():
-                            v_agg[k] = v_agg.get(k, 0.0) + float(v)
-                        v_steps += 1
-                    logs.update({f"val_{k}": v / max(v_steps, 1) for k, v in v_agg.items()})
+                val_logs = validate(state.params)
+                if nan_checks_enabled():
+                    self._nan_guard.check_values("the validation pass", val_logs,
+                                                 lambda: validate(state.params), state.step)
+                logs.update(val_logs)
                 if t_cfg.eval_every_epochs and (epoch + 1) % t_cfg.eval_every_epochs == 0:
                     sample_cfg = dataclasses.replace(
                         cfg.eval, eval_sample=cfg.eval.eval_sample or 20_000, topk=(10,))
@@ -1190,6 +1353,8 @@ class Trainer:
                                 monitor, sign * best_val)
                     break
         finally:
+            if profiler is not None:
+                self._stop_profile(profiler)
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
             self.ckpt.wait()
@@ -1229,6 +1394,23 @@ class Trainer:
         if self.ctx is not None:
             dist.barrier()
         return report
+
+    def _start_profile(self) -> torch.profiler.profile:
+        """A running ``torch.profiler`` session (the CPU, and the card's
+        kernels on CUDA) whose trace goes to ``<output_dir>/profile``."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(f"{self.output_dir}/profile"))
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler: torch.profiler.profile) -> None:
+        """Stop ``profiler`` and write its trace; -> None."""
+        profiler.stop()
+        logger.info("profiler trace -> %s/profile", self.output_dir)
 
     def _from_writer(self, value):
         """``value`` as rank 0 computed it, on every rank (a broadcast under

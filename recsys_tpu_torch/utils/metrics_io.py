@@ -7,9 +7,12 @@ counterpart of ``recsys_tpu/utils/metrics_io.py``, which imports jax):
 * ``metrics.json``          — the final offline-eval metrics;
 * ``config.json``           — the run config.
 
-Console + CSV + JSON only: the TensorBoard and W&B sinks are not ported.
-Under a process group of several ranks only rank 0 writes (every rank
-keeps the history), and log lines carry ``[host r] ``.
+Sinks: console, CSV and JSON always; TensorBoard (tensorboardX event files
+under ``<output_dir>/tensorboard``, a scalar per key a epoch) and W&B
+(per-epoch ``log`` to the active run, which ``--use_wandb`` starts, and
+``final/<k>``) when the libraries import, imported lazily as in the JAX
+package. Under a process group of several ranks only rank 0 writes (every
+rank keeps the history), and log lines carry ``[host r] ``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import csv
 import json
 import logging
 import os
+import sys
 import time
 from typing import Any, Dict, List, Optional
 
@@ -36,15 +40,30 @@ except ImportError:  # pragma: no cover
 class MetricWriter:
     """Collects per-epoch metrics and writes the artifact set."""
 
-    def __init__(self, output_dir: str, flush_every: int = 2):
+    def __init__(self, output_dir: str, flush_every: int = 2, tensorboard: bool = True):
         self.output_dir = output_dir
         self.flush_every = flush_every
         self.history: List[Dict[str, Any]] = []
         self._csv_fields: Optional[List[str]] = None
         self._epoch_start = 0.0
         self._is_writer = process_index() == 0
+        self._tb = None
         if self._is_writer:
             os.makedirs(output_dir, exist_ok=True)
+            if tensorboard:
+                try:
+                    from tensorboardX import SummaryWriter
+
+                    self._tb = SummaryWriter(os.path.join(output_dir, "tensorboard"))
+                except ImportError:
+                    logger.info("tensorboardX not installed; TB sink off")
+
+    @staticmethod
+    def _wandb_run():
+        """The active W&B run, if ``--use_wandb`` started one (``wandb.run``
+        is the library's own process-global)."""
+        wandb = sys.modules.get("wandb")
+        return getattr(wandb, "run", None) if wandb is not None else None
 
     def start_epoch(self) -> None:
         self._epoch_start = time.time()
@@ -59,6 +78,13 @@ class MetricWriter:
         self.history.append(entry)
         if self._is_writer:
             self._write_csv_row(entry)
+            if self._tb is not None:
+                for k, v in entry.items():
+                    if k != "epoch":
+                        self._tb.add_scalar(k, v, global_step=epoch)
+            run = self._wandb_run()
+            if run is not None:
+                run.log({k: v for k, v in entry.items() if k != "epoch"}, step=epoch)
             if (epoch + 1) % self.flush_every == 0:
                 self._flush_detailed()
             logger.info("epoch %d: %s", epoch,
@@ -83,6 +109,10 @@ class MetricWriter:
         if self._is_writer:
             with open(os.path.join(self.output_dir, "metrics.json"), "w") as f:
                 json.dump({k: float(v) for k, v in metrics.items()}, f, indent=2)
+            run = self._wandb_run()
+            if run is not None:
+                run.log({f"final/{k}": float(v) for k, v in metrics.items()
+                         if isinstance(v, (int, float))})
 
     def write_config(self, config) -> None:
         if self._is_writer:
@@ -91,6 +121,9 @@ class MetricWriter:
     def close(self) -> None:
         if self._is_writer:
             self._flush_detailed()
+            if self._tb is not None:
+                self._tb.close()
+                self._tb = None
 
 
 def setup_logging(level: int = logging.INFO) -> None:

@@ -1,8 +1,9 @@
 """The port's row-sharded training (``Trainer`` on a ``(data, model)`` mesh
 with ``embedding_sharding="rows"``: the psum and a2a lookups inside the
 dense and the sparse step, the CBNS cache, explicit negatives, the
-overflow counter, ``Trainer.train``, resume, ``dryrun_multichip`` and the
-train CLI) on gloo ranks, against the JAX package.
+overflow counter, ``Trainer.train``, resume, ``dryrun_multichip``, the
+row-sharded checkpoint that no host holds whole, and the train CLI) on
+gloo ranks, against the JAX package.
 
 One module-scoped pair of worlds (``tests/torch_rows_train_worker.py``,
 started by ``subprocess`` on ``FileStore``s, ``OMP_NUM_THREADS=1``, every
@@ -422,10 +423,11 @@ def test_trainer_end_to_end_rows_a2a(world, tiny_bundle, run):
 
 
 def test_only_rank_0_holds_the_whole_tables(world, tiny_bundle):
-    """``Trainer.train``'s checkpoints, periodic evaluation and bundle take
-    the tables from ``_host_whole``: rank 0 gets every table and optimizer
-    slot whole, as host arrays; every other rank gets None and so never
-    holds a whole table or slot; no rank all-gathers over ``model``."""
+    """``Trainer.train``'s periodic evaluation and bundle take the tables
+    from ``_host_whole``: rank 0 gets each table whole, as host arrays;
+    every other rank gets None and so never holds a whole table; no rank
+    all-gathers over ``model``. The checkpoints stream the tables and
+    their slots instead, so no optimizer slot is ever gathered whole."""
     def pad(n):  # the OOV row, then up to a multiple of the 2 model ranks
         return -(-(n + 1) // 2) * 2
 
@@ -435,7 +437,7 @@ def test_only_rank_0_holds_the_whole_tables(world, tiny_bundle):
     for r, (_, rec) in enumerate(world["steps"]):
         w = rec["train"]["whole_tables"]
         assert w["model_all_gathers"] == 0
-        # every rank called it as often: 2 a checkpoint, 1 an evaluation
+        # every rank called it as often: once an evaluation
         n_calls = n_calls or len(w["host_whole"])
         assert len(w["host_whole"]) == n_calls > 0
         slots = set()
@@ -447,7 +449,10 @@ def test_only_rank_0_holds_the_whole_tables(world, tiny_bundle):
                 assert kind == "ndarray" and shape == [rows[path.split("/")[-1]], 16], path
                 slots.add(path.split("/")[0])
         if r == 0:
-            assert {"towers", "accum"} <= slots
+            assert slots == {"towers"}
+    for run in ("train_a2a", "train_a2a_sparse"):
+        ckpts = os.listdir(os.path.join(world["steps"][0][1]["train"][run]["dir"], "checkpoints"))
+        assert "best" in ckpts and len(ckpts) > 1
 
 
 def test_rows_training_matches_replicated(world, one_card_run):
@@ -486,6 +491,98 @@ def test_resume_on_the_rows_mesh_matches_the_uninterrupted_run(world):
     for k in ("train_loss", "val_loss", "val_rating_mse"):
         np.testing.assert_allclose(resumed[0][k], full[1][k], rtol=0, atol=1e-4, err_msg=k)
     assert train["train_resume_2"]["final_step"] == train["train_a2a"]["final_step"]
+
+
+# ---- the row-sharded checkpoint ------------------------------------------------
+
+def _npz(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def test_streamed_checkpoint_equals_the_whole_gather_and_jax_reads_it(world):
+    """The ``a2a`` case's state after one step on the 2 x 2 mesh, saved by
+    the streaming writer, equals leaf for leaf the npz that the whole-table
+    gather (``_host_whole``) wrote on rank 0, tables and adagrad slots
+    whole and padded; the JAX package's npz restore reads it to the same
+    leaves."""
+    from recsys_tpu.train.checkpoint import CheckpointManager as JaxManager
+
+    rec = world["steps"][0][1]["ckpt"]
+    got = _npz(rec["path"])
+    want = _npz(world["root"] / "steps" / "ckpt_whole.npz")
+    assert sorted(got) == sorted(want)
+    assert {"params/towers/user_table", "opt_state/accum/towers/item_table"} <= set(got)
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    jax_state = JaxManager(os.path.dirname(os.path.dirname(rec["path"])),
+                           use_orbax=False).restore(rec["step"])
+    for k, v in worker._flat(jax_state).items():
+        np.testing.assert_array_equal(np.asarray(v), want[k], err_msg=k)
+
+
+def test_each_rank_restores_its_rows_reading_only_them(world):
+    """Each of the 4 ranks restores the streamed checkpoint with its row
+    ranges: its table and slot leaves equal ``shard_rows`` of the whole
+    (rows ``[m V / 2, (m + 1) V / 2)`` for model index m), the other leaves
+    equal the whole; and it reads no more of the file than its rows, the
+    whole leaves and every header (the file less its arrays' bytes)."""
+    recs = [rec for _, rec in world["steps"]]
+    whole = _npz(recs[0]["ckpt"]["path"])
+    size = os.path.getsize(recs[0]["ckpt"]["path"])
+    headers = size - sum(v.nbytes for v in whole.values())
+    for r, (arrays, rec) in enumerate(world["steps"]):
+        m = rec["coords"]["2"][1]
+        ranges = rec["ckpt"]["ranges"]
+        assert sorted(ranges) == sorted(k for k in whole if k.endswith(("user_table",
+                                                                         "item_table")))
+        own = 0
+        for k, v in whole.items():
+            got = arrays[f"ckpt/restored/{k}"]
+            if k in ranges:
+                n = v.shape[0] // 2
+                assert ranges[k] == [m * n, (m + 1) * n]
+                v = v[m * n:(m + 1) * n]
+            np.testing.assert_array_equal(got, v, err_msg=f"rank {r} {k}")
+            own += v.nbytes
+        assert own < sum(v.nbytes for v in whole.values())
+        assert own <= rec["ckpt"]["bytes_read"] <= own + headers, r
+
+
+def test_rank_0_streams_the_table_one_chunk_at_a_time(world):
+    """A 2 MiB table row-sharded over 2 model ranks, saved in 64 KiB chunks:
+    rank 0's Python allocations during the save peak under one round of
+    chunks (n_model of them) and far under the table, while the whole
+    gather of the same shards allocates the table; the streamed member
+    loads whole with ``np.load``, equal to the table."""
+    rec = world["steps"][0][1]["ckpt"]
+    n_bytes = worker.CKPT_ROWS * worker.CKPT_DIM * 4
+    assert rec["save_peak"] <= 2 * worker.CKPT_CHUNK_BYTES + (64 << 10) < n_bytes // 4
+    assert rec["gather_peak"] >= n_bytes
+    got = _npz(rec["big_path"])["params/towers/user_table"]
+    np.testing.assert_array_equal(
+        got, np.arange(n_bytes // 4, dtype=np.float32).reshape(worker.CKPT_ROWS, -1))
+
+
+def test_row_restore_refuses_a_compressed_member_and_a_range_outside(tmp_path):
+    """``restore(rows=...)`` reads rows in place only from a stored member
+    and inside the table: a compressed npz or a range past its rows
+    raises ``ValueError`` (the whole restore still reads either file)."""
+    from recsys_tpu_torch.train.checkpoint import CheckpointManager
+
+    table = np.arange(24, dtype=np.float32).reshape(6, 4)
+    manager = CheckpointManager(str(tmp_path))
+    for step, save in ((1, np.savez), (2, np.savez_compressed)):
+        os.makedirs(tmp_path / f"ckpt_{step}")
+        save(tmp_path / f"ckpt_{step}" / "state.npz", **{"params/towers/user_table": table})
+    got = manager.restore(1, rows={"params/towers/user_table": (2, 5)})
+    np.testing.assert_array_equal(got["params"]["towers"]["user_table"], table[2:5])
+    with pytest.raises(ValueError, match="outside its 6 rows"):
+        manager.restore(1, rows={"params/towers/user_table": (4, 7)})
+    with pytest.raises(ValueError, match="is compressed"):
+        manager.restore(2, rows={"params/towers/user_table": (0, 3)})
+    np.testing.assert_array_equal(manager.restore(2)["params"]["towers"]["user_table"], table)
 
 
 def test_dryrun_multichip(world):

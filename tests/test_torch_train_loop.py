@@ -3,7 +3,7 @@ dense train step over 20 steps, the offline evaluator, ``Trainer.train``
 end to end (its serving bundle served by both packages), the CLI (its
 config against the JAX CLI's for one argv, ``--resume``), the
 preemption checkpoint and resume, the explicit-negatives and streaming
-modes through ``Trainer.train``, and the modes that are not ported.
+modes, and the ``debug_nans`` and ``profile`` modes through ``Trainer.train``.
 
 Tolerances:
 * 20-step trajectory, fp32: losses to rtol = 1e-5 and params to
@@ -24,6 +24,7 @@ import csv
 import json
 import os
 import signal
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -217,19 +218,30 @@ def test_preemption_checkpoint_then_resume(tiny_bundle, tmp_path, monkeypatch):
     assert report["epochs_run"] == 3 and "recall@10" in report
 
 
-_UNPORTED = {
-    "debug_nans": (lambda: RecsysConfig(train=TrainConfig(debug_nans=True)),
-                   "item 7, debug and profile"),
-    "profile": (lambda: RecsysConfig(train=TrainConfig(profile=True)),
-                "item 7, debug and profile"),
-}
+@pytest.mark.parametrize("mode", ["debug_nans", "profile"])
+def test_unported_modes_raise(mode, tiny_bundle, tmp_path):
+    """The two debugging modes, which earlier raised as not ported, train
+    one epoch on the CPU: ``profile`` leaves a parsable trace under
+    ``<output_dir>/profile``; ``debug_nans`` (dropout on) lands on the
+    params of the same run without it, bit for bit."""
+    from recsys_tpu_torch.utils.debug import disable_nan_checks
 
-
-@pytest.mark.parametrize("mode", sorted(_UNPORTED))
-def test_unported_modes_raise(mode, tmp_path):
-    make_cfg, item = _UNPORTED[mode]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1: {item}"):
-        Trainer(make_cfg(), str(tmp_path), device="cpu")
+    out = tmp_path / "run"
+    try:
+        tr = Trainer(_small_run_cfg(epochs=1, **{mode: True}), str(out), device="cpu")
+        tr.train(tiny_bundle)
+    finally:
+        disable_nan_checks()
+    if mode == "profile":
+        traces = list((out / "profile").glob("*.pt.trace.json"))
+        assert len(traces) == 1
+        assert json.loads(traces[0].read_text())["traceEvents"]
+        return
+    plain = Trainer(_small_run_cfg(epochs=1), str(tmp_path / "plain"), device="cpu")
+    plain.train(tiny_bundle)
+    got = dict(leaves_with_paths(tr.final_state.params))
+    for path, want in leaves_with_paths(plain.final_state.params):
+        assert torch.equal(got[path], want), path
 
 
 @pytest.mark.parametrize("axis", ["model_axis", "data_axis"])
@@ -408,10 +420,12 @@ def test_cli_row_flags_reach_the_config_of_the_jax_cli(argv, monkeypatch):
     assert cli.build_config(cli.build_parser().parse_args(argv)).to_json() == want.to_json()
 
 
-def test_cli_resume_reaches_the_trainer_and_unported_flags_stay_errors(tiny_bundle, tmp_path):
+def test_cli_resume_reaches_the_trainer_and_unported_flags_stay_errors(tiny_bundle, tmp_path,
+                                                                       capsys):
     """``--resume`` continues the run in ``--output_dir`` from its newest
-    checkpoint (the second run trains only the epoch the first left), and
-    a flag whose mode is not ported is still refused."""
+    checkpoint (the second run trains only the epoch the first left);
+    ``--use_wandb`` without wandb warns and trains, as the JAX CLI does;
+    ``--use_side_features`` alone is still refused."""
     data = str(tmp_path / "bundle.npz")
     np.savez(data, **tiny_bundle)
     out = str(tmp_path / "run")
@@ -436,7 +450,11 @@ def test_cli_resume_reaches_the_trainer_and_unported_flags_stay_errors(tiny_bund
     assert saved["eval"]["eval_sample"] == 100
     with open(os.path.join(out, "metrics.json")) as f:
         assert json.load(f)["epochs_run"] == 2
-    with pytest.raises(SystemExit):
-        cli.main(["--data", data, "--use_wandb"])
+    assert "wandb" not in sys.modules
+    capsys.readouterr()
+    assert cli.main(argv + ["--epochs", "1", "--use_wandb", "--output_dir",
+                            str(tmp_path / "wandb_run")]) == 0
+    assert "wandb not installed; continuing without it" in capsys.readouterr().err
+    assert os.path.exists(tmp_path / "wandb_run" / "metrics.json")
     with pytest.raises(SystemExit, match="requires --use_dense_features"):
         cli.main(["--data", data, "--use_side_features"])

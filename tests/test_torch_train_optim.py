@@ -159,9 +159,8 @@ def test_metric_writer_writes_the_jax_artifacts(tmp_path):
     logs = [{"train_loss": 2.0, "val_loss": 1.5}, {"train_loss": 1.0, "val_loss": 1.2}]
     cfg = RecsysConfig()
     dirs = {}
-    for name, cls, kw in (("port", MetricWriter, {}),
-                          ("jax", JaxMetricWriter, {"tensorboard": False})):
-        w = cls(str(tmp_path / name), **kw)
+    for name, cls in (("port", MetricWriter), ("jax", JaxMetricWriter)):
+        w = cls(str(tmp_path / name), tensorboard=False)  # the TB sink: test_torch_debug.py
         w.write_config(cfg)
         for epoch, entry in enumerate(logs):
             w.start_epoch()

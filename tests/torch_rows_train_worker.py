@@ -11,7 +11,8 @@ under ``b<i>/``, padded-case batches under ``p<i>/``, a skewed batch under
 the 2 x 2 and 1 x 4 meshes, trains every case of ``CASES`` from the same
 params on its ``data`` slice of each global batch (each case is a
 collective: the same order on every rank), then the ``Trainer.train``
-runs of ``TRAIN_RUNS`` on the 2 x 2 mesh and ``dryrun_multichip``. In mode
+runs of ``TRAIN_RUNS`` on the 2 x 2 mesh, ``dryrun_multichip`` and the
+row-sharded checkpoint cases (``run_checkpoints``). In mode
 ``cli`` two ranks run the train CLI's ``main`` on the bundle, row-sharded
 (``--model_parallel 2 --embedding_sharding rows --lookup_strategy a2a``)
 and replicated. Each rank writes ``<out>/rank<r>.npz`` (arrays) and
@@ -21,6 +22,7 @@ Usage:
   python tests/torch_rows_train_worker.py <rank> <world> <store> <inputs> <out> steps|cli
 """
 
+import io
 import json
 import logging
 import os
@@ -234,6 +236,99 @@ def run_train(ctx, bundle, out_dir):
     return records
 
 
+# the checkpoint cases' giant-shaped stand-in: a [CKPT_ROWS, CKPT_DIM] fp32
+# table (2 MiB), streamed in CKPT_CHUNK_BYTES chunks
+CKPT_ROWS, CKPT_DIM, CKPT_CHUNK_BYTES = 16_384, 32, 64 << 10
+
+
+class CountingFile(io.FileIO):
+    """An unbuffered file that counts the bytes read from it."""
+    bytes_read = 0
+
+    def read(self, size=-1):
+        data = super().read(size)
+        CountingFile.bytes_read += len(data)
+        return data
+
+    def readinto(self, buf):
+        n = super().readinto(buf)
+        CountingFile.bytes_read += n or 0
+        return n
+
+    def readall(self):
+        data = super().readall()
+        CountingFile.bytes_read += len(data)
+        return data
+
+
+def run_checkpoints(ctx, inputs, out_dir):
+    """The row-sharded checkpoint on the 2 x 2 mesh -> (arrays, records).
+    The ``a2a`` case's state after one step is saved twice, streamed
+    (``CheckpointManager.save`` of ``Trainer._state_dict``) and by the
+    whole-table gather (``_host_whole``, then ``np.savez`` on rank 0);
+    each rank restores the streamed one with its row ranges, counting the
+    bytes it reads (``restored/`` arrays, ``bytes_read``). Then a 2 MiB
+    table streams in 64 KiB chunks while rank 0 traces its Python
+    allocations (``save_peak``), beside the whole gather's
+    (``gather_peak``)."""
+    import tracemalloc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from recsys_tpu_torch.parallel import sharding
+    from recsys_tpu_torch.train import checkpoint as ckpt_lib
+    from recsys_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(configs(2, "a2a", {}, {}), os.path.join(out_dir, "ckpt_trainer"),
+                 device="cpu", mesh_ctx=ctx)
+    state = tr.state_from_params(
+        ckpt_lib.params_from_numpy(_unflatten(inputs, "params/"), "cpu"), 3)
+    batch = sharding.local_slice(ctx, _unflatten(inputs, "b0/"))
+    state, _ = tr.make_train_step(CLASS_WEIGHTS)(
+        state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    streamed = os.path.join(out_dir, "ckpt_streamed")
+    manager = ckpt_lib.CheckpointManager(streamed)
+    manager.save(state.step, tr._state_dict(state))
+    whole = {"params": tr._host_whole(state.params), "opt_state": tr._host_whole(state.opt_state),
+             "step": np.int64(state.step), "rng": np.int64(state.rng)}
+    if ctx.data_index == 0 and ctx.model_index == 0:
+        np.savez(os.path.join(out_dir, "ckpt_whole.npz"),
+                 **ckpt_lib._flatten(ckpt_lib.params_to_numpy(whole)))
+    dist.barrier()  # rank 0 has written both files
+    ranges = tr._row_ranges(state)
+    CountingFile.bytes_read = 0
+    ckpt_lib.open = CountingFile
+    try:
+        restored = manager.restore(state.step, rows=ranges)
+    finally:
+        del ckpt_lib.open
+    arrays = {f"restored/{k}": v for k, v in _flat(restored).items()}
+    records = {"step": state.step, "bytes_read": CountingFile.bytes_read,
+               "ranges": {k: list(v) for k, v in ranges.items()},
+               "path": os.path.join(streamed, f"ckpt_{state.step}", "state.npz")}
+
+    table = torch.arange(CKPT_ROWS * CKPT_DIM, dtype=torch.float32).reshape(CKPT_ROWS, CKPT_DIM)
+    shard = sharding.shard_rows(ctx, table).clone()
+    del table
+    sharding.GATHER_CHUNK_BYTES, chunk = CKPT_CHUNK_BYTES, sharding.GATHER_CHUNK_BYTES
+    try:
+        big = ckpt_lib.CheckpointManager(os.path.join(out_dir, "ckpt_big"))
+        tracemalloc.start()
+        big.save(1, {"params": {"towers": {"user_table": ckpt_lib.RowShards(ctx, shard)}}})
+        records["save_peak"] = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+        tracemalloc.start()
+        sharding.gather_table(ctx, shard)
+        records["gather_peak"] = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+    finally:
+        sharding.GATHER_CHUNK_BYTES = chunk
+    records["big_path"] = os.path.join(out_dir, "ckpt_big", "ckpt_1", "state.npz")
+    return arrays, records
+
+
 def run_cases(inputs, out_dir):
     import torch.distributed as dist
 
@@ -260,6 +355,8 @@ def run_cases(inputs, out_dir):
     bundle = {k[len("bundle/"):]: v for k, v in inputs.items() if k.startswith("bundle/")}
     records["train"] = run_train(meshes[2], bundle, out_dir)
     records["dryrun"] = dryrun_multichip("cpu")
+    ckpt_arrays, records["ckpt"] = run_checkpoints(meshes[2], inputs, out_dir)
+    arrays.update({f"ckpt/{k}": v for k, v in ckpt_arrays.items()})
     return arrays, records
 
 
