@@ -18,6 +18,7 @@ from recsys_tpu_torch.models import losses
 from recsys_tpu_torch.models.dcn import DeepCrossNetwork
 from recsys_tpu_torch.models.towers import TwoTower
 from recsys_tpu_torch.utils.device import DeviceLike, resolve_device
+from recsys_tpu_torch.utils.trace import span
 
 
 class ForwardOut(NamedTuple):
@@ -150,24 +151,25 @@ class MultiTaskModel:
         common = dict(mask=mask, log_q=batch.get("log_q"), item_bias=bias,
                       extra_candidates=extra_candidates, axis_name=retr_axis,
                       mesh_ctx=mesh_ctx)
-        if loss_path == "flash":
-            from recsys_tpu_torch.ops.flash_ce import in_batch_softmax_flash
+        with span("loss.retrieval"):
+            if loss_path == "flash":
+                from recsys_tpu_torch.ops.flash_ce import in_batch_softmax_flash
 
-            retr = in_batch_softmax_flash(
-                u_retr.to(emb_dtype), out.item_embedding.to(emb_dtype),
-                item_ids=mask_ids, bf16=cfg.bf16_retrieval_logits, **common)
-        elif loss_path == "chunked":
-            retr = losses.in_batch_softmax_chunked(
-                u_retr.to(emb_dtype), out.item_embedding.to(emb_dtype),
-                item_ids=mask_ids, **common)
-        else:
-            bf16_logits = cfg.bf16_retrieval_logits is True or (
-                cfg.bf16_retrieval_logits == "auto"
-                and n_candidates >= losses.BF16_LOGITS_MIN_CANDIDATES)
-            retr = losses.in_batch_softmax(
-                u_retr.to(emb_dtype), out.item_embedding.to(emb_dtype),
-                item_ids=mask_ids,
-                logits_dtype=torch.bfloat16 if bf16_logits else None, **common)
+                retr = in_batch_softmax_flash(
+                    u_retr.to(emb_dtype), out.item_embedding.to(emb_dtype),
+                    item_ids=mask_ids, bf16=cfg.bf16_retrieval_logits, **common)
+            elif loss_path == "chunked":
+                retr = losses.in_batch_softmax_chunked(
+                    u_retr.to(emb_dtype), out.item_embedding.to(emb_dtype),
+                    item_ids=mask_ids, **common)
+            else:
+                bf16_logits = cfg.bf16_retrieval_logits is True or (
+                    cfg.bf16_retrieval_logits == "auto"
+                    and n_candidates >= losses.BF16_LOGITS_MIN_CANDIDATES)
+                retr = losses.in_batch_softmax(
+                    u_retr.to(emb_dtype), out.item_embedding.to(emb_dtype),
+                    item_ids=mask_ids,
+                    logits_dtype=torch.bfloat16 if bf16_logits else None, **common)
         if neg_item_ids is not None:
             # the model's own embeddings, without the in-batch term's cast
             neg_emb = TwoTower.item_embed(params["towers"], neg_item_ids, cfg, train=train,

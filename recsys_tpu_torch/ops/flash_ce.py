@@ -34,6 +34,7 @@ import torch
 
 from recsys_tpu_torch.ops import _build
 from recsys_tpu_torch.utils.debug import kernel_nan_check
+from recsys_tpu_torch.utils.trace import span
 
 NEG_BIG = -1e9
 # tile sizes of csrc/flash_ce.cu (TQ: the query tile that the fused
@@ -787,16 +788,17 @@ class FlashSoftmaxCE(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        u, v, colcorr, ids_q, ids_k, pos, lse = ctx.saved_tensors
-        g = g.float().contiguous()
-        du, dv, dcol = flash_ce_bwd(u, v, colcorr, ids_q, ids_k, pos, lse, g)
-        # positive-column (label) terms, as _flash_ce_bwd adds them
-        # outside the kernels: d(-s_{i,pos_i}); pos columns are distinct
-        idx = pos.long()
-        du = du - g[:, None] * v.float()[idx]
-        dv = dv.index_add(0, idx, -g[:, None] * u.float())
-        dcol = dcol.index_add(0, idx, -g)
-        return du.to(u.dtype), dv.to(v.dtype), dcol, None, None, None
+        with span("loss.retrieval_bwd"):
+            u, v, colcorr, ids_q, ids_k, pos, lse = ctx.saved_tensors
+            g = g.float().contiguous()
+            du, dv, dcol = flash_ce_bwd(u, v, colcorr, ids_q, ids_k, pos, lse, g)
+            # positive-column (label) terms, as _flash_ce_bwd adds them
+            # outside the kernels: d(-s_{i,pos_i}); pos columns are distinct
+            idx = pos.long()
+            du = du - g[:, None] * v.float()[idx]
+            dv = dv.index_add(0, idx, -g[:, None] * u.float())
+            dcol = dcol.index_add(0, idx, -g)
+            return du.to(u.dtype), dv.to(v.dtype), dcol, None, None, None
 
 
 def flash_softmax_ce(u, v, colcorr, ids_q, ids_k, pos) -> torch.Tensor:

@@ -111,7 +111,13 @@ its forward and backward to name the op or kernel that made it, raising
 ``FloatingPointError``; the validation metrics are checked alike.
 ``profile`` traces the first epoch's train steps on rank 0 with
 ``torch.profiler`` into ``<output_dir>/profile`` (a TensorBoard trace
-directory), where the JAX package starts and stops its trace.
+directory), where the JAX package starts and stops its trace. There each
+step's kernels sit under the spans of ``utils/trace.py``: ``train.step``
+around ``train.forward`` (with ``loss.retrieval``), ``train.backward``
+(with ``loss.retrieval_bwd``, the flash route's backward, on the autograd
+thread), ``train.update`` and ``train.cache_update``, and
+``train.exchange`` around the collectives under a mesh. A span records
+nothing without a running profiler.
 
 Dropout masks come from a ``torch.Generator`` on the device, reseeded from
 (seed + 1, step) every step, and from the rank's data index under a mesh
@@ -155,6 +161,7 @@ from recsys_tpu_torch.utils.debug import (assert_replicated, deferred_nan_checks
                                           nan_message)
 from recsys_tpu_torch.utils.device import DeviceLike, resolve_device
 from recsys_tpu_torch.utils.metrics_io import MetricWriter
+from recsys_tpu_torch.utils.trace import span
 
 logger = logging.getLogger(__name__)
 
@@ -565,7 +572,8 @@ class Trainer:
         if self.ctx is None:
             return metrics
         keys = sorted(metrics)
-        mean = collectives.allreduce_mean(self.ctx, torch.stack([metrics[k] for k in keys]))
+        with span("train.exchange"):
+            mean = collectives.allreduce_mean(self.ctx, torch.stack([metrics[k] for k in keys]))
         return dict(zip(keys, mean.unbind()))
 
     def _local_rows(self, tree, axis: int = 0):
@@ -598,36 +606,41 @@ class Trainer:
         shard_reduce = self._shard_reduce()
 
         def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
-            batch = dict(batch)
-            neg_ids = batch.pop("neg_ids") if use_explicit_negs else None
-            paths, leaves = zip(*leaves_with_paths(state.params))
+            with span("train.step"):
+                batch = dict(batch)
+                neg_ids = batch.pop("neg_ids") if use_explicit_negs else None
+                paths, leaves = zip(*leaves_with_paths(state.params))
 
-            def forward_backward():
-                _, metrics = MultiTaskModel.loss(
-                    state.params, cfg.model, batch, generator=self._generator(state),
-                    train=True, class_weights=class_weights, neg_item_ids=neg_ids,
-                    extra_candidates=self._cache_tuple(state), **self._loss_axis())
-                if self._a2a():
-                    metrics["lookup_overflow"] = self._overflow(state.params["towers"], batch,
-                                                                neg_ids)
-                grads = _grads(metrics["loss"], leaves)
-                if self.ctx is not None:
-                    # the gradient of the global mean: the mean over ``data``
-                    # of the ranks' (the gathered candidates' backward
-                    # already summed the other ranks' cotangents into this
-                    # rank's item rows; the model replicas of a slice hold
-                    # the same values)
-                    grads = collectives.allreduce_mean_flat(self.ctx, grads)
-                return metrics, dict(zip(paths, grads))
+                def forward_backward():
+                    with span("train.forward"):
+                        _, metrics = MultiTaskModel.loss(
+                            state.params, cfg.model, batch, generator=self._generator(state),
+                            train=True, class_weights=class_weights, neg_item_ids=neg_ids,
+                            extra_candidates=self._cache_tuple(state), **self._loss_axis())
+                        if self._a2a():
+                            metrics["lookup_overflow"] = self._overflow(
+                                state.params["towers"], batch, neg_ids)
+                    with span("train.backward"):
+                        grads = _grads(metrics["loss"], leaves)
+                    if self.ctx is not None:
+                        # the gradient of the global mean: the mean over
+                        # ``data`` of the ranks' (the gathered candidates'
+                        # backward already summed the other ranks'
+                        # cotangents into this rank's item rows; the model
+                        # replicas of a slice hold the same values)
+                        with span("train.exchange"):
+                            grads = collectives.allreduce_mean_flat(self.ctx, grads)
+                    return metrics, dict(zip(paths, grads))
 
-            metrics, grads = self._checked(state, forward_backward)
-            new_cache = self._cache_update(state, state.params, batch)  # pre-update params
-            self.optimizer.update(_tree_from_paths(grads), state.opt_state, state.params,
-                                  state.step, shard_reduce)
-            self._updated(state)
-            self.step_counts["dense"] += 1
-            return (state._replace(step=state.step + 1, extras=new_cache),
-                    self._reduce_metrics(metrics))
+                metrics, grads = self._checked(state, forward_backward)
+                new_cache = self._cache_update(state, state.params, batch)  # pre-update params
+                with span("train.update"):
+                    self.optimizer.update(_tree_from_paths(grads), state.opt_state,
+                                          state.params, state.step, shard_reduce)
+                self._updated(state)
+                self.step_counts["dense"] += 1
+                return (state._replace(step=state.step + 1, extras=new_cache),
+                        self._reduce_metrics(metrics))
 
         return step_fn
 
@@ -654,46 +667,56 @@ class Trainer:
         dense_opt = make_optimizer(dataclasses.replace(cfg.train, clipnorm=0.0))
 
         def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
-            params = state.params
-            tw = params["towers"]
+            with span("train.step"):
+                params = state.params
+                tw = params["towers"]
 
-            def forward_backward():
-                movie = batch["movie_id"].long()
-                ids = {"user_table": batch["user_id"].long(), "item_table": movie,
-                       "item_bias": movie}
-                ids = {k: v.clamp(0, self._global_rows(tw, k) - 1) for k, v in ids.items()}
-                lookup = self._lookup()
-                with torch.no_grad():
-                    if lookup is None:
-                        virt = {k: tw[k][ids[k]] for k in self._TABLE_KEYS}
-                    else:  # the rows of the unclipped ids, as JAX reads them
-                        virt = {"user_table": lookup(tw["user_table"], batch["user_id"]),
-                                "item_table": lookup(tw["item_table"], batch["movie_id"]),
-                                "item_bias": tw["item_bias"][ids["item_bias"]]}
-                virt = {k: v.detach().requires_grad_(True) for k, v in virt.items()}
-                vparams = {**params, "towers": {**tw, **virt}}
-                ar = torch.arange(movie.shape[0], dtype=torch.int32, device=movie.device)
-                vbatch = {**batch, "user_id": ar, "movie_id": ar, "mask_ids": batch["movie_id"]}
-                # the virtual tables are local [B, D] rows: no lookup in the loss
-                _, metrics = MultiTaskModel.loss(
-                    vparams, cfg.model, vbatch, generator=self._generator(state), train=True,
-                    class_weights=class_weights, extra_candidates=self._cache_tuple(state),
-                    **{**self._loss_axis(), "lookup": None})
-                if self._a2a():
-                    metrics["lookup_overflow"] = self._overflow(tw, batch)
-                paths, leaves = zip(*leaves_with_paths(vparams))
-                grads = dict(zip(paths, _grads(metrics["loss"], leaves)))
-                if self.ctx is not None:
-                    grads, ids = self._global_sparse_grads(grads, ids)
-                return metrics, grads, ids
+                def forward_backward():
+                    with span("train.forward"):
+                        movie = batch["movie_id"].long()
+                        ids = {"user_table": batch["user_id"].long(), "item_table": movie,
+                               "item_bias": movie}
+                        ids = {k: v.clamp(0, self._global_rows(tw, k) - 1)
+                               for k, v in ids.items()}
+                        lookup = self._lookup()
+                        with torch.no_grad():
+                            if lookup is None:
+                                virt = {k: tw[k][ids[k]] for k in self._TABLE_KEYS}
+                            else:  # the rows of the unclipped ids, as JAX reads them
+                                virt = {"user_table": lookup(tw["user_table"], batch["user_id"]),
+                                        "item_table": lookup(tw["item_table"],
+                                                             batch["movie_id"]),
+                                        "item_bias": tw["item_bias"][ids["item_bias"]]}
+                        virt = {k: v.detach().requires_grad_(True) for k, v in virt.items()}
+                        vparams = {**params, "towers": {**tw, **virt}}
+                        ar = torch.arange(movie.shape[0], dtype=torch.int32,
+                                          device=movie.device)
+                        vbatch = {**batch, "user_id": ar, "movie_id": ar,
+                                  "mask_ids": batch["movie_id"]}
+                        # the virtual tables are local [B, D] rows: no lookup in the loss
+                        _, metrics = MultiTaskModel.loss(
+                            vparams, cfg.model, vbatch, generator=self._generator(state),
+                            train=True, class_weights=class_weights,
+                            extra_candidates=self._cache_tuple(state),
+                            **{**self._loss_axis(), "lookup": None})
+                        if self._a2a():
+                            metrics["lookup_overflow"] = self._overflow(tw, batch)
+                    paths, leaves = zip(*leaves_with_paths(vparams))
+                    with span("train.backward"):
+                        grads = dict(zip(paths, _grads(metrics["loss"], leaves)))
+                    if self.ctx is not None:
+                        with span("train.exchange"):
+                            grads, ids = self._global_sparse_grads(grads, ids)
+                    return metrics, grads, ids
 
-            metrics, grads, ids = self._checked(state, forward_backward)
-            new_cache = self._cache_update(state, params, batch)  # pre-update params
-            self._sparse_apply(state, grads, ids, dense_opt)
-            self._updated(state)
-            self.step_counts["sparse"] += 1
-            return (state._replace(step=state.step + 1, extras=new_cache),
-                    self._reduce_metrics(metrics))
+                metrics, grads, ids = self._checked(state, forward_backward)
+                new_cache = self._cache_update(state, params, batch)  # pre-update params
+                with span("train.update"):
+                    self._sparse_apply(state, grads, ids, dense_opt)
+                self._updated(state)
+                self.step_counts["sparse"] += 1
+                return (state._replace(step=state.step + 1, extras=new_cache),
+                        self._reduce_metrics(metrics))
 
         return step_fn
 
@@ -830,23 +853,25 @@ class Trainer:
         row sharding the embeddings are read through the step's lookup."""
         if state.extras is None:
             return None
-        cfg = self.config
-        tw = params["towers"]
-        ids = batch["movie_id"]
-        emb = TwoTower.item_embed(tw, ids, cfg.model, train=False, lookup=self._lookup())
-        corr = torch.zeros(ids.shape, dtype=torch.float32, device=emb.device)
-        if cfg.model.use_item_bias:
-            corr = corr + tw["item_bias"][ids.long().clamp(0, tw["item_bias"].shape[0] - 1)]
-        if "log_q" in batch:
-            corr = corr - batch["log_q"]
-        if self.ctx is not None:  # the FIFO gains the global batch, in rank order
-            rows = self._gather_data(torch.cat([emb.float(), corr[:, None]], dim=1))
-            emb, corr, ids = rows[:, :-1], rows[:, -1], self._gather_data(ids)
-        b = ids.shape[0]
-        c = state.extras
-        return {"emb": torch.cat([c["emb"][b:], emb.float()]),
-                "ids": torch.cat([c["ids"][b:], ids.to(c["ids"].dtype)]),
-                "corr": torch.cat([c["corr"][b:], corr])}
+        with span("train.cache_update"):
+            cfg = self.config
+            tw = params["towers"]
+            ids = batch["movie_id"]
+            emb = TwoTower.item_embed(tw, ids, cfg.model, train=False, lookup=self._lookup())
+            corr = torch.zeros(ids.shape, dtype=torch.float32, device=emb.device)
+            if cfg.model.use_item_bias:
+                corr = corr + tw["item_bias"][ids.long().clamp(0, tw["item_bias"].shape[0] - 1)]
+            if "log_q" in batch:
+                corr = corr - batch["log_q"]
+            if self.ctx is not None:  # the FIFO gains the global batch, in rank order
+                with span("train.exchange"):
+                    rows = self._gather_data(torch.cat([emb.float(), corr[:, None]], dim=1))
+                    emb, corr, ids = rows[:, :-1], rows[:, -1], self._gather_data(ids)
+            b = ids.shape[0]
+            c = state.extras
+            return {"emb": torch.cat([c["emb"][b:], emb.float()]),
+                    "ids": torch.cat([c["ids"][b:], ids.to(c["ids"].dtype)]),
+                    "corr": torch.cat([c["corr"][b:], corr])}
 
     def make_train_step(self, class_weights, use_explicit_negs: bool = False) -> Callable:
         return self._step_core(class_weights, use_explicit_negs)

@@ -292,9 +292,9 @@ def test_cache_refusals_match_jax(world):
 
 def test_dropout_masks_differ_per_rank_and_params_stay_replicated(world):
     """Dropout 0.3: each rank draws its own stream (data index 0 the
-    one-card stream); after 2 steps ``assert_replicated`` passes on every
-    rank, and one ulp on one element of rank 1 makes it raise on every
-    rank."""
+    one-card stream); after 2 steps (profiled: each holds two
+    ``train.exchange`` spans) ``assert_replicated`` passes on every rank,
+    and one ulp on one element of rank 1 makes it raise on every rank."""
     ranks = world["steps"]
     draws = [a["dropout_draw"] for a, _ in ranks]
     np.testing.assert_array_equal(draws[0], ranks[0][0]["dropout_draw_one_card"])
@@ -303,6 +303,7 @@ def test_dropout_masks_differ_per_rank_and_params_stay_replicated(world):
             assert not np.array_equal(draws[i], draws[j])
     sums = {rec["dropout_checksum"] for _, rec in ranks}
     assert len(sums) == 1 and np.isfinite(sums.pop())
+    assert [rec["exchange_spans"] for _, rec in ranks] == [4] * WORLD
     for _, rec in ranks:
         assert rec["nudged"] is not None and "replica desync detected" in rec["nudged"]
         assert "bit checksums" in rec["nudged"]

@@ -148,10 +148,14 @@ def run_cases(ctx, inputs, out_dir):
     one_card = torch.Generator().manual_seed(state.rng * 1_000_003 + state.step)
     arrays["dropout_draw_one_card"] = torch.rand(8, generator=one_card).numpy()
     step = tr.make_train_step(CLASS_WEIGHTS)
-    for i in range(2):
-        local = {k: torch.from_numpy(v) for k, v in
-                 local_slice(ctx, _unflatten(inputs, f"b{i}/")).items()}
-        state, _ = step(state, local)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for i in range(2):
+            local = {k: torch.from_numpy(v) for k, v in
+                     local_slice(ctx, _unflatten(inputs, f"b{i}/")).items()}
+            state, _ = step(state, local)
+    # the steps' collectives under their span: the gradients' all-reduce
+    # and the metrics' mean, each step
+    records["exchange_spans"] = sum(e.name == "train.exchange" for e in prof.events())
     records["dropout_checksum"] = float(assert_replicated(state.params, ctx)[0])
     if rank == 1:  # one ulp on one element of one rank
         with torch.no_grad():
