@@ -267,8 +267,9 @@ CUDA device it exits 2 before doing anything.
 times kernel rows 1 to 8 of an unpacked checkout of another commit
 (``git archive <commit> | tar -x -C PARENT_DIR``) and of this tree in
 turns on one card (parent, this, this, parent; a process each, every tree
-built from its own sources) at the shapes of the ``AB_*`` lists (rows 4
-to 7 also in fp32 at 8,192^2, rows 4, 6 and 7 at 20,000^2; rows 2 and 3 at
+built from its own sources) at the shapes of the ``AB_*`` lists (rows 4,
+6 and 7 in bf16 up to 131,072 x 262,144; rows 4 to 7 also in fp32 at
+8,192^2, rows 4, 6 and 7 at 20,000^2; rows 2 and 3 at
 F = 256 and 289, row 3 with its reduction's device ms apart), beside the
 library yardsticks of rows 4 to 8, then each tree's served requests and
 B = 8,192 train step as phases 7 and 11 profile them, and prints one
@@ -1869,22 +1870,26 @@ def check_twokernel(u, v, c, ids_q, ids_k, pos, g, bwd=None) -> dict:
 
 def check_fwd_dv_edges() -> list:
     """Rows 4 and 7 of bf16 operands (the tensor-core kernels) against
-    their plain versions at their edges: D in {24, 32, 64, 128, 129, 256}
-    (padded widths, two column slices of dV past 128, element-wise loads
-    where D % 8 != 0), Bq and Bk not multiples of 16 or 64, one candidate,
-    row 0's positive column in the forward's last candidate part, and
+    their plain versions at their edges: D in {24, 32, 64, 120, 128, 129,
+    256} (padded widths; row 7's TMA tiles zero past D, two column slices
+    of dV past 128, and at D = 129 its padded copy of u and v; element-wise
+    loads of row 4 where D % 8 != 0), the ragged 1,000 x 3,001 at D of 32
+    to 256, Bq and Bk not multiples of 16, 64 or 128, one candidate, row
+    0's positive column in the forward's last candidate part, 8,192^2, and
     (every other shape) a third of the rows whose every candidate but the
     positive is an accidental hit: lse, the positive logit and dcol within
     FLASH_TOL of max|ref|, dV within FLASH_BF16_GRAD_TOL; two calls of each
-    give the same bits. -> errors and plans per shape."""
+    give the same bits and count two launches. -> errors and plans per
+    shape."""
     import torch
     from recsys_tpu_torch.ops import flash_ce as F
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     out = []
-    for i, (bq, bk, d) in enumerate(((50, 70, 32), (130, 4097, 24), (1000, 3001, 64),
-                                     (777, 2050, 128), (1000, 3001, 129), (300, 1100, 256),
-                                     (65, 1, 64), (8192, 8192, 128))):
+    for i, (bq, bk, d) in enumerate(((50, 70, 32), (130, 4097, 24), (1000, 3001, 32),
+                                     (1000, 3001, 64), (1000, 3001, 120), (1000, 3001, 128),
+                                     (1000, 3001, 129), (1000, 3001, 256), (777, 2050, 128),
+                                     (300, 1100, 256), (65, 1, 64), (8192, 8192, 128))):
         gen = torch.Generator(device="cuda").manual_seed(SEED + 30 + i)
         rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
         n_ids = max(2, bk // 3)
@@ -1898,6 +1903,7 @@ def check_fwd_dv_edges() -> list:
             ids_k.fill_(n_ids)
             ids_q[::3] = n_ids
         what = f"rows 4/7 edge Bq={bq} Bk={bk} D={d} bf16"
+        before = F.flash_ce_fwd.launches, F.flash_ce_bwd_dv.launches
         fwd = [F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos) for _ in range(2)]
         torch.cuda.synchronize()
         ref_lse, ref_pos = F.flash_ce_fwd_reference(u, v, c, ids_q, ids_k, pos)
@@ -1913,9 +1919,11 @@ def check_fwd_dv_edges() -> list:
         check(dv_rel[0] <= FLASH_BF16_GRAD_TOL and dv_rel[1] <= FLASH_TOL,
               f"{what}: dV, dcol err {dv_rel}")
         check(all(bool(torch.equal(a, b)) for a, b in zip(*dv)), f"{what}: two row 7 calls differ")
+        moved = (F.flash_ce_fwd.launches - before[0], F.flash_ce_bwd_dv.launches - before[1])
+        check(moved == (2, 2), f"{what}: launches of rows 4 and 7 {moved}, want (2, 2)")
         out.append({"Bq": bq, "Bk": bk, "D": d, "all_accidental_rows": bool(i % 2),
                     "fwd_parts": F.fwd_plan(bq, bk, True, n_sm).parts,
-                    "dv_parts": F.dv_plan(bq, bk, d, True, n_sm).parts,
+                    "dv_parts": F.dv_plan(bq, bk, -(-d // 8) * 8, True, n_sm).parts,
                     "fwd_rel": dict(zip(("lse", "pos_logit"), fwd_rel)),
                     "dv_rel": dict(zip(("dV", "dcol"), dv_rel))})
         del fwd, dv, args, u, v
@@ -1976,7 +1984,7 @@ def twokernel_rows(args, iters: int, exp_rate: float, plain: bool) -> tuple:
                 p = probs()
                 return p.to(u.dtype).T @ u, p.sum(dim=0)
 
-            # both row 7 kernels: flash_ce_bwd_dv_kernel (fp32) and _tc_kernel
+            # both row 7 kernels: flash_ce_bwd_dv_kernel (fp32) and _wgmma_kernel
             n_bytes, name = in_bytes + 4 * (bk * d + bk), "flash_ce_bwd_dv_"
         n_ops = 4.0 * bq * bk * d
         b_ms, b_by = bound_ms(n_bytes, n_ops, flops, n_exp=float(bq) * bk, exp_per_s=exp_rate)
@@ -2144,7 +2152,14 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
                         "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
                         "device_ms": dev_ms, "kernel_device_ms": dev_kernel_ms}
     args = (u, v, c, ids_q, ids_k, pos, ref_lse, gr)
+    n_dv = F.flash_ce_bwd_dv.launches
     two = F.flash_ce_bwd_twokernel(*args)
+    dv_again = F.flash_ce_bwd_dv(*args)
+    check(F.flash_ce_bwd_dv.launches - n_dv == 2, f"{what}: row 7 launches "
+          f"{F.flash_ce_bwd_dv.launches - n_dv}, want 2")
+    check(all(bool(torch.equal(a, b)) for a, b in zip(two[1:], dv_again)),
+          f"{what}: two row 7 calls differ")
+    del dv_again
     fused = F.flash_ce_bwd_fused(*args)
     torch.cuda.synchronize()
     want = []
@@ -4269,7 +4284,7 @@ DEBUG_ROWS = {2: ("dcn_cross", ("dcn_cross_fwd_kernel",)),
               4: ("flash_ce_fwd", ("flash_ce_fwd_kernel", "flash_ce_fwd_tc_kernel")),
               5: ("flash_ce_bwd_fused", ("flash_ce_bwd_kernel", "flash_ce_bwd_tc_kernel")),
               6: ("flash_ce_bwd_du", ("flash_ce_bwd_du_kernel", "flash_ce_bwd_du_tc_kernel")),
-              7: ("flash_ce_bwd_dv", ("flash_ce_bwd_dv_kernel", "flash_ce_bwd_dv_tc_kernel"))}
+              7: ("flash_ce_bwd_dv", ("flash_ce_bwd_dv_kernel", "flash_ce_bwd_dv_wgmma_kernel"))}
 # phase 18's user table, padded to 4 row ranges
 CKPT_TABLE_ROWS, CKPT_RANGES = GIANT_USERS + 4, 4
 
@@ -4973,7 +4988,8 @@ def main() -> int:
                          (kernels[-2], "row6_du"), (kernels[-1], "row7_dv")):
         entry["fp32_launches_per_step"] = {name: r["group_launches"][label]
                                            for name, r in fp32_steps.items()}
-    kernels[-1].update(kernel="flash_ce_bwd_dv_tc_kernel (bf16, mma.sync); "
+    kernels[-1].update(kernel="flash_ce_bwd_dv_wgmma_kernel (bf16, wgmma fed by TMA, a "
+                              "producer warpgroup and two consumers in ping-pong); "
                               "flash_ce_bwd_dv_kernel serves fp32 (FMA units, the fused "
                               "kernel's S/P/dV body, double-buffered query tiles, dv_plan "
                               "parts)")
@@ -4996,7 +5012,7 @@ AB_TOPK_SHAPES = [(1, N_ITEMS, 10), (1, N_ITEMS, RERANK), (BATCH_USERS, N_ITEMS,
 AB_FLASH_SHAPES = [(4096, "bfloat16"), (TRAIN_BATCH, "bfloat16"), (TRAIN_BATCH, "float32")]
 # rows 6 (dU) and 7 (dV, dcol) and the forward (row 4): (Bq, Bk, dtype), D = 128
 AB_TWOKERNEL_SHAPES = [(TRAIN_BATCH, TRAIN_BATCH, "bfloat16"), (32_768, 65_536, "bfloat16"),
-                       (TRAIN_BATCH, TRAIN_BATCH, "float32"),
+                       (*ABOVE_CAP[:2], "bfloat16"), (TRAIN_BATCH, TRAIN_BATCH, "float32"),
                        (FP32_PAST_CAP_BATCH, FP32_PAST_CAP_BATCH, "float32")]
 # rows 2 (the DCN forward) and 3 (its backward): (n, F), L = 3, at the
 # flagship's F = 256 and at the dense-feature width

@@ -27,22 +27,40 @@
 // plus one exp per logit and kernel. At Bq = Bk = 8192, D = 128 in bf16
 // the tensor-core bound is 0.017 ms forward and the Bq*Bk exps on the
 // special-function units take about as long.
-//   Every kernel of bf16 operands runs its products on the tensor cores:
-// the forward (flash_ce_fwd_tc_kernel, row 4), the fused backward
-// (flash_ce_bwd_tc_kernel, row 5), the dU kernel (flash_ce_bwd_du_tc_kernel,
-// row 6) and the dV/dcol kernel (flash_ce_bwd_dv_tc_kernel, row 7):
-// warp-level mma.sync.m16n8k16 bf16 with fp32 sums (mma_bf16.cuh), operands
-// fed by ldmatrix (.trans where the product needs the transposed tile)
-// from bf16 tiles in shared memory, the next tile loaded by cp.async while
-// the current one computes. mma.sync rather than wgmma: a first
+//   Every kernel of bf16 operands runs its products on the tensor cores.
+// The forward (flash_ce_fwd_tc_kernel, row 4), the fused backward
+// (flash_ce_bwd_tc_kernel, row 5) and the dU kernel
+// (flash_ce_bwd_du_tc_kernel, row 6) run warp-level mma.sync.m16n8k16 bf16
+// with fp32 sums (mma_bf16.cuh), operands fed by ldmatrix (.trans where the
+// product needs the transposed tile) from bf16 tiles in shared memory, the
+// next tile loaded by cp.async while the current one computes: a first
 // tensor-core design that a warp owns from fragment to result, so that P
-// (row 6) or P^T (rows 5 and 7), computed in a warp's accumulators, feeds
-// the next product from registers without a round trip (the
-// FlashAttention-2 layout identity between an m16n8 accumulator pair and
-// an m16k16 A fragment); wgmma's warpgroup-wide accumulators and
-// shared-memory descriptors are the next step. The fused kernel's other
-// limit is bytes: the dU partials (see below); bf16 operands no longer
-// take it (ops/flash_ce.py::bwd_route).
+// (row 6) or P^T (row 5), computed in a warp's accumulators, feeds the
+// next product from registers (the FlashAttention-2 layout identity
+// between an m16n8 accumulator pair and an m16k16 A fragment). mma.sync
+// cannot reach Hopper's dense tensor-core rate; only wgmma can. The
+// dV/dcol kernel (flash_ce_bwd_dv_wgmma_kernel, row 7) is the Hopper
+// design (hopper.cuh): a producer warpgroup keeps a ring of TMA-loaded
+// query tiles in flight and two consumer warpgroups of 64 candidates run
+// both products on wgmma, P^T from the S^T accumulators straight into the
+// register A operand of dV += P^T U, the exps of one tile under the
+// products of the next and under the other consumer's (FlashAttention-3's
+// ping-pong). What bounded row 7 on mma.sync, its first design, was the
+// instruction itself and its traffic: 64-candidate blocks each streamed
+// every query row and its lse, g, id and positive, ~146 GB through L2 at
+// 131,072 x 262,144. With 128-candidate blocks, TMA copies that spend no
+// thread's registers or instructions, and wgmma, row 7 there takes
+// 36.6-36.7 device ms (480 TFLOP/s, 49% of the 17.8 ms tensor-core bound)
+// against 101.7-102.2 on mma.sync (173 TFLOP/s); at 8,192^2 0.0755
+// against 0.2258 (455 against 152 TFLOP/s; NVIDIA H100 80GB HBM3, 700 W,
+// both trees on one card). It is now bound by the elementwise work
+// beside the products: its exps (expf) and masks take as many instruction slots
+// as the products take tensor-core time (ex2.approx instead of expf
+// measured 11% faster, at other last bits of p). So no query tile is
+// multicast to a cluster of blocks: the ~70 GB of tiles a call reads
+// through L2 at 131,072 x 262,144 (~1.9 TB/s) do not set the pace. The
+// fused kernel's other limit is bytes: the dU partials (see below); bf16
+// operands no longer take it (ops/flash_ce.py::bwd_route).
 //   The kernels of fp32 operands run every product on the fp32 FMA units
 // (fp32 operands must meet a 1e-5 contract, which TF32 tensor cores
 // cannot), bound by the fp32 instruction rate and, where a thread's
@@ -137,6 +155,7 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -1343,197 +1362,278 @@ __global__ void __launch_bounds__(DU_THREADS) flash_ce_bwd_du_tc_kernel(
   }
 }
 
-// ---- row 7 in bf16: the dV/dcol kernel on the tensor cores -----------------
+// ---- row 7 in bf16: the dV/dcol kernel on wgmma, fed by TMA ----------------
 
-constexpr int DV_WARPS = 4;                 // 16 candidates each
-constexpr int DV_THREADS = 32 * DV_WARPS;
-constexpr int DV_TK = 16 * DV_WARPS;        // candidates per block
-constexpr int DV_TQ = 64;                   // query rows per tile of the sweep
+constexpr int DV_KB = 128;           // candidates per block: two consumer warpgroups of 64
+constexpr int DV_TQ = 128;           // query rows per tile of the sweep
+constexpr int DV_THREADS = 384;      // the producer warpgroup, then the two consumers
+constexpr int DV_MMA_THREADS = 256;  // the consumers, who take turns at the tensor cores
 
+// Row 7's shared memory at padded width DP: the block's candidate tile V,
+// then a ring of STAGES query tiles U with their rows' (lse, g, id,
+// positive), then the ring's barriers. Both tiles are 64-column chunks of
+// 128-byte rows (hopper.cuh); DP = 32 is staged as 64 columns, the upper 32
+// zero. The ring holds up to 4 tiles in 200 KB (2 at DP = 256).
 template <int DP>
-constexpr size_t bwd_dv_tc_smem() {
-  return sizeof(__nv_bfloat16) * (DV_TK + 2 * DV_TQ) * tc_ld<DP>() +
-         2 * DV_TQ * (2 * sizeof(float) + 2 * sizeof(int));
-}
-
-// Row 7 of bf16 operands on the tensor cores (mma.sync): row 5's
-// transposed layout without its dU half, with row 6's registers. Grid
-// (candidate tiles, parts, DP / DN): block (x, y, z) owns the DV_TK
-// candidates of tile x, sweeps query tiles [y * q_tiles_per_part, (y + 1) *
-// q_tiles_per_part) and writes output columns [z * DN, (z + 1) * DN) of
-// their dV into dv_part[y] ([parts, Bk, D]) and (z == 0) their dcol into
-// dcol_part[y] ([parts, Bk]); the wrapper sums the parts in a fixed order,
-// or passes dV and dcol themselves when there is one part. Warp w owns
-// candidates 16w..16w+15: their A fragments of V are loaded once and kept
-// in registers; per 64-row query tile (cp.async, double-buffered, with its
-// lse, g, ids and positives):
-//   S^T = V_w U_i^T [16 x 64] with fp32 sums;
-//   P^T = bf16(exp(S - lse) g) from masked_logit, packed straight into
-//   the A fragments of the next product; the fp32 p*g into dcol;
-//   dV_w += P^T U_i [16 x DN], U_i read with ldmatrix.trans.
-// dV and dcol stay in fp32 registers over the sweep and are written once,
-// dcol summed over the quad's lanes in a fixed order. No atomics: two
-// calls give the same bits.
-template <int DP>
-__global__ void __launch_bounds__(DV_THREADS) flash_ce_bwd_dv_tc_kernel(
-    const __nv_bfloat16* __restrict__ u, const __nv_bfloat16* __restrict__ v,
-    const float* __restrict__ colcorr, const int* __restrict__ ids_q,
-    const int* __restrict__ ids_k, const int* __restrict__ pos, const float* __restrict__ lse,
-    const float* __restrict__ g, int bq, int bk, int d, int vec, int q_tiles_per_part,
-    float* __restrict__ dv_part, float* __restrict__ dcol_part) {
-  constexpr int LD = tc_ld<DP>();
-  constexpr int DN = DP < 128 ? DP : 128;  // output columns per block
-  constexpr int NT = DN / 8;               // dV n-tiles per warp
-  constexpr int KS = DP / 16;              // k-steps of S^T
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [DV_TK][LD]
-  __nv_bfloat16* Us = Vs + DV_TK * LD;                              // [2][DV_TQ][LD]
-  float* lse_s = reinterpret_cast<float*>(Us + 2 * DV_TQ * LD);     // [2][DV_TQ]
-  float* g_s = lse_s + 2 * DV_TQ;                                   // [2][DV_TQ]
-  int* idq_s = reinterpret_cast<int*>(g_s + 2 * DV_TQ);             // [2][DV_TQ]
-  int* pos_s = idq_s + 2 * DV_TQ;                                   // [2][DV_TQ]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, t4 = lane & 3;  // mma fragment row group and column pair
-  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix matrix and row of this lane
-  const int k0 = blockIdx.x * DV_TK, cw = warp * 16;
-  const int dn0 = blockIdx.z * DN;
-  const int n_qt = (bq + DV_TQ - 1) / DV_TQ;
-  const int qt_begin = blockIdx.y * q_tiles_per_part;
-  const int qt_end = min(n_qt, qt_begin + q_tiles_per_part);
-
-  auto stage_query_tile = [&](int buf, int qt) {
-    stage_rows<DP, DV_THREADS>(Us + buf * DV_TQ * LD, LD, u, qt * DV_TQ, bq, DV_TQ, d,
-                               vec != 0);
-    if (tid < DV_TQ) {
-      const int r = qt * DV_TQ + tid;
-      const bool ok = r < bq;
-      lse_s[buf * DV_TQ + tid] = ok ? lse[r] : 0.f;
-      g_s[buf * DV_TQ + tid] = ok ? g[r] : 0.f;
-      idq_s[buf * DV_TQ + tid] = ok ? ids_q[r] : 0;
-      pos_s[buf * DV_TQ + tid] = ok ? pos[r] : -1;
-    }
-  };
-
-  stage_rows<DP, DV_THREADS>(Vs, LD, v, k0, bk, DV_TK, d, vec != 0);
-  if (qt_begin < qt_end) stage_query_tile(0, qt_begin);
-  cp_async_commit();
-
-  float corr[2], dcol_acc[2] = {0.f, 0.f};
-  int kid[2];
-  bool cok[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c = k0 + cw + gq + 8 * h;
-    cok[h] = c < bk;
-    corr[h] = cok[h] ? colcorr[c] : 0.f;
-    kid[h] = cok[h] ? ids_k[c] : 0;
+struct DvTc {
+  static constexpr int TQ = DV_TQ;
+  static constexpr int W = DP < 64 ? 64 : DP;   // staged width
+  static constexpr int CHUNKS = W / 64;
+  static constexpr int DN = W < 128 ? W : 128;  // dV columns a block (blockIdx.z past 128)
+  static constexpr int V_CHUNK = DV_KB * 128;   // bytes of one 64-column chunk of V
+  static constexpr int U_CHUNK = TQ * 128;      // and of a query tile
+  static constexpr int V_BYTES = CHUNKS * V_CHUNK;
+  static constexpr int U_BYTES = CHUNKS * U_CHUNK;
+  static constexpr int ROW_BYTES = TQ * 16;     // one float4 per query row
+  static constexpr int FIT = (200 * 1024 - V_BYTES) / (U_BYTES + ROW_BYTES);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static_assert(STAGES >= 2, "row 7: a ring of two query tiles at least");
+  static constexpr size_t smem() {
+    return 1024 + V_BYTES + STAGES * (U_BYTES + ROW_BYTES) + (2 * STAGES + 1) * sizeof(uint64_t);
   }
-  float dv[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dv[nt][e] = 0.f;
-  uint32_t va[KS][4];  // the warp's A fragments of V, for the whole sweep
+};
 
-  for (int qt = qt_begin, it = 0; qt < qt_end; ++qt, ++it) {
-    const int buf = it & 1, q0 = qt * DV_TQ;
-    cp_async_wait_all();
-    __syncthreads();  // this tile has landed; everyone is done with the other buffer
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldsm_x4(va[kk], Vs + (cw + (lm & 1) * 8 + lr) * LD + kk * 16 + (lm >> 1) * 8);
+// Row 7 of bf16 operands: warp-specialised, wgmma fed by TMA. Grid
+// (candidate blocks, parts, DP / DN): block (x, y, z) owns the DV_KB
+// candidates of block x, sweeps the query tiles [y * q_tiles_per_part,
+// (y + 1) * q_tiles_per_part) and writes output columns [z * DN, (z + 1) *
+// DN) of their dV into dv_part[y] ([parts, Bk, D]) and (z == 0) their dcol
+// into dcol_part[y] ([parts, Bk]); the wrapper sums the parts in a fixed
+// order, or passes dV and dcol themselves when there is one part.
+//   Warpgroup 0 is the producer: one thread loads the candidate tile V
+// once and keeps a ring of STAGES query tiles in flight, each tile by TMA
+// (128-byte swizzle, zero past Bq and past d) and its rows' (lse, g, id,
+// positive) by a bulk copy from `rows` (flash_ce_dv_rows_kernel), both
+// completing on the stage's full barrier. Warpgroups 1 and 2 own 64
+// candidates each; per query tile i of TQ rows:
+//   S^T = V_w U_i^T [64 x TQ] on wgmma, both operands K-major in shared
+//   memory, fp32 sums;
+//   P^T = bf16(exp(S - lse) g) in registers from masked_logit, packed
+//   straight into the A fragments of the next product; the fp32 p*g into
+//   the thread's dcol sums;
+//   dV_w += P^T U_i [64 x DN] on wgmma, A from registers, U_i read MN-major
+//   from the same shared memory.
+// The products of tile i + 1's S^T and tile i's dV are started together, so
+// the exps of one tile run under the other's products (two P^T buffers),
+// and the two consumers take turns to start them (named barriers 1 and 2,
+// FlashAttention-3's ping-pong), so one's exps run under the other's
+// products; setmaxnreg gives the consumers the producer's registers. A
+// consumer frees a stage (empty barrier, one arrival per warp) once its dV
+// product has read it. dV and dcol stay in fp32 registers over the sweep and
+// are written once, dcol summed over the quad's lanes in a fixed order. No
+// atomics: two calls give the same bits.
+template <int DP>
+__global__ void __launch_bounds__(DV_THREADS, 1) flash_ce_bwd_dv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap u_map, const __grid_constant__ CUtensorMap v_map,
+    const float* __restrict__ colcorr, const int* __restrict__ ids_k,
+    const float4* __restrict__ rows, int bq, int bk, int d, int q_tiles_per_part,
+    float* __restrict__ dv_part, float* __restrict__ dcol_part) {
+  using T = DvTc<DP>;
+  constexpr int TQ = T::TQ;
+  constexpr int KT = TQ / 16;  // k-steps of the dV product
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Vs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* Us = Vs + T::V_BYTES;                                        // [STAGES]
+  float4* rows_s = reinterpret_cast<float4*>(Us + T::STAGES * T::U_BYTES);    // [STAGES][TQ]
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows_s + T::STAGES * TQ);     // [STAGES]
+  uint64_t* empty = full + T::STAGES;                                         // [STAGES]
+  uint64_t* v_full = empty + T::STAGES;
+
+  const int k0 = blockIdx.x * DV_KB;
+  const int n_qt = (bq + TQ - 1) / TQ;
+  const int qt_begin = blockIdx.y * q_tiles_per_part;
+  const int n_tiles = max(0, min(n_qt, qt_begin + q_tiles_per_part) - qt_begin);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < T::STAGES; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, DV_MMA_THREADS / 32);
     }
-    if (qt + 1 < qt_end) stage_query_tile(buf ^ 1, qt + 1);
-    cp_async_commit();
-    const __nv_bfloat16* Ub = Us + buf * DV_TQ * LD;
+    mbar_init(v_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-    // S^T[c][r]: s[nt][2h + e] is candidate cw + gq + 8h, query row nt*8 + 2*t4 + e
-    float s[DV_TQ / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < DV_TQ / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int np = 0; np < DV_TQ / 16; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, Ub + (np * 16 + (lm >> 1) * 8 + lr) * LD + kk * 16 + (lm & 1) * 8);
-        mma_bf16(s[2 * np], va[kk], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], va[kk], b[2], b[3]);
+  if (wg == 0) {  // ---- the producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      mbar_arrive_expect_tx(v_full, T::V_BYTES);
+      for (int c = 0; c < T::CHUNKS; ++c)
+        tma_load_2d(Vs + c * T::V_CHUNK, &v_map, 64 * c, k0, v_full);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % T::STAGES, q0 = (qt_begin + it) * TQ;
+        mbar_wait(empty + st, ((it / T::STAGES) & 1) ^ 1);  // the first round passes at once
+        mbar_arrive_expect_tx(full + st, T::U_BYTES + T::ROW_BYTES);
+        for (int c = 0; c < T::CHUNKS; ++c)
+          tma_load_2d(Us + st * T::U_BYTES + c * T::U_CHUNK, &u_map, 64 * c, q0, full + st);
+        bulk_load(rows_s + st * TQ, rows + q0, T::ROW_BYTES, full + st);
       }
     }
+    return;
+  }
 
-    // P^T = bf16(exp(S - lse) g), straight into the A fragments of P^T U
-    const float* lse_b = lse_s + buf * DV_TQ;
-    const float* g_b = g_s + buf * DV_TQ;
-    const int* idq_b = idq_s + buf * DV_TQ;
-    const int* pos_b = pos_s + buf * DV_TQ;
-    uint32_t pa[DV_TQ / 16][4];
+  // ---- the consumers
+  setmaxnreg_inc<240>();
+  const int cw = wg - 1, ct = threadIdx.x - 128 * wg;
+  const int lane = ct & 31, gq = lane >> 2, t4 = lane & 3;
+  const int dchunk = blockIdx.z * (T::DN / 64);  // first staged chunk of this block's dV
+  float corr[2], dcol[2] = {0.f, 0.f};
+  int kid[2], kcol[2];
 #pragma unroll
-    for (int nt = 0; nt < DV_TQ / 8; ++nt) {
+  for (int h = 0; h < 2; ++h) {
+    const int c = k0 + 64 * cw + 16 * (ct >> 5) + gq + 8 * h;
+    kcol[h] = c;
+    corr[h] = c < bk ? colcorr[c] : 0.f;
+    kid[h] = c < bk ? ids_k[c] : 0;
+  }
+  float s[TQ / 2], dv[T::DN / 2];
+#pragma unroll
+  for (int i = 0; i < TQ / 2; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < T::DN / 2; ++i) dv[i] = 0.f;
+  uint32_t pa0[KT][4], pa1[KT][4];  // P^T of two tiles: one being built, one being read
+
+  // S^T of the tile in stage st into s
+  auto start_s = [&](int st) {
+    wgmma_fence();
+    const unsigned char* vb = Vs + cw * 64 * 128;
+    const unsigned char* ub = Us + st * T::U_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < T::W / 16; ++kk) {
+      const int c = kk / 4, off = (kk % 4) * 32;
+      wgmma_ss<TQ>(s, sw128_desc(vb + c * T::V_CHUNK + off, 16, 1024),
+                   sw128_desc(ub + c * T::U_CHUNK + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // dV += P^T U of the tile in stage st
+  auto start_dv = [&](uint32_t(&pa)[KT][4], int st) {
+    wgmma_fence();
+    const unsigned char* ub = Us + st * T::U_BYTES + dchunk * T::U_CHUNK;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+      wgmma_rs<T::DN>(dv, pa[kk], sw128_desc(ub + kk * 16 * 128, T::U_CHUNK, 1024));
+    wgmma_commit();
+  };
+  // P^T of the tile in stage st from s: A fragments into pa, p*g into dcol
+  auto probs = [&](int st, uint32_t(&pa)[KT][4]) {
+    const float4* rb = rows_s + st * TQ;
+#pragma unroll
+    for (int j = 0; j < TQ / 8; ++j) {
       float pf[2][2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int rl = nt * 8 + 2 * t4 + e;
-        const bool rok = q0 + rl < bq;
-        const float lse_r = lse_b[rl], g_r = g_b[rl];
-        const int idq_r = idq_b[rl], pos_r = pos_b[rl];
+        const float4 r = rb[8 * j + 2 * t4 + e];  // lse, g, id, positive
+        const int idq = __float_as_int(r.z), pq = __float_as_int(r.w);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          float pg = 0.f;
-          if (rok && cok[h]) {
-            const float x = masked_logit(s[nt][2 * h + e], corr[h], idq_r, kid[h],
-                                         k0 + cw + gq + 8 * h, pos_r);
-            pg = expf(x - lse_r) * g_r;
-          }
-          dcol_acc[h] += pg;
+          const float x = masked_logit(s[4 * j + 2 * h + e], corr[h], idq, kid[h], kcol[h], pq);
+          const float pg = expf(x - r.x) * r.y;
+          dcol[h] += pg;
           pf[h][e] = pg;
         }
       }
 #pragma unroll
-      for (int h = 0; h < 2; ++h) pa[nt >> 1][(nt & 1) * 2 + h] = pack_bf16(pf[h][0], pf[h][1]);
+      for (int h = 0; h < 2; ++h) pa[j >> 1][(j & 1) * 2 + h] = pack_bf16(pf[h][0], pf[h][1]);
     }
+  };
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);
+  };
+  // the consumers' turns at starting products: WG 0, WG 1, WG 0, ...
+  auto turn = [&] { named_sync(1 + cw, DV_MMA_THREADS); };
+  auto pass = [&](bool last) {  // WG 1's last pass would have no turn to open
+    if (!(last && cw == 1)) named_arrive(2 - cw, DV_MMA_THREADS);
+  };
+  // tile `it` >= 1: its S^T with the dV of tile it - 1 (P^T in prev)
+  auto step = [&](int it, uint32_t(&prev)[KT][4], uint32_t(&next)[KT][4]) {
+    const int st = it % T::STAGES, before = (it - 1) % T::STAGES;
+    mbar_wait(full + st, (it / T::STAGES) & 1);
+    turn();
+    start_s(st);
+    start_dv(prev, before);
+    pass(false);
+    wgmma_wait<1>();
+    keep(s);
+    probs(st, next);
+    wgmma_wait<0>();
+    keep(dv);
+    keep(prev);
+    release(before);
+  };
 
-    // dV[c][k] += sum_r P^T[c][r] U[r][k]
-#pragma unroll
-    for (int kk = 0; kk < DV_TQ / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t b[4];
-        ldsm_x4_t(b, Ub + (kk * 16 + (lm & 1) * 8 + lr) * LD + dn0 + np * 16 + (lm >> 1) * 8);
-        mma_bf16(dv[2 * np], pa[kk], b[0], b[1]);
-        mma_bf16(dv[2 * np + 1], pa[kk], b[2], b[3]);
-      }
+  if (n_tiles > 0) {
+    if (cw == 1) named_arrive(1, DV_MMA_THREADS);  // WG 0 goes first
+    mbar_wait(v_full, 0);
+    mbar_wait(full, 0);
+    turn();
+    start_s(0);
+    pass(false);
+    wgmma_wait<0>();
+    keep(s);
+    probs(0, pa0);
+    int it = 1;
+    for (; it + 1 < n_tiles; it += 2) {
+      step(it, pa0, pa1);
+      step(it + 1, pa1, pa0);
     }
+    const int last = (n_tiles - 1) % T::STAGES;
+    if (it < n_tiles) {  // one tile more: its S^T, then the last two dVs
+      mbar_wait(full + last, (it / T::STAGES) & 1);
+      turn();
+      start_s(last);
+      start_dv(pa0, (it - 1) % T::STAGES);
+      wgmma_wait<1>();
+      keep(s);
+      probs(last, pa1);
+      start_dv(pa1, last);
+    } else {
+      turn();
+      start_dv(pa0, last);
+    }
+    pass(true);
+    wgmma_wait<0>();
+    keep(dv);
+    keep(pa0);
+    keep(pa1);
   }
-  cp_async_wait_all();  // no copy may outlive the block
 
   // dcol: the four lanes of a quad hold the same two candidates
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    float x = dcol_acc[h];
+    float x = dcol[h];
     x += __shfl_xor_sync(FULL, x, 1);
     x += __shfl_xor_sync(FULL, x, 2);
-    const int c = k0 + cw + gq + 8 * h;
-    if (blockIdx.z == 0 && t4 == 0 && c < bk)
-      dcol_part[static_cast<long long>(blockIdx.y) * bk + c] = x;
+    if (blockIdx.z == 0 && t4 == 0 && kcol[h] < bk)
+      dcol_part[static_cast<long long>(blockIdx.y) * bk + kcol[h]] = x;
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int c = k0 + cw + gq + 8 * h;
-    if (c >= bk) continue;
-    float* out = dv_part + (static_cast<long long>(blockIdx.y) * bk + c) * d;
+    if (kcol[h] >= bk) continue;
+    float* out = dv_part + (static_cast<long long>(blockIdx.y) * bk + kcol[h]) * d;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int k = dn0 + nt * 8 + 2 * t4 + e;
-        if (k < d) out[k] = dv[nt][2 * h + e];
-      }
+    for (int j = 0; j < T::DN / 8; ++j) {
+      const int k = dchunk * 64 + 8 * j + 2 * t4;  // d % 8 == 0: k < d means k + 1 < d
+      if (k < d) *reinterpret_cast<float2*>(out + k) = make_float2(dv[4 * j + 2 * h],
+                                                                   dv[4 * j + 2 * h + 1]);
+    }
   }
+}
+
+// Row 7's per-row inputs, in the order its tiles read them: rows[r] = (lse,
+// g, ids_q, pos) of query row r < bq, and (+inf, 0, 0, -1) for the rows of
+// the last tile past bq, whose p*g is then 0
+__global__ void flash_ce_dv_rows_kernel(const float* __restrict__ lse,
+                                        const float* __restrict__ g,
+                                        const int* __restrict__ ids_q,
+                                        const int* __restrict__ pos, int bq, int n_rows,
+                                        float4* __restrict__ rows) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rows) return;
+  rows[r] = r < bq ? make_float4(lse[r], g[r], __int_as_float(ids_q[r]), __int_as_float(pos[r]))
+                   : make_float4(CUDART_INF_F, 0.f, 0.f, __int_as_float(-1));
 }
 
 // ---- row 4 in bf16: the forward on the tensor cores -------------------------
@@ -1747,6 +1847,47 @@ int launch(K kernel, dim3 grid, int threads, size_t bytes, cudaStream_t s, A... 
 const float* f32(const void* p) { return static_cast<const float*>(p); }
 const __nv_bfloat16* bf(const void* p) { return static_cast<const __nv_bfloat16*>(p); }
 
+// cuTensorMapEncodeTiled from the driver that the runtime uses (no link
+// against libcuda), looked up once; null if the driver has none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the tensor map of bf16 rows [n_rows, d] at p (d % 8 == 0, p on 16 bytes)
+// in boxes of 64 columns x box_rows rows, 128-byte swizzle, zero past the
+// edges (hopper.cuh's tile layout) -> false if it cannot be made
+bool rows_map(CUtensorMap* map, const void* p, int n_rows, int d, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
 }  // namespace
 
 // u [bq, d], v [bk, d] (bf16 if bf16 != 0, else fp32); colcorr [bk] fp32;
@@ -1862,35 +2003,50 @@ extern "C" int flash_ce_bwd_du(const void* u, const void* v, const float* colcor
 
 // As flash_ce_bwd, with row 7's plan; out dv_part [parts, bk, d] and
 // dcol_part [parts, bk] fp32, the wrapper summing each over its first axis
-// (dV and dcol themselves when parts == 1). The query tiles of 64 split
-// into parts of q_tiles_per_part (vec as in flash_ce_fwd); bf16 operands
-// take the tensor-core kernel (64-candidate blocks), fp32 operands the FMA
-// kernel (128-candidate blocks, 64 where d > 128). Returns the cudaError_t
-// of the launch.
+// (dV and dcol themselves when parts == 1). fp32 operands take the FMA
+// kernel (128-candidate blocks, 64 where d > 128; query tiles of 64; vec as
+// in flash_ce_fwd). bf16 operands take the wgmma kernel (128-candidate
+// blocks, query tiles of 128), fed by TMA: it needs vec (d % 8 == 0, u and
+// v on 16 bytes) and scratch `rows` of ceil(bq / 128) * 128 float4 on 16
+// bytes, which flash_ce_dv_rows_kernel, launched here first, fills. The
+// query tiles split into parts of q_tiles_per_part. Returns the
+// cudaError_t of the launches.
 extern "C" int flash_ce_bwd_dv(const void* u, const void* v, const float* colcorr,
                                const int* ids_q, const int* ids_k, const int* pos,
                                const float* lse, const float* g, int bq, int bk, int d,
                                int bf16, int parts, int q_tiles_per_part, int vec,
-                               float* dv_part, float* dcol_part, void* stream) {
+                               float* dv_part, float* dcol_part, void* rows, void* stream) {
   if (bk <= 0) return 0;
+  const int tq = bf16 ? DV_TQ : Fp32Dv<32>::TQF;
   if (bq <= 0 || d <= 0 || parts <= 0 || q_tiles_per_part <= 0 ||
-      static_cast<long long>(parts) * q_tiles_per_part * DV_TQ < bq)
+      static_cast<long long>(parts) * q_tiles_per_part * tq < bq)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!bf16)
     return by_width(d, [&](auto w) {
       constexpr int DP = decltype(w)::value;
       using T = Fp32Dv<DP>;
-      static_assert(T::TQF == DV_TQ, "row 7's query tiles, of both kernels");
       return launch(flash_ce_bwd_dv_kernel<DP>, dim3((bk + T::KC - 1) / T::KC, parts), THREADS,
                     T::smem(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, lse, g, bq, bk,
                     d, vec, q_tiles_per_part, dv_part, dcol_part);
     });
+  if (!vec || rows == nullptr || reinterpret_cast<uintptr_t>(rows) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_rows = (bq + DV_TQ - 1) / DV_TQ * DV_TQ;
+  float4* rows4 = static_cast<float4*>(rows);
+  flash_ce_dv_rows_kernel<<<(n_rows + 255) / 256, 256, 0, s>>>(lse, g, ids_q, pos, bq, n_rows,
+                                                                rows4);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  CUtensorMap u_map, v_map;
+  if (!rows_map(&u_map, u, bq, d, DV_TQ) || !rows_map(&v_map, v, bk, d, DV_KB))
+    return static_cast<int>(cudaErrorNotSupported);
   return by_width(d, [&](auto w) {
     constexpr int DP = decltype(w)::value;
-    constexpr int DN = DP < 128 ? DP : 128;
-    return launch(flash_ce_bwd_dv_tc_kernel<DP>, dim3((bk + DV_TK - 1) / DV_TK, parts, DP / DN),
-                  DV_THREADS, bwd_dv_tc_smem<DP>(), s, bf(u), bf(v), colcorr, ids_q, ids_k,
-                  pos, lse, g, bq, bk, d, vec, q_tiles_per_part, dv_part, dcol_part);
+    using T = DvTc<DP>;
+    return launch(flash_ce_bwd_dv_wgmma_kernel<DP>,
+                  dim3((bk + DV_KB - 1) / DV_KB, parts, T::W / T::DN), DV_THREADS, T::smem(), s,
+                  u_map, v_map, colcorr, ids_k, static_cast<const float4*>(rows4), bq, bk, d,
+                  q_tiles_per_part, dv_part, dcol_part);
   });
 }

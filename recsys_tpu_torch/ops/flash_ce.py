@@ -40,9 +40,9 @@ NEG_BIG = -1e9
 # tile sizes of csrc/flash_ce.cu (TQ: the query tile that the fused
 # backward's plan counts; the fused backward takes candidate tiles of TKC,
 # or of TK for fp32 operands at D > 128, and so does row 7 of fp32
-# operands, with query tiles of DV_TQ; rows 4 and 6 of bf16 operands query
-# tiles of DU_TQ and candidate tiles of DU_TK, row 7 of bf16 operands
-# candidate tiles of DV_TK and query tiles of DV_TQ; rows 4 and 6 of fp32
+# operands, with query tiles of F32_DV_TQ; rows 4 and 6 of bf16 operands
+# query tiles of DU_TQ and candidate tiles of DU_TK; row 7 of bf16 operands
+# blocks of DV_TK candidates and query tiles of DV_TQ; rows 4 and 6 of fp32
 # operands query blocks of F32_TQ rows (64 at D > 128) and candidate tiles
 # of F32_FWD_TK (row 4; 64 at D > 128) and DU_TK (row 6))
 TQ = 64
@@ -50,15 +50,22 @@ TK = 64
 TKC = 128
 DU_TQ = 64
 DU_TK = 64
-DV_TK = 64
-DV_TQ = 64
+DV_TK = 128
+DV_TQ = 128
+F32_DV_TQ = 64
 F32_TQ = 128
 F32_FWD_TK = 128
 MAX_DIM = 256
-# the bf16 forward and rows 6 and 7 split their sweep into parts until the
-# grid holds about this many blocks per SM (a few resident at a time, and
+# the bf16 forward and row 6 split their sweep into parts until the grid
+# holds about this many blocks per SM (a few resident at a time, and
 # enough waves that the last is not mostly idle)
 _SWEEP_BLOCKS_PER_SM = 8
+# Row 7 of bf16 operands holds one block per SM: a grid of its candidate
+# blocks that fills this many waves keeps its query sweep whole, and a
+# block's own set-up and write-out (its candidate tile's load, the ring's
+# first tiles, dV's store) count as this many of its query tiles
+_FULL_WAVES = 4
+_BLOCK_TILES = 2
 # The TPU package's fused backward keeps one dU partial per candidate
 # tile of its own tiling (_tiles); above this many bytes of them
 # ([Bk // tk, Bq, D] fp32) it switches to its two-kernel backward: at D =
@@ -146,6 +153,25 @@ def _split_waves(n_tiles: int, blocks: int, max_parts: int, n_sm: int) -> Tuple[
     # for each p, the fewest parts of ceil(n_tiles / p) tiles: none empty
     splits = {-(-n_tiles // -(-n_tiles // p)) for p in range(lo, hi + 1)}
     parts = min(splits, key=lambda q: (-(-blocks * q // n_sm) * -(-n_tiles // q), q))
+    return parts, -(-n_tiles // parts)
+
+
+def _split_resident(n_tiles: int, blocks: int, max_parts: int, n_sm: int
+                    ) -> Tuple[int, int]:
+    """The swept axis's ``n_tiles`` tiles split into parts for a kernel that
+    holds one block per SM (row 7 of bf16 operands): one part where the
+    ``blocks`` blocks alone fill ``_FULL_WAVES`` waves of ``n_sm``; else, of
+    the splits up to 8 blocks per SM (as many as the tiles and
+    ``max_parts`` allow), the one whose last wave ends first, counted as
+    waves x (tiles per part + ``_BLOCK_TILES``), and of those the fewest
+    parts; no part is empty. -> (parts, tiles per part)."""
+    top = max(1, min(n_tiles, max_parts, 8 * n_sm // blocks))
+    if blocks >= _FULL_WAVES * n_sm or top == 1:
+        return 1, n_tiles
+    # for each p, the fewest parts of ceil(n_tiles / p) tiles: none empty
+    splits = {-(-n_tiles // -(-n_tiles // p)) for p in range(1, top + 1)}
+    parts = min(splits, key=lambda q: (-(-blocks * q // n_sm) * (-(-n_tiles // q) + _BLOCK_TILES),
+                                       q))
     return parts, -(-n_tiles // parts)
 
 
@@ -320,7 +346,7 @@ def _bwd_du_launcher():
 def _bwd_dv_launcher():
     fn = _build.load_library().flash_ce_bwd_dv
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
     return fn
 
@@ -393,17 +419,19 @@ def bwd_route(bq: int, bk: int, d: int, bf16: bool = False) -> str:
     separate runs), D = 128, NVIDIA H100 80GB HBM3 at 700 W, ms two-kernel
     / fused, each the slower of two runs in turns (the spread below 3%).
     bf16 operands take the two-kernel route at every shape: on the tensor
-    cores it won everywhere, with a fraction of the fused kernel's memory. Under the TPU's cap: 4,096 x 20,480
-    0.608 / 1.016, 8,192^2 0.473 / 0.591, 16,384^2 1.846 / 2.261,
-    32,768^2 6.130 / 8.680, 131,072 x 147,456 (at the cap) 111.7 / 264.1;
-    above it: 20,000^2 2.734 / 4.847, 65,536 x 327,680 123.0 / 409.6,
-    131,072 x 262,144 201.0 / 401.2. fp32 operands take the fused route at
-    every shape: on the FMA units it won everywhere by 23-38%, also where
-    the TPU takes its two kernels (its peak memory 0.3-5.0 GB against
-    0.04-0.2). Under the TPU's cap: 4,096 x 20,480 2.509 / 1.902, 8,192^2
-    2.126 / 1.550, 16,384^2 8.256 / 5.991, 32,768^2 32.86 / 23.77,
-    131,072 x 147,456 591.5 / 455.4; above it: 20,000^2 12.16 / 8.855,
-    65,536 x 327,680 657.7 / 505.1, 131,072 x 262,144 1,052.3 / 853.8."""
+    cores it won everywhere, with a fraction of the fused kernel's memory;
+    with row 7 on wgmma (the bf16 table re-measured) by 1.8x to 4.7x.
+    Under the TPU's cap: 4,096 x 20,480 0.453 / 1.102, 8,192^2 0.344 /
+    0.626, 16,384^2 1.219 / 2.332, 32,768^2 4.117 / 8.817, 131,072 x
+    147,456 (at the cap) 76.79 / 266.2; above it: 20,000^2 1.801 / 4.889,
+    65,536 x 327,680 86.71 / 410.5, 131,072 x 262,144 137.1 / 401.8.
+    fp32 operands take the fused route at every shape: on the FMA units it
+    won everywhere by 23-38%, also where the TPU takes its two kernels
+    (its peak memory 0.3-5.0 GB against 0.04-0.2). Under the TPU's cap:
+    4,096 x 20,480 2.509 / 1.902, 8,192^2 2.126 / 1.550, 16,384^2 8.256 /
+    5.991, 32,768^2 32.86 / 23.77, 131,072 x 147,456 591.5 / 455.4;
+    above it: 20,000^2 12.16 / 8.855, 65,536 x 327,680 657.7 / 505.1,
+    131,072 x 262,144 1,052.3 / 853.8."""
     return "twokernel" if bf16 else "fused"
 
 
@@ -685,23 +713,23 @@ class DvPlan(NamedTuple):
 
 
 def dv_plan(bq: int, bk: int, d: int, bf16: bool, n_sm: int) -> DvPlan:
-    """Row 7's tiling on a card of ``n_sm`` SMs: 64-row query tiles, the
-    query sweep split into parts, no more than the query tiles and no more
-    than keep the dV and dcol partials under ``_FUSED_BWD_PARTIALS_CAP``; no
-    part is empty. bf16 operands (the tensor-core kernel): 64-candidate
-    blocks (two column slices past D = 128), as many parts as bring the grid
-    to about ``_SWEEP_BLOCKS_PER_SM`` blocks per SM (8,192 candidates give
-    only 128 blocks). fp32 operands (the FMA kernel, one block per SM): the
-    fused kernel's 128-candidate blocks (64 at D > 128), the sweep split by
-    :func:`_split_waves` (8 parts at 8,192^2, 5 at 20,000^2, one at
-    131,072 x 262,144)."""
+    """Row 7's tiling on a card of ``n_sm`` SMs: the query sweep split into
+    parts, no more than the query tiles and no more than keep the dV and
+    dcol partials under ``_FUSED_BWD_PARTIALS_CAP``; no part is empty. bf16
+    operands (the wgmma kernel, one block per SM): blocks of 128 candidates
+    (two column slices past D = 128) and 128-row query tiles, the sweep
+    split by :func:`_split_resident` (2 parts at 8,192^2, one at 131,072 x
+    262,144). fp32 operands (the FMA kernel, one block per SM): the fused
+    kernel's 128-candidate blocks (64 at D > 128) and 64-row query tiles,
+    the sweep split by :func:`_split_waves` (8 parts at 8,192^2, 5 at
+    20,000^2, one at 131,072 x 262,144)."""
     max_parts = _FUSED_BWD_PARTIALS_CAP // (4 * bk * (d + 1))
-    n_qt = -(-bq // DV_TQ)
     if not bf16:
         tile = TK if d > 128 else TKC
-        return DvPlan(tile, DV_TQ, *_split_waves(n_qt, -(-bk // tile), max_parts, n_sm))
+        return DvPlan(tile, F32_DV_TQ, *_split_waves(-(-bq // F32_DV_TQ), -(-bk // tile),
+                                                     max_parts, n_sm))
     blocks = -(-bk // DV_TK) * (2 if d > 128 else 1)
-    return DvPlan(DV_TK, DV_TQ, *_split_sweep(n_qt, blocks, max_parts, n_sm))
+    return DvPlan(DV_TK, DV_TQ, *_split_resident(-(-bq // DV_TQ), blocks, max_parts, n_sm))
 
 
 def flash_ce_bwd_dv_partials_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g, p: DvPlan
@@ -715,14 +743,29 @@ def flash_ce_bwd_dv_partials_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g,
                      p.parts)
 
 
+def _tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [n, D] bf16 as row 7's TMA reads it: itself where D is a
+    multiple of 8 and it starts on 16 bytes, else a copy with zero columns
+    up to the next multiple of 8, which add nothing to any product."""
+    n, d = t.shape
+    d8 = -(-d // 8) * 8
+    if d8 == d and t.data_ptr() % 16 == 0:
+        return t
+    out = torch.zeros((n, d8), dtype=t.dtype, device=t.device)
+    out[:, :d] = t
+    return out
+
+
 @kernel_nan_check("kernel row 7 flash_ce_bwd_dv (its backward's dV and dcol)")
 def flash_ce_bwd_dv(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
                     ids_q: torch.Tensor, ids_k: torch.Tensor, pos: torch.Tensor,
                     lse: torch.Tensor, g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row 7 (``_bwd_dv_kernel``): -> (dV [Bk, D], dcol [Bk]) fp32,
-    candidate-major: the block that owns a candidate tile sweeps the query
-    tiles of its part (:func:`dv_plan`; bf16 operands on the tensor cores,
-    fp32 on the FMA units), the parts summed here in a fixed order.
+    candidate-major: the block that owns a candidate block sweeps the query
+    tiles of its part (:func:`dv_plan`; bf16 operands on wgmma fed by TMA,
+    fp32 on the FMA units), the parts summed here in a fixed order. bf16
+    rows whose D is not a multiple of 8, or that do not start on 16 bytes,
+    go to the kernel as padded copies (:func:`_tma_rows`).
 
     CPU tensors take :func:`flash_ce_bwd_dv_reference`; CUDA tensors launch
     the kernel or raise."""
@@ -732,20 +775,29 @@ def flash_ce_bwd_dv(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
     bq, d = u.shape
     bk = v.shape[0]
     bf16 = u.dtype == torch.bfloat16
-    p = dv_plan(bq, bk, d, bf16, _sm_count(u.device.index))
-    dv_part = torch.empty((p.parts, bk, d), dtype=torch.float32, device=u.device)
+    rows = None
+    if bf16:
+        args = (_tma_rows(args[0]), _tma_rows(args[1]), *args[2:])
+        rows = torch.empty((-(-bq // DV_TQ) * DV_TQ, 4), dtype=torch.float32, device=u.device)
+    u, v = args[:2]
+    dk = u.shape[1]
+    p = dv_plan(bq, bk, dk, bf16, _sm_count(u.device.index))
+    dv_part = torch.empty((p.parts, bk, dk), dtype=torch.float32, device=u.device)
     dcol_part = torch.empty((p.parts, bk), dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_dv_launcher()(*_ptrs(args), bq, bk, d, int(bf16), p.parts,
+        err = _bwd_dv_launcher()(*_ptrs(args), bq, bk, dk, int(bf16), p.parts,
                                  p.q_tiles_per_part, _vec(u, v), dv_part.data_ptr(),
-                                 dcol_part.data_ptr(), stream)
+                                 dcol_part.data_ptr(), None if rows is None else rows.data_ptr(),
+                                 stream)
     if err != 0:
         raise RuntimeError(f"flash_ce_bwd_dv kernel launch failed: cudaError {err}")
     flash_ce_bwd_dv.launches += 1
     if p.parts == 1:
-        return dv_part[0], dcol_part[0]
-    return torch.sum(dv_part, dim=0), torch.sum(dcol_part, dim=0)
+        dv, dcol = dv_part[0], dcol_part[0]
+    else:
+        dv, dcol = torch.sum(dv_part, dim=0), torch.sum(dcol_part, dim=0)
+    return (dv if dk == d else dv[:, :d].contiguous()), dcol
 
 
 flash_ce_bwd_dv.launches = 0

@@ -264,11 +264,15 @@ def test_fp32_du_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
 
 
 _DV_PLAN_CASES = [
-    # bf16 operands (the tensor-core kernel): 64-candidate blocks
-    (8192, 8192, 128, True, 9),          # 128 candidate tiles: the query sweep in 9 parts
-    (131072, 262144, 128, True, 1),      # the giant step: 4,096 candidate tiles, no partials
-    (1000, 3001, 129, True, 8),          # ragged, two column slices: a part per 2 query tiles
-    (1000, 3001, 64, True, 16),          # a part per query tile
+    # bf16 operands (the wgmma kernel, one block per SM): 128-candidate
+    # blocks, 128-row query tiles
+    (8192, 8192, 128, True, 2),          # 64 blocks: one wave of 2 parts of 32 tiles
+    (8192, 8192, 120, True, 2),          # D = 120, staged as 128: the same plan
+    (8192, 8192, 256, True, 1),          # DP = 256: two column slices, 128 blocks in one wave
+    (131072, 262144, 128, True, 1),      # the giant step: 2,048 blocks, 16 waves, no partials
+    (20000, 20000, 128, True, 5),        # 157 blocks: 6 waves of 32 tiles
+    (1000, 3001, 129, True, 2),          # ragged, two column slices: 48 blocks, 2 parts
+    (1000, 3001, 64, True, 4),           # 24 blocks: a part per 2 query tiles
     (64, 10, 32, True, 1),               # one query tile
     # fp32 operands (the FMA kernel, one block per SM): 128-candidate blocks
     (8192, 8192, 128, False, 8),         # 64 blocks: 4 waves of 16 tiles
@@ -285,33 +289,45 @@ _DV_PLAN_CASES = [
     f"{bq}-{bk}-{d}-{parts}" if bf16 else f"fp32-{bq}-{bk}-{d}-{parts}"
     for bq, bk, d, bf16, parts in _DV_PLAN_CASES])
 def test_dv_plan_fills_the_card_under_the_cap(bq, bk, d, bf16, parts):
-    """Row 7's tiling, checked on the CPU: 64-row query tiles, every query
-    tile in exactly one part, and the dV and dcol partials under the cap.
-    bf16 operands: 64-candidate blocks, the query sweep split into parts
-    until the grid holds about 8 blocks per SM. fp32 operands: the fused
-    kernel's 128-candidate blocks (64 past D = 128), the sweep split for
-    the fewest waves of one block per SM from 2 to 8 blocks per SM, which
-    leaves at least one block per SM wherever the tiles allow."""
+    """Row 7's tiling, checked on the CPU: every query tile in exactly one
+    part, and the dV and dcol partials under the cap. bf16 operands:
+    128-candidate blocks and 128-row query tiles, one block per SM: one
+    part where the blocks alone fill ``_FULL_WAVES`` waves, else the split
+    whose last wave ends first, a block's set-up and write-out counted as
+    ``_BLOCK_TILES`` of its tiles, so never later than one part. fp32
+    operands: the fused kernel's 128-candidate blocks (64 past D = 128) and
+    64-row query tiles, the sweep split for the fewest waves of one block
+    per SM from 2 to 8 blocks per SM, which leaves at least one block per
+    SM wherever the tiles allow."""
     n_sm = 132
     p = F.dv_plan(bq, bk, d, bf16, n_sm)
-    tile = F.DV_TK if bf16 else (F.TKC if d <= 128 else F.TK)
-    assert (p.tile, p.qtile, p.parts) == (tile, F.DV_TQ, parts)
+    tile, qtile = (F.DV_TK, F.DV_TQ) if bf16 else (F.TKC if d <= 128 else F.TK, F.F32_DV_TQ)
+    assert (p.tile, p.qtile, p.parts) == (tile, qtile, parts)
     n_qt = -(-bq // p.qtile)
     assert p.parts * p.q_tiles_per_part >= n_qt > (p.parts - 1) * p.q_tiles_per_part
     assert p.partials_bytes(bk, d) <= F._FUSED_BWD_PARTIALS_CAP
-    # bf16: at least 4 blocks per SM wherever the tiles allow (whole tiles
-    # per part round the 8 down); fp32: at least one
     k_blocks = -(-bk // p.tile) * (2 if bf16 and d > 128 else 1)
-    assert k_blocks * p.parts >= min((4 if bf16 else 1) * n_sm, k_blocks * n_qt)
+    if not bf16:
+        assert k_blocks * p.parts >= min(n_sm, k_blocks * n_qt)
+        return
+
+    def ends(n_parts: int, per_part: int) -> int:
+        return -(-k_blocks * n_parts // n_sm) * (per_part + F._BLOCK_TILES)
+
+    assert ends(p.parts, p.q_tiles_per_part) <= ends(1, n_qt)
+    if k_blocks >= F._FULL_WAVES * n_sm:
+        assert p.parts == 1
 
 
 def test_dv_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
     """With room for only two parts of dV and dcol the plan takes two
-    parts, each sweeping half the query tiles."""
-    bq, bk, d = 8192, 8192, 128
+    parts, each sweeping half the query tiles, where the card alone would
+    take 5 (20,000^2)."""
+    bq, bk, d = 20000, 20000, 128
+    assert F.dv_plan(bq, bk, d, True, 132).parts == 5
     monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 2 * 4 * bk * (d + 1))
     p = F.dv_plan(bq, bk, d, True, 132)
-    assert (p.parts, p.q_tiles_per_part) == (2, 64)
+    assert (p.parts, p.q_tiles_per_part) == (2, 79)
     assert p.partials_bytes(bk, d) <= F._FUSED_BWD_PARTIALS_CAP
 
 
@@ -331,10 +347,10 @@ def test_fp32_dv_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bq,bk,d,n_sm,all_accidental", [
-    (192, 64, 32, 132, False),    # three parts of one query tile
-    (320, 1024, 32, 4, True),     # two parts of 3 and 2 query tiles
-    (65, 1, 16, 132, False),      # one candidate, two parts
-    (130, 300, 129, 132, True),   # three parts, the last of 2 rows; D past 128
+    (192, 64, 32, 132, False),    # two parts of one query tile, the last of 64 rows
+    (600, 1024, 32, 16, True),    # two parts of 3 and 2 query tiles
+    (257, 1, 16, 132, False),     # one candidate, three parts, the last of 1 row
+    (130, 300, 129, 132, True),   # two parts, the last of 2 rows; D past 128
 ])
 def test_dv_partials_sum_to_the_reference_and_jax(dtype, bq, bk, d, n_sm, all_accidental):
     """The plain version of row 7's partials under ``dv_plan`` ([parts, Bk,
