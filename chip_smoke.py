@@ -254,7 +254,19 @@
     streaming checkpoint writer on a one-rank NCCL mesh, read back as 4 row
     ranges, each bit-equal, and ``np.load`` of the member equal to the
     table, with the seconds and peak RSS growth of each;
-29. prints a ``{"kernels": [...]}`` line (each kernel's launches in phase
+29. DLRM-DCNv2 (``python3 chip_smoke.py --dlrm-bags``, in a process of
+    its own): the embedding bags' kernels (``ops/embedding_bag.py``)
+    against their plain versions at four edge shapes (D of 12 to 512,
+    runs of one row across many chunks, a ragged last chunk) and at the
+    benchmark cell's shape (B = 65,536, 214 lookups an example over
+    29,184,588 rows of 128): the forward bit-equal to its plain sum and
+    twice bit-equal, the backward with its row-wise Adagrad twice
+    bit-equal and within ``DLRM_UPDATE_TOL`` of the plain update, its
+    count of rows updated equal to the plain version's, launches equal to
+    calls, and both kernels' CUDA-event ms; then ``dryrun_dlrm`` at the
+    cell's widths and the train CLI's ``--config`` on a tiny model, two
+    epochs, on the card;
+30. prints a ``{"kernels": [...]}`` line (each kernel's launches in phase
     27 (b) as ``launches_rows_lookup`` and in phase 28 (a) as
     ``launches_debug``), the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
@@ -4582,6 +4594,144 @@ def debug_modes_path(counters, tmp: str, bundle_np: dict) -> dict:
     return out
 
 
+# ---- DLRM-DCNv2's embedding bags (ops/embedding_bag.py) ---------------------
+# the cell dlrm-train-mhot's shape: B = 65,536 examples, 26 bags of 1 to 100
+# ids (214 an example) over 29,184,588 rows of 128 fp32 (five 40M-row
+# tables cut to 5M), from the benchmark's configuration
+DLRM_CONFIG = "bench_port/configs/mlperf-dlrm-dcnv2-1of8.json"
+DLRM_BATCH = 65_536
+# the bags' backward against its plain version after one row-wise Adagrad
+# update, relative to the largest move of a row: the rows' gradients are
+# summed in another order (sorted lookups against a column at a time), so
+# their mean squares and the moves differ in the last bits; a dropped or
+# doubled lookup moves a row by the order of its gradient
+DLRM_UPDATE_TOL = 1e-4
+# (D, table rows, bag sizes, examples) of the edge shapes: each row width
+# the kernels template (D / 4 up to 32, 64 and 128 float4s), runs of one
+# row across many 32-lookup chunks, a ragged last chunk
+DLRM_EDGES = [(12, (3, 50), (1, 2), 1000), (16, (3, 50, 2000, 7), (1, 3, 7, 2), 4099),
+              (256, (4, 9000), (5, 40), 333), (512, (2, 100), (3, 1), 77)]
+
+
+def _dlrm_ids(layout, b: int, seed: int):
+    """[b, S] int32 ids, uniform over each bag's table."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cols = [torch.randint(0, r, (b, h), generator=gen, device="cuda")
+            for r, h in zip(layout.table_rows, layout.bag_sizes)]
+    return torch.cat(cols, dim=1).to(torch.int32)
+
+
+def check_bags(d: int, table_rows, bag_sizes, b: int, seed: int, timed: bool = False) -> dict:
+    """The bags' kernels against their plain versions on the card: the
+    forward bit for bit (the same adds in the same order), twice bit-equal;
+    the backward with its row-wise update twice bit-equal, to
+    DLRM_UPDATE_TOL of the plain update, and its count of rows updated
+    equal to the plain version's."""
+    import torch
+    from recsys_tpu_torch.ops import embedding_bag as eb
+    from recsys_tpu_torch.train.optimizer import sparse_rowwise_adagrad_combined
+
+    layout = eb.make_layout(table_rows, bag_sizes, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = (torch.rand((layout.n_rows, d), generator=gen, device="cuda") - 0.5) * 0.02
+    ids = _dlrm_ids(layout, b, seed + 1)
+    what = f"bags D={d} rows={layout.n_rows} B={b}"
+    launches0 = eb.bag_forward.launches
+    out1 = eb.bag_forward(table, ids, layout)
+    out2 = eb.bag_forward(table, ids, layout)
+    check(torch.equal(out1, out2), f"{what}: two forward calls differ")
+    check(torch.equal(out1, eb.bag_forward_reference(table, ids, layout)),
+          f"{what}: the forward is not its plain version's sum")
+    check(eb.bag_forward.launches - launches0 == 2, f"{what}: forward launches")
+    grad = torch.randn(out1.shape, generator=gen, device="cuda") * 1e-3
+    del out1, out2
+    lr = 0.004
+    accum = (torch.rand((layout.n_rows,), generator=gen, device="cuda") + 0.5) * 1e-6
+    runs = []
+    launches0 = eb.bag_backward_rowwise_adagrad.launches
+    for _ in range(2):
+        t, a = table.clone(), accum.clone()
+        _, uniq = eb.bag_backward_rowwise_adagrad(t, a, ids, grad, layout, lr)
+        runs.append((t, a, int(uniq)))
+        if len(runs) == 2:
+            check(torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1]),
+                  f"{what}: two backward calls differ")
+            del runs[1]
+    check(eb.bag_backward_rowwise_adagrad.launches - launches0 == 2, f"{what}: backward launches")
+    t1, a1, n_kernel = runs[0]
+    del runs
+    rows, combined = eb.combine_bag_rows_reference(ids, grad, layout)
+    sparse_rowwise_adagrad_combined(table, accum, rows, combined,
+                                    torch.ones(rows.shape, dtype=torch.bool, device="cuda"), lr)
+    check(n_kernel == rows.shape[0], f"{what}: {n_kernel} rows updated, want {rows.shape[0]}")
+    del rows, combined
+    # row-wise Adagrad moves an element by lr * |g| / rms(g), lr and more;
+    # compared a million rows at a time
+    err = max(float(torch.max(torch.abs(t1[r:r + (1 << 20)] - table[r:r + (1 << 20)])))
+              for r in range(0, layout.n_rows, 1 << 20))
+    acc_err = float(torch.max(torch.abs(a1 - accum) / accum))
+    check(err <= DLRM_UPDATE_TOL * lr, f"{what}: the update is off by {err}")
+    check(acc_err <= DLRM_UPDATE_TOL, f"{what}: the accumulator is off by {acc_err} (relative)")
+    out = {"d": d, "rows": layout.n_rows, "b": b, "lookups": b * ids.shape[1],
+           "unique_rows": n_kernel, "update_err": err, "accum_rel_err": acc_err}
+    del t1, a1
+    if timed:
+        t, a = table.clone(), accum.clone()
+        out["fwd_ms"] = time_ms(lambda: eb.bag_forward(table, ids, layout), 10)
+        out["bwd_ms"] = time_ms(lambda: eb.bag_backward_rowwise_adagrad(t, a, ids, grad, layout,
+                                                                        1e-9), 10)
+        out["fwd_plain_ms"] = time_ms(lambda: eb.bag_forward_reference(table, ids, layout), 2, 1)
+    return out
+
+
+def dlrm_bags_phase(repo: str, tmp: str) -> dict:
+    """The bags' kernels at the edge shapes and at the cell's shape; then
+    DLRM-DCNv2 through the trainer's step (``dryrun_dlrm``: the cell's
+    widths, tables cut to 1,000 rows) and the train CLI (``--config``, a
+    tiny model, 2 epochs) on the card."""
+    import math
+
+    import numpy as np
+    import torch
+    from recsys_tpu_torch.config import RecsysConfig
+    from recsys_tpu_torch.train import __main__ as train_cli
+    from recsys_tpu_torch.train.dryrun import dryrun_dlrm
+
+    out = {"edges": [check_bags(d, r, h, b, 7 + i) for i, (d, r, h, b) in enumerate(DLRM_EDGES)]}
+    cfg = RecsysConfig.load(os.path.join(repo, DLRM_CONFIG))
+    m = cfg.model
+    out["cell_shape"] = check_bags(m.embedding_dim, m.table_rows, m.bag_sizes, DLRM_BATCH, 11,
+                                   timed=True)
+    torch.cuda.empty_cache()
+    out["dryrun"] = dryrun_dlrm(cfg, "cuda", batch=1024)
+    rng = np.random.default_rng(3)
+    rows, bags_ = (3, 50, 2000, 7), (1, 3, 7, 2)
+
+    def split(n):
+        sp = np.concatenate([rng.integers(0, r, (n, h)) for r, h in zip(rows, bags_)], axis=1)
+        return {"dense": rng.random((n, 13), dtype=np.float32), "sparse": sp.astype(np.int32),
+                "label": (rng.random(n) < 0.3).astype(np.float32)}
+
+    data = os.path.join(tmp, "dlrm_bundle.npz")
+    np.savez(data, **{f"{s}/{k}": v for s, n in (("train", 2048), ("val", 300))
+                      for k, v in split(n).items()})
+    tiny = os.path.join(tmp, "dlrm_tiny.json")
+    cfg.replace(**{"model.table_rows": list(rows), "model.bag_sizes": list(bags_),
+                   "model.table_init_rows": list(rows), "model.embedding_dim": 16,
+                   "model.bottom_mlp_dims": [32, 16], "model.over_arch_dims": [32, 16],
+                   "model.dcn_low_rank_dim": 8, "train.batch_size": 256,
+                   "train.epochs": 2}).save(tiny)
+    rc = train_cli.main(["--config", tiny, "--data", data, "--device", "cuda",
+                         "--output_dir", os.path.join(tmp, "dlrm_run")])
+    with open(os.path.join(tmp, "dlrm_run", "metrics.json")) as f:
+        report = json.load(f)
+    check(rc == 0 and math.isfinite(report["val_loss"]), f"dlrm CLI: rc {rc}, {report}")
+    out["cli"] = report
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4829,6 +4979,15 @@ def main() -> int:
         t_debug = time.perf_counter()
         debug_modes = debug_modes_path(counters, dense_dir, bundle_np)
         log(f"debug-modes phase in {time.perf_counter() - t_debug:.1f} s")
+    # ---- DLRM-DCNv2's embedding bags, trainer and CLI: the twelfth ---------
+    # in a process of its own: at the cell's shape it holds three copies of
+    # a 14.9 GB table
+    t_dlrm = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--dlrm-bags"], cwd=repo,
+                          capture_output=True, text=True, timeout=1200)
+    check(proc.returncode == 0, f"--dlrm-bags: rc {proc.returncode}\n{proc.stderr[-4000:]}")
+    log(f"dlrm bags phase in {time.perf_counter() - t_dlrm:.1f} s: "
+        f"{proc.stdout.strip().splitlines()[-1]}")
     for row in negs.pop("profiles"):
         log(f"profile {json.dumps(row)}")
     log(f"explicit negatives and streaming: {json.dumps(negs)}")
@@ -5214,6 +5373,12 @@ def ab(parent: str) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--time-kernels":
         print(json.dumps(time_kernels(sys.argv[2])), flush=True)
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--dlrm-bags":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps(dlrm_bags_phase(os.path.dirname(os.path.abspath(__file__)), tmp)),
+                  flush=True)
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
         sys.exit(ab(os.path.abspath(sys.argv[2])))

@@ -2,7 +2,9 @@
 ``recsys_tpu/config.py``.
 
 Field names, defaults and the JSON layout are identical to the JAX
-package's, so one ``config.json`` loads in both packages. The port keeps
+package's, so one ``config.json`` loads in both packages; the port's one
+addition, the fields of a second architecture (``ModelConfig.arch``
+"dlrm_dcnv2"), stays out of a two-tower config's JSON. The port keeps
 the fields it does not act on yet (training, mesh, the TPU dispatch
 knobs) so that a bundle written by either package round-trips unchanged.
 Comments here say what a field means to the port; the measurements
@@ -58,11 +60,41 @@ class ModelConfig:
     softmax_temperature: float = 1.0
     use_item_bias: bool = True
     accidental_hit_mask: bool = True
+    # The architecture: "two_tower_dcn" (the fields above) or "dlrm_dcnv2"
+    # (models/dlrm.py: DLRM with a low-rank DCNv2 interaction, which reads
+    # embedding_dim, cross_layers, mixed_precision and the fields below).
+    # The JAX package has only the first and ignores these fields.
+    arch: str = "two_tower_dcn"
+    dlrm_dense_in: int = 13
+    # rows of each categorical table, their fixed multi-hot bag sizes, and
+    # the rows each table's init bound is drawn for (default: table_rows;
+    # a table cut to one card's rows keeps its published bound)
+    table_rows: Tuple[int, ...] = ()
+    bag_sizes: Tuple[int, ...] = ()
+    table_init_rows: Tuple[int, ...] = ()
+    bottom_mlp_dims: Tuple[int, ...] = (512, 256, 128)
+    over_arch_dims: Tuple[int, ...] = (1024, 1024, 512, 256)
+    dcn_low_rank_dim: int = 512
 
     def __post_init__(self):
-        object.__setattr__(self, "user_tower_dims", tuple(self.user_tower_dims))
-        object.__setattr__(self, "item_tower_dims", tuple(self.item_tower_dims))
-        object.__setattr__(self, "dnn_dims", tuple(self.dnn_dims))
+        for name in ("user_tower_dims", "item_tower_dims", "dnn_dims", "table_rows",
+                     "bag_sizes", "table_init_rows", "bottom_mlp_dims", "over_arch_dims"):
+            object.__setattr__(self, name, tuple(getattr(self, name)))
+        if self.arch not in ("two_tower_dcn", "dlrm_dcnv2"):
+            raise ValueError(f"arch must be two_tower_dcn|dlrm_dcnv2, got {self.arch!r}")
+        if self.arch == "dlrm_dcnv2":
+            if not self.table_rows or len(self.bag_sizes) != len(self.table_rows):
+                raise ValueError("dlrm_dcnv2 needs table_rows and one bag size a table")
+            if self.table_init_rows and len(self.table_init_rows) != len(self.table_rows):
+                raise ValueError("table_init_rows needs one count a table")
+            if self.bottom_mlp_dims[-1:] != (self.embedding_dim,):
+                raise ValueError(f"the bottom MLP must end at embedding_dim "
+                                 f"{self.embedding_dim}, got {self.bottom_mlp_dims}")
+
+
+# the ModelConfig fields of the dlrm_dcnv2 architecture
+DLRM_MODEL_KEYS = ("arch", "dlrm_dense_in", "table_rows", "bag_sizes", "table_init_rows",
+                   "bottom_mlp_dims", "over_arch_dims", "dcn_low_rank_dim")
 
 
 @dataclass(frozen=True)
@@ -186,7 +218,13 @@ class RecsysConfig:
     eval: EvalConfig = field(default_factory=EvalConfig)
 
     def to_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        """The JSON layout; a two-tower config leaves out the other
+        architecture's keys, so its ``config.json`` is the JAX package's."""
+        d = dataclasses.asdict(self)
+        if self.model.arch == "two_tower_dcn":
+            for k in DLRM_MODEL_KEYS:
+                del d["model"][k]
+        return d
 
     def to_json(self, indent: int = 2) -> str:
         return json.dumps(self.to_dict(), indent=indent, default=list)
@@ -215,7 +253,7 @@ class RecsysConfig:
         dotted = {k: v for k, v in sections.items() if "." in k}
         out = dataclasses.replace(self, **plain) if plain else self
         if dotted:
-            d = out.to_dict()
+            d = dataclasses.asdict(out)
             for key, value in dotted.items():
                 sec, name = key.split(".", 1)
                 if sec not in d or name not in d[sec]:

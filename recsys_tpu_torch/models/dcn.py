@@ -15,6 +15,13 @@ rounded to bf16, the cross stack runs in fp32 on it and its output is
 rounded to bf16 again; the deep branch takes bf16 operands with fp32
 accumulation. The JAX package's XLA branch instead runs the cross stack
 in bf16, so the two agree only to bf16 tolerance there.
+
+The low-rank cross of DCN V2 (Wang et al., arXiv:2008.13535), which
+DLRM-DCNv2 (``models/dlrm.py``) interacts its features with and the JAX
+package does not have, is :func:`low_rank_cross_stack`:
+``x_{l+1} = x0 * (W_l (V_l x_l) + b_l) + x_l`` with ``V_l`` [F -> r] and
+no bias, ``W_l`` [r -> F]; its products are GEMMs left to ``torch.mm``
+(bf16 operands with fp32 sums under ``mixed_precision``), the rest fp32.
 """
 
 from __future__ import annotations
@@ -27,6 +34,27 @@ from recsys_tpu_torch.config import ModelConfig
 from recsys_tpu_torch.models import layers as L
 from recsys_tpu_torch.ops.dcn_cross import cross_stack
 from recsys_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+def init_low_rank_cross(generator: torch.Generator, n_layers: int, f: int, rank: int,
+                        device: DeviceLike = "cuda") -> Dict:
+    """``layer_i``: ``v`` [F, r] and ``w`` [r, F] Glorot-uniform (the
+    port's layout, [in, out]), ``b`` [F] zeros."""
+    device = resolve_device(device)
+    return {f"layer_{i}": {"v": L.glorot(generator, (f, rank), device),
+                           "w": L.glorot(generator, (rank, f), device),
+                           "b": torch.zeros((f,), dtype=torch.float32, device=device)}
+            for i in range(n_layers)}
+
+
+def low_rank_cross_stack(params: Dict, x0: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """The low-rank cross layers over x0 [n, F] fp32 -> [n, F] fp32."""
+    xl = x0
+    for i in range(len(params)):
+        p = params[f"layer_{i}"]
+        u = L.linear({"w": p["w"], "b": p["b"]}, L.linear({"w": p["v"]}, xl, bf16), bf16)
+        xl = x0 * u + xl
+    return xl
 
 
 class DeepCrossNetwork:

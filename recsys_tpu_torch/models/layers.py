@@ -59,6 +59,42 @@ def dense(p: Params, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     return torch.matmul(x.float(), w) + p["b"]
 
 
+class _MatmulBf16(torch.autograd.Function):
+    """``x @ w`` of bf16 operands with fp32 products, sums and result, in
+    the forward and in both products of the backward (the incoming
+    gradient rounded to bf16 as their operand). On the card each product
+    is one bf16 GEMM (``torch.mm`` with ``out_dtype=float32``); elsewhere
+    an fp32 product of the rounded operands, which is exact in fp32 too."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        return _mm_bf16(xb, wb)
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        gb = g.to(torch.bfloat16)
+        gx = _mm_bf16(gb, wb.t()) if ctx.needs_input_grad[0] else None
+        return gx, _mm_bf16(xb.t(), gb) if ctx.needs_input_grad[1] else None
+
+
+def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+def linear(p: Params, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """``x @ w (+ b)`` of a 2-D ``x`` with an fp32 output; ``bf16=True``
+    takes bf16 operands in the forward and the backward alike
+    (:class:`_MatmulBf16`), where :func:`dense` multiplies rounded operands
+    in fp32. A leaf without ``b`` adds no bias."""
+    y = _MatmulBf16.apply(x, p["w"]) if bf16 else torch.mm(x.float(), p["w"])
+    return y + p["b"] if "b" in p else y
+
+
 def init_mlp(generator: torch.Generator, dims: Sequence[int],
              device: DeviceLike = "cuda") -> Dict[str, Params]:
     """dims = [in, h1, ..., out]."""

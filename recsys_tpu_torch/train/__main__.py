@@ -34,6 +34,13 @@ the ranks under the launcher. ``--use_dense_features`` sets
 ``--use_wandb`` logs each epoch and the final metrics to a W&B run
 (project ``recsys-tpu``, the config as its config); without ``wandb`` it
 warns and trains. Any other flag is an error.
+``--config FILE`` takes the whole config from a JSON file (the layout of
+a run's ``config.json``; a ``bench_port/configs/`` file loads too, its
+other keys left out): the way to train DLRM-DCNv2 (``model.arch``
+"dlrm_dcnv2"), whose ``--data`` bundle holds ``train/`` and ``val/``
+columns ``dense``, ``sparse`` and ``label`` (``Trainer._train_dlrm``).
+With it, only ``--data``, ``--output_dir``, ``--device``, ``--use_wandb``,
+``--distributed_strategy`` and ``--set`` may be given besides.
 ``--set KEY=VALUE`` overrides a dotted config field (the value is parsed
 as JSON, ``true``/``false``/``none`` included, else kept as a string):
 ``--set train.device_resident_data=false`` takes the streaming input
@@ -81,7 +88,21 @@ def parse_overrides(pairs: Sequence[str]) -> dict:
     return parsed
 
 
+# the flags that set no config field: the only ones --config takes besides
+_RUN_FLAGS = ("data", "output_dir", "config", "overrides", "device", "use_wandb",
+              "distributed_strategy")
+
+
 def build_config(args) -> RecsysConfig:
+    if args.config:
+        defaults = vars(build_parser().parse_args([]))
+        given = sorted(k for k, v in vars(args).items()
+                       if k not in _RUN_FLAGS and v != defaults[k])
+        if given:
+            raise ValueError(f"--config takes the config from its file: set "
+                             f"{', '.join(given)} there or with --set")
+        cfg = RecsysConfig.load(args.config)
+        return cfg.replace(**parse_overrides(args.overrides)) if args.overrides else cfg
     dense = 0
     if args.use_dense_features:
         from recsys_tpu_torch.data.features import FeatureEngineer
@@ -116,6 +137,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="Train with recsys_tpu_torch")
     ap.add_argument("--data", default=DataConfig().processed_path,
                     help="preprocessed bundle (.npz)")
+    ap.add_argument("--config", default="",
+                    help="take the whole config from this JSON file (e.g. a dlrm_dcnv2 "
+                         "model); --set overrides it")
     ap.add_argument("--output_dir", default="outputs/models/experiment_001")
     ap.add_argument("--embedding_dim", type=int, default=64)
     ap.add_argument("--cross_layers", type=int, default=1)

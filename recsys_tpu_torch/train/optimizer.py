@@ -224,6 +224,22 @@ def sparse_adagrad_combined(table: torch.Tensor, accum: torch.Tensor,
 
 
 @torch.no_grad()
+def sparse_rowwise_adagrad_combined(table: torch.Tensor, accum: torch.Tensor,
+                                    slot_ids: torch.Tensor, combined: torch.Tensor,
+                                    valid: torch.Tensor, lr: float, eps: float = 1e-8) -> None:
+    """Row-wise Adagrad (FBGEMM's exact row-wise Adagrad) on the rows of
+    pre-combined unique-row gradients, ``table`` [V, D] and its one
+    accumulator a row ``accum`` [V] in place: ``accum[id] += mean(g**2);
+    table[id] -= lr * g / (sqrt(accum[id]) + eps)``. A row with a zero
+    gradient does not move. ``ops/embedding_bag.py`` fuses this update
+    into the bags' backward on the card."""
+    rows, g = _touched_rows(slot_ids, combined, valid)
+    acc_rows = accum[rows] + torch.mean(torch.square(g), dim=1)
+    accum[rows] = acc_rows
+    table[rows] = table[rows] - lr * g / (torch.sqrt(acc_rows)[:, None] + eps)
+
+
+@torch.no_grad()
 def sparse_adagrad_rows(table: torch.Tensor, accum: torch.Tensor, ids: torch.Tensor,
                         row_grads: torch.Tensor, lr: float, eps: float = 1e-7,
                         grad_scale: Optional[torch.Tensor] = None) -> None:

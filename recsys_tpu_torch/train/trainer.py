@@ -119,6 +119,21 @@ thread), ``train.update`` and ``train.cache_update``, and
 ``train.exchange`` around the collectives under a mesh. A span records
 nothing without a running profiler.
 
+**DLRM-DCNv2** (``ModelConfig.arch="dlrm_dcnv2"``, ``models/dlrm.py``; no
+counterpart in the JAX package): on one device, with Adagrad and no
+clipping. The state holds the dense leaves (with Adagrad's slots) and one
+concatenated fp32 table of every categorical table (drawn on the device
+from the seed by ``init_state``), with one row-wise Adagrad accumulator a
+row. A step (:meth:`_step_core_dlrm`, taken by ``make_train_epoch``,
+``make_train_step`` and ``make_train_chunk`` alike) pools the batch's
+multi-hot bags from the table, runs the dense forward and autograd over
+the dense leaves and the bags, then updates the dense leaves and, fused
+with the bags' backward, only the looked-up rows of the table
+(``ops/embedding_bag.py``: one sort of the lookups, no [B x lookups, D]
+tensor, no host sync); its metrics count the lookups and the rows updated
+on the device. ``train`` takes a bundle of ``dense``, ``sparse`` and
+``label`` columns (:meth:`_train_dlrm`).
+
 Dropout masks come from a ``torch.Generator`` on the device, reseeded from
 (seed + 1, step) every step, and from the rank's data index under a mesh
 (index 0 draws the one-card stream), so a run and its resume, and a step's
@@ -145,9 +160,10 @@ from recsys_tpu_torch.data.negative_sampling import NegativeSampler, mine_hard_n
 from recsys_tpu_torch.data.pipeline import Batcher
 from recsys_tpu_torch.embed.table import (a2a_capacity, a2a_overflow, lookup_a2a,
                                           make_sharded_lookup_psum)
-from recsys_tpu_torch.models import losses
+from recsys_tpu_torch.models import dlrm, losses
 from recsys_tpu_torch.models.multitask import MultiTaskModel
 from recsys_tpu_torch.models.towers import TwoTower
+from recsys_tpu_torch.ops import embedding_bag as eb
 from recsys_tpu_torch.parallel import collectives
 from recsys_tpu_torch.parallel.mesh import MeshContext, make_mesh, world_size
 from recsys_tpu_torch.parallel.sharding import local_slice, shard_rows
@@ -167,6 +183,10 @@ logger = logging.getLogger(__name__)
 
 METRIC_KEYS = ("loss", "retrieval_loss", "rating_mse", "ctr_bce", "l2")
 BATCH_COLUMNS = ("user_id", "movie_id", "rating", "y_implicit")
+# dlrm_dcnv2: the step's metrics (the BCE, and the lookups and rows
+# updated a step, counted on the device) and a bundle's columns
+DLRM_METRIC_KEYS = ("loss", "lookups", "unique_rows")
+DLRM_COLUMNS = ("dense", "sparse", "label")
 
 
 class TrainState(NamedTuple):
@@ -193,6 +213,12 @@ def _tree_from_paths(values: Dict[Tuple[str, ...], torch.Tensor]) -> Dict:
             node = node.setdefault(k, {})
         node[path[-1]] = v
     return tree
+
+
+def _map_leaves(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _grads(loss: torch.Tensor, leaves) -> list:
@@ -397,6 +423,24 @@ class Trainer:
         self.rows = (mesh_ctx is not None and config.mesh.embedding_sharding == "rows"
                      and mesh_ctx.n_model > 1)
         self._nan_guard = _NanGuard(mesh_ctx, config.train.optimizer)
+        self.dlrm = config.model.arch == "dlrm_dcnv2"
+        if self.dlrm:
+            self._check_dlrm()
+
+    def _check_dlrm(self) -> None:
+        """The modes DLRM-DCNv2 trains in: one device, Adagrad (row-wise on
+        the tables), no clipping (the source clips nothing, and the fused
+        table update has no global norm to clip by), no cache."""
+        t = self.config.train
+        for bad, what in ((self.ctx is not None, "a mesh"),
+                          (t.optimizer != "adagrad", f"optimizer={t.optimizer!r}"),
+                          (t.clipnorm > 0, f"clipnorm={t.clipnorm}"),
+                          (t.negative_cache > 0, "negative_cache")):
+            if bad:
+                raise ValueError(f"arch dlrm_dcnv2 trains on one device with adagrad, "
+                                 f"clipnorm 0 and no cache, not with {what}")
+        self._layout = eb.make_layout(self.config.model.table_rows,
+                                      self.config.model.bag_sizes, self.device)
 
     def _check_mesh(self, ctx: MeshContext) -> None:
         """The mesh's model axis is ``mesh.model_axis`` and its data axis
@@ -441,7 +485,12 @@ class Trainer:
         """Params from ``MultiTaskModel.init`` (drawn from a CPU generator
         seeded with ``seed``; the tables padded to ``n_model`` rows under
         row sharding), on the trainer's device, with gradients on; fresh
-        optimizer slots; an empty cache; step 0."""
+        optimizer slots; an empty cache; step 0. Under dlrm_dcnv2 from
+        ``models/dlrm.py::init``, its tables drawn on the trainer's device
+        (their rows are the config's: ``n_users`` and ``n_items`` are
+        not read)."""
+        if self.dlrm:
+            return self.state_from_params(dlrm.init(seed, self.config.model, self.device), seed)
         params = MultiTaskModel.init(torch.Generator().manual_seed(seed), self.config.model,
                                      n_users, n_items, "cpu",
                                      rows_multiple=self.ctx.n_model if self.rows else 1)
@@ -452,7 +501,9 @@ class Trainer:
         device, gradients on), e.g. those of ``params_from_numpy``, with
         fresh slots and, under ``negative_cache``, an empty cache. Under
         row sharding the rank keeps its rows of the two tables (and its
-        slots are made from them)."""
+        slots are made from them). Under dlrm_dcnv2 see :meth:`_dlrm_state`."""
+        if self.dlrm:
+            return self._dlrm_state(params, seed)
         tw = params["towers"]
         self._table_elements = tw["user_table"].numel() + tw["item_table"].numel()
 
@@ -475,6 +526,19 @@ class Trainer:
                 "corr": torch.full((n,), -1e9, device=self.device),
             }
         return TrainState(params, self.optimizer.init(params), 0, seed + 1, extras)
+
+    def _dlrm_state(self, params, seed: int) -> TrainState:
+        """The dense leaves copied to the trainer's device with gradients on
+        and their Adagrad slots; the concatenated table taken as it is
+        where it already lies there (no second copy of it), with one
+        row-wise accumulator a row, at 0 as FBGEMM's."""
+        table = params["embedding"]["table"].detach().to(self.device, torch.float32)
+        dense = _map_leaves(dlrm.dense_params(params), lambda t: t.detach().to(self.device, torch.float32)
+                            .clone().requires_grad_(True))
+        slots = self.optimizer.init(dense)
+        slots["accum"]["embedding"] = {"table": torch.zeros((table.shape[0],),
+                                                            device=self.device)}
+        return TrainState({**dense, "embedding": {"table": table}}, slots, 0, seed + 1, None)
 
     def _generator(self, state: TrainState) -> torch.Generator:
         """The step's dropout stream; under a mesh the data index is folded
@@ -528,6 +592,8 @@ class Trainer:
         return total.to(torch.float32)
 
     def _metric_keys(self) -> Tuple[str, ...]:
+        if self.dlrm:
+            return DLRM_METRIC_KEYS
         return METRIC_KEYS + (("lookup_overflow",) if self._a2a() else ())
 
     def _is_writer(self) -> bool:
@@ -594,6 +660,8 @@ class Trainer:
         built; with ``use_explicit_negs`` the batch's ``neg_ids`` [B, K]
         feed the explicit softmax and the step is dense, as in the JAX
         package. ``batch`` holds tensors on the device; metrics stay there."""
+        if self.dlrm:
+            return self._step_core_dlrm()
         self._check_cache_config(self.config.train.batch_size)
         if not use_explicit_negs and self._resolve_sparse_updates():
             return self._step_core_sparse(class_weights)
@@ -717,6 +785,49 @@ class Trainer:
                 self.step_counts["sparse"] += 1
                 return (state._replace(step=state.step + 1, extras=new_cache),
                         self._reduce_metrics(metrics))
+
+        return step_fn
+
+    def _step_core_dlrm(self) -> Callable:
+        """The DLRM-DCNv2 step: the batch's bags pooled from the table
+        (``embed.bag``), the dense forward and autograd over the dense
+        leaves and the bags [B, T, D]; then the dense Adagrad, and the bags'
+        gradient back to the looked-up rows of the table with their
+        row-wise Adagrad, fused (``embed.bag_bwd``), in place. The metrics
+        gain the lookups and the rows updated, counted on the device."""
+        cfg = self.config
+        layout = self._layout
+
+        def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
+            with span("train.step"):
+                table = state.params["embedding"]["table"]
+                dense = dlrm.dense_params(state.params)
+                paths, leaves = zip(*leaves_with_paths(dense))
+
+                def forward_backward():
+                    with span("train.forward"):
+                        with span("embed.bag"):
+                            bags = eb.bag_forward(table, batch["sparse"], layout)
+                        bags.requires_grad_(True)
+                        logit = dlrm.logits(dense, cfg.model, batch["dense"], bags)
+                        metrics = {"loss": dlrm.bce(logit, batch["label"])}
+                    with span("train.backward"):
+                        grads = torch.autograd.grad(metrics["loss"], [*leaves, bags])
+                    return metrics, dict(zip(paths, grads[:-1])), grads[-1]
+
+                metrics, grads, bag_grad = self._checked(state, forward_backward)
+                with span("train.update"):
+                    self.optimizer.update(_tree_from_paths(grads), state.opt_state,
+                                          state.params, state.step)
+                    with span("embed.bag_bwd"):
+                        metrics["lookups"], metrics["unique_rows"] = \
+                            eb.bag_backward_rowwise_adagrad(
+                                table, state.opt_state["accum"]["embedding"]["table"],
+                                batch["sparse"], bag_grad, layout, self._schedule(state.step))
+                self._updated(state)
+                self.step_counts["sparse"] += 1
+                return state._replace(step=state.step + 1), {k: v.detach()
+                                                             for k, v in metrics.items()}
 
         return step_fn
 
@@ -903,6 +1014,8 @@ class Trainer:
 
         @torch.no_grad()
         def eval_fn(params, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+            if self.dlrm:
+                return {"loss": dlrm.loss(params, cfg.model, batch, self._layout)[0]}
             _, metrics = MultiTaskModel.loss(params, cfg.model, batch, train=False,
                                              class_weights=class_weights, lookup=lookup)
             return metrics
@@ -950,16 +1063,21 @@ class Trainer:
         b = cfg.train.batch_size
         lookup = self._lookup("psum")
 
+        keys = ("loss",) if self.dlrm else METRIC_KEYS
+
         @torch.no_grad()
         def val_fn(params, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-            sums = {k: torch.zeros((), device=self.device) for k in METRIC_KEYS}
+            sums = {k: torch.zeros((), device=self.device) for k in keys}
             wsum = torch.zeros((), device=self.device)
             for i in range(n_steps):
                 batch = {k: v[i * b:(i + 1) * b] for k, v in data.items()}
-                _, metrics = MultiTaskModel.loss(params, cfg.model, batch, train=False,
-                                                 class_weights=class_weights, lookup=lookup)
+                if self.dlrm:
+                    metrics = {"loss": dlrm.loss(params, cfg.model, batch, self._layout)[0]}
+                else:
+                    _, metrics = MultiTaskModel.loss(params, cfg.model, batch, train=False,
+                                                     class_weights=class_weights, lookup=lookup)
                 w = torch.sum(batch["mask"])
-                for k in METRIC_KEYS:
+                for k in keys:
                     sums[k] += metrics[k] * w
                 wsum += w
             return {k: v / torch.clamp(wsum, min=1.0) for k, v in sums.items()}
@@ -1124,6 +1242,8 @@ class Trainer:
 
     # ---- the training loop -------------------------------------------
     def train(self, bundle: Dict[str, np.ndarray]) -> Dict[str, float]:
+        if self.dlrm:
+            return self._train_dlrm(bundle)
         cfg = self.config
         t_cfg = cfg.train
         dev = self.device
@@ -1418,6 +1538,89 @@ class Trainer:
         report = self._from_writer(report)
         if self.ctx is not None:
             dist.barrier()
+        return report
+
+    def _train_dlrm(self, bundle: Dict[str, np.ndarray]) -> Dict[str, float]:
+        """``train`` for dlrm_dcnv2: a bundle of ``train/`` and ``val/``
+        columns ``dense`` [N, dense_in] fp32, ``sparse`` [N, S] int32 (the
+        bags side by side, ids local to their tables) and ``label`` [N]
+        0/1; the splits on the device; a checkpoint, the train metrics and
+        the validation BCE each epoch, early stopping on it with the best
+        weights restored, ``--resume`` and ``profile`` as for the two-tower
+        model. The report: the final validation BCE and the throughput. No
+        serving bundle: the model is a pointwise CTR model, with no
+        retrieval index."""
+        cfg, t_cfg, dev = self.config, self.config.train, self.device
+        if t_cfg.debug_nans:
+            enable_nan_checks()
+        self.writer.write_config(cfg)
+        b = t_cfg.batch_size
+
+        def on_device(arr):
+            return torch.as_tensor(np.ascontiguousarray(arr)).to(dev)
+
+        train_data = {c: on_device(bundle[f"train/{c}"]) for c in DLRM_COLUMNS}
+        n_rows = train_data["label"].shape[0]
+        steps = n_rows // b
+        n_val = len(bundle["val/label"])
+        val_steps = max(-(-n_val // b), 1)
+        pad = val_steps * b - n_val
+        val_data = {c: on_device(np.pad(bundle[f"val/{c}"],
+                                        [(0, pad)] + [(0, 0)] * (bundle[f"val/{c}"].ndim - 1)))
+                    for c in DLRM_COLUMNS}
+        val_data["mask"] = on_device(np.pad(np.ones(n_val, np.float32), (0, pad)))
+        train_epoch = self.make_train_epoch(None, n_rows, steps)
+        val_epoch = self.make_val_epoch(None, val_steps)
+        state = self.init_state(0, 0, t_cfg.seed)
+        start_epoch = 0
+        if t_cfg.resume:
+            restored = self.ckpt.restore_latest()
+            if restored is not None:
+                state = self._load_state(state, restored[1])
+                start_epoch = state.step // max(steps, 1)
+        logger.info("dlrm_dcnv2: %d tables, %d rows, %d train rows, %d steps/epoch on %s",
+                    len(cfg.model.table_rows), sum(cfg.model.table_rows), n_rows, steps, dev)
+        best_val, best_host, patience, examples = float("inf"), None, 0, 0
+        profiler = self._start_profile() if t_cfg.profile else None
+        t0 = time.time()
+        try:
+            for epoch in range(start_epoch, t_cfg.epochs):
+                self.writer.start_epoch()
+                t_epoch = time.time()
+                state, tmetrics = train_epoch(state, train_data, epoch)
+                logs = {f"train_{k}": float(v) for k, v in tmetrics.items()}  # syncs
+                if profiler is not None:
+                    profiler = self._stop_profile(profiler)
+                if nan_checks_enabled():
+                    self._nan_guard.flush()
+                examples += steps * b
+                logs["examples_per_s"] = steps * b / max(time.time() - t_epoch, 1e-9)
+                logs.update({f"val_{k}": float(v)
+                             for k, v in val_epoch(state.params, val_data).items()})
+                self.writer.end_epoch(epoch, logs)
+                is_best = logs["val_loss"] < best_val
+                if is_best:
+                    best_val, patience = logs["val_loss"], 0
+                    best_host = ckpt_lib.params_to_numpy(state.params)
+                else:
+                    patience += 1
+                self.ckpt.save(state.step, self._state_dict(state),
+                               metrics={"val_loss": logs["val_loss"]}, is_best=is_best)
+                if patience >= t_cfg.early_stop_patience:
+                    break
+        finally:
+            if profiler is not None:
+                self._stop_profile(profiler)
+            self.ckpt.wait()
+        if best_host is not None:
+            self._copy_into(state.params, best_host)
+        wall = time.time() - t0
+        self.final_state = state
+        report = {"val_loss": best_val, "train_wall_time_s": wall,
+                  "examples_per_s": examples / max(wall, 1e-9),
+                  "epochs_run": state.step // max(steps, 1)}
+        self.writer.write_final_metrics(report)
+        self.writer.close()
         return report
 
     def _start_profile(self) -> torch.profiler.profile:

@@ -23,7 +23,12 @@ caller's ``train.backward``:
   all-reduce and gathers, the cache's gather, the metrics' mean);
 * ``train.update``: the optimizer (the sparse step's combine, clip, dense
   optimizer and touched-rows update);
-* ``train.cache_update``: the CBNS cache's FIFO, when the cache is on.
+* ``train.cache_update``: the CBNS cache's FIFO, when the cache is on;
+* DLRM-DCNv2's step (``Trainer._step_core_dlrm``): ``embed.bag`` around
+  the bags' pooled forward (inside ``train.forward``), ``dlrm.cross``
+  around the low-rank cross layers' forward, and ``embed.bag_bwd`` around
+  the bags' backward with the rows' combine and row-wise Adagrad (inside
+  ``train.update``, beside the dense leaves' Adagrad).
 
 A span records nothing unless a profiler is running, and changes no
 result. Names are fixed strings: no shape is formatted into them.
