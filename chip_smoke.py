@@ -465,14 +465,16 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, kernel: str = "") -> tuple:
+def device_ms(fn, iters: int, kernel: str = "", per_call: int = 0) -> tuple:
     """Device time per call of ``fn`` from a ``torch.profiler`` window of
     ``iters`` calls (after one warm-up call): (all device work, the
     device work of kernels whose name holds ``kernel``), both None when the
     profiler recorded no device work (at Q = 4,096, N = 8,388,608 it has
     recorded none for the blockmax kernel's 0.4 s launches) or, with
     ``kernel``, recorded its launches for only some of the calls (late in
-    a long run it has kept 3 of 10) in two windows running."""
+    a long run it has kept 3 of 10), or other than ``per_call`` of them a
+    call where that is given (it has kept every launch of one of two
+    kernels and none of the other), in two windows running."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -489,7 +491,8 @@ def device_ms(fn, iters: int, kernel: str = "") -> tuple:
         total = sum(e.self_device_time_total for e in events)
         named = [e for e in events if kernel and kernel in e.key]
         n_named = sum(e.count for e in named)
-        if total and not (kernel and (n_named == 0 or n_named % iters)):
+        if total and not (kernel and (n_named == 0 or n_named % iters or
+                                      per_call and n_named != per_call * iters)):
             return total / 1e3 / iters, sum(e.self_device_time_total for e in named) / 1e3 / iters
     # the profiler recorded nothing, or dropped launches: not measured, not zero
     return None, None
@@ -1880,6 +1883,30 @@ def check_twokernel(u, v, c, ids_q, ids_k, pos, g, bwd=None) -> dict:
             "rel": dict(zip(("dU", "dV", "dcol"), rel_err)), "args": args}
 
 
+def _edge_args(bq: int, bk: int, d: int, seed: int, all_accidental: bool) -> tuple:
+    """Seeded bf16 inputs of a tensor-core kernel's edge: rows scaled by
+    D**-0.5, ids from Bk // 3 (accidental hits), row 0's positive in the
+    last candidate, ``g`` of a mean over Bq rows; with ``all_accidental``
+    every candidate and a third of the rows share one id, so that every
+    candidate of those rows but the positive is an accidental hit.
+    -> (u, v, colcorr, ids_q, ids_k, pos, g)"""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    n_ids = max(2, bk // 3)
+    ints = lambda n: torch.randint(0, n_ids, (n,), generator=gen, device="cuda",
+                                   dtype=torch.int32)
+    u, v = (rnd(bq, d) * d ** -0.5).bfloat16(), (rnd(bk, d) * d ** -0.5).bfloat16()
+    c, ids_q, ids_k, gr = rnd(bk), ints(bq), ints(bk), rnd(bq) / bq
+    pos = torch.arange(bq, device="cuda", dtype=torch.int32) % bk
+    pos[0] = bk - 1
+    if all_accidental:
+        ids_k.fill_(n_ids)
+        ids_q[::3] = n_ids
+    return u, v, c, ids_q, ids_k, pos, gr
+
+
 def check_fwd_dv_edges() -> list:
     """Rows 4 and 7 of bf16 operands (the tensor-core kernels) against
     their plain versions at their edges: D in {24, 32, 64, 120, 128, 129,
@@ -1902,18 +1929,7 @@ def check_fwd_dv_edges() -> list:
                                      (1000, 3001, 64), (1000, 3001, 120), (1000, 3001, 128),
                                      (1000, 3001, 129), (1000, 3001, 256), (777, 2050, 128),
                                      (300, 1100, 256), (65, 1, 64), (8192, 8192, 128))):
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 30 + i)
-        rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
-        n_ids = max(2, bk // 3)
-        ints = lambda n: torch.randint(0, n_ids, (n,), generator=gen, device="cuda",
-                                       dtype=torch.int32)
-        u, v = (rnd(bq, d) * d ** -0.5).bfloat16(), (rnd(bk, d) * d ** -0.5).bfloat16()
-        c, ids_q, ids_k, gr = rnd(bk), ints(bq), ints(bk), rnd(bq) / bq
-        pos = torch.arange(bq, device="cuda", dtype=torch.int32) % bk
-        pos[0] = bk - 1
-        if i % 2:
-            ids_k.fill_(n_ids)
-            ids_q[::3] = n_ids
+        u, v, c, ids_q, ids_k, pos, gr = _edge_args(bq, bk, d, SEED + 30 + i, bool(i % 2))
         what = f"rows 4/7 edge Bq={bq} Bk={bk} D={d} bf16"
         before = F.flash_ce_fwd.launches, F.flash_ce_bwd_dv.launches
         fwd = [F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos) for _ in range(2)]
@@ -1939,6 +1955,54 @@ def check_fwd_dv_edges() -> list:
                     "fwd_rel": dict(zip(("lse", "pos_logit"), fwd_rel)),
                     "dv_rel": dict(zip(("dV", "dcol"), dv_rel))})
         del fwd, dv, args, u, v
+    return out
+
+
+def check_du_edges() -> list:
+    """Row 6 of bf16 operands (the wgmma kernel fed by TMA) against its
+    plain version and against the plain version of its partials under
+    ``du_plan``, summed, at its edges: D in {24, 32, 64, 120, 128, 129, 256}
+    (padded widths; the TMA tiles zero past D, two column slices of dU past
+    128, padded copies of u and v where D % 8 != 0), Bq and Bk not
+    multiples of 128 (the last candidate tile's columns padded, the last
+    query block's rows past Bq), one candidate, 8,192^2 at D = 128 and 256,
+    parts > 1 wherever the query blocks leave the card thin, row 0's
+    positive in the last candidate, and (every other shape) a third of the
+    rows whose every candidate but the positive is an accidental hit: dU
+    within FLASH_BF16_GRAD_TOL of max|ref| of both; two calls give the same
+    bits and count two launches. -> errors and plans per shape."""
+    import torch
+    from recsys_tpu_torch.ops import flash_ce as F
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for i, (bq, bk, d) in enumerate(((50, 70, 32), (130, 4097, 24), (1000, 3001, 32),
+                                     (1000, 3001, 64), (1000, 3001, 120), (1000, 3001, 128),
+                                     (1000, 3001, 129), (1000, 3001, 256), (777, 2050, 128),
+                                     (300, 1100, 256), (65, 1, 64), (8192, 8192, 128),
+                                     (8191, 8193, 256))):
+        u, v, c, ids_q, ids_k, pos, gr = _edge_args(bq, bk, d, SEED + 40 + i, bool(i % 2))
+        what = f"row 6 edge Bq={bq} Bk={bk} D={d} bf16"
+        lse, _ = F.flash_ce_fwd_reference(u, v, c, ids_q, ids_k, pos)
+        args = (u, v, c, ids_q, ids_k, pos, lse, gr)
+        before = F.flash_ce_bwd_du.launches
+        du = [F.flash_ce_bwd_du(*args) for _ in range(2)]
+        torch.cuda.synchronize()
+        plan = F.du_plan(bq, bk, -(-d // 8) * 8, True, n_sm)
+        parts = F.flash_ce_bwd_du_partials_reference(*args, plan)
+        check(all(bool(torch.isfinite(t).all()) for t in du), f"{what}: non-finite dU")
+        errs = {}
+        for name, ref in (("plain", F.flash_ce_bwd_du_reference(*args)),
+                          ("partials", torch.sum(parts, dim=0))):
+            errs[name] = _errs((du[0],), (ref,))[1][0]
+            check(errs[name] <= FLASH_BF16_GRAD_TOL,
+                  f"{what}: dU err {errs[name]} of max|ref| against the {name} version")
+        check(bool(torch.equal(du[0], du[1])), f"{what}: two row 6 calls differ")
+        moved = F.flash_ce_bwd_du.launches - before
+        check(moved == 2, f"{what}: launches of row 6 {moved}, want 2")
+        out.append({"Bq": bq, "Bk": bk, "D": d, "all_accidental_rows": bool(i % 2),
+                    "du_plan": plan._asdict(), "rel": errs})
+        del du, parts, args, u, v
     return out
 
 
@@ -2053,8 +2117,10 @@ def time_routes(dtype) -> list:
     (rows 6 + 7 with their parts' sums) of ``dtype`` operands, D = 128, at
     ROUTE_SHAPES, timed in turns (fused, two-kernel, two-kernel, fused: CUDA
     events), each with the device memory it allocates beyond its inputs
-    (peak), beside the TPU's partials count and route and the route
-    ``bwd_route`` takes."""
+    (peak) and its device ms in a profiler window (where CUDA events read
+    the host's pace: the two-kernel call's host work outlasts its device
+    work at 4,096 x 20,480 on an H100), beside the TPU's partials count and
+    route and the route ``bwd_route`` takes."""
     import torch
     from recsys_tpu_torch.ops import flash_ce as F
 
@@ -2083,6 +2149,10 @@ def time_routes(dtype) -> list:
             torch.cuda.reset_peak_memory_stats()
             row[f"{name}_ms"].append(time_ms(lambda: fn(*args), iters, warmup=1))
             row[f"{name}_peak_extra_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        # the kernel names only vouch that the window kept every launch
+        for name, kernel, n in (("fused", "flash_ce_bwd_", 1), ("twokernel", "flash_ce_bwd_d", 2)):
+            fn = getattr(F, f"flash_ce_bwd_{name}")
+            row[f"{name}_device_ms"] = device_ms(lambda: fn(*args), iters, kernel, n)[0]
         row["s"] = time.perf_counter() - t0
         rows.append(row)
         log(f"route {json.dumps(row)}")
@@ -2108,10 +2178,10 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
                 .multi_processor_count * sm_clock_mhz * 1e6)
     out = {"checks": []}
     bf, f32 = torch.bfloat16, torch.float32
-    # the main path's shape, then edges: row 6 of bf16 operands runs on the
-    # tensor cores (D padded to 32, 64, 128 or 256; two column slices past
-    # 128; element-wise loads where D % 8 != 0; ragged query and candidate
-    # tiles), fp32 on the FMA units
+    # the main path's shape, then edges: rows 6 and 7 of bf16 operands run on
+    # wgmma fed by TMA (D padded to 32, 64, 128 or 256; two column slices
+    # past 128; padded copies of u and v where D % 8 != 0; ragged query and
+    # candidate tiles), fp32 on the FMA units
     for bq, bk, d, dt in ((8192, 8192, 128, bf), (8192, 8192, 128, f32),
                           (4096, 20480, 128, bf), (1000, 3001, 129, f32),
                           (1000, 3001, 64, bf), (777, 2050, 128, bf), (1000, 3001, 129, bf),
@@ -2136,6 +2206,8 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
     log(f"rows 6 and 7 agree with their plain versions: {json.dumps(out['checks'])}")
     out["fwd_dv_edges"] = check_fwd_dv_edges()
     log(f"rows 4 and 7 (tensor cores) agree at their edges: {json.dumps(out['fwd_dv_edges'])}")
+    out["du_edges"] = check_du_edges()
+    log(f"row 6 (wgmma) agrees at its edges: {json.dumps(out['du_edges'])}")
     out["fp32_route"] = check_fp32_route(exp_rate)
     log(f"fp32 {FP32_PAST_CAP_BATCH}^2 takes the fused kernel; rows 6 + 7 agree: "
         f"{json.dumps(out['fp32_route'])}")
@@ -2164,14 +2236,15 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
                         "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
                         "device_ms": dev_ms, "kernel_device_ms": dev_kernel_ms}
     args = (u, v, c, ids_q, ids_k, pos, ref_lse, gr)
-    n_dv = F.flash_ce_bwd_dv.launches
+    n_du, n_dv = F.flash_ce_bwd_du.launches, F.flash_ce_bwd_dv.launches
     two = F.flash_ce_bwd_twokernel(*args)
-    dv_again = F.flash_ce_bwd_dv(*args)
-    check(F.flash_ce_bwd_dv.launches - n_dv == 2, f"{what}: row 7 launches "
-          f"{F.flash_ce_bwd_dv.launches - n_dv}, want 2")
+    du_again, dv_again = F.flash_ce_bwd_du(*args), F.flash_ce_bwd_dv(*args)
+    moved = (F.flash_ce_bwd_du.launches - n_du, F.flash_ce_bwd_dv.launches - n_dv)
+    check(moved == (2, 2), f"{what}: launches of rows 6 and 7 {moved}, want (2, 2)")
+    check(bool(torch.equal(two[0], du_again)), f"{what}: two row 6 calls differ")
     check(all(bool(torch.equal(a, b)) for a, b in zip(two[1:], dv_again)),
           f"{what}: two row 7 calls differ")
-    del dv_again
+    del du_again, dv_again
     fused = F.flash_ce_bwd_fused(*args)
     torch.cuda.synchronize()
     want = []
@@ -4295,7 +4368,7 @@ DEBUG_ROWS = {2: ("dcn_cross", ("dcn_cross_fwd_kernel",)),
               3: ("dcn_cross_bwd", ("dcn_cross_bwd_kernel", "dcn_cross_bwd_smem_kernel")),
               4: ("flash_ce_fwd", ("flash_ce_fwd_kernel", "flash_ce_fwd_tc_kernel")),
               5: ("flash_ce_bwd_fused", ("flash_ce_bwd_kernel", "flash_ce_bwd_tc_kernel")),
-              6: ("flash_ce_bwd_du", ("flash_ce_bwd_du_kernel", "flash_ce_bwd_du_tc_kernel")),
+              6: ("flash_ce_bwd_du", ("flash_ce_bwd_du_kernel", "flash_ce_bwd_du_wgmma_kernel")),
               7: ("flash_ce_bwd_dv", ("flash_ce_bwd_dv_kernel", "flash_ce_bwd_dv_wgmma_kernel"))}
 # phase 18's user table, padded to 4 row ranges
 CKPT_TABLE_ROWS, CKPT_RANGES = GIANT_USERS + 4, 4
@@ -5131,8 +5204,9 @@ def main() -> int:
             "fp32": {k: twokernel["main_fp32"][i][k] for k in keys + speed},
             "shape": main_row["shape"], "shapes": [main_row, twokernel["above"][i]]})
     fp32_route = twokernel["fp32_route"]
-    kernels[-2].update(kernel="flash_ce_bwd_du_tc_kernel (bf16, mma.sync); "
-                              "flash_ce_bwd_du_kernel serves fp32 (FMA units, 128-bit "
+    kernels[-2].update(kernel="flash_ce_bwd_du_wgmma_kernel (bf16, wgmma fed by TMA, a "
+                              "producer warpgroup and two consumers in ping-pong, du_plan "
+                              "parts); flash_ce_bwd_du_kernel serves fp32 (FMA units, 128-bit "
                               "register-tiled S and dU, du_plan parts)",
                        fp32_edges=fp32_du_fwd_edges,
                        fp32_plan=flash_mod.du_plan(TRAIN_BATCH, TRAIN_BATCH, 128, False,
@@ -5170,7 +5244,8 @@ AB_TOPK_SHAPES = [(1, N_ITEMS, 10), (1, N_ITEMS, RERANK), (BATCH_USERS, N_ITEMS,
                   (BATCH_USERS, N_ITEMS, RERANK), (4096, 1 << 20, 10)]
 AB_FLASH_SHAPES = [(4096, "bfloat16"), (TRAIN_BATCH, "bfloat16"), (TRAIN_BATCH, "float32")]
 # rows 6 (dU) and 7 (dV, dcol) and the forward (row 4): (Bq, Bk, dtype), D = 128
-AB_TWOKERNEL_SHAPES = [(TRAIN_BATCH, TRAIN_BATCH, "bfloat16"), (32_768, 65_536, "bfloat16"),
+AB_TWOKERNEL_SHAPES = [(TRAIN_BATCH, TRAIN_BATCH, "bfloat16"), (4096, 20_480, "bfloat16"),
+                       (32_768, 65_536, "bfloat16"),
                        (*ABOVE_CAP[:2], "bfloat16"), (TRAIN_BATCH, TRAIN_BATCH, "float32"),
                        (FP32_PAST_CAP_BATCH, FP32_PAST_CAP_BATCH, "float32")]
 # rows 2 (the DCN forward) and 3 (its backward): (n, F), L = 3, at the

@@ -28,35 +28,38 @@
 // the tensor-core bound is 0.017 ms forward and the Bq*Bk exps on the
 // special-function units take about as long.
 //   Every kernel of bf16 operands runs its products on the tensor cores.
-// The forward (flash_ce_fwd_tc_kernel, row 4), the fused backward
-// (flash_ce_bwd_tc_kernel, row 5) and the dU kernel
-// (flash_ce_bwd_du_tc_kernel, row 6) run warp-level mma.sync.m16n8k16 bf16
+// The forward (flash_ce_fwd_tc_kernel, row 4) and the fused backward
+// (flash_ce_bwd_tc_kernel, row 5) run warp-level mma.sync.m16n8k16 bf16
 // with fp32 sums (mma_bf16.cuh), operands fed by ldmatrix (.trans where the
 // product needs the transposed tile) from bf16 tiles in shared memory, the
 // next tile loaded by cp.async while the current one computes: a first
-// tensor-core design that a warp owns from fragment to result, so that P
-// (row 6) or P^T (row 5), computed in a warp's accumulators, feeds the
-// next product from registers (the FlashAttention-2 layout identity
-// between an m16n8 accumulator pair and an m16k16 A fragment). mma.sync
-// cannot reach Hopper's dense tensor-core rate; only wgmma can. The
-// dV/dcol kernel (flash_ce_bwd_dv_wgmma_kernel, row 7) is the Hopper
-// design (hopper.cuh): a producer warpgroup keeps a ring of TMA-loaded
-// query tiles in flight and two consumer warpgroups of 64 candidates run
-// both products on wgmma, P^T from the S^T accumulators straight into the
-// register A operand of dV += P^T U, the exps of one tile under the
-// products of the next and under the other consumer's (FlashAttention-3's
-// ping-pong). What bounded row 7 on mma.sync, its first design, was the
-// instruction itself and its traffic: 64-candidate blocks each streamed
-// every query row and its lse, g, id and positive, ~146 GB through L2 at
-// 131,072 x 262,144. With 128-candidate blocks, TMA copies that spend no
-// thread's registers or instructions, and wgmma, row 7 there takes
-// 36.6-36.7 device ms (480 TFLOP/s, 49% of the 17.8 ms tensor-core bound)
-// against 101.7-102.2 on mma.sync (173 TFLOP/s); at 8,192^2 0.0755
-// against 0.2258 (455 against 152 TFLOP/s; NVIDIA H100 80GB HBM3, 700 W,
-// both trees on one card). It is now bound by the elementwise work
-// beside the products: its exps (expf) and masks take as many instruction slots
-// as the products take tensor-core time (ex2.approx instead of expf
-// measured 11% faster, at other last bits of p). So no query tile is
+// tensor-core design that a warp owns from fragment to result, so that P^T
+// (row 5), computed in a warp's accumulators, feeds the next product from
+// registers (the FlashAttention-2 layout identity between an m16n8
+// accumulator pair and an m16k16 A fragment). mma.sync cannot reach
+// Hopper's dense tensor-core rate; only wgmma can. The dV/dcol kernel
+// (flash_ce_bwd_dv_wgmma_kernel, row 7) and the dU kernel
+// (flash_ce_bwd_du_wgmma_kernel, row 6), the backward of every bf16
+// training step, are the Hopper design (hopper.cuh), one the other with the
+// axes swapped: a producer warpgroup keeps a ring of TMA-loaded tiles of
+// the swept axis in flight and two consumer warpgroups of 64 rows of the
+// block's own axis run both products on wgmma, P^T (row 7) or P (row 6)
+// from the logits' accumulators straight into the register A operand of
+// the second product, the exps of one tile under the products of the next
+// and under the other consumer's (FlashAttention-3's ping-pong). What
+// bounded both on mma.sync, their first design, was the instruction itself
+// and its traffic: 64-row blocks each streamed the whole swept axis, ~146
+// GB through L2 at 131,072 x 262,144, by the threads' own cp.async. With
+// 128-row blocks, TMA copies that spend no thread's registers or
+// instructions, and wgmma, row 7 there takes 36.6-36.7 device ms (480
+// TFLOP/s, 49% of the 17.8 ms tensor-core bound) against 101.7-102.2 on
+// mma.sync (173 TFLOP/s), and row 6 34.4-35.2 against 97.8-98.1 (499-512
+// TFLOP/s, 50-52% of the bound); at 8,192^2 row 7 takes 0.0755 against
+// 0.2258 and row 6 0.073 against 0.212-0.214 (NVIDIA H100 80GB HBM3, 700
+// W, both trees on one card). Both are now bound by the elementwise work
+// beside the products: the exps (expf) and masks take as many instruction
+// slots as the products take tensor-core time (ex2.approx instead of expf
+// measured 11% faster on row 7, at other last bits of p). So no tile is
 // multicast to a cluster of blocks: the ~70 GB of tiles a call reads
 // through L2 at 131,072 x 262,144 (~1.9 TB/s) do not set the pace. The
 // fused kernel's other limit is bytes: the dU partials (see below); bf16
@@ -79,10 +82,10 @@
 // never leave the chip.
 //
 // Design, and how it departs from the TPU kernels:
-// * Forward, bf16: row 6's tiling (64 query rows a block, 16 a warp, U's A
-//   fragments in registers, 64-candidate tiles by cp.async); the masked
-//   logits, the positive logit and each lane's running max and sum-exp stay
-//   in registers, the quad's four lanes combined once at the end. Where the
+// * Forward, bf16: 64 query rows a block, 16 a warp, U's A fragments in
+//   registers, 64-candidate tiles by cp.async; the masked logits, the
+//   positive logit and each lane's running max and sum-exp stay in
+//   registers, the quad's four lanes combined once at the end. Where the
 //   query tiles alone would leave the card thin (8,192 rows: 128 tiles) the
 //   candidate sweep splits into parts (the wrapper's fwd_plan: 9 at
 //   8,192^2, one at 131,072 rows) whose (m, l, positive logit) a second
@@ -127,11 +130,15 @@
 //   becomes each block's loop. Where the tiles of the block's own axis
 //   alone would leave the card thin (8,192 rows), the swept axis splits
 //   into parts (the wrapper's du_plan and dv_plan) whose partials the
-//   wrapper sums in a fixed order. The fp32 dU kernel: 128 query rows a
-//   block (64 at DP = 256) with their lse, g, ids and positives, 64-
-//   candidate tiles double-buffered by cp.async, S on 8 x 4 register tiles,
-//   P = exp(S - lse) g (fp32) through shared memory, dU += P V on an 8 x 8
-//   register tile that lives across the sweep (du_plan: 8 parts at
+//   wrapper sums in a fixed order. The bf16 kernels (rows 6 and 7 on
+//   wgmma): 128-row blocks of their own axis and 128-row tiles of the
+//   swept one, the sweep split into parts by waves of one block per SM
+//   (du_plan and dv_plan: 2 parts at 8,192^2, one at 131,072 x 262,144).
+//   The fp32 dU kernel: 128 query rows a block (64 at DP = 256) with their
+//   lse, g, ids and positives, 64-candidate tiles double-buffered by
+//   cp.async, S on 8 x 4 register tiles, P = exp(S - lse) g (fp32)
+//   through shared memory, dU += P V on an 8 x 8 register tile that lives
+//   across the sweep (du_plan: 8 parts at
 //   8,192^2, one block per SM). The fp32 dV kernel: the fused kernel's
 //   candidate tiles (128, 64 at DP = 256) resident, 64-row query tiles
 //   with their lse, g, ids and positives double-buffered by cp.async, S on
@@ -1189,287 +1196,223 @@ __global__ void __launch_bounds__(THREADS, 1) flash_ce_bwd_tc_kernel(
   }
 }
 
-// ---- row 6 in bf16: the dU kernel on the tensor cores ----------------------
+// ---- rows 6 and 7 in bf16: wgmma fed by TMA, warp-specialised -------------
 
-constexpr int DU_WARPS = 4;                 // 16 query rows each
-constexpr int DU_THREADS = 32 * DU_WARPS;
-constexpr int DU_TQ = 16 * DU_WARPS;        // query rows per block
-constexpr int DU_TK = 64;                   // candidates per tile of the sweep
+constexpr int WG_OWN = 128;          // rows of a block's own axis: two consumer warpgroups of 64
+constexpr int WG_TILE = 128;         // rows of a tile of the swept axis
+constexpr int WG_THREADS = 384;      // the producer warpgroup, then the two consumers
+constexpr int WG_MMA_THREADS = 256;  // the consumers, who take turns at the tensor cores
 
-template <int DP>
-constexpr size_t bwd_du_tc_smem() {
-  return sizeof(__nv_bfloat16) * (DU_TQ + 2 * DU_TK) * tc_ld<DP>() +
-         2 * DU_TK * (sizeof(float) + sizeof(int));
-}
-
-// Row 6 of bf16 operands on the tensor cores (mma.sync). Grid (query
-// tiles, parts, DP / DN): block (x, y, z) owns the DU_TQ query rows of
-// tile x, sweeps candidate tiles [y * tiles_per_part, (y + 1) *
-// tiles_per_part) and writes output columns [z * DN, (z + 1) * DN) of
-// its rows into du_part[y] ([parts, Bq, D]; the wrapper sums the parts in
-// a fixed order, or passes dU itself when there is one part). Warp w owns
-// query rows 16w..16w+15: their A fragments of U are loaded once and kept
-// in registers; per 64-candidate tile (cp.async, double-buffered):
-//   S = U_w V_j^T [16 x 64] with fp32 sums;
-//   P = bf16(exp(S - lse) g) from masked_logit, packed straight into
-//   the A fragments of the next product (an m16n8 accumulator pair is an
-//   m16k16 A fragment: FlashAttention-2's register identity);
-//   dU_w += P V_j [16 x DN], V_j read with ldmatrix.trans.
-// dU stays in fp32 registers over the sweep and is written once. Nothing
-// crosses blocks: no atomics, and two calls give the same bits.
-template <int DP>
-__global__ void __launch_bounds__(DU_THREADS) flash_ce_bwd_du_tc_kernel(
-    const __nv_bfloat16* __restrict__ u, const __nv_bfloat16* __restrict__ v,
-    const float* __restrict__ colcorr, const int* __restrict__ ids_q,
-    const int* __restrict__ ids_k, const int* __restrict__ pos, const float* __restrict__ lse,
-    const float* __restrict__ g, int bq, int bk, int d, int vec, int tiles_per_part,
-    float* __restrict__ du_part) {
-  constexpr int LD = tc_ld<DP>();
-  constexpr int DN = DP < 128 ? DP : 128;  // output columns per block
-  constexpr int NT = DN / 8;               // dU n-tiles per warp
-  constexpr int KS = DP / 16;              // k-steps of S
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [DU_TQ][LD]
-  __nv_bfloat16* Vs = Us + DU_TQ * LD;                              // [2][DU_TK][LD]
-  float* cs = reinterpret_cast<float*>(Vs + 2 * DU_TK * LD);        // [2][DU_TK]
-  int* ks = reinterpret_cast<int*>(cs + 2 * DU_TK);                 // [2][DU_TK]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, t4 = lane & 3;  // mma fragment row group and column pair
-  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix matrix and row of this lane
-  const int q0 = blockIdx.x * DU_TQ, rw = warp * 16;
-  const int dn0 = blockIdx.z * DN;
-  const int n_kt = (bk + DU_TK - 1) / DU_TK;
-  const int kt_begin = blockIdx.y * tiles_per_part;
-  const int kt_end = min(n_kt, kt_begin + tiles_per_part);
-  float* du_out = du_part + static_cast<long long>(blockIdx.y) * bq * d;
-
-  auto stage_tile = [&](int buf, int kt) {
-    const int k0 = kt * DU_TK;
-    stage_rows<DP, DU_THREADS>(Vs + buf * DU_TK * LD, LD, v, k0, bk, DU_TK, d, vec != 0);
-    if (tid < DU_TK) {
-      const int c = k0 + tid;
-      cs[buf * DU_TK + tid] = c < bk ? colcorr[c] : 0.f;
-      ks[buf * DU_TK + tid] = c < bk ? ids_k[c] : 0;
-    }
-  };
-
-  stage_rows<DP, DU_THREADS>(Us, LD, u, q0, bq, DU_TQ, d, vec != 0);
-  if (kt_begin < kt_end) stage_tile(0, kt_begin);
-  cp_async_commit();
-
-  bool rok[2];
-  float lse_r[2], g_r[2];
-  int idq_r[2], pos_r[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = q0 + rw + gq + 8 * h;
-    rok[h] = r < bq;
-    lse_r[h] = rok[h] ? lse[r] : 0.f;
-    g_r[h] = rok[h] ? g[r] : 0.f;
-    idq_r[h] = rok[h] ? ids_q[r] : 0;
-    pos_r[h] = rok[h] ? pos[r] : -1;
-  }
-  float du[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) du[nt][e] = 0.f;
-  uint32_t ua[KS][4];  // the warp's A fragments of U, for the whole sweep
-
-  for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
-    const int buf = it & 1, k0 = kt * DU_TK;
-    cp_async_wait_all();
-    __syncthreads();  // this tile has landed; everyone is done with the other buffer
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldsm_x4(ua[kk], Us + (rw + (lm & 1) * 8 + lr) * LD + kk * 16 + (lm >> 1) * 8);
-    }
-    if (kt + 1 < kt_end) stage_tile(buf ^ 1, kt + 1);
-    cp_async_commit();
-    const __nv_bfloat16* Vb = Vs + buf * DU_TK * LD;
-    const float* cb = cs + buf * DU_TK;
-    const int* kb = ks + buf * DU_TK;
-
-    // S[r][c]: s[nt][2h + e] is query row rw + gq + 8h, candidate nt*8 + 2*t4 + e
-    float s[DU_TK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < DU_TK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int np = 0; np < DU_TK / 16; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, Vb + (np * 16 + (lm >> 1) * 8 + lr) * LD + kk * 16 + (lm & 1) * 8);
-        mma_bf16(s[2 * np], ua[kk], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], ua[kk], b[2], b[3]);
-      }
-    }
-
-    // P = bf16(exp(S - lse) g), straight into the A fragments of P V
-    uint32_t pa[DU_TK / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < DU_TK / 8; ++nt) {
-      float pf[2][2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int cl = nt * 8 + 2 * t4 + e, c = k0 + cl;
-        const float corr = cb[cl];
-        const int kid = kb[cl];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float pg = 0.f;
-          if (rok[h] && c < bk) {
-            const float x = masked_logit(s[nt][2 * h + e], corr, idq_r[h], kid, c, pos_r[h]);
-            pg = expf(x - lse_r[h]) * g_r[h];
-          }
-          pf[h][e] = pg;
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) pa[nt >> 1][(nt & 1) * 2 + h] = pack_bf16(pf[h][0], pf[h][1]);
-    }
-
-    // dU[r][k] += sum_c P[r][c] V[c][k]
-#pragma unroll
-    for (int kc = 0; kc < DU_TK / 16; ++kc) {
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t b[4];
-        ldsm_x4_t(b, Vb + (kc * 16 + (lm & 1) * 8 + lr) * LD + dn0 + np * 16 + (lm >> 1) * 8);
-        mma_bf16(du[2 * np], pa[kc], b[0], b[1]);
-        mma_bf16(du[2 * np + 1], pa[kc], b[2], b[3]);
-      }
-    }
-  }
-  cp_async_wait_all();  // no copy may outlive the block
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = q0 + rw + gq + 8 * h;
-    if (r >= bq) continue;
-    float* out = du_out + static_cast<long long>(r) * d;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int k = dn0 + nt * 8 + 2 * t4 + e;
-        if (k < d) out[k] = du[nt][2 * h + e];
-      }
-  }
-}
-
-// ---- row 7 in bf16: the dV/dcol kernel on wgmma, fed by TMA ----------------
-
-constexpr int DV_KB = 128;           // candidates per block: two consumer warpgroups of 64
-constexpr int DV_TQ = 128;           // query rows per tile of the sweep
-constexpr int DV_THREADS = 384;      // the producer warpgroup, then the two consumers
-constexpr int DV_MMA_THREADS = 256;  // the consumers, who take turns at the tensor cores
-
-// Row 7's shared memory at padded width DP: the block's candidate tile V,
-// then a ring of STAGES query tiles U with their rows' (lse, g, id,
-// positive), then the ring's barriers. Both tiles are 64-column chunks of
-// 128-byte rows (hopper.cuh); DP = 32 is staged as 64 columns, the upper 32
-// zero. The ring holds up to 4 tiles in 200 KB (2 at DP = 256).
-template <int DP>
-struct DvTc {
-  static constexpr int TQ = DV_TQ;
-  static constexpr int W = DP < 64 ? 64 : DP;   // staged width
+// The shared memory of rows 6 and 7 at padded width DP: the block's own
+// tile (WG_OWN rows: candidates for row 7, query rows for row 6), then a
+// ring of STAGES tiles of the swept axis (WG_TILE rows) with their rows'
+// inputs (SIDE bytes a row: lse, g, id and positive of row 7's query rows;
+// colcorr and id of row 6's candidates), then the ring's barriers. Both
+// tiles are 64-column chunks of 128-byte rows (hopper.cuh); DP = 32 is
+// staged as 64 columns, the upper 32 zero. The ring holds up to 4 tiles in
+// 200 KB (2 at DP = 256).
+template <int DP, int SIDE>
+struct WgTc {
+  static constexpr int W = DP < 64 ? 64 : DP;       // staged width
   static constexpr int CHUNKS = W / 64;
-  static constexpr int DN = W < 128 ? W : 128;  // dV columns a block (blockIdx.z past 128)
-  static constexpr int V_CHUNK = DV_KB * 128;   // bytes of one 64-column chunk of V
-  static constexpr int U_CHUNK = TQ * 128;      // and of a query tile
-  static constexpr int V_BYTES = CHUNKS * V_CHUNK;
-  static constexpr int U_BYTES = CHUNKS * U_CHUNK;
-  static constexpr int ROW_BYTES = TQ * 16;     // one float4 per query row
-  static constexpr int FIT = (200 * 1024 - V_BYTES) / (U_BYTES + ROW_BYTES);
+  static constexpr int DN = W < 128 ? W : 128;      // output columns a block (blockIdx.z past 128)
+  static constexpr int OWN_CHUNK = WG_OWN * 128;    // bytes of one 64-column chunk of the own tile
+  static constexpr int TILE_CHUNK = WG_TILE * 128;  // and of a swept tile
+  static constexpr int OWN_BYTES = CHUNKS * OWN_CHUNK;
+  static constexpr int TILE_BYTES = CHUNKS * TILE_CHUNK;
+  static constexpr int SIDE_ROW = SIDE;
+  static constexpr int SIDE_BYTES = WG_TILE * SIDE;
+  static constexpr int FIT = (200 * 1024 - OWN_BYTES) / (TILE_BYTES + SIDE_BYTES);
   static constexpr int STAGES = FIT < 4 ? FIT : 4;
-  static_assert(STAGES >= 2, "row 7: a ring of two query tiles at least");
+  static_assert(STAGES >= 2, "a ring of two tiles at least");
   static constexpr size_t smem() {
-    return 1024 + V_BYTES + STAGES * (U_BYTES + ROW_BYTES) + (2 * STAGES + 1) * sizeof(uint64_t);
+    return 1024 + OWN_BYTES + STAGES * (TILE_BYTES + SIDE_BYTES) +
+           (2 * STAGES + 1) * sizeof(uint64_t);
   }
 };
 
-// Row 7 of bf16 operands: warp-specialised, wgmma fed by TMA. Grid
-// (candidate blocks, parts, DP / DN): block (x, y, z) owns the DV_KB
-// candidates of block x, sweeps the query tiles [y * q_tiles_per_part,
-// (y + 1) * q_tiles_per_part) and writes output columns [z * DN, (z + 1) *
-// DN) of their dV into dv_part[y] ([parts, Bk, D]) and (z == 0) their dcol
-// into dcol_part[y] ([parts, Bk]); the wrapper sums the parts in a fixed
-// order, or passes dV and dcol themselves when there is one part.
-//   Warpgroup 0 is the producer: one thread loads the candidate tile V
-// once and keeps a ring of STAGES query tiles in flight, each tile by TMA
-// (128-byte swizzle, zero past Bq and past d) and its rows' (lse, g, id,
-// positive) by a bulk copy from `rows` (flash_ce_dv_rows_kernel), both
-// completing on the stage's full barrier. Warpgroups 1 and 2 own 64
-// candidates each; per query tile i of TQ rows:
-//   S^T = V_w U_i^T [64 x TQ] on wgmma, both operands K-major in shared
-//   memory, fp32 sums;
+// WgTc's pieces in the block's dynamic shared memory, the tiles on 1024
+// bytes (the swizzle's period)
+struct WgRing {
+  unsigned char* own;    // [OWN_BYTES]
+  unsigned char* tiles;  // [STAGES][TILE_BYTES]
+  unsigned char* side;   // [STAGES][SIDE_BYTES]
+  uint64_t* full;        // [STAGES] a tile and its rows' inputs have landed
+  uint64_t* empty;       // [STAGES] both consumers have read the tile
+  uint64_t* own_full;    // the own tile has landed
+};
+
+// the ring of a block of rows 6 and 7, its barriers initialised by thread 0
+// (a full barrier takes the producer's arrival and its bytes, an empty one an
+// arrival from each consumer warp) before any thread goes on
+template <class T>
+__device__ __forceinline__ WgRing wg_setup(unsigned char* smem_raw) {
+  WgRing r;
+  r.own = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  r.tiles = r.own + T::OWN_BYTES;
+  r.side = r.tiles + T::STAGES * T::TILE_BYTES;
+  r.full = reinterpret_cast<uint64_t*>(r.side + T::STAGES * T::SIDE_BYTES);
+  r.empty = r.full + T::STAGES;
+  r.own_full = r.empty + T::STAGES;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < T::STAGES; ++st) {
+      mbar_init(r.full + st, 1);
+      mbar_init(r.empty + st, WG_MMA_THREADS / 32);
+    }
+    mbar_init(r.own_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  return r;
+}
+
+// The producer warpgroup (0): one thread loads the block's own tile (rows
+// own0 + [0, WG_OWN) of own_map) once and keeps n_tiles swept tiles (rows
+// tile0 + WG_TILE i of tile_map) in flight through the ring, each by TMA
+// (128-byte swizzle, zero past the tensor's edges) with its rows' inputs by
+// a bulk copy from `side` (SIDE_ROW bytes a row, tile0 on), both completing
+// on the stage's full barrier; a stage is loaded again once both consumers
+// have freed it.
+template <class T>
+__device__ __forceinline__ void wg_produce(const WgRing& r, const CUtensorMap* own_map, int own0,
+                                           const CUtensorMap* tile_map, int tile0,
+                                           const unsigned char* side, int n_tiles) {
+  if (threadIdx.x != 0 || n_tiles == 0) return;
+  mbar_arrive_expect_tx(r.own_full, T::OWN_BYTES);
+  for (int c = 0; c < T::CHUNKS; ++c)
+    tma_load_2d(r.own + c * T::OWN_CHUNK, own_map, 64 * c, own0, r.own_full);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % T::STAGES, row0 = tile0 + it * WG_TILE;
+    mbar_wait(r.empty + st, ((it / T::STAGES) & 1) ^ 1);  // the first round passes at once
+    mbar_arrive_expect_tx(r.full + st, T::TILE_BYTES + T::SIDE_BYTES);
+    for (int c = 0; c < T::CHUNKS; ++c)
+      tma_load_2d(r.tiles + st * T::TILE_BYTES + c * T::TILE_CHUNK, tile_map, 64 * c, row0,
+                  r.full + st);
+    bulk_load(r.side + st * T::SIDE_BYTES, side + static_cast<long long>(row0) * T::SIDE_ROW,
+              T::SIDE_BYTES, r.full + st);
+  }
+}
+
+// The consumer warpgroups' (1 and 2) sweep over the block's n_tiles swept
+// tiles, P of a tile in KT k-steps of A fragments. Per tile i, its logits'
+// product (start_s(st)) and the second product of tile i - 1
+// (start_x(pa, st)) are started together and tile i's P is built under
+// them (probs(st, i, pa); two P buffers, pa0 and pa1), so the exps of one
+// tile run under the other's products; the two consumers take turns to
+// start products (named barriers 1 and 2, FlashAttention-3's ping-pong),
+// so one's exps run under the other's products. A consumer frees a stage
+// (empty barrier, one arrival per warp) once its second product has read
+// it. keep_s() and keep_x(pa) pin the registers the products write and
+// read at each wait.
+template <class T, int KT, class S, class X, class P, class KS, class KX>
+__device__ __forceinline__ void wg_consume(const WgRing& r, int n_tiles,
+                                           uint32_t (&pa0)[KT][4], uint32_t (&pa1)[KT][4],
+                                           S start_s, X start_x, P probs, KS keep_s, KX keep_x) {
+  if (n_tiles == 0) return;
+  const int cw = threadIdx.x / 128 - 1, lane = threadIdx.x & 31;
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(r.empty + st);
+  };
+  // the consumers' turns at starting products: WG 0, WG 1, WG 0, ...
+  auto turn = [&] { named_sync(1 + cw, WG_MMA_THREADS); };
+  auto pass = [&](bool last) {  // WG 1's last pass would have no turn to open
+    if (!(last && cw == 1)) named_arrive(2 - cw, WG_MMA_THREADS);
+  };
+  // tile `it` >= 1: its logits with the second product of tile it - 1 (P in prev)
+  auto step = [&](int it, uint32_t(&prev)[KT][4], uint32_t(&next)[KT][4]) {
+    const int st = it % T::STAGES, before = (it - 1) % T::STAGES;
+    mbar_wait(r.full + st, (it / T::STAGES) & 1);
+    turn();
+    start_s(st);
+    start_x(prev, before);
+    pass(false);
+    wgmma_wait<1>();
+    keep_s();
+    probs(st, it, next);
+    wgmma_wait<0>();
+    keep_x(prev);
+    release(before);
+  };
+
+  if (cw == 1) named_arrive(1, WG_MMA_THREADS);  // WG 0 goes first
+  mbar_wait(r.own_full, 0);
+  mbar_wait(r.full, 0);
+  turn();
+  start_s(0);
+  pass(false);
+  wgmma_wait<0>();
+  keep_s();
+  probs(0, 0, pa0);
+  int it = 1;
+  for (; it + 1 < n_tiles; it += 2) {
+    step(it, pa0, pa1);
+    step(it + 1, pa1, pa0);
+  }
+  const int last = (n_tiles - 1) % T::STAGES;
+  if (it < n_tiles) {  // one tile more: its logits, then the last two second products
+    mbar_wait(r.full + last, (it / T::STAGES) & 1);
+    turn();
+    start_s(last);
+    start_x(pa0, (it - 1) % T::STAGES);
+    wgmma_wait<1>();
+    keep_s();
+    probs(last, it, pa1);
+    start_x(pa1, last);
+  } else {
+    turn();
+    start_x(pa0, last);
+  }
+  pass(true);
+  wgmma_wait<0>();
+  keep_x(pa0);
+  keep_x(pa1);
+}
+
+// Row 7 of bf16 operands (_bwd_dv_kernel): warp-specialised, wgmma fed by
+// TMA. Grid (candidate blocks, parts, W / DN): block (x, y, z) owns the
+// WG_OWN candidates of block x, sweeps the query tiles [y *
+// q_tiles_per_part, (y + 1) * q_tiles_per_part) and writes output columns
+// [z * DN, (z + 1) * DN) of their dV into dv_part[y] ([parts, Bk, D]) and
+// (z == 0) their dcol into dcol_part[y] ([parts, Bk]); the wrapper sums the
+// parts in a fixed order, or passes dV and dcol themselves when there is
+// one part.
+//   Warpgroup 0 is the producer (wg_produce): the candidate tile V once,
+// the query tiles through the ring with their rows' (lse, g, id, positive)
+// from `rows` (flash_ce_dv_rows_kernel). Warpgroups 1 and 2 own 64
+// candidates each; per query tile i of WG_TILE rows (wg_consume):
+//   S^T = V_w U_i^T [64 x WG_TILE] on wgmma, both operands K-major in
+//   shared memory, fp32 sums;
 //   P^T = bf16(exp(S - lse) g) in registers from masked_logit, packed
 //   straight into the A fragments of the next product; the fp32 p*g into
 //   the thread's dcol sums;
 //   dV_w += P^T U_i [64 x DN] on wgmma, A from registers, U_i read MN-major
 //   from the same shared memory.
-// The products of tile i + 1's S^T and tile i's dV are started together, so
-// the exps of one tile run under the other's products (two P^T buffers),
-// and the two consumers take turns to start them (named barriers 1 and 2,
-// FlashAttention-3's ping-pong), so one's exps run under the other's
-// products; setmaxnreg gives the consumers the producer's registers. A
-// consumer frees a stage (empty barrier, one arrival per warp) once its dV
-// product has read it. dV and dcol stay in fp32 registers over the sweep and
-// are written once, dcol summed over the quad's lanes in a fixed order. No
-// atomics: two calls give the same bits.
+// setmaxnreg gives the consumers the producer's registers. dV and dcol stay
+// in fp32 registers over the sweep and are written once, dcol summed over
+// the quad's lanes in a fixed order. No atomics: two calls give the same
+// bits.
 template <int DP>
-__global__ void __launch_bounds__(DV_THREADS, 1) flash_ce_bwd_dv_wgmma_kernel(
+__global__ void __launch_bounds__(WG_THREADS, 1) flash_ce_bwd_dv_wgmma_kernel(
     const __grid_constant__ CUtensorMap u_map, const __grid_constant__ CUtensorMap v_map,
     const float* __restrict__ colcorr, const int* __restrict__ ids_k,
     const float4* __restrict__ rows, int bq, int bk, int d, int q_tiles_per_part,
     float* __restrict__ dv_part, float* __restrict__ dcol_part) {
-  using T = DvTc<DP>;
-  constexpr int TQ = T::TQ;
+  using T = WgTc<DP, sizeof(float4)>;
+  constexpr int TQ = WG_TILE;
   constexpr int KT = TQ / 16;  // k-steps of the dV product
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* Vs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* Us = Vs + T::V_BYTES;                                        // [STAGES]
-  float4* rows_s = reinterpret_cast<float4*>(Us + T::STAGES * T::U_BYTES);    // [STAGES][TQ]
-  uint64_t* full = reinterpret_cast<uint64_t*>(rows_s + T::STAGES * TQ);     // [STAGES]
-  uint64_t* empty = full + T::STAGES;                                         // [STAGES]
-  uint64_t* v_full = empty + T::STAGES;
-
-  const int k0 = blockIdx.x * DV_KB;
+  const WgRing r = wg_setup<T>(smem_raw);
+  const int k0 = blockIdx.x * WG_OWN;
   const int n_qt = (bq + TQ - 1) / TQ;
   const int qt_begin = blockIdx.y * q_tiles_per_part;
   const int n_tiles = max(0, min(n_qt, qt_begin + q_tiles_per_part) - qt_begin);
   const int wg = threadIdx.x / 128;
 
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < T::STAGES; ++st) {
-      mbar_init(full + st, 1);
-      mbar_init(empty + st, DV_MMA_THREADS / 32);
-    }
-    mbar_init(v_full, 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-
   if (wg == 0) {  // ---- the producer
     setmaxnreg_dec<24>();
-    if (threadIdx.x == 0 && n_tiles > 0) {
-      mbar_arrive_expect_tx(v_full, T::V_BYTES);
-      for (int c = 0; c < T::CHUNKS; ++c)
-        tma_load_2d(Vs + c * T::V_CHUNK, &v_map, 64 * c, k0, v_full);
-      for (int it = 0; it < n_tiles; ++it) {
-        const int st = it % T::STAGES, q0 = (qt_begin + it) * TQ;
-        mbar_wait(empty + st, ((it / T::STAGES) & 1) ^ 1);  // the first round passes at once
-        mbar_arrive_expect_tx(full + st, T::U_BYTES + T::ROW_BYTES);
-        for (int c = 0; c < T::CHUNKS; ++c)
-          tma_load_2d(Us + st * T::U_BYTES + c * T::U_CHUNK, &u_map, 64 * c, q0, full + st);
-        bulk_load(rows_s + st * TQ, rows + q0, T::ROW_BYTES, full + st);
-      }
-    }
+    wg_produce<T>(r, &v_map, k0, &u_map, qt_begin * TQ,
+                  reinterpret_cast<const unsigned char*>(rows), n_tiles);
     return;
   }
 
@@ -1478,6 +1421,7 @@ __global__ void __launch_bounds__(DV_THREADS, 1) flash_ce_bwd_dv_wgmma_kernel(
   const int cw = wg - 1, ct = threadIdx.x - 128 * wg;
   const int lane = ct & 31, gq = lane >> 2, t4 = lane & 3;
   const int dchunk = blockIdx.z * (T::DN / 64);  // first staged chunk of this block's dV
+  const float4* rows_s = reinterpret_cast<const float4*>(r.side);  // [STAGES][TQ]
   float corr[2], dcol[2] = {0.f, 0.f};
   int kid[2], kcol[2];
 #pragma unroll
@@ -1497,39 +1441,39 @@ __global__ void __launch_bounds__(DV_THREADS, 1) flash_ce_bwd_dv_wgmma_kernel(
   // S^T of the tile in stage st into s
   auto start_s = [&](int st) {
     wgmma_fence();
-    const unsigned char* vb = Vs + cw * 64 * 128;
-    const unsigned char* ub = Us + st * T::U_BYTES;
+    const unsigned char* vb = r.own + cw * 64 * 128;
+    const unsigned char* ub = r.tiles + st * T::TILE_BYTES;
 #pragma unroll
     for (int kk = 0; kk < T::W / 16; ++kk) {
       const int c = kk / 4, off = (kk % 4) * 32;
-      wgmma_ss<TQ>(s, sw128_desc(vb + c * T::V_CHUNK + off, 16, 1024),
-                   sw128_desc(ub + c * T::U_CHUNK + off, 16, 1024), kk > 0);
+      wgmma_ss<TQ>(s, sw128_desc(vb + c * T::OWN_CHUNK + off, 16, 1024),
+                   sw128_desc(ub + c * T::TILE_CHUNK + off, 16, 1024), kk > 0);
     }
     wgmma_commit();
   };
   // dV += P^T U of the tile in stage st
   auto start_dv = [&](uint32_t(&pa)[KT][4], int st) {
     wgmma_fence();
-    const unsigned char* ub = Us + st * T::U_BYTES + dchunk * T::U_CHUNK;
+    const unsigned char* ub = r.tiles + st * T::TILE_BYTES + dchunk * T::TILE_CHUNK;
 #pragma unroll
     for (int kk = 0; kk < KT; ++kk)
-      wgmma_rs<T::DN>(dv, pa[kk], sw128_desc(ub + kk * 16 * 128, T::U_CHUNK, 1024));
+      wgmma_rs<T::DN>(dv, pa[kk], sw128_desc(ub + kk * 16 * 128, T::TILE_CHUNK, 1024));
     wgmma_commit();
   };
   // P^T of the tile in stage st from s: A fragments into pa, p*g into dcol
-  auto probs = [&](int st, uint32_t(&pa)[KT][4]) {
+  auto probs = [&](int st, int, uint32_t(&pa)[KT][4]) {
     const float4* rb = rows_s + st * TQ;
 #pragma unroll
     for (int j = 0; j < TQ / 8; ++j) {
       float pf[2][2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float4 r = rb[8 * j + 2 * t4 + e];  // lse, g, id, positive
-        const int idq = __float_as_int(r.z), pq = __float_as_int(r.w);
+        const float4 q = rb[8 * j + 2 * t4 + e];  // lse, g, id, positive
+        const int idq = __float_as_int(q.z), pq = __float_as_int(q.w);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const float x = masked_logit(s[4 * j + 2 * h + e], corr[h], idq, kid[h], kcol[h], pq);
-          const float pg = expf(x - r.x) * r.y;
+          const float pg = expf(x - q.x) * q.y;
           dcol[h] += pg;
           pf[h][e] = pg;
         }
@@ -1538,67 +1482,11 @@ __global__ void __launch_bounds__(DV_THREADS, 1) flash_ce_bwd_dv_wgmma_kernel(
       for (int h = 0; h < 2; ++h) pa[j >> 1][(j & 1) * 2 + h] = pack_bf16(pf[h][0], pf[h][1]);
     }
   };
-  auto release = [&](int st) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + st);
-  };
-  // the consumers' turns at starting products: WG 0, WG 1, WG 0, ...
-  auto turn = [&] { named_sync(1 + cw, DV_MMA_THREADS); };
-  auto pass = [&](bool last) {  // WG 1's last pass would have no turn to open
-    if (!(last && cw == 1)) named_arrive(2 - cw, DV_MMA_THREADS);
-  };
-  // tile `it` >= 1: its S^T with the dV of tile it - 1 (P^T in prev)
-  auto step = [&](int it, uint32_t(&prev)[KT][4], uint32_t(&next)[KT][4]) {
-    const int st = it % T::STAGES, before = (it - 1) % T::STAGES;
-    mbar_wait(full + st, (it / T::STAGES) & 1);
-    turn();
-    start_s(st);
-    start_dv(prev, before);
-    pass(false);
-    wgmma_wait<1>();
-    keep(s);
-    probs(st, next);
-    wgmma_wait<0>();
-    keep(dv);
-    keep(prev);
-    release(before);
-  };
-
-  if (n_tiles > 0) {
-    if (cw == 1) named_arrive(1, DV_MMA_THREADS);  // WG 0 goes first
-    mbar_wait(v_full, 0);
-    mbar_wait(full, 0);
-    turn();
-    start_s(0);
-    pass(false);
-    wgmma_wait<0>();
-    keep(s);
-    probs(0, pa0);
-    int it = 1;
-    for (; it + 1 < n_tiles; it += 2) {
-      step(it, pa0, pa1);
-      step(it + 1, pa1, pa0);
-    }
-    const int last = (n_tiles - 1) % T::STAGES;
-    if (it < n_tiles) {  // one tile more: its S^T, then the last two dVs
-      mbar_wait(full + last, (it / T::STAGES) & 1);
-      turn();
-      start_s(last);
-      start_dv(pa0, (it - 1) % T::STAGES);
-      wgmma_wait<1>();
-      keep(s);
-      probs(last, pa1);
-      start_dv(pa1, last);
-    } else {
-      turn();
-      start_dv(pa0, last);
-    }
-    pass(true);
-    wgmma_wait<0>();
-    keep(dv);
-    keep(pa0);
-    keep(pa1);
-  }
+  wg_consume<T, KT>(r, n_tiles, pa0, pa1, start_s, start_dv, probs, [&] { keep(s); },
+                    [&](uint32_t(&pa)[KT][4]) {
+                      keep(dv);
+                      keep(pa);
+                    });
 
   // dcol: the four lanes of a quad hold the same two candidates
 #pragma unroll
@@ -1636,11 +1524,182 @@ __global__ void flash_ce_dv_rows_kernel(const float* __restrict__ lse,
                    : make_float4(CUDART_INF_F, 0.f, 0.f, __int_as_float(-1));
 }
 
+// Row 6 of bf16 operands (_bwd_du_kernel): row 7's pipeline with the axes
+// swapped, FlashAttention-3's forward without its online rescale (lse is
+// known).
+//   Bound: 4 Bq Bk D products (S = U V^T and P V), 17.79 ms at 131,072 x
+// 262,144, D = 128 on the tensor cores at 989 TFLOP/s (0.0347 ms at
+// 8,192^2), beside Bq Bk exps. On mma.sync (64-row blocks of four warps,
+// 64-candidate tiles staged by the threads' own cp.async, the exps between
+// the products) it took 100.3-100.6 of the giant step's 215 device ms, at
+// 17.7% of that bound. Here wgmma runs both products, TMA the copies, and
+// the exps of one tile run under the products of the next and under the
+// other consumer's: 34.4-35.2 device ms at 131,072 x 262,144 (499-512
+// TFLOP/s, 50-52% of the bound; 33.5 a step inside the giant step), 0.073
+// at 8,192^2 (NVIDIA H100 80GB HBM3, 700 W). Like row 7 it is now bound by
+// the exps and masks beside the products.
+//   Grid (query blocks, parts, W / DN): block (x, y, z) owns the WG_OWN
+// query rows of block x, sweeps candidate tiles [y * tiles_per_part, (y +
+// 1) * tiles_per_part) and writes output columns [z * DN, (z + 1) * DN) of
+// their dU into du_part[y] ([parts, Bq, D]); the wrapper sums the parts in
+// a fixed order, or passes dU itself when there is one part.
+//   Warpgroup 0 is the producer (wg_produce): the query tile U once, the
+// candidate tiles through the ring with their columns' (colcorr, id) from
+// `cols` (flash_ce_du_cols_kernel: colcorr -inf past Bk, where V's rows are
+// zero, so p*g is 0 there). Warpgroups 1 and 2 own 64 query rows each,
+// whose lse, g, id and positive each thread reads once; per candidate tile
+// j of WG_TILE columns (wg_consume):
+//   S = U_w V_j^T [64 x WG_TILE] on wgmma, both operands K-major in shared
+//   memory, fp32 sums;
+//   P = bf16(exp(S - lse) g) in registers from masked_logit, packed
+//   straight into the A fragments of the next product;
+//   dU_w += P V_j [64 x DN] on wgmma, A from registers, V_j read MN-major
+//   from the same shared memory.
+// setmaxnreg gives the consumers the producer's registers. dU stays in fp32
+// registers over the sweep and is written once. No atomics: two calls give
+// the same bits.
+template <int DP>
+__global__ void __launch_bounds__(WG_THREADS, 1) flash_ce_bwd_du_wgmma_kernel(
+    const __grid_constant__ CUtensorMap u_map, const __grid_constant__ CUtensorMap v_map,
+    const float* __restrict__ lse, const float* __restrict__ g, const int* __restrict__ ids_q,
+    const int* __restrict__ pos, const float2* __restrict__ cols, int bq, int bk, int d,
+    int tiles_per_part, float* __restrict__ du_part) {
+  using T = WgTc<DP, sizeof(float2)>;
+  constexpr int TK = WG_TILE;
+  constexpr int KT = TK / 16;  // k-steps of the dU product
+  extern __shared__ unsigned char smem_raw[];
+  const WgRing r = wg_setup<T>(smem_raw);
+  const int q0 = blockIdx.x * WG_OWN;
+  const int n_kt = (bk + TK - 1) / TK;
+  const int kt_begin = blockIdx.y * tiles_per_part;
+  const int n_tiles = max(0, min(n_kt, kt_begin + tiles_per_part) - kt_begin);
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {  // ---- the producer
+    setmaxnreg_dec<24>();
+    wg_produce<T>(r, &u_map, q0, &v_map, kt_begin * TK,
+                  reinterpret_cast<const unsigned char*>(cols), n_tiles);
+    return;
+  }
+
+  // ---- the consumers
+  setmaxnreg_inc<240>();
+  const int cw = wg - 1, ct = threadIdx.x - 128 * wg;
+  const int lane = ct & 31, gq = lane >> 2, t4 = lane & 3;
+  const int dchunk = blockIdx.z * (T::DN / 64);  // first staged chunk of this block's dU
+  float lse_r[2], g_r[2];
+  int idq_r[2], pos_r[2], row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // rows past bq: p*g = 0 (and never written)
+    const int q = q0 + 64 * cw + 16 * (ct >> 5) + gq + 8 * h;
+    const bool ok = q < bq;
+    row[h] = q;
+    lse_r[h] = ok ? lse[q] : CUDART_INF_F;
+    g_r[h] = ok ? g[q] : 0.f;
+    idq_r[h] = ok ? ids_q[q] : 0;
+    pos_r[h] = ok ? pos[q] : -1;
+  }
+  float s[TK / 2], du[T::DN / 2];
+#pragma unroll
+  for (int i = 0; i < TK / 2; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < T::DN / 2; ++i) du[i] = 0.f;
+  uint32_t pa0[KT][4], pa1[KT][4];  // P of two tiles: one being built, one being read
+
+  // S of the tile in stage st into s
+  auto start_s = [&](int st) {
+    wgmma_fence();
+    const unsigned char* ub = r.own + cw * 64 * 128;
+    const unsigned char* vb = r.tiles + st * T::TILE_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < T::W / 16; ++kk) {
+      const int c = kk / 4, off = (kk % 4) * 32;
+      wgmma_ss<TK>(s, sw128_desc(ub + c * T::OWN_CHUNK + off, 16, 1024),
+                   sw128_desc(vb + c * T::TILE_CHUNK + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // dU += P V of the tile in stage st
+  auto start_du = [&](uint32_t(&pa)[KT][4], int st) {
+    wgmma_fence();
+    const unsigned char* vb = r.tiles + st * T::TILE_BYTES + dchunk * T::TILE_CHUNK;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+      wgmma_rs<T::DN>(du, pa[kk], sw128_desc(vb + kk * 16 * 128, T::TILE_CHUNK, 1024));
+    wgmma_commit();
+  };
+  // P of tile `it` (in stage st) from s: A fragments into pa
+  auto probs = [&](int st, int it, uint32_t(&pa)[KT][4]) {
+    // the lane's columns 8j + 2 t4 + e, e = 0, 1: (colcorr, id) each, one float4
+    const float4* cb = reinterpret_cast<const float4*>(r.side + st * T::SIDE_BYTES) + t4;
+    const int c0 = (kt_begin + it) * TK + 2 * t4;         // the lane's first column
+    const int rel[2] = {pos_r[0] - c0, pos_r[1] - c0};  // the positives, counted from c0
+#pragma unroll
+    for (int j = 0; j < TK / 8; ++j) {
+      const float4 cc = cb[4 * j];
+      float pf[2][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float corr = e ? cc.z : cc.x;
+        const int kid = __float_as_int(e ? cc.w : cc.y);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float x =
+              masked_logit(s[4 * j + 2 * h + e], corr, idq_r[h], kid, 8 * j + e, rel[h]);
+          pf[h][e] = expf(x - lse_r[h]) * g_r[h];
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) pa[j >> 1][(j & 1) * 2 + h] = pack_bf16(pf[h][0], pf[h][1]);
+    }
+  };
+  wg_consume<T, KT>(r, n_tiles, pa0, pa1, start_s, start_du, probs, [&] { keep(s); },
+                    [&](uint32_t(&pa)[KT][4]) {
+                      keep(du);
+                      keep(pa);
+                    });
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= bq) continue;
+    float* out = du_part + (static_cast<long long>(blockIdx.y) * bq + row[h]) * d;
+#pragma unroll
+    for (int j = 0; j < T::DN / 8; ++j) {
+      const int k = dchunk * 64 + 8 * j + 2 * t4;  // d % 8 == 0: k < d means k + 1 < d
+      if (k < d) *reinterpret_cast<float2*>(out + k) = make_float2(du[4 * j + 2 * h],
+                                                                   du[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// Row 6's per-column inputs, in the order its tiles read them: cols[c] =
+// (colcorr, ids_k) of candidate c < bk, and (-inf, 0) for the columns of the
+// last tile past bk, whose logit is then -inf (or -1e9 where the id hits)
+// and whose p*g is 0
+__global__ void flash_ce_du_cols_kernel(const float* __restrict__ colcorr,
+                                        const int* __restrict__ ids_k, int bk, int n_cols,
+                                        float2* __restrict__ cols) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= n_cols) return;
+  cols[c] = c < bk ? make_float2(colcorr[c], __int_as_float(ids_k[c]))
+                   : make_float2(-CUDART_INF_F, __int_as_float(0));
+}
+
 // ---- row 4 in bf16: the forward on the tensor cores -------------------------
 
-// Row 4 of bf16 operands on the tensor cores (mma.sync), on row 6's tiling
-// and shared-memory layout (bwd_du_tc_smem). Grid (query tiles, parts):
-// block (x, y) owns the DU_TQ query rows of tile x and sweeps candidate
+constexpr int FWD_WARPS = 4;                  // 16 query rows each
+constexpr int FWD_THREADS = 32 * FWD_WARPS;
+constexpr int FWD_TQ = 16 * FWD_WARPS;        // query rows per block
+constexpr int FWD_TK = 64;                    // candidates per tile of the sweep
+
+template <int DP>
+constexpr size_t fwd_tc_smem() {
+  return sizeof(__nv_bfloat16) * (FWD_TQ + 2 * FWD_TK) * tc_ld<DP>() +
+         2 * FWD_TK * (sizeof(float) + sizeof(int));
+}
+
+// Row 4 of bf16 operands on the tensor cores (mma.sync). Grid (query tiles, parts):
+// block (x, y) owns the FWD_TQ query rows of tile x and sweeps candidate
 // tiles [y * tiles_per_part, (y + 1) * tiles_per_part). Warp w owns query
 // rows 16w..16w+15: their A fragments of U are loaded once and kept in
 // registers; per 64-candidate tile (cp.async, double-buffered, with its
@@ -1655,7 +1714,7 @@ __global__ void flash_ce_dv_rows_kernel(const float* __restrict__ lse,
 // [3][parts][Bq], which flash_ce_fwd_combine_kernel folds in part order.
 // No atomics: two calls give the same bits.
 template <int DP>
-__global__ void __launch_bounds__(DU_THREADS) flash_ce_fwd_tc_kernel(
+__global__ void __launch_bounds__(FWD_THREADS) flash_ce_fwd_tc_kernel(
     const __nv_bfloat16* __restrict__ u, const __nv_bfloat16* __restrict__ v,
     const float* __restrict__ colcorr, const int* __restrict__ ids_q,
     const int* __restrict__ ids_k, const int* __restrict__ pos, int bq, int bk, int d,
@@ -1664,30 +1723,30 @@ __global__ void __launch_bounds__(DU_THREADS) flash_ce_fwd_tc_kernel(
   constexpr int LD = tc_ld<DP>();
   constexpr int KS = DP / 16;  // k-steps of S
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [DU_TQ][LD]
-  __nv_bfloat16* Vs = Us + DU_TQ * LD;                              // [2][DU_TK][LD]
-  float* cs = reinterpret_cast<float*>(Vs + 2 * DU_TK * LD);        // [2][DU_TK]
-  int* ks = reinterpret_cast<int*>(cs + 2 * DU_TK);                 // [2][DU_TK]
+  __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [FWD_TQ][LD]
+  __nv_bfloat16* Vs = Us + FWD_TQ * LD;                              // [2][FWD_TK][LD]
+  float* cs = reinterpret_cast<float*>(Vs + 2 * FWD_TK * LD);        // [2][FWD_TK]
+  int* ks = reinterpret_cast<int*>(cs + 2 * FWD_TK);                 // [2][FWD_TK]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, t4 = lane & 3;  // mma fragment row group and column pair
   const int lm = lane >> 3, lr = lane & 7;  // ldmatrix matrix and row of this lane
-  const int q0 = blockIdx.x * DU_TQ, rw = warp * 16;
-  const int n_kt = (bk + DU_TK - 1) / DU_TK;
+  const int q0 = blockIdx.x * FWD_TQ, rw = warp * 16;
+  const int n_kt = (bk + FWD_TK - 1) / FWD_TK;
   const int kt_begin = blockIdx.y * tiles_per_part;
   const int kt_end = min(n_kt, kt_begin + tiles_per_part);
 
   auto stage_tile = [&](int buf, int kt) {
-    const int k0 = kt * DU_TK;
-    stage_rows<DP, DU_THREADS>(Vs + buf * DU_TK * LD, LD, v, k0, bk, DU_TK, d, vec != 0);
-    if (tid < DU_TK) {
+    const int k0 = kt * FWD_TK;
+    stage_rows<DP, FWD_THREADS>(Vs + buf * FWD_TK * LD, LD, v, k0, bk, FWD_TK, d, vec != 0);
+    if (tid < FWD_TK) {
       const int c = k0 + tid;
-      cs[buf * DU_TK + tid] = c < bk ? colcorr[c] : 0.f;
-      ks[buf * DU_TK + tid] = c < bk ? ids_k[c] : 0;
+      cs[buf * FWD_TK + tid] = c < bk ? colcorr[c] : 0.f;
+      ks[buf * FWD_TK + tid] = c < bk ? ids_k[c] : 0;
     }
   };
 
-  stage_rows<DP, DU_THREADS>(Us, LD, u, q0, bq, DU_TQ, d, vec != 0);
+  stage_rows<DP, FWD_THREADS>(Us, LD, u, q0, bq, FWD_TQ, d, vec != 0);
   if (kt_begin < kt_end) stage_tile(0, kt_begin);
   cp_async_commit();
 
@@ -1706,7 +1765,7 @@ __global__ void __launch_bounds__(DU_THREADS) flash_ce_fwd_tc_kernel(
   uint32_t ua[KS][4];  // the warp's A fragments of U, for the whole sweep
 
   for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
-    const int buf = it & 1, k0 = kt * DU_TK;
+    const int buf = it & 1, k0 = kt * FWD_TK;
     cp_async_wait_all();
     __syncthreads();  // this tile has landed; everyone is done with the other buffer
     if (it == 0) {
@@ -1716,20 +1775,20 @@ __global__ void __launch_bounds__(DU_THREADS) flash_ce_fwd_tc_kernel(
     }
     if (kt + 1 < kt_end) stage_tile(buf ^ 1, kt + 1);
     cp_async_commit();
-    const __nv_bfloat16* Vb = Vs + buf * DU_TK * LD;
-    const float* cb = cs + buf * DU_TK;
-    const int* kb = ks + buf * DU_TK;
+    const __nv_bfloat16* Vb = Vs + buf * FWD_TK * LD;
+    const float* cb = cs + buf * FWD_TK;
+    const int* kb = ks + buf * FWD_TK;
 
     // S[r][c]: s[nt][2h + e] is query row rw + gq + 8h, candidate nt*8 + 2*t4 + e
-    float s[DU_TK / 8][4];
+    float s[FWD_TK / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < DU_TK / 8; ++nt)
+    for (int nt = 0; nt < FWD_TK / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
-      for (int np = 0; np < DU_TK / 16; ++np) {
+      for (int np = 0; np < FWD_TK / 16; ++np) {
         uint32_t b[4];
         ldsm_x4(b, Vb + (np * 16 + (lm >> 1) * 8 + lr) * LD + kk * 16 + (lm & 1) * 8);
         mma_bf16(s[2 * np], ua[kk], b[0], b[1]);
@@ -1741,7 +1800,7 @@ __global__ void __launch_bounds__(DU_THREADS) flash_ce_fwd_tc_kernel(
     // logit, and this lane's max over its columns of the tile
     float tmax[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int nt = 0; nt < DU_TK / 8; ++nt) {
+    for (int nt = 0; nt < FWD_TK / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int cl = nt * 8 + 2 * t4 + e, c = k0 + cl;
@@ -1764,7 +1823,7 @@ __global__ void __launch_bounds__(DU_THREADS) flash_ce_fwd_tc_kernel(
       const float m_new = fmaxf(m[h], tmax[h]);
       float sum = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < DU_TK / 8; ++nt)
+      for (int nt = 0; nt < FWD_TK / 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) sum += expf(s[nt][2 * h + e] - m_new);
       l[h] = l[h] * expf(m[h] - m_new) + sum;
@@ -1912,14 +1971,14 @@ extern "C" int flash_ce_fwd(const void* u, const void* v, const float* colcorr,
   const int err = by_width(d, [&](auto w) {
     constexpr int DP = decltype(w)::value;
     using T = Fp32Fwd<DP>;
-    if (static_cast<long long>(parts) * tiles_per_part * (bf16 ? DU_TK : T::KT) < bk)
+    if (static_cast<long long>(parts) * tiles_per_part * (bf16 ? FWD_TK : T::KT) < bk)
       return static_cast<int>(cudaErrorInvalidValue);
     if (!bf16)
       return launch(flash_ce_fwd_kernel<DP>, dim3((bq + T::TQF - 1) / T::TQF, parts), THREADS,
                     T::smem(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, bq, bk, d, vec,
                     tiles_per_part, lse, pos_out, part);
-    return launch(flash_ce_fwd_tc_kernel<DP>, dim3((bq + DU_TQ - 1) / DU_TQ, parts),
-                  DU_THREADS, bwd_du_tc_smem<DP>(), s, bf(u), bf(v), colcorr, ids_q, ids_k,
+    return launch(flash_ce_fwd_tc_kernel<DP>, dim3((bq + FWD_TQ - 1) / FWD_TQ, parts),
+                  FWD_THREADS, fwd_tc_smem<DP>(), s, bf(u), bf(v), colcorr, ids_q, ids_k,
                   pos, bq, bk, d, vec, tiles_per_part, lse, pos_out, part);
   });
   if (err != 0 || parts == 1) return err;
@@ -1970,34 +2029,50 @@ extern "C" int flash_ce_bwd(const void* u, const void* v, const float* colcorr,
 
 // As flash_ce_bwd, with row 6's plan; out du_part [parts, bq, d] fp32, the
 // wrapper summing it over its first axis (dU itself when parts == 1). The
-// candidate tiles of 64 split into parts of tiles_per_part; bf16 operands
-// take the tensor-core kernel, fp32 operands the FMA kernel (vec as in
-// flash_ce_fwd). Returns the cudaError_t of the launch.
+// candidate tiles split into parts of tiles_per_part. fp32 operands take
+// the FMA kernel (query blocks of 128, 64 where d > 128; candidate tiles of
+// 64; vec as in flash_ce_fwd). bf16 operands take the wgmma kernel (query
+// blocks of 128, candidate tiles of 128), fed by TMA: it needs vec (d % 8
+// == 0, u and v on 16 bytes) and scratch `cols` of ceil(bk / 128) * 128
+// float2 on 16 bytes, which flash_ce_du_cols_kernel, launched here first,
+// fills. Returns the cudaError_t of the launches.
 extern "C" int flash_ce_bwd_du(const void* u, const void* v, const float* colcorr,
                                const int* ids_q, const int* ids_k, const int* pos,
                                const float* lse, const float* g, int bq, int bk, int d,
                                int bf16, int parts, int tiles_per_part, int vec,
-                               float* du_part, void* stream) {
+                               float* du_part, void* cols, void* stream) {
   if (bq <= 0) return 0;
+  const int tk = bf16 ? WG_TILE : Fp32Du<32>::KT;
   if (bk <= 0 || d <= 0 || parts <= 0 || tiles_per_part <= 0 ||
-      static_cast<long long>(parts) * tiles_per_part * DU_TK < bk)
+      static_cast<long long>(parts) * tiles_per_part * tk < bk)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!bf16)
     return by_width(d, [&](auto w) {
       constexpr int DP = decltype(w)::value;
       using T = Fp32Du<DP>;
-      static_assert(T::KT == DU_TK, "row 6's candidate tiles");
       return launch(flash_ce_bwd_du_kernel<DP>, dim3((bq + T::TQF - 1) / T::TQF, parts), THREADS,
                     T::smem(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d,
                     vec, tiles_per_part, du_part);
     });
+  if (!vec || cols == nullptr || reinterpret_cast<uintptr_t>(cols) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_cols = (bk + WG_TILE - 1) / WG_TILE * WG_TILE;
+  float2* cols2 = static_cast<float2*>(cols);
+  flash_ce_du_cols_kernel<<<(n_cols + 255) / 256, 256, 0, s>>>(colcorr, ids_k, bk, n_cols,
+                                                                cols2);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  CUtensorMap u_map, v_map;
+  if (!rows_map(&u_map, u, bq, d, WG_OWN) || !rows_map(&v_map, v, bk, d, WG_TILE))
+    return static_cast<int>(cudaErrorNotSupported);
   return by_width(d, [&](auto w) {
     constexpr int DP = decltype(w)::value;
-    constexpr int DN = DP < 128 ? DP : 128;
-    return launch(flash_ce_bwd_du_tc_kernel<DP>, dim3((bq + DU_TQ - 1) / DU_TQ, parts, DP / DN),
-                  DU_THREADS, bwd_du_tc_smem<DP>(), s, bf(u), bf(v), colcorr, ids_q, ids_k,
-                  pos, lse, g, bq, bk, d, vec, tiles_per_part, du_part);
+    using T = WgTc<DP, sizeof(float2)>;
+    return launch(flash_ce_bwd_du_wgmma_kernel<DP>,
+                  dim3((bq + WG_OWN - 1) / WG_OWN, parts, T::W / T::DN), WG_THREADS, T::smem(),
+                  s, u_map, v_map, lse, g, ids_q, pos, static_cast<const float2*>(cols2), bq, bk,
+                  d, tiles_per_part, du_part);
   });
 }
 
@@ -2017,7 +2092,7 @@ extern "C" int flash_ce_bwd_dv(const void* u, const void* v, const float* colcor
                                int bf16, int parts, int q_tiles_per_part, int vec,
                                float* dv_part, float* dcol_part, void* rows, void* stream) {
   if (bk <= 0) return 0;
-  const int tq = bf16 ? DV_TQ : Fp32Dv<32>::TQF;
+  const int tq = bf16 ? WG_TILE : Fp32Dv<32>::TQF;
   if (bq <= 0 || d <= 0 || parts <= 0 || q_tiles_per_part <= 0 ||
       static_cast<long long>(parts) * q_tiles_per_part * tq < bq)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2032,20 +2107,20 @@ extern "C" int flash_ce_bwd_dv(const void* u, const void* v, const float* colcor
     });
   if (!vec || rows == nullptr || reinterpret_cast<uintptr_t>(rows) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n_rows = (bq + DV_TQ - 1) / DV_TQ * DV_TQ;
+  const int n_rows = (bq + WG_TILE - 1) / WG_TILE * WG_TILE;
   float4* rows4 = static_cast<float4*>(rows);
   flash_ce_dv_rows_kernel<<<(n_rows + 255) / 256, 256, 0, s>>>(lse, g, ids_q, pos, bq, n_rows,
                                                                 rows4);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   CUtensorMap u_map, v_map;
-  if (!rows_map(&u_map, u, bq, d, DV_TQ) || !rows_map(&v_map, v, bk, d, DV_KB))
+  if (!rows_map(&u_map, u, bq, d, WG_TILE) || !rows_map(&v_map, v, bk, d, WG_OWN))
     return static_cast<int>(cudaErrorNotSupported);
   return by_width(d, [&](auto w) {
     constexpr int DP = decltype(w)::value;
-    using T = DvTc<DP>;
+    using T = WgTc<DP, sizeof(float4)>;
     return launch(flash_ce_bwd_dv_wgmma_kernel<DP>,
-                  dim3((bk + DV_KB - 1) / DV_KB, parts, T::W / T::DN), DV_THREADS, T::smem(), s,
+                  dim3((bk + WG_OWN - 1) / WG_OWN, parts, T::W / T::DN), WG_THREADS, T::smem(), s,
                   u_map, v_map, colcorr, ids_k, static_cast<const float4*>(rows4), bq, bk, d,
                   q_tiles_per_part, dv_part, dcol_part);
   });

@@ -40,30 +40,32 @@ NEG_BIG = -1e9
 # tile sizes of csrc/flash_ce.cu (TQ: the query tile that the fused
 # backward's plan counts; the fused backward takes candidate tiles of TKC,
 # or of TK for fp32 operands at D > 128, and so does row 7 of fp32
-# operands, with query tiles of F32_DV_TQ; rows 4 and 6 of bf16 operands
-# query tiles of DU_TQ and candidate tiles of DU_TK; row 7 of bf16 operands
-# blocks of DV_TK candidates and query tiles of DV_TQ; rows 4 and 6 of fp32
-# operands query blocks of F32_TQ rows (64 at D > 128) and candidate tiles
-# of F32_FWD_TK (row 4; 64 at D > 128) and DU_TK (row 6))
+# operands, with query tiles of F32_DV_TQ; row 4 of bf16 operands query
+# tiles of FWD_TQ and candidate tiles of FWD_TK; rows 6 and 7 of bf16
+# operands blocks of WG_OWN rows of their own axis (query rows for row 6,
+# candidates for row 7) sweeping tiles of WG_TILE rows of the other; rows 4
+# and 6 of fp32 operands query blocks of F32_TQ rows (64 at D > 128) and
+# candidate tiles of F32_FWD_TK (row 4; 64 at D > 128) and F32_DU_TK (row 6))
 TQ = 64
 TK = 64
 TKC = 128
-DU_TQ = 64
-DU_TK = 64
-DV_TK = 128
-DV_TQ = 128
+FWD_TQ = 64
+FWD_TK = 64
+WG_OWN = 128
+WG_TILE = 128
 F32_DV_TQ = 64
 F32_TQ = 128
 F32_FWD_TK = 128
+F32_DU_TK = 64
 MAX_DIM = 256
-# the bf16 forward and row 6 split their sweep into parts until the grid
-# holds about this many blocks per SM (a few resident at a time, and
-# enough waves that the last is not mostly idle)
+# the bf16 forward splits its sweep into parts until the grid holds about
+# this many blocks per SM (a few resident at a time, and enough waves that
+# the last is not mostly idle)
 _SWEEP_BLOCKS_PER_SM = 8
-# Row 7 of bf16 operands holds one block per SM: a grid of its candidate
-# blocks that fills this many waves keeps its query sweep whole, and a
-# block's own set-up and write-out (its candidate tile's load, the ring's
-# first tiles, dV's store) count as this many of its query tiles
+# Rows 6 and 7 of bf16 operands hold one block per SM: a grid of their
+# blocks that fills this many waves keeps the sweep whole, and a block's
+# own set-up and write-out (its own tile's load, the ring's first tiles,
+# the output's store) count as this many of its swept tiles
 _FULL_WAVES = 4
 _BLOCK_TILES = 2
 # The TPU package's fused backward keeps one dU partial per candidate
@@ -159,7 +161,7 @@ def _split_waves(n_tiles: int, blocks: int, max_parts: int, n_sm: int) -> Tuple[
 def _split_resident(n_tiles: int, blocks: int, max_parts: int, n_sm: int
                     ) -> Tuple[int, int]:
     """The swept axis's ``n_tiles`` tiles split into parts for a kernel that
-    holds one block per SM (row 7 of bf16 operands): one part where the
+    holds one block per SM (rows 6 and 7 of bf16 operands): one part where the
     ``blocks`` blocks alone fill ``_FULL_WAVES`` waves of ``n_sm``; else, of
     the splits up to 8 blocks per SM (as many as the tiles and
     ``max_parts`` allow), the one whose last wave ends first, counted as
@@ -208,8 +210,8 @@ def fwd_plan(bq: int, bk: int, bf16: bool, n_sm: int, d: Optional[int] = None) -
         ktile = F32_FWD_TK if d <= 128 else 64
         return FwdPlan(tile, ktile, *_split_waves(-(-bk // ktile), -(-bq // tile), max_parts,
                                                   n_sm))
-    return FwdPlan(DU_TQ, DU_TK, *_split_sweep(-(-bk // DU_TK), -(-bq // DU_TQ), max_parts,
-                                               n_sm))
+    return FwdPlan(FWD_TQ, FWD_TK, *_split_sweep(-(-bk // FWD_TK), -(-bq // FWD_TQ), max_parts,
+                                                 n_sm))
 
 
 def flash_ce_fwd_partials_reference(u, v, colcorr, ids_q, ids_k, pos, p: FwdPlan
@@ -337,7 +339,7 @@ def _bwd_launcher():
 def _bwd_du_launcher():
     fn = _build.load_library().flash_ce_bwd_du
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return fn
 
@@ -420,11 +422,14 @@ def bwd_route(bq: int, bk: int, d: int, bf16: bool = False) -> str:
     / fused, each the slower of two runs in turns (the spread below 3%).
     bf16 operands take the two-kernel route at every shape: on the tensor
     cores it won everywhere, with a fraction of the fused kernel's memory;
-    with row 7 on wgmma (the bf16 table re-measured) by 1.8x to 4.7x.
-    Under the TPU's cap: 4,096 x 20,480 0.453 / 1.102, 8,192^2 0.344 /
-    0.626, 16,384^2 1.219 / 2.332, 32,768^2 4.117 / 8.817, 131,072 x
-    147,456 (at the cap) 76.79 / 266.2; above it: 20,000^2 1.801 / 4.889,
-    65,536 x 327,680 86.71 / 410.5, 131,072 x 262,144 137.1 / 401.8.
+    with rows 6 and 7 on wgmma (the bf16 table re-measured) by 2.0x to
+    9.0x. Under the TPU's cap: 4,096 x 20,480 0.274 / 1.063, 8,192^2 0.307
+    / 0.616, 16,384^2 0.560 / 2.254, 32,768^2 2.131 / 8.622, 131,072 x
+    147,456 (at the cap) 41.21 / 270.7; above it: 20,000^2 0.913 / 4.966,
+    65,536 x 327,680 45.53 / 408.8, 131,072 x 262,144 71.59 / 400.7. At
+    the two smallest shapes the two-kernel call's host work outlasts its
+    device work (0.244 / 1.033 and 0.170 / 0.595 device ms), so CUDA
+    events read the host's pace there.
     fp32 operands take the fused route at every shape: on the FMA units it
     won everywhere by 23-38%, also where the TPU takes its two kernels
     (its peak memory 0.3-5.0 GB against 0.04-0.2). Under the TPU's cap:
@@ -583,6 +588,20 @@ def _vec(u, v) -> int:
                and u.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
 
 
+def _tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [n, D] bf16 as the TMA of rows 6 and 7 reads it: itself where D
+    is a multiple of 8 and it starts on 16 bytes, else a copy with zero
+    columns up to the next multiple of 8, which add nothing to any
+    product."""
+    n, d = t.shape
+    d8 = -(-d // 8) * 8
+    if d8 == d and t.data_ptr() % 16 == 0:
+        return t
+    out = torch.zeros((n, d8), dtype=t.dtype, device=t.device)
+    out[:, :d] = t
+    return out
+
+
 @kernel_nan_check("kernel row 5 flash_ce_bwd_fused (its fused backward)")
 def flash_ce_bwd_fused(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
                        ids_q: torch.Tensor, ids_k: torch.Tensor, pos: torch.Tensor,
@@ -637,22 +656,38 @@ class DuPlan(NamedTuple):
 
 
 def du_plan(bq: int, bk: int, d: int, bf16: bool, n_sm: int) -> DuPlan:
-    """Row 6's tiling on a card of ``n_sm`` SMs: 64-candidate tiles, the
-    candidate sweep split into parts, no more than keep the dU partials
-    under ``_FUSED_BWD_PARTIALS_CAP``; no part is empty. bf16 operands (the
-    tensor-core kernel): 64-row query tiles (two column slices past D =
-    128), as many parts as bring the grid to about ``_SWEEP_BLOCKS_PER_SM``
-    blocks per SM (8,192 rows give only 128 query tiles). fp32 operands
-    (the FMA kernel, one block per SM): 128-row blocks (64 at D > 128), the
-    sweep split by :func:`_split_waves` (8 parts at 8,192^2, 5 at
+    """Row 6's tiling on a card of ``n_sm`` SMs: the candidate sweep split
+    into parts, no more than the candidate tiles and no more than keep the
+    dU partials under ``_FUSED_BWD_PARTIALS_CAP``; no part is empty. bf16
+    operands (the wgmma kernel, one block per SM): blocks of 128 query rows
+    (two column slices past D = 128) and 128-candidate tiles, the sweep
+    split by :func:`_split_resident` (2 parts at 8,192^2, 5 at 20,000^2,
+    one at 131,072 x 262,144: 1,024 blocks, 7.76 waves, 34.9 kernel ms on
+    an H100 against 38.0 in two parts). fp32 operands (the FMA kernel, one
+    block per SM): 128-row blocks (64 at D > 128) and 64-candidate tiles,
+    the sweep split by :func:`_split_waves` (8 parts at 8,192^2, 5 at
     20,000^2, one at 131,072 x 262,144)."""
     max_parts = _FUSED_BWD_PARTIALS_CAP // (4 * bq * d)
-    n_kt = -(-bk // DU_TK)
     if not bf16:
         tile = F32_TQ if d <= 128 else 64
-        return DuPlan(tile, DU_TK, *_split_waves(n_kt, -(-bq // tile), max_parts, n_sm))
-    blocks = -(-bq // DU_TQ) * (2 if d > 128 else 1)
-    return DuPlan(DU_TQ, DU_TK, *_split_sweep(n_kt, blocks, max_parts, n_sm))
+        return DuPlan(tile, F32_DU_TK, *_split_waves(-(-bk // F32_DU_TK), -(-bq // tile),
+                                                      max_parts, n_sm))
+    blocks = -(-bq // WG_OWN) * (2 if d > 128 else 1)
+    return DuPlan(WG_OWN, WG_TILE, *_split_resident(-(-bk // WG_TILE), blocks, max_parts, n_sm))
+
+
+def du_cols_reference(colcorr: torch.Tensor, ids_k: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """Plain version of row 6's column inputs (``flash_ce_du_cols_kernel``)
+    over ``n_cols`` >= Bk columns, the candidate tiles' padded length: ->
+    [n_cols, 2] fp32, (colcorr, the bits of ids_k) per candidate and (-inf,
+    0) past Bk, where the kernel's V rows are zero; a logit there is -inf
+    (or -1e9 where the id hits), so its p*g is 0."""
+    bk = colcorr.shape[0]
+    cols = torch.zeros((n_cols, 2), dtype=torch.float32, device=colcorr.device)
+    cols[:bk, 0] = colcorr
+    cols[bk:, 0] = float("-inf")
+    cols[:bk, 1] = ids_k.to(torch.int32).view(torch.float32)
+    return cols
 
 
 def flash_ce_bwd_du_partials_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g, p: DuPlan
@@ -661,9 +696,16 @@ def flash_ce_bwd_du_partials_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g,
     the whole [Bq, Bk] logits at once (small shapes): -> dU partials
     [parts, Bq, D] fp32, one per part of the candidate axis (``p*g``
     rounded to the operand type, as the kernel); their sum over the first
-    axis is dU."""
-    pg32 = torch.exp(_masked_logits(u, v, colcorr, ids_q, ids_k, pos) - lse[:, None]) * g[:, None]
-    return _du_parts(pg32.to(u.dtype).float(), v.float(), p.ktile * p.tiles_per_part, p.parts)
+    axis is dU. The candidates run to the plan's whole tiles, as the kernel
+    reads them: zero rows of V past Bk, their columns from
+    :func:`du_cols_reference`."""
+    n = p.ktile * p.tiles_per_part * p.parts
+    cols = du_cols_reference(colcorr, ids_k, n)
+    vp = torch.zeros((n, v.shape[1]), dtype=v.dtype, device=v.device)
+    vp[:v.shape[0]] = v
+    s = _masked_logits(u, vp, cols[:, 0], ids_q, cols[:, 1].view(torch.int32), pos)
+    pg32 = torch.exp(s - lse[:, None]) * g[:, None]
+    return _du_parts(pg32.to(u.dtype).float(), vp.float(), p.ktile * p.tiles_per_part, p.parts)
 
 
 @kernel_nan_check("kernel row 6 flash_ce_bwd_du (its backward's dU)")
@@ -671,9 +713,14 @@ def flash_ce_bwd_du(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
                     ids_q: torch.Tensor, ids_k: torch.Tensor, pos: torch.Tensor,
                     lse: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Row 6 (``_bwd_du_kernel``): -> dU [Bq, D] fp32, query-major: the
-    block that owns a query tile sweeps the candidate tiles of its part
-    (:func:`du_plan`; bf16 operands on the tensor cores, fp32 on the FMA
-    units), the parts summed here in a fixed order.
+    block that owns a query block sweeps the candidate tiles of its part
+    (:func:`du_plan`; bf16 operands on wgmma fed by TMA, fp32 on the FMA
+    units), the parts summed here in a fixed order. bf16 rows whose D is
+    not a multiple of 8, or that do not start on 16 bytes, go to the kernel
+    as padded copies (:func:`_tma_rows`). At D = 128 on an NVIDIA H100
+    80GB HBM3 (700 W) the bf16 kernel takes 0.073 ms at 8,192^2 and
+    34.4-35.2 ms at 131,072 x 262,144 (its mma.sync design, which it
+    replaced: 0.212-0.214 and 97.8-98.1).
 
     CPU tensors take :func:`flash_ce_bwd_du_reference`; CUDA tensors launch
     the kernel or raise."""
@@ -681,17 +728,26 @@ def flash_ce_bwd_du(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
     if not _on_cuda(u, "flash_ce_bwd_du"):
         return flash_ce_bwd_du_reference(*args)
     bq, d = u.shape
+    bk = v.shape[0]
     bf16 = u.dtype == torch.bfloat16
-    p = du_plan(bq, v.shape[0], d, bf16, _sm_count(u.device.index))
-    du_part = torch.empty((p.parts, bq, d), dtype=torch.float32, device=u.device)
+    cols = None
+    if bf16:
+        args = (_tma_rows(args[0]), _tma_rows(args[1]), *args[2:])
+        cols = torch.empty((-(-bk // WG_TILE) * WG_TILE, 2), dtype=torch.float32, device=u.device)
+    u, v = args[:2]
+    dk = u.shape[1]
+    p = du_plan(bq, bk, dk, bf16, _sm_count(u.device.index))
+    du_part = torch.empty((p.parts, bq, dk), dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_du_launcher()(*_ptrs(args), bq, v.shape[0], d, int(bf16), p.parts,
-                                 p.tiles_per_part, _vec(u, v), du_part.data_ptr(), stream)
+        err = _bwd_du_launcher()(*_ptrs(args), bq, bk, dk, int(bf16), p.parts,
+                                 p.tiles_per_part, _vec(u, v), du_part.data_ptr(),
+                                 None if cols is None else cols.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_ce_bwd_du kernel launch failed: cudaError {err}")
     flash_ce_bwd_du.launches += 1
-    return du_part[0] if p.parts == 1 else torch.sum(du_part, dim=0)
+    du = du_part[0] if p.parts == 1 else torch.sum(du_part, dim=0)
+    return du if dk == d else du[:, :d].contiguous()
 
 
 flash_ce_bwd_du.launches = 0
@@ -728,8 +784,8 @@ def dv_plan(bq: int, bk: int, d: int, bf16: bool, n_sm: int) -> DvPlan:
         tile = TK if d > 128 else TKC
         return DvPlan(tile, F32_DV_TQ, *_split_waves(-(-bq // F32_DV_TQ), -(-bk // tile),
                                                      max_parts, n_sm))
-    blocks = -(-bk // DV_TK) * (2 if d > 128 else 1)
-    return DvPlan(DV_TK, DV_TQ, *_split_resident(-(-bq // DV_TQ), blocks, max_parts, n_sm))
+    blocks = -(-bk // WG_OWN) * (2 if d > 128 else 1)
+    return DvPlan(WG_OWN, WG_TILE, *_split_resident(-(-bq // WG_TILE), blocks, max_parts, n_sm))
 
 
 def flash_ce_bwd_dv_partials_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g, p: DvPlan
@@ -741,19 +797,6 @@ def flash_ce_bwd_dv_partials_reference(u, v, colcorr, ids_q, ids_k, pos, lse, g,
     pg32 = torch.exp(_masked_logits(u, v, colcorr, ids_q, ids_k, pos) - lse[:, None]) * g[:, None]
     return _dv_parts(pg32, pg32.to(u.dtype).float(), u.float(), p.qtile * p.q_tiles_per_part,
                      p.parts)
-
-
-def _tma_rows(t: torch.Tensor) -> torch.Tensor:
-    """``t`` [n, D] bf16 as row 7's TMA reads it: itself where D is a
-    multiple of 8 and it starts on 16 bytes, else a copy with zero columns
-    up to the next multiple of 8, which add nothing to any product."""
-    n, d = t.shape
-    d8 = -(-d // 8) * 8
-    if d8 == d and t.data_ptr() % 16 == 0:
-        return t
-    out = torch.zeros((n, d8), dtype=t.dtype, device=t.device)
-    out[:, :d] = t
-    return out
 
 
 @kernel_nan_check("kernel row 7 flash_ce_bwd_dv (its backward's dV and dcol)")
@@ -778,7 +821,7 @@ def flash_ce_bwd_dv(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
     rows = None
     if bf16:
         args = (_tma_rows(args[0]), _tma_rows(args[1]), *args[2:])
-        rows = torch.empty((-(-bq // DV_TQ) * DV_TQ, 4), dtype=torch.float32, device=u.device)
+        rows = torch.empty((-(-bq // WG_TILE) * WG_TILE, 4), dtype=torch.float32, device=u.device)
     u, v = args[:2]
     dk = u.shape[1]
     p = dv_plan(bq, bk, dk, bf16, _sm_count(u.device.index))

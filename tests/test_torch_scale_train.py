@@ -202,11 +202,14 @@ def test_bwd_route_counts_the_partials_as_the_tpu_does(bq, bk):
 
 
 _DU_PLAN_CASES = [
-    # bf16 operands (the tensor-core kernel): 64-row query tiles
-    (8192, 8192, 128, True, 9),          # 128 query tiles: the candidate sweep in 9 parts
-    (131072, 262144, 128, True, 1),      # the giant step: 2,048 query tiles, no partials
-    (1000, 3001, 129, True, 24),         # ragged, two column slices: a part per 2 tiles
-    (1000, 3001, 64, True, 47),          # a part per candidate tile
+    # bf16 operands (the wgmma kernel, one block per SM): 128-row query
+    # blocks, 128-candidate tiles
+    (8192, 8192, 128, True, 2),          # 64 blocks: one wave of 2 parts of 32 tiles
+    (131072, 262144, 128, True, 1),      # the giant step: 1,024 blocks, 7.76 waves, no partials
+    (8192, 8192, 256, True, 1),          # DP = 256: two column slices, 128 blocks in one wave
+    (20000, 20000, 128, True, 5),        # 157 blocks: 6 waves of 32 tiles
+    (1000, 3001, 129, True, 8),          # ragged, two column slices: 16 blocks, 8 parts of 3 tiles
+    (1000, 3001, 64, True, 12),          # 8 blocks: a part per 2 candidate tiles
     (64, 10, 32, True, 1),               # one candidate tile
     # fp32 operands (the FMA kernel, one block per SM): 128-row blocks
     (8192, 8192, 128, False, 8),         # 64 blocks: 4 waves of 16 tiles
@@ -222,33 +225,45 @@ _DU_PLAN_CASES = [
     f"{bq}-{bk}-{d}-{parts}" if bf16 else f"fp32-{bq}-{bk}-{d}-{parts}"
     for bq, bk, d, bf16, parts in _DU_PLAN_CASES])
 def test_du_plan_fills_the_card_under_the_cap(bq, bk, d, bf16, parts):
-    """Row 6's tiling, checked on the CPU: 64-candidate tiles, every
-    candidate tile in exactly one part, and the dU partials under the cap.
-    bf16 operands: 64-row query tiles, the sweep split until the grid holds
-    about 8 blocks per SM. fp32 operands: 128-row blocks (64 past D =
-    128), the sweep split for the fewest waves of one block per SM from 2
-    to 8 blocks per SM, which leaves at least one block per SM wherever the
-    tiles allow."""
+    """Row 6's tiling, checked on the CPU: every candidate tile in exactly
+    one part, and the dU partials under the cap. bf16 operands: 128-row
+    query blocks (two column slices past D = 128) and 128-candidate tiles,
+    one block per SM: one part where the blocks alone fill ``_FULL_WAVES``
+    waves, else the split whose last wave ends first, a block's set-up and
+    write-out counted as ``_BLOCK_TILES`` of its tiles, so never later than
+    one part. fp32 operands: 128-row blocks (64 past D = 128) and
+    64-candidate tiles, the sweep split for the fewest waves of one block
+    per SM from 2 to 8 blocks per SM, which leaves at least one block per
+    SM wherever the tiles allow."""
     n_sm = 132
     p = F.du_plan(bq, bk, d, bf16, n_sm)
-    tile = F.DU_TQ if bf16 else (F.F32_TQ if d <= 128 else 64)
-    assert (p.tile, p.ktile, p.parts) == (tile, F.DU_TK, parts)
+    tile, ktile = (F.WG_OWN, F.WG_TILE) if bf16 else (F.F32_TQ if d <= 128 else 64, F.F32_DU_TK)
+    assert (p.tile, p.ktile, p.parts) == (tile, ktile, parts)
     n_kt = -(-bk // p.ktile)
     assert p.parts * p.tiles_per_part >= n_kt > (p.parts - 1) * p.tiles_per_part
     assert p.partials_bytes(bq, d) <= F._FUSED_BWD_PARTIALS_CAP
-    # bf16: at least 4 blocks per SM wherever the tiles allow (whole tiles
-    # per part round the 8 down); fp32: at least one
     q_blocks = -(-bq // p.tile) * (2 if bf16 and d > 128 else 1)
-    assert q_blocks * p.parts >= min((4 if bf16 else 1) * n_sm, q_blocks * n_kt)
+    if not bf16:
+        assert q_blocks * p.parts >= min(n_sm, q_blocks * n_kt)
+        return
+
+    def ends(n_parts: int, per_part: int) -> int:
+        return -(-q_blocks * n_parts // n_sm) * (per_part + F._BLOCK_TILES)
+
+    assert ends(p.parts, p.tiles_per_part) <= ends(1, n_kt)
+    if q_blocks >= F._FULL_WAVES * n_sm:
+        assert p.parts == 1
 
 
 def test_du_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
     """With room for only two dU partials the plan takes two parts, each
-    sweeping half the candidate tiles."""
-    bq, bk, d = 8192, 8192, 128
+    sweeping half the candidate tiles, where the card alone would take 5
+    (20,000^2)."""
+    bq, bk, d = 20000, 20000, 128
+    assert F.du_plan(bq, bk, d, True, 132).parts == 5
     monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 2 * 4 * bq * d)
     p = F.du_plan(bq, bk, d, True, 132)
-    assert (p.parts, p.tiles_per_part) == (2, 64)
+    assert (p.parts, p.tiles_per_part) == (2, 79)
     assert p.partials_bytes(bq, d) <= F._FUSED_BWD_PARTIALS_CAP
 
 
@@ -301,7 +316,7 @@ def test_dv_plan_fills_the_card_under_the_cap(bq, bk, d, bf16, parts):
     SM wherever the tiles allow."""
     n_sm = 132
     p = F.dv_plan(bq, bk, d, bf16, n_sm)
-    tile, qtile = (F.DV_TK, F.DV_TQ) if bf16 else (F.TKC if d <= 128 else F.TK, F.F32_DV_TQ)
+    tile, qtile = (F.WG_OWN, F.WG_TILE) if bf16 else (F.TKC if d <= 128 else F.TK, F.F32_DV_TQ)
     assert (p.tile, p.qtile, p.parts) == (tile, qtile, parts)
     n_qt = -(-bq // p.qtile)
     assert p.parts * p.q_tiles_per_part >= n_qt > (p.parts - 1) * p.q_tiles_per_part
@@ -433,6 +448,79 @@ def test_fp32_dv_partials_sum_to_the_reference_and_jax(bq, bk, d, n_sm, all_acci
         jnp.asarray(pos), jnp.asarray(lse.numpy()), jnp.asarray(g), True)
     _rel_close(got[0], want[1], 1e-5)
     _rel_close(got[1], want[2], 1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bq,bk,d,n_sm,all_accidental", [
+    # bf16's plan / fp32's plan (64-candidate tiles, _split_waves)
+    (192, 300, 32, 132, False),   # 2 blocks: 3 / 5 parts of one tile, the last of 44 candidates
+    (600, 1024, 64, 16, True),    # 5 blocks on 16 SMs: 3 parts of 3, 3 and 2 tiles / 16 of one
+    (130, 300, 129, 132, True),   # D past 128: 3 parts, two column slices / 64-row blocks, 5
+    (257, 1000, 256, 132, False),  # DP = 256: 8 / 16 parts, the last of 104 candidates
+])
+def test_du_partials_sum_to_the_reference_and_jax(dtype, bq, bk, d, n_sm, all_accidental):
+    """The plain version of row 6's partials under ``du_plan`` for the
+    operands' type ([parts, Bq, D], over the candidates padded to the
+    plan's whole tiles as the bf16 kernel reads them), summed over the
+    parts, equals the one-pass plain dU and JAX ``_flash_bwd_twokernel_raw``
+    in interpret mode; the cases hold rows whose every candidate but the
+    positive is an accidental hit and a positive in the last column."""
+    rng = np.random.default_rng(bq + bk + d)
+    u = (rng.standard_normal((bq, d)) * d ** -0.5).astype(np.float32)
+    v = rng.standard_normal((bk, d)).astype(np.float32)
+    c = rng.standard_normal(bk).astype(np.float32)
+    ids_k = rng.integers(0, max(2, bk // 3), bk).astype(np.int32)
+    ids_q = rng.integers(0, max(2, bk // 3), bq).astype(np.int32)
+    pos = np.arange(bq, dtype=np.int32) % bk
+    pos[0] = bk - 1
+    if all_accidental:
+        ids_k[:] = 0  # the id of the padded columns too
+        ids_q[::3] = 0
+    g = rng.standard_normal(bq).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    tu, tv = torch.tensor(u).to(tdt), torch.tensor(v).to(tdt)
+    small = (torch.tensor(c), torch.tensor(ids_q), torch.tensor(ids_k), torch.tensor(pos))
+    lse, _ = F.flash_ce_fwd_reference(tu, tv, *small)
+    args = (tu, tv, *small, lse, torch.tensor(g))
+    p = F.du_plan(bq, bk, d, dtype == "bfloat16", n_sm)
+    n_cols = p.parts * p.tiles_per_part * p.ktile  # bf16's cases all pad past Bk
+    assert p.parts > 1 and (n_cols > bk if dtype == "bfloat16" else n_cols >= bk)
+    du_part = F.flash_ce_bwd_du_partials_reference(*args, p)
+    assert du_part.shape == (p.parts, bq, d) and bool(torch.isfinite(du_part).all())
+    got = torch.sum(du_part, dim=0)
+    _rel_close(got, F.flash_ce_bwd_du_reference(*args), 1e-6)
+    want = JF._flash_bwd_twokernel_raw(
+        jnp.asarray(u).astype(jdt), jnp.asarray(v).astype(jdt), jnp.asarray(c),
+        jnp.asarray(ids_q), jnp.asarray(ids_k), jnp.asarray(pos), jnp.asarray(lse.numpy()),
+        jnp.asarray(g), True)
+    _rel_close(got, want[0], 1e-5 + (BF16_ULP if dtype == "bfloat16" else 0.0))
+
+
+@pytest.mark.parametrize("id_hit", [False, True])
+def test_du_cols_give_no_probability_past_bk(id_hit):
+    """Row 6's column inputs (the plain version of its cols kernel):
+    (colcorr, the bits of ids_k) per candidate, (-inf, 0) past Bk. A padded
+    column's logit is -inf, or -1e9 where the row's id is 0, and its p*g is
+    exactly 0 with no NaN, also for a row past Bq (lse +inf, g 0) and a row
+    whose lse is far below 0."""
+    colcorr = torch.tensor([0.5, -2.0, 3.0])
+    ids_k = torch.tensor([7, -1, 2**31 - 1], dtype=torch.int32)
+    cols = F.du_cols_reference(colcorr, ids_k, 8)
+    assert cols.shape == (8, 2) and cols.dtype == torch.float32
+    assert torch.equal(cols[:3, 0], colcorr)
+    assert torch.equal(cols[:3, 1].view(torch.int32), ids_k)
+    assert bool(torch.isneginf(cols[3:, 0]).all())
+    assert bool((cols[3:, 1].view(torch.int32) == 0).all())
+    # u . v = 0 on the zero rows past Bk, never a row's positive (< Bk);
+    # rows: lse 1, lse -200, past Bq
+    id_q = torch.tensor([0 if id_hit else 5] * 3, dtype=torch.int32)
+    s = F._masked_logits(torch.ones((3, 4)), torch.zeros((5, 4)), cols[3:, 0], id_q,
+                         cols[3:, 1].view(torch.int32), torch.full((3,), 99, dtype=torch.int32))
+    assert bool((s == (F.NEG_BIG if id_hit else float("-inf"))).all())
+    lse = torch.tensor([1.0, -200.0, float("inf")])
+    g = torch.tensor([1.0, 3.0, 0.0])
+    pg = torch.exp(s - lse[:, None]) * g[:, None]
+    assert torch.equal(pg, torch.zeros_like(pg))
 
 
 @pytest.mark.parametrize("bq,bk,d,n_sm,all_accidental", [

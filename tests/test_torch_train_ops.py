@@ -401,7 +401,7 @@ def test_fwd_plan_fills_the_card_under_the_cap(bq, bk, d, parts):
     n_sm = 132
     bf16 = d is None
     p = F.fwd_plan(bq, bk, bf16, n_sm, d)
-    want = (F.DU_TQ, F.DU_TK) if bf16 else (F.F32_TQ, F.F32_FWD_TK) if d <= 128 else (64, 64)
+    want = (F.FWD_TQ, F.FWD_TK) if bf16 else (F.F32_TQ, F.F32_FWD_TK) if d <= 128 else (64, 64)
     assert (p.tile, p.ktile, p.parts) == (*want, parts)
     n_kt = -(-bk // p.ktile)
     assert p.parts * p.tiles_per_part >= n_kt > (p.parts - 1) * p.tiles_per_part
