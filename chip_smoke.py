@@ -41,12 +41,13 @@
     DCN backward) against their plain versions at the training shapes
     (before phase 8: row 5 of fp32 operands at its edges, D of 24 to 256,
     ragged Bq and Bk, one candidate, all-accidental rows, and 65,536^2,
-    two calls bit-equal; rows 4 and 6 of fp32 operands at theirs, the
-    same widths, ragged shapes off their 128-row blocks and 64- and
-    128-candidate tiles, one candidate, row 0's positive in the last part,
-    all-accidental rows, 8,192^2 in 8 parts and 65,536 x 4,096 in one,
-    two calls bit-equal, the positive logit of 8 parts bit-equal to that
-    of one) and times them as in phase 6, then profiles a full train step
+    two calls bit-equal; row 4 of fp32 operands at its own, the same
+    widths, ragged shapes off its 128-row blocks and 128-candidate tiles,
+    one candidate, row 0's positive in the last part, all-accidental rows,
+    8,192^2 in 8 parts and 65,536 x 4,096 in one, two calls bit-equal,
+    the positive logit of 8 parts bit-equal to that of one) and times
+    them as in phase 6 (the fused backward in fp32 only: bf16 operands
+    take rows 6 and 7), then profiles a full train step
     with and without the flash kernels at batch 4,096 and 8,192, and the
     fp32 steps at 8,192 (the fp32 epoch's) and 20,000 (where the TPU's
     partials pass its cap), both on rows 4 and 5, each with the device ms
@@ -65,42 +66,31 @@
 14. holds the blockmax kernel against its plain version at the served
     shapes (Q in {1, 64}, N = 1,048,576, d = 128, groups of 512), at
     Q = 4,096, N = 8,388,608, and at edge cases of the tensor-core path
-    (bf16 at d in {64, 128, 129}, N not a multiple of g, Q in {1, 15, 17,
-    65}) and of the fp32 one, checks that two calls give the same bits,
+    (bf16 at d in {24, 64, 128, 129, 256}, N not a multiple of g, Q in
+    {1, 15, 17, 65}), checks that two calls give the same bits,
     times it as in phase 6, and the whole ``blockmax_topk`` against
     ``flash_topk``;
 15. ``evaluate(filter_seen=True)`` of the 1M-item model on a seeded
     synthetic log, where k + max_seen > 256 and the dense scores would pass
     1 GiB, so the exact blockwise scan runs on the card, held against the
     same evaluation through the dense per-batch mask;
-16. holds kernel rows 6 and 7 (the two-kernel flash backward, through
-    ``flash_ce_bwd_twokernel``) against their plain versions at Bq = Bk =
-    8,192, D = 128 in bf16 and fp32, at 4,096 x 20,480 bf16, at a ragged
-    1,000 x 3,001, D = 129, fp32, and at the edges of row 6's tensor-core
-    path (bf16 at D in {32, 64, 128, 129, 256}, ragged Bq and Bk), checks
-    that two calls of row 6 give the same bits, and times them at 8,192
-    bf16 and fp32 as in phase 6; holds the tensor-core kernels of rows 4 and 7
-    against their plain versions at their edges (D in {24, 32, 64, 128,
-    129, 256}, Bq and Bk not multiples of 16 or 64, one candidate, a
-    positive column in the forward's last part, rows whose every other
-    candidate is an accidental hit) and checks that two calls of each give
-    the same bits; holds row 7 of fp32 operands against its plain version
-    at its edges (before phase 8: D of 24 to 256, ragged, one candidate,
-    all-accidental rows, 8,192^2 in 8 parts, the same call in 2 parts
-    bit-equal to the sum of its parts' rows in one); at 20,000^2 in fp32
-    checks that ``flash_ce_bwd`` takes the fused kernel (its wrapper
-    launches, rows 6 and 7 do not), holds it and rows 6 + 7 (called
-    directly) against the plain backward and times rows 6 and 7 beside
-    their yardsticks;
+16. holds kernel rows 6 and 7 (the two-kernel flash backward of bf16
+    operands, through ``flash_ce_bwd_twokernel``) against their plain
+    versions at Bq = Bk = 8,192, D = 128, at 4,096 x 20,480, and at the
+    edges of their wgmma kernels (D in {24, 32, 64, 128, 129, 256}, ragged
+    Bq and Bk), checks that two calls of row 6 give the same bits, and
+    times them at 8,192 as in phase 6; holds the tensor-core kernels of
+    rows 4 and 7 against their plain versions at their edges (D in {24,
+    32, 64, 128, 129, 256}, Bq and Bk not multiples of 16 or 64, one
+    candidate, a positive column in the forward's last part, rows whose
+    every other candidate is an accidental hit) and checks that two calls
+    of each give the same bits; at 20,000^2 in fp32 checks that
+    ``flash_ce_bwd`` takes the fused kernel (its wrapper launches, rows 6
+    and 7 do not) and holds it against the plain backward;
 17. above the partials cap (Bq = 131,072, Bk = 262,144, D = 128, bf16):
-    the route is the two-kernel one; the forward, rows 6 and 7 and the
-    fused kernel agree with their plain versions (chunked over query rows,
-    ~1 GiB of logits at a time) and the two routes with each other; the
-    forward and rows 6 and 7 are timed beside their device time and bound;
-    then both routes are timed in turns, with their peak memory, in bf16
-    and in fp32, at the
-    ``ROUTE_SHAPES`` under and above the cap (the table behind
-    ``flash_ce.bwd_route``);
+    ``flash_ce_bwd`` takes rows 6 and 7; the forward and rows 6 and 7
+    agree with their plain versions (chunked over query rows, ~1 GiB of
+    logits at a time) and are timed beside their device time and bound;
 18. trains the giant-table configuration through ``Trainer.train``: the
     full-width ``ModelConfig``, 4,000,000 users x 2,000,000 items (the
     tables of ``benchmarks/results/scale.json``'s ``"train"`` row),
@@ -330,7 +320,7 @@ N_TRAIN, N_VAL = 200_000, 25_000
 TRAIN_BATCH = 8192
 # the fp32 step past the TPU's partials cap: at 20,000 rows its candidate
 # tile is 32 and its fused partials (5.96 GiB) pass the cap, so the TPU
-# takes its two kernels there; the port takes the fused kernel (bwd_route)
+# takes its two kernels there; the port takes the fused kernel (flash_ce_bwd)
 FP32_PAST_CAP_BATCH = 20_000
 TRAIN_EPOCHS = 2
 ZIPF_EXPONENT = 1.0  # item popularity ~ rank**-1
@@ -364,12 +354,6 @@ GIANT_BATCH = GIANT_CACHE = 131_072
 GIANT_STEPS = 8
 GIANT_VAL = 65_536
 ABOVE_CAP = (131_072, 262_144, 128)
-# the backward's two routes, bf16 and fp32, D = 128: (Bq, Bk) under the TPU's
-# partials cap (4,096 x 20,480: a batch with a 4-batch CBNS cache;
-# 131,072 x 147,456: exactly at it), then above it (20,000^2 passes it
-# through the TPU's 32-wide tile, the others through their width)
-ROUTE_SHAPES = [(4096, 20_480), (8192, 8192), (16_384, 16_384), (32_768, 32_768),
-                (131_072, 147_456), (20_000, 20_000), (65_536, 327_680), ABOVE_CAP[:2]]
 # the scale.json "train" row itself: dim 64, B = 4,096
 SCALE_ROW_DIM, SCALE_ROW_BATCH = 64, 4096
 # the data-and-features path: ML-1M-shaped raw files from SEED, preprocessed
@@ -913,8 +897,8 @@ def _errs(got, want) -> tuple:
 
 
 def check_flash(u, v, c, ids_q, ids_k, pos, g, bwd=None) -> dict:
-    """The flash CE forward and a backward (``bwd``, default the fused
-    ``flash_ce_bwd_fused``) against their plain versions on the same
+    """The flash CE forward and a backward (``bwd``, default the route of
+    the operand type, ``flash_ce_bwd``) against their plain versions on the same
     inputs, each output relative to its own max|ref|: lse, positive logit
     and dcol within FLASH_TOL; dU and dV within FLASH_TOL for fp32
     operands and FLASH_BF16_GRAD_TOL for bf16 ones. -> max absolute and
@@ -922,7 +906,7 @@ def check_flash(u, v, c, ids_q, ids_k, pos, g, bwd=None) -> dict:
     import torch
     from recsys_tpu_torch.ops import flash_ce as F
 
-    bwd = bwd or F.flash_ce_bwd_fused
+    bwd = bwd or F.flash_ce_bwd
 
     lse, pl = F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos)
     torch.cuda.synchronize()
@@ -988,23 +972,22 @@ def check_train_edges() -> list:
         args = ((rnd(bq, d) * d ** -0.5).to(dt), rnd(bk, d).to(dt), rnd(bk),
                 ints(max(2, bk // 3), bq), ints(max(2, bk // 3), bk), pos, rnd(bq))
         check_flash(*args)
-        # caps of one and two dU partials: each backward block sweeps
-        # several candidate tiles (the last block fewer), as above ~33k
-        # rows (bf16) at the real cap
+        # caps of one and two dU partials: each fused backward block (fp32)
+        # sweeps several candidate tiles (the last block fewer), as above
+        # ~33k rows at the real cap; rows 6 and 7 (bf16) take fewer parts
         for parts in (1, 2):
             F._FUSED_BWD_PARTIALS_CAP = parts * bq * d * 4
             try:
                 check_flash(*args)
             finally:
                 F._FUSED_BWD_PARTIALS_CAP = cap
-    # the backward at the real cap's edge: 32,768 rows, one 128-candidate
-    # tile a block, 256 dU partials of 16 MiB
+    # the fused backward (fp32) at the real cap's edge: 32,768 rows, one
+    # 128-candidate tile a block, 256 dU partials of 16 MiB
     b = 32768
-    plan = F.bwd_plan(b, b, 128, True, torch.cuda.get_device_properties(0).multi_processor_count)
+    plan = F.bwd_plan(b, b, 128, torch.cuda.get_device_properties(0).multi_processor_count)
     check((plan.tile, plan.tiles_per_block, plan.n_spans) == (128, 1, 256),
           f"B = 32,768: plan {plan}")
-    args = ((rnd(b, 128) * 128 ** -0.5).to(torch.bfloat16),
-            (rnd(b, 128) * 128 ** -0.5).to(torch.bfloat16), rnd(b),
+    args = (rnd(b, 128) * 128 ** -0.5, rnd(b, 128) * 128 ** -0.5, rnd(b),
             ints(N_ITEMS, b), ints(N_ITEMS, b),
             torch.arange(b, device="cuda", dtype=torch.int32))
     grad = rnd(b)
@@ -1042,7 +1025,7 @@ def check_train_edges() -> list:
 
 def check_fp32_bwd_edges() -> list:
     """Row 5 of fp32 operands (``flash_ce_bwd_fused``: the FMA kernel on
-    the shared ``bwd_plan``) against its plain version at its edges, before
+    ``bwd_plan``) against its plain version at its edges, before
     any timing: every padded width (D in {24, 32, 64, 128, 129, 256}:
     element-wise loads where D % 4 != 0, 64-candidate tiles past 128), Bq
     and Bk off the 64-row query and 128-candidate tiles, one candidate, row
@@ -1074,7 +1057,7 @@ def check_fp32_bwd_edges() -> list:
             ids_k.fill_(n_ids)
             ids_q[::3] = n_ids
         what = f"row 5 fp32 edge Bq={bq} Bk={bk} D={d}"
-        plan = F.bwd_plan(bq, bk, d, False, n_sm)
+        plan = F.bwd_plan(bq, bk, d, n_sm)
         if bq == 65_536:
             check((plan.tile, plan.tiles_per_block, plan.n_spans, plan.parts) == (128, 4, 128, 2),
                   f"{what}: plan {plan}")
@@ -1095,20 +1078,19 @@ def check_fp32_bwd_edges() -> list:
     return out
 
 
-def check_fp32_du_fwd_edges() -> list:
-    """Rows 6 and 4 of fp32 operands (``flash_ce_bwd_du`` and
-    ``flash_ce_fwd``: the FMA kernels on the fp32 branches of ``du_plan``
-    and ``fwd_plan``) against their plain versions at their edges, before
-    any timing: every padded width (D in {24, 32, 64, 128, 129, 256}:
-    element-wise loads where D % 4 != 0, 64-row blocks past 128), Bq and Bk
-    off the 128-row blocks and the 64- and 128-candidate tiles, one
+def check_fp32_fwd_edges() -> list:
+    """Row 4 of fp32 operands (``flash_ce_fwd``: the FMA kernel on the
+    fp32 branch of ``fwd_plan``) against its plain version at its edges,
+    before any timing: every padded width (D in {24, 32, 64, 128, 129,
+    256}: element-wise loads where D % 4 != 0, 64-row blocks past 128), Bq
+    and Bk off the 128-row blocks and the 128-candidate tiles, one
     candidate (one part), row 0's positive column in the last part, a third
     of the rows whose every candidate but the positive is an accidental hit
     (every other shape), 8,192^2 (8 parts) and 65,536 x 4,096 (one part of
-    64 and 32 tiles): dU, lse and the positive logit within FLASH_TOL of
-    their own max|ref|, two calls bit-equal, and the positive logit of a
-    many-part forward bit-equal to that of the same forward in one part
-    (one part holds it; the others add 0). -> errors and plans per shape."""
+    32 tiles): lse and the positive logit within FLASH_TOL of their own
+    max|ref|, two calls bit-equal, and the positive logit of a many-part
+    forward bit-equal to that of the same forward in one part (one part
+    holds it; the others add 0). -> errors and plans per shape."""
     import torch
     from recsys_tpu_torch.ops import flash_ce as F
 
@@ -1123,19 +1105,18 @@ def check_fp32_du_fwd_edges() -> list:
         ints = lambda n: torch.randint(0, n_ids, (n,), generator=gen, device="cuda",
                                        dtype=torch.int32)
         u, v = rnd(bq, d) * d ** -0.5, rnd(bk, d) * d ** -0.5
-        c, ids_q, ids_k, gr = rnd(bk), ints(bq), ints(bk), torch.rand((bq,), generator=gen,
-                                                                      device="cuda") / bq
+        c, ids_q, ids_k = rnd(bk), ints(bq), ints(bk)
         pos = torch.arange(bq, device="cuda", dtype=torch.int32) % bk
         pos[0] = bk - 1
         if i % 2:
             ids_k.fill_(n_ids)
             ids_q[::3] = n_ids
-        what = f"rows 4/6 fp32 edge Bq={bq} Bk={bk} D={d}"
-        du_p, fwd_p = F.du_plan(bq, bk, d, False, n_sm), F.fwd_plan(bq, bk, False, n_sm, d)
+        what = f"row 4 fp32 edge Bq={bq} Bk={bk} D={d}"
+        fwd_p = F.fwd_plan(bq, bk, False, n_sm, d)
         if (bq, bk) == (8192, 8192):
-            check(du_p.parts == fwd_p.parts == 8, f"{what}: plans {du_p}, {fwd_p}")
+            check(fwd_p.parts == 8, f"{what}: plan {fwd_p}")
         if bk == 1 or bq == 65_536:
-            check(du_p.parts == fwd_p.parts == 1, f"{what}: plans {du_p}, {fwd_p}")
+            check(fwd_p.parts == 1, f"{what}: plan {fwd_p}")
         fwd = [F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos) for _ in range(2)]
         torch.cuda.synchronize()
         ref_lse, ref_pos = F.flash_ce_fwd_reference(u, v, c, ids_q, ids_k, pos)
@@ -1154,96 +1135,10 @@ def check_fp32_du_fwd_edges() -> list:
             check(bool(torch.equal(one_pos, fwd[0][1])),
                   f"{what}: the positive logit moved between {fwd_p.parts} parts and one")
             check(_errs([one_lse], [ref_lse])[1][0] <= FLASH_TOL, f"{what}: one-part lse")
-        args = (u, v, c, ids_q, ids_k, pos, ref_lse, gr)
-        du = [F.flash_ce_bwd_du(*args) for _ in range(2)]
-        torch.cuda.synchronize()
-        du_abs, du_rel = _errs([du[0]], [F.flash_ce_bwd_du_reference(*args)])
-        check(bool(torch.isfinite(du[0]).all()), f"{what}: non-finite dU")
-        check(du_rel[0] <= FLASH_TOL, f"{what}: dU err {du_rel[0]} of max|ref| > {FLASH_TOL}")
-        check(bool(torch.equal(du[0], du[1])), f"{what}: two row 6 calls differ")
         out.append({"Bq": bq, "Bk": bk, "D": d, "all_accidental_rows": bool(i % 2),
-                    "du_plan": du_p._asdict(), "fwd_plan": fwd_p._asdict(),
-                    "max_abs_err": max(fwd_abs, du_abs),
-                    "rel": {"lse": fwd_rel[0], "pos_logit": fwd_rel[1], "dU": du_rel[0]}})
-        del fwd, du, args, u, v
-        torch.cuda.empty_cache()
-    return out
-
-
-def check_fp32_dv_edges() -> list:
-    """Row 7 of fp32 operands (``flash_ce_bwd_dv``: the FMA kernel on the
-    fp32 branch of ``dv_plan``) against its plain version at its edges,
-    before any timing: every padded width (D in {24, 32, 64, 128, 129,
-    256}: element-wise loads where D % 4 != 0, 64-candidate blocks past
-    128), Bq and Bk off the 64-row query tiles and the 128-candidate
-    blocks, one candidate, row 0's positive column in the last candidate
-    block, a third of the rows whose every candidate but the positive is an
-    accidental hit (every other shape), and 8,192^2 (8 parts): dV and dcol
-    within FLASH_TOL of their own max|ref|, two calls bit-equal. At 8,192^2
-    also the order of the parts: the same call in 2 parts (a lowered cap)
-    is bit-equal to the sum of two one-part calls over the parts' query
-    rows, since a part sweeps its tiles in the same order alone. -> errors
-    and plans per shape."""
-    import torch
-    from recsys_tpu_torch.ops import flash_ce as F
-
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    out = []
-    for i, (bq, bk, d) in enumerate(((50, 70, 32), (130, 4097, 24), (1000, 3001, 64),
-                                     (777, 2050, 128), (1000, 3001, 129), (300, 1100, 256),
-                                     (65, 1, 128), (8192, 8192, 128))):
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 60 + i)
-        rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
-        n_ids = max(2, bk // 3)
-        ints = lambda n: torch.randint(0, n_ids, (n,), generator=gen, device="cuda",
-                                       dtype=torch.int32)
-        u, v = rnd(bq, d) * d ** -0.5, rnd(bk, d) * d ** -0.5
-        c, ids_q, ids_k, gr = rnd(bk), ints(bq), ints(bk), torch.rand((bq,), generator=gen,
-                                                                      device="cuda") / bq
-        pos = torch.arange(bq, device="cuda", dtype=torch.int32) % bk
-        pos[0] = bk - 1
-        if i % 2:
-            ids_k.fill_(n_ids)
-            ids_q[::3] = n_ids
-        what = f"row 7 fp32 edge Bq={bq} Bk={bk} D={d}"
-        plan = F.dv_plan(bq, bk, d, False, n_sm)
-        if bq == 8192:
-            check(plan.parts == 8, f"{what}: plan {plan}")
-        lse, _ = F.flash_ce_fwd_reference(u, v, c, ids_q, ids_k, pos)
-        args = (u, v, c, ids_q, ids_k, pos, lse, gr)
-        got = [F.flash_ce_bwd_dv(*args) for _ in range(2)]
-        torch.cuda.synchronize()
-        abs_err, rel_err = _errs(got[0], F.flash_ce_bwd_dv_reference(*args))
-        check(all(bool(torch.isfinite(t).all()) for t in got[0]), f"{what}: non-finite")
-        for name, err in zip(("dV", "dcol"), rel_err):
-            check(err <= FLASH_TOL, f"{what}: {name} err {err} of max|ref| > {FLASH_TOL}")
-        check(all(bool(torch.equal(a, b)) for a, b in zip(*got)), f"{what}: two calls differ")
-        row = {"Bq": bq, "Bk": bk, "D": d, "all_accidental_rows": bool(i % 2),
-               "plan": plan._asdict(), "max_abs_err": abs_err,
-               "rel": dict(zip(("dV", "dcol"), rel_err))}
-        if bq == 8192:  # 2 parts against the two parts' rows, each in one part
-            cap = F._FUSED_BWD_PARTIALS_CAP
-            try:
-                F._FUSED_BWD_PARTIALS_CAP = 2 * 4 * bk * (d + 1)
-                two = F.dv_plan(bq, bk, d, False, n_sm)
-                check(two.parts == 2, f"{what}: two-part plan {two}")
-                whole = F.flash_ce_bwd_dv(*args)
-                F._FUSED_BWD_PARTIALS_CAP = 4 * bk * (d + 1)
-                cut = two.q_tiles_per_part * two.qtile
-                halves = []
-                for rows in (slice(0, cut), slice(cut, bq)):
-                    sub = (u[rows], v, c, ids_q[rows], ids_k, pos[rows], lse[rows], gr[rows])
-                    check(F.dv_plan(sub[0].shape[0], bk, d, False, n_sm).parts == 1,
-                          f"{what}: one-part plan of {rows}")
-                    halves.append(F.flash_ce_bwd_dv(*(t.contiguous() for t in sub)))
-            finally:
-                F._FUSED_BWD_PARTIALS_CAP = cap
-            torch.cuda.synchronize()
-            check(all(bool(torch.equal(w, a + b)) for w, a, b in zip(whole, *halves)),
-                  f"{what}: 2 parts differ from the sum of their rows' one-part calls")
-            row["parts_bit_equal"] = {"parts": two.parts, "rows_per_part": cut}
-        out.append(row)
-        del got, args, u, v
+                    "fwd_plan": fwd_p._asdict(), "max_abs_err": fwd_abs,
+                    "rel": {"lse": fwd_rel[0], "pos_logit": fwd_rel[1]}})
+        del fwd, u, v
         torch.cuda.empty_cache()
     return out
 
@@ -1261,8 +1156,9 @@ def _dense_softmax_bwd(u, v, c, gr) -> tuple:
 
 def measure_flash(bundle: dict, b: int, dtype, iters: int, sm_clock_mhz: float) -> tuple:
     """The flash CE kernels at Bq = Bk = b, D = 128, with the ids of the
-    first b train rows (Zipf: many accidental hits): -> (forward row,
-    backward row)."""
+    first b train rows (Zipf: many accidental hits): -> (forward row, the
+    fused backward's row for fp32 operands, else None: bf16 operands take
+    rows 6 and 7, timed in phase 16)."""
     import torch
     from recsys_tpu_torch.ops import flash_ce as F
 
@@ -1282,7 +1178,7 @@ def measure_flash(bundle: dict, b: int, dtype, iters: int, sm_clock_mhz: float) 
         .multi_processor_count * sm_clock_mhz * 1e6
     shape = {"Bq": b, "Bk": b, "D": d, "dtype": str(dtype).replace("torch.", "")}
     rows = []
-    for kind in ("fwd", "bwd"):
+    for kind in ("fwd", "bwd") if dtype == torch.float32 else ("fwd",):
         if kind == "fwd":
             kernel = lambda: F.flash_ce_fwd(u, v, c, ids, ids, pos)
             plain = lambda: F.flash_ce_fwd_reference(u, v, c, ids, ids, pos)
@@ -1299,8 +1195,7 @@ def measure_flash(bundle: dict, b: int, dtype, iters: int, sm_clock_mhz: float) 
 
             library = lambda: _dense_softmax_bwd(u, v, c, gr)
             n_bytes = 2 * b * d * elt + 6 * b * 4 + (2 * b * d + b) * 4
-            n_ops = 6.0 * b * b * d
-            name = "flash_ce_bwd_tc_kernel" if dtype == torch.bfloat16 else "flash_ce_bwd_kernel"
+            n_ops, name = 6.0 * b * b * d, "flash_ce_bwd_kernel"
             err, rel = errs["bwd_abs"], errs["bwd_rel"]
             # deterministic: no atomics, partials summed in a fixed order
             first, again = kernel(), kernel()
@@ -1317,7 +1212,7 @@ def measure_flash(bundle: dict, b: int, dtype, iters: int, sm_clock_mhz: float) 
             "bound_ms": b_ms, "bound_by": b_by, "device_ms": dev_ms,
             "kernel_device_ms": dev_kernel_ms, "plain_device_ms": device_ms(plain, iters)[0],
         })
-    return rows[0], rows[1]
+    return rows[0], rows[1] if len(rows) > 1 else None
 
 
 def measure_dcn_bwd(n: int, iters: int, f: int = 256) -> dict:
@@ -1483,7 +1378,7 @@ def profile_train_steps(bundle: dict) -> list:
     backward) and B = 20,000 (the TPU's 32-wide tile puts its partials past
     its cap, where it takes its two kernels; the port keeps the fused
     kernel), with the device ms and launches of each flash kernel; the
-    wrappers' counters show which backward each fp32 step took."""
+    wrappers' counters show that each fp32 step took the fused backward."""
     from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
     from recsys_tpu_torch.models.losses import balanced_class_weights
     from recsys_tpu_torch.ops import flash_ce as F
@@ -1492,8 +1387,7 @@ def profile_train_steps(bundle: dict) -> list:
     cw = balanced_class_weights(bundle["train/y_implicit"])
     fp32 = dict(mixed_precision=False, bf16_retrieval_logits=False)
     groups = {"row4_fwd": "flash_ce_fwd_kernel", "row4_combine": "flash_ce_fwd_combine_kernel",
-              "row5_fused": "flash_ce_bwd_kernel", "row6_du": "flash_ce_bwd_du_kernel",
-              "row7_dv": "flash_ce_bwd_dv_kernel"}
+              "row5_fused": "flash_ce_bwd_kernel"}
     wrappers = ("flash_ce_bwd_fused", "flash_ce_bwd_du", "flash_ce_bwd_dv")
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -1517,9 +1411,8 @@ def profile_train_steps(bundle: dict) -> list:
             if model_kw:
                 moved = {w: getattr(F, w).launches - before[w] for w in wrappers}
                 row["wrapper_launches"] = moved
-                fused = F.bwd_route(b, b, 128) == "fused"
-                check((moved["flash_ce_bwd_fused"] > 0) == fused
-                      and (moved["flash_ce_bwd_du"] == moved["flash_ce_bwd_dv"] > 0) != fused,
+                check(moved["flash_ce_bwd_fused"] > 0
+                      and moved["flash_ce_bwd_du"] == moved["flash_ce_bwd_dv"] == 0,
                       f"{name}: backward launches {moved}")
                 check(row["group_launches"]["row4_fwd"] > 0, f"{name}: row 4 never launched")
             rows.append(row)
@@ -1625,11 +1518,10 @@ def check_blockmax(u, v, group: int) -> float:
 
 
 def check_blockmax_edges() -> None:
-    """Edge cases of the blockmax kernel, before any timing: N not a
-    multiple of g, N < g, Q not a multiple of the query tile, fp32
-    operands (``bf16=False``) at a ragged width, groups smaller than a
-    64-item tile; on the tensor-core path (bf16) both query tiles (16 rows
-    at Q in {1, 15}, 64 at Q in {17, 65}) and d in {24, 64, 128, 129, 256}
+    """Edge cases of the blockmax kernel (bf16 operands), before any
+    timing: N not a multiple of g, N < g, Q not a multiple of the query
+    tile, groups smaller than a 64-item tile, both query tiles (16 rows at
+    Q in {1, 15}, 64 at Q in {17, 65}) and d in {24, 64, 128, 129, 256}
     (padded to 32 .. 256, element-wise loads at 129); then the whole
     ``blockmax_topk`` on the card against the CPU plain path, k > N
     included."""
@@ -1641,19 +1533,16 @@ def check_blockmax_edges() -> None:
     bf = torch.bfloat16
     check_blockmax(rnd(70, 128).to(bf), rnd(3001, 128).to(bf), blockmax_group_size(3001))
     check_blockmax(rnd(5, 128).to(bf), rnd(100, 128).to(bf), blockmax_group_size(100))
-    check_blockmax(rnd(33, 129), rnd(5000, 129), 512)
-    check_blockmax(rnd(3, 24), rnd(1000, 24), 40)
     for q_n, n, d, grp in ((1, 3001, 64, 384), (15, 5000, 129, 512), (17, 100_007, 128, 512),
                            (65, 2049, 64, 128), (16, 1000, 128, 40), (64, 777, 256, 128),
                            (3, 1000, 24, 40), (1, 1_000_003, 128, 512)):
         check_blockmax(rnd(q_n, d).to(bf), rnd(n, d).to(bf), grp)
-    for q_n, n, d, k, bf16 in ((70, 3001, 128, 10, True), (4, 50, 16, 80, True),
-                               (9, 5000, 64, 200, False)):
+    for q_n, n, d, k in ((70, 3001, 128, 10), (4, 50, 16, 80), (9, 5000, 64, 200)):
         u, v = rnd(q_n, d), rnd(n, d)
-        s, i = blockmax_topk(u, v, k, bf16=bf16)
+        s, i = blockmax_topk(u, v, k)
         torch.cuda.synchronize()
-        rs, ri = blockmax_topk(u.cpu(), v.cpu(), k, bf16=bf16)
-        what = f"blockmax_topk Q={q_n} N={n} k={k} bf16={bf16}"
+        rs, ri = blockmax_topk(u.cpu(), v.cpu(), k)
+        what = f"blockmax_topk Q={q_n} N={n} k={k}"
         s, i = s.cpu(), i.cpu()
         err = float((s - rs).abs().max())
         check(err <= TOPK_TOL, f"{what}: score err {err}")
@@ -1951,7 +1840,7 @@ def check_fwd_dv_edges() -> list:
         check(moved == (2, 2), f"{what}: launches of rows 4 and 7 {moved}, want (2, 2)")
         out.append({"Bq": bq, "Bk": bk, "D": d, "all_accidental_rows": bool(i % 2),
                     "fwd_parts": F.fwd_plan(bq, bk, True, n_sm).parts,
-                    "dv_parts": F.dv_plan(bq, bk, -(-d // 8) * 8, True, n_sm).parts,
+                    "dv_parts": F.dv_plan(bq, bk, -(-d // 8) * 8, n_sm).parts,
                     "fwd_rel": dict(zip(("lse", "pos_logit"), fwd_rel)),
                     "dv_rel": dict(zip(("dV", "dcol"), dv_rel))})
         del fwd, dv, args, u, v
@@ -1988,7 +1877,7 @@ def check_du_edges() -> list:
         before = F.flash_ce_bwd_du.launches
         du = [F.flash_ce_bwd_du(*args) for _ in range(2)]
         torch.cuda.synchronize()
-        plan = F.du_plan(bq, bk, -(-d // 8) * 8, True, n_sm)
+        plan = F.du_plan(bq, bk, -(-d // 8) * 8, n_sm)
         parts = F.flash_ce_bwd_du_partials_reference(*args, plan)
         check(all(bool(torch.isfinite(t).all()) for t in du), f"{what}: non-finite dU")
         errs = {}
@@ -2037,7 +1926,6 @@ def twokernel_rows(args, iters: int, exp_rate: float, plain: bool) -> tuple:
     bq, d = u.shape
     bk = v.shape[0]
     elt = u.element_size()
-    flops = BF16_FLOPS if u.dtype == torch.bfloat16 else FP32_FLOPS
     in_bytes = (bq + bk) * d * elt + 4 * (bk * 2 + bq * 4)
     shape = {"Bq": bq, "Bk": bk, "D": d, "dtype": str(u.dtype).replace("torch.", "")}
 
@@ -2050,7 +1938,7 @@ def twokernel_rows(args, iters: int, exp_rate: float, plain: bool) -> tuple:
             kernel = lambda: F.flash_ce_bwd_du(*args)
             plain_fn = lambda: F.flash_ce_bwd_du_reference(*args)
             library = lambda: probs().to(u.dtype) @ v
-            # both row 6 kernels: flash_ce_bwd_du_kernel (fp32) and _tc_kernel
+            # row 6's flash_ce_bwd_du_wgmma_kernel
             n_bytes, name = in_bytes + 4 * bq * d, "flash_ce_bwd_du_"
         else:
             kernel = lambda: F.flash_ce_bwd_dv(*args)
@@ -2060,10 +1948,11 @@ def twokernel_rows(args, iters: int, exp_rate: float, plain: bool) -> tuple:
                 p = probs()
                 return p.to(u.dtype).T @ u, p.sum(dim=0)
 
-            # both row 7 kernels: flash_ce_bwd_dv_kernel (fp32) and _wgmma_kernel
+            # row 7's flash_ce_bwd_dv_wgmma_kernel
             n_bytes, name = in_bytes + 4 * (bk * d + bk), "flash_ce_bwd_dv_"
         n_ops = 4.0 * bq * bk * d
-        b_ms, b_by = bound_ms(n_bytes, n_ops, flops, n_exp=float(bq) * bk, exp_per_s=exp_rate)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_FLOPS, n_exp=float(bq) * bk,
+                              exp_per_s=exp_rate)
         warm = 2 if plain else 0
         dev_ms, dev_kernel_ms = device_ms(kernel, iters, kernel=name)
         ms = time_ms(kernel, iters, warm)
@@ -2078,22 +1967,18 @@ def twokernel_rows(args, iters: int, exp_rate: float, plain: bool) -> tuple:
     return rows[0], rows[1]
 
 
-def check_fp32_route(exp_rate: float) -> dict:
+def check_fp32_route() -> dict:
     """fp32 operands at FP32_PAST_CAP_BATCH^2, D = 128, where the TPU's
     partials pass its cap and it takes its two kernels: ``flash_ce_bwd``
     takes the fused kernel (its wrapper launches once, rows 6 and 7 never)
-    and agrees with the plain backward; rows 6 + 7, called directly
-    (``flash_ce_bwd_twokernel``), agree with it too (:func:`check_twokernel`)
-    and are timed beside their yardsticks and bounds
-    (:func:`twokernel_rows`)."""
+    and agrees with the plain backward (:func:`check_twokernel`)."""
     import torch
     from recsys_tpu_torch.ops import flash_ce as F
 
     b, d = FP32_PAST_CAP_BATCH, 128
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    route = F.bwd_route(b, b, d, False)
-    check(route == "fused" and F.fused_bwd_partials_bytes(b, b, d) > F._FUSED_BWD_PARTIALS_CAP,
-          f"fp32 {b}^2: route {route}, want fused past the TPU's cap")
+    check(F.fused_bwd_partials_bytes(b, b, d) > F._FUSED_BWD_PARTIALS_CAP,
+          f"fp32 {b}^2: the TPU's partials do not pass its cap")
     args = _flash_args(b, b, d, torch.float32, SEED + 14, n_ids=max(2, b // 3))
     wrappers = ("flash_ce_bwd_fused", "flash_ce_bwd_du", "flash_ce_bwd_dv")
     before = {w: getattr(F, w).launches for w in wrappers}
@@ -2101,64 +1986,8 @@ def check_fp32_route(exp_rate: float) -> dict:
     moved = {w: getattr(F, w).launches - before[w] for w in wrappers}
     check(moved == {"flash_ce_bwd_fused": 1, "flash_ce_bwd_du": 0, "flash_ce_bwd_dv": 0},
           f"fp32 {b}^2: launches {moved}")
-    res = check_twokernel(*args)
-    du_row, dv_row = twokernel_rows(res["args"], 10, exp_rate, plain=True)
-    du_row["max_abs_err"] = res["abs"]["dU"]
-    dv_row["max_abs_err"] = max(res["abs"]["dV"], res["abs"]["dcol"])
-    return {"route": route, "launches": moved, "fused_rel": fused["rel"],
-            "fused_plan": F.bwd_plan(b, b, d, False, n_sm)._asdict(),
-            "plan": F.du_plan(b, b, d, False, n_sm)._asdict(),
-            "dv_plan": F.dv_plan(b, b, d, False, n_sm)._asdict(),
-            "rel": res["rel"], "du": du_row, "dv": dv_row}
-
-
-def time_routes(dtype) -> list:
-    """Phase 17's route table: the fused backward and the two-kernel one
-    (rows 6 + 7 with their parts' sums) of ``dtype`` operands, D = 128, at
-    ROUTE_SHAPES, timed in turns (fused, two-kernel, two-kernel, fused: CUDA
-    events), each with the device memory it allocates beyond its inputs
-    (peak) and its device ms in a profiler window (where CUDA events read
-    the host's pace: the two-kernel call's host work outlasts its device
-    work at 4,096 x 20,480 on an H100), beside the TPU's partials count and
-    route and the route ``bwd_route`` takes."""
-    import torch
-    from recsys_tpu_torch.ops import flash_ce as F
-
-    rows = []
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    bf16 = dtype == torch.bfloat16
-    for bq, bk in ROUTE_SHAPES:
-        t0 = time.perf_counter()
-        u, v, c, ids_q, ids_k, pos, gr = _flash_args(bq, bk, 128, dtype, SEED + 22,
-                                                     n_ids=max(2, bk // 3))
-        lse, _ = F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos)
-        args = (u, v, c, ids_q, ids_k, pos, lse, gr)
-        iters = 10 if bq * bk <= 1 << 30 else 2
-        plan = F.bwd_plan(bq, bk, 128, bf16, n_sm)
-        row = {"Bq": bq, "Bk": bk, "D": 128, "dtype": str(dtype).replace("torch.", ""),
-               "tpu_route": ("fused" if F.fused_bwd_partials_bytes(bq, bk, 128)
-                             <= F._FUSED_BWD_PARTIALS_CAP else "twokernel"),
-               "route": F.bwd_route(bq, bk, 128, bf16),
-               "tpu_partials_gb": F.fused_bwd_partials_bytes(bq, bk, 128) / 1e9,
-               "fused_plan_partials_gb": plan.partials_bytes(bq, bk, 128) / 1e9,
-               "fused_ms": [], "twokernel_ms": []}
-        for name in ("fused", "twokernel", "twokernel", "fused"):
-            fn = getattr(F, f"flash_ce_bwd_{name}")
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            row[f"{name}_ms"].append(time_ms(lambda: fn(*args), iters, warmup=1))
-            row[f"{name}_peak_extra_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
-        # the kernel names only vouch that the window kept every launch
-        for name, kernel, n in (("fused", "flash_ce_bwd_", 1), ("twokernel", "flash_ce_bwd_d", 2)):
-            fn = getattr(F, f"flash_ce_bwd_{name}")
-            row[f"{name}_device_ms"] = device_ms(lambda: fn(*args), iters, kernel, n)[0]
-        row["s"] = time.perf_counter() - t0
-        rows.append(row)
-        log(f"route {json.dumps(row)}")
-        del u, v, args, lse
-        torch.cuda.empty_cache()
-    return rows
+    return {"launches": moved, "fused_rel": fused["rel"],
+            "fused_plan": F.bwd_plan(b, b, d, n_sm)._asdict()}
 
 
 def twokernel_phases(sm_clock_mhz: float) -> dict:
@@ -2166,30 +1995,27 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
     main path's shape and more, timed at Bq = Bk = 8,192 bf16, and rows 4
     and 7 at the edges of their tensor-core kernels
     (:func:`check_fwd_dv_edges`); then above the partials cap (131,072 x
-    262,144, D = 128, bf16): the route is the two-kernel one; the forward,
-    rows 6 and 7 and the fused kernel agree with their plain versions
-    (which form ~1 GiB of logits at a time) and the two routes with each
-    other; each kernel timed, its device time beside its bound; last the
-    route table (:func:`time_routes`)."""
+    262,144, D = 128, bf16): ``flash_ce_bwd`` takes rows 6 and 7; the
+    forward and rows 6 and 7 agree with their plain versions (which form
+    ~1 GiB of logits at a time); each kernel timed, its device time beside
+    its bound."""
     import torch
     from recsys_tpu_torch.ops import flash_ce as F
 
     exp_rate = (SFU_EXP_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0)
                 .multi_processor_count * sm_clock_mhz * 1e6)
     out = {"checks": []}
-    bf, f32 = torch.bfloat16, torch.float32
-    # the main path's shape, then edges: rows 6 and 7 of bf16 operands run on
-    # wgmma fed by TMA (D padded to 32, 64, 128 or 256; two column slices
-    # past 128; padded copies of u and v where D % 8 != 0; ragged query and
-    # candidate tiles), fp32 on the FMA units
-    for bq, bk, d, dt in ((8192, 8192, 128, bf), (8192, 8192, 128, f32),
-                          (4096, 20480, 128, bf), (1000, 3001, 129, f32),
-                          (1000, 3001, 64, bf), (777, 2050, 128, bf), (1000, 3001, 129, bf),
-                          (300, 1100, 256, bf), (50, 70, 32, bf), (130, 4097, 24, bf)):
-        res = check_twokernel(*_flash_args(bq, bk, d, dt, SEED + 12, n_ids=max(2, bk // 3)))
-        out["checks"].append({"Bq": bq, "Bk": bk, "D": d, "dtype": str(dt), "abs": res["abs"],
-                              "rel": res["rel"]})
-        if (bq, bk, dt) == (8192, 8192, torch.bfloat16):
+    # the main path's shape, then edges: rows 6 and 7 run on wgmma fed by
+    # TMA (D padded to 32, 64, 128 or 256; two column slices past 128;
+    # padded copies of u and v where D % 8 != 0; ragged query and candidate
+    # tiles)
+    for bq, bk, d in ((8192, 8192, 128), (4096, 20480, 128), (1000, 3001, 64), (777, 2050, 128),
+                      (1000, 3001, 129), (300, 1100, 256), (50, 70, 32), (130, 4097, 24)):
+        res = check_twokernel(*_flash_args(bq, bk, d, torch.bfloat16, SEED + 12,
+                                           n_ids=max(2, bk // 3)))
+        out["checks"].append({"Bq": bq, "Bk": bk, "D": d, "dtype": "torch.bfloat16",
+                              "abs": res["abs"], "rel": res["rel"]})
+        if (bq, bk) == (8192, 8192):
             # deterministic: no atomics, the parts summed in a fixed order
             first, again = F.flash_ce_bwd_du(*res["args"]), F.flash_ce_bwd_du(*res["args"])
             check(bool(torch.equal(first, again)), "row 6 at 8,192^2 bf16: two calls differ")
@@ -2197,24 +2023,17 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
             out["main"] = twokernel_rows(res["args"], 10, exp_rate, plain=True)
             out["main"][0]["max_abs_err"] = res["abs"]["dU"]
             out["main"][1]["max_abs_err"] = max(res["abs"]["dV"], res["abs"]["dcol"])
-        if (bq, bk, dt) == (8192, 8192, torch.float32):
-            # the FMA kernels of rows 6 and 7 beside their fp32 yardsticks
-            out["main_fp32"] = twokernel_rows(res["args"], 10, exp_rate, plain=True)
-            out["main_fp32"][0]["max_abs_err"] = res["abs"]["dU"]
-            out["main_fp32"][1]["max_abs_err"] = max(res["abs"]["dV"], res["abs"]["dcol"])
         del res
     log(f"rows 6 and 7 agree with their plain versions: {json.dumps(out['checks'])}")
     out["fwd_dv_edges"] = check_fwd_dv_edges()
     log(f"rows 4 and 7 (tensor cores) agree at their edges: {json.dumps(out['fwd_dv_edges'])}")
     out["du_edges"] = check_du_edges()
     log(f"row 6 (wgmma) agrees at its edges: {json.dumps(out['du_edges'])}")
-    out["fp32_route"] = check_fp32_route(exp_rate)
-    log(f"fp32 {FP32_PAST_CAP_BATCH}^2 takes the fused kernel; rows 6 + 7 agree: "
+    out["fp32_route"] = check_fp32_route()
+    log(f"fp32 {FP32_PAST_CAP_BATCH}^2 takes the fused kernel: "
         f"{json.dumps(out['fp32_route'])}")
 
     bq, bk, d = ABOVE_CAP
-    route = F.bwd_route(bq, bk, d, True)
-    check(route == "twokernel", f"{bq} x {bk}: route {route}, want twokernel")
     u, v, c, ids_q, ids_k, pos, gr = _flash_args(bq, bk, d, torch.bfloat16, SEED + 13,
                                                  n_ids=GIANT_ITEMS)
     what = f"above the cap, {bq} x {bk}"
@@ -2237,7 +2056,7 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
                         "device_ms": dev_ms, "kernel_device_ms": dev_kernel_ms}
     args = (u, v, c, ids_q, ids_k, pos, ref_lse, gr)
     n_du, n_dv = F.flash_ce_bwd_du.launches, F.flash_ce_bwd_dv.launches
-    two = F.flash_ce_bwd_twokernel(*args)
+    two = F.flash_ce_bwd(*args)  # the route of bf16 operands: rows 6 and 7
     du_again, dv_again = F.flash_ce_bwd_du(*args), F.flash_ce_bwd_dv(*args)
     moved = (F.flash_ce_bwd_du.launches - n_du, F.flash_ce_bwd_dv.launches - n_dv)
     check(moved == (2, 2), f"{what}: launches of rows 6 and 7 {moved}, want (2, 2)")
@@ -2245,33 +2064,24 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
     check(all(bool(torch.equal(a, b)) for a, b in zip(two[1:], dv_again)),
           f"{what}: two row 7 calls differ")
     del du_again, dv_again
-    fused = F.flash_ce_bwd_fused(*args)
     torch.cuda.synchronize()
     want = []
     plain_ms = {"du": time_ms(lambda: want.append(F.flash_ce_bwd_du_reference(*args)), 1, 0),
                 "dv": time_ms(lambda: want.extend(F.flash_ce_bwd_dv_reference(*args)), 1, 0)}
-    errs = {}
+    check(all(bool(torch.isfinite(t).all()) for t in two), f"{what}: rows 6 and 7: non-finite")
+    two_abs = dict(zip(("dU", "dV", "dcol"), (float((a - b).abs().max())
+                                               for a, b in zip(two, want))))
+    rel_err = _errs(two, want)[1]
     tols = (FLASH_BF16_GRAD_TOL, FLASH_BF16_GRAD_TOL, FLASH_TOL)
-    for label, got, ref in (("two-kernel vs plain", two, want),
-                            ("fused vs plain", fused, want),
-                            ("two-kernel vs fused", two, fused)):
-        check(all(bool(torch.isfinite(t).all()) for t in got), f"{what}: {label}: non-finite")
-        abs_err = [float((a - b).abs().max()) for a, b in zip(got, ref)]
-        rel_err = _errs(got, ref)[1]
-        for name, err, tol in zip(("dU", "dV", "dcol"), rel_err, tols):
-            check(err <= tol, f"{what}: {label}: {name} err {err} of max|ref| > {tol}")
-        errs[label] = {"abs": dict(zip(("dU", "dV", "dcol"), abs_err)),
-                       "rel": dict(zip(("dU", "dV", "dcol"), rel_err))}
-    del two, fused, want
+    for name, err, tol in zip(("dU", "dV", "dcol"), rel_err, tols):
+        check(err <= tol, f"{what}: rows 6 and 7: {name} err {err} of max|ref| > {tol}")
+    del two, want
     torch.cuda.empty_cache()
-    above = {"shape": {"Bq": bq, "Bk": bk, "D": d, "dtype": "bfloat16"}, "route": route,
-             "fused_plan": F.bwd_plan(bq, bk, d, True, torch.cuda.get_device_properties(0)
-                                      .multi_processor_count)._asdict(),
+    above = {"shape": {"Bq": bq, "Bk": bk, "D": d, "dtype": "bfloat16"},
              "fwd_vs_plain": {"abs": fwd_abs, "rel": dict(zip(("lse", "pos_logit"), fwd_rel))},
-             **errs}
-    torch.cuda.empty_cache()
+             "two-kernel vs plain": {"abs": two_abs,
+                                     "rel": dict(zip(("dU", "dV", "dcol"), rel_err))}}
     out["above"] = twokernel_rows(args, 1, exp_rate, plain=False)
-    two_abs = errs["two-kernel vs plain"]["abs"]
     for row, kind, err in zip(out["above"], ("du", "dv"),
                               (two_abs["dU"], max(two_abs["dV"], two_abs["dcol"]))):
         row.update(plain_ms=plain_ms[kind], max_abs_err=err)
@@ -2279,8 +2089,6 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
     log(f"above the cap: {json.dumps(above)}")
     del args, u, v
     torch.cuda.empty_cache()
-    out["routes"] = time_routes(torch.bfloat16)
-    out["routes_fp32"] = time_routes(torch.float32)
     return out
 
 
@@ -2473,7 +2281,6 @@ def card_vs_cpu_scale(tmp: str) -> dict:
              "train/movie_id": rng.choice(n_items, rows, p=pop).astype(np.int32),
              "train/rating": rating, "train/y_implicit": (rating >= 4).astype(np.float32)}
     cw = balanced_class_weights(small["train/y_implicit"])
-    check(F.bwd_route(b, b + cache, 32, True) == "twokernel", "card vs CPU: not on rows 6 and 7")
     runs = {}
     for device in ("cuda", "cpu"):
         F.flash_ce_bwd_du.launches = F.flash_ce_bwd_dv.launches = 0
@@ -4367,9 +4174,9 @@ def data_parallel_path(repo: str, counters, tmp: str, bundle_np: dict) -> dict:
 DEBUG_ROWS = {2: ("dcn_cross", ("dcn_cross_fwd_kernel",)),
               3: ("dcn_cross_bwd", ("dcn_cross_bwd_kernel", "dcn_cross_bwd_smem_kernel")),
               4: ("flash_ce_fwd", ("flash_ce_fwd_kernel", "flash_ce_fwd_tc_kernel")),
-              5: ("flash_ce_bwd_fused", ("flash_ce_bwd_kernel", "flash_ce_bwd_tc_kernel")),
-              6: ("flash_ce_bwd_du", ("flash_ce_bwd_du_kernel", "flash_ce_bwd_du_wgmma_kernel")),
-              7: ("flash_ce_bwd_dv", ("flash_ce_bwd_dv_kernel", "flash_ce_bwd_dv_wgmma_kernel"))}
+              5: ("flash_ce_bwd_fused", ("flash_ce_bwd_kernel",)),
+              6: ("flash_ce_bwd_du", ("flash_ce_bwd_du_wgmma_kernel",)),
+              7: ("flash_ce_bwd_dv", ("flash_ce_bwd_dv_wgmma_kernel",))}
 # phase 18's user table, padded to 4 row ranges
 CKPT_TABLE_ROWS, CKPT_RANGES = GIANT_USERS + 4, 4
 
@@ -4901,11 +4708,8 @@ def main() -> int:
     dcn_bwd_edges = check_train_edges()
     fp32_edges = check_fp32_bwd_edges()
     log(f"row 5 fp32 agrees with its plain version at its edges: {json.dumps(fp32_edges)}")
-    fp32_du_fwd_edges = check_fp32_du_fwd_edges()
-    log(f"rows 4 and 6 fp32 agree with their plain versions at their edges: "
-        f"{json.dumps(fp32_du_fwd_edges)}")
-    fp32_dv_edges = check_fp32_dv_edges()
-    log(f"row 7 fp32 agrees with its plain version at its edges: {json.dumps(fp32_dv_edges)}")
+    fp32_fwd_edges = check_fp32_fwd_edges()
+    log(f"row 4 fp32 agrees with its plain version at its edges: {json.dumps(fp32_fwd_edges)}")
     counters += [Counter("flash_ce_fwd", flash_mod.flash_ce_fwd),
                  Counter("flash_ce_bwd_fused", flash_mod.flash_ce_bwd_fused),
                  Counter("flash_ce_bwd_du", flash_mod.flash_ce_bwd_du),
@@ -4959,7 +4763,8 @@ def main() -> int:
     dcn_bwd_rows = [measure_dcn_bwd(n, iters=50) for n in (2048, TRAIN_BATCH)]
     for fwd, bwd in flash_rows.values():
         log(f"kernel flash_ce_fwd {json.dumps(fwd)}")
-        log(f"kernel flash_ce_bwd_fused {json.dumps(bwd)}")
+        if bwd:
+            log(f"kernel flash_ce_bwd_fused {json.dumps(bwd)}")
     for row in dcn_bwd_rows:
         log(f"kernel dcn_cross_bwd {json.dumps(row)}")
     train_profiles = profile_train_steps(bundle_np)
@@ -4998,7 +4803,7 @@ def main() -> int:
     # ---- giant-table, large-batch training: the fourth main path ----------
     t_giant = time.perf_counter()
     twokernel = twokernel_phases(sm_clock)
-    for row in twokernel["main"] + twokernel["main_fp32"] + twokernel["above"]:
+    for row in twokernel["main"] + twokernel["above"]:
         log(f"kernel two-kernel backward {json.dumps(row)}")
     t0 = time.perf_counter()
     giant_np = giant_bundle(SEED + 11)
@@ -5094,7 +4899,7 @@ def main() -> int:
     main_dcn = dcn_rows[-1]
     main_fwd = flash_rows[(TRAIN_BATCH, torch.bfloat16)][0]
     fp32_fwd, main_bwd = flash_rows[(TRAIN_BATCH, torch.float32)]  # the fused kernel's path
-    main_bwd_plan = flash_mod.bwd_plan(TRAIN_BATCH, TRAIN_BATCH, 128, False,
+    main_bwd_plan = flash_mod.bwd_plan(TRAIN_BATCH, TRAIN_BATCH, 128,
                                        torch.cuda.get_device_properties(0)
                                        .multi_processor_count)._asdict()
     main_dcn_bwd = dcn_bwd_rows[-1]
@@ -5158,7 +4963,7 @@ def main() -> int:
                    "128-bit register-tiled S, thread-private running (m, l), fwd_plan parts)",
          "fp32": {k: fp32_fwd[k] for k in keys + speed},
          "fp32_plan": flash_mod.fwd_plan(TRAIN_BATCH, TRAIN_BATCH, False, n_sm, 128)._asdict(),
-         "fp32_edges": fp32_du_fwd_edges,
+         "fp32_edges": fp32_fwd_edges,
          "launches_fp32_epoch": fp32_launches["flash_ce_fwd"],
          "launches_giant": giant_launches["flash_ce_fwd"],
          "launches_dense_path": dense_launches["flash_ce_fwd"],
@@ -5174,20 +4979,20 @@ def main() -> int:
          "launches": fp32_launches["flash_ce_bwd_fused"],
          **{k: main_bwd[k] for k in keys + speed},
          "kernel": "flash_ce_bwd_kernel (fp32, FMA units, 128-bit register-tiled products "
-                   "on bwd_plan; the bf16 route takes rows 6 + 7); flash_ce_bwd_tc_kernel "
-                   "(bf16, mma.sync) is timed beside it",
+                   "on bwd_plan; the bf16 route takes rows 6 + 7)",
          "plan": main_bwd_plan,
          "fp32_epoch_steps_per_s": fp32_trained["steps_per_s"][-1],
          "fp32_edges": fp32_edges,
          "launches_data_parallel": dp_launches["flash_ce_bwd_fused"],
          "offset_positives": dp["offset_rows"]["fp32_rows_4_5"],
-         "shape": main_bwd["shape"], "shapes": [r[1] for r in flash_rows.values()]},
+         "fp32_route_past_tpu_cap": twokernel["fp32_route"],
+         "shape": main_bwd["shape"], "shapes": [r[1] for r in flash_rows.values() if r[1]]},
         {"name": "blockmax", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/blockmax.cu",
          "replaces": "recsys_tpu/ops/pallas/topk_flash.py:274",
          "launches": approx_launches["blockmax"],
          **{k: blockmax_rows[1][k] for k in keys + speed},
-         "kernel": "blockmax_tc_kernel (bf16, mma.sync); blockmax_kernel serves fp32",
+         "kernel": "blockmax_tc_kernel (bf16, mma.sync)",
          "shape": blockmax_rows[1]["shape"], "shapes": blockmax_rows},
     ]
     for i, (name, line) in enumerate((("flash_ce_bwd_du", 188), ("flash_ce_bwd_dv", 218))):
@@ -5201,31 +5006,17 @@ def main() -> int:
             "launches_negatives_streaming": {r: negs[r]["launches"][name] for r in neg_runs},
             "launches_data_parallel": dp_launches[name],
             "offset_positives": dp["offset_rows"]["bf16_rows_4_6_7"],
-            "fp32": {k: twokernel["main_fp32"][i][k] for k in keys + speed},
             "shape": main_row["shape"], "shapes": [main_row, twokernel["above"][i]]})
-    fp32_route = twokernel["fp32_route"]
     kernels[-2].update(kernel="flash_ce_bwd_du_wgmma_kernel (bf16, wgmma fed by TMA, a "
                               "producer warpgroup and two consumers in ping-pong, du_plan "
-                              "parts); flash_ce_bwd_du_kernel serves fp32 (FMA units, 128-bit "
-                              "register-tiled S and dU, du_plan parts)",
-                       fp32_edges=fp32_du_fwd_edges,
-                       fp32_plan=flash_mod.du_plan(TRAIN_BATCH, TRAIN_BATCH, 128, False,
-                                                   n_sm)._asdict(),
-                       fp32_route_shape=fp32_route["du"])
-    kernels[-1].update(fp32_route_shape=fp32_route["dv"], fp32_new_kernel=True,
-                       fp32_edges=fp32_dv_edges,
-                       fp32_plan=flash_mod.dv_plan(TRAIN_BATCH, TRAIN_BATCH, 128, False,
-                                                   n_sm)._asdict())
+                              "parts)")
+    kernels[-1].update(kernel="flash_ce_bwd_dv_wgmma_kernel (bf16, wgmma fed by TMA, a "
+                              "producer warpgroup and two consumers in ping-pong, dv_plan "
+                              "parts)")
     # launches per step of each fp32 kernel on the two timed fp32 steps
-    for entry, label in ((kernels[3], "row4_fwd"), (kernels[4], "row5_fused"),
-                         (kernels[-2], "row6_du"), (kernels[-1], "row7_dv")):
+    for entry, label in ((kernels[3], "row4_fwd"), (kernels[4], "row5_fused")):
         entry["fp32_launches_per_step"] = {name: r["group_launches"][label]
                                            for name, r in fp32_steps.items()}
-    kernels[-1].update(kernel="flash_ce_bwd_dv_wgmma_kernel (bf16, wgmma fed by TMA, a "
-                              "producer warpgroup and two consumers in ping-pong); "
-                              "flash_ce_bwd_dv_kernel serves fp32 (FMA units, the fused "
-                              "kernel's S/P/dV body, double-buffered query tiles, dv_plan "
-                              "parts)")
     for entry in kernels:  # phase 27's loss with the lookups, phase 28's epoch
         entry["launches_rows_lookup"] = rows_lookup["loss"]["launches"][entry["name"]]
         entry["launches_debug"] = debug_modes["epoch"]["launches"][entry["name"]]
@@ -5242,8 +5033,10 @@ def main() -> int:
 
 AB_TOPK_SHAPES = [(1, N_ITEMS, 10), (1, N_ITEMS, RERANK), (BATCH_USERS, N_ITEMS, 10),
                   (BATCH_USERS, N_ITEMS, RERANK), (4096, 1 << 20, 10)]
+# row 4, and row 5 for fp32 operands (bf16 ones take rows 6 and 7): (B, dtype), D = 128
 AB_FLASH_SHAPES = [(4096, "bfloat16"), (TRAIN_BATCH, "bfloat16"), (TRAIN_BATCH, "float32")]
-# rows 6 (dU) and 7 (dV, dcol) and the forward (row 4): (Bq, Bk, dtype), D = 128
+# the forward (row 4) and rows 6 (dU) and 7 (dV, dcol) (bf16 only):
+# (Bq, Bk, dtype), D = 128
 AB_TWOKERNEL_SHAPES = [(TRAIN_BATCH, TRAIN_BATCH, "bfloat16"), (4096, 20_480, "bfloat16"),
                        (32_768, 65_536, "bfloat16"),
                        (*ABOVE_CAP[:2], "bfloat16"), (TRAIN_BATCH, TRAIN_BATCH, "float32"),
@@ -5303,10 +5096,11 @@ def time_kernels(tree: str) -> dict:
         pos = torch.arange(b, device="cuda", dtype=torch.int32)
         gr = torch.rand((b,), generator=g, device="cuda") / b
         lse, _ = F.flash_ce_fwd(u, v, c, ids, ids, pos)
-        fn = lambda: F.flash_ce_bwd_fused(u, v, c, ids, ids, pos, lse, gr)
-        out["flash_bwd"].append({"B": b, "dtype": dt, **_timed(fn, 10, "flash_ce_bwd_"),
-                                 "library_ms": time_ms(
-                                     lambda: _dense_softmax_bwd(u, v, c, gr), 10)})
+        if dt == "float32":
+            fn = lambda: F.flash_ce_bwd_fused(u, v, c, ids, ids, pos, lse, gr)
+            out["flash_bwd"].append({"B": b, "dtype": dt, **_timed(fn, 10, "flash_ce_bwd_"),
+                                     "library_ms": time_ms(
+                                         lambda: _dense_softmax_bwd(u, v, c, gr), 10)})
         fwd = lambda: F.flash_ce_fwd(u, v, c, ids, ids, pos)
         out["flash_fwd"].append({"B": b, "dtype": dt, **_timed(fwd, 10, "flash_ce_fwd_"),
                                  "library_ms": time_ms(
@@ -5321,22 +5115,25 @@ def time_kernels(tree: str) -> dict:
         shape = {"Bq": bq, "Bk": bk, "D": 128, "dtype": dt}
         out["flash_fwd_row4"].append({**shape, **_timed(
             lambda: F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos), iters, "flash_ce_fwd_")})
-        row6 = {**shape, **_timed(lambda: F.flash_ce_bwd_du(*args), iters, "flash_ce_bwd_du_")}
-        if bq * bk <= TRAIN_BATCH ** 2:
-            row6["library_ms"] = time_ms(lambda: (torch.softmax(torch.matmul(u, v.T) + c, dim=1)
-                                                  * gr[:, None]).to(u.dtype) @ v, iters)
-        out["row6_du"].append(row6)
-        row7 = {**shape, **_timed(lambda: F.flash_ce_bwd_dv(*args), iters, "flash_ce_bwd_dv_")}
         if bq * bk <= TRAIN_BATCH ** 2:
             out["flash_fwd_row4"][-1]["library_ms"] = time_ms(
                 lambda: torch.logsumexp(torch.matmul(u, v.T) + c, dim=1), iters)
+        if dt == "bfloat16":
+            row6 = {**shape, **_timed(lambda: F.flash_ce_bwd_du(*args), iters,
+                                      "flash_ce_bwd_du_")}
+            row7 = {**shape, **_timed(lambda: F.flash_ce_bwd_dv(*args), iters,
+                                      "flash_ce_bwd_dv_")}
+            if bq * bk <= TRAIN_BATCH ** 2:
+                row6["library_ms"] = time_ms(lambda: (torch.softmax(
+                    torch.matmul(u, v.T) + c, dim=1) * gr[:, None]).to(u.dtype) @ v, iters)
 
-            def row7_library():
-                p = torch.softmax(torch.matmul(u, v.T) + c, dim=1) * gr[:, None]
-                return p.to(u.dtype).T @ u, p.sum(dim=0)
+                def row7_library():
+                    p = torch.softmax(torch.matmul(u, v.T) + c, dim=1) * gr[:, None]
+                    return p.to(u.dtype).T @ u, p.sum(dim=0)
 
-            row7["library_ms"] = time_ms(row7_library, iters)
-        out["row7_dv"].append(row7)
+                row7["library_ms"] = time_ms(row7_library, iters)
+            out["row6_du"].append(row6)
+            out["row7_dv"].append(row7)
         del u, v, args
         torch.cuda.empty_cache()
     n_layers = 3

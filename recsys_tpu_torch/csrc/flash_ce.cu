@@ -28,16 +28,11 @@
 // the tensor-core bound is 0.017 ms forward and the Bq*Bk exps on the
 // special-function units take about as long.
 //   Every kernel of bf16 operands runs its products on the tensor cores.
-// The forward (flash_ce_fwd_tc_kernel, row 4) and the fused backward
-// (flash_ce_bwd_tc_kernel, row 5) run warp-level mma.sync.m16n8k16 bf16
-// with fp32 sums (mma_bf16.cuh), operands fed by ldmatrix (.trans where the
-// product needs the transposed tile) from bf16 tiles in shared memory, the
-// next tile loaded by cp.async while the current one computes: a first
-// tensor-core design that a warp owns from fragment to result, so that P^T
-// (row 5), computed in a warp's accumulators, feeds the next product from
-// registers (the FlashAttention-2 layout identity between an m16n8
-// accumulator pair and an m16k16 A fragment). mma.sync cannot reach
-// Hopper's dense tensor-core rate; only wgmma can. The dV/dcol kernel
+// The forward (flash_ce_fwd_tc_kernel, row 4) runs warp-level
+// mma.sync.m16n8k16 bf16 with fp32 sums (mma_bf16.cuh), operands fed by
+// ldmatrix from bf16 tiles in shared memory, the next tile loaded by
+// cp.async while the current one computes. mma.sync cannot reach Hopper's
+// dense tensor-core rate; only wgmma can. The dV/dcol kernel
 // (flash_ce_bwd_dv_wgmma_kernel, row 7) and the dU kernel
 // (flash_ce_bwd_du_wgmma_kernel, row 6), the backward of every bf16
 // training step, are the Hopper design (hopper.cuh), one the other with the
@@ -61,25 +56,22 @@
 // slots as the products take tensor-core time (ex2.approx instead of expf
 // measured 11% faster on row 7, at other last bits of p). So no tile is
 // multicast to a cluster of blocks: the ~70 GB of tiles a call reads
-// through L2 at 131,072 x 262,144 (~1.9 TB/s) do not set the pace. The
-// fused kernel's other limit is bytes: the dU partials (see below); bf16
-// operands no longer take it (ops/flash_ce.py::bwd_route).
+// through L2 at 131,072 x 262,144 (~1.9 TB/s) do not set the pace.
 //   The kernels of fp32 operands run every product on the fp32 FMA units
 // (fp32 operands must meet a 1e-5 contract, which TF32 tensor cores
 // cannot), bound by the fp32 instruction rate and, where a thread's
 // register tile is small, by shared-memory loads (an SM reads 32 floats
-// of shared memory a clock and retires 128 FMAs). Every one of them (the
-// forward, row 4; the fused backward, row 5; the dU kernel, row 6; the dV
-// kernel, row 7) reads 128-bit rows of one row-major layout in shared
-// memory into register tiles of 8 x 8 (or 8 x 4) outputs per thread, laid
-// out so that no load meets a bank conflict (grid_col / grid_row, rows
-// padded by 4 or 8 floats): four FMAs per float loaded, the rate at which
-// shared memory keeps the FMA units fed; s_product is their shared logits
-// product. Each holds one 8-warp block of ~170-250 registers a thread per
-// SM. The dV kernel is the fused kernel without its dU product: both run
-// one candidate-major body (Fp32Cand, bwd_tile_dv, store_dv_dcol). What
-// every kernel keeps from the TPU kernels is the memory side: the logits
-// never leave the chip.
+// of shared memory a clock and retires 128 FMAs). Both (the forward, row
+// 4; the fused backward, row 5, the backward of every fp32 training step)
+// read 128-bit rows of one row-major layout in shared memory into register
+// tiles of 8 x 8 outputs per thread, laid out so that no load meets a bank
+// conflict (grid_col / grid_row, rows padded by 4 or 8 floats): four FMAs
+// per float loaded, the rate at which shared memory keeps the FMA units
+// fed; s_product is their shared logits product. Each holds one 8-warp
+// block of ~170-250 registers a thread per SM. The fused kernel's other
+// limit is bytes: the dU partials (see below). What every kernel keeps
+// from the TPU kernels is the memory side: the logits never leave the
+// chip.
 //
 // Design, and how it departs from the TPU kernels:
 // * Forward, bf16: 64 query rows a block, 16 a warp, U's A fragments in
@@ -100,53 +92,35 @@
 //   through shared memory in a fixed order by the combine kernel's formula.
 //   Parts as for bf16 (fwd_plan: 8 at 8,192^2, one block per SM), folded
 //   by the same combine kernel.
-// * Fused backward, bf16: grid (n_spans, parts, DP / DN). A block owns
-//   tiles_per_block consecutive 128-candidate tiles (one while the
-//   partials fit the wrapper's cap) and sweeps the 64-row query tiles of
-//   its part of the query axis; the parts (blockIdx.y) fill the card where
-//   the candidate spans alone would not (8,192^2: 64 spans x 4 parts). Each
-//   block writes the dU of its own query rows into its span's partial
-//   du_part[x] ([n_spans, Bq, D]: 268 MB at 8,192^2) and its dV and dcol
-//   into [parts, Bk, D] / [parts, Bk]; the wrapper sums each over its first
-//   axis with torch.sum, as the TPU wrapper sums its dU partials with
-//   jnp.sum. No atomics: two calls give the same bits.
-// * Fused backward, fp32 (the route of fp32 operands at every shape): the
-//   bf16 kernel's plan and partials (grid (n_spans, parts); 64 spans x 4
-//   parts at 8,192^2), re-split where the FMA kernel's one block per SM
-//   would leave the last wave thin (ops/flash_ce.py::_fp32_waves: 20,000^2
-//   runs 157 spans x 5 parts, not x 1), over tiles of 128 candidates x 128
-//   query rows (64 x 64 at DP = 256, where 128 would not fit 227 KB of
-//   shared memory; the plan's 64-row query tiles are taken two at a time).
-//   The block stages its candidate tile once; each query tile is copied by
-//   cp.async into one buffer, the next tile's copy running under the dU
-//   product. Three products (S = U V^T, dV += P^T U, dU = P V), P through
-//   shared memory once per (i, j), between the S product and the other two.
-// * Two-kernel backward (every bf16 backward; fp32 operands only when
-//   called directly): the dU kernel's block owns a query tile and sweeps the
-//   candidate tiles of its part, keeping its fp32 dU in registers and
-//   writing it once; the dV kernel's block owns a candidate tile and sweeps
-//   the query tiles, keeping dV_j and dcol_j in registers. Nothing crosses
-//   blocks, so neither needs atomics; the TPU's sequential grid axis
-//   becomes each block's loop. Where the tiles of the block's own axis
-//   alone would leave the card thin (8,192 rows), the swept axis splits
-//   into parts (the wrapper's du_plan and dv_plan) whose partials the
-//   wrapper sums in a fixed order. The bf16 kernels (rows 6 and 7 on
-//   wgmma): 128-row blocks of their own axis and 128-row tiles of the
-//   swept one, the sweep split into parts by waves of one block per SM
-//   (du_plan and dv_plan: 2 parts at 8,192^2, one at 131,072 x 262,144).
-//   The fp32 dU kernel: 128 query rows a block (64 at DP = 256) with their
-//   lse, g, ids and positives, 64-candidate tiles double-buffered by
-//   cp.async, S on 8 x 4 register tiles, P = exp(S - lse) g (fp32)
-//   through shared memory, dU += P V on an 8 x 8 register tile that lives
-//   across the sweep (du_plan: 8 parts at
-//   8,192^2, one block per SM). The fp32 dV kernel: the fused kernel's
-//   candidate tiles (128, 64 at DP = 256) resident, 64-row query tiles
-//   with their lse, g, ids and positives double-buffered by cp.async, S on
-//   4 x 8 register tiles, P through shared memory, dV on the fused
-//   kernel's 8 x 8 tile across the sweep, dcol in registers (dv_plan: the
-//   query sweep split into parts by waves of one block per SM). The two
-//   routes sum in other orders, so they agree within the stated
-//   tolerances, not bit for bit.
+// * Fused backward (the route of fp32 operands at every shape): grid
+//   (n_spans, parts). A block owns tiles_per_block consecutive candidate
+//   tiles of 128 (64 at DP = 256, where 128 would not fit 227 KB of shared
+//   memory; one tile a block while the partials fit the wrapper's cap) and
+//   sweeps the query rows of its part of the query axis, 128 (64 at DP =
+//   256) at a time, the plan's 64-row query tiles taken two at a time. The
+//   parts (blockIdx.y) fill the card where the candidate spans alone would
+//   not (the wrapper's bwd_plan: 64 spans x 4 parts at 8,192^2, re-split
+//   where one block per SM would leave the last wave thin: 20,000^2 runs
+//   157 spans x 5 parts, not x 1). The block stages its candidate tile
+//   once; each query tile is copied by cp.async into one buffer, the next
+//   tile's copy running under the dU product. Three products (S = U V^T,
+//   dV += P^T U, dU = P V), P through shared memory once per (i, j),
+//   between the S product and the other two. Each block writes the dU of
+//   its own query rows into its span's partial du_part[x] ([n_spans, Bq,
+//   D]) and its dV and dcol into [parts, Bk, D] / [parts, Bk]; the wrapper
+//   sums each over its first axis with torch.sum, as the TPU wrapper sums
+//   its dU partials with jnp.sum. No atomics: two calls give the same bits.
+// * Two-kernel backward (every bf16 backward, rows 6 and 7 on wgmma): the
+//   dU kernel's block owns a query block and sweeps the candidate tiles of
+//   its part, keeping its fp32 dU in registers and writing it once; the dV
+//   kernel's block owns a candidate block and sweeps the query tiles,
+//   keeping dV_j and dcol_j in registers. Nothing crosses blocks, so
+//   neither needs atomics; the TPU's sequential grid axis becomes each
+//   block's loop. 128-row blocks of their own axis and 128-row tiles of the
+//   swept one; where the blocks alone would leave the card thin (8,192
+//   rows), the swept axis splits into parts by waves of one block per SM
+//   (the wrapper's du_plan and dv_plan: 2 parts at 8,192^2, one at 131,072
+//   x 262,144) whose partials the wrapper sums in a fixed order.
 // * The TPU wrapper asserts that its tiles divide the batch; here rows
 //   past Bq and candidates past Bk are masked, so any Bq, Bk work.
 // * D is padded to DP in {32, 64, 128, 256} with zeros in shared memory;
@@ -256,7 +230,7 @@ __device__ __forceinline__ void s_product(const float* A, const float* B, int sr
 }
 
 // candidate tile kt (KT rows of v) into buffer buf of Vs [2][KT][LD], and
-// its colcorr and ids_k into cs, ks [2][KT], 0 past bk: rows 4 and 6
+// its colcorr and ids_k into cs, ks [2][KT], 0 past bk: row 4
 template <int DP, int KT, int LD>
 __device__ __forceinline__ void stage_candidates(float* Vs, float* cs, int* ks, int buf, int kt,
                                                  const float* __restrict__ v,
@@ -272,18 +246,17 @@ __device__ __forceinline__ void stage_candidates(float* Vs, float* cs, int* ks, 
   }
 }
 
-// ---- rows 5 and 7 in fp32: the candidate-major body on the FMA units -------
+// ---- row 5 in fp32: the fused backward on the FMA units -------------------
 
-// The tiling of a block that owns KC candidates and sweeps query tiles of
-// TQF rows, at padded width DP (the fp32 fused backward and the fp32 dV
-// kernel): candidate tiles of 128 (64 at DP = 256, where 128 would not fit
-// 227 KB of shared memory beside the query tiles), and the register tile
-// per thread of the S and dV products.
-template <int DP, int TQF_>
-struct Fp32Cand {
+// The tiling of row 5 at padded width DP: a block owns candidate tiles of
+// KC = 128 and sweeps query tiles of TQF = 128 rows (64 and 64 at DP = 256,
+// where 128 would not fit 227 KB of shared memory), one buffer, and the
+// register tile per thread of the S (8 x 8, or 4 x 4), dV and dU products.
+template <int DP>
+struct Fp32Bwd {
   static constexpr int W = DP;
   static constexpr int KC = DP < 256 ? 128 : 64;
-  static constexpr int TQF = TQF_;
+  static constexpr int TQF = DP < 256 ? 128 : 64;
   static constexpr int LD = DP + 4;   // floats per U and V row in shared memory
   static constexpr int LDP = KC + 8;  // floats per P row
   // S = U V^T [TQF x KC]: rows sr + 16i, candidates sc + 16j
@@ -293,31 +266,13 @@ struct Fp32Cand {
   static constexpr int V_CN = KC / 4 / V_CG, V_FN = DP / 4 / V_FG;
   static_assert(V_CN * V_CG * 4 == KC && V_FN * V_FG * 4 == DP, "dV tiling");
   static_assert(16 * KC <= TQF * LDP && TQF <= THREADS, "dcol reduction, row staging");
-};
-
-// Row 5's tiles: query tiles of 128 rows (64 at DP = 256: S 8 x 8, or 4 x
-// 4), one buffer, and the dU product's register tile.
-template <int DP>
-struct Fp32Bwd : Fp32Cand<DP, (DP < 256 ? 128 : 64)> {
-  using C = Fp32Cand<DP, (DP < 256 ? 128 : 64)>;
   // dU [TQF x DP]: rows ur + U_RG i, columns 4 (uf + U_FG t) + e
   static constexpr int U_FG = DP / 4 < 16 ? DP / 4 : 16, U_RG = THREADS / U_FG;
-  static constexpr int U_RM = C::TQF / U_RG, U_FN = DP / 4 / U_FG;
-  static_assert(U_RM * U_RG == C::TQF && U_FN * U_FG * 4 == DP, "dU tiling");
+  static constexpr int U_RM = TQF / U_RG, U_FN = DP / 4 / U_FG;
+  static_assert(U_RM * U_RG == TQF && U_FN * U_FG * 4 == DP, "dU tiling");
   static constexpr size_t smem() {
-    return sizeof(float) * ((C::KC + C::TQF) * C::LD + C::TQF * C::LDP) +
-           C::TQF * (2 * sizeof(float) + 2 * sizeof(int));
-  }
-};
-
-// Row 7's tiles: query tiles of 64 rows (S 4 x 8, or 4 x 4 at DP = 256),
-// two buffers, so the next tile's copy runs under this tile's products.
-template <int DP>
-struct Fp32Dv : Fp32Cand<DP, 64> {
-  using C = Fp32Cand<DP, 64>;
-  static constexpr size_t smem() {
-    return sizeof(float) * ((C::KC + 2 * C::TQF) * C::LD + C::TQF * C::LDP) +
-           2 * C::TQF * (2 * sizeof(float) + 2 * sizeof(int));
+    return sizeof(float) * ((KC + TQF) * LD + TQF * LDP) +
+           TQF * (2 * sizeof(float) + 2 * sizeof(int));
   }
 };
 
@@ -343,7 +298,7 @@ __device__ __forceinline__ void begin_candidates(const float* __restrict__ colco
     for (int b = 0; b < 4 * T::V_FN; ++b) dv[a][b] = 0.f;
 }
 
-// One query tile of rows 5 and 7, the tile's rows Us [TQF][LD] from q0
+// One query tile of row 5, the tile's rows Us [TQF][LD] from q0
 // and their lse, g, ids and positives in shared memory, the candidates Vs
 // [KC][LD] from k0:
 //   S = U_i V^T from 128-bit loads of rows along the feature axis (rows sr
@@ -351,7 +306,7 @@ __device__ __forceinline__ void begin_candidates(const float* __restrict__ colco
 //   P = exp(S - lse) g (masked_logit, 0 past row_end and past bk) into Ps
 //   [TQF][LDP], fp32 (no rounding, as the plain version of fp32 operands),
 //   its column sums into dcol;
-//   once P is whole, dV += P^T U_i (dV as Fp32Cand lays it out).
+//   once P is whole, dV += P^T U_i (dV as Fp32Bwd lays it out).
 // The caller has made the tile and its rows visible, and every reader of
 // Ps from the tile before done (one __syncthreads covers both).
 template <class T>
@@ -448,8 +403,8 @@ __device__ __forceinline__ void store_dv_dcol(float* Ps, const float (&dcol)[T::
   }
 }
 
-// The fused backward of fp32 operands on the FMA units, on the bf16
-// kernel's plan. Grid (n_spans, parts): block (x, y) owns tiles_per_block
+// The fused backward of fp32 operands on the FMA units, on the wrapper's
+// bwd_plan. Grid (n_spans, parts): block (x, y) owns tiles_per_block
 // consecutive KC-candidate tiles and sweeps the query rows of part y
 // (q_tiles_per_part of the plan's 64-row tiles) TQF rows at a time, each
 // staged by cp.async with its lse, g, ids and positives. Per (query tile
@@ -575,235 +530,6 @@ __global__ void __launch_bounds__(THREADS, 1) flash_ce_bwd_kernel(
   }
 }
 
-// Row 7 of fp32 operands on the FMA units (_bwd_dv_kernel): the fused
-// kernel without its dU product. Grid (candidate tiles, parts): block (x,
-// y) holds candidate tile x (KC rows) in shared memory and sweeps the query
-// rows of part y (q_tiles_per_part tiles of TQF = 64 rows), each tile
-// staged with its lse, g, ids and positives by cp.async into one of two
-// buffers while the other computes. Per query tile, 256 threads run
-// bwd_tile_dv: S, P (its column sums into dcol) and dV += P^T U_i, dV and
-// dcol held in registers over the sweep and written once into dv_part[y]
-// ([parts, Bk, D]) and dcol_part[y] ([parts, Bk]); the wrapper sums the
-// parts in a fixed order, or takes dV and dcol themselves with one part.
-// No atomics: two calls give the same bits.
-template <int DP>
-__global__ void __launch_bounds__(THREADS, 1) flash_ce_bwd_dv_kernel(
-    const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ colcorr,
-    const int* __restrict__ ids_q, const int* __restrict__ ids_k, const int* __restrict__ pos,
-    const float* __restrict__ lse, const float* __restrict__ g, int bq, int bk, int d, int vec,
-    int q_tiles_per_part, float* __restrict__ dv_part, float* __restrict__ dcol_part) {
-  using T = Fp32Dv<DP>;
-  constexpr int KC = T::KC, TQF = T::TQF, LD = T::LD, LDP = T::LDP;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Vs = reinterpret_cast<float*>(smem_raw);     // [KC][LD] the block's candidates
-  float* Us = Vs + KC * LD;                            // [2][TQF][LD] query tiles
-  float* Ps = Us + 2 * TQF * LD;                       // [TQF][LDP] p*g of the tile
-  float* lse_s = Ps + TQF * LDP;                       // [2][TQF]
-  float* g_s = lse_s + 2 * TQF;                        // [2][TQF]
-  int* idq_s = reinterpret_cast<int*>(g_s + 2 * TQF); // [2][TQF]
-  int* pos_s = idq_s + 2 * TQF;                        // [2][TQF]
-
-  const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * KC;
-  const int row_begin = blockIdx.y * q_tiles_per_part * TQF;  // the part's query rows
-  const int row_end = min(bq, row_begin + q_tiles_per_part * TQF);
-
-  auto stage_query_tile = [&](int buf, int q0) {
-    stage_rows_f32<DP, THREADS>(Us + buf * TQF * LD, LD, u, q0, row_end, TQF, d, vec != 0);
-    if (tid < TQF) {
-      const int r = q0 + tid, at = buf * TQF + tid;
-      const bool ok = r < row_end;
-      lse_s[at] = ok ? lse[r] : 0.f;
-      g_s[at] = ok ? g[r] : 0.f;
-      idq_s[at] = ok ? ids_q[r] : 0;
-      pos_s[at] = ok ? pos[r] : -1;
-    }
-  };
-
-  stage_rows_f32<DP, THREADS>(Vs, LD, v, k0, bk, KC, d, vec != 0);
-  if (row_begin < row_end) stage_query_tile(0, row_begin);
-  cp_async_commit();
-  float corr[T::S_RN], dcol_acc[T::S_RN];
-  int kid[T::S_RN];
-  float dv[4 * T::V_CN][4 * T::V_FN];
-  begin_candidates<T>(colcorr, ids_k, k0, bk, corr, kid, dcol_acc, dv);
-
-  for (int q0 = row_begin, it = 0; q0 < row_end; q0 += TQF, ++it) {
-    const int buf = it & 1;
-    cp_async_wait_all();
-    __syncthreads();  // this tile has landed; everyone is done with the other buffer and Ps
-    if (q0 + TQF < row_end) stage_query_tile(buf ^ 1, q0 + TQF);
-    cp_async_commit();
-    bwd_tile_dv<T>(Us + buf * TQF * LD, Vs, Ps, lse_s + buf * TQF, g_s + buf * TQF,
-                   idq_s + buf * TQF, pos_s + buf * TQF, q0, row_end, k0, bk, corr, kid,
-                   dcol_acc, dv);
-  }
-  cp_async_wait_all();  // no copy may outlive the block
-  store_dv_dcol<T>(Ps, dcol_acc, dv, k0, bk, d, vec, blockIdx.y, dv_part, dcol_part);
-}
-
-// ---- row 6 in fp32: the dU kernel on the FMA units -------------------------
-
-// The tiling of row 6 of fp32 operands at padded width DP: blocks of TQF
-// query rows (128; 64 at DP = 256, where 128 would not fit 227 KB of shared
-// memory beside two candidate tiles) sweeping candidate tiles of KT; S on
-// 8 x 4 register tiles (4 x 4 at DP = 256), dU on row 5's layout (8 x 8).
-template <int DP>
-struct Fp32Du {
-  static constexpr int TQF = DP < 256 ? 128 : 64;
-  static constexpr int KT = 64;
-  static constexpr int LD = DP + 4;   // floats per U and V row in shared memory
-  static constexpr int LDP = KT + 8;  // floats per P row
-  static constexpr int S_RM = TQF / 16, S_RN = KT / 16;
-  // dU [TQF x DP]: rows ur + U_RG i, columns 4 (uf + U_FG t) + e
-  static constexpr int U_FG = DP / 4 < 16 ? DP / 4 : 16, U_RG = THREADS / U_FG;
-  static constexpr int U_RM = TQF / U_RG, U_FN = DP / 4 / U_FG;
-  static_assert(U_RM * U_RG == TQF && U_FN * U_FG * 4 == DP, "dU tiling");
-  static_assert(TQF <= THREADS && KT <= THREADS, "row staging");
-  static constexpr size_t smem() {
-    return sizeof(float) * ((TQF + 2 * KT) * LD + TQF * LDP) +
-           (TQF + KT) * 2 * (sizeof(float) + sizeof(int));
-  }
-};
-
-// Row 6 of fp32 operands on the FMA units (_bwd_du_kernel). Grid (query
-// blocks, parts): block (x, y) holds its TQF query rows in shared memory
-// with their lse, g, ids and positives, and sweeps candidate tiles [y *
-// tiles_per_part, (y + 1) * tiles_per_part), each staged with its colcorr
-// and ids by cp.async into one of two buffers while the other computes.
-// Per tile, 256 threads:
-//   S = U V_j^T from 128-bit loads of rows along the feature axis;
-//   P = exp(S - lse) g (masked_logit, 0 past Bq and past Bk) into shared
-//   memory, fp32 (no rounding, as the plain version of fp32 operands);
-//   dU += P V_j, held in registers over the sweep.
-// dU goes to du_part[y] ([parts, Bq, D]) once; the wrapper sums the parts
-// in a fixed order, or takes dU itself with one part. No atomics: two
-// calls give the same bits.
-template <int DP>
-__global__ void __launch_bounds__(THREADS, 1) flash_ce_bwd_du_kernel(
-    const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ colcorr,
-    const int* __restrict__ ids_q, const int* __restrict__ ids_k, const int* __restrict__ pos,
-    const float* __restrict__ lse, const float* __restrict__ g, int bq, int bk, int d, int vec,
-    int tiles_per_part, float* __restrict__ du_part) {
-  using T = Fp32Du<DP>;
-  constexpr int TQF = T::TQF, KT = T::KT, LD = T::LD, LDP = T::LDP;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Us = reinterpret_cast<float*>(smem_raw);    // [TQF][LD] the block's queries
-  float* Vs = Us + TQF * LD;                          // [2][KT][LD] candidate tiles
-  float* Ps = Vs + 2 * KT * LD;                       // [TQF][LDP] p*g of the tile
-  float* lse_s = Ps + TQF * LDP;                      // [TQF]
-  float* g_s = lse_s + TQF;                           // [TQF]
-  float* cs = g_s + TQF;                              // [2][KT] colcorr of the tiles
-  int* idq_s = reinterpret_cast<int*>(cs + 2 * KT);  // [TQF]
-  int* pos_s = idq_s + TQF;                           // [TQF]
-  int* ks = pos_s + TQF;                              // [2][KT] ids_k of the tiles
-
-  const int tid = threadIdx.x;
-  const int sc = grid_col<16>(tid), sr = grid_row<16>(tid);
-  const int uf = grid_col<T::U_FG>(tid), ur = grid_row<T::U_FG>(tid);
-  const int q0 = blockIdx.x * TQF;
-  const int n_kt = (bk + KT - 1) / KT;
-  const int kt_begin = blockIdx.y * tiles_per_part;
-  const int kt_end = min(n_kt, kt_begin + tiles_per_part);
-
-  auto stage_tile = [&](int buf, int kt) {
-    stage_candidates<DP, KT, LD>(Vs, cs, ks, buf, kt, v, colcorr, ids_k, bk, d, vec != 0);
-  };
-
-  stage_rows_f32<DP, THREADS>(Us, LD, u, q0, bq, TQF, d, vec != 0);
-  if (tid < TQF) {
-    const int r = q0 + tid;
-    const bool ok = r < bq;
-    lse_s[tid] = ok ? lse[r] : 0.f;
-    g_s[tid] = ok ? g[r] : 0.f;
-    idq_s[tid] = ok ? ids_q[r] : 0;
-    pos_s[tid] = ok ? pos[r] : -1;
-  }
-  if (kt_begin < kt_end) stage_tile(0, kt_begin);
-  cp_async_commit();
-
-  float du[T::U_RM][4 * T::U_FN];
-#pragma unroll
-  for (int i = 0; i < T::U_RM; ++i)
-#pragma unroll
-    for (int b = 0; b < 4 * T::U_FN; ++b) du[i][b] = 0.f;
-
-  for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
-    const int buf = it & 1, k0 = kt * KT;
-    cp_async_wait_all();
-    __syncthreads();  // this tile has landed; everyone is done with the other buffer and Ps
-    if (kt + 1 < kt_end) stage_tile(buf ^ 1, kt + 1);
-    cp_async_commit();
-    const float* Vb = Vs + buf * KT * LD;
-    const float* cb = cs + buf * KT;
-    const int* kb = ks + buf * KT;
-
-    // S[r][c] = U[r] . V_j[c]: rows sr + 16i, candidates sc + 16j
-    float s[T::S_RM][T::S_RN];
-    s_product<DP, LD, T::S_RM, T::S_RN>(Us, Vb, sr, sc, s);
-
-    // P = exp(S - lse) g into shared memory (fp32: no rounding)
-#pragma unroll
-    for (int i = 0; i < T::S_RM; ++i) {
-      const int rl = sr + 16 * i;
-      const bool rok = q0 + rl < bq;
-      const float lse_r = lse_s[rl], g_r = g_s[rl];
-      const int idq_r = idq_s[rl], pos_r = pos_s[rl];
-#pragma unroll
-      for (int j = 0; j < T::S_RN; ++j) {
-        const int cl = sc + 16 * j;
-        float pg = 0.f;
-        if (rok && k0 + cl < bk) {
-          const float x = masked_logit(s[i][j], cb[cl], idq_r, kb[cl], k0 + cl, pos_r);
-          pg = expf(x - lse_r) * g_r;
-        }
-        Ps[rl * LDP + cl] = pg;
-      }
-    }
-    __syncthreads();  // P is whole
-
-    // dU[r][k] += sum_c P[r][c] V_j[c][k]
-#pragma unroll 1
-    for (int c = 0; c < KT; c += 4) {
-      float4 p[T::U_RM];
-#pragma unroll
-      for (int i = 0; i < T::U_RM; ++i) p[i] = ld4(Ps + (ur + T::U_RG * i) * LDP + c);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float4 x[T::U_FN];
-#pragma unroll
-        for (int t = 0; t < T::U_FN; ++t) x[t] = ld4(Vb + (c + e) * LD + 4 * (uf + T::U_FG * t));
-#pragma unroll
-        for (int i = 0; i < T::U_RM; ++i)
-#pragma unroll
-          for (int b = 0; b < 4 * T::U_FN; ++b)
-            du[i][b] = fmaf(comp(p[i], e), comp(x[b / 4], b % 4), du[i][b]);
-      }
-    }
-  }
-  cp_async_wait_all();  // no copy may outlive the block
-
-  float* du_out = du_part + static_cast<long long>(blockIdx.y) * bq * d;
-#pragma unroll
-  for (int i = 0; i < T::U_RM; ++i) {
-    const int r = q0 + ur + T::U_RG * i;
-    if (r >= bq) continue;
-    float* row = du_out + static_cast<long long>(r) * d;
-#pragma unroll
-    for (int t = 0; t < T::U_FN; ++t) {
-      const int k = 4 * (uf + T::U_FG * t);
-      if (k >= d) continue;
-      if (vec)  // d % 4 == 0: the row's 16-byte chunk
-        *reinterpret_cast<float4*>(row + k) =
-            make_float4(du[i][4 * t], du[i][4 * t + 1], du[i][4 * t + 2], du[i][4 * t + 3]);
-      else
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k + e < d) row[k + e] = du[i][4 * t + e];
-    }
-  }
-}
-
 // ---- row 4 in fp32: the forward on the FMA units ---------------------------
 
 // The tiling of row 4 of fp32 operands at padded width DP: blocks of TQF
@@ -827,7 +553,7 @@ struct Fp32Fwd {
 // and sweeps candidate tiles [y * tiles_per_part, (y + 1) *
 // tiles_per_part), each staged with its colcorr and ids by cp.async into
 // one of two buffers while the other computes. Per tile, 256 threads:
-//   S = U V_j^T from 128-bit loads, as row 6;
+//   S = U V_j^T from 128-bit loads, as row 5;
 //   the masked, corrected logits in registers (-inf past Bk: they count
 //   for nothing), the positive logit taken where the row's positive column
 //   lands;
@@ -957,242 +683,6 @@ __global__ void __launch_bounds__(THREADS, 1) flash_ce_fwd_kernel(
     part[at] = mx;
     part[n + at] = sum;
     part[2 * n + at] = pl;
-  }
-}
-
-// ---- row 5 in bf16: the fused backward on the tensor cores -----------------
-
-constexpr int TKC = 128;  // candidates per tile of the tensor-core backward
-
-// bf16 rows past the padded width DP: 8 more elements per row keep the
-// 16-byte rows of ldmatrix on distinct banks
-template <int DP>
-__host__ __device__ constexpr int tc_ld() { return DP + 8; }
-constexpr int TC_LDP = TQ + 8;  // P^T rows [TKC][TQ + 8]
-
-template <int DP>
-constexpr size_t bwd_tc_smem() {
-  return sizeof(__nv_bfloat16) * (TKC * tc_ld<DP>() + 2 * TQ * tc_ld<DP>() + TKC * TC_LDP) +
-         2 * TQ * (2 * sizeof(float) + 2 * sizeof(int));
-}
-
-// The fused backward of bf16 operands on the tensor cores (mma.sync).
-// Grid (n_spans, parts, DP / DN): block (x, y, z) owns tiles_per_block
-// consecutive 128-candidate tiles, sweeps the query tiles of part y, and
-// computes output columns [z * DN, (z + 1) * DN) of dU and dV (DP = 256
-// takes two z slices, each recomputing the full-width logits). Per
-// (query tile i, candidate tile j), 8 warps:
-//   S^T = V_j U_i^T [128 x 64]: warp w owns candidates 16w..16w+15;
-//   P^T = bf16(exp(S - lse) g) in registers (fp32 p*g into dcol);
-//   dV_j += P^T U_i: warp w's A fragments are its own P^T registers;
-//   P^T to shared memory, then dU_ij = P V_j [64 x DN]: warp w owns query
-//   rows 16(w % 4).. and half the columns, written to du_part[x] (the
-//   first tile writes, later ones add: same thread, fixed order).
-// dV and dcol go to [parts, Bk, D] / [parts, Bk] after the sweep.
-template <int DP>
-__global__ void __launch_bounds__(THREADS, 1) flash_ce_bwd_tc_kernel(
-    const __nv_bfloat16* __restrict__ u, const __nv_bfloat16* __restrict__ v,
-    const float* __restrict__ colcorr, const int* __restrict__ ids_q,
-    const int* __restrict__ ids_k, const int* __restrict__ pos, const float* __restrict__ lse,
-    const float* __restrict__ g, int bq, int bk, int d, int vec, int tiles_per_block,
-    int q_tiles_per_part, float* __restrict__ dv_part, float* __restrict__ dcol_part,
-    float* __restrict__ du_part) {
-  constexpr int LD = tc_ld<DP>();
-  constexpr int DN = DP < 128 ? DP : 128;  // output columns per block
-  constexpr int NT_V = DN / 8;             // dV n-tiles per warp (all DN columns)
-  constexpr int NT_U = DN / 16;            // dU n-tiles per warp (half of them)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [TKC][LD]
-  __nv_bfloat16* Us = Vs + TKC * LD;                                // [2][TQ][LD]
-  __nv_bfloat16* PT = Us + 2 * TQ * LD;                             // [TKC][TC_LDP]
-  float* lse_s = reinterpret_cast<float*>(PT + TKC * TC_LDP);       // [2][TQ]
-  float* g_s = lse_s + 2 * TQ;                                      // [2][TQ]
-  int* idq_s = reinterpret_cast<int*>(g_s + 2 * TQ);                // [2][TQ]
-  int* pos_s = idq_s + 2 * TQ;                                      // [2][TQ]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, t4 = lane & 3;  // mma fragment row group and column pair
-  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix matrix and row of this lane
-  const int cw = warp * 16;                 // the warp's candidates of S^T, P and dV
-  const int rw = (warp & 3) * 16;           // the warp's query rows of dU
-  const int dn0 = blockIdx.z * DN;
-  const int dw0 = dn0 + (warp >> 2) * (DN / 2);  // the warp's dU columns
-  const int n_qt = (bq + TQ - 1) / TQ;
-  const int qt_begin = blockIdx.y * q_tiles_per_part;
-  const int qt_end = min(n_qt, qt_begin + q_tiles_per_part);
-  const int tile0 = blockIdx.x * tiles_per_block;
-  const int tile_end = min(tile0 + tiles_per_block, (bk + TKC - 1) / TKC);
-  float* du_out = du_part + static_cast<long long>(blockIdx.x) * bq * d;
-
-  auto stage_query_tile = [&](int buf, int qt) {
-    stage_rows<DP, THREADS>(Us + buf * TQ * LD, LD, u, qt * TQ, bq, TQ, d, vec != 0);
-    if (tid < TQ) {
-      const int r = qt * TQ + tid;
-      const bool ok = r < bq;
-      lse_s[buf * TQ + tid] = ok ? lse[r] : 0.f;
-      g_s[buf * TQ + tid] = ok ? g[r] : 0.f;
-      idq_s[buf * TQ + tid] = ok ? ids_q[r] : 0;
-      pos_s[buf * TQ + tid] = ok ? pos[r] : -1;
-    }
-  };
-
-  for (int tile = tile0; tile < tile_end; ++tile) {
-    const int k0 = tile * TKC;
-    const bool first = tile == tile0;
-    __syncthreads();  // the previous tile's readers of Vs, Us, PT and the rows are done
-    stage_rows<DP, THREADS>(Vs, LD, v, k0, bk, TKC, d, vec != 0);
-    if (qt_begin < qt_end) stage_query_tile(0, qt_begin);
-    cp_async_commit();
-    float corr[2], dcol_acc[2] = {0.f, 0.f};
-    int kid[2];
-    bool cok[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = k0 + cw + gq + 8 * h;
-      cok[h] = c < bk;
-      corr[h] = cok[h] ? colcorr[c] : 0.f;
-      kid[h] = cok[h] ? ids_k[c] : 0;
-    }
-    float dv_acc[NT_V][4];
-#pragma unroll
-    for (int nt = 0; nt < NT_V; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dv_acc[nt][e] = 0.f;
-
-    for (int qt = qt_begin, it = 0; qt < qt_end; ++qt, ++it) {
-      const int buf = it & 1, q0 = qt * TQ;
-      cp_async_wait_all();
-      __syncthreads();  // this tile has landed; everyone is done with the other buffer
-      if (qt + 1 < qt_end) stage_query_tile(buf ^ 1, qt + 1);
-      cp_async_commit();
-      const __nv_bfloat16* Ub = Us + buf * TQ * LD;
-
-      // S^T[c][r]: s[nt][2h + e] is candidate cw + gq + 8h, query row nt*8 + 2*t4 + e
-      float s[8][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < DP / 16; ++ks) {
-        uint32_t a[4];
-        ldsm_x4(a, Vs + (cw + (lm & 1) * 8 + lr) * LD + ks * 16 + (lm >> 1) * 8);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t b[4];
-          ldsm_x4(b, Ub + (np * 16 + (lm >> 1) * 8 + lr) * LD + ks * 16 + (lm & 1) * 8);
-          mma_bf16(s[2 * np], a, b[0], b[1]);
-          mma_bf16(s[2 * np + 1], a, b[2], b[3]);
-        }
-      }
-
-      // P^T = bf16(exp(S - lse) g): the A fragments of dV, and P^T in
-      // shared memory for dU
-      const float* lse_b = lse_s + buf * TQ;
-      const float* g_b = g_s + buf * TQ;
-      const int* idq_b = idq_s + buf * TQ;
-      const int* pos_b = pos_s + buf * TQ;
-      uint32_t pa[TQ / 16][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        float pf[2][2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int rl = nt * 8 + 2 * t4 + e;
-          const bool rok = q0 + rl < bq;
-          const float lse_r = lse_b[rl], g_r = g_b[rl];
-          const int idq_r = idq_b[rl], pos_r = pos_b[rl];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float pg = 0.f;
-            if (rok && cok[h]) {
-              const float x = masked_logit(s[nt][2 * h + e], corr[h], idq_r, kid[h],
-                                           k0 + cw + gq + 8 * h, pos_r);
-              pg = expf(x - lse_r) * g_r;
-            }
-            dcol_acc[h] += pg;
-            pf[h][e] = pg;
-          }
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const uint32_t w = pack_bf16(pf[h][0], pf[h][1]);
-          *reinterpret_cast<uint32_t*>(PT + (cw + gq + 8 * h) * TC_LDP + nt * 8 + 2 * t4) = w;
-          pa[nt >> 1][(nt & 1) * 2 + h] = w;
-        }
-      }
-
-      // dV_j[c][k] += sum_r P^T[c][r] U[r][k]
-#pragma unroll
-      for (int kk = 0; kk < TQ / 16; ++kk) {
-#pragma unroll
-        for (int np = 0; np < NT_V / 2; ++np) {
-          uint32_t b[4];
-          ldsm_x4_t(b, Ub + (kk * 16 + (lm & 1) * 8 + lr) * LD + dn0 + np * 16 + (lm >> 1) * 8);
-          mma_bf16(dv_acc[2 * np], pa[kk], b[0], b[1]);
-          mma_bf16(dv_acc[2 * np + 1], pa[kk], b[2], b[3]);
-        }
-      }
-      __syncthreads();  // P^T is whole
-
-      // dU_ij[r][k] = sum_c P[r][c] V[c][k]
-      float du[NT_U][4];
-#pragma unroll
-      for (int nt = 0; nt < NT_U; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) du[nt][e] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < TKC / 16; ++kc) {
-        uint32_t a[4];
-        ldsm_x4_t(a, PT + (kc * 16 + (lm >> 1) * 8 + lr) * TC_LDP + rw + (lm & 1) * 8);
-#pragma unroll
-        for (int np = 0; np < NT_U / 2; ++np) {
-          uint32_t b[4];
-          ldsm_x4_t(b, Vs + (kc * 16 + (lm & 1) * 8 + lr) * LD + dw0 + np * 16 + (lm >> 1) * 8);
-          mma_bf16(du[2 * np], a, b[0], b[1]);
-          mma_bf16(du[2 * np + 1], a, b[2], b[3]);
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = q0 + rw + gq + 8 * h;
-        if (r >= bq) continue;
-#pragma unroll
-        for (int nt = 0; nt < NT_U; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int k = dw0 + nt * 8 + 2 * t4 + e;
-            if (k < d) {
-              float* out = du_out + static_cast<long long>(r) * d + k;
-              *out = first ? du[nt][2 * h + e] : *out + du[nt][2 * h + e];
-            }
-          }
-      }
-    }
-
-    // dcol: the four lanes of a quad hold the same two candidates
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float x = dcol_acc[h];
-      x += __shfl_xor_sync(FULL, x, 1);
-      x += __shfl_xor_sync(FULL, x, 2);
-      const int c = k0 + cw + gq + 8 * h;
-      if (blockIdx.z == 0 && t4 == 0 && c < bk)
-        dcol_part[static_cast<long long>(blockIdx.y) * bk + c] = x;
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = k0 + cw + gq + 8 * h;
-      if (c >= bk) continue;
-      float* out = dv_part + (static_cast<long long>(blockIdx.y) * bk + c) * d;
-#pragma unroll
-      for (int nt = 0; nt < NT_V; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int k = dn0 + nt * 8 + 2 * t4 + e;
-          if (k < d) out[k] = dv_acc[nt][2 * h + e];
-        }
-    }
   }
 }
 
@@ -1692,6 +1182,11 @@ constexpr int FWD_THREADS = 32 * FWD_WARPS;
 constexpr int FWD_TQ = 16 * FWD_WARPS;        // query rows per block
 constexpr int FWD_TK = 64;                    // candidates per tile of the sweep
 
+// bf16 rows past the padded width DP: 8 more elements per row keep the
+// 16-byte rows of ldmatrix on distinct banks
+template <int DP>
+__host__ __device__ constexpr int tc_ld() { return DP + 8; }
+
 template <int DP>
 constexpr size_t fwd_tc_smem() {
   return sizeof(__nv_bfloat16) * (FWD_TQ + 2 * FWD_TK) * tc_ld<DP>() +
@@ -1987,74 +1482,51 @@ extern "C" int flash_ce_fwd(const void* u, const void* v, const float* colcorr,
 }
 
 // As flash_ce_fwd, plus lse, g [bq] fp32 and the wrapper's plan: the
-// fused backward (row 5). Out, all fp32: the dU partials du_part
-// [n_spans, bq, d], n_spans = ceil(ceil(bk / tile) / tiles_per_block),
-// dv_part [parts, bk, d] and dcol_part [parts, bk]; the wrapper sums each
-// over its first axis. Both kernels sweep parts >= 1 query parts of
-// q_tiles_per_part 64-row tiles. bf16 operands take the tensor-core kernel
-// (tile 128; vec != 0 when d % 8 == 0 and u, v start on 16 bytes), fp32
-// operands the FMA kernel (tile 128, 64 where d > 128; vec != 0 when
-// d % 4 == 0 and u, v start on 16 bytes). Returns the cudaError_t of the
-// launch.
+// fused backward (row 5) of fp32 operands, on the FMA units (bf16 operands
+// take rows 6 and 7). Out, all fp32: the dU partials du_part [n_spans, bq,
+// d], n_spans = ceil(ceil(bk / tile) / tiles_per_block) with tile 128 (64
+// where d > 128), dv_part [parts, bk, d] and dcol_part [parts, bk]; the
+// wrapper sums each over its first axis. The kernel sweeps parts >= 1
+// query parts of q_tiles_per_part 64-row tiles (vec != 0 when d % 4 == 0
+// and u, v start on 16 bytes). Returns the cudaError_t of the launch.
 extern "C" int flash_ce_bwd(const void* u, const void* v, const float* colcorr,
                             const int* ids_q, const int* ids_k, const int* pos,
                             const float* lse, const float* g, int bq, int bk, int d,
-                            int bf16, int tiles_per_block, int parts, int q_tiles_per_part,
-                            int vec, float* dv_part, float* dcol_part, float* du_part,
-                            void* stream) {
+                            int tiles_per_block, int parts, int q_tiles_per_part, int vec,
+                            float* dv_part, float* dcol_part, float* du_part, void* stream) {
   if (bk <= 0) return 0;
   if (bq <= 0 || d <= 0 || tiles_per_block <= 0 || parts <= 0 || q_tiles_per_part <= 0 ||
       static_cast<long long>(parts) * q_tiles_per_part * TQ < bq)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tpb = tiles_per_block;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!bf16)
-    return by_width(d, [&](auto w) {
-      constexpr int DP = decltype(w)::value;
-      constexpr int KC = Fp32Bwd<DP>::KC;
-      const int n_tiles = (bk + KC - 1) / KC;
-      return launch(flash_ce_bwd_kernel<DP>, dim3((n_tiles + tpb - 1) / tpb, parts), THREADS,
-                    Fp32Bwd<DP>::smem(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, lse, g,
-                    bq, bk, d, vec, tpb, q_tiles_per_part, dv_part, dcol_part, du_part);
-    });
   return by_width(d, [&](auto w) {
     constexpr int DP = decltype(w)::value;
-    constexpr int DN = DP < 128 ? DP : 128;
-    const int n_tiles = (bk + TKC - 1) / TKC;
-    return launch(flash_ce_bwd_tc_kernel<DP>, dim3((n_tiles + tpb - 1) / tpb, parts, DP / DN),
-                  THREADS, bwd_tc_smem<DP>(), s, bf(u), bf(v), colcorr, ids_q, ids_k, pos, lse,
-                  g, bq, bk, d, vec, tpb, q_tiles_per_part, dv_part, dcol_part, du_part);
+    constexpr int KC = Fp32Bwd<DP>::KC;
+    const int n_tiles = (bk + KC - 1) / KC;
+    return launch(flash_ce_bwd_kernel<DP>, dim3((n_tiles + tpb - 1) / tpb, parts), THREADS,
+                  Fp32Bwd<DP>::smem(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, lse, g,
+                  bq, bk, d, vec, tpb, q_tiles_per_part, dv_part, dcol_part, du_part);
   });
 }
 
-// As flash_ce_bwd, with row 6's plan; out du_part [parts, bq, d] fp32, the
-// wrapper summing it over its first axis (dU itself when parts == 1). The
-// candidate tiles split into parts of tiles_per_part. fp32 operands take
-// the FMA kernel (query blocks of 128, 64 where d > 128; candidate tiles of
-// 64; vec as in flash_ce_fwd). bf16 operands take the wgmma kernel (query
-// blocks of 128, candidate tiles of 128), fed by TMA: it needs vec (d % 8
-// == 0, u and v on 16 bytes) and scratch `cols` of ceil(bk / 128) * 128
-// float2 on 16 bytes, which flash_ce_du_cols_kernel, launched here first,
-// fills. Returns the cudaError_t of the launches.
+// As flash_ce_bwd, with row 6's plan, for bf16 operands; out du_part
+// [parts, bq, d] fp32, the wrapper summing it over its first axis (dU
+// itself when parts == 1). The wgmma kernel (query blocks of 128, candidate
+// tiles of 128, split into parts of tiles_per_part) is fed by TMA: it needs
+// vec (d % 8 == 0, u and v on 16 bytes) and scratch `cols` of ceil(bk /
+// 128) * 128 float2 on 16 bytes, which flash_ce_du_cols_kernel, launched
+// here first, fills. Returns the cudaError_t of the launches.
 extern "C" int flash_ce_bwd_du(const void* u, const void* v, const float* colcorr,
                                const int* ids_q, const int* ids_k, const int* pos,
                                const float* lse, const float* g, int bq, int bk, int d,
-                               int bf16, int parts, int tiles_per_part, int vec,
-                               float* du_part, void* cols, void* stream) {
+                               int parts, int tiles_per_part, int vec, float* du_part,
+                               void* cols, void* stream) {
   if (bq <= 0) return 0;
-  const int tk = bf16 ? WG_TILE : Fp32Du<32>::KT;
   if (bk <= 0 || d <= 0 || parts <= 0 || tiles_per_part <= 0 ||
-      static_cast<long long>(parts) * tiles_per_part * tk < bk)
+      static_cast<long long>(parts) * tiles_per_part * WG_TILE < bk)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!bf16)
-    return by_width(d, [&](auto w) {
-      constexpr int DP = decltype(w)::value;
-      using T = Fp32Du<DP>;
-      return launch(flash_ce_bwd_du_kernel<DP>, dim3((bq + T::TQF - 1) / T::TQF, parts), THREADS,
-                    T::smem(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, lse, g, bq, bk, d,
-                    vec, tiles_per_part, du_part);
-    });
   if (!vec || cols == nullptr || reinterpret_cast<uintptr_t>(cols) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_cols = (bk + WG_TILE - 1) / WG_TILE * WG_TILE;
@@ -2076,35 +1548,24 @@ extern "C" int flash_ce_bwd_du(const void* u, const void* v, const float* colcor
   });
 }
 
-// As flash_ce_bwd, with row 7's plan; out dv_part [parts, bk, d] and
-// dcol_part [parts, bk] fp32, the wrapper summing each over its first axis
-// (dV and dcol themselves when parts == 1). fp32 operands take the FMA
-// kernel (128-candidate blocks, 64 where d > 128; query tiles of 64; vec as
-// in flash_ce_fwd). bf16 operands take the wgmma kernel (128-candidate
-// blocks, query tiles of 128), fed by TMA: it needs vec (d % 8 == 0, u and
-// v on 16 bytes) and scratch `rows` of ceil(bq / 128) * 128 float4 on 16
-// bytes, which flash_ce_dv_rows_kernel, launched here first, fills. The
-// query tiles split into parts of q_tiles_per_part. Returns the
+// As flash_ce_bwd, with row 7's plan, for bf16 operands; out dv_part
+// [parts, bk, d] and dcol_part [parts, bk] fp32, the wrapper summing each
+// over its first axis (dV and dcol themselves when parts == 1). The wgmma
+// kernel (128-candidate blocks, query tiles of 128, split into parts of
+// q_tiles_per_part) is fed by TMA: it needs vec (d % 8 == 0, u and v on 16
+// bytes) and scratch `rows` of ceil(bq / 128) * 128 float4 on 16 bytes,
+// which flash_ce_dv_rows_kernel, launched here first, fills. Returns the
 // cudaError_t of the launches.
 extern "C" int flash_ce_bwd_dv(const void* u, const void* v, const float* colcorr,
                                const int* ids_q, const int* ids_k, const int* pos,
                                const float* lse, const float* g, int bq, int bk, int d,
-                               int bf16, int parts, int q_tiles_per_part, int vec,
-                               float* dv_part, float* dcol_part, void* rows, void* stream) {
+                               int parts, int q_tiles_per_part, int vec, float* dv_part,
+                               float* dcol_part, void* rows, void* stream) {
   if (bk <= 0) return 0;
-  const int tq = bf16 ? WG_TILE : Fp32Dv<32>::TQF;
   if (bq <= 0 || d <= 0 || parts <= 0 || q_tiles_per_part <= 0 ||
-      static_cast<long long>(parts) * q_tiles_per_part * tq < bq)
+      static_cast<long long>(parts) * q_tiles_per_part * WG_TILE < bq)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!bf16)
-    return by_width(d, [&](auto w) {
-      constexpr int DP = decltype(w)::value;
-      using T = Fp32Dv<DP>;
-      return launch(flash_ce_bwd_dv_kernel<DP>, dim3((bk + T::KC - 1) / T::KC, parts), THREADS,
-                    T::smem(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, lse, g, bq, bk,
-                    d, vec, q_tiles_per_part, dv_part, dcol_part);
-    });
   if (!vec || rows == nullptr || reinterpret_cast<uintptr_t>(rows) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_rows = (bq + WG_TILE - 1) / WG_TILE * WG_TILE;

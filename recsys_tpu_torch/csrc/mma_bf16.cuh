@@ -33,14 +33,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // four 8 x 8 bf16 matrices from shared memory, lane l giving the address
-// of row l % 8 of matrix l / 8; .trans hands each lane the transpose
+// of row l % 8 of matrix l / 8
 __device__ __forceinline__ void ldsm_x4(uint32_t r[4], const __nv_bfloat16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }

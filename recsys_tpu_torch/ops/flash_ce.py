@@ -13,13 +13,14 @@ never write the [Bq, Bk] logits; the plain versions (``*_reference``)
 form them ~1 GiB of query rows at a time, and the wrappers run them only
 for CPU tensors.
 
-The backward (:func:`bwd_route`) is set on H100 measurements, not by the
-TPU package's partials cap: bf16 operands take the two-kernel backward (a
-query-major dU kernel and a candidate-major dV/dcol kernel, each
-recomputing the logits), which on the tensor cores beat the fused kernel
-at every shape timed; fp32 operands take the fused kernel, which on the
-FMA units beat the two kernels at every shape timed (it does 6 Bq Bk D
-products against their 8).
+The backward (:func:`flash_ce_bwd`) is picked by the operand type, on
+H100 measurements, not by the TPU package's partials cap: bf16 operands
+take the two-kernel backward (a query-major dU kernel and a
+candidate-major dV/dcol kernel on wgmma, each recomputing the logits),
+fp32 operands the fused kernel on the FMA units (6 Bq Bk D products
+against the two kernels' 8). A kernel row has a CUDA kernel only for the
+operand types a route takes it in; a CUDA call of a wrapper in another
+type raises.
 What differs from the TPU kernels: the tiles need not divide the batch
 (ragged rows and candidates are masked).
 """
@@ -38,14 +39,13 @@ from recsys_tpu_torch.utils.trace import span
 
 NEG_BIG = -1e9
 # tile sizes of csrc/flash_ce.cu (TQ: the query tile that the fused
-# backward's plan counts; the fused backward takes candidate tiles of TKC,
-# or of TK for fp32 operands at D > 128, and so does row 7 of fp32
-# operands, with query tiles of F32_DV_TQ; row 4 of bf16 operands query
-# tiles of FWD_TQ and candidate tiles of FWD_TK; rows 6 and 7 of bf16
-# operands blocks of WG_OWN rows of their own axis (query rows for row 6,
-# candidates for row 7) sweeping tiles of WG_TILE rows of the other; rows 4
-# and 6 of fp32 operands query blocks of F32_TQ rows (64 at D > 128) and
-# candidate tiles of F32_FWD_TK (row 4; 64 at D > 128) and F32_DU_TK (row 6))
+# backward's plan counts; the fused backward, of fp32 operands, takes
+# candidate tiles of TKC, or of TK at D > 128; row 4 of bf16 operands
+# query tiles of FWD_TQ and candidate tiles of FWD_TK; rows 6 and 7, of
+# bf16 operands, blocks of WG_OWN rows of their own axis (query rows for
+# row 6, candidates for row 7) sweeping tiles of WG_TILE rows of the
+# other; row 4 of fp32 operands query blocks of F32_TQ rows and candidate
+# tiles of F32_FWD_TK, 64 and 64 at D > 128)
 TQ = 64
 TK = 64
 TKC = 128
@@ -53,10 +53,8 @@ FWD_TQ = 64
 FWD_TK = 64
 WG_OWN = 128
 WG_TILE = 128
-F32_DV_TQ = 64
 F32_TQ = 128
 F32_FWD_TK = 128
-F32_DU_TK = 64
 MAX_DIM = 256
 # the bf16 forward splits its sweep into parts until the grid holds about
 # this many blocks per SM (a few resident at a time, and enough waves that
@@ -73,9 +71,9 @@ _BLOCK_TILES = 2
 # ([Bk // tk, Bq, D] fp32) it switches to its two-kernel backward: at D =
 # 128 the square batch reaches it above ~139k rows when 2,048 divides it,
 # far earlier when only a small tile does (fused_bwd_partials_bytes counts
-# them, for parity). The port's backward routes by H100 measurements
-# instead (bwd_route), and the port's own partials (bwd_plan, du_plan,
-# dv_plan, fwd_plan) never exceed the cap. The value is the JAX package's,
+# them, for parity). The port's backward routes by operand type instead
+# (flash_ce_bwd), and the port's own partials (bwd_plan, du_plan, dv_plan,
+# fwd_plan) never exceed the cap. The value is the JAX package's,
 # set from a TPU v5e measurement.
 _FUSED_BWD_PARTIALS_CAP = int(4.5 * 1024**3)
 # the TPU's preferred (query, candidate) tiles, copied to count its partials
@@ -144,7 +142,7 @@ def _split_sweep(n_tiles: int, blocks: int, max_parts: int, n_sm: int) -> Tuple[
 
 def _split_waves(n_tiles: int, blocks: int, max_parts: int, n_sm: int) -> Tuple[int, int]:
     """The swept axis's ``n_tiles`` tiles split into parts for the FMA
-    kernels of fp32 operands, which hold one block per SM: of the splits
+    forward of fp32 operands, which holds one block per SM: of the splits
     that give a grid of ``blocks`` blocks per part 2 to 8 blocks per SM (as
     many as the tiles and ``max_parts`` allow), the one whose last wave ends
     first (waves of ``n_sm`` blocks times tiles per part), and of those the
@@ -329,7 +327,7 @@ def _fwd_launcher():
 @functools.lru_cache(maxsize=None)
 def _bwd_launcher():
     fn = _build.load_library().flash_ce_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
     return fn
@@ -338,7 +336,7 @@ def _bwd_launcher():
 @functools.lru_cache(maxsize=None)
 def _bwd_du_launcher():
     fn = _build.load_library().flash_ce_bwd_du
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return fn
@@ -347,7 +345,7 @@ def _bwd_du_launcher():
 @functools.lru_cache(maxsize=None)
 def _bwd_dv_launcher():
     fn = _build.load_library().flash_ce_bwd_dv
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
     return fn
@@ -411,35 +409,6 @@ def fused_bwd_partials_bytes(bq: int, bk: int, d: int) -> int:
     return bq * d * (bk // tk) * 4
 
 
-def bwd_route(bq: int, bk: int, d: int, bf16: bool = False) -> str:
-    """The backward taken at this shape on the H100: ``"fused"`` (row 5)
-    or ``"twokernel"`` (rows 6 and 7), whatever the TPU package takes
-    (:func:`fused_bwd_partials_bytes` against the cap); the port's own
-    partials stay under the cap on either route.
-
-    Both from ``chip_smoke.py``'s route tables (bf16 and fp32 measured in
-    separate runs), D = 128, NVIDIA H100 80GB HBM3 at 700 W, ms two-kernel
-    / fused, each the slower of two runs in turns (the spread below 3%).
-    bf16 operands take the two-kernel route at every shape: on the tensor
-    cores it won everywhere, with a fraction of the fused kernel's memory;
-    with rows 6 and 7 on wgmma (the bf16 table re-measured) by 2.0x to
-    9.0x. Under the TPU's cap: 4,096 x 20,480 0.274 / 1.063, 8,192^2 0.307
-    / 0.616, 16,384^2 0.560 / 2.254, 32,768^2 2.131 / 8.622, 131,072 x
-    147,456 (at the cap) 41.21 / 270.7; above it: 20,000^2 0.913 / 4.966,
-    65,536 x 327,680 45.53 / 408.8, 131,072 x 262,144 71.59 / 400.7. At
-    the two smallest shapes the two-kernel call's host work outlasts its
-    device work (0.244 / 1.033 and 0.170 / 0.595 device ms), so CUDA
-    events read the host's pace there.
-    fp32 operands take the fused route at every shape: on the FMA units it
-    won everywhere by 23-38%, also where the TPU takes its two kernels
-    (its peak memory 0.3-5.0 GB against 0.04-0.2). Under the TPU's cap:
-    4,096 x 20,480 2.509 / 1.902, 8,192^2 2.126 / 1.550, 16,384^2 8.256 /
-    5.991, 32,768^2 32.86 / 23.77, 131,072 x 147,456 591.5 / 455.4;
-    above it: 20,000^2 12.16 / 8.855, 65,536 x 327,680 657.7 / 505.1,
-    131,072 x 262,144 1,052.3 / 853.8."""
-    return "twokernel" if bf16 else "fused"
-
-
 class BwdPlan(NamedTuple):
     """How the fused backward cuts [Bq, Bk]: each of ``n_spans`` blocks
     along the candidates owns ``tiles_per_block`` candidate tiles of
@@ -458,18 +427,17 @@ class BwdPlan(NamedTuple):
         return 4 * (self.n_spans * bq * d + dv)
 
 
-def bwd_plan(bq: int, bk: int, d: int, bf16: bool, n_sm: int) -> BwdPlan:
-    """The fused backward's tiling on a card of ``n_sm`` SMs, one plan for
-    both kernels (bf16 operands on the tensor cores, fp32 on the FMA
-    units): candidate tiles of ``TKC`` (``TK`` for fp32 operands at D >
-    128, where the FMA kernel's 128 candidate rows would not fit its shared
-    memory beside its query tile), one a block while the partials fit
-    ``_FUSED_BWD_PARTIALS_CAP``, else the fewest that keep them under it;
-    the query sweep split into enough parts that the grid holds about two
-    blocks per SM (8,192^2 at D = 128: 64 spans x 4 parts); no part is
-    empty. The FMA kernel holds one block per SM, so for fp32 operands
+def bwd_plan(bq: int, bk: int, d: int, n_sm: int) -> BwdPlan:
+    """The fused backward's tiling on a card of ``n_sm`` SMs (its kernel
+    takes fp32 operands, on the FMA units): candidate tiles of ``TKC``
+    (``TK`` at D > 128, where the kernel's 128 candidate rows would not fit
+    its shared memory beside its query tile), one a block while the
+    partials fit ``_FUSED_BWD_PARTIALS_CAP``, else the fewest that keep
+    them under it; the query sweep split into enough parts that the grid
+    holds about two blocks per SM (8,192^2 at D = 128: 64 spans x 4
+    parts); no part is empty. The kernel holds one block per SM, so
     :func:`_fp32_waves` then looks for a split that ends sooner."""
-    tile = TK if not bf16 and d > 128 else TKC
+    tile = TK if d > 128 else TKC
     n_qt = -(-bq // TQ)
     n_tiles = -(-bk // tile)
     tpb = -(-n_tiles // min(n_tiles, max(1, _FUSED_BWD_PARTIALS_CAP // (bq * d * 4))))
@@ -487,7 +455,7 @@ def bwd_plan(bq: int, bk: int, d: int, bf16: bool, n_sm: int) -> BwdPlan:
                 p = with_parts(n_spans, p.parts - 1)
             break
         tpb += 1
-    return p if bf16 else _fp32_waves(p, bq, bk, d, n_sm)
+    return _fp32_waves(p, bq, bk, d, n_sm)
 
 
 def _fp32_waves(p: BwdPlan, bq: int, bk: int, d: int, n_sm: int) -> BwdPlan:
@@ -611,25 +579,27 @@ def flash_ce_bwd_fused(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
     -> (dU [Bq, D], dV [Bk, D], dcol [Bk]) fp32, the softmax part before
     the label terms; ``lse`` and ``g`` fp32 [Bq].
 
-    CPU tensors take :func:`flash_ce_bwd_reference`; CUDA tensors launch
-    the kernel (one sweep on :func:`bwd_plan`, the same plan for bf16
-    operands on the tensor cores and fp32 on the FMA units), its partials
-    summed here by :func:`sum_partials`, or raise."""
+    CPU tensors, of either operand type, take
+    :func:`flash_ce_bwd_reference`; CUDA tensors launch the FMA kernel
+    (fp32 operands only: bf16 ones raise; one sweep on :func:`bwd_plan`),
+    its partials summed here by :func:`sum_partials`, or raise."""
     args = _bwd_args(u, v, colcorr, ids_q, ids_k, pos, lse, g, "flash_ce_bwd_fused")
     if not _on_cuda(u, "flash_ce_bwd_fused"):
         return flash_ce_bwd_reference(*args)
+    if u.dtype != torch.float32:
+        raise ValueError("flash_ce_bwd_fused: on CUDA only fp32 operands have a fused kernel; "
+                         "bf16 operands take flash_ce_bwd_twokernel")
     u, v = args[:2]
     bq, d = u.shape
     bk = v.shape[0]
-    bf16 = u.dtype == torch.bfloat16
-    p = bwd_plan(bq, bk, d, bf16, _sm_count(u.device.index))
+    p = bwd_plan(bq, bk, d, _sm_count(u.device.index))
     f32 = dict(dtype=torch.float32, device=u.device)
     du_part = torch.empty((p.n_spans, bq, d), **f32)
     dv_part = torch.empty((p.parts, bk, d), **f32)
     dcol_part = torch.empty((p.parts, bk), **f32)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_launcher()(*_ptrs(args), bq, bk, d, int(bf16), p.tiles_per_block,
+        err = _bwd_launcher()(*_ptrs(args), bq, bk, d, p.tiles_per_block,
                               p.parts, p.q_tiles_per_part, _vec(u, v), dv_part.data_ptr(),
                               dcol_part.data_ptr(), du_part.data_ptr(), stream)
     if err != 0:
@@ -655,23 +625,16 @@ class DuPlan(NamedTuple):
         return 4 * self.parts * bq * d if self.parts > 1 else 0
 
 
-def du_plan(bq: int, bk: int, d: int, bf16: bool, n_sm: int) -> DuPlan:
-    """Row 6's tiling on a card of ``n_sm`` SMs: the candidate sweep split
-    into parts, no more than the candidate tiles and no more than keep the
-    dU partials under ``_FUSED_BWD_PARTIALS_CAP``; no part is empty. bf16
-    operands (the wgmma kernel, one block per SM): blocks of 128 query rows
-    (two column slices past D = 128) and 128-candidate tiles, the sweep
-    split by :func:`_split_resident` (2 parts at 8,192^2, 5 at 20,000^2,
-    one at 131,072 x 262,144: 1,024 blocks, 7.76 waves, 34.9 kernel ms on
-    an H100 against 38.0 in two parts). fp32 operands (the FMA kernel, one
-    block per SM): 128-row blocks (64 at D > 128) and 64-candidate tiles,
-    the sweep split by :func:`_split_waves` (8 parts at 8,192^2, 5 at
-    20,000^2, one at 131,072 x 262,144)."""
+def du_plan(bq: int, bk: int, d: int, n_sm: int) -> DuPlan:
+    """Row 6's tiling on a card of ``n_sm`` SMs (its wgmma kernel takes bf16
+    operands and holds one block per SM): blocks of 128 query rows (two
+    column slices past D = 128) and 128-candidate tiles, the candidate
+    sweep split by :func:`_split_resident` into parts, no more than the
+    candidate tiles and no more than keep the dU partials under
+    ``_FUSED_BWD_PARTIALS_CAP``; no part is empty (2 parts at 8,192^2, 5 at
+    20,000^2, one at 131,072 x 262,144: 1,024 blocks, 7.76 waves, 34.9
+    kernel ms on an H100 against 38.0 in two parts)."""
     max_parts = _FUSED_BWD_PARTIALS_CAP // (4 * bq * d)
-    if not bf16:
-        tile = F32_TQ if d <= 128 else 64
-        return DuPlan(tile, F32_DU_TK, *_split_waves(-(-bk // F32_DU_TK), -(-bq // tile),
-                                                      max_parts, n_sm))
     blocks = -(-bq // WG_OWN) * (2 if d > 128 else 1)
     return DuPlan(WG_OWN, WG_TILE, *_split_resident(-(-bk // WG_TILE), blocks, max_parts, n_sm))
 
@@ -714,35 +677,34 @@ def flash_ce_bwd_du(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
                     lse: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Row 6 (``_bwd_du_kernel``): -> dU [Bq, D] fp32, query-major: the
     block that owns a query block sweeps the candidate tiles of its part
-    (:func:`du_plan`; bf16 operands on wgmma fed by TMA, fp32 on the FMA
-    units), the parts summed here in a fixed order. bf16 rows whose D is
-    not a multiple of 8, or that do not start on 16 bytes, go to the kernel
-    as padded copies (:func:`_tma_rows`). At D = 128 on an NVIDIA H100
-    80GB HBM3 (700 W) the bf16 kernel takes 0.073 ms at 8,192^2 and
-    34.4-35.2 ms at 131,072 x 262,144 (its mma.sync design, which it
-    replaced: 0.212-0.214 and 97.8-98.1).
+    (:func:`du_plan`; on wgmma fed by TMA), the parts summed here in a
+    fixed order. Rows whose D is not a multiple of 8, or that do not start
+    on 16 bytes, go to the kernel as padded copies (:func:`_tma_rows`). At
+    D = 128 on an NVIDIA H100 80GB HBM3 (700 W) the kernel takes 0.073 ms
+    at 8,192^2 and 34.4-35.2 ms at 131,072 x 262,144 (its mma.sync design,
+    which it replaced: 0.212-0.214 and 97.8-98.1).
 
-    CPU tensors take :func:`flash_ce_bwd_du_reference`; CUDA tensors launch
-    the kernel or raise."""
+    CPU tensors, of either operand type, take
+    :func:`flash_ce_bwd_du_reference`; CUDA tensors launch the kernel (bf16
+    operands only: fp32 ones raise) or raise."""
     args = _bwd_args(u, v, colcorr, ids_q, ids_k, pos, lse, g, "flash_ce_bwd_du")
     if not _on_cuda(u, "flash_ce_bwd_du"):
         return flash_ce_bwd_du_reference(*args)
+    if u.dtype != torch.bfloat16:
+        raise ValueError("flash_ce_bwd_du: on CUDA only bf16 operands have a dU kernel; "
+                         "fp32 operands take flash_ce_bwd_fused")
     bq, d = u.shape
     bk = v.shape[0]
-    bf16 = u.dtype == torch.bfloat16
-    cols = None
-    if bf16:
-        args = (_tma_rows(args[0]), _tma_rows(args[1]), *args[2:])
-        cols = torch.empty((-(-bk // WG_TILE) * WG_TILE, 2), dtype=torch.float32, device=u.device)
+    args = (_tma_rows(args[0]), _tma_rows(args[1]), *args[2:])
+    cols = torch.empty((-(-bk // WG_TILE) * WG_TILE, 2), dtype=torch.float32, device=u.device)
     u, v = args[:2]
     dk = u.shape[1]
-    p = du_plan(bq, bk, dk, bf16, _sm_count(u.device.index))
+    p = du_plan(bq, bk, dk, _sm_count(u.device.index))
     du_part = torch.empty((p.parts, bq, dk), dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_du_launcher()(*_ptrs(args), bq, bk, dk, int(bf16), p.parts,
-                                 p.tiles_per_part, _vec(u, v), du_part.data_ptr(),
-                                 None if cols is None else cols.data_ptr(), stream)
+        err = _bwd_du_launcher()(*_ptrs(args), bq, bk, dk, p.parts, p.tiles_per_part,
+                                 _vec(u, v), du_part.data_ptr(), cols.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_ce_bwd_du kernel launch failed: cudaError {err}")
     flash_ce_bwd_du.launches += 1
@@ -768,22 +730,15 @@ class DvPlan(NamedTuple):
         return 4 * self.parts * bk * (d + 1) if self.parts > 1 else 0
 
 
-def dv_plan(bq: int, bk: int, d: int, bf16: bool, n_sm: int) -> DvPlan:
-    """Row 7's tiling on a card of ``n_sm`` SMs: the query sweep split into
-    parts, no more than the query tiles and no more than keep the dV and
-    dcol partials under ``_FUSED_BWD_PARTIALS_CAP``; no part is empty. bf16
-    operands (the wgmma kernel, one block per SM): blocks of 128 candidates
-    (two column slices past D = 128) and 128-row query tiles, the sweep
-    split by :func:`_split_resident` (2 parts at 8,192^2, one at 131,072 x
-    262,144). fp32 operands (the FMA kernel, one block per SM): the fused
-    kernel's 128-candidate blocks (64 at D > 128) and 64-row query tiles,
-    the sweep split by :func:`_split_waves` (8 parts at 8,192^2, 5 at
-    20,000^2, one at 131,072 x 262,144)."""
+def dv_plan(bq: int, bk: int, d: int, n_sm: int) -> DvPlan:
+    """Row 7's tiling on a card of ``n_sm`` SMs (its wgmma kernel takes bf16
+    operands and holds one block per SM): blocks of 128 candidates (two
+    column slices past D = 128) and 128-row query tiles, the query sweep
+    split by :func:`_split_resident` into parts, no more than the query
+    tiles and no more than keep the dV and dcol partials under
+    ``_FUSED_BWD_PARTIALS_CAP``; no part is empty (2 parts at 8,192^2, one
+    at 131,072 x 262,144)."""
     max_parts = _FUSED_BWD_PARTIALS_CAP // (4 * bk * (d + 1))
-    if not bf16:
-        tile = TK if d > 128 else TKC
-        return DvPlan(tile, F32_DV_TQ, *_split_waves(-(-bq // F32_DV_TQ), -(-bk // tile),
-                                                     max_parts, n_sm))
     blocks = -(-bk // WG_OWN) * (2 if d > 128 else 1)
     return DvPlan(WG_OWN, WG_TILE, *_split_resident(-(-bq // WG_TILE), blocks, max_parts, n_sm))
 
@@ -805,34 +760,34 @@ def flash_ce_bwd_dv(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
                     lse: torch.Tensor, g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row 7 (``_bwd_dv_kernel``): -> (dV [Bk, D], dcol [Bk]) fp32,
     candidate-major: the block that owns a candidate block sweeps the query
-    tiles of its part (:func:`dv_plan`; bf16 operands on wgmma fed by TMA,
-    fp32 on the FMA units), the parts summed here in a fixed order. bf16
-    rows whose D is not a multiple of 8, or that do not start on 16 bytes,
-    go to the kernel as padded copies (:func:`_tma_rows`).
+    tiles of its part (:func:`dv_plan`; on wgmma fed by TMA), the parts
+    summed here in a fixed order. Rows whose D is not a multiple of 8, or
+    that do not start on 16 bytes, go to the kernel as padded copies
+    (:func:`_tma_rows`).
 
-    CPU tensors take :func:`flash_ce_bwd_dv_reference`; CUDA tensors launch
-    the kernel or raise."""
+    CPU tensors, of either operand type, take
+    :func:`flash_ce_bwd_dv_reference`; CUDA tensors launch the kernel (bf16
+    operands only: fp32 ones raise) or raise."""
     args = _bwd_args(u, v, colcorr, ids_q, ids_k, pos, lse, g, "flash_ce_bwd_dv")
     if not _on_cuda(u, "flash_ce_bwd_dv"):
         return flash_ce_bwd_dv_reference(*args)
+    if u.dtype != torch.bfloat16:
+        raise ValueError("flash_ce_bwd_dv: on CUDA only bf16 operands have a dV kernel; "
+                         "fp32 operands take flash_ce_bwd_fused")
     bq, d = u.shape
     bk = v.shape[0]
-    bf16 = u.dtype == torch.bfloat16
-    rows = None
-    if bf16:
-        args = (_tma_rows(args[0]), _tma_rows(args[1]), *args[2:])
-        rows = torch.empty((-(-bq // WG_TILE) * WG_TILE, 4), dtype=torch.float32, device=u.device)
+    args = (_tma_rows(args[0]), _tma_rows(args[1]), *args[2:])
+    rows = torch.empty((-(-bq // WG_TILE) * WG_TILE, 4), dtype=torch.float32, device=u.device)
     u, v = args[:2]
     dk = u.shape[1]
-    p = dv_plan(bq, bk, dk, bf16, _sm_count(u.device.index))
+    p = dv_plan(bq, bk, dk, _sm_count(u.device.index))
     dv_part = torch.empty((p.parts, bk, dk), dtype=torch.float32, device=u.device)
     dcol_part = torch.empty((p.parts, bk), dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_dv_launcher()(*_ptrs(args), bq, bk, dk, int(bf16), p.parts,
-                                 p.q_tiles_per_part, _vec(u, v), dv_part.data_ptr(),
-                                 dcol_part.data_ptr(), None if rows is None else rows.data_ptr(),
-                                 stream)
+        err = _bwd_dv_launcher()(*_ptrs(args), bq, bk, dk, p.parts, p.q_tiles_per_part,
+                                 _vec(u, v), dv_part.data_ptr(), dcol_part.data_ptr(),
+                                 rows.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_ce_bwd_dv kernel launch failed: cudaError {err}")
     flash_ce_bwd_dv.launches += 1
@@ -862,13 +817,14 @@ def flash_ce_bwd(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
                  lse: torch.Tensor, g: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Softmax part of the backward (before the label terms) -> (dU [Bq, D],
-    dV [Bk, D], dcol [Bk]) fp32, on :func:`bwd_route`:
-    :func:`flash_ce_bwd_twokernel` for bf16 operands,
-    :func:`flash_ce_bwd_fused` for fp32 operands."""
+    dV [Bk, D], dcol [Bk]) fp32: :func:`flash_ce_bwd_twokernel` for bf16
+    operands, :func:`flash_ce_bwd_fused` for fp32 operands."""
     _check(u, v, colcorr, ids_q, ids_k, pos, "flash_ce_bwd")
-    if bwd_route(u.shape[0], v.shape[0], u.shape[1], u.dtype == torch.bfloat16) == "fused":
-        return flash_ce_bwd_fused(u, v, colcorr, ids_q, ids_k, pos, lse, g)
-    return flash_ce_bwd_twokernel(u, v, colcorr, ids_q, ids_k, pos, lse, g)
+    # On an H100 each route won at all eight shapes timed for its operand
+    # type, the bf16 one by 2.0x to 9.0x, the fp32 one by 23-38% (PERF.md).
+    if u.dtype == torch.bfloat16:
+        return flash_ce_bwd_twokernel(u, v, colcorr, ids_q, ids_k, pos, lse, g)
+    return flash_ce_bwd_fused(u, v, colcorr, ids_q, ids_k, pos, lse, g)
 
 
 class FlashSoftmaxCE(torch.autograd.Function):

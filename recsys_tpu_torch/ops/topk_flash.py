@@ -301,8 +301,8 @@ flash_topk.launches = 0
 
 # ---- the group-max sieve ---------------------------------------------------
 
-# query rows per block of csrc/blockmax.cu: the wide tile (every fp32
-# call, bf16 above BLOCKMAX_TQ_SMALL queries) and the small one
+# query rows per block of csrc/blockmax.cu: the wide tile (above
+# BLOCKMAX_TQ_SMALL queries) and the small one
 BLOCKMAX_TQ = 64
 BLOCKMAX_TQ_SMALL = 16
 # pass 2 gathers [rows, kg * g, d] fp32 candidates; at most this many
@@ -343,7 +343,7 @@ def blockmax_group_max_reference(user_emb: torch.Tensor, item_emb: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _blockmax_launcher():
     fn = _build.load_library().blockmax_group_max
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
@@ -367,14 +367,13 @@ class BlockmaxPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=4096)
-def blockmax_plan(q_n: int, n: int, group: int, bf16: bool, n_sm: int) -> BlockmaxPlan:
+def blockmax_plan(q_n: int, n: int, group: int, n_sm: int) -> BlockmaxPlan:
     """The kernel's grid on a card of ``n_sm`` SMs. The query tile comes
-    from Q: 16 rows for bf16 operands at Q <= 16 (a 64-row tile would be
-    mostly padding at a served Q = 1), else 64 (the FMA kernel's only
-    tile). Each block takes up to :func:`blockmax_groups_per_block` whole
-    groups, fewer where that would leave fewer than about two blocks per
-    SM."""
-    tq = BLOCKMAX_TQ_SMALL if bf16 and q_n <= BLOCKMAX_TQ_SMALL else BLOCKMAX_TQ
+    from Q: 16 rows at Q <= 16 (a 64-row tile would be mostly padding at a
+    served Q = 1), else 64. Each block takes up to
+    :func:`blockmax_groups_per_block` whole groups, fewer where that would
+    leave fewer than about two blocks per SM."""
+    tq = BLOCKMAX_TQ_SMALL if q_n <= BLOCKMAX_TQ_SMALL else BLOCKMAX_TQ
     n_qt, n_groups = _cdiv(q_n, tq), _cdiv(n, group)
     gpb = blockmax_groups_per_block(group)
     while gpb > 1 and n_qt * _cdiv(n_groups, gpb) < 2 * n_sm:
@@ -385,14 +384,14 @@ def blockmax_plan(q_n: int, n: int, group: int, bf16: bool, n_sm: int) -> Blockm
 @kernel_nan_check("kernel row 8 blockmax_group_max (the sieve's per-group max)")
 def blockmax_group_max(user_emb: torch.Tensor, item_emb: torch.Tensor,
                        group: int) -> torch.Tensor:
-    """Pass 1 of :func:`blockmax_topk`: [Q, d] x [N, d] (both bf16 or
-    both fp32) -> [Q, ceil(N / group)] fp32 group maxima of the
-    fp32-accumulated dots.
+    """Pass 1 of :func:`blockmax_topk`: [Q, d] x [N, d] (both bf16; on
+    the CPU also both fp32) -> [Q, ceil(N / group)] fp32 group maxima of
+    the fp32-accumulated dots.
 
     CPU tensors take :func:`blockmax_group_max_reference`; CUDA tensors
     launch the kernel on :func:`blockmax_plan` (bf16 operands on the
-    tensor cores, d <= 256; fp32 on the FMA units; one launch per call) or
-    raise."""
+    tensor cores, d <= 256; one launch per call) or raise: fp32 operands
+    have no kernel (``blockmax_topk(bf16=True)`` rounds them to bf16)."""
     if group < 1:
         raise ValueError(f"blockmax_group_max: group must be >= 1, got {group}")
     if user_emb.device.type == "cpu" and item_emb.device.type == "cpu":
@@ -404,28 +403,27 @@ def blockmax_group_max(user_emb: torch.Tensor, item_emb: torch.Tensor,
     if user_emb.dim() != 2 or item_emb.dim() != 2 or user_emb.shape[1] != item_emb.shape[1]:
         raise ValueError(f"blockmax_group_max: want [Q, d] and [N, d], got "
                          f"{tuple(user_emb.shape)} and {tuple(item_emb.shape)}")
-    if user_emb.dtype != item_emb.dtype or user_emb.dtype not in (torch.bfloat16,
-                                                                  torch.float32):
-        raise ValueError(f"blockmax_group_max: embeddings must both be bf16 or both "
-                         f"fp32, got {user_emb.dtype} and {item_emb.dtype}")
+    if user_emb.dtype != torch.bfloat16 or item_emb.dtype != torch.bfloat16:
+        raise ValueError(f"blockmax_group_max: CUDA embeddings must both be bf16 (fp32 "
+                         f"operands have no kernel; blockmax_topk(bf16=True) rounds them), "
+                         f"got {user_emb.dtype} and {item_emb.dtype}")
     u, v = user_emb.contiguous(), item_emb.contiguous()
     q_n, d = u.shape
     n = v.shape[0]
     if n == 0 or d == 0:
         raise ValueError("blockmax_group_max: empty catalog or zero width")
-    bf16 = u.dtype == torch.bfloat16
-    if bf16 and d > 256:
-        raise ValueError(f"blockmax_group_max: bf16 operands need d <= 256, got {d}")
+    if d > 256:
+        raise ValueError(f"blockmax_group_max: the kernel needs d <= 256, got {d}")
     n_groups = _cdiv(n, group)
     out = torch.empty((q_n, n_groups), dtype=torch.float32, device=dev)
     if q_n:
-        p = blockmax_plan(q_n, n, group, bf16, _sm_count(dev.index))
-        vec = int(bf16 and d % 8 == 0 and u.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
+        p = blockmax_plan(q_n, n, group, _sm_count(dev.index))
+        vec = int(d % 8 == 0 and u.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             err = _blockmax_launcher()(
                 u.data_ptr(), v.data_ptr(), q_n, n, d, group, p.groups_per_block,
-                int(bf16), p.tq, vec, out.data_ptr(), stream)
+                p.tq, vec, out.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"blockmax_group_max kernel launch failed: cudaError {err}")
         blockmax_group_max.launches += 1

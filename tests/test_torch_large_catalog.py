@@ -146,14 +146,12 @@ def test_blockmax_kernel_plan():
 @pytest.mark.parametrize("n", [300, 1000, 1 << 20])
 def test_blockmax_plan_covers_every_query_tile_and_group_once(n, group, q_n):
     """The tensor-core kernel's grid, checked on the CPU: a 16-row query
-    tile at Q <= 16 and 64 above (fp32 always 64), whole groups per block,
-    and blocks that cover every (query tile, group) exactly once, as the
-    kernel maps block b to query tile b % n_qtiles and chunk b //
-    n_qtiles."""
+    tile at Q <= 16 and 64 above, whole groups per block, and blocks that
+    cover every (query tile, group) exactly once, as the kernel maps block
+    b to query tile b % n_qtiles and chunk b // n_qtiles."""
     n_sm = 132
-    p = blockmax_plan(q_n, n, group, True, n_sm)
+    p = blockmax_plan(q_n, n, group, n_sm)
     assert p.tq == (16 if q_n <= 16 else 64)
-    assert blockmax_plan(q_n, n, group, False, n_sm).tq == 64
     n_groups = -(-n // group)
     assert p.n_qtiles * p.tq >= q_n > (p.n_qtiles - 1) * p.tq
     assert 1 <= p.groups_per_block <= blockmax_groups_per_block(group)

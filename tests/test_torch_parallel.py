@@ -164,6 +164,16 @@ def _run_ranks(script: str, world: int, args_of) -> None:
     assert [p.returncode for p in procs] == [0] * world, "\n".join(o[-3000:] for o in outs)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_group_left_behind():
+    """The one-rank mesh this module's in-process tests make is
+    process-wide: destroy its group after the module, so that a later test
+    file in the same worker (the train CLI, which joins any group it finds)
+    starts without one."""
+    yield
+    port_mesh.shutdown()
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory, tiny_bundle):
     """Every case of the 4-rank world -> {"inputs", "bundle", "dense_bundle",

@@ -147,13 +147,13 @@ def test_plain_versions_chunked_over_query_rows(chunk_rows, monkeypatch):
 @pytest.mark.parametrize("bq,bk", [(64, 64), (64, 192)])
 def test_flash_softmax_ce_on_the_twokernel_route_matches_jax(dtype, bq, bk, monkeypatch):
     """Both caps lowered below these shapes' partials: JAX takes its
-    two-kernel backward, the port its H100 route (``bwd_route``, which the
-    cap does not move: rows 6 and 7 for bf16 operands, the fused kernel for
-    fp32 ones); value and gradients w.r.t. u, v, colcorr agree."""
+    two-kernel backward, the port its H100 route (picked by the operand
+    type, which the cap does not move: rows 6 and 7 for bf16 operands, the
+    fused kernel for fp32 ones); value and gradients w.r.t. u, v, colcorr
+    agree."""
     monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 1024)
     monkeypatch.setattr(JF, "_FUSED_BWD_PARTIALS_CAP", 1024)
     route = "twokernel" if dtype == "bfloat16" else "fused"
-    assert F.bwd_route(bq, bk, 16, dtype == "bfloat16") == route
     u, v, c, ids_q, ids_k, pos, g = _flash_inputs(bq, bk, 16, seed=3 * bq + bk)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
 
@@ -187,65 +187,48 @@ def test_flash_softmax_ce_on_the_twokernel_route_matches_jax(dtype, bq, bk, monk
                                    (139264, 139264), (131072, 147456), (131072, 262144),
                                    (65536, 327680)])
 def test_bwd_route_counts_the_partials_as_the_tpu_does(bq, bk):
-    """The port's partials count and route against JAX ``_tiles``: ``Bk //
-    tk`` partials with the TPU's own tile, not ceil(Bk / 2,048) (at
+    """The port's count of the TPU's partials against JAX ``_tiles``: ``Bk
+    // tk`` partials with the TPU's own tile, not ceil(Bk / 2,048) (at
     20,000 the TPU's tk is 32 and its partials are 5.96 GiB)."""
     d = 128
     tq, tk = JF._tiles(bq, bk)
     assert F._tiles(bq, bk) == (tq, tk)
     want = bq * d * (bk // tk) * 4
     assert F.fused_bwd_partials_bytes(bq, bk, d) == want
-    # the TPU switches routes at the cap; on the H100 fp32 operands keep the
-    # fused kernel on both sides of it (23-38% faster than rows 6 + 7 at
-    # chip_smoke.py's eight route-table shapes, 20,000^2 8.855 against 12.16 ms)
-    assert F.bwd_route(bq, bk, d) == "fused"
 
 
 _DU_PLAN_CASES = [
-    # bf16 operands (the wgmma kernel, one block per SM): 128-row query
-    # blocks, 128-candidate tiles
-    (8192, 8192, 128, True, 2),          # 64 blocks: one wave of 2 parts of 32 tiles
-    (131072, 262144, 128, True, 1),      # the giant step: 1,024 blocks, 7.76 waves, no partials
-    (8192, 8192, 256, True, 1),          # DP = 256: two column slices, 128 blocks in one wave
-    (20000, 20000, 128, True, 5),        # 157 blocks: 6 waves of 32 tiles
-    (1000, 3001, 129, True, 8),          # ragged, two column slices: 16 blocks, 8 parts of 3 tiles
-    (1000, 3001, 64, True, 12),          # 8 blocks: a part per 2 candidate tiles
-    (64, 10, 32, True, 1),               # one candidate tile
-    # fp32 operands (the FMA kernel, one block per SM): 128-row blocks
-    (8192, 8192, 128, False, 8),         # 64 blocks: 4 waves of 16 tiles
-    (20000, 20000, 128, False, 5),       # 157 blocks: 6 waves of 63 tiles
-    (131072, 262144, 128, False, 1),     # 1,024 blocks: 8 waves, no partials
-    (1000, 3001, 129, False, 16),        # ragged, D past 128: 64-row blocks
-    (300, 1100, 256, False, 18),         # DP = 256: a part per candidate tile
-    (65, 1, 128, False, 1),              # a single candidate
+    # the wgmma kernel, one block per SM: 128-row query blocks,
+    # 128-candidate tiles
+    (8192, 8192, 128, 2),          # 64 blocks: one wave of 2 parts of 32 tiles
+    (131072, 262144, 128, 1),      # the giant step: 1,024 blocks, 7.76 waves, no partials
+    (8192, 8192, 256, 1),          # DP = 256: two column slices, 128 blocks in one wave
+    (20000, 20000, 128, 5),        # 157 blocks: 6 waves of 32 tiles
+    (1000, 3001, 129, 8),          # ragged, two column slices: 16 blocks, 8 parts of 3 tiles
+    (1000, 3001, 64, 12),          # 8 blocks: a part per 2 candidate tiles
+    (64, 10, 32, 1),               # one candidate tile
+    (300, 1100, 256, 9),           # DP = 256: 6 blocks, a part per candidate tile
+    (65, 1, 128, 1),               # a single candidate
 ]
 
 
-@pytest.mark.parametrize("bq,bk,d,bf16,parts", _DU_PLAN_CASES, ids=[
-    f"{bq}-{bk}-{d}-{parts}" if bf16 else f"fp32-{bq}-{bk}-{d}-{parts}"
-    for bq, bk, d, bf16, parts in _DU_PLAN_CASES])
-def test_du_plan_fills_the_card_under_the_cap(bq, bk, d, bf16, parts):
+@pytest.mark.parametrize("bq,bk,d,parts", _DU_PLAN_CASES, ids=[
+    f"{bq}-{bk}-{d}-{parts}" for bq, bk, d, parts in _DU_PLAN_CASES])
+def test_du_plan_fills_the_card_under_the_cap(bq, bk, d, parts):
     """Row 6's tiling, checked on the CPU: every candidate tile in exactly
-    one part, and the dU partials under the cap. bf16 operands: 128-row
-    query blocks (two column slices past D = 128) and 128-candidate tiles,
-    one block per SM: one part where the blocks alone fill ``_FULL_WAVES``
-    waves, else the split whose last wave ends first, a block's set-up and
-    write-out counted as ``_BLOCK_TILES`` of its tiles, so never later than
-    one part. fp32 operands: 128-row blocks (64 past D = 128) and
-    64-candidate tiles, the sweep split for the fewest waves of one block
-    per SM from 2 to 8 blocks per SM, which leaves at least one block per
-    SM wherever the tiles allow."""
+    one part, and the dU partials under the cap: 128-row query blocks (two
+    column slices past D = 128) and 128-candidate tiles, one block per SM:
+    one part where the blocks alone fill ``_FULL_WAVES`` waves, else the
+    split whose last wave ends first, a block's set-up and write-out
+    counted as ``_BLOCK_TILES`` of its tiles, so never later than one
+    part."""
     n_sm = 132
-    p = F.du_plan(bq, bk, d, bf16, n_sm)
-    tile, ktile = (F.WG_OWN, F.WG_TILE) if bf16 else (F.F32_TQ if d <= 128 else 64, F.F32_DU_TK)
-    assert (p.tile, p.ktile, p.parts) == (tile, ktile, parts)
+    p = F.du_plan(bq, bk, d, n_sm)
+    assert (p.tile, p.ktile, p.parts) == (F.WG_OWN, F.WG_TILE, parts)
     n_kt = -(-bk // p.ktile)
     assert p.parts * p.tiles_per_part >= n_kt > (p.parts - 1) * p.tiles_per_part
     assert p.partials_bytes(bq, d) <= F._FUSED_BWD_PARTIALS_CAP
-    q_blocks = -(-bq // p.tile) * (2 if bf16 and d > 128 else 1)
-    if not bf16:
-        assert q_blocks * p.parts >= min(n_sm, q_blocks * n_kt)
-        return
+    q_blocks = -(-bq // p.tile) * (2 if d > 128 else 1)
 
     def ends(n_parts: int, per_part: int) -> int:
         return -(-q_blocks * n_parts // n_sm) * (per_part + F._BLOCK_TILES)
@@ -255,76 +238,53 @@ def test_du_plan_fills_the_card_under_the_cap(bq, bk, d, bf16, parts):
         assert p.parts == 1
 
 
-def test_du_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
+@pytest.mark.parametrize("room,parts,tiles_per_part", [(2, 2, 79), (1, 1, 157)])
+def test_du_plan_keeps_the_partials_under_a_lowered_cap(room, parts, tiles_per_part,
+                                                        monkeypatch):
     """With room for only two dU partials the plan takes two parts, each
     sweeping half the candidate tiles, where the card alone would take 5
-    (20,000^2)."""
+    (20,000^2); with room for one, one part, which writes dU itself."""
     bq, bk, d = 20000, 20000, 128
-    assert F.du_plan(bq, bk, d, True, 132).parts == 5
-    monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 2 * 4 * bq * d)
-    p = F.du_plan(bq, bk, d, True, 132)
-    assert (p.parts, p.tiles_per_part) == (2, 79)
+    assert F.du_plan(bq, bk, d, 132).parts == 5
+    monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", room * 4 * bq * d)
+    p = F.du_plan(bq, bk, d, 132)
+    assert (p.parts, p.tiles_per_part) == (parts, tiles_per_part)
     assert p.partials_bytes(bq, d) <= F._FUSED_BWD_PARTIALS_CAP
-
-
-def test_fp32_du_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
-    """fp32 operands: with room for only two dU partials the plan takes two
-    parts, each sweeping half the candidate tiles, where the card alone
-    would take 8."""
-    bq, bk, d = 8192, 8192, 128
-    monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 2 * 4 * bq * d)
-    p = F.du_plan(bq, bk, d, False, 132)
-    assert (p.tile, p.parts, p.tiles_per_part) == (F.F32_TQ, 2, 64)
-    assert p.partials_bytes(bq, d) <= F._FUSED_BWD_PARTIALS_CAP
+    assert (p.partials_bytes(bq, d) == 0) == (parts == 1)
 
 
 _DV_PLAN_CASES = [
-    # bf16 operands (the wgmma kernel, one block per SM): 128-candidate
-    # blocks, 128-row query tiles
-    (8192, 8192, 128, True, 2),          # 64 blocks: one wave of 2 parts of 32 tiles
-    (8192, 8192, 120, True, 2),          # D = 120, staged as 128: the same plan
-    (8192, 8192, 256, True, 1),          # DP = 256: two column slices, 128 blocks in one wave
-    (131072, 262144, 128, True, 1),      # the giant step: 2,048 blocks, 16 waves, no partials
-    (20000, 20000, 128, True, 5),        # 157 blocks: 6 waves of 32 tiles
-    (1000, 3001, 129, True, 2),          # ragged, two column slices: 48 blocks, 2 parts
-    (1000, 3001, 64, True, 4),           # 24 blocks: a part per 2 query tiles
-    (64, 10, 32, True, 1),               # one query tile
-    # fp32 operands (the FMA kernel, one block per SM): 128-candidate blocks
-    (8192, 8192, 128, False, 8),         # 64 blocks: 4 waves of 16 tiles
-    (20000, 20000, 128, False, 5),       # 157 blocks: 6 waves of 63 tiles
-    (131072, 262144, 128, False, 1),     # 2,048 blocks: 16 waves, no partials
-    (1000, 3001, 129, False, 8),         # ragged, D past 128: 64-candidate blocks
-    (300, 1100, 256, False, 5),          # DP = 256: a part per query tile
-    (65, 1, 128, False, 2),              # a single candidate: one block, two parts
-    (64, 10, 32, False, 1),              # one query tile
+    # the wgmma kernel, one block per SM: 128-candidate blocks, 128-row
+    # query tiles
+    (8192, 8192, 128, 2),          # 64 blocks: one wave of 2 parts of 32 tiles
+    (8192, 8192, 120, 2),          # D = 120, staged as 128: the same plan
+    (8192, 8192, 256, 1),          # DP = 256: two column slices, 128 blocks in one wave
+    (131072, 262144, 128, 1),      # the giant step: 2,048 blocks, 16 waves, no partials
+    (20000, 20000, 128, 5),        # 157 blocks: 6 waves of 32 tiles
+    (1000, 3001, 129, 2),          # ragged, two column slices: 48 blocks, 2 parts
+    (1000, 3001, 64, 4),           # 24 blocks: a part per 2 query tiles
+    (64, 10, 32, 1),               # one query tile
+    (300, 1100, 256, 3),           # DP = 256: 18 blocks, a part per query tile
+    (65, 1, 128, 1),               # a single candidate: one block, one query tile
 ]
 
 
-@pytest.mark.parametrize("bq,bk,d,bf16,parts", _DV_PLAN_CASES, ids=[
-    f"{bq}-{bk}-{d}-{parts}" if bf16 else f"fp32-{bq}-{bk}-{d}-{parts}"
-    for bq, bk, d, bf16, parts in _DV_PLAN_CASES])
-def test_dv_plan_fills_the_card_under_the_cap(bq, bk, d, bf16, parts):
+@pytest.mark.parametrize("bq,bk,d,parts", _DV_PLAN_CASES, ids=[
+    f"{bq}-{bk}-{d}-{parts}" for bq, bk, d, parts in _DV_PLAN_CASES])
+def test_dv_plan_fills_the_card_under_the_cap(bq, bk, d, parts):
     """Row 7's tiling, checked on the CPU: every query tile in exactly one
-    part, and the dV and dcol partials under the cap. bf16 operands:
-    128-candidate blocks and 128-row query tiles, one block per SM: one
-    part where the blocks alone fill ``_FULL_WAVES`` waves, else the split
-    whose last wave ends first, a block's set-up and write-out counted as
-    ``_BLOCK_TILES`` of its tiles, so never later than one part. fp32
-    operands: the fused kernel's 128-candidate blocks (64 past D = 128) and
-    64-row query tiles, the sweep split for the fewest waves of one block
-    per SM from 2 to 8 blocks per SM, which leaves at least one block per
-    SM wherever the tiles allow."""
+    part, and the dV and dcol partials under the cap: 128-candidate blocks
+    and 128-row query tiles, one block per SM: one part where the blocks
+    alone fill ``_FULL_WAVES`` waves, else the split whose last wave ends
+    first, a block's set-up and write-out counted as ``_BLOCK_TILES`` of
+    its tiles, so never later than one part."""
     n_sm = 132
-    p = F.dv_plan(bq, bk, d, bf16, n_sm)
-    tile, qtile = (F.WG_OWN, F.WG_TILE) if bf16 else (F.TKC if d <= 128 else F.TK, F.F32_DV_TQ)
-    assert (p.tile, p.qtile, p.parts) == (tile, qtile, parts)
+    p = F.dv_plan(bq, bk, d, n_sm)
+    assert (p.tile, p.qtile, p.parts) == (F.WG_OWN, F.WG_TILE, parts)
     n_qt = -(-bq // p.qtile)
     assert p.parts * p.q_tiles_per_part >= n_qt > (p.parts - 1) * p.q_tiles_per_part
     assert p.partials_bytes(bk, d) <= F._FUSED_BWD_PARTIALS_CAP
-    k_blocks = -(-bk // p.tile) * (2 if bf16 and d > 128 else 1)
-    if not bf16:
-        assert k_blocks * p.parts >= min(n_sm, k_blocks * n_qt)
-        return
+    k_blocks = -(-bk // p.tile) * (2 if d > 128 else 1)
 
     def ends(n_parts: int, per_part: int) -> int:
         return -(-k_blocks * n_parts // n_sm) * (per_part + F._BLOCK_TILES)
@@ -334,45 +294,43 @@ def test_dv_plan_fills_the_card_under_the_cap(bq, bk, d, bf16, parts):
         assert p.parts == 1
 
 
-def test_dv_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
+@pytest.mark.parametrize("room,parts,q_tiles_per_part", [(2, 2, 79), (1, 1, 157)])
+def test_dv_plan_keeps_the_partials_under_a_lowered_cap(room, parts, q_tiles_per_part,
+                                                        monkeypatch):
     """With room for only two parts of dV and dcol the plan takes two
     parts, each sweeping half the query tiles, where the card alone would
-    take 5 (20,000^2)."""
+    take 5 (20,000^2); with room for one, one part, which writes dV and
+    dcol itself."""
     bq, bk, d = 20000, 20000, 128
-    assert F.dv_plan(bq, bk, d, True, 132).parts == 5
-    monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 2 * 4 * bk * (d + 1))
-    p = F.dv_plan(bq, bk, d, True, 132)
-    assert (p.parts, p.q_tiles_per_part) == (2, 79)
+    assert F.dv_plan(bq, bk, d, 132).parts == 5
+    monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", room * 4 * bk * (d + 1))
+    p = F.dv_plan(bq, bk, d, 132)
+    assert (p.parts, p.q_tiles_per_part) == (parts, q_tiles_per_part)
     assert p.partials_bytes(bk, d) <= F._FUSED_BWD_PARTIALS_CAP
-
-
-def test_fp32_dv_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
-    """fp32 operands: with room for only two parts of dV and dcol the plan
-    takes two parts, each sweeping half the query tiles, where the card
-    alone would take 8; with room for none it takes one part."""
-    bq, bk, d = 8192, 8192, 128
-    monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 2 * 4 * bk * (d + 1))
-    p = F.dv_plan(bq, bk, d, False, 132)
-    assert (p.tile, p.parts, p.q_tiles_per_part) == (F.TKC, 2, 64)
-    assert p.partials_bytes(bk, d) <= F._FUSED_BWD_PARTIALS_CAP
-    monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 4 * bk * (d + 1))
-    p = F.dv_plan(bq, bk, d, False, 132)
-    assert (p.parts, p.q_tiles_per_part) == (1, 128) and p.partials_bytes(bk, d) == 0
+    assert (p.partials_bytes(bk, d) == 0) == (parts == 1)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("bq,bk,d,n_sm,all_accidental", [
-    (192, 64, 32, 132, False),    # two parts of one query tile, the last of 64 rows
-    (600, 1024, 32, 16, True),    # two parts of 3 and 2 query tiles
-    (257, 1, 16, 132, False),     # one candidate, three parts, the last of 1 row
-    (130, 300, 129, 132, True),   # two parts, the last of 2 rows; D past 128
+@pytest.mark.parametrize("bq,bk,d,n_sm,all_accidental,parts", [
+    (192, 64, 32, 132, False, 2),    # two parts of one query tile, the last of 64 rows
+    (600, 1024, 32, 16, True, 2),    # two parts of 3 and 2 query tiles
+    (257, 1, 16, 132, False, 3),     # one candidate, three parts, the last of 1 row
+    (130, 300, 129, 132, True, 2),   # two parts, the last of 2 rows; D past 128
+    (192, 300, 32, 132, False, 2),   # 3 blocks: two parts, the last of 64 rows
+    (320, 1024, 32, 132, True, 3),   # 8 blocks: three parts, the last of 64 rows
+    (130, 300, 129, 132, False, 2),  # D past 128, random accidental hits only
+    (200, 190, 24, 132, False, 2),   # ragged: two parts, the last of 72 rows
+    (1000, 700, 48, 4, True, 2),     # 6 blocks on 4 SMs: 2 parts of 4 query tiles
 ])
-def test_dv_partials_sum_to_the_reference_and_jax(dtype, bq, bk, d, n_sm, all_accidental):
+def test_dv_partials_sum_to_the_reference_and_jax(dtype, bq, bk, d, n_sm, all_accidental,
+                                                  parts):
     """The plain version of row 7's partials under ``dv_plan`` ([parts, Bk,
     D] dV, [parts, Bk] dcol), summed over the parts, equals the one-pass
-    plain dV and dcol and JAX ``_flash_bwd_twokernel_raw`` in interpret
-    mode; the cases hold rows whose every candidate but the positive is an
-    accidental hit and a positive in the last column."""
+    plain dV and dcol (1e-6 of max|ref|) and JAX
+    ``_flash_bwd_twokernel_raw`` in interpret mode, in both operand types;
+    row 0's positive lies in the last column, and with ``all_accidental``
+    every third row's every candidate but its positive is an accidental
+    hit."""
     rng = np.random.default_rng(bq + bk + d)
     u = (rng.standard_normal((bq, d)) * d ** -0.5).astype(np.float32)
     v = rng.standard_normal((bk, d)).astype(np.float32)
@@ -390,8 +348,8 @@ def test_dv_partials_sum_to_the_reference_and_jax(dtype, bq, bk, d, n_sm, all_ac
     small = (torch.tensor(c), torch.tensor(ids_q), torch.tensor(ids_k), torch.tensor(pos))
     lse, _ = F.flash_ce_fwd_reference(tu, tv, *small)
     args = (tu, tv, *small, lse, torch.tensor(g))
-    p = F.dv_plan(bq, bk, d, True, n_sm)
-    assert p.parts > 1
+    p = F.dv_plan(bq, bk, d, n_sm)
+    assert p.parts == parts
     dv_part, dcol_part = F.flash_ce_bwd_dv_partials_reference(*args, p)
     assert dv_part.shape == (p.parts, bk, d) and dcol_part.shape == (p.parts, bk)
     got = (dv_part.sum(dim=0), dcol_part.sum(dim=0))
@@ -405,66 +363,27 @@ def test_dv_partials_sum_to_the_reference_and_jax(dtype, bq, bk, d, n_sm, all_ac
     _rel_close(got[1], want[2], 1e-5)
 
 
-@pytest.mark.parametrize("bq,bk,d,n_sm,all_accidental", [
-    (192, 300, 32, 132, False),   # 3 blocks: 3 parts of one query tile
-    (320, 1024, 32, 132, True),   # 8 blocks: 5 parts
-    (130, 300, 129, 132, True),   # D past 128: 64-candidate blocks, 3 parts, the last of 2 rows
-    (200, 190, 24, 132, False),   # ragged: 4 parts, the last of 8 rows
-    (1000, 700, 48, 4, True),     # 2 parts of 8 query tiles, the last tile of 40 rows
-])
-def test_fp32_dv_partials_sum_to_the_reference_and_jax(bq, bk, d, n_sm, all_accidental):
-    """The plain version of what row 7's fp32 kernel writes under
-    ``dv_plan`` ([parts, Bk, D] dV, [parts, Bk] dcol, at least 2 parts
-    here), summed over the parts in part order as the wrapper sums them,
-    equals the one-pass plain dV and dcol (1e-6 of max|ref|) and JAX
-    ``_flash_bwd_twokernel_raw``'s in interpret mode (1e-5 of max|ref|);
-    row 0's positive lies in the last column, and with ``all_accidental``
-    every third row's every other candidate is an accidental hit."""
-    rng = np.random.default_rng(bq + bk + d)
-    u = (rng.standard_normal((bq, d)) * d ** -0.5).astype(np.float32)
-    v = rng.standard_normal((bk, d)).astype(np.float32)
-    c = rng.standard_normal(bk).astype(np.float32)
-    ids_k = rng.integers(0, max(2, bk // 3), bk).astype(np.int32)
-    ids_q = rng.integers(0, max(2, bk // 3), bq).astype(np.int32)
-    pos = np.arange(bq, dtype=np.int32) % bk
-    pos[0] = bk - 1
-    if all_accidental:
-        ids_k[:] = bk
-        ids_q[::3] = bk
-    g = rng.standard_normal(bq).astype(np.float32)
-    small = (torch.tensor(c), torch.tensor(ids_q), torch.tensor(ids_k), torch.tensor(pos))
-    tu, tv = torch.tensor(u), torch.tensor(v)
-    lse, _ = F.flash_ce_fwd_reference(tu, tv, *small)
-    args = (tu, tv, *small, lse, torch.tensor(g))
-    p = F.dv_plan(bq, bk, d, False, n_sm)
-    assert p.parts >= 2 and p.tile == (F.TKC if d <= 128 else F.TK)
-    dv_part, dcol_part = F.flash_ce_bwd_dv_partials_reference(*args, p)
-    assert dv_part.shape == (p.parts, bk, d) and dcol_part.shape == (p.parts, bk)
-    got = (torch.sum(dv_part, dim=0), torch.sum(dcol_part, dim=0))
-    for a, b in zip(got, F.flash_ce_bwd_dv_reference(*args)):
-        _rel_close(a, b, 1e-6)
-    want = JF._flash_bwd_twokernel_raw(
-        jnp.asarray(u), jnp.asarray(v), jnp.asarray(c), jnp.asarray(ids_q), jnp.asarray(ids_k),
-        jnp.asarray(pos), jnp.asarray(lse.numpy()), jnp.asarray(g), True)
-    _rel_close(got[0], want[1], 1e-5)
-    _rel_close(got[1], want[2], 1e-5)
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("bq,bk,d,n_sm,all_accidental", [
-    # bf16's plan / fp32's plan (64-candidate tiles, _split_waves)
-    (192, 300, 32, 132, False),   # 2 blocks: 3 / 5 parts of one tile, the last of 44 candidates
-    (600, 1024, 64, 16, True),    # 5 blocks on 16 SMs: 3 parts of 3, 3 and 2 tiles / 16 of one
-    (130, 300, 129, 132, True),   # D past 128: 3 parts, two column slices / 64-row blocks, 5
-    (257, 1000, 256, 132, False),  # DP = 256: 8 / 16 parts, the last of 104 candidates
+@pytest.mark.parametrize("bq,bk,d,n_sm,all_accidental,parts,n_cols", [
+    (192, 300, 32, 132, False, 3, 384),    # 2 blocks: 3 parts of one tile, the last of 44
+    (600, 1024, 64, 16, True, 3, 1152),    # 5 blocks on 16 SMs: 3 parts of 3, 3 and 2 tiles
+    (130, 300, 129, 132, True, 3, 384),    # D past 128: 3 parts, two column slices
+    (257, 1000, 256, 132, False, 8, 1024),  # DP = 256: 8 parts, the last of 104 candidates
+    (192, 300, 32, 132, True, 3, 384),     # 2 blocks, every third row accidental
+    (320, 1024, 32, 4, True, 1, 1024),     # 3 blocks on 4 SMs: one part, no padding
+    (130, 300, 129, 132, False, 3, 384),   # D past 128, random accidental hits only
+    (200, 190, 24, 132, False, 2, 256),    # ragged: 2 parts, the last of 62 candidates
 ])
-def test_du_partials_sum_to_the_reference_and_jax(dtype, bq, bk, d, n_sm, all_accidental):
-    """The plain version of row 6's partials under ``du_plan`` for the
-    operands' type ([parts, Bq, D], over the candidates padded to the
-    plan's whole tiles as the bf16 kernel reads them), summed over the
-    parts, equals the one-pass plain dU and JAX ``_flash_bwd_twokernel_raw``
-    in interpret mode; the cases hold rows whose every candidate but the
-    positive is an accidental hit and a positive in the last column."""
+def test_du_partials_sum_to_the_reference_and_jax(dtype, bq, bk, d, n_sm, all_accidental,
+                                                  parts, n_cols):
+    """The plain version of row 6's partials under ``du_plan`` ([parts, Bq,
+    D], over the candidates padded to the plan's whole tiles as the kernel
+    reads them, ``n_cols`` of them), summed over the parts, equals the
+    one-pass plain dU (1e-6 of max|ref|) and JAX
+    ``_flash_bwd_twokernel_raw`` in interpret mode, in both operand types;
+    row 0's positive lies in the last column, and with ``all_accidental``
+    every third row's every candidate but its positive is an accidental
+    hit."""
     rng = np.random.default_rng(bq + bk + d)
     u = (rng.standard_normal((bq, d)) * d ** -0.5).astype(np.float32)
     v = rng.standard_normal((bk, d)).astype(np.float32)
@@ -482,9 +401,8 @@ def test_du_partials_sum_to_the_reference_and_jax(dtype, bq, bk, d, n_sm, all_ac
     small = (torch.tensor(c), torch.tensor(ids_q), torch.tensor(ids_k), torch.tensor(pos))
     lse, _ = F.flash_ce_fwd_reference(tu, tv, *small)
     args = (tu, tv, *small, lse, torch.tensor(g))
-    p = F.du_plan(bq, bk, d, dtype == "bfloat16", n_sm)
-    n_cols = p.parts * p.tiles_per_part * p.ktile  # bf16's cases all pad past Bk
-    assert p.parts > 1 and (n_cols > bk if dtype == "bfloat16" else n_cols >= bk)
+    p = F.du_plan(bq, bk, d, n_sm)
+    assert (p.parts, p.parts * p.tiles_per_part * p.ktile) == (parts, n_cols)
     du_part = F.flash_ce_bwd_du_partials_reference(*args, p)
     assert du_part.shape == (p.parts, bq, d) and bool(torch.isfinite(du_part).all())
     got = torch.sum(du_part, dim=0)
@@ -521,48 +439,6 @@ def test_du_cols_give_no_probability_past_bk(id_hit):
     g = torch.tensor([1.0, 3.0, 0.0])
     pg = torch.exp(s - lse[:, None]) * g[:, None]
     assert torch.equal(pg, torch.zeros_like(pg))
-
-
-@pytest.mark.parametrize("bq,bk,d,n_sm,all_accidental", [
-    (192, 300, 32, 132, False),   # 2 blocks: 5 parts of one tile
-    (320, 1024, 32, 4, True),     # 3 blocks, 16 tiles: parts of several tiles
-    (130, 300, 129, 132, True),   # D past 128: 64-row blocks, 5 parts
-    (200, 190, 24, 132, False),   # ragged: 3 parts, the last of 62 candidates
-])
-def test_fp32_du_partials_sum_to_the_reference_and_jax(bq, bk, d, n_sm, all_accidental):
-    """The plain version of what row 6's fp32 kernel writes under
-    ``du_plan`` ([parts, Bq, D], at least 3 parts here), summed over the
-    parts in part order as the wrapper sums them, equals the one-pass plain
-    dU (1e-6 of max|ref|) and JAX ``_flash_bwd_twokernel_raw``'s dU in
-    interpret mode (1e-5 of max|ref|); row 0's positive lies in the last
-    part, and with ``all_accidental`` every third row's every other
-    candidate is an accidental hit."""
-    rng = np.random.default_rng(bq + bk + d)
-    u = (rng.standard_normal((bq, d)) * d ** -0.5).astype(np.float32)
-    v = rng.standard_normal((bk, d)).astype(np.float32)
-    c = rng.standard_normal(bk).astype(np.float32)
-    ids_k = rng.integers(0, max(2, bk // 3), bk).astype(np.int32)
-    ids_q = rng.integers(0, max(2, bk // 3), bq).astype(np.int32)
-    pos = np.arange(bq, dtype=np.int32) % bk
-    pos[0] = bk - 1
-    if all_accidental:
-        ids_k[:] = bk
-        ids_q[::3] = bk
-    g = rng.standard_normal(bq).astype(np.float32)
-    small = (torch.tensor(c), torch.tensor(ids_q), torch.tensor(ids_k), torch.tensor(pos))
-    tu, tv = torch.tensor(u), torch.tensor(v)
-    lse, _ = F.flash_ce_fwd_reference(tu, tv, *small)
-    args = (tu, tv, *small, lse, torch.tensor(g))
-    p = F.du_plan(bq, bk, d, False, n_sm)
-    assert p.parts >= 3 and p.tile == (F.F32_TQ if d <= 128 else 64)
-    du_part = F.flash_ce_bwd_du_partials_reference(*args, p)
-    assert du_part.shape == (p.parts, bq, d)
-    got = torch.sum(du_part, dim=0)
-    _rel_close(got, F.flash_ce_bwd_du_reference(*args), 1e-6)
-    want = JF._flash_bwd_twokernel_raw(
-        jnp.asarray(u), jnp.asarray(v), jnp.asarray(c), jnp.asarray(ids_q), jnp.asarray(ids_k),
-        jnp.asarray(pos), jnp.asarray(lse.numpy()), jnp.asarray(g), True)
-    _rel_close(got, want[0], 1e-5)
 
 
 # ---- sparse optimizer functions ------------------------------------------

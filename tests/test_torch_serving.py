@@ -27,6 +27,7 @@ from recsys_tpu.serve.service import RecommendationService as JaxService
 from recsys_tpu.train.checkpoint import save_inference_bundle as jax_save_bundle
 from recsys_tpu_torch.config import ModelConfig, RecsysConfig
 from recsys_tpu_torch.models.multitask import MultiTaskModel
+from recsys_tpu_torch.parallel import mesh as port_mesh
 from recsys_tpu_torch.retrieval.scorer import RetrievalIndex
 from recsys_tpu_torch.serve.app import make_http_server
 from recsys_tpu_torch.serve.service import RecommendationService, StubRecommendationService
@@ -59,6 +60,16 @@ def _torch_bundle(path):
     save_inference_bundle(str(path), params["towers"], cfg, USER_RAW, ITEM_RAW,
                           index=index, full_params=params)
     return str(path)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_group_left_behind():
+    """The one-rank mesh this module's in-process tests make is
+    process-wide: destroy its group after the module, so that a later test
+    file in the same worker (the train CLI, which joins any group it finds)
+    starts without one."""
+    yield
+    port_mesh.shutdown()
 
 
 @pytest.fixture(scope="module")

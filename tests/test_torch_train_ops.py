@@ -175,53 +175,50 @@ def test_flash_wrappers_check_inputs_and_the_partials_cap(monkeypatch):
     # the cap counts the TPU's [Bk // tk, Bq, D] fp32 partials (tk = 2,048 here)
     assert F.fused_bwd_partials_bytes(8192, 8192, 128) == 4 * 8192 * 128 * 4
     fused = F.flash_ce_bwd(u, v, c, ids_q, ids_k, pos, lse, torch.ones(8))
-    assert F.bwd_route(8, 8, 4) == "fused"
-    # past the TPU's cap fp32 operands keep the fused kernel (the H100
-    # route, chip_smoke.py's route table) and bf16 ones take rows 6 and 7;
-    # the two-kernel route gives the same backward
+    # past the TPU's cap the operand type still picks the route: fp32
+    # operands keep the fused backward; the two-kernel route gives the same
     monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 8 * 4 * 4 - 1)
-    assert F.bwd_route(8, 8, 4) == "fused" and F.bwd_route(8, 8, 4, True) == "twokernel"
+    for got, want in zip(F.flash_ce_bwd(u, v, c, ids_q, ids_k, pos, lse, torch.ones(8)),
+                         fused):
+        assert torch.equal(got, want)
     for got, want in zip(F.flash_ce_bwd_twokernel(u, v, c, ids_q, ids_k, pos, lse,
                                                   torch.ones(8)), fused):
         _close(got, want)
 
 
-@pytest.mark.parametrize("b,tiles,parts,fp32_parts,tpu_route", [
-    (8192, 1, 4, 4, "fused"),     # the main path: a block per 128-candidate tile, 4 query parts
-    (20000, 1, 1, 5, "twokernel"),  # the TPU's tk is 32 here: 5.96 GiB of its partials
-    (24576, 1, 1, 2, "fused"),    # 192 partials of 12 MiB
-    (32768, 1, 1, 1, "fused"),    # 256 partials of 16 MiB: still under the cap
-    (65536, 4, 2, 2, "fused"),    # beyond, the blocks sweep wider spans
-    (131072, 16, 4, 4, "fused"),
-    (139264, 18, 4, 4, "twokernel"),  # the TPU's 2,048-wide partials pass the cap
+@pytest.mark.parametrize("b,tiles,parts,tpu_route", [
+    (8192, 1, 4, "fused"),        # the main path: a block per 128-candidate tile, 4 query parts
+    (20000, 1, 5, "twokernel"),   # the TPU's tk is 32 here: 5.96 GiB of its partials
+    (24576, 1, 2, "fused"),       # 192 partials of 12 MiB
+    (32768, 1, 1, "fused"),       # 256 partials of 16 MiB: still under the cap
+    (65536, 4, 2, "fused"),       # beyond, the blocks sweep wider spans
+    (131072, 16, 4, "fused"),
+    (139264, 18, 4, "twokernel"),  # the TPU's 2,048-wide partials pass the cap
 ])
-def test_flash_bwd_covers_the_tpu_batch_range(b, tiles, parts, fp32_parts, tpu_route):
+def test_flash_bwd_covers_the_tpu_batch_range(b, tiles, parts, tpu_route):
     """The fused backward's plan covers the TPU package's batch range,
     through its switch to the two-kernel backward, under the cap: each
     block sweeps as many 128-candidate tiles, and the query sweep is split
     into as many parts, as keep the kernel's own dU, dV and dcol partials
-    under it; the fp32 plan splits the query sweep further where the FMA
-    kernel's one block per SM would leave its last wave thin (20,000 and
-    24,576). Every candidate tile lies in exactly one span, every part has
-    query tiles. fp32 operands take the fused kernel at every batch, past
-    the TPU's switch too (the H100 route, ``bwd_route``: on the FMA units
-    it beat rows 6 + 7 by 23-38% at ``chip_smoke.py``'s eight route-table
-    shapes, 20,000^2 8.855 against 12.16 ms). Meta tensors: nothing is
+    under it, and further where the FMA kernel's one block per SM would
+    leave its last wave thin (20,000 and 24,576). Every candidate tile lies
+    in exactly one span, every part has query tiles. fp32 operands take the
+    fused kernel at every batch, past the TPU's switch too (on the FMA
+    units it beat rows 6 + 7 by 23-38% at eight shapes on an H100,
+    20,000^2 8.855 against 12.16 ms). Meta tensors: nothing is
     allocated."""
     d = 128
     n_tiles, n_qt = -(-b // F.TKC), -(-b // F.TQ)
-    for bf16, n_parts in ((True, parts), (False, fp32_parts)):
-        p = F.bwd_plan(b, b, d, bf16, 132)
-        assert (p.tile, p.tiles_per_block, p.parts) == (F.TKC, tiles, n_parts)
-        assert p.n_spans == -(-n_tiles // tiles) and p.n_spans * p.parts >= min(132, n_tiles)
-        assert p.n_spans * tiles >= n_tiles > (p.n_spans - 1) * tiles
-        assert p.parts * p.q_tiles_per_part >= n_qt > (p.parts - 1) * p.q_tiles_per_part
-        assert p.partials_bytes(b, b, d) <= F._FUSED_BWD_PARTIALS_CAP
+    p = F.bwd_plan(b, b, d, 132)
+    assert (p.tile, p.tiles_per_block, p.parts) == (F.TKC, tiles, parts)
+    assert p.n_spans == -(-n_tiles // tiles) and p.n_spans * p.parts >= min(132, n_tiles)
+    assert p.n_spans * tiles >= n_tiles > (p.n_spans - 1) * tiles
+    assert p.parts * p.q_tiles_per_part >= n_qt > (p.parts - 1) * p.q_tiles_per_part
+    assert p.partials_bytes(b, b, d) <= F._FUSED_BWD_PARTIALS_CAP
     _, tk = JF._tiles(b, b)
     assert ("fused" if F.fused_bwd_partials_bytes(b, b, d) <= F._FUSED_BWD_PARTIALS_CAP
             else "twokernel") == tpu_route == ("fused" if b * d * (b // tk) * 4
                                                <= JF._FUSED_BWD_PARTIALS_CAP else "twokernel")
-    assert F.bwd_route(b, b, d) == "fused" and F.bwd_route(b, b, d, True) == "twokernel"
     meta = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
     ids = meta(b, dtype=torch.int32)
     args = (meta(b, d), meta(b, d), meta(b), ids, ids, ids, meta(b), meta(b))
@@ -231,16 +228,15 @@ def test_flash_bwd_covers_the_tpu_batch_range(b, tiles, parts, fp32_parts, tpu_r
 
 
 @pytest.mark.parametrize("bq,bk,d,dtype,n_sm,cap_parts", [
-    (200, 300, 16, "bfloat16", 4, None),    # 3 candidate tiles, query parts
-    (130, 260, 24, "bfloat16", 132, None),  # more SMs than blocks: a part per query tile
-    (70, 1, 8, "bfloat16", 8, None),        # one candidate
-    (200, 300, 16, "bfloat16", 4, 2),       # a cap of two dU partials: wide spans
-    (130, 260, 24, "float32", 4, None),     # the FMA kernel on the same plan: 3 spans x 2 parts
+    (130, 260, 24, "float32", 4, None),     # 3 spans x 2 parts
     (130, 260, 24, "float32", 4, 3),        # a cap of three dU partials: one span of 3 tiles
     (300, 700, 64, "float32", 8, None),     # 6 spans x 2 parts, ragged last tiles
     (200, 300, 16, "float32", 4, 2),        # a cap of two dU partials: wide spans
     (150, 333, 129, "float32", 8, None),    # D > 128: 64-candidate tiles, 6 spans x 2 parts
     (100, 200, 256, "float32", 4, None),    # DP = 256: 4 spans x 2 parts
+    (200, 300, 16, "float32", 4, None),     # 3 candidate tiles, query parts
+    (130, 260, 24, "float32", 132, None),   # more SMs than blocks
+    (70, 1, 8, "float32", 8, None),         # one candidate
 ])
 def test_plain_backward_over_the_partial_layout_matches_reference(
         monkeypatch, bq, bk, d, dtype, n_sm, cap_parts):
@@ -256,7 +252,7 @@ def test_plain_backward_over_the_partial_layout_matches_reference(
     pos = torch.arange(bq, dtype=torch.int32) % bk
     lse, _ = F.flash_ce_fwd_reference(u, v, c, ids_q, ids_k, pos)
     args = (u, v, c, ids_q, ids_k, pos, lse, g)
-    p = F.bwd_plan(bq, bk, d, dtype == "bfloat16", n_sm)
+    p = F.bwd_plan(bq, bk, d, n_sm)
     if cap_parts:
         assert p.n_spans <= cap_parts and p.tiles_per_block > 1
     assert p.partials_bytes(bq, bk, d) <= F._FUSED_BWD_PARTIALS_CAP
@@ -288,7 +284,7 @@ def test_fp32_bwd_partials_match_jax_fused_interpret(bq, bk, d, n_sm, all_accide
     small = (torch.tensor(c), torch.tensor(ids_q), torch.tensor(ids_k), torch.tensor(pos))
     tu, tv = torch.tensor(u), torch.tensor(v)
     lse, _ = F.flash_ce_fwd_reference(tu, tv, *small)
-    p = F.bwd_plan(bq, bk, d, False, n_sm)
+    p = F.bwd_plan(bq, bk, d, n_sm)
     assert p.tile == (F.TK if d > 128 else F.TKC)
     got = F.sum_partials(*F.flash_ce_bwd_partials_reference(tu, tv, *small, lse,
                                                             torch.tensor(g), p))
@@ -319,52 +315,61 @@ def test_bwd_plan_keeps_the_tpu_route(bq, bk):
     """The tiling does not route: the TPU's route is its own partials
     against the cap, counted as it counts them; the port routes fp32
     operands to the fused kernel on both sides of that switch (H100
-    numbers, ``bwd_route``), and the port's fused partials, bf16 and fp32,
-    fit under the cap at every shape, past the TPU's switch too."""
+    numbers), and the port's fused partials fit under the cap at every
+    shape, past the TPU's switch too."""
     d = 128
     _, tk = JF._tiles(bq, bk)
     tpu = "fused" if bq * d * (bk // tk) * 4 <= JF._FUSED_BWD_PARTIALS_CAP else "twokernel"
     assert ("fused" if F.fused_bwd_partials_bytes(bq, bk, d) <= F._FUSED_BWD_PARTIALS_CAP
             else "twokernel") == tpu
-    assert F.bwd_route(bq, bk, d) == "fused"
-    for bf16 in (True, False):
-        plan = F.bwd_plan(bq, bk, d, bf16, 132)
-        assert plan.partials_bytes(bq, bk, d) <= F._FUSED_BWD_PARTIALS_CAP
+    plan = F.bwd_plan(bq, bk, d, 132)
+    assert plan.partials_bytes(bq, bk, d) <= F._FUSED_BWD_PARTIALS_CAP
 
 
-@pytest.mark.parametrize("bq,bk", [(4096, 20480), (8192, 8192), (16384, 16384),
-                                   (32768, 32768), (20000, 20000), (65536, 327680),
-                                   (131072, 147456), (131072, 262144)])
-def test_bwd_route_takes_rows_6_and_7_for_bf16_operands(bq, bk):
-    """The route measured on the H100 (``chip_smoke.py``'s route table,
-    these shapes, in turns, NVIDIA H100 80GB HBM3 at 700 W): bf16 operands
-    take the two-kernel backward on both sides of the TPU's cap (it won by
-    20-235%); fp32 operands take the fused kernel on both sides of it (it
-    won by 23-38%: 8,192^2 1.550 against 2.126 ms, 20,000^2 8.855 against
-    12.16, 131,072 x 262,144 853.8 against 1,052.3), where the TPU takes
-    its two kernels above the cap."""
-    d = 128
-    assert F.bwd_route(bq, bk, d, True) == "twokernel"
-    assert F.bwd_route(bq, bk, d, False) == F.bwd_route(bq, bk, d) == "fused"
+# the eight shapes of the H100 route tables (PERF.md), D = 128
+_ROUTE_TABLE_SHAPES = [(4096, 20480), (8192, 8192), (16384, 16384), (32768, 32768),
+                       (20000, 20000), (65536, 327680), (131072, 147456), (131072, 262144)]
 
 
 @pytest.mark.parametrize("dtype,route", [("bfloat16", "twokernel"), ("float32", "fused")])
-def test_flash_ce_bwd_routes_by_operand_type(dtype, route, monkeypatch):
-    """Under the cap ``flash_ce_bwd`` sends bf16 operands to rows 6 and 7
-    and fp32 operands to the fused kernel; both routes give the plain
-    backward."""
+@pytest.mark.parametrize("bq,bk", _ROUTE_TABLE_SHAPES)
+def test_flash_ce_bwd_routes_by_operand_type(bq, bk, dtype, route, monkeypatch):
+    """``flash_ce_bwd`` sends bf16 operands to rows 6 and 7 and fp32
+    operands to the fused kernel at every shape of the H100 route tables,
+    on both sides of the TPU's cap (each route won there for its operand
+    type). Meta tensors: nothing is allocated; only the callee is read."""
     calls = []
     for name in ("fused", "twokernel"):
-        monkeypatch.setattr(F, f"flash_ce_bwd_{name}", lambda *a, name=name: (
-            calls.append(name) or F.flash_ce_bwd_reference(*a)))
-    u, v, c, ids_q, ids_k, g = (torch.tensor(x) for x in _inputs(64, 96, 16, seed=4))
-    u, v = u.to(getattr(torch, dtype)), v.to(getattr(torch, dtype))
-    pos = torch.arange(64, dtype=torch.int32)
-    lse, _ = F.flash_ce_fwd(u, v, c, ids_q, ids_k, pos)
-    got = F.flash_ce_bwd(u, v, c, ids_q, ids_k, pos, lse, g)
+        monkeypatch.setattr(F, f"flash_ce_bwd_{name}", lambda *a, name=name: calls.append(name))
+    d, dt = 128, getattr(torch, dtype)
+    meta = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
+    F.flash_ce_bwd(meta(bq, d, dtype=dt), meta(bk, d, dtype=dt), meta(bk),
+                   meta(bq, dtype=torch.int32), meta(bk, dtype=torch.int32),
+                   meta(bq, dtype=torch.int32), meta(bq), meta(bq))
     assert calls == [route]
-    for a, b in zip(got, F.flash_ce_bwd_reference(u, v, c, ids_q, ids_k, pos, lse, g)):
-        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("wrapper,dtype,use", [
+    ("flash_ce_bwd_fused", "bfloat16", "flash_ce_bwd_twokernel"),
+    ("flash_ce_bwd_du", "float32", "flash_ce_bwd_fused"),
+    ("flash_ce_bwd_dv", "float32", "flash_ce_bwd_fused"),
+])
+def test_cuda_branch_refuses_an_operand_type_without_a_kernel(wrapper, dtype, use,
+                                                               monkeypatch):
+    """Each backward wrapper launches one CUDA kernel, for one operand
+    type: a CUDA call of the other type raises, naming the wrapper to use,
+    before the kernels' library is loaded; nothing falls back."""
+    def no_library():
+        raise AssertionError("the kernels' library was loaded")
+
+    monkeypatch.setattr(F, "_on_cuda", lambda u, what: True)
+    monkeypatch.setattr(F._build, "load_library", no_library)
+    u, v, c, ids_q, ids_k, g = (torch.tensor(x) for x in _inputs(16, 24, 8, seed=1))
+    pos = torch.arange(16, dtype=torch.int32)
+    lse = torch.zeros(16)
+    dt = getattr(torch, dtype)
+    with pytest.raises(ValueError, match=f"{wrapper}: .*{use}"):
+        getattr(F, wrapper)(u.to(dt), v.to(dt), c, ids_q, ids_k, pos, lse, g)
 
 
 # ---- kernel row 4: the forward's plan and partial layout -----------------
