@@ -79,12 +79,13 @@
     versions at Bq = Bk = 8,192, D = 128, at 4,096 x 20,480, and at the
     edges of their wgmma kernels (D in {24, 32, 64, 128, 129, 256}, ragged
     Bq and Bk), checks that two calls of row 6 give the same bits, and
-    times them at 8,192 as in phase 6; holds the tensor-core kernels of
-    rows 4 and 7 against their plain versions at their edges (D in {24,
-    32, 64, 128, 129, 256}, Bq and Bk not multiples of 16 or 64, one
-    candidate, a positive column in the forward's last part, rows whose
-    every other candidate is an accidental hit) and checks that two calls
-    of each give the same bits; at 20,000^2 in fp32 checks that
+    times them at 8,192 as in phase 6; holds the wgmma kernels of rows 4
+    and 7 against their plain versions at their edges (D in {24, 32, 64,
+    128, 129, 256}, Bq and Bk not multiples of 16 or 128, one candidate, a
+    positive column in the forward's last part, the forward in one part
+    and in several, its partials' plain version combined, rows whose every
+    other candidate is an accidental hit) and checks that two calls of
+    each give the same bits; at 20,000^2 in fp32 checks that
     ``flash_ce_bwd`` takes the fused kernel (its wrapper launches, rows 6
     and 7 do not) and holds it against the plain backward;
 17. above the partials cap (Bq = 131,072, Bk = 262,144, D = 128, bf16):
@@ -270,8 +271,8 @@ times kernel rows 1 to 8 of an unpacked checkout of another commit
 (``git archive <commit> | tar -x -C PARENT_DIR``) and of this tree in
 turns on one card (parent, this, this, parent; a process each, every tree
 built from its own sources) at the shapes of the ``AB_*`` lists (rows 4,
-6 and 7 in bf16 up to 131,072 x 262,144; rows 4 to 7 also in fp32 at
-8,192^2, rows 4, 6 and 7 at 20,000^2; rows 2 and 3 at
+6 and 7 in bf16 up to 131,072 x 262,144, 20,000^2 among them; rows 4 to
+7 also in fp32 at 8,192^2, rows 4, 6 and 7 at 20,000^2; rows 2 and 3 at
 F = 256 and 289, row 3 with its reduction's device ms apart), beside the
 library yardsticks of rows 4 to 8, then each tree's served requests and
 B = 8,192 train step as phases 7 and 11 profile them, and prints one
@@ -1797,18 +1798,21 @@ def _edge_args(bq: int, bk: int, d: int, seed: int, all_accidental: bool) -> tup
 
 
 def check_fwd_dv_edges() -> list:
-    """Rows 4 and 7 of bf16 operands (the tensor-core kernels) against
+    """Rows 4 and 7 of bf16 operands (the wgmma kernels fed by TMA) against
     their plain versions at their edges: D in {24, 32, 64, 120, 128, 129,
-    256} (padded widths; row 7's TMA tiles zero past D, two column slices
-    of dV past 128, and at D = 129 its padded copy of u and v; element-wise
-    loads of row 4 where D % 8 != 0), the ragged 1,000 x 3,001 at D of 32
-    to 256, Bq and Bk not multiples of 16, 64 or 128, one candidate, row
-    0's positive column in the forward's last candidate part, 8,192^2, and
-    (every other shape) a third of the rows whose every candidate but the
-    positive is an accidental hit: lse, the positive logit and dcol within
-    FLASH_TOL of max|ref|, dV within FLASH_BF16_GRAD_TOL; two calls of each
-    give the same bits and count two launches. -> errors and plans per
-    shape."""
+    256} (padded widths; the TMA tiles zero past D, two column slices of
+    row 7's dV past 128, none for row 4's logits, and padded copies of u and
+    v where D % 8 != 0), the ragged 1,000 x 3,001 at D of 32 to 256, Bq and
+    Bk not multiples of 16, 64 or 128 (the forward's last candidate tile
+    padded, its columns past Bk -inf also where their id hits), one
+    candidate, row 0's positive column in the forward's last candidate
+    part, the forward in one part and in several (its partials' plain
+    version under ``fwd_plan``, combined, beside the one-pass one),
+    8,192^2, and (every other shape) a third of the rows whose every
+    candidate but the positive is an accidental hit: lse, the positive
+    logit and dcol within FLASH_TOL of max|ref|, dV within
+    FLASH_BF16_GRAD_TOL; two calls of each give the same bits and count two
+    launches. -> errors and plans per shape."""
     import torch
     from recsys_tpu_torch.ops import flash_ce as F
 
@@ -1828,6 +1832,11 @@ def check_fwd_dv_edges() -> list:
         check(all(bool(torch.isfinite(t).all()) for t in fwd[0]), f"{what}: non-finite forward")
         check(max(fwd_rel) <= FLASH_TOL, f"{what}: forward err {fwd_rel} > {FLASH_TOL}")
         check(all(bool(torch.equal(a, b)) for a, b in zip(*fwd)), f"{what}: two forwards differ")
+        fwd_p = F.fwd_plan(bq, bk, True, n_sm, -(-d // 8) * 8)
+        part_rel = _errs(fwd[0], F.combine_fwd_partials(
+            *F.flash_ce_fwd_partials_reference(u, v, c, ids_q, ids_k, pos, fwd_p)))[1]
+        check(max(part_rel) <= FLASH_TOL,
+              f"{what}: forward err {part_rel} against its partials > {FLASH_TOL}")
         args = (u, v, c, ids_q, ids_k, pos, ref_lse, gr)
         dv = [F.flash_ce_bwd_dv(*args) for _ in range(2)]
         torch.cuda.synchronize()
@@ -1839,11 +1848,14 @@ def check_fwd_dv_edges() -> list:
         moved = (F.flash_ce_fwd.launches - before[0], F.flash_ce_bwd_dv.launches - before[1])
         check(moved == (2, 2), f"{what}: launches of rows 4 and 7 {moved}, want (2, 2)")
         out.append({"Bq": bq, "Bk": bk, "D": d, "all_accidental_rows": bool(i % 2),
-                    "fwd_parts": F.fwd_plan(bq, bk, True, n_sm).parts,
+                    "fwd_parts": fwd_p.parts,
                     "dv_parts": F.dv_plan(bq, bk, -(-d // 8) * 8, n_sm).parts,
                     "fwd_rel": dict(zip(("lse", "pos_logit"), fwd_rel)),
+                    "fwd_partials_rel": dict(zip(("lse", "pos_logit"), part_rel)),
                     "dv_rel": dict(zip(("dV", "dcol"), dv_rel))})
         del fwd, dv, args, u, v
+    parts = {r["fwd_parts"] for r in out}
+    check(1 in parts and max(parts) > 1, f"rows 4/7 edges: forward parts {sorted(parts)}")
     return out
 
 
@@ -1993,7 +2005,7 @@ def check_fp32_route() -> dict:
 def twokernel_phases(sm_clock_mhz: float) -> dict:
     """Phases 16 and 17: rows 6 and 7 against their plain versions at the
     main path's shape and more, timed at Bq = Bk = 8,192 bf16, and rows 4
-    and 7 at the edges of their tensor-core kernels
+    and 7 at the edges of their wgmma kernels
     (:func:`check_fwd_dv_edges`); then above the partials cap (131,072 x
     262,144, D = 128, bf16): ``flash_ce_bwd`` takes rows 6 and 7; the
     forward and rows 6 and 7 agree with their plain versions (which form
@@ -2026,7 +2038,7 @@ def twokernel_phases(sm_clock_mhz: float) -> dict:
         del res
     log(f"rows 6 and 7 agree with their plain versions: {json.dumps(out['checks'])}")
     out["fwd_dv_edges"] = check_fwd_dv_edges()
-    log(f"rows 4 and 7 (tensor cores) agree at their edges: {json.dumps(out['fwd_dv_edges'])}")
+    log(f"rows 4 and 7 (wgmma) agree at their edges: {json.dumps(out['fwd_dv_edges'])}")
     out["du_edges"] = check_du_edges()
     log(f"row 6 (wgmma) agrees at its edges: {json.dumps(out['du_edges'])}")
     out["fp32_route"] = check_fp32_route()
@@ -4173,7 +4185,7 @@ def data_parallel_path(repo: str, counters, tmp: str, bundle_np: dict) -> dict:
 # combine kernel: neither is counted here)
 DEBUG_ROWS = {2: ("dcn_cross", ("dcn_cross_fwd_kernel",)),
               3: ("dcn_cross_bwd", ("dcn_cross_bwd_kernel", "dcn_cross_bwd_smem_kernel")),
-              4: ("flash_ce_fwd", ("flash_ce_fwd_kernel", "flash_ce_fwd_tc_kernel")),
+              4: ("flash_ce_fwd", ("flash_ce_fwd_kernel", "flash_ce_fwd_wgmma_kernel")),
               5: ("flash_ce_bwd_fused", ("flash_ce_bwd_kernel",)),
               6: ("flash_ce_bwd_du", ("flash_ce_bwd_du_wgmma_kernel",)),
               7: ("flash_ce_bwd_dv", ("flash_ce_bwd_dv_wgmma_kernel",))}
@@ -4958,7 +4970,9 @@ def main() -> int:
          "source": "recsys_tpu_torch/csrc/flash_ce.cu",
          "replaces": "recsys_tpu/ops/pallas/flash_ce.py:114",
          "launches": train_launches["flash_ce_fwd"], **{k: main_fwd[k] for k in keys + speed},
-         "kernel": "flash_ce_fwd_tc_kernel + flash_ce_fwd_combine_kernel (bf16, mma.sync); "
+         "kernel": "flash_ce_fwd_wgmma_kernel + flash_ce_fwd_combine_kernel (bf16, wgmma fed "
+                   "by TMA, warp-specialised, ping-pong, half-tile products, two blocks an SM "
+                   "to D = 128); "
                    "flash_ce_fwd_kernel + the same combine kernel serve fp32 (FMA units, "
                    "128-bit register-tiled S, thread-private running (m, l), fwd_plan parts)",
          "fp32": {k: fp32_fwd[k] for k in keys + speed},
@@ -5038,6 +5052,7 @@ AB_FLASH_SHAPES = [(4096, "bfloat16"), (TRAIN_BATCH, "bfloat16"), (TRAIN_BATCH, 
 # the forward (row 4) and rows 6 (dU) and 7 (dV, dcol) (bf16 only):
 # (Bq, Bk, dtype), D = 128
 AB_TWOKERNEL_SHAPES = [(TRAIN_BATCH, TRAIN_BATCH, "bfloat16"), (4096, 20_480, "bfloat16"),
+                       (FP32_PAST_CAP_BATCH, FP32_PAST_CAP_BATCH, "bfloat16"),
                        (32_768, 65_536, "bfloat16"),
                        (*ABOVE_CAP[:2], "bfloat16"), (TRAIN_BATCH, TRAIN_BATCH, "float32"),
                        (FP32_PAST_CAP_BATCH, FP32_PAST_CAP_BATCH, "float32")]

@@ -27,34 +27,38 @@
 // plus one exp per logit and kernel. At Bq = Bk = 8192, D = 128 in bf16
 // the tensor-core bound is 0.017 ms forward and the Bq*Bk exps on the
 // special-function units take about as long.
-//   Every kernel of bf16 operands runs its products on the tensor cores.
-// The forward (flash_ce_fwd_tc_kernel, row 4) runs warp-level
-// mma.sync.m16n8k16 bf16 with fp32 sums (mma_bf16.cuh), operands fed by
-// ldmatrix from bf16 tiles in shared memory, the next tile loaded by
-// cp.async while the current one computes. mma.sync cannot reach Hopper's
-// dense tensor-core rate; only wgmma can. The dV/dcol kernel
-// (flash_ce_bwd_dv_wgmma_kernel, row 7) and the dU kernel
-// (flash_ce_bwd_du_wgmma_kernel, row 6), the backward of every bf16
-// training step, are the Hopper design (hopper.cuh), one the other with the
-// axes swapped: a producer warpgroup keeps a ring of TMA-loaded tiles of
-// the swept axis in flight and two consumer warpgroups of 64 rows of the
-// block's own axis run both products on wgmma, P^T (row 7) or P (row 6)
-// from the logits' accumulators straight into the register A operand of
-// the second product, the exps of one tile under the products of the next
-// and under the other consumer's (FlashAttention-3's ping-pong). What
-// bounded both on mma.sync, their first design, was the instruction itself
-// and its traffic: 64-row blocks each streamed the whole swept axis, ~146
-// GB through L2 at 131,072 x 262,144, by the threads' own cp.async. With
+//   Every kernel of bf16 operands runs its products on wgmma, Hopper's
+// warpgroup products (hopper.cuh): the forward (flash_ce_fwd_wgmma_kernel,
+// row 4), the dV/dcol kernel (flash_ce_bwd_dv_wgmma_kernel, row 7) and the
+// dU kernel (flash_ce_bwd_du_wgmma_kernel, row 6). A producer warpgroup
+// keeps a ring of TMA-loaded tiles of the swept axis in flight and two
+// consumer warpgroups of 64 rows of the block's own axis take turns at the
+// tensor cores (FlashAttention-3's ping-pong), so that one's exps run under
+// the other's products. Rows 6 and 7, one the other with the axes swapped,
+// run two products a tile, P^T (row 7) or P (row 6) from the logits'
+// accumulators straight into the register A operand of the second, the
+// exps of one tile under the products of the next. Row 4 runs one product a
+// half tile and holds two blocks an SM to D = 128, so that four consumer
+// warps share each SM sub-partition (FwdWg). What bounded all three on
+// mma.sync, their first design, was the instruction itself and its
+// traffic: 64-row blocks each streamed the whole swept axis, ~146 GB
+// through L2 at 131,072 x 262,144, by the threads' own cp.async. With
 // 128-row blocks, TMA copies that spend no thread's registers or
-// instructions, and wgmma, row 7 there takes 36.6-36.7 device ms (480
-// TFLOP/s, 49% of the 17.8 ms tensor-core bound) against 101.7-102.2 on
-// mma.sync (173 TFLOP/s), and row 6 34.4-35.2 against 97.8-98.1 (499-512
-// TFLOP/s, 50-52% of the bound); at 8,192^2 row 7 takes 0.0755 against
-// 0.2258 and row 6 0.073 against 0.212-0.214 (NVIDIA H100 80GB HBM3, 700
-// W, both trees on one card). Both are now bound by the elementwise work
-// beside the products: the exps (expf) and masks take as many instruction
-// slots as the products take tensor-core time (ex2.approx instead of expf
-// measured 11% faster on row 7, at other last bits of p). So no tile is
+// instructions, and wgmma, at 131,072 x 262,144, D = 128 row 7 takes
+// 36.6-36.7 device ms (480 TFLOP/s, 49% of the 17.8 ms tensor-core bound)
+// against 101.7-102.2 on mma.sync, row 6 34.4-35.2 against 97.8-98.1
+// (50-52% of the bound) and row 4 28.4-28.6 against 56.6-56.9 (31% of its
+// 8.9 ms bound); at 8,192^2 row 7 takes 0.0755 ms against 0.2258, row 6
+// 0.073 against 0.212-0.214 and row 4 0.064 against 0.124 (NVIDIA H100 80GB
+// HBM3, 700 W). All three are bound by the elementwise work beside the
+// products: the exps (expf, 8 instructions each) and masks take more
+// instruction slots than the products take tensor-core time (ex2.approx
+// instead of expf measured 11% faster on row 7 and ~20% on row 4, at other
+// last bits). Row 4 does half the tensor-core work of the others with the
+// same exps, so its pace is its warps' issue rate: with two consumer warps
+// a sub-partition it took 31.9 device ms at the giant shape, and 27.0 with
+// no product at all (an instruction issued in ~60% of the cycles); with
+// four, 28.4. So no tile is
 // multicast to a cluster of blocks: the ~70 GB of tiles a call reads
 // through L2 at 131,072 x 262,144 (~1.9 TB/s) do not set the pace.
 //   The kernels of fp32 operands run every product on the fp32 FMA units
@@ -74,14 +78,17 @@
 // chip.
 //
 // Design, and how it departs from the TPU kernels:
-// * Forward, bf16: 64 query rows a block, 16 a warp, U's A fragments in
-//   registers, 64-candidate tiles by cp.async; the masked logits, the
-//   positive logit and each lane's running max and sum-exp stay in
-//   registers, the quad's four lanes combined once at the end. Where the
-//   query tiles alone would leave the card thin (8,192 rows: 128 tiles) the
-//   candidate sweep splits into parts (the wrapper's fwd_plan: 9 at
-//   8,192^2, one at 131,072 rows) whose (m, l, positive logit) a second
-//   small kernel, launched by the same host call, folds in part order.
+// * Forward, bf16: 128 query rows a block, 64 a consumer warpgroup, U
+//   loaded once by TMA, 128-candidate tiles through the ring with their
+//   columns' (colcorr, id); per half tile S on wgmma, then the masked
+//   logits (in place: no product of the warpgroup is in flight), the
+//   positive logit (tested only in the half tile that holds it) and each
+//   lane's running max and sum-exp, the quad's four lanes combined once at
+//   the end. Where the query blocks alone would leave the card thin
+//   (8,192 rows: 64 blocks) the candidate sweep splits into parts (the
+//   wrapper's fwd_plan: 4 at 8,192^2, one at 131,072 rows) whose (m, l,
+//   positive logit) a second small kernel, launched by the same host call,
+//   folds in part order.
 // * Forward, fp32: a block holds 128 query rows in shared memory and sweeps
 //   the 128-candidate tiles of its part (64 and 64 at DP = 256), each staged
 //   by cp.async into one of two buffers while the other computes; S on 8 x
@@ -686,33 +693,35 @@ __global__ void __launch_bounds__(THREADS, 1) flash_ce_fwd_kernel(
   }
 }
 
-// ---- rows 6 and 7 in bf16: wgmma fed by TMA, warp-specialised -------------
+// ---- rows 4, 6 and 7 in bf16: wgmma fed by TMA, warp-specialised ----------
 
 constexpr int WG_OWN = 128;          // rows of a block's own axis: two consumer warpgroups of 64
 constexpr int WG_TILE = 128;         // rows of a tile of the swept axis
 constexpr int WG_THREADS = 384;      // the producer warpgroup, then the two consumers
 constexpr int WG_MMA_THREADS = 256;  // the consumers, who take turns at the tensor cores
 
-// The shared memory of rows 6 and 7 at padded width DP: the block's own
-// tile (WG_OWN rows: candidates for row 7, query rows for row 6), then a
-// ring of STAGES tiles of the swept axis (WG_TILE rows) with their rows'
-// inputs (SIDE bytes a row: lse, g, id and positive of row 7's query rows;
-// colcorr and id of row 6's candidates), then the ring's barriers. Both
+// The shared memory of rows 4, 6 and 7 at padded width DP: the block's own
+// tile (WG_OWN rows: candidates for row 7, query rows for rows 4 and 6),
+// then a ring of STAGES tiles of the swept axis (WG_TILE rows) with their
+// rows' inputs (SIDE bytes a row: lse, g, id and positive of row 7's query
+// rows; colcorr and id of rows 4 and 6's candidates), then the ring's
+// barriers. Both
 // tiles are 64-column chunks of 128-byte rows (hopper.cuh); DP = 32 is
 // staged as 64 columns, the upper 32 zero. The ring holds up to 4 tiles in
-// 200 KB (2 at DP = 256).
-template <int DP, int SIDE>
+// BUDGET bytes (200 KB: 2 at DP = 256).
+template <int DP, int SIDE, int BUDGET = 200 * 1024>
 struct WgTc {
   static constexpr int W = DP < 64 ? 64 : DP;       // staged width
   static constexpr int CHUNKS = W / 64;
-  static constexpr int DN = W < 128 ? W : 128;      // output columns a block (blockIdx.z past 128)
+  // output columns a block of rows 6 and 7 (blockIdx.z past 128); row 4 has none
+  [[maybe_unused]] static constexpr int DN = W < 128 ? W : 128;
   static constexpr int OWN_CHUNK = WG_OWN * 128;    // bytes of one 64-column chunk of the own tile
   static constexpr int TILE_CHUNK = WG_TILE * 128;  // and of a swept tile
   static constexpr int OWN_BYTES = CHUNKS * OWN_CHUNK;
   static constexpr int TILE_BYTES = CHUNKS * TILE_CHUNK;
   static constexpr int SIDE_ROW = SIDE;
   static constexpr int SIDE_BYTES = WG_TILE * SIDE;
-  static constexpr int FIT = (200 * 1024 - OWN_BYTES) / (TILE_BYTES + SIDE_BYTES);
+  static constexpr int FIT = (BUDGET - OWN_BYTES) / (TILE_BYTES + SIDE_BYTES);
   static constexpr int STAGES = FIT < 4 ? FIT : 4;
   static_assert(STAGES >= 2, "a ring of two tiles at least");
   static constexpr size_t smem() {
@@ -732,7 +741,7 @@ struct WgRing {
   uint64_t* own_full;    // the own tile has landed
 };
 
-// the ring of a block of rows 6 and 7, its barriers initialised by thread 0
+// the ring of a block of rows 4, 6 and 7, its barriers initialised by thread 0
 // (a full barrier takes the producer's arrival and its bytes, an empty one an
 // arrival from each consumer warp) before any thread goes on
 template <class T>
@@ -1162,10 +1171,10 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_ce_bwd_du_wgmma_kernel(
   }
 }
 
-// Row 6's per-column inputs, in the order its tiles read them: cols[c] =
-// (colcorr, ids_k) of candidate c < bk, and (-inf, 0) for the columns of the
-// last tile past bk, whose logit is then -inf (or -1e9 where the id hits)
-// and whose p*g is 0
+// Rows 4 and 6's per-column inputs, in the order their tiles read them:
+// cols[c] = (colcorr, ids_k) of candidate c < bk, and (-inf, 0) for the
+// columns of the last tile past bk, whose logit is then -inf (or -1e9 where
+// the id hits: row 6's p*g is 0 either way, row 4 sets them to -inf)
 __global__ void flash_ce_du_cols_kernel(const float* __restrict__ colcorr,
                                         const int* __restrict__ ids_k, int bk, int n_cols,
                                         float2* __restrict__ cols) {
@@ -1175,157 +1184,218 @@ __global__ void flash_ce_du_cols_kernel(const float* __restrict__ colcorr,
                    : make_float2(-CUDART_INF_F, __int_as_float(0));
 }
 
-// ---- row 4 in bf16: the forward on the tensor cores -------------------------
+// ---- row 4 in bf16: the forward on wgmma fed by TMA -----------------------
 
-constexpr int FWD_WARPS = 4;                  // 16 query rows each
-constexpr int FWD_THREADS = 32 * FWD_WARPS;
-constexpr int FWD_TQ = 16 * FWD_WARPS;        // query rows per block
-constexpr int FWD_TK = 64;                    // candidates per tile of the sweep
-
-// bf16 rows past the padded width DP: 8 more elements per row keep the
-// 16-byte rows of ldmatrix on distinct banks
+// The tiling of row 4 at padded width DP: the blocks an SM holds at once
+// (two where their shared memory fits twice, so that each SM sub-partition
+// runs four consumer warps: the exps and masks, not the products, bound the
+// kernel, and two warps a sub-partition leave its issue slots idle half the
+// time), their ring (WgTc within half the SM's shared memory) and the
+// consumers' registers (setmaxnreg: what the producer's 24 leave of the
+// block's share).
 template <int DP>
-__host__ __device__ constexpr int tc_ld() { return DP + 8; }
+struct FwdWg {
+  static constexpr int BLOCKS = DP < 256 ? 2 : 1;
+  using T = WgTc<DP, sizeof(float2), BLOCKS == 2 ? 100 * 1024 : 200 * 1024>;
+  static constexpr int REGS = BLOCKS == 2 ? 104 : 240;
+  static_assert(BLOCKS * (T::smem() + 1024) <= 228 * 1024, "the blocks fit an SM");
+};
 
-template <int DP>
-constexpr size_t fwd_tc_smem() {
-  return sizeof(__nv_bfloat16) * (FWD_TQ + 2 * FWD_TK) * tc_ld<DP>() +
-         2 * FWD_TK * (sizeof(float) + sizeof(int));
-}
-
-// Row 4 of bf16 operands on the tensor cores (mma.sync). Grid (query tiles, parts):
-// block (x, y) owns the FWD_TQ query rows of tile x and sweeps candidate
-// tiles [y * tiles_per_part, (y + 1) * tiles_per_part). Warp w owns query
-// rows 16w..16w+15: their A fragments of U are loaded once and kept in
-// registers; per 64-candidate tile (cp.async, double-buffered, with its
-// colcorr and ids):
-//   S = U_w V_j^T [16 x 64] with fp32 sums;
-//   the masked, corrected logits in registers, the positive logit taken
-//   where the row's positive column lands;
-//   each lane's running max and sum-exp over its own columns (m from -1e9).
-// At the end the four lanes of a quad (one row) combine theirs, two
-// shuffles each. One part writes lse = m + log(max(l, 1e-30)) and the
-// positive logit; more parts write (m, l, positive logit) into part
-// [3][parts][Bq], which flash_ce_fwd_combine_kernel folds in part order.
-// No atomics: two calls give the same bits.
-template <int DP>
-__global__ void __launch_bounds__(FWD_THREADS) flash_ce_fwd_tc_kernel(
-    const __nv_bfloat16* __restrict__ u, const __nv_bfloat16* __restrict__ v,
-    const float* __restrict__ colcorr, const int* __restrict__ ids_q,
-    const int* __restrict__ ids_k, const int* __restrict__ pos, int bq, int bk, int d,
-    int vec, int tiles_per_part, float* __restrict__ lse_out, float* __restrict__ pos_out,
-    float* __restrict__ part) {
-  constexpr int LD = tc_ld<DP>();
-  constexpr int KS = DP / 16;  // k-steps of S
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [FWD_TQ][LD]
-  __nv_bfloat16* Vs = Us + FWD_TQ * LD;                              // [2][FWD_TK][LD]
-  float* cs = reinterpret_cast<float*>(Vs + 2 * FWD_TK * LD);        // [2][FWD_TK]
-  int* ks = reinterpret_cast<int*>(cs + 2 * FWD_TK);                 // [2][FWD_TK]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, t4 = lane & 3;  // mma fragment row group and column pair
-  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix matrix and row of this lane
-  const int q0 = blockIdx.x * FWD_TQ, rw = warp * 16;
-  const int n_kt = (bk + FWD_TK - 1) / FWD_TK;
-  const int kt_begin = blockIdx.y * tiles_per_part;
-  const int kt_end = min(n_kt, kt_begin + tiles_per_part);
-
-  auto stage_tile = [&](int buf, int kt) {
-    const int k0 = kt * FWD_TK;
-    stage_rows<DP, FWD_THREADS>(Vs + buf * FWD_TK * LD, LD, v, k0, bk, FWD_TK, d, vec != 0);
-    if (tid < FWD_TK) {
-      const int c = k0 + tid;
-      cs[buf * FWD_TK + tid] = c < bk ? colcorr[c] : 0.f;
-      ks[buf * FWD_TK + tid] = c < bk ? ids_k[c] : 0;
-    }
+// The consumer warpgroups' (1 and 2) sweep of row 4 over the block's
+// n_tiles swept tiles: per tile, two products of half its columns each
+// (start(s, st, half): S of those WG_TILE / 2 columns into s), each read
+// (update(s, st, it, half)) once it has landed. A consumer has one product
+// in flight at a time; the two consumers take turns to start them (named
+// barriers 1 and 2, as in wg_consume), so one's masks and exps run under
+// the other's product, and the SM's other block runs between both. A
+// consumer frees a stage (empty barrier, one arrival per warp) once it has
+// read the tile's logits and its columns' inputs.
+template <class T, int N, class S, class U>
+__device__ __forceinline__ void wg_consume_one(const WgRing& r, int n_tiles, float (&s)[N],
+                                               S start, U update) {
+  if (n_tiles == 0) return;
+  const int cw = threadIdx.x / 128 - 1, lane = threadIdx.x & 31;
+  // the consumers' turns at starting products: WG 0, WG 1, WG 0, ...
+  auto turn = [&] { named_sync(1 + cw, WG_MMA_THREADS); };
+  auto pass = [&](bool last) {  // WG 1's last pass would have no turn to open
+    if (!(last && cw == 1)) named_arrive(2 - cw, WG_MMA_THREADS);
   };
 
-  stage_rows<DP, FWD_THREADS>(Us, LD, u, q0, bq, FWD_TQ, d, vec != 0);
-  if (kt_begin < kt_end) stage_tile(0, kt_begin);
-  cp_async_commit();
+  if (cw == 1) named_arrive(1, WG_MMA_THREADS);  // WG 0 goes first
+  mbar_wait(r.own_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % T::STAGES;
+    mbar_wait(r.full + st, (it / T::STAGES) & 1);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      turn();
+      start(s, st, half);
+      pass(half == 1 && it + 1 == n_tiles);
+      wgmma_wait<0>();
+      keep(s);
+      update(s, st, it, half);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(r.empty + st);
+  }
+}
 
+// Row 4 of bf16 operands (_fwd_kernel): rows 6 and 7's pipeline with one
+// product, FlashAttention-3's forward without its second product.
+//   Bound: 2 Bq Bk D products, 8.89 ms at 131,072 x 262,144, D = 128 on the
+// tensor cores at 989 TFLOP/s (0.0174 ms at 8,192^2), beside Bq Bk exps. On
+// mma.sync (64-row blocks of four warps, 64-candidate tiles staged by the
+// threads' own cp.async) it took 56.6-56.9 device ms there alone and 60.2 a
+// step inside the giant step, at 14.7-14.9% of that bound. Here the masks
+// and exps set the pace: ~14 instructions a logit (expf alone 8).
+//   Grid (query blocks, parts): block (x, y) owns the WG_OWN query rows of
+// block x and sweeps candidate tiles [y * tiles_per_part, (y + 1) *
+// tiles_per_part); FwdWg<DP>::BLOCKS blocks share an SM. The logits need all
+// of D, so DP = 256 takes no column slices.
+//   Warpgroup 0 is the producer (wg_produce): the query tile U once, the
+// candidate tiles through the ring with their columns' (colcorr, id) from
+// `cols` (flash_ce_du_cols_kernel, row 6's layout: colcorr -inf past Bk,
+// where V's rows are zero). Warpgroups 1 and 2 own 64 query rows each,
+// whose id and positive each thread reads once; per half of each candidate
+// tile j (wg_consume_one):
+//   S = U_w V_j^T [64 x WG_TILE / 2] on wgmma, both operands K-major in
+//   shared memory, fp32 sums;
+//   the masked, corrected logits in place, from masked_logit (-inf past Bk:
+//   they count for nothing), the positive logit taken where the row's
+//   positive column lands (only a warp that has a positive in the half
+//   tests for it);
+//   each lane's running max and sum-exp over its own columns of its two
+//   rows (m from -1e9): one rescale per row and half tile, one exp per
+//   logit.
+// setmaxnreg gives the consumers the producer's registers. At the end the
+// four lanes of a quad (one row) combine theirs, two shuffles each. One part
+// writes lse = m + log(max(l, 1e-30)) and the positive logit; more parts
+// write (m, l, positive logit) into part [3][parts][Bq], which
+// flash_ce_fwd_combine_kernel folds in part order. No atomics: two calls
+// give the same bits.
+template <int DP>
+__global__ void __launch_bounds__(WG_THREADS, FwdWg<DP>::BLOCKS) flash_ce_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap u_map, const __grid_constant__ CUtensorMap v_map,
+    const int* __restrict__ ids_q, const int* __restrict__ pos, const float2* __restrict__ cols,
+    int bq, int bk, int tiles_per_part, float* __restrict__ lse_out, float* __restrict__ pos_out,
+    float* __restrict__ part) {
+  using T = typename FwdWg<DP>::T;
+  constexpr int TK = WG_TILE, TH = WG_TILE / 2;  // a tile's columns and a half's
+  extern __shared__ unsigned char smem_raw[];
+  const WgRing r = wg_setup<T>(smem_raw);
+  const int q0 = blockIdx.x * WG_OWN;
+  const int n_kt = (bk + TK - 1) / TK;
+  const int kt_begin = blockIdx.y * tiles_per_part;
+  const int n_tiles = max(0, min(n_kt, kt_begin + tiles_per_part) - kt_begin);
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {  // ---- the producer
+    setmaxnreg_dec<24>();
+    wg_produce<T>(r, &u_map, q0, &v_map, kt_begin * TK,
+                  reinterpret_cast<const unsigned char*>(cols), n_tiles);
+    return;
+  }
+
+  // ---- the consumers
+  setmaxnreg_inc<FwdWg<DP>::REGS>();
+  const int cw = wg - 1, ct = threadIdx.x - 128 * wg;
+  const int lane = ct & 31, gq = lane >> 2, t4 = lane & 3;
   int idq_r[2], pos_r[2];
   float m[2], l[2], ps[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = q0 + rw + gq + 8 * h;
-    const bool ok = r < bq;
-    idq_r[h] = ok ? ids_q[r] : 0;
-    pos_r[h] = ok ? pos[r] : -1;
+  for (int h = 0; h < 2; ++h) {  // rows past bq: never written
+    const int q = q0 + 64 * cw + 16 * (ct >> 5) + gq + 8 * h;
+    const bool ok = q < bq;
+    idq_r[h] = ok ? ids_q[q] : 0;
+    pos_r[h] = ok ? pos[q] : -1;
     m[h] = NEG_BIG;
     l[h] = 0.f;
     ps[h] = 0.f;
   }
-  uint32_t ua[KS][4];  // the warp's A fragments of U, for the whole sweep
-
-  for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
-    const int buf = it & 1, k0 = kt * FWD_TK;
-    cp_async_wait_all();
-    __syncthreads();  // this tile has landed; everyone is done with the other buffer
-    if (it == 0) {
+  float s[TH / 2];
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldsm_x4(ua[kk], Us + (rw + (lm & 1) * 8 + lr) * LD + kk * 16 + (lm >> 1) * 8);
+  for (int i = 0; i < TH / 2; ++i) s[i] = 0.f;
+
+  // S of half `half` of the tile in stage st into s
+  auto start = [&](float(&acc)[TH / 2], int st, int half) {
+    wgmma_fence();
+    const unsigned char* ub = r.own + cw * 64 * 128;
+    const unsigned char* vb = r.tiles + st * T::TILE_BYTES + half * TH * 128;
+#pragma unroll
+    for (int kk = 0; kk < T::W / 16; ++kk) {
+      const int c = kk / 4, off = (kk % 4) * 32;
+      wgmma_ss<TH>(acc, sw128_desc(ub + c * T::OWN_CHUNK + off, 16, 1024),
+                   sw128_desc(vb + c * T::TILE_CHUNK + off, 16, 1024), kk > 0);
     }
-    if (kt + 1 < kt_end) stage_tile(buf ^ 1, kt + 1);
-    cp_async_commit();
-    const __nv_bfloat16* Vb = Vs + buf * FWD_TK * LD;
-    const float* cb = cs + buf * FWD_TK;
-    const int* kb = ks + buf * FWD_TK;
-
-    // S[r][c]: s[nt][2h + e] is query row rw + gq + 8h, candidate nt*8 + 2*t4 + e
-    float s[FWD_TK / 8][4];
+    wgmma_commit();
+  };
+  // half `half` of tile `it` (in stage st) from its products: acc[4j + 2h +
+  // e] is row h's column TH half + 8j + 2 t4 + e of the tile, overwritten by
+  // its masked logit (no product is in flight: see wg_consume_one)
+  auto update = [&](float(&acc)[TH / 2], int st, int it, int half) {
+    // the lane's columns 8j + 2 t4 + e, e = 0, 1: (colcorr, id) each, one float4
+    const float4* cb =
+        reinterpret_cast<const float4*>(r.side + st * T::SIDE_BYTES) + 4 * (TH / 8) * half + t4;
+    const int k0 = (kt_begin + it) * TK + TH * half;      // the half's first column
+    const int c0 = k0 + 2 * t4;                           // the lane's first column
+    const int rel[2] = {pos_r[0] - c0, pos_r[1] - c0};  // the positives, counted from c0
+    // a row's positive lies in one half tile of its sweep: only a warp that
+    // holds one here tests each column against it
+    const bool with_pos = __any_sync(FULL, static_cast<unsigned>(pos_r[0] - k0) < TH ||
+                                               static_cast<unsigned>(pos_r[1] - k0) < TH);
+    float tmax[2][2] = {{-CUDART_INF_F, -CUDART_INF_F}, {-CUDART_INF_F, -CUDART_INF_F}};
+    auto logits = [&](auto pos_here) {
 #pragma unroll
-    for (int nt = 0; nt < FWD_TK / 8; ++nt)
+      for (int j = 0; j < TH / 8; ++j) {
+        const float4 cc = cb[4 * j];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+        for (int e = 0; e < 2; ++e) {
+          const float corr = e ? cc.z : cc.x;
+          const int kid = __float_as_int(e ? cc.w : cc.y);
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int np = 0; np < FWD_TK / 16; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, Vb + (np * 16 + (lm >> 1) * 8 + lr) * LD + kk * 16 + (lm & 1) * 8);
-        mma_bf16(s[2 * np], ua[kk], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], ua[kk], b[2], b[3]);
-      }
-    }
-
-    // the logits (-inf past bk: they count for nothing), the positive
-    // logit, and this lane's max over its columns of the tile
-    float tmax[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int nt = 0; nt < FWD_TK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int cl = nt * 8 + 2 * t4 + e, c = k0 + cl;
-        const float corr = cb[cl];
-        const int kid = kb[cl];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float x = -CUDART_INF_F;
-          if (c < bk) {
-            x = masked_logit(s[nt][2 * h + e], corr, idq_r[h], kid, c, pos_r[h]);
-            if (c == pos_r[h]) ps[h] += x;
-            tmax[h] = fmaxf(tmax[h], x);
+          for (int h = 0; h < 2; ++h) {
+            float& x = acc[4 * j + 2 * h + e];
+            if constexpr (decltype(pos_here)::value) {
+              x = masked_logit(x, corr, idq_r[h], kid, 8 * j + e, rel[h]);
+              if (8 * j + e == rel[h]) ps[h] = x;
+            } else {  // no positive here: col != pos everywhere
+              x = masked_logit(x, corr, idq_r[h], kid, 0, -1);
+            }
+            tmax[h][j & 1] = fmaxf(tmax[h][j & 1], x);
           }
-          s[nt][2 * h + e] = x;
         }
       }
+    };
+    if (with_pos)
+      logits(std::true_type{});
+    else
+      logits(std::false_type{});
+    // the columns past bk (8j + e >= lim): -inf, also where their id hits (a
+    // -1e9 there would count in a sum-exp whose max is -1e9; in the max it
+    // changes nothing, m starting at -1e9)
+    if (k0 + TH > bk) {
+      const int lim = bk - c0;
+#pragma unroll
+      for (int j = 0; j < TH / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (8 * j + e >= lim) acc[4 * j + 2 * h + e] = -CUDART_INF_F;
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float m_new = fmaxf(m[h], tmax[h]);
-      float sum = 0.f;
+      const float m_new = fmaxf(m[h], fmaxf(tmax[h][0], tmax[h][1]));
+      float sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int nt = 0; nt < FWD_TK / 8; ++nt)
+      for (int j = 0; j < TH / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) sum += expf(s[nt][2 * h + e] - m_new);
-      l[h] = l[h] * expf(m[h] - m_new) + sum;
+        for (int e = 0; e < 2; ++e) sum[j & 1] += expf(acc[4 * j + 2 * h + e] - m_new);
+      l[h] = l[h] * expf(m[h] - m_new) + (sum[0] + sum[1]);
       m[h] = m_new;
     }
-  }
-  cp_async_wait_all();  // no copy may outlive the block
+  };
+  wg_consume_one<T>(r, n_tiles, s, start, update);
 
   // the quad's four lanes (one row): max, rescaled sum-exp, positive logit
 #pragma unroll
@@ -1339,14 +1409,14 @@ __global__ void __launch_bounds__(FWD_THREADS) flash_ce_fwd_tc_kernel(
     float p = ps[h];
     p += __shfl_xor_sync(FULL, p, 1);
     p += __shfl_xor_sync(FULL, p, 2);
-    const int r = q0 + rw + gq + 8 * h;
-    if (t4 != 0 || r >= bq) continue;
+    const int row = q0 + 64 * cw + 16 * (ct >> 5) + gq + 8 * h;
+    if (t4 != 0 || row >= bq) continue;
     if (gridDim.y == 1) {
-      lse_out[r] = mx + logf(fmaxf(sum, 1e-30f));
-      pos_out[r] = p;
+      lse_out[row] = mx + logf(fmaxf(sum, 1e-30f));
+      pos_out[row] = p;
     } else {
       const long long n = static_cast<long long>(gridDim.y) * bq;
-      const long long at = static_cast<long long>(blockIdx.y) * bq + r;
+      const long long at = static_cast<long long>(blockIdx.y) * bq + row;
       part[at] = mx;
       part[n + at] = sum;
       part[2 * n + at] = p;
@@ -1399,7 +1469,6 @@ int launch(K kernel, dim3 grid, int threads, size_t bytes, cudaStream_t s, A... 
 }
 
 const float* f32(const void* p) { return static_cast<const float*>(p); }
-const __nv_bfloat16* bf(const void* p) { return static_cast<const __nv_bfloat16*>(p); }
 
 // cuTensorMapEncodeTiled from the driver that the runtime uses (no link
 // against libcuda), looked up once; null if the driver has none
@@ -1447,35 +1516,57 @@ bool rows_map(CUtensorMap* map, const void* p, int n_rows, int d, int box_rows) 
 // u [bq, d], v [bk, d] (bf16 if bf16 != 0, else fp32); colcorr [bk] fp32;
 // ids_q [bq], ids_k [bk], pos [bq] int32 (0 <= pos < bk); out lse, pos_out
 // [bq] fp32. All contiguous, on the stream's device; 1 <= d <= 256. The
-// candidate tiles (64 for bf16 operands, on the tensor cores; for fp32
-// operands, on the FMA units, 128, or 64 where d > 128) split into parts
-// of tiles_per_part (vec != 0 when rows are 16-byte multiples, d % 8 == 0
-// for bf16 and d % 4 == 0 for fp32, and u, v start on 16 bytes); more than
-// one part writes its (m, l, positive logit) into part [3, parts, bq]
-// fp32, which the combine kernel, launched here too, folds into lse and
-// pos_out. Returns the cudaError_t of the launches (0 on success).
+// candidate tiles (128 for bf16 operands, on wgmma; for fp32 operands, on
+// the FMA units, 128, or 64 where d > 128) split into parts of
+// tiles_per_part; more than one part writes its (m, l, positive logit) into
+// part [3, parts, bq] fp32, which the combine kernel, launched here too,
+// folds into lse and pos_out. bf16 operands are fed by TMA: they need vec
+// (d % 8 == 0, u and v on 16 bytes) and scratch `cols` of ceil(bk / 128) *
+// 128 float2 on 16 bytes, which flash_ce_du_cols_kernel, launched here
+// first, fills. fp32 operands copy rows 16 bytes at a time where vec (d % 4
+// == 0, u and v on 16 bytes), element by element otherwise, and take no
+// `cols`. Returns the cudaError_t of the launches (0 on success).
 extern "C" int flash_ce_fwd(const void* u, const void* v, const float* colcorr,
                             const int* ids_q, const int* ids_k, const int* pos, int bq,
                             int bk, int d, int bf16, int parts, int tiles_per_part, int vec,
-                            float* lse, float* pos_out, float* part, void* stream) {
+                            float* lse, float* pos_out, float* part, void* cols, void* stream) {
   if (bq <= 0) return 0;
   if (bk <= 0 || d <= 0 || parts <= 0 || tiles_per_part <= 0 ||
       (parts > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = by_width(d, [&](auto w) {
-    constexpr int DP = decltype(w)::value;
-    using T = Fp32Fwd<DP>;
-    if (static_cast<long long>(parts) * tiles_per_part * (bf16 ? FWD_TK : T::KT) < bk)
+  int err;
+  if (bf16) {
+    if (static_cast<long long>(parts) * tiles_per_part * WG_TILE < bk || !vec ||
+        cols == nullptr || reinterpret_cast<uintptr_t>(cols) % 16 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
-    if (!bf16)
+    const int n_cols = (bk + WG_TILE - 1) / WG_TILE * WG_TILE;
+    float2* cols2 = static_cast<float2*>(cols);
+    flash_ce_du_cols_kernel<<<(n_cols + 255) / 256, 256, 0, s>>>(colcorr, ids_k, bk, n_cols,
+                                                                  cols2);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    CUtensorMap u_map, v_map;
+    if (!rows_map(&u_map, u, bq, d, WG_OWN) || !rows_map(&v_map, v, bk, d, WG_TILE))
+      return static_cast<int>(cudaErrorNotSupported);
+    err = by_width(d, [&](auto w) {
+      constexpr int DP = decltype(w)::value;
+      return launch(flash_ce_fwd_wgmma_kernel<DP>, dim3((bq + WG_OWN - 1) / WG_OWN, parts),
+                    WG_THREADS, FwdWg<DP>::T::smem(), s, u_map, v_map, ids_q, pos,
+                    static_cast<const float2*>(cols2), bq, bk, tiles_per_part, lse, pos_out,
+                    part);
+    });
+  } else {
+    err = by_width(d, [&](auto w) {
+      constexpr int DP = decltype(w)::value;
+      using T = Fp32Fwd<DP>;
+      if (static_cast<long long>(parts) * tiles_per_part * T::KT < bk)
+        return static_cast<int>(cudaErrorInvalidValue);
       return launch(flash_ce_fwd_kernel<DP>, dim3((bq + T::TQF - 1) / T::TQF, parts), THREADS,
                     T::smem(), s, f32(u), f32(v), colcorr, ids_q, ids_k, pos, bq, bk, d, vec,
                     tiles_per_part, lse, pos_out, part);
-    return launch(flash_ce_fwd_tc_kernel<DP>, dim3((bq + FWD_TQ - 1) / FWD_TQ, parts),
-                  FWD_THREADS, fwd_tc_smem<DP>(), s, bf(u), bf(v), colcorr, ids_q, ids_k,
-                  pos, bq, bk, d, vec, tiles_per_part, lse, pos_out, part);
-  });
+    });
+  }
   if (err != 0 || parts == 1) return err;
   flash_ce_fwd_combine_kernel<<<(bq + 255) / 256, 256, 0, s>>>(part, parts, bq, lse, pos_out);
   return static_cast<int>(cudaGetLastError());

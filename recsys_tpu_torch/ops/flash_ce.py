@@ -40,30 +40,25 @@ from recsys_tpu_torch.utils.trace import span
 NEG_BIG = -1e9
 # tile sizes of csrc/flash_ce.cu (TQ: the query tile that the fused
 # backward's plan counts; the fused backward, of fp32 operands, takes
-# candidate tiles of TKC, or of TK at D > 128; row 4 of bf16 operands
-# query tiles of FWD_TQ and candidate tiles of FWD_TK; rows 6 and 7, of
-# bf16 operands, blocks of WG_OWN rows of their own axis (query rows for
-# row 6, candidates for row 7) sweeping tiles of WG_TILE rows of the
+# candidate tiles of TKC, or of TK at D > 128; rows 4, 6 and 7 of bf16
+# operands blocks of WG_OWN rows of their own axis (query rows for rows 4
+# and 6, candidates for row 7) sweeping tiles of WG_TILE rows of the
 # other; row 4 of fp32 operands query blocks of F32_TQ rows and candidate
 # tiles of F32_FWD_TK, 64 and 64 at D > 128)
 TQ = 64
 TK = 64
 TKC = 128
-FWD_TQ = 64
-FWD_TK = 64
 WG_OWN = 128
 WG_TILE = 128
 F32_TQ = 128
 F32_FWD_TK = 128
 MAX_DIM = 256
-# the bf16 forward splits its sweep into parts until the grid holds about
-# this many blocks per SM (a few resident at a time, and enough waves that
-# the last is not mostly idle)
-_SWEEP_BLOCKS_PER_SM = 8
-# Rows 6 and 7 of bf16 operands hold one block per SM: a grid of their
-# blocks that fills this many waves keeps the sweep whole, and a block's
-# own set-up and write-out (its own tile's load, the ring's first tiles,
-# the output's store) count as this many of its swept tiles
+# Rows 6 and 7 of bf16 operands hold one block per SM, row 4 two where D <=
+# 128 (csrc FwdWg: four consumer warps a sub-partition for its exps) and
+# one past it: a grid of their blocks that fills this many waves keeps the
+# sweep whole, and a block's own set-up and write-out (its own tile's load,
+# the ring's first tiles, the output's store) count as this many of its
+# swept tiles
 _FULL_WAVES = 4
 _BLOCK_TILES = 2
 # The TPU package's fused backward keeps one dU partial per candidate
@@ -130,16 +125,6 @@ def flash_ce_fwd_reference(u, v, colcorr, ids_q, ids_k, pos
     return torch.cat(lse), torch.cat(pos_logit)
 
 
-def _split_sweep(n_tiles: int, blocks: int, max_parts: int, n_sm: int) -> Tuple[int, int]:
-    """The swept axis's ``n_tiles`` tiles split into parts until a grid of
-    ``blocks`` blocks per part holds about ``_SWEEP_BLOCKS_PER_SM`` blocks per
-    SM, no more parts than tiles or than ``max_parts``; no part is empty.
-    -> (parts, tiles per part)."""
-    parts = min(n_tiles, -(-_SWEEP_BLOCKS_PER_SM * n_sm // blocks), max_parts)
-    per_part = -(-n_tiles // max(1, parts))
-    return -(-n_tiles // per_part), per_part
-
-
 def _split_waves(n_tiles: int, blocks: int, max_parts: int, n_sm: int) -> Tuple[int, int]:
     """The swept axis's ``n_tiles`` tiles split into parts for the FMA
     forward of fp32 operands, which holds one block per SM: of the splits
@@ -156,21 +141,22 @@ def _split_waves(n_tiles: int, blocks: int, max_parts: int, n_sm: int) -> Tuple[
     return parts, -(-n_tiles // parts)
 
 
-def _split_resident(n_tiles: int, blocks: int, max_parts: int, n_sm: int
+def _split_resident(n_tiles: int, blocks: int, max_parts: int, slots: int
                     ) -> Tuple[int, int]:
-    """The swept axis's ``n_tiles`` tiles split into parts for a kernel that
-    holds one block per SM (rows 6 and 7 of bf16 operands): one part where the
-    ``blocks`` blocks alone fill ``_FULL_WAVES`` waves of ``n_sm``; else, of
-    the splits up to 8 blocks per SM (as many as the tiles and
-    ``max_parts`` allow), the one whose last wave ends first, counted as
-    waves x (tiles per part + ``_BLOCK_TILES``), and of those the fewest
-    parts; no part is empty. -> (parts, tiles per part)."""
-    top = max(1, min(n_tiles, max_parts, 8 * n_sm // blocks))
-    if blocks >= _FULL_WAVES * n_sm or top == 1:
+    """The swept axis's ``n_tiles`` tiles split into parts for a kernel of
+    bf16 operands (rows 4, 6 and 7) whose blocks run ``slots`` at a time
+    (SMs x the blocks an SM holds): one part where the ``blocks`` blocks
+    alone fill ``_FULL_WAVES`` waves of ``slots``; else, of the splits up to
+    8 blocks a slot (as many as the tiles and ``max_parts`` allow), the one
+    whose last wave ends first, counted as waves x (tiles per part +
+    ``_BLOCK_TILES``), and of those the fewest parts; no part is empty. ->
+    (parts, tiles per part)."""
+    top = max(1, min(n_tiles, max_parts, 8 * slots // blocks))
+    if blocks >= _FULL_WAVES * slots or top == 1:
         return 1, n_tiles
     # for each p, the fewest parts of ceil(n_tiles / p) tiles: none empty
     splits = {-(-n_tiles // -(-n_tiles // p)) for p in range(1, top + 1)}
-    parts = min(splits, key=lambda q: (-(-blocks * q // n_sm) * (-(-n_tiles // q) + _BLOCK_TILES),
+    parts = min(splits, key=lambda q: (-(-blocks * q // slots) * (-(-n_tiles // q) + _BLOCK_TILES),
                                        q))
     return parts, -(-n_tiles // parts)
 
@@ -191,25 +177,27 @@ class FwdPlan(NamedTuple):
 
 
 def fwd_plan(bq: int, bk: int, bf16: bool, n_sm: int, d: Optional[int] = None) -> FwdPlan:
-    """The forward's tiling on a card of ``n_sm`` SMs. bf16 operands (the
-    tensor-core kernel, whose tiles do not depend on ``d``): 64-row query
-    tiles, 64-candidate tiles, and the candidate sweep split into as many
-    parts as bring the grid to about ``_SWEEP_BLOCKS_PER_SM`` blocks per SM
-    (8,192 rows give only 128 query tiles). fp32 operands (the FMA kernel,
-    one block per SM; ``d`` required): 128-row blocks and 128-candidate
-    tiles (64 and 64 at D > 128), the sweep split by :func:`_split_waves`
-    (8 parts at 8,192^2). Either way no more parts than keep the partials
-    under ``_FUSED_BWD_PARTIALS_CAP``, and no part is empty."""
+    """The forward's tiling on a card of ``n_sm`` SMs at width ``d``
+    (required). bf16 operands (the wgmma kernel fed by TMA; the logits need
+    all of D, so it takes no column slices): blocks of 128 query rows and
+    128-candidate tiles, two blocks an SM where D <= 128 and one past it,
+    the candidate sweep split by :func:`_split_resident` (4 parts at
+    8,192^2, 8 at 4,096 x 20,480, 5 at 20,000^2, one at 131,072 x 262,144:
+    no partials). fp32 operands (the FMA kernel, one block per SM): 128-row
+    blocks and 128-candidate tiles (64 and 64 at D > 128), the sweep split
+    by :func:`_split_waves` (8 parts at 8,192^2). Either way no more parts
+    than keep the partials under ``_FUSED_BWD_PARTIALS_CAP``, and no part is
+    empty."""
+    if d is None:
+        raise ValueError("fwd_plan: the tiles and the blocks an SM holds depend on d")
     max_parts = _FUSED_BWD_PARTIALS_CAP // (12 * bq)
-    if not bf16:
-        if d is None:
-            raise ValueError("fwd_plan: fp32 operands' tiles depend on d")
-        tile = F32_TQ if d <= 128 else 64
-        ktile = F32_FWD_TK if d <= 128 else 64
-        return FwdPlan(tile, ktile, *_split_waves(-(-bk // ktile), -(-bq // tile), max_parts,
-                                                  n_sm))
-    return FwdPlan(FWD_TQ, FWD_TK, *_split_sweep(-(-bk // FWD_TK), -(-bq // FWD_TQ), max_parts,
-                                                 n_sm))
+    if bf16:
+        per_sm = 2 if d <= 128 else 1
+        return FwdPlan(WG_OWN, WG_TILE, *_split_resident(-(-bk // WG_TILE), -(-bq // WG_OWN),
+                                                         max_parts, per_sm * n_sm))
+    tile = F32_TQ if d <= 128 else 64
+    ktile = F32_FWD_TK if d <= 128 else 64
+    return FwdPlan(tile, ktile, *_split_waves(-(-bk // ktile), -(-bq // tile), max_parts, n_sm))
 
 
 def flash_ce_fwd_partials_reference(u, v, colcorr, ids_q, ids_k, pos, p: FwdPlan
@@ -319,7 +307,7 @@ def _check(u, v, colcorr, ids_q, ids_k, pos, what: str) -> None:
 def _fwd_launcher():
     fn = _build.load_library().flash_ce_fwd
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p] * 4)
+                   + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     return fn
 
@@ -365,22 +353,32 @@ def flash_ce_fwd(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row 4 (``_fwd_kernel``): -> (lse [Bq], positive logit [Bq]) fp32.
     ``u``, ``v`` fp32 or bf16, ``colcorr`` fp32 [Bk], ids and ``pos``
-    int32. The block that owns a query tile sweeps the candidate tiles of
-    its part (:func:`fwd_plan`; bf16 operands on the tensor cores, fp32 on
+    int32. The block that owns a query block sweeps the candidate tiles of
+    its part (:func:`fwd_plan`; bf16 operands on wgmma fed by TMA, fp32 on
     the FMA units); with more than one part a combine kernel, launched by
-    the same host call, folds the parts' partials in part order.
+    the same host call, folds the parts' partials in part order. bf16 rows
+    whose D is not a multiple of 8, or that do not start on 16 bytes, go to
+    the kernel as padded copies (:func:`_tma_rows`). At D = 128 on an
+    NVIDIA H100 80GB HBM3 (700 W) the bf16 kernel takes 0.064 device ms at
+    8,192^2 and 28.4-28.6 at 131,072 x 262,144 (its mma.sync design, which
+    it replaced: 0.124-0.125 and 56.6-56.9).
 
     CPU tensors take :func:`flash_ce_fwd_reference`; CUDA tensors launch
     the kernel or raise."""
     _check(u, v, colcorr, ids_q, ids_k, pos, "flash_ce_fwd")
     if not _on_cuda(u, "flash_ce_fwd"):
         return flash_ce_fwd_reference(u, v, colcorr, ids_q, ids_k, pos)
-    bq, d = u.shape
-    bk = v.shape[0]
+    bq, bk = u.shape[0], v.shape[0]
     u, v = u.contiguous(), v.contiguous()
     colcorr, ids_q, ids_k, pos = (t.contiguous() for t in (colcorr, ids_q, ids_k, pos))
     bf16 = u.dtype == torch.bfloat16
-    p = fwd_plan(bq, bk, bf16, _sm_count(u.device.index), d)
+    cols = None
+    if bf16:
+        u, v = _tma_rows(u), _tma_rows(v)
+        cols = torch.empty((-(-bk // WG_TILE) * WG_TILE, 2), dtype=torch.float32,
+                           device=u.device)
+    dk = u.shape[1]
+    p = fwd_plan(bq, bk, bf16, _sm_count(u.device.index), dk)
     lse = torch.empty((bq,), dtype=torch.float32, device=u.device)
     pos_logit = torch.empty_like(lse)
     part = (torch.empty((3, p.parts, bq), dtype=torch.float32, device=u.device)
@@ -389,9 +387,10 @@ def flash_ce_fwd(u: torch.Tensor, v: torch.Tensor, colcorr: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = _fwd_launcher()(u.data_ptr(), v.data_ptr(), colcorr.data_ptr(),
                               ids_q.data_ptr(), ids_k.data_ptr(), pos.data_ptr(),
-                              bq, bk, d, int(bf16), p.parts, p.tiles_per_part, _vec(u, v),
-                              lse.data_ptr(), pos_logit.data_ptr(),
-                              None if part is None else part.data_ptr(), stream)
+                              bq, bk, dk, int(bf16), p.parts, p.tiles_per_part,
+                              _vec(u, v), lse.data_ptr(), pos_logit.data_ptr(),
+                              None if part is None else part.data_ptr(),
+                              None if cols is None else cols.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_ce_fwd kernel launch failed: cudaError {err}")
     flash_ce_fwd.launches += 1
@@ -549,15 +548,17 @@ def _ptrs(args) -> list:
 
 
 def _vec(u, v) -> int:
-    """1 where the kernels, which stage by ``cp.async``, may copy u and v
-    rows 16 bytes at a time (D a multiple of 8 bf16 or 4 fp32 values, both
-    starting on 16 bytes), else 0: they then copy element by element."""
+    """1 where u and v rows are whole 16-byte units from 16 bytes on (D a
+    multiple of 8 bf16 or 4 fp32 values, both starting on 16 bytes), else 0:
+    the fp32 kernels then copy rows element by element, not by 16-byte
+    ``cp.async``; the bf16 kernels, fed by TMA, take only such rows
+    (:func:`_tma_rows`)."""
     return int(u.shape[1] % (16 // u.element_size()) == 0
                and u.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
 
 
 def _tma_rows(t: torch.Tensor) -> torch.Tensor:
-    """``t`` [n, D] bf16 as the TMA of rows 6 and 7 reads it: itself where D
+    """``t`` [n, D] bf16 as the TMA of rows 4, 6 and 7 reads it: itself where D
     is a multiple of 8 and it starts on 16 bytes, else a copy with zero
     columns up to the next multiple of 8, which add nothing to any
     product."""

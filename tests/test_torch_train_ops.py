@@ -375,53 +375,71 @@ def test_cuda_branch_refuses_an_operand_type_without_a_kernel(wrapper, dtype, us
 # ---- kernel row 4: the forward's plan and partial layout -----------------
 
 _FWD_PLAN_CASES = [
-    # bf16 operands (the tensor-core kernel, tiles independent of D)
-    (8192, 8192, None, 9),         # 128 query tiles: the candidate sweep in 9 parts
-    (131072, 262144, None, 1),     # the giant step: 2,048 query tiles, no partials
-    (1000, 3001, None, 47),        # ragged: a part per candidate tile
-    (64, 10, None, 1),             # one candidate tile
+    # bf16 operands (the wgmma kernel: 128-row query blocks, 128-candidate
+    # tiles, two blocks an SM to D = 128, one past it)
+    (8192, 8192, 128, 4, True),       # 64 blocks: one wave of 4 parts of 16 tiles
+    (131072, 262144, 128, 1, True),   # the giant step: 1,024 blocks, 3.9 waves, no partials
+    (1000, 3001, 128, 24, True),      # ragged: 8 blocks, a part per candidate tile
+    (64, 10, 128, 1, True),           # one candidate tile
+    (4096, 20480, 128, 8, True),      # 32 blocks: one wave of 8 parts of 20 tiles
+    (20000, 20000, 128, 5, True),     # 157 blocks: 3 waves of 32 tiles
+    (8192, 8192, 256, 2, True),       # one block an SM: one wave of 2 parts of 32 tiles
+    (1000, 3001, 129, 12, True),      # ragged, one block an SM: a part per 2 tiles
     # fp32 operands (the FMA kernel, one block per SM): 128 x 128 tiles
-    (8192, 8192, 128, 8),          # 64 blocks: 4 waves of 8 tiles
-    (20000, 20000, 128, 5),        # 157 blocks: 6 waves of 32 tiles
-    (131072, 262144, 128, 1),      # 1,024 blocks: 8 waves, no partials
-    (1000, 3001, 129, 16),         # ragged, D past 128: 64 x 64 tiles
-    (300, 1100, 256, 18),          # DP = 256: a part per candidate tile
-    (65, 1, 128, 1),               # a single candidate
+    (8192, 8192, 128, 8, False),      # 64 blocks: 4 waves of 8 tiles
+    (20000, 20000, 128, 5, False),    # 157 blocks: 6 waves of 32 tiles
+    (131072, 262144, 128, 1, False),  # 1,024 blocks: 8 waves, no partials
+    (1000, 3001, 129, 16, False),     # ragged, D past 128: 64 x 64 tiles
+    (300, 1100, 256, 18, False),      # DP = 256: a part per candidate tile
+    (65, 1, 128, 1, False),           # a single candidate
 ]
 
 
-@pytest.mark.parametrize("bq,bk,d,parts", _FWD_PLAN_CASES, ids=[
-    f"{bq}-{bk}-{parts}" if d is None else f"fp32-{bq}-{bk}-{d}-{parts}"
-    for bq, bk, d, parts in _FWD_PLAN_CASES])
-def test_fwd_plan_fills_the_card_under_the_cap(bq, bk, d, parts):
+@pytest.mark.parametrize("bq,bk,d,parts,bf16", _FWD_PLAN_CASES, ids=[
+    f"{'bf16' if bf16 else 'fp32'}-{bq}-{bk}-{d}-{parts}"
+    for bq, bk, d, parts, bf16 in _FWD_PLAN_CASES])
+def test_fwd_plan_fills_the_card_under_the_cap(bq, bk, d, parts, bf16):
     """The forward's tiling, checked on the CPU: every candidate tile in
-    exactly one part and the partials under the cap. bf16 operands (``d``
-    None: the logits need all of D, so the tensor-core forward has no
-    column slices and its plan no width): 64-row query tiles and
-    64-candidate tiles, the sweep split until the grid holds about 8 blocks
-    per SM. fp32 operands: 128-row blocks and 128-candidate tiles (64 and 64
-    past D = 128), the sweep split for the fewest waves of one block per SM
-    from 2 to 8 blocks per SM, which leaves at least one block per SM
-    wherever the tiles allow."""
+    exactly one part and the partials under the cap. bf16 operands (the
+    logits need all of D, so the wgmma forward has no column slices):
+    128-row query blocks and 128-candidate tiles, two blocks an SM to D =
+    128 and one past it: one part where the blocks alone fill
+    ``_FULL_WAVES`` waves, else the split whose last wave ends first, a
+    block's set-up and write-out counted as ``_BLOCK_TILES`` of its tiles,
+    so never later than one part. fp32 operands: 128-row blocks and
+    128-candidate tiles (64 and 64 past D = 128), the sweep split for the
+    fewest waves of one block per SM from 2 to 8 blocks per SM, which
+    leaves at least one block per SM wherever the tiles allow."""
     n_sm = 132
-    bf16 = d is None
     p = F.fwd_plan(bq, bk, bf16, n_sm, d)
-    want = (F.FWD_TQ, F.FWD_TK) if bf16 else (F.F32_TQ, F.F32_FWD_TK) if d <= 128 else (64, 64)
+    want = (F.WG_OWN, F.WG_TILE) if bf16 else (F.F32_TQ, F.F32_FWD_TK) if d <= 128 else (64, 64)
     assert (p.tile, p.ktile, p.parts) == (*want, parts)
     n_kt = -(-bk // p.ktile)
     assert p.parts * p.tiles_per_part >= n_kt > (p.parts - 1) * p.tiles_per_part
     assert p.partials_bytes(bq) <= F._FUSED_BWD_PARTIALS_CAP
     q_blocks = -(-bq // p.tile)
-    assert q_blocks * p.parts >= min((4 if bf16 else 1) * n_sm, q_blocks * n_kt)
+    if bf16:
+        slots = (2 if d <= 128 else 1) * n_sm
+
+        def ends(n_parts: int, per_part: int) -> int:
+            return -(-q_blocks * n_parts // slots) * (per_part + F._BLOCK_TILES)
+
+        assert ends(p.parts, p.tiles_per_part) <= ends(1, n_kt)
+        if q_blocks >= F._FULL_WAVES * slots:
+            assert p.parts == 1
+    else:
+        assert q_blocks * p.parts >= min(n_sm, q_blocks * n_kt)
 
 
 def test_fwd_plan_keeps_the_partials_under_a_lowered_cap(monkeypatch):
     """With room for only two parts' (m, l, positive logit) the plan takes
-    two parts, each sweeping half the candidate tiles."""
-    bq, bk = 8192, 8192
+    two parts, each sweeping half the candidate tiles, where the card alone
+    would take 8 (4,096 x 20,480)."""
+    bq, bk = 4096, 20480
+    assert F.fwd_plan(bq, bk, True, 132, 128).parts == 8
     monkeypatch.setattr(F, "_FUSED_BWD_PARTIALS_CAP", 2 * 12 * bq)
-    p = F.fwd_plan(bq, bk, True, 132)
-    assert (p.parts, p.tiles_per_part) == (2, 64)
+    p = F.fwd_plan(bq, bk, True, 132, 128)
+    assert (p.parts, p.tiles_per_part) == (2, 80)
     assert p.partials_bytes(bq) <= F._FUSED_BWD_PARTIALS_CAP
 
 
@@ -453,10 +471,12 @@ def _edges(ids_q, ids_k, pos, all_accidental: bool) -> tuple:
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bq,bk,n_sm,all_accidental", [
-    (64, 192, 132, False),    # three parts of one tile
-    (1024, 320, 4, True),     # two parts of 3 and 2 tiles
+    (64, 192, 132, False),    # two parts of one tile, the last of 64 candidates
+    (1024, 320, 4, True),     # 8 blocks fill a wave of 4 SMs: one part of 3 tiles
     (70, 1, 132, False),      # one candidate: one part
-    (130, 4097, 132, True),   # 65 parts, the last of one candidate
+    (130, 4097, 132, True),   # 33 parts, the last of one candidate
+    (256, 1300, 8, True),     # 6 parts of 2 tiles and one, the last of 20 candidates
+    (300, 2000, 8, False),    # 4 parts of 4 tiles, the last of 80 candidates
 ])
 def test_fwd_partials_combine_to_the_reference_and_jax(dtype, bq, bk, n_sm, all_accidental):
     """The plain version of the forward kernel's partials under
@@ -470,7 +490,7 @@ def test_fwd_partials_combine_to_the_reference_and_jax(dtype, bq, bk, n_sm, all_
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     tu, tv = torch.tensor(u).to(tdt), torch.tensor(v).to(tdt)
     small = (torch.tensor(c), torch.tensor(ids_q), torch.tensor(ids_k), torch.tensor(pos))
-    p = F.fwd_plan(bq, bk, True, n_sm)
+    p = F.fwd_plan(bq, bk, True, n_sm, 16)
     m, l, pos_part = F.flash_ce_fwd_partials_reference(tu, tv, *small, p)
     assert m.shape == l.shape == pos_part.shape == (p.parts, bq)
     got = F.combine_fwd_partials(m, l, pos_part)
