@@ -257,9 +257,29 @@
     calls, and both kernels' CUDA-event ms; then ``dryrun_dlrm`` at the
     cell's widths and the train CLI's ``--config`` on a tiny model, two
     epochs, on the card;
-30. prints a ``{"kernels": [...]}`` line (each kernel's launches in phase
+30. HSTU (``python3 chip_smoke.py --hstu``, in a process of its own):
+    kernel rows 11 and 12 (``ops/hstu_attention.py``) against their plain
+    version at the edge lengths 1, 2, 63, 64, 65 and 200 in one batch
+    (N = 200, one head and four) and at the benchmark cell's shape (its
+    first 128 histories, N = 4,096, four heads): the output and the
+    gradients of v, q, k, pos_w and ts_w within ``HSTU_TOL`` of the
+    plain version's largest value, two calls bit-equal, launches equal to
+    calls, each kernel's CUDA-event ms alone at the cell's shape; row 13
+    (``ops/sampled_softmax.py``) against its plain version at four edge
+    shapes (one row, one negative; D of 128 to 512; accidental hits and a
+    negative drawn twice) and at the cell's shape (~180k rows, K = 128,
+    D = 256 over 131,263 rows), the loss and both gradients within
+    ``SAMPLED_TOL``, two calls bit-equal, launches equal to calls, its
+    ms; one ``Trainer`` step at the cell's shape (its weights, its first
+    128 histories, through ``make_train_epoch``) with rows 11 to 13's
+    launch counters set to 0 just before and read just after (one a
+    block in each direction of rows 11 and 12, one a step of each of row
+    13's wrappers); then ``dryrun_hstu`` at the cell's widths and the
+    train CLI's ``--config`` on a tiny model, two epochs, on the card;
+31. prints a ``{"kernels": [...]}`` line (each kernel's launches in phase
     27 (b) as ``launches_rows_lookup`` and in phase 28 (a) as
-    ``launches_debug``), the nvidia-smi line, and last
+    ``launches_debug``; rows 11 to 13 from phase 30, their launches in
+    its trainer step as ``launches_step``), the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line. Without a
@@ -4624,6 +4644,276 @@ def dlrm_bags_phase(repo: str, tmp: str) -> dict:
     return out
 
 
+HSTU_CONFIG = "bench_port/configs/hstu-ml20m-large-l4096.json"
+# the edge lengths of rows 11 and 12, in one batch: one event, two, a tile
+# less one, a tile, a tile and one, and the gin file's max_sequence_length
+HSTU_EDGE_LENGTHS = (1, 2, 63, 64, 65, 200)
+HSTU_BATCH = 128
+# row 13 against its plain version (fp32 both; other sums' order: an
+# item's gradient sums up to ~18,000 entries at R = 7)
+SAMPLED_TOL = 1e-4
+# rows 11 and 12 against their plain versions (the same bf16 operands and
+# rounding points; other sums' order): the widest gap over the largest
+# plain value, of the output and each gradient
+HSTU_TOL = 5e-3
+
+
+def check_hstu_attention(lengths, n_max: int, heads: int, seed: int, timestamps=None,
+                         timed: bool = False) -> dict:
+    """Rows 11 and 12 (``ops/hstu_attention.py``) on a jagged batch of
+    ``lengths``: the output and the gradients of v, q, k, pos_w and ts_w
+    against the plain version, two calls bit-equal, launches equal to
+    calls; with ``timed``, each kernel's CUDA-event ms alone."""
+    import numpy as np
+    import torch
+    from recsys_tpu_torch.ops import hstu_attention as ha
+
+    lens = torch.as_tensor(np.asarray(lengths, dtype=np.int64))
+    layout = ha.make_layout(lens, "cuda")
+    e, w = layout.events, heads * ha.HEAD_DIM
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    v, q, k = (torch.randn((e, w), generator=gen, device="cuda") for _ in range(3))
+    pos_w = torch.randn((2 * n_max - 1,), generator=gen, device="cuda") * 0.5
+    ts_w = torch.randn((ha.NUM_BUCKETS + 1,), generator=gen, device="cuda") * 0.5
+    if timestamps is None:
+        gaps = torch.exp(torch.rand((e,), generator=gen, device="cuda", dtype=torch.float64)
+                         * np.log(2_592_000.0)).round().to(torch.int64)
+        gaps[layout.offsets[:-1].long()] = 0
+        cum = torch.cumsum(gaps, 0)
+        timestamps = cum - cum[layout.offsets[:-1].long()][layout.seq] + 1_300_000_000
+    g = torch.randn((e, w), generator=gen, device="cuda")
+    leaves = [t.requires_grad_(True) for t in (v, q, k, pos_w, ts_w)]
+    what = f"hstu attention {len(lengths)} histories, {e} events"
+    runs = []
+    f0, b0 = ha.hstu_attn_fwd.launches, ha.hstu_attn_bwd.launches
+    for _ in range(2):
+        out = ha.hstu_attention(v, q, k, pos_w, ts_w, timestamps, layout, n_max)
+        runs.append([out.detach(), *torch.autograd.grad(out, leaves, g)])
+    check(all(torch.equal(a, b) for a, b in zip(*runs)), f"{what}: two calls differ")
+    check(ha.hstu_attn_fwd.launches - f0 == 2 and ha.hstu_attn_bwd.launches - b0 == 2,
+          f"{what}: launches")
+    got = runs[0]
+    del runs
+    out = ha.attention_reference(v, q, k, pos_w, ts_w, timestamps, layout, n_max)
+    want = [out.detach(), *torch.autograd.grad(out, leaves, g)]
+    errs = {}
+    for name, a, b in zip(("out", "dv", "dq", "dk", "dpos_w", "dts_w"), got, want):
+        errs[name] = float(torch.max(torch.abs(a - b))) / max(float(torch.max(torch.abs(b))),
+                                                               1e-30)
+    bad = {k: v for k, v in errs.items() if v > HSTU_TOL}
+    check(not bad, f"{what}: off by more than {HSTU_TOL} of the largest value: {errs}")
+    res = {"events": e, "pairs": layout.pairs, "heads": heads, "n_max": n_max, "err": errs}
+    del got, want
+    if timed:
+        with torch.no_grad():
+            qkv = torch.cat([v, q, k], dim=1).to(torch.bfloat16)
+            gb = g.to(torch.bfloat16)
+            res["fwd_ms"] = time_ms(lambda: ha.attention_fwd_cuda(
+                qkv, pos_w, ts_w, timestamps, layout, n_max), 5)
+            res["bwd_ms"] = time_ms(lambda: ha.attention_bwd_cuda(
+                qkv, gb, pos_w, ts_w, timestamps, layout, n_max), 5)
+            for name in ("bwd_dkv", "bwd_dq", "bias_grad"):
+                res[f"{name}_device_ms"] = device_ms(lambda: ha.attention_bwd_cuda(
+                    qkv, gb, pos_w, ts_w, timestamps, layout, n_max), 3, f"hstu_{name}"
+                    if name == "bias_grad" else f"hstu_attn_{name}", per_call=1)[1]
+        # the two products of the forward and the backward's four, over pairs x heads x 64
+        flops = 4.0 * layout.pairs * heads * ha.HEAD_DIM
+        res["fwd_tflops"] = flops / res["fwd_ms"] / 1e9
+        res["bwd_tflops"] = 2 * flops / res["bwd_ms"] / 1e9
+        # bench_port/work/hstu.py's rule: each input read once, each output
+        # written once (bf16 q, k, v and dO, the int64 timestamps; fp32 O
+        # and dq, dk, dv)
+        res["fwd_bound_ms"], res["fwd_bound_by"] = bound_ms(
+            e * (2.0 * 3 * w + 8 + 4 * w), flops, BF16_FLOPS)
+        res["bwd_bound_ms"], res["bwd_bound_by"] = bound_ms(
+            e * (2.0 * 4 * w + 8 + 4 * 3 * w), 2 * flops, BF16_FLOPS)
+    return res
+
+
+def check_sampled_softmax(m: int, k: int, d: int, r: int, seed: int,
+                          timed: bool = False) -> dict:
+    """Row 13 (``ops/sampled_softmax.py``) at M rows of K negatives over R
+    rows of width D: the loss and the gradients of q and the table against
+    the plain version, two calls bit-equal; with ``timed``, the forward's
+    and backward's CUDA-event ms."""
+    import torch
+    from recsys_tpu_torch.ops import sampled_softmax as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.nn.functional.normalize(torch.randn((m, d), generator=gen, device="cuda"), dim=1)
+    table = torch.nn.functional.normalize(torch.randn((r, d), generator=gen, device="cuda"),
+                                          dim=1)
+    pos = torch.randint(0, r, (m,), generator=gen, device="cuda")
+    neg = torch.randint(0, r, (m, k), generator=gen, device="cuda")
+    neg[: m // 8, 0] = pos[: m // 8]  # accidental hits
+    if k > 2:
+        neg[: m // 8, 1] = neg[: m // 8, 2]  # a negative drawn twice
+    q.requires_grad_(True)
+    table.requires_grad_(True)
+    what = f"sampled softmax M={m} K={k} D={d} R={r}"
+    runs = []
+    f0, b0 = ss.sampled_logits.launches, ss.sampled_backward.launches
+    for _ in range(2):
+        loss = ss.sampled_softmax(q, table, pos, neg, 0.05)
+        runs.append([loss.detach(), *torch.autograd.grad(loss, [q, table])])
+    check(all(torch.equal(a, b) for a, b in zip(*runs)), f"{what}: two calls differ")
+    check(ss.sampled_logits.launches - f0 == 2 and ss.sampled_backward.launches - b0 == 2,
+          f"{what}: launches")
+    loss = ss.sampled_softmax_reference(q, table, pos, neg, 0.05)
+    want = [loss.detach(), *torch.autograd.grad(loss, [q, table])]
+    errs = {name: float(torch.max(torch.abs(a - b))) / max(float(torch.max(torch.abs(b))), 1e-30)
+            for name, a, b in zip(("loss", "dq", "dtable"), runs[0], want)}
+    check(all(v <= SAMPLED_TOL for v in errs.values()),
+          f"{what}: off by more than {SAMPLED_TOL} of the largest value: {errs}")
+    res = {"m": m, "k": k, "d": d, "r": r, "err": errs}
+    del runs, want
+    if timed:
+        def fwd_bwd():
+            loss = ss.sampled_softmax(q, table, pos, neg, 0.05)
+            torch.autograd.grad(loss, [q, table])
+
+        res["fwd_ms"] = time_ms(lambda: ss.sampled_softmax(q.detach(), table.detach(), pos, neg,
+                                                           0.05), 3)
+        res["fwd_bwd_ms"] = time_ms(fwd_bwd, 3)
+        # each input read once, the logits written once (fp32, int32 ids):
+        # q, the table, the ids and the logits; the products at the fp32
+        # rate (the gather design reads a table row an entry: traffic, not
+        # a bound)
+        k1 = k + 1
+        res["fwd_bound_ms"], res["fwd_bound_by"] = bound_ms(
+            4.0 * (m * d + r * d + 2 * m * k1), 2.0 * m * k1 * d)
+        res["gathered_gb"] = 4.0 * m * k1 * d / 1e9
+    return res
+
+
+def hstu_phase(repo: str, tmp: str) -> dict:
+    """Rows 11 and 12 at the edge lengths and at the benchmark cell's shape
+    (its first batch of histories, its timestamps); then HSTU through the
+    trainer's step (``dryrun_hstu``: the cell's widths) and the train CLI
+    (``--config``, a tiny model, 2 epochs) on the card."""
+    import math
+
+    import numpy as np
+    import torch
+    from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
+    from recsys_tpu_torch.train import __main__ as train_cli
+    from recsys_tpu_torch.train.dryrun import dryrun_hstu
+
+    from bench_port import hstu_datagen
+
+    with open(os.path.join(repo, HSTU_CONFIG)) as f:
+        conf = json.load(f)
+    m = conf["model"]
+    out = {"edges": [check_hstu_attention(HSTU_EDGE_LENGTHS, 200, heads, 5 + heads)
+                     for heads in (1, 4)]}
+    hist = hstu_datagen.histories(17, conf, HSTU_BATCH, "cuda")
+    out["cell_shape"] = check_hstu_attention(hist["lengths"], m["hstu_max_len"],
+                                             m["hstu_heads"], 19, hist["timestamps"],
+                                             timed=True)
+    out["sampled_edges"] = [check_sampled_softmax(*shape, 23 + i) for i, shape in enumerate(
+        [(1, 1, 128, 3), (37, 5, 256, 50), (1000, 128, 512, 7), (2500, 128, 256, 100_000)])]
+    out["sampled_cell_shape"] = check_sampled_softmax(
+        int(out["cell_shape"]["events"]) - HSTU_BATCH, m["hstu_negatives"], m["embedding_dim"],
+        m["hstu_items"] + 1, 29, timed=True)
+    torch.cuda.empty_cache()
+    cfg = RecsysConfig(model=ModelConfig(**m), train=TrainConfig(**conf["train"]))
+    out["step"] = hstu_step_launches(cfg.replace(**{"train.batch_size": HSTU_BATCH}), conf, hist,
+                                     tmp)
+    del hist
+    torch.cuda.empty_cache()
+    out["dryrun"] = dryrun_hstu(cfg, "cuda", batch=8)
+    rng = np.random.default_rng(3)
+
+    def split(n):
+        lens = rng.integers(1, 60, n)
+        return {"items": rng.integers(1, 301, int(lens.sum())).astype(np.int32),
+                "timestamps": np.concatenate([np.cumsum(rng.integers(1, 10**5, x))
+                                              for x in lens]).astype(np.int64),
+                "lengths": lens.astype(np.int64)}
+
+    data = os.path.join(tmp, "hstu_bundle.npz")
+    np.savez(data, **{f"{s}/{k}": v for s, n in (("train", 64), ("val", 20))
+                      for k, v in split(n).items()})
+    tiny = os.path.join(tmp, "hstu_tiny.json")
+    cfg.replace(**{"model.hstu_items": 300, "model.embedding_dim": 128, "model.hstu_blocks": 2,
+                   "model.hstu_heads": 2, "model.hstu_max_len": 64, "train.batch_size": 16,
+                   "train.epochs": 2}).save(tiny)
+    rc = train_cli.main(["--config", tiny, "--data", data, "--device", "cuda",
+                         "--output_dir", os.path.join(tmp, "hstu_run")])
+    with open(os.path.join(tmp, "hstu_run", "metrics.json")) as f:
+        report = json.load(f)
+    check(rc == 0 and math.isfinite(report["val_loss"]), f"hstu CLI: rc {rc}, {report}")
+    out["cli"] = report
+    out["kernels"] = hstu_kernel_rows(out)
+    return out
+
+
+def hstu_step_launches(cfg, conf: dict, hist: dict, tmp: str) -> dict:
+    """One ``Trainer`` step of the cell's model on ``hist`` (its weights
+    from the cell's generator) through ``make_train_epoch``, with rows 11
+    to 13's counters set to 0 just before and read just after; each
+    direction of rows 11 and 12 launches once a block, each of row 13's
+    wrappers once."""
+    import math
+
+    import torch
+    from recsys_tpu_torch.ops import hstu_attention as ha
+    from recsys_tpu_torch.ops import sampled_softmax as ss
+    from recsys_tpu_torch.train.trainer import Trainer
+
+    from bench_port import hstu_datagen
+
+    counters = [Counter("hstu_attn_fwd", ha.hstu_attn_fwd),
+                Counter("hstu_attn_bwd", ha.hstu_attn_bwd),
+                Counter("sampled_logits", ss.sampled_logits),
+                Counter("sampled_backward", ss.sampled_backward)]
+    trainer = Trainer(cfg, output_dir=os.path.join(tmp, "hstu_step"), device="cuda")
+    state = trainer.state_from_params(hstu_datagen.weights(17, conf["model"], "cuda"), 17)
+    epoch_fn = trainer.make_train_epoch(None, HSTU_BATCH, 1)
+    for c in counters:
+        c.reset()
+    state, metrics = epoch_fn(state, hist, 0)
+    torch.cuda.synchronize()
+    launches = {c.name: c.read() for c in counters}
+    blocks = cfg.model.hstu_blocks
+    check(launches == {"hstu_attn_fwd": blocks, "hstu_attn_bwd": blocks, "sampled_logits": 1,
+                       "sampled_backward": 1}, f"hstu step: launches {launches}")
+    check(math.isfinite(float(metrics["loss"])), "hstu step: a non-finite loss")
+    return {"launches": launches, "loss": float(metrics["loss"]),
+            "events": float(metrics["events"]), "attn_pairs": float(metrics["attn_pairs"])}
+
+
+def hstu_kernel_rows(out: dict) -> list:
+    """Rows 11 to 13 for the ``kernels`` line, from phase 30's readings."""
+    cell, samp, launches = out["cell_shape"], out["sampled_cell_shape"], out["step"]["launches"]
+    shape = {k: cell[k] for k in ("events", "pairs", "heads", "n_max")}
+    rows = [
+        {"name": "hstu_attn_fwd", "route": "cuda",
+         "source": "recsys_tpu_torch/csrc/hstu_attention.cu", "replaces": "no TPU kernel",
+         "kernel": "hstu_attn_fwd_kernel", "launches_step": launches["hstu_attn_fwd"],
+         "ms": cell["fwd_ms"], "bound_ms": cell["fwd_bound_ms"],
+         "bound_by": cell["fwd_bound_by"], "max_rel_err": cell["err"]["out"], "shape": shape},
+        {"name": "hstu_attn_bwd", "route": "cuda",
+         "source": "recsys_tpu_torch/csrc/hstu_attention.cu", "replaces": "no TPU kernel",
+         "kernel": "hstu_attn_bwd_dkv_kernel + hstu_attn_bwd_dq_kernel + "
+                   "hstu_bias_grad_kernel, one launch of the wrapper",
+         "launches_step": launches["hstu_attn_bwd"], "ms": cell["bwd_ms"],
+         "device_ms": {k: cell[f"{k}_device_ms"] for k in ("bwd_dkv", "bwd_dq", "bias_grad")},
+         "bound_ms": cell["bwd_bound_ms"], "bound_by": cell["bwd_bound_by"],
+         "max_rel_err": {k: cell["err"][k] for k in ("dv", "dq", "dk", "dpos_w", "dts_w")},
+         "shape": shape},
+        {"name": "sampled_softmax", "route": "cuda",
+         "source": "recsys_tpu_torch/csrc/sampled_softmax.cu", "replaces": "no TPU kernel",
+         "kernel": "logits kernel (sampled_logits); dq and dtable kernels (sampled_backward)",
+         "launches_step": {k: launches[k] for k in ("sampled_logits", "sampled_backward")},
+         "ms": samp["fwd_ms"], "fwd_bwd_ms": samp["fwd_bwd_ms"],
+         "bound_ms": samp["fwd_bound_ms"], "bound_by": samp["fwd_bound_by"],
+         "gathered_gb": samp["gathered_gb"], "max_rel_err": samp["err"],
+         "shape": {k: samp[k] for k in ("m", "k", "d", "r")}},
+    ]
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -4878,6 +5168,14 @@ def main() -> int:
     check(proc.returncode == 0, f"--dlrm-bags: rc {proc.returncode}\n{proc.stderr[-4000:]}")
     log(f"dlrm bags phase in {time.perf_counter() - t_dlrm:.1f} s: "
         f"{proc.stdout.strip().splitlines()[-1]}")
+    # ---- HSTU's attention kernels, trainer and CLI: the thirteenth ---------
+    t_hstu = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--hstu"], cwd=repo,
+                          capture_output=True, text=True, timeout=1200)
+    check(proc.returncode == 0, f"--hstu: rc {proc.returncode}\n{proc.stderr[-4000:]}")
+    hstu_line = proc.stdout.strip().splitlines()[-1]
+    log(f"hstu phase in {time.perf_counter() - t_hstu:.1f} s: {hstu_line}")
+    hstu_rows = json.loads(hstu_line)["kernels"]
     for row in negs.pop("profiles"):
         log(f"profile {json.dumps(row)}")
     log(f"explicit negatives and streaming: {json.dumps(negs)}")
@@ -5034,6 +5332,7 @@ def main() -> int:
     for entry in kernels:  # phase 27's loss with the lookups, phase 28's epoch
         entry["launches_rows_lookup"] = rows_lookup["loss"]["launches"][entry["name"]]
         entry["launches_debug"] = debug_modes["epoch"]["launches"][entry["name"]]
+    kernels.extend(hstu_rows)  # rows 11 to 13 (phase 30)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -5265,6 +5564,12 @@ if __name__ == "__main__":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         with tempfile.TemporaryDirectory() as tmp:
             print(json.dumps(dlrm_bags_phase(os.path.dirname(os.path.abspath(__file__)), tmp)),
+                  flush=True)
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--hstu":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps(hstu_phase(os.path.dirname(os.path.abspath(__file__)), tmp)),
                   flush=True)
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":

@@ -2,9 +2,10 @@
 ``recsys_tpu/config.py``.
 
 Field names, defaults and the JSON layout are identical to the JAX
-package's, so one ``config.json`` loads in both packages; the port's one
-addition, the fields of a second architecture (``ModelConfig.arch``
-"dlrm_dcnv2"), stays out of a two-tower config's JSON. The port keeps
+package's, so one ``config.json`` loads in both packages; the port's
+additions, the fields of two more architectures (``ModelConfig.arch``
+"dlrm_dcnv2" and "hstu"), stay out of a two-tower config's JSON, and each
+architecture's JSON leaves out the other's fields. The port keeps
 the fields it does not act on yet (training, mesh, the TPU dispatch
 knobs) so that a bundle written by either package round-trips unchanged.
 Comments here say what a field means to the port; the measurements
@@ -60,10 +61,13 @@ class ModelConfig:
     softmax_temperature: float = 1.0
     use_item_bias: bool = True
     accidental_hit_mask: bool = True
-    # The architecture: "two_tower_dcn" (the fields above) or "dlrm_dcnv2"
+    # The architecture: "two_tower_dcn" (the fields above), "dlrm_dcnv2"
     # (models/dlrm.py: DLRM with a low-rank DCNv2 interaction, which reads
-    # embedding_dim, cross_layers, mixed_precision and the fields below).
-    # The JAX package has only the first and ignores these fields.
+    # embedding_dim, cross_layers, mixed_precision and the dlrm fields
+    # below) or "hstu" (models/hstu.py: HSTU's sequential transducer, which
+    # reads embedding_dim, dropout_rate, softmax_temperature,
+    # mixed_precision and the hstu fields below). The JAX package has only
+    # the first and ignores these fields.
     arch: str = "two_tower_dcn"
     dlrm_dense_in: int = 13
     # rows of each categorical table, their fixed multi-hot bag sizes, and
@@ -75,13 +79,29 @@ class ModelConfig:
     bottom_mlp_dims: Tuple[int, ...] = (512, 256, 128)
     over_arch_dims: Tuple[int, ...] = (1024, 1024, 512, 256)
     dcn_low_rank_dim: int = 512
+    # HSTU: N (max_sequence_length: the position tables' length and the
+    # attention's divisor), the blocks, the heads (64 wide: dqk = dv = 64,
+    # the kernels' one width), the item ids 1..hstu_items (row 0 the
+    # padding row) and the sampled softmax's negatives a position
+    hstu_max_len: int = 200
+    hstu_blocks: int = 2
+    hstu_heads: int = 1
+    hstu_items: int = 3706
+    hstu_negatives: int = 128
 
     def __post_init__(self):
         for name in ("user_tower_dims", "item_tower_dims", "dnn_dims", "table_rows",
                      "bag_sizes", "table_init_rows", "bottom_mlp_dims", "over_arch_dims"):
             object.__setattr__(self, name, tuple(getattr(self, name)))
-        if self.arch not in ("two_tower_dcn", "dlrm_dcnv2"):
-            raise ValueError(f"arch must be two_tower_dcn|dlrm_dcnv2, got {self.arch!r}")
+        if self.arch not in ("two_tower_dcn", "dlrm_dcnv2", "hstu"):
+            raise ValueError(f"arch must be two_tower_dcn|dlrm_dcnv2|hstu, got {self.arch!r}")
+        if self.arch == "hstu":
+            for name in ("hstu_max_len", "hstu_blocks", "hstu_heads", "hstu_items",
+                         "hstu_negatives"):
+                if getattr(self, name) < 1:
+                    raise ValueError(f"{name} must be positive, got {getattr(self, name)}")
+            if not 0.0 <= self.dropout_rate < 1.0 or self.softmax_temperature <= 0:
+                raise ValueError("hstu needs 0 <= dropout_rate < 1 and softmax_temperature > 0")
         if self.arch == "dlrm_dcnv2":
             if not self.table_rows or len(self.bag_sizes) != len(self.table_rows):
                 raise ValueError("dlrm_dcnv2 needs table_rows and one bag size a table")
@@ -92,9 +112,10 @@ class ModelConfig:
                                  f"{self.embedding_dim}, got {self.bottom_mlp_dims}")
 
 
-# the ModelConfig fields of the dlrm_dcnv2 architecture
+# the ModelConfig fields of the dlrm_dcnv2 and hstu architectures
 DLRM_MODEL_KEYS = ("arch", "dlrm_dense_in", "table_rows", "bag_sizes", "table_init_rows",
                    "bottom_mlp_dims", "over_arch_dims", "dcn_low_rank_dim")
+HSTU_MODEL_KEYS = ("hstu_max_len", "hstu_blocks", "hstu_heads", "hstu_items", "hstu_negatives")
 
 
 @dataclass(frozen=True)
@@ -219,11 +240,14 @@ class RecsysConfig:
 
     def to_dict(self) -> Dict[str, Any]:
         """The JSON layout; a two-tower config leaves out the other
-        architecture's keys, so its ``config.json`` is the JAX package's."""
+        architectures' keys, so its ``config.json`` is the JAX package's,
+        and each other architecture leaves out the third's."""
         d = dataclasses.asdict(self)
-        if self.model.arch == "two_tower_dcn":
-            for k in DLRM_MODEL_KEYS:
-                del d["model"][k]
+        drop = {"two_tower_dcn": DLRM_MODEL_KEYS + HSTU_MODEL_KEYS,
+                "dlrm_dcnv2": HSTU_MODEL_KEYS,
+                "hstu": tuple(k for k in DLRM_MODEL_KEYS if k != "arch")}[self.model.arch]
+        for k in drop:
+            del d["model"][k]
         return d
 
     def to_json(self, indent: int = 2) -> str:

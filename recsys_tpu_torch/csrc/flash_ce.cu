@@ -1456,60 +1456,7 @@ int by_width(int d, F&& f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// kernel<<<grid, threads, bytes, s>>>(args...), after allowing it `bytes`
-// of dynamic shared memory (the attribute belongs to the current device:
-// it is set on every launch) -> the cudaError_t of the launch
-template <typename K, typename... A>
-int launch(K kernel, dim3 grid, int threads, size_t bytes, cudaStream_t s, A... args) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, threads, bytes, s>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 const float* f32(const void* p) { return static_cast<const float*>(p); }
-
-// cuTensorMapEncodeTiled from the driver that the runtime uses (no link
-// against libcuda), looked up once; null if the driver has none
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// the tensor map of bf16 rows [n_rows, d] at p (d % 8 == 0, p on 16 bytes)
-// in boxes of 64 columns x box_rows rows, 128-byte swizzle, zero past the
-// edges (hopper.cuh's tile layout) -> false if it cannot be made
-bool rows_map(CUtensorMap* map, const void* p, int n_rows, int d, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n_rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
 
 }  // namespace
 

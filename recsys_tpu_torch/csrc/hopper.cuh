@@ -1,7 +1,9 @@
-// The Hopper (sm_90a) building blocks of the warp-specialised kernels of
-// flash_ce.cu: TMA tile loads into shared memory, mbarrier pipelines,
-// warpgroup matrix products (wgmma) with their shared-memory descriptors,
-// named barriers between warpgroups and setmaxnreg.
+// The Hopper (sm_90a) building blocks of the TMA-fed wgmma kernels of
+// flash_ce.cu and hstu_attention.cu: TMA tile loads into shared memory,
+// mbarrier pipelines, warpgroup matrix products (wgmma) with their
+// shared-memory descriptors, named barriers between warpgroups and
+// setmaxnreg; on the host, the tiles' tensor maps (rows_map) and a launch
+// with more than 48 KB of dynamic shared memory (launch).
 //
 // Layout of every TMA-fed bf16 tile: 64-column chunks of rows of 128 bytes,
 // written by TMA with its 128-byte swizzle (the 16-byte unit j of row r at
@@ -22,6 +24,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
@@ -248,6 +251,62 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---- the host ---------------------------------------------------------------
+
+// kernel<<<grid, threads, bytes, s>>>(args...), after allowing it `bytes`
+// of dynamic shared memory (the attribute belongs to the current device:
+// it is set on every launch) -> the cudaError_t of the launch
+template <typename K, typename... A>
+int launch(K kernel, dim3 grid, int threads, size_t bytes, cudaStream_t s, A... args) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, threads, bytes, s>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cuTensorMapEncodeTiled from the driver that the runtime uses (no link
+// against libcuda), looked up once; null if the driver has none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the tensor map of bf16 rows [n_rows, d] at p, ld elements apart (ld = d
+// where 0; d and ld % 8 == 0, p on 16 bytes), in boxes of 64 columns x
+// box_rows rows, 128-byte swizzle, zero past the edges (the tile layout
+// above) -> false if it cannot be made
+bool rows_map(CUtensorMap* map, const void* p, int n_rows, int d, int box_rows, int ld = 0) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld > 0 ? ld : d) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 }  // namespace

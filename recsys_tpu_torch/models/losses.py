@@ -29,6 +29,9 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from recsys_tpu_torch.ops import sampled_softmax as ss
+from recsys_tpu_torch.utils.trace import span
+
 NEG_BIG = -1e9
 
 # warn once per (setting, regime) pair
@@ -322,3 +325,18 @@ def auc(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     rank_sum = torch.sum(torch.where(pos, ranks, torch.zeros_like(ranks)))
     a = (rank_sum - n_pos * (n_pos + 1) / 2.0) / torch.clamp(n_pos * n_neg, min=1.0)
     return torch.where((n_pos == 0) | (n_neg == 0), torch.full_like(a, 0.5), a)
+
+
+def sampled_softmax(q: torch.Tensor, table: torch.Tensor, pos: torch.Tensor,
+                    neg: torch.Tensor, temperature: float) -> torch.Tensor:
+    """The sampled softmax of HSTU's loss (``models/hstu.py``): rows q [M,
+    D] against their positive ``table[pos]`` [M] and negatives
+    ``table[neg]`` [M, K], logits ``q . e / temperature`` (the caller
+    L2-normalises q and the table: cosines), a negative equal to its
+    positive masked out; -> the mean over rows of ``logsumexp(logits) -
+    positive logit``, fp32, differentiable in q and ``table``
+    (``ops/sampled_softmax.py``: kernel row 13 on the card, no [M, K, D]
+    tensor on either device). Its forward runs under the span
+    ``loss.sampled``."""
+    with span("loss.sampled"):
+        return ss.sampled_softmax(q.float(), table.float(), pos, neg, float(temperature))

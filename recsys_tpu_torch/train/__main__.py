@@ -38,7 +38,10 @@ warns and trains. Any other flag is an error.
 a run's ``config.json``; a ``bench_port/configs/`` file loads too, its
 other keys left out): the way to train DLRM-DCNv2 (``model.arch``
 "dlrm_dcnv2"), whose ``--data`` bundle holds ``train/`` and ``val/``
-columns ``dense``, ``sparse`` and ``label`` (``Trainer._train_dlrm``).
+columns ``dense``, ``sparse`` and ``label`` (``Trainer._train_dlrm``), and
+HSTU (``model.arch`` "hstu"), whose bundle holds ``train/`` and ``val/``
+jagged histories: ``items`` [events] int32, ``timestamps`` [events] int64
+and ``lengths`` [histories] (``Trainer._train_hstu``).
 With it, only ``--data``, ``--output_dir``, ``--device``, ``--use_wandb``,
 ``--distributed_strategy`` and ``--set`` may be given besides.
 ``--set KEY=VALUE`` overrides a dotted config field (the value is parsed
@@ -58,6 +61,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 from typing import Optional, Sequence
 
@@ -242,4 +246,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
 
 if __name__ == "__main__":
+    # the process's allocator policy, set before CUDA starts (a caller's
+    # own PYTORCH_CUDA_ALLOC_CONF kept): HSTU's jagged steps allocate other
+    # sizes every step, and segments that grow in place spare the cache
+    # new cudaMalloc calls, which stall the card mid-step
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     sys.exit(main())

@@ -10,8 +10,9 @@ batch of 8 rows a data rank. Raises on a non-finite loss.
     python -m recsys_tpu_torch.train.dryrun [--config FILE] [--device cuda|cpu]
 
 runs it and prints its numbers as JSON; a ``--config`` whose model is
-DLRM-DCNv2 takes :func:`dryrun_dlrm` instead (that model trains on one
-device), any other config the flagship step above.
+DLRM-DCNv2 takes :func:`dryrun_dlrm` instead and one whose model is HSTU
+:func:`dryrun_hstu` (those models train on one device), any other config
+the flagship step above.
 """
 
 from __future__ import annotations
@@ -104,10 +105,49 @@ def dryrun_dlrm(cfg, device: DeviceLike = "cuda", batch: int = 8) -> Dict[str, f
     return out
 
 
+# the item ids :func:`dryrun_hstu` keeps, and its histories' longest
+DRYRUN_HSTU_ITEMS = 1000
+DRYRUN_HSTU_LEN = 70
+
+
+def dryrun_hstu(cfg, device: DeviceLike = "cuda", batch: int = 4) -> Dict[str, float]:
+    """One ``Trainer`` step of ``cfg``'s HSTU at its widths, blocks, heads
+    and max_sequence_length, its item ids cut to at most
+    ``DRYRUN_HSTU_ITEMS``, on ``batch`` seeded histories of 1 to
+    ``DRYRUN_HSTU_LEN`` events -> {"loss", "events", "attn_pairs"}."""
+    import dataclasses
+
+    import torch
+
+    from recsys_tpu_torch.train.trainer import Trainer
+
+    m = cfg.model
+    items = min(m.hstu_items, DRYRUN_HSTU_ITEMS)
+    cfg = cfg.replace(model=dataclasses.replace(m, hstu_items=items),
+                      train=dataclasses.replace(cfg.train, batch_size=batch))
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(1, min(DRYRUN_HSTU_LEN, m.hstu_max_len) + 1, batch)
+    events = int(lengths.sum())
+    with tempfile.TemporaryDirectory() as out:
+        trainer = Trainer(cfg, output_dir=out, device=device)
+        state = trainer.init_state(0, 0, seed=0)
+        step = trainer.make_train_step(None)
+        _, metrics = step(state, {
+            "items": torch.as_tensor(rng.integers(1, items + 1, events), dtype=torch.int32)
+            .to(trainer.device),
+            "timestamps": torch.as_tensor(np.concatenate(
+                [np.cumsum(rng.integers(1, 86_400, n)) for n in lengths])).to(trainer.device),
+            "lengths": torch.as_tensor(lengths)})
+    out = {k: float(v) for k, v in metrics.items()}
+    if not np.isfinite(out["loss"]):
+        raise RuntimeError(f"dryrun_hstu: non-finite loss {out['loss']}")
+    return out
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description="One training step on tiny shapes")
     ap.add_argument("--config", default="", help="a config JSON (a dlrm_dcnv2 model takes "
-                                                 "dryrun_dlrm)")
+                                                 "dryrun_dlrm, an hstu model dryrun_hstu)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     from recsys_tpu_torch.config import RecsysConfig
@@ -115,6 +155,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = RecsysConfig.load(args.config) if args.config else None
     if cfg is not None and cfg.model.arch == "dlrm_dcnv2":
         print(json.dumps(dryrun_dlrm(cfg, args.device)))
+    elif cfg is not None and cfg.model.arch == "hstu":
+        print(json.dumps(dryrun_hstu(cfg, args.device)))
     else:
         print(json.dumps(dryrun_multichip(args.device)))
     return 0

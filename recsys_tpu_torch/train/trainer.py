@@ -134,6 +134,23 @@ tensor, no host sync); its metrics count the lookups and the rows updated
 on the device. ``train`` takes a bundle of ``dense``, ``sparse`` and
 ``label`` columns (:meth:`_train_dlrm`).
 
+**HSTU** (``ModelConfig.arch="hstu"``, ``models/hstu.py``; no counterpart
+in the JAX package): on one device, with Adam over every leaf (the item
+table too, dense) and no clipping. An example is one user's history; a
+batch is ``batch_size`` of them, jagged (``items`` [events] int32,
+``timestamps`` [events] int64, ``lengths`` [B]: a CPU ``lengths`` costs
+the step no host sync). A step (:meth:`_step_core_hstu`) draws its
+dropout masks and negatives from the step's generator, runs the model's
+forward (the attention under ``hstu.attn``, the loss under
+``loss.sampled``) and autograd (the attention's backward under
+``hstu.attn_bwd``), then Adam; its metrics count the events and the causal
+pairs (sum n (n + 1) / 2) a step. ``make_train_epoch`` takes the split as
+device-resident jagged columns with its ``lengths`` on the host, draws the
+epoch's order of histories on the host, and gathers each batch on the
+device. ``train`` takes a bundle of ``items``, ``timestamps`` and
+``lengths`` columns (:meth:`_train_hstu`). With ``record_steps`` a list,
+each step appends its batch and draws to it (a plain reference's inputs).
+
 Dropout masks come from a ``torch.Generator`` on the device, reseeded from
 (seed + 1, step) every step, and from the rank's data index under a mesh
 (index 0 draws the one-card stream), so a run and its resume, and a step's
@@ -160,10 +177,11 @@ from recsys_tpu_torch.data.negative_sampling import NegativeSampler, mine_hard_n
 from recsys_tpu_torch.data.pipeline import Batcher
 from recsys_tpu_torch.embed.table import (a2a_capacity, a2a_overflow, lookup_a2a,
                                           make_sharded_lookup_psum)
-from recsys_tpu_torch.models import dlrm, losses
+from recsys_tpu_torch.models import dlrm, hstu, losses
 from recsys_tpu_torch.models.multitask import MultiTaskModel
 from recsys_tpu_torch.models.towers import TwoTower
 from recsys_tpu_torch.ops import embedding_bag as eb
+from recsys_tpu_torch.ops import hstu_attention as ha
 from recsys_tpu_torch.parallel import collectives
 from recsys_tpu_torch.parallel.mesh import MeshContext, make_mesh, world_size
 from recsys_tpu_torch.parallel.sharding import local_slice, shard_rows
@@ -187,6 +205,10 @@ BATCH_COLUMNS = ("user_id", "movie_id", "rating", "y_implicit")
 # updated a step, counted on the device) and a bundle's columns
 DLRM_METRIC_KEYS = ("loss", "lookups", "unique_rows")
 DLRM_COLUMNS = ("dense", "sparse", "label")
+# hstu: the step's metrics (the loss, and the events and causal pairs a
+# step) and a bundle's columns
+HSTU_METRIC_KEYS = ("loss", "events", "attn_pairs")
+HSTU_COLUMNS = ("items", "timestamps", "lengths")
 
 
 class TrainState(NamedTuple):
@@ -426,6 +448,12 @@ class Trainer:
         self.dlrm = config.model.arch == "dlrm_dcnv2"
         if self.dlrm:
             self._check_dlrm()
+        self.hstu = config.model.arch == "hstu"
+        # hstu: a list that each step appends {"items", "timestamps",
+        # "lengths", "draws"} to, or None
+        self.record_steps: Optional[list] = None
+        if self.hstu:
+            self._check_hstu()
 
     def _check_dlrm(self) -> None:
         """The modes DLRM-DCNv2 trains in: one device, Adagrad (row-wise on
@@ -441,6 +469,21 @@ class Trainer:
                                  f"clipnorm 0 and no cache, not with {what}")
         self._layout = eb.make_layout(self.config.model.table_rows,
                                       self.config.model.bag_sizes, self.device)
+
+    def _check_hstu(self) -> None:
+        """The modes HSTU trains in: one device, Adam (the source's AdamW
+        with weight decay 0), no clipping, no cache; on the card with
+        ``mixed_precision`` (its attention kernels take bf16 operands only)."""
+        t = self.config.train
+        for bad, what in ((self.ctx is not None, "a mesh"),
+                          (t.optimizer != "adam", f"optimizer={t.optimizer!r}"),
+                          (t.clipnorm > 0, f"clipnorm={t.clipnorm}"),
+                          (t.negative_cache > 0, "negative_cache"),
+                          (self.device.type == "cuda" and not self.config.model.mixed_precision,
+                           "mixed_precision=False on the card")):
+            if bad:
+                raise ValueError(f"arch hstu trains on one device with adam, clipnorm 0, no "
+                                 f"cache and bf16 operands on the card, not with {what}")
 
     def _check_mesh(self, ctx: MeshContext) -> None:
         """The mesh's model axis is ``mesh.model_axis`` and its data axis
@@ -491,6 +534,8 @@ class Trainer:
         not read)."""
         if self.dlrm:
             return self.state_from_params(dlrm.init(seed, self.config.model, self.device), seed)
+        if self.hstu:
+            return self.state_from_params(hstu.init(seed, self.config.model, self.device), seed)
         params = MultiTaskModel.init(torch.Generator().manual_seed(seed), self.config.model,
                                      n_users, n_items, "cpu",
                                      rows_multiple=self.ctx.n_model if self.rows else 1)
@@ -504,6 +549,10 @@ class Trainer:
         slots are made from them). Under dlrm_dcnv2 see :meth:`_dlrm_state`."""
         if self.dlrm:
             return self._dlrm_state(params, seed)
+        if self.hstu:
+            params = _map_leaves(params, lambda t: t.detach().to(self.device, torch.float32)
+                                 .clone().requires_grad_(True))
+            return TrainState(params, self.optimizer.init(params), 0, seed + 1, None)
         tw = params["towers"]
         self._table_elements = tw["user_table"].numel() + tw["item_table"].numel()
 
@@ -594,6 +643,8 @@ class Trainer:
     def _metric_keys(self) -> Tuple[str, ...]:
         if self.dlrm:
             return DLRM_METRIC_KEYS
+        if self.hstu:
+            return HSTU_METRIC_KEYS
         return METRIC_KEYS + (("lookup_overflow",) if self._a2a() else ())
 
     def _is_writer(self) -> bool:
@@ -662,6 +713,8 @@ class Trainer:
         package. ``batch`` holds tensors on the device; metrics stay there."""
         if self.dlrm:
             return self._step_core_dlrm()
+        if self.hstu:
+            return self._step_core_hstu()
         self._check_cache_config(self.config.train.batch_size)
         if not use_explicit_negs and self._resolve_sparse_updates():
             return self._step_core_sparse(class_weights)
@@ -830,6 +883,83 @@ class Trainer:
                                                              for k, v in metrics.items()}
 
         return step_fn
+
+    def _step_core_hstu(self) -> Callable:
+        """The HSTU step over a jagged batch {"items", "timestamps",
+        "lengths"} (and, from the epoch function, its "layout"): the
+        step's draws, the forward (``train.forward``) and autograd over
+        every leaf (``train.backward``), then Adam (``train.update``). The
+        metrics gain the events and the causal pairs of the step."""
+        cfg = self.config
+
+        def step_fn(state: TrainState, batch: Dict[str, Any]):
+            with span("train.step"):
+                layout = batch.get("layout")
+                if layout is None:
+                    layout = ha.make_layout(batch["lengths"], self.device)
+                draws = hstu.draw(self._generator(state), layout, cfg.model)
+                if self.record_steps is not None:
+                    self.record_steps.append({"items": batch["items"],
+                                              "timestamps": batch["timestamps"],
+                                              "lengths": batch["lengths"], "draws": draws})
+                paths, leaves = zip(*leaves_with_paths(state.params))
+
+                def forward_backward():
+                    with span("train.forward"):
+                        loss = hstu.loss(state.params, cfg.model, batch["items"],
+                                         batch["timestamps"], layout, draws)
+                    with span("train.backward"):
+                        grads = torch.autograd.grad(loss, leaves)
+                    return {"loss": loss}, dict(zip(paths, grads))
+
+                metrics, grads = self._checked(state, forward_backward)
+                with span("train.update"):
+                    self.optimizer.update(_tree_from_paths(grads), state.opt_state,
+                                          state.params, state.step)
+                self._updated(state)
+                self.step_counts["dense"] += 1
+                metrics = {"loss": metrics["loss"].detach(),
+                           "events": torch.full((), float(layout.events), device=self.device),
+                           "attn_pairs": torch.full((), float(layout.pairs),
+                                                    device=self.device)}
+                return state._replace(step=state.step + 1), metrics
+
+        return step_fn
+
+    def _hstu_epoch(self, n_rows: int, n_steps: int) -> Callable:
+        """``make_train_epoch`` for hstu: ``data`` holds the split's jagged
+        columns ``items`` and ``timestamps`` on the device and ``lengths``
+        [n_rows] int64 on the host; the epoch's order of histories is a
+        permutation drawn on the host from (seed ^ 0x5EED, epoch), so each
+        batch's layout needs no host sync, and each batch is gathered on
+        the device."""
+        b = self.config.train.batch_size
+        step_fn = self._step_core(None)
+        base = self.config.train.seed ^ 0x5EED
+        keys = self._metric_keys()
+
+        def epoch_fn(state: TrainState, data: Dict[str, torch.Tensor], epoch: int):
+            lengths = data["lengths"].to("cpu", torch.int64)
+            if lengths.shape[0] != n_rows:
+                raise ValueError(f"hstu epoch: {lengths.shape[0]} histories, built for {n_rows}")
+            starts = torch.zeros_like(lengths)
+            starts[1:] = torch.cumsum(lengths, 0)[:-1]
+            perm = torch.randperm(n_rows, generator=torch.Generator().manual_seed(
+                base * 1_000_003 + epoch))
+            sums = {k: torch.zeros((), device=self.device) for k in keys}
+            for i in range(n_steps):
+                ids = perm[i * b:(i + 1) * b]
+                lens = lengths[ids]
+                layout = ha.make_layout(lens, self.device)
+                src = ha.on_device(starts[ids], self.device)[layout.seq] + layout.positions
+                batch = {"items": data["items"][src], "timestamps": data["timestamps"][src],
+                         "lengths": lens, "layout": layout}
+                state, metrics = step_fn(state, batch)
+                for k in keys:
+                    sums[k] += metrics[k]
+            return state, {k: v / max(n_steps, 1) for k, v in sums.items()}
+
+        return epoch_fn
 
     def _checked(self, state: TrainState, forward_backward: Callable) -> tuple:
         """``forward_backward()`` -> (metrics, grads, ...); under the NaN
@@ -1031,6 +1161,8 @@ class Trainer:
         column is gathered, ``neg_ids`` [N, K] too. Under a mesh every rank
         holds the whole split and draws the same permutation, and takes its
         slice of each global batch."""
+        if self.hstu:
+            return self._hstu_epoch(n_rows, n_steps)
         b = self.config.train.batch_size
         step_fn = self._step_core(class_weights, use_explicit_negs)
         perm_gen = torch.Generator(device=self.device)
@@ -1244,6 +1376,8 @@ class Trainer:
     def train(self, bundle: Dict[str, np.ndarray]) -> Dict[str, float]:
         if self.dlrm:
             return self._train_dlrm(bundle)
+        if self.hstu:
+            return self._train_hstu(bundle)
         cfg = self.config
         t_cfg = cfg.train
         dev = self.device
@@ -1622,6 +1756,114 @@ class Trainer:
         self.writer.write_final_metrics(report)
         self.writer.close()
         return report
+
+    def _train_hstu(self, bundle: Dict[str, np.ndarray]) -> Dict[str, float]:
+        """``train`` for hstu: a bundle of ``train/`` and ``val/`` columns
+        ``items`` [events] int32 (ids 1..hstu_items), ``timestamps``
+        [events] int64 (ascending within a history) and ``lengths``
+        [histories] (each at most ``hstu_max_len``); the splits' events on
+        the device; a checkpoint, the train metrics and the validation loss
+        (no dropout, negatives from a generator seeded by ``train.seed``)
+        each epoch, early stopping on it with the best weights restored,
+        ``--resume`` and ``profile`` as for the other models. The report:
+        the final validation loss and the throughput in histories a second.
+        No serving bundle."""
+        cfg, t_cfg, dev = self.config, self.config.train, self.device
+        if t_cfg.debug_nans:
+            enable_nan_checks()
+        self.writer.write_config(cfg)
+        b = t_cfg.batch_size
+
+        def split(name):
+            return {"items": torch.as_tensor(np.ascontiguousarray(
+                        bundle[f"{name}/items"], dtype=np.int32)).to(dev),
+                    "timestamps": torch.as_tensor(np.ascontiguousarray(
+                        bundle[f"{name}/timestamps"], dtype=np.int64)).to(dev),
+                    "lengths": torch.as_tensor(np.asarray(bundle[f"{name}/lengths"],
+                                                          dtype=np.int64))}
+
+        train_data, val_data = split("train"), split("val")
+        n_rows = train_data["lengths"].shape[0]
+        steps = n_rows // b
+        if steps == 0:
+            raise ValueError(f"hstu: {n_rows} train histories, fewer than a batch of {b}")
+        train_epoch = self.make_train_epoch(None, n_rows, steps)
+        state = self.init_state(0, 0, t_cfg.seed)
+        start_epoch = 0
+        if t_cfg.resume:
+            restored = self.ckpt.restore_latest()
+            if restored is not None:
+                state = self._load_state(state, restored[1])
+                start_epoch = state.step // steps
+        logger.info("hstu: %d blocks, %d items, %d train histories, %d steps/epoch on %s",
+                    cfg.model.hstu_blocks, cfg.model.hstu_items, n_rows, steps, dev)
+        best_val, best_host, patience, examples = float("inf"), None, 0, 0
+        profiler = self._start_profile() if t_cfg.profile else None
+        t0 = time.time()
+        try:
+            for epoch in range(start_epoch, t_cfg.epochs):
+                self.writer.start_epoch()
+                t_epoch = time.time()
+                state, tmetrics = train_epoch(state, train_data, epoch)
+                logs = {f"train_{k}": float(v) for k, v in tmetrics.items()}  # syncs
+                if profiler is not None:
+                    profiler = self._stop_profile(profiler)
+                if nan_checks_enabled():
+                    self._nan_guard.flush()
+                examples += steps * b
+                logs["examples_per_s"] = steps * b / max(time.time() - t_epoch, 1e-9)
+                logs["val_loss"] = self._hstu_val_loss(state.params, val_data)
+                self.writer.end_epoch(epoch, logs)
+                is_best = logs["val_loss"] < best_val
+                if is_best:
+                    best_val, patience = logs["val_loss"], 0
+                    best_host = ckpt_lib.params_to_numpy(state.params)
+                else:
+                    patience += 1
+                self.ckpt.save(state.step, self._state_dict(state),
+                               metrics={"val_loss": logs["val_loss"]}, is_best=is_best)
+                if patience >= t_cfg.early_stop_patience:
+                    break
+        finally:
+            if profiler is not None:
+                self._stop_profile(profiler)
+            self.ckpt.wait()
+        if best_host is not None:
+            self._copy_into(state.params, best_host)
+        wall = time.time() - t0
+        self.final_state = state
+        report = {"val_loss": best_val, "train_wall_time_s": wall,
+                  "examples_per_s": examples / max(wall, 1e-9),
+                  "epochs_run": state.step // steps}
+        self.writer.write_final_metrics(report)
+        self.writer.close()
+        return report
+
+    @torch.no_grad()
+    def _hstu_val_loss(self, params, data: Dict[str, torch.Tensor]) -> float:
+        """The mean over the split's histories (in order, batches of
+        ``batch_size``) of each batch's loss, weighted by its supervised
+        events; no dropout, negatives from a generator seeded by
+        ``train.seed``."""
+        cfg = self.config
+        b = cfg.train.batch_size
+        gen = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
+        lengths = data["lengths"]
+        starts = torch.zeros_like(lengths)
+        starts[1:] = torch.cumsum(lengths, 0)[:-1]
+        total, weight = torch.zeros((), device=self.device), 0
+        for lo in range(0, lengths.shape[0], b):
+            lens = lengths[lo:lo + b]
+            layout = ha.make_layout(lens, self.device)
+            m = layout.events - lens.shape[0]
+            if m == 0:
+                continue
+            src = starts[lo:lo + b].to(self.device)[layout.seq] + layout.positions
+            draws = hstu.draw(gen, layout, cfg.model, train=False)
+            total += hstu.loss(params, cfg.model, data["items"][src], data["timestamps"][src],
+                               layout, draws) * m
+            weight += m
+        return float(total) / max(weight, 1)
 
     def _start_profile(self) -> torch.profiler.profile:
         """A running ``torch.profiler`` session (the CPU, and the card's

@@ -28,7 +28,14 @@ caller's ``train.backward``:
   the bags' pooled forward (inside ``train.forward``), ``dlrm.cross``
   around the low-rank cross layers' forward, and ``embed.bag_bwd`` around
   the bags' backward with the rows' combine and row-wise Adagrad (inside
-  ``train.update``, beside the dense leaves' Adagrad).
+  ``train.update``, beside the dense leaves' Adagrad);
+* HSTU's step (``Trainer._step_core_hstu``): ``hstu.attn`` around each
+  block's attention forward (kernel row 11 and its operands' bf16 copy,
+  inside ``train.forward``), ``loss.sampled`` around the sampled
+  softmax's forward (row 13's logits and the sort of its entries), and
+  ``hstu.attn_bwd`` around each block's attention backward (row 12, on
+  the autograd thread inside ``train.backward``). The step's metrics
+  count its events and causal pairs on the device.
 
 A span records nothing unless a profiler is running, and changes no
 result. Names are fixed strings: no shape is formatted into them.
