@@ -260,11 +260,15 @@
 30. HSTU (``python3 chip_smoke.py --hstu``, in a process of its own):
     kernel rows 11 and 12 (``ops/hstu_attention.py``) against their plain
     version at the edge lengths 1, 2, 63, 64, 65 and 200 in one batch
-    (N = 200, one head and four) and at the benchmark cell's shape (its
+    (N = 200, one to four heads: every count of the forward's and the
+    dK/dV kernel's warpgroups) and at the benchmark cell's shape (its
     first 128 histories, N = 4,096, four heads): the output and the
     gradients of v, q, k, pos_w and ts_w within ``HSTU_TOL`` of the
     plain version's largest value, two calls bit-equal, launches equal to
-    calls, each kernel's CUDA-event ms alone at the cell's shape; row 13
+    calls, the bias values that the forward and the dK/dV kernel count
+    (a store a block) 64^2 times the layout's (query tile, key tile)
+    pairs a call, each kernel's CUDA-event ms alone and device ms at the
+    cell's shape, printed; row 13
     (``ops/sampled_softmax.py``) against its plain version at four edge
     shapes (one row, one negative; D of 128 to 512; accidental hits and a
     negative drawn twice) and at the cell's shape (~180k rows, K = 128,
@@ -4663,7 +4667,10 @@ def check_hstu_attention(lengths, n_max: int, heads: int, seed: int, timestamps=
     """Rows 11 and 12 (``ops/hstu_attention.py``) on a jagged batch of
     ``lengths``: the output and the gradients of v, q, k, pos_w and ts_w
     against the plain version, two calls bit-equal, launches equal to
-    calls; with ``timed``, each kernel's CUDA-event ms alone."""
+    calls, the bias values that the forward kernel and the dK/dV kernel
+    counted (``bias_counts``, a store a block) TILE^2 times the layout's
+    tile pairs a call (the bias once a tile pair for every head); with
+    ``timed``, each kernel's CUDA-event ms alone and device ms."""
     import numpy as np
     import torch
     from recsys_tpu_torch.ops import hstu_attention as ha
@@ -4686,12 +4693,18 @@ def check_hstu_attention(lengths, n_max: int, heads: int, seed: int, timestamps=
     what = f"hstu attention {len(lengths)} histories, {e} events"
     runs = []
     f0, b0 = ha.hstu_attn_fwd.launches, ha.hstu_attn_bwd.launches
+    counted = []
     for _ in range(2):
         out = ha.hstu_attention(v, q, k, pos_w, ts_w, timestamps, layout, n_max)
         runs.append([out.detach(), *torch.autograd.grad(out, leaves, g)])
+        counted.append([int(fn.bias_counts.sum()) for fn in (ha.hstu_attn_fwd,
+                                                             ha.hstu_attn_bwd)])
     check(all(torch.equal(a, b) for a, b in zip(*runs)), f"{what}: two calls differ")
     check(ha.hstu_attn_fwd.launches - f0 == 2 and ha.hstu_attn_bwd.launches - b0 == 2,
           f"{what}: launches")
+    check(counted == [[layout.tile_pairs * ha.TILE ** 2] * 2] * 2,
+          f"{what}: bias values the kernels computed in two calls {counted}, "
+          f"{layout.tile_pairs} tile pairs of {ha.TILE ** 2}")
     got = runs[0]
     del runs
     out = ha.attention_reference(v, q, k, pos_w, ts_w, timestamps, layout, n_max)
@@ -4702,7 +4715,9 @@ def check_hstu_attention(lengths, n_max: int, heads: int, seed: int, timestamps=
                                                                1e-30)
     bad = {k: v for k, v in errs.items() if v > HSTU_TOL}
     check(not bad, f"{what}: off by more than {HSTU_TOL} of the largest value: {errs}")
-    res = {"events": e, "pairs": layout.pairs, "heads": heads, "n_max": n_max, "err": errs}
+    res = {"events": e, "pairs": layout.pairs, "heads": heads, "n_max": n_max, "err": errs,
+           "tile_pairs": layout.tile_pairs,
+           "bias_tiles": {k: c / ha.TILE ** 2 for k, c in zip(("fwd", "bwd_dkv"), counted[0])}}
     del got, want
     if timed:
         with torch.no_grad():
@@ -4712,6 +4727,8 @@ def check_hstu_attention(lengths, n_max: int, heads: int, seed: int, timestamps=
                 qkv, pos_w, ts_w, timestamps, layout, n_max), 5)
             res["bwd_ms"] = time_ms(lambda: ha.attention_bwd_cuda(
                 qkv, gb, pos_w, ts_w, timestamps, layout, n_max), 5)
+            res["fwd_device_ms"] = device_ms(lambda: ha.attention_fwd_cuda(
+                qkv, pos_w, ts_w, timestamps, layout, n_max), 3, "hstu_attn_fwd", per_call=1)[1]
             for name in ("bwd_dkv", "bwd_dq", "bias_grad"):
                 res[f"{name}_device_ms"] = device_ms(lambda: ha.attention_bwd_cuda(
                     qkv, gb, pos_w, ts_w, timestamps, layout, n_max), 3, f"hstu_{name}"
@@ -4805,11 +4822,17 @@ def hstu_phase(repo: str, tmp: str) -> dict:
         conf = json.load(f)
     m = conf["model"]
     out = {"edges": [check_hstu_attention(HSTU_EDGE_LENGTHS, 200, heads, 5 + heads)
-                     for heads in (1, 4)]}
+                     for heads in range(1, 5)]}
     hist = hstu_datagen.histories(17, conf, HSTU_BATCH, "cuda")
-    out["cell_shape"] = check_hstu_attention(hist["lengths"], m["hstu_max_len"],
-                                             m["hstu_heads"], 19, hist["timestamps"],
-                                             timed=True)
+    cell = out["cell_shape"] = check_hstu_attention(hist["lengths"], m["hstu_max_len"],
+                                                    m["hstu_heads"], 19, hist["timestamps"],
+                                                    timed=True)
+    log(f"hstu kernels at the cell's shape ({cell['events']} events, {cell['tile_pairs']} "
+        f"tile pairs, {cell['heads']} heads; bias tiles computed {cell['bias_tiles']}), ms: "
+        f"row 11 {cell['fwd_ms']:.4f} (kernel "
+        f"{cell['fwd_device_ms']}), row 12 {cell['bwd_ms']:.4f} (dK/dV "
+        f"{cell['bwd_dkv_device_ms']}, dQ {cell['bwd_dq_device_ms']}, sum "
+        f"{cell['bias_grad_device_ms']})")
     out["sampled_edges"] = [check_sampled_softmax(*shape, 23 + i) for i, shape in enumerate(
         [(1, 1, 128, 3), (37, 5, 256, 50), (1000, 128, 512, 7), (2500, 128, 256, 100_000)])]
     out["sampled_cell_shape"] = check_sampled_softmax(
@@ -4886,12 +4909,13 @@ def hstu_step_launches(cfg, conf: dict, hist: dict, tmp: str) -> dict:
 def hstu_kernel_rows(out: dict) -> list:
     """Rows 11 to 13 for the ``kernels`` line, from phase 30's readings."""
     cell, samp, launches = out["cell_shape"], out["sampled_cell_shape"], out["step"]["launches"]
-    shape = {k: cell[k] for k in ("events", "pairs", "heads", "n_max")}
+    shape = {k: cell[k] for k in ("events", "pairs", "tile_pairs", "heads", "n_max")}
     rows = [
         {"name": "hstu_attn_fwd", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/hstu_attention.cu", "replaces": "no TPU kernel",
          "kernel": "hstu_attn_fwd_kernel", "launches_step": launches["hstu_attn_fwd"],
-         "ms": cell["fwd_ms"], "bound_ms": cell["fwd_bound_ms"],
+         "ms": cell["fwd_ms"], "device_ms": cell["fwd_device_ms"],
+         "bias_tiles": cell["bias_tiles"]["fwd"], "bound_ms": cell["fwd_bound_ms"],
          "bound_by": cell["fwd_bound_by"], "max_rel_err": cell["err"]["out"], "shape": shape},
         {"name": "hstu_attn_bwd", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/hstu_attention.cu", "replaces": "no TPU kernel",
@@ -4899,6 +4923,7 @@ def hstu_kernel_rows(out: dict) -> list:
                    "hstu_bias_grad_kernel, one launch of the wrapper",
          "launches_step": launches["hstu_attn_bwd"], "ms": cell["bwd_ms"],
          "device_ms": {k: cell[f"{k}_device_ms"] for k in ("bwd_dkv", "bwd_dq", "bias_grad")},
+         "bias_tiles": cell["bias_tiles"]["bwd_dkv"],
          "bound_ms": cell["bwd_bound_ms"], "bound_by": cell["bwd_bound_by"],
          "max_rel_err": {k: cell["err"][k] for k in ("dv", "dq", "dk", "dpos_w", "dts_w")},
          "shape": shape},

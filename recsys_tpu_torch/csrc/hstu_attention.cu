@@ -28,22 +28,38 @@
 // a and ds rounded to bf16 where they feed a product; ds enters dp and dw
 // in fp32.
 //
-// Design. Every kernel is one warpgroup (128 threads) a block, its products
-// on wgmma fed by TMA (hopper.cuh): 64 x 64 tiles of 64-wide bf16 rows (one
-// 128-byte-swizzled chunk), the swept tiles in a ring of two stages loaded
-// by thread 0 a tile ahead, several blocks an SM to hide the latencies.
-// Tiles are cut from each sequence's first event, so a query tile i and key
-// tile j meet only when j <= i, and the causal mask cuts only the diagonal
-// tile; rows a tile reads past its sequence belong to the next one (or lie
-// past the tensor, zero) and are masked. A table of (sequence, tile) a
-// block, longest sweeps first, is made by the caller (ops/hstu_attention.py).
-//   * hstu_attn_fwd_kernel (row 11): a block a (query tile, head): S = Q K^T
-//     [64 x 64] on wgmma from shared memory, the bias, SiLU and mask in
-//     registers, A packed to bf16 straight into the register A operand of
-//     O += A V; O written once in fp32.
-//   * hstu_attn_bwd_dkv_kernel (row 12): a block a (key tile, head) sweeping
-//     its query tiles: S^T = K Q^T and dA^T = V dO^T, then dV += A^T dO and
-//     dK += dS^T Q, A^T and dS^T from registers.
+// Design. The products run on wgmma fed by TMA (hopper.cuh): 64 x 64 tiles
+// of 64-wide bf16 rows (one 128-byte-swizzled chunk), the swept tiles in a
+// ring of two stages loaded by thread 0 a tile ahead. Tiles are cut from
+// each sequence's first event, so a query tile i and key tile j meet only
+// when j <= i, and the causal mask cuts only the diagonal tile; rows a tile
+// reads past its sequence belong to the next one (or lie past the tensor,
+// zero) and are masked where they would reach a written row: in the
+// diagonal tile, and in the backward's last query tile. A table of
+// (sequence, tile) a block, longest sweeps first, is made by the caller
+// (ops/hstu_attention.py).
+//   The bias is one for every head, and its bucket's exact logf is most of
+// a pair's arithmetic. So rows 11 and 12's dK/dV kernel are one block a
+// tile over all H <= 4 heads, a warpgroup a head: for each swept tile the
+// block's threads compute the tile's fp32 bias (0 where masked) once, each
+// warpgroup a share, into shared memory in the accumulators' order (float4
+// j of a warpgroup's thread t at [j][t]: its columns 8j + 2 t4 + {0, 1} of
+// its two rows), and every head reads it there. The next tile's bias is
+// computed while this tile's products run (two buffers); one barrier a
+// tile frees the ring's stage and the bias buffer.
+//   * hstu_attn_fwd_kernel (row 11): a block a query tile, warpgroup h head
+//     h: S = Q K^T [64 x 64] on wgmma from shared memory, x = S + bias, SiLU
+//     and (in the diagonal tile) the mask in registers, A packed to bf16
+//     straight into the register A operand of O += A V; O written once in
+//     fp32. Shared: Q of every head, two stages of K and V of every head,
+//     two bias tiles (~194 KB at H = 4, one block an SM).
+//   * hstu_attn_bwd_dkv_kernel (row 12): a block a key tile sweeping its
+//     query tiles, warpgroup h head h, in two halves of 32 queries a tile
+//     (so dK and dV of a head, S^T and dA^T fit a thread's 128 registers):
+//     S^T = K Q^T and dA^T = V dO^T on m64n32 products, then dV += A^T dO
+//     and dK += dS^T Q, A^T and dS^T from registers. Shared: K and V of
+//     every head, two stages of Q and dO of every head, two bias tiles
+//     (~226 KB at H = 4).
 //   * hstu_attn_bwd_dq_kernel (row 12): a block a query tile, two
 //     warpgroups of two heads each, sweeping its key tiles: the bias and
 //     mask of a tile once a warpgroup, then per head S = Q K^T, dA = dO V^T,
@@ -77,6 +93,8 @@ constexpr int TILE = HT * HD * 2;       // bytes of a 64 x 64 bf16 tile
 constexpr int DS_LD = HT + 4;           // row pitch of the fp32 dS tile (floats; rows on 16 bytes)
 constexpr int BK_LD = HT + 4;           // and of its buckets (bytes)
 constexpr int NO_BUCKET = 255;          // a masked pair's bucket in the dQ kernel's tile
+constexpr int MAX_HEADS = 4;            // a warpgroup a head (the dQ kernel: two heads a warpgroup)
+constexpr int BIAS_TILE = HT * HT;      // floats of a tile's bias
 
 // the tile of a block: x the sequence (< 0: no tile), y its tile
 __device__ __forceinline__ bool tile_of(const int2* tiles, int slot, const int* offsets,
@@ -127,6 +145,25 @@ __device__ __forceinline__ void product_rs(float (&d)[32], const uint32_t (&a)[4
     wgmma_rs<64>(d, a[kk], sw128_desc(b + kk * 16 * 128, TILE, 1024));
 }
 
+// d[64 x 32] = A[64 x 64] B[32 x 64]^T of a K-major tile and rows 32 half..
+// of another
+__device__ __forceinline__ void product_ss_half(float (&d)[16], const unsigned char* a,
+                                                const unsigned char* b, int half) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss<32>(d, sw128_desc(a + kk * 32, 16, 1024),
+                 sw128_desc(b + half * 32 * 128 + kk * 32, 16, 1024), kk > 0);
+}
+
+// d[64 x 64] += A[64 x 32] B[32 x 64], A from registers, B rows 32 half..
+// of a tile read MN-major
+__device__ __forceinline__ void product_rs_half(float (&d)[32], const uint32_t (&a)[2][4],
+                                                const unsigned char* b, int half) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+    wgmma_rs<64>(d, a[kk], sw128_desc(b + (2 * half + kk) * 16 * 128, TILE, 1024));
+}
+
 // the block's mbarriers: [0] its own tiles, [1 + s] ring stage s
 __device__ __forceinline__ void init_bars(uint64_t* bar) {
   if (threadIdx.x == 0) {
@@ -135,42 +172,176 @@ __device__ __forceinline__ void init_bars(uint64_t* bar) {
   }
 }
 
-// two tiles of rows row0.. at columns c0 and c1 into dst, completing on bar
-__device__ __forceinline__ void load_pair(unsigned char* dst, const CUtensorMap* m0, int c0,
-                                          const CUtensorMap* m1, int c1, int row0,
-                                          uint64_t* bar) {
-  mbar_arrive_expect_tx(bar, 2 * TILE);
-  tma_load_2d(dst, m0, c0, row0, bar);
-  tma_load_2d(dst + TILE, m1, c1, row0, bar);
+// the float4s j of a bias tile that warpgroup g of `groups` computes
+// (j % groups == g), as a mask of bits j
+__device__ __forceinline__ uint32_t bias_share(int g, int groups) {
+  uint32_t m = 0;
+  for (int j = g; j < 8; j += groups) m |= 1u << j;
+  return m;
 }
 
-constexpr size_t FWD_SMEM = 1024 + 5 * TILE + NB * 4 + 3 * 8 + 16;
+// This thread's share (`mine`) of a tile's bias into dst, in the
+// accumulators' order: float4 j of the thread wt of every warpgroup holds
+// rows row[r] against columns col0 + 8j + 2 t4 + e at 2r + e. The rows are
+// queries (the forward) or keys (KEY_ROWS, the dK/dV kernel), rts their
+// timestamps: a query's next event's, a key's own. 0 where masked.
+// Returns the values this thread computed.
+template <bool KEY_ROWS>
+__device__ __forceinline__ int bias_tile(float4* dst, uint32_t mine, int wt, int t4,
+                                          const long long* ts, int start, int n, int col0,
+                                          int n_max, const float* pos_w, const float* w_s,
+                                          const int (&row)[2], const long long (&rts)[2]) {
+  int done = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (!((mine >> j) & 1u)) continue;
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = col0 + 8 * j + 2 * t4 + e;
+      const long long cts = ts[start + min(KEY_ROWS ? col + 1 : col, n - 1)];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = KEY_ROWS ? col : row[r], kj = KEY_ROWS ? row[r] : col;
+        float b = 0.f;
+        if (kj <= qi && qi < n)
+          b = __ldg(pos_w + (kj - qi + n_max - 1)) + w_s[bucket_of(rts[r] - cts)];
+        v[2 * r + e] = b;
+      }
+    }
+    dst[j * HTHREADS + wt] = make_float4(v[0], v[1], v[2], v[3]);
+    done += 4;
+  }
+  return done;
+}
 
-// Row 11. Grid (tile slots, heads).
-__global__ void __launch_bounds__(HTHREADS) hstu_attn_fwd_kernel(
+// The bias values a bias_tile call computed (each thread's `done`) added
+// to its warp's count in shared memory (lane 0 the warp's only writer;
+// cnt_s static, at an address no register holds)
+__device__ __forceinline__ void count_bias(int* cnt_s, int done) {
+  const int w = __reduce_add_sync(0xffffffffu, done);
+  if ((threadIdx.x & 31) == 0) cnt_s[threadIdx.x >> 5] += w;
+}
+
+// The warps' counts, whole after the sweep's last barrier, into
+// counts[blockIdx.x]: one plain store a block
+__device__ __forceinline__ void store_count(const int* cnt_s, int* counts) {
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int i = 0; i < static_cast<int>(blockDim.x >> 5); ++i) sum += cnt_s[i];
+    counts[blockIdx.x] = sum;
+  }
+}
+
+// A of one tile and head: x = s + the bias (bias_t: this thread's float4s
+// of the tile), a = silu(x) / N, 0 where the key (column kj0 + 8j + e)
+// lies past the query (MASK: the diagonal tile), packed to bf16 as the
+// register A operand of O += A V
+template <bool MASK>
+__device__ __forceinline__ void fwd_a(const float (&s)[32], uint32_t (&pa)[4][4],
+                                      const float4* bias_t, const int (&qi)[2], int kj0,
+                                      float inv_n) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 b4 = bias_t[j * HTHREADS];
+    const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+    float pf[2][2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float x = s[4 * j + 2 * r + e] + b[2 * r + e];
+        const float a = x * sigmoid(x) * inv_n;
+        pf[r][e] = MASK && kj0 + 8 * j + e > qi[r] ? 0.f : a;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) pa[j >> 1][(j & 1) * 2 + r] = pack_bf16(pf[r][0], pf[r][1]);
+  }
+}
+
+// A^T and dS^T of half a tile and one head (32 queries, from column qi0 +
+// 8jj + e): x = s + the bias, a = silu(x) / N, ds = da silu'(x) / N, both
+// 0 where the query lies before the key or past the sequence (MASK: the
+// diagonal and the last query tile), packed to bf16 as the register A
+// operands of dV += A^T dO and dK += dS^T Q
+template <bool MASK>
+__device__ __forceinline__ void dkv_a_ds(const float (&s)[16], const float (&da)[16],
+                                         uint32_t (&pa)[2][4], uint32_t (&pd)[2][4],
+                                         const float4* bias_t, const int (&kj)[2], int qi0,
+                                         int n, float inv_n) {
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const float4 b4 = bias_t[jj * HTHREADS];
+    const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+    float af[2][2], df[2][2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int qi = qi0 + 8 * jj + e;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int c = 4 * jj + 2 * r + e;
+        const float x = s[c] + b[2 * r + e];
+        const float sg = sigmoid(x);
+        const bool off = MASK && !(qi < n && kj[r] <= qi);
+        af[r][e] = off ? 0.f : x * sg * inv_n;
+        df[r][e] = off ? 0.f : da[c] * sg * (1.f + x * (1.f - sg)) * inv_n;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      pa[jj >> 1][(jj & 1) * 2 + r] = pack_bf16(af[r][0], af[r][1]);
+      pd[jj >> 1][(jj & 1) * 2 + r] = pack_bf16(df[r][0], df[r][1]);
+    }
+  }
+}
+
+// shared memory of the forward: Q of every head, two ring stages of K and
+// V of every head, two bias tiles
+size_t fwd_smem(int heads) {
+  return 1024 + 5 * heads * TILE + 2 * BIAS_TILE * 4 + NB * 4 + 3 * 8 + 16;
+}
+
+// Row 11. Grid (tile slots): a block a query tile, warpgroup h head h;
+// bias_counts [slots]: the bias values each block computed (0 where the
+// slot has no tile, as the launch set it).
+__global__ void __launch_bounds__(MAX_HEADS * HTHREADS, 1) hstu_attn_fwd_kernel(
     const __grid_constant__ CUtensorMap qkv_map, const int2* __restrict__ tiles,
     const int* __restrict__ offsets, const long long* __restrict__ ts,
     const float* __restrict__ pos_w, const float* __restrict__ ts_w, int heads, int n_max,
-    float inv_n, float* __restrict__ out) {
+    float inv_n, float* __restrict__ out, int* __restrict__ bias_counts) {
   int start, n, qt;
   if (!tile_of(tiles, blockIdx.x, offsets, start, n, qt)) return;
-  const int h = blockIdx.y, tid = threadIdx.x;
+  const int tid = threadIdx.x, h = tid >> 7, wt = tid & 127;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* q_s = aligned_smem(smem_raw);
-  unsigned char* ring = q_s + TILE;  // [2][K, V]
-  float* w_s = reinterpret_cast<float*>(ring + 4 * TILE);
+  unsigned char* q_s = aligned_smem(smem_raw);                        // [heads] Q
+  unsigned char* ring = q_s + heads * TILE;                            // [2][heads][K, V]
+  float4* bias_s = reinterpret_cast<float4*>(ring + 4 * heads * TILE);  // [2][8][HTHREADS]
+  float* w_s = reinterpret_cast<float*>(bias_s + 2 * BIAS_TILE / 4);
   uint64_t* bar = reinterpret_cast<uint64_t*>(w_s + NB + 3);
+  __shared__ int cnt_s[MAX_HEADS * HTHREADS / 32];                      // [warps]
   init_bars(bar);
-  for (int b = tid; b < NB; b += HTHREADS) w_s[b] = ts_w[b];
+  for (int b = tid; b < NB; b += blockDim.x) w_s[b] = ts_w[b];
+  if (tid < heads * 4) cnt_s[tid] = 0;
   __syncthreads();
-  const int vc = h * HD, qc = (heads + h) * HD, kc = (2 * heads + h) * HD;
-  const int i0 = qt * HT, n_kt = qt + 1;
+  const int i0 = qt * HT, n_kt = qt + 1, stage = 2 * heads * TILE;
+  // the ring's tile it: K and V of key tile it, every head
+  auto load = [&](int it) {
+    unsigned char* dst = ring + (it & 1) * stage;
+    uint64_t* fb = bar + 1 + (it & 1);
+    mbar_arrive_expect_tx(fb, stage);
+    for (int k = 0; k < heads; ++k) {
+      tma_load_2d(dst + 2 * k * TILE, &qkv_map, (2 * heads + k) * HD, start + it * HT, fb);
+      tma_load_2d(dst + (2 * k + 1) * TILE, &qkv_map, k * HD, start + it * HT, fb);
+    }
+  };
   if (tid == 0) {
-    mbar_arrive_expect_tx(bar, TILE);
-    tma_load_2d(q_s, &qkv_map, qc, start + i0, bar);
-    load_pair(ring, &qkv_map, kc, &qkv_map, vc, start, bar + 1);
+    mbar_arrive_expect_tx(bar, heads * TILE);
+    for (int k = 0; k < heads; ++k)
+      tma_load_2d(q_s + k * TILE, &qkv_map, (heads + k) * HD, start + i0, bar);
+    load(0);
   }
-  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, t4 = lane & 3;
+  const int warp = wt >> 5, lane = tid & 31, gq = lane >> 2, t4 = lane & 3;
+  const uint32_t mine = bias_share(h, heads);
   int qi[2];
   long long tn[2];
 #pragma unroll
@@ -178,52 +349,43 @@ __global__ void __launch_bounds__(HTHREADS) hstu_attn_fwd_kernel(
     qi[r] = i0 + 16 * warp + gq + 8 * r;
     tn[r] = qi[r] < n ? next_ts(ts, start, n, qi[r]) : 0;
   }
+  count_bias(cnt_s,
+             bias_tile<false>(bias_s, mine, wt, t4, ts, start, n, 0, n_max, pos_w, w_s, qi, tn));
+  __syncthreads();  // key tile 0's bias is whole
   float s[32], o[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
   uint32_t pa[4][4];
+  const unsigned char* q_h = q_s + h * TILE;
   mbar_wait(bar, 0);
   for (int it = 0; it < n_kt; ++it) {
     const int st = it & 1;
-    if (tid == 0 && it + 1 < n_kt)
-      load_pair(ring + (st ^ 1) * 2 * TILE, &qkv_map, kc, &qkv_map, vc,
-                start + (it + 1) * HT, bar + 1 + (st ^ 1));
+    if (tid == 0 && it + 1 < n_kt) load(it + 1);
     mbar_wait(bar + 1 + st, (it >> 1) & 1);
-    const unsigned char* k_t = ring + st * 2 * TILE;
+    const unsigned char* k_t = ring + st * stage + 2 * h * TILE;
     wgmma_fence();
-    product_ss(s, q_s, k_t);
+    product_ss(s, q_h, k_t);
     wgmma_commit();
+    // the next key tile's bias while the product runs
+    int done = 0;
+    if (it + 1 < n_kt)
+      done = bias_tile<false>(bias_s + (st ^ 1) * (BIAS_TILE / 4), mine, wt, t4, ts, start, n,
+                              (it + 1) * HT, n_max, pos_w, w_s, qi, tn);
     wgmma_wait<0>();
     keep(s);
-    const int j0 = it * HT;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float pf[2][2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kj = j0 + 8 * j + 2 * t4 + e;
-        const long long tk = ts[start + min(kj, n - 1)];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float a = 0.f;
-          if (kj <= qi[r] && qi[r] < n) {
-            const float x = s[4 * j + 2 * r + e] + __ldg(pos_w + (kj - qi[r] + n_max - 1)) +
-                            w_s[bucket_of(tn[r] - tk)];
-            a = x * sigmoid(x) * inv_n;
-          }
-          pf[r][e] = a;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) pa[j >> 1][(j & 1) * 2 + r] = pack_bf16(pf[r][0], pf[r][1]);
-    }
+    if (it + 1 < n_kt) count_bias(cnt_s, done);
+    const float4* bias_t = bias_s + st * (BIAS_TILE / 4) + wt;
+    if (it == n_kt - 1)
+      fwd_a<true>(s, pa, bias_t, qi, it * HT + 2 * t4, inv_n);
+    else
+      fwd_a<false>(s, pa, bias_t, qi, it * HT + 2 * t4, inv_n);
     wgmma_fence();
     product_rs(o, pa, k_t + TILE);
     wgmma_commit();
     wgmma_wait<0>();
     keep(o);
     keep(pa);
-    __syncthreads();  // stage st is free for tile it + 2
+    __syncthreads();  // stage st and bias tile st are read, bias tile st ^ 1 is whole
   }
   const int ld = heads * HD;
 #pragma unroll
@@ -235,35 +397,59 @@ __global__ void __launch_bounds__(HTHREADS) hstu_attn_fwd_kernel(
       *reinterpret_cast<float2*>(dst + 8 * j + 2 * t4) =
           make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
   }
+  store_count(cnt_s, bias_counts);
 }
 
-constexpr size_t DKV_SMEM = 1024 + 6 * TILE + NB * 4 + 3 * 8 + 16;
+// shared memory of the dK/dV kernel: K and V of every head, two ring
+// stages of Q and dO of every head, two bias tiles
+size_t dkv_smem(int heads) {
+  return 1024 + 6 * heads * TILE + 2 * BIAS_TILE * 4 + NB * 4 + 3 * 8 + 16;
+}
 
-// Row 12, dK and dV. Grid (tile slots, heads): a block a key tile.
-__global__ void __launch_bounds__(HTHREADS) hstu_attn_bwd_dkv_kernel(
+// Row 12, dK and dV. Grid (tile slots): a block a key tile, warpgroup h
+// head h; bias_counts [slots]: the bias values each block computed (0
+// where the slot has no tile, as the launch set it).
+__global__ void __launch_bounds__(MAX_HEADS * HTHREADS, 1) hstu_attn_bwd_dkv_kernel(
     const __grid_constant__ CUtensorMap qkv_map, const __grid_constant__ CUtensorMap do_map,
     const int2* __restrict__ tiles, const int* __restrict__ offsets,
     const long long* __restrict__ ts, const float* __restrict__ pos_w,
     const float* __restrict__ ts_w, int heads, int n_max, float inv_n,
-    float* __restrict__ dqkv) {
+    float* __restrict__ dqkv, int* __restrict__ bias_counts) {
   int start, n, kt;
   if (!tile_of(tiles, blockIdx.x, offsets, start, n, kt)) return;
-  const int h = blockIdx.y, tid = threadIdx.x;
+  const int tid = threadIdx.x, h = tid >> 7, wt = tid & 127;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* k_s = aligned_smem(smem_raw);  // K, then V
-  unsigned char* ring = k_s + 2 * TILE;          // [2][Q, dO]
-  float* w_s = reinterpret_cast<float*>(ring + 4 * TILE);
+  unsigned char* kv_s = aligned_smem(smem_raw);                        // [heads][K, V]
+  unsigned char* ring = kv_s + 2 * heads * TILE;                        // [2][heads][Q, dO]
+  float4* bias_s = reinterpret_cast<float4*>(ring + 4 * heads * TILE);  // [2][8][HTHREADS]
+  float* w_s = reinterpret_cast<float*>(bias_s + 2 * BIAS_TILE / 4);
   uint64_t* bar = reinterpret_cast<uint64_t*>(w_s + NB + 3);
+  __shared__ int cnt_s[MAX_HEADS * HTHREADS / 32];                      // [warps]
   init_bars(bar);
-  for (int b = tid; b < NB; b += HTHREADS) w_s[b] = ts_w[b];
+  for (int b = tid; b < NB; b += blockDim.x) w_s[b] = ts_w[b];
+  if (tid < heads * 4) cnt_s[tid] = 0;
   __syncthreads();
-  const int vc = h * HD, qc = (heads + h) * HD, kc = (2 * heads + h) * HD;
-  const int j0 = kt * HT, n_qt = (n + HT - 1) / HT - kt;
+  const int j0 = kt * HT, n_qt = (n + HT - 1) / HT - kt, stage = 2 * heads * TILE;
+  // the ring's tile it: Q and dO of query tile kt + it, every head
+  auto load = [&](int it) {
+    unsigned char* dst = ring + (it & 1) * stage;
+    uint64_t* fb = bar + 1 + (it & 1);
+    mbar_arrive_expect_tx(fb, stage);
+    for (int k = 0; k < heads; ++k) {
+      tma_load_2d(dst + 2 * k * TILE, &qkv_map, (heads + k) * HD, start + j0 + it * HT, fb);
+      tma_load_2d(dst + (2 * k + 1) * TILE, &do_map, k * HD, start + j0 + it * HT, fb);
+    }
+  };
   if (tid == 0) {
-    load_pair(k_s, &qkv_map, kc, &qkv_map, vc, start + j0, bar);
-    load_pair(ring, &qkv_map, qc, &do_map, h * HD, start + j0, bar + 1);
+    mbar_arrive_expect_tx(bar, 2 * heads * TILE);
+    for (int k = 0; k < heads; ++k) {
+      tma_load_2d(kv_s + 2 * k * TILE, &qkv_map, (2 * heads + k) * HD, start + j0, bar);
+      tma_load_2d(kv_s + (2 * k + 1) * TILE, &qkv_map, k * HD, start + j0, bar);
+    }
+    load(0);
   }
-  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, t4 = lane & 3;
+  const int warp = wt >> 5, lane = tid & 31, gq = lane >> 2, t4 = lane & 3;
+  const uint32_t mine = bias_share(h, heads);
   int kj[2];
   long long tk[2];
 #pragma unroll
@@ -271,68 +457,59 @@ __global__ void __launch_bounds__(HTHREADS) hstu_attn_bwd_dkv_kernel(
     kj[r] = j0 + 16 * warp + gq + 8 * r;
     tk[r] = ts[start + min(kj[r], n - 1)];
   }
-  float s[32], da[32], dk[32], dv[32];
+  count_bias(cnt_s,
+             bias_tile<true>(bias_s, mine, wt, t4, ts, start, n, j0, n_max, pos_w, w_s, kj, tk));
+  __syncthreads();  // query tile 0's bias is whole
+  float dk[32], dv[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
-  uint32_t pa[4][4], pd[4][4];
+  const unsigned char* k_h = kv_s + 2 * h * TILE;
   mbar_wait(bar, 0);
   for (int it = 0; it < n_qt; ++it) {
     const int st = it & 1;
-    if (tid == 0 && it + 1 < n_qt)
-      load_pair(ring + (st ^ 1) * 2 * TILE, &qkv_map, qc, &do_map, h * HD,
-                start + j0 + (it + 1) * HT, bar + 1 + (st ^ 1));
+    if (tid == 0 && it + 1 < n_qt) load(it + 1);
     mbar_wait(bar + 1 + st, (it >> 1) & 1);
-    const unsigned char* q_t = ring + st * 2 * TILE;
+    const unsigned char* q_t = ring + st * stage + 2 * h * TILE;
     const unsigned char* do_t = q_t + TILE;
-    wgmma_fence();
-    product_ss(s, k_s, q_t);
-    product_ss(da, k_s + TILE, do_t);
-    wgmma_commit();
-    wgmma_wait<0>();
-    keep(s);
-    keep(da);
     const int i0 = j0 + it * HT;
+    const bool edge = it == 0 || it == n_qt - 1;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float af[2][2], df[2][2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int qi = i0 + 8 * j + 2 * t4 + e;
-        const bool qok = qi < n;
-        const long long tn = next_ts(ts, start, n, qok ? qi : n - 1);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float a = 0.f, g = 0.f;
-          if (qok && kj[r] <= qi) {
-            const int c = 4 * j + 2 * r + e;
-            const float x = s[c] + __ldg(pos_w + (kj[r] - qi + n_max - 1)) +
-                            w_s[bucket_of(tn - tk[r])];
-            const float sg = sigmoid(x);
-            a = x * sg * inv_n;
-            g = da[c] * sg * (1.f + x * (1.f - sg)) * inv_n;
-          }
-          af[r][e] = a;
-          df[r][e] = g;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        pa[j >> 1][(j & 1) * 2 + r] = pack_bf16(af[r][0], af[r][1]);
-        pd[j >> 1][(j & 1) * 2 + r] = pack_bf16(df[r][0], df[r][1]);
-      }
+    for (int half = 0; half < 2; ++half) {
+      float s[16], da[16];
+      uint32_t pa[2][4], pd[2][4];
+      wgmma_fence();
+      product_ss_half(s, k_h, q_t, half);
+      product_ss_half(da, k_h + TILE, do_t, half);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(s);
+      keep(da);
+      const float4* bias_t = bias_s + st * (BIAS_TILE / 4) + half * 4 * HTHREADS + wt;
+      if (edge)
+        dkv_a_ds<true>(s, da, pa, pd, bias_t, kj, i0 + 32 * half + 2 * t4, n, inv_n);
+      else
+        dkv_a_ds<false>(s, da, pa, pd, bias_t, kj, i0 + 32 * half + 2 * t4, n, inv_n);
+      wgmma_fence();
+      product_rs_half(dv, pa, do_t, half);
+      product_rs_half(dk, pd, q_t, half);
+      wgmma_commit();
+      // the next query tile's bias while the last products run
+      int done = 0;
+      if (half == 1 && it + 1 < n_qt)
+        done = bias_tile<true>(bias_s + (st ^ 1) * (BIAS_TILE / 4), mine, wt, t4, ts, start, n,
+                               i0 + HT, n_max, pos_w, w_s, kj, tk);
+      wgmma_wait<0>();
+      keep(dv);
+      keep(dk);
+      keep(pa);
+      keep(pd);
+      // counted once the products' registers are free
+      if (half == 1 && it + 1 < n_qt) count_bias(cnt_s, done);
     }
-    wgmma_fence();
-    product_rs(dv, pa, do_t);
-    product_rs(dk, pd, q_t);
-    wgmma_commit();
-    wgmma_wait<0>();
-    keep(dv);
-    keep(dk);
-    keep(pa);
-    keep(pd);
-    __syncthreads();
+    __syncthreads();  // stage st and bias tile st are read, bias tile st ^ 1 is whole
   }
   const long long ld = 3LL * heads * HD;
+  const int vc = h * HD, kc = (2 * heads + h) * HD;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (kj[r] >= n) continue;
@@ -344,10 +521,10 @@ __global__ void __launch_bounds__(HTHREADS) hstu_attn_bwd_dkv_kernel(
       *reinterpret_cast<float2*>(row + kc + c) = make_float2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
     }
   }
+  store_count(cnt_s, bias_counts);
 }
 
 constexpr int DQ_THREADS = 256;        // the dQ kernel: two warpgroups
-constexpr int DQ_MAX_HEADS = 4;        // two heads a warpgroup
 constexpr int DW_ROWS = HT;            // its threads that sum dw, a row each
 
 // shared memory of the dQ kernel: Q and dO of every head, the ring (two
@@ -625,42 +802,56 @@ __global__ void hstu_bias_grad_kernel(const int2* __restrict__ tiles, int slots,
 // qkv [events, 3 heads 64] bf16 (v, q, k of every head); tiles [slots] int2
 // (sequence, query tile; -1: none); offsets [sequences + 1] int32; ts
 // [events] int64; pos_w [2 n_max - 1], ts_w [129] fp32 -> out [events,
-// heads 64] fp32. Every sequence at most n_max events. Returns the
-// cudaError_t of the launch.
+// heads 64] fp32, and bias_counts [slots] int32: the bias values each block
+// computed (TILE^2 a (query tile, key tile) pair for all heads). Every
+// sequence at most n_max events, 1 <= heads <= 4. Returns the cudaError_t
+// of the launch.
 extern "C" int hstu_attn_fwd(const void* qkv, const int* tiles, int slots, const int* offsets,
                              const long long* ts, const float* pos_w, const float* ts_w,
-                             int events, int heads, int n_max, float* out, void* stream) {
-  if (events <= 0 || slots <= 0) return 0;
-  if (heads <= 0 || n_max <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                             int events, int heads, int n_max, float* out, int* bias_counts,
+                             void* stream) {
+  if (heads <= 0 || heads > MAX_HEADS || n_max <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (slots <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t zero = cudaMemsetAsync(bias_counts, 0, slots * sizeof(int), s);
+  if (zero != cudaSuccess || events <= 0) return static_cast<int>(zero);
   CUtensorMap map;
   if (!rows_map(&map, qkv, events, 3 * heads * HD, HT))
     return static_cast<int>(cudaErrorNotSupported);
-  return launch(hstu_attn_fwd_kernel, dim3(slots, heads), HTHREADS, FWD_SMEM,
-                static_cast<cudaStream_t>(stream), map, reinterpret_cast<const int2*>(tiles),
-                offsets, ts, pos_w, ts_w, heads, n_max, 1.f / static_cast<float>(n_max), out);
+  return launch(hstu_attn_fwd_kernel, dim3(slots), heads * HTHREADS, fwd_smem(heads), s, map,
+                reinterpret_cast<const int2*>(tiles), offsets, ts, pos_w, ts_w, heads, n_max,
+                1.f / static_cast<float>(n_max), out, bias_counts);
 }
 
 // The backward of hstu_attn_fwd with dout [events, heads 64] bf16: dqkv
 // [events, 3 heads 64] fp32 (dv, dq, dk as qkv's columns), dp [2 n_max - 1]
 // and dw [129] fp32; q_tiles and k_tiles: the slots of the dQ and the dK/dV
-// kernels; scratch dp_part [slots, n_max] and dw_part [slots, 129] fp32.
+// kernels; scratch dp_part [slots, n_max] and dw_part [slots, 129] fp32;
+// bias_counts [slots] int32: the bias values each block of the dK/dV
+// kernel computed.
 extern "C" int hstu_attn_bwd(const void* qkv, const void* dout, const int* q_tiles,
                              const int* k_tiles, int slots, const int* offsets,
                              const long long* ts, const float* pos_w, const float* ts_w,
                              int events, int heads, int n_max, float* dqkv, float* dp_part,
-                             float* dw_part, float* dp, float* dw, void* stream) {
-  if (heads <= 0 || heads > DQ_MAX_HEADS || n_max <= 0)
+                             float* dw_part, float* dp, float* dw, int* bias_counts,
+                             void* stream) {
+  if (heads <= 0 || heads > MAX_HEADS || n_max <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (slots > 0) {
+    const cudaError_t zero = cudaMemsetAsync(bias_counts, 0, slots * sizeof(int), s);
+    if (zero != cudaSuccess) return static_cast<int>(zero);
+  }
   if (events > 0 && slots > 0) {
     CUtensorMap map, do_map;
     if (!rows_map(&map, qkv, events, 3 * heads * HD, HT) ||
         !rows_map(&do_map, dout, events, heads * HD, HT))
       return static_cast<int>(cudaErrorNotSupported);
     const float inv_n = 1.f / static_cast<float>(n_max);
-    int err = launch(hstu_attn_bwd_dkv_kernel, dim3(slots, heads), HTHREADS, DKV_SMEM, s, map,
-                     do_map, reinterpret_cast<const int2*>(k_tiles), offsets, ts, pos_w, ts_w,
-                     heads, n_max, inv_n, dqkv);
+    int err = launch(hstu_attn_bwd_dkv_kernel, dim3(slots), heads * HTHREADS, dkv_smem(heads),
+                     s, map, do_map, reinterpret_cast<const int2*>(k_tiles), offsets, ts, pos_w,
+                     ts_w, heads, n_max, inv_n, dqkv, bias_counts);
     if (err != 0) return err;
     err = launch(hstu_attn_bwd_dq_kernel, dim3(slots), DQ_THREADS, dq_smem(heads, n_max), s, map,
                  do_map, reinterpret_cast<const int2*>(q_tiles), offsets, ts, pos_w, ts_w, heads,

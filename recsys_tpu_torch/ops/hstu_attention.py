@@ -20,7 +20,9 @@ incoming gradient, and a and ds where they feed a product), as the kernels
 do; ``bf16=False`` (the plain version only) multiplies in fp32.
 
 CPU tensors take :func:`attention_reference` (a sequence at a time, the
-scores materialised); CUDA tensors launch the kernels or raise. The
+scores materialised); CUDA tensors launch the kernels (at most
+``MAX_HEADS`` heads) or raise. The forward and row 12's dK/dV kernel
+compute the bias once a (query tile, key tile) pair for every head. The
 kernels write no [n, n] tensor, and sum dp and dw through per-block
 partials in a fixed order: two calls give the same bits.
 """
@@ -40,6 +42,7 @@ from recsys_tpu_torch.utils.trace import span
 
 HEAD_DIM = 64        # dqk = dv, the kernels' only width
 TILE = 64            # rows of a query or key tile of the kernels
+MAX_HEADS = 4        # the kernels' heads: a warpgroup a head (row 12's dQ kernel: two)
 NUM_BUCKETS = 128    # time buckets; ts_w has NUM_BUCKETS + 1 entries
 # a bucket's width in log seconds is the source's 0.301; its log is
 # multiplied by the fp32 reciprocal, as PyTorch divides a tensor by a
@@ -50,7 +53,9 @@ INV_BUCKET_BASE = float(np.float32(1.0) / np.float32(0.301))
 
 class JaggedLayout(NamedTuple):
     """A jagged batch's layout, on one device. ``events``, ``pairs`` (the
-    causal pairs, sum n (n + 1) / 2) and ``max_len`` are host numbers."""
+    causal pairs, sum n (n + 1) / 2), ``max_len`` and ``tile_pairs`` (the
+    causal (query tile, key tile) pairs of the kernels, sum T (T + 1) / 2
+    over T = ceil(n / TILE)) are host numbers."""
     offsets: torch.Tensor    # [B + 1] int32
     positions: torch.Tensor  # [events] int64: each event's index in its sequence
     seq: torch.Tensor        # [events] int64: each event's sequence
@@ -59,6 +64,7 @@ class JaggedLayout(NamedTuple):
     events: int
     pairs: int
     max_len: int
+    tile_pairs: int
 
 
 def _tiles(lengths: torch.Tensor, slots: int, key: bool) -> torch.Tensor:
@@ -95,6 +101,8 @@ def make_layout(lengths: torch.Tensor, device=None) -> JaggedLayout:
     events = int(host.sum())
     pairs = int((host * (host + 1) // 2).sum())
     max_len = int(host.max()) if host.numel() else 0
+    n_tiles = (host + TILE - 1) // TILE
+    tile_pairs = int((n_tiles * (n_tiles + 1) // 2).sum())
     lens = on_device(lengths.to(torch.int64), device)
     offsets = torch.zeros(lens.shape[0] + 1, dtype=torch.int64, device=device)
     offsets[1:] = torch.cumsum(lens, 0)
@@ -103,7 +111,7 @@ def make_layout(lengths: torch.Tensor, device=None) -> JaggedLayout:
     positions = torch.arange(events, device=device) - offsets[seq]
     slots = events // TILE + lens.shape[0]  # at least sum ceil(n / TILE)
     return JaggedLayout(offsets.to(torch.int32), positions, seq, _tiles(lens, slots, False),
-                        _tiles(lens, slots, True), events, pairs, max_len)
+                        _tiles(lens, slots, True), events, pairs, max_len, tile_pairs)
 
 
 def bucket(dt: torch.Tensor) -> torch.Tensor:
@@ -203,7 +211,7 @@ def attention_reference(v, q, k, pos_w, ts_w, timestamps, layout: JaggedLayout, 
 def _fwd_launcher():
     fn = _build.load_library().hstu_attn_fwd
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return fn
 
@@ -212,32 +220,36 @@ def _fwd_launcher():
 def _bwd_launcher():
     fn = _build.load_library().hstu_attn_bwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6)
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7)
     fn.restype = ctypes.c_int
     return fn
 
 
 def attention_fwd_cuda(qkv: torch.Tensor, pos_w, ts_w, timestamps, layout: JaggedLayout,
-                       n_max: int) -> torch.Tensor:
-    """Row 11: qkv [events, 3 H 64] bf16 (v, q, k) -> o [events, H 64] fp32."""
+                       n_max: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row 11: qkv [events, 3 H 64] bf16 (v, q, k) -> (o [events, H 64] fp32,
+    the bias values each block computed [slots] int32)."""
     heads = qkv.shape[1] // (3 * HEAD_DIM)
+    slots = layout.q_tiles.shape[0]
     out = torch.empty((layout.events, heads * HEAD_DIM), dtype=torch.float32,
                       device=qkv.device)
+    counts = torch.empty(slots, dtype=torch.int32, device=qkv.device)
     with torch.cuda.device(qkv.device):
-        err = _fwd_launcher()(qkv.data_ptr(), layout.q_tiles.data_ptr(),
-                              layout.q_tiles.shape[0], layout.offsets.data_ptr(),
-                              timestamps.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(),
-                              layout.events, heads, n_max, out.data_ptr(),
+        err = _fwd_launcher()(qkv.data_ptr(), layout.q_tiles.data_ptr(), slots,
+                              layout.offsets.data_ptr(), timestamps.data_ptr(),
+                              pos_w.data_ptr(), ts_w.data_ptr(), layout.events, heads, n_max,
+                              out.data_ptr(), counts.data_ptr(),
                               torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"hstu_attn_fwd kernel launch failed: cudaError {err}")
-    return out
+    return out, counts
 
 
 def attention_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor, pos_w, ts_w, timestamps,
                        layout: JaggedLayout, n_max: int
-                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Row 12: -> (dqkv [events, 3 H 64] fp32 in qkv's columns, dpos_w, dts_w)."""
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Row 12: -> (dqkv [events, 3 H 64] fp32 in qkv's columns, dpos_w, dts_w,
+    the bias values each block of the dK/dV kernel computed [slots] int32)."""
     dev = qkv.device
     slots = layout.q_tiles.shape[0]
     dqkv = torch.empty(qkv.shape, dtype=torch.float32, device=dev)
@@ -245,17 +257,18 @@ def attention_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor, pos_w, ts_w, times
     dw_part = torch.empty((slots, NUM_BUCKETS + 1), dtype=torch.float32, device=dev)
     dp = torch.empty_like(pos_w)
     dw = torch.empty_like(ts_w)
+    counts = torch.empty(slots, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _bwd_launcher()(qkv.data_ptr(), dout.data_ptr(), layout.q_tiles.data_ptr(),
                               layout.k_tiles.data_ptr(), slots, layout.offsets.data_ptr(),
                               timestamps.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(),
                               layout.events, qkv.shape[1] // (3 * HEAD_DIM), n_max,
                               dqkv.data_ptr(), dp_part.data_ptr(), dw_part.data_ptr(),
-                              dp.data_ptr(), dw.data_ptr(),
+                              dp.data_ptr(), dw.data_ptr(), counts.data_ptr(),
                               torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"hstu_attn_bwd kernel launch failed: cudaError {err}")
-    return dqkv, dp, dw
+    return dqkv, dp, dw, counts
 
 
 class HstuAttention(torch.autograd.Function):
@@ -287,21 +300,28 @@ class HstuAttention(torch.autograd.Function):
 
 @kernel_nan_check("hstu_attn_fwd (HSTU's attention forward)")
 def hstu_attn_fwd(qkv, pos_w, ts_w, timestamps, layout, n_max):
-    out = attention_fwd_cuda(qkv, pos_w, ts_w, timestamps, layout, n_max)
+    out, _FWD.bias_counts = attention_fwd_cuda(qkv, pos_w, ts_w, timestamps, layout, n_max)
     _FWD.launches += 1
     return out
 
 
 @kernel_nan_check("hstu_attn_bwd (HSTU's attention backward)")
 def hstu_attn_bwd(qkv, dout, pos_w, ts_w, timestamps, layout, n_max):
-    out = attention_bwd_cuda(qkv, dout, pos_w, ts_w, timestamps, layout, n_max)
+    dqkv, dp, dw, _BWD.bias_counts = attention_bwd_cuda(qkv, dout, pos_w, ts_w, timestamps,
+                                                         layout, n_max)
     _BWD.launches += 1
-    return out
+    return dqkv, dp, dw
 
 
-# the counts are kept on the functions as defined here (see embedding_bag.py)
-hstu_attn_fwd.launches = 0
-hstu_attn_bwd.launches = 0
+# launches, and bias_counts: the bias values that each block of the last
+# call's forward kernel (row 12: its dK/dV kernel; the dQ kernel is not
+# counted) computed, a device tensor [slots] int32 that the kernel writes, a
+# plain store a block. Its sum is TILE^2 a (query tile, key tile) pair where
+# the bias is computed once a pair for every head, and H times that where
+# once a head. The counts are kept on the functions as defined here (see
+# embedding_bag.py)
+hstu_attn_fwd.launches = hstu_attn_bwd.launches = 0
+hstu_attn_fwd.bias_counts = hstu_attn_bwd.bias_counts = None
 _FWD, _BWD = hstu_attn_fwd, hstu_attn_bwd
 
 
@@ -329,11 +349,16 @@ def hstu_attention(v: torch.Tensor, q: torch.Tensor, k: torch.Tensor, pos_w: tor
     """o [events, H 64] fp32 of v, q, k [events, H 64] fp32 (see the module
     docstring), differentiable in v, q, k, pos_w and ts_w. CPU tensors take
     :func:`attention_reference` (``bf16`` as given); CUDA tensors the
-    kernels (bf16 operands only: ``bf16`` False raises) or raise."""
+    kernels (bf16 operands and H <= MAX_HEADS only: else it raises) or
+    raise."""
     _check(v, q, k, pos_w, ts_w, timestamps, layout, n_max)
     if q.device.type != "cpu" and not bf16:
         raise ValueError("hstu_attention: the card's kernels take bf16 operands only; fp32 "
                          "operands run on the CPU alone")
+    if q.device.type != "cpu" and q.shape[1] > MAX_HEADS * HEAD_DIM:
+        raise ValueError(f"hstu_attention: the card's kernels take at most {MAX_HEADS} heads "
+                         f"(a warpgroup a head), got {q.shape[1] // HEAD_DIM}; more run on "
+                         "the CPU alone")
     if q.device.type == "cpu":
         with span("hstu.attn"):
             return attention_reference(v, q, k, pos_w, ts_w, timestamps, layout, n_max, bf16)

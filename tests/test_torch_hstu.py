@@ -159,6 +159,24 @@ def test_layout_tiles_every_history_once_longest_sweeps_first():
         assert all(x == [-1, 0] for x in tiles.tolist()[len(got):])
 
 
+@pytest.mark.parametrize("lengths", [
+    EDGE_LENGTHS + (0, 128, 4096),
+    tuple(np.clip(np.random.default_rng(7).lognormal(np.log(1024), 1.0, 128), 1, 4096)
+          .astype(np.int64)),
+], ids=["edges", "lognormal"])
+def test_layout_counts_the_causal_tile_pairs(lengths):
+    # the (query tile, key tile) pairs that hold a causal pair (key <= query)
+    # of some history, counted tile pair by tile pair
+    lay = ha.make_layout(torch.tensor(lengths))
+    want = 0
+    for n in lengths:
+        for qt in range(-(-n // ha.TILE)):
+            for kt in range(-(-n // ha.TILE)):
+                want += kt * ha.TILE <= min(n - 1, qt * ha.TILE + ha.TILE - 1)
+    assert lay.tile_pairs == want
+    assert lay.tile_pairs * ha.TILE ** 2 >= lay.pairs
+
+
 @pytest.mark.parametrize("dt,want", [(0, 0), (1, 0), (-1, 0), (2, 2), (3, 3), (20, 9),
                                      (-20, 9), (3600, 27), (86_400, 37), (2_592_000, 49),
                                      (10**18, 128)])
@@ -232,6 +250,17 @@ def test_attention_refuses_fp32_operands_off_the_cpu():
         ha.hstu_attention(q, q, q, torch.zeros(19, device="meta"),
                           torch.zeros(129, device="meta"),
                           torch.zeros(14, dtype=torch.int64, device="meta"), lay, 10, bf16=False)
+
+
+def test_attention_refuses_more_than_four_heads_off_the_cpu():
+    # a warpgroup a head: the card's path refuses a fifth before any launch
+    # (on the CPU the plain version takes any number)
+    lay = ha.make_layout(torch.tensor([5, 9]))
+    q = torch.zeros((14, (ha.MAX_HEADS + 1) * ha.HEAD_DIM), device="meta")
+    with pytest.raises(ValueError, match=f"at most {ha.MAX_HEADS} heads"):
+        ha.hstu_attention(q, q, q, torch.zeros(19, device="meta"),
+                          torch.zeros(129, device="meta"),
+                          torch.zeros(14, dtype=torch.int64, device="meta"), lay, 10)
 
 
 # ---- row 13: the sampled softmax --------------------------------------------
