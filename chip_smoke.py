@@ -280,10 +280,24 @@
     block in each direction of rows 11 and 12, one a step of each of row
     13's wrappers); then ``dryrun_hstu`` at the cell's widths and the
     train CLI's ``--config`` on a tiny model, two epochs, on the card;
-31. prints a ``{"kernels": [...]}`` line (each kernel's launches in phase
+31. MLA-MoE (``python3 chip_smoke.py --mla-moe``, in a process of its
+    own): kernel rows 14 and 15 (``ops/mla_attention.py``) against their
+    plain version at the edge lengths (one and three heads) and at the
+    benchmark cell's shape (its first 48 histories, 16 heads), within
+    ``MLA_TOL``, two calls bit-equal, their ms; one ``Trainer`` step at
+    the cell's shape with rows 13 to 16's launch counters read around it
+    and each MoE layer's routing and dispatch recorded; row 16
+    (``ops/moe.py``) at edge groups and at the busiest recorded layer's
+    offsets in its dispatch's bound-sized rows (gate-up and down shapes,
+    within ``GROUPED_TOL``, its ms and bound); ``RoutedExperts`` whole at
+    that dispatch against the plain layer (``ROUTED_TOL``); row 13 at
+    D = 2,048 over the cell's supervised rows; the train CLI's
+    ``--config`` on a tiny model, two epochs, on the card;
+32. prints a ``{"kernels": [...]}`` line (each kernel's launches in phase
     27 (b) as ``launches_rows_lookup`` and in phase 28 (a) as
-    ``launches_debug``; rows 11 to 13 from phase 30, their launches in
-    its trainer step as ``launches_step``), the nvidia-smi line, and last
+    ``launches_debug``; rows 11 to 13 from phase 30 and rows 14 to 16
+    from phase 31, their launches in their trainer step as
+    ``launches_step``), the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line. Without a
@@ -4939,6 +4953,404 @@ def hstu_kernel_rows(out: dict) -> list:
     return rows
 
 
+MLA_MOE_CONFIG = "bench_port/configs/dsv2lite-seqrec-ep8-l4096.json"
+MLA_MOE_BATCH = 48
+# rows 14 and 15 against their plain versions (the same bf16 operands;
+# p rounded to bf16 before or after the softmax's normalisation, and the
+# online maximum: the widest gap over the largest plain value
+MLA_TOL = 5e-3
+# row 16 against its plain version (the same bf16 operands, fp32 sums in
+# another order)
+GROUPED_TOL = 1e-5
+
+
+def check_mla_attention(lengths, heads: int, seed: int, timed: bool = False) -> dict:
+    """Rows 14 and 15 (``ops/mla_attention.py``) on a jagged batch of
+    ``lengths``: the output and the gradients of q, k and v against the
+    plain version (on the card), two calls bit-equal, launches equal to
+    calls; with ``timed``, each direction's CUDA-event ms and device ms."""
+    import numpy as np
+    import torch
+    from recsys_tpu_torch.ops import hstu_attention as ha
+    from recsys_tpu_torch.ops import mla_attention as ma
+
+    lens = torch.as_tensor(np.asarray(lengths, dtype=np.int64))
+    layout = ha.make_layout(lens, "cuda")
+    e = layout.events
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k = (torch.randn((e, heads * ma.DQK), generator=gen, device="cuda") for _ in range(2))
+    v = torch.randn((e, heads * ma.DV), generator=gen, device="cuda")
+    g = torch.randn((e, heads * ma.DV), generator=gen, device="cuda")
+    scale = 0.114721
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    what = f"mla attention {len(lengths)} histories, {e} events, {heads} heads"
+    runs = []
+    f0, b0 = ma.mla_attn_fwd.launches, ma.mla_attn_bwd.launches
+    for _ in range(2):
+        out = ma.mla_attention(q, k, v, layout, heads, scale)
+        runs.append([out.detach(), *torch.autograd.grad(out, leaves, g)])
+    check(all(torch.equal(a, b) for a, b in zip(*runs)), f"{what}: two calls differ")
+    check(ma.mla_attn_fwd.launches - f0 == 2 and ma.mla_attn_bwd.launches - b0 == 2,
+          f"{what}: launches")
+    got = runs[0]
+    del runs
+    out = ma.attention_reference(q, k, v, layout, heads, scale)[0]
+    want = [out.detach(), *torch.autograd.grad(out, leaves, g)]
+    errs = {name: float(torch.max(torch.abs(a - b))) / max(float(torch.max(torch.abs(b))), 1e-30)
+            for name, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+    check(all(x <= MLA_TOL for x in errs.values()),
+          f"{what}: off by more than {MLA_TOL} of the largest value: {errs}")
+    res = {"events": e, "pairs": layout.pairs, "heads": heads, "err": errs}
+    del got, want, out
+    if timed:
+        with torch.no_grad():
+            qb, kb, vb, gb = (t.detach().to(torch.bfloat16) for t in (q, k, v, g))
+            o, lse = ma.attention_fwd_cuda(qb, kb, vb, layout, heads, scale)
+            delta = (g * o).reshape(e, heads, ma.DV).sum(2)
+            res["fwd_ms"] = time_ms(lambda: ma.attention_fwd_cuda(qb, kb, vb, layout, heads,
+                                                                  scale), 5)
+            res["bwd_ms"] = time_ms(lambda: ma.attention_bwd_cuda(
+                qb, kb, vb, gb, lse, delta, layout, heads, scale), 5)
+            res["fwd_device_ms"] = device_ms(lambda: ma.attention_fwd_cuda(
+                qb, kb, vb, layout, heads, scale), 3, "mla_attn_fwd", per_call=1)[1]
+            for name in ("dkv", "dq"):
+                res[f"bwd_{name}_device_ms"] = device_ms(lambda: ma.attention_bwd_cuda(
+                    qb, kb, vb, gb, lse, delta, layout, heads, scale), 3,
+                    f"mla_attn_bwd_{name}", per_call=1)[1]
+        flops = 2.0 * layout.pairs * heads * (ma.DQK + ma.DV)
+        res["fwd_tflops"] = flops / res["fwd_ms"] / 1e9
+        res["bwd_tflops"] = 2 * flops / res["bwd_ms"] / 1e9
+    return res
+
+
+def check_grouped_gemm(counts, k: int, n: int, seed: int, timed: bool = False,
+                       rows: int = 0) -> dict:
+    """Row 16 (``ops/moe.py``'s ``grouped_mm``) over groups of ``counts``
+    rows (each padded to ``moe.PAD``; a group of none among them) in a
+    buffer of ``rows`` rows (the dispatch's bound; the padded rows where 0),
+    rows mode [rows, k] x [G, n, k] and weights mode [k, rows] x [n, rows],
+    against the plain version over the rows below the offsets' end (the
+    kernel writes no other), two calls bit-equal; with ``timed``, each
+    mode's CUDA-event ms, TFLOP/s over the unpadded rows and least ms (its
+    products at the bf16 rate, or its operands and result once over HBM)."""
+    import torch
+    from recsys_tpu_torch.ops import moe
+
+    padded = [(c + moe.PAD - 1) // moe.PAD * moe.PAD for c in counts]
+    bounds = [0]
+    for p in padded:
+        bounds.append(bounds[-1] + p)
+    end = bounds[-1]
+    rows = max(rows, end)
+    offsets = torch.tensor(bounds, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.zeros((rows, k), device="cuda")
+    gy = torch.zeros((rows, n), device="cuda")
+    for lo, c in zip(bounds, counts):
+        a[lo:lo + c] = torch.randn((c, k), generator=gen, device="cuda")
+        gy[lo:lo + c] = torch.randn((c, n), generator=gen, device="cuda")
+    a, gy = a.to(torch.bfloat16), gy.to(torch.bfloat16)
+    w = torch.randn((len(counts), n, k), generator=gen, device="cuda").to(torch.bfloat16)
+    at, gyt = a.t().contiguous(), gy.t().contiguous()
+    what = f"grouped gemm {len(counts)} groups of {list(counts)}, k {k}, n {n}, {rows} rows"
+    f0 = moe.grouped_gemm.launches
+    fwd = [moe.grouped_mm(a, w, offsets)[:end] for _ in range(2)]
+    wgt = [moe.grouped_mm(at, gyt, offsets, True) for _ in range(2)]
+    check(torch.equal(*fwd) and torch.equal(*wgt), f"{what}: two calls differ")
+    check(moe.grouped_gemm.launches - f0 == 4, f"{what}: launches")
+    errs = {}
+    for name, got, want in (("rows", fwd[0], moe.grouped_mm_reference(a, w, offsets)[:end]),
+                            ("weights", wgt[0], moe.grouped_mm_reference(at, gyt, offsets,
+                                                                         True))):
+        errs[name] = float(torch.max(torch.abs(got - want))) / max(
+            float(torch.max(torch.abs(want))), 1e-30)
+    check(all(x <= GROUPED_TOL for x in errs.values()),
+          f"{what}: off by more than {GROUPED_TOL} of the largest value: {errs}")
+    res = {"counts": list(counts), "rows": rows, "padded_rows": end, "k": k, "n": n,
+           "err": errs}
+    del fwd, wgt
+    if timed:
+        flops = 2.0 * sum(counts) * k * n
+        g = len(counts)
+        res["rows_ms"] = time_ms(lambda: moe.grouped_mm(a, w, offsets), 5)
+        res["weights_ms"] = time_ms(lambda: moe.grouped_mm(at, gyt, offsets, True), 5)
+        res["rows_tflops"] = flops / res["rows_ms"] / 1e9
+        res["weights_tflops"] = flops / res["weights_ms"] / 1e9
+        res["rows_bound_ms"], res["rows_bound_by"] = bound_ms(
+            2.0 * (end * k + g * n * k) + 4.0 * end * n, flops, BF16_FLOPS)
+        res["weights_bound_ms"], res["weights_bound_by"] = bound_ms(
+            2.0 * end * (k + n) + 4.0 * g * k * n, flops, BF16_FLOPS)
+    return res
+
+
+# the routed experts on the card against the plain layer (each held
+# expert's fp32 products of the same bf16 operands, slot by slot): the
+# card also rounds the backward's dY and dGU to bf16, the plain version
+# not, ~2^-9 of an element
+ROUTED_TOL = 5e-3
+
+
+def check_routed_experts(routing, disp, d: int, width: int, seed: int) -> dict:
+    """``moe.RoutedExperts`` (the gathers, row 16, SwiGLU, transposes and
+    combine, the backward's recomputed forward) at a dispatch the trainer
+    made: the output and the gradients of x, the gates and both weights
+    against the plain layer, two calls bit-equal."""
+    import torch
+    import torch.nn.functional as F
+    from recsys_tpu_torch.ops import moe
+
+    e, k = routing.experts.shape
+    held = disp.counts.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((e, d), generator=gen, device="cuda")
+    wgu = torch.randn((held, d, 2 * width), generator=gen, device="cuda") * 0.02
+    wd = torch.randn((held, width, d), generator=gen, device="cuda") * 0.02
+    g = torch.randn((e, d), generator=gen, device="cuda")
+    gates = routing.weights.detach().clone()
+    leaves = [t.requires_grad_(True) for t in (x, gates, wgu, wd)]
+    what = f"routed experts {e} tokens, counts {disp.counts.tolist()}, {disp.rows} rows"
+    runs = []
+    for _ in range(2):
+        out = moe.RoutedExperts.apply(x, gates, wgu, wd, disp)
+        runs.append([out.detach(), *torch.autograd.grad(out, leaves, g)])
+    check(all(torch.equal(a, b) for a, b in zip(*runs)), f"{what}: two calls differ")
+    got = runs[0]
+    del runs
+    bf = torch.bfloat16
+    out = torch.zeros_like(x)
+    for j in range(k):
+        for ex in range(held):
+            tok = torch.nonzero(routing.experts[:, j] == ex).reshape(-1)
+            if tok.numel() == 0:
+                continue
+            gu = x[tok].to(bf).float() @ wgu[ex].to(bf).float()
+            h = (F.silu(gu[:, :width]) * gu[:, width:]).to(bf).float()
+            out = out.index_add(0, tok, gates[tok, j:j + 1] * (h @ wd[ex].to(bf).float()))
+    want = [out.detach(), *torch.autograd.grad(out, leaves, g)]
+    errs = {name: float(torch.max(torch.abs(a - b))) / max(float(torch.max(torch.abs(b))), 1e-30)
+            for name, a, b in zip(("out", "dx", "dgates", "dw_gate_up", "dw_down"), got, want)}
+    check(all(v <= ROUTED_TOL for v in errs.values()),
+          f"{what}: off by more than {ROUTED_TOL} of the largest value: {errs}")
+    return {"tokens": e, "counts": disp.counts.tolist(), "rows": disp.rows, "err": errs}
+
+
+def mla_moe_phase(repo: str, tmp: str) -> dict:
+    """Rows 14 and 15 at the edge lengths and at the benchmark cell's shape
+    (its first batch of histories, 16 heads); one trainer step at the
+    cell's shape with rows 13 to 16's launch counters read around it and
+    each MoE layer's dispatch recorded; row 16 at edge groups and at the
+    busiest layer's recorded offsets and rows (d 2,048 x 2 x 1,408 and
+    back), the routed experts whole at that dispatch; row 13 at D = 2,048
+    over the cell's supervised rows; then the train CLI (``--config``, a
+    tiny model, 2 epochs) on the card. Its ``kernels`` are rows 14 to 16."""
+    import math
+
+    import numpy as np
+    import torch
+    from recsys_tpu_torch.config import ModelConfig, RecsysConfig, TrainConfig
+    from recsys_tpu_torch.train import __main__ as train_cli
+
+    from bench_port import mla_moe_datagen
+
+    with open(os.path.join(repo, MLA_MOE_CONFIG)) as f:
+        conf = json.load(f)
+    m = conf["model"]
+    out = {"attn_edges": [check_mla_attention(HSTU_EDGE_LENGTHS, heads, 5 + heads)
+                          for heads in (1, 3)]}
+    hist = mla_moe_datagen.histories(17, conf, MLA_MOE_BATCH, "cuda")
+    cell = out["attn_cell_shape"] = check_mla_attention(hist["lengths"], m["mla_heads"], 19,
+                                                        timed=True)
+    log(f"mla attention at the cell's shape: {json.dumps(cell)}")
+    torch.cuda.empty_cache()
+    cfg = RecsysConfig(model=ModelConfig(**m), train=TrainConfig(**conf["train"]))
+    out["step"], dispatches = mla_moe_step(cfg.replace(**{"train.batch_size": MLA_MOE_BATCH}),
+                                           conf, hist, tmp)
+    log(f"mla_moe step: {json.dumps(out['step'])}")
+    events = int(hist["lengths"].sum())
+    del hist
+    torch.cuda.empty_cache()
+    d, w = m["embedding_dim"], m["moe_width"]
+    out["grouped_edges"] = [check_grouped_gemm(c, k, n, 31 + i) for i, (c, k, n) in enumerate(
+        [((1, 0, 200), 128, 128), ((130, 0, 0, 7), 256, 384), ((300, 129, 0), 384, 256)])]
+    routing, disp = max(dispatches, key=lambda rd: int(rd[1].counts.max()))
+    counts = disp.counts.tolist()
+    out["grouped_cell_shape"] = [check_grouped_gemm(counts, d, 2 * w, 37, True, disp.rows),
+                                 check_grouped_gemm(counts, w, d, 41, True, disp.rows)]
+    log(f"grouped gemm at the trainer's busiest dispatch: "
+        f"{json.dumps(out['grouped_cell_shape'])}")
+    torch.cuda.empty_cache()
+    out["routed_cell_shape"] = check_routed_experts(routing, disp, d, w, 43)
+    log(f"routed experts at the trainer's busiest dispatch: "
+        f"{json.dumps(out['routed_cell_shape'])}")
+    del dispatches, routing, disp
+    torch.cuda.empty_cache()
+    out["sampled_d2048"] = [check_sampled_softmax(37, 5, 2048, 50, 43),
+                            check_sampled_softmax(events - MLA_MOE_BATCH, m["hstu_negatives"], d,
+                                                  m["hstu_items"] + 1, 47, timed=True)]
+    log(f"row 13 at D = 2,048: {json.dumps(out['sampled_d2048'][1])}")
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(3)
+
+    def split(n):
+        lens = rng.integers(1, 60, n)
+        return {"items": rng.integers(1, 301, int(lens.sum())).astype(np.int32),
+                "lengths": lens.astype(np.int64)}
+
+    data = os.path.join(tmp, "mla_moe_bundle.npz")
+    np.savez(data, **{f"{s}/{k}": v for s, n in (("train", 64), ("val", 20))
+                      for k, v in split(n).items()})
+    tiny = os.path.join(tmp, "mla_moe_tiny.json")
+    cfg.replace(**{"model.hstu_items": 300, "model.embedding_dim": 256, "model.mla_layers": 2,
+                   "model.mla_heads": 2, "model.mla_dense_width": 256, "model.moe_width": 128,
+                   "model.hstu_max_len": 64, "train.batch_size": 16,
+                   "train.epochs": 2}).save(tiny)
+    rc = train_cli.main(["--config", tiny, "--data", data, "--device", "cuda",
+                         "--output_dir", os.path.join(tmp, "mla_moe_run")])
+    with open(os.path.join(tmp, "mla_moe_run", "metrics.json")) as f:
+        report = json.load(f)
+    check(rc == 0 and math.isfinite(report["val_loss"]), f"mla_moe CLI: rc {rc}, {report}")
+    out["cli"] = report
+    out["kernels"] = mla_moe_kernel_rows(out)
+    return out
+
+
+def mla_moe_kernel_rows(out: dict) -> list:
+    """Rows 14 to 16 for the ``kernels`` line, from the ``--mla-moe``
+    phase's readings; each bound from that run's inputs (rows 14 and 15 by
+    ``bench_port/work/mla_moe.py``'s counts at the bf16 rate or over HBM;
+    row 16 at the trainer's busiest recorded dispatch)."""
+    from bench_port.work import mla_moe as work
+
+    cell, launches = out["attn_cell_shape"], out["step"]["launches"]
+    shape = {k: cell[k] for k in ("events", "pairs", "heads")}
+    bounds = {}
+    for name, count in (("fwd", work.mla_attn_fwd), ("bwd", work.mla_attn_bwd)):
+        flops, n_bytes, _ = count(cell["events"], cell["pairs"], cell["heads"], 192, 128)
+        bounds[name] = bound_ms(n_bytes, flops, BF16_FLOPS)
+    gate_up, down = out["grouped_cell_shape"]
+    return [
+        {"name": "mla_attn_fwd", "route": "cuda",
+         "source": "recsys_tpu_torch/csrc/mla_attention.cu", "replaces": "no TPU kernel",
+         "kernel": "mla_attn_fwd_kernel", "launches_step": launches["mla_attn_fwd"],
+         "ms": cell["fwd_ms"], "device_ms": cell["fwd_device_ms"],
+         "bound_ms": bounds["fwd"][0], "bound_by": bounds["fwd"][1],
+         "max_rel_err": cell["err"]["out"], "shape": shape},
+        {"name": "mla_attn_bwd", "route": "cuda",
+         "source": "recsys_tpu_torch/csrc/mla_attention.cu", "replaces": "no TPU kernel",
+         "kernel": "mla_attn_bwd_dkv_kernel + mla_attn_bwd_dq_kernel, one launch of the wrapper",
+         "launches_step": launches["mla_attn_bwd"], "ms": cell["bwd_ms"],
+         "device_ms": {k: cell[f"bwd_{k}_device_ms"] for k in ("dkv", "dq")},
+         "bound_ms": bounds["bwd"][0], "bound_by": bounds["bwd"][1],
+         "max_rel_err": {k: cell["err"][k] for k in ("dq", "dk", "dv")}, "shape": shape},
+        {"name": "grouped_gemm", "route": "cuda",
+         "source": "recsys_tpu_torch/csrc/grouped_gemm.cu", "replaces": "no TPU kernel",
+         "kernel": "grouped_gemm_kernel (rows mode; weights mode)",
+         "launches_step": launches["grouped_gemm"],
+         "ms": {"gate_up": [gate_up["rows_ms"], gate_up["weights_ms"]],
+                "down": [down["rows_ms"], down["weights_ms"]]},
+         "bound_ms": {"gate_up": [gate_up["rows_bound_ms"], gate_up["weights_bound_ms"]],
+                      "down": [down["rows_bound_ms"], down["weights_bound_ms"]]},
+         "bound_by": gate_up["rows_bound_by"],
+         "max_rel_err": {"gate_up": gate_up["err"], "down": down["err"],
+                         "routed": out["routed_cell_shape"]["err"]},
+         "shape": {k: gate_up[k] for k in ("counts", "rows", "padded_rows")}},
+    ]
+
+
+def mla_moe_step(cfg, conf: dict, hist: dict, tmp: str) -> tuple:
+    """One ``Trainer`` step of the cell's model on ``hist`` (its weights
+    from the cell's generator) through ``make_train_epoch``, with rows 13
+    to 16's counters set to 0 just before and read just after: rows 14 and
+    15 once a layer, row 16 twice a MoE layer forward and six times
+    backward (the forward's two recomputed), each of row 13's wrappers
+    once; its ms (the second of two) and the card's peak memory; a third
+    step under CUDA's sync debug mode, where no operation that waits for
+    the card may have a frame of the program above it -> (that, the
+    second step's (routing, dispatch) of each MoE layer)."""
+    import math
+    import time
+    import traceback
+    import warnings
+
+    import torch
+    from recsys_tpu_torch.ops import mla_attention as ma
+    from recsys_tpu_torch.ops import moe
+    from recsys_tpu_torch.ops import sampled_softmax as ss
+    from recsys_tpu_torch.train.trainer import Trainer
+
+    from bench_port import mla_moe_datagen
+
+    counters = [Counter("mla_attn_fwd", ma.mla_attn_fwd), Counter("mla_attn_bwd", ma.mla_attn_bwd),
+                Counter("grouped_gemm", moe.grouped_gemm),
+                Counter("sampled_logits", ss.sampled_logits),
+                Counter("sampled_backward", ss.sampled_backward)]
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    trainer = Trainer(cfg, output_dir=os.path.join(tmp, "mla_moe_step"), device="cuda")
+    state = trainer.state_from_params(mla_moe_datagen.weights(17, conf["model"], "cuda"), 17)
+    epoch_fn = trainer.make_train_epoch(None, MLA_MOE_BATCH, 1)
+    torch.cuda.reset_peak_memory_stats()
+    times, dispatches = [], []
+    dispatch = moe.dispatch
+
+    def recorded(routing, held):
+        disp = dispatch(routing, held)
+        dispatches.append((moe.Routing(*(t.detach() for t in routing)), disp))
+        return disp
+
+    moe.dispatch = recorded
+    try:
+        for i in range(2):
+            for c in counters:
+                c.reset()
+            dispatches.clear()
+            t = time.perf_counter()
+            state, metrics = epoch_fn(state, hist, i)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+    finally:
+        moe.dispatch = dispatch
+    launches = {c.name: c.read() for c in counters}
+    layers, moe_layers = cfg.model.mla_layers, cfg.model.mla_layers - cfg.model.mla_dense_layers
+    check(len(dispatches) == moe_layers, f"mla_moe step: {len(dispatches)} dispatches")
+    check(launches == {"mla_attn_fwd": layers, "mla_attn_bwd": layers,
+                       "grouped_gemm": 8 * moe_layers, "sampled_logits": 1,
+                       "sampled_backward": 1}, f"mla_moe step: launches {launches}")
+    check(math.isfinite(float(metrics["loss"])), "mla_moe step: a non-finite loss")
+    out = {"launches": launches, "ms": times, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           **{k: float(v) for k, v in metrics.items()}}
+    # a third step under CUDA's sync debug mode: every operation that waits
+    # for the card, by the line that called it; none may lie in the program
+    # (the warning names the innermost Python frame; the stack's frames
+    # from the program's files name the line of the program that asked)
+    torch.cuda.synchronize()
+    syncs = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stack = traceback.extract_stack()[:-1]
+            syncs.append({"at": f"{os.path.basename(filename)}:{lineno}",
+                          "torch_cuda": [f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                                         for f in stack if "torch/cuda" in f.filename][-2:],
+                          "program": [f"{os.path.relpath(f.filename)}:{f.lineno} {f.name}"
+                                      for f in stack if "recsys_tpu_torch" in f.filename]})
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            state, _ = epoch_fn(state, hist, 2)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out["syncs"] = syncs
+    log(f"mla_moe step's syncs: {json.dumps(syncs)}")
+    check(not [x for x in syncs if x["program"]],
+          f"mla_moe step: the program waits for the card: {syncs}")
+    del state, trainer, epoch_fn
+    return out, dispatches
+
+
 def main() -> int:
     import torch
 
@@ -5201,6 +5613,14 @@ def main() -> int:
     hstu_line = proc.stdout.strip().splitlines()[-1]
     log(f"hstu phase in {time.perf_counter() - t_hstu:.1f} s: {hstu_line}")
     hstu_rows = json.loads(hstu_line)["kernels"]
+    # ---- MLA-MoE's attention, routed experts, trainer and CLI: the fourteenth
+    t_mla = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--mla-moe"], cwd=repo,
+                          capture_output=True, text=True, timeout=1200)
+    check(proc.returncode == 0, f"--mla-moe: rc {proc.returncode}\n{proc.stderr[-4000:]}")
+    mla_line = proc.stdout.strip().splitlines()[-1]
+    log(f"mla_moe phase in {time.perf_counter() - t_mla:.1f} s: {mla_line}")
+    mla_rows = json.loads(mla_line)["kernels"]
     for row in negs.pop("profiles"):
         log(f"profile {json.dumps(row)}")
     log(f"explicit negatives and streaming: {json.dumps(negs)}")
@@ -5358,6 +5778,7 @@ def main() -> int:
         entry["launches_rows_lookup"] = rows_lookup["loss"]["launches"][entry["name"]]
         entry["launches_debug"] = debug_modes["epoch"]["launches"][entry["name"]]
     kernels.extend(hstu_rows)  # rows 11 to 13 (phase 30)
+    kernels.extend(mla_rows)  # rows 14 to 16 (phase 31)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -5595,6 +6016,12 @@ if __name__ == "__main__":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         with tempfile.TemporaryDirectory() as tmp:
             print(json.dumps(hstu_phase(os.path.dirname(os.path.abspath(__file__)), tmp)),
+                  flush=True)
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--mla-moe":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps(mla_moe_phase(os.path.dirname(os.path.abspath(__file__)), tmp)),
                   flush=True)
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":

@@ -3,9 +3,9 @@
 
 Field names, defaults and the JSON layout are identical to the JAX
 package's, so one ``config.json`` loads in both packages; the port's
-additions, the fields of two more architectures (``ModelConfig.arch``
-"dlrm_dcnv2" and "hstu"), stay out of a two-tower config's JSON, and each
-architecture's JSON leaves out the other's fields. The port keeps
+additions, the fields of three more architectures (``ModelConfig.arch``
+"dlrm_dcnv2", "hstu" and "mla_moe"), stay out of a two-tower config's
+JSON, and each architecture's JSON leaves out the fields it does not read. The port keeps
 the fields it does not act on yet (training, mesh, the TPU dispatch
 knobs) so that a bundle written by either package round-trips unchanged.
 Comments here say what a field means to the port; the measurements
@@ -64,10 +64,14 @@ class ModelConfig:
     # The architecture: "two_tower_dcn" (the fields above), "dlrm_dcnv2"
     # (models/dlrm.py: DLRM with a low-rank DCNv2 interaction, which reads
     # embedding_dim, cross_layers, mixed_precision and the dlrm fields
-    # below) or "hstu" (models/hstu.py: HSTU's sequential transducer, which
+    # below), "hstu" (models/hstu.py: HSTU's sequential transducer, which
     # reads embedding_dim, dropout_rate, softmax_temperature,
-    # mixed_precision and the hstu fields below). The JAX package has only
-    # the first and ignores these fields.
+    # mixed_precision and the hstu fields below) or "mla_moe"
+    # (models/mla_moe.py: DeepSeek-V2's MLA and DeepSeekMoE blocks as a
+    # sequential recommender, which reads embedding_dim as its hidden
+    # width, softmax_temperature, mixed_precision, hstu_max_len,
+    # hstu_items, hstu_negatives and the mla, moe and yarn fields below).
+    # The JAX package has only the first and ignores these fields.
     arch: str = "two_tower_dcn"
     dlrm_dense_in: int = 13
     # rows of each categorical table, their fixed multi-hot bag sizes, and
@@ -88,13 +92,49 @@ class ModelConfig:
     hstu_heads: int = 1
     hstu_items: int = 3706
     hstu_negatives: int = 128
+    # MLA-MoE (DeepSeek-V2, arXiv:2405.04434, sections 2.1 and 2.2): the
+    # layers (the first mla_dense_layers of them with a dense SwiGLU of
+    # mla_dense_width, the rest DeepSeekMoE), the heads, the compressed
+    # key-value width (kv_lora_rank), each head's nope and rope query-key
+    # widths and its value width
+    mla_layers: int = 2
+    mla_dense_layers: int = 1
+    mla_heads: int = 2
+    mla_kv_rank: int = 32
+    mla_nope_dim: int = 16
+    mla_rope_dim: int = 16
+    mla_v_dim: int = 16
+    mla_dense_width: int = 128
+    # DeepSeekMoE: the routed experts the router scores (moe_experts), those
+    # this card holds (experts 0..moe_experts_held - 1: its share under
+    # expert parallelism), the experts a token takes (greedy top-k of the
+    # softmax, the weights not renormalised), the shared experts (one SwiGLU
+    # of moe_shared * moe_width), each expert's width, and alpha of the
+    # sequence-level balance loss
+    moe_experts: int = 16
+    moe_experts_held: int = 4
+    moe_top_k: int = 3
+    moe_shared: int = 1
+    moe_width: int = 32
+    moe_aux_alpha: float = 0.001
+    # RMSNorm's eps, RoPE's base and YaRN's scaling (factor, the original
+    # context, beta_fast, beta_slow, mscale, mscale_all_dim)
+    rms_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    yarn_factor: float = 40.0
+    yarn_original_max: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 0.707
+    yarn_mscale_all_dim: float = 0.707
 
     def __post_init__(self):
         for name in ("user_tower_dims", "item_tower_dims", "dnn_dims", "table_rows",
                      "bag_sizes", "table_init_rows", "bottom_mlp_dims", "over_arch_dims"):
             object.__setattr__(self, name, tuple(getattr(self, name)))
-        if self.arch not in ("two_tower_dcn", "dlrm_dcnv2", "hstu"):
-            raise ValueError(f"arch must be two_tower_dcn|dlrm_dcnv2|hstu, got {self.arch!r}")
+        if self.arch not in ("two_tower_dcn", "dlrm_dcnv2", "hstu", "mla_moe"):
+            raise ValueError(f"arch must be two_tower_dcn|dlrm_dcnv2|hstu|mla_moe, "
+                             f"got {self.arch!r}")
         if self.arch == "hstu":
             for name in ("hstu_max_len", "hstu_blocks", "hstu_heads", "hstu_items",
                          "hstu_negatives"):
@@ -102,6 +142,8 @@ class ModelConfig:
                     raise ValueError(f"{name} must be positive, got {getattr(self, name)}")
             if not 0.0 <= self.dropout_rate < 1.0 or self.softmax_temperature <= 0:
                 raise ValueError("hstu needs 0 <= dropout_rate < 1 and softmax_temperature > 0")
+        if self.arch == "mla_moe":
+            self._check_mla_moe()
         if self.arch == "dlrm_dcnv2":
             if not self.table_rows or len(self.bag_sizes) != len(self.table_rows):
                 raise ValueError("dlrm_dcnv2 needs table_rows and one bag size a table")
@@ -111,11 +153,41 @@ class ModelConfig:
                 raise ValueError(f"the bottom MLP must end at embedding_dim "
                                  f"{self.embedding_dim}, got {self.bottom_mlp_dims}")
 
+    def _check_mla_moe(self) -> None:
+        for name in ("embedding_dim", "hstu_max_len", "hstu_items", "hstu_negatives",
+                     "mla_layers", "mla_heads", "mla_kv_rank", "mla_nope_dim", "mla_v_dim",
+                     "mla_dense_width", "moe_experts", "moe_experts_held", "moe_top_k",
+                     "moe_width", "yarn_original_max"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be positive, got {getattr(self, name)}")
+        if self.mla_rope_dim < 2 or self.mla_rope_dim % 2:
+            raise ValueError(f"mla_rope_dim must be even and positive, got {self.mla_rope_dim}")
+        if not 0 <= self.mla_dense_layers <= self.mla_layers:
+            raise ValueError(f"mla_dense_layers must lie in [0, mla_layers], got "
+                             f"{self.mla_dense_layers} of {self.mla_layers}")
+        if not self.moe_top_k <= self.moe_experts or not (
+                1 <= self.moe_experts_held <= self.moe_experts):
+            raise ValueError(f"moe needs top_k <= experts and 1 <= held <= experts, got "
+                             f"{self.moe_top_k}, {self.moe_experts_held} of {self.moe_experts}")
+        if self.moe_shared < 0 or self.moe_aux_alpha < 0 or self.softmax_temperature <= 0:
+            raise ValueError("mla_moe needs moe_shared >= 0, moe_aux_alpha >= 0 and "
+                             "softmax_temperature > 0")
+        if self.rms_eps <= 0 or self.rope_theta <= 1 or self.yarn_factor < 1:
+            raise ValueError("mla_moe needs rms_eps > 0, rope_theta > 1 and yarn_factor >= 1")
 
-# the ModelConfig fields of the dlrm_dcnv2 and hstu architectures
+
+# the ModelConfig fields of the dlrm_dcnv2, hstu and mla_moe architectures
+# (the sequential recommenders share SEQ_MODEL_KEYS)
 DLRM_MODEL_KEYS = ("arch", "dlrm_dense_in", "table_rows", "bag_sizes", "table_init_rows",
                    "bottom_mlp_dims", "over_arch_dims", "dcn_low_rank_dim")
-HSTU_MODEL_KEYS = ("hstu_max_len", "hstu_blocks", "hstu_heads", "hstu_items", "hstu_negatives")
+SEQ_MODEL_KEYS = ("hstu_max_len", "hstu_items", "hstu_negatives")
+HSTU_MODEL_KEYS = SEQ_MODEL_KEYS + ("hstu_blocks", "hstu_heads")
+MLA_MOE_MODEL_KEYS = ("mla_layers", "mla_dense_layers", "mla_heads", "mla_kv_rank",
+                      "mla_nope_dim", "mla_rope_dim", "mla_v_dim", "mla_dense_width",
+                      "moe_experts", "moe_experts_held", "moe_top_k", "moe_shared",
+                      "moe_width", "moe_aux_alpha", "rms_eps", "rope_theta", "yarn_factor",
+                      "yarn_original_max", "yarn_beta_fast", "yarn_beta_slow", "yarn_mscale",
+                      "yarn_mscale_all_dim")
 
 
 @dataclass(frozen=True)
@@ -241,12 +313,12 @@ class RecsysConfig:
     def to_dict(self) -> Dict[str, Any]:
         """The JSON layout; a two-tower config leaves out the other
         architectures' keys, so its ``config.json`` is the JAX package's,
-        and each other architecture leaves out the third's."""
+        and each other architecture leaves out the others' keys."""
         d = dataclasses.asdict(self)
-        drop = {"two_tower_dcn": DLRM_MODEL_KEYS + HSTU_MODEL_KEYS,
-                "dlrm_dcnv2": HSTU_MODEL_KEYS,
-                "hstu": tuple(k for k in DLRM_MODEL_KEYS if k != "arch")}[self.model.arch]
-        for k in drop:
+        keep = {"two_tower_dcn": (), "dlrm_dcnv2": DLRM_MODEL_KEYS,
+                "hstu": ("arch",) + HSTU_MODEL_KEYS,
+                "mla_moe": ("arch",) + SEQ_MODEL_KEYS + MLA_MOE_MODEL_KEYS}[self.model.arch]
+        for k in set(DLRM_MODEL_KEYS + HSTU_MODEL_KEYS + MLA_MOE_MODEL_KEYS) - set(keep):
             del d["model"][k]
         return d
 

@@ -1,4 +1,4 @@
-// The sampled softmax of HSTU's loss for Hopper (sm_90a): kernel row 13.
+// The sampled softmax of HSTU's and MLA-MoE's loss for Hopper (sm_90a): kernel row 13.
 // No TPU kernel corresponds: the JAX package has no sequential model; these
 // serve models/losses.py::sampled_softmax.
 //
@@ -175,6 +175,7 @@ int by_rows(int d, F&& f) {
   if (d == 256) return f(std::integral_constant<int, 2>{});
   if (d == 384) return f(std::integral_constant<int, 3>{});
   if (d == 512) return f(std::integral_constant<int, 4>{});
+  if (d == 2048) return f(std::integral_constant<int, 16>{});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -183,7 +184,7 @@ unsigned blocks(long long n) { return static_cast<unsigned>((n + SS_WARPS - 1) /
 }  // namespace
 
 // All contiguous, on the stream's device, rows on 16 bytes; d one of 128,
-// 256, 384, 512; every id in [0, r). Each returns the cudaError_t of its
+// 256, 384, 512, 2048; every id in [0, r). Each returns the cudaError_t of its
 // launch.
 extern "C" int sampled_softmax_logits(const float* q, const float* table, const int* ids, int m,
                                       int k1, int d, float inv_t, float* logits, void* stream) {

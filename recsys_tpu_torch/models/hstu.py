@@ -109,6 +109,16 @@ def init(seed: int, cfg: ModelConfig, device: DeviceLike = "cuda") -> Dict:
     return params
 
 
+# the trainer's step metrics: the loss, and the events and causal pairs a
+# step (counted by the trainer from the layout)
+STEP_METRICS = ("loss", "events", "attn_pairs")
+
+
+def step_metrics(stats: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
+    """A step's metrics beyond the trainer's: none."""
+    return {}
+
+
 def supervised(layout: ha.JaggedLayout) -> torch.Tensor:
     """[events - B] int64: the events that have a next event in their
     sequence, in order (no host sync)."""
@@ -173,8 +183,10 @@ def encode(params: Dict, cfg: ModelConfig, items: torch.Tensor, timestamps: torc
 
 
 def loss(params: Dict, cfg: ModelConfig, items: torch.Tensor, timestamps: torch.Tensor,
-         layout: ha.JaggedLayout, draws: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The mean sampled-softmax loss of the batch's supervised events."""
+         layout: ha.JaggedLayout, draws: Dict[str, torch.Tensor],
+         stats: Optional[Dict] = None) -> torch.Tensor:
+    """The mean sampled-softmax loss of the batch's supervised events
+    (``stats``, the trainer's dict of a step's extra readings: none here)."""
     out = encode(params, cfg, items, timestamps, layout, draws)
     sup = supervised(layout)
     table = params["item_table"]

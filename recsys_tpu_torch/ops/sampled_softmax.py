@@ -1,4 +1,4 @@
-"""The sampled softmax of HSTU's loss: the CUDA kernels of
+"""The sampled softmax of HSTU's and MLA-MoE's loss: the CUDA kernels of
 ``csrc/sampled_softmax.cu`` (kernel row 13) and their plain PyTorch
 version. No TPU kernel corresponds: the JAX package has no sequential
 model; these serve ``models/losses.py::sampled_softmax``.
@@ -18,7 +18,8 @@ entries of one item, so two calls give the same bits. Everything is
 fp32.
 
 CPU tensors take :func:`sampled_softmax_reference`; CUDA tensors the
-kernels (D of 128, 256, 384 or 512) or raise.
+kernels (D of 128, 256, 384, 512 or 2,048: MLA-MoE's hidden width) or
+raise.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from recsys_tpu_torch.utils.debug import kernel_nan_check
 # rows of q whose negatives' rows [rows, K1, D] the plain version gathers at
 # a time
 PLAIN_CHUNK_ROWS = 4096
-WIDTHS = (128, 256, 384, 512)
+WIDTHS = (128, 256, 384, 512, 2048)
 
 
 def _ids(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:

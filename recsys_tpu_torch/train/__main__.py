@@ -41,7 +41,9 @@ other keys left out): the way to train DLRM-DCNv2 (``model.arch``
 columns ``dense``, ``sparse`` and ``label`` (``Trainer._train_dlrm``), and
 HSTU (``model.arch`` "hstu"), whose bundle holds ``train/`` and ``val/``
 jagged histories: ``items`` [events] int32, ``timestamps`` [events] int64
-and ``lengths`` [histories] (``Trainer._train_hstu``).
+and ``lengths`` [histories] (``Trainer._train_hstu``), and MLA-MoE
+(``model.arch`` "mla_moe"), whose bundle holds the same columns
+(``timestamps`` may be left out: it reads none).
 With it, only ``--data``, ``--output_dir``, ``--device``, ``--use_wandb``,
 ``--distributed_strategy`` and ``--set`` may be given besides.
 ``--set KEY=VALUE`` overrides a dotted config field (the value is parsed

@@ -11,7 +11,8 @@ batch of 8 rows a data rank. Raises on a non-finite loss.
 
 runs it and prints its numbers as JSON; a ``--config`` whose model is
 DLRM-DCNv2 takes :func:`dryrun_dlrm` instead and one whose model is HSTU
-:func:`dryrun_hstu` (those models train on one device), any other config
+or MLA-MoE :func:`dryrun_hstu` (those models train on one device), any
+other config
 the flagship step above.
 """
 
@@ -111,10 +112,11 @@ DRYRUN_HSTU_LEN = 70
 
 
 def dryrun_hstu(cfg, device: DeviceLike = "cuda", batch: int = 4) -> Dict[str, float]:
-    """One ``Trainer`` step of ``cfg``'s HSTU at its widths, blocks, heads
-    and max_sequence_length, its item ids cut to at most
-    ``DRYRUN_HSTU_ITEMS``, on ``batch`` seeded histories of 1 to
-    ``DRYRUN_HSTU_LEN`` events -> {"loss", "events", "attn_pairs"}."""
+    """One ``Trainer`` step of ``cfg``'s HSTU (or MLA-MoE, which reads no
+    timestamps) at its widths, layers, heads and max_sequence_length, its
+    item ids cut to at most ``DRYRUN_HSTU_ITEMS``, on ``batch`` seeded
+    histories of 1 to ``DRYRUN_HSTU_LEN`` events -> the step's metrics
+    ({"loss", "events", "attn_pairs", ...})."""
     import dataclasses
 
     import torch
@@ -147,7 +149,8 @@ def dryrun_hstu(cfg, device: DeviceLike = "cuda", batch: int = 4) -> Dict[str, f
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description="One training step on tiny shapes")
     ap.add_argument("--config", default="", help="a config JSON (a dlrm_dcnv2 model takes "
-                                                 "dryrun_dlrm, an hstu model dryrun_hstu)")
+                                                 "dryrun_dlrm, an hstu or mla_moe model "
+                                                 "dryrun_hstu)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     from recsys_tpu_torch.config import RecsysConfig
@@ -155,7 +158,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = RecsysConfig.load(args.config) if args.config else None
     if cfg is not None and cfg.model.arch == "dlrm_dcnv2":
         print(json.dumps(dryrun_dlrm(cfg, args.device)))
-    elif cfg is not None and cfg.model.arch == "hstu":
+    elif cfg is not None and cfg.model.arch in ("hstu", "mla_moe"):
         print(json.dumps(dryrun_hstu(cfg, args.device)))
     else:
         print(json.dumps(dryrun_multichip(args.device)))

@@ -139,7 +139,7 @@ in the JAX package): on one device, with Adam over every leaf (the item
 table too, dense) and no clipping. An example is one user's history; a
 batch is ``batch_size`` of them, jagged (``items`` [events] int32,
 ``timestamps`` [events] int64, ``lengths`` [B]: a CPU ``lengths`` costs
-the step no host sync). A step (:meth:`_step_core_hstu`) draws its
+the step no host sync). A step (:meth:`_step_core_seq`) draws its
 dropout masks and negatives from the step's generator, runs the model's
 forward (the attention under ``hstu.attn``, the loss under
 ``loss.sampled``) and autograd (the attention's backward under
@@ -150,6 +150,21 @@ epoch's order of histories on the host, and gathers each batch on the
 device. ``train`` takes a bundle of ``items``, ``timestamps`` and
 ``lengths`` columns (:meth:`_train_hstu`). With ``record_steps`` a list,
 each step appends its batch and draws to it (a plain reference's inputs).
+
+**MLA-MoE** (``ModelConfig.arch="mla_moe"``, ``models/mla_moe.py``:
+DeepSeek-V2's MLA and DeepSeekMoE blocks over the same jagged histories; no
+counterpart in the JAX package) trains as HSTU does, through the same
+epoch, ``train`` and CLI (its bundle's ``timestamps`` are optional and not
+read). A step (:meth:`_step_core_seq` on ``models/mla_moe.py``) draws its
+negatives, runs the
+forward (the attention under ``mla.attn``, the routing under ``moe.route``,
+the routed experts under ``moe.experts``, the loss under ``loss.sampled``)
+and autograd (``mla.attn_bwd`` and ``moe.experts_bwd`` on the autograd
+thread) of the loss plus the MoE layers' balance loss, then Adam; its
+metrics count the events, the causal pairs, the (token, expert) pairs on
+this card's experts summed over the layers and the busiest held expert's
+tokens, all on the device: the dispatched rows are sized by a bound from
+the batch's shape (``ops/moe.py``), so the step has no host sync either.
 
 Dropout masks come from a ``torch.Generator`` on the device, reseeded from
 (seed + 1, step) every step, and from the rank's data index under a mesh
@@ -177,7 +192,7 @@ from recsys_tpu_torch.data.negative_sampling import NegativeSampler, mine_hard_n
 from recsys_tpu_torch.data.pipeline import Batcher
 from recsys_tpu_torch.embed.table import (a2a_capacity, a2a_overflow, lookup_a2a,
                                           make_sharded_lookup_psum)
-from recsys_tpu_torch.models import dlrm, hstu, losses
+from recsys_tpu_torch.models import dlrm, hstu, losses, mla_moe
 from recsys_tpu_torch.models.multitask import MultiTaskModel
 from recsys_tpu_torch.models.towers import TwoTower
 from recsys_tpu_torch.ops import embedding_bag as eb
@@ -205,9 +220,8 @@ BATCH_COLUMNS = ("user_id", "movie_id", "rating", "y_implicit")
 # updated a step, counted on the device) and a bundle's columns
 DLRM_METRIC_KEYS = ("loss", "lookups", "unique_rows")
 DLRM_COLUMNS = ("dense", "sparse", "label")
-# hstu: the step's metrics (the loss, and the events and causal pairs a
-# step) and a bundle's columns
-HSTU_METRIC_KEYS = ("loss", "events", "attn_pairs")
+# hstu and mla_moe: a bundle's columns (the step's metrics are the model
+# module's STEP_METRICS)
 HSTU_COLUMNS = ("items", "timestamps", "lengths")
 
 
@@ -449,10 +463,12 @@ class Trainer:
         if self.dlrm:
             self._check_dlrm()
         self.hstu = config.model.arch == "hstu"
-        # hstu: a list that each step appends {"items", "timestamps",
-        # "lengths", "draws"} to, or None
+        # the sequential recommenders' model module (hstu or mla_moe), or None
+        self.seq_model = {"hstu": hstu, "mla_moe": mla_moe}.get(config.model.arch)
+        # hstu, mla_moe: a list that each step appends {"items",
+        # "timestamps", "lengths", "draws"} to, or None
         self.record_steps: Optional[list] = None
-        if self.hstu:
+        if self.seq_model is not None:
             self._check_hstu()
 
     def _check_dlrm(self) -> None:
@@ -471,9 +487,10 @@ class Trainer:
                                       self.config.model.bag_sizes, self.device)
 
     def _check_hstu(self) -> None:
-        """The modes HSTU trains in: one device, Adam (the source's AdamW
-        with weight decay 0), no clipping, no cache; on the card with
-        ``mixed_precision`` (its attention kernels take bf16 operands only)."""
+        """The modes HSTU and MLA-MoE train in: one device, Adam (HSTU's
+        source's AdamW with weight decay 0), no clipping, no cache; on the
+        card with ``mixed_precision`` (their kernels take bf16 operands
+        only)."""
         t = self.config.train
         for bad, what in ((self.ctx is not None, "a mesh"),
                           (t.optimizer != "adam", f"optimizer={t.optimizer!r}"),
@@ -482,8 +499,9 @@ class Trainer:
                           (self.device.type == "cuda" and not self.config.model.mixed_precision,
                            "mixed_precision=False on the card")):
             if bad:
-                raise ValueError(f"arch hstu trains on one device with adam, clipnorm 0, no "
-                                 f"cache and bf16 operands on the card, not with {what}")
+                raise ValueError(f"arch {self.config.model.arch} trains on one device with adam, "
+                                 f"clipnorm 0, no cache and bf16 operands on the card, not "
+                                 f"with {what}")
 
     def _check_mesh(self, ctx: MeshContext) -> None:
         """The mesh's model axis is ``mesh.model_axis`` and its data axis
@@ -534,8 +552,9 @@ class Trainer:
         not read)."""
         if self.dlrm:
             return self.state_from_params(dlrm.init(seed, self.config.model, self.device), seed)
-        if self.hstu:
-            return self.state_from_params(hstu.init(seed, self.config.model, self.device), seed)
+        if self.seq_model is not None:
+            return self.state_from_params(self.seq_model.init(seed, self.config.model,
+                                                              self.device), seed)
         params = MultiTaskModel.init(torch.Generator().manual_seed(seed), self.config.model,
                                      n_users, n_items, "cpu",
                                      rows_multiple=self.ctx.n_model if self.rows else 1)
@@ -549,7 +568,7 @@ class Trainer:
         slots are made from them). Under dlrm_dcnv2 see :meth:`_dlrm_state`."""
         if self.dlrm:
             return self._dlrm_state(params, seed)
-        if self.hstu:
+        if self.seq_model is not None:
             params = _map_leaves(params, lambda t: t.detach().to(self.device, torch.float32)
                                  .clone().requires_grad_(True))
             return TrainState(params, self.optimizer.init(params), 0, seed + 1, None)
@@ -643,8 +662,8 @@ class Trainer:
     def _metric_keys(self) -> Tuple[str, ...]:
         if self.dlrm:
             return DLRM_METRIC_KEYS
-        if self.hstu:
-            return HSTU_METRIC_KEYS
+        if self.seq_model is not None:
+            return self.seq_model.STEP_METRICS
         return METRIC_KEYS + (("lookup_overflow",) if self._a2a() else ())
 
     def _is_writer(self) -> bool:
@@ -713,8 +732,8 @@ class Trainer:
         package. ``batch`` holds tensors on the device; metrics stay there."""
         if self.dlrm:
             return self._step_core_dlrm()
-        if self.hstu:
-            return self._step_core_hstu()
+        if self.seq_model is not None:
+            return self._step_core_seq()
         self._check_cache_config(self.config.train.batch_size)
         if not use_explicit_negs and self._resolve_sparse_updates():
             return self._step_core_sparse(class_weights)
@@ -884,35 +903,46 @@ class Trainer:
 
         return step_fn
 
-    def _step_core_hstu(self) -> Callable:
-        """The HSTU step over a jagged batch {"items", "timestamps",
-        "lengths"} (and, from the epoch function, its "layout"): the
+    def _step_core_seq(self) -> Callable:
+        """The sequential recommenders' step (``self.seq_model``: hstu or
+        mla_moe) over a jagged batch {"items", "lengths"} (hstu's with its
+        "timestamps"; from the epoch function, with its "layout"): the
         step's draws, the forward (``train.forward``) and autograd over
-        every leaf (``train.backward``), then Adam (``train.update``). The
-        metrics gain the events and the causal pairs of the step."""
-        cfg = self.config
+        every leaf (``train.backward``) of the loss (plus mla_moe's balance
+        loss, which its forward puts in ``stats``), then Adam
+        (``train.update``). The metrics gain the events and the causal pairs
+        of the step and the model's own (``step_metrics``), on the device.
+        With ``record_steps`` a list, the step appends its batch, its draws
+        and (mla_moe) each MoE layer's expert choices."""
+        cfg, model = self.config, self.seq_model
 
         def step_fn(state: TrainState, batch: Dict[str, Any]):
             with span("train.step"):
                 layout = batch.get("layout")
                 if layout is None:
                     layout = ha.make_layout(batch["lengths"], self.device)
-                draws = hstu.draw(self._generator(state), layout, cfg.model)
-                if self.record_steps is not None:
-                    self.record_steps.append({"items": batch["items"],
-                                              "timestamps": batch["timestamps"],
-                                              "lengths": batch["lengths"], "draws": draws})
+                draws = model.draw(self._generator(state), layout, cfg.model)
                 paths, leaves = zip(*leaves_with_paths(state.params))
+                stats: Dict[str, Any] = {}
 
                 def forward_backward():
+                    stats.clear()
                     with span("train.forward"):
-                        loss = hstu.loss(state.params, cfg.model, batch["items"],
-                                         batch["timestamps"], layout, draws)
+                        loss = model.loss(state.params, cfg.model, batch["items"],
+                                          batch.get("timestamps"), layout, draws, stats)
+                        if "balance" in stats:
+                            loss = loss + stats["balance"]
                     with span("train.backward"):
                         grads = torch.autograd.grad(loss, leaves)
                     return {"loss": loss}, dict(zip(paths, grads))
 
                 metrics, grads = self._checked(state, forward_backward)
+                if self.record_steps is not None:
+                    step = {k: batch[k] for k in ("items", "timestamps", "lengths") if k in batch}
+                    step["draws"] = draws
+                    if "experts" in stats:
+                        step["experts"] = dict(stats["experts"])
+                    self.record_steps.append(step)
                 with span("train.update"):
                     self.optimizer.update(_tree_from_paths(grads), state.opt_state,
                                           state.params, state.step)
@@ -920,15 +950,16 @@ class Trainer:
                 self.step_counts["dense"] += 1
                 metrics = {"loss": metrics["loss"].detach(),
                            "events": torch.full((), float(layout.events), device=self.device),
-                           "attn_pairs": torch.full((), float(layout.pairs),
-                                                    device=self.device)}
+                           "attn_pairs": torch.full((), float(layout.pairs), device=self.device),
+                           **model.step_metrics(stats, self.device)}
                 return state._replace(step=state.step + 1), metrics
 
         return step_fn
 
     def _hstu_epoch(self, n_rows: int, n_steps: int) -> Callable:
-        """``make_train_epoch`` for hstu: ``data`` holds the split's jagged
-        columns ``items`` and ``timestamps`` on the device and ``lengths``
+        """``make_train_epoch`` for hstu and mla_moe: ``data`` holds the
+        split's jagged columns ``items`` (and, for hstu, ``timestamps``) on
+        the device and ``lengths``
         [n_rows] int64 on the host; the epoch's order of histories is a
         permutation drawn on the host from (seed ^ 0x5EED, epoch), so each
         batch's layout needs no host sync, and each batch is gathered on
@@ -952,8 +983,8 @@ class Trainer:
                 lens = lengths[ids]
                 layout = ha.make_layout(lens, self.device)
                 src = ha.on_device(starts[ids], self.device)[layout.seq] + layout.positions
-                batch = {"items": data["items"][src], "timestamps": data["timestamps"][src],
-                         "lengths": lens, "layout": layout}
+                batch = {k: v[src] for k, v in data.items() if k != "lengths"}
+                batch.update(lengths=lens, layout=layout)
                 state, metrics = step_fn(state, batch)
                 for k in keys:
                     sums[k] += metrics[k]
@@ -1161,7 +1192,7 @@ class Trainer:
         column is gathered, ``neg_ids`` [N, K] too. Under a mesh every rank
         holds the whole split and draws the same permutation, and takes its
         slice of each global batch."""
-        if self.hstu:
+        if self.seq_model is not None:
             return self._hstu_epoch(n_rows, n_steps)
         b = self.config.train.batch_size
         step_fn = self._step_core(class_weights, use_explicit_negs)
@@ -1376,7 +1407,7 @@ class Trainer:
     def train(self, bundle: Dict[str, np.ndarray]) -> Dict[str, float]:
         if self.dlrm:
             return self._train_dlrm(bundle)
-        if self.hstu:
+        if self.seq_model is not None:
             return self._train_hstu(bundle)
         cfg = self.config
         t_cfg = cfg.train
@@ -1758,9 +1789,10 @@ class Trainer:
         return report
 
     def _train_hstu(self, bundle: Dict[str, np.ndarray]) -> Dict[str, float]:
-        """``train`` for hstu: a bundle of ``train/`` and ``val/`` columns
-        ``items`` [events] int32 (ids 1..hstu_items), ``timestamps``
-        [events] int64 (ascending within a history) and ``lengths``
+        """``train`` for hstu and mla_moe: a bundle of ``train/`` and
+        ``val/`` columns ``items`` [events] int32 (ids 1..hstu_items),
+        ``timestamps`` [events] int64 (ascending within a history; hstu
+        only) and ``lengths``
         [histories] (each at most ``hstu_max_len``); the splits' events on
         the device; a checkpoint, the train metrics and the validation loss
         (no dropout, negatives from a generator seeded by ``train.seed``)
@@ -1775,18 +1807,21 @@ class Trainer:
         b = t_cfg.batch_size
 
         def split(name):
-            return {"items": torch.as_tensor(np.ascontiguousarray(
-                        bundle[f"{name}/items"], dtype=np.int32)).to(dev),
-                    "timestamps": torch.as_tensor(np.ascontiguousarray(
-                        bundle[f"{name}/timestamps"], dtype=np.int64)).to(dev),
-                    "lengths": torch.as_tensor(np.asarray(bundle[f"{name}/lengths"],
-                                                          dtype=np.int64))}
+            out = {"items": torch.as_tensor(np.ascontiguousarray(
+                       bundle[f"{name}/items"], dtype=np.int32)).to(dev),
+                   "lengths": torch.as_tensor(np.asarray(bundle[f"{name}/lengths"],
+                                                         dtype=np.int64))}
+            if self.hstu:
+                out["timestamps"] = torch.as_tensor(np.ascontiguousarray(
+                    bundle[f"{name}/timestamps"], dtype=np.int64)).to(dev)
+            return out
 
         train_data, val_data = split("train"), split("val")
         n_rows = train_data["lengths"].shape[0]
         steps = n_rows // b
         if steps == 0:
-            raise ValueError(f"hstu: {n_rows} train histories, fewer than a batch of {b}")
+            raise ValueError(f"{cfg.model.arch}: {n_rows} train histories, fewer than a batch "
+                             f"of {b}")
         train_epoch = self.make_train_epoch(None, n_rows, steps)
         state = self.init_state(0, 0, t_cfg.seed)
         start_epoch = 0
@@ -1795,8 +1830,8 @@ class Trainer:
             if restored is not None:
                 state = self._load_state(state, restored[1])
                 start_epoch = state.step // steps
-        logger.info("hstu: %d blocks, %d items, %d train histories, %d steps/epoch on %s",
-                    cfg.model.hstu_blocks, cfg.model.hstu_items, n_rows, steps, dev)
+        logger.info("%s: %d items, %d train histories, %d steps/epoch on %s",
+                    cfg.model.arch, cfg.model.hstu_items, n_rows, steps, dev)
         best_val, best_host, patience, examples = float("inf"), None, 0, 0
         profiler = self._start_profile() if t_cfg.profile else None
         t0 = time.time()
@@ -1859,9 +1894,10 @@ class Trainer:
             if m == 0:
                 continue
             src = starts[lo:lo + b].to(self.device)[layout.seq] + layout.positions
-            draws = hstu.draw(gen, layout, cfg.model, train=False)
-            total += hstu.loss(params, cfg.model, data["items"][src], data["timestamps"][src],
-                               layout, draws) * m
+            draws = self.seq_model.draw(gen, layout, cfg.model, train=False)
+            ts = data["timestamps"][src] if "timestamps" in data else None
+            total += self.seq_model.loss(params, cfg.model, data["items"][src], ts, layout,
+                                         draws) * m
             weight += m
         return float(total) / max(weight, 1)
 

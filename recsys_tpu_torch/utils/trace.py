@@ -29,13 +29,24 @@ caller's ``train.backward``:
   around the low-rank cross layers' forward, and ``embed.bag_bwd`` around
   the bags' backward with the rows' combine and row-wise Adagrad (inside
   ``train.update``, beside the dense leaves' Adagrad);
-* HSTU's step (``Trainer._step_core_hstu``): ``hstu.attn`` around each
+* HSTU's step (``Trainer._step_core_seq``): ``hstu.attn`` around each
   block's attention forward (kernel row 11 and its operands' bf16 copy,
   inside ``train.forward``), ``loss.sampled`` around the sampled
   softmax's forward (row 13's logits and the sort of its entries), and
   ``hstu.attn_bwd`` around each block's attention backward (row 12, on
   the autograd thread inside ``train.backward``). The step's metrics
   count its events and causal pairs on the device.
+* MLA-MoE's step (``Trainer._step_core_seq``): ``mla.attn`` around
+  each layer's attention forward (RoPE, the operands' assembly and kernel
+  row 14, inside ``train.forward``), ``moe.route`` around each MoE layer's
+  router, top-k, sort, offsets and balance loss, ``moe.experts`` around
+  the routed experts' forward (the dispatch's gather, row 16's products,
+  SwiGLU and the combine), ``loss.sampled`` as HSTU's, and on the
+  autograd thread ``mla.attn_bwd`` (row 15) and ``moe.experts_bwd`` (the
+  recomputed forward, row 16's four backward products, the transposes and
+  the combine's backward). The step's metrics count on the device its
+  events, causal pairs, the (token, expert) pairs on this card's experts
+  summed over the MoE layers and the busiest held expert's tokens.
 
 A span records nothing unless a profiler is running, and changes no
 result. Names are fixed strings: no shape is formatted into them.
